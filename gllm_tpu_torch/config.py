@@ -109,6 +109,10 @@ class EngineConfig:
         c = self.cache
         if c.kv_cache_dtype in ("int8", "fp8"):
             unported.append(f"kv_cache_dtype={c.kv_cache_dtype!r}")
+        elif c.kv_cache_dtype not in ("auto", self.dtype):
+            # the attention kernels take q and the caches in one dtype
+            unported.append(f"kv_cache_dtype={c.kv_cache_dtype!r} with "
+                            f"dtype={self.dtype!r}")
         if c.kv_host_pool_gb or c.kv_disk_path or c.prefix_peers:
             unported.append("kvswap/kvstore tiers")
         if unported:

@@ -84,9 +84,11 @@ class LLM:
                 and getattr(tokenizer, "eos_token_id", None) is not None:
             self.eos_token_ids = frozenset([tokenizer.eos_token_id])
         self._next_seq_id = 0
-        # steps by kind: "mixed" carries a prefill chunk, "decode" is pure
-        # decode (the two attention kernels' dispatch split)
-        self.step_counts = {"mixed": 0, "decode": 0}
+
+    @property
+    def step_counts(self) -> dict:
+        """Steps by kind, counted where the attention kernel is picked."""
+        return self.runner.step_counts
 
     # ---- intake -----------------------------------------------------------
 
@@ -116,8 +118,6 @@ class LLM:
         batch = self.scheduler.schedule_once()
         if batch is None:
             return []
-        kind = "decode" if batch.num_decode == batch.num_seqs else "mixed"
-        self.step_counts[kind] += 1
         tokens = self.runner.step(batch)
         return self.scheduler.process_output(batch, tokens.tolist(),
                                              self.eos_token_ids)

@@ -57,6 +57,9 @@ class ModelRunner:
         self.staging = HostStaging(self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
+        # steps by the attention kernel they dispatch to: "decode" when
+        # max_q_len == 1, else "mixed" (a prefill chunk or a mix)
+        self.step_counts = {"mixed": 0, "decode": 0}
         self.num_pages = (config.cache.num_pages
                           or self.determine_num_pages())
         self.kv = dense.init_kv_cache(model_cfg, self.num_pages,
@@ -104,6 +107,7 @@ class ModelRunner:
     def step(self, sched_batch: ScheduledBatch) -> np.ndarray:
         """Run one step; returns the sampled token of each batch item."""
         host_batch, max_q = self.builder.build(sched_batch)
+        self.step_counts["decode" if max_q == 1 else "mixed"] += 1
         batch = self.staging.upload(host_batch)
         logits = self.forward_logits(batch, max_q)
         all_greedy = all(it.seq.sampling_params.temperature == 0.0

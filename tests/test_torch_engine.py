@@ -167,6 +167,20 @@ def test_abort_frees_pages():
     assert mm.num_free_pages == mm.allocator.num_total
 
 
+def test_step_kind_follows_the_kernel_dispatch():
+    # one-token prompts make prefill steps with max_q_len == 1: they
+    # dispatch to the decode kernel, so they count as decode steps
+    llm = _port_llm(jax.tree.map(np.asarray, _jax_params()), MODEL, 64, 16)
+    llm.generate(prompt_token_ids=[[5], [7]],
+                 sampling_params=gt.SamplingParams(max_tokens=3,
+                                                   ignore_eos=True))
+    assert llm.step_counts == {"mixed": 0, "decode": 3}
+    llm.generate(prompt_token_ids=[[5, 6]],
+                 sampling_params=gt.SamplingParams(max_tokens=2,
+                                                   ignore_eos=True))
+    assert llm.step_counts == {"mixed": 1, "decode": 4}
+
+
 def test_no_device_means_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = gt.EngineConfig(load_format="dummy")
@@ -181,7 +195,7 @@ def test_no_device_means_the_card(monkeypatch):
     ("overlap_scheduling", True), ("pipelined_loop", True),
     ("unified_step", True), ("spec_decode", "ngram"),
     ("quantization", "int8"), ("kv_cache_dtype", "int8"),
-    ("kv_cache_dtype", "fp8"), ("tp", 2), ("pp", 2), ("dp", 2), ("sp", 2),
+    ("kv_cache_dtype", "fp8"), ("kv_cache_dtype", "float32"), ("tp", 2), ("pp", 2), ("dp", 2), ("sp", 2),
     ("kv_host_pool_gb", 1.0), ("kv_disk_path", "/x")])
 def test_validate_refuses_unported_options(field, value):
     cfg = gt.EngineConfig()
