@@ -11,15 +11,22 @@ no result line:
              build/gllm_tpu_torch/ (ptxas register and shared-memory lines)
 3. kernels   each kernel against its plain PyTorch version at the serving
              path's shapes (Llama-3.2-1B attention: Hq 32, Hkv 8, D 64,
-             page 16, bf16), with the device time (profiler) of the
-             kernel, the plain version and one PyTorch library call, the
-             kernel wrapper's CUDA-event time, and the card's bound
+             page 16, bf16 q; a bf16 or an int8 cache), with the device time
+             (profiler) of the kernel, the plain version and one PyTorch
+             library call, the kernel wrapper's CUDA-event time, and the
+             card's bound: ragged (K1), decode (K2), their int8 modes (K1q,
+             K2q) and the unified kernel (K1u) over both caches
 4. serve     LLM.generate at the full Llama-3.2-1B width (dummy bf16
-             weights from a seed) for 16 greedy requests, three times;
-             both kernels must have launched and no plain attention run
+             weights from a seed) for 16 greedy requests, in four
+             configurations: the bf16 sync loop (once), then an int8 KV
+             cache, the unified step, and the unified step over an int8
+             cache (three runs each); each must launch exactly its kernels
+             and no plain attention; a profiled window of the first and
+             the last
 5. reference depth cut to 2 layers, float32: the port on the card
              (kernels) against the port on the CPU (plain versions) —
-             first-step logits and greedy tokens
+             first-step logits and greedy tokens — with a bf16-width
+             float32 cache, an int8 cache, and the unified step
 6. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
@@ -27,6 +34,7 @@ It imports nothing of jax or the JAX package.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,11 +48,49 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 # bf16 outputs, kernel vs plain, as allclose(rtol, atol), per kernel. Both
 # sum in f32 and round the output to bf16 (one step is 2e-3 at |out| in
-# [0.25, 0.5)). The ragged kernel also feeds the tensor cores bf16
-# probabilities, and its first rows of a fresh chunk see a few keys only,
-# so |out| reaches 2..4, where one bf16 step is 0.0156: hence its rtol.
-TOL = {"paged_decode_attention": (1e-2, 2e-3),
-       "ragged_paged_attention": (2e-2, 3e-3)}
+# [0.25, 0.5)). The kernels with tensor-core blocks (ragged, and the
+# unified kernel's ragged blocks) also feed the tensor cores bf16
+# probabilities (times the value scales over an int8 cache), and the
+# first rows of a fresh chunk see a few keys only, so |out| reaches 2..4,
+# where one bf16 step is 0.0156: hence their rtol. The decode kernels and
+# the unified kernel on a pure-decode batch stay in float32 throughout.
+DECODE_TOL = (1e-2, 2e-3)
+RAGGED_TOL = (2e-2, 3e-3)
+TOL = {"paged_decode_attention": DECODE_TOL,
+       "paged_decode_attention_int8": DECODE_TOL,
+       "ragged_paged_attention": RAGGED_TOL,
+       "ragged_paged_attention_int8": RAGGED_TOL,
+       "ragged_paged_attention_unified_decode": DECODE_TOL,
+       "ragged_paged_attention_unified": RAGGED_TOL,
+       "ragged_paged_attention_unified_int8": RAGGED_TOL}
+# kernels-line entry → (launch counter, serve configuration it runs in,
+# source, the TPU kernel it replaces)
+PALLAS = "gllm_tpu/ops/pallas/"
+KERNELS = {
+    "ragged_paged_attention": (
+        "ragged_paged_attention", "bf16", "ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429"),
+    "paged_decode_attention": (
+        "paged_decode_attention", "bf16", "decode_attention.cu",
+        PALLAS + "decode_attention.py:188"),
+    "ragged_paged_attention_int8": (
+        "ragged_paged_attention_int8", "int8", "ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429 (k_scale/v_scale; dequant "
+        "paged_kv.py:107)"),
+    "paged_decode_attention_int8": (
+        "paged_decode_attention_int8", "int8", "decode_attention.cu",
+        PALLAS + "decode_attention.py:188 (k_scale/v_scale)"),
+    "ragged_paged_attention_unified_decode": (
+        "ragged_paged_attention_unified", "unified", "unified_attention.cu",
+        PALLAS + "ragged_attention.py:429 (unified=True)"),
+    "ragged_paged_attention_unified": (
+        "ragged_paged_attention_unified", "unified", "unified_attention.cu",
+        PALLAS + "ragged_attention.py:429 (unified=True)"),
+    "ragged_paged_attention_unified_int8": (
+        "ragged_paged_attention_unified_int8", "unified_int8",
+        "unified_attention.cu",
+        PALLAS + "ragged_attention.py:429 (unified=True, k_scale/v_scale)"),
+}
 
 
 def log(*args):
@@ -56,10 +102,10 @@ def run(cmd):
                           check=True).stdout.strip()
 
 
-def device_ms(fn, iters, warmup=2):
-    """Device time per call of ``fn``: the summed time of every kernel it
-    launches, as torch.profiler (CUPTI) reads it, so neither the host's
-    issue time nor the gaps between calls count."""
+def device_split(fn, iters, warmup=2):
+    """Device time per call of ``fn`` by kernel, in ms, as torch.profiler
+    (CUPTI) reads it, so neither the host's issue time nor the gaps
+    between calls count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -70,11 +116,21 @@ def device_ms(fn, iters, warmup=2):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = e.key.split("(")[0].removeprefix("void ")
+            split[name] = split.get(name, 0.0) + (
+                e.self_device_time_total / iters / 1e3)
+    if sum(split.values()) <= 0:
         raise SystemExit("[kernels] the profiler saw no device time")
-    return us / iters / 1e3
+    return split
+
+
+def device_ms(fn, iters, warmup=2):
+    """Device time per call of ``fn``: the summed time of every kernel it
+    launches."""
+    return sum(device_split(fn, iters, warmup).values())
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -122,10 +178,32 @@ def phase_build():
     build.build()
     log(f"[build] {time.monotonic() - t0:.1f} s wall (nvcc "
         f"{build.build_seconds:.1f} s, parallel, one per source)")
+    # ptxas -v per kernel instance: registers, and the spills, if any
+    # (the whole output is in the .log beside each library)
     for name, text in build.build_log.items():
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
+        spills, fn = [], "?"
         for line in text.splitlines():
-            if any(w in line for w in ("Compiling entry", "Used", "spill")):
-                log(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1).rstrip(":")
+            elif re.search(r"[1-9]\d* bytes spill", line):
+                spills.append((demangle(fn), line.strip()))
+        log(f"[build] {name}: {len(regs)} kernels, {min(regs, default=0)}.."
+            f"{max(regs, default=0)} registers, {len(spills)} with spills")
+        for fn, line in spills:
+            log(f"[build] {name}:   {fn[:110]}: {line}")
+
+
+def demangle(symbol):
+    """A kernel's C++ name from its symbol, with the CUDA toolkit's
+    cu++filt beside nvcc (the symbol itself when there is none)."""
+    from pathlib import Path
+    from gllm_tpu_torch.ops.cuda import build
+    tool = Path(build.nvcc_path()).with_name("cu++filt")
+    if not tool.exists():
+        return symbol
+    return run([str(tool), symbol]).removeprefix("void ")
 
 
 # ---- 3. kernels ----------------------------------------------------------
@@ -145,6 +223,23 @@ def _paged(rng, kv_lens, Hkv, D, page, dtype, dev):
     kc = torch.randn((P, page, Hkv, D), generator=gen, device=dev).to(dtype)
     vc = torch.randn((P, page, Hkv, D), generator=gen, device=dev).to(dtype)
     return kc, vc, torch.from_numpy(pt).to(dev)
+
+
+def _randn(shape, dev):
+    """A bf16 tensor of standard normal values drawn from the seed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+
+def _quantize(cache):
+    """An int8 cache and its per-page, per-kv-head scales from a
+    full-precision one (the write path's absmax grid), and the
+    dequantized bf16 cache the library call reads."""
+    x = cache.float()
+    scale = (x.abs().amax(dim=(1, 3)) / 127.0).clamp(min=1e-30)
+    q8 = torch.round(x / scale[:, None, :, None]).clamp(-127, 127).to(
+        torch.int8)
+    return q8, scale, (q8.float() * scale[:, None, :, None]).to(cache.dtype)
 
 
 def _dense_kv(kc, vc, pt, kv_lens, page):
@@ -175,125 +270,216 @@ def check(name, out, want, dropped):
         drop_max_abs=(d - w).abs().max().item())
 
 
-def timings(kernel, plain, library, iters):
-    """Device time per call (profiler) of the kernel, the plain version
-    and the library call; and the kernel's CUDA-event time per call when
-    its wrapper is called back to back (host issue included)."""
-    return dict(ms=device_ms(kernel, iters), plain_ms=device_ms(plain, 3),
-                library_ms=device_ms(library, 5),
-                wrapper_ms=cuda_ms(kernel, iters))
+def measure(name, kernel, plain, plain_dropped, library, iters, nbytes,
+            flops, **info):
+    """Check a kernel against its plain version, then time it: device time
+    per call (profiler) of the kernel, the plain version and the library
+    call; and the kernel's CUDA-event time per call when its wrapper is
+    called back to back (host issue included)."""
+    out = kernel()
+    torch.cuda.synchronize()
+    r = check(name, out, plain(), plain_dropped())
+    b_ms, b_by = bound(nbytes, flops)
+    split = device_split(kernel, iters)
+    r.update(ms=sum(split.values()), split=split,
+             plain_ms=device_ms(plain, 3),
+             library_ms=device_ms(library, 5),
+             wrapper_ms=cuda_ms(kernel, iters), bytes=nbytes, flops=flops,
+             bound_ms=b_ms, bound_by=b_by, **info)
+    return r
 
 
-def phase_kernels():
-    from gllm_tpu_torch.ops.cuda import decode_attention as dec
-    from gllm_tpu_torch.ops.cuda import ragged_attention as rag
-    import torch.nn.functional as F
-
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
-    Hq, Hkv, D, page, dt = 32, 8, 64, 16, torch.bfloat16
-    scale = D ** -0.5
-    results = {}
-
-    # decode: S=32 rows, contexts 256..2048
+def decode_shape(rng, dev):
+    """The decode step of the serving path: S 32 rows, contexts 256..2048,
+    a bf16 cache and its int8 form."""
+    Hkv, D, page = 8, 64, 16
     S = 32
     kv = rng.integers(256, 2049, S)
-    kc, vc, pt = _paged(rng, kv, Hkv, D, page, dt, dev)
-    q = torch.randn((S, Hq, D), device=dev).to(dt)
+    kc, vc, pt = _paged(rng, kv, Hkv, D, page, torch.bfloat16, dev)
+    q = _randn((S, 32, D), dev)
     kvl = torch.from_numpy(kv.astype(np.int32)).to(dev)
-    out = dec.paged_decode_attention(q, kc, vc, kvl, pt, scale=scale)
-    want = dec.paged_decode_attention_plain(q, kc, vc, kvl, pt, scale=scale)
-    dropped = dec.paged_decode_attention_plain(q, kc, vc, kvl - 1, pt,
-                                               scale=scale)
-    r = check("paged_decode_attention", out, want, dropped)
-    kd, vd = _dense_kv(kc, vc, pt, kv.tolist(), page)
-    mask = (torch.arange(kd.shape[2], device=dev)[None, :]
-            < kvl[:, None].long())[:, None, None, :]
-    qd = q[:, :, None, :]
-    r.update(timings(
-        lambda: dec.paged_decode_attention(q, kc, vc, kvl, pt, scale=scale),
-        lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl, pt,
-                                                 scale=scale),
-        lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True), 50))
-    ctx = int(kv.sum())
-    # K/V of every context row, q read and out written once, kv_lens and
-    # the pages' ids
-    nbytes = (ctx * Hkv * 2 * D * 2 + 2 * q.numel() * 2 + S * 4
-              + sum(-(-int(k) // page) for k in kv) * 4)
-    flops = 4 * Hq * D * ctx
-    b_ms, b_by = bound(nbytes, flops)
-    r.update(bytes=nbytes, flops=flops, bound_ms=b_ms, bound_by=b_by,
-             shapes=f"S={S} ctx {kv.min()}..{kv.max()} (sum {ctx}) Hq={Hq} "
-                    f"Hkv={Hkv} D={D} page={page} bf16",
-             library_call="scaled_dot_product_attention(enable_gqa) over "
-                          "K/V gathered dense per sequence")
-    results["paged_decode_attention"] = r
+    return dict(q=q, kc=kc, vc=vc, pt=pt, kvl=kvl, kv=kv.tolist(), page=page,
+                quant=_quantize(kc) + _quantize(vc))
 
-    # ragged: 24 decode rows + chunks (512 of a 2048 context, 300 of 812,
-    # a fresh 1024), padded to the runner's buckets (T 2048, S 32)
+
+def mixed_shape(rng, dev):
+    """A mixed step of the serving path: 24 decode rows + chunks (512 of a
+    2048 context, 300 of 812, a fresh 1024), padded to the runner's
+    buckets (T 2048, S 32)."""
+    Hkv, D, page = 8, 64, 16
     seqs = ([(1, int(k)) for k in rng.integers(256, 2049, 24)]
             + [(512, 2048), (300, 812), (1024, 1024)])
-    S_real, S_pad = len(seqs), 32
+    S_real, S_pad, T_pad = len(seqs), 32, 2048
     T_real = sum(ql for ql, _ in seqs)
-    T_pad = 2048
     kv = [k for _, k in seqs] + [0] * (S_pad - S_real)
-    kc, vc, pt = _paged(rng, kv[:S_real], Hkv, D, page, dt, dev)
+    kc, vc, pt = _paged(rng, kv[:S_real], Hkv, D, page, torch.bfloat16, dev)
     pt = torch.cat([pt, torch.zeros((S_pad - S_real, pt.shape[1]),
                                     dtype=pt.dtype, device=dev)])
     cu = np.zeros(S_pad + 1, np.int32)
     cu[1:S_real + 1] = np.cumsum([ql for ql, _ in seqs])
     cu[S_real + 1:] = T_real
-    cu_t = torch.from_numpy(cu).to(dev)
+    q = _randn((T_pad, 32, D), dev)
     kvl = torch.tensor(kv, dtype=torch.int32, device=dev)
-    q = torch.randn((T_pad, Hq, D), device=dev).to(dt)
-    args = (q, kc, vc, cu_t, kvl, pt)
-    out = rag.ragged_paged_attention(*args, scale=scale)
-    want = rag.ragged_paged_attention_plain(*args, scale=scale)
     # the one-token rows lose their last key (a chunk's rows would shift)
     kvl_drop = kvl - torch.tensor([int(ql == 1) for ql, _ in seqs]
                                   + [0] * (S_pad - S_real),
                                   dtype=torch.int32, device=dev)
-    dropped = rag.ragged_paged_attention_plain(q, kc, vc, cu_t, kvl_drop,
-                                               pt, scale=scale)
-    r = check("ragged_paged_attention", out, want, dropped)
+    return dict(q=q, kc=kc, vc=vc, pt=pt, kvl=kvl, kvl_drop=kvl_drop,
+                cu=torch.from_numpy(cu).to(dev), cu_np=cu, seqs=seqs,
+                kv=kv, page=page, T_real=T_real,
+                quant=_quantize(kc) + _quantize(vc))
+
+
+def _decode_library(x, kd, vd, scale):
+    """scaled_dot_product_attention of one query row per sequence over
+    dense K/V."""
+    import torch.nn.functional as F
+    mask = (torch.arange(kd.shape[2], device=kd.device)[None, :]
+            < x["kvl"][:, None].long())[:, None, None, :]
+    qd = x["q"][:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+def _mixed_library(x, kd, vd, scale):
+    """scaled_dot_product_attention of the mixed batch: q padded to
+    [S, Hq, max_q, D] with a causal bool mask, over dense K/V."""
+    import torch.nn.functional as F
+    seqs, cu, q = x["seqs"], x["cu_np"], x["q"]
+    dev = q.device
     qmax = max(ql for ql, _ in seqs)
-    kd, vd = _dense_kv(kc, vc, pt[:S_real], kv[:S_real], page)
-    qd = torch.zeros((S_real, Hq, qmax, D), device=dev, dtype=dt)
-    mask = torch.zeros((S_real, 1, qmax, kd.shape[2]), dtype=torch.bool,
+    qd = torch.zeros((len(seqs), q.shape[1], qmax, q.shape[2]), device=dev,
+                     dtype=q.dtype)
+    mask = torch.zeros((len(seqs), 1, qmax, kd.shape[2]), dtype=torch.bool,
                        device=dev)
     mask[..., 0] = True            # padded rows: one key, no NaN rows
-    visible = 0
     for i, (ql, k) in enumerate(seqs):
         qd[i, :, :ql] = q[cu[i]:cu[i] + ql].transpose(0, 1)
         pos = k - ql + torch.arange(ql, device=dev)
         mask[i, 0, :ql] = (torch.arange(kd.shape[2], device=dev)[None, :]
                            <= pos[:, None])
-        visible += sum(k - ql + t + 1 for t in range(ql))
-    r.update(timings(
-        lambda: rag.ragged_paged_attention(*args, scale=scale),
-        lambda: rag.ragged_paged_attention_plain(*args, scale=scale),
-        lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True), 20))
-    ctx = sum(kv)
-    # K/V of every context row, the T_real real q rows read, all T_pad out
-    # rows written (the padding rows get zeros), cu_q_lens, kv_lens and
-    # the pages' ids
-    row = Hq * D * 2
-    nbytes = (ctx * Hkv * 2 * D * 2 + T_real * row + T_pad * row
-              + (2 * S_pad + 1) * 4 + sum(-(-k // page) for k in kv) * 4)
-    flops = 4 * Hq * D * visible
-    b_ms, b_by = bound(nbytes, flops)
-    r.update(bytes=nbytes, flops=flops, bound_ms=b_ms, bound_by=b_by,
-             shapes=f"T={T_pad} ({T_real} real: 24 decode rows + chunks 512/"
-                    f"300/1024) S={S_pad} ({S_real} real) ctx<=2048 Hq={Hq} "
-                    f"Hkv={Hkv} D={D} page={page} bf16",
-             library_call="scaled_dot_product_attention(enable_gqa, bool "
-                          "mask) over q padded to [S, Hq, 1024, D] and K/V "
-                          "gathered dense per sequence")
-    results["ragged_paged_attention"] = r
+    return lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)
 
-    del kc, vc, kd, vd, qd, mask
+
+def _kv_bytes(kv_lens, page, Hkv, D, quant):
+    """Bytes of K and V the contexts need: each key row of each kv head
+    once (1 byte a value for int8, else 2), plus, for int8, the scale row
+    (one float32 per kv head, K and V) of every page read."""
+    ctx = sum(int(k) for k in kv_lens)
+    pages = sum(-(-int(k) // page) for k in kv_lens)
+    return ctx * Hkv * 2 * D * (1 if quant else 2) + (
+        pages * Hkv * 2 * 4 if quant else 0)
+
+
+def phase_kernels():
+    from gllm_tpu_torch.ops.cuda import decode_attention as dec
+    from gllm_tpu_torch.ops.cuda import ragged_attention as rag
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    Hq, Hkv, D = 32, 8, 64
+    scale = D ** -0.5
+    results = {}
+
+    # ---- decode shape: K2, K2q, and K1u on 32 one-token ragged rows
+    x = decode_shape(rng, dev)
+    q, kvl, pt, kv, page = x["q"], x["kvl"], x["pt"], x["kv"], x["page"]
+    S = len(kv)
+    k8, ks, kdq, v8, vs, vdq = x["quant"]
+    ctx = sum(kv)
+    # q read and out written once (bf16), kv_lens and the pages' ids
+    io = 2 * q.numel() * 2 + S * 4 + sum(-(-k // page) for k in kv) * 4
+    flops = 4 * Hq * D * ctx
+    shapes = (f"S={S} ctx {min(kv)}..{max(kv)} (sum {ctx}) Hq={Hq} "
+              f"Hkv={Hkv} D={D} page={page} bf16 q")
+    lib_call = ("scaled_dot_product_attention(enable_gqa) over K/V "
+                "gathered dense per sequence")
+    for name, quant in (("paged_decode_attention", False),
+                        ("paged_decode_attention_int8", True)):
+        kc, vc = (k8, v8) if quant else (x["kc"], x["vc"])
+        sc = dict(k_scale=ks, v_scale=vs) if quant else {}
+        kd, vd = _dense_kv(kdq if quant else kc, vdq if quant else vc, pt,
+                           kv, page)
+        results[name] = measure(
+            name,
+            lambda: dec.paged_decode_attention(q, kc, vc, kvl, pt,
+                                               scale=scale, **sc),
+            lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl, pt,
+                                                     scale=scale, **sc),
+            lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl - 1, pt,
+                                                     scale=scale, **sc),
+            _decode_library(x, kd, vd, scale), 50,
+            _kv_bytes(kv, page, Hkv, D, quant) + io, flops,
+            shapes=shapes + (", int8 cache" if quant else ", bf16 cache"),
+            library_call=lib_call + (" (dequantized to bf16)" if quant
+                                     else ""))
+    # the same rows as a ragged batch of 32 one-token sequences
+    cu = torch.arange(S + 1, dtype=torch.int32, device=dev)
+    kd, vd = _dense_kv(x["kc"], x["vc"], pt, kv, page)
+    results["ragged_paged_attention_unified_decode"] = measure(
+        "ragged_paged_attention_unified_decode",
+        lambda: rag.ragged_paged_attention(q, x["kc"], x["vc"], cu, kvl, pt,
+                                           scale=scale, unified=True),
+        lambda: rag.ragged_paged_attention_plain(q, x["kc"], x["vc"], cu,
+                                                 kvl, pt, scale=scale,
+                                                 unified=True),
+        lambda: rag.ragged_paged_attention_plain(q, x["kc"], x["vc"], cu,
+                                                 kvl - 1, pt, scale=scale,
+                                                 unified=True),
+        _decode_library(x, kd, vd, scale), 50,
+        _kv_bytes(kv, page, Hkv, D, False) + io + (S + 1) * 4, flops,
+        shapes=f"pure decode as a ragged batch of one-token rows, T={S}, "
+        + shapes + ", bf16 cache", library_call=lib_call)
+    del x, kd, vd, k8, v8, kdq, vdq
+
+    # ---- mixed shape: K1, K1q, K1u over both caches
+    x = mixed_shape(rng, dev)
+    q, cu, kvl, pt, kv, page = (x["q"], x["cu"], x["kvl"], x["pt"], x["kv"],
+                                x["page"])
+    seqs, T_real, T_pad = x["seqs"], x["T_real"], x["q"].shape[0]
+    S_real, S_pad = len(seqs), len(kv)
+    k8, ks, kdq, v8, vs, vdq = x["quant"]
+    visible = sum(k - ql + t + 1 for ql, k in seqs for t in range(ql))
+    flops = 4 * Hq * D * visible
+    # the T_real real q rows read, all T_pad out rows written (the padding
+    # rows get zeros), cu_q_lens, kv_lens and the pages' ids
+    row = Hq * D * 2
+    io = (T_real * row + T_pad * row + (2 * S_pad + 1) * 4
+          + sum(-(-k // page) for k in kv) * 4)
+    shapes = (f"T={T_pad} ({T_real} real: 24 decode rows + chunks 512/300/"
+              f"1024) S={S_pad} ({S_real} real) ctx<=2048 Hq={Hq} Hkv={Hkv} "
+              f"D={D} page={page} bf16 q")
+    lib_call = ("scaled_dot_product_attention(enable_gqa, bool mask) over q "
+                "padded to [S, Hq, 1024, D] and K/V gathered dense per "
+                "sequence")
+    for name, unified, quant in (
+            ("ragged_paged_attention", False, False),
+            ("ragged_paged_attention_int8", False, True),
+            ("ragged_paged_attention_unified", True, False),
+            ("ragged_paged_attention_unified_int8", True, True)):
+        kc, vc = (k8, v8) if quant else (x["kc"], x["vc"])
+        kw = dict(scale=scale, unified=unified)
+        if quant:
+            kw.update(k_scale=ks, v_scale=vs)
+        kd, vd = _dense_kv(kdq if quant else x["kc"],
+                           vdq if quant else x["vc"], pt[:S_real],
+                           kv[:S_real], page)
+        results[name] = measure(
+            name,
+            lambda: rag.ragged_paged_attention(q, kc, vc, cu, kvl, pt, **kw),
+            lambda: rag.ragged_paged_attention_plain(q, kc, vc, cu, kvl, pt,
+                                                     **kw),
+            lambda: rag.ragged_paged_attention_plain(
+                q, kc, vc, cu, x["kvl_drop"], pt, **kw),
+            _mixed_library(x, kd, vd, scale), 20,
+            _kv_bytes(kv, page, Hkv, D, quant) + io, flops,
+            shapes=shapes + (", int8 cache" if quant else ", bf16 cache"),
+            library_call=lib_call + (" (dequantized to bf16)" if quant
+                                     else ""))
+        del kd, vd
+    del x
+
     for name, r in results.items():
         rtol, atol = TOL[name]
         log(f"[kernels] {name}: {r['shapes']}")
@@ -306,6 +492,9 @@ def phase_kernels():
             f"back to back (CUDA events) {r['wrapper_ms']} ms; bound_ms="
             f"{r['bound_ms']} ({r['bound_by']}; {r['bytes']} bytes, "
             f"{r['flops']} flops)")
+        if len(r["split"]) > 1:
+            log(f"[kernels] {name}: device ms per call by launch: "
+                + ", ".join(f"{k} {v}" for k, v in r["split"].items()))
     bad = [n for n, r in results.items() if not r["ok"]]
     if bad:
         raise SystemExit(f"[kernels] kernel disagrees with its plain "
@@ -329,35 +518,58 @@ def llama_3_2_1b(**kw):
     return ModelConfig(**cfg)
 
 
-def reset_counters():
+def _wrappers():
     from gllm_tpu_torch.ops.cuda import decode_attention as dec
     from gllm_tpu_torch.ops.cuda import ragged_attention as rag
-    rag.ragged_paged_attention.launches = 0
-    dec.paged_decode_attention.launches = 0
-    rag.ragged_paged_attention_plain.calls = 0
-    dec.paged_decode_attention_plain.calls = 0
+    return ((rag.ragged_paged_attention, dec.paged_decode_attention),
+            (rag.ragged_paged_attention_plain,
+             dec.paged_decode_attention_plain))
+
+
+def reset_counters():
+    kernels, plains = _wrappers()
+    for fn in kernels:
+        for k in fn.launches:
+            fn.launches[k] = 0
+    for fn in plains:
+        fn.calls = 0
 
 
 def read_counters():
-    from gllm_tpu_torch.ops.cuda import decode_attention as dec
-    from gllm_tpu_torch.ops.cuda import ragged_attention as rag
-    return {"ragged_paged_attention": rag.ragged_paged_attention.launches,
-            "paged_decode_attention": dec.paged_decode_attention.launches,
-            "plain_calls": (rag.ragged_paged_attention_plain.calls
-                            + dec.paged_decode_attention_plain.calls)}
+    kernels, plains = _wrappers()
+    counts = {k: n for fn in kernels for k, n in fn.launches.items()}
+    counts["plain_calls"] = sum(fn.calls for fn in plains)
+    return counts
 
 
-def phase_serve():
-    from gllm_tpu_torch import EngineConfig, LLM, SamplingParams
+# serve configurations: (EngineConfig keywords, runs, kernels that must
+# launch, profiled)
+SERVE = {
+    "bf16": (dict(), 1, {"ragged_paged_attention", "paged_decode_attention"},
+             True),
+    "int8": (dict(kv_cache_dtype="int8"), 3,
+             {"ragged_paged_attention_int8", "paged_decode_attention_int8"},
+             False),
+    "unified": (dict(unified_step=True), 3,
+                {"ragged_paged_attention_unified"}, False),
+    "unified_int8": (dict(unified_step=True, kv_cache_dtype="int8"), 3,
+                     {"ragged_paged_attention_unified_int8"}, True),
+}
+
+
+def serve(name, kw, runs, must_launch, profiled):
+    from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, SamplingParams
+    kw = dict(kw)
+    cache = CacheConfig(kv_cache_dtype=kw.pop("kv_cache_dtype", "auto"))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     llm = LLM(model_cfg=llama_3_2_1b(),
               config=EngineConfig(load_format="dummy", dtype="bfloat16",
-                                  seed=SEED))
-    log(f"[serve] LLM up in {time.monotonic() - t0:.1f} s: "
-        f"{llm.runner.num_pages} KV pages of "
-        f"{llm.config.cache.page_size} tokens on {llm.device}")
+                                  seed=SEED, cache=cache, **kw))
+    log(f"[serve {name}] LLM up in {time.monotonic() - t0:.1f} s: "
+        f"{llm.runner.num_pages} KV pages of {llm.config.cache.page_size} "
+        f"tokens ({llm.runner.kv_dtype}) on {llm.device}")
     rng = np.random.default_rng(SEED)
     vocab = llm.model_cfg.vocab_size
     # warm-up request (CUDA context, cuBLAS handles); not counted
@@ -370,14 +582,14 @@ def phase_serve():
     prompts = [rng.integers(1, vocab, int(n)).tolist() for n in lens]
     params = [SamplingParams(temperature=0.0, max_tokens=int(m),
                              ignore_eos=True) for m in max_tokens]
-    log(f"[serve] 16 requests, prompts {lens.min()}..{lens.max()} "
+    log(f"[serve {name}] 16 requests, prompts {lens.min()}..{lens.max()} "
         f"(sum {lens.sum()}), max_tokens {max_tokens.min()}..."
-        f"{max_tokens.max()}, 3 runs (the host's pace varies from run to "
-        f"run)")
+        f"{max_tokens.max()}, {runs} run(s) (the host's pace varies from "
+        f"run to run)")
     steps0 = dict(llm.step_counts)
     reset_counters()
     rates = []
-    for rep in range(3):
+    for rep in range(runs):
         torch.cuda.synchronize()
         t0 = time.monotonic()
         outs = llm.generate(prompt_token_ids=prompts, sampling_params=params)
@@ -385,29 +597,47 @@ def phase_serve():
         wall = time.monotonic() - t0
         n_out = sum(o.num_output_tokens for o in outs)
         rates.append(n_out / wall)
-        log(f"[serve] run {rep}: {n_out} tokens in {wall:.3f} s = "
+        log(f"[serve {name}] run {rep}: {n_out} tokens in {wall:.3f} s = "
             f"{n_out / wall:.1f} output tok/s")
         assert [o.num_output_tokens for o in outs] == max_tokens.tolist(), \
-            "a request did not return exactly max_tokens tokens"
+            f"[serve {name}] a request did not return exactly max_tokens"
         assert all(o.finish_reason == "length" for o in outs)
         assert all(0 <= t < vocab for o in outs for t in o.output_token_ids)
     counts = read_counters()
     steps = {k: llm.step_counts[k] - steps0[k] for k in steps0}
-    log(f"[serve] median {sorted(rates)[1]:.1f} output tok/s; steps {steps};"
-        f" launches {counts}; max_memory_allocated "
+    launched = {k for k, n in counts.items() if k != "plain_calls" and n}
+    log(f"[serve {name}] median {sorted(rates)[len(rates) // 2]:.1f} output "
+        f"tok/s; steps {steps}; launches {counts}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    assert counts["ragged_paged_attention"] > 0, "ragged kernel never ran"
-    assert counts["paged_decode_attention"] > 0, "decode kernel never ran"
+    assert launched == must_launch, \
+        f"[serve {name}] launched {launched}, expected {must_launch}"
     assert counts["plain_calls"] == 0, "plain attention ran on the card"
     mm = llm.memory_manager
     assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
-    profile_window(llm, rng)
+    if profiled:
+        profile_window(llm, rng, name)
+    out = dict(counts=counts, rates=rates, pages=llm.runner.num_pages,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     del llm
     torch.cuda.empty_cache()
-    return counts
+    return out
 
 
-def profile_window(llm, rng):
+def phase_serve():
+    results = {}
+    for name, (kw, runs, must, profiled) in SERVE.items():
+        t0 = time.monotonic()
+        results[name] = serve(name, kw, runs, must, profiled)
+        log(f"[serve {name}] phase wall {time.monotonic() - t0:.1f} s")
+    ratio = results["int8"]["pages"] / results["bf16"]["pages"]
+    log(f"[serve] KV pages from the same memory_util: bf16 "
+        f"{results['bf16']['pages']}, int8 {results['int8']['pages']} "
+        f"({ratio:.3f}x)")
+    assert ratio >= 1.8, "int8 should give at least 1.8x the pages of bf16"
+    return results
+
+
+def profile_window(llm, rng, name):
     """Where a serving step's time goes: torch.profiler over a short
     window (8 requests of 512 prompt tokens, 24 greedy tokens each):
     device time by kernel, and the device's busy share of the wall."""
@@ -425,16 +655,17 @@ def profile_window(llm, rng):
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     steps = {k: llm.step_counts[k] - steps0[k] for k in steps0}
+    tag = f"[profile {name}]"
     # kernels only: a CPU op's device time repeats its kernels' times
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[profile] 8 x (512 prompt + 24 out) tokens, steps {steps}: wall "
+    log(f"{tag} 8 x (512 prompt + 24 out) tokens, steps {steps}: wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"({100 * busy / wall_us:.1f}% of wall); kernels by device time:")
     for dev_us, count, key in rows[:12]:
-        log(f"[profile]   {100 * dev_us / busy:5.1f}%  {dev_us / 1e3:8.3f} ms"
+        log(f"{tag}   {100 * dev_us / busy:5.1f}%  {dev_us / 1e3:8.3f} ms"
             f"  x{count:<5d} {key[:90]}")
     # the host side: kernels issued per step, and host time by operator
     # (self time, inflated by the profiler's own cost per op)
@@ -443,11 +674,11 @@ def profile_window(llm, rng):
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU), reverse=True)
     host_us = sum(r[0] for r in host)
-    log(f"[profile] {sum(r[1] for r in rows) / n_steps:.0f} kernels per "
+    log(f"{tag} {sum(r[1] for r in rows) / n_steps:.0f} kernels per "
         f"step; host self time {host_us / 1e3:.1f} ms "
         f"({100 * host_us / wall_us:.1f}% of wall), by operator:")
     for cpu_us, count, key in host[:10]:
-        log(f"[profile]   {100 * cpu_us / host_us:5.1f}%  {cpu_us / 1e3:8.3f}"
+        log(f"{tag}   {100 * cpu_us / host_us:5.1f}%  {cpu_us / 1e3:8.3f}"
             f" ms  x{count:<6d} {key[:60]}")
 
 
@@ -455,7 +686,8 @@ def profile_window(llm, rng):
 
 def phase_reference():
     """Depth-cut model at float32: the port on the card (CUDA kernels)
-    against the port on the CPU (plain versions), same weights."""
+    against the port on the CPU (plain versions), same weights, with a
+    float32 cache, an int8 cache, and the unified step."""
     from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, \
         SamplingParams, SchedulerConfig
     from gllm_tpu_torch.models import dense
@@ -468,68 +700,83 @@ def phase_reference():
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in (40, 75, 130)]
+    sp = SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True)
 
-    def engine(p, device):
+    def engine(p, device, kv_cache_dtype, unified):
         ec = EngineConfig(dtype="float32", seed=SEED, max_model_len=512,
+                          unified_step=unified,
                           scheduler=SchedulerConfig(max_prefill_tokens=64),
-                          cache=CacheConfig(num_pages=128))
+                          cache=CacheConfig(num_pages=128,
+                                            kv_cache_dtype=kv_cache_dtype))
         return LLM(model_cfg=cfg, config=ec, params=p, device=device)
 
-    sp = SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True)
-    logits, toks = [], []
-    for llm in (engine(params, "cuda"), engine(cpu_params, "cpu")):
-        seqs = [llm._allocate_seq(p, sp) for p in prompts]
-        for seq in seqs:
-            llm.add_seq(seq)
-        # first step by hand, to read its logits: greedy = argmax
-        batch = llm.scheduler.schedule_once()
-        host, max_q = llm.runner.builder.build(batch)
-        out = llm.runner.forward_logits(llm.runner.staging.upload(host),
-                                        max_q)[:batch.num_seqs]
-        logits.append(out.cpu())
-        llm.scheduler.process_output(batch, out.argmax(-1).tolist(),
-                                     llm.eos_token_ids)
-        while llm.has_unfinished:
-            llm.step()
-        toks.append([seq.output_token_ids for seq in seqs])
-    err = (logits[0] - logits[1]).abs().max().item()
-    scale = logits[1].abs().max().item()
-    log(f"[reference] 2-layer f32, first step (chunked prefill): logits "
-        f"max_abs_err {err} of max |logit| {scale}; greedy tokens "
-        f"identical: {toks[0] == toks[1]}")
-    assert err <= 1e-3 * max(scale, 1.0), "card and CPU logits disagree"
-    assert toks[0] == toks[1], "card and CPU greedy tokens differ"
-    assert all(len(t) == 8 for t in toks[0])
+    for label, kv_dtype, unified in (("float32 cache", "auto", False),
+                                     ("int8 cache", "int8", False),
+                                     ("unified step", "auto", True)):
+        logits, toks = [], []
+        reset_counters()
+        for llm in (engine(params, "cuda", kv_dtype, unified),
+                    engine(cpu_params, "cpu", kv_dtype, unified)):
+            seqs = [llm._allocate_seq(p, sp) for p in prompts]
+            for seq in seqs:
+                llm.add_seq(seq)
+            # first step by hand, to read its logits: greedy = argmax
+            batch = llm.scheduler.schedule_once()
+            dev_batch, max_q = llm.runner.prepare(batch)
+            out = llm.runner.forward_logits(dev_batch,
+                                            max_q)[:batch.num_seqs]
+            logits.append(out.cpu())
+            llm.scheduler.process_output(batch, out.argmax(-1).tolist(),
+                                         llm.eos_token_ids)
+            while llm.has_unfinished:
+                llm.step()
+            toks.append([seq.output_token_ids for seq in seqs])
+        err = (logits[0] - logits[1]).abs().max().item()
+        scale = logits[1].abs().max().item()
+        counts = read_counters()
+        log(f"[reference] 2-layer f32, {label}: first step (chunked "
+            f"prefill) logits max_abs_err {err} of max |logit| {scale}; "
+            f"greedy tokens identical: {toks[0] == toks[1]}; card launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        assert err <= 1e-3 * max(scale, 1.0), \
+            f"[reference] {label}: card and CPU logits disagree"
+        assert toks[0] == toks[1], \
+            f"[reference] {label}: card and CPU greedy tokens differ"
+        assert all(len(t) == 8 for t in toks[0])
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    t0 = time.monotonic()
+    t_start = time.monotonic()
     smi = phase_device()
-    phase_build()
-    kernels = phase_kernels()
-    counts = phase_serve()
-    phase_reference()
+    walls = {}
+    for name, phase in (("build", phase_build), ("kernels", phase_kernels),
+                        ("serve", phase_serve),
+                        ("reference", phase_reference)):
+        t0 = time.monotonic()
+        walls[name] = (phase(), time.monotonic() - t0)
+        log(f"[{name}] phase wall {walls[name][1]:.1f} s")
+    kernels, served = walls["kernels"][0], walls["serve"][0]
     line = []
-    for name, src, replaces in (
-            ("ragged_paged_attention", "ragged_attention.cu",
-             "gllm_tpu/ops/pallas/ragged_attention.py:429"),
-            ("paged_decode_attention", "decode_attention.cu",
-             "gllm_tpu/ops/pallas/decode_attention.py:188")):
+    for name, (counter, config, src, replaces) in KERNELS.items():
         r = kernels[name]
         line.append({
             "name": name, "route": "cuda",
             "source": f"gllm_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": counts[name], "max_abs_err": r["max_abs_err"],
-            "rtol": TOL[name][0], "atol": TOL[name][1], "ok": r["ok"],
-            "ms": r["ms"], "wrapper_ms": r["wrapper_ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "bytes": r["bytes"],
-            "flops": r["flops"], "library_ms": r["library_ms"],
+            "launches": served[config]["counts"][counter],
+            "launches_in": f"serve {config}",
+            "max_abs_err": r["max_abs_err"], "rtol": TOL[name][0],
+            "atol": TOL[name][1], "tol_used": r["tol_used"],
+            "drop_rejected": r["drop_rejected"], "ok": r["ok"],
+            "ms": r["ms"], "ms_by_launch": r["split"],
+            "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bytes": r["bytes"], "flops": r["flops"],
+            "library_ms": r["library_ms"],
             "library_call": r["library_call"], "shapes": r["shapes"]})
-    log(f"[done] {time.monotonic() - t0:.1f} s on {smi}")
+    log(f"[done] {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,3 +23,7 @@ class StepBatch(NamedTuple):
                                  # token buffer (padded rows repeat 0)
     attn: AttentionMetadata
     sampling: SamplingMetadata
+    # int8 KV cache: ids of the pages minted since the last step, whose
+    # scales the runner zeroes before this step writes (a list on the host,
+    # [n] int32 on the device; None when there are none)
+    scale_resets: object = None

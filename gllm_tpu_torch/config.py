@@ -37,7 +37,9 @@ class CacheConfig:
     page_size: int = 16
     memory_util: float = 0.9              # fraction of device memory for KV
     num_pages: Optional[int] = None       # explicit override (tests)
-    kv_cache_dtype: str = "auto"          # auto | bfloat16 | float16 | float32
+    # auto | bfloat16 | float16 | float32 | int8 (per-page, per-kv-head
+    # float32 scales; any model dtype)
+    kv_cache_dtype: str = "auto"
     enable_prefix_caching: bool = False
     # Host-RAM / disk / peer KV tiers: not ported (validate raises).
     kv_host_pool_gb: float = 0.0
@@ -62,7 +64,6 @@ class ParallelConfig:
 _UNPORTED = {
     "overlap_scheduling": False,
     "pipelined_loop": False,
-    "unified_step": False,
     "decode_slot_batching": False,
     "ondevice_finish": False,
     "multi_step_decode": 1,
@@ -84,6 +85,8 @@ class EngineConfig:
     load_format: str = "auto"             # auto | dummy
     overlap_scheduling: bool = False
     pipelined_loop: bool = False
+    # every paged step through the one unified attention kernel (K1u);
+    # sync loop only: overlap scheduling is not ported
     unified_step: bool = False
     decode_slot_batching: bool = False
     ondevice_finish: bool = False
@@ -106,11 +109,15 @@ class EngineConfig:
         p = self.parallel
         if p.pp != 1 or p.tp != 1 or p.dp != 1 or p.sp != 1 or p.enable_ep:
             unported.append("pp/tp/dp/sp > 1 (one device only)")
+        if self.unified_step and self.overlap_scheduling:
+            unported.append("unified_step with overlap_scheduling (the "
+                            "unified step runs the sync loop)")
         c = self.cache
-        if c.kv_cache_dtype in ("int8", "fp8"):
+        if c.kv_cache_dtype == "fp8":
             unported.append(f"kv_cache_dtype={c.kv_cache_dtype!r}")
-        elif c.kv_cache_dtype not in ("auto", self.dtype):
-            # the attention kernels take q and the caches in one dtype
+        elif c.kv_cache_dtype not in ("auto", "int8", self.dtype):
+            # the attention kernels take q and a full-precision cache in
+            # one dtype
             unported.append(f"kv_cache_dtype={c.kv_cache_dtype!r} with "
                             f"dtype={self.dtype!r}")
         if c.kv_host_pool_gb or c.kv_disk_path or c.prefix_peers:
@@ -122,7 +129,7 @@ class EngineConfig:
         if self.dtype not in ("bfloat16", "float16", "float32"):
             raise ValueError(f"unknown dtype {self.dtype!r}")
         if c.kv_cache_dtype not in ("auto", "bfloat16", "float16",
-                                    "float32"):
+                                    "float32", "int8"):
             raise ValueError(
                 f"unknown kv_cache_dtype {c.kv_cache_dtype!r}")
         if self.load_format not in ("auto", "dummy"):

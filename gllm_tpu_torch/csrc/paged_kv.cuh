@@ -6,6 +6,12 @@
 // else. A kernel gets ONE flat cache covering every layer ([L*P, page,
 // Hkv, D]); `page_offset` (= layer * P) is added to every page id it reads
 // from the page table, so the page table itself stays per-model.
+//
+// int8 caches (kv_cache_dtype="int8") carry one float32 scale per page and
+// kv head, [L*P, Hkv], addressed with the same page_offset; a stored value
+// x dequantizes to x * scale[page, h] (block_kv's rule). int8 -> float is
+// exact, so every kernel dequantizes with one float32 multiply, as the
+// plain versions do.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,16 +20,25 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+#include <utility>
+
 namespace gllm {
 
 // dtype codes shared with the Python wrappers (ops/cuda/build.py)
 enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
+
+template <typename TC>
+__host__ __device__ constexpr bool is_q8() {
+  return std::is_same<TC, int8_t>::value;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -40,6 +55,12 @@ __device__ __forceinline__ __half from_float<__half>(float x) {
   return __float2half(x);
 }
 
+// Page id (offset into the flat cache) holding key j of a sequence.
+__device__ __forceinline__ int64_t kv_page(const int* pt_row, int j,
+                                           int page_size, int page_offset) {
+  return (int64_t)pt_row[j / page_size] + page_offset;
+}
+
 // Element offset of (key j of a sequence, kv head h, dim 0) in the cache.
 // 64-bit: a whole-model cache holds more than 2^31 elements.
 __device__ __forceinline__ int64_t kv_row_offset(const int* pt_row, int j,
@@ -47,7 +68,7 @@ __device__ __forceinline__ int64_t kv_row_offset(const int* pt_row, int j,
                                                  int page_offset,
                                                  int num_kv_heads,
                                                  int head_dim, int h) {
-  const int64_t page = (int64_t)pt_row[j / page_size] + page_offset;
+  const int64_t page = kv_page(pt_row, j, page_size, page_offset);
   const int64_t slot = page * page_size + (j % page_size);
   return (slot * num_kv_heads + h) * head_dim;
 }
@@ -65,27 +86,37 @@ struct Chunk {
 };
 
 // Load keys [j0, j0 + rows) of one sequence and kv head `h` from the paged
-// cache into shared memory as float, row stride `ld`. Rows at or past
-// `n_valid` are zero-filled: the kernels never read a key at or beyond
-// kv_len, whatever the padded page table holds, and a zero row keeps a
-// masked (p = 0) key from multiplying garbage.
-template <typename T, int D>
+// cache into shared memory as float, row stride `ld`; an int8 cache is
+// dequantized with its page's scale (`scale` is unused, and may be null,
+// for a full-precision cache). Rows at or past `n_valid` are zero-filled:
+// the kernels never read a key (or its scale) at or beyond kv_len,
+// whatever the padded page table holds, and a zero row keeps a masked
+// (p = 0) key from multiplying garbage.
+template <typename TC, int D>
 __device__ __forceinline__ void load_kv_tile(float* dst, int ld,
-                                             const T* cache,
+                                             const TC* cache,
+                                             const float* scale,
                                              const int* pt_row, int j0,
                                              int rows, int n_valid,
                                              int page_size, int page_offset,
                                              int num_kv_heads, int h) {
-  constexpr int CH = Chunk<T>::N;
+  constexpr int CH = Chunk<TC>::N;
   constexpr int CPR = D / CH;  // 16-byte chunks per row
   for (int c = threadIdx.x; c < rows * CPR; c += blockDim.x) {
     const int r = c / CPR;
     const int col = (c % CPR) * CH;
     float* d = dst + r * ld + col;
     if (r < n_valid) {
-      const int64_t off = kv_row_offset(pt_row, j0 + r, page_size,
-                                        page_offset, num_kv_heads, D, h);
-      Chunk<T>::load(d, cache + off + col);
+      const int j = j0 + r;
+      const int64_t page = kv_page(pt_row, j, page_size, page_offset);
+      const int64_t off =
+          ((page * page_size + j % page_size) * num_kv_heads + h) * D;
+      Chunk<TC>::load(d, cache + off + col);
+      if constexpr (is_q8<TC>()) {
+        const float s = scale[page * num_kv_heads + h];
+#pragma unroll
+        for (int i = 0; i < CH; ++i) d[i] *= s;
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < CH; ++i) d[i] = 0.f;
@@ -107,5 +138,75 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+
+// ---- unified step (gllm_tpu/ops/pallas/ragged_attention.py unified=True) --
+//
+// The batch's decode prefix is the longest run of sequences 0, 1, ... with
+// exactly one query token each (cu_q_lens[s + 1] == s + 1), found on the
+// device from cu_q_lens alone as _decode_prefix_len does, so the wrapper
+// needs no host sync. Its rows run the decode-class (split-KV) path, every
+// other sequence the ragged path. Both helpers are called by a whole warp
+// and give every lane the same answer.
+
+__device__ __forceinline__ int decode_prefix_len(const int* cu_q_lens,
+                                                 int S) {
+  const int lane = threadIdx.x & 31;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + lane;
+    const bool stop = s < S && cu_q_lens[s + 1] != s + 1;
+    const unsigned m = __ballot_sync(0xffffffffu, stop);
+    if (m) return s0 + __ffs(m) - 1;
+  }
+  return S;
+}
+
+// Is sequence s inside the decode prefix (sequences 0..s all one-token)?
+__device__ __forceinline__ bool in_decode_prefix(const int* cu_q_lens,
+                                                 int s) {
+  const int lane = threadIdx.x & 31;
+  for (int s0 = 0; s0 <= s; s0 += 32) {
+    const int i = s0 + lane;
+    const bool bad = i <= s && cu_q_lens[i + 1] != i + 1;
+    if (__any_sync(0xffffffffu, bad)) return false;
+  }
+  return true;
+}
+
+// ---- host: run-time dtype / cache / head_dim -> template instance ---------
+//
+// f(T{}, TC{}, std::integral_constant<int, D>{}) for q and output type T,
+// cache element type TC (T, or int8_t when `quant`) and head dim D.
+
+template <typename T, typename TC, typename F>
+static int dispatch_dim(int head_dim, F& f) {
+  switch (head_dim) {
+    case 32:
+      return f(T{}, TC{}, std::integral_constant<int, 32>{});
+    case 64:
+      return f(T{}, TC{}, std::integral_constant<int, 64>{});
+    case 128:
+      return f(T{}, TC{}, std::integral_constant<int, 128>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, typename F>
+static int dispatch_cache(bool quant, int head_dim, F& f) {
+  return quant ? dispatch_dim<T, int8_t>(head_dim, f)
+               : dispatch_dim<T, T>(head_dim, f);
+}
+
+template <typename F>
+static int dispatch_types(int dtype, bool quant, int head_dim, F&& f) {
+  switch (dtype) {
+    case kFloat32:
+      return dispatch_cache<float>(quant, head_dim, f);
+    case kBFloat16:
+      return dispatch_cache<__nv_bfloat16>(quant, head_dim, f);
+    case kFloat16:
+      return dispatch_cache<__half>(quant, head_dim, f);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace gllm

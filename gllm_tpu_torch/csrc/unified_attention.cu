@@ -1,0 +1,83 @@
+// Unified-step paged attention for Hopper (sm_90a).
+//
+// Replaces gllm_tpu/ops/pallas/ragged_attention.py::ragged_paged_attention
+// with unified=True (K1u): ONE call serves every paged step of the unified
+// engine (decode, mixed and prefill batches), over a full-precision or an
+// int8 cache. Bound on the card: bytes for the decode rows, operations for
+// the prefill chunks (the two parts of a mixed step).
+//
+// As in the TPU kernel, blocks are specialised per row class, found on the
+// device from cu_q_lens alone (decode_prefix_len, the counterpart of
+// _decode_prefix_len), so the wrapper makes no host sync:
+// - the batch's decode prefix (the longest run of one-token sequences at
+//   its head, where token s is sequence s) runs the split-KV decode blocks
+//   of decode_attention.cuh: one block per (sequence, kv head, split), the
+//   G query heads of a kv head share every K/V row, no tensor-core rows are
+//   spent on masked tokens, and small batches still fill the SMs; a second
+//   pass merges the splits;
+// - every other sequence (prefill chunks, one-token rows after the first
+//   chunk, padding) runs the ragged blocks of ragged_attention.cuh, on the
+//   tensor cores for bf16 / fp16.
+// The two classes write disjoint output rows, so they need no ordering.
+// The TPU kernel rescales its online softmax AMLA's way (_online_update,
+// _rescale_add): the running max is rounded up to an integer in the log2
+// domain, so each rescale is an integer add on the exponent field instead
+// of a multiply. On the card a multiply costs no more, and the rounded-up
+// max costs accuracy: the tensor-core blocks round the probabilities to
+// bf16 / fp16, and under the classic running max each row's largest
+// probability is exactly 1, which rounds exactly, where AMLA's lies in
+// (0.5, 1] and does not. So both classes rescale the classic way, with
+// exp2f; they are held to the plain version, which keeps AMLA's math.
+// Rows in any order give the right result; only the speed depends on the
+// decode prefix.
+
+#include "decode_attention.cuh"
+#include "ragged_attention.cuh"
+
+// q [T, Hq, D], k/v cache [P, page, Hkv, D] in q's dtype, or int8 with
+// k_scale/v_scale [P, Hkv] float32 (both null for a full-precision cache),
+// cu_q_lens [S+1] i32, kv_lens [S] i32, page_table [S, max_pages] i32,
+// out [T, Hq, D]; all contiguous on one device. The decode blocks cover
+// `chunk` keys each (a multiple of 32), num_splits * chunk >= max_pages *
+// page, and `part` is float32 scratch of S * Hq * num_splits * (D + 2)
+// elements (may be null when num_splits == 1). Returns cudaGetLastError()
+// after the launches.
+extern "C" int gllm_unified_attention(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* k_scale, const void* v_scale, const void* cu_q_lens,
+    const void* kv_lens, const void* page_table, void* out, void* part,
+    int num_tokens, int S, int max_pages, int num_q_heads, int num_kv_heads,
+    int head_dim, int page_size, int page_offset, int chunk, int num_splits,
+    float scale, int dtype, void* stream) {
+  using namespace gllm;
+  const bool quant = k_scale != nullptr;
+  if (!ragged_args_ok(num_tokens, S, num_q_heads, num_kv_heads) ||
+      !decode_args_ok(S, num_q_heads, num_kv_heads, max_pages, page_size,
+                      chunk, num_splits, part) ||
+      quant != (v_scale != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* cu = static_cast<const int*>(cu_q_lens);
+  const int* kl = static_cast<const int*>(kv_lens);
+  const int* pt = static_cast<const int*>(page_table);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc = dispatch_types(
+      dtype, quant, head_dim, [&](auto t, auto tc, auto d) {
+        using T = decltype(t);
+        using TC = decltype(tc);
+        constexpr int D = decltype(d)::value;
+        const int r = launch_decode<T, TC, D, true>(
+            q, k_cache, v_cache, ks, vs, cu, kl, pt, out,
+            static_cast<float*>(part), S, max_pages, num_q_heads,
+            num_kv_heads, page_size, page_offset, chunk, num_splits, scale,
+            st);
+        if (r != 0) return r;
+        return launch_ragged<T, TC, D, true>(
+            q, k_cache, v_cache, ks, vs, cu, kl, pt, out, num_tokens, S,
+            max_pages, num_q_heads, num_kv_heads, page_size, page_offset,
+            scale, st);
+      });
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}

@@ -3,8 +3,11 @@
 ``_finalize:2059``, ``abort:2091``; ``RequestOutput:147``).
 
 The synchronous single-device loop: schedule a batch, run one step, commit
-its sampled tokens. Token ids in and out; a text prompt needs a tokenizer
-object (anything with ``encode``/``decode``) passed to the constructor.
+its sampled tokens. ``EngineConfig.unified_step`` runs every step through
+the unified attention kernel and ``CacheConfig(kv_cache_dtype="int8")``
+keeps an int8 KV cache; both stay on this sync loop. Token ids in and out;
+a text prompt needs a tokenizer object (anything with ``encode``/
+``decode``) passed to the constructor.
 
 The engine runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card it raises instead of falling back.
@@ -78,6 +81,11 @@ class LLM:
         self.memory_manager = make_memory_manager(
             self.runner.num_pages, config.cache.page_size,
             config.cache.enable_prefix_caching)
+        # int8 KV cache: minted pages queue a scale reset that the runner
+        # applies before the next step, so numerics never depend on page
+        # reuse
+        self.memory_manager.track_scale_resets = self.runner.kv_quant
+        self.runner.memory_manager = self.memory_manager
         self.scheduler = Scheduler(config, self.memory_manager)
         self.eos_token_ids = frozenset(model_cfg.eos_token_ids)
         if not self.eos_token_ids and tokenizer is not None \
@@ -87,7 +95,8 @@ class LLM:
 
     @property
     def step_counts(self) -> dict:
-        """Steps by kind, counted where the attention kernel is picked."""
+        """Steps by kind: "decode" when every row has one new token, else
+        "mixed". Which kernels ran is counted by the kernel wrappers."""
         return self.runner.step_counts
 
     # ---- intake -----------------------------------------------------------

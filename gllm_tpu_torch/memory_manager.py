@@ -57,6 +57,12 @@ class MemoryManager:
         # Page 0 reserved for padding writes.
         self.allocator = IDAllocator(num_pages - 1, start=1)
         self.ref_count: Dict[int, int] = {}
+        # int8 KV cache: every minted page queues a scale reset, which the
+        # runner applies on the device before the next step, so a recycled
+        # page quantizes exactly like a fresh one (its running absmax never
+        # carries over from the last tenant). Off, the list stays empty.
+        self.track_scale_resets = False
+        self.scale_resets: List[int] = []
 
     # ---- stats ------------------------------------------------------------
 
@@ -78,7 +84,14 @@ class MemoryManager:
         return self.num_free_pages >= num_pages
 
     def _mint_page(self) -> int:
-        return self.allocator.allocate()
+        page = self.allocator.allocate()
+        if self.track_scale_resets:
+            self.scale_resets.append(page)
+        return page
+
+    def drain_scale_resets(self) -> List[int]:
+        out, self.scale_resets = self.scale_resets, []
+        return out
 
     def allocate_seq_pages(self, seq: Sequence, num_new_tokens: int) -> None:
         """Extend ``seq.page_table`` to cover computed+num_new_tokens tokens.
@@ -124,7 +137,7 @@ class PrefixMemoryManager(MemoryManager):
     # A page in the free list may still carry cache metadata; minting it for
     # new content must drop the stale key.
     def _mint_page(self) -> int:
-        page = super()._mint_page()
+        page = super()._mint_page()   # keeps the int8 scale-reset queue
         meta = self.page_meta.pop(page, None)
         if meta is not None:
             digest, _ = meta

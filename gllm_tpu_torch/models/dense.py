@@ -15,7 +15,10 @@ KV cache is one stacked tensor per K and V, [L, P, page, Hkv, D], written in
 place; each layer addresses it through the flat [L*P, ...] view, with the
 layer offset added to the slot mapping (``li * P * page``) and passed to the
 attention kernels as ``page_offset = li * P``. Page 0 of every layer is that
-layer's dummy page, where padding tokens write.
+layer's dummy page, where padding tokens write. An int8 cache
+(kv_cache_dtype="int8") adds per-page, per-kv-head float32 scales
+[L, P, Hkv], written by ``write_kv_quant`` and reaching attention through
+the flat [L*P, Hkv] view with the same ``page_offset``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 from gllm_tpu_torch.batching import StepBatch
 from gllm_tpu_torch.models.config import ModelConfig
 from gllm_tpu_torch.ops.attention import paged_attention
-from gllm_tpu_torch.ops.kv_cache import write_kv
+from gllm_tpu_torch.ops.kv_cache import write_kv, write_kv_quant
 from gllm_tpu_torch.ops.layers import fused_add_rms_norm, rms_norm, silu_and_mul
 from gllm_tpu_torch.ops.rope import (apply_rope, apply_rope_interleaved,
                                      compute_rope_cos_sin)
@@ -36,17 +39,25 @@ Params = Dict[str, object]
 
 
 class KVCache(NamedTuple):
-    """Stacked KV cache: [L, num_pages, page_size, Hkv, D] per K and V."""
+    """Stacked KV cache: [L, num_pages, page_size, Hkv, D] per K and V, and
+    for an int8 cache the scales [L, num_pages, Hkv] float32 (else None)."""
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
 def init_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                   dtype: torch.dtype, device) -> KVCache:
+    """Zeroed caches; ``dtype`` torch.int8 adds zero scales (a zero scale
+    marks a page no write has touched yet)."""
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim)
-    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+    kv = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(2)]
+    if dtype == torch.int8:
+        kv += [torch.zeros(shape[:2] + shape[3:4], dtype=torch.float32,
+                           device=device) for _ in range(2)]
+    return KVCache(*kv)
 
 
 def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
@@ -95,7 +106,8 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
 
 
 def _attention(lp, x, batch: StepBatch, kv: KVCache, cfg: ModelConfig,
-               cos_sin, *, max_q_len: int, li: int) -> torch.Tensor:
+               cos_sin, *, max_q_len: int, li: int, impl: str
+               ) -> torch.Tensor:
     T = x.shape[0]
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     L, P, page = kv.k.shape[:3]
@@ -114,10 +126,18 @@ def _attention(lp, x, batch: StepBatch, kv: KVCache, cfg: ModelConfig,
         k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
     rope_fn = apply_rope_interleaved if cfg.rope_interleaved else apply_rope
     q, k = rope_fn(q, k, batch.positions, cos_sin)
-    write_kv(k_cache, v_cache, k, v, batch.slot_mapping + li * (P * page))
+    slots = batch.slot_mapping + li * (P * page)
+    k_scale = v_scale = None
+    if kv.k_scale is not None:
+        k_scale = kv.k_scale.view(L * P, Hkv)
+        v_scale = kv.v_scale.view(L * P, Hkv)
+        write_kv_quant(k_cache, v_cache, k_scale, v_scale, k, v, slots)
+    else:
+        write_kv(k_cache, v_cache, k, v, slots)
     attn = paged_attention(q.contiguous(), k_cache, v_cache, batch.attn,
                            scale=D ** -0.5, max_q_len=max_q_len,
-                           page_offset=li * P)
+                           page_offset=li * P, impl=impl, k_scale=k_scale,
+                           v_scale=v_scale)
     return attn.reshape(T, Hq * D) @ lp["o_proj"]
 
 
@@ -126,10 +146,11 @@ def _mlp(lp, x):
 
 
 def forward(params: Params, kv: KVCache, batch: StepBatch, cfg: ModelConfig,
-            *, cos_sin: torch.Tensor, max_q_len: int
+            *, cos_sin: torch.Tensor, max_q_len: int, impl: str = "legacy"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run every layer; returns (hidden, residual). The KV cache is written
-    in place (the JAX version returns a new cache under buffer donation)."""
+    in place (the JAX version returns a new cache under buffer donation).
+    ``impl`` picks the attention kernels (ops/attention.py)."""
     hidden = params["embed"][batch.token_ids.long()]
     residual = torch.zeros_like(hidden)
     layers = params["layers"]
@@ -139,7 +160,7 @@ def forward(params: Params, kv: KVCache, batch: StepBatch, cfg: ModelConfig,
         normed, residual = fused_add_rms_norm(hidden, residual,
                                               lp["input_norm"], eps)
         attn_out = _attention(lp, normed, batch, kv, cfg, cos_sin,
-                              max_q_len=max_q_len, li=li)
+                              max_q_len=max_q_len, li=li, impl=impl)
         if cfg.sandwich_norms:
             attn_out = rms_norm(attn_out, lp["post_self_attn_norm"], eps)
         normed2, residual = fused_add_rms_norm(attn_out, residual,

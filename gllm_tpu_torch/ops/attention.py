@@ -1,17 +1,23 @@
 """Paged attention dispatch (counterpart of ``gllm_tpu/ops/attention.py``:
 ``paged_attention:79``, ``_paged_attention:174``).
 
-One call serves a step's whole batch against the paged KV cache:
+One call serves a step's whole batch against the paged KV cache. With
+``impl="legacy"`` (the engine without ``unified_step``):
 
 - pure-decode batches (``max_q_len == 1``; one token per sequence, T == S)
   go to the decode kernel (``ops/cuda/decode_attention.py``);
 - mixed or prefill batches go to the ragged kernel
   (``ops/cuda/ragged_attention.py``).
 
-Each wrapper launches its CUDA kernel for CUDA tensors and takes its plain
-PyTorch version only for tensors on the CPU. The JAX package's lane-packed
-KV layout exists only for the TPU's 128-lane tiles; this port stores the
-native [P, page, Hkv, D] cache.
+With ``impl="unified"`` (``EngineConfig.unified_step``) every batch goes to
+the ragged wrapper's unified kernel, whatever ``max_q_len`` says: decode
+rows are one-token rows of the ragged batch.
+
+``k_scale``/``v_scale`` ([P, Hkv] float32) mark an int8 cache; every
+kernel dequantizes on its read path. Each wrapper launches its CUDA kernel
+for CUDA tensors and takes its plain PyTorch version only for tensors on
+the CPU. The JAX package's lane-packed KV layout exists only for the TPU's
+128-lane tiles; this port stores the native [P, page, Hkv, D] cache.
 
 Metadata layout (built by the runner, padded to bucketed sizes):
 - cu_q_lens: [S+1] int32 — cumulative query lengths (padded seqs repeat
@@ -38,10 +44,19 @@ class AttentionMetadata(NamedTuple):
 
 def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, md: AttentionMetadata, *,
-                    scale: float, max_q_len: int,
-                    page_offset: int = 0) -> torch.Tensor:
+                    scale: float, max_q_len: int, page_offset: int = 0,
+                    impl: str = "legacy", k_scale=None,
+                    v_scale=None) -> torch.Tensor:
     """q [T, Hq, D] against caches [P, page, Hkv, D] (page ids in
     ``md.page_table`` are offset by ``page_offset``) → [T, Hq, D]."""
+    scales = dict(k_scale=k_scale, v_scale=v_scale)
+    if impl == "unified":
+        return ragged_paged_attention(q, k_cache, v_cache, md.cu_q_lens,
+                                      md.kv_lens, md.page_table, scale=scale,
+                                      page_offset=page_offset, unified=True,
+                                      **scales)
+    if impl != "legacy":
+        raise ValueError(f"unknown attention impl {impl!r}")
     if max_q_len == 1:
         if q.shape[0] != md.kv_lens.shape[0]:
             raise ValueError(
@@ -49,7 +64,7 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
                 f"S={md.kv_lens.shape[0]}")
         return paged_decode_attention(q, k_cache, v_cache, md.kv_lens,
                                       md.page_table, scale=scale,
-                                      page_offset=page_offset)
+                                      page_offset=page_offset, **scales)
     return ragged_paged_attention(q, k_cache, v_cache, md.cu_q_lens,
                                   md.kv_lens, md.page_table, scale=scale,
-                                  page_offset=page_offset)
+                                  page_offset=page_offset, **scales)

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "gllm_tpu_torch"
-SOURCES = ("decode_attention", "ragged_attention")
+SOURCES = ("decode_attention", "ragged_attention", "unified_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -39,9 +39,11 @@ _F = ctypes.c_float
 # c_void_p; an int argument left to ctypes' default would cut a pointer)
 _SIGNATURES = {
     "decode_attention": ("gllm_decode_attention",
-                         [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
+                         [_P] * 9 + [_I] * 9 + [_F, _I, _P]),
     "ragged_attention": ("gllm_ragged_attention",
-                         [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
+                         [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
+    "unified_attention": ("gllm_unified_attention",
+                          [_P] * 10 + [_I] * 10 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-"""Argument checks shared by the attention kernel wrappers."""
+"""Argument checks and page gathers shared by the attention kernel
+wrappers and their plain versions."""
 
 from __future__ import annotations
 
@@ -9,22 +10,38 @@ from gllm_tpu_torch.ops.cuda.build import DTYPE_CODES
 HEAD_DIMS = (32, 64, 128)
 
 
+def gather_pages(cache, scale, pages):
+    """Pages of a paged cache as float32, [..., page, Hkv, D] for ``pages``
+    [...]; an int8 cache is dequantized with its per-page, per-kv-head
+    ``scale`` [P, Hkv] (``block_kv``'s rule: x * scale[page, h])."""
+    x = cache[pages].float()
+    if scale is not None:
+        x = x * scale[pages][..., None, :, None]
+    return x
+
+
 def check_inputs(what: str, q, k_cache, v_cache, index_tensors,
-                 max_group: int) -> None:
+                 max_group: int, k_scale=None, v_scale=None) -> None:
     """Raise on anything the kernel does not take: device, dtype, shape,
-    contiguity, alignment."""
+    contiguity, alignment. An int8 cache needs both scales, float32
+    [P, Hkv]; a full-precision cache shares q's dtype and takes none."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: needs CUDA or CPU tensors, got "
                          f"{q.device}")
-    tensors = (q, k_cache, v_cache) + tuple(index_tensors)
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: give both k_scale and v_scale or "
+                         "neither")
+    scales = () if k_scale is None else (k_scale, v_scale)
+    tensors = (q, k_cache, v_cache) + scales + tuple(index_tensors)
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{what}: all tensors must be on {q.device}")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{what}: unsupported dtype {q.dtype}")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise ValueError(f"{what}: q, k_cache and v_cache must share a "
-                         f"dtype, got {q.dtype}/{k_cache.dtype}/"
-                         f"{v_cache.dtype}")
+    cache_dtype = torch.int8 if scales else q.dtype
+    if k_cache.dtype != cache_dtype or v_cache.dtype != cache_dtype:
+        raise ValueError(f"{what}: the caches' dtype must be {cache_dtype} "
+                         f"(q {q.dtype}, {'with' if scales else 'without'} "
+                         f"scales), got {k_cache.dtype}/{v_cache.dtype}")
     if any(t.dtype != torch.int32 for t in index_tensors):
         raise ValueError(f"{what}: metadata tensors must be int32")
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
@@ -32,6 +49,10 @@ def check_inputs(what: str, q, k_cache, v_cache, index_tensors,
                          "[P, page, Hkv, D] of one shape")
     _, hq, d = q.shape
     hkv = k_cache.shape[2]
+    if any(s.dtype != torch.float32
+           or s.shape != (k_cache.shape[0], hkv) for s in scales):
+        raise ValueError(f"{what}: k_scale and v_scale must be float32 "
+                         f"[P, Hkv] = {[k_cache.shape[0], hkv]}")
     if k_cache.shape[3] != d or d not in HEAD_DIMS:
         raise ValueError(f"{what}: head_dim {d} (cache "
                          f"{k_cache.shape[3]}) not in {HEAD_DIMS}")
@@ -42,3 +63,8 @@ def check_inputs(what: str, q, k_cache, v_cache, index_tensors,
         raise ValueError(f"{what}: tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
         raise ValueError(f"{what}: q and the caches must be 16-byte aligned")
+
+
+def data_ptr(t):
+    """The tensor's device address, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()

@@ -1,12 +1,14 @@
 """Paged decode attention: CUDA kernel wrapper and its plain PyTorch version.
 
 Replaces ``gllm_tpu/ops/pallas/decode_attention.py::paged_decode_attention``
-(full-precision cache, GQA). The kernel (``csrc/decode_attention.cu``) is
-bound by bytes: it runs one block per (sequence, kv head, split of the
+(GQA) over a full-precision cache (K2) or an int8 cache with per-page,
+per-kv-head float32 scales (K2q). The kernel (``csrc/decode_attention.cu``)
+is bound by bytes: it runs one block per (sequence, kv head, split of the
 context), so every K/V row of a sequence's context is read from device
 memory once and shared by the G query heads of its group, and a long
 context at a small batch still fills the card; a second pass merges the
-splits. The TPU kernel's round-robin DMA grouping is a TPU fetch
+splits. An int8 tile is dequantized as it is loaded, so the cache moves
+half the bytes. The TPU kernel's round-robin DMA grouping is a TPU fetch
 schedule and does not carry over.
 
 ``paged_decode_attention`` launches the kernel for CUDA tensors and takes
@@ -20,11 +22,13 @@ import functools
 import torch
 
 from gllm_tpu_torch.ops.cuda import build
-from gllm_tpu_torch.ops.cuda.common import check_inputs
+from gllm_tpu_torch.ops.cuda.common import (check_inputs, data_ptr,
+                                            gather_pages)
 from gllm_tpu_torch.utils import cdiv
 
 MAX_KEYS_PER_SPLIT = 256
 MIN_BLOCKS_PER_SM = 4
+MAX_GROUP = 16          # query heads per kv head (a warp each in a block)
 
 
 def keys_per_split(S: int, Hkv: int, max_keys: int, num_sms: int) -> int:
@@ -44,12 +48,29 @@ def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def split_plan(q, k_cache, page_table):
+    """(keys per split, number of splits, float32 scratch of the splits'
+    partial sums or None) for the decode kernel's grid over
+    ``page_table``'s rows, with no host sync."""
+    S, Hq, D = page_table.shape[0], q.shape[1], q.shape[2]
+    _, page, Hkv, _ = k_cache.shape
+    max_keys = page_table.shape[1] * page
+    chunk = keys_per_split(S, Hkv, max_keys, _num_sms(q.device))
+    num_splits = max(1, cdiv(max_keys, chunk))
+    part = (torch.empty(S * Hq * num_splits * (D + 2), dtype=torch.float32,
+                        device=q.device) if num_splits > 1 else None)
+    return chunk, num_splits, part
+
+
 def paged_decode_attention_plain(q, k_cache, v_cache, kv_lens, page_table,
-                                 *, scale: float, page_offset: int = 0):
+                                 *, scale: float, page_offset: int = 0,
+                                 k_scale=None, v_scale=None):
     """One query row per sequence over its paged context, in float32.
 
     q [S, Hq, D]; k_cache/v_cache [P, page, Hkv, D]; kv_lens [S];
-    page_table [S, max_pages] (ids are offset by ``page_offset``).
+    page_table [S, max_pages] (ids are offset by ``page_offset``). An int8
+    cache comes with ``k_scale``/``v_scale`` [P, Hkv] float32 and is
+    dequantized on the gathered pages (``_xla_paged_attention``'s rule).
     Rows with kv_len 0 give zeros. Returns [S, Hq, D] in q's dtype."""
     paged_decode_attention_plain.calls += 1
     S, Hq, D = q.shape
@@ -57,8 +78,8 @@ def paged_decode_attention_plain(q, k_cache, v_cache, kv_lens, page_table,
     G = Hq // Hkv
     max_kv = page_table.shape[1] * page
     pages = page_table.long() + page_offset
-    k = k_cache[pages].reshape(S, max_kv, Hkv, D).float()
-    v = v_cache[pages].reshape(S, max_kv, Hkv, D).float()
+    k = gather_pages(k_cache, k_scale, pages).reshape(S, max_kv, Hkv, D)
+    v = gather_pages(v_cache, v_scale, pages).reshape(S, max_kv, Hkv, D)
     qg = q.reshape(S, Hkv, G, D).float()
     scores = torch.einsum("shgd,skhd->shgk", qg, k) * scale
     visible = (torch.arange(max_kv, device=q.device)[None, :]
@@ -74,37 +95,37 @@ paged_decode_attention_plain.calls = 0
 
 
 def paged_decode_attention(q, k_cache, v_cache, kv_lens, page_table, *,
-                           scale: float, page_offset: int = 0):
+                           scale: float, page_offset: int = 0,
+                           k_scale=None, v_scale=None):
     """Same contract as :func:`paged_decode_attention_plain`."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_cache, v_cache, kv_lens, page_table, scale=scale,
-            page_offset=page_offset)
+            page_offset=page_offset, k_scale=k_scale, v_scale=v_scale)
     S, Hq, D = q.shape
     check_inputs("paged_decode_attention", q, k_cache, v_cache,
-                 (kv_lens, page_table), max_group=16)
+                 (kv_lens, page_table), max_group=MAX_GROUP, k_scale=k_scale,
+                 v_scale=v_scale)
     if kv_lens.shape != (S,) or page_table.shape[0] != S:
         raise ValueError("paged_decode_attention: kv_lens [S] and "
                          "page_table [S, max_pages] must match q [S, Hq, D]")
     out = torch.empty_like(q)
     if S == 0:
         return out
-    _, page, Hkv, _ = k_cache.shape
-    max_pages = page_table.shape[1]
-    chunk = keys_per_split(S, Hkv, max_pages * page, _num_sms(q.device))
-    num_splits = max(1, cdiv(max_pages * page, chunk))
-    part = (torch.empty(S * Hq * num_splits * (D + 2), dtype=torch.float32,
-                        device=q.device) if num_splits > 1 else None)
+    chunk, num_splits, part = split_plan(q, k_cache, page_table)
     rc = build.kernel("decode_attention")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_lens.data_ptr(), page_table.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), S, max_pages, Hq, Hkv, D,
-        page, page_offset, chunk, num_splits, scale,
-        build.DTYPE_CODES[q.dtype],
+        data_ptr(k_scale), data_ptr(v_scale), kv_lens.data_ptr(),
+        page_table.data_ptr(), out.data_ptr(), data_ptr(part), S,
+        page_table.shape[1], Hq, k_cache.shape[2], D, k_cache.shape[1],
+        page_offset, chunk, num_splits, scale, build.DTYPE_CODES[q.dtype],
         torch.cuda.current_stream().cuda_stream)
     build.check(rc, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    paged_decode_attention.launches[KERNELS[k_scale is not None]] += 1
     return out
 
 
-paged_decode_attention.launches = 0
+# launches by kernel: full-precision cache (K2) and int8 cache (K2q)
+KERNELS = {False: "paged_decode_attention",
+           True: "paged_decode_attention_int8"}
+paged_decode_attention.launches = dict.fromkeys(KERNELS.values(), 0)

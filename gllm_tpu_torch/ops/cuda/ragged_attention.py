@@ -1,19 +1,33 @@
-"""Ragged paged attention: CUDA kernel wrapper and its plain PyTorch version.
+"""Ragged paged attention: CUDA kernel wrappers and their plain PyTorch
+version.
 
 Replaces ``gllm_tpu/ops/pallas/ragged_attention.py::ragged_paged_attention``
-in its non-unified, full-precision-cache GQA mode. A flat packed batch of
-query tokens (decode rows and prefill chunks) attends causally over each
-sequence's paged KV: token t of sequence s sits at position
-``kv_len - q_len + t``. The kernel (``csrc/ragged_attention.cu``) is bound by
-operations on the prefill chunks; it runs a fixed grid of
-``(cdiv(T, BQ) + S, Hkv)`` blocks that find their own (sequence, q tile)
-from ``cu_q_lens``, so this wrapper issues no host sync, and each block
-reuses every K/V tile it loads for its 64 query rows. bf16 and fp16 run on
-the tensor cores (``mma.sync``) with double-buffered ``cp.async`` tile
-loads; float32 runs on plain FMA.
+in its GQA modes. A flat packed batch of query tokens (decode rows and
+prefill chunks) attends causally over each sequence's paged KV: token t of
+sequence s sits at position ``kv_len - q_len + t``.
 
-``ragged_paged_attention`` launches the kernel for CUDA tensors and takes
-the plain version only for tensors on the CPU.
+- Non-unified (K1; K1q over an int8 cache with ``k_scale``/``v_scale``):
+  ``csrc/ragged_attention.cu``, bound by operations on the prefill chunks.
+  A fixed grid of ``(cdiv(T, BQ) + S, Hkv)`` blocks finds its own
+  (sequence, q tile) from ``cu_q_lens``, so this wrapper issues no host
+  sync, and each block reuses every K/V tile it loads for its 64 query
+  rows. bf16 and fp16 run on the tensor cores (``mma.sync``) with
+  double-buffered ``cp.async`` tile loads; float32 runs on plain FMA. An
+  int8 tile is widened to bf16/fp16 exactly; the key scales multiply the
+  scores and the value scales each page's P·V product.
+- Unified (K1u, ``unified=True``; either cache): ``csrc/unified_attention.cu``
+  serves every paged step of the unified engine in one call. The batch's
+  decode prefix (the longest run of one-token sequences at its head, found
+  on the device from ``cu_q_lens``) runs split-KV decode blocks, every
+  other sequence the ragged blocks. The plain version reproduces the TPU
+  kernel's AMLA softmax (``_online_update``: log2-domain scores, a
+  running max rounded up with ``ceil``, ``exp2``, power-of-two rescales
+  that flush to 0 below the normal range); the CUDA kernel rescales the
+  classic way, which keeps each row's largest probability exactly 1 when
+  it is rounded for the tensor cores (see ``csrc/unified_attention.cu``).
+
+``ragged_paged_attention`` launches a kernel for CUDA tensors and takes the
+plain version only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -21,20 +35,82 @@ from __future__ import annotations
 import torch
 
 from gllm_tpu_torch.ops.cuda import build
-from gllm_tpu_torch.ops.cuda.common import check_inputs
+from gllm_tpu_torch.ops.cuda.common import (check_inputs, data_ptr,
+                                            gather_pages)
+from gllm_tpu_torch.ops.cuda.decode_attention import MAX_GROUP, split_plan
 from gllm_tpu_torch.utils import cdiv
 
 ROWS_PER_BLOCK = 64     # query rows (tokens × group heads) per kernel block
+LOG2E = 1.4426950408889634
+AMLA_BLOCK = 64         # keys per online-softmax update of the plain AMLA
+
+
+def decode_prefix_len(cu_q_lens) -> int:
+    """Length of the batch's decode prefix: the longest run of sequences
+    0, 1, ... with exactly one query token each (``cu[s + 1] == s + 1``),
+    which is also the token where the other rows begin
+    (``_decode_prefix_len``). The kernels find it on the device; this
+    host version serves the plain path."""
+    S = cu_q_lens.shape[0] - 1
+    one_tok = (cu_q_lens[1:].long()
+               == torch.arange(1, S + 1, device=cu_q_lens.device))
+    bad = (~one_tok).nonzero()
+    return int(bad[0, 0]) if bad.numel() else S
+
+
+def _rescale_add(x, dm):
+    """``x * 2^dm`` for integer ``dm <= 0`` as an add on the float32
+    exponent field (``_rescale_add``): ``dm == 0`` keeps x, a result below
+    the normal range flushes to 0."""
+    xb = x.contiguous().view(torch.int32)
+    ex = (xb & 0x7F800000) >> 23
+    y = (xb + (dm << 23)).view(torch.float32)
+    return torch.where(dm >= 0, x,
+                       torch.where(ex + dm > 0, y, torch.zeros_like(x)))
+
+
+def _attend(qs, k, v, visible, scale, amla):
+    """Masked softmax attention in float32. qs [B, q, Hkv, G, D];
+    k/v [B, K, Hkv, D]; visible [B, q, K] → [B, q, Hkv, G, D]; rows with no
+    visible key give zeros. ``amla``: the online softmax of unified mode
+    over blocks of ``AMLA_BLOCK`` keys, in the log2 domain."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, k)
+    mask = visible[:, None, None]                        # [B, 1, 1, q, K]
+    if not amla:
+        s = (s * scale).masked_fill(~mask, float("-inf"))
+        p = torch.softmax(s, dim=-1).masked_fill(~mask, 0.0)
+        return torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    s = (s * (scale * LOG2E)).masked_fill(~mask, float("-inf"))
+    lead = s.shape[:-1] + (1,)
+    m = torch.full(lead, float("-inf"), device=s.device)
+    l = torch.zeros(lead, device=s.device)
+    acc = torch.zeros(lead[:-1] + (v.shape[-1],), device=s.device)
+    for k0 in range(0, s.shape[-1], AMLA_BLOCK):
+        sb = s[..., k0:k0 + AMLA_BLOCK]
+        m_new = torch.maximum(m, torch.ceil(sb.amax(-1, keepdim=True)))
+        safe = torch.where(m_new == float("-inf"), 0.0, m_new)
+        p = torch.exp2(sb - safe)
+        dm = torch.clamp(m - safe, min=-160.0).to(torch.int32)
+        l = _rescale_add(l, dm) + p.sum(-1, keepdim=True)
+        acc = _rescale_add(acc, dm) + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p, v[:, k0:k0 + AMLA_BLOCK])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4)
 
 
 def ragged_paged_attention_plain(q, k_cache, v_cache, cu_q_lens, kv_lens,
                                  page_table, *, scale: float,
-                                 page_offset: int = 0):
-    """Gather-based reference, computed in float32 sequence by sequence
-    (the semantics of ``gllm_tpu/ops/attention.py::_xla_paged_attention``).
+                                 page_offset: int = 0, k_scale=None,
+                                 v_scale=None, unified: bool = False):
+    """Gather-based reference in float32 (the semantics of
+    ``gllm_tpu/ops/attention.py::_xla_paged_attention``).
 
     q [T, Hq, D]; k_cache/v_cache [P, page, Hkv, D]; cu_q_lens [S+1];
     kv_lens [S]; page_table [S, max_pages] (ids offset by ``page_offset``).
+    An int8 cache comes with ``k_scale``/``v_scale`` [P, Hkv] float32 and
+    is dequantized on the gathered pages. ``unified``: AMLA's softmax, with
+    the decode prefix's rows batched as the kernel's decode blocks are.
     Tokens of no sequence (padding past cu_q_lens[S]) give zeros. Returns
     [T, Hq, D] in q's dtype."""
     ragged_paged_attention_plain.calls += 1
@@ -44,21 +120,36 @@ def ragged_paged_attention_plain(q, k_cache, v_cache, cu_q_lens, kv_lens,
     out = torch.zeros_like(q)
     cu = cu_q_lens.tolist()
     kvl = kv_lens.tolist()
-    for s in range(len(kvl)):
+    first = 0
+    if unified:
+        nd = decode_prefix_len(cu_q_lens)
+        if nd:
+            max_kv = max(kvl[:nd])
+            pages = (page_table[:nd, :cdiv(max_kv, page)].long()
+                     + page_offset)
+            k = gather_pages(k_cache, k_scale, pages).reshape(
+                nd, -1, Hkv, D)[:, :max_kv]
+            v = gather_pages(v_cache, v_scale, pages).reshape(
+                nd, -1, Hkv, D)[:, :max_kv]
+            visible = (torch.arange(max_kv, device=q.device)[None, None, :]
+                       < kv_lens[:nd].long()[:, None, None])
+            o = _attend(q[:nd].reshape(nd, 1, Hkv, G, D).float(), k, v,
+                        visible, scale, amla=True)
+            out[:nd] = o.reshape(nd, Hq, D).to(q.dtype)
+        first = nd
+    for s in range(first, len(kvl)):
         q0, q_len, kv_len = cu[s], cu[s + 1] - cu[s], kvl[s]
         if q_len == 0 or kv_len == 0:
             continue
         pages = page_table[s, :cdiv(kv_len, page)].long() + page_offset
-        k = k_cache[pages].reshape(-1, Hkv, D)[:kv_len].float()
-        v = v_cache[pages].reshape(-1, Hkv, D)[:kv_len].float()
-        qs = q[q0:q0 + q_len].reshape(q_len, Hkv, G, D).float()
-        scores = torch.einsum("qhgd,khd->hgqk", qs, k) * scale
+        k = gather_pages(k_cache, k_scale, pages).reshape(-1, Hkv, D)
+        v = gather_pages(v_cache, v_scale, pages).reshape(-1, Hkv, D)
+        qs = q[q0:q0 + q_len].reshape(1, q_len, Hkv, G, D).float()
         q_pos = (kv_len - q_len
                  + torch.arange(q_len, device=q.device))[:, None]
         visible = torch.arange(kv_len, device=q.device)[None, :] <= q_pos
-        scores = scores.masked_fill(~visible, float("-inf"))
-        probs = torch.softmax(scores, dim=-1).masked_fill(~visible, 0.0)
-        o = torch.einsum("hgqk,khd->qhgd", probs, v)
+        o = _attend(qs, k[None, :kv_len], v[None, :kv_len], visible[None],
+                    scale, amla=unified)
         out[q0:q0 + q_len] = o.reshape(q_len, Hq, D).to(q.dtype)
     return out
 
@@ -67,16 +158,20 @@ ragged_paged_attention_plain.calls = 0
 
 
 def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
-                           page_table, *, scale: float, page_offset: int = 0):
+                           page_table, *, scale: float, page_offset: int = 0,
+                           k_scale=None, v_scale=None,
+                           unified: bool = False):
     """Same contract as :func:`ragged_paged_attention_plain`."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, k_cache, v_cache, cu_q_lens, kv_lens, page_table,
-            scale=scale, page_offset=page_offset)
+            scale=scale, page_offset=page_offset, k_scale=k_scale,
+            v_scale=v_scale, unified=unified)
     T, Hq, D = q.shape
     check_inputs("ragged_paged_attention", q, k_cache, v_cache,
                  (cu_q_lens, kv_lens, page_table),
-                 max_group=ROWS_PER_BLOCK)
+                 max_group=MAX_GROUP if unified else ROWS_PER_BLOCK,
+                 k_scale=k_scale, v_scale=v_scale)
     S = kv_lens.shape[0]
     Hkv = k_cache.shape[2]
     if ROWS_PER_BLOCK % (Hq // Hkv):
@@ -88,15 +183,29 @@ def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
     out = torch.empty_like(q)
     if T == 0 or S == 0:
         return out.zero_()
-    rc = build.kernel("ragged_attention")(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cu_q_lens.data_ptr(), kv_lens.data_ptr(), page_table.data_ptr(),
-        out.data_ptr(), T, S, page_table.shape[1], Hq, Hkv, D,
-        k_cache.shape[1], page_offset, scale, build.DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            data_ptr(k_scale), data_ptr(v_scale), cu_q_lens.data_ptr(),
+            kv_lens.data_ptr(), page_table.data_ptr(), out.data_ptr())
+    dims = (S, page_table.shape[1], Hq, Hkv, D, k_cache.shape[1],
+            page_offset)
+    if unified:
+        chunk, num_splits, part = split_plan(q, k_cache, page_table)
+        rc = build.kernel("unified_attention")(
+            *ptrs, data_ptr(part), T, *dims, chunk, num_splits, scale,
+            build.DTYPE_CODES[q.dtype], stream)
+    else:
+        rc = build.kernel("ragged_attention")(
+            *ptrs, T, *dims, scale, build.DTYPE_CODES[q.dtype], stream)
     build.check(rc, "ragged_paged_attention")
-    ragged_paged_attention.launches += 1
+    ragged_paged_attention.launches[
+        KERNELS[unified, k_scale is not None]] += 1
     return out
 
 
-ragged_paged_attention.launches = 0
+# launches by kernel: (unified, int8 cache) → K1, K1q, K1u, K1u over int8
+KERNELS = {(False, False): "ragged_paged_attention",
+           (False, True): "ragged_paged_attention_int8",
+           (True, False): "ragged_paged_attention_unified",
+           (True, True): "ragged_paged_attention_unified_int8"}
+ragged_paged_attention.launches = dict.fromkeys(KERNELS.values(), 0)

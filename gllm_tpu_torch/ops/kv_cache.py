@@ -1,4 +1,5 @@
-"""Paged KV cache write path (counterpart of ``gllm_tpu/ops/kv_cache.py:25``).
+"""Paged KV cache write path (counterpart of ``gllm_tpu/ops/kv_cache.py``:
+``write_kv:25``, ``_quant_write_one:49``, ``write_kv_quant:90``).
 
 Layout: [num_pages, page_size, num_kv_heads, head_dim] per K/V; flat slot =
 page_id * page_size + offset. Slots of page 0 (the dummy page) absorb the
@@ -8,6 +9,11 @@ writes of padded tokens.
 from __future__ import annotations
 
 import torch
+
+# int8 KV quantization grid: symmetric, scale = absmax / QMAX, dequant
+# x' = q * scale. -128 is never produced (clip to ±127), so the grid is
+# symmetric and the rescale-on-grow pass cannot overflow.
+QMAX = 127.0
 
 
 def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -33,3 +39,55 @@ def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
         0, idx, k.to(k_cache.dtype))
     v_cache.view(num_pages * page_size, hkv, d).index_copy_(
         0, idx, v.to(v_cache.dtype))
+
+
+def _quant_write_one(cache, scale, rows, slots, pages) -> None:
+    """Quantized scatter of one stream (K or V), in place.
+
+    cache [P, page, H, D] int8; scale [P, H] float32 (a stored q
+    dequantizes to q * scale); rows [T, H, D] float32.
+
+    The per-page, per-head scale is a RUNNING absmax: it only grows. When a
+    write grows a page's scale, the rows already stored in that page were
+    quantized against the smaller scale, so the touched pages are
+    re-quantized (gather, scale by old/new, round, scatter) before the new
+    rows land. The JAX version skips that pass with a ``lax.cond`` when no
+    scale grew; deciding that here would cost a host sync per layer, so the
+    touched pages are always re-quantized: a ratio of 1 re-rounds each
+    stored integer to itself, so the result is the same. Duplicate page ids
+    gather and scatter identical values. A never-written (or freshly
+    reset) page has scale 0 and rescales by ratio 0 on its first write,
+    which zero-fills its stale slots.
+    """
+    num_pages, ps, h, d = cache.shape
+    amax = rows.abs().amax(dim=-1) / QMAX                     # [T, H]
+    old = scale[pages]                                        # [T, H]
+    scale.scatter_reduce_(0, pages[:, None].expand(-1, h), amax, "amax")
+    new = scale[pages]                                        # [T, H]
+    ratio = torch.where(new > 0.0, old / torch.clamp(new, min=1e-30),
+                        torch.zeros_like(new))
+    blk = cache[pages].float()                                # [T, ps, H, D]
+    cache[pages] = torch.round(blk * ratio[:, None, :, None]).to(cache.dtype)
+    q = torch.round(rows / torch.clamp(new, min=1e-30)[:, :, None])
+    q = torch.clamp(q, -QMAX, QMAX).to(cache.dtype)
+    cache.view(num_pages * ps, h, d).index_copy_(0, slots, q)
+
+
+def write_kv_quant(k_cache, v_cache, k_scale, v_scale, k: torch.Tensor,
+                   v: torch.Tensor, slot_mapping: torch.Tensor) -> None:
+    """Quantizing scatter into an int8 paged cache (kv_cache_dtype="int8"),
+    IN PLACE, with no host sync.
+
+    k_cache/v_cache: [num_pages, page_size, Hkv, D] int8 (contiguous)
+    k_scale/v_scale: [num_pages, Hkv] float32 running per-page scales
+    k/v:             [T, Hkv, D] this step's rows (any float dtype)
+    slot_mapping:    [T] int flat slots (padding → dummy-page slots)
+
+    Attention dequantizes on its read path (in the kernels, or on the
+    gathered pages in the plain versions); a full-precision cache never
+    exists in device memory.
+    """
+    slots = slot_mapping.long()
+    pages = torch.div(slots, k_cache.shape[1], rounding_mode="floor")
+    _quant_write_one(k_cache, k_scale, k.float(), slots, pages)
+    _quant_write_one(v_cache, v_scale, v.float(), slots, pages)

@@ -34,14 +34,23 @@ class BatchBuilder:
         self.max_seqs = min(config.max_num_seqs,
                             sc.max_decode_seqs + sc.max_prefill_tokens)
         self.max_pages_per_seq = config.max_pages_per_seq
+        # unified step: one signature family, max_q_len rides the token
+        # bucket (no separate q == 1 population)
+        self.unified = config.unified_step
 
     def shape_signature(self, batch: ScheduledBatch
                         ) -> Tuple[int, int, int, int]:
         """(T_bucket, S_bucket, max_q_len, pages_bucket). The page bucket
-        follows the live maximum context of the batch, not max_model_len."""
+        follows the live maximum context of the batch, not max_model_len.
+        Under the unified step a pure-decode batch is the t == s point of
+        the q == t family and every other batch pads its tokens to the
+        one schedulable maximum, as the JAX package does."""
         s = bucket_size(batch.num_seqs, 8, self.max_seqs)
         max_q = max(it.num_new_tokens for it in batch.items)
-        if max_q == 1:
+        if self.unified:
+            t = s if max_q == 1 else self.max_tokens
+            q = t
+        elif max_q == 1:
             t, q = s, 1          # pure decode: one token per seq (T == S)
         else:
             t = bucket_size(batch.total_tokens, 16, self.max_tokens)
@@ -137,7 +146,8 @@ class HostStaging:
     ``non_blocking`` copy.
 
     Every array is laid end to end in a single int32 buffer (float32
-    arrays by bit pattern); the device copy is split back into views. The
+    arrays by bit pattern), the int8 cache's scale-reset page ids
+    included; the device copy is split back into views. The
     pinned buffer is reused across steps: the synchronous engine loop
     fetches each step's sampled tokens (a stream sync) before it builds
     the next step, so the previous copy out of the buffer has finished."""
@@ -153,7 +163,8 @@ class HostStaging:
                  sb.attn.page_table.reshape(-1), sb.sampling.top_k,
                  sb.sampling.temperature.view(np.int32),
                  sb.sampling.top_p.view(np.int32),
-                 sb.sampling.min_p.view(np.int32)]
+                 sb.sampling.min_p.view(np.int32),
+                 np.asarray(sb.scale_resets or [], np.int32)]
         sizes = [p.size for p in parts]
         n = sum(sizes)
         if self._host.numel() < n:
@@ -168,7 +179,7 @@ class HostStaging:
             dev = self._host[:n].to(self.device, non_blocking=True)
         views = list(torch.split(dev, sizes))
         (tok, pos, slots, lidx, cu, kvl, pt, top_k, temp, top_p,
-         min_p) = views
+         min_p, resets) = views
         f32 = torch.float32
         return StepBatch(
             token_ids=tok, positions=pos, slot_mapping=slots,
@@ -178,4 +189,5 @@ class HostStaging:
                 page_table=pt.view(sb.attn.page_table.shape)),
             sampling=SamplingMetadata(
                 temperature=temp.view(f32), top_p=top_p.view(f32),
-                top_k=top_k, min_p=min_p.view(f32)))
+                top_k=top_k, min_p=min_p.view(f32)),
+            scale_resets=resets if resets.numel() else None)

@@ -1,11 +1,15 @@
 """ModelRunner: owns the parameters, the KV cache and the step (counterpart
 of ``gllm_tpu/runner/runner.py``: ``ModelRunner.__init__:273``,
-``determine_num_pages:614``, ``_build_step_fn:650``, ``step:1845``).
+``reset_page_scales:136``, ``_kv_bytes_per_page:570``,
+``determine_num_pages:614``, ``_build_step_fn:650``,
+``_apply_scale_resets:923``, ``step:1845``).
 
 One synchronous step: build the batch on the host, copy it over in one
 transfer, run forward → logits → sample, and fetch the sampled tokens.
 PyTorch runs eagerly, so there is no compile cache to warm; the KV cache is
-updated in place where JAX donated its buffers.
+updated in place where JAX donated its buffers. An int8 cache first zeroes
+the scales of the pages minted for the step (their ids ride the step's one
+upload), so a recycled page quantizes like a fresh one.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from gllm_tpu_torch.utils import cdiv
 logger = logging.getLogger(__name__)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
-          "float32": torch.float32}
+          "float32": torch.float32, "int8": torch.int8}
 
 # Device memory kept free for a step's activations at the largest batch
 # shape (the JAX runner keeps the same 512 MB).
@@ -43,6 +47,13 @@ class ModelRunner:
         self.dtype = DTYPES[config.dtype]
         kd = config.cache.kv_cache_dtype
         self.kv_dtype = self.dtype if kd == "auto" else DTYPES[kd]
+        self.kv_quant = self.kv_dtype == torch.int8
+        # attention kernels (ops/attention.py): the unified kernel for every
+        # step, or the legacy decode / ragged pair
+        self.attn_impl = "unified" if config.unified_step else "legacy"
+        # the engine's memory manager, whose minted pages an int8 cache
+        # resets (set by the engine)
+        self.memory_manager = None
         if params is not None:
             self.params = params
         elif config.load_format == "dummy" or not config.model:
@@ -57,8 +68,9 @@ class ModelRunner:
         self.staging = HostStaging(self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
-        # steps by the attention kernel they dispatch to: "decode" when
-        # max_q_len == 1, else "mixed" (a prefill chunk or a mix)
+        # steps by batch: "decode" when every row has one new token, else
+        # "mixed" (a prefill chunk or a mix). The legacy kernels split the
+        # same way; the unified kernel serves both.
         self.step_counts = {"mixed": 0, "decode": 0}
         self.num_pages = (config.cache.num_pages
                           or self.determine_num_pages())
@@ -70,10 +82,15 @@ class ModelRunner:
                     self.device)
 
     def kv_bytes_per_page(self) -> int:
+        """Device bytes of one page across the layers, K and V; an int8
+        page adds its float32 scale rows."""
         cfg, page = self.model_cfg, self.config.cache.page_size
         itemsize = torch.empty(0, dtype=self.kv_dtype).element_size()
-        return (2 * cfg.num_layers * page * cfg.num_kv_heads * cfg.head_dim
-                * itemsize)
+        per_page = (2 * cfg.num_layers * page * cfg.num_kv_heads
+                    * cfg.head_dim * itemsize)
+        if self.kv_quant:
+            per_page += 2 * cfg.num_layers * cfg.num_kv_heads * 4
+        return per_page
 
     def determine_num_pages(self) -> int:
         """Size the KV pool from the device's free memory after the weights
@@ -93,22 +110,39 @@ class ModelRunner:
                 f"(need >= {min_pages})")
         return num
 
+    def prepare(self, sched_batch: ScheduledBatch):
+        """(device StepBatch, max_q_len) for a scheduled batch: built on the
+        host, with the int8 cache's pending scale resets, in one upload."""
+        host_batch, max_q = self.builder.build(sched_batch)
+        if self.kv_quant and self.memory_manager is not None:
+            host_batch = host_batch._replace(
+                scale_resets=self.memory_manager.drain_scale_resets())
+        return self.staging.upload(host_batch), max_q
+
     @torch.inference_mode()
     def forward_logits(self, batch, max_q: int) -> torch.Tensor:
         """forward + compute_logits for a device StepBatch → [S, V] f32."""
+        if batch.scale_resets is not None:
+            # zero the minted pages' scales in every layer: a zero scale
+            # makes the first write zero-fill the stale payload and start
+            # a new running absmax
+            pages = batch.scale_resets.long()
+            self.kv.k_scale.index_fill_(1, pages, 0.0)
+            self.kv.v_scale.index_fill_(1, pages, 0.0)
         hidden, residual = dense.forward(self.params, self.kv, batch,
                                          self.model_cfg,
                                          cos_sin=self.cos_sin,
-                                         max_q_len=max_q)
+                                         max_q_len=max_q,
+                                         impl=self.attn_impl)
         return dense.compute_logits(self.params, hidden, residual, batch,
                                     self.model_cfg)
 
     @torch.inference_mode()
     def step(self, sched_batch: ScheduledBatch) -> np.ndarray:
         """Run one step; returns the sampled token of each batch item."""
-        host_batch, max_q = self.builder.build(sched_batch)
-        self.step_counts["decode" if max_q == 1 else "mixed"] += 1
-        batch = self.staging.upload(host_batch)
+        batch, max_q = self.prepare(sched_batch)
+        decode = all(it.num_new_tokens == 1 for it in sched_batch.items)
+        self.step_counts["decode" if decode else "mixed"] += 1
         logits = self.forward_logits(batch, max_q)
         all_greedy = all(it.seq.sampling_params.temperature == 0.0
                          for it in sched_batch.items)

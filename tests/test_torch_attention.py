@@ -2,7 +2,9 @@
 
 The plain versions against the JAX package's Pallas kernels in interpret
 mode, on the same numpy inputs (tolerance 2e-4, the JAX kernel tests'
-own), and the dispatch rule. The CUDA kernels are held against the plain
+own), over full-precision and int8 caches, and the dispatch rule. The
+unified mode's plain version is held to the Pallas kernel in
+tests/test_torch_unified.py. The CUDA kernels are held against the plain
 versions on the card in tests/test_torch_cuda.py.
 """
 
@@ -20,7 +22,7 @@ from gllm_tpu_torch.ops.cuda import decode_attention as tdec
 from gllm_tpu_torch.ops.cuda import ragged_attention as trag
 
 from test_torch_cuda import (DECODE_CASES, RAGGED_CASES, decode_case,
-                             ragged_case)
+                             int8_cache, ragged_case)
 
 
 def _t(*arrays):
@@ -58,6 +60,44 @@ def test_decode_plain_matches_pallas_interpret(case):
         jnp.asarray(pt), scale=scale, kv_block=32, interpret=True)
     got = tdec.paged_decode_attention_plain(*_t(q, kc, vc, kvl, pt),
                                             scale=scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", [RAGGED_CASES[2], RAGGED_CASES[5]])
+def test_ragged_int8_plain_matches_pallas_interpret(case):
+    rng = np.random.default_rng(8)
+    q, kc, vc, cu, kvl, pt = ragged_case(
+        rng, case["seqs"], case["Hq"], case["Hkv"], case["D"],
+        case["page"], case["pages"], case.get("pad_seqs", 0),
+        case.get("pad_tokens", 0))
+    kc, vc, ks, vs = int8_cache(rng, kc, vc)
+    scale = case["D"] ** -0.5
+    want = ragged_paged_attention(
+        *map(jnp.asarray, (q, kc, vc, cu, kvl, pt)), scale=scale,
+        q_block=8, kv_block=16, interpret=True, k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs))
+    got = trag.ragged_paged_attention_plain(
+        *_t(q, kc, vc, cu, kvl, pt), scale=scale, k_scale=_t(ks)[0],
+        v_scale=_t(vs)[0])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", [DECODE_CASES[1], DECODE_CASES[2]])
+def test_decode_int8_plain_matches_pallas_interpret(case):
+    rng = np.random.default_rng(9)
+    q, kc, vc, kvl, pt = decode_case(rng, case["kv_lens"], case["Hq"],
+                                     case["Hkv"], case["D"], case["page"],
+                                     case["pages"])
+    kc, vc, ks, vs = int8_cache(rng, kc, vc)
+    scale = case["D"] ** -0.5
+    want = paged_decode_attention(
+        *map(jnp.asarray, (q, kc, vc, kvl, pt)), scale=scale, kv_block=32,
+        interpret=True, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    got = tdec.paged_decode_attention_plain(
+        *_t(q, kc, vc, kvl, pt), scale=scale, k_scale=_t(ks)[0],
+        v_scale=_t(vs)[0])
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=2e-4, atol=2e-4)
 
@@ -106,11 +146,34 @@ def test_dispatch_routes_decode_and_ragged(monkeypatch):
                               max_q_len=1)
 
 
+def test_dispatch_unified_takes_every_batch(monkeypatch):
+    calls = []
+    monkeypatch.setattr(tattn, "paged_decode_attention",
+                        lambda *a, **k: calls.append("decode") or a[0])
+    monkeypatch.setattr(tattn, "ragged_paged_attention",
+                        lambda *a, **k: calls.append(k) or a[0])
+    md = tattn.AttentionMetadata(
+        cu_q_lens=torch.tensor([0, 1, 2], dtype=torch.int32),
+        kv_lens=torch.tensor([3, 5], dtype=torch.int32),
+        page_table=torch.ones((2, 2), dtype=torch.int32))
+    kc = torch.zeros(4, 4, 1, 8, dtype=torch.int8)
+    ks = torch.ones(4, 1)
+    for max_q in (1, 2):
+        tattn.paged_attention(torch.zeros(2, 2, 8), kc, kc, md, scale=1.0,
+                              max_q_len=max_q, impl="unified", k_scale=ks,
+                              v_scale=ks, page_offset=4)
+    assert [c["unified"] for c in calls] == [True, True]
+    assert all(c["k_scale"] is ks and c["page_offset"] == 4 for c in calls)
+    with pytest.raises(ValueError, match="impl"):
+        tattn.paged_attention(torch.zeros(2, 2, 8), kc, kc, md, scale=1.0,
+                              max_q_len=1, impl="pallas")
+
+
 def test_cpu_tensors_take_the_plain_version():
     rng = np.random.default_rng(2)
     q, kc, vc, cu, kvl, pt = ragged_case(rng, [(3, 9)], 4, 2, 16, 4, 8)
     before = (trag.ragged_paged_attention_plain.calls,
-              trag.ragged_paged_attention.launches)
+              dict(trag.ragged_paged_attention.launches))
     trag.ragged_paged_attention(*_t(q, kc, vc, cu, kvl, pt), scale=0.25)
     assert trag.ragged_paged_attention_plain.calls == before[0] + 1
     assert trag.ragged_paged_attention.launches == before[1]

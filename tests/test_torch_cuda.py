@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+ragged (K1, and K1q over an int8 cache), decode (K2, K2q) and unified (K1u
+over either cache), then the engine on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; run
 them on the card with
@@ -54,6 +56,44 @@ def decode_case(rng, kv_lens, Hq, Hkv, D, page, num_pages):
     pt = np.zeros((S, pt_live.shape[1]), np.int32)
     pt[[i for i, kv in enumerate(kv_lens) if kv]] = pt_live
     return q, kc, vc, np.asarray(kv_lens, np.int32), pt
+
+
+def int8_cache(rng, kc, vc):
+    """int8 caches of kc's shape and per-page, per-kv-head scales, drawn as
+    tests/test_unified_step.py draws them."""
+    P, _, Hkv, _ = kc.shape
+    k8, v8 = (rng.integers(-127, 128, kc.shape).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(0.01, 0.02, (P, Hkv)).astype(np.float32)
+              for _ in range(2))
+    return k8, v8, ks, vs
+
+
+# One geometry for every unified case (T 24 tokens, S 8 rows, 8 pages per
+# row), so the Pallas kernel the CPU tests hold the plain version to
+# compiles once per cache type.
+UNIFIED_CASES = {
+    "decode": dict(seqs=[(1, k) for k in (3, 9, 1, 14, 6, 2, 30, 8)],
+                   pad_seqs=0, pad_tokens=16),
+    "mixed": dict(seqs=[(1, k) for k in (3, 9, 14, 6, 30)]
+                  + [(5, 9), (7, 7)], pad_seqs=1, pad_tokens=7),
+    "prefill_first": dict(seqs=[(6, 6), (1, 9), (1, 5), (9, 29), (1, 3),
+                                (1, 12)], pad_seqs=2, pad_tokens=5),
+    "padded_tail": dict(seqs=[(1, 5), (1, 9), (1, 13), (6, 32)],
+                        pad_seqs=4, pad_tokens=15),
+}
+
+
+def unified_case(rng, case, int8, Hq=8, Hkv=2, D=32, page=4, num_pages=64):
+    """(q, k_cache, v_cache, k_scale, v_scale, cu, kv_lens, page_table);
+    the scales are None for a full-precision cache."""
+    q, kc, vc, cu, kvl, pt = ragged_case(
+        rng, case["seqs"], Hq, Hkv, D, page, num_pages,
+        case.get("pad_seqs", 0), case.get("pad_tokens", 0))
+    ks = vs = None
+    if int8:
+        kc, vc, ks, vs = int8_cache(rng, kc, vc)
+    return q, kc, vc, ks, vs, cu, kvl, pt
 
 
 RAGGED_CASES = [
@@ -165,6 +205,172 @@ def test_decode_kernel_matches_plain(cuda_device, case, dtype):
                                atol=TOL[dtype])
 
 
+def _on_card(device, dtype, q, kc, vc, ks, vs, *index):
+    """The case on the card: q (and a full-precision cache) in ``dtype``;
+    the dummy page 0, which no kernel may read, gets NaN payload or NaN
+    scales. Returns (kernel args, plain args with the NaNs zeroed)."""
+    q = torch.from_numpy(q).to(device, dtype)
+    index = [torch.from_numpy(a).to(device) for a in index]
+    if ks is None:
+        kc, vc = (torch.from_numpy(a).to(device, dtype) for a in (kc, vc))
+        kc[0] = float("nan")
+        vc[0] = float("nan")
+        scales = dict()
+        clean = dict(k_cache=torch.nan_to_num(kc),
+                     v_cache=torch.nan_to_num(vc))
+    else:
+        kc, vc, ks, vs = (torch.from_numpy(a).to(device)
+                          for a in (kc, vc, ks, vs))
+        ks[0] = float("nan")
+        vs[0] = float("nan")
+        scales = dict(k_scale=ks, v_scale=vs)
+        clean = dict(k_cache=kc, v_cache=vc, k_scale=torch.nan_to_num(ks),
+                     v_scale=torch.nan_to_num(vs))
+    kernel = dict(dict(k_cache=kc, v_cache=vc), **scales)
+    return q, index, kernel, clean
+
+
+def _check(out, want, dtype):
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [RAGGED_CASES[2], RAGGED_CASES[3],
+                                  dict(seqs=[(9, 33), (1, 5)], pad_tokens=7,
+                                       Hq=16, Hkv=2, D=128, page=8,
+                                       pages=12),
+                                  MAIN_PATH_RAGGED])
+def test_ragged_int8_kernel_matches_plain(cuda_device, case, dtype):
+    rng = np.random.default_rng(13)
+    q, kc, vc, ks, vs, cu, kvl, pt = unified_case(
+        rng, case, True, case["Hq"], case["Hkv"], case["D"], case["page"],
+        case["pages"])
+    q, idx, kern, clean = _on_card(cuda_device, dtype, q, kc, vc, ks, vs,
+                                   cu, kvl, pt)
+    scale = case["D"] ** -0.5
+    out = trag.ragged_paged_attention(q, cu_q_lens=idx[0], kv_lens=idx[1],
+                                      page_table=idx[2], scale=scale, **kern)
+    want = trag.ragged_paged_attention_plain(
+        q, cu_q_lens=idx[0], kv_lens=idx[1], page_table=idx[2], scale=scale,
+        **clean)
+    _check(out, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [
+    DECODE_CASES[1], DECODE_CASES[2],
+    dict(kv_lens=[int(x) for x in
+                  np.random.default_rng(0).integers(256, 2048, 32)],
+         Hq=32, Hkv=8, D=64, page=16, pages=4200),
+    dict(kv_lens=[3000, 0, 257, 1, 256], Hq=8, Hkv=2, D=32, page=16,
+         pages=240)])
+def test_decode_int8_kernel_matches_plain(cuda_device, case, dtype):
+    rng = np.random.default_rng(14)
+    q, kc, vc, kvl, pt = decode_case(rng, case["kv_lens"], case["Hq"],
+                                     case["Hkv"], case["D"], case["page"],
+                                     case["pages"])
+    kc, vc, ks, vs = int8_cache(rng, kc, vc)
+    q, idx, kern, clean = _on_card(cuda_device, dtype, q, kc, vc, ks, vs,
+                                   kvl, pt)
+    scale = case["D"] ** -0.5
+    out = tdec.paged_decode_attention(q, kv_lens=idx[0], page_table=idx[1],
+                                      scale=scale, **kern)
+    want = tdec.paged_decode_attention_plain(
+        q, kv_lens=idx[0], page_table=idx[1], scale=scale, **clean)
+    _check(out, want, dtype)
+
+
+UNIFIED_CARD_CASES = [
+    dict(UNIFIED_CASES[n], Hq=8, Hkv=2, D=32, page=4, pages=64)
+    for n in UNIFIED_CASES] + [
+    # group 1, many-split contexts, rows after the decode prefix, padding
+    dict(seqs=[(1, 3000), (1, 257), (1, 1), (40, 40), (1, 70)], pad_seqs=2,
+         pad_tokens=9, Hq=8, Hkv=8, D=64, page=16, pages=240),
+    dict(seqs=[(9, 33), (1, 5), (1, 600)], pad_tokens=7, Hq=16, Hkv=2,
+         D=128, page=8, pages=100),
+    # the main path's shapes: a pure-decode batch and the mixed batch
+    dict(seqs=[(1, int(x)) for x in
+               np.random.default_rng(0).integers(256, 2048, 32)],
+         Hq=32, Hkv=8, D=64, page=16, pages=4200),
+    MAIN_PATH_RAGGED]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", UNIFIED_CARD_CASES)
+def test_unified_kernel_matches_plain(cuda_device, case, dtype, int8):
+    rng = np.random.default_rng(15)
+    arrays = unified_case(rng, case, int8, case["Hq"], case["Hkv"],
+                          case["D"], case["page"], case["pages"])
+    q, idx, kern, clean = _on_card(cuda_device, dtype, *arrays)
+    scale = case["D"] ** -0.5
+    md = dict(cu_q_lens=idx[0], kv_lens=idx[1], page_table=idx[2])
+    out = trag.ragged_paged_attention(q, **md, scale=scale, unified=True,
+                                      **kern)
+    want = trag.ragged_paged_attention_plain(q, **md, scale=scale,
+                                             unified=True, **clean)
+    _check(out, want, dtype)
+
+
+@pytest.mark.cuda
+def test_new_wrapper_arguments_count_and_refuse(cuda_device):
+    rng = np.random.default_rng(16)
+    case = UNIFIED_CASES["mixed"]
+    q, kc, vc, ks, vs, cu, kvl, pt = (
+        None if a is None else torch.from_numpy(a).to(cuda_device)
+        for a in unified_case(rng, case, True))
+    md = (cu, kvl, pt)
+    counts = trag.ragged_paged_attention.launches
+    before = dict(counts)
+    trag.ragged_paged_attention(q, kc, vc, *md, scale=0.2, k_scale=ks,
+                                v_scale=vs)
+    trag.ragged_paged_attention(q, kc, vc, *md, scale=0.2, k_scale=ks,
+                                v_scale=vs, unified=True)
+    trag.ragged_paged_attention(q, kc.float(), vc.float(), *md, scale=0.2,
+                                unified=True)
+    assert {k: counts[k] - before[k] for k in counts} == {
+        "ragged_paged_attention": 0, "ragged_paged_attention_int8": 1,
+        "ragged_paged_attention_unified": 1,
+        "ragged_paged_attention_unified_int8": 1}
+    d0 = dict(tdec.paged_decode_attention.launches)
+    dq = q[:5].contiguous()
+    tdec.paged_decode_attention(dq, kc, vc, kvl[:5].contiguous(),
+                                pt[:5].contiguous(), scale=0.2, k_scale=ks,
+                                v_scale=vs)
+    assert tdec.paged_decode_attention.launches[
+        "paged_decode_attention_int8"] == d0["paged_decode_attention_int8"] + 1
+    with pytest.raises(ValueError, match="both"):
+        trag.ragged_paged_attention(q, kc, vc, *md, scale=0.2, k_scale=ks)
+    with pytest.raises(ValueError, match="dtype"):       # int8, no scales
+        trag.ragged_paged_attention(q, kc, vc, *md, scale=0.2)
+    with pytest.raises(ValueError, match="float32"):
+        tdec.paged_decode_attention(dq, kc, vc, kvl[:5].contiguous(),
+                                    pt[:5].contiguous(), scale=0.2,
+                                    k_scale=ks.half(), v_scale=vs.half())
+    with pytest.raises(ValueError, match=r"\[P, Hkv\]"):
+        trag.ragged_paged_attention(q, kc, vc, *md, scale=0.2,
+                                    k_scale=ks[1:], v_scale=vs[1:],
+                                    unified=True)
+    # the unified kernel's decode blocks take at most 16 query heads per
+    # kv head
+    q32 = torch.zeros((q.shape[0], 32, q.shape[2]), device=cuda_device)
+    k1 = kc[:, :, :1].contiguous()
+    with pytest.raises(ValueError, match="at most 16"):
+        trag.ragged_paged_attention(q32, k1.float(), k1.float(), *md,
+                                    scale=0.2, unified=True)
+    assert {k: counts[k] - before[k] for k in counts}[
+        "ragged_paged_attention_unified"] == 1
+
+
 @pytest.mark.cuda
 def test_kernel_page_offset_and_launch_count(cuda_device):
     rng = np.random.default_rng(5)
@@ -175,9 +381,10 @@ def test_kernel_page_offset_and_launch_count(cuda_device):
     v_all = np.concatenate([np.zeros_like(vc), vc])
     dev = [torch.from_numpy(a).to(cuda_device)
            for a in (q, k_all, v_all, cu, kvl, pt)]
-    n0 = trag.ragged_paged_attention.launches
+    n0 = trag.ragged_paged_attention.launches["ragged_paged_attention"]
     got = trag.ragged_paged_attention(*dev, scale=0.125, page_offset=P)
-    assert trag.ragged_paged_attention.launches == n0 + 1
+    assert (trag.ragged_paged_attention.launches["ragged_paged_attention"]
+            == n0 + 1)
     want = trag.ragged_paged_attention_plain(
         *[torch.from_numpy(a) for a in (q, kc, vc, cu, kvl, pt)],
         scale=0.125)
@@ -186,11 +393,12 @@ def test_kernel_page_offset_and_launch_count(cuda_device):
     q, kc, vc, kvl, pt = decode_case(rng, [700, 0, 9], 8, 2, 64, 4, 200)
     k_all = np.concatenate([np.zeros_like(kc), kc])
     v_all = np.concatenate([np.zeros_like(vc), vc])
-    n0 = tdec.paged_decode_attention.launches
+    n0 = tdec.paged_decode_attention.launches["paged_decode_attention"]
     got = tdec.paged_decode_attention(
         *[torch.from_numpy(a).to(cuda_device)
           for a in (q, k_all, v_all, kvl, pt)], scale=0.125, page_offset=200)
-    assert tdec.paged_decode_attention.launches == n0 + 1
+    assert (tdec.paged_decode_attention.launches["paged_decode_attention"]
+            == n0 + 1)
     want = tdec.paged_decode_attention_plain(
         *[torch.from_numpy(a) for a in (q, kc, vc, kvl, pt)], scale=0.125)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
@@ -243,15 +451,68 @@ def test_engine_on_card_matches_cpu_greedy(cuda_device):
     rng = np.random.default_rng(8)
     prompts = [rng.integers(1, 1000, n).tolist() for n in (7, 60, 23, 100)]
     sp = gt.SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
-    r0, d0 = (trag.ragged_paged_attention.launches,
-              dec.paged_decode_attention.launches)
+    r0 = trag.ragged_paged_attention.launches["ragged_paged_attention"]
+    d0 = dec.paged_decode_attention.launches["paged_decode_attention"]
     got = [o.output_token_ids for o in card.generate(
         prompt_token_ids=prompts, sampling_params=sp)]
     want = [o.output_token_ids for o in cpu.generate(
         prompt_token_ids=prompts, sampling_params=sp)]
     assert got == want
-    assert trag.ragged_paged_attention.launches > r0
-    assert dec.paged_decode_attention.launches > d0
+    assert trag.ragged_paged_attention.launches["ragged_paged_attention"] > r0
+    assert dec.paged_decode_attention.launches["paged_decode_attention"] > d0
+    mm = card.memory_manager
+    assert mm.num_free_pages == mm.allocator.num_total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,kernels", [
+    (dict(cache_dtype="int8"), ("ragged_paged_attention_int8",
+                                "paged_decode_attention_int8")),
+    (dict(unified_step=True), ("ragged_paged_attention_unified",)),
+    (dict(unified_step=True, cache_dtype="int8"),
+     ("ragged_paged_attention_unified_int8",))])
+def test_int8_and_unified_engines_on_card_match_cpu_greedy(cuda_device, cfg,
+                                                          kernels):
+    """The same float32 weights through the card and the CPU with an int8
+    cache, the unified step, or both: the same greedy tokens, and only
+    the configuration's kernels launched."""
+    import gllm_tpu_torch as gt
+    cfg = dict(cfg)
+    cache_dtype = cfg.pop("cache_dtype", "auto")
+
+    def engine(device, params=None):
+        mc = gt.ModelConfig(architecture="LlamaForCausalLM", vocab_size=1000,
+                            hidden_size=256, num_layers=2, num_heads=8,
+                            num_kv_heads=2, head_dim=32,
+                            intermediate_size=512, max_position=512,
+                            rope_theta=500000.0)
+        ec = gt.EngineConfig(
+            dtype="float32", load_format="dummy", max_model_len=512,
+            scheduler=gt.SchedulerConfig(max_prefill_tokens=48),
+            cache=gt.CacheConfig(page_size=16, num_pages=64,
+                                 kv_cache_dtype=cache_dtype), **cfg)
+        return gt.LLM(model_cfg=mc, config=ec, params=params, device=device)
+
+    card = engine(cuda_device)
+    cpu = engine("cpu", params={
+        "layers": {k: v.cpu() for k, v in
+                   card.runner.params["layers"].items()},
+        **{k: v.cpu() for k, v in card.runner.params.items()
+           if k != "layers"}})
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 1000, n).tolist() for n in (7, 60, 23, 100)]
+    sp = gt.SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+    launches = {**trag.ragged_paged_attention.launches,
+                **tdec.paged_decode_attention.launches}
+    got = [o.output_token_ids for o in card.generate(
+        prompt_token_ids=prompts, sampling_params=sp)]
+    want = [o.output_token_ids for o in cpu.generate(
+        prompt_token_ids=prompts, sampling_params=sp)]
+    assert got == want
+    ran = {k for k, n in {**trag.ragged_paged_attention.launches,
+                          **tdec.paged_decode_attention.launches}.items()
+           if n > launches[k]}
+    assert ran == set(kernels)
     mm = card.memory_manager
     assert mm.num_free_pages == mm.allocator.num_total
 

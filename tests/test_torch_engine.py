@@ -193,8 +193,8 @@ def test_no_device_means_the_card(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("overlap_scheduling", True), ("pipelined_loop", True),
-    ("unified_step", True), ("spec_decode", "ngram"),
-    ("quantization", "int8"), ("kv_cache_dtype", "int8"),
+    ("decode_slot_batching", True), ("spec_decode", "ngram"),
+    ("quantization", "int8"), ("ondevice_finish", True),
     ("kv_cache_dtype", "fp8"), ("kv_cache_dtype", "float32"), ("tp", 2), ("pp", 2), ("dp", 2), ("sp", 2),
     ("kv_host_pool_gb", 1.0), ("kv_disk_path", "/x")])
 def test_validate_refuses_unported_options(field, value):
@@ -204,6 +204,17 @@ def test_validate_refuses_unported_options(field, value):
             setattr(target, field, value)
             break
     with pytest.raises(NotImplementedError):
+        cfg.validate()
+
+
+def test_validate_takes_int8_kv_and_the_unified_sync_step():
+    for dtype in ("bfloat16", "float16", "float32"):
+        gt.EngineConfig(dtype=dtype, unified_step=True,
+                        cache=gt.CacheConfig(kv_cache_dtype="int8")).validate()
+    # the unified step runs the sync loop: overlap scheduling stays refused
+    cfg = gt.EngineConfig(unified_step=True, overlap_scheduling=True)
+    with pytest.raises(NotImplementedError, match="unified_step with "
+                       "overlap_scheduling"):
         cfg.validate()
 
 
