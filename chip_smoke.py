@@ -15,24 +15,33 @@ no result line:
              (profiler) of the kernel, the plain version and one PyTorch
              library call, the kernel wrapper's CUDA-event time, and the
              card's bound: ragged (K1), decode (K2), their int8 modes (K1q,
-             K2q) and the unified kernel (K1u) over both caches
+             K2q) and the unified kernel (K1u) over both caches; then the
+             MLA modes at DeepSeek-V2-Lite's latent geometry (Hq 16 over
+             one 576-wide latent row, values its leading 512, bf16) on the
+             same batch lengths: ragged (K1m) and decode (K2m)
 4. serve     LLM.generate at the full Llama-3.2-1B width (dummy bf16
              weights from a seed) for 16 greedy requests, in four
              configurations: the bf16 sync loop (once), then an int8 KV
              cache, the unified step, and the unified step over an int8
-             cache (three runs each); each must launch exactly its kernels
-             and no plain attention; a profiled window of the first and
-             the last
+             cache (three runs each); then DeepSeek-V2-Lite at full width
+             (27 layers, 64 experts, latent 512 + 64; three runs) after the
+             Llama engines are freed. Each must launch exactly its kernels
+             and no plain attention (DeepSeek: K1m on every layer of every
+             mixed step, K2m on every layer of every decode step); a
+             profiled window of the bf16, unified-int8 and DeepSeek runs
 5. reference depth cut to 2 layers, float32: the port on the card
              (kernels) against the port on the CPU (plain versions) —
              first-step logits and greedy tokens — with a bf16-width
-             float32 cache, an int8 cache, and the unified step
+             float32 cache, an int8 cache, the unified step, and a
+             DeepSeek model (one dense layer, one MoE layer) at the MLA
+             kernels' small latent geometry (64 + 32)
 6. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
 It imports nothing of jax or the JAX package.
 """
 
+import gc
 import json
 import re
 import subprocess
@@ -56,13 +65,21 @@ PEAK_BF16_FLOPS = 989e12
 # the unified kernel on a pure-decode batch stay in float32 throughout.
 DECODE_TOL = (1e-2, 2e-3)
 RAGGED_TOL = (2e-2, 3e-3)
+# The MLA kernels (K1m, K2m) both feed bf16 probabilities to the tensor
+# cores too, and at DeepSeek's softmax scale over a 576-wide row the
+# scores are peaky (std ~2.8): several keys hold probabilities of 0.1..0.5,
+# each rounded by up to 2^-9 of itself, against values |v| <= 4, so an
+# output of any size may move by up to 2^-9 * 4 ~ 0.008: hence their atol.
+MLA_TOL = (2e-2, 8e-3)
 TOL = {"paged_decode_attention": DECODE_TOL,
        "paged_decode_attention_int8": DECODE_TOL,
        "ragged_paged_attention": RAGGED_TOL,
        "ragged_paged_attention_int8": RAGGED_TOL,
        "ragged_paged_attention_unified_decode": DECODE_TOL,
        "ragged_paged_attention_unified": RAGGED_TOL,
-       "ragged_paged_attention_unified_int8": RAGGED_TOL}
+       "ragged_paged_attention_unified_int8": RAGGED_TOL,
+       "ragged_paged_attention_mla": MLA_TOL,
+       "paged_decode_attention_mla": MLA_TOL}
 # kernels-line entry → (launch counter, serve configuration it runs in,
 # source, the TPU kernel it replaces)
 PALLAS = "gllm_tpu/ops/pallas/"
@@ -90,6 +107,12 @@ KERNELS = {
         "ragged_paged_attention_unified_int8", "unified_int8",
         "unified_attention.cu",
         PALLAS + "ragged_attention.py:429 (unified=True, k_scale/v_scale)"),
+    "ragged_paged_attention_mla": (
+        "ragged_paged_attention_mla", "deepseek", "mla_ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429 (v_cache=None, v_dim)"),
+    "paged_decode_attention_mla": (
+        "paged_decode_attention_mla", "deepseek", "mla_decode_attention.cu",
+        PALLAS + "decode_attention.py:188 (v_cache=None, v_dim)"),
 }
 
 
@@ -281,32 +304,47 @@ def measure(name, kernel, plain, plain_dropped, library, iters, nbytes,
     r = check(name, out, plain(), plain_dropped())
     b_ms, b_by = bound(nbytes, flops)
     split = device_split(kernel, iters)
+    lib_split = device_split(library, 5)
     r.update(ms=sum(split.values()), split=split,
              plain_ms=device_ms(plain, 3),
-             library_ms=device_ms(library, 5),
+             library_ms=sum(lib_split.values()),
+             library_backend=sdpa_backend(lib_split),
              wrapper_ms=cuda_ms(kernel, iters), bytes=nbytes, flops=flops,
              bound_ms=b_ms, bound_by=b_by, **info)
     return r
 
 
-def decode_shape(rng, dev):
+def sdpa_backend(split):
+    """The backend scaled_dot_product_attention took, read from the names
+    of the kernels it launched."""
+    names = " ".join(split).lower()
+    for key, backend in (("flash", "flash"), ("cudnn", "cudnn"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in names:
+            return backend
+    return "math (" + ", ".join(n[:40] for n in list(split)[:3]) + ")"
+
+
+def decode_shape(rng, dev, Hq=32, Hkv=8, D=64, quant=True):
     """The decode step of the serving path: S 32 rows, contexts 256..2048,
-    a bf16 cache and its int8 form."""
-    Hkv, D, page = 8, 64, 16
+    a bf16 cache and its int8 form. The lengths depend only on ``rng``'s
+    state, so a second generator from the same seed gives the MLA shape
+    (Hq 16 over one latent row, Hkv 1) the same rows."""
+    page = 16
     S = 32
     kv = rng.integers(256, 2049, S)
     kc, vc, pt = _paged(rng, kv, Hkv, D, page, torch.bfloat16, dev)
-    q = _randn((S, 32, D), dev)
+    q = _randn((S, Hq, D), dev)
     kvl = torch.from_numpy(kv.astype(np.int32)).to(dev)
     return dict(q=q, kc=kc, vc=vc, pt=pt, kvl=kvl, kv=kv.tolist(), page=page,
-                quant=_quantize(kc) + _quantize(vc))
+                quant=_quantize(kc) + _quantize(vc) if quant else None)
 
 
-def mixed_shape(rng, dev):
+def mixed_shape(rng, dev, Hq=32, Hkv=8, D=64, quant=True):
     """A mixed step of the serving path: 24 decode rows + chunks (512 of a
     2048 context, 300 of 812, a fresh 1024), padded to the runner's
     buckets (T 2048, S 32)."""
-    Hkv, D, page = 8, 64, 16
+    page = 16
     seqs = ([(1, int(k)) for k in rng.integers(256, 2049, 24)]
             + [(512, 2048), (300, 812), (1024, 1024)])
     S_real, S_pad, T_pad = len(seqs), 32, 2048
@@ -318,7 +356,7 @@ def mixed_shape(rng, dev):
     cu = np.zeros(S_pad + 1, np.int32)
     cu[1:S_real + 1] = np.cumsum([ql for ql, _ in seqs])
     cu[S_real + 1:] = T_real
-    q = _randn((T_pad, 32, D), dev)
+    q = _randn((T_pad, Hq, D), dev)
     kvl = torch.tensor(kv, dtype=torch.int32, device=dev)
     # the one-token rows lose their last key (a chunk's rows would shift)
     kvl_drop = kvl - torch.tensor([int(ql == 1) for ql, _ in seqs]
@@ -327,7 +365,7 @@ def mixed_shape(rng, dev):
     return dict(q=q, kc=kc, vc=vc, pt=pt, kvl=kvl, kvl_drop=kvl_drop,
                 cu=torch.from_numpy(cu).to(dev), cu_np=cu, seqs=seqs,
                 kv=kv, page=page, T_real=T_real,
-                quant=_quantize(kc) + _quantize(vc))
+                quant=_quantize(kc) + _quantize(vc) if quant else None)
 
 
 def _decode_library(x, kd, vd, scale):
@@ -480,6 +518,8 @@ def phase_kernels():
         del kd, vd
     del x
 
+    results.update(mla_kernels(dev))
+
     for name, r in results.items():
         rtol, atol = TOL[name]
         log(f"[kernels] {name}: {r['shapes']}")
@@ -492,6 +532,7 @@ def phase_kernels():
             f"back to back (CUDA events) {r['wrapper_ms']} ms; bound_ms="
             f"{r['bound_ms']} ({r['bound_by']}; {r['bytes']} bytes, "
             f"{r['flops']} flops)")
+        log(f"[kernels] {name}: library backend {r['library_backend']}")
         if len(r["split"]) > 1:
             log(f"[kernels] {name}: device ms per call by launch: "
                 + ", ".join(f"{k} {v}" for k, v in r["split"].items()))
@@ -506,6 +547,80 @@ def phase_kernels():
     return results
 
 
+def mla_kernels(dev):
+    """K2m and K1m at DeepSeek-V2-Lite's latent geometry (16 query heads
+    over one [c_kv | k_pe] row of 576, values its leading 512, its softmax
+    scale) on K2's decode and K1's mixed batch lengths."""
+    from gllm_tpu_torch.ops.cuda import decode_attention as dec
+    from gllm_tpu_torch.ops.cuda import ragged_attention as rag
+    from gllm_tpu_torch.ops.rope import yarn_softmax_scale_mult
+    cfg = deepseek_v2_lite()
+    Hq, lora, Dl = cfg.num_heads, cfg.kv_lora_rank, cfg.mla_cache_width
+    scale = ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+             * yarn_softmax_scale_mult(cfg.rope_scaling))
+    geo = dict(Hq=Hq, Hkv=1, D=Dl, quant=False)
+    rng = np.random.default_rng(SEED)      # K2's, then K1's lengths
+    results = {}
+    lib_call = ("scaled_dot_product_attention(enable_gqa) over the latent "
+                "gathered dense per sequence: k = the 576-wide row shared "
+                "by the 16 heads, v = k[..., :512]")
+
+    x = decode_shape(rng, dev, **geo)
+    q, lat, kvl, pt, kv, page = (x["q"], x["kc"], x["kvl"], x["pt"],
+                                 x["kv"], x["page"])
+    del x["vc"]
+    S, ctx = len(kv), sum(kv)
+    pages = sum(-(-k // page) for k in kv)
+    # each latent row once; q read, out written, kv_lens, the pages' ids
+    nbytes = ctx * Dl * 2 + S * Hq * (Dl + lora) * 2 + S * 4 + pages * 4
+    kd = _dense_kv(lat, lat, pt, kv, page)[0]
+    name = "paged_decode_attention_mla"
+    kw = dict(scale=scale, v_dim=lora)
+    results[name] = measure(
+        name,
+        lambda: dec.paged_decode_attention(q, lat, None, kvl, pt, **kw),
+        lambda: dec.paged_decode_attention_plain(q, lat, None, kvl, pt, **kw),
+        lambda: dec.paged_decode_attention_plain(q, lat, None, kvl - 1, pt,
+                                                 **kw),
+        _decode_library(x, kd, kd[..., :lora], scale), 50, nbytes,
+        2 * Hq * (Dl + lora) * ctx,
+        shapes=(f"S={S} ctx {min(kv)}..{max(kv)} (sum {ctx}) Hq={Hq} latent "
+                f"[P, {page}, 1, {Dl}] v_dim={lora} bf16, scale {scale:.5f}"),
+        library_call=lib_call)
+    del x, kd
+
+    x = mixed_shape(rng, dev, **geo)
+    q, cu, kvl, pt, kv, page = (x["q"], x["cu"], x["kvl"], x["pt"], x["kv"],
+                                x["page"])
+    lat = x.pop("kc")
+    del x["vc"]
+    seqs, T_real, T_pad = x["seqs"], x["T_real"], q.shape[0]
+    S_real, S_pad = len(seqs), len(kv)
+    visible = sum(k - ql + t + 1 for ql, k in seqs for t in range(ql))
+    pages = sum(-(-k // page) for k in kv)
+    # each context's latent rows once, the real q rows, all out rows (the
+    # padding rows get zeros), cu_q_lens, kv_lens, the pages' ids
+    nbytes = (sum(kv) * Dl * 2 + T_real * Hq * Dl * 2 + T_pad * Hq * lora * 2
+              + (2 * S_pad + 1) * 4 + pages * 4)
+    kd = _dense_kv(lat, lat, pt[:S_real], kv[:S_real], page)[0]
+    name = "ragged_paged_attention_mla"
+    results[name] = measure(
+        name,
+        lambda: rag.ragged_paged_attention(q, lat, None, cu, kvl, pt, **kw),
+        lambda: rag.ragged_paged_attention_plain(q, lat, None, cu, kvl, pt,
+                                                 **kw),
+        lambda: rag.ragged_paged_attention_plain(q, lat, None, cu,
+                                                 x["kvl_drop"], pt, **kw),
+        _mixed_library(x, kd, kd[..., :lora], scale), 20, nbytes,
+        2 * Hq * (Dl + lora) * visible,
+        shapes=(f"T={T_pad} ({T_real} real: 24 decode rows + chunks 512/300/"
+                f"1024) S={S_pad} ({S_real} real) ctx<=2048 Hq={Hq} latent "
+                f"[P, {page}, 1, {Dl}] v_dim={lora} bf16, scale {scale:.5f}"),
+        library_call=lib_call + ", q padded to [S, 16, 1024, 576] with a "
+        "causal bool mask")
+    return results
+
+
 # ---- 4. serve ------------------------------------------------------------
 
 def llama_3_2_1b(**kw):
@@ -516,6 +631,31 @@ def llama_3_2_1b(**kw):
                rope_theta=500000.0, tie_word_embeddings=True)
     cfg.update(kw)
     return ModelConfig(**cfg)
+
+
+def deepseek_v2_lite(**kw):
+    """DeepSeek-V2-Lite's published config.json (the keys the port reads),
+    parsed by the port's from_hf_config; ``kw`` overrides HF keys."""
+    from gllm_tpu_torch import from_hf_config
+    hf = dict(
+        architectures=["DeepseekV2ForCausalLM"], vocab_size=102400,
+        hidden_size=2048, num_hidden_layers=27, num_attention_heads=16,
+        num_key_value_heads=16, q_lora_rank=None, kv_lora_rank=512,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+        intermediate_size=10944, moe_intermediate_size=1408,
+        n_routed_experts=64, num_experts_per_tok=6, n_shared_experts=2,
+        first_k_dense_replace=1, moe_layer_freq=1, topk_method="greedy",
+        n_group=1, topk_group=1, scoring_func="softmax",
+        norm_topk_prob=False, routed_scaling_factor=1.0, rope_theta=10000,
+        rope_scaling={"type": "yarn", "factor": 40,
+                      "original_max_position_embeddings": 4096,
+                      "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
+                      "mscale_all_dim": 0.707},
+        max_position_embeddings=163840, rms_norm_eps=1e-6,
+        tie_word_embeddings=False, bos_token_id=100000,
+        eos_token_id=100001)
+    hf.update(kw)
+    return from_hf_config(hf)
 
 
 def _wrappers():
@@ -542,29 +682,38 @@ def read_counters():
     return counts
 
 
-# serve configurations: (EngineConfig keywords, runs, kernels that must
-# launch, profiled)
+# serve configurations: (model, EngineConfig keywords, runs, the kernel
+# each layer of a step of each kind must launch, profiled)
 SERVE = {
-    "bf16": (dict(), 1, {"ragged_paged_attention", "paged_decode_attention"},
-             True),
-    "int8": (dict(kv_cache_dtype="int8"), 3,
-             {"ragged_paged_attention_int8", "paged_decode_attention_int8"},
-             False),
-    "unified": (dict(unified_step=True), 3,
-                {"ragged_paged_attention_unified"}, False),
-    "unified_int8": (dict(unified_step=True, kv_cache_dtype="int8"), 3,
-                     {"ragged_paged_attention_unified_int8"}, True),
+    "bf16": (llama_3_2_1b, dict(), 1,
+             {"mixed": "ragged_paged_attention",
+              "decode": "paged_decode_attention"}, True),
+    "int8": (llama_3_2_1b, dict(kv_cache_dtype="int8"), 3,
+             {"mixed": "ragged_paged_attention_int8",
+              "decode": "paged_decode_attention_int8"}, False),
+    "unified": (llama_3_2_1b, dict(unified_step=True), 3,
+                {"mixed": "ragged_paged_attention_unified",
+                 "decode": "ragged_paged_attention_unified"}, False),
+    "unified_int8": (llama_3_2_1b,
+                     dict(unified_step=True, kv_cache_dtype="int8"), 3,
+                     {"mixed": "ragged_paged_attention_unified_int8",
+                      "decode": "ragged_paged_attention_unified_int8"},
+                     True),
+    "deepseek": (deepseek_v2_lite, dict(), 3,
+                 {"mixed": "ragged_paged_attention_mla",
+                  "decode": "paged_decode_attention_mla"}, True),
 }
 
 
-def serve(name, kw, runs, must_launch, profiled):
+def serve(name, model, kw, runs, by_kind, profiled):
     from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, SamplingParams
     kw = dict(kw)
     cache = CacheConfig(kv_cache_dtype=kw.pop("kv_cache_dtype", "auto"))
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    llm = LLM(model_cfg=llama_3_2_1b(),
+    llm = LLM(model_cfg=model(),
               config=EngineConfig(load_format="dummy", dtype="bfloat16",
                                   seed=SEED, cache=cache, **kw))
     log(f"[serve {name}] LLM up in {time.monotonic() - t0:.1f} s: "
@@ -609,8 +758,14 @@ def serve(name, kw, runs, must_launch, profiled):
     log(f"[serve {name}] median {sorted(rates)[len(rates) // 2]:.1f} output "
         f"tok/s; steps {steps}; launches {counts}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    assert launched == must_launch, \
-        f"[serve {name}] launched {launched}, expected {must_launch}"
+    assert launched == set(by_kind.values()), \
+        f"[serve {name}] launched {launched}, expected {by_kind}"
+    # every layer of every step of a kind launched that kind's kernel
+    want = dict.fromkeys(by_kind.values(), 0)
+    for kind, kernel in by_kind.items():
+        want[kernel] += steps[kind] * llm.model_cfg.num_layers
+    assert all(counts[k] == n for k, n in want.items()), \
+        f"[serve {name}] launches {counts}, expected {want} from {steps}"
     assert counts["plain_calls"] == 0, "plain attention ran on the card"
     mm = llm.memory_manager
     assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
@@ -619,15 +774,16 @@ def serve(name, kw, runs, must_launch, profiled):
     out = dict(counts=counts, rates=rates, pages=llm.runner.num_pages,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     del llm
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
 def phase_serve():
     results = {}
-    for name, (kw, runs, must, profiled) in SERVE.items():
+    for name, args in SERVE.items():
         t0 = time.monotonic()
-        results[name] = serve(name, kw, runs, must, profiled)
+        results[name] = serve(name, *args)
         log(f"[serve {name}] phase wall {time.monotonic() - t0:.1f} s")
     ratio = results["int8"]["pages"] / results["bf16"]["pages"]
     log(f"[serve] KV pages from the same memory_util: bf16 "
@@ -685,24 +841,33 @@ def profile_window(llm, rng, name):
 # ---- 5. reference --------------------------------------------------------
 
 def phase_reference():
-    """Depth-cut model at float32: the port on the card (CUDA kernels)
-    against the port on the CPU (plain versions), same weights, with a
-    float32 cache, an int8 cache, and the unified step."""
+    """Depth-cut models at float32: the port on the card (CUDA kernels)
+    against the port on the CPU (plain versions), same weights: Llama with
+    a float32 cache, an int8 cache and the unified step, and DeepSeek
+    (one dense layer, one MoE layer) at the MLA kernels' small latent
+    geometry."""
     from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, \
         SamplingParams, SchedulerConfig
-    from gllm_tpu_torch.models import dense
+    from gllm_tpu_torch.models import deepseek, dense
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = llama_3_2_1b(num_layers=2)
-    params = dense.init_params(cfg, SEED, torch.float32, "cuda")
-    cpu_params = {"layers": {k: v.cpu() for k, v in params["layers"].items()},
-                  **{k: v.cpu() for k, v in params.items() if k != "layers"}}
-    rng = np.random.default_rng(SEED + 1)
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
-               for n in (40, 75, 130)]
+    llama = llama_3_2_1b(num_layers=2)
+    ds = deepseek_v2_lite(num_hidden_layers=2, hidden_size=256,
+                          intermediate_size=512, kv_lora_rank=64,
+                          qk_nope_head_dim=32, qk_rope_head_dim=32,
+                          v_head_dim=32, n_routed_experts=8,
+                          num_experts_per_tok=2, moe_intermediate_size=128)
+    weights = {"llama": dense.init_params(llama, SEED, torch.float32, "cuda"),
+               "deepseek": deepseek.init_params(ds, SEED, torch.float32,
+                                                "cuda")}
     sp = SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True)
 
-    def engine(p, device, kv_cache_dtype, unified):
+    def on(params, device):
+        return {g: ({k: v.to(device) for k, v in x.items()}
+                    if isinstance(x, dict) else x.to(device))
+                for g, x in params.items()}
+
+    def engine(cfg, p, device, kv_cache_dtype, unified):
         ec = EngineConfig(dtype="float32", seed=SEED, max_model_len=512,
                           unified_step=unified,
                           scheduler=SchedulerConfig(max_prefill_tokens=64),
@@ -710,13 +875,20 @@ def phase_reference():
                                             kv_cache_dtype=kv_cache_dtype))
         return LLM(model_cfg=cfg, config=ec, params=p, device=device)
 
-    for label, kv_dtype, unified in (("float32 cache", "auto", False),
-                                     ("int8 cache", "int8", False),
-                                     ("unified step", "auto", True)):
+    for label, cfg, params, kv_dtype, unified in (
+            ("float32 cache", llama, weights["llama"], "auto", False),
+            ("int8 cache", llama, weights["llama"], "int8", False),
+            ("unified step", llama, weights["llama"], "auto", True),
+            ("deepseek (latent 64+32, 16 heads)", ds, weights["deepseek"],
+             "auto", False)):
+        rng = np.random.default_rng(SEED + 1)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                   for n in (40, 75, 130)]
         logits, toks = [], []
         reset_counters()
-        for llm in (engine(params, "cuda", kv_dtype, unified),
-                    engine(cpu_params, "cpu", kv_dtype, unified)):
+        for llm in (engine(cfg, params, "cuda", kv_dtype, unified),
+                    engine(cfg, on(params, "cpu"), "cpu", kv_dtype,
+                           unified)):
             seqs = [llm._allocate_seq(p, sp) for p in prompts]
             for seq in seqs:
                 llm.add_seq(seq)
@@ -743,6 +915,8 @@ def phase_reference():
         assert toks[0] == toks[1], \
             f"[reference] {label}: card and CPU greedy tokens differ"
         assert all(len(t) == 8 for t in toks[0])
+    assert counts["ragged_paged_attention_mla"] and \
+        counts["paged_decode_attention_mla"], "[reference] no MLA kernel ran"
 
 
 def main():
@@ -775,7 +949,8 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "bytes": r["bytes"], "flops": r["flops"],
             "library_ms": r["library_ms"],
-            "library_call": r["library_call"], "shapes": r["shapes"]})
+            "library_call": r["library_call"],
+            "library_backend": r["library_backend"], "shapes": r["shapes"]})
     log(f"[done] {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,12 @@ then ignores it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 from gllm_tpu_torch.utils import cdiv
+
+if TYPE_CHECKING:
+    from gllm_tpu_torch.models.config import ModelConfig
 
 
 @dataclasses.dataclass
@@ -103,7 +106,13 @@ class EngineConfig:
     def max_pages_per_seq(self) -> int:
         return cdiv(self.max_model_len, self.cache.page_size)
 
-    def validate(self) -> None:
+    def validate(self, model_cfg: Optional["ModelConfig"] = None) -> None:
+        """Raise on options this port does not implement; with
+        ``model_cfg``, also on a model it does not serve and on options the
+        model's family does not take (an MLA latent cache takes neither
+        the int8 cache nor the unified step)."""
+        if model_cfg is not None:
+            model_cfg.check_supported()
         unported = [k for k, off in _UNPORTED.items()
                     if getattr(self, k) != off]
         p = self.parallel
@@ -122,6 +131,14 @@ class EngineConfig:
                             f"dtype={self.dtype!r}")
         if c.kv_host_pool_gb or c.kv_disk_path or c.prefix_peers:
             unported.append("kvswap/kvstore tiers")
+        if model_cfg is not None and model_cfg.use_mla:
+            if c.kv_cache_dtype == "int8":
+                unported.append("kv_cache_dtype='int8' with an MLA latent "
+                                "cache")
+            if self.unified_step:
+                unported.append("unified_step with an MLA latent cache (the "
+                                "unified kernel over a latent cache is not "
+                                "ported)")
         if unported:
             raise NotImplementedError(
                 "not supported by gllm_tpu_torch yet: "

@@ -1,0 +1,553 @@
+// MLA paged attention over one shared latent cache: the kernels and their
+// launcher, shared by mla_decode_attention.cu (K2m) and
+// mla_ragged_attention.cu (K1m).
+//
+// DeepSeek's absorbed attention is MQA over a latent cache: each token keeps
+// one row [c_kv | k_pe] of DL = kv_lora_rank + qk_rope_head_dim values (576
+// at DeepSeek-V2-Lite), every query head scores over the whole row, and the
+// values are the row's leading DV = kv_lora_rank lanes (512). The TPU kernel
+// (ragged_paged_attention / paged_decode_attention with v_cache=None) reads
+// each latent page once, for both products; so do these kernels: a tile of
+// keys lands in shared memory once, its rows feed Q.K^T, and its first DV
+// columns are V for P.V.
+//
+// Bound on the card. Per key the 16 query heads do 16 * 2 * (DL + DV)
+// flops (34.8 kflop at V2-Lite) over DL * 2 bytes (1152 in bf16), about 30
+// flops per byte: a decode step is still bound by bytes against the bf16
+// tensor cores (295 flops per byte) but not against float32 FMA, and a
+// prefill chunk, whose key tiles serve 64 query rows, is bound by
+// operations. So both modes run on the tensor cores (mma.sync m16n8k16,
+// float32 accumulators): the 16 query heads of one token are exactly the
+// m16 of one MMA row group.
+//
+// Design (bf16 / fp16). A block holds RG row groups of 16 rows (one token's
+// 16 heads each): RG = 1 in decode mode (one token, one split of its keys
+// per block, the splits merged by decode_merge_kernel), RG = 4 in ragged
+// mode (four tokens of one sequence, found from cu_q_lens by locate_block,
+// as the GQA ragged kernel finds its tiles). Each row group has four warps.
+// A 16 x 512 float32 output tile would need 256 accumulator registers in
+// one warp, so the four warps split the output columns (DV / 4 each, 64
+// accumulators a thread) and, for the scores, the keys of each tile (8 of
+// 32 each). The scores go through shared memory: every warp of a row group
+// reads the full 32-key row of P for its slice of P.V. Q (RG*16 x DL) stays
+// in shared memory for the whole walk; 32-key latent tiles are
+// double-buffered with cp.async. At (576, 512) a ragged block uses 160 KB of
+// shared memory and a decode block 95 KB. float32 runs a plain FMA kernel
+// (one token per block) for the reference paths; the tensor cores take no
+// full-precision float32.
+// Not yet done: wgmma/TMA, and a decode block that serves several
+// sequences' tokens at once (S = 32 decode rows give 32 one-token blocks
+// per split, so the split count, not the batch, fills the card).
+#pragma once
+
+#include "decode_attention.cuh"
+#include "ragged_attention.cuh"
+
+namespace gllm {
+
+constexpr int kMlaHeads = 16;  // query heads over the one latent stream
+constexpr int kMlaKeys = 32;   // keys per latent tile
+constexpr int kMlaQuarters = 4;  // warps per 16-row group
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Shared memory of the tensor-core kernel, in bytes: Q rows, two latent
+// tiles (row stride DL + 8 elements: conflict-free ldmatrix), the scores
+// [rows][33] float32, P [rows][40] in T, and per row the running max, sum
+// and this tile's rescale factor.
+template <typename T, int DL, int RG>
+struct MlaSmem {
+  static constexpr int ROWS = 16 * RG;
+  static constexpr int LD = DL + 8;
+  static constexpr int LDS = kMlaKeys + 1;
+  static constexpr int LDP = kMlaKeys + 8;
+  static constexpr size_t K_OFF = (size_t)ROWS * LD * sizeof(T);
+  static constexpr size_t S_OFF =
+      K_OFF + 2 * (size_t)kMlaKeys * LD * sizeof(T);
+  static constexpr size_t P_OFF = S_OFF + (size_t)ROWS * LDS * sizeof(float);
+  static constexpr size_t ST_OFF = P_OFF + (size_t)ROWS * LDP * sizeof(T);
+  static constexpr size_t BYTES = ST_OFF + 3 * ROWS * sizeof(float);
+};
+
+// Zero the output rows [row0, row0 + rows) of width DV.
+template <typename T, int DV>
+__device__ __forceinline__ void zero_rows(T* out, int64_t row0, int rows) {
+  for (int i = threadIdx.x; i < rows * DV; i += blockDim.x)
+    out[row0 * DV + i] = from_float<T>(0.f);
+}
+
+// Which sequence, token tile and key range is this block's? Returns false
+// when the block has no key to read (it has then written what it owns).
+template <typename T, int DV, bool DECODE>
+__device__ __forceinline__ bool mla_locate(const int* cu_q_lens,
+                                           const int* kv_lens, T* out, int S,
+                                           int num_tokens, int bq, int chunk,
+                                           int num_splits, int* s_seq,
+                                           int* s_tile, int& seq,
+                                           int& q_start, int& t_first,
+                                           int& n_tok, int& pos0,
+                                           int& j_begin, int& j_end) {
+  int q_len;
+  if constexpr (DECODE) {
+    seq = blockIdx.x;
+    q_start = seq;
+    q_len = 1;
+    t_first = 0;
+    j_begin = blockIdx.z * chunk;
+  } else {
+    locate_block<false>(cu_q_lens, S, bq, s_seq, s_tile);
+    seq = *s_seq;
+    if (seq < 0) {
+      zero_padding(out, cu_q_lens, S, *s_tile, bq, num_tokens, kMlaHeads,
+                   kMlaHeads, DV, 0);
+      return false;
+    }
+    q_start = cu_q_lens[seq];
+    q_len = cu_q_lens[seq + 1] - q_start;
+    t_first = *s_tile * bq;
+    j_begin = 0;
+  }
+  const int kv_len = kv_lens[seq];
+  n_tok = min(bq, q_len - t_first);
+  pos0 = kv_len - q_len + t_first;
+  j_end = DECODE ? min(kv_len, j_begin + chunk) : min(kv_len, pos0 + n_tok);
+  if (j_begin >= j_end) {
+    // nothing to read; with one split this block owns its output rows
+    if (!DECODE || num_splits == 1)
+      zero_rows<T, DV>(out, (int64_t)(q_start + t_first) * kMlaHeads,
+                       n_tok * kMlaHeads);
+    return false;
+  }
+  return true;
+}
+
+// ---- bf16 / fp16: tensor cores ---------------------------------------------
+
+template <typename T, int DL, int DV, bool DECODE>
+__global__ void __launch_bounds__(DECODE ? 128 : 512)
+    mla_attention_mma_kernel(const T* __restrict__ q,
+                             const T* __restrict__ lat,
+                             const int* __restrict__ cu_q_lens,
+                             const int* __restrict__ kv_lens,
+                             const int* __restrict__ page_table,
+                             T* __restrict__ out, float* __restrict__ part,
+                             int num_tokens, int S, int max_pages,
+                             int page_size, int page_offset, int chunk,
+                             int num_splits, float scale_log2) {
+  constexpr int RG = DECODE ? 1 : 4;
+  using SM = MlaSmem<T, DL, RG>;
+  constexpr int ROWS = SM::ROWS;
+  constexpr int LD = SM::LD;
+  constexpr int CPR = DL / 8;                    // 16-byte chunks per row
+  constexpr int DVW = DV / kMlaQuarters;         // output columns per warp
+  constexpr int NDW = DVW / 8;                   // their n-tiles
+  static_assert(DL % 16 == 0 && DV % 64 == 0 && DV <= DL, "MLA geometry");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sq = reinterpret_cast<T*>(smem_raw);
+  T* sk0 = reinterpret_cast<T*>(smem_raw + SM::K_OFF);
+  float* ss = reinterpret_cast<float*>(smem_raw + SM::S_OFF);
+  T* sp = reinterpret_cast<T*>(smem_raw + SM::P_OFF);
+  float* sm = reinterpret_cast<float*>(smem_raw + SM::ST_OFF);
+  float* sl = sm + ROWS;
+  float* sa = sl + ROWS;
+  __shared__ int s_seq, s_tile;
+
+  int seq, q_start, t_first, n_tok, pos0, j_begin, j_end;
+  if (!mla_locate<T, DV, DECODE>(cu_q_lens, kv_lens, out, S, num_tokens, RG,
+                                 chunk, num_splits, &s_seq, &s_tile, seq,
+                                 q_start, t_first, n_tok, pos0, j_begin,
+                                 j_end))
+    return;
+  const int tid = threadIdx.x;
+  const int n_rows = n_tok * kMlaHeads;
+  const int64_t row_base = (int64_t)(q_start + t_first) * kMlaHeads;
+  const int* pt_row = page_table + (int64_t)seq * max_pages;
+
+  // Q rows of the block (zero past n_rows); committed with the first tile
+  for (int c = tid; c < ROWS * CPR; c += blockDim.x) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const bool valid = r < n_rows;
+    cp_async16(sq + r * LD + col, q + (valid ? (row_base + r) * DL + col : 0),
+               valid);
+  }
+  if (tid < ROWS) {
+    sm[tid] = -INFINITY;
+    sl[tid] = 0.f;
+  }
+  auto issue = [&](int st, int j0) {
+    T* dst = sk0 + st * kMlaKeys * LD;
+    const int n = min(kMlaKeys, j_end - j0);
+    for (int c = tid; c < kMlaKeys * CPR; c += blockDim.x) {
+      const int r = c / CPR, col = (c % CPR) * 8;
+      const bool valid = r < n;
+      const int64_t off =
+          valid ? kv_row_offset(pt_row, j0 + r, page_size, page_offset, 1,
+                                DL, 0) + col
+                : 0;
+      cp_async16(dst + r * LD + col, lat + off, valid);
+    }
+    cp_async_commit();
+  };
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int rg = warp / kMlaQuarters, wq = warp % kMlaQuarters;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool live = rg < n_tok;              // warp-uniform
+  // the last key the row group's token sees (decode: the split's end)
+  const int pos = DECODE ? j_end - 1 : pos0 + rg;
+  const int dv0 = wq * DVW;
+  float o[NDW][4];
+#pragma unroll
+  for (int dn = 0; dn < NDW; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+
+  const int n_tiles = (j_end - j_begin + kMlaKeys - 1) / kMlaKeys;
+  issue(0, j_begin);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = j_begin + it * kMlaKeys;
+    if (it + 1 < n_tiles)
+      issue((it + 1) & 1, j0 + kMlaKeys);
+    else
+      cp_async_commit();  // keep the count even
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+    const T* sk = sk0 + (it & 1) * kMlaKeys * LD;
+
+    // S = Q K^T: this warp's 16 rows x 8 keys (one n-tile) over DL
+    {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      const bool any = live && j0 <= pos;
+      if (any) {
+        const T* qa = sq + (rg * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+        const T* kr = sk + (wq * 8 + g) * LD + 2 * t4;
+#pragma unroll 6
+        for (int kk = 0; kk < DL / 16; ++kk) {
+          uint32_t a[4];
+          ldmatrix_x4(a, qa + kk * 16);
+          Mma<T>::run(s, a, *reinterpret_cast<const uint32_t*>(kr + kk * 16),
+                      *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = wq * 8 + 2 * t4 + (e & 1);
+        const int j = j0 + key;
+        const bool ok = any && j < j_end && j <= pos;
+        ss[(rg * 16 + g + 8 * (e >> 1)) * SM::LDS + key] =
+            ok ? s[e] * scale_log2 : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // online softmax: 8 threads a row, 4 keys each
+    {
+      const int row = tid >> 3, part8 = tid & 7;
+      const float* sr = ss + row * SM::LDS + part8 * 4;
+      float x[4];
+      float mt = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = sr[i];
+        mt = fmaxf(mt, x[i]);
+      }
+#pragma unroll
+      for (int o8 = 1; o8 < 8; o8 <<= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o8));
+      const float m_old = sm[row];
+      const float m_new = fmaxf(m_old, mt);
+      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2f(x[i] - m_safe);
+        sum += p;
+        sp[row * SM::LDP + part8 * 4 + i] = from_float<T>(p);
+      }
+#pragma unroll
+      for (int o8 = 1; o8 < 8; o8 <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o8);
+      if (part8 == 0) {
+        const float alpha = exp2f(m_old - m_safe);  // 0 before the first key
+        sa[row] = alpha;
+        sl[row] = sl[row] * alpha + sum;
+        sm[row] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // O = O * alpha + P V on this warp's DV / 4 columns; V is the first DV
+    // columns of the latent tile
+    if (live) {
+      const float al0 = sa[rg * 16 + g], al1 = sa[rg * 16 + g + 8];
+#pragma unroll
+      for (int dn = 0; dn < NDW; ++dn) {
+        o[dn][0] *= al0;
+        o[dn][1] *= al0;
+        o[dn][2] *= al1;
+        o[dn][3] *= al1;
+      }
+      const int mi = lane >> 3;
+#pragma unroll
+      for (int kk = 0; kk < kMlaKeys / 16; ++kk) {
+        const T* pr = sp + (rg * 16 + g) * SM::LDP + kk * 16 + 2 * t4;
+        const uint32_t pa[4] = {
+            *reinterpret_cast<const uint32_t*>(pr),
+            *reinterpret_cast<const uint32_t*>(pr + 8 * SM::LDP),
+            *reinterpret_cast<const uint32_t*>(pr + 8),
+            *reinterpret_cast<const uint32_t*>(pr + 8 * SM::LDP + 8)};
+        const T* vr = sk + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LD + dv0 +
+                      (mi >> 1) * 8;
+#pragma unroll
+        for (int dn = 0; dn < NDW; dn += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vr + dn * 8);
+          Mma<T>::run(o[dn], pa, b[0], b[1]);
+          Mma<T>::run(o[dn + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  if (!live) return;
+  const int r0 = rg * 16 + g, r1 = r0 + 8;
+  if (!DECODE || num_splits == 1) {
+    const float inv0 = sl[r0] > 0.f ? 1.f / sl[r0] : 0.f;
+    const float inv1 = sl[r1] > 0.f ? 1.f / sl[r1] : 0.f;
+    T* o0 = out + (row_base + r0) * DV + dv0 + 2 * t4;
+    T* o1 = out + (row_base + r1) * DV + dv0 + 2 * t4;
+#pragma unroll
+    for (int dn = 0; dn < NDW; ++dn) {
+      *reinterpret_cast<uint32_t*>(o0 + dn * 8) =
+          Mma<T>::pack(o[dn][0] * inv0, o[dn][1] * inv0);
+      *reinterpret_cast<uint32_t*>(o1 + dn * 8) =
+          Mma<T>::pack(o[dn][2] * inv1, o[dn][3] * inv1);
+    }
+    return;
+  }
+  // partial of this split (decode_merge_kernel's layout): [DV]
+  // unnormalised sums, then (max, sum)
+  const int split = blockIdx.z;
+  float* p0 = part + ((row_base + r0) * num_splits + split) * (DV + 2);
+  float* p1 = part + ((row_base + r1) * num_splits + split) * (DV + 2);
+#pragma unroll
+  for (int dn = 0; dn < NDW; ++dn) {
+    const int c = dv0 + dn * 8 + 2 * t4;
+    p0[c] = o[dn][0];
+    p0[c + 1] = o[dn][1];
+    p1[c] = o[dn][2];
+    p1[c + 1] = o[dn][3];
+  }
+  if (wq == 0 && t4 == 0) {
+    p0[DV] = sm[r0];
+    p0[DV + 1] = sl[r0];
+    p1[DV] = sm[r1];
+    p1[DV + 1] = sl[r1];
+  }
+}
+
+// ---- float32: plain FMA, one token (16 rows) per block ---------------------
+
+constexpr int kMlaFmaThreads = 256;
+
+template <int DL>
+struct MlaFmaSmem {
+  static constexpr int LDK = DL + 1;  // odd stride: lane j reads row j
+  static constexpr int LDP = kMlaKeys + 1;
+  static constexpr int K = kMlaHeads * DL;
+  static constexpr int P = K + kMlaKeys * LDK;
+  static constexpr int A = P + kMlaHeads * LDP;
+  static constexpr int M = A + kMlaHeads;
+  static constexpr int L = M + kMlaHeads;
+  static constexpr size_t BYTES = (L + kMlaHeads) * sizeof(float);
+};
+
+template <typename T, int DL, int DV, bool DECODE>
+__global__ void __launch_bounds__(kMlaFmaThreads)
+    mla_attention_fma_kernel(const T* __restrict__ q,
+                             const T* __restrict__ lat,
+                             const int* __restrict__ cu_q_lens,
+                             const int* __restrict__ kv_lens,
+                             const int* __restrict__ page_table,
+                             T* __restrict__ out, float* __restrict__ part,
+                             int num_tokens, int S, int max_pages,
+                             int page_size, int page_offset, int chunk,
+                             int num_splits, float scale_log2) {
+  using SM = MlaFmaSmem<DL>;
+  constexpr int DC = DV / 16;  // output columns per thread
+  extern __shared__ float fsmem[];
+  float* sq = fsmem;
+  float* sk = fsmem + SM::K;
+  float* sp = fsmem + SM::P;
+  float* sa = fsmem + SM::A;
+  float* sm = fsmem + SM::M;
+  float* sl = fsmem + SM::L;
+  __shared__ int s_seq, s_tile;
+
+  int seq, q_start, t_first, n_tok, pos0, j_begin, j_end;
+  if (!mla_locate<T, DV, DECODE>(cu_q_lens, kv_lens, out, S, num_tokens, 1,
+                                 chunk, num_splits, &s_seq, &s_tile, seq,
+                                 q_start, t_first, n_tok, pos0, j_begin,
+                                 j_end))
+    return;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int64_t row_base = (int64_t)(q_start + t_first) * kMlaHeads;
+  const int* pt_row = page_table + (int64_t)seq * max_pages;
+  const int pos = DECODE ? j_end - 1 : pos0;
+  for (int i = tid; i < kMlaHeads * DL; i += blockDim.x)
+    sq[i] = to_float(q[row_base * DL + i]) * scale_log2;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // P.V mapping: row pr, columns pc + 16 * c
+  const int pr = tid >> 4, pc = tid & 15;
+  float acc[DC];
+#pragma unroll
+  for (int c = 0; c < DC; ++c) acc[c] = 0.f;
+
+  for (int j0 = j_begin; j0 < j_end; j0 += kMlaKeys) {
+    const int n = min(kMlaKeys, j_end - j0);
+    __syncthreads();  // the previous tile has been consumed
+    load_kv_tile<T, DL>(sk, SM::LDK, lat, nullptr, pt_row, j0, kMlaKeys, n,
+                        page_size, page_offset, 1, 0);
+    __syncthreads();
+    // warp w scores rows w and w + 8, lane j key j
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = warp + 8 * i;
+      const bool ok = lane < n && j0 + lane <= pos;
+      float sc = -INFINITY;
+      if (ok) {
+        const float* qr = sq + row * DL;
+        const float* kr = sk + lane * SM::LDK;
+        float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int d = 0; d < DL; d += 4)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) a[u] = fmaf(qr[d + u], kr[d + u], a[u]);
+        sc = (a[0] + a[1]) + (a[2] + a[3]);
+      }
+      // finite: key j0 <= pos is visible to every row
+      const float m_new = fmaxf(m[i], warp_max(sc));
+      const float p = ok ? exp2f(sc - m_new) : 0.f;
+      const float alpha = exp2f(m[i] - m_new);  // 0 on the first tile
+      l[i] = l[i] * alpha + warp_sum(p);
+      m[i] = m_new;
+      sp[row * SM::LDP + lane] = p;
+      if (lane == 0) sa[row] = alpha;
+    }
+    __syncthreads();
+    const float al = sa[pr];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[c] *= al;
+    for (int jj = 0; jj < kMlaKeys; ++jj) {
+      const float p = sp[pr * SM::LDP + jj];
+      const float* vr = sk + jj * SM::LDK + pc;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[c] = fmaf(p, vr[16 * c], acc[c]);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sm[warp + 8 * i] = m[i];
+      sl[warp + 8 * i] = l[i];
+    }
+  }
+  __syncthreads();
+  if (!DECODE || num_splits == 1) {
+    const float inv = 1.f / sl[pr];  // key pos0 (or the split's first) seen
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      out[(row_base + pr) * DV + pc + 16 * c] = from_float<T>(acc[c] * inv);
+    return;
+  }
+  float* pp = part + ((row_base + pr) * num_splits + blockIdx.z) * (DV + 2);
+#pragma unroll
+  for (int c = 0; c < DC; ++c) pp[pc + 16 * c] = acc[c];
+  if (pc == 0) {
+    pp[DV] = sm[pr];
+    pp[DV + 1] = sl[pr];
+  }
+}
+
+// ---- launch ----------------------------------------------------------------
+
+// Launch the MLA kernel over S sequences (DECODE: one token each, in
+// num_splits splits of `chunk` keys, merged by decode_merge_kernel when
+// there are more than one; else T_ ragged tokens): tensor cores for bf16 /
+// fp16, FMA for float32.
+template <typename T, int DL, int DV, bool DECODE>
+static int launch_mla(const void* q, const void* lat, const int* cu,
+                      const int* kv_lens, const int* pt, void* out,
+                      float* part, int T_, int S, int max_pages,
+                      int page_size, int page_offset, int chunk,
+                      int num_splits, float scale, cudaStream_t stream) {
+  using Kernel = void (*)(const T*, const T*, const int*, const int*,
+                          const int*, T*, float*, int, int, int, int, int,
+                          int, int, float);
+  Kernel kern;
+  size_t smem;
+  int threads, bq;  // threads and tokens per block
+  if constexpr (std::is_same<T, float>::value) {
+    kern = mla_attention_fma_kernel<T, DL, DV, DECODE>;
+    smem = MlaFmaSmem<DL>::BYTES;
+    threads = kMlaFmaThreads;
+    bq = 1;
+  } else {
+    kern = mla_attention_mma_kernel<T, DL, DV, DECODE>;
+    smem = MlaSmem<T, DL, DECODE ? 1 : 4>::BYTES;
+    threads = DECODE ? 128 : 512;
+    bq = DECODE ? 1 : 4;
+  }
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const dim3 grid = DECODE ? dim3(S, 1, num_splits)
+                           : dim3((T_ + bq - 1) / bq + S, 1, 1);
+  kern<<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(lat), cu, kv_lens, pt,
+      static_cast<T*>(out), part, T_, S, max_pages, page_size, page_offset,
+      chunk, num_splits, scale * kLog2e);
+  if (DECODE && num_splits > 1)
+    decode_merge_kernel<T, DV, false>
+        <<<dim3(S, kMlaHeads), 32, 0, stream>>>(
+            part, cu, kv_lens, static_cast<T*>(out), kMlaHeads, chunk,
+            num_splits);
+  return 0;
+}
+
+// f(T{}, DL, DV) for the dtype code and one of the latent geometries the
+// kernels are built for: DeepSeek V2/V3's (576, 512), and (96, 64) for
+// small test models.
+template <typename F>
+static int dispatch_mla(int dtype, int latent_dim, int v_dim, F&& f) {
+  auto dims = [&](auto t) -> int {
+    if (latent_dim == 576 && v_dim == 512)
+      return f(t, std::integral_constant<int, 576>{},
+               std::integral_constant<int, 512>{});
+    if (latent_dim == 96 && v_dim == 64)
+      return f(t, std::integral_constant<int, 96>{},
+               std::integral_constant<int, 64>{});
+    return (int)cudaErrorInvalidValue;
+  };
+  switch (dtype) {
+    case kFloat32:
+      return dims(float{});
+    case kBFloat16:
+      return dims(__nv_bfloat16{});
+    case kFloat16:
+      return dims(__half{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace gllm

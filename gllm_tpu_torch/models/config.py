@@ -1,10 +1,13 @@
 """Model configuration, parsed from HF config.json dicts (counterpart of
-``gllm_tpu/models/config.py``: ``ModelConfig:16``, ``from_hf_config:215``).
+``gllm_tpu/models/config.py``: ``ModelConfig:16``, MLA and DeepSeek MoE
+fields ``:50-106``, ``from_hf_config:215``).
 
-This port serves the dense GQA decoder family (Llama / Qwen2 / Qwen3 /
-GLM-class). The fields that mark the other families (MoE experts, MLA
-latent KV, hybrid linear attention, vision towers) are kept so a config of
-such a model parses, and ``ModelConfig.check_supported`` refuses it.
+This port serves two families: the dense GQA decoder (Llama / Qwen2 /
+Qwen3 / GLM-class) and DeepSeek V2/V3 (MLA latent KV + DeepSeekMoE,
+without DSA). The fields that mark the other families (other MoE
+architectures, DSA, hybrid linear attention, vision towers) are kept so a
+config of such a model parses, and ``ModelConfig.check_supported`` refuses
+it.
 """
 
 from __future__ import annotations
@@ -35,11 +38,51 @@ class ModelConfig:
     sandwich_norms: bool = False      # GLM4 post_self_attn/post_mlp norms
     eos_token_id: Any = None
     hidden_act: str = "silu"
-    # Families this port does not serve yet (check_supported refuses them).
+    # MoE (DeepSeekMoE here; check_supported refuses experts on any other
+    # architecture)
     num_experts: int = 0
-    kv_lora_rank: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = True
+    # MLA (DeepSeek V2/V3)
+    q_lora_rank: int = 0              # 0 → direct q projection (V2-Lite)
+    kv_lora_rank: int = 0             # > 0 enables the MLA latent cache
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # DeepSeek MoE routing
+    first_k_dense_replace: int = 0
+    n_shared_experts: int = 0
+    routed_scaling_factor: float = 1.0
+    n_group: int = 0
+    topk_group: int = 0
+    scoring_func: str = "softmax"     # softmax (V2) | sigmoid (V3)
+    topk_method: str = "greedy"       # greedy | group_limited_greedy |
+                                      # noaux_tc (V3 bias-corrected)
+    # Families this port does not serve yet (check_supported refuses them):
+    # DeepSeek V3.2 sparse attention (DSA), hybrid, multimodal.
+    index_n_heads: int = 0
+    index_head_dim: int = 0
+    index_topk: int = 0
     layer_types: Tuple[str, ...] = ()
     vision_config: Optional[Dict[str, Any]] = None
+
+    @property
+    def use_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def mla_cache_width(self) -> int:
+        """Width of one latent cache row, ``[c_kv | k_pe]``: kv_lora_rank +
+        qk_rope_head_dim (576 for DeepSeek V2/V3). The JAX package pads the
+        row to 640, a multiple of the TPU's 128 lanes; the CUDA kernels need
+        no such pad, and a decode step, which is bound by bytes, would read
+        11% more for it, so this port stores the row unpadded."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def use_dsa(self) -> bool:
+        return self.index_topk > 0 and self.index_n_heads > 0
 
     @property
     def eos_token_ids(self) -> Tuple[int, ...]:
@@ -52,10 +95,15 @@ class ModelConfig:
 
     def check_supported(self) -> None:
         unported = []
-        if self.num_experts:
-            unported.append("MoE")
-        if self.kv_lora_rank:
-            unported.append("MLA")
+        deepseek = self.architecture in DEEPSEEK_ARCHS
+        if self.num_experts and not deepseek:
+            unported.append(f"MoE ({self.architecture})")
+        if self.kv_lora_rank and not deepseek:
+            unported.append(f"MLA ({self.architecture})")
+        if deepseek and not self.kv_lora_rank:
+            unported.append(f"{self.architecture} without kv_lora_rank")
+        if self.use_dsa:
+            unported.append("DeepSeek sparse attention (index_topk)")
         if "linear_attention" in self.layer_types:
             unported.append("hybrid linear attention")
         if self.vision_config is not None:
@@ -68,6 +116,10 @@ class ModelConfig:
                 + ", ".join(unported))
 
 
+# DeepSeek V2/V3 (MLA + DeepSeekMoE); V3.2 (DSA) and Kimi stay refused
+DEEPSEEK_ARCHS = ("DeepseekV2ForCausalLM", "DeepseekV3ForCausalLM")
+
+
 def _eos_tuple(v) -> Optional[Tuple[int, ...]]:
     if v is None:
         return None
@@ -77,7 +129,8 @@ def _eos_tuple(v) -> Optional[Tuple[int, ...]]:
 
 
 def from_hf_config(hf: Dict[str, Any]) -> ModelConfig:
-    """Parse a dense decoder's HF config.json dict into a ModelConfig."""
+    """Parse a dense decoder's or a DeepSeek model's HF config.json dict
+    into a ModelConfig."""
     arch = (hf.get("architectures")
             or (hf.get("text_config") or {}).get("architectures")
             or ["LlamaForCausalLM"])[0]
@@ -117,7 +170,24 @@ def from_hf_config(hf: Dict[str, Any]) -> ModelConfig:
         num_experts=hf.get("num_experts",
                            hf.get("num_local_experts",
                                   hf.get("n_routed_experts", 0)) or 0),
+        num_experts_per_tok=hf.get("num_experts_per_tok", 0) or 0,
+        moe_intermediate_size=hf.get("moe_intermediate_size", 0) or 0,
+        norm_topk_prob=hf.get("norm_topk_prob", True),
+        q_lora_rank=hf.get("q_lora_rank", 0) or 0,
         kv_lora_rank=hf.get("kv_lora_rank", 0) or 0,
+        qk_nope_head_dim=hf.get("qk_nope_head_dim", 0) or 0,
+        qk_rope_head_dim=hf.get("qk_rope_head_dim", 0) or 0,
+        v_head_dim=hf.get("v_head_dim", 0) or 0,
+        first_k_dense_replace=hf.get("first_k_dense_replace", 0) or 0,
+        n_shared_experts=hf.get("n_shared_experts", 0) or 0,
+        routed_scaling_factor=hf.get("routed_scaling_factor", 1.0) or 1.0,
+        n_group=hf.get("n_group", 0) or 0,
+        topk_group=hf.get("topk_group", 0) or 0,
+        scoring_func=hf.get("scoring_func", "softmax") or "softmax",
+        topk_method=hf.get("topk_method", "greedy") or "greedy",
+        index_n_heads=hf.get("index_n_heads", 0) or 0,
+        index_head_dim=hf.get("index_head_dim", 0) or 0,
+        index_topk=hf.get("index_topk", 0) or 0,
         layer_types=tuple(hf.get("layer_types", ()) or ()),
         vision_config=hf.get("vision_config"),
     )

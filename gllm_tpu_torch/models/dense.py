@@ -60,6 +60,18 @@ def init_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     return KVCache(*kv)
 
 
+def kv_bytes_per_page(cfg: ModelConfig, page_size: int,
+                      kv_dtype: torch.dtype) -> int:
+    """Device bytes of one page across the layers, K and V; an int8 page
+    adds its float32 scale rows."""
+    itemsize = torch.empty(0, dtype=kv_dtype).element_size()
+    per_page = (2 * cfg.num_layers * page_size * cfg.num_kv_heads
+                * cfg.head_dim * itemsize)
+    if kv_dtype == torch.int8:
+        per_page += 2 * cfg.num_layers * cfg.num_kv_heads * 4
+    return per_page
+
+
 def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
                 device) -> Params:
     """Random weights with the JAX dummy init's scales, drawn from a
@@ -188,6 +200,5 @@ def compute_logits(params: Params, hidden: torch.Tensor,
 def make_rope_table(cfg: ModelConfig,
                     device: Optional[torch.device] = None) -> torch.Tensor:
     rot_dim = int(cfg.head_dim * cfg.partial_rotary_factor)
-    table = compute_rope_cos_sin(rot_dim, cfg.max_position, cfg.rope_theta,
-                                 cfg.rope_scaling)
-    return table.to(device) if device is not None else table
+    return compute_rope_cos_sin(rot_dim, cfg.max_position, cfg.rope_theta,
+                                cfg.rope_scaling, device=device)

@@ -1,5 +1,6 @@
 """Paged attention dispatch (counterpart of ``gllm_tpu/ops/attention.py``:
-``paged_attention:79``, ``_paged_attention:174``).
+``paged_attention:79``, ``_paged_attention:174``, the ``v_cache=None``
+routing of ``:190-201``).
 
 One call serves a step's whole batch against the paged KV cache. With
 ``impl="legacy"`` (the engine without ``unified_step``):
@@ -14,10 +15,14 @@ the ragged wrapper's unified kernel, whatever ``max_q_len`` says: decode
 rows are one-token rows of the ragged batch.
 
 ``k_scale``/``v_scale`` ([P, Hkv] float32) mark an int8 cache; every
-kernel dequantizes on its read path. Each wrapper launches its CUDA kernel
-for CUDA tensors and takes its plain PyTorch version only for tensors on
-the CPU. The JAX package's lane-packed KV layout exists only for the TPU's
-128-lane tiles; this port stores the native [P, page, Hkv, D] cache.
+kernel dequantizes on its read path. ``v_cache=None`` marks an MLA latent
+cache [P, page, 1, Dl], whose values are the keys' leading ``v_dim`` lanes:
+the legacy pair's MLA kernels (K1m, K2m) serve it; the unified kernel over
+a latent cache is not ported and raises. Each wrapper launches its CUDA
+kernel for CUDA tensors and takes its plain PyTorch version only for
+tensors on the CPU. The JAX package's lane-packed KV layout exists only
+for the TPU's 128-lane tiles; this port stores the native
+[P, page, Hkv, D] cache.
 
 Metadata layout (built by the runner, padded to bucketed sizes):
 - cu_q_lens: [S+1] int32 — cumulative query lengths (padded seqs repeat
@@ -43,13 +48,24 @@ class AttentionMetadata(NamedTuple):
 
 
 def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                    v_cache: torch.Tensor, md: AttentionMetadata, *,
+                    v_cache, md: AttentionMetadata, *,
                     scale: float, max_q_len: int, page_offset: int = 0,
                     impl: str = "legacy", k_scale=None,
-                    v_scale=None) -> torch.Tensor:
+                    v_scale=None, v_dim=None) -> torch.Tensor:
     """q [T, Hq, D] against caches [P, page, Hkv, D] (page ids in
-    ``md.page_table`` are offset by ``page_offset``) → [T, Hq, D]."""
+    ``md.page_table`` are offset by ``page_offset``) → [T, Hq, D]; with
+    ``v_cache`` None → [T, Hq, v_dim]."""
     scales = dict(k_scale=k_scale, v_scale=v_scale)
+    if v_cache is None:
+        if v_dim is None:
+            raise ValueError("v_dim required when v_cache is None")
+        if impl == "unified":
+            raise NotImplementedError(
+                "the unified kernel over an MLA latent cache is not ported")
+        if k_scale is not None:
+            raise NotImplementedError("an int8 MLA latent cache is not "
+                                      "supported")
+        scales = dict(v_dim=v_dim)
     if impl == "unified":
         return ragged_paged_attention(q, k_cache, v_cache, md.cu_q_lens,
                                       md.kv_lens, md.page_table, scale=scale,

@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "gllm_tpu_torch"
-SOURCES = ("decode_attention", "ragged_attention", "unified_attention")
+SOURCES = ("decode_attention", "ragged_attention", "unified_attention",
+           "mla_decode_attention", "mla_ragged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -44,6 +45,10 @@ _SIGNATURES = {
                          [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
     "unified_attention": ("gllm_unified_attention",
                           [_P] * 10 + [_I] * 10 + [_F, _I, _P]),
+    "mla_decode_attention": ("gllm_mla_decode_attention",
+                             [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
+    "mla_ragged_attention": ("gllm_mla_ragged_attention",
+                             [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -8,6 +8,11 @@ import torch
 from gllm_tpu_torch.ops.cuda.build import DTYPE_CODES
 
 HEAD_DIMS = (32, 64, 128)
+# MLA kernels (csrc/mla_attention.cuh): 16 query heads over one latent
+# stream, and the (latent row width, v_dim) geometries they are built for:
+# DeepSeek V2/V3's (576, 512) and (96, 64) for small test models
+MLA_HEADS = 16
+MLA_GEOMETRIES = ((576, 512), (96, 64))
 
 
 def gather_pages(cache, scale, pages):
@@ -18,6 +23,45 @@ def gather_pages(cache, scale, pages):
     if scale is not None:
         x = x * scale[pages][..., None, :, None]
     return x
+
+
+def check_mla_geometry(num_heads: int, latent_dim: int, v_dim: int) -> None:
+    """Raise NotImplementedError, naming the value, on an MLA geometry the
+    CUDA kernels are not built for."""
+    if num_heads != MLA_HEADS:
+        raise NotImplementedError(
+            f"MLA kernels take {MLA_HEADS} query heads per latent stream, "
+            f"got {num_heads}")
+    if (latent_dim, v_dim) not in MLA_GEOMETRIES:
+        raise NotImplementedError(
+            f"MLA kernels take (latent width, v_dim) in {MLA_GEOMETRIES}, "
+            f"got ({latent_dim}, {v_dim})")
+
+
+def check_latent_inputs(what: str, q, latent, v_dim, index_tensors) -> None:
+    """Raise on anything the MLA kernels do not take: q [T, 16, Dl] and a
+    latent cache [P, page, 1, Dl] of one dtype, a supported (Dl, v_dim),
+    int32 metadata, contiguous and 16-byte aligned on one CUDA device."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: needs CUDA or CPU tensors, got "
+                         f"{q.device}")
+    if any(t.device != q.device for t in (latent,) + tuple(index_tensors)):
+        raise ValueError(f"{what}: all tensors must be on {q.device}")
+    if q.dtype not in DTYPE_CODES or latent.dtype != q.dtype:
+        raise ValueError(f"{what}: q and the latent cache must share a dtype "
+                         f"of {list(DTYPE_CODES)}, got {q.dtype}/"
+                         f"{latent.dtype}")
+    if any(t.dtype != torch.int32 for t in index_tensors):
+        raise ValueError(f"{what}: metadata tensors must be int32")
+    if (q.dim() != 3 or latent.dim() != 4 or latent.shape[2] != 1
+            or latent.shape[3] != q.shape[2]):
+        raise ValueError(f"{what}: expected q [T, Hq, Dl] and a latent cache "
+                         "[P, page, 1, Dl]")
+    check_mla_geometry(q.shape[1], q.shape[2], v_dim)
+    if not all(t.is_contiguous() for t in (q, latent) + tuple(index_tensors)):
+        raise ValueError(f"{what}: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, latent)):
+        raise ValueError(f"{what}: q and the cache must be 16-byte aligned")
 
 
 def check_inputs(what: str, q, k_cache, v_cache, index_tensors,

@@ -25,6 +25,10 @@ sequence s sits at position ``kv_len - q_len + t``.
   that flush to 0 below the normal range); the CUDA kernel rescales the
   classic way, which keeps each row's largest probability exactly 1 when
   it is rounded for the tensor cores (see ``csrc/unified_attention.cu``).
+- MLA (K1m, non-unified, ``v_cache=None``): ``csrc/mla_ragged_attention.cu``
+  over a shared latent cache [P, page, 1, Dl] whose values are the keys'
+  leading ``v_dim`` lanes; tensor cores, each latent tile read once for
+  both products (see ``csrc/mla_attention.cuh``).
 
 ``ragged_paged_attention`` launches a kernel for CUDA tensors and takes the
 plain version only for tensors on the CPU.
@@ -35,7 +39,8 @@ from __future__ import annotations
 import torch
 
 from gllm_tpu_torch.ops.cuda import build
-from gllm_tpu_torch.ops.cuda.common import (check_inputs, data_ptr,
+from gllm_tpu_torch.ops.cuda.common import (check_inputs,
+                                            check_latent_inputs, data_ptr,
                                             gather_pages)
 from gllm_tpu_torch.ops.cuda.decode_attention import MAX_GROUP, split_plan
 from gllm_tpu_torch.utils import cdiv
@@ -102,7 +107,8 @@ def _attend(qs, k, v, visible, scale, amla):
 def ragged_paged_attention_plain(q, k_cache, v_cache, cu_q_lens, kv_lens,
                                  page_table, *, scale: float,
                                  page_offset: int = 0, k_scale=None,
-                                 v_scale=None, unified: bool = False):
+                                 v_scale=None, unified: bool = False,
+                                 v_dim=None):
     """Gather-based reference in float32 (the semantics of
     ``gllm_tpu/ops/attention.py::_xla_paged_attention``).
 
@@ -111,13 +117,23 @@ def ragged_paged_attention_plain(q, k_cache, v_cache, cu_q_lens, kv_lens,
     An int8 cache comes with ``k_scale``/``v_scale`` [P, Hkv] float32 and
     is dequantized on the gathered pages. ``unified``: AMLA's softmax, with
     the decode prefix's rows batched as the kernel's decode blocks are.
-    Tokens of no sequence (padding past cu_q_lens[S]) give zeros. Returns
-    [T, Hq, D] in q's dtype."""
+    ``v_cache`` None: a shared latent cache (MLA), whose values are the
+    keys' leading ``v_dim`` lanes. Tokens of no sequence (padding past
+    cu_q_lens[S]) give zeros. Returns [T, Hq, Dv] in q's dtype (Dv = D, or
+    ``v_dim``)."""
     ragged_paged_attention_plain.calls += 1
     T, Hq, D = q.shape
     _, page, Hkv, _ = k_cache.shape
     G = Hq // Hkv
-    out = torch.zeros_like(q)
+    Dv = D if v_cache is not None else v_dim
+
+    def values(k, pages, n):
+        if v_cache is None:
+            return k[..., :v_dim]
+        return gather_pages(v_cache, v_scale, pages).reshape(
+            n, -1, Hkv, D)
+
+    out = torch.zeros((T, Hq, Dv), dtype=q.dtype, device=q.device)
     cu = cu_q_lens.tolist()
     kvl = kv_lens.tolist()
     first = 0
@@ -127,30 +143,29 @@ def ragged_paged_attention_plain(q, k_cache, v_cache, cu_q_lens, kv_lens,
             max_kv = max(kvl[:nd])
             pages = (page_table[:nd, :cdiv(max_kv, page)].long()
                      + page_offset)
-            k = gather_pages(k_cache, k_scale, pages).reshape(
-                nd, -1, Hkv, D)[:, :max_kv]
-            v = gather_pages(v_cache, v_scale, pages).reshape(
-                nd, -1, Hkv, D)[:, :max_kv]
+            k = gather_pages(k_cache, k_scale, pages).reshape(nd, -1, Hkv, D)
+            v = values(k, pages, nd)[:, :max_kv]
+            k = k[:, :max_kv]
             visible = (torch.arange(max_kv, device=q.device)[None, None, :]
                        < kv_lens[:nd].long()[:, None, None])
             o = _attend(q[:nd].reshape(nd, 1, Hkv, G, D).float(), k, v,
                         visible, scale, amla=True)
-            out[:nd] = o.reshape(nd, Hq, D).to(q.dtype)
+            out[:nd] = o.reshape(nd, Hq, Dv).to(q.dtype)
         first = nd
     for s in range(first, len(kvl)):
         q0, q_len, kv_len = cu[s], cu[s + 1] - cu[s], kvl[s]
         if q_len == 0 or kv_len == 0:
             continue
         pages = page_table[s, :cdiv(kv_len, page)].long() + page_offset
-        k = gather_pages(k_cache, k_scale, pages).reshape(-1, Hkv, D)
-        v = gather_pages(v_cache, v_scale, pages).reshape(-1, Hkv, D)
+        k = gather_pages(k_cache, k_scale, pages).reshape(1, -1, Hkv, D)
+        v = values(k, pages, 1)
         qs = q[q0:q0 + q_len].reshape(1, q_len, Hkv, G, D).float()
         q_pos = (kv_len - q_len
                  + torch.arange(q_len, device=q.device))[:, None]
         visible = torch.arange(kv_len, device=q.device)[None, :] <= q_pos
-        o = _attend(qs, k[None, :kv_len], v[None, :kv_len], visible[None],
+        o = _attend(qs, k[:, :kv_len], v[:, :kv_len], visible[None],
                     scale, amla=unified)
-        out[q0:q0 + q_len] = o.reshape(q_len, Hq, D).to(q.dtype)
+        out[q0:q0 + q_len] = o.reshape(q_len, Hq, Dv).to(q.dtype)
     return out
 
 
@@ -160,13 +175,20 @@ ragged_paged_attention_plain.calls = 0
 def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
                            page_table, *, scale: float, page_offset: int = 0,
                            k_scale=None, v_scale=None,
-                           unified: bool = False):
+                           unified: bool = False, v_dim=None):
     """Same contract as :func:`ragged_paged_attention_plain`."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, k_cache, v_cache, cu_q_lens, kv_lens, page_table,
             scale=scale, page_offset=page_offset, k_scale=k_scale,
-            v_scale=v_scale, unified=unified)
+            v_scale=v_scale, unified=unified, v_dim=v_dim)
+    if v_cache is None:
+        if unified or k_scale is not None:
+            raise NotImplementedError(
+                "ragged_paged_attention: the unified kernel and an int8 "
+                "cache are not supported over an MLA latent cache")
+        return _mla_ragged(q, k_cache, cu_q_lens, kv_lens, page_table,
+                           scale=scale, page_offset=page_offset, v_dim=v_dim)
     T, Hq, D = q.shape
     check_inputs("ragged_paged_attention", q, k_cache, v_cache,
                  (cu_q_lens, kv_lens, page_table),
@@ -203,9 +225,34 @@ def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
     return out
 
 
-# launches by kernel: (unified, int8 cache) → K1, K1q, K1u, K1u over int8
+def _mla_ragged(q, latent, cu_q_lens, kv_lens, page_table, *, scale,
+                page_offset, v_dim):
+    """K1m: the MLA ragged kernel over a latent cache [P, page, 1, Dl]."""
+    check_latent_inputs("ragged_paged_attention", q, latent, v_dim,
+                        (cu_q_lens, kv_lens, page_table))
+    T, Hq, Dl = q.shape
+    S = kv_lens.shape[0]
+    if cu_q_lens.shape != (S + 1,) or page_table.shape[0] != S:
+        raise ValueError("ragged_paged_attention: cu_q_lens [S+1], kv_lens "
+                         "[S] and page_table [S, max_pages] must agree")
+    out = torch.empty((T, Hq, v_dim), dtype=q.dtype, device=q.device)
+    if T == 0 or S == 0:
+        return out.zero_()
+    rc = build.kernel("mla_ragged_attention")(
+        q.data_ptr(), latent.data_ptr(), cu_q_lens.data_ptr(),
+        kv_lens.data_ptr(), page_table.data_ptr(), out.data_ptr(), T, S,
+        page_table.shape[1], Dl, v_dim, latent.shape[1], page_offset, scale,
+        build.DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "ragged_paged_attention")
+    ragged_paged_attention.launches["ragged_paged_attention_mla"] += 1
+    return out
+
+
+# launches by kernel: (unified, int8 cache) → K1, K1q, K1u, K1u over int8;
+# and K1m over an MLA latent cache
 KERNELS = {(False, False): "ragged_paged_attention",
            (False, True): "ragged_paged_attention_int8",
            (True, False): "ragged_paged_attention_unified",
            (True, True): "ragged_paged_attention_unified_int8"}
-ragged_paged_attention.launches = dict.fromkeys(KERNELS.values(), 0)
+ragged_paged_attention.launches = dict.fromkeys(
+    list(KERNELS.values()) + ["ragged_paged_attention_mla"], 0)

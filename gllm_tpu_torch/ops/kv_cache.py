@@ -1,9 +1,11 @@
 """Paged KV cache write path (counterpart of ``gllm_tpu/ops/kv_cache.py``:
-``write_kv:25``, ``_quant_write_one:49``, ``write_kv_quant:90``).
+``write_kv:25``, ``_quant_write_one:49``, ``write_kv_quant:90``, and the
+latent scatter of ``gllm_tpu/models/deepseek.py:346-356``).
 
-Layout: [num_pages, page_size, num_kv_heads, head_dim] per K/V; flat slot =
-page_id * page_size + offset. Slots of page 0 (the dummy page) absorb the
-writes of padded tokens.
+Layout: [num_pages, page_size, num_kv_heads, head_dim] per K/V, or one
+[num_pages, page_size, width] latent cache (MLA); flat slot = page_id *
+page_size + offset. Slots of page 0 (the dummy page) absorb the writes of
+padded tokens.
 """
 
 from __future__ import annotations
@@ -91,3 +93,20 @@ def write_kv_quant(k_cache, v_cache, k_scale, v_scale, k: torch.Tensor,
     pages = torch.div(slots, k_cache.shape[1], rounding_mode="floor")
     _quant_write_one(k_cache, k_scale, k.float(), slots, pages)
     _quant_write_one(v_cache, v_scale, v.float(), slots, pages)
+
+
+def write_latent(latent: torch.Tensor, rows: torch.Tensor,
+                 slot_mapping: torch.Tensor) -> None:
+    """Scatter this step's MLA latent rows ``[c_kv | k_pe]`` into the paged
+    latent cache IN PLACE.
+
+    latent:       [num_pages, page_size, width] (contiguous; the model
+                  passes the flat [L*P, page, width] view of every layer)
+    rows:         [T, width]
+    slot_mapping: [T] int flat slots, the layer's offset included (padding
+                  → dummy-page slots, where duplicates keep an arbitrary
+                  row, as in ``write_kv``)
+    """
+    num_pages, page_size, width = latent.shape
+    latent.view(num_pages * page_size, width).index_copy_(
+        0, slot_mapping.long(), rows.to(latent.dtype))

@@ -1,8 +1,9 @@
 """Rotary position embeddings (counterpart of ``gllm_tpu/ops/rope.py:21-153``).
 
 The cos/sin table is computed once per model ([max_pos, rot_dim], float32,
-cos half then sin half) and gathered by token position each step.
-Frequency variants: default, linear, llama3 and YaRN.
+cos half then sin half), on the device that gathers it by token position
+each step. Frequency variants: default, linear, llama3 and YaRN (keyed
+``rope_type`` or, as DeepSeek's configs write it, ``type``).
 """
 
 from __future__ import annotations
@@ -75,15 +76,32 @@ def _yarn_inv_freq(rot_dim: int, theta: float,
     return inv_freq, cs_mscale
 
 
+def yarn_softmax_scale_mult(rope_scaling: Optional[Dict[str, Any]]) -> float:
+    """Extra attention-scale factor under YaRN with mscale_all_dim (HF
+    DeepSeek: softmax_scale *= mscale**2); 1 for every other rope."""
+    if not rope_scaling:
+        return 1.0
+    rtype = rope_scaling.get("rope_type", rope_scaling.get("type"))
+    if rtype != "yarn":
+        return 1.0
+    m = _yarn_get_mscale(rope_scaling.get("factor", 1.0),
+                         rope_scaling.get("mscale_all_dim", 0.0))
+    return m * m
+
+
 def compute_rope_cos_sin(
     rot_dim: int,
     max_position: int,
     theta: float = 10000.0,
     rope_scaling: Optional[Dict[str, Any]] = None,
+    device=None,
 ) -> torch.Tensor:
-    """Returns the [max_position, rot_dim] float32 table: concat(cos, sin)."""
+    """Returns the [max_position, rot_dim] float32 table: concat(cos, sin),
+    built on ``device`` (the CPU by default). The frequencies are computed
+    on the CPU either way, so both devices rotate by the same angles."""
     inv_freq = _base_inv_freq(rot_dim, theta)
-    positions = torch.arange(max_position, dtype=torch.float32)
+    positions = torch.arange(max_position, dtype=torch.float32,
+                             device=device)
     mscale = 1.0
     if rope_scaling:
         rtype = rope_scaling.get("rope_type",
@@ -98,7 +116,7 @@ def compute_rope_cos_sin(
             pass
         else:
             raise NotImplementedError(f"rope scaling type {rtype!r}")
-    freqs = torch.outer(positions, inv_freq)        # [max_pos, rot_dim/2]
+    freqs = torch.outer(positions, inv_freq.to(positions.device))
     return torch.cat([torch.cos(freqs) * mscale,
                       torch.sin(freqs) * mscale], dim=-1)
 

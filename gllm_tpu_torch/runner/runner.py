@@ -6,6 +6,8 @@ of ``gllm_tpu/runner/runner.py``: ``ModelRunner.__init__:273``,
 
 One synchronous step: build the batch on the host, copy it over in one
 transfer, run forward → logits → sample, and fetch the sampled tokens.
+The model family (dense, or DeepSeek's MLA + MoE) comes from
+``models/registry.py``.
 PyTorch runs eagerly, so there is no compile cache to warm; the KV cache is
 updated in place where JAX donated its buffers. An int8 cache first zeroes
 the scales of the pages minted for the step (their ids ride the step's one
@@ -20,8 +22,9 @@ import numpy as np
 import torch
 
 from gllm_tpu_torch.config import EngineConfig
-from gllm_tpu_torch.models import dense
 from gllm_tpu_torch.models.config import ModelConfig
+from gllm_tpu_torch.models.registry import get_model_def
+from gllm_tpu_torch.ops.cuda.common import check_mla_geometry
 from gllm_tpu_torch.ops.sampling import sample
 from gllm_tpu_torch.runner.prepare import BatchBuilder, HostStaging
 from gllm_tpu_torch.scheduler import ScheduledBatch
@@ -40,10 +43,15 @@ ACTIVATION_HEADROOM = 512 * 1024 * 1024
 class ModelRunner:
     def __init__(self, config: EngineConfig, model_cfg: ModelConfig,
                  device: torch.device, params=None):
-        model_cfg.check_supported()
+        config.validate(model_cfg)
         self.config = config
         self.model_cfg = model_cfg
+        self.model = get_model_def(model_cfg)
         self.device = torch.device(device)
+        if model_cfg.use_mla and self.device.type == "cuda":
+            check_mla_geometry(model_cfg.num_heads,
+                               model_cfg.mla_cache_width,
+                               model_cfg.kv_lora_rank)
         self.dtype = DTYPES[config.dtype]
         kd = config.cache.kv_cache_dtype
         self.kv_dtype = self.dtype if kd == "auto" else DTYPES[kd]
@@ -57,13 +65,13 @@ class ModelRunner:
         if params is not None:
             self.params = params
         elif config.load_format == "dummy" or not config.model:
-            self.params = dense.init_params(model_cfg, config.seed,
-                                            self.dtype, self.device)
+            self.params = self.model.init_params(model_cfg, config.seed,
+                                                 self.dtype, self.device)
         else:
             raise NotImplementedError(
                 "gllm_tpu_torch loads no checkpoint yet: use "
                 "load_format='dummy' or pass params")
-        self.cos_sin = dense.make_rope_table(model_cfg, self.device)
+        self.cos_sin = self.model.make_rope_table(model_cfg, self.device)
         self.builder = BatchBuilder(config, config.cache.page_size)
         self.staging = HostStaging(self.device)
         self.generator = torch.Generator(device=self.device)
@@ -74,23 +82,18 @@ class ModelRunner:
         self.step_counts = {"mixed": 0, "decode": 0}
         self.num_pages = (config.cache.num_pages
                           or self.determine_num_pages())
-        self.kv = dense.init_kv_cache(model_cfg, self.num_pages,
-                                      config.cache.page_size, self.kv_dtype,
-                                      self.device)
+        self.kv = self.model.init_kv_cache(model_cfg, self.num_pages,
+                                           config.cache.page_size,
+                                           self.kv_dtype, self.device)
         logger.info("KV cache: %d pages × %d tokens (%s) on %s",
                     self.num_pages, config.cache.page_size, self.kv_dtype,
                     self.device)
 
     def kv_bytes_per_page(self) -> int:
-        """Device bytes of one page across the layers, K and V; an int8
-        page adds its float32 scale rows."""
-        cfg, page = self.model_cfg, self.config.cache.page_size
-        itemsize = torch.empty(0, dtype=self.kv_dtype).element_size()
-        per_page = (2 * cfg.num_layers * page * cfg.num_kv_heads
-                    * cfg.head_dim * itemsize)
-        if self.kv_quant:
-            per_page += 2 * cfg.num_layers * cfg.num_kv_heads * 4
-        return per_page
+        """Device bytes of one page across the layers: K and V (and an int8
+        page's scale rows), or one MLA latent row per token and layer."""
+        return self.model.kv_bytes_per_page(
+            self.model_cfg, self.config.cache.page_size, self.kv_dtype)
 
     def determine_num_pages(self) -> int:
         """Size the KV pool from the device's free memory after the weights
@@ -129,13 +132,13 @@ class ModelRunner:
             pages = batch.scale_resets.long()
             self.kv.k_scale.index_fill_(1, pages, 0.0)
             self.kv.v_scale.index_fill_(1, pages, 0.0)
-        hidden, residual = dense.forward(self.params, self.kv, batch,
-                                         self.model_cfg,
-                                         cos_sin=self.cos_sin,
-                                         max_q_len=max_q,
-                                         impl=self.attn_impl)
-        return dense.compute_logits(self.params, hidden, residual, batch,
-                                    self.model_cfg)
+        hidden, residual = self.model.forward(self.params, self.kv, batch,
+                                              self.model_cfg,
+                                              cos_sin=self.cos_sin,
+                                              max_q_len=max_q,
+                                              impl=self.attn_impl)
+        return self.model.compute_logits(self.params, hidden, residual,
+                                         batch, self.model_cfg)
 
     @torch.inference_mode()
     def step(self, sched_batch: ScheduledBatch) -> np.ndarray:

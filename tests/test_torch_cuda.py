@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-ragged (K1, and K1q over an int8 cache), decode (K2, K2q) and unified (K1u
-over either cache), then the engine on the card against the CPU.
+ragged (K1, and K1q over an int8 cache), decode (K2, K2q), unified (K1u
+over either cache) and the MLA modes over a latent cache (K1m, K2m), then
+the engines (Llama-shaped and DeepSeek-shaped) on the card against the
+CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; run
 them on the card with
@@ -340,7 +342,8 @@ def test_new_wrapper_arguments_count_and_refuse(cuda_device):
     assert {k: counts[k] - before[k] for k in counts} == {
         "ragged_paged_attention": 0, "ragged_paged_attention_int8": 1,
         "ragged_paged_attention_unified": 1,
-        "ragged_paged_attention_unified_int8": 1}
+        "ragged_paged_attention_unified_int8": 1,
+        "ragged_paged_attention_mla": 0}
     d0 = dict(tdec.paged_decode_attention.launches)
     dq = q[:5].contiguous()
     tdec.paged_decode_attention(dq, kc, vc, kvl[:5].contiguous(),
@@ -533,3 +536,201 @@ def test_sampled_generation_on_card(cuda_device):
     assert runs[0] == runs[1]                 # the seeded generator
     assert all(len(t) == 10 and all(0 <= x < 1000 for x in t)
                for t in runs[0])
+
+
+# MLA over a latent cache [P, page, 1, Dl], values = its leading Dv lanes:
+# the small test geometry (96, 64) and DeepSeek-V2-Lite's (576, 512)
+MLA_RAGGED_CARD_CASES = [
+    dict(seqs=[(6, 6), (1, 9), (1, 5), (9, 29), (1, 3)], pad_seqs=2,
+         pad_tokens=5, Dl=96, Dv=64, page=4, pages=24),
+    dict(seqs=[(1, 300), (40, 40), (1, 70), (17, 90), (5, 5), (1, 1)],
+         pad_tokens=9, Dl=96, Dv=64, page=16, pages=40),
+    dict(seqs=[(1, 300 + 37 * i) for i in range(8)]
+         + [(200, 700), (130, 130)], pad_seqs=2, pad_tokens=11, Dl=576,
+         Dv=512, page=16, pages=300),
+]
+MLA_DECODE_CARD_CASES = [
+    dict(kv_lens=[8, 1, 13, 0, 16], Dl=96, Dv=64, page=4, pages=24),
+    dict(kv_lens=[3000, 0, 257, 1, 256], Dl=96, Dv=64, page=16, pages=240),
+    dict(kv_lens=[int(x) for x in
+                  np.random.default_rng(0).integers(256, 2048, 32)],
+         Dl=576, Dv=512, page=16, pages=4200),
+]
+
+
+def _mla_check(out, want, dropped, dtype):
+    """The kernel against its plain version, and the tolerance against the
+    plain version with the last key of every one-token row dropped."""
+    _check(out, want, dtype)
+    assert not torch.allclose(dropped.float(), want.float(), rtol=TOL[dtype],
+                              atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", MLA_RAGGED_CARD_CASES)
+def test_mla_ragged_kernel_matches_plain(cuda_device, case, dtype):
+    rng = np.random.default_rng(17)
+    q, lat, _, cu, kvl, pt = ragged_case(
+        rng, case["seqs"], 16, 1, case["Dl"], case["page"], case["pages"],
+        case.get("pad_seqs", 0), case.get("pad_tokens", 0))
+    q, idx, kern, clean = _on_card(cuda_device, dtype, q, lat, lat, None,
+                                   None, cu, kvl, pt)
+    kw = dict(cu_q_lens=idx[0], page_table=idx[2],
+              scale=2.0 * case["Dl"] ** -0.5, v_dim=case["Dv"])
+    out = trag.ragged_paged_attention(q, kern["k_cache"], None,
+                                      kv_lens=idx[1], **kw)
+    want = trag.ragged_paged_attention_plain(q, clean["k_cache"], None,
+                                             kv_lens=idx[1], **kw)
+    one_tok = torch.tensor([int(ql == 1) for ql, _ in case["seqs"]]
+                           + [0] * case.get("pad_seqs", 0),
+                           dtype=torch.int32, device=cuda_device)
+    dropped = trag.ragged_paged_attention_plain(
+        q, clean["k_cache"], None, kv_lens=idx[1] - one_tok, **kw)
+    assert out.shape == (q.shape[0], 16, case["Dv"])
+    _mla_check(out, want, dropped, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", MLA_DECODE_CARD_CASES)
+def test_mla_decode_kernel_matches_plain(cuda_device, case, dtype):
+    rng = np.random.default_rng(18)
+    q, lat, _, kvl, pt = decode_case(rng, case["kv_lens"], 16, 1, case["Dl"],
+                                     case["page"], case["pages"])
+    q, idx, kern, clean = _on_card(cuda_device, dtype, q, lat, lat, None,
+                                   None, kvl, pt)
+    kw = dict(page_table=idx[1], scale=2.0 * case["Dl"] ** -0.5,
+              v_dim=case["Dv"])
+    out = tdec.paged_decode_attention(q, kern["k_cache"], None,
+                                      kv_lens=idx[0], **kw)
+    want = tdec.paged_decode_attention_plain(q, clean["k_cache"], None,
+                                             kv_lens=idx[0], **kw)
+    dropped = tdec.paged_decode_attention_plain(
+        q, clean["k_cache"], None, kv_lens=idx[0] - (idx[0] > 0).int(),
+        **kw)
+    _mla_check(out, want, dropped, dtype)
+
+
+@pytest.mark.cuda
+def test_mla_wrappers_count_offset_and_refuse(cuda_device):
+    rng = np.random.default_rng(19)
+    P = 24
+    q, lat, _, cu, kvl, pt = ragged_case(rng, [(5, 14), (1, 7)], 16, 1, 96,
+                                         4, P)
+    stack = np.concatenate([np.zeros_like(lat), lat])   # layer 1 = the case
+    q, stack, cu, kvl, pt = (torch.from_numpy(a).to(cuda_device)
+                             for a in (q, stack, cu, kvl, pt))
+    r0 = dict(trag.ragged_paged_attention.launches)
+    d0 = dict(tdec.paged_decode_attention.launches)
+    got = trag.ragged_paged_attention(q, stack, None, cu, kvl, pt, scale=0.2,
+                                      page_offset=P, v_dim=64)
+    want = trag.ragged_paged_attention_plain(q, stack[P:], None, cu, kvl, pt,
+                                             scale=0.2, v_dim=64)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    dq = q[cu[1:] - 1].contiguous()
+    got = tdec.paged_decode_attention(dq, stack, None, kvl, pt, scale=0.2,
+                                      page_offset=P, v_dim=64)
+    want = tdec.paged_decode_attention_plain(dq, stack[P:], None, kvl, pt,
+                                             scale=0.2, v_dim=64)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert {k: n - r0[k] for k, n in
+            trag.ragged_paged_attention.launches.items() if n != r0[k]} == {
+        "ragged_paged_attention_mla": 1}
+    assert {k: n - d0[k] for k, n in
+            tdec.paged_decode_attention.launches.items() if n != d0[k]} == {
+        "paged_decode_attention_mla": 1}
+    with pytest.raises(NotImplementedError, match="32"):   # 32 query heads
+        trag.ragged_paged_attention(torch.cat([q, q], 1), stack, None, cu,
+                                    kvl, pt, scale=0.2, v_dim=64)
+    with pytest.raises(NotImplementedError, match="v_dim"):
+        tdec.paged_decode_attention(dq, stack, None, kvl, pt, scale=0.2,
+                                    v_dim=32)
+    with pytest.raises(NotImplementedError, match="unified"):
+        trag.ragged_paged_attention(q, stack, None, cu, kvl, pt, scale=0.2,
+                                    v_dim=64, unified=True)
+    with pytest.raises(ValueError, match="dtype"):
+        trag.ragged_paged_attention(q.bfloat16(), stack, None, cu, kvl, pt,
+                                    scale=0.2, v_dim=64)
+
+
+def _deepseek_engine(device, params=None):
+    """A 2-layer DeepSeek-V2-shaped model (one dense layer, one MoE layer)
+    at the MLA kernels' small geometry: 16 heads, latent 64 + 32."""
+    import gllm_tpu_torch as gt
+    mc = gt.from_hf_config(dict(
+        architectures=["DeepseekV2ForCausalLM"], vocab_size=1000,
+        hidden_size=256, num_hidden_layers=2, num_attention_heads=16,
+        num_key_value_heads=16, intermediate_size=512,
+        max_position_embeddings=512, kv_lora_rank=64, qk_nope_head_dim=32,
+        qk_rope_head_dim=32, v_head_dim=32, n_routed_experts=8,
+        num_experts_per_tok=2, moe_intermediate_size=128,
+        first_k_dense_replace=1, n_shared_experts=1, q_lora_rank=None,
+        topk_method="greedy", scoring_func="softmax", norm_topk_prob=False))
+    ec = gt.EngineConfig(
+        dtype="float32", load_format="dummy", max_model_len=512,
+        scheduler=gt.SchedulerConfig(max_prefill_tokens=48),
+        cache=gt.CacheConfig(page_size=16, num_pages=64))
+    return gt.LLM(model_cfg=mc, config=ec, params=params, device=device)
+
+
+@pytest.mark.cuda
+def test_deepseek_engine_on_card_matches_cpu_greedy(cuda_device):
+    """The same float32 DeepSeek weights through the card (K1m, K2m, the
+    grouped expert product) and the CPU: the same greedy tokens, and only
+    the MLA kernels launched."""
+    import gllm_tpu_torch as gt
+    card = _deepseek_engine(cuda_device)
+    cpu = _deepseek_engine("cpu", params={
+        g: ({k: v.cpu() for k, v in x.items()} if isinstance(x, dict)
+            else x.cpu()) for g, x in card.runner.params.items()})
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 1000, n).tolist() for n in (7, 60, 23, 100)]
+    sp = gt.SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+    launches = {**trag.ragged_paged_attention.launches,
+                **tdec.paged_decode_attention.launches}
+    got = [o.output_token_ids for o in card.generate(
+        prompt_token_ids=prompts, sampling_params=sp)]
+    want = [o.output_token_ids for o in cpu.generate(
+        prompt_token_ids=prompts, sampling_params=sp)]
+    assert got == want
+    ran = {k for k, n in {**trag.ragged_paged_attention.launches,
+                          **tdec.paged_decode_attention.launches}.items()
+           if n > launches[k]}
+    assert ran == {"ragged_paged_attention_mla", "paged_decode_attention_mla"}
+    mm = card.memory_manager
+    assert mm.num_free_pages == mm.allocator.num_total
+
+
+@pytest.mark.cuda
+def test_moe_block_issues_no_host_sync(cuda_device):
+    """The routed experts' grouped product keeps its group offsets on the
+    device: a bf16 MoE layer runs under sync-debug mode "error" (a host
+    sync raises), and matches a loop over the experts."""
+    from gllm_tpu_torch.models import deepseek
+    card = _deepseek_engine(cuda_device)
+    cfg = card.model_cfg
+    lp = {k: v[0].bfloat16() for k, v in
+          card.runner.params["moe_layers"].items()}
+    x = torch.randn((37, cfg.hidden_size), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0)
+                    ).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = deepseek._moe_block(lp, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    weights, ids = deepseek.deepseek_route(x.float() @ lp["router"].float(),
+                                           None, cfg)
+    want = torch.zeros_like(got, dtype=torch.float32)
+    for t in range(x.shape[0]):
+        for w, e in zip(weights[t].tolist(), ids[t].tolist()):
+            h = x[t] @ lp["w_gate_up"][e]
+            g, u = h.float().chunk(2)
+            want[t] += w * ((torch.nn.functional.silu(g) * u).bfloat16()
+                            @ lp["w_down"][e]).float()
+    want += deepseek.dense._mlp({"gate_up_proj": lp["shared_gate_up_proj"],
+                                 "down_proj": lp["shared_down_proj"]},
+                                x).float()
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)

@@ -36,6 +36,13 @@ MODEL = dict(architecture="LlamaForCausalLM", vocab_size=512, hidden_size=64,
                            "original_max_position_embeddings": 64})
 
 
+# a DeepSeek-V2-shaped MLA + MoE model (with MODEL's other fields)
+MLA = dict(architecture="DeepseekV2ForCausalLM", kv_lora_rank=32,
+           qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+           num_experts=8, num_experts_per_tok=2, moe_intermediate_size=32,
+           first_k_dense_replace=1, n_shared_experts=1)
+
+
 def _jax_params():
     return jdense.init_params(JMC(**MODEL), seed=3, dtype=jnp.float32)
 
@@ -196,15 +203,22 @@ def test_no_device_means_the_card(monkeypatch):
     ("decode_slot_batching", True), ("spec_decode", "ngram"),
     ("quantization", "int8"), ("ondevice_finish", True),
     ("kv_cache_dtype", "fp8"), ("kv_cache_dtype", "float32"), ("tp", 2), ("pp", 2), ("dp", 2), ("sp", 2),
-    ("kv_host_pool_gb", 1.0), ("kv_disk_path", "/x")])
+    ("kv_host_pool_gb", 1.0), ("kv_disk_path", "/x"),
+    # options an MLA latent cache does not take (the model rides the field)
+    ("mla:kv_cache_dtype", "int8"), ("mla:unified_step", True)])
 def test_validate_refuses_unported_options(field, value):
     cfg = gt.EngineConfig()
+    mla = field.startswith("mla:")
+    field = field.removeprefix("mla:")
     for target in (cfg, cfg.cache, cfg.parallel):
         if hasattr(target, field):
             setattr(target, field, value)
             break
+    model = gt.ModelConfig(**dict(MODEL, **MLA)) if mla else None
+    if mla:
+        cfg.validate()           # the option alone is taken
     with pytest.raises(NotImplementedError):
-        cfg.validate()
+        cfg.validate(model)
 
 
 def test_validate_takes_int8_kv_and_the_unified_sync_step():
@@ -228,11 +242,17 @@ def test_unported_sampling_params_raise(kwargs):
 
 
 def test_unported_model_families_raise():
-    for extra in (dict(num_experts=8), dict(kv_lora_rank=64),
+    # MoE stays refused on a Llama arch; DeepSeek's MLA is served, its
+    # sparse attention (DSA) is not
+    for extra in (dict(num_experts=8),
+                  dict(MLA, index_topk=64, index_n_heads=4),
                   dict(layer_types=("linear_attention",)),
                   dict(vision_config={})):
         with pytest.raises(NotImplementedError):
             gt.ModelConfig(**dict(MODEL, **extra)).check_supported()
+    gt.ModelConfig(**dict(MODEL, **MLA)).check_supported()
+    with pytest.raises(NotImplementedError, match="MLA"):
+        gt.ModelConfig(**dict(MODEL, kv_lora_rank=64)).check_supported()
 
 
 def test_port_runs_without_jax_or_gllm_tpu():
