@@ -18,23 +18,37 @@ no result line:
              K2q) and the unified kernel (K1u) over both caches; then the
              MLA modes at DeepSeek-V2-Lite's latent geometry (Hq 16 over
              one 576-wide latent row, values its leading 512, bf16) on the
-             same batch lengths: ragged (K1m) and decode (K2m)
+             same batch lengths: ragged (K1m) and decode (K2m); then
+             Qwen3-Next's: K1 and K2 at head_dim 256 (Hq 16, Hkv 2) on the
+             same lengths, and the gated-delta-rule chunk scan (K3, float32
+             on FMA) at the hybrid mixed step's layout (K1's lengths padded
+             to [27 rows, 1024], 32 heads, Dk = Dv = 128, chunks of 64),
+             with the GDN layer's peak memory at that shape
 4. serve     LLM.generate at the full Llama-3.2-1B width (dummy bf16
              weights from a seed) for 16 greedy requests, in four
              configurations: the bf16 sync loop (once), then an int8 KV
              cache, the unified step, and the unified step over an int8
              cache (three runs each); then DeepSeek-V2-Lite at full width
              (27 layers, 64 experts, latent 512 + 64; three runs) after the
-             Llama engines are freed. Each must launch exactly its kernels
-             and no plain attention (DeepSeek: K1m on every layer of every
-             mixed step, K2m on every layer of every decode step); a
-             profiled window of the bf16, unified-int8 and DeepSeek runs
-5. reference depth cut to 2 layers, float32: the port on the card
+             Llama engines are freed; then Qwen3-Next-80B-A3B at full
+             width, depth cut to 12 layers (9 GDN, 3 gated full attention;
+             512 experts, top-10; three runs) after DeepSeek is freed.
+             Each must launch exactly its kernels and no plain version
+             (DeepSeek: K1m on every layer of every mixed step, K2m on
+             every layer of every decode step; Qwen3-Next: K3 on every GDN
+             layer and K1 at D 256 on every full layer of every mixed step,
+             K2 at D 256 on every full layer of every decode step); a
+             profiled window of the bf16, unified-int8, DeepSeek and
+             Qwen3-Next runs
+5. reference depth cut to 2 layers (4 for the hybrid period), float32:
+             the port on the card
              (kernels) against the port on the CPU (plain versions) —
              first-step logits and greedy tokens — with a bf16-width
-             float32 cache, an int8 cache, the unified step, and a
+             float32 cache, an int8 cache, the unified step, a
              DeepSeek model (one dense layer, one MoE layer) at the MLA
-             kernels' small latent geometry (64 + 32)
+             kernels' small latent geometry (64 + 32), and a hybrid model
+             of one Qwen3-Next period (3 GDN + 1 full layer; GDN Dk = Dv =
+             32, head_dim 128, two experts and a shared one)
 6. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
@@ -52,9 +66,11 @@ import numpy as np
 import torch
 
 SEED = 0
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor rate, and
+# the float32 rate outside the tensor cores (K3 runs float32 FMA)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 # bf16 outputs, kernel vs plain, as allclose(rtol, atol), per kernel. Both
 # sum in f32 and round the output to bf16 (one step is 2e-3 at |out| in
 # [0.25, 0.5)). The kernels with tensor-core blocks (ragged, and the
@@ -71,6 +87,11 @@ RAGGED_TOL = (2e-2, 3e-3)
 # each rounded by up to 2^-9 of itself, against values |v| <= 4, so an
 # output of any size may move by up to 2^-9 * 4 ~ 0.008: hence their atol.
 MLA_TOL = (2e-2, 8e-3)
+# K3: float32 on both sides, sums over Dk = 128 and C = 64 terms in another
+# order, carried through 16 chained chunks (|out| up to about 10): a few
+# float32 ulps a term, far inside 1e-3. One chunk's state update left out
+# moves the outputs of every later chunk by O(|v|).
+GDN_TOL = (1e-3, 1e-3)
 TOL = {"paged_decode_attention": DECODE_TOL,
        "paged_decode_attention_int8": DECODE_TOL,
        "ragged_paged_attention": RAGGED_TOL,
@@ -79,7 +100,12 @@ TOL = {"paged_decode_attention": DECODE_TOL,
        "ragged_paged_attention_unified": RAGGED_TOL,
        "ragged_paged_attention_unified_int8": RAGGED_TOL,
        "ragged_paged_attention_mla": MLA_TOL,
-       "paged_decode_attention_mla": MLA_TOL}
+       "paged_decode_attention_mla": MLA_TOL,
+       # at head_dim 256 the scores q.k / 16 have the spread they have at
+       # D 64 (standard normal q and k), so K1's and K2's reasons hold
+       "ragged_paged_attention_d256": RAGGED_TOL,
+       "paged_decode_attention_d256": DECODE_TOL,
+       "gdn_chunk_scan": GDN_TOL}
 # kernels-line entry → (launch counter, serve configuration it runs in,
 # source, the TPU kernel it replaces)
 PALLAS = "gllm_tpu/ops/pallas/"
@@ -113,6 +139,15 @@ KERNELS = {
     "paged_decode_attention_mla": (
         "paged_decode_attention_mla", "deepseek", "mla_decode_attention.cu",
         PALLAS + "decode_attention.py:188 (v_cache=None, v_dim)"),
+    "ragged_paged_attention_d256": (
+        "ragged_paged_attention", "qwen3_next", "ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429 (head_dim 256)"),
+    "paged_decode_attention_d256": (
+        "paged_decode_attention", "qwen3_next", "decode_attention.cu",
+        PALLAS + "decode_attention.py:188 (head_dim 256)"),
+    "gdn_chunk_scan": (
+        "gdn_chunk_scan", "qwen3_next", "gdn_scan.cu",
+        PALLAS + "gdn_scan.py:64"),
 }
 
 
@@ -170,9 +205,9 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak_flops=PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -276,12 +311,21 @@ def _dense_kv(kc, vc, pt, kv_lens, page):
     return k.contiguous(), v.contiguous()
 
 
+def _flat(x):
+    """One float32 vector of a tensor or of a tuple of tensors (K3 returns
+    its outputs and its final state)."""
+    if isinstance(x, tuple):
+        return torch.cat([t.float().flatten() for t in x])
+    return x.float()
+
+
 def check(name, out, want, dropped):
     """Kernel output against its plain version at the kernel's tolerance.
-    ``dropped`` is the plain version with the last key of some rows left
-    out: the tolerance must reject it, or it could not see such a fault."""
+    ``dropped`` is the plain version perturbed (the last key of some rows
+    left out; for K3 one chunk's state update): the tolerance must reject
+    it, or it could not see such a fault."""
     rtol, atol = TOL[name]
-    o, w, d = out.float(), want.float(), dropped.float()
+    o, w, d = _flat(out), _flat(want), _flat(dropped)
     err = (o - w).abs()
     return dict(
         ok=bool(torch.isfinite(o).all()) and torch.allclose(
@@ -294,21 +338,22 @@ def check(name, out, want, dropped):
 
 
 def measure(name, kernel, plain, plain_dropped, library, iters, nbytes,
-            flops, **info):
+            flops, peak_flops=PEAK_BF16_FLOPS, **info):
     """Check a kernel against its plain version, then time it: device time
     per call (profiler) of the kernel, the plain version and the library
-    call; and the kernel's CUDA-event time per call when its wrapper is
-    called back to back (host issue included)."""
+    call (None where no one PyTorch call computes the function); and the
+    kernel's CUDA-event time per call when its wrapper is called back to
+    back (host launch time included)."""
     out = kernel()
     torch.cuda.synchronize()
     r = check(name, out, plain(), plain_dropped())
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, peak_flops)
     split = device_split(kernel, iters)
-    lib_split = device_split(library, 5)
+    lib_split = device_split(library, 5) if library else None
     r.update(ms=sum(split.values()), split=split,
              plain_ms=device_ms(plain, 3),
-             library_ms=sum(lib_split.values()),
-             library_backend=sdpa_backend(lib_split),
+             library_ms=sum(lib_split.values()) if library else None,
+             library_backend=sdpa_backend(lib_split) if library else None,
              wrapper_ms=cuda_ms(kernel, iters), bytes=nbytes, flops=flops,
              bound_ms=b_ms, bound_by=b_by, **info)
     return r
@@ -519,13 +564,15 @@ def phase_kernels():
     del x
 
     results.update(mla_kernels(dev))
+    results.update(hybrid_kernels(dev))
 
     for name, r in results.items():
         rtol, atol = TOL[name]
         log(f"[kernels] {name}: {r['shapes']}")
         log(f"[kernels] {name}: ok={r['ok']} max_abs_err={r['max_abs_err']}"
             f" (allclose rtol={rtol} atol={atol}; {r['tol_used']:.3f} of it"
-            f" used); last key dropped: max_abs {r['drop_max_abs']}, "
+            f" used); perturbed plain (the last key dropped; K3: one "
+            f"chunk's state update left out): max_abs {r['drop_max_abs']}, "
             f"rejected={r['drop_rejected']}")
         log(f"[kernels] {name}: device ms per call: kernel={r['ms']} plain="
             f"{r['plain_ms']} library={r['library_ms']}; kernel wrapper "
@@ -542,7 +589,7 @@ def phase_kernels():
                          f"version: {bad}")
     blind = [n for n, r in results.items() if not r["drop_rejected"]]
     if blind:
-        raise SystemExit(f"[kernels] tolerance accepts a dropped key: "
+        raise SystemExit(f"[kernels] tolerance accepts the perturbed plain: "
                          f"{blind}")
     return results
 
@@ -621,6 +668,171 @@ def mla_kernels(dev):
     return results
 
 
+def hybrid_kernels(dev):
+    """Qwen3-Next's kernels: K2 and K1 at head_dim 256 (Hq 16 over Hkv 2)
+    on K2's decode and K1's mixed batch lengths, and K3 on the layout the
+    GDN layer builds for K1's mixed lengths: the 27 real rows padded to the
+    longest (1024), 32 value heads, Dk = Dv = 128, chunks of 64."""
+    from gllm_tpu_torch.ops.cuda import decode_attention as dec
+    from gllm_tpu_torch.ops.cuda import ragged_attention as rag
+    cfg = qwen3_next()
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = D ** -0.5
+    geo = dict(Hq=Hq, Hkv=Hkv, D=D, quant=False)
+    rng = np.random.default_rng(SEED)      # K2's, then K1's lengths
+    results = {}
+
+    x = decode_shape(rng, dev, **geo)
+    q, kc, vc, kvl, pt, kv, page = (x["q"], x["kc"], x["vc"], x["kvl"],
+                                    x["pt"], x["kv"], x["page"])
+    S, ctx = len(kv), sum(kv)
+    io = 2 * q.numel() * 2 + S * 4 + sum(-(-k // page) for k in kv) * 4
+    kd, vd = _dense_kv(kc, vc, pt, kv, page)
+    name = "paged_decode_attention_d256"
+    results[name] = measure(
+        name,
+        lambda: dec.paged_decode_attention(q, kc, vc, kvl, pt, scale=scale),
+        lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl, pt,
+                                                 scale=scale),
+        lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl - 1, pt,
+                                                 scale=scale),
+        _decode_library(x, kd, vd, scale), 50,
+        _kv_bytes(kv, page, Hkv, D, False) + io, 4 * Hq * D * ctx,
+        shapes=(f"S={S} ctx {min(kv)}..{max(kv)} (sum {ctx}) Hq={Hq} "
+                f"Hkv={Hkv} D={D} page={page} bf16 q, bf16 cache"),
+        library_call="scaled_dot_product_attention(enable_gqa) over K/V "
+        "gathered dense per sequence")
+    del x, kd, vd
+
+    x = mixed_shape(rng, dev, **geo)
+    q, cu, kvl, pt, kv, page = (x["q"], x["cu"], x["kvl"], x["pt"], x["kv"],
+                                x["page"])
+    seqs, T_real, T_pad = x["seqs"], x["T_real"], q.shape[0]
+    S_real, S_pad = len(seqs), len(kv)
+    visible = sum(k - ql + t + 1 for ql, k in seqs for t in range(ql))
+    row = Hq * D * 2
+    io = (T_real * row + T_pad * row + (2 * S_pad + 1) * 4
+          + sum(-(-k // page) for k in kv) * 4)
+    kd, vd = _dense_kv(x["kc"], x["vc"], pt[:S_real], kv[:S_real], page)
+    kw = dict(scale=scale)
+    name = "ragged_paged_attention_d256"
+    results[name] = measure(
+        name,
+        lambda: rag.ragged_paged_attention(q, x["kc"], x["vc"], cu, kvl, pt,
+                                           **kw),
+        lambda: rag.ragged_paged_attention_plain(q, x["kc"], x["vc"], cu,
+                                                 kvl, pt, **kw),
+        lambda: rag.ragged_paged_attention_plain(q, x["kc"], x["vc"], cu,
+                                                 x["kvl_drop"], pt, **kw),
+        _mixed_library(x, kd, vd, scale), 20,
+        _kv_bytes(kv, page, Hkv, D, False) + io, 4 * Hq * D * visible,
+        shapes=(f"T={T_pad} ({T_real} real: 24 decode rows + chunks 512/300/"
+                f"1024) S={S_pad} ({S_real} real) ctx<=2048 Hq={Hq} Hkv={Hkv}"
+                f" D={D} page={page} bf16 q, bf16 cache"),
+        library_call="scaled_dot_product_attention(enable_gqa, bool mask) "
+        "over q padded to [S, Hq, 1024, D] and K/V gathered dense per "
+        "sequence")
+    del kd, vd
+    results.update(gdn_scan_kernel(dev, cfg, [ql for ql, _ in seqs]))
+    return results
+
+
+def gdn_scan_kernel(dev, cfg, q_lens):
+    """K3 on the operands ``chunk_gated_delta_rule`` builds for rows of
+    ``q_lens`` real tokens padded to the longest (g = beta = 0 past a
+    row's end), random q, k, v, decay and write strength from the seed;
+    then one full-width GDN layer at the same rows, for its peak memory
+    against ``gdn_transient_bytes``."""
+    from gllm_tpu_torch.models import hybrid
+    from gllm_tpu_torch.ops.cuda import gdn_scan as scan
+    from gllm_tpu_torch.ops.gdn import chunk_scan_operands
+    H, Dk, Dv = (cfg.linear_num_value_heads, cfg.linear_key_head_dim,
+                 cfg.linear_value_head_dim)
+    R, Q = len(q_lens), max(q_lens)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    valid = (torch.arange(Q, device=dev)[None, :]
+             < torch.tensor(q_lens, device=dev)[:, None])[..., None]
+    g = torch.where(valid, -torch.rand((R, Q, H), generator=gen, device=dev)
+                    * 0.5, 0.0)
+    beta = torch.where(valid, torch.rand((R, Q, H), generator=gen,
+                                         device=dev), 0.0)
+    args = chunk_scan_operands(randn(R, Q, H, Dk), randn(R, Q, H, Dk),
+                               randn(R, Q, H, Dv), g, beta,
+                               randn(R, H, Dk, Dv))
+    del g, beta
+    B, N, C, _ = args[0].shape
+    skip = N // 2    # the chunk whose state update the perturbed run skips
+
+    def skipped():
+        """The plain scan with chunk ``skip``'s state update left out."""
+        def part(lo, hi, state):
+            if lo >= hi:
+                return [], state
+            out, state = scan.gdn_chunk_scan_plain(
+                *[a[:, lo:hi] for a in args[:6]], state)
+            return [out], state
+        o0, s0 = part(0, skip, args[6])
+        o1, _ = part(skip, skip + 1, s0)
+        o2, s2 = part(skip + 1, N, s0)
+        return torch.cat(o0 + o1 + o2, dim=1), s2
+
+    # each input read once, each output written once, float32
+    nbytes = 4 * (B * N * C * (3 * Dk + Dv + C + 1) + B * Dk * Dv
+                  + B * N * C * Dv + B * Dk * Dv)
+    flops = B * N * (6 * C * Dk * Dv + 2 * C * C * Dv)
+    real = sum(q_lens)
+    real_chunks = sum(-(-n // C) for n in q_lens)
+    r = measure(
+        "gdn_chunk_scan",
+        lambda: scan.gdn_chunk_scan(*args),
+        lambda: scan.gdn_chunk_scan_plain(*args), skipped, None, 20,
+        nbytes, flops, peak_flops=PEAK_FP32_FLOPS,
+        shapes=(f"B={B} (rows {R} x {H} heads) N={N} C={C} Dk={Dk} Dv={Dv}"
+                f" float32: {len(q_lens)} rows of {min(q_lens)}..{Q} real "
+                f"tokens (sum {real}) padded to {N * C}; padded share of "
+                f"the cells {1 - real / (R * N * C):.4f}, of the chunks "
+                f"{1 - real_chunks / (R * N):.4f}"),
+        library_call="none (no one PyTorch call computes the scan)")
+    del args
+    # one full-width GDN layer (bf16) at the same rows: its peak memory
+    # beyond its inputs against the headroom the runner reckons for it
+    from gllm_tpu_torch.batching import StepBatch
+    from gllm_tpu_torch.ops.attention import AttentionMetadata
+    lp = {k: v[0] for k, v in hybrid.init_params(
+        qwen3_next(num_hidden_layers=1, num_experts=1, vocab_size=16,
+                   layer_types=["linear_attention"]),
+        SEED, torch.bfloat16, dev)["gdn_layers"].items()}
+    T = 2048
+    cu = torch.zeros(R + 1, dtype=torch.int32, device=dev)
+    cu[1:] = torch.tensor(np.cumsum(q_lens), device=dev)
+    slots = torch.arange(1, R + 1, dtype=torch.int32, device=dev)
+    conv, rec = (torch.zeros(shape[1:], device=dev) for shape in
+                 hybrid.ssm_shapes(cfg, R + 1))
+    batch = StepBatch(token_ids=None, positions=None, slot_mapping=None,
+                      logits_indices=None,
+                      attn=AttentionMetadata(cu, cu[1:], None),
+                      sampling=None, ssm_slots=slots, num_seqs=R,
+                      max_seq_q=Q)
+    x = randn(T, cfg.hidden_size).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hybrid._gdn_layer(lp, x, batch, conv, rec, cfg, max_q_len=T)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    reckoned = hybrid.gdn_transient_bytes(cfg, R * Q, R)
+    log(f"[kernels] gdn layer (bf16, full width) at {R} rows x {Q}: peak "
+        f"{peak / 2**30:.3f} GiB beyond its inputs; the runner reckons "
+        f"{reckoned / 2**30:.3f} GiB for that shape")
+    assert peak <= reckoned, "[kernels] the GDN layer outgrew its headroom"
+    r["gdn_layer_peak_gib"] = peak / 2**30
+    return {"gdn_chunk_scan": r}
+
+
 # ---- 4. serve ------------------------------------------------------------
 
 def llama_3_2_1b(**kw):
@@ -658,12 +870,44 @@ def deepseek_v2_lite(**kw):
     return from_hf_config(hf)
 
 
+def qwen3_next(**kw):
+    """Qwen3-Next-80B-A3B-Instruct's published config.json (the keys the
+    port reads), parsed by the port's from_hf_config, with the depth cut
+    to 12 layers (3 periods: 9 GDN, 3 gated full attention); ``kw``
+    overrides HF keys. The published file gives full_attention_interval 4
+    and no layer_types; the list is spelled out from the interval here."""
+    from gllm_tpu_torch import from_hf_config
+    hf = dict(
+        architectures=["Qwen3NextForCausalLM"], vocab_size=151936,
+        hidden_size=2048, num_hidden_layers=12, num_attention_heads=16,
+        num_key_value_heads=2, head_dim=256, partial_rotary_factor=0.25,
+        rope_theta=10000000, rms_norm_eps=1e-6,
+        max_position_embeddings=262144, full_attention_interval=4,
+        linear_num_key_heads=16, linear_num_value_heads=32,
+        linear_key_head_dim=128, linear_value_head_dim=128,
+        linear_conv_kernel_dim=4, num_experts=512, num_experts_per_tok=10,
+        norm_topk_prob=True, moe_intermediate_size=512,
+        shared_expert_intermediate_size=512, intermediate_size=5120,
+        decoder_sparse_step=1, mlp_only_layers=[], hidden_act="silu",
+        tie_word_embeddings=False, bos_token_id=151643,
+        eos_token_id=151645)
+    hf.update(kw)
+    if "layer_types" not in hf:
+        every = hf["full_attention_interval"]
+        hf["layer_types"] = [
+            "full_attention" if (i + 1) % every == 0 else "linear_attention"
+            for i in range(hf["num_hidden_layers"])]
+    return from_hf_config(hf)
+
+
 def _wrappers():
     from gllm_tpu_torch.ops.cuda import decode_attention as dec
+    from gllm_tpu_torch.ops.cuda import gdn_scan as scan
     from gllm_tpu_torch.ops.cuda import ragged_attention as rag
-    return ((rag.ragged_paged_attention, dec.paged_decode_attention),
+    return ((rag.ragged_paged_attention, dec.paged_decode_attention,
+             scan.gdn_chunk_scan),
             (rag.ragged_paged_attention_plain,
-             dec.paged_decode_attention_plain))
+             dec.paged_decode_attention_plain, scan.gdn_chunk_scan_plain))
 
 
 def reset_counters():
@@ -682,27 +926,40 @@ def read_counters():
     return counts
 
 
-# serve configurations: (model, EngineConfig keywords, runs, the kernel
+# serve configurations: (model, EngineConfig keywords, runs, the kernels
 # each layer of a step of each kind must launch, profiled)
 SERVE = {
     "bf16": (llama_3_2_1b, dict(), 1,
-             {"mixed": "ragged_paged_attention",
-              "decode": "paged_decode_attention"}, True),
+             {"mixed": ("ragged_paged_attention",),
+              "decode": ("paged_decode_attention",)}, True),
     "int8": (llama_3_2_1b, dict(kv_cache_dtype="int8"), 3,
-             {"mixed": "ragged_paged_attention_int8",
-              "decode": "paged_decode_attention_int8"}, False),
+             {"mixed": ("ragged_paged_attention_int8",),
+              "decode": ("paged_decode_attention_int8",)}, False),
     "unified": (llama_3_2_1b, dict(unified_step=True), 3,
-                {"mixed": "ragged_paged_attention_unified",
-                 "decode": "ragged_paged_attention_unified"}, False),
+                {"mixed": ("ragged_paged_attention_unified",),
+                 "decode": ("ragged_paged_attention_unified",)}, False),
     "unified_int8": (llama_3_2_1b,
                      dict(unified_step=True, kv_cache_dtype="int8"), 3,
-                     {"mixed": "ragged_paged_attention_unified_int8",
-                      "decode": "ragged_paged_attention_unified_int8"},
+                     {"mixed": ("ragged_paged_attention_unified_int8",),
+                      "decode": ("ragged_paged_attention_unified_int8",)},
                      True),
     "deepseek": (deepseek_v2_lite, dict(), 3,
-                 {"mixed": "ragged_paged_attention_mla",
-                  "decode": "paged_decode_attention_mla"}, True),
+                 {"mixed": ("ragged_paged_attention_mla",),
+                  "decode": ("paged_decode_attention_mla",)}, True),
+    # K3 on the GDN layers, K1 / K2 at head_dim 256 on the full ones
+    "qwen3_next": (qwen3_next, dict(), 3,
+                   {"mixed": ("ragged_paged_attention", "gdn_chunk_scan"),
+                    "decode": ("paged_decode_attention",)}, True),
 }
+
+
+def layers_running(cfg, kernel):
+    """Layers of the model that launch ``kernel`` once a step: the GDN
+    layers for K3, the attention layers (all of a non-hybrid model's) for
+    the attention kernels."""
+    if kernel == "gdn_chunk_scan":
+        return cfg.num_linear_layers
+    return cfg.num_attn_layers
 
 
 def serve(name, model, kw, runs, by_kind, profiled):
@@ -718,7 +975,9 @@ def serve(name, model, kw, runs, by_kind, profiled):
                                   seed=SEED, cache=cache, **kw))
     log(f"[serve {name}] LLM up in {time.monotonic() - t0:.1f} s: "
         f"{llm.runner.num_pages} KV pages of {llm.config.cache.page_size} "
-        f"tokens ({llm.runner.kv_dtype}) on {llm.device}")
+        f"tokens ({llm.runner.kv_dtype}) on {llm.device}; activation "
+        f"headroom {llm.runner.activation_headroom() / 2**30:.2f} GiB; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     rng = np.random.default_rng(SEED)
     vocab = llm.model_cfg.vocab_size
     # warm-up request (CUDA context, cuBLAS handles); not counted
@@ -758,17 +1017,22 @@ def serve(name, model, kw, runs, by_kind, profiled):
     log(f"[serve {name}] median {sorted(rates)[len(rates) // 2]:.1f} output "
         f"tok/s; steps {steps}; launches {counts}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    assert launched == set(by_kind.values()), \
+    assert launched == {k for ks in by_kind.values() for k in ks}, \
         f"[serve {name}] launched {launched}, expected {by_kind}"
-    # every layer of every step of a kind launched that kind's kernel
-    want = dict.fromkeys(by_kind.values(), 0)
-    for kind, kernel in by_kind.items():
-        want[kernel] += steps[kind] * llm.model_cfg.num_layers
+    # every layer of every step of a kind launched that kind's kernels
+    want = {k: 0 for ks in by_kind.values() for k in ks}
+    for kind, kernels in by_kind.items():
+        for kernel in kernels:
+            want[kernel] += steps[kind] * layers_running(llm.model_cfg,
+                                                         kernel)
     assert all(counts[k] == n for k, n in want.items()), \
         f"[serve {name}] launches {counts}, expected {want} from {steps}"
-    assert counts["plain_calls"] == 0, "plain attention ran on the card"
+    assert counts["plain_calls"] == 0, "a plain version ran on the card"
     mm = llm.memory_manager
     assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
+    if mm.use_ssm:
+        assert mm.ssm_alloc.num_free == mm.ssm_alloc.num_total, \
+            "SSM slots leaked"
     if profiled:
         profile_window(llm, rng, name)
     out = dict(counts=counts, rates=rates, pages=llm.runner.num_pages,
@@ -843,12 +1107,13 @@ def profile_window(llm, rng, name):
 def phase_reference():
     """Depth-cut models at float32: the port on the card (CUDA kernels)
     against the port on the CPU (plain versions), same weights: Llama with
-    a float32 cache, an int8 cache and the unified step, and DeepSeek
-    (one dense layer, one MoE layer) at the MLA kernels' small latent
-    geometry."""
+    a float32 cache, an int8 cache and the unified step, DeepSeek (one
+    dense layer, one MoE layer) at the MLA kernels' small latent
+    geometry, and one period of Qwen3-Next (K3 at Dk = Dv = 32, K1 / K2 at
+    head_dim 128)."""
     from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, \
         SamplingParams, SchedulerConfig
-    from gllm_tpu_torch.models import deepseek, dense
+    from gllm_tpu_torch.models import deepseek, dense, hybrid
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     llama = llama_3_2_1b(num_layers=2)
@@ -857,8 +1122,17 @@ def phase_reference():
                           qk_nope_head_dim=32, qk_rope_head_dim=32,
                           v_head_dim=32, n_routed_experts=8,
                           num_experts_per_tok=2, moe_intermediate_size=128)
+    qn = qwen3_next(num_hidden_layers=4, hidden_size=256,
+                    num_attention_heads=4, num_key_value_heads=2,
+                    head_dim=128, linear_num_key_heads=2,
+                    linear_num_value_heads=4, linear_key_head_dim=32,
+                    linear_value_head_dim=32, num_experts=2,
+                    num_experts_per_tok=1, moe_intermediate_size=128,
+                    shared_expert_intermediate_size=128)
     weights = {"llama": dense.init_params(llama, SEED, torch.float32, "cuda"),
                "deepseek": deepseek.init_params(ds, SEED, torch.float32,
+                                                "cuda"),
+               "qwen3_next": hybrid.init_params(qn, SEED, torch.float32,
                                                 "cuda")}
     sp = SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True)
 
@@ -880,7 +1154,9 @@ def phase_reference():
             ("int8 cache", llama, weights["llama"], "int8", False),
             ("unified step", llama, weights["llama"], "auto", True),
             ("deepseek (latent 64+32, 16 heads)", ds, weights["deepseek"],
-             "auto", False)):
+             "auto", False),
+            ("qwen3_next (1 period, GDN 32/32, head_dim 128)", qn,
+             weights["qwen3_next"], "auto", False)):
         rng = np.random.default_rng(SEED + 1)
         prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                    for n in (40, 75, 130)]
@@ -906,7 +1182,8 @@ def phase_reference():
         err = (logits[0] - logits[1]).abs().max().item()
         scale = logits[1].abs().max().item()
         counts = read_counters()
-        log(f"[reference] 2-layer f32, {label}: first step (chunked "
+        log(f"[reference] {cfg.num_layers}-layer f32, {label}: first step "
+            f"(chunked "
             f"prefill) logits max_abs_err {err} of max |logit| {scale}; "
             f"greedy tokens identical: {toks[0] == toks[1]}; card launches "
             f"{ {k: n for k, n in counts.items() if n} }")
@@ -915,8 +1192,13 @@ def phase_reference():
         assert toks[0] == toks[1], \
             f"[reference] {label}: card and CPU greedy tokens differ"
         assert all(len(t) == 8 for t in toks[0])
-    assert counts["ragged_paged_attention_mla"] and \
-        counts["paged_decode_attention_mla"], "[reference] no MLA kernel ran"
+        if cfg is ds:
+            assert counts["ragged_paged_attention_mla"] and \
+                counts["paged_decode_attention_mla"], \
+                "[reference] no MLA kernel ran"
+    assert counts["gdn_chunk_scan"] and counts["ragged_paged_attention"] \
+        and counts["paged_decode_attention"], \
+        "[reference] no hybrid kernel ran"
 
 
 def main():

@@ -27,3 +27,13 @@ class StepBatch(NamedTuple):
     # scales the runner zeroes before this step writes (a list on the host,
     # [n] int32 on the device; None when there are none)
     scale_resets: object = None
+    # hybrid models: each row's SSM working slot ([S] int32; padded rows
+    # → the dummy slot 0), and the slots freed since the last step, whose
+    # state the runner zeroes before this step (a list on the host, [n]
+    # int32 on the device; None when there are none)
+    ssm_slots: object = None
+    ssm_zero: object = None
+    # host ints: the real rows (sequences) of the batch, and the longest
+    # real row's token count (the GDN layers' padded row length)
+    num_seqs: int = 0
+    max_seq_q: int = 0

@@ -110,7 +110,8 @@ class EngineConfig:
         """Raise on options this port does not implement; with
         ``model_cfg``, also on a model it does not serve and on options the
         model's family does not take (an MLA latent cache takes neither
-        the int8 cache nor the unified step)."""
+        the int8 cache nor the unified step; a hybrid model neither, nor
+        prefix caching)."""
         if model_cfg is not None:
             model_cfg.check_supported()
         unported = [k for k, off in _UNPORTED.items()
@@ -139,6 +140,18 @@ class EngineConfig:
                 unported.append("unified_step with an MLA latent cache (the "
                                 "unified kernel over a latent cache is not "
                                 "ported)")
+        if model_cfg is not None and model_cfg.use_hybrid:
+            # hybrid GDN: the JAX runner refuses int8 (runner.py:549-552)
+            # and leaves unified_step inert (:297-303); prefix caching
+            # needs the SSM snapshot slots and the scheduler's chunk
+            # alignment, not ported yet
+            if c.kv_cache_dtype == "int8":
+                unported.append("kv_cache_dtype='int8' with a hybrid model")
+            if self.unified_step:
+                unported.append("unified_step with a hybrid model")
+            if c.enable_prefix_caching:
+                unported.append("enable_prefix_caching with a hybrid model "
+                                "(SSM snapshots)")
         if unported:
             raise NotImplementedError(
                 "not supported by gllm_tpu_torch yet: "

@@ -27,7 +27,7 @@ extern "C" int gllm_decode_attention(
                       chunk, num_splits, part) ||
       quant != (v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
-  const int rc = dispatch_types(
+  const int rc = dispatch_types<true>(
       dtype, quant, head_dim, [&](auto t, auto tc, auto d) {
         using T = decltype(t);
         using TC = decltype(tc);

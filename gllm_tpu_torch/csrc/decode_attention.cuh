@@ -35,6 +35,24 @@ namespace gllm {
 constexpr int kDecodeTile = 32;  // keys per tile: one per lane
 constexpr int kDecodeMaxGroup = 16;
 
+// Shared memory of a decode block: a K tile (row stride D + 1, odd: lane j
+// reads row j conflict-free), a V tile and the group's q rows, all float.
+// Static up to D 128 (41 KB with room for 16 q rows); at D 256 it is 74 KB
+// for Qwen3-Next's group of 8, above the 48 KB a block may hold statically,
+// so those instances take it as dynamic shared memory sized by the group.
+// (Dynamic shared memory at every D measured K2 at D 64 17% slower on an
+// H100, 0.0753 ms against 0.0643: PERF.md.)
+template <int D>
+struct DecodeSmem {
+  static constexpr int LDK = D + 1;
+  static constexpr bool DYNAMIC = D > 128;
+  static constexpr size_t bytes(int group) {
+    return DYNAMIC ? (kDecodeTile * LDK + kDecodeTile * D + group * D) *
+                         sizeof(float)
+                   : 0;
+  }
+};
+
 template <typename T, typename TC, int D, bool UNIFIED>
 __global__ void __launch_bounds__(32 * kDecodeMaxGroup)
     decode_attention_kernel(const T* __restrict__ q,
@@ -49,11 +67,22 @@ __global__ void __launch_bounds__(32 * kDecodeMaxGroup)
                             int max_pages, int num_q_heads, int num_kv_heads,
                             int group, int page_size, int page_offset,
                             int chunk, int num_splits, float scale_log2) {
-  constexpr int LDK = D + 1;  // odd stride: lane j reads row j conflict-free
+  constexpr int LDK = DecodeSmem<D>::LDK;
   constexpr int DPL = D / 32;  // output dims per lane
-  __shared__ float sk[kDecodeTile * LDK];
-  __shared__ float sv[kDecodeTile * D];
-  __shared__ float sq[kDecodeMaxGroup * D];
+  float *sk, *sv, *sq;         // sq: [group][D]
+  if constexpr (DecodeSmem<D>::DYNAMIC) {
+    extern __shared__ float decode_smem[];
+    sk = decode_smem;
+    sv = sk + kDecodeTile * LDK;
+    sq = sv + kDecodeTile * D;
+  } else {
+    __shared__ float k_tile[kDecodeTile * LDK];
+    __shared__ float v_tile[kDecodeTile * D];
+    __shared__ float q_rows[kDecodeMaxGroup * D];
+    sk = k_tile;
+    sv = v_tile;
+    sq = q_rows;
+  }
 
   const int s = blockIdx.x;
   const int h = blockIdx.y;
@@ -204,8 +233,16 @@ static int launch_decode(const void* q, const void* k, const void* v,
                          int num_splits, float scale, cudaStream_t stream) {
   const int group = hq / hkv;
   dim3 grid(S, hkv, num_splits);
-  decode_attention_kernel<T, TC, D, UNIFIED>
-      <<<grid, 32 * group, 0, stream>>>(
+  auto kern = decode_attention_kernel<T, TC, D, UNIFIED>;
+  static bool configured = !DecodeSmem<D>::DYNAMIC;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)DecodeSmem<D>::bytes(kDecodeMaxGroup));
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  kern<<<grid, 32 * group, DecodeSmem<D>::bytes(group), stream>>>(
           static_cast<const T*>(q), static_cast<const TC*>(k),
           static_cast<const TC*>(v), ks, vs, cu, kv_lens, pt,
           static_cast<T*>(out), part, max_pages, hq, hkv, group, page_size,

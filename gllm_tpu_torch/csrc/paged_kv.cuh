@@ -175,9 +175,12 @@ __device__ __forceinline__ bool in_decode_prefix(const int* cu_q_lens,
 // ---- host: run-time dtype / cache / head_dim -> template instance ---------
 //
 // f(T{}, TC{}, std::integral_constant<int, D>{}) for q and output type T,
-// cache element type TC (T, or int8_t when `quant`) and head dim D.
+// cache element type TC (T, or int8_t when `quant`) and head dim D. With
+// WIDE, head dim 256 (Qwen3-Next's full-attention layers) is instantiated
+// too, for a full-precision cache only: the hybrid family takes no int8
+// cache and no unified step, so those instances are not built.
 
-template <typename T, typename TC, typename F>
+template <typename T, typename TC, bool WIDE, typename F>
 static int dispatch_dim(int head_dim, F& f) {
   switch (head_dim) {
     case 32:
@@ -187,24 +190,28 @@ static int dispatch_dim(int head_dim, F& f) {
     case 128:
       return f(T{}, TC{}, std::integral_constant<int, 128>{});
   }
+  if constexpr (WIDE && !is_q8<TC>()) {
+    if (head_dim == 256)
+      return f(T{}, TC{}, std::integral_constant<int, 256>{});
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, typename F>
+template <typename T, bool WIDE, typename F>
 static int dispatch_cache(bool quant, int head_dim, F& f) {
-  return quant ? dispatch_dim<T, int8_t>(head_dim, f)
-               : dispatch_dim<T, T>(head_dim, f);
+  return quant ? dispatch_dim<T, int8_t, WIDE>(head_dim, f)
+               : dispatch_dim<T, T, WIDE>(head_dim, f);
 }
 
-template <typename F>
+template <bool WIDE, typename F>
 static int dispatch_types(int dtype, bool quant, int head_dim, F&& f) {
   switch (dtype) {
     case kFloat32:
-      return dispatch_cache<float>(quant, head_dim, f);
+      return dispatch_cache<float, WIDE>(quant, head_dim, f);
     case kBFloat16:
-      return dispatch_cache<__nv_bfloat16>(quant, head_dim, f);
+      return dispatch_cache<__nv_bfloat16, WIDE>(quant, head_dim, f);
     case kFloat16:
-      return dispatch_cache<__half>(quant, head_dim, f);
+      return dispatch_cache<__half, WIDE>(quant, head_dim, f);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -24,7 +24,7 @@ extern "C" int gllm_ragged_attention(
   if (!ragged_args_ok(num_tokens, S, num_q_heads, num_kv_heads) ||
       quant != (v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
-  const int rc = dispatch_types(
+  const int rc = dispatch_types<true>(
       dtype, quant, head_dim, [&](auto t, auto tc, auto d) {
         using T = decltype(t);
         using TC = decltype(tc);

@@ -20,7 +20,8 @@
 // loads serves all of them, and it walks the sequence's pages only up to
 // the last key its rows can see, with a float32 online softmax.
 // bf16 / fp16: tensor cores (mma.sync m16n8k16, float32 accumulators), one
-// warp per 16 query rows, 64-key K/V tiles double-buffered in shared memory
+// warp per 16 query rows (two at D 256, each owning half of the output
+// columns; see MmaCols), 64-key K/V tiles double-buffered in shared memory
 // with cp.async so the next tile's loads overlap this tile's products; a
 // warp skips a tile none of its rows can see. float32: the same walk with
 // plain FMA on register tiles out of shared memory (the tensor cores take
@@ -327,7 +328,19 @@ __global__ void __launch_bounds__(kThreads)
 // ---- bf16 / fp16: tensor cores ---------------------------------------------
 
 constexpr int kMmaKeys = 64;  // keys per tile
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
+constexpr int kMmaRowWarps = 4;  // warps of 16 query rows: 64 rows a block
+
+// Warps sharing one 16-row group's output columns. At D 256 a warp owning
+// all 256 columns would hold 128 float32 accumulators a thread beside Q's
+// 64 fragment registers; two warps a row group, 128 columns each, keep a
+// thread at 64 accumulators. Both warps of a row group compute the same
+// scores (the Q.K^T product is repeated, in the same order, so their
+// softmax statistics agree bit for bit) and each does half of P.V.
+template <int D>
+struct MmaCols {
+  static constexpr int WN = D > 128 ? 2 : 1;
+  static constexpr int THREADS = 32 * kMmaRowWarps * WN;
+};
 
 // mma.sync m16n8k16 with float32 accumulators, and the packing of two
 // floats into one 32-bit A-fragment register (lower index in the low half)
@@ -472,7 +485,7 @@ __device__ __forceinline__ void widen_tile(T* dst, const int8_t* src) {
 }
 
 template <typename T, typename TC, int D, bool UNIFIED>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(MmaCols<D>::THREADS)
     ragged_attention_mma_kernel(const T* __restrict__ q,
                                 const TC* __restrict__ kc,
                                 const TC* __restrict__ vc,
@@ -489,7 +502,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   constexpr bool Q8 = SM::Q8;
   constexpr int LD = SM::LD;
   constexpr int NK = kMmaKeys / 8;  // key n-tiles of S
-  constexpr int ND = D / 8;         // dim n-tiles of O
+  constexpr int ND = D / 8 / MmaCols<D>::WN;  // dim n-tiles of O a warp
+  static_assert(ND % 2 == 0, "P.V loads two dim n-tiles at a time");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   // int8 cache: staging tiles [stage][K, V] and scales [stage][K, V][keys]
@@ -518,7 +532,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int kv_end = min(kv_len, pos0 + n_tok);
   const int* pt_row = page_table + (int64_t)seq * max_pages;
 
-  const int warp = threadIdx.x / 32;
+  const int warp = threadIdx.x / 32 % kMmaRowWarps;  // its 16-row group
+  const int dn0 = threadIdx.x / 32 / kMmaRowWarps * ND;  // first dim n-tile
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;  // fragment row, column pair
   const bool page16 = page_size % 16 == 0;
@@ -690,7 +705,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
         for (int dn = 0; dn < ND; dn += 2) {
           uint32_t b[4];
-          ldmatrix_x4_trans(b, vr + dn * 8);
+          ldmatrix_x4_trans(b, vr + (dn0 + dn) * 8);
           if (Q8 && page16) {
             const float vs16 = vsc[kk * 16];  // the step's page
             float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
@@ -718,7 +733,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     T* orow = out + row_off[i];
 #pragma unroll
     for (int dn = 0; dn < ND; ++dn)
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t4) =
+      *reinterpret_cast<uint32_t*>(orow + (dn0 + dn) * 8 + 2 * t4) =
           Mma<T>::pack(o[dn][2 * i] * inv, o[dn][2 * i + 1] * inv);
   }
 }
@@ -763,7 +778,7 @@ static int launch_ragged(const void* q, const void* k, const void* v,
       if (e != cudaSuccess) return (int)e;
       configured = true;
     }
-    kern<<<grid, kMmaThreads, smem, stream>>>(
+    kern<<<grid, MmaCols<D>::THREADS, smem, stream>>>(
         qt, kt, vt, ks, vs, cu, kv_lens, pt, ot, T_, S, max_pages, hq, hkv,
         group, page_size, page_offset, scale * kLog2e);
   }

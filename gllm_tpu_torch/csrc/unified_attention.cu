@@ -62,7 +62,7 @@ extern "C" int gllm_unified_attention(
   const int* kl = static_cast<const int*>(kv_lens);
   const int* pt = static_cast<const int*>(page_table);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc = dispatch_types(
+  const int rc = dispatch_types<false>(
       dtype, quant, head_dim, [&](auto t, auto tc, auto d) {
         using T = decltype(t);
         using TC = decltype(tc);

@@ -80,10 +80,11 @@ class LLM:
                                   params=params)
         self.memory_manager = make_memory_manager(
             self.runner.num_pages, config.cache.page_size,
-            config.cache.enable_prefix_caching)
+            config.cache.enable_prefix_caching,
+            ssm_working_slots=self.runner.ssm_working_slots)
         # int8 KV cache: minted pages queue a scale reset that the runner
         # applies before the next step, so numerics never depend on page
-        # reuse
+        # reuse; a hybrid model's freed SSM slots queue a zero the same way
         self.memory_manager.track_scale_resets = self.runner.kv_quant
         self.runner.memory_manager = self.memory_manager
         self.scheduler = Scheduler(config, self.memory_manager)

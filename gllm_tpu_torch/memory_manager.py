@@ -10,6 +10,12 @@
   until the allocator re-mints it; an 8-token canary guards against hash
   collisions. Freshly computed pages are registered only after a step's
   outputs land, so uncommitted tokens never poison cache keys.
+- hybrid models: working slots of the GDN state pools, one per running
+  sequence (``gllm_tpu/memory_manager.py:116-180,248``), slot 0 being the
+  padding dummy. A freed slot is queued to be zeroed (JAX's "zero"
+  intent), which the runner does on the device before the next step, so a
+  new tenant starts from a zeroed state. No snapshot slots yet (prefix
+  caching raises with a hybrid model), so zeroing is the only intent.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ def prefix_digests(token_ids, prompt_len: int,
 class MemoryManager:
     """Plain paged allocator (no prefix reuse)."""
 
-    def __init__(self, num_pages: int, page_size: int):
+    def __init__(self, num_pages: int, page_size: int,
+                 ssm_working_slots: int = 0):
         if num_pages < 2:
             raise ValueError("need at least 2 pages (one is the dummy page)")
         self.page_size = page_size
@@ -63,6 +70,36 @@ class MemoryManager:
         # carries over from the last tenant). Off, the list stays empty.
         self.track_scale_resets = False
         self.scale_resets: List[int] = []
+        # hybrid models: slots 1..ssm_working_slots of the GDN state pools
+        self.ssm_alloc = (IDAllocator(ssm_working_slots, start=1)
+                          if ssm_working_slots else None)
+        # freed slots to zero, drained by the runner
+        self.ssm_zero: List[int] = []
+
+    # ---- SSM slots (hybrid models) ----------------------------------------
+
+    @property
+    def use_ssm(self) -> bool:
+        return self.ssm_alloc is not None
+
+    def can_admit_seq(self) -> bool:
+        return self.ssm_alloc is None or self.ssm_alloc.num_free > 0
+
+    def prepare_seq(self, seq: Sequence) -> None:
+        """At admission (waiting → running): a working slot, zeroed since
+        its last tenant left."""
+        if self.ssm_alloc is not None and seq.ssm_slot is None:
+            seq.ssm_slot = self.ssm_alloc.allocate()
+
+    def _free_ssm(self, seq: Sequence) -> None:
+        if seq.ssm_slot is not None:
+            self.ssm_zero.append(seq.ssm_slot)
+            self.ssm_alloc.free(seq.ssm_slot)
+            seq.ssm_slot = None
+
+    def drain_ssm_zero(self) -> List[int]:
+        out, self.ssm_zero = self.ssm_zero, []
+        return out
 
     # ---- stats ------------------------------------------------------------
 
@@ -113,6 +150,7 @@ class MemoryManager:
             self._release_page(page)
         seq.page_table = []
         seq._pt_np = None      # see Sequence.preempt: shrink ⇒ drop cache
+        self._free_ssm(seq)
 
     def _release_page(self, page: int) -> None:
         self.ref_count[page] -= 1
@@ -203,6 +241,11 @@ class PrefixMemoryManager(MemoryManager):
 
 
 def make_memory_manager(num_pages: int, page_size: int,
-                        enable_prefix_caching: bool) -> MemoryManager:
-    cls = PrefixMemoryManager if enable_prefix_caching else MemoryManager
-    return cls(num_pages, page_size)
+                        enable_prefix_caching: bool,
+                        ssm_working_slots: int = 0) -> MemoryManager:
+    if enable_prefix_caching:
+        if ssm_working_slots:
+            raise NotImplementedError("prefix caching with SSM slots (a "
+                                      "hybrid model) is not ported")
+        return PrefixMemoryManager(num_pages, page_size)
+    return MemoryManager(num_pages, page_size, ssm_working_slots)

@@ -2,12 +2,13 @@
 ``gllm_tpu/models/config.py``: ``ModelConfig:16``, MLA and DeepSeek MoE
 fields ``:50-106``, ``from_hf_config:215``).
 
-This port serves two families: the dense GQA decoder (Llama / Qwen2 /
-Qwen3 / GLM-class) and DeepSeek V2/V3 (MLA latent KV + DeepSeekMoE,
-without DSA). The fields that mark the other families (other MoE
-architectures, DSA, hybrid linear attention, vision towers) are kept so a
-config of such a model parses, and ``ModelConfig.check_supported`` refuses
-it.
+This port serves three families: the dense GQA decoder (Llama / Qwen2 /
+Qwen3 / GLM-class), DeepSeek V2/V3 (MLA latent KV + DeepSeekMoE, without
+DSA) and the hybrid Gated-DeltaNet family (Qwen3-Next / Qwen3.5; hybrid
+fields ``:137-175``, the ``from_hf_config`` branch ``:307-320``). The
+fields that mark the other families (other MoE architectures, DSA, vision
+towers) are kept so a config of such a model parses, and
+``ModelConfig.check_supported`` refuses it.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ class ModelConfig:
     num_experts_per_tok: int = 0
     moe_intermediate_size: int = 0
     norm_topk_prob: bool = True
+    # Qwen-style sparse block (hybrid family): one shared expert of this
+    # width beside the routed ones, gated by sigmoid(x @ gate)
+    shared_expert_intermediate_size: int = 0
     # MLA (DeepSeek V2/V3)
     q_lora_rank: int = 0              # 0 → direct q projection (V2-Lite)
     kv_lora_rank: int = 0             # > 0 enables the MLA latent cache
@@ -59,13 +63,41 @@ class ModelConfig:
     scoring_func: str = "softmax"     # softmax (V2) | sigmoid (V3)
     topk_method: str = "greedy"       # greedy | group_limited_greedy |
                                       # noaux_tc (V3 bias-corrected)
+    # Hybrid linear attention (Qwen3-Next / Qwen3.5): layer_types marks
+    # each layer "linear_attention" (Gated DeltaNet) or "full_attention"
+    layer_types: Tuple[str, ...] = ()
+    linear_num_value_heads: int = 0
+    linear_num_key_heads: int = 0
+    linear_key_head_dim: int = 0
+    linear_value_head_dim: int = 0
+    linear_conv_kernel_dim: int = 4
     # Families this port does not serve yet (check_supported refuses them):
-    # DeepSeek V3.2 sparse attention (DSA), hybrid, multimodal.
+    # DeepSeek V3.2 sparse attention (DSA), multimodal.
     index_n_heads: int = 0
     index_head_dim: int = 0
     index_topk: int = 0
-    layer_types: Tuple[str, ...] = ()
     vision_config: Optional[Dict[str, Any]] = None
+
+    @property
+    def use_hybrid(self) -> bool:
+        return "linear_attention" in self.layer_types
+
+    @property
+    def num_attn_layers(self) -> int:
+        """Full-attention layers: the depth of the paged KV stack."""
+        if not self.layer_types:
+            return self.num_layers
+        return sum(1 for t in self.layer_types if t == "full_attention")
+
+    @property
+    def num_linear_layers(self) -> int:
+        return sum(1 for t in self.layer_types if t == "linear_attention")
+
+    @property
+    def gdn_conv_dim(self) -> int:
+        """Channels of the GDN layer's causal conv: q, k and v."""
+        return (2 * self.linear_num_key_heads * self.linear_key_head_dim
+                + self.linear_num_value_heads * self.linear_value_head_dim)
 
     @property
     def use_mla(self) -> bool:
@@ -96,7 +128,8 @@ class ModelConfig:
     def check_supported(self) -> None:
         unported = []
         deepseek = self.architecture in DEEPSEEK_ARCHS
-        if self.num_experts and not deepseek:
+        hybrid = self.architecture in HYBRID_ARCHS
+        if self.num_experts and not (deepseek or hybrid):
             unported.append(f"MoE ({self.architecture})")
         if self.kv_lora_rank and not deepseek:
             unported.append(f"MLA ({self.architecture})")
@@ -104,8 +137,18 @@ class ModelConfig:
             unported.append(f"{self.architecture} without kv_lora_rank")
         if self.use_dsa:
             unported.append("DeepSeek sparse attention (index_topk)")
-        if "linear_attention" in self.layer_types:
-            unported.append("hybrid linear attention")
+        if self.use_hybrid and not hybrid:
+            unported.append(f"hybrid linear attention ({self.architecture})")
+        if hybrid:
+            if not self.use_hybrid:
+                unported.append(f"{self.architecture} without "
+                                "linear_attention layer_types")
+            elif len(self.layer_types) != self.num_layers:
+                # the JAX package tiles layer_types by its smallest period
+                # (hybrid.py:49), which may be the whole list; the port runs
+                # the layers in order, and needs one type per layer
+                unported.append(f"layer_types of {len(self.layer_types)} "
+                                f"layers for {self.num_layers} layers")
         if self.vision_config is not None:
             unported.append("multimodal")
         if self.hidden_act != "silu":
@@ -118,6 +161,10 @@ class ModelConfig:
 
 # DeepSeek V2/V3 (MLA + DeepSeekMoE); V3.2 (DSA) and Kimi stay refused
 DEEPSEEK_ARCHS = ("DeepseekV2ForCausalLM", "DeepseekV3ForCausalLM")
+# the hybrid GDN family (gllm_tpu/models/registry.py:166-172)
+HYBRID_ARCHS = ("Qwen3NextForCausalLM", "Qwen3_5ForCausalLM",
+                "Qwen3_5MoeForCausalLM", "Qwen3_5ForConditionalGeneration",
+                "Qwen3_5MoeForConditionalGeneration")
 
 
 def _eos_tuple(v) -> Optional[Tuple[int, ...]]:
@@ -129,15 +176,32 @@ def _eos_tuple(v) -> Optional[Tuple[int, ...]]:
 
 
 def from_hf_config(hf: Dict[str, Any]) -> ModelConfig:
-    """Parse a dense decoder's or a DeepSeek model's HF config.json dict
-    into a ModelConfig."""
+    """Parse a dense decoder's, a DeepSeek model's or a hybrid model's HF
+    config.json dict into a ModelConfig."""
     arch = (hf.get("architectures")
             or (hf.get("text_config") or {}).get("architectures")
             or ["LlamaForCausalLM"])[0]
+    extra = dict(layer_types=tuple(hf.get("layer_types", ()) or ()))
+    if arch in HYBRID_ARCHS:
+        # Real Qwen3.5 checkpoints use the *ForConditionalGeneration arch
+        # string and may nest the LM under text_config.
+        text = dict(hf.get("text_config") or hf)
+        extra = dict(
+            layer_types=tuple(text.get("layer_types", ())),
+            linear_num_value_heads=text.get("linear_num_value_heads", 0),
+            linear_num_key_heads=text.get("linear_num_key_heads", 0),
+            linear_key_head_dim=text.get("linear_key_head_dim", 0),
+            linear_value_head_dim=text.get("linear_value_head_dim", 0),
+            linear_conv_kernel_dim=text.get("linear_conv_kernel_dim", 4),
+        )
+        hf = {**text, "architectures": [arch],
+              "eos_token_id": hf.get("eos_token_id",
+                                     text.get("eos_token_id"))}
     num_heads = hf["num_attention_heads"]
     hidden = hf["hidden_size"]
     head_dim = hf.get("head_dim") or hidden // num_heads
-    qk_norm = arch in ("Qwen3ForCausalLM", "Qwen3MoeForCausalLM")
+    qk_norm = arch in ("Qwen3ForCausalLM", "Qwen3MoeForCausalLM") + \
+        HYBRID_ARCHS
     is_glm4 = arch in ("Glm4ForCausalLM",)
     is_glm = arch in ("GlmForCausalLM",)
     # HF's Qwen2 attention is bias=True unconditionally, whatever
@@ -173,6 +237,8 @@ def from_hf_config(hf: Dict[str, Any]) -> ModelConfig:
         num_experts_per_tok=hf.get("num_experts_per_tok", 0) or 0,
         moe_intermediate_size=hf.get("moe_intermediate_size", 0) or 0,
         norm_topk_prob=hf.get("norm_topk_prob", True),
+        shared_expert_intermediate_size=hf.get(
+            "shared_expert_intermediate_size", 0) or 0,
         q_lora_rank=hf.get("q_lora_rank", 0) or 0,
         kv_lora_rank=hf.get("kv_lora_rank", 0) or 0,
         qk_nope_head_dim=hf.get("qk_nope_head_dim", 0) or 0,
@@ -188,6 +254,6 @@ def from_hf_config(hf: Dict[str, Any]) -> ModelConfig:
         index_n_heads=hf.get("index_n_heads", 0) or 0,
         index_head_dim=hf.get("index_head_dim", 0) or 0,
         index_topk=hf.get("index_topk", 0) or 0,
-        layer_types=tuple(hf.get("layer_types", ()) or ()),
         vision_config=hf.get("vision_config"),
+        **extra,
     )

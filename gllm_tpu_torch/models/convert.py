@@ -1,8 +1,11 @@
 """Carry parameters between the JAX package's pytree and this port.
 
 Both sides keep weights as [in, out] and stack layers on a leading axis,
-in one group (``layers``, the dense family) or two (``dense_layers`` and
-``moe_layers``, DeepSeek). This port fuses q|k|v into ``qkv_proj`` (and
+in one group (``layers``, the dense family), two (``dense_layers`` and
+``moe_layers``, DeepSeek) or three (``attn_layers``, ``gdn_layers`` and
+``mlp_layers``, the hybrid family, whose q projection carries each head's
+output gate beside it, 2 * head_dim a head). This port fuses q|k|v into
+``qkv_proj`` (and
 their biases into ``qkv_bias``) and every gate|up pair into one tensor:
 ``gate_up_proj``, the experts' ``w_gate_up`` and the shared experts'
 ``shared_gate_up_proj``. The JAX side is a dict of numpy arrays
@@ -27,8 +30,9 @@ _FUSED = {
     "w_gate_up": ("w_gate", "w_up"),
     "shared_gate_up_proj": ("shared_gate_proj", "shared_up_proj"),
 }
-# kept in float32 whatever the model dtype (DeepSeek V3's routing bias)
-_FLOAT32 = ("e_bias",)
+# kept in float32 whatever the model dtype (DeepSeek V3's routing bias,
+# the GDN layers' decay parameters)
+_FLOAT32 = ("e_bias", "dt_bias", "a_log")
 
 
 def _tensor(name, x, dtype, device) -> torch.Tensor:
@@ -65,7 +69,8 @@ def from_jax_params(np_params: Dict, dtype: torch.dtype = torch.float32,
 def to_jax_params(params: Params, cfg: ModelConfig) -> Dict:
     """This port's parameter dict → the JAX pytree layout (numpy f32)."""
     D = cfg.head_dim
-    qkv = (cfg.num_heads * D, cfg.num_kv_heads * D, cfg.num_kv_heads * D)
+    q_width = cfg.num_heads * D * (2 if cfg.use_hybrid else 1)
+    qkv = (q_width, cfg.num_kv_heads * D, cfg.num_kv_heads * D)
 
     def np32(t):
         return t.detach().float().cpu().numpy()

@@ -37,10 +37,10 @@ import torch
 from gllm_tpu_torch.batching import StepBatch
 from gllm_tpu_torch.models import dense
 from gllm_tpu_torch.models.config import ModelConfig
+from gllm_tpu_torch.models.moe import grouped_experts
 from gllm_tpu_torch.ops.attention import paged_attention
 from gllm_tpu_torch.ops.kv_cache import write_latent
-from gllm_tpu_torch.ops.layers import (fused_add_rms_norm, rms_norm,
-                                      silu_and_mul)
+from gllm_tpu_torch.ops.layers import fused_add_rms_norm, rms_norm
 from gllm_tpu_torch.ops.rope import (apply_rope_interleaved,
                                      compute_rope_cos_sin,
                                      yarn_softmax_scale_mult)
@@ -192,33 +192,12 @@ def deepseek_route(router_logits: torch.Tensor,
 
 
 def _moe_block(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Routed experts + shared experts for x [T, H].
-
-    The T*K (token, expert) assignments are sorted by expert, so each
-    expert's rows are contiguous, and the grouped product
-    (``torch._grouped_mm`` with the groups' end offsets; JAX's
-    ``jax.lax.ragged_dot``) runs each expert only on its own rows, with no
-    host sync: the offsets stay on the device. Each row's result goes back
-    to its (token, slot) place and the K slots of a token are summed with
-    their routing weights in one batched product, with no atomics (JAX
-    scatter-adds, in the model dtype as here)."""
-    T, H = x.shape
-    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    """Routed experts (``moe.grouped_experts``: the expert-sorted grouped
+    product, no host sync) + shared experts for x [T, H]."""
     logits = x.float() @ lp["router"].float()
     weights, ids = deepseek_route(logits, lp.get("e_bias"), cfg)
-    flat = ids.reshape(-1).long()
-    order = torch.argsort(flat, stable=True)
-    # each expert's end offset in the sorted rows (bincount would size its
-    # output from the largest id, a host sync on CUDA)
-    offs = torch.searchsorted(flat[order], torch.arange(E, device=x.device),
-                              right=True).to(torch.int32)
-    xs = x[order // K]
-    act = silu_and_mul(torch._grouped_mm(xs, lp["w_gate_up"], offs=offs))
-    out = torch._grouped_mm(act, lp["w_down"], offs=offs)
-    by_slot = torch.empty_like(out)
-    by_slot[order] = out
-    combined = torch.bmm(weights.to(out.dtype)[:, None, :],
-                         by_slot.view(T, K, H))[:, 0]
+    combined = grouped_experts(x, weights, ids, lp["w_gate_up"],
+                               lp["w_down"])
     if cfg.n_shared_experts:
         combined = combined + dense._mlp(
             {"gate_up_proj": lp["shared_gate_up_proj"],

@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "gllm_tpu_torch"
 SOURCES = ("decode_attention", "ragged_attention", "unified_attention",
-           "mla_decode_attention", "mla_ragged_attention")
+           "mla_decode_attention", "mla_ragged_attention", "gdn_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -49,6 +49,7 @@ _SIGNATURES = {
                              [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
     "mla_ragged_attention": ("gllm_mla_ragged_attention",
                              [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+    "gdn_scan": ("gllm_gdn_chunk_scan", [_P] * 9 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()

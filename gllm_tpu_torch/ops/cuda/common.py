@@ -8,6 +8,9 @@ import torch
 from gllm_tpu_torch.ops.cuda.build import DTYPE_CODES
 
 HEAD_DIMS = (32, 64, 128)
+# head dims of the full-precision, non-unified K1 and K2 only (Qwen3-Next's
+# gated full-attention layers; csrc/paged_kv.cuh dispatch_dim)
+WIDE_HEAD_DIMS = HEAD_DIMS + (256,)
 # MLA kernels (csrc/mla_attention.cuh): 16 query heads over one latent
 # stream, and the (latent row width, v_dim) geometries they are built for:
 # DeepSeek V2/V3's (576, 512) and (96, 64) for small test models
@@ -65,10 +68,13 @@ def check_latent_inputs(what: str, q, latent, v_dim, index_tensors) -> None:
 
 
 def check_inputs(what: str, q, k_cache, v_cache, index_tensors,
-                 max_group: int, k_scale=None, v_scale=None) -> None:
+                 max_group: int, k_scale=None, v_scale=None,
+                 wide: bool = False) -> None:
     """Raise on anything the kernel does not take: device, dtype, shape,
     contiguity, alignment. An int8 cache needs both scales, float32
-    [P, Hkv]; a full-precision cache shares q's dtype and takes none."""
+    [P, Hkv]; a full-precision cache shares q's dtype and takes none.
+    ``wide``: the kernel also takes head dim 256 (a full-precision cache
+    only)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: needs CUDA or CPU tensors, got "
                          f"{q.device}")
@@ -97,9 +103,10 @@ def check_inputs(what: str, q, k_cache, v_cache, index_tensors,
            or s.shape != (k_cache.shape[0], hkv) for s in scales):
         raise ValueError(f"{what}: k_scale and v_scale must be float32 "
                          f"[P, Hkv] = {[k_cache.shape[0], hkv]}")
-    if k_cache.shape[3] != d or d not in HEAD_DIMS:
+    dims = WIDE_HEAD_DIMS if wide and not scales else HEAD_DIMS
+    if k_cache.shape[3] != d or d not in dims:
         raise ValueError(f"{what}: head_dim {d} (cache "
-                         f"{k_cache.shape[3]}) not in {HEAD_DIMS}")
+                         f"{k_cache.shape[3]}) not in {dims}")
     if hq % hkv or hq // hkv > max_group:
         raise ValueError(f"{what}: Hq={hq} must be a multiple of Hkv={hkv} "
                          f"with at most {max_group} query heads per group")

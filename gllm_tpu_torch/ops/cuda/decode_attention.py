@@ -11,7 +11,8 @@ is bound by bytes: it runs one block per (sequence, kv head, split of the
 context), so every K/V row of a sequence's context is read from device
 memory once and shared by the G query heads of its group, and a long
 context at a small batch still fills the card; a second pass merges the
-splits. An int8 tile is dequantized as it is loaded, so the cache moves
+splits. Head dims 32, 64 and 128, and 256 over a full-precision cache
+(Qwen3-Next's gated attention). An int8 tile is dequantized as it is loaded, so the cache moves
 half the bytes. The TPU kernel's round-robin DMA grouping is a TPU fetch
 schedule and does not carry over.
 
@@ -125,7 +126,7 @@ def paged_decode_attention(q, k_cache, v_cache, kv_lens, page_table, *,
     S, Hq, D = q.shape
     check_inputs("paged_decode_attention", q, k_cache, v_cache,
                  (kv_lens, page_table), max_group=MAX_GROUP, k_scale=k_scale,
-                 v_scale=v_scale)
+                 v_scale=v_scale, wide=True)
     if kv_lens.shape != (S,) or page_table.shape[0] != S:
         raise ValueError("paged_decode_attention: kv_lens [S] and "
                          "page_table [S, max_pages] must match q [S, Hq, D]")

@@ -12,7 +12,10 @@ sequence s sits at position ``kv_len - q_len + t``.
   (sequence, q tile) from ``cu_q_lens``, so this wrapper issues no host
   sync, and each block reuses every K/V tile it loads for its 64 query
   rows. bf16 and fp16 run on the tensor cores (``mma.sync``) with
-  double-buffered ``cp.async`` tile loads; float32 runs on plain FMA. An
+  double-buffered ``cp.async`` tile loads; float32 runs on plain FMA.
+  Head dims 32, 64 and 128, and 256 over a full-precision cache
+  (Qwen3-Next's gated attention: two warps share each 16-row group's
+  output columns there, see ``csrc/ragged_attention.cuh``). An
   int8 tile is widened to bf16/fp16 exactly; the key scales multiply the
   scores and the value scales each page's P·V product.
 - Unified (K1u, ``unified=True``; either cache): ``csrc/unified_attention.cu``
@@ -193,7 +196,7 @@ def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
     check_inputs("ragged_paged_attention", q, k_cache, v_cache,
                  (cu_q_lens, kv_lens, page_table),
                  max_group=MAX_GROUP if unified else ROWS_PER_BLOCK,
-                 k_scale=k_scale, v_scale=v_scale)
+                 k_scale=k_scale, v_scale=v_scale, wide=not unified)
     S = kv_lens.shape[0]
     Hkv = k_cache.shape[2]
     if ROWS_PER_BLOCK % (Hq // Hkv):

@@ -25,7 +25,8 @@ from gllm_tpu_torch.utils import bucket_size, cdiv
 
 
 class BatchBuilder:
-    def __init__(self, config: EngineConfig, page_size: int):
+    def __init__(self, config: EngineConfig, page_size: int,
+                 use_ssm: bool = False):
         self.config = config
         self.page_size = page_size
         sc = config.scheduler
@@ -37,6 +38,8 @@ class BatchBuilder:
         # unified step: one signature family, max_q_len rides the token
         # bucket (no separate q == 1 population)
         self.unified = config.unified_step
+        # hybrid models: each row's SSM slot (prepare.py:332-333,424-426)
+        self.use_ssm = use_ssm
 
     def shape_signature(self, batch: ScheduledBatch
                         ) -> Tuple[int, int, int, int]:
@@ -131,13 +134,20 @@ class BatchBuilder:
         top_k[:K] = [sp.top_k for sp in sps]
         min_p[:K] = [sp.min_p for sp in sps]
 
+        ssm_slots = None
+        if self.use_ssm:
+            ssm_slots = np.zeros(s_pad, np.int32)   # padding → dummy slot 0
+            ssm_slots[:K] = [it.seq.ssm_slot or 0 for it in items]
+
         step_batch = StepBatch(
             token_ids=tokens, positions=positions, slot_mapping=slots,
             logits_indices=logits_idx,
             attn=AttentionMetadata(cu_q_lens=cu, kv_lens=kv_lens,
                                    page_table=page_table),
             sampling=SamplingMetadata(temperature=temperature, top_p=top_p,
-                                      top_k=top_k, min_p=min_p))
+                                      top_k=top_k, min_p=min_p),
+            ssm_slots=ssm_slots, num_seqs=K,
+            max_seq_q=int(ns.max()) if K else 0)
         return step_batch, max_q
 
 
@@ -146,8 +156,9 @@ class HostStaging:
     ``non_blocking`` copy.
 
     Every array is laid end to end in a single int32 buffer (float32
-    arrays by bit pattern), the int8 cache's scale-reset page ids
-    included; the device copy is split back into views. The
+    arrays by bit pattern), the int8 cache's scale-reset page ids and a
+    hybrid model's SSM slots and zeroed slots included; the device copy is
+    split back into views. The
     pinned buffer is reused across steps: the synchronous engine loop
     fetches each step's sampled tokens (a stream sync) before it builds
     the next step, so the previous copy out of the buffer has finished."""
@@ -164,7 +175,10 @@ class HostStaging:
                  sb.sampling.temperature.view(np.int32),
                  sb.sampling.top_p.view(np.int32),
                  sb.sampling.min_p.view(np.int32),
-                 np.asarray(sb.scale_resets or [], np.int32)]
+                 np.asarray(sb.scale_resets or [], np.int32),
+                 np.asarray(sb.ssm_slots if sb.ssm_slots is not None
+                            else [], np.int32),
+                 np.asarray(sb.ssm_zero or [], np.int32)]
         sizes = [p.size for p in parts]
         n = sum(sizes)
         if self._host.numel() < n:
@@ -179,7 +193,7 @@ class HostStaging:
             dev = self._host[:n].to(self.device, non_blocking=True)
         views = list(torch.split(dev, sizes))
         (tok, pos, slots, lidx, cu, kvl, pt, top_k, temp, top_p,
-         min_p, resets) = views
+         min_p, resets, ssm_slots, ssm_zero) = views
         f32 = torch.float32
         return StepBatch(
             token_ids=tok, positions=pos, slot_mapping=slots,
@@ -190,4 +204,7 @@ class HostStaging:
             sampling=SamplingMetadata(
                 temperature=temp.view(f32), top_p=top_p.view(f32),
                 top_k=top_k, min_p=min_p.view(f32)),
-            scale_resets=resets if resets.numel() else None)
+            scale_resets=resets if resets.numel() else None,
+            ssm_slots=ssm_slots if sb.ssm_slots is not None else None,
+            ssm_zero=ssm_zero if ssm_zero.numel() else None,
+            num_seqs=sb.num_seqs, max_seq_q=sb.max_seq_q)

@@ -2,12 +2,16 @@
 of ``gllm_tpu/runner/runner.py``: ``ModelRunner.__init__:273``,
 ``reset_page_scales:136``, ``_kv_bytes_per_page:570``,
 ``determine_num_pages:614``, ``_build_step_fn:650``,
-``_apply_scale_resets:923``, ``step:1845``).
+``_apply_scale_resets:923``, ``step:1845``; the hybrid slot pool
+``:414-433``, ``_ssm_pool_bytes:603``).
 
 One synchronous step: build the batch on the host, copy it over in one
 transfer, run forward → logits → sample, and fetch the sampled tokens.
-The model family (dense, or DeepSeek's MLA + MoE) comes from
-``models/registry.py``.
+The model family (dense, DeepSeek's MLA + MoE, or the hybrid GDN family)
+comes from ``models/registry.py``. A hybrid model keeps its GDN state in
+slot pools of ``1 + max_num_seqs`` slots (slot 0: the padding dummy);
+the slots freed since the last step ride the step's one upload and are
+zeroed (``index_fill_``) before its forward.
 PyTorch runs eagerly, so there is no compile cache to warm; the KV cache is
 updated in place where JAX donated its buffers. An int8 cache first zeroes
 the scales of the pages minted for the step (their ids ride the step's one
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from gllm_tpu_torch.config import EngineConfig
+from gllm_tpu_torch.models import hybrid
 from gllm_tpu_torch.models.config import ModelConfig
 from gllm_tpu_torch.models.registry import get_model_def
 from gllm_tpu_torch.ops.cuda.common import check_mla_geometry
@@ -72,7 +77,11 @@ class ModelRunner:
                 "gllm_tpu_torch loads no checkpoint yet: use "
                 "load_format='dummy' or pass params")
         self.cos_sin = self.model.make_rope_table(model_cfg, self.device)
-        self.builder = BatchBuilder(config, config.cache.page_size)
+        self.hybrid = self.model.family == "hybrid"
+        # hybrid: one GDN state slot per running sequence, and slot 0
+        self.ssm_working_slots = config.max_num_seqs if self.hybrid else 0
+        self.builder = BatchBuilder(config, config.cache.page_size,
+                                    use_ssm=self.hybrid)
         self.staging = HostStaging(self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
@@ -82,9 +91,12 @@ class ModelRunner:
         self.step_counts = {"mixed": 0, "decode": 0}
         self.num_pages = (config.cache.num_pages
                           or self.determine_num_pages())
+        slots = ({"num_slots": 1 + self.ssm_working_slots} if self.hybrid
+                 else {})
         self.kv = self.model.init_kv_cache(model_cfg, self.num_pages,
                                            config.cache.page_size,
-                                           self.kv_dtype, self.device)
+                                           self.kv_dtype, self.device,
+                                           **slots)
         logger.info("KV cache: %d pages × %d tokens (%s) on %s",
                     self.num_pages, config.cache.page_size, self.kv_dtype,
                     self.device)
@@ -95,15 +107,32 @@ class ModelRunner:
         return self.model.kv_bytes_per_page(
             self.model_cfg, self.config.cache.page_size, self.kv_dtype)
 
+    def activation_headroom(self) -> int:
+        """Device bytes kept free for a step's activations: 512 MB, and for
+        a hybrid model also the GDN layer's largest transient at the
+        largest batch shape the config can schedule."""
+        if not self.hybrid:
+            return ACTIVATION_HEADROOM
+        rows = self.builder.max_seqs
+        cells = hybrid.max_gdn_cells(
+            rows, min(self.config.scheduler.max_prefill_tokens,
+                      self.config.max_model_len))
+        return ACTIVATION_HEADROOM + hybrid.gdn_transient_bytes(
+            self.model_cfg, cells, rows)
+
     def determine_num_pages(self) -> int:
         """Size the KV pool from the device's free memory after the weights
         are resident: ``memory_util`` of the card's total, less what is in
-        use and the activation headroom."""
+        use, the activation headroom and, for a hybrid model, the GDN slot
+        pools."""
         if self.device.type != "cuda":
             return 2048               # CPU: modest default
         free, total = torch.cuda.mem_get_info(self.device)
         budget = (total * self.config.cache.memory_util - (total - free)
-                  - ACTIVATION_HEADROOM)
+                  - self.activation_headroom())
+        if self.hybrid:
+            budget -= hybrid.ssm_pool_bytes(self.model_cfg,
+                                            1 + self.ssm_working_slots)
         num = int(budget // self.kv_bytes_per_page())
         min_pages = cdiv(self.config.max_model_len,
                          self.config.cache.page_size) + 2
@@ -120,6 +149,9 @@ class ModelRunner:
         if self.kv_quant and self.memory_manager is not None:
             host_batch = host_batch._replace(
                 scale_resets=self.memory_manager.drain_scale_resets())
+        if self.hybrid and self.memory_manager is not None:
+            host_batch = host_batch._replace(
+                ssm_zero=self.memory_manager.drain_ssm_zero())
         return self.staging.upload(host_batch), max_q
 
     @torch.inference_mode()
@@ -132,6 +164,11 @@ class ModelRunner:
             pages = batch.scale_resets.long()
             self.kv.k_scale.index_fill_(1, pages, 0.0)
             self.kv.v_scale.index_fill_(1, pages, 0.0)
+        if batch.ssm_zero is not None:
+            # freed GDN slots start their next tenant from a zero state
+            slots = batch.ssm_zero.long()
+            self.kv.conv.index_fill_(1, slots, 0.0)
+            self.kv.rec.index_fill_(1, slots, 0.0)
         hidden, residual = self.model.forward(self.params, self.kv, batch,
                                               self.model_cfg,
                                               cos_sin=self.cos_sin,

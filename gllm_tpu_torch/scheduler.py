@@ -15,9 +15,14 @@
   return to the head of the waiting queue.
 - aborts.
 
+- hybrid models: admission also needs a free SSM working slot
+  (``can_admit_seq``), taken after the pages (``prepare_seq``); a
+  preempted or finished sequence frees its slot through ``free_seq``, and
+  a re-admitted one starts again from a zeroed state.
+
 The JAX scheduler's chained/re-formed decode, speculative drafting, SSM
-slots, host KV tier, spans and metrics belong to options this port does
-not implement yet, and are not copied.
+snapshots (``_ssm_align_chunk``), host KV tier, spans and metrics belong
+to options this port does not implement yet, and are not copied.
 """
 
 from __future__ import annotations
@@ -273,7 +278,10 @@ class Scheduler:
                 est_extra, self.mm.page_size)
             if not self.mm.can_allocate(need):
                 break
+            if not self.mm.can_admit_seq():
+                break  # hybrid: no free SSM working slot
             self.mm.allocate_seq_pages(seq, n)
+            self.mm.prepare_seq(seq)
             self.waiting.popleft()
             seq.status = SequenceStatus.RUNNING
             self.running.append(seq)

@@ -40,6 +40,9 @@ class Sequence:
         # is never rescheduled, preempted or freed until its step lands.
         self.num_in_flight = 0
         self.page_table: List[int] = []
+        # hybrid models: the working slot of this sequence's GDN state
+        # (conv + recurrent), held from admission until it is freed
+        self.ssm_slot: Optional[int] = None
         self._pt_np = None   # np cache of page_table (builder fast path)
         self.finish_reason: Optional[str] = None
 

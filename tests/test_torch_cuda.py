@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 ragged (K1, and K1q over an int8 cache), decode (K2, K2q), unified (K1u
-over either cache) and the MLA modes over a latent cache (K1m, K2m), then
-the engines (Llama-shaped and DeepSeek-shaped) on the card against the
+over either cache), the MLA modes over a latent cache (K1m, K2m), K1 and
+K2 at head_dim 256 and the gated-delta-rule chunk scan (K3), then the
+engines (Llama-shaped, DeepSeek-shaped and hybrid) on the card against the
 CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; run
@@ -19,7 +20,9 @@ import pytest
 import torch
 
 from gllm_tpu_torch.ops.cuda import decode_attention as tdec
+from gllm_tpu_torch.ops.cuda import gdn_scan as tscan
 from gllm_tpu_torch.ops.cuda import ragged_attention as trag
+from gllm_tpu_torch.ops.cuda.common import WIDE_HEAD_DIMS
 
 
 def ragged_case(rng, seqs, Hq, Hkv, D, page, num_pages, pad_seqs=0,
@@ -156,8 +159,8 @@ def test_ragged_kernel_matches_plain(cuda_device, case, dtype):
         rng, case["seqs"], case["Hq"], case["Hkv"], case["D"],
         case["page"], case["pages"], case.get("pad_seqs", 0),
         case.get("pad_tokens", 0))
-    if case["D"] not in (32, 64, 128):
-        pytest.skip("kernel head dims are 32, 64 and 128")
+    if case["D"] not in WIDE_HEAD_DIMS:
+        pytest.skip(f"kernel head dims are {WIDE_HEAD_DIMS}")
     args = [torch.from_numpy(a).to(cuda_device) for a in
             (q, kc, vc, cu, kvl, pt)]
     args[:3] = [a.to(dtype) for a in args[:3]]
@@ -734,3 +737,228 @@ def test_moe_block_issues_no_host_sync(cuda_device):
                                  "down_proj": lp["shared_down_proj"]},
                                 x).float()
     torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+
+
+# ---- head_dim 256 (Qwen3-Next's gated full attention: Hq 16 over Hkv 2) ---
+
+D256_RAGGED_CASES = [
+    dict(seqs=[(40, 40), (1, 70), (17, 90), (1, 3)], pad_seqs=2,
+         pad_tokens=9, Hq=16, Hkv=2, D=256, page=16, pages=24),
+    dict(seqs=[(1, 300 + 37 * i) for i in range(6)] + [(130, 200)],
+         Hq=16, Hkv=2, D=256, page=16, pages=200),
+]
+D256_DECODE_CASES = [
+    dict(kv_lens=[31, 64, 0, 65, 700], Hq=16, Hkv=2, D=256, page=16,
+         pages=60),
+    dict(kv_lens=[3000, 1, 257], Hq=16, Hkv=2, D=256, page=16, pages=210),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", D256_RAGGED_CASES)
+def test_ragged_kernel_d256_matches_plain(cuda_device, case, dtype):
+    test_ragged_kernel_matches_plain(cuda_device, case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", D256_DECODE_CASES)
+def test_decode_kernel_d256_matches_plain(cuda_device, case, dtype):
+    test_decode_kernel_matches_plain(cuda_device, case, dtype)
+
+
+@pytest.mark.cuda
+def test_d256_wrappers_count_and_refuse(cuda_device):
+    """Head dim 256 launches the full-precision K1 and K2 and is counted as
+    them; an int8 cache or the unified kernel at 256 raises."""
+    rng = np.random.default_rng(30)
+    q, kc, vc, cu, kvl, pt = (torch.from_numpy(a).to(cuda_device)
+                              for a in ragged_case(rng, [(3, 9), (1, 5)],
+                                                   16, 2, 256, 4, 8))
+    r0 = dict(trag.ragged_paged_attention.launches)
+    trag.ragged_paged_attention(q, kc, vc, cu, kvl, pt, scale=0.1)
+    assert {k: n - r0[k] for k, n in
+            trag.ragged_paged_attention.launches.items() if n != r0[k]} == {
+        "ragged_paged_attention": 1}
+    d0 = tdec.paged_decode_attention.launches["paged_decode_attention"]
+    tdec.paged_decode_attention(q[:2].contiguous(), kc, vc, kvl, pt,
+                                scale=0.1)
+    assert (tdec.paged_decode_attention.launches["paged_decode_attention"]
+            == d0 + 1)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        trag.ragged_paged_attention(q, kc, vc, cu, kvl, pt, scale=0.1,
+                                    unified=True)
+    k8 = torch.zeros(kc.shape, dtype=torch.int8, device=cuda_device)
+    sc = torch.ones(kc.shape[::2], device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        trag.ragged_paged_attention(q, k8, k8, cu, kvl, pt, scale=0.1,
+                                    k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        tdec.paged_decode_attention(q[:2].contiguous(), k8, k8, kvl, pt,
+                                    scale=0.1, k_scale=sc, v_scale=sc)
+
+
+# ---- K3: the gated-delta-rule chunk scan ---------------------------------
+
+def scan_case(rng, B, N, C, Dk, Dv):
+    """Operands shaped as chunk_gated_delta_rule builds them: l2-normed q
+    (scaled) and k rows, a decaying cumulative g, lower-triangular local
+    scores, and a non-zero initial state."""
+    def rows(d, scale=1.0):
+        x = rng.standard_normal((B, N, C, d))
+        return (scale * x / np.linalg.norm(x, axis=-1, keepdims=True)
+                ).astype(np.float32)
+    qc, kc, kcd = rows(Dk, Dk ** -0.5), rows(Dk), rows(Dk, 0.5)
+    v2 = rng.standard_normal((B, N, C, Dv)).astype(np.float32)
+    attn = np.tril(0.3 * rng.standard_normal((B, N, C, C))).astype(
+        np.float32)
+    gcum = np.cumsum(-rng.uniform(0.0, 0.05, (B, N, C, 1)), axis=2).astype(
+        np.float32)
+    init = rng.standard_normal((B, Dk, Dv)).astype(np.float32)
+    return qc, kc, v2, kcd, attn, gcum, init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 5])
+@pytest.mark.parametrize("C", [16, 64])
+@pytest.mark.parametrize("dk,dv", [(32, 32), (128, 128), (32, 128),
+                                   (128, 64)])
+def test_gdn_scan_kernel_matches_plain(cuda_device, dk, dv, C, N):
+    rng = np.random.default_rng(31)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in scan_case(rng, 7, N, C, dk, dv)]
+    n0 = tscan.gdn_chunk_scan.launches["gdn_chunk_scan"]
+    out, final = tscan.gdn_chunk_scan(*args)
+    assert tscan.gdn_chunk_scan.launches["gdn_chunk_scan"] == n0 + 1
+    want_o, want_s = tscan.gdn_chunk_scan_plain(*args)
+    torch.cuda.synchronize()
+    # float32 on both sides, sums in another order
+    torch.testing.assert_close(out, want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(final, want_s, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_gdn_scan_wrapper_refuses(cuda_device):
+    rng = np.random.default_rng(32)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in scan_case(rng, 2, 2, 16, 48, 32)]
+    with pytest.raises(ValueError, match="Dk=48"):
+        tscan.gdn_chunk_scan(*args)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in scan_case(rng, 2, 2, 8, 32, 32)]
+    with pytest.raises(ValueError, match="chunk 8"):
+        tscan.gdn_chunk_scan(*args)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in scan_case(rng, 2, 2, 16, 32, 32)]
+    with pytest.raises(ValueError, match="float32"):
+        tscan.gdn_chunk_scan(args[0].half(), *args[1:])
+    with pytest.raises(ValueError, match="gcum"):
+        tscan.gdn_chunk_scan(*args[:5], args[5][..., 0], args[6])
+
+
+# ---- the hybrid family ----------------------------------------------------
+
+def _hybrid_engine(device, params=None):
+    """One period of Qwen3-Next's layers (three GDN, one gated full
+    attention) at small widths K3 and K1/K2 take: GDN Dk = Dv = 32, head
+    dim 64, two routed experts and a shared one."""
+    import gllm_tpu_torch as gt
+    lin, full = "linear_attention", "full_attention"
+    mc = gt.from_hf_config(dict(
+        architectures=["Qwen3NextForCausalLM"], vocab_size=1000,
+        hidden_size=256, num_hidden_layers=4, num_attention_heads=8,
+        num_key_value_heads=2, head_dim=64, partial_rotary_factor=0.25,
+        intermediate_size=512, max_position_embeddings=512,
+        layer_types=[lin, lin, lin, full], linear_num_key_heads=2,
+        linear_num_value_heads=4, linear_key_head_dim=32,
+        linear_value_head_dim=32, num_experts=2, num_experts_per_tok=1,
+        moe_intermediate_size=128, shared_expert_intermediate_size=128,
+        norm_topk_prob=True))
+    ec = gt.EngineConfig(
+        dtype="float32", load_format="dummy", max_model_len=512,
+        max_num_seqs=8, scheduler=gt.SchedulerConfig(max_prefill_tokens=48),
+        cache=gt.CacheConfig(page_size=16, num_pages=64))
+    return gt.LLM(model_cfg=mc, config=ec, params=params, device=device)
+
+
+def _to_cpu(params):
+    return {g: ({k: v.cpu() for k, v in x.items()} if isinstance(x, dict)
+                else x.cpu()) for g, x in params.items()}
+
+
+@pytest.mark.cuda
+def test_hybrid_engine_on_card_matches_cpu_greedy(cuda_device):
+    """The same float32 hybrid weights through the card (K3, K1, K2, the
+    grouped expert product) and the CPU: the same greedy tokens, K3 on
+    every GDN layer of every mixed step, and every slot freed."""
+    import gllm_tpu_torch as gt
+    card = _hybrid_engine(cuda_device)
+    cpu = _hybrid_engine("cpu", params=_to_cpu(card.runner.params))
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 1000, n).tolist() for n in (7, 60, 23, 100)]
+    sp = gt.SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+    launches = {**trag.ragged_paged_attention.launches,
+                **tdec.paged_decode_attention.launches,
+                **tscan.gdn_chunk_scan.launches}
+    got = [o.output_token_ids for o in card.generate(
+        prompt_token_ids=prompts, sampling_params=sp)]
+    want = [o.output_token_ids for o in cpu.generate(
+        prompt_token_ids=prompts, sampling_params=sp)]
+    assert got == want
+    ran = {k: n - launches[k] for k, n in
+           {**trag.ragged_paged_attention.launches,
+            **tdec.paged_decode_attention.launches,
+            **tscan.gdn_chunk_scan.launches}.items() if n > launches[k]}
+    steps = card.step_counts
+    assert ran == {"ragged_paged_attention": steps["mixed"],
+                   "paged_decode_attention": steps["decode"],
+                   "gdn_chunk_scan": 3 * steps["mixed"]}
+    mm = card.memory_manager
+    assert mm.num_free_pages == mm.allocator.num_total
+    assert mm.ssm_alloc.num_free == mm.ssm_alloc.num_total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "mixed"])
+def test_hybrid_layers_make_no_host_sync(cuda_device, kind):
+    """A bf16 GDN layer (decode: the recurrent step; mixed: the padded
+    layout, the chunked rule and K3) and the sparse block run under
+    sync-debug mode "error": a host sync raises."""
+    from gllm_tpu_torch.batching import StepBatch
+    from gllm_tpu_torch.models import hybrid, moe
+    from gllm_tpu_torch.ops.attention import AttentionMetadata
+    card = _hybrid_engine(cuda_device)
+    cfg = card.model_cfg
+    params = card.runner.params
+    glp = {k: v[0] if k in ("dt_bias", "a_log") else v[0].bfloat16()
+           for k, v in params["gdn_layers"].items()}
+    mlp = {k: v[0].bfloat16() for k, v in params["mlp_layers"].items()}
+    lens = [1, 1, 1] if kind == "decode" else [1, 37, 5]
+    T = sum(lens)
+    cu = torch.tensor(np.cumsum([0] + lens), dtype=torch.int32,
+                      device=cuda_device)
+    batch = StepBatch(
+        token_ids=None, positions=None, slot_mapping=None,
+        logits_indices=None,
+        attn=AttentionMetadata(cu_q_lens=cu, kv_lens=cu[1:].clone(),
+                               page_table=None),
+        sampling=None,
+        ssm_slots=torch.tensor([1, 2, 3], dtype=torch.int32,
+                               device=cuda_device),
+        num_seqs=3, max_seq_q=max(lens))
+    conv = card.runner.kv.conv[0]
+    rec = card.runner.kv.rec[0]
+    x = torch.randn((T, cfg.hidden_size), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0)
+                    ).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = hybrid._gdn_layer(glp, x, batch, conv, rec, cfg,
+                                max_q_len=max(lens))
+        out = moe.moe_mlp(mlp, out, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == (T, cfg.hidden_size)
+    assert torch.isfinite(out.float()).all()
