@@ -11,44 +11,57 @@ no result line:
              build/gllm_tpu_torch/ (ptxas register and shared-memory lines)
 3. kernels   each kernel against its plain PyTorch version at the serving
              path's shapes (Llama-3.2-1B attention: Hq 32, Hkv 8, D 64,
-             page 16, bf16 q; a bf16 or an int8 cache), with the device time
-             (profiler) of the kernel, the plain version and one PyTorch
-             library call, the kernel wrapper's CUDA-event time, and the
-             card's bound: ragged (K1), decode (K2), their int8 modes (K1q,
-             K2q) and the unified kernel (K1u) over both caches; then the
-             MLA modes at DeepSeek-V2-Lite's latent geometry (Hq 16 over
-             one 576-wide latent row, values its leading 512, bf16) on the
-             same batch lengths: ragged (K1m) and decode (K2m); then
-             Qwen3-Next's: K1 and K2 at head_dim 256 (Hq 16, Hkv 2) on the
-             same lengths, and the gated-delta-rule chunk scan (K3, float32
-             on FMA) at the hybrid mixed step's layout (K1's lengths padded
-             to [27 rows, 1024], 32 heads, Dk = Dv = 128, chunks of 64),
-             with the GDN layer's peak memory at that shape
+             page 16, bf16 q; a bf16, int8 or fp8 cache), with the device
+             time (profiler) of the kernel, the plain version and one
+             PyTorch library call (over the cache widened to bf16 before
+             the timed region for a one-byte cache), the kernel wrapper's
+             CUDA-event time, and the card's bound: ragged (K1), decode
+             (K2), their int8 (K1q, K2q) and fp8 modes, and the unified
+             kernel (K1u) over each cache; then the MLA modes at
+             DeepSeek-V2-Lite's latent geometry (Hq 16 over one 576-wide
+             latent row, values its leading 512, bf16 q) on the same batch
+             lengths: ragged (K1m), decode (K2m) and the unified step's
+             kernel (K1um, the mixed batch and the decode rows as one-token
+             rows), over a bf16 and an fp8 latent; then Qwen3-Next's: K1
+             and K2 at head_dim 256 (Hq 16, Hkv 2) over a bf16 and an fp8
+             cache on the same lengths, and the gated-delta-rule chunk scan
+             (K3, float32 on FMA) at the hybrid mixed step's layout (K1's
+             lengths padded to [27 rows, 1024], 32 heads, Dk = Dv = 128,
+             chunks of 64), with the GDN layer's peak memory at that shape
 4. serve     LLM.generate at the full Llama-3.2-1B width (dummy bf16
-             weights from a seed) for 16 greedy requests, in four
+             weights from a seed) for 16 greedy requests, in six
              configurations: the bf16 sync loop (once), then an int8 KV
-             cache, the unified step, and the unified step over an int8
-             cache (three runs each); then DeepSeek-V2-Lite at full width
-             (27 layers, 64 experts, latent 512 + 64; three runs) after the
-             Llama engines are freed; then Qwen3-Next-80B-A3B at full
-             width, depth cut to 12 layers (9 GDN, 3 gated full attention;
-             512 experts, top-10; three runs) after DeepSeek is freed.
+             cache, the unified step, the unified step over an int8 cache
+             and an fp8 KV cache (three runs each), and the unified step
+             over an fp8 cache (once); then DeepSeek-V2-Lite at full width
+             (27 layers, 64 experts, latent 512 + 64) after the Llama
+             engines are freed: the legacy step and the unified step (three
+             runs each), over an fp8 latent and both (once each), the later
+             engines on the first one's weights; then Qwen3-Next-80B-A3B at
+             full width, depth cut to 12 layers (9 GDN, 3 gated full
+             attention; 512 experts, top-10; three runs, then once over an
+             fp8 cache on the same weights) after DeepSeek is freed.
              Each must launch exactly its kernels and no plain version
              (DeepSeek: K1m on every layer of every mixed step, K2m on
-             every layer of every decode step; Qwen3-Next: K3 on every GDN
-             layer and K1 at D 256 on every full layer of every mixed step,
-             K2 at D 256 on every full layer of every decode step); a
-             profiled window of the bf16, unified-int8, DeepSeek and
-             Qwen3-Next runs
+             every layer of every decode step, K1um on every layer of every
+             step under the unified step; Qwen3-Next: K3 on every GDN layer
+             and K1 at D 256 on every full layer of every mixed step, K2 at
+             D 256 on every full layer of every decode step; the fp8
+             configurations the same kernels' fp8 modes); each fp8
+             configuration's KV pages beside its full-precision twin's; a
+             profiled window of the bf16, unified-int8, DeepSeek (both
+             steps) and Qwen3-Next runs
 5. reference depth cut to 2 layers (4 for the hybrid period), float32:
              the port on the card
              (kernels) against the port on the CPU (plain versions) —
              first-step logits and greedy tokens — with a bf16-width
-             float32 cache, an int8 cache, the unified step, a
-             DeepSeek model (one dense layer, one MoE layer) at the MLA
-             kernels' small latent geometry (64 + 32), and a hybrid model
-             of one Qwen3-Next period (3 GDN + 1 full layer; GDN Dk = Dv =
-             32, head_dim 128, two experts and a shared one)
+             float32 cache, an int8 cache, the unified step and an fp8
+             cache, a DeepSeek model (one dense layer, one MoE layer) at
+             the MLA kernels' small latent geometry (64 + 32), also under
+             the unified step and over an fp8 latent, and a hybrid model of
+             one Qwen3-Next period (3 GDN + 1 full layer; GDN Dk = Dv = 32,
+             head_dim 128, two experts and a shared one), also over an fp8
+             cache
 6. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
@@ -66,6 +79,7 @@ import numpy as np
 import torch
 
 SEED = 0
+FP8 = torch.float8_e4m3fn
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor rate, and
 # the float32 rate outside the tensor cores (K3 runs float32 FMA)
 PEAK_BYTES_PER_S = 3.35e12
@@ -105,7 +119,26 @@ TOL = {"paged_decode_attention": DECODE_TOL,
        # D 64 (standard normal q and k), so K1's and K2's reasons hold
        "ragged_paged_attention_d256": RAGGED_TOL,
        "paged_decode_attention_d256": DECODE_TOL,
-       "gdn_chunk_scan": GDN_TOL}
+       "gdn_chunk_scan": GDN_TOL,
+       # K1um: K1m's ragged blocks and K2m's decode blocks, whose reasons
+       # hold (bf16 probabilities into the tensor cores in both)
+       "ragged_paged_attention_unified_mla": MLA_TOL,
+       "ragged_paged_attention_unified_mla_decode": MLA_TOL}
+# fp8 modes: widening e4m3 is exact, and both sides read the same fp8
+# bytes, so each keeps its full-precision twin's tolerance
+FP8_TWINS = {
+    "paged_decode_attention_fp8": "paged_decode_attention",
+    "ragged_paged_attention_fp8": "ragged_paged_attention",
+    "ragged_paged_attention_unified_fp8_decode":
+        "ragged_paged_attention_unified_decode",
+    "ragged_paged_attention_unified_fp8": "ragged_paged_attention_unified",
+    "paged_decode_attention_mla_fp8": "paged_decode_attention_mla",
+    "ragged_paged_attention_mla_fp8": "ragged_paged_attention_mla",
+    "ragged_paged_attention_unified_mla_fp8":
+        "ragged_paged_attention_unified_mla",
+    "paged_decode_attention_d256_fp8": "paged_decode_attention_d256",
+    "ragged_paged_attention_d256_fp8": "ragged_paged_attention_d256"}
+TOL.update({name: TOL[twin] for name, twin in FP8_TWINS.items()})
 # kernels-line entry → (launch counter, serve configuration it runs in,
 # source, the TPU kernel it replaces)
 PALLAS = "gllm_tpu/ops/pallas/"
@@ -148,6 +181,48 @@ KERNELS = {
     "gdn_chunk_scan": (
         "gdn_chunk_scan", "qwen3_next", "gdn_scan.cu",
         PALLAS + "gdn_scan.py:64"),
+    "ragged_paged_attention_unified_mla_decode": (
+        "ragged_paged_attention_unified_mla", "deepseek_unified",
+        "mla_unified_attention.cu",
+        PALLAS + "ragged_attention.py:429 (unified=True, v_cache=None)"),
+    "ragged_paged_attention_unified_mla": (
+        "ragged_paged_attention_unified_mla", "deepseek_unified",
+        "mla_unified_attention.cu",
+        PALLAS + "ragged_attention.py:429 (unified=True, v_cache=None)"),
+    "paged_decode_attention_fp8": (
+        "paged_decode_attention_fp8", "fp8", "decode_attention.cu",
+        PALLAS + "decode_attention.py:188 (fp8 cache; widened "
+        "paged_kv.py:154-161)"),
+    "ragged_paged_attention_fp8": (
+        "ragged_paged_attention_fp8", "fp8", "ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429 (fp8 cache)"),
+    "ragged_paged_attention_unified_fp8_decode": (
+        "ragged_paged_attention_unified_fp8", "unified_fp8",
+        "unified_attention.cu",
+        PALLAS + "ragged_attention.py:429 (unified=True, fp8 cache)"),
+    "ragged_paged_attention_unified_fp8": (
+        "ragged_paged_attention_unified_fp8", "unified_fp8",
+        "unified_attention.cu",
+        PALLAS + "ragged_attention.py:429 (unified=True, fp8 cache)"),
+    "paged_decode_attention_mla_fp8": (
+        "paged_decode_attention_mla_fp8", "deepseek_fp8",
+        "mla_decode_attention.cu",
+        PALLAS + "decode_attention.py:188 (v_cache=None, fp8 latent)"),
+    "ragged_paged_attention_mla_fp8": (
+        "ragged_paged_attention_mla_fp8", "deepseek_fp8",
+        "mla_ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429 (v_cache=None, fp8 latent)"),
+    "ragged_paged_attention_unified_mla_fp8": (
+        "ragged_paged_attention_unified_mla_fp8", "deepseek_unified_fp8",
+        "mla_unified_attention.cu",
+        PALLAS + "ragged_attention.py:429 (unified=True, v_cache=None, fp8 "
+        "latent)"),
+    "paged_decode_attention_d256_fp8": (
+        "paged_decode_attention_fp8", "qwen3_next_fp8", "decode_attention.cu",
+        PALLAS + "decode_attention.py:188 (head_dim 256, fp8 cache)"),
+    "ragged_paged_attention_d256_fp8": (
+        "ragged_paged_attention_fp8", "qwen3_next_fp8", "ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429 (head_dim 256, fp8 cache)"),
 }
 
 
@@ -445,14 +520,31 @@ def _mixed_library(x, kd, vd, scale):
         qd, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)
 
 
-def _kv_bytes(kv_lens, page, Hkv, D, quant):
+def _kv_bytes(kv_lens, page, Hkv, D, cache):
     """Bytes of K and V the contexts need: each key row of each kv head
-    once (1 byte a value for int8, else 2), plus, for int8, the scale row
-    (one float32 per kv head, K and V) of every page read."""
+    once (1 byte a value for an "int8" or "fp8" cache, 2 for "bf16"),
+    plus, for int8, the scale row (one float32 per kv head, K and V) of
+    every page read."""
     ctx = sum(int(k) for k in kv_lens)
     pages = sum(-(-int(k) // page) for k in kv_lens)
-    return ctx * Hkv * 2 * D * (1 if quant else 2) + (
-        pages * Hkv * 2 * 4 if quant else 0)
+    return ctx * Hkv * 2 * D * (2 if cache == "bf16" else 1) + (
+        pages * Hkv * 2 * 4 if cache == "int8" else 0)
+
+
+# how each cache's library call reads it
+LIB_NOTE = {"bf16": "", "int8": " (dequantized to bf16)",
+            "fp8": " (widened to bf16 before the timed region)"}
+
+
+def _caches(x):
+    """The serving path's three caches of a shape: cache → (K, V, the
+    wrapper's scale keywords, the bf16 K and V the library call reads)."""
+    k8, ks, kdq, v8, vs, vdq = x["quant"]
+    kf, vf = x["kc"].to(FP8), x["vc"].to(FP8)
+    return {"bf16": (x["kc"], x["vc"], {}, x["kc"], x["vc"]),
+            "int8": (k8, v8, dict(k_scale=ks, v_scale=vs), kdq, vdq),
+            "fp8": (kf, vf, {}, kf.to(torch.bfloat16),
+                    vf.to(torch.bfloat16))}
 
 
 def phase_kernels():
@@ -465,11 +557,12 @@ def phase_kernels():
     scale = D ** -0.5
     results = {}
 
-    # ---- decode shape: K2, K2q, and K1u on 32 one-token ragged rows
+    # ---- decode shape: K2 over each cache, and K1u on 32 one-token ragged
+    # rows over a bf16 and an fp8 cache
     x = decode_shape(rng, dev)
     q, kvl, pt, kv, page = x["q"], x["kvl"], x["pt"], x["kv"], x["page"]
     S = len(kv)
-    k8, ks, kdq, v8, vs, vdq = x["quant"]
+    caches = _caches(x)
     ctx = sum(kv)
     # q read and out written once (bf16), kv_lens and the pages' ids
     io = 2 * q.numel() * 2 + S * 4 + sum(-(-k // page) for k in kv) * 4
@@ -478,12 +571,11 @@ def phase_kernels():
               f"Hkv={Hkv} D={D} page={page} bf16 q")
     lib_call = ("scaled_dot_product_attention(enable_gqa) over K/V "
                 "gathered dense per sequence")
-    for name, quant in (("paged_decode_attention", False),
-                        ("paged_decode_attention_int8", True)):
-        kc, vc = (k8, v8) if quant else (x["kc"], x["vc"])
-        sc = dict(k_scale=ks, v_scale=vs) if quant else {}
-        kd, vd = _dense_kv(kdq if quant else kc, vdq if quant else vc, pt,
-                           kv, page)
+    for name, cache in (("paged_decode_attention", "bf16"),
+                        ("paged_decode_attention_int8", "int8"),
+                        ("paged_decode_attention_fp8", "fp8")):
+        kc, vc, sc, kb, vb = caches[cache]
+        kd, vd = _dense_kv(kb, vb, pt, kv, page)
         results[name] = measure(
             name,
             lambda: dec.paged_decode_attention(q, kc, vc, kvl, pt,
@@ -493,36 +585,39 @@ def phase_kernels():
             lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl - 1, pt,
                                                      scale=scale, **sc),
             _decode_library(x, kd, vd, scale), 50,
-            _kv_bytes(kv, page, Hkv, D, quant) + io, flops,
-            shapes=shapes + (", int8 cache" if quant else ", bf16 cache"),
-            library_call=lib_call + (" (dequantized to bf16)" if quant
-                                     else ""))
+            _kv_bytes(kv, page, Hkv, D, cache) + io, flops,
+            shapes=shapes + f", {cache} cache",
+            library_call=lib_call + LIB_NOTE[cache])
     # the same rows as a ragged batch of 32 one-token sequences
     cu = torch.arange(S + 1, dtype=torch.int32, device=dev)
-    kd, vd = _dense_kv(x["kc"], x["vc"], pt, kv, page)
-    results["ragged_paged_attention_unified_decode"] = measure(
-        "ragged_paged_attention_unified_decode",
-        lambda: rag.ragged_paged_attention(q, x["kc"], x["vc"], cu, kvl, pt,
-                                           scale=scale, unified=True),
-        lambda: rag.ragged_paged_attention_plain(q, x["kc"], x["vc"], cu,
-                                                 kvl, pt, scale=scale,
-                                                 unified=True),
-        lambda: rag.ragged_paged_attention_plain(q, x["kc"], x["vc"], cu,
-                                                 kvl - 1, pt, scale=scale,
-                                                 unified=True),
-        _decode_library(x, kd, vd, scale), 50,
-        _kv_bytes(kv, page, Hkv, D, False) + io + (S + 1) * 4, flops,
-        shapes=f"pure decode as a ragged batch of one-token rows, T={S}, "
-        + shapes + ", bf16 cache", library_call=lib_call)
-    del x, kd, vd, k8, v8, kdq, vdq
+    for name, cache in (("ragged_paged_attention_unified_decode", "bf16"),
+                        ("ragged_paged_attention_unified_fp8_decode", "fp8")):
+        kc, vc, _, kb, vb = caches[cache]
+        kd, vd = _dense_kv(kb, vb, pt, kv, page)
+        results[name] = measure(
+            name,
+            lambda: rag.ragged_paged_attention(q, kc, vc, cu, kvl, pt,
+                                               scale=scale, unified=True),
+            lambda: rag.ragged_paged_attention_plain(q, kc, vc, cu, kvl, pt,
+                                                     scale=scale,
+                                                     unified=True),
+            lambda: rag.ragged_paged_attention_plain(q, kc, vc, cu, kvl - 1,
+                                                     pt, scale=scale,
+                                                     unified=True),
+            _decode_library(x, kd, vd, scale), 50,
+            _kv_bytes(kv, page, Hkv, D, cache) + io + (S + 1) * 4, flops,
+            shapes=f"pure decode as a ragged batch of one-token rows, T={S}"
+            f", {shapes}, {cache} cache",
+            library_call=lib_call + LIB_NOTE[cache])
+    del x, kd, vd, caches
 
-    # ---- mixed shape: K1, K1q, K1u over both caches
+    # ---- mixed shape: K1 and K1u over each cache
     x = mixed_shape(rng, dev)
     q, cu, kvl, pt, kv, page = (x["q"], x["cu"], x["kvl"], x["pt"], x["kv"],
                                 x["page"])
     seqs, T_real, T_pad = x["seqs"], x["T_real"], x["q"].shape[0]
     S_real, S_pad = len(seqs), len(kv)
-    k8, ks, kdq, v8, vs, vdq = x["quant"]
+    caches = _caches(x)
     visible = sum(k - ql + t + 1 for ql, k in seqs for t in range(ql))
     flops = 4 * Hq * D * visible
     # the T_real real q rows read, all T_pad out rows written (the padding
@@ -536,18 +631,16 @@ def phase_kernels():
     lib_call = ("scaled_dot_product_attention(enable_gqa, bool mask) over q "
                 "padded to [S, Hq, 1024, D] and K/V gathered dense per "
                 "sequence")
-    for name, unified, quant in (
-            ("ragged_paged_attention", False, False),
-            ("ragged_paged_attention_int8", False, True),
-            ("ragged_paged_attention_unified", True, False),
-            ("ragged_paged_attention_unified_int8", True, True)):
-        kc, vc = (k8, v8) if quant else (x["kc"], x["vc"])
-        kw = dict(scale=scale, unified=unified)
-        if quant:
-            kw.update(k_scale=ks, v_scale=vs)
-        kd, vd = _dense_kv(kdq if quant else x["kc"],
-                           vdq if quant else x["vc"], pt[:S_real],
-                           kv[:S_real], page)
+    for name, unified, cache in (
+            ("ragged_paged_attention", False, "bf16"),
+            ("ragged_paged_attention_int8", False, "int8"),
+            ("ragged_paged_attention_fp8", False, "fp8"),
+            ("ragged_paged_attention_unified", True, "bf16"),
+            ("ragged_paged_attention_unified_int8", True, "int8"),
+            ("ragged_paged_attention_unified_fp8", True, "fp8")):
+        kc, vc, sc, kb, vb = caches[cache]
+        kw = dict(scale=scale, unified=unified, **sc)
+        kd, vd = _dense_kv(kb, vb, pt[:S_real], kv[:S_real], page)
         results[name] = measure(
             name,
             lambda: rag.ragged_paged_attention(q, kc, vc, cu, kvl, pt, **kw),
@@ -556,12 +649,11 @@ def phase_kernels():
             lambda: rag.ragged_paged_attention_plain(
                 q, kc, vc, cu, x["kvl_drop"], pt, **kw),
             _mixed_library(x, kd, vd, scale), 20,
-            _kv_bytes(kv, page, Hkv, D, quant) + io, flops,
-            shapes=shapes + (", int8 cache" if quant else ", bf16 cache"),
-            library_call=lib_call + (" (dequantized to bf16)" if quant
-                                     else ""))
+            _kv_bytes(kv, page, Hkv, D, cache) + io, flops,
+            shapes=shapes + f", {cache} cache",
+            library_call=lib_call + LIB_NOTE[cache])
         del kd, vd
-    del x
+    del x, caches
 
     results.update(mla_kernels(dev))
     results.update(hybrid_kernels(dev))
@@ -595,9 +687,11 @@ def phase_kernels():
 
 
 def mla_kernels(dev):
-    """K2m and K1m at DeepSeek-V2-Lite's latent geometry (16 query heads
-    over one [c_kv | k_pe] row of 576, values its leading 512, its softmax
-    scale) on K2's decode and K1's mixed batch lengths."""
+    """K2m, K1m and K1um at DeepSeek-V2-Lite's latent geometry (16 query
+    heads over one [c_kv | k_pe] row of 576, values its leading 512, its
+    softmax scale) on K2's decode and K1's mixed batch lengths: K2m and
+    K1um (one-token rows) on the decode batch, K1m and K1um on the mixed
+    one, each over a bf16 latent and (but K1um's decode rows) an fp8 one."""
     from gllm_tpu_torch.ops.cuda import decode_attention as dec
     from gllm_tpu_torch.ops.cuda import ragged_attention as rag
     from gllm_tpu_torch.ops.rope import yarn_softmax_scale_mult
@@ -611,66 +705,96 @@ def mla_kernels(dev):
     lib_call = ("scaled_dot_product_attention(enable_gqa) over the latent "
                 "gathered dense per sequence: k = the 576-wide row shared "
                 "by the 16 heads, v = k[..., :512]")
+    kw = dict(scale=scale, v_dim=lora)
 
     x = decode_shape(rng, dev, **geo)
-    q, lat, kvl, pt, kv, page = (x["q"], x["kc"], x["kvl"], x["pt"],
-                                 x["kv"], x["page"])
+    q, kvl, pt, kv, page = x["q"], x["kvl"], x["pt"], x["kv"], x["page"]
+    lats = {"bf16": x.pop("kc"), "fp8": None}
+    lats["fp8"] = lats["bf16"].to(FP8)
     del x["vc"]
     S, ctx = len(kv), sum(kv)
     pages = sum(-(-k // page) for k in kv)
-    # each latent row once; q read, out written, kv_lens, the pages' ids
-    nbytes = ctx * Dl * 2 + S * Hq * (Dl + lora) * 2 + S * 4 + pages * 4
-    kd = _dense_kv(lat, lat, pt, kv, page)[0]
-    name = "paged_decode_attention_mla"
-    kw = dict(scale=scale, v_dim=lora)
-    results[name] = measure(
-        name,
-        lambda: dec.paged_decode_attention(q, lat, None, kvl, pt, **kw),
-        lambda: dec.paged_decode_attention_plain(q, lat, None, kvl, pt, **kw),
-        lambda: dec.paged_decode_attention_plain(q, lat, None, kvl - 1, pt,
-                                                 **kw),
-        _decode_library(x, kd, kd[..., :lora], scale), 50, nbytes,
-        2 * Hq * (Dl + lora) * ctx,
-        shapes=(f"S={S} ctx {min(kv)}..{max(kv)} (sum {ctx}) Hq={Hq} latent "
-                f"[P, {page}, 1, {Dl}] v_dim={lora} bf16, scale {scale:.5f}"),
-        library_call=lib_call)
-    del x, kd
+    cu = torch.arange(S + 1, dtype=torch.int32, device=dev)
+    shapes = (f"S={S} ctx {min(kv)}..{max(kv)} (sum {ctx}) Hq={Hq} latent "
+              f"[P, {page}, 1, {Dl}] v_dim={lora} bf16 q, scale {scale:.5f}")
+    for name, cache, unified in (
+            ("paged_decode_attention_mla", "bf16", False),
+            ("paged_decode_attention_mla_fp8", "fp8", False),
+            ("ragged_paged_attention_unified_mla_decode", "bf16", True)):
+        lat = lats[cache]
+        kd = _dense_kv(lat.to(torch.bfloat16), lat.to(torch.bfloat16), pt,
+                       kv, page)[0]
+        # each latent row once; q read, out written, kv_lens, the pages'
+        # ids (and cu_q_lens for the unified kernel)
+        nbytes = (ctx * Dl * lat.element_size() + S * Hq * (Dl + lora) * 2
+                  + S * 4 + pages * 4 + ((S + 1) * 4 if unified else 0))
+        if unified:
+            def run(fn, lens, lat=lat):
+                return fn(q, lat, None, cu, lens, pt, unified=True, **kw)
+            kernel, plain = rag.ragged_paged_attention, \
+                rag.ragged_paged_attention_plain
+        else:
+            def run(fn, lens, lat=lat):
+                return fn(q, lat, None, lens, pt, **kw)
+            kernel, plain = dec.paged_decode_attention, \
+                dec.paged_decode_attention_plain
+        results[name] = measure(
+            name, lambda: run(kernel, kvl), lambda: run(plain, kvl),
+            lambda: run(plain, kvl - 1),
+            _decode_library(x, kd, kd[..., :lora], scale), 50, nbytes,
+            2 * Hq * (Dl + lora) * ctx,
+            shapes=(("pure decode as a ragged batch of one-token rows, "
+                     if unified else "") + shapes + f", {cache} latent"),
+            library_call=lib_call + LIB_NOTE[cache])
+        del kd
+    del x, lats
 
     x = mixed_shape(rng, dev, **geo)
     q, cu, kvl, pt, kv, page = (x["q"], x["cu"], x["kvl"], x["pt"], x["kv"],
                                 x["page"])
-    lat = x.pop("kc")
+    lats = {"bf16": x.pop("kc")}
+    lats["fp8"] = lats["bf16"].to(FP8)
     del x["vc"]
     seqs, T_real, T_pad = x["seqs"], x["T_real"], q.shape[0]
     S_real, S_pad = len(seqs), len(kv)
     visible = sum(k - ql + t + 1 for ql, k in seqs for t in range(ql))
     pages = sum(-(-k // page) for k in kv)
-    # each context's latent rows once, the real q rows, all out rows (the
-    # padding rows get zeros), cu_q_lens, kv_lens, the pages' ids
-    nbytes = (sum(kv) * Dl * 2 + T_real * Hq * Dl * 2 + T_pad * Hq * lora * 2
-              + (2 * S_pad + 1) * 4 + pages * 4)
-    kd = _dense_kv(lat, lat, pt[:S_real], kv[:S_real], page)[0]
-    name = "ragged_paged_attention_mla"
-    results[name] = measure(
-        name,
-        lambda: rag.ragged_paged_attention(q, lat, None, cu, kvl, pt, **kw),
-        lambda: rag.ragged_paged_attention_plain(q, lat, None, cu, kvl, pt,
-                                                 **kw),
-        lambda: rag.ragged_paged_attention_plain(q, lat, None, cu,
-                                                 x["kvl_drop"], pt, **kw),
-        _mixed_library(x, kd, kd[..., :lora], scale), 20, nbytes,
-        2 * Hq * (Dl + lora) * visible,
-        shapes=(f"T={T_pad} ({T_real} real: 24 decode rows + chunks 512/300/"
-                f"1024) S={S_pad} ({S_real} real) ctx<=2048 Hq={Hq} latent "
-                f"[P, {page}, 1, {Dl}] v_dim={lora} bf16, scale {scale:.5f}"),
-        library_call=lib_call + ", q padded to [S, 16, 1024, 576] with a "
-        "causal bool mask")
+    for name, cache, unified in (
+            ("ragged_paged_attention_mla", "bf16", False),
+            ("ragged_paged_attention_mla_fp8", "fp8", False),
+            ("ragged_paged_attention_unified_mla", "bf16", True),
+            ("ragged_paged_attention_unified_mla_fp8", "fp8", True)):
+        lat = lats[cache]
+        # each context's latent rows once, the real q rows, all out rows
+        # (the padding rows get zeros), cu_q_lens, kv_lens, the pages' ids
+        nbytes = (sum(kv) * Dl * lat.element_size() + T_real * Hq * Dl * 2
+                  + T_pad * Hq * lora * 2 + (2 * S_pad + 1) * 4 + pages * 4)
+        kb = lat.to(torch.bfloat16)
+        kd = _dense_kv(kb, kb, pt[:S_real], kv[:S_real], page)[0]
+        del kb
+
+        def run(fn, lens, lat=lat, unified=unified):
+            return fn(q, lat, None, cu, lens, pt, unified=unified, **kw)
+        results[name] = measure(
+            name, lambda: run(rag.ragged_paged_attention, kvl),
+            lambda: run(rag.ragged_paged_attention_plain, kvl),
+            lambda: run(rag.ragged_paged_attention_plain, x["kvl_drop"]),
+            _mixed_library(x, kd, kd[..., :lora], scale), 20, nbytes,
+            2 * Hq * (Dl + lora) * visible,
+            shapes=(f"T={T_pad} ({T_real} real: 24 decode rows + chunks "
+                    f"512/300/1024) S={S_pad} ({S_real} real) ctx<=2048 "
+                    f"Hq={Hq} latent [P, {page}, 1, {Dl}] v_dim={lora} bf16 "
+                    f"q, scale {scale:.5f}, {cache} latent"),
+            library_call=lib_call + ", q padded to [S, 16, 1024, 576] with a "
+            "causal bool mask" + LIB_NOTE[cache])
+        del kd
     return results
 
 
 def hybrid_kernels(dev):
-    """Qwen3-Next's kernels: K2 and K1 at head_dim 256 (Hq 16 over Hkv 2)
-    on K2's decode and K1's mixed batch lengths, and K3 on the layout the
+    """Qwen3-Next's kernels: K2 and K1 at head_dim 256 (Hq 16 over Hkv 2),
+    over a bf16 and an fp8 cache, on K2's decode and K1's mixed batch
+    lengths, and K3 on the layout the
     GDN layer builds for K1's mixed lengths: the 27 real rows padded to the
     longest (1024), 32 value heads, Dk = Dv = 128, chunks of 64."""
     from gllm_tpu_torch.ops.cuda import decode_attention as dec
@@ -683,26 +807,32 @@ def hybrid_kernels(dev):
     results = {}
 
     x = decode_shape(rng, dev, **geo)
-    q, kc, vc, kvl, pt, kv, page = (x["q"], x["kc"], x["vc"], x["kvl"],
-                                    x["pt"], x["kv"], x["page"])
+    q, kvl, pt, kv, page = x["q"], x["kvl"], x["pt"], x["kv"], x["page"]
     S, ctx = len(kv), sum(kv)
     io = 2 * q.numel() * 2 + S * 4 + sum(-(-k // page) for k in kv) * 4
-    kd, vd = _dense_kv(kc, vc, pt, kv, page)
-    name = "paged_decode_attention_d256"
-    results[name] = measure(
-        name,
-        lambda: dec.paged_decode_attention(q, kc, vc, kvl, pt, scale=scale),
-        lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl, pt,
-                                                 scale=scale),
-        lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl - 1, pt,
-                                                 scale=scale),
-        _decode_library(x, kd, vd, scale), 50,
-        _kv_bytes(kv, page, Hkv, D, False) + io, 4 * Hq * D * ctx,
-        shapes=(f"S={S} ctx {min(kv)}..{max(kv)} (sum {ctx}) Hq={Hq} "
-                f"Hkv={Hkv} D={D} page={page} bf16 q, bf16 cache"),
-        library_call="scaled_dot_product_attention(enable_gqa) over K/V "
-        "gathered dense per sequence")
-    del x, kd, vd
+    for name, cache in (("paged_decode_attention_d256", "bf16"),
+                        ("paged_decode_attention_d256_fp8", "fp8")):
+        kc, vc = x["kc"], x["vc"]
+        if cache == "fp8":
+            kc, vc = kc.to(FP8), vc.to(FP8)
+        kd, vd = _dense_kv(kc.to(torch.bfloat16), vc.to(torch.bfloat16), pt,
+                           kv, page)
+        results[name] = measure(
+            name,
+            lambda: dec.paged_decode_attention(q, kc, vc, kvl, pt,
+                                               scale=scale),
+            lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl, pt,
+                                                     scale=scale),
+            lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl - 1, pt,
+                                                     scale=scale),
+            _decode_library(x, kd, vd, scale), 50,
+            _kv_bytes(kv, page, Hkv, D, cache) + io, 4 * Hq * D * ctx,
+            shapes=(f"S={S} ctx {min(kv)}..{max(kv)} (sum {ctx}) Hq={Hq} "
+                    f"Hkv={Hkv} D={D} page={page} bf16 q, {cache} cache"),
+            library_call="scaled_dot_product_attention(enable_gqa) over K/V "
+            "gathered dense per sequence" + LIB_NOTE[cache])
+        del kd, vd
+    del x
 
     x = mixed_shape(rng, dev, **geo)
     q, cu, kvl, pt, kv, page = (x["q"], x["cu"], x["kvl"], x["pt"], x["kv"],
@@ -713,26 +843,31 @@ def hybrid_kernels(dev):
     row = Hq * D * 2
     io = (T_real * row + T_pad * row + (2 * S_pad + 1) * 4
           + sum(-(-k // page) for k in kv) * 4)
-    kd, vd = _dense_kv(x["kc"], x["vc"], pt[:S_real], kv[:S_real], page)
     kw = dict(scale=scale)
-    name = "ragged_paged_attention_d256"
-    results[name] = measure(
-        name,
-        lambda: rag.ragged_paged_attention(q, x["kc"], x["vc"], cu, kvl, pt,
-                                           **kw),
-        lambda: rag.ragged_paged_attention_plain(q, x["kc"], x["vc"], cu,
-                                                 kvl, pt, **kw),
-        lambda: rag.ragged_paged_attention_plain(q, x["kc"], x["vc"], cu,
-                                                 x["kvl_drop"], pt, **kw),
-        _mixed_library(x, kd, vd, scale), 20,
-        _kv_bytes(kv, page, Hkv, D, False) + io, 4 * Hq * D * visible,
-        shapes=(f"T={T_pad} ({T_real} real: 24 decode rows + chunks 512/300/"
-                f"1024) S={S_pad} ({S_real} real) ctx<=2048 Hq={Hq} Hkv={Hkv}"
-                f" D={D} page={page} bf16 q, bf16 cache"),
-        library_call="scaled_dot_product_attention(enable_gqa, bool mask) "
-        "over q padded to [S, Hq, 1024, D] and K/V gathered dense per "
-        "sequence")
-    del kd, vd
+    for name, cache in (("ragged_paged_attention_d256", "bf16"),
+                        ("ragged_paged_attention_d256_fp8", "fp8")):
+        kc, vc = x["kc"], x["vc"]
+        if cache == "fp8":
+            kc, vc = kc.to(FP8), vc.to(FP8)
+        kd, vd = _dense_kv(kc.to(torch.bfloat16), vc.to(torch.bfloat16),
+                           pt[:S_real], kv[:S_real], page)
+        results[name] = measure(
+            name,
+            lambda: rag.ragged_paged_attention(q, kc, vc, cu, kvl, pt, **kw),
+            lambda: rag.ragged_paged_attention_plain(q, kc, vc, cu, kvl, pt,
+                                                     **kw),
+            lambda: rag.ragged_paged_attention_plain(q, kc, vc, cu,
+                                                     x["kvl_drop"], pt, **kw),
+            _mixed_library(x, kd, vd, scale), 20,
+            _kv_bytes(kv, page, Hkv, D, cache) + io, 4 * Hq * D * visible,
+            shapes=(f"T={T_pad} ({T_real} real: 24 decode rows + chunks "
+                    f"512/300/1024) S={S_pad} ({S_real} real) ctx<=2048 "
+                    f"Hq={Hq} Hkv={Hkv} D={D} page={page} bf16 q, {cache} "
+                    "cache"),
+            library_call="scaled_dot_product_attention(enable_gqa, bool "
+            "mask) over q padded to [S, Hq, 1024, D] and K/V gathered dense "
+            "per sequence" + LIB_NOTE[cache])
+        del kd, vd
     results.update(gdn_scan_kernel(dev, cfg, [ql for ql, _ in seqs]))
     return results
 
@@ -943,14 +1078,46 @@ SERVE = {
                      {"mixed": ("ragged_paged_attention_unified_int8",),
                       "decode": ("ragged_paged_attention_unified_int8",)},
                      True),
+    "fp8": (llama_3_2_1b, dict(kv_cache_dtype="fp8"), 3,
+            {"mixed": ("ragged_paged_attention_fp8",),
+             "decode": ("paged_decode_attention_fp8",)}, False),
+    "unified_fp8": (llama_3_2_1b,
+                    dict(unified_step=True, kv_cache_dtype="fp8"), 1,
+                    {"mixed": ("ragged_paged_attention_unified_fp8",),
+                     "decode": ("ragged_paged_attention_unified_fp8",)},
+                    False),
     "deepseek": (deepseek_v2_lite, dict(), 3,
                  {"mixed": ("ragged_paged_attention_mla",),
                   "decode": ("paged_decode_attention_mla",)}, True),
+    # the DeepSeek engines after the first reuse its weights
+    "deepseek_unified": (deepseek_v2_lite, dict(unified_step=True), 3,
+                         {"mixed": ("ragged_paged_attention_unified_mla",),
+                          "decode": ("ragged_paged_attention_unified_mla",)},
+                         True),
+    "deepseek_fp8": (deepseek_v2_lite, dict(kv_cache_dtype="fp8"), 1,
+                     {"mixed": ("ragged_paged_attention_mla_fp8",),
+                      "decode": ("paged_decode_attention_mla_fp8",)}, False),
+    "deepseek_unified_fp8": (
+        deepseek_v2_lite, dict(unified_step=True, kv_cache_dtype="fp8"), 1,
+        {"mixed": ("ragged_paged_attention_unified_mla_fp8",),
+         "decode": ("ragged_paged_attention_unified_mla_fp8",)}, False),
     # K3 on the GDN layers, K1 / K2 at head_dim 256 on the full ones
     "qwen3_next": (qwen3_next, dict(), 3,
                    {"mixed": ("ragged_paged_attention", "gdn_chunk_scan"),
                     "decode": ("paged_decode_attention",)}, True),
+    "qwen3_next_fp8": (qwen3_next, dict(kv_cache_dtype="fp8"), 1,
+                       {"mixed": ("ragged_paged_attention_fp8",
+                                  "gdn_chunk_scan"),
+                        "decode": ("paged_decode_attention_fp8",)}, False),
 }
+# each fp8 configuration's full-precision twin, whose KV pages it doubles
+FP8_SERVE_TWINS = {"fp8": "bf16", "unified_fp8": "unified",
+                   "deepseek_fp8": "deepseek",
+                   "deepseek_unified_fp8": "deepseek_unified",
+                   "qwen3_next_fp8": "qwen3_next"}
+# models whose later engines reuse the first engine's weights (drawing
+# 31 or 41 GB of dummy weights again would cost minutes)
+REUSE_WEIGHTS = (deepseek_v2_lite, qwen3_next)
 
 
 def layers_running(cfg, kernel):
@@ -962,7 +1129,10 @@ def layers_running(cfg, kernel):
     return cfg.num_attn_layers
 
 
-def serve(name, model, kw, runs, by_kind, profiled):
+def serve(name, model, kw, runs, by_kind, profiled, params=None):
+    """Serve one configuration (with ``params``, the weights of an earlier
+    engine of the model: only a new KV pool is built); returns its numbers
+    and the engine's weights."""
     from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, SamplingParams
     kw = dict(kw)
     cache = CacheConfig(kv_cache_dtype=kw.pop("kv_cache_dtype", "auto"))
@@ -970,10 +1140,11 @@ def serve(name, model, kw, runs, by_kind, profiled):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    llm = LLM(model_cfg=model(),
+    llm = LLM(model_cfg=model(), params=params,
               config=EngineConfig(load_format="dummy", dtype="bfloat16",
                                   seed=SEED, cache=cache, **kw))
-    log(f"[serve {name}] LLM up in {time.monotonic() - t0:.1f} s: "
+    log(f"[serve {name}] LLM up in {time.monotonic() - t0:.1f} s"
+        f"{' (weights reused)' if params is not None else ''}: "
         f"{llm.runner.num_pages} KV pages of {llm.config.cache.page_size} "
         f"tokens ({llm.runner.kv_dtype}) on {llm.device}; activation "
         f"headroom {llm.runner.activation_headroom() / 2**30:.2f} GiB; "
@@ -1037,23 +1208,37 @@ def serve(name, model, kw, runs, by_kind, profiled):
         profile_window(llm, rng, name)
     out = dict(counts=counts, rates=rates, pages=llm.runner.num_pages,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    weights = llm.runner.params
     del llm
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+    return out, weights
 
 
 def phase_serve():
     results = {}
-    for name, args in SERVE.items():
+    names = list(SERVE)
+    weights = None
+    for i, name in enumerate(names):
+        model = SERVE[name][0]
         t0 = time.monotonic()
-        results[name] = serve(name, *args)
+        results[name], params = serve(name, *SERVE[name], params=weights)
+        # keep the weights only for the next engine of the same model
+        nxt = SERVE[names[i + 1]][0] if i + 1 < len(names) else None
+        weights = params if model in REUSE_WEIGHTS and nxt is model else None
+        del params
         log(f"[serve {name}] phase wall {time.monotonic() - t0:.1f} s")
     ratio = results["int8"]["pages"] / results["bf16"]["pages"]
     log(f"[serve] KV pages from the same memory_util: bf16 "
         f"{results['bf16']['pages']}, int8 {results['int8']['pages']} "
         f"({ratio:.3f}x)")
     assert ratio >= 1.8, "int8 should give at least 1.8x the pages of bf16"
+    for fp8, twin in FP8_SERVE_TWINS.items():
+        ratio = results[fp8]["pages"] / results[twin]["pages"]
+        log(f"[serve] KV pages from the same memory_util: {twin} "
+            f"{results[twin]['pages']}, {fp8} {results[fp8]['pages']} "
+            f"({ratio:.3f}x)")
+        assert ratio >= 1.9, f"{fp8} should give about 2x the pages of {twin}"
     return results
 
 
@@ -1107,10 +1292,12 @@ def profile_window(llm, rng, name):
 def phase_reference():
     """Depth-cut models at float32: the port on the card (CUDA kernels)
     against the port on the CPU (plain versions), same weights: Llama with
-    a float32 cache, an int8 cache and the unified step, DeepSeek (one
-    dense layer, one MoE layer) at the MLA kernels' small latent
-    geometry, and one period of Qwen3-Next (K3 at Dk = Dv = 32, K1 / K2 at
-    head_dim 128)."""
+    a float32 cache, an int8 cache, the unified step and an fp8 cache,
+    DeepSeek (one dense layer, one MoE layer) at the MLA kernels' small
+    latent geometry, also under the unified step and over an fp8 latent,
+    and one period of Qwen3-Next (K3 at Dk = Dv = 32, K1 / K2 at head_dim
+    128), also over an fp8 cache. Each must launch exactly its kernels on
+    the card."""
     from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, \
         SamplingParams, SchedulerConfig
     from gllm_tpu_torch.models import deepseek, dense, hybrid
@@ -1149,14 +1336,30 @@ def phase_reference():
                                             kv_cache_dtype=kv_cache_dtype))
         return LLM(model_cfg=cfg, config=ec, params=p, device=device)
 
-    for label, cfg, params, kv_dtype, unified in (
-            ("float32 cache", llama, weights["llama"], "auto", False),
-            ("int8 cache", llama, weights["llama"], "int8", False),
-            ("unified step", llama, weights["llama"], "auto", True),
-            ("deepseek (latent 64+32, 16 heads)", ds, weights["deepseek"],
-             "auto", False),
-            ("qwen3_next (1 period, GDN 32/32, head_dim 128)", qn,
-             weights["qwen3_next"], "auto", False)):
+    dsl, qnl = ("deepseek (latent 64+32, 16 heads)",
+                "qwen3_next (1 period, GDN 32/32, head_dim 128)")
+    for label, cfg, params, kv_dtype, unified, kernels in (
+            ("float32 cache", llama, weights["llama"], "auto", False,
+             {"ragged_paged_attention", "paged_decode_attention"}),
+            ("int8 cache", llama, weights["llama"], "int8", False,
+             {"ragged_paged_attention_int8", "paged_decode_attention_int8"}),
+            ("unified step", llama, weights["llama"], "auto", True,
+             {"ragged_paged_attention_unified"}),
+            ("fp8 cache", llama, weights["llama"], "fp8", False,
+             {"ragged_paged_attention_fp8", "paged_decode_attention_fp8"}),
+            (dsl, ds, weights["deepseek"], "auto", False,
+             {"ragged_paged_attention_mla", "paged_decode_attention_mla"}),
+            (dsl + ", unified step", ds, weights["deepseek"], "auto", True,
+             {"ragged_paged_attention_unified_mla"}),
+            (dsl + ", fp8 latent", ds, weights["deepseek"], "fp8", False,
+             {"ragged_paged_attention_mla_fp8",
+              "paged_decode_attention_mla_fp8"}),
+            (qnl, qn, weights["qwen3_next"], "auto", False,
+             {"gdn_chunk_scan", "ragged_paged_attention",
+              "paged_decode_attention"}),
+            (qnl + ", fp8 cache", qn, weights["qwen3_next"], "fp8", False,
+             {"gdn_chunk_scan", "ragged_paged_attention_fp8",
+              "paged_decode_attention_fp8"})):
         rng = np.random.default_rng(SEED + 1)
         prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                    for n in (40, 75, 130)]
@@ -1192,13 +1395,9 @@ def phase_reference():
         assert toks[0] == toks[1], \
             f"[reference] {label}: card and CPU greedy tokens differ"
         assert all(len(t) == 8 for t in toks[0])
-        if cfg is ds:
-            assert counts["ragged_paged_attention_mla"] and \
-                counts["paged_decode_attention_mla"], \
-                "[reference] no MLA kernel ran"
-    assert counts["gdn_chunk_scan"] and counts["ragged_paged_attention"] \
-        and counts["paged_decode_attention"], \
-        "[reference] no hybrid kernel ran"
+        launched = {k for k, n in counts.items() if n and k != "plain_calls"}
+        assert launched == kernels, \
+            f"[reference] {label}: the card launched {launched}"
 
 
 def main():

@@ -41,7 +41,8 @@ class CacheConfig:
     memory_util: float = 0.9              # fraction of device memory for KV
     num_pages: Optional[int] = None       # explicit override (tests)
     # auto | bfloat16 | float16 | float32 | int8 (per-page, per-kv-head
-    # float32 scales; any model dtype)
+    # float32 scales; any model dtype) | fp8 (e4m3, no scales; any model
+    # dtype, every model family)
     kv_cache_dtype: str = "auto"
     enable_prefix_caching: bool = False
     # Host-RAM / disk / peer KV tiers: not ported (validate raises).
@@ -88,8 +89,9 @@ class EngineConfig:
     load_format: str = "auto"             # auto | dummy
     overlap_scheduling: bool = False
     pipelined_loop: bool = False
-    # every paged step through the one unified attention kernel (K1u);
-    # sync loop only: overlap scheduling is not ported
+    # every paged step through the one unified attention kernel (K1u; K1um
+    # over an MLA latent cache); sync loop only: overlap scheduling is not
+    # ported
     unified_step: bool = False
     decode_slot_batching: bool = False
     ondevice_finish: bool = False
@@ -109,9 +111,9 @@ class EngineConfig:
     def validate(self, model_cfg: Optional["ModelConfig"] = None) -> None:
         """Raise on options this port does not implement; with
         ``model_cfg``, also on a model it does not serve and on options the
-        model's family does not take (an MLA latent cache takes neither
-        the int8 cache nor the unified step; a hybrid model neither, nor
-        prefix caching)."""
+        model's family does not take (an MLA latent cache takes no int8
+        cache; a hybrid model neither, nor the unified step, nor prefix
+        caching)."""
         if model_cfg is not None:
             model_cfg.check_supported()
         unported = [k for k, off in _UNPORTED.items()
@@ -123,23 +125,17 @@ class EngineConfig:
             unported.append("unified_step with overlap_scheduling (the "
                             "unified step runs the sync loop)")
         c = self.cache
-        if c.kv_cache_dtype == "fp8":
-            unported.append(f"kv_cache_dtype={c.kv_cache_dtype!r}")
-        elif c.kv_cache_dtype not in ("auto", "int8", self.dtype):
+        if c.kv_cache_dtype not in ("auto", "int8", "fp8", self.dtype):
             # the attention kernels take q and a full-precision cache in
             # one dtype
             unported.append(f"kv_cache_dtype={c.kv_cache_dtype!r} with "
                             f"dtype={self.dtype!r}")
         if c.kv_host_pool_gb or c.kv_disk_path or c.prefix_peers:
             unported.append("kvswap/kvstore tiers")
-        if model_cfg is not None and model_cfg.use_mla:
-            if c.kv_cache_dtype == "int8":
-                unported.append("kv_cache_dtype='int8' with an MLA latent "
-                                "cache")
-            if self.unified_step:
-                unported.append("unified_step with an MLA latent cache (the "
-                                "unified kernel over a latent cache is not "
-                                "ported)")
+        if (model_cfg is not None and model_cfg.use_mla
+                and c.kv_cache_dtype == "int8"):
+            # the JAX runner refuses it too (runner.py:544-548)
+            unported.append("kv_cache_dtype='int8' with an MLA latent cache")
         if model_cfg is not None and model_cfg.use_hybrid:
             # hybrid GDN: the JAX runner refuses int8 (runner.py:549-552)
             # and leaves unified_step inert (:297-303); prefix caching
@@ -159,7 +155,7 @@ class EngineConfig:
         if self.dtype not in ("bfloat16", "float16", "float32"):
             raise ValueError(f"unknown dtype {self.dtype!r}")
         if c.kv_cache_dtype not in ("auto", "bfloat16", "float16",
-                                    "float32", "int8"):
+                                    "float32", "int8", "fp8"):
             raise ValueError(
                 f"unknown kv_cache_dtype {c.kv_cache_dtype!r}")
         if self.load_format not in ("auto", "dummy"):

@@ -6,15 +6,16 @@
 // online softmax in float32. Bound on the card: bytes. Each (sequence, kv
 // head) must stream kv_len * 2 * D cache elements once and does 4 * G * D
 // flops per key, far below the ~295 flops per byte where the tensor cores
-// would be the limit; an int8 cache halves the bytes.
+// would be the limit; an int8 or fp8 cache halves the bytes.
 // Design: one block per (sequence, kv head, split of `chunk` keys), so a K/V
 // row is read from device memory exactly once and shared by the G query
 // heads of its group (warp g handles query row g), and a long context at a
 // small batch still spreads over the SMs (the wrapper picks the split length
 // from the size of the grid). The block walks its split's pages in 32-key
 // tiles: K and V tiles go to shared memory as float (an int8 tile is
-// dequantized with its page's scale on the way), lane j scores key j of the
-// tile, and each lane accumulates D/32 output dims.
+// dequantized with its page's scale on the way, an fp8 tile widened),
+// lane j scores key j of the tile, and each lane accumulates D/32 output
+// dims.
 // With one split the block writes the output itself; with more, each block
 // writes its unnormalised partial sum and (max, sum) to a float32 scratch
 // buffer and a second pass merges the splits (no atomics). Rows with

@@ -35,6 +35,15 @@
 // shared memory and a decode block 95 KB. float32 runs a plain FMA kernel
 // (one token per block) for the reference paths; the tensor cores take no
 // full-precision float32.
+// fp8 latent (TC = fp8_t, bf16 / fp16 q): ldmatrix reads 16-bit rows, so a
+// tile cannot go from cp.async straight into the layout the fragments
+// take. The one-byte tiles are double-buffered instead (two 32 x DL-byte
+// stages, 36 KB at 576) and each is widened, exactly, into ONE tile of T;
+// dropping the second T tile pays for the staging, so the blocks keep their
+// size (159.5 and 94.3 KB) and occupancy. The FMA kernel widens as it loads.
+// UNIFIED (K1um, mla_unified_attention.cu): decode blocks run only for the
+// batch's decode prefix and ragged blocks only for the other sequences, as
+// the GQA kernels' unified classes do (paged_kv.cuh).
 // Not yet done: wgmma/TMA, and a decode block that serves several
 // sequences' tokens at once (S = 32 decode rows give 32 one-token blocks
 // per split, so the split count, not the batch, fills the card).
@@ -57,21 +66,25 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
 }
 
 // Shared memory of the tensor-core kernel, in bytes: Q rows, two latent
-// tiles (row stride DL + 8 elements: conflict-free ldmatrix), the scores
-// [rows][33] float32, P [rows][40] in T, and per row the running max, sum
-// and this tile's rescale factor.
-template <typename T, int DL, int RG>
+// tiles of T (one over an fp8 latent; row stride DL + 8 elements:
+// conflict-free ldmatrix), the scores [rows][33] float32, P [rows][40] in
+// T, per row the running max, sum and this tile's rescale factor, and over
+// an fp8 latent two staging tiles of DL bytes a row.
+template <typename T, typename TC, int DL, int RG>
 struct MlaSmem {
+  static constexpr bool NARROW = sizeof(TC) == 1;
   static constexpr int ROWS = 16 * RG;
   static constexpr int LD = DL + 8;
   static constexpr int LDS = kMlaKeys + 1;
   static constexpr int LDP = kMlaKeys + 8;
   static constexpr size_t K_OFF = (size_t)ROWS * LD * sizeof(T);
   static constexpr size_t S_OFF =
-      K_OFF + 2 * (size_t)kMlaKeys * LD * sizeof(T);
+      K_OFF + (NARROW ? 1 : 2) * (size_t)kMlaKeys * LD * sizeof(T);
   static constexpr size_t P_OFF = S_OFF + (size_t)ROWS * LDS * sizeof(float);
   static constexpr size_t ST_OFF = P_OFF + (size_t)ROWS * LDP * sizeof(T);
-  static constexpr size_t BYTES = ST_OFF + 3 * ROWS * sizeof(float);
+  static constexpr size_t N_OFF = ST_OFF + 3 * ROWS * sizeof(float);
+  static constexpr size_t BYTES =
+      N_OFF + (NARROW ? 2 * (size_t)kMlaKeys * DL : 0);
 };
 
 // Zero the output rows [row0, row0 + rows) of width DV.
@@ -82,8 +95,9 @@ __device__ __forceinline__ void zero_rows(T* out, int64_t row0, int rows) {
 }
 
 // Which sequence, token tile and key range is this block's? Returns false
-// when the block has no key to read (it has then written what it owns).
-template <typename T, int DV, bool DECODE>
+// when the block has no key to read (it has then written what it owns) or,
+// UNIFIED, no row of its class.
+template <typename T, int DV, bool DECODE, bool UNIFIED>
 __device__ __forceinline__ bool mla_locate(const int* cu_q_lens,
                                            const int* kv_lens, T* out, int S,
                                            int num_tokens, int bq, int chunk,
@@ -95,12 +109,15 @@ __device__ __forceinline__ bool mla_locate(const int* cu_q_lens,
   int q_len;
   if constexpr (DECODE) {
     seq = blockIdx.x;
-    q_start = seq;
+    if constexpr (UNIFIED) {
+      if (!in_decode_prefix(cu_q_lens, seq)) return false;  // block-uniform
+    }
+    q_start = seq;  // token s is sequence s (UNIFIED: in the decode prefix)
     q_len = 1;
     t_first = 0;
     j_begin = blockIdx.z * chunk;
   } else {
-    locate_block<false>(cu_q_lens, S, bq, s_seq, s_tile);
+    locate_block<UNIFIED>(cu_q_lens, S, bq, s_seq, s_tile);
     seq = *s_seq;
     if (seq < 0) {
       zero_padding(out, cu_q_lens, S, *s_tile, bq, num_tokens, kMlaHeads,
@@ -128,10 +145,11 @@ __device__ __forceinline__ bool mla_locate(const int* cu_q_lens,
 
 // ---- bf16 / fp16: tensor cores ---------------------------------------------
 
-template <typename T, int DL, int DV, bool DECODE>
+template <typename T, typename TC, int DL, int DV, bool DECODE,
+          bool UNIFIED>
 __global__ void __launch_bounds__(DECODE ? 128 : 512)
     mla_attention_mma_kernel(const T* __restrict__ q,
-                             const T* __restrict__ lat,
+                             const TC* __restrict__ lat,
                              const int* __restrict__ cu_q_lens,
                              const int* __restrict__ kv_lens,
                              const int* __restrict__ page_table,
@@ -140,7 +158,8 @@ __global__ void __launch_bounds__(DECODE ? 128 : 512)
                              int page_size, int page_offset, int chunk,
                              int num_splits, float scale_log2) {
   constexpr int RG = DECODE ? 1 : 4;
-  using SM = MlaSmem<T, DL, RG>;
+  using SM = MlaSmem<T, TC, DL, RG>;
+  constexpr bool NARROW = SM::NARROW;
   constexpr int ROWS = SM::ROWS;
   constexpr int LD = SM::LD;
   constexpr int CPR = DL / 8;                    // 16-byte chunks per row
@@ -155,13 +174,14 @@ __global__ void __launch_bounds__(DECODE ? 128 : 512)
   float* sm = reinterpret_cast<float*>(smem_raw + SM::ST_OFF);
   float* sl = sm + ROWS;
   float* sa = sl + ROWS;
+  TC* stage = reinterpret_cast<TC*>(smem_raw + SM::N_OFF);  // fp8 latent
   __shared__ int s_seq, s_tile;
 
   int seq, q_start, t_first, n_tok, pos0, j_begin, j_end;
-  if (!mla_locate<T, DV, DECODE>(cu_q_lens, kv_lens, out, S, num_tokens, RG,
-                                 chunk, num_splits, &s_seq, &s_tile, seq,
-                                 q_start, t_first, n_tok, pos0, j_begin,
-                                 j_end))
+  if (!mla_locate<T, DV, DECODE, UNIFIED>(
+          cu_q_lens, kv_lens, out, S, num_tokens, RG, chunk, num_splits,
+          &s_seq, &s_tile, seq, q_start, t_first, n_tok, pos0, j_begin,
+          j_end))
     return;
   const int tid = threadIdx.x;
   const int n_rows = n_tok * kMlaHeads;
@@ -179,17 +199,23 @@ __global__ void __launch_bounds__(DECODE ? 128 : 512)
     sm[tid] = -INFINITY;
     sl[tid] = 0.f;
   }
+  // stage `st` of the cp.async ring: a tile of T, or of fp8 bytes (rows of
+  // DL, 16 a chunk) that is widened into the one T tile once it lands
   auto issue = [&](int st, int j0) {
-    T* dst = sk0 + st * kMlaKeys * LD;
+    constexpr int CH = 16 / sizeof(TC);         // elements a 16-byte chunk
+    constexpr int CPR_C = DL / CH;
+    constexpr int LDC = NARROW ? DL : LD;       // the landing row stride
+    TC* dst = NARROW ? stage + st * kMlaKeys * DL
+                     : reinterpret_cast<TC*>(sk0 + st * kMlaKeys * LD);
     const int n = min(kMlaKeys, j_end - j0);
-    for (int c = tid; c < kMlaKeys * CPR; c += blockDim.x) {
-      const int r = c / CPR, col = (c % CPR) * 8;
+    for (int c = tid; c < kMlaKeys * CPR_C; c += blockDim.x) {
+      const int r = c / CPR_C, col = (c % CPR_C) * CH;
       const bool valid = r < n;
       const int64_t off =
           valid ? kv_row_offset(pt_row, j0 + r, page_size, page_offset, 1,
                                 DL, 0) + col
                 : 0;
-      cp_async16(dst + r * LD + col, lat + off, valid);
+      cp_async16(dst + r * LDC + col, lat + off, valid);
     }
     cp_async_commit();
   };
@@ -217,7 +243,15 @@ __global__ void __launch_bounds__(DECODE ? 128 : 512)
       cp_async_commit();  // keep the count even
     asm volatile("cp.async.wait_group 1;\n" ::);
     __syncthreads();
-    const T* sk = sk0 + (it & 1) * kMlaKeys * LD;
+    const T* sk;
+    if constexpr (NARROW) {
+      widen_tile<T, TC, kMlaKeys, DL, LD>(sk0,
+                                          stage + (it & 1) * kMlaKeys * DL);
+      __syncthreads();
+      sk = sk0;
+    } else {
+      sk = sk0 + (it & 1) * kMlaKeys * LD;
+    }
 
     // S = Q K^T: this warp's 16 rows x 8 keys (one n-tile) over DL
     {
@@ -368,10 +402,11 @@ struct MlaFmaSmem {
   static constexpr size_t BYTES = (L + kMlaHeads) * sizeof(float);
 };
 
-template <typename T, int DL, int DV, bool DECODE>
+template <typename T, typename TC, int DL, int DV, bool DECODE,
+          bool UNIFIED>
 __global__ void __launch_bounds__(kMlaFmaThreads)
     mla_attention_fma_kernel(const T* __restrict__ q,
-                             const T* __restrict__ lat,
+                             const TC* __restrict__ lat,
                              const int* __restrict__ cu_q_lens,
                              const int* __restrict__ kv_lens,
                              const int* __restrict__ page_table,
@@ -391,10 +426,10 @@ __global__ void __launch_bounds__(kMlaFmaThreads)
   __shared__ int s_seq, s_tile;
 
   int seq, q_start, t_first, n_tok, pos0, j_begin, j_end;
-  if (!mla_locate<T, DV, DECODE>(cu_q_lens, kv_lens, out, S, num_tokens, 1,
-                                 chunk, num_splits, &s_seq, &s_tile, seq,
-                                 q_start, t_first, n_tok, pos0, j_begin,
-                                 j_end))
+  if (!mla_locate<T, DV, DECODE, UNIFIED>(
+          cu_q_lens, kv_lens, out, S, num_tokens, 1, chunk, num_splits,
+          &s_seq, &s_tile, seq, q_start, t_first, n_tok, pos0, j_begin,
+          j_end))
     return;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int64_t row_base = (int64_t)(q_start + t_first) * kMlaHeads;
@@ -412,7 +447,7 @@ __global__ void __launch_bounds__(kMlaFmaThreads)
   for (int j0 = j_begin; j0 < j_end; j0 += kMlaKeys) {
     const int n = min(kMlaKeys, j_end - j0);
     __syncthreads();  // the previous tile has been consumed
-    load_kv_tile<T, DL>(sk, SM::LDK, lat, nullptr, pt_row, j0, kMlaKeys, n,
+    load_kv_tile<TC, DL>(sk, SM::LDK, lat, nullptr, pt_row, j0, kMlaKeys, n,
                         page_size, page_offset, 1, 0);
     __syncthreads();
     // warp w scores rows w and w + 8, lane j key j
@@ -480,27 +515,28 @@ __global__ void __launch_bounds__(kMlaFmaThreads)
 // Launch the MLA kernel over S sequences (DECODE: one token each, in
 // num_splits splits of `chunk` keys, merged by decode_merge_kernel when
 // there are more than one; else T_ ragged tokens): tensor cores for bf16 /
-// fp16, FMA for float32.
-template <typename T, int DL, int DV, bool DECODE>
+// fp16, FMA for float32. The latent holds TC: T, or fp8_t. UNIFIED: only
+// the rows of this block class (cu must be given in both modes).
+template <typename T, typename TC, int DL, int DV, bool DECODE, bool UNIFIED>
 static int launch_mla(const void* q, const void* lat, const int* cu,
                       const int* kv_lens, const int* pt, void* out,
                       float* part, int T_, int S, int max_pages,
                       int page_size, int page_offset, int chunk,
                       int num_splits, float scale, cudaStream_t stream) {
-  using Kernel = void (*)(const T*, const T*, const int*, const int*,
+  using Kernel = void (*)(const T*, const TC*, const int*, const int*,
                           const int*, T*, float*, int, int, int, int, int,
                           int, int, float);
   Kernel kern;
   size_t smem;
   int threads, bq;  // threads and tokens per block
   if constexpr (std::is_same<T, float>::value) {
-    kern = mla_attention_fma_kernel<T, DL, DV, DECODE>;
+    kern = mla_attention_fma_kernel<T, TC, DL, DV, DECODE, UNIFIED>;
     smem = MlaFmaSmem<DL>::BYTES;
     threads = kMlaFmaThreads;
     bq = 1;
   } else {
-    kern = mla_attention_mma_kernel<T, DL, DV, DECODE>;
-    smem = MlaSmem<T, DL, DECODE ? 1 : 4>::BYTES;
+    kern = mla_attention_mma_kernel<T, TC, DL, DV, DECODE, UNIFIED>;
+    smem = MlaSmem<T, TC, DL, DECODE ? 1 : 4>::BYTES;
     threads = DECODE ? 128 : 512;
     bq = DECODE ? 1 : 4;
   }
@@ -514,38 +550,49 @@ static int launch_mla(const void* q, const void* lat, const int* cu,
   const dim3 grid = DECODE ? dim3(S, 1, num_splits)
                            : dim3((T_ + bq - 1) / bq + S, 1, 1);
   kern<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(lat), cu, kv_lens, pt,
+      static_cast<const T*>(q), static_cast<const TC*>(lat), cu, kv_lens, pt,
       static_cast<T*>(out), part, T_, S, max_pages, page_size, page_offset,
       chunk, num_splits, scale * kLog2e);
   if (DECODE && num_splits > 1)
-    decode_merge_kernel<T, DV, false>
+    decode_merge_kernel<T, DV, UNIFIED>
         <<<dim3(S, kMlaHeads), 32, 0, stream>>>(
             part, cu, kv_lens, static_cast<T*>(out), kMlaHeads, chunk,
             num_splits);
   return 0;
 }
 
-// f(T{}, DL, DV) for the dtype code and one of the latent geometries the
+// f(T{}, TC{}, DL, DV) for the dtype code, the cache code (q's dtype or
+// fp8; an int8 latent is not taken) and one of the latent geometries the
 // kernels are built for: DeepSeek V2/V3's (576, 512), and (96, 64) for
 // small test models.
 template <typename F>
-static int dispatch_mla(int dtype, int latent_dim, int v_dim, F&& f) {
-  auto dims = [&](auto t) -> int {
+static int dispatch_mla(int dtype, int cache, int latent_dim, int v_dim,
+                        F&& f) {
+  auto dims = [&](auto t, auto tc) -> int {
     if (latent_dim == 576 && v_dim == 512)
-      return f(t, std::integral_constant<int, 576>{},
+      return f(t, tc, std::integral_constant<int, 576>{},
                std::integral_constant<int, 512>{});
     if (latent_dim == 96 && v_dim == 64)
-      return f(t, std::integral_constant<int, 96>{},
+      return f(t, tc, std::integral_constant<int, 96>{},
                std::integral_constant<int, 64>{});
+    return (int)cudaErrorInvalidValue;
+  };
+  auto caches = [&](auto t) -> int {
+    switch (cache) {
+      case kCacheNative:
+        return dims(t, t);
+      case kCacheFp8:
+        return dims(t, fp8_t{});
+    }
     return (int)cudaErrorInvalidValue;
   };
   switch (dtype) {
     case kFloat32:
-      return dims(float{});
+      return caches(float{});
     case kBFloat16:
-      return dims(__nv_bfloat16{});
+      return caches(__nv_bfloat16{});
     case kFloat16:
-      return dims(__half{});
+      return caches(__half{});
   }
   return (int)cudaErrorInvalidValue;
 }

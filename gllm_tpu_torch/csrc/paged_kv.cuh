@@ -12,10 +12,15 @@
 // x dequantizes to x * scale[page, h] (block_kv's rule). int8 -> float is
 // exact, so every kernel dequantizes with one float32 multiply, as the
 // plain versions do.
+// fp8 caches (kv_cache_dtype="fp8", e4m3) carry no scale: the write path
+// rounds each value once, and every kernel widens what it reads, which is
+// exact (bf16 and fp16 hold every e4m3 value; NaN stays NaN), as block_kv
+// widens its tiles to float32.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -27,6 +32,11 @@ namespace gllm {
 
 // dtype codes shared with the Python wrappers (ops/cuda/build.py)
 enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
+// cache codes shared with the Python wrappers: the cache holds q's dtype,
+// int8 with per-page scales, or fp8 (e4m3) without scales
+enum CacheCode : int { kCacheNative = 0, kCacheInt8 = 1, kCacheFp8 = 2 };
+
+using fp8_t = __nv_fp8_e4m3;
 
 template <typename TC>
 __host__ __device__ constexpr bool is_q8() {
@@ -39,6 +49,9 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_float(fp8_t x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -175,10 +188,11 @@ __device__ __forceinline__ bool in_decode_prefix(const int* cu_q_lens,
 // ---- host: run-time dtype / cache / head_dim -> template instance ---------
 //
 // f(T{}, TC{}, std::integral_constant<int, D>{}) for q and output type T,
-// cache element type TC (T, or int8_t when `quant`) and head dim D. With
-// WIDE, head dim 256 (Qwen3-Next's full-attention layers) is instantiated
-// too, for a full-precision cache only: the hybrid family takes no int8
-// cache and no unified step, so those instances are not built.
+// cache element type TC (T, int8_t or fp8_t, from the cache code) and head
+// dim D. With WIDE, head dim 256 (Qwen3-Next's full-attention layers) is
+// instantiated too, for a full-precision or an fp8 cache: the hybrid
+// family takes no int8 cache and no unified step, so those instances are
+// not built.
 
 template <typename T, typename TC, bool WIDE, typename F>
 static int dispatch_dim(int head_dim, F& f) {
@@ -198,22 +212,36 @@ static int dispatch_dim(int head_dim, F& f) {
 }
 
 template <typename T, bool WIDE, typename F>
-static int dispatch_cache(bool quant, int head_dim, F& f) {
-  return quant ? dispatch_dim<T, int8_t, WIDE>(head_dim, f)
-               : dispatch_dim<T, T, WIDE>(head_dim, f);
+static int dispatch_cache(int cache, int head_dim, F& f) {
+  switch (cache) {
+    case kCacheNative:
+      return dispatch_dim<T, T, WIDE>(head_dim, f);
+    case kCacheInt8:
+      return dispatch_dim<T, int8_t, WIDE>(head_dim, f);
+    case kCacheFp8:
+      return dispatch_dim<T, fp8_t, WIDE>(head_dim, f);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <bool WIDE, typename F>
-static int dispatch_types(int dtype, bool quant, int head_dim, F&& f) {
+static int dispatch_types(int dtype, int cache, int head_dim, F&& f) {
   switch (dtype) {
     case kFloat32:
-      return dispatch_cache<float, WIDE>(quant, head_dim, f);
+      return dispatch_cache<float, WIDE>(cache, head_dim, f);
     case kBFloat16:
-      return dispatch_cache<__nv_bfloat16, WIDE>(quant, head_dim, f);
+      return dispatch_cache<__nv_bfloat16, WIDE>(cache, head_dim, f);
     case kFloat16:
-      return dispatch_cache<__half, WIDE>(quant, head_dim, f);
+      return dispatch_cache<__half, WIDE>(cache, head_dim, f);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Do the scale pointers match the cache code? Both for int8, neither else.
+static inline bool scales_ok(int cache, const void* k_scale,
+                             const void* v_scale) {
+  const bool quant = cache == kCacheInt8;
+  return quant == (k_scale != nullptr) && quant == (v_scale != nullptr);
 }
 
 }  // namespace gllm

@@ -1,15 +1,16 @@
 // Ragged paged attention for Hopper (sm_90a).
 //
 // Replaces gllm_tpu/ops/pallas/ragged_attention.py::ragged_paged_attention
-// in its non-unified GQA mode, with a full-precision cache (K1) or an int8
+// in its non-unified GQA mode, with a full-precision cache (K1), an int8
 // cache with per-page, per-kv-head float32 scales (K1q, `k_scale`/`v_scale`
-// there). The kernels, what bounds them and their design are in
-// ragged_attention.cuh.
+// there) or an fp8 cache (the runner's float8_e4m3fn). The kernels, what
+// bounds them and their design are in ragged_attention.cuh.
 
 #include "ragged_attention.cuh"
 
-// q [T, Hq, D], k/v cache [P, page, Hkv, D] in q's dtype, or int8 with
-// k_scale/v_scale [P, Hkv] float32 (both null for a full-precision cache),
+// q [T, Hq, D], k/v cache [P, page, Hkv, D] of cache code `cache`: q's
+// dtype, int8 with k_scale/v_scale [P, Hkv] float32, or fp8 (e4m3; the
+// scales are null but for int8),
 // cu_q_lens [S+1] i32, kv_lens [S] i32, page_table [S, max_pages] i32,
 // out [T, Hq, D]; all contiguous on one device. Returns cudaGetLastError()
 // after the launch.
@@ -18,14 +19,14 @@ extern "C" int gllm_ragged_attention(
     const void* k_scale, const void* v_scale, const void* cu_q_lens,
     const void* kv_lens, const void* page_table, void* out, int num_tokens,
     int S, int max_pages, int num_q_heads, int num_kv_heads, int head_dim,
-    int page_size, int page_offset, float scale, int dtype, void* stream) {
+    int page_size, int page_offset, float scale, int dtype, int cache,
+    void* stream) {
   using namespace gllm;
-  const bool quant = k_scale != nullptr;
   if (!ragged_args_ok(num_tokens, S, num_q_heads, num_kv_heads) ||
-      quant != (v_scale != nullptr))
+      !scales_ok(cache, k_scale, v_scale))
     return (int)cudaErrorInvalidValue;
   const int rc = dispatch_types<true>(
-      dtype, quant, head_dim, [&](auto t, auto tc, auto d) {
+      dtype, cache, head_dim, [&](auto t, auto tc, auto d) {
         using T = decltype(t);
         using TC = decltype(tc);
         return launch_ragged<T, TC, decltype(d)::value, false>(

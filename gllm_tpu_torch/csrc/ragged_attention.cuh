@@ -35,6 +35,9 @@
 // product of its 16-key step (pages of fewer keys fold each value row's
 // scale into the probabilities instead). q is never quantized. The FMA
 // path dequantizes each tile as it loads it.
+// fp8 cache: staged and widened as an int8 tile is (exactly: bf16 and fp16
+// hold every e4m3 value), with no scale anywhere; the FMA path widens each
+// tile as it loads it.
 // UNIFIED (K1u's ragged class): the sequences of the batch's decode prefix
 // get no tiles here (the decode-class blocks of the same step own them).
 #pragma once
@@ -410,19 +413,22 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
 }
 
 // Shared memory of the tensor-core kernel. Full-precision cache: K and V
-// tiles of T, two stages. int8 cache: one stage of T tiles (widened from
-// int8), and two stages of int8 K and V tiles plus their rows' scales.
+// tiles of T, two stages. One-byte cache (int8 or fp8): one stage of T
+// tiles (widened), and two stages of one-byte K and V tiles, plus, for
+// int8, their rows' scales.
 template <typename T, typename TC, int D>
 struct MmaSmem {
   static constexpr bool Q8 = is_q8<TC>();
+  static constexpr bool NARROW = sizeof(TC) == 1;
   static constexpr int LD = D + 8;  // row stride: conflict-free fragments
   static constexpr int TILE = kMmaKeys * LD;
-  static constexpr int T_TILES = Q8 ? 2 : 4;                 // of TILE x T
-  static constexpr size_t Q8_OFF = T_TILES * TILE * sizeof(T);
-  static constexpr size_t Q8_TILE = kMmaKeys * D;            // int8 bytes
-  static constexpr size_t SC_OFF = Q8_OFF + 4 * Q8_TILE;     // 2 x (K, V)
+  static constexpr int T_TILES = NARROW ? 2 : 4;             // of TILE x T
+  static constexpr size_t N_OFF = T_TILES * TILE * sizeof(T);
+  static constexpr size_t N_TILE = kMmaKeys * D;             // bytes
+  static constexpr size_t SC_OFF = N_OFF + 4 * N_TILE;       // 2 x (K, V)
   static constexpr size_t BYTES =
-      Q8 ? SC_OFF + 4 * kMmaKeys * sizeof(float) : Q8_OFF;
+      Q8 ? SC_OFF + 4 * kMmaKeys * sizeof(float)
+         : (NARROW ? SC_OFF : N_OFF);
 };
 
 // Issue the cp.async copies of keys [j0, j0 + kMmaKeys) of one kv head into
@@ -465,19 +471,21 @@ __device__ __forceinline__ void issue_kv_tile(TC* sk, TC* sv, float* sks,
   cp_async_commit();
 }
 
-// Widen a [kMmaKeys, D] int8 tile to T in rows of stride LD (exact).
-template <typename T, int D, int LD>
-__device__ __forceinline__ void widen_tile(T* dst, const int8_t* src) {
+// Widen a [ROWS, D] tile of one-byte values (int8 or fp8, row stride D) to
+// T in rows of stride LD: exact, since T holds every such value.
+template <typename T, typename TC, int ROWS, int D, int LD>
+__device__ __forceinline__ void widen_tile(T* dst, const TC* src) {
+  static_assert(sizeof(TC) == 1 && D % 16 == 0, "one-byte rows of 16s");
   constexpr int CPR = D / 16;
-  for (int c = threadIdx.x; c < kMmaKeys * CPR; c += blockDim.x) {
+  for (int c = threadIdx.x; c < ROWS * CPR; c += blockDim.x) {
     const int r = c / CPR;
     const int col = (c % CPR) * 16;
-    const int4 raw = *reinterpret_cast<const int4*>(src + r * D + col);
-    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * D + col);
+    const TC* e = reinterpret_cast<const TC*>(&raw);
     uint32_t w[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      w[i] = Mma<T>::pack((float)e[2 * i], (float)e[2 * i + 1]);
+      w[i] = Mma<T>::pack(to_float(e[2 * i]), to_float(e[2 * i + 1]));
     uint4* d = reinterpret_cast<uint4*>(dst + r * LD + col);
     d[0] = make_uint4(w[0], w[1], w[2], w[3]);
     d[1] = make_uint4(w[4], w[5], w[6], w[7]);
@@ -500,14 +508,16 @@ __global__ void __launch_bounds__(MmaCols<D>::THREADS)
                                 int page_offset, float scale_log2) {
   using SM = MmaSmem<T, TC, D>;
   constexpr bool Q8 = SM::Q8;
+  constexpr bool NARROW = SM::NARROW;
   constexpr int LD = SM::LD;
   constexpr int NK = kMmaKeys / 8;  // key n-tiles of S
   constexpr int ND = D / 8 / MmaCols<D>::WN;  // dim n-tiles of O a warp
   static_assert(ND % 2 == 0, "P.V loads two dim n-tiles at a time");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  // int8 cache: staging tiles [stage][K, V] and scales [stage][K, V][keys]
-  int8_t* stage8 = reinterpret_cast<int8_t*>(smem_raw + SM::Q8_OFF);
+  // one-byte cache: staging tiles [stage][K, V]; int8: and the scales
+  // [stage][K, V][keys]
+  TC* stage8 = reinterpret_cast<TC*>(smem_raw + SM::N_OFF);
   float* stage_sc = reinterpret_cast<float*>(smem_raw + SM::SC_OFF);
   __shared__ int s_seq, s_tile;
 
@@ -579,10 +589,10 @@ __global__ void __launch_bounds__(MmaCols<D>::THREADS)
   // stage `st` of the cp.async ring: where tile it + 1 lands
   auto issue = [&](int st, int j0) {
     const int n = min(kMmaKeys, kv_end - j0);
-    if constexpr (Q8) {
-      int8_t* k8 = stage8 + st * 2 * SM::Q8_TILE;
-      float* sc = stage_sc + st * 2 * kMmaKeys;
-      issue_kv_tile<TC, D, D>(k8, k8 + SM::Q8_TILE, sc, sc + kMmaKeys, kc,
+    if constexpr (NARROW) {
+      TC* k8 = stage8 + st * 2 * SM::N_TILE;
+      float* sc = stage_sc + st * 2 * kMmaKeys;  // read for int8 only
+      issue_kv_tile<TC, D, D>(k8, k8 + SM::N_TILE, sc, sc + kMmaKeys, kc,
                               vc, ks, vs, pt_row, j0, n, page_size,
                               page_offset, num_kv_heads, h);
     } else {
@@ -607,12 +617,14 @@ __global__ void __launch_bounds__(MmaCols<D>::THREADS)
     const T* sv;
     const float* ksc = nullptr;  // this tile's key and value row scales
     const float* vsc = nullptr;
-    if constexpr (Q8) {
-      const int8_t* k8 = stage8 + (it & 1) * 2 * SM::Q8_TILE;
-      widen_tile<T, D, LD>(smem, k8);
-      widen_tile<T, D, LD>(smem + SM::TILE, k8 + SM::Q8_TILE);
-      ksc = stage_sc + (it & 1) * 2 * kMmaKeys;
-      vsc = ksc + kMmaKeys;
+    if constexpr (NARROW) {
+      const TC* k8 = stage8 + (it & 1) * 2 * SM::N_TILE;
+      widen_tile<T, TC, kMmaKeys, D, LD>(smem, k8);
+      widen_tile<T, TC, kMmaKeys, D, LD>(smem + SM::TILE, k8 + SM::N_TILE);
+      if constexpr (Q8) {
+        ksc = stage_sc + (it & 1) * 2 * kMmaKeys;
+        vsc = ksc + kMmaKeys;
+      }
       __syncthreads();
       sk = smem;
       sv = smem + SM::TILE;

@@ -2,9 +2,9 @@
 //
 // Replaces gllm_tpu/ops/pallas/ragged_attention.py::ragged_paged_attention
 // with unified=True (K1u): ONE call serves every paged step of the unified
-// engine (decode, mixed and prefill batches), over a full-precision or an
-// int8 cache. Bound on the card: bytes for the decode rows, operations for
-// the prefill chunks (the two parts of a mixed step).
+// engine (decode, mixed and prefill batches), over a full-precision, an
+// int8 or an fp8 cache. Bound on the card: bytes for the decode rows,
+// operations for the prefill chunks (the two parts of a mixed step).
 //
 // As in the TPU kernel, blocks are specialised per row class, found on the
 // device from cu_q_lens alone (decode_prefix_len, the counterpart of
@@ -34,8 +34,9 @@
 #include "decode_attention.cuh"
 #include "ragged_attention.cuh"
 
-// q [T, Hq, D], k/v cache [P, page, Hkv, D] in q's dtype, or int8 with
-// k_scale/v_scale [P, Hkv] float32 (both null for a full-precision cache),
+// q [T, Hq, D], k/v cache [P, page, Hkv, D] of cache code `cache`: q's
+// dtype, int8 with k_scale/v_scale [P, Hkv] float32, or fp8 (e4m3; the
+// scales are null but for int8),
 // cu_q_lens [S+1] i32, kv_lens [S] i32, page_table [S, max_pages] i32,
 // out [T, Hq, D]; all contiguous on one device. The decode blocks cover
 // `chunk` keys each (a multiple of 32), num_splits * chunk >= max_pages *
@@ -48,13 +49,12 @@ extern "C" int gllm_unified_attention(
     const void* kv_lens, const void* page_table, void* out, void* part,
     int num_tokens, int S, int max_pages, int num_q_heads, int num_kv_heads,
     int head_dim, int page_size, int page_offset, int chunk, int num_splits,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int cache, void* stream) {
   using namespace gllm;
-  const bool quant = k_scale != nullptr;
   if (!ragged_args_ok(num_tokens, S, num_q_heads, num_kv_heads) ||
       !decode_args_ok(S, num_q_heads, num_kv_heads, max_pages, page_size,
                       chunk, num_splits, part) ||
-      quant != (v_scale != nullptr))
+      !scales_ok(cache, k_scale, v_scale))
     return (int)cudaErrorInvalidValue;
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
@@ -63,7 +63,7 @@ extern "C" int gllm_unified_attention(
   const int* pt = static_cast<const int*>(page_table);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc = dispatch_types<false>(
-      dtype, quant, head_dim, [&](auto t, auto tc, auto d) {
+      dtype, cache, head_dim, [&](auto t, auto tc, auto d) {
         using T = decltype(t);
         using TC = decltype(tc);
         constexpr int D = decltype(d)::value;

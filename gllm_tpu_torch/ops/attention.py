@@ -15,14 +15,15 @@ the ragged wrapper's unified kernel, whatever ``max_q_len`` says: decode
 rows are one-token rows of the ragged batch.
 
 ``k_scale``/``v_scale`` ([P, Hkv] float32) mark an int8 cache; every
-kernel dequantizes on its read path. ``v_cache=None`` marks an MLA latent
-cache [P, page, 1, Dl], whose values are the keys' leading ``v_dim`` lanes:
-the legacy pair's MLA kernels (K1m, K2m) serve it; the unified kernel over
-a latent cache is not ported and raises. Each wrapper launches its CUDA
-kernel for CUDA tensors and takes its plain PyTorch version only for
-tensors on the CPU. The JAX package's lane-packed KV layout exists only
-for the TPU's 128-lane tiles; this port stores the native
-[P, page, Hkv, D] cache.
+kernel dequantizes on its read path. An fp8 (``float8_e4m3fn``) cache takes
+no scales; every kernel widens it as it reads. ``v_cache=None`` marks an
+MLA latent cache [P, page, 1, Dl], whose values are the keys' leading
+``v_dim`` lanes: the legacy pair's MLA kernels (K1m, K2m) serve it, and
+the unified step's MLA kernel (K1um) under ``impl="unified"``. Each
+wrapper launches its CUDA kernel for CUDA tensors and takes its plain
+PyTorch version only for tensors on the CPU. The JAX package's lane-packed
+KV layout exists only for the TPU's 128-lane tiles; this port stores the
+native [P, page, Hkv, D] cache.
 
 Metadata layout (built by the runner, padded to bucketed sizes):
 - cu_q_lens: [S+1] int32 — cumulative query lengths (padded seqs repeat
@@ -59,9 +60,6 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if v_cache is None:
         if v_dim is None:
             raise ValueError("v_dim required when v_cache is None")
-        if impl == "unified":
-            raise NotImplementedError(
-                "the unified kernel over an MLA latent cache is not ported")
         if k_scale is not None:
             raise NotImplementedError("an int8 MLA latent cache is not "
                                       "supported")

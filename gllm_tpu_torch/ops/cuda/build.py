@@ -25,13 +25,17 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "gllm_tpu_torch"
 SOURCES = ("decode_attention", "ragged_attention", "unified_attention",
-           "mla_decode_attention", "mla_ragged_attention", "gdn_scan")
+           "mla_decode_attention", "mla_ragged_attention",
+           "mla_unified_attention", "gdn_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
 
 # dtype codes of csrc/paged_kv.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# cache codes of csrc/paged_kv.cuh: the cache holds q's dtype, int8 (with
+# per-page scales) or fp8 (e4m3, no scales)
+CACHE_NATIVE, CACHE_INT8, CACHE_FP8 = 0, 1, 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,15 +44,17 @@ _F = ctypes.c_float
 # c_void_p; an int argument left to ctypes' default would cut a pointer)
 _SIGNATURES = {
     "decode_attention": ("gllm_decode_attention",
-                         [_P] * 9 + [_I] * 9 + [_F, _I, _P]),
+                         [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P]),
     "ragged_attention": ("gllm_ragged_attention",
-                         [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
+                         [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P]),
     "unified_attention": ("gllm_unified_attention",
-                          [_P] * 10 + [_I] * 10 + [_F, _I, _P]),
+                          [_P] * 10 + [_I] * 10 + [_F, _I, _I, _P]),
     "mla_decode_attention": ("gllm_mla_decode_attention",
-                             [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
+                             [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P]),
     "mla_ragged_attention": ("gllm_mla_ragged_attention",
-                             [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+                             [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]),
+    "mla_unified_attention": ("gllm_mla_unified_attention",
+                              [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P]),
     "gdn_scan": ("gllm_gdn_chunk_scan", [_P] * 9 + [_I] * 5 + [_P]),
 }
 

@@ -5,11 +5,14 @@ from __future__ import annotations
 
 import torch
 
-from gllm_tpu_torch.ops.cuda.build import DTYPE_CODES
+from gllm_tpu_torch.ops.cuda.build import (CACHE_FP8, CACHE_INT8,
+                                            CACHE_NATIVE, DTYPE_CODES)
 
+FP8 = torch.float8_e4m3fn
 HEAD_DIMS = (32, 64, 128)
-# head dims of the full-precision, non-unified K1 and K2 only (Qwen3-Next's
-# gated full-attention layers; csrc/paged_kv.cuh dispatch_dim)
+# head dims of the non-unified K1 and K2 over a full-precision or an fp8
+# cache only (Qwen3-Next's gated full-attention layers; csrc/paged_kv.cuh
+# dispatch_dim)
 WIDE_HEAD_DIMS = HEAD_DIMS + (256,)
 # MLA kernels (csrc/mla_attention.cuh): 16 query heads over one latent
 # stream, and the (latent row width, v_dim) geometries they are built for:
@@ -18,10 +21,24 @@ MLA_HEADS = 16
 MLA_GEOMETRIES = ((576, 512), (96, 64))
 
 
+def cache_code(cache) -> int:
+    """The kernels' cache code: ``cache`` holds q's dtype, int8 or fp8."""
+    if cache.dtype == torch.int8:
+        return CACHE_INT8
+    return CACHE_FP8 if cache.dtype == FP8 else CACHE_NATIVE
+
+
+def cache_suffix(cache) -> str:
+    """The launch counters' suffix of a cache: "", "_int8" or "_fp8"."""
+    return {CACHE_NATIVE: "", CACHE_INT8: "_int8",
+            CACHE_FP8: "_fp8"}[cache_code(cache)]
+
+
 def gather_pages(cache, scale, pages):
     """Pages of a paged cache as float32, [..., page, Hkv, D] for ``pages``
     [...]; an int8 cache is dequantized with its per-page, per-kv-head
-    ``scale`` [P, Hkv] (``block_kv``'s rule: x * scale[page, h])."""
+    ``scale`` [P, Hkv] (``block_kv``'s rule: x * scale[page, h]), an fp8
+    cache widened (exact)."""
     x = cache[pages].float()
     if scale is not None:
         x = x * scale[pages][..., None, :, None]
@@ -43,17 +60,18 @@ def check_mla_geometry(num_heads: int, latent_dim: int, v_dim: int) -> None:
 
 def check_latent_inputs(what: str, q, latent, v_dim, index_tensors) -> None:
     """Raise on anything the MLA kernels do not take: q [T, 16, Dl] and a
-    latent cache [P, page, 1, Dl] of one dtype, a supported (Dl, v_dim),
-    int32 metadata, contiguous and 16-byte aligned on one CUDA device."""
+    latent cache [P, page, 1, Dl] in q's dtype or in fp8, a supported
+    (Dl, v_dim), int32 metadata, contiguous and 16-byte aligned on one CUDA
+    device."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: needs CUDA or CPU tensors, got "
                          f"{q.device}")
     if any(t.device != q.device for t in (latent,) + tuple(index_tensors)):
         raise ValueError(f"{what}: all tensors must be on {q.device}")
-    if q.dtype not in DTYPE_CODES or latent.dtype != q.dtype:
-        raise ValueError(f"{what}: q and the latent cache must share a dtype "
-                         f"of {list(DTYPE_CODES)}, got {q.dtype}/"
-                         f"{latent.dtype}")
+    if q.dtype not in DTYPE_CODES or latent.dtype not in (q.dtype, FP8):
+        raise ValueError(f"{what}: q must be one of {list(DTYPE_CODES)} and "
+                         f"the latent cache in its dtype or in {FP8}, got "
+                         f"{q.dtype}/{latent.dtype}")
     if any(t.dtype != torch.int32 for t in index_tensors):
         raise ValueError(f"{what}: metadata tensors must be int32")
     if (q.dim() != 3 or latent.dim() != 4 or latent.shape[2] != 1
@@ -72,9 +90,9 @@ def check_inputs(what: str, q, k_cache, v_cache, index_tensors,
                  wide: bool = False) -> None:
     """Raise on anything the kernel does not take: device, dtype, shape,
     contiguity, alignment. An int8 cache needs both scales, float32
-    [P, Hkv]; a full-precision cache shares q's dtype and takes none.
-    ``wide``: the kernel also takes head dim 256 (a full-precision cache
-    only)."""
+    [P, Hkv]; a full-precision cache (q's dtype) and an fp8 cache take
+    none. ``wide``: the kernel also takes head dim 256 (not over an int8
+    cache)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: needs CUDA or CPU tensors, got "
                          f"{q.device}")
@@ -87,11 +105,12 @@ def check_inputs(what: str, q, k_cache, v_cache, index_tensors,
         raise ValueError(f"{what}: all tensors must be on {q.device}")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{what}: unsupported dtype {q.dtype}")
-    cache_dtype = torch.int8 if scales else q.dtype
-    if k_cache.dtype != cache_dtype or v_cache.dtype != cache_dtype:
-        raise ValueError(f"{what}: the caches' dtype must be {cache_dtype} "
-                         f"(q {q.dtype}, {'with' if scales else 'without'} "
-                         f"scales), got {k_cache.dtype}/{v_cache.dtype}")
+    allowed = (torch.int8,) if scales else (q.dtype, FP8)
+    if k_cache.dtype not in allowed or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"{what}: the caches' dtype must be one of "
+                         f"{allowed} (q {q.dtype}, "
+                         f"{'with' if scales else 'without'} scales), got "
+                         f"{k_cache.dtype}/{v_cache.dtype}")
     if any(t.dtype != torch.int32 for t in index_tensors):
         raise ValueError(f"{what}: metadata tensors must be int32")
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:

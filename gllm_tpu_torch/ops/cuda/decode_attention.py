@@ -11,10 +11,11 @@ is bound by bytes: it runs one block per (sequence, kv head, split of the
 context), so every K/V row of a sequence's context is read from device
 memory once and shared by the G query heads of its group, and a long
 context at a small batch still fills the card; a second pass merges the
-splits. Head dims 32, 64 and 128, and 256 over a full-precision cache
-(Qwen3-Next's gated attention). An int8 tile is dequantized as it is loaded, so the cache moves
-half the bytes. The TPU kernel's round-robin DMA grouping is a TPU fetch
-schedule and does not carry over.
+splits. Head dims 32, 64 and 128, and 256 over a full-precision or an fp8
+cache (Qwen3-Next's gated attention). An int8 tile is dequantized as it is
+loaded, so the cache moves half the bytes; an fp8 (e4m3) cache or latent
+likewise, widened exactly (no scales). The TPU kernel's round-robin DMA
+grouping is a TPU fetch schedule and does not carry over.
 
 ``paged_decode_attention`` launches the kernel for CUDA tensors and takes
 the plain version only for tensors on the CPU.
@@ -27,7 +28,8 @@ import functools
 import torch
 
 from gllm_tpu_torch.ops.cuda import build
-from gllm_tpu_torch.ops.cuda.common import (check_inputs,
+from gllm_tpu_torch.ops.cuda.common import (cache_code, cache_suffix,
+                                            check_inputs,
                                             check_latent_inputs, data_ptr,
                                             gather_pages)
 from gllm_tpu_torch.utils import cdiv
@@ -83,7 +85,8 @@ def paged_decode_attention_plain(q, k_cache, v_cache, kv_lens, page_table,
     q [S, Hq, D]; k_cache/v_cache [P, page, Hkv, D]; kv_lens [S];
     page_table [S, max_pages] (ids are offset by ``page_offset``). An int8
     cache comes with ``k_scale``/``v_scale`` [P, Hkv] float32 and is
-    dequantized on the gathered pages (``_xla_paged_attention``'s rule).
+    dequantized on the gathered pages (``_xla_paged_attention``'s rule);
+    an fp8 cache is widened.
     ``v_cache`` None: a shared latent cache (MLA), whose values are the
     keys' leading ``v_dim`` lanes. Rows with kv_len 0 give zeros. Returns
     [S, Hq, Dv] in q's dtype (Dv = D, or ``v_dim``)."""
@@ -140,9 +143,10 @@ def paged_decode_attention(q, k_cache, v_cache, kv_lens, page_table, *,
         page_table.data_ptr(), out.data_ptr(), data_ptr(part), S,
         page_table.shape[1], Hq, k_cache.shape[2], D, k_cache.shape[1],
         page_offset, chunk, num_splits, scale, build.DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream().cuda_stream)
+        cache_code(k_cache), torch.cuda.current_stream().cuda_stream)
     build.check(rc, "paged_decode_attention")
-    paged_decode_attention.launches[KERNELS[k_scale is not None]] += 1
+    paged_decode_attention.launches[
+        "paged_decode_attention" + cache_suffix(k_cache)] += 1
     return out
 
 
@@ -167,16 +171,16 @@ def _mla_decode(q, latent, kv_lens, page_table, *, scale, page_offset,
         q.data_ptr(), latent.data_ptr(), kv_lens.data_ptr(),
         page_table.data_ptr(), out.data_ptr(), data_ptr(part), S,
         page_table.shape[1], Dl, v_dim, latent.shape[1], page_offset, chunk,
-        num_splits, scale, build.DTYPE_CODES[q.dtype],
+        num_splits, scale, build.DTYPE_CODES[q.dtype], cache_code(latent),
         torch.cuda.current_stream().cuda_stream)
     build.check(rc, "paged_decode_attention")
-    paged_decode_attention.launches["paged_decode_attention_mla"] += 1
+    paged_decode_attention.launches[
+        "paged_decode_attention_mla" + cache_suffix(latent)] += 1
     return out
 
 
-# launches by kernel: full-precision cache (K2), int8 cache (K2q) and MLA
-# latent cache (K2m)
-KERNELS = {False: "paged_decode_attention",
-           True: "paged_decode_attention_int8"}
+# launches by kernel: K2 over a full-precision, int8 (K2q) or fp8 cache,
+# and K2m over a latent cache in q's dtype or in fp8
 paged_decode_attention.launches = dict.fromkeys(
-    list(KERNELS.values()) + ["paged_decode_attention_mla"], 0)
+    ["paged_decode_attention" + c for c in ("", "_int8", "_fp8")]
+    + ["paged_decode_attention_mla" + c for c in ("", "_fp8")], 0)

@@ -13,7 +13,7 @@ sequence s sits at position ``kv_len - q_len + t``.
   sync, and each block reuses every K/V tile it loads for its 64 query
   rows. bf16 and fp16 run on the tensor cores (``mma.sync``) with
   double-buffered ``cp.async`` tile loads; float32 runs on plain FMA.
-  Head dims 32, 64 and 128, and 256 over a full-precision cache
+  Head dims 32, 64 and 128, and 256 over a full-precision or an fp8 cache
   (Qwen3-Next's gated attention: two warps share each 16-row group's
   output columns there, see ``csrc/ragged_attention.cuh``). An
   int8 tile is widened to bf16/fp16 exactly; the key scales multiply the
@@ -32,6 +32,13 @@ sequence s sits at position ``kv_len - q_len + t``.
   over a shared latent cache [P, page, 1, Dl] whose values are the keys'
   leading ``v_dim`` lanes; tensor cores, each latent tile read once for
   both products (see ``csrc/mla_attention.cuh``).
+- Unified MLA (K1um, ``unified=True, v_cache=None``):
+  ``csrc/mla_unified_attention.cu``, K2m's split-KV decode blocks for the
+  decode prefix and K1m's ragged blocks for every other sequence, found
+  on the device as K1u finds them; classic rescaling, as K1u.
+- Every mode but int8 also reads an fp8 (e4m3) cache or latent, widened
+  exactly on the card (``csrc/paged_kv.cuh``); the plain version widens
+  the gathered pages.
 
 ``ragged_paged_attention`` launches a kernel for CUDA tensors and takes the
 plain version only for tensors on the CPU.
@@ -42,10 +49,13 @@ from __future__ import annotations
 import torch
 
 from gllm_tpu_torch.ops.cuda import build
-from gllm_tpu_torch.ops.cuda.common import (check_inputs,
+from gllm_tpu_torch.ops.cuda.common import (cache_code, cache_suffix,
+                                            check_inputs,
                                             check_latent_inputs, data_ptr,
                                             gather_pages)
-from gllm_tpu_torch.ops.cuda.decode_attention import MAX_GROUP, split_plan
+from gllm_tpu_torch.ops.cuda.decode_attention import (MAX_GROUP,
+                                                      MLA_BLOCKS_PER_SM,
+                                                      split_plan)
 from gllm_tpu_torch.utils import cdiv
 
 ROWS_PER_BLOCK = 64     # query rows (tokens × group heads) per kernel block
@@ -118,8 +128,9 @@ def ragged_paged_attention_plain(q, k_cache, v_cache, cu_q_lens, kv_lens,
     q [T, Hq, D]; k_cache/v_cache [P, page, Hkv, D]; cu_q_lens [S+1];
     kv_lens [S]; page_table [S, max_pages] (ids offset by ``page_offset``).
     An int8 cache comes with ``k_scale``/``v_scale`` [P, Hkv] float32 and
-    is dequantized on the gathered pages. ``unified``: AMLA's softmax, with
-    the decode prefix's rows batched as the kernel's decode blocks are.
+    is dequantized on the gathered pages; an fp8 cache is widened.
+    ``unified``: AMLA's softmax, with the decode prefix's rows batched as
+    the kernel's decode blocks are.
     ``v_cache`` None: a shared latent cache (MLA), whose values are the
     keys' leading ``v_dim`` lanes. Tokens of no sequence (padding past
     cu_q_lens[S]) give zeros. Returns [T, Hq, Dv] in q's dtype (Dv = D, or
@@ -186,12 +197,13 @@ def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
             scale=scale, page_offset=page_offset, k_scale=k_scale,
             v_scale=v_scale, unified=unified, v_dim=v_dim)
     if v_cache is None:
-        if unified or k_scale is not None:
+        if k_scale is not None:
             raise NotImplementedError(
-                "ragged_paged_attention: the unified kernel and an int8 "
-                "cache are not supported over an MLA latent cache")
+                "ragged_paged_attention: an int8 MLA latent cache is not "
+                "supported")
         return _mla_ragged(q, k_cache, cu_q_lens, kv_lens, page_table,
-                           scale=scale, page_offset=page_offset, v_dim=v_dim)
+                           scale=scale, page_offset=page_offset, v_dim=v_dim,
+                           unified=unified)
     T, Hq, D = q.shape
     check_inputs("ragged_paged_attention", q, k_cache, v_cache,
                  (cu_q_lens, kv_lens, page_table),
@@ -214,23 +226,24 @@ def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
             kv_lens.data_ptr(), page_table.data_ptr(), out.data_ptr())
     dims = (S, page_table.shape[1], Hq, Hkv, D, k_cache.shape[1],
             page_offset)
+    codes = (build.DTYPE_CODES[q.dtype], cache_code(k_cache), stream)
     if unified:
         chunk, num_splits, part = split_plan(q, k_cache, page_table)
         rc = build.kernel("unified_attention")(
             *ptrs, data_ptr(part), T, *dims, chunk, num_splits, scale,
-            build.DTYPE_CODES[q.dtype], stream)
+            *codes)
     else:
-        rc = build.kernel("ragged_attention")(
-            *ptrs, T, *dims, scale, build.DTYPE_CODES[q.dtype], stream)
+        rc = build.kernel("ragged_attention")(*ptrs, T, *dims, scale, *codes)
     build.check(rc, "ragged_paged_attention")
     ragged_paged_attention.launches[
-        KERNELS[unified, k_scale is not None]] += 1
+        kernel_name(unified, False, k_cache)] += 1
     return out
 
 
 def _mla_ragged(q, latent, cu_q_lens, kv_lens, page_table, *, scale,
-                page_offset, v_dim):
-    """K1m: the MLA ragged kernel over a latent cache [P, page, 1, Dl]."""
+                page_offset, v_dim, unified):
+    """K1m, or K1um when ``unified``: the MLA kernels over a latent cache
+    [P, page, 1, Dl]."""
     check_latent_inputs("ragged_paged_attention", q, latent, v_dim,
                         (cu_q_lens, kv_lens, page_table))
     T, Hq, Dl = q.shape
@@ -241,21 +254,35 @@ def _mla_ragged(q, latent, cu_q_lens, kv_lens, page_table, *, scale,
     out = torch.empty((T, Hq, v_dim), dtype=q.dtype, device=q.device)
     if T == 0 or S == 0:
         return out.zero_()
-    rc = build.kernel("mla_ragged_attention")(
-        q.data_ptr(), latent.data_ptr(), cu_q_lens.data_ptr(),
-        kv_lens.data_ptr(), page_table.data_ptr(), out.data_ptr(), T, S,
-        page_table.shape[1], Dl, v_dim, latent.shape[1], page_offset, scale,
-        build.DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    ptrs = (q.data_ptr(), latent.data_ptr(), cu_q_lens.data_ptr(),
+            kv_lens.data_ptr(), page_table.data_ptr(), out.data_ptr())
+    dims = (page_table.shape[1], Dl, v_dim, latent.shape[1], page_offset)
+    codes = (build.DTYPE_CODES[q.dtype], cache_code(latent),
+             torch.cuda.current_stream().cuda_stream)
+    if unified:
+        chunk, num_splits, part = split_plan(q, latent, page_table, v_dim,
+                                             MLA_BLOCKS_PER_SM)
+        rc = build.kernel("mla_unified_attention")(
+            *ptrs, data_ptr(part), T, S, *dims, chunk, num_splits, scale,
+            *codes)
+    else:
+        rc = build.kernel("mla_ragged_attention")(*ptrs, T, S, *dims, scale,
+                                                  *codes)
     build.check(rc, "ragged_paged_attention")
-    ragged_paged_attention.launches["ragged_paged_attention_mla"] += 1
+    ragged_paged_attention.launches[kernel_name(unified, True, latent)] += 1
     return out
 
 
-# launches by kernel: (unified, int8 cache) → K1, K1q, K1u, K1u over int8;
-# and K1m over an MLA latent cache
-KERNELS = {(False, False): "ragged_paged_attention",
-           (False, True): "ragged_paged_attention_int8",
-           (True, False): "ragged_paged_attention_unified",
-           (True, True): "ragged_paged_attention_unified_int8"}
-ragged_paged_attention.launches = dict.fromkeys(
-    list(KERNELS.values()) + ["ragged_paged_attention_mla"], 0)
+def kernel_name(unified: bool, mla: bool, cache) -> str:
+    """The launch counter of a mode: K1 (``ragged_paged_attention``), K1u
+    (``_unified``), K1m (``_mla``), K1um (``_unified_mla``), each over a
+    full-precision cache or, with the suffix ``_int8`` (not MLA) or
+    ``_fp8``, a one-byte one."""
+    return ("ragged_paged_attention" + "_unified" * unified + "_mla" * mla
+            + cache_suffix(cache))
+
+
+ragged_paged_attention.launches = {
+    "ragged_paged_attention" + u + m + c: 0
+    for u in ("", "_unified") for m in ("", "_mla")
+    for c in ("", "_int8", "_fp8") if not (m and c == "_int8")}

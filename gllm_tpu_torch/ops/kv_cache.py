@@ -5,7 +5,8 @@ latent scatter of ``gllm_tpu/models/deepseek.py:346-356``).
 Layout: [num_pages, page_size, num_kv_heads, head_dim] per K/V, or one
 [num_pages, page_size, width] latent cache (MLA); flat slot = page_id *
 page_size + offset. Slots of page 0 (the dummy page) absorb the writes of
-padded tokens.
+padded tokens. A full-precision or fp8 cache is written with one cast
+(``to_cache``), as the JAX package's ``astype``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,34 @@ import torch
 # x' = q * scale. -128 is never produced (clip to ±127), so the grid is
 # symmetric and the rescale-on-grow pass cannot overflow.
 QMAX = 127.0
+
+FP8 = torch.float8_e4m3fn
+# e4m3's largest finite value is 448; |x| above 464 (the midpoint to the
+# next step, 480, which e4m3 lacks) is NaN under the JAX package's
+# ``astype`` (ml_dtypes), while torch's cast saturates to ±448
+FP8_NAN_ABOVE = 464.0
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to a cache's dtype as the JAX package casts it. For fp8
+    the result is the bytes as ``torch.uint8`` (``index_copy_`` takes no
+    fp8 on the CPU): straight from x's own dtype (a float32 model's keys
+    round once), with |x| > 464 made NaN before the cast (its sign bit may
+    differ from JAX's NaN; every reader widens it to NaN). No host sync."""
+    if dtype != FP8:
+        return x.to(dtype)
+    x = x.masked_fill(x.abs() > FP8_NAN_ABOVE, float("nan"))
+    return x.to(FP8).view(torch.uint8)
+
+
+def _scatter(flat: torch.Tensor, idx: torch.Tensor,
+             rows: torch.Tensor) -> None:
+    """``flat.index_copy_(0, idx, rows)`` with ``rows`` cast by
+    ``to_cache``; an fp8 cache is written through its bytes."""
+    rows = to_cache(rows, flat.dtype)
+    if flat.dtype == FP8:
+        flat = flat.view(torch.uint8)
+    flat.index_copy_(0, idx, rows)
 
 
 def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -37,10 +66,8 @@ def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
     """
     num_pages, page_size, hkv, d = k_cache.shape
     idx = slot_mapping.long()
-    k_cache.view(num_pages * page_size, hkv, d).index_copy_(
-        0, idx, k.to(k_cache.dtype))
-    v_cache.view(num_pages * page_size, hkv, d).index_copy_(
-        0, idx, v.to(v_cache.dtype))
+    _scatter(k_cache.view(num_pages * page_size, hkv, d), idx, k)
+    _scatter(v_cache.view(num_pages * page_size, hkv, d), idx, v)
 
 
 def _quant_write_one(cache, scale, rows, slots, pages) -> None:
@@ -108,5 +135,5 @@ def write_latent(latent: torch.Tensor, rows: torch.Tensor,
                   row, as in ``write_kv``)
     """
     num_pages, page_size, width = latent.shape
-    latent.view(num_pages * page_size, width).index_copy_(
-        0, slot_mapping.long(), rows.to(latent.dtype))
+    _scatter(latent.view(num_pages * page_size, width), slot_mapping.long(),
+             rows)

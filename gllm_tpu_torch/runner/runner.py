@@ -38,7 +38,8 @@ from gllm_tpu_torch.utils import cdiv
 logger = logging.getLogger(__name__)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
-          "float32": torch.float32, "int8": torch.int8}
+          "float32": torch.float32, "int8": torch.int8,
+          "fp8": torch.float8_e4m3fn}
 
 # Device memory kept free for a step's activations at the largest batch
 # shape (the JAX runner keeps the same 512 MB).
@@ -103,7 +104,8 @@ class ModelRunner:
 
     def kv_bytes_per_page(self) -> int:
         """Device bytes of one page across the layers: K and V (and an int8
-        page's scale rows), or one MLA latent row per token and layer."""
+        page's scale rows), or one MLA latent row per token and layer, at
+        the cache dtype's element size (one byte for int8 and fp8)."""
         return self.model.kv_bytes_per_page(
             self.model_cfg, self.config.cache.page_size, self.kv_dtype)
 
@@ -127,6 +129,9 @@ class ModelRunner:
         pools."""
         if self.device.type != "cuda":
             return 2048               # CPU: modest default
+        # blocks the caching allocator holds unused (the weight init's
+        # temporaries) count as free
+        torch.cuda.empty_cache()
         free, total = torch.cuda.mem_get_info(self.device)
         budget = (total * self.config.cache.memory_util - (total - free)
                   - self.activation_headroom())

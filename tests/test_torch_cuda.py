@@ -3,7 +3,9 @@ ragged (K1, and K1q over an int8 cache), decode (K2, K2q), unified (K1u
 over either cache), the MLA modes over a latent cache (K1m, K2m), K1 and
 K2 at head_dim 256 and the gated-delta-rule chunk scan (K3), then the
 engines (Llama-shaped, DeepSeek-shaped and hybrid) on the card against the
-CPU.
+CPU; then the fp8 cache in every attention kernel, the unified step over
+a latent cache (K1um), the fp8 write against the CPU's bytes, and the
+engines over an fp8 cache or under the unified MLA step.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; run
 them on the card with
@@ -342,11 +344,11 @@ def test_new_wrapper_arguments_count_and_refuse(cuda_device):
                                 v_scale=vs, unified=True)
     trag.ragged_paged_attention(q, kc.float(), vc.float(), *md, scale=0.2,
                                 unified=True)
-    assert {k: counts[k] - before[k] for k in counts} == {
-        "ragged_paged_attention": 0, "ragged_paged_attention_int8": 1,
+    assert {k: counts[k] - before[k] for k in counts
+            if counts[k] != before[k]} == {
+        "ragged_paged_attention_int8": 1,
         "ragged_paged_attention_unified": 1,
-        "ragged_paged_attention_unified_int8": 1,
-        "ragged_paged_attention_mla": 0}
+        "ragged_paged_attention_unified_int8": 1}
     d0 = dict(tdec.paged_decode_attention.launches)
     dq = q[:5].contiguous()
     tdec.paged_decode_attention(dq, kc, vc, kvl[:5].contiguous(),
@@ -476,7 +478,11 @@ def test_engine_on_card_matches_cpu_greedy(cuda_device):
                                 "paged_decode_attention_int8")),
     (dict(unified_step=True), ("ragged_paged_attention_unified",)),
     (dict(unified_step=True, cache_dtype="int8"),
-     ("ragged_paged_attention_unified_int8",))])
+     ("ragged_paged_attention_unified_int8",)),
+    (dict(cache_dtype="fp8"), ("ragged_paged_attention_fp8",
+                               "paged_decode_attention_fp8")),
+    (dict(unified_step=True, cache_dtype="fp8"),
+     ("ragged_paged_attention_unified_fp8",))])
 def test_int8_and_unified_engines_on_card_match_cpu_greedy(cuda_device, cfg,
                                                           kernels):
     """The same float32 weights through the card and the CPU with an int8
@@ -649,17 +655,29 @@ def test_mla_wrappers_count_offset_and_refuse(cuda_device):
     with pytest.raises(NotImplementedError, match="v_dim"):
         tdec.paged_decode_attention(dq, stack, None, kvl, pt, scale=0.2,
                                     v_dim=32)
-    with pytest.raises(NotImplementedError, match="unified"):
+    # the unified step's MLA kernel (K1um) at the same offset
+    got = trag.ragged_paged_attention(q, stack, None, cu, kvl, pt, scale=0.2,
+                                      page_offset=P, v_dim=64, unified=True)
+    want = trag.ragged_paged_attention_plain(q, stack[P:], None, cu, kvl, pt,
+                                             scale=0.2, v_dim=64,
+                                             unified=True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert trag.ragged_paged_attention.launches[
+        "ragged_paged_attention_unified_mla"] == r0[
+        "ragged_paged_attention_unified_mla"] + 1
+    with pytest.raises(NotImplementedError, match="int8"):
         trag.ragged_paged_attention(q, stack, None, cu, kvl, pt, scale=0.2,
-                                    v_dim=64, unified=True)
+                                    v_dim=64, unified=True,
+                                    k_scale=kvl.float(), v_scale=kvl.float())
     with pytest.raises(ValueError, match="dtype"):
         trag.ragged_paged_attention(q.bfloat16(), stack, None, cu, kvl, pt,
                                     scale=0.2, v_dim=64)
 
 
-def _deepseek_engine(device, params=None):
+def _deepseek_engine(device, params=None, kv_cache_dtype="auto", **cfg):
     """A 2-layer DeepSeek-V2-shaped model (one dense layer, one MoE layer)
-    at the MLA kernels' small geometry: 16 heads, latent 64 + 32."""
+    at the MLA kernels' small geometry: 16 heads, latent 64 + 32; ``cfg``
+    adds EngineConfig keywords."""
     import gllm_tpu_torch as gt
     mc = gt.from_hf_config(dict(
         architectures=["DeepseekV2ForCausalLM"], vocab_size=1000,
@@ -673,7 +691,8 @@ def _deepseek_engine(device, params=None):
     ec = gt.EngineConfig(
         dtype="float32", load_format="dummy", max_model_len=512,
         scheduler=gt.SchedulerConfig(max_prefill_tokens=48),
-        cache=gt.CacheConfig(page_size=16, num_pages=64))
+        cache=gt.CacheConfig(page_size=16, num_pages=64,
+                             kv_cache_dtype=kv_cache_dtype), **cfg)
     return gt.LLM(model_cfg=mc, config=ec, params=params, device=device)
 
 
@@ -859,7 +878,7 @@ def test_gdn_scan_wrapper_refuses(cuda_device):
 
 # ---- the hybrid family ----------------------------------------------------
 
-def _hybrid_engine(device, params=None):
+def _hybrid_engine(device, params=None, kv_cache_dtype="auto"):
     """One period of Qwen3-Next's layers (three GDN, one gated full
     attention) at small widths K3 and K1/K2 take: GDN Dk = Dv = 32, head
     dim 64, two routed experts and a shared one."""
@@ -878,7 +897,8 @@ def _hybrid_engine(device, params=None):
     ec = gt.EngineConfig(
         dtype="float32", load_format="dummy", max_model_len=512,
         max_num_seqs=8, scheduler=gt.SchedulerConfig(max_prefill_tokens=48),
-        cache=gt.CacheConfig(page_size=16, num_pages=64))
+        cache=gt.CacheConfig(page_size=16, num_pages=64,
+                             kv_cache_dtype=kv_cache_dtype))
     return gt.LLM(model_cfg=mc, config=ec, params=params, device=device)
 
 
@@ -960,5 +980,326 @@ def test_hybrid_layers_make_no_host_sync(cuda_device, kind):
         out = moe.moe_mlp(mlp, out, cfg)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == (T, cfg.hidden_size)
+    assert torch.isfinite(out.float()).all()
+
+
+# ---- the fp8 (e4m3) cache in every attention kernel, and K1um -------------
+
+FP8 = torch.float8_e4m3fn
+
+
+def _fp8_on_card(device, dtype, q, kc, vc, *index):
+    """q in ``dtype`` and fp8 caches of kc, vc on the card: the kernels'
+    caches hold NaN bytes in the dummy page 0, which no kernel may read;
+    the plain version's hold zeros there. Returns (q, index, kernel
+    caches, plain caches)."""
+    q = torch.from_numpy(q).to(device, dtype)
+    index = [torch.from_numpy(a).to(device) for a in index]
+    kern, clean = [], []
+    for c in (kc, vc):
+        c = torch.from_numpy(c).to(device).to(FP8)
+        dirty = c.clone()
+        dirty.view(torch.uint8)[0] = 0x7F
+        c.view(torch.uint8)[0] = 0
+        kern.append(dirty)
+        clean.append(c)
+    return q, index, kern, clean
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [RAGGED_CASES[2], RAGGED_CASES[3],
+                                  MAIN_PATH_RAGGED, D256_RAGGED_CASES[0]])
+def test_ragged_fp8_kernel_matches_plain(cuda_device, case, dtype):
+    rng = np.random.default_rng(33)
+    q, kc, vc, cu, kvl, pt = ragged_case(
+        rng, case["seqs"], case["Hq"], case["Hkv"], case["D"],
+        case["page"], case["pages"], case.get("pad_seqs", 0),
+        case.get("pad_tokens", 0))
+    q, idx, kern, clean = _fp8_on_card(cuda_device, dtype, q, kc, vc, cu,
+                                       kvl, pt)
+    n0 = trag.ragged_paged_attention.launches["ragged_paged_attention_fp8"]
+    out = trag.ragged_paged_attention(q, *kern, *idx,
+                                      scale=case["D"] ** -0.5)
+    want = trag.ragged_paged_attention_plain(q, *clean, *idx,
+                                             scale=case["D"] ** -0.5)
+    _check(out, want, dtype)
+    assert trag.ragged_paged_attention.launches[
+        "ragged_paged_attention_fp8"] == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [
+    DECODE_CASES[1], DECODE_CASES[2], D256_DECODE_CASES[1],
+    dict(kv_lens=[int(x) for x in
+                  np.random.default_rng(0).integers(256, 2048, 32)],
+         Hq=32, Hkv=8, D=64, page=16, pages=4200)])
+def test_decode_fp8_kernel_matches_plain(cuda_device, case, dtype):
+    rng = np.random.default_rng(34)
+    q, kc, vc, kvl, pt = decode_case(rng, case["kv_lens"], case["Hq"],
+                                     case["Hkv"], case["D"], case["page"],
+                                     case["pages"])
+    q, idx, kern, clean = _fp8_on_card(cuda_device, dtype, q, kc, vc, kvl,
+                                       pt)
+    n0 = tdec.paged_decode_attention.launches["paged_decode_attention_fp8"]
+    out = tdec.paged_decode_attention(q, *kern, *idx,
+                                      scale=case["D"] ** -0.5)
+    want = tdec.paged_decode_attention_plain(q, *clean, *idx,
+                                             scale=case["D"] ** -0.5)
+    _check(out, want, dtype)
+    assert tdec.paged_decode_attention.launches[
+        "paged_decode_attention_fp8"] == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", UNIFIED_CARD_CASES)
+def test_unified_fp8_kernel_matches_plain(cuda_device, case, dtype):
+    rng = np.random.default_rng(35)
+    q, kc, vc, _, _, cu, kvl, pt = unified_case(
+        rng, case, False, case["Hq"], case["Hkv"], case["D"], case["page"],
+        case["pages"])
+    q, idx, kern, clean = _fp8_on_card(cuda_device, dtype, q, kc, vc, cu,
+                                       kvl, pt)
+    scale = case["D"] ** -0.5
+    out = trag.ragged_paged_attention(q, *kern, *idx, scale=scale,
+                                      unified=True)
+    want = trag.ragged_paged_attention_plain(q, *clean, *idx, scale=scale,
+                                             unified=True)
+    _check(out, want, dtype)
+
+
+def _one_token_rows(seqs, pad_seqs, device):
+    """1 for each one-token row of a batch (0 for padding rows): subtracted
+    from kv_lens, it drops the last key of every such row."""
+    return torch.tensor([int(ql == 1) for ql, _ in seqs] + [0] * pad_seqs,
+                        dtype=torch.int32, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("latent", ["fp", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", MLA_RAGGED_CARD_CASES)
+def test_mla_ragged_kernels_over_fp8_and_unified(cuda_device, case, dtype,
+                                                 latent):
+    """K1m over an fp8 latent, and K1um (the unified step's MLA kernel)
+    over either latent, on the ragged MLA cases (decode rows in front,
+    one-token rows after chunks, padding)."""
+    rng = np.random.default_rng(36)
+    q, lat, _, cu, kvl, pt = ragged_case(
+        rng, case["seqs"], 16, 1, case["Dl"], case["page"], case["pages"],
+        case.get("pad_seqs", 0), case.get("pad_tokens", 0))
+    if latent == "fp8":
+        q, idx, (lat_k, _), (lat_c, _) = _fp8_on_card(
+            cuda_device, dtype, q, lat, lat, cu, kvl, pt)
+    else:
+        q, idx, kern, clean = _on_card(cuda_device, dtype, q, lat, lat, None,
+                                       None, cu, kvl, pt)
+        lat_k, lat_c = kern["k_cache"], clean["k_cache"]
+    kw = dict(cu_q_lens=idx[0], page_table=idx[2],
+              scale=2.0 * case["Dl"] ** -0.5, v_dim=case["Dv"])
+    drop = idx[1] - _one_token_rows(case["seqs"], case.get("pad_seqs", 0),
+                                    cuda_device)
+    for unified in ((False, True) if latent == "fp8" else (True,)):
+        name = trag.kernel_name(unified, True, lat_k)
+        n0 = trag.ragged_paged_attention.launches[name]
+        out = trag.ragged_paged_attention(q, lat_k, None, kv_lens=idx[1],
+                                          unified=unified, **kw)
+        want = trag.ragged_paged_attention_plain(
+            q, lat_c, None, kv_lens=idx[1], unified=unified, **kw)
+        dropped = trag.ragged_paged_attention_plain(
+            q, lat_c, None, kv_lens=drop, unified=unified, **kw)
+        assert out.shape == (q.shape[0], 16, case["Dv"])
+        _mla_check(out, want, dropped, dtype)
+        assert trag.ragged_paged_attention.launches[name] == n0 + 1
+
+
+# the unified MLA cases: UNIFIED_CASES at the small latent geometry, and
+# the main path's pure-decode batch at DeepSeek-V2-Lite's
+MLA_UNIFIED_CARD_CASES = [
+    dict(UNIFIED_CASES[n], Dl=96, Dv=64, page=4, pages=64)
+    for n in UNIFIED_CASES] + [
+    dict(seqs=[(1, int(x)) for x in
+               np.random.default_rng(0).integers(256, 2048, 32)],
+         Dl=576, Dv=512, page=16, pages=4200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("latent", ["fp", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", MLA_UNIFIED_CARD_CASES)
+def test_mla_unified_kernel_matches_plain(cuda_device, case, dtype, latent):
+    rng = np.random.default_rng(37)
+    q, lat, _, cu, kvl, pt = ragged_case(
+        rng, case["seqs"], 16, 1, case["Dl"], case["page"], case["pages"],
+        case.get("pad_seqs", 0), case.get("pad_tokens", 0))
+    if latent == "fp8":
+        q, idx, (lat_k, _), (lat_c, _) = _fp8_on_card(
+            cuda_device, dtype, q, lat, lat, cu, kvl, pt)
+    else:
+        q, idx, kern, clean = _on_card(cuda_device, dtype, q, lat, lat, None,
+                                       None, cu, kvl, pt)
+        lat_k, lat_c = kern["k_cache"], clean["k_cache"]
+    kw = dict(cu_q_lens=idx[0], page_table=idx[2], unified=True,
+              scale=2.0 * case["Dl"] ** -0.5, v_dim=case["Dv"])
+    drop = idx[1] - _one_token_rows(case["seqs"], case.get("pad_seqs", 0),
+                                    cuda_device)
+    out = trag.ragged_paged_attention(q, lat_k, None, kv_lens=idx[1], **kw)
+    want = trag.ragged_paged_attention_plain(q, lat_c, None, kv_lens=idx[1],
+                                             **kw)
+    dropped = trag.ragged_paged_attention_plain(q, lat_c, None,
+                                                kv_lens=drop, **kw)
+    _mla_check(out, want, dropped, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", MLA_DECODE_CARD_CASES)
+def test_mla_decode_fp8_kernel_matches_plain(cuda_device, case, dtype):
+    rng = np.random.default_rng(38)
+    q, lat, _, kvl, pt = decode_case(rng, case["kv_lens"], 16, 1, case["Dl"],
+                                     case["page"], case["pages"])
+    q, idx, (lat_k, _), (lat_c, _) = _fp8_on_card(cuda_device, dtype, q, lat,
+                                                  lat, kvl, pt)
+    kw = dict(page_table=idx[1], scale=2.0 * case["Dl"] ** -0.5,
+              v_dim=case["Dv"])
+    n0 = tdec.paged_decode_attention.launches["paged_decode_attention_mla_fp8"]
+    out = tdec.paged_decode_attention(q, lat_k, None, kv_lens=idx[0], **kw)
+    want = tdec.paged_decode_attention_plain(q, lat_c, None, kv_lens=idx[0],
+                                             **kw)
+    dropped = tdec.paged_decode_attention_plain(
+        q, lat_c, None, kv_lens=idx[0] - (idx[0] > 0).int(), **kw)
+    _mla_check(out, want, dropped, dtype)
+    assert tdec.paged_decode_attention.launches[
+        "paged_decode_attention_mla_fp8"] == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fp8_write_on_card_gives_the_cpu_bytes(cuda_device, dtype):
+    """The write path's cast on the card against the CPU's (which the CPU
+    tests hold to the JAX package's bytes), over e4m3's edge: NaN past
+    464, 448 at and below it, subnormals; NaN compared as NaN."""
+    from gllm_tpu_torch.ops.kv_cache import write_kv, write_latent
+    rng = np.random.default_rng(39)
+    edge = [463.9, 464.0, 464.1, 470.0, 479.9, 480.0, 1e30, np.inf,
+            -480.0, -np.inf, 448.0, -448.0, 0.0, -0.0, 2.0 ** -9,
+            2.0 ** -10, 1e-9]
+    rows = (rng.standard_normal((9, 2, 16))
+            * np.exp2(rng.integers(-12, 7, (9, 2, 16)))).astype(np.float32)
+    rows.reshape(9, -1)[0, :len(edge)] = edge
+    slots = torch.tensor([5, 6, 7, 8, 13, 22, 23, 0, 1], dtype=torch.int32)
+    out = []
+    for device in ("cpu", cuda_device):
+        x = torch.from_numpy(rows).to(device, dtype)
+        k = torch.zeros((6, 4, 2, 16), dtype=FP8, device=device)
+        v = torch.zeros_like(k)
+        lat = torch.zeros((6, 4, 32), dtype=FP8, device=device)
+        write_kv(k, v, x, -x, slots.to(device))
+        write_latent(lat, x.reshape(9, 32), slots.to(device))
+        out.append([t.view(torch.uint8).cpu().numpy() for t in (k, v, lat)])
+    for cpu, card in zip(*out):
+        nan_cpu, nan_card = (cpu & 0x7F) == 0x7F, (card & 0x7F) == 0x7F
+        np.testing.assert_array_equal(nan_card, nan_cpu)
+        np.testing.assert_array_equal(card[~nan_card], cpu[~nan_cpu])
+        assert nan_cpu.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,cfg,kernels", [
+    ("deepseek", dict(unified_step=True),
+     {"ragged_paged_attention_unified_mla"}),
+    ("deepseek", dict(kv_cache_dtype="fp8"),
+     {"ragged_paged_attention_mla_fp8", "paged_decode_attention_mla_fp8"}),
+    ("deepseek", dict(unified_step=True, kv_cache_dtype="fp8"),
+     {"ragged_paged_attention_unified_mla_fp8"}),
+    ("hybrid", dict(kv_cache_dtype="fp8"),
+     {"ragged_paged_attention_fp8", "paged_decode_attention_fp8",
+      "gdn_chunk_scan"})])
+def test_fp8_and_unified_mla_engines_on_card_match_cpu_greedy(
+        cuda_device, family, cfg, kernels):
+    """The same float32 DeepSeek or hybrid weights through the card and the
+    CPU under the unified step, over an fp8 cache, or both: the same
+    greedy tokens, and only the configuration's kernels launched."""
+    import gllm_tpu_torch as gt
+    make = _deepseek_engine if family == "deepseek" else _hybrid_engine
+    card = make(cuda_device, **cfg)
+    cpu = make("cpu", params=_to_cpu(card.runner.params), **cfg)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 1000, n).tolist() for n in (7, 60, 23, 100)]
+    sp = gt.SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+    counters = (trag.ragged_paged_attention.launches,
+                tdec.paged_decode_attention.launches,
+                tscan.gdn_chunk_scan.launches)
+    before = {k: n for c in counters for k, n in c.items()}
+    got = [o.output_token_ids for o in card.generate(
+        prompt_token_ids=prompts, sampling_params=sp)]
+    want = [o.output_token_ids for o in cpu.generate(
+        prompt_token_ids=prompts, sampling_params=sp)]
+    assert got == want
+    assert {k for c in counters for k, n in c.items()
+            if n > before[k]} == kernels
+    mm = card.memory_manager
+    assert mm.num_free_pages == mm.allocator.num_total
+
+
+@pytest.mark.cuda
+def test_deepseek_unified_layer_makes_no_host_sync(cuda_device):
+    """A bf16 MLA layer under the unified step (the latent write and K1um
+    on a mixed batch: decode rows, then a chunk) runs under sync-debug
+    mode "error": a host sync raises."""
+    from gllm_tpu_torch.batching import StepBatch
+    from gllm_tpu_torch.models import deepseek
+    from gllm_tpu_torch.ops.attention import AttentionMetadata
+    from gllm_tpu_torch.ops.rope import yarn_softmax_scale_mult
+    card = _deepseek_engine(cuda_device, unified_step=True)
+    cfg = card.model_cfg
+    lp = {k: v[0].bfloat16() for k, v in
+          card.runner.params["dense_layers"].items()}
+    latent = card.runner.kv.latent.bfloat16()
+    L, P, page, width = latent.shape
+    flat = latent.view(L * P, page, width)
+    lens, before = [1, 1, 37], [20, 5, 0]
+    T = sum(lens)
+    kvl = [b + n for b, n in zip(before, lens)]
+    pages = [list(range(1 + 4 * i, 1 + 4 * i + -(-k // page)))
+             for i, k in enumerate(kvl)]
+    pt = torch.zeros((3, max(map(len, pages))), dtype=torch.int32)
+    for i, p in enumerate(pages):
+        pt[i, :len(p)] = torch.tensor(p)
+    pos = torch.cat([torch.arange(b, b + n) for b, n in zip(before, lens)])
+    slots = torch.tensor([pages[i][int(x) // page] * page + int(x) % page
+                          for i, (b, n) in enumerate(zip(before, lens))
+                          for x in range(b, b + n)])
+    dev = dict(device=cuda_device, dtype=torch.int32)
+    batch = StepBatch(
+        token_ids=None, positions=pos.to(**dev),
+        slot_mapping=slots.to(**dev), logits_indices=None,
+        attn=AttentionMetadata(
+            cu_q_lens=torch.tensor(np.cumsum([0] + lens), **dev),
+            kv_lens=torch.tensor(kvl, **dev), page_table=pt.to(cuda_device)),
+        sampling=None)
+    x = torch.randn((T, cfg.hidden_size), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0)
+                    ).bfloat16()
+    scale = ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+             * yarn_softmax_scale_mult(cfg.rope_scaling))
+    kw = dict(scale=scale, max_q_len=max(lens), li=0)
+    deepseek._mla_attention(lp, x, batch, flat, cfg, card.runner.cos_sin,
+                            impl="unified", **kw)     # builds, warms up
+    n0 = trag.ragged_paged_attention.launches[
+        "ragged_paged_attention_unified_mla"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = deepseek._mla_attention(lp, x, batch, flat, cfg,
+                                      card.runner.cos_sin, impl="unified",
+                                      **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert trag.ragged_paged_attention.launches[
+        "ragged_paged_attention_unified_mla"] == n0 + 1
     assert out.shape == (T, cfg.hidden_size)
     assert torch.isfinite(out.float()).all()

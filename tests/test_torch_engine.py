@@ -202,20 +202,27 @@ def test_no_device_means_the_card(monkeypatch):
     ("overlap_scheduling", True), ("pipelined_loop", True),
     ("decode_slot_batching", True), ("spec_decode", "ngram"),
     ("quantization", "int8"), ("ondevice_finish", True),
-    ("kv_cache_dtype", "fp8"), ("kv_cache_dtype", "float32"), ("tp", 2), ("pp", 2), ("dp", 2), ("sp", 2),
-    ("kv_host_pool_gb", 1.0), ("kv_disk_path", "/x"),
-    # options an MLA latent cache does not take (the model rides the field)
-    ("mla:kv_cache_dtype", "int8"), ("mla:unified_step", True)])
+    ("kv_cache_dtype", "float32"), ("tp", 2), ("pp", 2), ("dp", 2),
+    ("sp", 2), ("kv_host_pool_gb", 1.0), ("kv_disk_path", "/x"),
+    # options a model family does not take (the family rides the field):
+    # an MLA latent cache takes no int8, a hybrid model neither, nor the
+    # unified step
+    ("mla:kv_cache_dtype", "int8"), ("hybrid:kv_cache_dtype", "int8"),
+    ("hybrid:unified_step", True)])
 def test_validate_refuses_unported_options(field, value):
     cfg = gt.EngineConfig()
-    mla = field.startswith("mla:")
-    field = field.removeprefix("mla:")
+    family, _, field = field.rpartition(":")
     for target in (cfg, cfg.cache, cfg.parallel):
         if hasattr(target, field):
             setattr(target, field, value)
             break
-    model = gt.ModelConfig(**dict(MODEL, **MLA)) if mla else None
-    if mla:
+    model = None
+    if family == "mla":
+        model = gt.ModelConfig(**dict(MODEL, **MLA))
+    elif family == "hybrid":
+        from test_torch_gdn import HF
+        model = gt.from_hf_config(HF)
+    if family:
         cfg.validate()           # the option alone is taken
     with pytest.raises(NotImplementedError):
         cfg.validate(model)

@@ -11,7 +11,8 @@ JAX package, on the CPU at float32.
   ``models/convert.py``).
 - Greedy ``LLM.generate`` token-identical to the JAX ``LLM`` on ``xla`` and
   on ``pallas`` (interpret), with and without ``q_lora_rank``, through a
-  preemption.
+  preemption; the engine refuses an int8 latent and builds the unified
+  step (its streams: tests/test_torch_fp8.py).
 The CUDA kernels are held against these plain versions on the card in
 tests/test_torch_cuda.py.
 """
@@ -163,9 +164,17 @@ def test_mla_dispatch_and_refusals():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     with pytest.raises(ValueError, match="v_dim"):
         tattn.paged_attention(q, lat, None, meta, scale=0.2, max_q_len=7)
-    with pytest.raises(NotImplementedError, match="unified"):
+    # the unified step takes a latent cache too (K1um's plain version)
+    got = tattn.paged_attention(q, lat, None, meta, scale=0.2, max_q_len=7,
+                                v_dim=32, impl="unified")
+    want = trag.ragged_paged_attention_plain(q, lat, None, cu, kvl, pt,
+                                             scale=0.2, v_dim=32,
+                                             unified=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="int8"):
         tattn.paged_attention(q, lat, None, meta, scale=0.2, max_q_len=7,
-                              v_dim=32, impl="unified")
+                              v_dim=32, k_scale=torch.ones(24, 1),
+                              v_scale=torch.ones(24, 1))
     # the MLA kernels take 16 query heads and two latent geometries
     check_mla_geometry(16, 576, 512)
     check_mla_geometry(16, 96, 64)
@@ -324,10 +333,13 @@ def test_greedy_generate_token_identical_to_jax(impl, q_lora):
         assert tllm.scheduler.num_preemptions > 0
 
 
-def test_mla_engine_refuses_int8_and_the_unified_step():
+def test_mla_engine_refuses_int8_and_builds_the_unified_step():
     _, tmc = _configs(V2)
-    for kw in (dict(cache=gt.CacheConfig(kv_cache_dtype="int8")),
-               dict(unified_step=True)):
-        with pytest.raises(NotImplementedError, match="MLA"):
-            gt.LLM(config=gt.EngineConfig(dtype="float32", **kw),
-                   model_cfg=tmc, device="cpu")
+    with pytest.raises(NotImplementedError, match="MLA"):
+        gt.LLM(config=gt.EngineConfig(
+            dtype="float32", cache=gt.CacheConfig(kv_cache_dtype="int8")),
+            model_cfg=tmc, device="cpu")
+    llm = gt.LLM(config=gt.EngineConfig(dtype="float32", unified_step=True,
+                                        cache=gt.CacheConfig(num_pages=16)),
+                 model_cfg=tmc, device="cpu")
+    assert llm.runner.attn_impl == "unified"
