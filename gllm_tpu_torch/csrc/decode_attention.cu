@@ -13,9 +13,11 @@
 // scales are null but for int8),
 // kv_lens [S] i32, page_table [S, max_pages] i32, out [S, Hq, D]; all
 // contiguous on one device. Each split covers `chunk` keys (a multiple of
-// 32) and num_splits * chunk >= max_pages * page; `part` is float32 scratch
-// of S * Hq * num_splits * (D + 2) elements (unused, and may be null, when
-// num_splits == 1). Returns cudaGetLastError() after the launches.
+// 32, spanning at most 255 pages) and num_splits * chunk >= max_pages *
+// page; `part` is scratch of kCounterSlots int32 split counters, zero and
+// left zero, then S * Hq * num_splits * (D + 2) float32 partials (unused,
+// and may be null, when num_splits == 1). Returns cudaGetLastError() after
+// the launches.
 extern "C" int gllm_decode_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* kv_lens,

@@ -20,33 +20,31 @@
 // float32 accumulators): the 16 query heads of one token are exactly the
 // m16 of one MMA row group.
 //
-// Design (bf16 / fp16). A block holds RG row groups of 16 rows (one token's
-// 16 heads each): RG = 1 in decode mode (one token, one split of its keys
-// per block, the splits merged by decode_merge_kernel), RG = 4 in ragged
-// mode (four tokens of one sequence, found from cu_q_lens by locate_block,
+// Design (bf16 / fp16), ragged mode. A block holds 4 row groups of 16
+// rows (four tokens of one sequence, found from cu_q_lens by locate_block,
 // as the GQA ragged kernel finds its tiles). Each row group has four warps.
 // A 16 x 512 float32 output tile would need 256 accumulator registers in
 // one warp, so the four warps split the output columns (DV / 4 each, 64
 // accumulators a thread) and, for the scores, the keys of each tile (8 of
 // 32 each). The scores go through shared memory: every warp of a row group
-// reads the full 32-key row of P for its slice of P.V. Q (RG*16 x DL) stays
+// reads the full 32-key row of P for its slice of P.V. Q (64 x DL) stays
 // in shared memory for the whole walk; 32-key latent tiles are
-// double-buffered with cp.async. At (576, 512) a ragged block uses 160 KB of
-// shared memory and a decode block 95 KB. float32 runs a plain FMA kernel
-// (one token per block) for the reference paths; the tensor cores take no
-// full-precision float32.
-// fp8 latent (TC = fp8_t, bf16 / fp16 q): ldmatrix reads 16-bit rows, so a
-// tile cannot go from cp.async straight into the layout the fragments
-// take. The one-byte tiles are double-buffered instead (two 32 x DL-byte
-// stages, 36 KB at 576) and each is widened, exactly, into ONE tile of T;
-// dropping the second T tile pays for the staging, so the blocks keep their
-// size (159.5 and 94.3 KB) and occupancy. The FMA kernel widens as it loads.
+// double-buffered with cp.async. At (576, 512) a block uses 160 KB of
+// shared memory. Decode mode has a block of its own (mla_decode_mma_kernel
+// below: one token, one split of its keys, a deeper ring, fewer barriers).
+// float32 runs a plain FMA kernel (one token per block) for the reference
+// paths; the tensor cores take no full-precision float32.
+// fp8 latent in ragged mode (TC = fp8_t, bf16 / fp16 q): ldmatrix reads
+// 16-bit rows, so a tile cannot go from cp.async straight into the layout
+// the fragments take. The one-byte tiles are double-buffered instead (two
+// 32 x DL-byte stages, 36 KB at 576) and each is widened, exactly, into
+// ONE tile of T; the block keeps its size (159.5 KB). The FMA kernel
+// widens as it loads.
 // UNIFIED (K1um, mla_unified_attention.cu): decode blocks run only for the
 // batch's decode prefix and ragged blocks only for the other sequences, as
 // the GQA kernels' unified classes do (paged_kv.cuh).
-// Not yet done: wgmma/TMA, and a decode block that serves several
-// sequences' tokens at once (S = 32 decode rows give 32 one-token blocks
-// per split, so the split count, not the batch, fills the card).
+// Not yet done: wgmma/TMA, and a ragged block that serves more tokens of
+// one sequence.
 #pragma once
 
 #include "decode_attention.cuh"
@@ -57,6 +55,7 @@ namespace gllm {
 constexpr int kMlaHeads = 16;  // query heads over the one latent stream
 constexpr int kMlaKeys = 32;   // keys per latent tile
 constexpr int kMlaQuarters = 4;  // warps per 16-row group
+constexpr int kMlaRaggedGroups = 4;  // ragged mode: tokens (row groups) a block
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile(
@@ -65,15 +64,16 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
       : "r"(smem_addr(p)));
 }
 
-// Shared memory of the tensor-core kernel, in bytes: Q rows, two latent
+// Shared memory of the ragged tensor-core kernel (kMlaRaggedGroups row
+// groups of 16), in bytes: Q rows, two latent
 // tiles of T (one over an fp8 latent; row stride DL + 8 elements:
 // conflict-free ldmatrix), the scores [rows][33] float32, P [rows][40] in
 // T, per row the running max, sum and this tile's rescale factor, and over
 // an fp8 latent two staging tiles of DL bytes a row.
-template <typename T, typename TC, int DL, int RG>
+template <typename T, typename TC, int DL>
 struct MlaSmem {
   static constexpr bool NARROW = sizeof(TC) == 1;
-  static constexpr int ROWS = 16 * RG;
+  static constexpr int ROWS = 16 * kMlaRaggedGroups;
   static constexpr int LD = DL + 8;
   static constexpr int LDS = kMlaKeys + 1;
   static constexpr int LDP = kMlaKeys + 8;
@@ -145,20 +145,19 @@ __device__ __forceinline__ bool mla_locate(const int* cu_q_lens,
 
 // ---- bf16 / fp16: tensor cores ---------------------------------------------
 
-template <typename T, typename TC, int DL, int DV, bool DECODE,
-          bool UNIFIED>
-__global__ void __launch_bounds__(DECODE ? 128 : 512)
-    mla_attention_mma_kernel(const T* __restrict__ q,
-                             const TC* __restrict__ lat,
-                             const int* __restrict__ cu_q_lens,
-                             const int* __restrict__ kv_lens,
-                             const int* __restrict__ page_table,
-                             T* __restrict__ out, float* __restrict__ part,
-                             int num_tokens, int S, int max_pages,
-                             int page_size, int page_offset, int chunk,
-                             int num_splits, float scale_log2) {
-  constexpr int RG = DECODE ? 1 : 4;
-  using SM = MlaSmem<T, TC, DL, RG>;
+template <typename T, typename TC, int DL, int DV, bool UNIFIED>
+__global__ void __launch_bounds__(512)
+    mla_ragged_mma_kernel(const T* __restrict__ q,
+                          const TC* __restrict__ lat,
+                          const int* __restrict__ cu_q_lens,
+                          const int* __restrict__ kv_lens,
+                          const int* __restrict__ page_table,
+                          T* __restrict__ out, float* __restrict__ part,
+                          int num_tokens, int S, int max_pages,
+                          int page_size, int page_offset, int chunk,
+                          int num_splits, float scale_log2) {
+  constexpr int RG = kMlaRaggedGroups;
+  using SM = MlaSmem<T, TC, DL>;
   constexpr bool NARROW = SM::NARROW;
   constexpr int ROWS = SM::ROWS;
   constexpr int LD = SM::LD;
@@ -178,7 +177,7 @@ __global__ void __launch_bounds__(DECODE ? 128 : 512)
   __shared__ int s_seq, s_tile;
 
   int seq, q_start, t_first, n_tok, pos0, j_begin, j_end;
-  if (!mla_locate<T, DV, DECODE, UNIFIED>(
+  if (!mla_locate<T, DV, false, UNIFIED>(
           cu_q_lens, kv_lens, out, S, num_tokens, RG, chunk, num_splits,
           &s_seq, &s_tile, seq, q_start, t_first, n_tok, pos0, j_begin,
           j_end))
@@ -224,8 +223,7 @@ __global__ void __launch_bounds__(DECODE ? 128 : 512)
   const int rg = warp / kMlaQuarters, wq = warp % kMlaQuarters;
   const int g = lane >> 2, t4 = lane & 3;
   const bool live = rg < n_tok;              // warp-uniform
-  // the last key the row group's token sees (decode: the split's end)
-  const int pos = DECODE ? j_end - 1 : pos0 + rg;
+  const int pos = pos0 + rg;  // the last key the row group's token sees
   const int dv0 = wq * DVW;
   float o[NDW][4];
 #pragma unroll
@@ -351,39 +349,412 @@ __global__ void __launch_bounds__(DECODE ? 128 : 512)
 
   if (!live) return;
   const int r0 = rg * 16 + g, r1 = r0 + 8;
-  if (!DECODE || num_splits == 1) {
-    const float inv0 = sl[r0] > 0.f ? 1.f / sl[r0] : 0.f;
-    const float inv1 = sl[r1] > 0.f ? 1.f / sl[r1] : 0.f;
-    T* o0 = out + (row_base + r0) * DV + dv0 + 2 * t4;
-    T* o1 = out + (row_base + r1) * DV + dv0 + 2 * t4;
+  const float inv0 = sl[r0] > 0.f ? 1.f / sl[r0] : 0.f;
+  const float inv1 = sl[r1] > 0.f ? 1.f / sl[r1] : 0.f;
+  T* o0 = out + (row_base + r0) * DV + dv0 + 2 * t4;
+  T* o1 = out + (row_base + r1) * DV + dv0 + 2 * t4;
+#pragma unroll
+  for (int dn = 0; dn < NDW; ++dn) {
+    *reinterpret_cast<uint32_t*>(o0 + dn * 8) =
+        Mma<T>::pack(o[dn][0] * inv0, o[dn][1] * inv0);
+    *reinterpret_cast<uint32_t*>(o1 + dn * 8) =
+        Mma<T>::pack(o[dn][2] * inv1, o[dn][3] * inv1);
+  }
+}
+
+// ---- decode mode, bf16 / fp16: tensor cores ---------------------------------
+//
+// One block per (token, split of `chunk` keys): the token's 16 heads are
+// the 16 rows of every MMA. The block holds GROUPS groups of four warps;
+// group gi takes the split's 32-key tiles gi, gi + GROUPS, ... with its
+// own running softmax state, and the groups' states merge once at the end
+// of the split (two groups over a bf16 / fp16 latent, whose ring leaves
+// room for one block an SM: the second group keeps the SM busy while the
+// first waits at a barrier). In a group, for each tile warp w scores keys
+// 8w .. 8w + 7 over the whole latent row, and then every warp takes all 32
+// keys for its quarter of the DV output columns. The tile's row max and
+// row sums are exchanged through shared memory, so a tile costs three
+// barriers of its group (tile landed; maxima; probabilities: named
+// barriers, one per group), and every warp of a group keeps the same
+// running (max, sum) for its rows. The latent tiles come through a ring
+// of kMlaDecodeStages cp.async stages shared out among the groups, the
+// split's page ids are prefetched, and the splits are sized by the
+// wrapper for one wave of blocks, so a block walks many tiles per Q load.
+// A row with one live split writes its output; otherwise the last split
+// to finish merges the token's splits (merge_if_last).
+// fp8 latent: the bytes are staged and read straight into the fragments
+// (split_kv.cuh: permuted dims for Q.K^T, permuted columns for P.V),
+// widened in registers; Q's rows are then read in the permuted dim order
+// too. bf16 / fp16 latent: ldmatrix, as in ragged mode.
+
+constexpr int kMlaDecodeStages = 4;
+
+template <typename TC>
+struct MlaDecodeGroups {
+  static constexpr int value = sizeof(TC) == 1 ? 1 : 2;
+};
+
+template <typename T, typename TC, int DL, int DV>
+struct MlaDecodeSmem {
+  static constexpr bool NARROW = sizeof(TC) == 1;
+  static constexpr int GROUPS = MlaDecodeGroups<TC>::value;
+  static constexpr int THREADS = 32 * kMlaQuarters * GROUPS;
+  // fp8: rows D + 16 (bytes: an odd multiple of 4 words; Q: 8 mod 32
+  // words); 16-bit: D + 8, as in ragged mode
+  static constexpr int LDK = NARROW ? DL + 16 : DL + 8;
+  static constexpr int LDQ = NARROW ? DL + 16 : DL + 8;
+  static constexpr int LDP = kMlaKeys + 8;
+  static constexpr size_t TILE = (size_t)kMlaKeys * LDK * sizeof(TC);
+  static constexpr size_t Q_OFF = kMlaDecodeStages * TILE;
+  static constexpr size_t P_OFF = Q_OFF + (size_t)kMlaHeads * LDQ * sizeof(T);
+  static constexpr size_t X_OFF =
+      P_OFF + (size_t)GROUPS * kMlaHeads * LDP * sizeof(T);
+  static constexpr size_t PT_OFF =
+      X_OFF + (size_t)GROUPS * 2 * kMlaQuarters * kMlaHeads * sizeof(float);
+  static constexpr size_t BYTES = PT_OFF + kPtSlots * sizeof(int);
+  // at the end of the split: the second group's output and (max, sum)
+  static constexpr size_t MERGE =
+      (size_t)kMlaHeads * (DV + 2) * sizeof(float);
+  static_assert(MERGE <= Q_OFF, "the group merge reuses the ring");
+  static constexpr int BY_SMEM = (int)(233472 / (BYTES + 1024));
+  // a thread holds DV / 8 float32 accumulators: one block of two groups
+  // (255 registers), or of one group 2 blocks at DV 512, 4 below
+  static constexpr int BY_REGS = GROUPS > 1 ? 1 : (DV >= 512 ? 2 : 4);
+  static constexpr int BLOCKS_PER_SM = BY_SMEM < BY_REGS ? BY_SMEM : BY_REGS;
+};
+
+template <typename T, typename TC, int DL, int DV, bool UNIFIED>
+__global__ void __launch_bounds__((MlaDecodeSmem<T, TC, DL, DV>::THREADS),
+                                  (MlaDecodeSmem<T, TC, DL, DV>::BLOCKS_PER_SM))
+    mla_decode_mma_kernel(const T* __restrict__ q, const TC* __restrict__ lat,
+                          const int* __restrict__ cu_q_lens,
+                          const int* __restrict__ kv_lens,
+                          const int* __restrict__ page_table,
+                          T* __restrict__ out, float* __restrict__ part,
+                          int max_pages, int page_size, int page_offset,
+                          int chunk, int num_splits, float scale_log2) {
+  using SM = MlaDecodeSmem<T, TC, DL, DV>;
+  constexpr bool NARROW = SM::NARROW;
+  constexpr int GROUPS = SM::GROUPS;
+  constexpr int SPG = kMlaDecodeStages / GROUPS;  // ring stages a group
+  constexpr int GT = 32 * kMlaQuarters;           // threads a group
+  constexpr int DVW = DV / kMlaQuarters;  // output columns per warp
+  constexpr int NDW = DVW / 8;            // their n-tiles
+  constexpr int NJ = DVW >= 32 ? 4 : 2;   // fp8: n-tiles per column group
+  constexpr int NACC = (DL / 16) % 4 == 0 ? 4 : 2;  // Q.K^T accumulators
+  static_assert(DL % 16 == 0 && DVW % 16 == 0 && DV <= DL, "MLA geometry");
+  static_assert(SPG >= 2, "a group needs a tile in flight");
+  extern __shared__ __align__(16) unsigned char mla_dec_smem[];
+  unsigned char* smem = mla_dec_smem;
+  T* sq = reinterpret_cast<T*>(smem + SM::Q_OFF);
+  int* spt = reinterpret_cast<int*>(smem + SM::PT_OFF);
+
+  const int seq = blockIdx.x, split = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int gi = tid / GT, gtid = tid % GT, warp = gtid / 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  // this group's P [row][key], and its warps' row maxima and sums
+  T* sp = reinterpret_cast<T*>(smem + SM::P_OFF) + gi * kMlaHeads * SM::LDP;
+  float* smax = reinterpret_cast<float*>(smem + SM::X_OFF) +
+                gi * 2 * kMlaQuarters * kMlaHeads;   // [warp][row]
+  float* ssum = smax + kMlaQuarters * kMlaHeads;     // [warp][row]
+  auto group_sync = [&]() {
+    if constexpr (GROUPS == 1)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + gi), "n"(GT));
+  };
+  if constexpr (UNIFIED) {
+    if (!in_decode_prefix(cu_q_lens, seq)) return;  // block-uniform
+  }
+  const int kv_len = kv_lens[seq];
+  const int64_t row0 = (int64_t)seq * kMlaHeads;  // token seq's rows
+  const int j_begin = split * chunk;
+  if (j_begin >= kv_len) {
+    if (split == 0) zero_rows<T, DV>(out, row0, kMlaHeads);  // kv_len == 0
+    return;
+  }
+  const int j_end = min(kv_len, j_begin + chunk);
+  const int n_live = min(num_splits, (kv_len + chunk - 1) / chunk);
+  // Q's rows, in flight while the page ids load
+  constexpr int QCPR = DL / 8;  // 16-byte chunks of a Q row
+  for (int c = tid; c < kMlaHeads * QCPR; c += blockDim.x) {
+    const int r = c / QCPR, col = (c % QCPR) * 8;
+    cp_async16(sq + r * SM::LDQ + col, q + (row0 + r) * DL + col, true);
+  }
+  prefetch_pages(spt, page_table + (int64_t)seq * max_pages, j_begin, j_end,
+                 page_size);
+  // the group's stage s of the ring
+  auto stage = [&](int s) {
+    return reinterpret_cast<TC*>(smem + (gi * SPG + s) * SM::TILE);
+  };
+  // TPR threads of the group copy a latent row (a warp moves whole
+  // 128-byte runs), and each computes the row's address once
+  auto load_tile = [&](int s, int j0) {
+    constexpr int CH = 16 / (int)sizeof(TC);
+    constexpr int CPR = DL / CH;
+    constexpr int TPR = CPR < 8 ? (CPR < 4 ? CPR : 4) : 8;
+    for (int r = gtid / TPR; r < kMlaKeys; r += GT / TPR) {
+      TC* dst = stage(s) + r * SM::LDK;
+      const int j = j0 + r;
+      const bool valid = j < j_end;
+      const int64_t off =
+          valid ? split_row_offset(spt, j, j_begin, page_size, page_offset,
+                                   1, DL, 0)
+                : 0;
+#pragma unroll 3
+      for (int cc = gtid % TPR; cc < CPR; cc += TPR)
+        cp_async16(dst + cc * CH, lat + off + cc * CH, valid);
+    }
+    cp_async_commit();
+  };
+  // the group's k-th tile is the split's tile gi + GROUPS k
+  const int n_tiles = (j_end - j_begin + kMlaKeys - 1) / kMlaKeys;
+  const int n_mine = (n_tiles - gi + GROUPS - 1) / GROUPS;
+  auto tile_j0 = [&](int k) { return j_begin + (gi + GROUPS * k) * kMlaKeys; };
+#pragma unroll
+  for (int k = 0; k < SPG - 1; ++k) {
+    if (k < n_mine)
+      load_tile(k, tile_j0(k));
+    else
+      cp_async_commit();
+  }
+  // Q (copied by every group) and each group's first tile
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(SPG - 2));
+  __syncthreads();
+
+  const int dv0 = warp * DVW;
+  float o[NDW][4];
+#pragma unroll
+  for (int dn = 0; dn < NDW; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int k = 0; k < n_mine; ++k) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(SPG - 2));
+    group_sync();  // tile k landed; the group is done with tile k - 1
+    {
+      const int kn = k + SPG - 1;
+      if (kn < n_mine)
+        load_tile(kn % SPG, tile_j0(kn));
+      else
+        cp_async_commit();
+    }
+    const TC* sk = stage(k % SPG);
+    const int j0 = tile_j0(k);
+
+    // S = Q K^T: 16 rows x this warp's 8 keys, over DL, in NACC
+    // independent accumulators (the DL / 16 MMAs would chain otherwise)
+    float acc[NACC][4];
+#pragma unroll
+    for (int u = 0; u < NACC; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][e] = 0.f;
+    if (j0 + warp * 8 < j_end) {  // warp-uniform
+      const TC* kr = sk + (warp * 8 + g) * SM::LDK;
+#pragma unroll 12
+      for (int kk = 0; kk < DL / 16; ++kk) {
+        uint32_t a[4], b[2];
+        if constexpr (NARROW) {
+          const uint2 r0 = *reinterpret_cast<const uint2*>(
+              sq + g * SM::LDQ + kk * 16 + 4 * t4);
+          const uint2 r8 = *reinterpret_cast<const uint2*>(
+              sq + (g + 8) * SM::LDQ + kk * 16 + 4 * t4);
+          a[0] = r0.x;
+          a[1] = r8.x;
+          a[2] = r0.y;
+          a[3] = r8.y;
+          load_k_frag<T, TC>(b, kr + kk * 16 + 4 * t4);
+        } else {
+          ldmatrix_x4(a, sq + (lane & 15) * SM::LDQ + (lane >> 4) * 8 +
+                             kk * 16);
+          b[0] = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 2 * t4);
+          b[1] = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8 + 2 * t4);
+        }
+        Mma<T>::run(acc[kk % NACC], a, b[0], b[1]);
+      }
+    }
+    float s[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[e] = acc[0][e];
+#pragma unroll
+      for (int u = 1; u < NACC; ++u) s[e] += acc[u][e];
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + warp * 8 + 2 * t4 + (e & 1);
+      s[e] = j < j_end ? s[e] * scale_log2 : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[e]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      if (t4 == 0) smax[warp * kMlaHeads + g + 8 * i] = mx[i];
+    }
+    group_sync();  // the warps' maxima
+
+    // every warp: the tile max of its rows g and g + 8, the new running
+    // max; this warp's 8 probabilities of each row to shared memory
+    float m_use[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kMlaQuarters; ++w)
+        tmax = fmaxf(tmax, smax[w * kMlaHeads + g + 8 * i]);
+      const float m_new = fmaxf(m[i], tmax);  // finite: key j0 is live
+      m_use[i] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = exp2f(m[i] - m_use[i]);  // 0 before the first key
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s[e] - m_use[e >> 1]);
+      sum[e >> 1] += p;
+      sp[(g + 8 * (e >> 1)) * SM::LDP + warp * 8 + 2 * t4 + (e & 1)] =
+          from_float<T>(p);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      if (t4 == 0) ssum[warp * kMlaHeads + g + 8 * i] = sum[i];
+    }
+    group_sync();  // P and the row sums
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float ts = 0.f;
+#pragma unroll
+      for (int w = 0; w < kMlaQuarters; ++w)
+        ts += ssum[w * kMlaHeads + g + 8 * i];
+      l[i] = l[i] * alpha[i] + ts;
+    }
 #pragma unroll
     for (int dn = 0; dn < NDW; ++dn) {
-      *reinterpret_cast<uint32_t*>(o0 + dn * 8) =
-          Mma<T>::pack(o[dn][0] * inv0, o[dn][1] * inv0);
-      *reinterpret_cast<uint32_t*>(o1 + dn * 8) =
-          Mma<T>::pack(o[dn][2] * inv1, o[dn][3] * inv1);
+      o[dn][0] *= alpha[0];
+      o[dn][1] *= alpha[0];
+      o[dn][2] *= alpha[1];
+      o[dn][3] *= alpha[1];
+    }
+    // O += P V on this warp's DV / 4 columns; V is the tile's first DV
+    // columns
+#pragma unroll
+    for (int kk = 0; kk < kMlaKeys / 16; ++kk) {
+      const T* pr = sp + g * SM::LDP + kk * 16 + 2 * t4;
+      const uint32_t pa[4] = {
+          *reinterpret_cast<const uint32_t*>(pr),
+          *reinterpret_cast<const uint32_t*>(pr + 8 * SM::LDP),
+          *reinterpret_cast<const uint32_t*>(pr + 8),
+          *reinterpret_cast<const uint32_t*>(pr + 8 * SM::LDP + 8)};
+      if constexpr (NARROW) {
+#pragma unroll
+        for (int cg = 0; cg < NDW / NJ; ++cg) {
+          uint32_t b[NJ][2];
+          load_v_frags<T, TC, NJ>(b, sk + kk * 16 * SM::LDK + dv0 + cg * 8 * NJ,
+                                  SM::LDK, g, t4);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            Mma<T>::run(o[cg * NJ + j], pa, b[j][0], b[j][1]);
+        }
+      } else {
+        const int mi = lane >> 3;
+        const TC* vr = sk + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * SM::LDK +
+                       dv0 + (mi >> 1) * 8;
+#pragma unroll
+        for (int dn = 0; dn < NDW; dn += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vr + dn * 8);
+          Mma<T>::run(o[dn], pa, b[0], b[1]);
+          Mma<T>::run(o[dn + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // the output column of accumulator (n-tile dn, element e of a pair)
+  auto col = [&](int dn, int e) {
+    if constexpr (NARROW)
+      return dv0 + (dn / NJ) * 8 * NJ + out_col<NJ>(t4, dn % NJ, e);
+    else
+      return dv0 + dn * 8 + 2 * t4 + e;
+  };
+  if constexpr (GROUPS > 1) {
+    // the second group's state, through the drained ring, into the first
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    float* so = reinterpret_cast<float*>(smem);  // [row][DV], then (m, l)
+    float* sml = so + kMlaHeads * DV;
+    if (gi == 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int dn = 0; dn < NDW; ++dn)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            so[(g + 8 * i) * DV + col(dn, e)] = o[dn][2 * i + e];
+        if (warp == 0 && t4 == 0) {
+          sml[2 * (g + 8 * i)] = m[i];
+          sml[2 * (g + 8 * i) + 1] = l[i];
+        }
+      }
+    }
+    __syncthreads();
+    if (gi == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m1 = sml[2 * (g + 8 * i)];
+        const float mx = fmaxf(m[i], m1);  // finite: tile 0 is group 0's
+        const float w0 = exp2f(m[i] - mx), w1 = exp2f(m1 - mx);
+        l[i] = w0 * l[i] + w1 * sml[2 * (g + 8 * i) + 1];
+        m[i] = mx;
+#pragma unroll
+        for (int dn = 0; dn < NDW; ++dn)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            o[dn][2 * i + e] = w0 * o[dn][2 * i + e] +
+                               w1 * so[(g + 8 * i) * DV + col(dn, e)];
+      }
+    }
+  }
+  if (n_live == 1) {
+    if (gi == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float inv = 1.f / l[i];
+        T* orow = out + (row0 + g + 8 * i) * DV;
+#pragma unroll
+        for (int dn = 0; dn < NDW; ++dn)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            orow[col(dn, e)] = from_float<T>(o[dn][2 * i + e] * inv);
+      }
     }
     return;
   }
-  // partial of this split (decode_merge_kernel's layout): [DV]
-  // unnormalised sums, then (max, sum)
-  const int split = blockIdx.z;
-  float* p0 = part + ((row_base + r0) * num_splits + split) * (DV + 2);
-  float* p1 = part + ((row_base + r1) * num_splits + split) * (DV + 2);
+  float* pvals = split_partials(part);
+  float* pstats =
+      pvals + (int64_t)gridDim.x * kMlaHeads * num_splits * DV;
+  if (gi == 0) {
 #pragma unroll
-  for (int dn = 0; dn < NDW; ++dn) {
-    const int c = dv0 + dn * 8 + 2 * t4;
-    p0[c] = o[dn][0];
-    p0[c + 1] = o[dn][1];
-    p1[c] = o[dn][2];
-    p1[c + 1] = o[dn][3];
+    for (int i = 0; i < 2; ++i) {
+      const int64_t pr = (row0 + g + 8 * i) * num_splits + split;
+      float* pp = pvals + pr * DV;
+#pragma unroll
+      for (int dn = 0; dn < NDW; ++dn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) pp[col(dn, e)] = o[dn][2 * i + e];
+      if (warp == 0 && t4 == 0)
+        *reinterpret_cast<float2*>(pstats + 2 * pr) =
+            make_float2(m[i], l[i]);
+    }
   }
-  if (wq == 0 && t4 == 0) {
-    p0[DV] = sm[r0];
-    p0[DV + 1] = sl[r0];
-    p1[DV] = sm[r1];
-    p1[DV + 1] = sl[r1];
-  }
+  merge_if_last<T, DV>(pvals, pstats, reinterpret_cast<int*>(part) + seq,
+                       n_live, out, row0, kMlaHeads, num_splits);
 }
 
 // ---- float32: plain FMA, one token (16 rows) per block ---------------------
@@ -513,9 +884,10 @@ __global__ void __launch_bounds__(kMlaFmaThreads)
 // ---- launch ----------------------------------------------------------------
 
 // Launch the MLA kernel over S sequences (DECODE: one token each, in
-// num_splits splits of `chunk` keys, merged by decode_merge_kernel when
-// there are more than one; else T_ ragged tokens): tensor cores for bf16 /
-// fp16, FMA for float32. The latent holds TC: T, or fp8_t. UNIFIED: only
+// num_splits splits of `chunk` keys; else T_ ragged tokens): tensor cores
+// for bf16 / fp16 (decode: mla_decode_mma_kernel, which merges its own
+// splits), FMA for float32 (decode: its splits merged by
+// decode_merge_kernel). The latent holds TC: T, or fp8_t. UNIFIED: only
 // the rows of this block class (cu must be given in both modes).
 template <typename T, typename TC, int DL, int DV, bool DECODE, bool UNIFIED>
 static int launch_mla(const void* q, const void* lat, const int* cu,
@@ -526,39 +898,60 @@ static int launch_mla(const void* q, const void* lat, const int* cu,
   using Kernel = void (*)(const T*, const TC*, const int*, const int*,
                           const int*, T*, float*, int, int, int, int, int,
                           int, int, float);
-  Kernel kern;
-  size_t smem;
-  int threads, bq;  // threads and tokens per block
-  if constexpr (std::is_same<T, float>::value) {
-    kern = mla_attention_fma_kernel<T, TC, DL, DV, DECODE, UNIFIED>;
-    smem = MlaFmaSmem<DL>::BYTES;
-    threads = kMlaFmaThreads;
-    bq = 1;
+  constexpr bool MMA = !std::is_same<T, float>::value;
+  if constexpr (MMA && DECODE) {
+    using SM = MlaDecodeSmem<T, TC, DL, DV>;
+    auto kern = mla_decode_mma_kernel<T, TC, DL, DV, UNIFIED>;
+    static bool configured = false;
+    if (!configured) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SM::BYTES);
+      if (e != cudaSuccess) return (int)e;
+      configured = true;
+    }
+    kern<<<dim3(S, 1, num_splits), SM::THREADS, SM::BYTES, stream>>>(
+        static_cast<const T*>(q), static_cast<const TC*>(lat), cu, kv_lens,
+        pt, static_cast<T*>(out), part, max_pages, page_size, page_offset,
+        chunk, num_splits, scale * kLog2e);
+    return 0;
   } else {
-    kern = mla_attention_mma_kernel<T, TC, DL, DV, DECODE, UNIFIED>;
-    smem = MlaSmem<T, TC, DL, DECODE ? 1 : 4>::BYTES;
-    threads = DECODE ? 128 : 512;
-    bq = DECODE ? 1 : 4;
+    Kernel kern;
+    size_t smem;
+    int threads, bq;  // threads and tokens per block
+    if constexpr (MMA) {
+      kern = mla_ragged_mma_kernel<T, TC, DL, DV, UNIFIED>;
+      smem = MlaSmem<T, TC, DL>::BYTES;
+      threads = 32 * kMlaQuarters * kMlaRaggedGroups;
+      bq = kMlaRaggedGroups;
+    } else {
+      kern = mla_attention_fma_kernel<T, TC, DL, DV, DECODE, UNIFIED>;
+      smem = MlaFmaSmem<DL>::BYTES;
+      threads = kMlaFmaThreads;
+      bq = 1;
+    }
+    static bool configured = false;
+    if (!configured) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      configured = true;
+    }
+    // float32 decode: partials after the scratch's counters, merged by a
+    // second pass
+    float* parts = DECODE && part ? split_partials(part) : nullptr;
+    const dim3 grid = DECODE ? dim3(S, 1, num_splits)
+                             : dim3((T_ + bq - 1) / bq + S, 1, 1);
+    kern<<<grid, threads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const TC*>(lat), cu, kv_lens,
+        pt, static_cast<T*>(out), parts, T_, S, max_pages, page_size,
+        page_offset, chunk, num_splits, scale * kLog2e);
+    if (DECODE && num_splits > 1)
+      decode_merge_kernel<T, DV, UNIFIED>
+          <<<dim3(S, kMlaHeads), 32, 0, stream>>>(
+              parts, cu, kv_lens, static_cast<T*>(out), kMlaHeads, chunk,
+              num_splits);
+    return 0;
   }
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  const dim3 grid = DECODE ? dim3(S, 1, num_splits)
-                           : dim3((T_ + bq - 1) / bq + S, 1, 1);
-  kern<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const TC*>(lat), cu, kv_lens, pt,
-      static_cast<T*>(out), part, T_, S, max_pages, page_size, page_offset,
-      chunk, num_splits, scale * kLog2e);
-  if (DECODE && num_splits > 1)
-    decode_merge_kernel<T, DV, UNIFIED>
-        <<<dim3(S, kMlaHeads), 32, 0, stream>>>(
-            part, cu, kv_lens, static_cast<T*>(out), kMlaHeads, chunk,
-            num_splits);
-  return 0;
 }
 
 // f(T{}, TC{}, DL, DV) for the dtype code, the cache code (q's dtype or

@@ -12,10 +12,11 @@
 // dtype or fp8 (cache code `cache`), kv_lens [S] i32, page_table
 // [S, max_pages] i32, out [S, 16, v_dim]; all contiguous on one device.
 // (latent_dim, v_dim) is (576, 512) or (96, 64). Each split covers `chunk`
-// keys (a multiple of 32) and num_splits * chunk >= max_pages * page;
-// `part` is float32 scratch of S * 16 * num_splits * (v_dim + 2) elements
-// (unused, and may be null, when num_splits == 1). Returns
-// cudaGetLastError() after the launches.
+// keys (a multiple of 32, spanning at most 255 pages) and num_splits *
+// chunk >= max_pages * page; `part` is scratch of kCounterSlots int32
+// split counters, zero and left zero, then S * 16 * num_splits * (v_dim +
+// 2) float32 partials (unused, and may be null, when num_splits == 1).
+// Returns cudaGetLastError() after the launches.
 extern "C" int gllm_mla_decode_attention(
     const void* q, const void* latent, const void* kv_lens,
     const void* page_table, void* out, void* part, int S, int max_pages,

@@ -13,7 +13,8 @@
 // device from cu_q_lens (decode_prefix_len, paged_kv.cuh) and the wrapper
 // makes no host sync:
 // - the decode prefix runs K2m's split-KV decode blocks (one 16-head token
-//   per block and split of its keys), merged by decode_merge_kernel;
+//   per block and split of its keys; the last split of a token merges its
+//   splits);
 // - every other sequence (prefill chunks, one-token rows after the first
 //   chunk, padding) runs K1m's ragged blocks.
 // The two classes write disjoint output rows and read disjoint sequences.
@@ -27,10 +28,10 @@
 // or fp8 (cache code `cache`), cu_q_lens [S+1] i32, kv_lens [S] i32,
 // page_table [S, max_pages] i32, out [T, 16, v_dim]; all contiguous on one
 // device. (latent_dim, v_dim) is (576, 512) or (96, 64). The decode blocks
-// cover `chunk` keys each (a multiple of 32), num_splits * chunk >=
-// max_pages * page, and `part` is float32 scratch of S * 16 * num_splits *
-// (v_dim + 2) elements (may be null when num_splits == 1). Returns
-// cudaGetLastError() after the launches.
+// cover `chunk` keys each (a multiple of 32, spanning at most 255 pages),
+// num_splits * chunk >= max_pages * page, and `part` is the decode blocks'
+// scratch as gllm_mla_decode_attention takes it (may be null when
+// num_splits == 1). Returns cudaGetLastError() after the launches.
 extern "C" int gllm_mla_unified_attention(
     const void* q, const void* latent, const void* cu_q_lens,
     const void* kv_lens, const void* page_table, void* out, void* part,

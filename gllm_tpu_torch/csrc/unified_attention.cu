@@ -12,9 +12,10 @@
 // - the batch's decode prefix (the longest run of one-token sequences at
 //   its head, where token s is sequence s) runs the split-KV decode blocks
 //   of decode_attention.cuh: one block per (sequence, kv head, split), the
-//   G query heads of a kv head share every K/V row, no tensor-core rows are
-//   spent on masked tokens, and small batches still fill the SMs; a second
-//   pass merges the splits;
+//   G query heads of a kv head are the rows of its tensor-core products
+//   and share every K/V row, no tensor-core rows are spent on masked
+//   tokens, small batches still fill the SMs, and the last split of a row
+//   merges the row's splits;
 // - every other sequence (prefill chunks, one-token rows after the first
 //   chunk, padding) runs the ragged blocks of ragged_attention.cuh, on the
 //   tensor cores for bf16 / fp16.
@@ -39,10 +40,10 @@
 // scales are null but for int8),
 // cu_q_lens [S+1] i32, kv_lens [S] i32, page_table [S, max_pages] i32,
 // out [T, Hq, D]; all contiguous on one device. The decode blocks cover
-// `chunk` keys each (a multiple of 32), num_splits * chunk >= max_pages *
-// page, and `part` is float32 scratch of S * Hq * num_splits * (D + 2)
-// elements (may be null when num_splits == 1). Returns cudaGetLastError()
-// after the launches.
+// `chunk` keys each (a multiple of 32, spanning at most 255 pages),
+// num_splits * chunk >= max_pages * page, and `part` is the decode blocks'
+// scratch as gllm_decode_attention takes it (may be null when num_splits
+// == 1). Returns cudaGetLastError() after the launches.
 extern "C" int gllm_unified_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* cu_q_lens,

@@ -19,6 +19,13 @@ WIDE_HEAD_DIMS = HEAD_DIMS + (256,)
 # DeepSeek V2/V3's (576, 512) and (96, 64) for small test models
 MLA_HEADS = 16
 MLA_GEOMETRIES = ((576, 512), (96, 64))
+# GQA groups: K2's and K1u's decode blocks take the group's query heads as
+# the (padded) 16 rows of one MMA; K1's ragged blocks hold 64 query rows,
+# tokens times the group, so the group must divide 64
+MAX_GROUP = 16
+ROWS_PER_BLOCK = 64
+# K3's head dims (csrc/gdn_scan.cu)
+GDN_DIMS = (32, 64, 128)
 
 
 def cache_code(cache) -> int:
@@ -56,6 +63,47 @@ def check_mla_geometry(num_heads: int, latent_dim: int, v_dim: int) -> None:
         raise NotImplementedError(
             f"MLA kernels take (latent width, v_dim) in {MLA_GEOMETRIES}, "
             f"got ({latent_dim}, {v_dim})")
+
+
+def check_model_shapes(model_cfg, kv_cache_dtype: str = "auto",
+                       unified: bool = False) -> None:
+    """Raise NotImplementedError, naming the value, on a model whose
+    attention or GDN shapes the CUDA kernels of its step refuse: the MLA
+    geometry; a GQA group K1 and K2 (or K1u) do not both take; a head_dim
+    outside the dims built for the cache and the step (256 only without
+    the unified step and over a full-precision or fp8 cache); GDN head
+    dims outside ``GDN_DIMS``. The runner calls it on a CUDA device before
+    any weight is loaded or the KV pool is sized."""
+    cfg = model_cfg
+    if cfg.use_mla:
+        check_mla_geometry(cfg.num_heads, cfg.mla_cache_width,
+                           cfg.kv_lora_rank)
+    elif cfg.num_attn_layers:
+        hq, hkv = cfg.num_heads, cfg.num_kv_heads
+        if hkv <= 0 or hq % hkv:
+            raise NotImplementedError(
+                f"attention kernels need num_heads a multiple of "
+                f"num_kv_heads, got {hq} and {hkv}")
+        group = hq // hkv
+        if group > MAX_GROUP or ROWS_PER_BLOCK % group:
+            raise NotImplementedError(
+                f"attention kernels take a GQA group (num_heads / "
+                f"num_kv_heads) of at most {MAX_GROUP} that divides "
+                f"{ROWS_PER_BLOCK}, got {group}")
+        wide = not unified and kv_cache_dtype != "int8"
+        dims = WIDE_HEAD_DIMS if wide else HEAD_DIMS
+        if cfg.head_dim not in dims:
+            raise NotImplementedError(
+                f"attention kernels take head_dim in {dims} "
+                f"(kv_cache_dtype={kv_cache_dtype!r}, unified_step="
+                f"{unified}), got {cfg.head_dim}")
+    if cfg.num_linear_layers:
+        for name in ("linear_key_head_dim", "linear_value_head_dim"):
+            d = getattr(cfg, name)
+            if d not in GDN_DIMS:
+                raise NotImplementedError(
+                    f"the GDN chunk scan takes {name} in {GDN_DIMS}, got "
+                    f"{d}")
 
 
 def check_latent_inputs(what: str, q, latent, v_dim, index_tensors) -> None:

@@ -6,16 +6,19 @@ per-kv-head float32 scales (K2q), and, with ``v_cache=None``, over an MLA
 latent cache whose values are the keys' leading ``v_dim`` lanes (K2m,
 ``csrc/mla_decode_attention.cu``: tensor cores, one latent tile read once
 for both products; see ``csrc/mla_attention.cuh``). The GQA kernel
-(``csrc/decode_attention.cu``)
-is bound by bytes: it runs one block per (sequence, kv head, split of the
-context), so every K/V row of a sequence's context is read from device
-memory once and shared by the G query heads of its group, and a long
-context at a small batch still fills the card; a second pass merges the
-splits. Head dims 32, 64 and 128, and 256 over a full-precision or an fp8
-cache (Qwen3-Next's gated attention). An int8 tile is dequantized as it is
-loaded, so the cache moves half the bytes; an fp8 (e4m3) cache or latent
-likewise, widened exactly (no scales). The TPU kernel's round-robin DMA
-grouping is a TPU fetch schedule and does not carry over.
+(``csrc/decode_attention.cu``) is bound by bytes: it runs one block per
+(sequence, kv head, split of the context), so every K/V row of a
+sequence's context is read from device memory once and shared by the G
+query heads of its group, and a long context at a small batch still fills
+the card. For bf16 / fp16 q the G heads are the rows of tensor-core
+products, K/V tiles stream through a three-stage ``cp.async`` ring in
+their storage type, and the last split of a row merges the row's splits
+(no second launch); float32 q runs an FMA block and a merge pass. Head
+dims 32, 64 and 128, and 256 over a full-precision or an fp8 cache
+(Qwen3-Next's gated attention). An int8 or fp8 (e4m3) cache or latent is
+widened exactly in registers, so it moves half the bytes. The TPU
+kernel's round-robin DMA grouping is a TPU fetch schedule and does not
+carry over.
 
 ``paged_decode_attention`` launches the kernel for CUDA tensors and takes
 the plain version only for tensors on the CPU.
@@ -28,30 +31,91 @@ import functools
 import torch
 
 from gllm_tpu_torch.ops.cuda import build
-from gllm_tpu_torch.ops.cuda.common import (cache_code, cache_suffix,
+from gllm_tpu_torch.ops.cuda.common import (MAX_GROUP, cache_code,
+                                            cache_suffix,
                                             check_inputs,
                                             check_latent_inputs, data_ptr,
                                             gather_pages)
 from gllm_tpu_torch.utils import cdiv
 
-MAX_KEYS_PER_SPLIT = 256
-MIN_BLOCKS_PER_SM = 4
-# the MLA decode blocks are 4 warps with 95 KB of shared memory, two per SM
-MLA_BLOCKS_PER_SM = 2
-MAX_GROUP = 16          # query heads per kv head (a warp each in a block)
+# The split-KV decode blocks (csrc/decode_attention.cuh, GQA, and the
+# decode mode of csrc/mla_attention.cuh): keys per tile, cp.async stages,
+# prefetched page ids per split, and the split counters at the head of the
+# scratch buffer.
+DECODE_KEYS = 64
+DECODE_STAGES = 3
+MLA_KEYS = 32
+PT_SLOTS = 256
+COUNTER_SLOTS = 1 << 16
+# float32 q runs FMA blocks of 32-key tiles (the card's reference runs)
+FMA_KEYS = 32
+FMA_BLOCKS_PER_SM = 4
+MLA_FMA_BLOCKS_PER_SM = 2
+# a split walks at most this many keys. The grid is sized for this many
+# waves of resident blocks: three for the GQA blocks (contexts of uneven
+# length still balance), one for the MLA block, whose tile costs more to
+# start and whose partials are 16 x 512 floats a split (measured on the
+# H100 at the serving path's decode shapes; PERF.md)
+MAX_KEYS_PER_SPLIT = 4096
+SPLIT_WAVES = 3
+MLA_SPLIT_WAVES = 1
+# H100: 228 KB of shared memory an SM, 1 KB of it reserved per block
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
 
 
-def keys_per_split(S: int, Hkv: int, max_keys: int, num_sms: int,
-                   blocks_per_sm: int = MIN_BLOCKS_PER_SM) -> int:
-    """The largest of 256, 128, 64 and 32 keys per split whose grid still
-    has ``blocks_per_sm`` blocks per SM. Splits cover the padded page
-    table (``max_keys``), so the choice needs no host sync; splits past a
-    row's kv_len exit at once."""
-    keys = MAX_KEYS_PER_SPLIT
-    while (keys > 32
-           and S * Hkv * cdiv(max_keys, keys) < blocks_per_sm * num_sms):
-        keys //= 2
-    return keys
+def _resident(smem_bytes: int, by_regs: int) -> int:
+    return min(SM_SHARED_BYTES // (smem_bytes + BLOCK_RESERVED_BYTES),
+               by_regs)
+
+
+def decode_blocks_per_sm(D: int, q_bytes: int, cache_bytes: int,
+                         int8: bool = False) -> int:
+    """Resident GQA tensor-core decode blocks per SM (DecodeMmaSmem): by
+    shared memory (three stages of a K and a V tile of 64 keys, int8's
+    scale rows, Q's 16 rows, the page ids; or the warps' merge states if
+    larger), capped by registers (__launch_bounds__: 4 up to D 64, 3 at
+    D 128, 2 at D 256)."""
+    ldk = D + 16
+    ldv = D + 16 if cache_bytes == 1 else D + 8
+    stage = (DECODE_KEYS * (ldk + ldv) * cache_bytes
+             + (2 * DECODE_KEYS * 4 if int8 else 0))
+    loop = DECODE_STAGES * stage + 16 * (D + 16) * q_bytes + PT_SLOTS * 4
+    merge = 4 * 16 * (D + 4 + 2) * 4
+    return _resident(max(loop, merge), 4 if D <= 64 else 3 if D <= 128
+                     else 2)
+
+
+def mla_decode_blocks_per_sm(Dl: int, Dv: int, q_bytes: int,
+                             cache_bytes: int) -> int:
+    """Resident MLA decode blocks per SM (MlaDecodeSmem): by shared memory
+    (four stages of 32 latent rows, Q's 16 rows, each group's P and row
+    statistics, the page ids), capped by registers (a block of two
+    four-warp groups over a 16-bit latent: one; of one group over fp8: 2
+    at v_dim 512, else 4)."""
+    narrow = cache_bytes == 1
+    groups = 1 if narrow else 2
+    ld = Dl + 16 if narrow else Dl + 8
+    nbytes = (4 * MLA_KEYS * ld * cache_bytes + 16 * ld * q_bytes
+              + groups * (16 * (MLA_KEYS + 8) * q_bytes + 2 * 4 * 16 * 4)
+              + PT_SLOTS * 4)
+    return _resident(nbytes, 1 if groups > 1 else 2 if Dv >= 512 else 4)
+
+
+def keys_per_split(S: int, Hkv: int, max_keys: int, page: int,
+                   num_sms: int, blocks_per_sm: int, tile: int,
+                   waves: int = SPLIT_WAVES) -> int:
+    """Keys per split: the (sequence, kv head) rows are split as few times
+    as still gives ``waves`` waves of resident blocks over ``max_keys``
+    (the padded page table, so the choice needs no host sync), rounded up
+    to whole tiles, at most MAX_KEYS_PER_SPLIT and at most 255 pages
+    (the page ids a block prefetches). Splits past a row's kv_len exit at
+    once."""
+    cap = max(tile, min(MAX_KEYS_PER_SPLIT, (PT_SLOTS - 1) * page)
+              // tile * tile)
+    splits = max(1, waves * num_sms * blocks_per_sm // (S * Hkv))
+    keys = cdiv(cdiv(max(max_keys, 1), splits), tile) * tile
+    return max(tile, min(keys, cap))
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,21 +123,47 @@ def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_plan(q, k_cache, page_table, v_dim=None,
-               blocks_per_sm=MIN_BLOCKS_PER_SM):
-    """(keys per split, number of splits, float32 scratch of the splits'
-    partial sums or None) for the decode kernel's grid over
-    ``page_table``'s rows, with no host sync. ``v_dim``: the output width
-    where it differs from q's (MLA)."""
+_scratch = {}
+
+
+def decode_scratch(device: torch.device, floats: int) -> torch.Tensor:
+    """The split-KV decode blocks' scratch on ``device``: COUNTER_SLOTS
+    int32 split counters, zero (the kernels set each back to zero), then
+    at least ``floats`` float32 partials. One buffer per device, grown by
+    reallocation, shared by every call on the device's (one) stream."""
+    need = COUNTER_SLOTS + floats
+    buf = _scratch.get(device)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.float32, device=device)
+        _scratch[device] = buf
+    return buf
+
+
+def split_plan(q, k_cache, page_table, v_dim=None):
+    """(keys per split, number of splits, the scratch or None) for the
+    decode kernel's grid over ``page_table``'s rows, with no host sync.
+    ``v_dim``: an MLA latent cache's value width (the output's)."""
     S, Hq = page_table.shape[0], q.shape[1]
-    D = v_dim or q.shape[2]
-    _, page, Hkv, _ = k_cache.shape
+    _, page, Hkv, D = k_cache.shape
+    Dv = v_dim or D
+    if q.dtype == torch.float32:
+        tile = FMA_KEYS
+        bps = MLA_FMA_BLOCKS_PER_SM if v_dim else FMA_BLOCKS_PER_SM
+    elif v_dim:
+        tile = MLA_KEYS
+        bps = mla_decode_blocks_per_sm(D, Dv, q.element_size(),
+                                       k_cache.element_size())
+    else:
+        tile = DECODE_KEYS
+        bps = decode_blocks_per_sm(D, q.element_size(),
+                                   k_cache.element_size(),
+                                   k_cache.dtype == torch.int8)
     max_keys = page_table.shape[1] * page
-    chunk = keys_per_split(S, Hkv, max_keys, _num_sms(q.device),
-                           blocks_per_sm)
+    chunk = keys_per_split(S, Hkv, max_keys, page, _num_sms(q.device), bps,
+                           tile, MLA_SPLIT_WAVES if v_dim else SPLIT_WAVES)
     num_splits = max(1, cdiv(max_keys, chunk))
-    part = (torch.empty(S * Hq * num_splits * (D + 2), dtype=torch.float32,
-                        device=q.device) if num_splits > 1 else None)
+    part = (decode_scratch(q.device, S * Hq * num_splits * (Dv + 2))
+            if num_splits > 1 else None)
     return chunk, num_splits, part
 
 
@@ -165,8 +255,7 @@ def _mla_decode(q, latent, kv_lens, page_table, *, scale, page_offset,
     out = torch.empty((S, Hq, v_dim), dtype=q.dtype, device=q.device)
     if S == 0:
         return out
-    chunk, num_splits, part = split_plan(q, latent, page_table, v_dim,
-                                         MLA_BLOCKS_PER_SM)
+    chunk, num_splits, part = split_plan(q, latent, page_table, v_dim)
     rc = build.kernel("mla_decode_attention")(
         q.data_ptr(), latent.data_ptr(), kv_lens.data_ptr(),
         page_table.data_ptr(), out.data_ptr(), data_ptr(part), S,

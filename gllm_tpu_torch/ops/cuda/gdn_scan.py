@@ -21,8 +21,8 @@ from __future__ import annotations
 import torch
 
 from gllm_tpu_torch.ops.cuda import build
+from gllm_tpu_torch.ops.cuda.common import GDN_DIMS
 
-GDN_DIMS = (32, 64, 128)
 GDN_CHUNKS = (16, 32, 64)
 
 

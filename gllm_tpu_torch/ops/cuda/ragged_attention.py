@@ -49,16 +49,14 @@ from __future__ import annotations
 import torch
 
 from gllm_tpu_torch.ops.cuda import build
-from gllm_tpu_torch.ops.cuda.common import (cache_code, cache_suffix,
+from gllm_tpu_torch.ops.cuda.common import (MAX_GROUP, ROWS_PER_BLOCK,
+                                            cache_code, cache_suffix,
                                             check_inputs,
                                             check_latent_inputs, data_ptr,
                                             gather_pages)
-from gllm_tpu_torch.ops.cuda.decode_attention import (MAX_GROUP,
-                                                      MLA_BLOCKS_PER_SM,
-                                                      split_plan)
+from gllm_tpu_torch.ops.cuda.decode_attention import split_plan
 from gllm_tpu_torch.utils import cdiv
 
-ROWS_PER_BLOCK = 64     # query rows (tokens × group heads) per kernel block
 LOG2E = 1.4426950408889634
 AMLA_BLOCK = 64         # keys per online-softmax update of the plain AMLA
 
@@ -260,8 +258,7 @@ def _mla_ragged(q, latent, cu_q_lens, kv_lens, page_table, *, scale,
     codes = (build.DTYPE_CODES[q.dtype], cache_code(latent),
              torch.cuda.current_stream().cuda_stream)
     if unified:
-        chunk, num_splits, part = split_plan(q, latent, page_table, v_dim,
-                                             MLA_BLOCKS_PER_SM)
+        chunk, num_splits, part = split_plan(q, latent, page_table, v_dim)
         rc = build.kernel("mla_unified_attention")(
             *ptrs, data_ptr(part), T, S, *dims, chunk, num_splits, scale,
             *codes)

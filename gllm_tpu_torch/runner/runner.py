@@ -29,7 +29,7 @@ from gllm_tpu_torch.config import EngineConfig
 from gllm_tpu_torch.models import hybrid
 from gllm_tpu_torch.models.config import ModelConfig
 from gllm_tpu_torch.models.registry import get_model_def
-from gllm_tpu_torch.ops.cuda.common import check_mla_geometry
+from gllm_tpu_torch.ops.cuda.common import check_model_shapes
 from gllm_tpu_torch.ops.sampling import sample
 from gllm_tpu_torch.runner.prepare import BatchBuilder, HostStaging
 from gllm_tpu_torch.scheduler import ScheduledBatch
@@ -54,10 +54,9 @@ class ModelRunner:
         self.model_cfg = model_cfg
         self.model = get_model_def(model_cfg)
         self.device = torch.device(device)
-        if model_cfg.use_mla and self.device.type == "cuda":
-            check_mla_geometry(model_cfg.num_heads,
-                               model_cfg.mla_cache_width,
-                               model_cfg.kv_lora_rank)
+        if self.device.type == "cuda":
+            check_model_shapes(model_cfg, config.cache.kv_cache_dtype,
+                               config.unified_step)
         self.dtype = DTYPES[config.dtype]
         kd = config.cache.kv_cache_dtype
         self.kv_dtype = self.dtype if kd == "auto" else DTYPES[kd]

@@ -179,11 +179,100 @@ def test_cpu_tensors_take_the_plain_version():
     assert trag.ragged_paged_attention.launches == before[1]
 
 
-@pytest.mark.parametrize("S,Hkv,max_keys,want", [
-    (32, 8, 2048, 256),    # main-path decode batch: the longest splits
-    (8, 8, 1024, 64),      # small batch: shorter splits fill 132 SMs
-    (1, 8, 4096, 32),      # one row: the shortest split, one tile each
-    (256, 8, 64, 256),     # short contexts: one split
+@pytest.mark.parametrize("S,Hkv,max_keys,page,bps,tile,waves,want", [
+    # main-path decode batch (D 64, bf16: 3 blocks an SM): 4 splits
+    (32, 8, 2048, 16, 3, 64, 3, 512),
+    (8, 8, 1024, 16, 3, 64, 3, 64),     # small batch: shorter splits
+    (1, 8, 4096, 16, 3, 64, 3, 64),     # one row: the shortest split
+    (256, 8, 64, 16, 3, 64, 3, 64),     # short contexts: one split
+    # the MLA decode block at DeepSeek-V2-Lite: one block an SM, 32-key
+    # tiles, one wave: 4 splits
+    (32, 1, 2048, 16, 1, 32, 1, 512),
+    # a long context in 4-token pages: at most 255 pages a split
+    (512, 8, 65536, 4, 3, 64, 3, 960),
 ])
-def test_decode_split_follows_the_grid(S, Hkv, max_keys, want):
-    assert tdec.keys_per_split(S, Hkv, max_keys, num_sms=132) == want
+def test_decode_split_follows_the_grid(S, Hkv, max_keys, page, bps, tile,
+                                       waves, want):
+    got = tdec.keys_per_split(S, Hkv, max_keys, page, num_sms=132,
+                              blocks_per_sm=bps, tile=tile, waves=waves)
+    assert got == want
+    assert got % tile == 0 and -(-got // page) + 1 <= tdec.PT_SLOTS
+
+
+@pytest.mark.parametrize("geometry,want", [
+    # GQA (D, q bytes, cache bytes, int8): by shared memory, capped by
+    # registers
+    (("gqa", 32, 2, 2, False), 4),
+    (("gqa", 64, 2, 2, False), 3),    # 61952 bytes
+    (("gqa", 128, 2, 2, False), 2),   # 113152 bytes
+    (("gqa", 256, 2, 2, False), 1),   # 215552 bytes
+    (("gqa", 64, 2, 1, True), 4),
+    (("gqa", 256, 2, 1, False), 2),   # fp8 at D 256: 114176 bytes
+    # MLA (Dl, Dv, q bytes, cache bytes)
+    (("mla", 576, 512, 2, 2), 1),     # two groups: 172800 bytes
+    (("mla", 576, 512, 2, 1), 2),     # fp8, one group: 97536 bytes
+    (("mla", 96, 64, 2, 2), 1),       # two groups: one by registers
+    (("mla", 96, 64, 2, 1), 4),
+])
+def test_decode_blocks_per_sm(geometry, want):
+    kind, *args = geometry
+    fn = (tdec.decode_blocks_per_sm if kind == "gqa"
+          else tdec.mla_decode_blocks_per_sm)
+    assert fn(*args) == want
+
+
+def _model(**kw):
+    from gllm_tpu_torch.models.config import ModelConfig
+    cfg = dict(architecture="LlamaForCausalLM", vocab_size=64,
+               hidden_size=64, num_layers=2, num_heads=8, num_kv_heads=2,
+               head_dim=64, intermediate_size=64)
+    cfg.update(kw)
+    return ModelConfig(**cfg)
+
+
+@pytest.mark.parametrize("kw,cache,unified,match", [
+    (dict(), "auto", False, None),
+    (dict(num_heads=28, num_kv_heads=4), "auto", False, "group"),  # 7
+    (dict(num_heads=32, num_kv_heads=1), "auto", False, "group"),  # 32
+    (dict(head_dim=256, num_heads=16, num_kv_heads=2), "fp8", False, None),
+    (dict(head_dim=256, num_heads=16, num_kv_heads=2), "int8", False,
+     "head_dim"),
+    (dict(head_dim=256, num_heads=16, num_kv_heads=2), "auto", True,
+     "head_dim"),
+    (dict(head_dim=80), "auto", False, "head_dim"),
+    (dict(num_heads=16, kv_lora_rank=64, qk_nope_head_dim=32,
+          qk_rope_head_dim=32, v_head_dim=32), "auto", True, None),
+    (dict(num_heads=32, kv_lora_rank=64, qk_nope_head_dim=32,
+          qk_rope_head_dim=32, v_head_dim=32), "auto", False, "32"),
+    (dict(layer_types=("linear_attention", "full_attention"),
+          linear_num_key_heads=2, linear_num_value_heads=4,
+          linear_key_head_dim=64, linear_value_head_dim=128), "auto",
+     False, None),
+    (dict(layer_types=("linear_attention", "full_attention"),
+          linear_num_key_heads=2, linear_num_value_heads=4,
+          linear_key_head_dim=48, linear_value_head_dim=128), "auto",
+     False, "linear_key_head_dim"),
+    (dict(layer_types=("linear_attention", "full_attention"),
+          linear_num_key_heads=2, linear_num_value_heads=4,
+          linear_key_head_dim=64, linear_value_head_dim=256), "auto",
+     False, "linear_value_head_dim"),
+])
+def test_model_shapes_the_kernels_refuse_raise_by_name(kw, cache, unified,
+                                                       match):
+    from gllm_tpu_torch.ops.cuda.common import check_model_shapes
+    cfg = _model(**kw)
+    if match is None:
+        check_model_shapes(cfg, cache, unified)
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            check_model_shapes(cfg, cache, unified)
+
+
+def test_runner_on_cuda_refuses_kernel_shapes_before_loading():
+    """ModelRunner on a CUDA device raises by name before any weight or KV
+    page is allocated (so this runs on a host without a card)."""
+    from gllm_tpu_torch.config import EngineConfig
+    from gllm_tpu_torch.runner.runner import ModelRunner
+    with pytest.raises(NotImplementedError, match="group"):
+        ModelRunner(EngineConfig(load_format="dummy"),
+                    _model(num_heads=28, num_kv_heads=4), "cuda")

@@ -1303,3 +1303,213 @@ def test_deepseek_unified_layer_makes_no_host_sync(cuda_device):
         "ragged_paged_attention_unified_mla"] == n0 + 1
     assert out.shape == (T, cfg.hidden_size)
     assert torch.isfinite(out.float()).all()
+
+
+# ---- the split-KV decode blocks (GQA: K2, K1u's decode class; MLA: K2m,
+# K1um's decode class) over every cache, group and head dim they take,
+# with kv_lens on both sides of the split boundaries, at a page offset
+
+# name → (q dtype, cache): a cache in q's dtype, int8 (with scales) or fp8
+DECODE_KINDS = {"bf16": (torch.bfloat16, "native"),
+                "fp16": (torch.float16, "native"),
+                "int8": (torch.bfloat16, "int8"),
+                "fp8": (torch.bfloat16, "fp8"),
+                "fp8_fp16q": (torch.float16, "fp8"),
+                "f32": (torch.float32, "native")}
+
+
+def _offset_caches(device, qdtype, cache, rng, *arrays):
+    """The case's caches (K and V, or one MLA latent) as layer 1 of a
+    two-layer stack read at page_offset P: layer 0 and the case's dummy
+    page hold NaN (NaN bytes, or NaN scales for int8), which no kernel may
+    read. Returns (the kernel's keywords, the plain version's keywords over
+    layer 1 with the NaNs zeroed)."""
+    P = arrays[0].shape[0]
+    names = ("k_cache", "v_cache")[:len(arrays)]
+    kern, clean = dict(page_offset=P), {}
+    if cache == "int8":
+        k8, v8, ks, vs = int8_cache(rng, *arrays)
+        for name, c, s in (("k", k8, ks), ("v", v8, vs)):
+            t = torch.from_numpy(np.concatenate([c, c])).to(device)
+            sc = torch.from_numpy(np.concatenate([s, s])).to(device)
+            sc[:P + 1] = float("nan")
+            kern[name + "_cache"], kern[name + "_scale"] = t, sc
+            clean[name + "_cache"] = t[P:]
+            clean[name + "_scale"] = torch.nan_to_num(sc[P:])
+        return kern, clean
+    dtype = FP8 if cache == "fp8" else qdtype
+    for name, a in zip(names, arrays):
+        t = torch.from_numpy(np.concatenate([a, a])).to(device).to(dtype)
+        c = t[P:].clone()
+        if cache == "fp8":
+            t.view(torch.uint8)[:P + 1] = 0x7F
+            c.view(torch.uint8)[0] = 0
+        else:
+            t[:P + 1] = float("nan")
+            c[0] = 0
+        kern[name], clean[name] = t, c
+    return kern, clean
+
+
+def _plan(device, qdtype, cache, S, Hq, Hkv, D, page, max_pages, v_dim=None):
+    """(keys per split, splits) the wrapper picks for these shapes."""
+    dtype = {"native": qdtype, "int8": torch.int8, "fp8": FP8}[cache]
+    chunk, n, _ = tdec.split_plan(
+        torch.empty((S, Hq, D), dtype=qdtype, device=device),
+        torch.empty((1, page, Hkv, D), dtype=dtype, device=device),
+        torch.empty((S, max_pages), dtype=torch.int32, device=device),
+        v_dim)
+    return chunk, n
+
+
+def _split_lens(chunk, max_keys):
+    """kv_lens around every boundary the tests care about: empty, one key,
+    one tile of 256 (+-1), one split (+-1), three splits, and nearly the
+    padded table."""
+    return [0, 1, 255, 256, 257, chunk - 1, chunk, chunk + 1, 3 * chunk,
+            max_keys - 3]
+
+
+def _counters_zero(device):
+    torch.cuda.synchronize()
+    counters = tdec.decode_scratch(device, 0)[:tdec.COUNTER_SLOTS]
+    assert not counters.view(torch.int32).any(), "split counters left set"
+
+
+DECODE_BLOCK_CASES = [
+    (kind, G, D, splits) for kind in DECODE_KINDS
+    for G in (1, 4, 5, 7, 8, 16) for D in (32, 64, 128, 256)
+    for splits in ("one", "many")
+    if not (D == 256 and DECODE_KINDS[kind][1] == "int8")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,G,D,splits", DECODE_BLOCK_CASES)
+def test_decode_block_matches_plain(cuda_device, kind, G, D, splits):
+    qdtype, cache = DECODE_KINDS[kind]
+    Hkv, page = 2, 16
+    Hq = G * Hkv
+    if splits == "one":      # one tile (32 keys at f32): one split
+        tile = 32 if qdtype == torch.float32 else 64
+        lens = [0, 1, 17, tile - 1, tile]
+        chunk, n = _plan(cuda_device, qdtype, cache, len(lens), Hq, Hkv, D,
+                         page, tile // page)
+        assert n == 1
+    else:                    # a 4096-key table over 10 rows
+        chunk, n = _plan(cuda_device, qdtype, cache, 10, Hq, Hkv, D, page,
+                         256)
+        lens = _split_lens(chunk, 4096)
+        assert n > 1
+    rng = np.random.default_rng(30)
+    num_pages = 1 + sum(-(-k // page) for k in lens)
+    q, kc, vc, kvl, pt = decode_case(rng, lens, Hq, Hkv, D, page, num_pages)
+    kern, clean = _offset_caches(cuda_device, qdtype, cache, rng, kc, vc)
+    q = torch.from_numpy(q).to(cuda_device, qdtype)
+    kvl, pt = (torch.from_numpy(a).to(cuda_device) for a in (kvl, pt))
+    scale = D ** -0.5
+    before = dict(tdec.paged_decode_attention.launches)
+    out = tdec.paged_decode_attention(q, kv_lens=kvl, page_table=pt,
+                                      scale=scale, **kern)
+    want = tdec.paged_decode_attention_plain(q, kv_lens=kvl, page_table=pt,
+                                             scale=scale, **clean)
+    _check(out, want, qdtype)
+    assert (out[0] == 0).all()                        # kv_len 0
+    _counters_zero(cuda_device)
+    suffix = {"native": "", "int8": "_int8", "fp8": "_fp8"}[cache]
+    assert {k: v - before[k] for k, v in
+            tdec.paged_decode_attention.launches.items()
+            if v != before[k]} == {"paged_decode_attention" + suffix: 1}
+
+
+UNIFIED_BLOCK_CASES = [(kind, G, D) for kind in DECODE_KINDS
+                       for G in (1, 4, 8, 16) for D in (32, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,G,D", UNIFIED_BLOCK_CASES)
+def test_unified_decode_class_matches_plain(cuda_device, kind, G, D):
+    """K1u: a decode prefix of one-token rows on both sides of the split
+    boundaries, then a chunk, a one-token row after it (ragged class) and
+    padding."""
+    qdtype, cache = DECODE_KINDS[kind]
+    Hkv, page = 2, 16
+    Hq = G * Hkv
+    tail = [(9, 40), (17, 300), (1, 50)]
+    S = 10 + len(tail) + 2
+    chunk, n = _plan(cuda_device, qdtype, cache, S, Hq, Hkv, D, page, 256)
+    assert n > 1
+    seqs = [(1, k) for k in _split_lens(chunk, 4096)[1:]] + [(1, 2)] + tail
+    rng = np.random.default_rng(31)
+    num_pages = 1 + sum(-(-k // page) for _, k in seqs)
+    q, kc, vc, cu, kvl, pt = ragged_case(rng, seqs, Hq, Hkv, D, page,
+                                         num_pages, pad_seqs=2, pad_tokens=5)
+    assert pt.shape == (S, 256)
+    kern, clean = _offset_caches(cuda_device, qdtype, cache, rng, kc, vc)
+    q = torch.from_numpy(q).to(cuda_device, qdtype)
+    md = {k: torch.from_numpy(a).to(cuda_device) for k, a in
+          (("cu_q_lens", cu), ("kv_lens", kvl), ("page_table", pt))}
+    scale = D ** -0.5
+    out = trag.ragged_paged_attention(q, **md, scale=scale, unified=True,
+                                      **kern)
+    want = trag.ragged_paged_attention_plain(q, **md, scale=scale,
+                                             unified=True, **clean)
+    _check(out, want, qdtype)
+    _counters_zero(cuda_device)
+
+
+MLA_KINDS = {k: DECODE_KINDS[k]
+             for k in ("bf16", "fp16", "fp8", "fp8_fp16q", "f32")}
+MLA_BLOCK_CASES = [(geo, kind, splits, unified)
+                   for geo in ((96, 64), (576, 512)) for kind in MLA_KINDS
+                   for splits in ("one", "many") for unified in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo,kind,splits,unified", MLA_BLOCK_CASES)
+def test_mla_decode_block_matches_plain(cuda_device, geo, kind, splits,
+                                        unified):
+    """K2m (legacy) and K1um's decode class (unified: the one-token rows
+    lead a batch with a chunk behind them) at both latent geometries."""
+    Dl, Dv = geo
+    qdtype, cache = MLA_KINDS[kind]
+    page = 16
+    # behind a unified batch's decode prefix: a chunk and a one-token row
+    tail = ([(9, 20), (1, 30)] if splits == "one" else [(9, 40), (1, 50)]
+            ) if unified else []
+    if splits == "one":      # a 32-key table: one tile, one split
+        lens, max_pages = [0, 1, 17, 31, 32], 2
+    else:
+        max_pages = 256
+    S = (5 if splits == "one" else 10) + len(tail)
+    chunk, n = _plan(cuda_device, qdtype, cache, S, 16, 1, Dl, page,
+                     max_pages, Dv)
+    assert (n == 1) == (splits == "one")
+    if splits == "many":
+        lens = _split_lens(chunk, 4096)
+    rng = np.random.default_rng(32)
+    kw = dict(scale=2.0 * Dl ** -0.5, v_dim=Dv)
+    if unified:
+        seqs = [(1, k) for k in lens if k] + [(1, 2)] + tail
+        num_pages = 1 + sum(-(-k // page) for _, k in seqs)
+        q, lat, _, cu, kvl, pt = ragged_case(rng, seqs, 16, 1, Dl, page,
+                                             num_pages)
+        md = dict(cu_q_lens=cu, kv_lens=kvl, page_table=pt)
+        kw["unified"] = True
+        kernel, plain = (trag.ragged_paged_attention,
+                         trag.ragged_paged_attention_plain)
+    else:
+        num_pages = 1 + sum(-(-k // page) for k in lens)
+        q, lat, _, kvl, pt = decode_case(rng, lens, 16, 1, Dl, page,
+                                         num_pages)
+        md = dict(kv_lens=kvl, page_table=pt)
+        kernel, plain = (tdec.paged_decode_attention,
+                         tdec.paged_decode_attention_plain)
+    assert pt.shape[1] == max_pages
+    kern, clean = _offset_caches(cuda_device, qdtype, cache, rng, lat)
+    q = torch.from_numpy(q).to(cuda_device, qdtype)
+    md = {k: torch.from_numpy(a).to(cuda_device) for k, a in md.items()}
+    out = kernel(q, kern.pop("k_cache"), None, **md, **kern, **kw)
+    want = plain(q, clean["k_cache"], None, **md, **kw)
+    assert out.shape == (q.shape[0], 16, Dv)
+    _check(out, want, qdtype)
+    _counters_zero(cuda_device)

@@ -114,6 +114,52 @@ def test_greedy_generate_token_identical_to_jax_xla(num_pages, max_prefill):
         assert port.scheduler.num_preemptions > 0
 
 
+def _policy_workload():
+    """8 requests, 6 of them sharing a 24-token prefix."""
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(1, 512, size=24).tolist()
+    prompts = [prefix + rng.integers(1, 512, size=k).tolist()
+               for k in (3, 9, 1, 14, 6, 11)]
+    prompts += [rng.integers(1, 512, size=k).tolist() for k in (17, 30)]
+    return prompts, [8, 5, 10, 6, 9, 7, 12, 4], [True] * 8
+
+
+@pytest.mark.parametrize("method,num_pages", [
+    ("token_throttling", 128), ("split_pd", 128),
+    ("token_throttling", 18)])      # a pool that preempts
+def test_policies_with_prefix_cache_token_identical_to_jax(method,
+                                                          num_pages):
+    """token_throttling and split_pd with the prefix cache on: the port's
+    greedy streams equal the JAX LLM's (f32, XLA attention)."""
+    params = _jax_params()
+    np_params = jax.tree.map(np.asarray, params)
+    prompts, max_tokens, ignore_eos = _policy_workload()
+    port = gt.LLM(
+        config=gt.EngineConfig(
+            dtype="float32", max_model_len=256,
+            scheduler=gt.SchedulerConfig(schedule_method=method,
+                                         max_prefill_tokens=16),
+            cache=gt.CacheConfig(page_size=4, num_pages=num_pages,
+                                 enable_prefix_caching=True)),
+        model_cfg=gt.ModelConfig(**MODEL),
+        params=convert.from_jax_params(np_params), device="cpu")
+    jllm = JLLM(config=JEC(dtype="float32", attention_impl="xla",
+                           max_model_len=256,
+                           scheduler=JSC(schedule_method=method,
+                                         max_prefill_tokens=16),
+                           cache=JCC(page_size=4, num_pages=num_pages,
+                                     enable_prefix_caching=True)),
+                model_cfg=JMC(**MODEL), params=params)
+    got = _drive(port, gt.SamplingParams, prompts, max_tokens, ignore_eos)
+    want = _drive(jllm, JSP, prompts, max_tokens, ignore_eos)
+    assert got == want
+    assert port.scheduler.num_preemptions == jllm.scheduler.num_preemptions
+    if num_pages == 18:
+        assert port.scheduler.num_preemptions > 0
+    mm = port.memory_manager
+    assert mm.num_free_pages == mm.allocator.num_total
+
+
 def test_greedy_generate_token_identical_to_jax_pallas_interpret():
     params = _jax_params()
     np_params = jax.tree.map(np.asarray, params)
