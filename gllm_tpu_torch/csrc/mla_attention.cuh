@@ -16,46 +16,44 @@
 // flops per byte: a decode step is still bound by bytes against the bf16
 // tensor cores (295 flops per byte) but not against float32 FMA, and a
 // prefill chunk, whose key tiles serve 64 query rows, is bound by
-// operations. So both modes run on the tensor cores (mma.sync m16n8k16,
-// float32 accumulators): the 16 query heads of one token are exactly the
-// m16 of one MMA row group.
+// operations. So both modes run on the tensor cores with float32
+// accumulators.
 //
-// Design (bf16 / fp16), ragged mode. A block holds 4 row groups of 16
-// rows (four tokens of one sequence, found from cu_q_lens by locate_block,
-// as the GQA ragged kernel finds its tiles). Each row group has four warps.
-// A 16 x 512 float32 output tile would need 256 accumulator registers in
-// one warp, so the four warps split the output columns (DV / 4 each, 64
-// accumulators a thread) and, for the scores, the keys of each tile (8 of
-// 32 each). The scores go through shared memory: every warp of a row group
-// reads the full 32-key row of P for its slice of P.V. Q (64 x DL) stays
-// in shared memory for the whole walk; 32-key latent tiles are
-// double-buffered with cp.async. At (576, 512) a block uses 160 KB of
-// shared memory. Decode mode has a block of its own (mla_decode_mma_kernel
-// below: one token, one split of its keys, a deeper ring, fewer barriers).
-// float32 runs a plain FMA kernel (one token per block) for the reference
-// paths; the tensor cores take no full-precision float32.
-// fp8 latent in ragged mode (TC = fp8_t, bf16 / fp16 q): ldmatrix reads
-// 16-bit rows, so a tile cannot go from cp.async straight into the layout
-// the fragments take. The one-byte tiles are double-buffered instead (two
-// 32 x DL-byte stages, 36 KB at 576) and each is widened, exactly, into
-// ONE tile of T; the block keeps its size (159.5 KB). The FMA kernel
-// widens as it loads.
+// Ragged mode (bf16 / fp16; mla_ragged_wgmma_kernel below): a block of 4
+// tokens x 16 heads = 64 rows, the M of a warpgroup product, walks its
+// keys in 64-key latent tiles with wgmma for both products (two
+// warpgroups: the tile's keys split for Q.K^T, the output columns for
+// P.V). Its first design (mma.sync, one warp per 16 rows x 8 keys)
+// reloaded Q's fragments for every tile and read V once per row group:
+// shared memory, not the tensor cores, bound it (10% of the bf16 rate).
+// wgmma is kept over an mma.sync block that holds Q's fragments in
+// registers: a 64 x 512 float32 output needs 128 registers a thread
+// across two warpgroups already, so an mma.sync block could keep neither
+// Q nor more than one 16-row tile per warp in registers and would read
+// its operands from shared memory several times a tile; wgmma reads them
+// by descriptor, and its first build ran more than twice as fast as the
+// mma.sync block at the serving path's mixed shape (PERF.md).
+// Decode mode has a block of its own (mla_decode_mma_kernel below: one
+// token, one split of its keys, mma.sync with the 16 heads as the m16,
+// a deeper ring, fewer barriers). float32 runs a plain FMA kernel (one
+// token per block) for the reference paths; the tensor cores take no
+// full-precision float32. The FMA kernel widens an fp8 latent as it loads.
 // UNIFIED (K1um, mla_unified_attention.cu): decode blocks run only for the
 // batch's decode prefix and ragged blocks only for the other sequences, as
 // the GQA kernels' unified classes do (paged_kv.cuh).
-// Not yet done: wgmma/TMA, and a ragged block that serves more tokens of
-// one sequence.
+// Not yet done: TMA and a producer warp for the latent tiles, and one
+// launch for UNIFIED's two classes.
 #pragma once
 
 #include "decode_attention.cuh"
 #include "ragged_attention.cuh"
+#include "wgmma.cuh"
 
 namespace gllm {
 
 constexpr int kMlaHeads = 16;  // query heads over the one latent stream
 constexpr int kMlaKeys = 32;   // keys per latent tile
 constexpr int kMlaQuarters = 4;  // warps per 16-row group
-constexpr int kMlaRaggedGroups = 4;  // ragged mode: tokens (row groups) a block
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile(
@@ -63,29 +61,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
-
-// Shared memory of the ragged tensor-core kernel (kMlaRaggedGroups row
-// groups of 16), in bytes: Q rows, two latent
-// tiles of T (one over an fp8 latent; row stride DL + 8 elements:
-// conflict-free ldmatrix), the scores [rows][33] float32, P [rows][40] in
-// T, per row the running max, sum and this tile's rescale factor, and over
-// an fp8 latent two staging tiles of DL bytes a row.
-template <typename T, typename TC, int DL>
-struct MlaSmem {
-  static constexpr bool NARROW = sizeof(TC) == 1;
-  static constexpr int ROWS = 16 * kMlaRaggedGroups;
-  static constexpr int LD = DL + 8;
-  static constexpr int LDS = kMlaKeys + 1;
-  static constexpr int LDP = kMlaKeys + 8;
-  static constexpr size_t K_OFF = (size_t)ROWS * LD * sizeof(T);
-  static constexpr size_t S_OFF =
-      K_OFF + (NARROW ? 1 : 2) * (size_t)kMlaKeys * LD * sizeof(T);
-  static constexpr size_t P_OFF = S_OFF + (size_t)ROWS * LDS * sizeof(float);
-  static constexpr size_t ST_OFF = P_OFF + (size_t)ROWS * LDP * sizeof(T);
-  static constexpr size_t N_OFF = ST_OFF + 3 * ROWS * sizeof(float);
-  static constexpr size_t BYTES =
-      N_OFF + (NARROW ? 2 * (size_t)kMlaKeys * DL : 0);
-};
 
 // Zero the output rows [row0, row0 + rows) of width DV.
 template <typename T, int DV>
@@ -126,7 +101,9 @@ __device__ __forceinline__ bool mla_locate(const int* cu_q_lens,
     }
     q_start = cu_q_lens[seq];
     q_len = cu_q_lens[seq + 1] - q_start;
-    t_first = *s_tile * bq;
+    // a sequence's last tokens see the most keys: its blocks take its
+    // tiles last first, so the longest walks start early, not in the tail
+    t_first = ((q_len + bq - 1) / bq - 1 - *s_tile) * bq;
     j_begin = 0;
   }
   const int kv_len = kv_lens[seq];
@@ -143,222 +120,280 @@ __device__ __forceinline__ bool mla_locate(const int* cu_q_lens,
   return true;
 }
 
-// ---- bf16 / fp16: tensor cores ---------------------------------------------
+// ---- bf16 / fp16, ragged mode: wgmma ---------------------------------------
+//
+// One block per 4 tokens of one sequence: 64 query rows (token = row / 16,
+// head = row % 16), the M of one wgmma. Two warpgroups (256 threads, one
+// block an SM) walk the block's keys in 64-key latent tiles. Per tile:
+// - S = Q K^T: warpgroup w scores keys 32 w .. 32 w + 31 of the tile for
+//   all 64 rows (m64n32k16 over DL, Q and the tile read by descriptor);
+//   warp i of a warpgroup holds token i's 16 rows.
+// - The online softmax runs in registers. The two warpgroups swap their
+//   row maxima and row sums through shared memory (two barriers), so both
+//   keep the same running (max, sum) for every row; P (bf16 / fp16) goes
+//   once through shared memory, swizzled as a K-major A operand.
+// - O += P V: warpgroup w owns output columns [w DV / 2, (w + 1) DV / 2)
+//   (m64n256k16: 128 float32 accumulators a thread); V is the tile's
+//   leading DV columns, read in place as an MN-major B operand.
+// The latent tiles come through a two-stage cp.async ring into the
+// swizzled layout both descriptors read (four threads a key row, the row's
+// address computed once); Q (64 x DL) stays for the whole walk. At (576,
+// 512) that is 72 KB of Q, two 72 KB stages and 8 KB of P: 225 KB. A
+// tile costs three block barriers (tile landed, maxima, P). fp8 latent:
+// two one-byte stages (36 KB each) and ONE tile of T, into which each
+// stage is widened exactly once it lands (a fourth barrier); the block
+// keeps the same size. (96, 64), the small test models' geometry: the
+// tile's second column block holds 32 lanes, and warpgroup 0 alone does
+// P.V (m64n64k16).
+
+constexpr int kMlaWgKeys = 64;                     // keys per latent tile
+constexpr int kMlaWgThreads = 256;                 // two warpgroups
+constexpr int kMlaWgRows = 64;                     // query rows a block
+constexpr int kMlaWgTokens = kMlaWgRows / kMlaHeads;
+
+template <typename T, typename TC, int DL, int DV>
+struct MlaWgSmem {
+  static constexpr bool NARROW = sizeof(TC) == 1;
+  static constexpr int DLB = (DL + 63) / 64;        // 64-lane column blocks
+  static constexpr int PVN = DV >= 128 ? DV / 2 : DV;  // P.V columns a WG
+  static constexpr int PV_WG = DV / PVN;            // warpgroups doing P.V
+  static constexpr size_t BLOCK_Q = (size_t)kMlaWgRows * 128;
+  static constexpr size_t BLOCK_K = (size_t)kMlaWgKeys * 128;
+  static constexpr size_t TILE = DLB * BLOCK_K;
+  static constexpr int STAGES = NARROW ? 1 : 2;     // tiles of T
+  static constexpr size_t K_OFF = DLB * BLOCK_Q;
+  static constexpr size_t P_OFF = K_OFF + STAGES * TILE;
+  static constexpr size_t N_OFF = P_OFF + (size_t)kMlaWgRows * 128;
+  static constexpr size_t STAGE8 = (size_t)kMlaWgKeys * DL;  // fp8 bytes
+  static constexpr size_t X_OFF = N_OFF + (NARROW ? 2 * STAGE8 : 0);
+  // row maxima and sums of each warpgroup: [2][2][64] float32
+  static constexpr size_t BYTES = X_OFF + 4 * kMlaWgRows * sizeof(float);
+  static constexpr size_t ALLOC = BYTES + 1024;  // the base aligned to 1 KB
+  static_assert(ALLOC <= 232448, "MLA ragged block over 227 KB");
+};
 
 template <typename T, typename TC, int DL, int DV, bool UNIFIED>
-__global__ void __launch_bounds__(512)
-    mla_ragged_mma_kernel(const T* __restrict__ q,
-                          const TC* __restrict__ lat,
-                          const int* __restrict__ cu_q_lens,
-                          const int* __restrict__ kv_lens,
-                          const int* __restrict__ page_table,
-                          T* __restrict__ out, float* __restrict__ part,
-                          int num_tokens, int S, int max_pages,
-                          int page_size, int page_offset, int chunk,
-                          int num_splits, float scale_log2) {
-  constexpr int RG = kMlaRaggedGroups;
-  using SM = MlaSmem<T, TC, DL>;
+__global__ void __launch_bounds__(kMlaWgThreads, 1)
+    mla_ragged_wgmma_kernel(const T* __restrict__ q,
+                            const TC* __restrict__ lat,
+                            const int* __restrict__ cu_q_lens,
+                            const int* __restrict__ kv_lens,
+                            const int* __restrict__ page_table,
+                            T* __restrict__ out, float* __restrict__ part,
+                            int num_tokens, int S, int max_pages,
+                            int page_size, int page_offset, int chunk,
+                            int num_splits, float scale_log2) {
+  using SM = MlaWgSmem<T, TC, DL, DV>;
   constexpr bool NARROW = SM::NARROW;
-  constexpr int ROWS = SM::ROWS;
-  constexpr int LD = SM::LD;
-  constexpr int CPR = DL / 8;                    // 16-byte chunks per row
-  constexpr int DVW = DV / kMlaQuarters;         // output columns per warp
-  constexpr int NDW = DVW / 8;                   // their n-tiles
-  static_assert(DL % 16 == 0 && DV % 64 == 0 && DV <= DL, "MLA geometry");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sq = reinterpret_cast<T*>(smem_raw);
-  T* sk0 = reinterpret_cast<T*>(smem_raw + SM::K_OFF);
-  float* ss = reinterpret_cast<float*>(smem_raw + SM::S_OFF);
-  T* sp = reinterpret_cast<T*>(smem_raw + SM::P_OFF);
-  float* sm = reinterpret_cast<float*>(smem_raw + SM::ST_OFF);
-  float* sl = sm + ROWS;
-  float* sa = sl + ROWS;
-  TC* stage = reinterpret_cast<TC*>(smem_raw + SM::N_OFF);  // fp8 latent
+  constexpr int PVN = SM::PVN;
+  constexpr int KSTEPS = DL / 16;
+  static_assert(DL % 16 == 0 && DV % 64 == 0 && DV <= DL &&
+                    (PVN == 256 || PVN == 64),
+                "MLA geometry");
+  extern __shared__ __align__(1024) unsigned char mla_wg_raw[];
+  unsigned char* smem =
+      mla_wg_raw + ((1024u - (smem_addr(mla_wg_raw) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_addr(smem);
+  float* sx = reinterpret_cast<float*>(smem + SM::X_OFF);  // [2][2][64]
   __shared__ int s_seq, s_tile;
 
   int seq, q_start, t_first, n_tok, pos0, j_begin, j_end;
   if (!mla_locate<T, DV, false, UNIFIED>(
-          cu_q_lens, kv_lens, out, S, num_tokens, RG, chunk, num_splits,
-          &s_seq, &s_tile, seq, q_start, t_first, n_tok, pos0, j_begin,
-          j_end))
+          cu_q_lens, kv_lens, out, S, num_tokens, kMlaWgTokens, chunk,
+          num_splits, &s_seq, &s_tile, seq, q_start, t_first, n_tok, pos0,
+          j_begin, j_end))
     return;
   const int tid = threadIdx.x;
+  const int wg = tid >> 7;                   // warpgroup
+  const int warp = (tid >> 5) & 3;           // warp in the warpgroup: token
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int n_rows = n_tok * kMlaHeads;
   const int64_t row_base = (int64_t)(q_start + t_first) * kMlaHeads;
   const int* pt_row = page_table + (int64_t)seq * max_pages;
+  const bool live = warp < n_tok;            // warp-uniform
+  const int pos = pos0 + warp;   // the last key this warp's token sees
 
-  // Q rows of the block (zero past n_rows); committed with the first tile
-  for (int c = tid; c < ROWS * CPR; c += blockDim.x) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const bool valid = r < n_rows;
-    cp_async16(sq + r * LD + col, q + (valid ? (row_base + r) * DL + col : 0),
-               valid);
+  // Q (zero past n_rows), committed with the first tile
+  {
+    constexpr int CPR = DL / 8;
+    for (int i = tid; i < kMlaWgRows * CPR; i += kMlaWgThreads) {
+      const int r = i / CPR, c = i % CPR;
+      const bool valid = r < n_rows;
+      cp_async16(smem + sw128_offset<kMlaWgRows>(r, c),
+                 q + (valid ? (row_base + r) * DL + c * 8 : 0), valid);
+    }
   }
-  if (tid < ROWS) {
-    sm[tid] = -INFINITY;
-    sl[tid] = 0.f;
-  }
-  // stage `st` of the cp.async ring: a tile of T, or of fp8 bytes (rows of
-  // DL, 16 a chunk) that is widened into the one T tile once it lands
+  // stage `st` of the ring: key rows j0 .. j0 + 63 (zero past j_end), four
+  // threads a row; over fp8 into the byte stage, unswizzled
   auto issue = [&](int st, int j0) {
-    constexpr int CH = 16 / sizeof(TC);         // elements a 16-byte chunk
-    constexpr int CPR_C = DL / CH;
-    constexpr int LDC = NARROW ? DL : LD;       // the landing row stride
-    TC* dst = NARROW ? stage + st * kMlaKeys * DL
-                     : reinterpret_cast<TC*>(sk0 + st * kMlaKeys * LD);
-    const int n = min(kMlaKeys, j_end - j0);
-    for (int c = tid; c < kMlaKeys * CPR_C; c += blockDim.x) {
-      const int r = c / CPR_C, col = (c % CPR_C) * CH;
-      const bool valid = r < n;
-      const int64_t off =
-          valid ? kv_row_offset(pt_row, j0 + r, page_size, page_offset, 1,
-                                DL, 0) + col
-                : 0;
-      cp_async16(dst + r * LDC + col, lat + off, valid);
+    const int r = tid >> 2, part4 = tid & 3;
+    const bool valid = r < j_end - j0;
+    const TC* src =
+        lat + (valid ? kv_row_offset(pt_row, j0 + r, page_size, page_offset,
+                                     1, DL, 0)
+                     : 0);
+    if constexpr (NARROW) {
+      unsigned char* dst = smem + SM::N_OFF + st * SM::STAGE8 + r * DL;
+      for (int c = part4; c < DL / 16; c += 4)
+        cp_async16(dst + c * 16, src + c * 16, valid);
+    } else {
+      unsigned char* dst = smem + SM::K_OFF + st * SM::TILE;
+      for (int c = part4; c < DL / 8; c += 4)
+        cp_async16(dst + sw128_offset<kMlaWgKeys>(r, c), src + c * 8, valid);
     }
     cp_async_commit();
   };
 
-  const int warp = tid / 32, lane = tid % 32;
-  const int rg = warp / kMlaQuarters, wq = warp % kMlaQuarters;
-  const int g = lane >> 2, t4 = lane & 3;
-  const bool live = rg < n_tok;              // warp-uniform
-  const int pos = pos0 + rg;  // the last key the row group's token sees
-  const int dv0 = wq * DVW;
-  float o[NDW][4];
+  float o[PVN / 2];
 #pragma unroll
-  for (int dn = 0; dn < NDW; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+  for (int i = 0; i < PVN / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const int row0 = warp * 16 + g;  // this thread's rows: row0, row0 + 8
 
-  const int n_tiles = (j_end - j_begin + kMlaKeys - 1) / kMlaKeys;
+  const int n_tiles = (j_end - j_begin + kMlaWgKeys - 1) / kMlaWgKeys;
   issue(0, j_begin);
   for (int it = 0; it < n_tiles; ++it) {
-    const int j0 = j_begin + it * kMlaKeys;
-    if (it + 1 < n_tiles)
-      issue((it + 1) & 1, j0 + kMlaKeys);
-    else
-      cp_async_commit();  // keep the count even
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();
-    const T* sk;
+    const int j0 = j_begin + it * kMlaWgKeys;
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    uint32_t kt;
     if constexpr (NARROW) {
-      widen_tile<T, TC, kMlaKeys, DL, LD>(sk0,
-                                          stage + (it & 1) * kMlaKeys * DL);
-      __syncthreads();
-      sk = sk0;
+      __syncthreads();  // both warpgroups' P.V of the last tile is done
+      const unsigned char* src = smem + SM::N_OFF + (it & 1) * SM::STAGE8;
+      constexpr int CH = DL / 16;
+      for (int i = tid; i < kMlaWgKeys * CH; i += kMlaWgThreads) {
+        const int r = i / CH, c = i % CH;
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + r * DL + c * 16);
+        const uint32_t* wd = reinterpret_cast<const uint32_t*>(&raw);
+        uint32_t w[8];  // pairs widened by one cvt each (split_kv.cuh)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          w[2 * k] = widen2<T, TC>(wd[k]);
+          w[2 * k + 1] = widen2<T, TC>(wd[k] >> 16);
+        }
+        unsigned char* dst = smem + SM::K_OFF;
+        *reinterpret_cast<uint4*>(dst + sw128_offset<kMlaWgKeys>(r, 2 * c)) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+        *reinterpret_cast<uint4*>(dst +
+                                  sw128_offset<kMlaWgKeys>(r, 2 * c + 1)) =
+            make_uint4(w[4], w[5], w[6], w[7]);
+      }
+      kt = sbase + SM::K_OFF;
     } else {
-      sk = sk0 + (it & 1) * kMlaKeys * LD;
+      kt = sbase + SM::K_OFF + (it & 1) * SM::TILE;
+    }
+    fence_proxy_async();
+    __syncthreads();  // the tile is in (and, 16-bit, the last one is done)
+    if (it + 1 < n_tiles) issue((it + 1) & 1, j0 + kMlaWgKeys);
+
+    // S = Q K^T over this warpgroup's 32 keys
+    float s[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint64_t da = gmma_desc(
+          sbase + (kk >> 2) * SM::BLOCK_Q + (kk & 3) * 32, 16, 1024);
+      const uint64_t db = gmma_desc(
+          kt + (kk >> 2) * SM::BLOCK_K + wg * 32 * 128 + (kk & 3) * 32, 16,
+          1024);
+      Wgmma<T, 32>::template run<0>(s, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<16>(s);
+
+    // masked scores (log2 domain) and this warpgroup's row maxima
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int j = j0 + wg * 32 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const bool ok = live && j < j_end && j <= pos;
+      s[i] = ok ? s[i] * scale_log2 : -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (t4 == 0) sx[wg * kMlaWgRows + row0 + 8 * h] = mx[h];
+    }
+    __syncthreads();  // both warpgroups' maxima
+    float alpha[2], m_safe[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      const float m_new =
+          fmaxf(m_run[h], fmaxf(sx[r], sx[kMlaWgRows + r]));
+      m_safe[h] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h] = exp2f(m_run[h] - m_safe[h]);  // 0 before the first key
+      m_run[h] = m_new;
+    }
+    // P into shared memory (K-major, swizzled) and the row sums
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int chunk = wg * 4 + i;  // 16-byte chunk of the 64-key row
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 8 * h;
+        const float p0 = exp2f(s[4 * i + 2 * h] - m_safe[h]);
+        const float p1 = exp2f(s[4 * i + 2 * h + 1] - m_safe[h]);
+        sum[h] += p0 + p1;
+        *reinterpret_cast<uint32_t*>(smem + SM::P_OFF + r * 128 +
+                                     ((chunk ^ (r & 7)) << 4) + 4 * t4) =
+            Mma<T>::pack(p0, p1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      if (t4 == 0) sx[(2 + wg) * kMlaWgRows + row0 + 8 * h] = sum[h];
+    }
+    fence_proxy_async();
+    __syncthreads();  // P and both warpgroups' sums
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      l_run[h] = l_run[h] * alpha[h] + sx[2 * kMlaWgRows + r] +
+                 sx[3 * kMlaWgRows + r];
     }
 
-    // S = Q K^T: this warp's 16 rows x 8 keys (one n-tile) over DL
-    {
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-      const bool any = live && j0 <= pos;
-      if (any) {
-        const T* qa = sq + (rg * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-        const T* kr = sk + (wq * 8 + g) * LD + 2 * t4;
-#pragma unroll 6
-        for (int kk = 0; kk < DL / 16; ++kk) {
-          uint32_t a[4];
-          ldmatrix_x4(a, qa + kk * 16);
-          Mma<T>::run(s, a, *reinterpret_cast<const uint32_t*>(kr + kk * 16),
-                      *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
-        }
-      }
+    // O = O * alpha + P V over this warpgroup's columns
+    if (wg < SM::PV_WG) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = wq * 8 + 2 * t4 + (e & 1);
-        const int j = j0 + key;
-        const bool ok = any && j < j_end && j <= pos;
-        ss[(rg * 16 + g + 8 * (e >> 1)) * SM::LDS + key] =
-            ok ? s[e] * scale_log2 : -INFINITY;
+      for (int i = 0; i < PVN / 8; ++i) {
+        o[4 * i] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
       }
+      fence_regs<PVN / 2>(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kMlaWgKeys / 16; ++kk) {
+        const uint64_t da =
+            gmma_desc(sbase + SM::P_OFF + kk * 32, 16, 1024);
+        const uint64_t db = gmma_desc(
+            kt + kk * 2048 + wg * (PVN / 64) * SM::BLOCK_K,
+            (uint32_t)SM::BLOCK_K, 1024);
+        Wgmma<T, PVN>::template run<1>(o, da, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<PVN / 2>(o);
     }
-    __syncthreads();
-
-    // online softmax: 8 threads a row, 4 keys each
-    {
-      const int row = tid >> 3, part8 = tid & 7;
-      const float* sr = ss + row * SM::LDS + part8 * 4;
-      float x[4];
-      float mt = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        x[i] = sr[i];
-        mt = fmaxf(mt, x[i]);
-      }
-#pragma unroll
-      for (int o8 = 1; o8 < 8; o8 <<= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o8));
-      const float m_old = sm[row];
-      const float m_new = fmaxf(m_old, mt);
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = exp2f(x[i] - m_safe);
-        sum += p;
-        sp[row * SM::LDP + part8 * 4 + i] = from_float<T>(p);
-      }
-#pragma unroll
-      for (int o8 = 1; o8 < 8; o8 <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o8);
-      if (part8 == 0) {
-        const float alpha = exp2f(m_old - m_safe);  // 0 before the first key
-        sa[row] = alpha;
-        sl[row] = sl[row] * alpha + sum;
-        sm[row] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // O = O * alpha + P V on this warp's DV / 4 columns; V is the first DV
-    // columns of the latent tile
-    if (live) {
-      const float al0 = sa[rg * 16 + g], al1 = sa[rg * 16 + g + 8];
-#pragma unroll
-      for (int dn = 0; dn < NDW; ++dn) {
-        o[dn][0] *= al0;
-        o[dn][1] *= al0;
-        o[dn][2] *= al1;
-        o[dn][3] *= al1;
-      }
-      const int mi = lane >> 3;
-#pragma unroll
-      for (int kk = 0; kk < kMlaKeys / 16; ++kk) {
-        const T* pr = sp + (rg * 16 + g) * SM::LDP + kk * 16 + 2 * t4;
-        const uint32_t pa[4] = {
-            *reinterpret_cast<const uint32_t*>(pr),
-            *reinterpret_cast<const uint32_t*>(pr + 8 * SM::LDP),
-            *reinterpret_cast<const uint32_t*>(pr + 8),
-            *reinterpret_cast<const uint32_t*>(pr + 8 * SM::LDP + 8)};
-        const T* vr = sk + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LD + dv0 +
-                      (mi >> 1) * 8;
-#pragma unroll
-        for (int dn = 0; dn < NDW; dn += 2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, vr + dn * 8);
-          Mma<T>::run(o[dn], pa, b[0], b[1]);
-          Mma<T>::run(o[dn + 1], pa, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
   }
 
-  if (!live) return;
-  const int r0 = rg * 16 + g, r1 = r0 + 8;
-  const float inv0 = sl[r0] > 0.f ? 1.f / sl[r0] : 0.f;
-  const float inv1 = sl[r1] > 0.f ? 1.f / sl[r1] : 0.f;
-  T* o0 = out + (row_base + r0) * DV + dv0 + 2 * t4;
-  T* o1 = out + (row_base + r1) * DV + dv0 + 2 * t4;
+  if (!live || wg >= SM::PV_WG) return;
 #pragma unroll
-  for (int dn = 0; dn < NDW; ++dn) {
-    *reinterpret_cast<uint32_t*>(o0 + dn * 8) =
-        Mma<T>::pack(o[dn][0] * inv0, o[dn][1] * inv0);
-    *reinterpret_cast<uint32_t*>(o1 + dn * 8) =
-        Mma<T>::pack(o[dn][2] * inv1, o[dn][3] * inv1);
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    const float inv = l_run[h] > 0.f ? 1.f / l_run[h] : 0.f;
+    T* orow = out + (row_base + r) * DV + wg * PVN + 2 * t4;
+#pragma unroll
+    for (int i = 0; i < PVN / 8; ++i)
+      *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+          Mma<T>::pack(o[4 * i + 2 * h] * inv, o[4 * i + 2 * h + 1] * inv);
   }
 }
 
@@ -919,10 +954,10 @@ static int launch_mla(const void* q, const void* lat, const int* cu,
     size_t smem;
     int threads, bq;  // threads and tokens per block
     if constexpr (MMA) {
-      kern = mla_ragged_mma_kernel<T, TC, DL, DV, UNIFIED>;
-      smem = MlaSmem<T, TC, DL>::BYTES;
-      threads = 32 * kMlaQuarters * kMlaRaggedGroups;
-      bq = kMlaRaggedGroups;
+      kern = mla_ragged_wgmma_kernel<T, TC, DL, DV, UNIFIED>;
+      smem = MlaWgSmem<T, TC, DL, DV>::ALLOC;
+      threads = kMlaWgThreads;
+      bq = kMlaWgTokens;
     } else {
       kern = mla_attention_fma_kernel<T, TC, DL, DV, DECODE, UNIFIED>;
       smem = MlaFmaSmem<DL>::BYTES;

@@ -59,6 +59,11 @@ MLA_FMA_BLOCKS_PER_SM = 2
 MAX_KEYS_PER_SPLIT = 4096
 SPLIT_WAVES = 3
 MLA_SPLIT_WAVES = 1
+# an MLA split walks at least this many keys: at a small batch one wave
+# would cut short contexts into one- or two-tile splits, each paying its
+# Q load, ring start-up and 16 x 512 floats of partials (chosen with
+# tools/decode_split_sweep.py on the H100; PERF.md)
+MLA_MIN_SPLIT_KEYS = 128
 # H100: 228 KB of shared memory an SM, 1 KB of it reserved per block
 SM_SHARED_BYTES = 233472
 BLOCK_RESERVED_BYTES = 1024
@@ -104,18 +109,18 @@ def mla_decode_blocks_per_sm(Dl: int, Dv: int, q_bytes: int,
 
 def keys_per_split(S: int, Hkv: int, max_keys: int, page: int,
                    num_sms: int, blocks_per_sm: int, tile: int,
-                   waves: int = SPLIT_WAVES) -> int:
+                   waves: int = SPLIT_WAVES, min_keys: int = 0) -> int:
     """Keys per split: the (sequence, kv head) rows are split as few times
     as still gives ``waves`` waves of resident blocks over ``max_keys``
     (the padded page table, so the choice needs no host sync), rounded up
-    to whole tiles, at most MAX_KEYS_PER_SPLIT and at most 255 pages
-    (the page ids a block prefetches). Splits past a row's kv_len exit at
-    once."""
+    to whole tiles, at least ``min_keys``, at most MAX_KEYS_PER_SPLIT and
+    at most 255 pages (the page ids a block prefetches). Splits past a
+    row's kv_len exit at once."""
     cap = max(tile, min(MAX_KEYS_PER_SPLIT, (PT_SLOTS - 1) * page)
               // tile * tile)
     splits = max(1, waves * num_sms * blocks_per_sm // (S * Hkv))
     keys = cdiv(cdiv(max(max_keys, 1), splits), tile) * tile
-    return max(tile, min(keys, cap))
+    return max(tile, min(max(keys, cdiv(min_keys, tile) * tile), cap))
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,7 +165,8 @@ def split_plan(q, k_cache, page_table, v_dim=None):
                                    k_cache.dtype == torch.int8)
     max_keys = page_table.shape[1] * page
     chunk = keys_per_split(S, Hkv, max_keys, page, _num_sms(q.device), bps,
-                           tile, MLA_SPLIT_WAVES if v_dim else SPLIT_WAVES)
+                           tile, MLA_SPLIT_WAVES if v_dim else SPLIT_WAVES,
+                           MLA_MIN_SPLIT_KEYS if v_dim else 0)
     num_splits = max(1, cdiv(max_keys, chunk))
     part = (decode_scratch(q.device, S * Hq * num_splits * (Dv + 2))
             if num_splits > 1 else None)

@@ -4,9 +4,11 @@ version.
 Replaces ``gllm_tpu/ops/pallas/gdn_scan.py::gdn_chunk_scan`` (K3): the
 sequential inter-chunk state recurrence of ``ops/gdn.py``'s chunked gated
 delta rule, over operands the in-chunk (batched PyTorch) work has already
-built. ``csrc/gdn_scan.cu`` runs it in float32 on FMA, bound by
-operations: one block per (sequence-head, 32 state columns) keeps its
-state tile in shared memory for every chunk (see the source). The plain
+built. ``csrc/gdn_scan.cu`` runs it on the tensor cores at float32
+accuracy (3xTF32: each operand split into two TF32 halves), bound by
+bytes: one 16-warp block per (sequence, head) holds every state column in
+its accumulators across the chunks and reads each chunk's operands once,
+loading the next phase's while it computes (see the source). The plain
 version is the JAX package's ``lax.scan`` body as a Python loop over the
 chunks.
 

@@ -30,8 +30,9 @@ sequence s sits at position ``kv_len - q_len + t``.
   it is rounded for the tensor cores (see ``csrc/unified_attention.cu``).
 - MLA (K1m, non-unified, ``v_cache=None``): ``csrc/mla_ragged_attention.cu``
   over a shared latent cache [P, page, 1, Dl] whose values are the keys'
-  leading ``v_dim`` lanes; tensor cores, each latent tile read once for
-  both products (see ``csrc/mla_attention.cuh``).
+  leading ``v_dim`` lanes; ``wgmma`` over 4 tokens x 16 heads a block,
+  each latent tile read once for both products (see
+  ``csrc/mla_attention.cuh``).
 - Unified MLA (K1um, ``unified=True, v_cache=None``):
   ``csrc/mla_unified_attention.cu``, K2m's split-KV decode blocks for the
   decode prefix and K1m's ragged blocks for every other sequence, found

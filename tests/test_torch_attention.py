@@ -199,6 +199,31 @@ def test_decode_split_follows_the_grid(S, Hkv, max_keys, page, bps, tile,
     assert got % tile == 0 and -(-got // page) + 1 <= tdec.PT_SLOTS
 
 
+@pytest.mark.parametrize("S,max_keys,num_sms,want", [
+    # the profiled window's decode steps (S 8, about 520 keys; the page
+    # table's 64-page bucket): one wave would cut two-tile splits
+    (8, 544, 132, tdec.MLA_MIN_SPLIT_KEYS),
+    (8, 1024, 132, tdec.MLA_MIN_SPLIT_KEYS),
+    (8, 544, 114, tdec.MLA_MIN_SPLIT_KEYS),     # a card with fewer SMs
+    (1, 2048, 132, tdec.MLA_MIN_SPLIT_KEYS),
+    # the smoke's decode batch: 4 splits of 512, as before the minimum
+    (32, 2048, 132, 512),
+    (32, 2048, 114, 704),       # 3 splits on 114 SMs, as before
+    # short contexts: one split
+    (32, 64, 132, tdec.MLA_MIN_SPLIT_KEYS),
+])
+def test_mla_split_keeps_its_minimum(S, max_keys, num_sms, want):
+    """The MLA decode block's plan (one block an SM, 32-key tiles, one
+    wave) never cuts a split below MLA_MIN_SPLIT_KEYS."""
+    assert tdec.MLA_MIN_SPLIT_KEYS % tdec.MLA_KEYS == 0
+    got = tdec.keys_per_split(S, 1, max_keys, 16, num_sms=num_sms,
+                              blocks_per_sm=1, tile=tdec.MLA_KEYS,
+                              waves=tdec.MLA_SPLIT_WAVES,
+                              min_keys=tdec.MLA_MIN_SPLIT_KEYS)
+    assert got == want
+    assert got >= tdec.MLA_MIN_SPLIT_KEYS
+
+
 @pytest.mark.parametrize("geometry,want", [
     # GQA (D, q bytes, cache bytes, int8): by shared memory, capped by
     # registers

@@ -24,7 +24,7 @@ import torch
 from gllm_tpu_torch.ops.cuda import decode_attention as tdec
 from gllm_tpu_torch.ops.cuda import gdn_scan as tscan
 from gllm_tpu_torch.ops.cuda import ragged_attention as trag
-from gllm_tpu_torch.ops.cuda.common import WIDE_HEAD_DIMS
+from gllm_tpu_torch.ops.cuda.common import GDN_DIMS, WIDE_HEAD_DIMS
 
 
 def ragged_case(rng, seqs, Hq, Hkv, D, page, num_pages, pad_seqs=0,
@@ -839,11 +839,14 @@ def scan_case(rng, B, N, C, Dk, Dv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 5])
-@pytest.mark.parametrize("C", [16, 64])
-@pytest.mark.parametrize("dk,dv", [(32, 32), (128, 128), (32, 128),
-                                   (128, 64)])
+@pytest.mark.parametrize("N", [1, 2, 5, 17])
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("dk,dv", [(dk, dv) for dk in GDN_DIMS
+                                   for dv in GDN_DIMS])
 def test_gdn_scan_kernel_matches_plain(cuda_device, dk, dv, C, N):
+    """K3 at every (Dk, Dv) and chunk size it is built for, over one to 17
+    chunks, on 7 (sequence, head) rows (one block each: far from a wave)
+    from a nonzero state; one launch a call."""
     rng = np.random.default_rng(31)
     args = [torch.from_numpy(a).to(cuda_device)
             for a in scan_case(rng, 7, N, C, dk, dv)]
@@ -1513,3 +1516,52 @@ def test_mla_decode_block_matches_plain(cuda_device, geo, kind, splits,
     assert out.shape == (q.shape[0], 16, Dv)
     _check(out, want, qdtype)
     _counters_zero(cuda_device)
+
+
+# ---- the MLA ragged block (wgmma; K1m, K1um's ragged class) at a page
+# offset
+
+# a one-token row first (the decode prefix under the unified step), chunks
+# of 3, 5, 9 and 130 tokens (none a multiple of the block's 4 tokens; two
+# start mid-context), and a one-token row after them (a ragged-class row
+# under the unified step)
+MLA_RAGGED_BLOCK_SEQS = [(1, 40), (3, 3), (5, 77), (9, 9), (130, 300),
+                         (1, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unified", [False, True])
+@pytest.mark.parametrize("latent", ["native", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("geo", [(96, 64), (576, 512)])
+def test_mla_ragged_block_matches_plain(cuda_device, geo, dtype, latent,
+                                        unified):
+    """The MLA ragged block (K1m, K1um) at both latent geometries over a
+    16-bit and an fp8 latent read at a page offset (NaN in the skipped
+    layer and the dummy page), with padded sequences and tokens; the
+    tolerance rejects the plain version with a dropped key."""
+    Dl, Dv = geo
+    page, pad_seqs = 16, 2
+    seqs = MLA_RAGGED_BLOCK_SEQS
+    rng = np.random.default_rng(43)
+    q, lat, _, cu, kvl, pt = ragged_case(
+        rng, seqs, 16, 1, Dl, page, 1 + sum(-(-k // page) for _, k in seqs),
+        pad_seqs=pad_seqs, pad_tokens=13)
+    kern, clean = _offset_caches(cuda_device, dtype, latent, rng, lat)
+    q = torch.from_numpy(q).to(cuda_device, dtype)
+    md = {k: torch.from_numpy(a).to(cuda_device) for k, a in
+          dict(cu_q_lens=cu, kv_lens=kvl, page_table=pt).items()}
+    kw = dict(scale=2.0 * Dl ** -0.5, v_dim=Dv, unified=unified)
+    name = trag.kernel_name(unified, True, kern["k_cache"])
+    n0 = trag.ragged_paged_attention.launches[name]
+    out = trag.ragged_paged_attention(q, kern.pop("k_cache"), None, **md,
+                                      **kern, **kw)
+    assert trag.ragged_paged_attention.launches[name] == n0 + 1
+    want = trag.ragged_paged_attention_plain(q, clean["k_cache"], None, **md,
+                                             **kw)
+    md["kv_lens"] = md["kv_lens"] - _one_token_rows(seqs, pad_seqs,
+                                                    cuda_device)
+    dropped = trag.ragged_paged_attention_plain(q, clean["k_cache"], None,
+                                                **md, **kw)
+    assert out.shape == (q.shape[0], 16, Dv)
+    _mla_check(out, want, dropped, dtype)
