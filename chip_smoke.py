@@ -17,7 +17,10 @@ no result line:
              the timed region for a one-byte cache), the kernel wrapper's
              CUDA-event time, and the card's bound: ragged (K1), decode
              (K2), their int8 (K1q, K2q) and fp8 modes, and the unified
-             kernel (K1u) over each cache; then the MLA modes at
+             kernel (K1u) over each cache (the mixed rows also beside one
+             varlen flash call over the real tokens, and split by launch:
+             decode class, ragged class), and K1 at a GQA group of 7 (Hq 28,
+             Hkv 4, D 128) on the mixed lengths; then the MLA modes at
              DeepSeek-V2-Lite's latent geometry (Hq 16 over one 576-wide
              latent row, values its leading 512, bf16 q) on the same batch
              lengths: ragged (K1m), decode (K2m) and the unified step's
@@ -124,6 +127,8 @@ TOL = {"paged_decode_attention": DECODE_TOL,
        # at head_dim 256 the scores q.k / 16 have the spread they have at
        # D 64 (standard normal q and k), so K1's and K2's reasons hold
        "ragged_paged_attention_d256": RAGGED_TOL,
+       # a GQA group of 7 at D 128: the same softmax and rounding as K1
+       "ragged_paged_attention_g7": RAGGED_TOL,
        "paged_decode_attention_d256": DECODE_TOL,
        "gdn_chunk_scan": GDN_TOL,
        # K1um: K1m's ragged blocks and K2m's decode blocks, whose reasons
@@ -163,14 +168,14 @@ KERNELS = {
         "paged_decode_attention_int8", "int8", "decode_attention.cu",
         PALLAS + "decode_attention.py:188 (k_scale/v_scale)"),
     "ragged_paged_attention_unified_decode": (
-        "ragged_paged_attention_unified", "unified", "unified_attention.cu",
+        "ragged_paged_attention_unified", "unified", "ragged_attention.cu",
         PALLAS + "ragged_attention.py:429 (unified=True)"),
     "ragged_paged_attention_unified": (
-        "ragged_paged_attention_unified", "unified", "unified_attention.cu",
+        "ragged_paged_attention_unified", "unified", "ragged_attention.cu",
         PALLAS + "ragged_attention.py:429 (unified=True)"),
     "ragged_paged_attention_unified_int8": (
         "ragged_paged_attention_unified_int8", "unified_int8",
-        "unified_attention.cu",
+        "ragged_attention.cu",
         PALLAS + "ragged_attention.py:429 (unified=True, k_scale/v_scale)"),
     "ragged_paged_attention_mla": (
         "ragged_paged_attention_mla", "deepseek", "mla_ragged_attention.cu",
@@ -204,11 +209,11 @@ KERNELS = {
         PALLAS + "ragged_attention.py:429 (fp8 cache)"),
     "ragged_paged_attention_unified_fp8_decode": (
         "ragged_paged_attention_unified_fp8", "unified_fp8",
-        "unified_attention.cu",
+        "ragged_attention.cu",
         PALLAS + "ragged_attention.py:429 (unified=True, fp8 cache)"),
     "ragged_paged_attention_unified_fp8": (
         "ragged_paged_attention_unified_fp8", "unified_fp8",
-        "unified_attention.cu",
+        "ragged_attention.cu",
         PALLAS + "ragged_attention.py:429 (unified=True, fp8 cache)"),
     "paged_decode_attention_mla_fp8": (
         "paged_decode_attention_mla_fp8", "deepseek_fp8",
@@ -229,6 +234,11 @@ KERNELS = {
     "ragged_paged_attention_d256_fp8": (
         "ragged_paged_attention_fp8", "qwen3_next_fp8", "ragged_attention.cu",
         PALLAS + "ragged_attention.py:429 (head_dim 256, fp8 cache)"),
+    # no served configuration has a group of 7: its launches are those of
+    # the same kernel (K1, bf16) in the bf16 serve configuration
+    "ragged_paged_attention_g7": (
+        "ragged_paged_attention", "bf16", "ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429 (GQA group 7, head_dim 128)"),
 }
 
 
@@ -424,22 +434,37 @@ def check(name, out, want, dropped):
 
 
 def measure(name, kernel, plain, plain_dropped, library, iters, nbytes,
-            flops, peak_flops=PEAK_BF16_FLOPS, **info):
+            flops, peak_flops=PEAK_BF16_FLOPS, varlen=None, **info):
     """Check a kernel against its plain version, then time it: device time
     per call (profiler) of the kernel, the plain version and the library
-    call (None where no one PyTorch call computes the function); and the
-    kernel's CUDA-event time per call when its wrapper is called back to
-    back (host launch time included)."""
+    call (None where no one PyTorch call computes the function), and of
+    ``varlen`` (a second library call over the real tokens only, with its
+    output; kept where it agrees with the plain version); and the kernel's
+    CUDA-event time per call when its wrapper is called back to back (host
+    launch time included)."""
     out = kernel()
     torch.cuda.synchronize()
-    r = check(name, out, plain(), plain_dropped())
+    want = plain()
+    r = check(name, out, want, plain_dropped())
     b_ms, b_by = bound(nbytes, flops, peak_flops)
     split = timed_above_bound(kernel, iters, b_ms)
     lib_split = timed_above_bound(library, 5, b_ms) if library else None
+    varlen_ms = None
+    if varlen is not None:
+        fn, got = varlen
+        rtol, atol = TOL[name]
+        w = want[:got.shape[0]].float()
+        err = (got.float() - w).abs().max().item()
+        if torch.allclose(got.float(), w, rtol=rtol, atol=atol):
+            varlen_ms = sum(timed_above_bound(fn, 5, b_ms).values())
+        else:
+            log(f"[kernels] {name}: the varlen flash call disagrees with the "
+                f"plain version (max_abs {err}); not timed")
     r.update(ms=sum(split.values()), split=split,
              plain_ms=device_ms(plain, 3),
              library_ms=sum(lib_split.values()) if library else None,
              library_backend=sdpa_backend(lib_split) if library else None,
+             varlen_library_ms=varlen_ms,
              wrapper_ms=cuda_ms(kernel, iters), bytes=nbytes, flops=flops,
              bound_ms=b_ms, bound_by=b_by, **info)
     return r
@@ -546,6 +571,48 @@ def _mixed_library(x, kd, vd, scale):
         qd, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)
 
 
+# the second library call of the mixed rows
+VARLEN_CALL = ("torch.ops.aten._flash_attention_forward (varlen, causal, "
+               "GQA) over the real tokens and K/V gathered dense and packed "
+               "per sequence")
+
+
+def _varlen_library(x, kb, vb, scale):
+    """One varlen flash call over the mixed batch: the real tokens packed
+    [T_real, Hq, D], each sequence's K/V gathered dense and packed, causal
+    with the queries at the end of their context. Returns (the call, its
+    output), or None, logged, where this torch refuses it. Set-up (the
+    gathers) is outside the call."""
+    seqs, cu, q, pt, page = x["seqs"], x["cu_np"], x["q"], x["pt"], x["page"]
+    dev = q.device
+    Hkv, D = kb.shape[2], kb.shape[3]
+    ks, vs = [], []
+    for i, (_, k) in enumerate(seqs):
+        pages = pt[i, :-(-k // page)].long()
+        ks.append(kb[pages].reshape(-1, Hkv, D)[:k])
+        vs.append(vb[pages].reshape(-1, Hkv, D)[:k])
+    kp, vp = torch.cat(ks).contiguous(), torch.cat(vs).contiguous()
+    qp = q[:x["T_real"]].contiguous()
+    cq = torch.tensor(cu[:len(seqs) + 1], dtype=torch.int32, device=dev)
+    ck = torch.tensor(np.cumsum([0] + [k for _, k in seqs]),
+                      dtype=torch.int32, device=dev)
+    max_q = max(ql for ql, _ in seqs)
+    max_k = max(k for _, k in seqs)
+
+    def call():
+        return torch.ops.aten._flash_attention_forward(
+            qp, kp, vp, cq, ck, max_q, max_k, 0.0, True, False,
+            scale=scale)[0]
+    try:
+        out = call()
+        torch.cuda.synchronize()
+    except Exception as e:  # the yardstick only: the port never calls it
+        log(f"[kernels] varlen flash refused on torch {torch.__version__}: "
+            f"{e!r}"[:400])
+        return None
+    return call, out
+
+
 def _kv_bytes(kv_lens, page, Hkv, D, cache):
     """Bytes of K and V the contexts need: each key row of each kv head
     once (1 byte a value for an "int8" or "fp8" cache, 2 for "bf16"),
@@ -638,6 +705,8 @@ def phase_kernels():
     del x, kd, vd, caches
 
     # ---- mixed shape: K1 and K1u over each cache
+    rng_g7 = np.random.default_rng(SEED)   # the same lengths, for K1 at G 7
+    rng_g7.bit_generator.state = rng.bit_generator.state
     x = mixed_shape(rng, dev)
     q, cu, kvl, pt, kv, page = (x["q"], x["cu"], x["kvl"], x["pt"], x["kv"],
                                 x["page"])
@@ -676,10 +745,13 @@ def phase_kernels():
                 q, kc, vc, cu, x["kvl_drop"], pt, **kw),
             _mixed_library(x, kd, vd, scale), 20,
             _kv_bytes(kv, page, Hkv, D, cache) + io, flops,
+            varlen=_varlen_library(x, kb, vb, scale),
             shapes=shapes + f", {cache} cache",
-            library_call=lib_call + LIB_NOTE[cache])
+            library_call=lib_call + LIB_NOTE[cache],
+            varlen_library_call=VARLEN_CALL + LIB_NOTE[cache])
         del kd, vd
     del x, caches
+    results.update(group7_kernel(dev, rng_g7))
 
     results.update(mla_kernels(dev))
     results.update(hybrid_kernels(dev))
@@ -697,10 +769,15 @@ def phase_kernels():
             f"back to back (CUDA events) {r['wrapper_ms']} ms; bound_ms="
             f"{r['bound_ms']} ({r['bound_by']}; {r['bytes']} bytes, "
             f"{r['flops']} flops)")
-        log(f"[kernels] {name}: library backend {r['library_backend']}")
+        log(f"[kernels] {name}: library backend {r['library_backend']}; "
+            f"varlen flash {r.get('varlen_library_ms')} ms")
         if len(r["split"]) > 1:
             log(f"[kernels] {name}: device ms per call by launch: "
                 + ", ".join(f"{k} {v}" for k, v in r["split"].items()))
+            classes = {"decode class": "decode", "ragged class": "ragged"}
+            log(f"[kernels] {name}: by class: " + ", ".join(
+                f"{c} {sum(v for k, v in r['split'].items() if key in k)}"
+                for c, key in classes.items()))
     bad = [n for n, r in results.items() if not r["ok"]]
     if bad:
         raise SystemExit(f"[kernels] kernel disagrees with its plain "
@@ -710,6 +787,45 @@ def phase_kernels():
         raise SystemExit(f"[kernels] tolerance accepts the perturbed plain: "
                          f"{blind}")
     return results
+
+
+def group7_kernel(dev, rng):
+    """K1 at a GQA group of 7 (Hq 28 over Hkv 4, D 128: Qwen2-7B's
+    attention shape) on the mixed batch lengths, bf16 q and cache."""
+    from gllm_tpu_torch.ops.cuda import ragged_attention as rag
+    name = "ragged_paged_attention_g7"
+    Hq, Hkv, D = 28, 4, 128
+    scale = D ** -0.5
+    x = mixed_shape(rng, dev, Hq=Hq, Hkv=Hkv, D=D, quant=False)
+    q, cu, kvl, pt, kv, page = (x["q"], x["cu"], x["kvl"], x["pt"], x["kv"],
+                                x["page"])
+    kc, vc = x["kc"], x["vc"]
+    seqs, T_real, T_pad = x["seqs"], x["T_real"], q.shape[0]
+    S_real, S_pad = len(seqs), len(kv)
+    visible = sum(k - ql + t + 1 for ql, k in seqs for t in range(ql))
+    row = Hq * D * 2
+    io = (T_real * row + T_pad * row + (2 * S_pad + 1) * 4
+          + sum(-(-k // page) for k in kv) * 4)
+    kd, vd = _dense_kv(kc, vc, pt[:S_real], kv[:S_real], page)
+    r = measure(
+        name,
+        lambda: rag.ragged_paged_attention(q, kc, vc, cu, kvl, pt,
+                                           scale=scale),
+        lambda: rag.ragged_paged_attention_plain(q, kc, vc, cu, kvl, pt,
+                                                 scale=scale),
+        lambda: rag.ragged_paged_attention_plain(q, kc, vc, cu,
+                                                 x["kvl_drop"], pt,
+                                                 scale=scale),
+        _mixed_library(x, kd, vd, scale), 20,
+        _kv_bytes(kv, page, Hkv, D, "bf16") + io, 4 * Hq * D * visible,
+        varlen=_varlen_library(x, kc, vc, scale),
+        shapes=(f"T={T_pad} ({T_real} real: 24 decode rows + chunks "
+                f"512/300/1024) S={S_pad} ({S_real} real) ctx<=2048 Hq={Hq} "
+                f"Hkv={Hkv} (G 7) D={D} page={page} bf16 q, bf16 cache"),
+        library_call="scaled_dot_product_attention(enable_gqa, bool mask) "
+        "over q padded to [S, Hq, 1024, D] and K/V gathered dense per "
+        "sequence", varlen_library_call=VARLEN_CALL)
+    return {name: r}
 
 
 def mla_kernels(dev):
@@ -886,6 +1002,9 @@ def hybrid_kernels(dev):
                                                      x["kvl_drop"], pt, **kw),
             _mixed_library(x, kd, vd, scale), 20,
             _kv_bytes(kv, page, Hkv, D, cache) + io, 4 * Hq * D * visible,
+            varlen=_varlen_library(x, kc.to(torch.bfloat16),
+                                   vc.to(torch.bfloat16), scale),
+            varlen_library_call=VARLEN_CALL + LIB_NOTE[cache],
             shapes=(f"T={T_pad} ({T_real} real: 24 decode rows + chunks "
                     f"512/300/1024) S={S_pad} ({S_real} real) ctx<=2048 "
                     f"Hq={Hq} Hkv={Hkv} D={D} page={page} bf16 q, {cache} "
@@ -1468,6 +1587,8 @@ def main():
             "bytes": r["bytes"], "flops": r["flops"],
             "library_ms": r["library_ms"],
             "library_call": r["library_call"],
+            "varlen_library_ms": r.get("varlen_library_ms"),
+            "varlen_library_call": r.get("varlen_library_call"),
             "library_backend": r["library_backend"], "shapes": r["shapes"]})
     log(f"[done] {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": line}), flush=True)

@@ -1,6 +1,6 @@
 // Split-KV paged decode attention: the kernels and their launcher, shared by
-// decode_attention.cu (K2, K2q, K2 over fp8) and unified_attention.cu (the
-// decode-class blocks of K1u).
+// decode_attention.cu (K2, K2q, K2 over fp8) and ragged_attention.cu (the
+// decode-class blocks of K1 and K1u).
 //
 // One query row per sequence attends over that sequence's paged KV context,
 // online softmax in float32. Bound on the card: bytes. Each (sequence, kv
@@ -39,7 +39,7 @@
 // per query head, tiles widened to float in shared memory, and a second
 // launch that merges the splits.
 // Rows with kv_len == 0 (batch padding) come out as zeros.
-// UNIFIED (K1u's decode class): q and out are the step's flat [T, Hq, D]
+// UNIFIED (the decode class of K1 and K1u): q and out are the step's flat [T, Hq, D]
 // tokens, and only the sequences of the batch's decode prefix run (token s
 // is sequence s there); every other block exits at once, since the ragged
 // blocks of the same step own those rows.

@@ -5,11 +5,11 @@
 // the unified engine (decode, mixed and prefill batches) of an MLA model,
 // over the latent cache [P, page, 1, DL] whose values are each row's
 // leading DV lanes, in q's dtype or in fp8. It is to the MLA kernels (K1m,
-// K2m) what unified_attention.cu is to K1 and K2. Bound on the card: bytes
+// K2m) what ragged_attention.cu is to K1 / K1u and K2. Bound on the card: bytes
 // for the decode rows, operations for the prefill chunks (see
 // mla_attention.cuh).
 //
-// As in unified_attention.cu, the batch's decode prefix is found on the
+// As in ragged_attention.cu, the batch's decode prefix is found on the
 // device from cu_q_lens (decode_prefix_len, paged_kv.cuh) and the wrapper
 // makes no host sync:
 // - the decode prefix runs K2m's split-KV decode blocks (one 16-head token
@@ -19,7 +19,7 @@
 //   chunk, padding) runs K1m's ragged blocks.
 // The two classes write disjoint output rows and read disjoint sequences.
 // Both rescale the online softmax the classic way, not AMLA's (see
-// unified_attention.cu for why); they are held to the plain version, which
+// ragged_attention.cu for why); they are held to the plain version, which
 // keeps AMLA's math.
 
 #include "mla_attention.cuh"

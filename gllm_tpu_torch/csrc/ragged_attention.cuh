@@ -1,6 +1,7 @@
-// Ragged paged attention: the kernels and their launcher, shared by
-// ragged_attention.cu (K1, K1q) and unified_attention.cu (the ragged-class
-// blocks of K1u).
+// Ragged paged attention: the float32 kernel and what the ragged blocks
+// share (ragged_wgmma.cuh holds the bf16 / fp16 block and the launcher;
+// mla_attention.cuh's blocks use locate_block and the mma.sync and
+// cp.async helpers here).
 //
 // A flat packed batch of query tokens (decode rows and prefill chunks of
 // several sequences) attends causally over each sequence's paged KV. Token
@@ -8,45 +9,25 @@
 // keys 0..that position; batch-padding tokens (past cu_q_lens[S]) come out
 // as zeros.
 //
-// Bound on the card: operations, for the prefill chunks that dominate a
-// mixed step (4 * Hq * D flops per visible key per query token).
-// Design: the TPU kernel's grid of flat 512-token q blocks that straddle
-// sequences (found by searchsorted in the wrapper, sized by the VMEM limit)
-// does not carry over. The grid here is fixed, (cdiv(T, BQ) + S, Hkv): each
-// block finds its own (sequence, q tile) from cu_q_lens with a warp scan,
-// so the wrapper needs no host sync, and blocks beyond the real work zero
-// the padding tokens or exit. A block holds 64 query rows (BQ = 64 / G
-// tokens times the G query heads of one kv head), so every K/V tile it
-// loads serves all of them, and it walks the sequence's pages only up to
-// the last key its rows can see, with a float32 online softmax.
-// bf16 / fp16: tensor cores (mma.sync m16n8k16, float32 accumulators), one
-// warp per 16 query rows (two at D 256, each owning half of the output
-// columns; see MmaCols), 64-key K/V tiles double-buffered in shared memory
-// with cp.async so the next tile's loads overlap this tile's products; a
-// warp skips a tile none of its rows can see. float32: the same walk with
-// plain FMA on register tiles out of shared memory (the tensor cores take
-// no full-precision float32). wgmma, TMA and warp specialisation are later
-// work.
-// int8 cache (K1q): on the tensor-core path the int8 tiles (half the bytes)
-// are double-buffered with cp.async beside their pages' scale rows, then
-// widened to bf16/fp16 in shared memory, which is exact for |x| <= 127. The
-// products take the raw integers: each key column's scale multiplies its
-// float32 score, and each page's value scale multiplies the float32 P.V
-// product of its 16-key step (pages of fewer keys fold each value row's
-// scale into the probabilities instead). q is never quantized. The FMA
-// path dequantizes each tile as it loads it.
-// fp8 cache: staged and widened as an int8 tile is (exactly: bf16 and fp16
-// hold every e4m3 value), with no scale anywhere; the FMA path widens each
-// tile as it loads it.
-// UNIFIED (K1u's ragged class): the sequences of the batch's decode prefix
-// get no tiles here (the decode-class blocks of the same step own them).
+// float32 (the reference paths; the tensor cores take no full-precision
+// float32): the grid is (cdiv(T, BQ) + S, Hkv); each block finds its own
+// (sequence, q tile) from cu_q_lens with a warp scan, so the wrapper needs
+// no host sync, and blocks beyond the real work zero the padding tokens or
+// exit. A block holds 64 query rows (BQ = floor(64 / G) tokens times the G
+// query heads of one kv head), so every K/V tile it loads serves all of
+// them, and it walks the sequence's pages only up to the last key its rows
+// can see, with a float32 online softmax on plain FMA over register tiles
+// out of shared memory. An int8 tile is dequantized, an fp8 one widened,
+// as it loads.
+// UNIFIED: the sequences of the batch's decode prefix get no tiles here
+// (the decode-class blocks of the same step own them).
 #pragma once
 
 #include "paged_kv.cuh"
 
 namespace gllm {
 
-constexpr int kRows = 64;  // query rows per block (both kernels)
+constexpr int kRows = 64;  // query rows per block of the float32 kernel
 
 // Which (sequence, q tile) is this block's? Sequence s owns
 // cdiv(q_len_s, bq) consecutive block indices (none when UNIFIED puts it
@@ -328,22 +309,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- bf16 / fp16: tensor cores ---------------------------------------------
-
-constexpr int kMmaKeys = 64;  // keys per tile
-constexpr int kMmaRowWarps = 4;  // warps of 16 query rows: 64 rows a block
-
-// Warps sharing one 16-row group's output columns. At D 256 a warp owning
-// all 256 columns would hold 128 float32 accumulators a thread beside Q's
-// 64 fragment registers; two warps a row group, 128 columns each, keep a
-// thread at 64 accumulators. Both warps of a row group compute the same
-// scores (the Q.K^T product is repeated, in the same order, so their
-// softmax statistics agree bit for bit) and each does half of P.V.
-template <int D>
-struct MmaCols {
-  static constexpr int WN = D > 128 ? 2 : 1;
-  static constexpr int THREADS = 32 * kMmaRowWarps * WN;
-};
+// ---- tensor-core and copy helpers (mma.sync, cp.async, ldmatrix) -----------
 
 // mma.sync m16n8k16 with float32 accumulators, and the packing of two
 // floats into one 32-bit A-fragment register (lower index in the low half)
@@ -410,398 +376,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
-}
-
-// Shared memory of the tensor-core kernel. Full-precision cache: K and V
-// tiles of T, two stages. One-byte cache (int8 or fp8): one stage of T
-// tiles (widened), and two stages of one-byte K and V tiles, plus, for
-// int8, their rows' scales.
-template <typename T, typename TC, int D>
-struct MmaSmem {
-  static constexpr bool Q8 = is_q8<TC>();
-  static constexpr bool NARROW = sizeof(TC) == 1;
-  static constexpr int LD = D + 8;  // row stride: conflict-free fragments
-  static constexpr int TILE = kMmaKeys * LD;
-  static constexpr int T_TILES = NARROW ? 2 : 4;             // of TILE x T
-  static constexpr size_t N_OFF = T_TILES * TILE * sizeof(T);
-  static constexpr size_t N_TILE = kMmaKeys * D;             // bytes
-  static constexpr size_t SC_OFF = N_OFF + 4 * N_TILE;       // 2 x (K, V)
-  static constexpr size_t BYTES =
-      Q8 ? SC_OFF + 4 * kMmaKeys * sizeof(float)
-         : (NARROW ? SC_OFF : N_OFF);
-};
-
-// Issue the cp.async copies of keys [j0, j0 + kMmaKeys) of one kv head into
-// shared K and V tiles (and, for an int8 cache, their rows' scales); rows at
-// or past n_valid are zero-filled, so no key (or scale) at or beyond kv_len
-// is read and a masked key never multiplies garbage.
-template <typename TC, int D, int LD>
-__device__ __forceinline__ void issue_kv_tile(TC* sk, TC* sv, float* sks,
-                                              float* svs, const TC* kc,
-                                              const TC* vc, const float* ks,
-                                              const float* vs,
-                                              const int* pt_row, int j0,
-                                              int n_valid, int page_size,
-                                              int page_offset,
-                                              int num_kv_heads, int h) {
-  constexpr int CH = 16 / sizeof(TC);  // elements per 16-byte chunk
-  constexpr int CPR = D / CH;
-  for (int c = threadIdx.x; c < kMmaKeys * CPR; c += blockDim.x) {
-    const int r = c / CPR;
-    const int col = (c % CPR) * CH;
-    const bool valid = r < n_valid;
-    const int64_t off =
-        valid ? kv_row_offset(pt_row, j0 + r, page_size, page_offset,
-                              num_kv_heads, D, h) + col
-              : 0;
-    cp_async16(sk + r * LD + col, kc + off, valid);
-    cp_async16(sv + r * LD + col, vc + off, valid);
-  }
-  if constexpr (is_q8<TC>()) {
-    for (int r = threadIdx.x; r < kMmaKeys; r += blockDim.x) {
-      const bool valid = r < n_valid;
-      const int64_t i =
-          valid ? kv_page(pt_row, j0 + r, page_size, page_offset) *
-                          num_kv_heads + h
-                : 0;
-      cp_async4(sks + r, ks + i, valid);
-      cp_async4(svs + r, vs + i, valid);
-    }
-  }
-  cp_async_commit();
-}
-
-// Widen a [ROWS, D] tile of one-byte values (int8 or fp8, row stride D) to
-// T in rows of stride LD: exact, since T holds every such value.
-template <typename T, typename TC, int ROWS, int D, int LD>
-__device__ __forceinline__ void widen_tile(T* dst, const TC* src) {
-  static_assert(sizeof(TC) == 1 && D % 16 == 0, "one-byte rows of 16s");
-  constexpr int CPR = D / 16;
-  for (int c = threadIdx.x; c < ROWS * CPR; c += blockDim.x) {
-    const int r = c / CPR;
-    const int col = (c % CPR) * 16;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * D + col);
-    const TC* e = reinterpret_cast<const TC*>(&raw);
-    uint32_t w[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      w[i] = Mma<T>::pack(to_float(e[2 * i]), to_float(e[2 * i + 1]));
-    uint4* d = reinterpret_cast<uint4*>(dst + r * LD + col);
-    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
-  }
-}
-
-template <typename T, typename TC, int D, bool UNIFIED>
-__global__ void __launch_bounds__(MmaCols<D>::THREADS)
-    ragged_attention_mma_kernel(const T* __restrict__ q,
-                                const TC* __restrict__ kc,
-                                const TC* __restrict__ vc,
-                                const float* __restrict__ ks,
-                                const float* __restrict__ vs,
-                                const int* __restrict__ cu_q_lens,
-                                const int* __restrict__ kv_lens,
-                                const int* __restrict__ page_table,
-                                T* __restrict__ out, int num_tokens, int S,
-                                int max_pages, int num_q_heads,
-                                int num_kv_heads, int group, int page_size,
-                                int page_offset, float scale_log2) {
-  using SM = MmaSmem<T, TC, D>;
-  constexpr bool Q8 = SM::Q8;
-  constexpr bool NARROW = SM::NARROW;
-  constexpr int LD = SM::LD;
-  constexpr int NK = kMmaKeys / 8;  // key n-tiles of S
-  constexpr int ND = D / 8 / MmaCols<D>::WN;  // dim n-tiles of O a warp
-  static_assert(ND % 2 == 0, "P.V loads two dim n-tiles at a time");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  // one-byte cache: staging tiles [stage][K, V]; int8: and the scales
-  // [stage][K, V][keys]
-  TC* stage8 = reinterpret_cast<TC*>(smem_raw + SM::N_OFF);
-  float* stage_sc = reinterpret_cast<float*>(smem_raw + SM::SC_OFF);
-  __shared__ int s_seq, s_tile;
-
-  const int h = blockIdx.y;
-  const int bq = kRows / group;
-  locate_block<UNIFIED>(cu_q_lens, S, bq, &s_seq, &s_tile);
-  const int seq = s_seq;
-  const int tile = s_tile;
-  if (seq < 0) {
-    zero_padding(out, cu_q_lens, S, tile, bq, num_tokens, num_q_heads, group,
-                 D, h);
-    return;
-  }
-
-  const int q_start = cu_q_lens[seq];
-  const int q_len = cu_q_lens[seq + 1] - q_start;
-  const int kv_len = kv_lens[seq];
-  const int t_first = tile * bq;
-  const int n_tok = min(bq, q_len - t_first);
-  const int n_rows = n_tok * group;
-  const int pos0 = kv_len - q_len + t_first;
-  const int kv_end = min(kv_len, pos0 + n_tok);
-  const int* pt_row = page_table + (int64_t)seq * max_pages;
-
-  const int warp = threadIdx.x / 32 % kMmaRowWarps;  // its 16-row group
-  const int dn0 = threadIdx.x / 32 / kMmaRowWarps * ND;  // first dim n-tile
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;  // fragment row, column pair
-  const bool page16 = page_size % 16 == 0;
-  // this thread's two rows (i = 0: row g, i = 1: row g + 8 of the warp),
-  // r = token * group + head; a row past n_rows sees no key (pos -1)
-  int pos[2];
-  int64_t row_off[2];  // element offset of the row in q and out
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + g + 8 * i;
-    const bool live = r < n_rows;
-    pos[i] = live ? pos0 + r / group : -1;
-    row_off[i] = ((int64_t)(q_start + t_first + (live ? r / group : 0)) *
-                      num_q_heads +
-                  (int64_t)h * group + (live ? r % group : 0)) * D;
-  }
-  // the last position any row of this warp can see
-  const int warp_rows = min(16, n_rows - warp * 16);
-  const int warp_last = warp_rows > 0
-                            ? pos0 + (warp * 16 + warp_rows - 1) / group
-                            : -1;
-
-  // Q as A fragments, for the whole walk
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const bool live = pos[i] >= 0;
-      const T* src = q + row_off[i] + kk * 16 + 2 * t4;
-      qa[kk][i] = live ? *reinterpret_cast<const uint32_t*>(src) : 0u;
-      qa[kk][i + 2] = live ? *reinterpret_cast<const uint32_t*>(src + 8) : 0u;
-    }
-
-  float o[ND][4];
-#pragma unroll
-  for (int dn = 0; dn < ND; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-
-  // stage `st` of the cp.async ring: where tile it + 1 lands
-  auto issue = [&](int st, int j0) {
-    const int n = min(kMmaKeys, kv_end - j0);
-    if constexpr (NARROW) {
-      TC* k8 = stage8 + st * 2 * SM::N_TILE;
-      float* sc = stage_sc + st * 2 * kMmaKeys;  // read for int8 only
-      issue_kv_tile<TC, D, D>(k8, k8 + SM::N_TILE, sc, sc + kMmaKeys, kc,
-                              vc, ks, vs, pt_row, j0, n, page_size,
-                              page_offset, num_kv_heads, h);
-    } else {
-      T* nk = smem + st * 2 * SM::TILE;
-      issue_kv_tile<TC, D, LD>(nk, nk + SM::TILE, nullptr, nullptr, kc, vc,
-                               nullptr, nullptr, pt_row, j0, n, page_size,
-                               page_offset, num_kv_heads, h);
-    }
-  };
-
-  const int n_tiles = (kv_end + kMmaKeys - 1) / kMmaKeys;
-  if (n_tiles > 0) issue(0, 0);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int j0 = it * kMmaKeys;
-    if (it + 1 < n_tiles)
-      issue((it + 1) & 1, j0 + kMmaKeys);
-    else
-      cp_async_commit();  // keep the count even
-    asm volatile("cp.async.wait_group 1;\n" ::);  // this tile has landed
-    __syncthreads();
-    const T* sk;
-    const T* sv;
-    const float* ksc = nullptr;  // this tile's key and value row scales
-    const float* vsc = nullptr;
-    if constexpr (NARROW) {
-      const TC* k8 = stage8 + (it & 1) * 2 * SM::N_TILE;
-      widen_tile<T, TC, kMmaKeys, D, LD>(smem, k8);
-      widen_tile<T, TC, kMmaKeys, D, LD>(smem + SM::TILE, k8 + SM::N_TILE);
-      if constexpr (Q8) {
-        ksc = stage_sc + (it & 1) * 2 * kMmaKeys;
-        vsc = ksc + kMmaKeys;
-      }
-      __syncthreads();
-      sk = smem;
-      sv = smem + SM::TILE;
-    } else {
-      sk = smem + (it & 1) * 2 * SM::TILE;
-      sv = sk + SM::TILE;
-    }
-
-    if (j0 <= warp_last) {  // warp-uniform: some row sees this tile
-      // S = Q K^T: B fragment pairs are contiguous in a K row
-      float s[NK][4];
-#pragma unroll
-      for (int j = 0; j < NK; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-        const T* kr = sk + (j * 8 + g) * LD + 2 * t4;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          Mma<T>::run(s[j], qa[kk],
-                      *reinterpret_cast<const uint32_t*>(kr + kk * 16),
-                      *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
-      }
-      // causal mask, key scale, log2-domain scale, online softmax per row
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < NK; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int kj = j * 8 + 2 * t4 + e;  // key within the tile
-            float x = s[j][2 * i + e];
-            if constexpr (Q8) x *= ksc[kj];
-            const float v = j0 + kj <= pos[i] ? x * scale_log2 : -INFINITY;
-            s[j][2 * i + e] = v;
-            mx = fmaxf(mx, v);
-          }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[i], mx);
-        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < NK; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float p = exp2f(s[j][2 * i + e] - m_safe);
-            s[j][2 * i + e] = p;
-            sum += p;
-          }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        const float alpha = exp2f(m[i] - m_safe);  // 0 before the first key
-        l[i] = l[i] * alpha + sum;
-        m[i] = m_new;
-#pragma unroll
-        for (int dn = 0; dn < ND; ++dn) {
-          o[dn][2 * i] *= alpha;
-          o[dn][2 * i + 1] *= alpha;
-        }
-      }
-      if constexpr (Q8) {
-        // a 16-key step of the P.V product below spans one page when the
-        // page holds a multiple of 16 keys (the tile starts at a multiple
-        // of 64): its value scale then multiplies the step's float32
-        // product, and P and the integers reach the tensor cores exactly
-        // as they are (a row's largest probability, 1, rounds exactly).
-        // Smaller pages fold each value row's scale into P.
-        if (!page16) {
-#pragma unroll
-          for (int j = 0; j < NK; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              s[j][e] *= vsc[j * 8 + 2 * t4 + (e & 1)];
-        }
-      }
-      // O += P V: P's accumulator layout is the A fragment layout of k16
-#pragma unroll
-      for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
-        const uint32_t pa[4] = {
-            Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-            Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-            Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        // lanes 8i..8i+7 address keys kk*16 + (i&1)*8 + 0..7, dims of the
-        // n-tile dn + (i>>1): r[0..1] are B of dim tile dn, r[2..3] of dn+1
-        const int mi = lane >> 3;
-        const T* vr = sv + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LD +
-                      (mi >> 1) * 8;
-#pragma unroll
-        for (int dn = 0; dn < ND; dn += 2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, vr + (dn0 + dn) * 8);
-          if (Q8 && page16) {
-            const float vs16 = vsc[kk * 16];  // the step's page
-            float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-            Mma<T>::run(t0, pa, b[0], b[1]);
-            Mma<T>::run(t1, pa, b[2], b[3]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              o[dn][e] = fmaf(vs16, t0[e], o[dn][e]);
-              o[dn + 1][e] = fmaf(vs16, t1[e], o[dn + 1][e]);
-            }
-          } else {
-            Mma<T>::run(o[dn], pa, b[0], b[1]);
-            Mma<T>::run(o[dn + 1], pa, b[2], b[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (pos[i] < 0) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* orow = out + row_off[i];
-#pragma unroll
-    for (int dn = 0; dn < ND; ++dn)
-      *reinterpret_cast<uint32_t*>(orow + (dn0 + dn) * 8 + 2 * t4) =
-          Mma<T>::pack(o[dn][2 * i] * inv, o[dn][2 * i + 1] * inv);
-  }
-}
-
-// ---- launch ----------------------------------------------------------------
-
-// Launch the ragged kernel over T tokens of S sequences: the FMA kernel for
-// a float32 q, the tensor-core kernel for bf16 / fp16.
-template <typename T, typename TC, int D, bool UNIFIED>
-static int launch_ragged(const void* q, const void* k, const void* v,
-                         const float* ks, const float* vs, const int* cu,
-                         const int* kv_lens, const int* pt, void* out,
-                         int T_, int S, int max_pages, int hq, int hkv,
-                         int page_size, int page_offset, float scale,
-                         cudaStream_t stream) {
-  const int group = hq / hkv;
-  const int bq = kRows / group;
-  dim3 grid((T_ + bq - 1) / bq + S, hkv);
-  static bool configured = false;
-  const T* qt = static_cast<const T*>(q);
-  const TC* kt = static_cast<const TC*>(k);
-  const TC* vt = static_cast<const TC*>(v);
-  T* ot = static_cast<T*>(out);
-  if constexpr (std::is_same<T, float>::value) {
-    constexpr size_t smem = RaggedSmem<D>::BYTES;
-    auto kern = ragged_attention_kernel<T, TC, D, UNIFIED>;
-    if (!configured) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      configured = true;
-    }
-    kern<<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, ks, vs, cu, kv_lens, pt, ot, T_, S, max_pages, hq, hkv,
-        group, page_size, page_offset, scale * kLog2e);
-  } else {
-    constexpr size_t smem = MmaSmem<T, TC, D>::BYTES;
-    auto kern = ragged_attention_mma_kernel<T, TC, D, UNIFIED>;
-    if (!configured) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      configured = true;
-    }
-    kern<<<grid, MmaCols<D>::THREADS, smem, stream>>>(
-        qt, kt, vt, ks, vs, cu, kv_lens, pt, ot, T_, S, max_pages, hq, hkv,
-        group, page_size, page_offset, scale * kLog2e);
-  }
-  return 0;
-}
-
-// The arguments the ragged launcher takes, checked on the host.
-static inline bool ragged_args_ok(int T_, int S, int hq, int hkv) {
-  const int group = hkv > 0 ? hq / hkv : 0;
-  return T_ > 0 && S > 0 && group >= 1 && kRows % group == 0 &&
-         group * hkv == hq;
 }
 
 }  // namespace gllm

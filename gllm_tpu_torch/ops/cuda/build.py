@@ -24,9 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "gllm_tpu_torch"
-SOURCES = ("decode_attention", "ragged_attention", "unified_attention",
-           "mla_decode_attention", "mla_ragged_attention",
-           "mla_unified_attention", "gdn_scan")
+SOURCES = ("decode_attention", "ragged_attention", "mla_decode_attention",
+           "mla_ragged_attention", "mla_unified_attention", "gdn_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -46,9 +45,7 @@ _SIGNATURES = {
     "decode_attention": ("gllm_decode_attention",
                          [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P]),
     "ragged_attention": ("gllm_ragged_attention",
-                         [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P]),
-    "unified_attention": ("gllm_unified_attention",
-                          [_P] * 10 + [_I] * 10 + [_F, _I, _I, _P]),
+                         [_P] * 10 + [_I] * 10 + [_F, _I, _I, _P]),
     "mla_decode_attention": ("gllm_mla_decode_attention",
                              [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P]),
     "mla_ragged_attention": ("gllm_mla_ragged_attention",

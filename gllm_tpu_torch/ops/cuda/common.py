@@ -19,11 +19,10 @@ WIDE_HEAD_DIMS = HEAD_DIMS + (256,)
 # DeepSeek V2/V3's (576, 512) and (96, 64) for small test models
 MLA_HEADS = 16
 MLA_GEOMETRIES = ((576, 512), (96, 64))
-# GQA groups: K2's and K1u's decode blocks take the group's query heads as
-# the (padded) 16 rows of one MMA; K1's ragged blocks hold 64 query rows,
-# tokens times the group, so the group must divide 64
+# GQA groups: the decode blocks (K2, and the decode class of K1 and K1u)
+# take the group's query heads as the (padded) 16 rows of one MMA; the
+# ragged blocks take floor(64 / G) tokens of G heads a warpgroup, any G
 MAX_GROUP = 16
-ROWS_PER_BLOCK = 64
 # K3's head dims (csrc/gdn_scan.cu)
 GDN_DIMS = (32, 64, 128)
 
@@ -85,11 +84,10 @@ def check_model_shapes(model_cfg, kv_cache_dtype: str = "auto",
                 f"attention kernels need num_heads a multiple of "
                 f"num_kv_heads, got {hq} and {hkv}")
         group = hq // hkv
-        if group > MAX_GROUP or ROWS_PER_BLOCK % group:
+        if group > MAX_GROUP:
             raise NotImplementedError(
                 f"attention kernels take a GQA group (num_heads / "
-                f"num_kv_heads) of at most {MAX_GROUP} that divides "
-                f"{ROWS_PER_BLOCK}, got {group}")
+                f"num_kv_heads) of at most {MAX_GROUP}, got {group}")
         wide = not unified and kv_cache_dtype != "int8"
         dims = WIDE_HEAD_DIMS if wide else HEAD_DIMS
         if cfg.head_dim not in dims:

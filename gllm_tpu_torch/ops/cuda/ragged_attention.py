@@ -6,28 +6,29 @@ in its GQA modes. A flat packed batch of query tokens (decode rows and
 prefill chunks) attends causally over each sequence's paged KV: token t of
 sequence s sits at position ``kv_len - q_len + t``.
 
-- Non-unified (K1; K1q over an int8 cache with ``k_scale``/``v_scale``):
-  ``csrc/ragged_attention.cu``, bound by operations on the prefill chunks.
-  A fixed grid of ``(cdiv(T, BQ) + S, Hkv)`` blocks finds its own
-  (sequence, q tile) from ``cu_q_lens``, so this wrapper issues no host
-  sync, and each block reuses every K/V tile it loads for its 64 query
-  rows. bf16 and fp16 run on the tensor cores (``mma.sync``) with
-  double-buffered ``cp.async`` tile loads; float32 runs on plain FMA.
-  Head dims 32, 64 and 128, and 256 over a full-precision or an fp8 cache
-  (Qwen3-Next's gated attention: two warps share each 16-row group's
-  output columns there, see ``csrc/ragged_attention.cuh``). An
-  int8 tile is widened to bf16/fp16 exactly; the key scales multiply the
-  scores and the value scales each page's P·V product.
-- Unified (K1u, ``unified=True``; either cache): ``csrc/unified_attention.cu``
-  serves every paged step of the unified engine in one call. The batch's
-  decode prefix (the longest run of one-token sequences at its head, found
-  on the device from ``cu_q_lens``) runs split-KV decode blocks, every
-  other sequence the ragged blocks. The plain version reproduces the TPU
-  kernel's AMLA softmax (``_online_update``: log2-domain scores, a
-  running max rounded up with ``ceil``, ``exp2``, power-of-two rescales
-  that flush to 0 below the normal range); the CUDA kernel rescales the
-  classic way, which keeps each row's largest probability exactly 1 when
-  it is rounded for the tensor cores (see ``csrc/unified_attention.cu``).
+- GQA, non-unified (K1; K1q over an int8 cache with ``k_scale``/``v_scale``)
+  and unified (K1u, ``unified=True``): one C entry,
+  ``csrc/ragged_attention.cu``, serves both; they differ only in their plain
+  versions. The batch's decode prefix (the longest run of one-token
+  sequences at its head, found on the device from ``cu_q_lens``) runs the
+  split-KV decode blocks (``csrc/decode_attention.cuh``); every other
+  sequence runs the ragged blocks, which find their own (sequence, tile)
+  from ``cu_q_lens``, each sequence's last tile first, so this wrapper
+  issues no host sync. bf16 and fp16 run a warp-specialised ``wgmma``
+  block (``csrc/ragged_wgmma.cuh``: two consumer warpgroups of 64 query
+  rows, floor(64 / G) tokens times the G heads of a kv head, and a
+  producer warpgroup filling a ring of K/V stages), bound by operations on
+  the prefill chunks; float32 runs plain FMA. Any GQA group up to
+  ``MAX_GROUP``. Head dims 32, 64 and 128, and 256 over a full-precision
+  or an fp8 cache for K1 (Qwen3-Next's gated attention). An int8 tile is
+  widened to bf16/fp16 exactly; the key scales multiply the scores and
+  the value scales are folded into the probabilities. The plain version of
+  K1u reproduces the TPU kernel's AMLA softmax (``_online_update``:
+  log2-domain scores, a running max rounded up with ``ceil``, ``exp2``,
+  power-of-two rescales that flush to 0 below the normal range); the CUDA
+  blocks rescale the classic way, which keeps each row's largest
+  probability exactly 1 when it is rounded for the tensor cores (see
+  ``csrc/ragged_attention.cu``).
 - MLA (K1m, non-unified, ``v_cache=None``): ``csrc/mla_ragged_attention.cu``
   over a shared latent cache [P, page, 1, Dl] whose values are the keys'
   leading ``v_dim`` lanes; ``wgmma`` over 4 tokens x 16 heads a block,
@@ -50,8 +51,8 @@ from __future__ import annotations
 import torch
 
 from gllm_tpu_torch.ops.cuda import build
-from gllm_tpu_torch.ops.cuda.common import (MAX_GROUP, ROWS_PER_BLOCK,
-                                            cache_code, cache_suffix,
+from gllm_tpu_torch.ops.cuda.common import (MAX_GROUP, cache_code,
+                                            cache_suffix,
                                             check_inputs,
                                             check_latent_inputs, data_ptr,
                                             gather_pages)
@@ -206,13 +207,10 @@ def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
     T, Hq, D = q.shape
     check_inputs("ragged_paged_attention", q, k_cache, v_cache,
                  (cu_q_lens, kv_lens, page_table),
-                 max_group=MAX_GROUP if unified else ROWS_PER_BLOCK,
-                 k_scale=k_scale, v_scale=v_scale, wide=not unified)
+                 max_group=MAX_GROUP, k_scale=k_scale, v_scale=v_scale,
+                 wide=not unified)
     S = kv_lens.shape[0]
     Hkv = k_cache.shape[2]
-    if ROWS_PER_BLOCK % (Hq // Hkv):
-        raise ValueError("ragged_paged_attention: the query group size "
-                         f"{Hq // Hkv} must divide {ROWS_PER_BLOCK}")
     if cu_q_lens.shape != (S + 1,) or page_table.shape[0] != S:
         raise ValueError("ragged_paged_attention: cu_q_lens [S+1], kv_lens "
                          "[S] and page_table [S, max_pages] must agree")
@@ -226,13 +224,9 @@ def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
     dims = (S, page_table.shape[1], Hq, Hkv, D, k_cache.shape[1],
             page_offset)
     codes = (build.DTYPE_CODES[q.dtype], cache_code(k_cache), stream)
-    if unified:
-        chunk, num_splits, part = split_plan(q, k_cache, page_table)
-        rc = build.kernel("unified_attention")(
-            *ptrs, data_ptr(part), T, *dims, chunk, num_splits, scale,
-            *codes)
-    else:
-        rc = build.kernel("ragged_attention")(*ptrs, T, *dims, scale, *codes)
+    chunk, num_splits, part = split_plan(q, k_cache, page_table)
+    rc = build.kernel("ragged_attention")(
+        *ptrs, data_ptr(part), T, *dims, chunk, num_splits, scale, *codes)
     build.check(rc, "ragged_paged_attention")
     ragged_paged_attention.launches[
         kernel_name(unified, False, k_cache)] += 1

@@ -257,7 +257,11 @@ def _model(**kw):
 
 @pytest.mark.parametrize("kw,cache,unified,match", [
     (dict(), "auto", False, None),
-    (dict(num_heads=28, num_kv_heads=4), "auto", False, "group"),  # 7
+    # any group up to 16, dividing 64 or not (the ragged blocks take
+    # floor(64 / G) tokens a warpgroup)
+    (dict(num_heads=28, num_kv_heads=4), "auto", False, None),     # 7
+    (dict(num_heads=10, num_kv_heads=2), "auto", False, None),     # 5
+    (dict(num_heads=12, num_kv_heads=2), "int8", True, None),      # 6
     (dict(num_heads=32, num_kv_heads=1), "auto", False, "group"),  # 32
     (dict(head_dim=256, num_heads=16, num_kv_heads=2), "fp8", False, None),
     (dict(head_dim=256, num_heads=16, num_kv_heads=2), "int8", False,
@@ -300,4 +304,4 @@ def test_runner_on_cuda_refuses_kernel_shapes_before_loading():
     from gllm_tpu_torch.runner.runner import ModelRunner
     with pytest.raises(NotImplementedError, match="group"):
         ModelRunner(EngineConfig(load_format="dummy"),
-                    _model(num_heads=28, num_kv_heads=4), "cuda")
+                    _model(num_heads=32, num_kv_heads=1), "cuda")

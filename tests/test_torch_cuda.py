@@ -146,6 +146,109 @@ MAIN_PATH_RAGGED = dict(
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
 
 
+# ---- the wgmma ragged block (csrc/ragged_wgmma.cuh): cases added to the
+# ragged and unified tests below. Each runs through _block_check: a layer
+# of NaN before the cache (read with page_offset = its pages; int8: NaN
+# scales), NaN in the read layer's dummy page 0, and, with "drop", a plain
+# version that leaves out the last key of every one-token row, which the
+# tolerance must reject.
+BLOCK_CASES = [
+    # GQA groups that do not divide 64: 5, 6, 7 at D 128 (partly filled
+    # 64-row tiles); G 7 with a decode prefix, a mid-context chunk whose
+    # 1000 keys wrap the ring four times and a ragged one-token row
+    dict(seqs=[(130, 400), (1, 77), (65, 65), (9, 300)], Hq=10, Hkv=2,
+         D=128, page=16, pages=60),
+    dict(seqs=[(63, 200), (1, 9), (64, 64)], pad_seqs=1, Hq=12, Hkv=2,
+         D=128, page=8, pages=50),
+    dict(seqs=[(1, 40)] * 3 + [(130, 1000), (1, 5), (9, 33)], pad_seqs=2,
+         pad_tokens=50, Hq=14, Hkv=2, D=128, page=16, pages=80, drop=True),
+    # token counts 1, 9, 63, 64, 65 and 130 in the ragged class, pages of 32
+    dict(seqs=[(9, 40), (1, 30), (63, 63), (64, 200), (65, 300), (130, 130),
+               (1, 3)], Hq=8, Hkv=2, D=64, page=32, pages=40, drop=True),
+    # head dim 32 (padded to 64 in the block), pages of 4
+    dict(seqs=[(20, 50), (1, 6), (70, 90)], pad_tokens=5, Hq=4, Hkv=1, D=32,
+         page=4, pages=40),
+    # very unequal sequences (the longest-first order), G 1, pages of 8
+    dict(seqs=[(700, 2000), (3, 3), (1, 900), (200, 1200), (2, 40)],
+         pad_seqs=3, pad_tokens=21, Hq=8, Hkv=8, D=64, page=8, pages=530),
+    # D 128 at G 4: a long decode prefix row, a mid-context chunk
+    dict(seqs=[(1, 1500), (40, 1000), (1, 2)], Hq=16, Hkv=4, D=128,
+         page=16, pages=170, drop=True),
+]
+# head dim 256 (a full-precision or an fp8 cache; two ring stages: the
+# 1000 keys wrap it eight times)
+BLOCK_CASES_D256 = [
+    dict(seqs=[(40, 1000), (1, 7), (65, 65)], Hq=16, Hkv=2, D=256, page=16,
+         pages=75, drop=True),
+]
+for _c in BLOCK_CASES + BLOCK_CASES_D256:
+    _c["block"] = True
+
+
+def _block_check(device, case, dtype, cache, unified=False):
+    """A ragged-block case on the card over a full-precision ("fp"),
+    "int8" or "fp8" cache: the kernel against the plain version."""
+    rng = np.random.default_rng(40)
+    q, kc, vc, cu, kvl, pt = ragged_case(
+        rng, case["seqs"], case["Hq"], case["Hkv"], case["D"],
+        case["page"], case["pages"], case.get("pad_seqs", 0),
+        case.get("pad_tokens", 0))
+    ks = vs = None
+    if cache == "int8":
+        kc, vc, ks, vs = int8_cache(rng, kc, vc)
+    P = kc.shape[0]
+
+    def on_card(c):
+        t = torch.from_numpy(c).to(device)
+        return {"fp": lambda: t.to(dtype), "int8": lambda: t,
+                "fp8": lambda: t.to(FP8)}[cache]()
+
+    clean = [on_card(c) for c in (kc, vc)]
+    # the kernel's caches: [a skipped layer | the read layer], NaN in the
+    # skipped layer and in page 0 of the read one (int8: in their scales)
+    kern = []
+    for c in clean:
+        both = torch.cat([c, c])
+        bad = (both.view(torch.uint8) if cache == "fp8" else both)
+        if cache == "fp":
+            bad[:P] = float("nan")
+            bad[P] = float("nan")
+        elif cache == "fp8":
+            bad[:P] = 0x7F
+            bad[P] = 0x7F
+        kern.append(both)
+    scales = clean_scales = {}
+    if cache == "int8":
+        ks, vs = (torch.from_numpy(a).to(device) for a in (ks, vs))
+        ks[0] = 0.0
+        vs[0] = 0.0
+        nan = torch.full_like(ks, float("nan"))
+        scales = dict(k_scale=torch.cat([nan, ks]),
+                      v_scale=torch.cat([nan, vs]))
+        scales["k_scale"][P] = float("nan")
+        scales["v_scale"][P] = float("nan")
+        clean_scales = dict(k_scale=ks, v_scale=vs)
+    q = torch.from_numpy(q).to(device, dtype)
+    cu, kvl, pt = (torch.from_numpy(a).to(device) for a in (cu, kvl, pt))
+    scale = case["D"] ** -0.5
+    out = trag.ragged_paged_attention(q, *kern, cu, kvl, pt, scale=scale,
+                                      page_offset=P, unified=unified,
+                                      **scales)
+    if cache == "fp":
+        clean = [torch.nan_to_num(c) for c in clean]
+    want = trag.ragged_paged_attention_plain(q, *clean, cu, kvl, pt,
+                                             scale=scale, unified=unified,
+                                             **clean_scales)
+    _check(out, want, dtype)
+    if case.get("drop"):
+        drop = _one_token_rows(case["seqs"], case.get("pad_seqs", 0), device)
+        dropped = trag.ragged_paged_attention_plain(
+            q, *clean, cu, kvl - drop, pt, scale=scale, unified=unified,
+            **clean_scales)
+        assert not torch.allclose(out.float(), dropped.float(),
+                                  rtol=TOL[dtype], atol=TOL[dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
@@ -154,8 +257,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
          pages=16),
     dict(seqs=[(9, 33), (1, 5)], pad_tokens=7, Hq=16, Hkv=2, D=128,
          page=8, pages=12),
-    MAIN_PATH_RAGGED])
+    MAIN_PATH_RAGGED] + BLOCK_CASES)
 def test_ragged_kernel_matches_plain(cuda_device, case, dtype):
+    if case.get("block"):
+        return _block_check(cuda_device, case, dtype, "fp")
     rng = np.random.default_rng(3)
     q, kc, vc, cu, kvl, pt = ragged_case(
         rng, case["seqs"], case["Hq"], case["Hkv"], case["D"],
@@ -253,8 +358,10 @@ DTYPES = [torch.float32, torch.bfloat16, torch.float16]
                                   dict(seqs=[(9, 33), (1, 5)], pad_tokens=7,
                                        Hq=16, Hkv=2, D=128, page=8,
                                        pages=12),
-                                  MAIN_PATH_RAGGED])
+                                  MAIN_PATH_RAGGED] + BLOCK_CASES)
 def test_ragged_int8_kernel_matches_plain(cuda_device, case, dtype):
+    if case.get("block"):
+        return _block_check(cuda_device, case, dtype, "int8")
     rng = np.random.default_rng(13)
     q, kc, vc, ks, vs, cu, kvl, pt = unified_case(
         rng, case, True, case["Hq"], case["Hkv"], case["D"], case["page"],
@@ -313,8 +420,11 @@ UNIFIED_CARD_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", UNIFIED_CARD_CASES)
+@pytest.mark.parametrize("case", UNIFIED_CARD_CASES + BLOCK_CASES)
 def test_unified_kernel_matches_plain(cuda_device, case, dtype, int8):
+    if case.get("block"):
+        return _block_check(cuda_device, case, dtype,
+                            "int8" if int8 else "fp", unified=True)
     rng = np.random.default_rng(15)
     arrays = unified_case(rng, case, int8, case["Hq"], case["Hkv"],
                           case["D"], case["page"], case["pages"])
@@ -775,7 +885,7 @@ D256_DECODE_CASES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", D256_RAGGED_CASES)
+@pytest.mark.parametrize("case", D256_RAGGED_CASES + BLOCK_CASES_D256)
 def test_ragged_kernel_d256_matches_plain(cuda_device, case, dtype):
     test_ragged_kernel_matches_plain(cuda_device, case, dtype)
 
@@ -1013,8 +1123,11 @@ def _fp8_on_card(device, dtype, q, kc, vc, *index):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", [RAGGED_CASES[2], RAGGED_CASES[3],
-                                  MAIN_PATH_RAGGED, D256_RAGGED_CASES[0]])
+                                  MAIN_PATH_RAGGED, D256_RAGGED_CASES[0]]
+                         + BLOCK_CASES + BLOCK_CASES_D256)
 def test_ragged_fp8_kernel_matches_plain(cuda_device, case, dtype):
+    if case.get("block"):
+        return _block_check(cuda_device, case, dtype, "fp8")
     rng = np.random.default_rng(33)
     q, kc, vc, cu, kvl, pt = ragged_case(
         rng, case["seqs"], case["Hq"], case["Hkv"], case["D"],
@@ -1058,8 +1171,10 @@ def test_decode_fp8_kernel_matches_plain(cuda_device, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", UNIFIED_CARD_CASES)
+@pytest.mark.parametrize("case", UNIFIED_CARD_CASES + BLOCK_CASES)
 def test_unified_fp8_kernel_matches_plain(cuda_device, case, dtype):
+    if case.get("block"):
+        return _block_check(cuda_device, case, dtype, "fp8", unified=True)
     rng = np.random.default_rng(35)
     q, kc, vc, _, _, cu, kvl, pt = unified_case(
         rng, case, False, case["Hq"], case["Hkv"], case["D"], case["page"],

@@ -114,6 +114,24 @@ def test_greedy_generate_token_identical_to_jax_xla(num_pages, max_prefill):
         assert port.scheduler.num_preemptions > 0
 
 
+
+def test_group7_greedy_generate_token_identical_to_jax():
+    """A dense model at a GQA group of 7 (14 query over 2 KV heads; the
+    card's ragged blocks take floor(64 / 7) tokens a warpgroup): greedy
+    streams identical to the JAX LLM at float32, chunked prefill and
+    decode steps both."""
+    model = dict(MODEL, num_heads=14, num_kv_heads=2)
+    params = jdense.init_params(JMC(**model), seed=5, dtype=jnp.float32)
+    np_params = jax.tree.map(np.asarray, params)
+    prompts, max_tokens, _ = _workload(5)
+    keep = [True] * 5
+    port = _port_llm(np_params, model, 128, 16)
+    got = _drive(port, gt.SamplingParams, prompts, max_tokens, keep)
+    want = _drive(_jax_llm(params, model, 128, 16, "xla"), JSP, prompts,
+                  max_tokens, keep)
+    assert got == want
+    assert port.step_counts["mixed"] > 0 and port.step_counts["decode"] > 0
+
 def _policy_workload():
     """8 requests, 6 of them sharing a 24-token prefix."""
     rng = np.random.default_rng(5)
