@@ -34,39 +34,53 @@ no result line:
              chunks of 64), with the GDN layer's peak memory at that shape
 4. serve     LLM.generate at the full Llama-3.2-1B width (dummy bf16
              weights from a seed) for 16 greedy requests, in six
-             configurations: the bf16 sync loop (once), then an int8 KV
-             cache, the unified step, the unified step over an int8 cache
-             and an fp8 KV cache (three runs each), and the unified step
-             over an fp8 cache (once); then DeepSeek-V2-Lite at full width
-             (27 layers, 64 experts, latent 512 + 64) after the Llama
-             engines are freed: the legacy step and the unified step (three
-             runs each), over an fp8 latent and both (once each), the later
+             configurations: the bf16 sync loop, an int8 KV cache, the
+             unified step, the unified step over an int8 cache, an fp8 KV
+             cache and the unified step over an fp8 cache; then
+             DeepSeek-V2-Lite at full width (27 layers, 64 experts, latent
+             512 + 64) after the Llama engines are freed: the legacy step
+             and the unified step, over an fp8 latent and both, the later
              engines on the first one's weights; then Qwen3-Next-80B-A3B at
              full width, depth cut to 12 layers (9 GDN, 3 gated full
-             attention; 512 experts, top-10; three runs, then once over an
-             fp8 cache on the same weights) after DeepSeek is freed.
-             Each must launch exactly its kernels and no plain version
-             (DeepSeek: K1m on every layer of every mixed step, K2m on
-             every layer of every decode step, K1um on every layer of every
-             step under the unified step; Qwen3-Next: K3 on every GDN layer
-             and K1 at D 256 on every full layer of every mixed step, K2 at
-             D 256 on every full layer of every decode step; the fp8
-             configurations the same kernels' fp8 modes), and leave the
-             decode kernels' split counters at zero; each fp8
+             attention; 512 experts, top-10), then over an fp8 cache on the
+             same weights, after DeepSeek is freed. Every engine replays
+             its pure-decode steps as CUDA graphs (enforce_eager off, the
+             default): llm.runner.warmup() captures JAX's bucket combos
+             first (graphs, seconds and pool MiB printed), and each decode
+             step must be one replay. The bf16, unified, DeepSeek (both
+             steps) and Qwen3-Next configurations also serve an eager twin
+             (enforce_eager) on the same weights, runs in the order eager,
+             graph, graph, eager, both medians and their ratio printed, and
+             the twins' greedy streams must be identical (else the first
+             differing token and the eager logits there are printed, and
+             the run fails); the others run once.
+             Each must launch exactly its kernels and no plain version,
+             replays counted (DeepSeek: K1m on every layer of every mixed
+             step, K2m on every layer of every decode step, K1um on every
+             layer of every step under the unified step; Qwen3-Next: K3 on
+             every GDN layer and K1 at D 256 on every full layer of every
+             mixed step, K2 at D 256 on every full layer of every decode
+             step; the fp8 configurations the same kernels' fp8 modes), and
+             leave the decode kernels' split counters at zero; each fp8
              configuration's KV pages beside its full-precision twin's; a
-             profiled window of the bf16, unified-int8, DeepSeek (both
-             steps) and Qwen3-Next runs
+             profiled window of the graph engine of the bf16 (and of its
+             eager twin), unified-int8, DeepSeek (both steps) and
+             Qwen3-Next configurations: device time by kernel, busy share,
+             kernels per step, host launch calls per decode step, the
+             steps' share of the wall by kind
 5. reference depth cut to 2 layers (4 for the hybrid period), float32:
              the port on the card
-             (kernels) against the port on the CPU (plain versions) —
-             first-step logits and greedy tokens — with a bf16-width
-             float32 cache, an int8 cache, the unified step and an fp8
-             cache, a DeepSeek model (one dense layer, one MoE layer) at
-             the MLA kernels' small latent geometry (64 + 32), also under
-             the unified step and over an fp8 latent, and a hybrid model of
-             one Qwen3-Next period (3 GDN + 1 full layer; GDN Dk = Dv = 32,
-             head_dim 128, two experts and a shared one), also over an fp8
-             cache
+             (kernels, decode steps as CUDA graphs) against the port on the
+             CPU (plain versions) — first-step logits and greedy tokens —
+             with a bf16-width float32 cache, an int8 cache, the unified
+             step and an fp8 cache, a DeepSeek model (one dense layer, one
+             MoE layer) at the MLA kernels' small latent geometry (64 +
+             32), also under the unified step and over an fp8 latent, and a
+             hybrid model of one Qwen3-Next period (3 GDN + 1 full layer;
+             GDN Dk = Dv = 32, head_dim 128, two experts and a shared one),
+             also over an fp8 cache; the float32, unified, both DeepSeek
+             and the hybrid cases also run an eager engine on the card,
+             whose tokens must be the same
 6. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
@@ -690,7 +704,8 @@ def phase_kernels():
         results[name] = measure(
             name,
             lambda: rag.ragged_paged_attention(q, kc, vc, cu, kvl, pt,
-                                               scale=scale, unified=True),
+                                               scale=scale, unified=True,
+                                               decode_only=True),
             lambda: rag.ragged_paged_attention_plain(q, kc, vc, cu, kvl, pt,
                                                      scale=scale,
                                                      unified=True),
@@ -700,7 +715,8 @@ def phase_kernels():
             _decode_library(x, kd, vd, scale), 50,
             _kv_bytes(kv, page, Hkv, D, cache) + io + (S + 1) * 4, flops,
             shapes=f"pure decode as a ragged batch of one-token rows, T={S}"
-            f", {shapes}, {cache} cache",
+            f" (decode_only, as the runner's decode steps call it), "
+            f"{shapes}, {cache} cache",
             library_call=lib_call + LIB_NOTE[cache])
     del x, kd, vd, caches
 
@@ -872,7 +888,10 @@ def mla_kernels(dev):
                   + S * 4 + pages * 4 + ((S + 1) * 4 if unified else 0))
         if unified:
             def run(fn, lens, lat=lat):
-                return fn(q, lat, None, cu, lens, pt, unified=True, **kw)
+                hint = ({"decode_only": True}
+                        if fn is rag.ragged_paged_attention else {})
+                return fn(q, lat, None, cu, lens, pt, unified=True, **kw,
+                          **hint)
             kernel, plain = rag.ragged_paged_attention, \
                 rag.ragged_paged_attention_plain
         else:
@@ -885,8 +904,9 @@ def mla_kernels(dev):
             lambda: run(plain, kvl - 1),
             _decode_library(x, kd, kd[..., :lora], scale), 50, nbytes,
             2 * Hq * (Dl + lora) * ctx,
-            shapes=(("pure decode as a ragged batch of one-token rows, "
-                     if unified else "") + shapes + f", {cache} latent"),
+            shapes=(("pure decode as a ragged batch of one-token rows "
+                     "(decode_only), " if unified else "") + shapes
+                    + f", {cache} latent"),
             library_call=lib_call + LIB_NOTE[cache])
         del kd
     del x, lats
@@ -1217,23 +1237,27 @@ def split_counters_clear():
 
 
 # serve configurations: (model, EngineConfig keywords, runs, the kernels
-# each layer of a step of each kind must launch, profiled)
+# each layer of a step of each kind must launch, profiled). Every engine
+# replays its decode steps as CUDA graphs (enforce_eager False, the
+# default) after llm.runner.warmup(); a configuration in TWINS also serves
+# an eager twin on the same weights, in the order eager, graph, graph,
+# eager (its runs entry is not read)
 SERVE = {
-    "bf16": (llama_3_2_1b, dict(), 1,
+    "bf16": (llama_3_2_1b, dict(), 2,
              {"mixed": ("ragged_paged_attention",),
               "decode": ("paged_decode_attention",)}, True),
-    "int8": (llama_3_2_1b, dict(kv_cache_dtype="int8"), 3,
+    "int8": (llama_3_2_1b, dict(kv_cache_dtype="int8"), 1,
              {"mixed": ("ragged_paged_attention_int8",),
               "decode": ("paged_decode_attention_int8",)}, False),
-    "unified": (llama_3_2_1b, dict(unified_step=True), 3,
+    "unified": (llama_3_2_1b, dict(unified_step=True), 2,
                 {"mixed": ("ragged_paged_attention_unified",),
                  "decode": ("ragged_paged_attention_unified",)}, False),
     "unified_int8": (llama_3_2_1b,
-                     dict(unified_step=True, kv_cache_dtype="int8"), 3,
+                     dict(unified_step=True, kv_cache_dtype="int8"), 1,
                      {"mixed": ("ragged_paged_attention_unified_int8",),
                       "decode": ("ragged_paged_attention_unified_int8",)},
                      True),
-    "fp8": (llama_3_2_1b, dict(kv_cache_dtype="fp8"), 3,
+    "fp8": (llama_3_2_1b, dict(kv_cache_dtype="fp8"), 1,
             {"mixed": ("ragged_paged_attention_fp8",),
              "decode": ("paged_decode_attention_fp8",)}, False),
     "unified_fp8": (llama_3_2_1b,
@@ -1241,11 +1265,11 @@ SERVE = {
                     {"mixed": ("ragged_paged_attention_unified_fp8",),
                      "decode": ("ragged_paged_attention_unified_fp8",)},
                     False),
-    "deepseek": (deepseek_v2_lite, dict(), 3,
+    "deepseek": (deepseek_v2_lite, dict(), 2,
                  {"mixed": ("ragged_paged_attention_mla",),
                   "decode": ("paged_decode_attention_mla",)}, True),
     # the DeepSeek engines after the first reuse its weights
-    "deepseek_unified": (deepseek_v2_lite, dict(unified_step=True), 3,
+    "deepseek_unified": (deepseek_v2_lite, dict(unified_step=True), 2,
                          {"mixed": ("ragged_paged_attention_unified_mla",),
                           "decode": ("ragged_paged_attention_unified_mla",)},
                          True),
@@ -1257,7 +1281,7 @@ SERVE = {
         {"mixed": ("ragged_paged_attention_unified_mla_fp8",),
          "decode": ("ragged_paged_attention_unified_mla_fp8",)}, False),
     # K3 on the GDN layers, K1 / K2 at head_dim 256 on the full ones
-    "qwen3_next": (qwen3_next, dict(), 3,
+    "qwen3_next": (qwen3_next, dict(), 2,
                    {"mixed": ("ragged_paged_attention", "gdn_chunk_scan"),
                     "decode": ("paged_decode_attention",)}, True),
     "qwen3_next_fp8": (qwen3_next, dict(kv_cache_dtype="fp8"), 1,
@@ -1265,6 +1289,15 @@ SERVE = {
                                   "gdn_chunk_scan"),
                         "decode": ("paged_decode_attention_fp8",)}, False),
 }
+TWINS = ("bf16", "unified", "deepseek", "deepseek_unified", "qwen3_next")
+# twins whose eager engine is profiled too (an eager DeepSeek window's
+# trace takes a minute to read back)
+PROFILE_EAGER = ("bf16",)
+# the eager twin's KV pool: the workload's 16 requests need about 1700
+# pages of 16 tokens, so neither engine preempts (the primary engine holds
+# the memory the pool is sized from); a hybrid twin also holds 16 GDN slots
+# (the workload's), not 256
+TWIN_PAGES = 4096
 # each fp8 configuration's full-precision twin, whose KV pages it doubles
 FP8_SERVE_TWINS = {"fp8": "bf16", "unified_fp8": "unified",
                    "deepseek_fp8": "deepseek",
@@ -1284,65 +1317,153 @@ def layers_running(cfg, kernel):
     return cfg.num_attn_layers
 
 
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def first_difference(a, b):
+    """(request, output index) of the first token where two streams
+    differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (u, v) in enumerate(zip(x, y)):
+            if u != v:
+                return i, j
+    return None
+
+
+def explain_difference(eager, prompts, got, want, where):
+    """What the eager engine's logits say at the first differing token: the
+    context (prompt and the common output prefix) prefilled in one chunk,
+    its logits at the two tokens and their largest magnitude."""
+    from gllm_tpu_torch import SamplingParams
+    i, j = where
+    seq = eager._allocate_seq(prompts[i] + want[i][:j],
+                              SamplingParams(temperature=0.0, max_tokens=1))
+    eager.add_seq(seq)
+    batch = eager.scheduler.schedule_once()
+    dev, max_q = eager.runner.prepare(batch)
+    logits = eager.runner.forward_logits(dev, max_q)[0].float()
+    eager.scheduler.process_output(batch, [int(logits.argmax())],
+                                   eager.eos_token_ids)
+    a, b = want[i][j], got[i][j]
+    return (f"request {i}, output token {j}: eager {a}, graph {b}; the "
+            f"eager logits of that context (one prefill chunk) give "
+            f"{logits[a].item()} and {logits[b].item()} (difference "
+            f"{(logits[a] - logits[b]).item()}; max |logit| "
+            f"{logits.abs().max().item()})")
+
+
 def serve(name, model, kw, runs, by_kind, profiled, params=None):
     """Serve one configuration (with ``params``, the weights of an earlier
-    engine of the model: only a new KV pool is built); returns its numbers
-    and the engine's weights."""
+    engine of the model: only a new KV pool is built): warm the graphs,
+    time the runs (alternating with the eager twin where there is one),
+    check the launch counts, the replays and the twins' streams; returns
+    its numbers and the engine's weights."""
     from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, SamplingParams
     kw = dict(kw)
-    cache = CacheConfig(kv_cache_dtype=kw.pop("kv_cache_dtype", "auto"))
+    kv_dtype = kw.pop("kv_cache_dtype", "auto")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    free0 = torch.cuda.mem_get_info()[0]
     t0 = time.monotonic()
     llm = LLM(model_cfg=model(), params=params,
               config=EngineConfig(load_format="dummy", dtype="bfloat16",
-                                  seed=SEED, cache=cache, **kw))
+                                  seed=SEED,
+                                  cache=CacheConfig(kv_cache_dtype=kv_dtype),
+                                  **kw))
     log(f"[serve {name}] LLM up in {time.monotonic() - t0:.1f} s"
         f"{' (weights reused)' if params is not None else ''}: "
         f"{llm.runner.num_pages} KV pages of {llm.config.cache.page_size} "
         f"tokens ({llm.runner.kv_dtype}) on {llm.device}; activation "
         f"headroom {llm.runner.activation_headroom() / 2**30:.2f} GiB; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"{free0 / 2**30:.2f} GiB free before the engine")
     rng = np.random.default_rng(SEED)
     vocab = llm.model_cfg.vocab_size
+    warm = SamplingParams(temperature=0.0, max_tokens=2, ignore_eos=True)
     # warm-up request (CUDA context, cuBLAS handles); not counted
-    llm.generate(prompt_token_ids=[[1, 2, 3, 4]],
-                 sampling_params=SamplingParams(temperature=0.0,
-                                                max_tokens=2,
-                                                ignore_eos=True))
+    llm.generate(prompt_token_ids=[[1, 2, 3, 4]], sampling_params=warm)
+    graphs = llm.runner.graphs
+    t0 = time.monotonic()
+    llm.runner.warmup()
+    warm_s = time.monotonic() - t0
+    pool_mib = graphs.pool_bytes() / 2**20
+    log(f"[serve {name}] warmup: {llm.runner.num_shape_signatures} decode "
+        f"graphs captured in {warm_s:.2f} s ({graphs.capture_seconds:.2f} s "
+        f"in capture, warm-up runs included); graph pool {pool_mib:.1f} MiB;"
+        f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    eager = None
+    if name in TWINS:
+        extra = {"max_num_seqs": 16} if llm.runner.hybrid else {}
+        eager = LLM(model_cfg=llm.model_cfg, params=llm.runner.params,
+                    config=EngineConfig(
+                        load_format="dummy", dtype="bfloat16", seed=SEED,
+                        enforce_eager=True, cache=CacheConfig(
+                            kv_cache_dtype=kv_dtype, num_pages=TWIN_PAGES),
+                        **kw, **extra))
+        eager.generate(prompt_token_ids=[[1, 2, 3, 4]], sampling_params=warm)
+        log(f"[serve {name}] eager twin on the same weights: "
+            f"{TWIN_PAGES} KV pages{', 16 GDN slots' if extra else ''}")
     lens = rng.integers(64, 1537, 16)
     max_tokens = rng.integers(32, 129, 16)
     prompts = [rng.integers(1, vocab, int(n)).tolist() for n in lens]
     params = [SamplingParams(temperature=0.0, max_tokens=int(m),
                              ignore_eos=True) for m in max_tokens]
+    order = [eager, llm, llm, eager] if eager else [llm] * runs
     log(f"[serve {name}] 16 requests, prompts {lens.min()}..{lens.max()} "
         f"(sum {lens.sum()}), max_tokens {max_tokens.min()}..."
-        f"{max_tokens.max()}, {runs} run(s) (the host's pace varies from "
-        f"run to run)")
-    steps0 = dict(llm.step_counts)
+        f"{max_tokens.max()}, runs "
+        + ", ".join("graph" if e is llm else "eager" for e in order))
+    engines = [llm] + ([eager] if eager else [])
+    steps0 = [dict(e.step_counts) for e in engines]
+    sigs0, replays0 = llm.runner.num_shape_signatures, graphs.replays
     reset_counters()
-    rates = []
-    for rep in range(runs):
+    rates = {"graph": [], "eager": []}
+    streams = {}
+    for rep, e in enumerate(order):
+        mode = "graph" if e is llm else "eager"
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        outs = llm.generate(prompt_token_ids=prompts, sampling_params=params)
+        outs = e.generate(prompt_token_ids=prompts, sampling_params=params)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         n_out = sum(o.num_output_tokens for o in outs)
-        rates.append(n_out / wall)
-        log(f"[serve {name}] run {rep}: {n_out} tokens in {wall:.3f} s = "
-            f"{n_out / wall:.1f} output tok/s")
+        rates[mode].append(n_out / wall)
+        log(f"[serve {name}] run {rep} ({mode}): {n_out} tokens in "
+            f"{wall:.3f} s = {n_out / wall:.1f} output tok/s")
         assert [o.num_output_tokens for o in outs] == max_tokens.tolist(), \
             f"[serve {name}] a request did not return exactly max_tokens"
         assert all(o.finish_reason == "length" for o in outs)
         assert all(0 <= t < vocab for o in outs for t in o.output_token_ids)
+        toks = [o.output_token_ids for o in outs]
+        assert streams.setdefault(mode, toks) == toks, \
+            f"[serve {name}] two {mode} runs gave different streams"
     counts = read_counters()
-    steps = {k: llm.step_counts[k] - steps0[k] for k in steps0}
+    steps = {k: sum(e.step_counts[k] - s0[k]
+                    for e, s0 in zip(engines, steps0)) for k in steps0[0]}
+    graph_decode = llm.step_counts["decode"] - steps0[0]["decode"]
+    replays = graphs.replays - replays0
+    first_sight = llm.runner.num_shape_signatures - sigs0
     launched = {k for k, n in counts.items() if k != "plain_calls" and n}
-    log(f"[serve {name}] median {sorted(rates)[len(rates) // 2]:.1f} output "
-        f"tok/s; steps {steps}; launches {counts}; max_memory_allocated "
+    log(f"[serve {name}] graph median {median(rates['graph']):.1f} output "
+        f"tok/s" + (f", eager median {median(rates['eager']):.1f} "
+                    f"({median(rates['graph']) / median(rates['eager']):.3f}"
+                    f"x)" if eager else "")
+        + f"; steps {steps}; graph replays {replays} of {graph_decode} "
+        f"decode steps, {first_sight} graphs captured at first sight in "
+        f"the runs; launches {counts}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    assert replays == graph_decode, \
+        f"[serve {name}] {graph_decode} decode steps but {replays} replays"
+    if eager:
+        where = first_difference(streams["graph"], streams["eager"])
+        if where is not None:
+            raise SystemExit(f"[serve {name}] graph and eager greedy streams "
+                             f"differ: " + explain_difference(
+                                 eager, prompts, streams["graph"],
+                                 streams["eager"], where))
+        log(f"[serve {name}] graph and eager greedy streams identical")
     assert launched == {k for ks in by_kind.values() for k in ks}, \
         f"[serve {name}] launched {launched}, expected {by_kind}"
     # every layer of every step of a kind launched that kind's kernels
@@ -1355,17 +1476,25 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
         f"[serve {name}] launches {counts}, expected {want} from {steps}"
     assert counts["plain_calls"] == 0, "a plain version ran on the card"
     assert split_counters_clear(), "a decode kernel left a split counter set"
-    mm = llm.memory_manager
-    assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
-    if mm.use_ssm:
-        assert mm.ssm_alloc.num_free == mm.ssm_alloc.num_total, \
-            "SSM slots leaked"
+    for e in engines:
+        mm = e.memory_manager
+        assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
+        if mm.use_ssm:
+            assert mm.ssm_alloc.num_free == mm.ssm_alloc.num_total, \
+                "SSM slots leaked"
+    prof = {}
     if profiled:
-        profile_window(llm, rng, name)
-    out = dict(counts=counts, rates=rates, pages=llm.runner.num_pages,
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        prof["graph"] = profile_window(llm, rng, name + " graph")
+        if eager and name in PROFILE_EAGER:
+            prof["eager"] = profile_window(eager, rng, name + " eager")
+    out = dict(counts=counts, rates=rates["graph"],
+               eager_rates=rates["eager"], pages=llm.runner.num_pages,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               graphs=llm.runner.num_shape_signatures, warm_s=warm_s,
+               capture_s=graphs.capture_seconds, pool_mib=pool_mib,
+               profile=prof)
     weights = llm.runner.params
-    del llm
+    del llm, eager, engines, graphs, order, e
     gc.collect()
     torch.cuda.empty_cache()
     return out, weights
@@ -1395,32 +1524,62 @@ def phase_serve():
             f"{results[twin]['pages']}, {fp8} {results[fp8]['pages']} "
             f"({ratio:.3f}x)")
         assert ratio >= 1.9, f"{fp8} should give about 2x the pages of {twin}"
+    log("[serve] summary: config, graph tok/s runs, eager tok/s runs, "
+        "graphs, warmup s, capture s, pool MiB, KV pages")
+    for name, r in results.items():
+        log(f"[serve] {name}: {r['rates']} {r['eager_rates']} {r['graphs']} "
+            f"{r['warm_s']:.3f} {r['capture_s']:.3f} {r['pool_mib']:.1f} "
+            f"{r['pages']}")
     return results
+
+
+# host calls that put work on the card (or copy to or from it); a graph
+# replay is one cudaGraphLaunch
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemcpy", "cudaMemsetAsync")
 
 
 def profile_window(llm, rng, name):
     """Where a serving step's time goes: torch.profiler over a short
     window (8 requests of 512 prompt tokens, 24 greedy tokens each):
-    device time by kernel, and the device's busy share of the wall."""
+    device time by kernel, the device's busy share of the wall, kernels per
+    step, host calls that launch work per decode step (each step marked
+    with a record_function range), and the steps' share of the wall by
+    kind."""
+    from bisect import bisect_right
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from gllm_tpu_torch import SamplingParams
     prompts = [rng.integers(1, llm.model_cfg.vocab_size, 512).tolist()
                for _ in range(8)]
     sp = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
     steps0 = dict(llm.step_counts)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        llm.generate(prompt_token_ids=prompts, sampling_params=sp)
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+    step = llm.runner.step
+
+    def marked(batch):
+        kind = ("decode" if all(it.num_new_tokens == 1 for it in batch.items)
+                else "mixed")
+        with record_function("gllm_step_" + kind):
+            return step(batch)
+    llm.runner.step = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            llm.generate(prompt_token_ids=prompts, sampling_params=sp)
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+    finally:
+        del llm.runner.step
     steps = {k: llm.step_counts[k] - steps0[k] for k in steps0}
     tag = f"[profile {name}]"
-    # kernels only: a CPU op's device time repeats its kernels' times
+    # kernels only: a CPU op's device time repeats its kernels' times, and
+    # so does the device side of the steps' record_function ranges
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("gllm_step_")), reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"{tag} 8 x (512 prompt + 24 out) tokens, steps {steps}: wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
@@ -1428,19 +1587,42 @@ def profile_window(llm, rng, name):
     for dev_us, count, key in rows[:12]:
         log(f"{tag}   {100 * dev_us / busy:5.1f}%  {dev_us / 1e3:8.3f} ms"
             f"  x{count:<5d} {key[:90]}")
-    # the host side: kernels issued per step, and host time by operator
-    # (self time, inflated by the profiler's own cost per op)
+    # the host side: kernels issued per step, host calls that launch work
+    # per decode step, and host time by operator (self time, inflated by
+    # the profiler's own cost per op)
     n_steps = sum(steps.values())
+    events = prof.events()
+    spans = {k: sorted((e.time_range.start, e.time_range.end)
+                       for e in events if e.name == "gllm_step_" + k
+                       and e.device_type == DeviceType.CPU)
+             for k in ("decode", "mixed")}
+    starts = [a for a, _ in spans["decode"]]
+    calls = {}
+    for e in events:
+        if e.name in LAUNCH_CALLS:
+            i = bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.start <= spans["decode"][i][1]:
+                calls[e.name] = calls.get(e.name, 0) + 1
+    n_dec = max(1, len(spans["decode"]))
+    share = {k: sum(b - a for a, b in v) / wall_us for k, v in spans.items()}
     host = sorted(((e.self_cpu_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU), reverse=True)
     host_us = sum(r[0] for r in host)
-    log(f"{tag} {sum(r[1] for r in rows) / n_steps:.0f} kernels per "
-        f"step; host self time {host_us / 1e3:.1f} ms "
-        f"({100 * host_us / wall_us:.1f}% of wall), by operator:")
+    kernels_per_step = sum(r[1] for r in rows) / n_steps
+    launches = sum(calls.values()) / n_dec
+    log(f"{tag} {kernels_per_step:.0f} kernels per step; {launches:.2f} "
+        f"host launch calls per decode step ({calls}); steps' share of the "
+        f"wall: decode {100 * share['decode']:.1f}%, mixed "
+        f"{100 * share['mixed']:.1f}%; host self time {host_us / 1e3:.1f} "
+        f"ms ({100 * host_us / wall_us:.1f}% of wall), by operator:")
     for cpu_us, count, key in host[:10]:
         log(f"{tag}   {100 * cpu_us / host_us:5.1f}%  {cpu_us / 1e3:8.3f}"
             f" ms  x{count:<6d} {key[:60]}")
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                busy_share=busy / wall_us, kernels_per_step=kernels_per_step,
+                launches_per_decode_step=launches, share=share,
+                host_share=host_us / wall_us)
 
 
 # ---- 5. reference --------------------------------------------------------
@@ -1484,9 +1666,9 @@ def phase_reference():
                     if isinstance(x, dict) else x.to(device))
                 for g, x in params.items()}
 
-    def engine(cfg, p, device, kv_cache_dtype, unified):
+    def engine(cfg, p, device, kv_cache_dtype, unified, eager=False):
         ec = EngineConfig(dtype="float32", seed=SEED, max_model_len=512,
-                          unified_step=unified,
+                          unified_step=unified, enforce_eager=eager,
                           scheduler=SchedulerConfig(max_prefill_tokens=64),
                           cache=CacheConfig(num_pages=128,
                                             kv_cache_dtype=kv_cache_dtype))
@@ -1521,9 +1703,15 @@ def phase_reference():
                    for n in (40, 75, 130)]
         logits, toks = [], []
         reset_counters()
-        for llm in (engine(cfg, params, "cuda", kv_dtype, unified),
-                    engine(cfg, on(params, "cpu"), "cpu", kv_dtype,
-                           unified)):
+        # the card's engine replays its decode steps as CUDA graphs; the
+        # dense, unified, MLA and hybrid cases also run an eager one
+        engines = [engine(cfg, params, "cuda", kv_dtype, unified),
+                   engine(cfg, on(params, "cpu"), "cpu", kv_dtype, unified)]
+        if label in ("float32 cache", "unified step", dsl,
+                     dsl + ", unified step", qnl):
+            engines.append(engine(cfg, params, "cuda", kv_dtype, unified,
+                                  eager=True))
+        for llm in engines:
             seqs = [llm._allocate_seq(p, sp) for p in prompts]
             for seq in seqs:
                 llm.add_seq(seq)
@@ -1541,15 +1729,23 @@ def phase_reference():
         err = (logits[0] - logits[1]).abs().max().item()
         scale = logits[1].abs().max().item()
         counts = read_counters()
+        graphed = engines[0].runner
         log(f"[reference] {cfg.num_layers}-layer f32, {label}: first step "
             f"(chunked "
             f"prefill) logits max_abs_err {err} of max |logit| {scale}; "
-            f"greedy tokens identical: {toks[0] == toks[1]}; card launches "
+            f"greedy tokens identical: {toks[0] == toks[1]}"
+            + (f", card eager engine too: {toks[2] == toks[1]}"
+               if len(toks) > 2 else "")
+            + f"; {graphed.graphs.replays} decode graph replays "
+            f"({graphed.num_shape_signatures} graphs); card launches "
             f"{ {k: n for k, n in counts.items() if n} }")
         assert err <= 1e-3 * max(scale, 1.0), \
             f"[reference] {label}: card and CPU logits disagree"
         assert toks[0] == toks[1], \
             f"[reference] {label}: card and CPU greedy tokens differ"
+        assert all(t == toks[1] for t in toks[2:]), \
+            f"[reference] {label}: the card's eager engine differs"
+        assert graphed.graphs.replays == graphed.step_counts["decode"] > 0
         assert all(len(t) == 8 for t in toks[0])
         launched = {k for k, n in counts.items() if n and k != "plain_calls"}
         assert launched == kernels, \

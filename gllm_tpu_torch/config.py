@@ -100,6 +100,13 @@ class EngineConfig:
     spec_decode: Optional[str] = None
     spec_fused: bool = False
     quantization: Optional[str] = None
+    # False (the JAX package's default): every pure-decode step on CUDA
+    # replays a CUDA graph captured per shape signature
+    # (runner/graphs.py); True runs every step op by op, as the reference's
+    # flag of that name turns CUDA-graph capture off. Unlike the JAX
+    # package, it clears no other option: those validate() refuses stay
+    # refused.
+    enforce_eager: bool = False
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)

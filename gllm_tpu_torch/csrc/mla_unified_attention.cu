@@ -31,13 +31,16 @@
 // cover `chunk` keys each (a multiple of 32, spanning at most 255 pages),
 // num_splits * chunk >= max_pages * page, and `part` is the decode blocks'
 // scratch as gllm_mla_decode_attention takes it (may be null when
-// num_splits == 1). Returns cudaGetLastError() after the launches.
+// num_splits == 1). `decode_only`: every sequence has one token (a
+// pure-decode step, T == S), so the decode blocks take every row, those of
+// padding sequences included, and the ragged blocks, which would find no
+// work, are not launched. Returns cudaGetLastError() after the launches.
 extern "C" int gllm_mla_unified_attention(
     const void* q, const void* latent, const void* cu_q_lens,
     const void* kv_lens, const void* page_table, void* out, void* part,
     int num_tokens, int S, int max_pages, int latent_dim, int v_dim,
     int page_size, int page_offset, int chunk, int num_splits, float scale,
-    int dtype, int cache, void* stream) {
+    int dtype, int cache, int decode_only, void* stream) {
   using namespace gllm;
   if (num_tokens <= 0 ||
       !decode_args_ok(S, kMlaHeads, 1, max_pages, page_size, chunk,
@@ -55,10 +58,11 @@ extern "C" int gllm_mla_unified_attention(
         constexpr int DL = decltype(dl)::value;
         constexpr int DV = decltype(dv)::value;
         const int r = launch_mla<T, TC, DL, DV, true, true>(
-            q, latent, cu, kl, pt, out, static_cast<float*>(part),
+            q, latent, decode_only ? nullptr : cu, kl, pt, out,
+            static_cast<float*>(part),
             num_tokens, S, max_pages, page_size, page_offset, chunk,
             num_splits, scale, st);
-        if (r != 0) return r;
+        if (r != 0 || decode_only) return r;
         return launch_mla<T, TC, DL, DV, false, true>(
             q, latent, cu, kl, pt, out, nullptr, num_tokens, S, max_pages,
             page_size, page_offset, 0, 1, scale, st);

@@ -174,8 +174,12 @@ __device__ __forceinline__ int decode_prefix_len(const int* cu_q_lens,
 }
 
 // Is sequence s inside the decode prefix (sequences 0..s all one-token)?
+// A null cu_q_lens: the host knows the step is pure decode (every row is
+// a decode row, token s is sequence s; padding rows have kv_len 0), so
+// every sequence is.
 __device__ __forceinline__ bool in_decode_prefix(const int* cu_q_lens,
                                                  int s) {
+  if (cu_q_lens == nullptr) return true;
   const int lane = threadIdx.x & 31;
   for (int s0 = 0; s0 <= s; s0 += 32) {
     const int i = s0 + lane;

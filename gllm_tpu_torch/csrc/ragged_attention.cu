@@ -50,7 +50,7 @@ extern "C" int gllm_ragged_attention(
     const void* kv_lens, const void* page_table, void* out, void* part,
     int num_tokens, int S, int max_pages, int num_q_heads, int num_kv_heads,
     int head_dim, int page_size, int page_offset, int chunk, int num_splits,
-    float scale, int dtype, int cache, void* stream) {
+    float scale, int dtype, int cache, int decode_only, void* stream) {
   using namespace gllm;
   if (!ragged_args_ok(num_tokens, S, num_q_heads, num_kv_heads) ||
       !decode_args_ok(S, num_q_heads, num_kv_heads, max_pages, page_size,
@@ -69,7 +69,8 @@ extern "C" int gllm_ragged_attention(
             static_cast<const int*>(page_table), out,
             static_cast<float*>(part), num_tokens, S, max_pages,
             num_q_heads, num_kv_heads, page_size, page_offset, chunk,
-            num_splits, scale, static_cast<cudaStream_t>(stream));
+            num_splits, scale, decode_only != 0,
+            static_cast<cudaStream_t>(stream));
       });
   if (rc != 0) return rc;
   return (int)cudaGetLastError();

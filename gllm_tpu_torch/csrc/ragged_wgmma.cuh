@@ -711,7 +711,10 @@ static int launch_ragged(const void* q, const void* k, const void* v,
 }
 
 // One paged-attention step: the decode prefix on the split-KV decode
-// blocks, every other sequence on the ragged blocks.
+// blocks, every other sequence on the ragged blocks. When the caller knows
+// the batch is pure decode, the decode blocks take every row (padding rows
+// write their zeros there) and the ragged blocks, which would find no
+// work, are not launched.
 template <typename T, typename TC, int D>
 static int launch_paged_step(const void* q, const void* k, const void* v,
                              const float* ks, const float* vs, const int* cu,
@@ -719,11 +722,12 @@ static int launch_paged_step(const void* q, const void* k, const void* v,
                              float* part, int T_, int S, int max_pages,
                              int hq, int hkv, int page_size, int page_offset,
                              int chunk, int num_splits, float scale,
-                             cudaStream_t stream) {
+                             bool decode_only, cudaStream_t stream) {
   const int r = launch_decode<T, TC, D, true>(
-      q, k, v, ks, vs, cu, kv_lens, pt, out, part, S, max_pages, hq, hkv,
-      page_size, page_offset, chunk, num_splits, scale, stream);
-  if (r != 0) return r;
+      q, k, v, ks, vs, decode_only ? nullptr : cu, kv_lens, pt, out, part,
+      S, max_pages, hq, hkv, page_size, page_offset, chunk, num_splits,
+      scale, stream);
+  if (r != 0 || decode_only) return r;
   return launch_ragged<T, TC, D>(q, k, v, ks, vs, cu, kv_lens, pt, out, T_,
                                  S, max_pages, hq, hkv, page_size,
                                  page_offset, scale, stream);

@@ -5,7 +5,10 @@
 The synchronous single-device loop: schedule a batch, run one step, commit
 its sampled tokens. ``EngineConfig.unified_step`` runs every step through
 the unified attention kernel and ``CacheConfig(kv_cache_dtype="int8")``
-keeps an int8 KV cache; both stay on this sync loop. Token ids in and out;
+keeps an int8 KV cache; both stay on this sync loop. Unless
+``EngineConfig.enforce_eager``, each pure-decode step on the card replays
+the CUDA graph of its shape signature (``runner/graphs.py``; warm them
+ahead of serving with ``llm.runner.warmup()``). Token ids in and out;
 a text prompt needs a tokenizer object (anything with ``encode``/
 ``decode``) passed to the constructor.
 

@@ -10,7 +10,13 @@
 
 Experts are stacked [E, H, 2I] (gate|up fused, ``w_gate_up``) and
 [E, I, H] (``w_down``). JAX's ``ragged_dot`` is no Pallas kernel, so the
-port's counterpart stays a library call, ``torch._grouped_mm``.
+port's counterpart stays a library call, ``torch._grouped_mm``, whose
+bf16 / fp16 path on the H100 reads the groups' offsets on the device, so
+a CUDA graph captures it and its replays follow each step's routing. Its
+float32 path on CUDA walks the groups on the host (a copy of the offsets
+each call, which a capture refuses and would freeze); float32 on CUDA
+(the card's reference models) therefore runs every expert over every row
+instead, with the unrouted rows weighted zero.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ def grouped_experts(x: torch.Tensor, weights: torch.Tensor,
     scatter-adds, in the model dtype as here)."""
     T, H = x.shape
     E, K = w_gate_up.shape[0], ids.shape[1]
+    if x.is_cuda and x.dtype == torch.float32:
+        return _every_expert(x, weights, ids, w_gate_up, w_down)
     flat = ids.reshape(-1).long()
     order = torch.argsort(flat, stable=True)
     # each expert's end offset in the sorted rows (bincount would size its
@@ -52,6 +60,19 @@ def grouped_experts(x: torch.Tensor, weights: torch.Tensor,
     by_slot[order] = out
     return torch.bmm(weights.to(out.dtype)[:, None, :],
                      by_slot.view(T, K, H))[:, 0]
+
+
+def _every_expert(x, weights, ids, w_gate_up, w_down):
+    """``grouped_experts`` as batched products of every expert over every
+    row ([E, T, 2I], then [E, T, H]), each (token, slot) taking its
+    expert's row and the K slots summed with their routing weights as
+    there; no host sync, fixed shapes."""
+    T, H = x.shape
+    act = silu_and_mul(torch.matmul(x, w_gate_up))
+    out = torch.bmm(act, w_down)                           # [E, T, H]
+    rows = torch.arange(T, device=x.device)[:, None]
+    return torch.bmm(weights.to(out.dtype)[:, None, :],
+                     out[ids.long(), rows])[:, 0]
 
 
 def select_experts(router_logits: torch.Tensor, top_k: int,

@@ -11,8 +11,9 @@ One call serves a step's whole batch against the paged KV cache. With
   (``ops/cuda/ragged_attention.py``).
 
 With ``impl="unified"`` (``EngineConfig.unified_step``) every batch goes to
-the ragged wrapper's unified kernel, whatever ``max_q_len`` says: decode
-rows are one-token rows of the ragged batch.
+the ragged wrapper's unified kernel: decode rows are one-token rows of the
+ragged batch, and ``max_q_len == 1`` (a pure-decode step) tells the kernel
+that no other row exists, so it launches its decode blocks alone.
 
 ``k_scale``/``v_scale`` ([P, Hkv] float32) mark an int8 cache; every
 kernel dequantizes on its read path. An fp8 (``float8_e4m3fn``) cache takes
@@ -68,7 +69,7 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return ragged_paged_attention(q, k_cache, v_cache, md.cu_q_lens,
                                       md.kv_lens, md.page_table, scale=scale,
                                       page_offset=page_offset, unified=True,
-                                      **scales)
+                                      decode_only=max_q_len == 1, **scales)
     if impl != "legacy":
         raise ValueError(f"unknown attention impl {impl!r}")
     if max_q_len == 1:

@@ -45,13 +45,13 @@ _SIGNATURES = {
     "decode_attention": ("gllm_decode_attention",
                          [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P]),
     "ragged_attention": ("gllm_ragged_attention",
-                         [_P] * 10 + [_I] * 10 + [_F, _I, _I, _P]),
+                         [_P] * 10 + [_I] * 10 + [_F, _I, _I, _I, _P]),
     "mla_decode_attention": ("gllm_mla_decode_attention",
                              [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P]),
     "mla_ragged_attention": ("gllm_mla_ragged_attention",
                              [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]),
     "mla_unified_attention": ("gllm_mla_unified_attention",
-                              [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P]),
+                              [_P] * 7 + [_I] * 9 + [_F, _I, _I, _I, _P]),
     "gdn_scan": ("gllm_gdn_chunk_scan", [_P] * 9 + [_I] * 5 + [_P]),
 }
 

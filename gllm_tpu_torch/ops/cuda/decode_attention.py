@@ -27,6 +27,8 @@ the plain version only for tensors on the CPU.
 from __future__ import annotations
 
 import functools
+import gc
+import weakref
 
 import torch
 
@@ -129,47 +131,91 @@ def _num_sms(device: torch.device) -> int:
 
 
 _scratch = {}
+# per device, the holders of captured CUDA graphs that read its scratch
+# (runner/graphs.py): while one lives, the buffer keeps its address
+_scratch_pins = {}
 
 
 def decode_scratch(device: torch.device, floats: int) -> torch.Tensor:
     """The split-KV decode blocks' scratch on ``device``: COUNTER_SLOTS
     int32 split counters, zero (the kernels set each back to zero), then
-    at least ``floats`` float32 partials. One buffer per device, grown by
-    reallocation, shared by every call on the device's (one) stream."""
+    at least ``floats`` float32 partials. One buffer per device, shared by
+    every call on the device's (one) stream, grown by reallocation only
+    while no captured CUDA graph reads it: a graph keeps the address it
+    captured, so growth then raises (size it first with
+    :func:`pin_decode_scratch`)."""
+    device = _indexed(device)
     need = COUNTER_SLOTS + floats
     buf = _scratch.get(device)
     if buf is None or buf.numel() < need:
+        if _scratch_pins.get(device):
+            gc.collect()        # holders that died in a reference cycle
+        if _scratch_pins.get(device):
+            raise RuntimeError(
+                f"decode_scratch: {need} slots needed but {buf.numel()} "
+                "are held at their address by a captured CUDA graph; size "
+                "the scratch for every shape before the first capture "
+                "(pin_decode_scratch)")
         buf = torch.zeros(need, dtype=torch.float32, device=device)
         _scratch[device] = buf
     return buf
+
+
+def pin_decode_scratch(device: torch.device, floats: int,
+                       holder) -> torch.Tensor:
+    """Size the scratch for ``floats`` partials and hold it at its address
+    while ``holder`` (weakly referenced) lives; returns the buffer, which
+    the holder keeps so that its captured graphs never read freed
+    memory."""
+    buf = decode_scratch(device, floats)
+    _scratch_pins.setdefault(_indexed(device), weakref.WeakSet()).add(holder)
+    return buf
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index ("cuda" → "cuda:0"): one key per card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def split_geometry(S: int, max_pages: int, Hq: int, Hkv: int, D: int,
+                   page: int, q_dtype: torch.dtype, cache_dtype: torch.dtype,
+                   device: torch.device, v_dim=None):
+    """(keys per split, number of splits, scratch floats) of the decode
+    kernel's grid over S rows of ``max_pages`` pages: the plan of
+    :func:`split_plan`, from shapes and dtypes alone."""
+    Dv = v_dim or D
+    q_bytes, cache_bytes = q_dtype.itemsize, cache_dtype.itemsize
+    if q_dtype == torch.float32:
+        tile = FMA_KEYS
+        bps = MLA_FMA_BLOCKS_PER_SM if v_dim else FMA_BLOCKS_PER_SM
+    elif v_dim:
+        tile = MLA_KEYS
+        bps = mla_decode_blocks_per_sm(D, Dv, q_bytes, cache_bytes)
+    else:
+        tile = DECODE_KEYS
+        bps = decode_blocks_per_sm(D, q_bytes, cache_bytes,
+                                   cache_dtype == torch.int8)
+    max_keys = max_pages * page
+    chunk = keys_per_split(S, Hkv, max_keys, page, _num_sms(device), bps,
+                           tile, MLA_SPLIT_WAVES if v_dim else SPLIT_WAVES,
+                           MLA_MIN_SPLIT_KEYS if v_dim else 0)
+    num_splits = max(1, cdiv(max_keys, chunk))
+    floats = S * Hq * num_splits * (Dv + 2) if num_splits > 1 else 0
+    return chunk, num_splits, floats
 
 
 def split_plan(q, k_cache, page_table, v_dim=None):
     """(keys per split, number of splits, the scratch or None) for the
     decode kernel's grid over ``page_table``'s rows, with no host sync.
     ``v_dim``: an MLA latent cache's value width (the output's)."""
-    S, Hq = page_table.shape[0], q.shape[1]
     _, page, Hkv, D = k_cache.shape
-    Dv = v_dim or D
-    if q.dtype == torch.float32:
-        tile = FMA_KEYS
-        bps = MLA_FMA_BLOCKS_PER_SM if v_dim else FMA_BLOCKS_PER_SM
-    elif v_dim:
-        tile = MLA_KEYS
-        bps = mla_decode_blocks_per_sm(D, Dv, q.element_size(),
-                                       k_cache.element_size())
-    else:
-        tile = DECODE_KEYS
-        bps = decode_blocks_per_sm(D, q.element_size(),
-                                   k_cache.element_size(),
-                                   k_cache.dtype == torch.int8)
-    max_keys = page_table.shape[1] * page
-    chunk = keys_per_split(S, Hkv, max_keys, page, _num_sms(q.device), bps,
-                           tile, MLA_SPLIT_WAVES if v_dim else SPLIT_WAVES,
-                           MLA_MIN_SPLIT_KEYS if v_dim else 0)
-    num_splits = max(1, cdiv(max_keys, chunk))
-    part = (decode_scratch(q.device, S * Hq * num_splits * (Dv + 2))
-            if num_splits > 1 else None)
+    chunk, num_splits, floats = split_geometry(
+        page_table.shape[0], page_table.shape[1], q.shape[1], Hkv, D, page,
+        q.dtype, k_cache.dtype, q.device, v_dim)
+    part = decode_scratch(q.device, floats) if num_splits > 1 else None
     return chunk, num_splits, part
 
 

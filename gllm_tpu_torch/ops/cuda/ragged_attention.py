@@ -38,6 +38,9 @@ sequence s sits at position ``kv_len - q_len + t``.
   ``csrc/mla_unified_attention.cu``, K2m's split-KV decode blocks for the
   decode prefix and K1m's ragged blocks for every other sequence, found
   on the device as K1u finds them; classic rescaling, as K1u.
+- K1u and K1um take ``decode_only`` from a caller that knows the step is
+  pure decode (the runner's ``max_q_len == 1``): their ragged class, which
+  would find no work, is then not launched.
 - Every mode but int8 also reads an fp8 (e4m3) cache or latent, widened
   exactly on the card (``csrc/paged_kv.cuh``); the plain version widens
   the gathered pages.
@@ -189,8 +192,12 @@ ragged_paged_attention_plain.calls = 0
 def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
                            page_table, *, scale: float, page_offset: int = 0,
                            k_scale=None, v_scale=None,
-                           unified: bool = False, v_dim=None):
-    """Same contract as :func:`ragged_paged_attention_plain`."""
+                           unified: bool = False, v_dim=None,
+                           decode_only: bool = False):
+    """Same contract as :func:`ragged_paged_attention_plain`.
+    ``decode_only`` (``unified`` only): the caller knows every sequence has
+    one query token (a pure-decode step, T == S), so the kernel launches
+    its decode blocks alone; the plain version needs no such hint."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, k_cache, v_cache, cu_q_lens, kv_lens, page_table,
@@ -203,7 +210,7 @@ def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
                 "supported")
         return _mla_ragged(q, k_cache, cu_q_lens, kv_lens, page_table,
                            scale=scale, page_offset=page_offset, v_dim=v_dim,
-                           unified=unified)
+                           unified=unified, decode_only=decode_only)
     T, Hq, D = q.shape
     check_inputs("ragged_paged_attention", q, k_cache, v_cache,
                  (cu_q_lens, kv_lens, page_table),
@@ -214,6 +221,7 @@ def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
     if cu_q_lens.shape != (S + 1,) or page_table.shape[0] != S:
         raise ValueError("ragged_paged_attention: cu_q_lens [S+1], kv_lens "
                          "[S] and page_table [S, max_pages] must agree")
+    _check_decode_only(decode_only, unified, T, S)
     out = torch.empty_like(q)
     if T == 0 or S == 0:
         return out.zero_()
@@ -226,15 +234,23 @@ def ragged_paged_attention(q, k_cache, v_cache, cu_q_lens, kv_lens,
     codes = (build.DTYPE_CODES[q.dtype], cache_code(k_cache), stream)
     chunk, num_splits, part = split_plan(q, k_cache, page_table)
     rc = build.kernel("ragged_attention")(
-        *ptrs, data_ptr(part), T, *dims, chunk, num_splits, scale, *codes)
+        *ptrs, data_ptr(part), T, *dims, chunk, num_splits, scale,
+        *codes[:2], int(decode_only), codes[2])
     build.check(rc, "ragged_paged_attention")
     ragged_paged_attention.launches[
         kernel_name(unified, False, k_cache)] += 1
     return out
 
 
+def _check_decode_only(decode_only, unified, T, S):
+    if decode_only and (not unified or T != S):
+        raise ValueError("ragged_paged_attention: decode_only takes the "
+                         f"unified kernel and T == S (got unified={unified}"
+                         f", T={T}, S={S})")
+
+
 def _mla_ragged(q, latent, cu_q_lens, kv_lens, page_table, *, scale,
-                page_offset, v_dim, unified):
+                page_offset, v_dim, unified, decode_only):
     """K1m, or K1um when ``unified``: the MLA kernels over a latent cache
     [P, page, 1, Dl]."""
     check_latent_inputs("ragged_paged_attention", q, latent, v_dim,
@@ -244,6 +260,7 @@ def _mla_ragged(q, latent, cu_q_lens, kv_lens, page_table, *, scale,
     if cu_q_lens.shape != (S + 1,) or page_table.shape[0] != S:
         raise ValueError("ragged_paged_attention: cu_q_lens [S+1], kv_lens "
                          "[S] and page_table [S, max_pages] must agree")
+    _check_decode_only(decode_only, unified, T, S)
     out = torch.empty((T, Hq, v_dim), dtype=q.dtype, device=q.device)
     if T == 0 or S == 0:
         return out.zero_()
@@ -256,7 +273,7 @@ def _mla_ragged(q, latent, cu_q_lens, kv_lens, page_table, *, scale,
         chunk, num_splits, part = split_plan(q, latent, page_table, v_dim)
         rc = build.kernel("mla_unified_attention")(
             *ptrs, data_ptr(part), T, S, *dims, chunk, num_splits, scale,
-            *codes)
+            *codes[:2], int(decode_only), codes[2])
     else:
         rc = build.kernel("mla_ragged_attention")(*ptrs, T, S, *dims, scale,
                                                   *codes)

@@ -41,8 +41,9 @@ def topk_topp_mask(logits: torch.Tensor, top_k: torch.Tensor,
         sorted_logits - torch.logsumexp(logits, dim=-1, keepdim=True))
     cumsum = torch.cumsum(sorted_probs, dim=-1)
     keep_sorted = (cumsum - sorted_probs) < top_p[:, None]
-    inf = torch.tensor(float("inf"), dtype=logits.dtype,
-                       device=logits.device)
+    # Python scalars, not a tensor made here: a host-to-device copy would
+    # sync the stream, which a CUDA graph capture refuses
+    inf = float("inf")
     thresh = torch.where(keep_sorted, sorted_logits, inf).amin(
         dim=-1, keepdim=True)
     # top_p >= 1 means disabled and keeps the full support (float32 cumsum

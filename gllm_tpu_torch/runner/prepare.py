@@ -6,7 +6,10 @@ The builder fills flat numpy arrays — token / position / slot buffers,
 query-start offsets, per-seq kv lens and page tables — padded to the same
 power-of-two buckets as the JAX package (vectorised fill, no per-token
 Python loop). ``HostStaging`` then packs the whole step into ONE pinned host
-buffer and ships it with ONE ``non_blocking`` host-to-device copy.
+buffer and ships it with ONE ``non_blocking`` host-to-device copy, into one
+device buffer that the runner sizes once for its largest step: the views
+of a shape signature sit at the same addresses every step, so a CUDA graph
+captured on them reads each later step's data (``runner/graphs.py``).
 """
 
 from __future__ import annotations
@@ -65,22 +68,37 @@ class BatchBuilder:
         p = bucket_size(max_pages, 4, self.max_pages_per_seq)
         return t, s, q, p
 
+    def padding(self, t_pad: int, s_pad: int, p_pad: int) -> StepBatch:
+        """A StepBatch of host arrays at (T, S, pages) holding padding rows
+        only: token 0 at position 0 into the dummy page's slot 0, empty
+        sequences (q_len 0, kv_len 0) whose pages are the dummy page, the
+        greedy sampling defaults and, for a hybrid model, the dummy SSM
+        slot 0. ``build`` fills the real rows over it; the runner's
+        graph capture runs it as is (it writes nothing a sequence reads)."""
+        z = lambda n: np.zeros(n, np.int32)
+        return StepBatch(
+            token_ids=z(t_pad), positions=z(t_pad), slot_mapping=z(t_pad),
+            logits_indices=z(s_pad),
+            attn=AttentionMetadata(
+                cu_q_lens=z(s_pad + 1), kv_lens=z(s_pad),
+                page_table=np.zeros((s_pad, p_pad), np.int32)),
+            sampling=SamplingMetadata(
+                temperature=np.zeros(s_pad, np.float32),
+                top_p=np.ones(s_pad, np.float32),
+                top_k=np.full(s_pad, -1, np.int32),
+                min_p=np.zeros(s_pad, np.float32)),
+            ssm_slots=z(s_pad) if self.use_ssm else None)
+
     def build(self, batch: ScheduledBatch) -> Tuple[StepBatch, int]:
         """Returns (StepBatch of host numpy arrays, max_q_len)."""
         t_pad, s_pad, max_q, p_pad = self.shape_signature(batch)
         page = self.page_size
-
-        tokens = np.zeros(t_pad, np.int32)
-        positions = np.zeros(t_pad, np.int32)
-        slots = np.zeros(t_pad, np.int32)          # padding → dummy page slot
-        cu = np.zeros(s_pad + 1, np.int32)
-        kv_lens = np.zeros(s_pad, np.int32)
-        page_table = np.zeros((s_pad, p_pad), np.int32)
-        logits_idx = np.zeros(s_pad, np.int32)
-        temperature = np.zeros(s_pad, np.float32)
-        top_p = np.ones(s_pad, np.float32)
-        top_k = np.full(s_pad, -1, np.int32)
-        min_p = np.zeros(s_pad, np.float32)
+        pad = self.padding(t_pad, s_pad, p_pad)
+        tokens, positions, slots = (pad.token_ids, pad.positions,
+                                    pad.slot_mapping)
+        cu, kv_lens, page_table = pad.attn
+        logits_idx = pad.logits_indices
+        temperature, top_p, top_k, min_p = pad.sampling
 
         items = batch.items
         K = len(items)
@@ -134,66 +152,81 @@ class BatchBuilder:
         top_k[:K] = [sp.top_k for sp in sps]
         min_p[:K] = [sp.min_p for sp in sps]
 
-        ssm_slots = None
         if self.use_ssm:
-            ssm_slots = np.zeros(s_pad, np.int32)   # padding → dummy slot 0
-            ssm_slots[:K] = [it.seq.ssm_slot or 0 for it in items]
+            pad.ssm_slots[:K] = [it.seq.ssm_slot or 0 for it in items]
+        return pad._replace(num_seqs=K,
+                            max_seq_q=int(ns.max()) if K else 0), max_q
 
-        step_batch = StepBatch(
-            token_ids=tokens, positions=positions, slot_mapping=slots,
-            logits_indices=logits_idx,
-            attn=AttentionMetadata(cu_q_lens=cu, kv_lens=kv_lens,
-                                   page_table=page_table),
-            sampling=SamplingMetadata(temperature=temperature, top_p=top_p,
-                                      top_k=top_k, min_p=min_p),
-            ssm_slots=ssm_slots, num_seqs=K,
-            max_seq_q=int(ns.max()) if K else 0)
-        return step_batch, max_q
+    def upload_size(self, t_pad: int, s_pad: int, p_pad: int) -> int:
+        """int32 slots of a step's fixed part at (T, S, pages)
+        (``HostStaging``'s layout, the variable lists excluded)."""
+        return (3 * t_pad + s_pad * (7 + p_pad) + 1
+                + (s_pad if self.use_ssm else 0))
 
 
 class HostStaging:
     """Ships a host StepBatch to the device as one pinned buffer and one
-    ``non_blocking`` copy.
+    ``non_blocking`` copy, into one device buffer.
 
     Every array is laid end to end in a single int32 buffer (float32
-    arrays by bit pattern), the int8 cache's scale-reset page ids and a
-    hybrid model's SSM slots and zeroed slots included; the device copy is
-    split back into views. The
-    pinned buffer is reused across steps: the synchronous engine loop
+    arrays by bit pattern): first the fixed part, whose offsets depend on
+    the step's (T, S, pages) only, then the lists whose length varies from
+    step to step (the int8 cache's scale-reset page ids, a hybrid model's
+    slots to zero; each deduplicated). The device copy is split back into
+    views. With ``capacity`` the device buffer is allocated once, at that
+    size, and a step that needs more raises: a CUDA graph captured on the
+    views of a signature then reads every later step of it. Without, it
+    grows as needed (``allocations`` counts the device buffers made).
+    Both buffers are reused across steps: the synchronous engine loop
     fetches each step's sampled tokens (a stream sync) before it builds
-    the next step, so the previous copy out of the buffer has finished."""
+    the next step, so the previous copy and its readers have finished."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, capacity: int = 0):
         self.device = torch.device(device)
         self._pin = self.device.type == "cuda"
         self._host = torch.empty(0, dtype=torch.int32)
+        self._dev = None
+        self.allocations = 0
+        self.fixed = capacity > 0
+        if capacity:
+            self._allocate(capacity)
+
+    def _allocate(self, n: int) -> None:
+        self._dev = torch.empty(n, dtype=torch.int32, device=self.device)
+        self.allocations += 1
 
     def upload(self, sb: StepBatch) -> StepBatch:
+        resets = list(dict.fromkeys(sb.scale_resets or []))
+        zero = list(dict.fromkeys(sb.ssm_zero or []))
         parts = [sb.token_ids, sb.positions, sb.slot_mapping,
                  sb.logits_indices, sb.attn.cu_q_lens, sb.attn.kv_lens,
                  sb.attn.page_table.reshape(-1), sb.sampling.top_k,
                  sb.sampling.temperature.view(np.int32),
                  sb.sampling.top_p.view(np.int32),
                  sb.sampling.min_p.view(np.int32),
-                 np.asarray(sb.scale_resets or [], np.int32),
                  np.asarray(sb.ssm_slots if sb.ssm_slots is not None
                             else [], np.int32),
-                 np.asarray(sb.ssm_zero or [], np.int32)]
+                 np.asarray(resets, np.int32), np.asarray(zero, np.int32)]
         sizes = [p.size for p in parts]
         n = sum(sizes)
         if self._host.numel() < n:
             self._host = torch.empty(max(n, 2 * self._host.numel()),
                                      dtype=torch.int32,
                                      pin_memory=self._pin)
+        if self._dev is None or self._dev.numel() < n:
+            if self.fixed:
+                raise RuntimeError(
+                    f"HostStaging: a step of {n} int32 slots outgrew the "
+                    f"device buffer of {self._dev.numel()}")
+            self._allocate(max(n, 2 * (0 if self._dev is None
+                                       else self._dev.numel())))
         host_np = self._host.numpy()
         np.concatenate(parts, out=host_np[:n])
-        if self.device.type == "cpu":
-            dev = self._host[:n].clone()
-        else:
-            dev = self._host[:n].to(self.device, non_blocking=True)
+        dev = self._dev[:n]
+        dev.copy_(self._host[:n], non_blocking=self._pin)
         views = list(torch.split(dev, sizes))
         (tok, pos, slots, lidx, cu, kvl, pt, top_k, temp, top_p,
-         min_p, resets, ssm_slots, ssm_zero) = views
+         min_p, ssm_slots, resets, ssm_zero) = views
         f32 = torch.float32
         return StepBatch(
             token_ids=tok, positions=pos, slot_mapping=slots,

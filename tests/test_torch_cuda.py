@@ -540,16 +540,18 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         trag.ragged_paged_attention(dev[0].bfloat16(), *dev[1:], scale=0.1)
 
 
-def _tiny_engine(device, params=None, **cfg):
+def _tiny_engine(device, params=None, dtype="float32",
+                 kv_cache_dtype="auto", **cfg):
     import gllm_tpu_torch as gt
     mc = gt.ModelConfig(architecture="LlamaForCausalLM", vocab_size=1000,
                         hidden_size=256, num_layers=2, num_heads=8,
                         num_kv_heads=2, head_dim=32, intermediate_size=512,
                         max_position=512, rope_theta=500000.0)
     ec = gt.EngineConfig(
-        dtype="float32", load_format="dummy", max_model_len=512,
+        dtype=dtype, load_format="dummy", max_model_len=512,
         scheduler=gt.SchedulerConfig(max_prefill_tokens=48),
-        cache=gt.CacheConfig(page_size=16, num_pages=64), **cfg)
+        cache=gt.CacheConfig(page_size=16, num_pages=64,
+                             kv_cache_dtype=kv_cache_dtype), **cfg)
     return gt.LLM(model_cfg=mc, config=ec, params=params, device=device)
 
 
@@ -784,7 +786,8 @@ def test_mla_wrappers_count_offset_and_refuse(cuda_device):
                                     scale=0.2, v_dim=64)
 
 
-def _deepseek_engine(device, params=None, kv_cache_dtype="auto", **cfg):
+def _deepseek_engine(device, params=None, kv_cache_dtype="auto",
+                     dtype="float32", **cfg):
     """A 2-layer DeepSeek-V2-shaped model (one dense layer, one MoE layer)
     at the MLA kernels' small geometry: 16 heads, latent 64 + 32; ``cfg``
     adds EngineConfig keywords."""
@@ -799,7 +802,7 @@ def _deepseek_engine(device, params=None, kv_cache_dtype="auto", **cfg):
         first_k_dense_replace=1, n_shared_experts=1, q_lora_rank=None,
         topk_method="greedy", scoring_func="softmax", norm_topk_prob=False))
     ec = gt.EngineConfig(
-        dtype="float32", load_format="dummy", max_model_len=512,
+        dtype=dtype, load_format="dummy", max_model_len=512,
         scheduler=gt.SchedulerConfig(max_prefill_tokens=48),
         cache=gt.CacheConfig(page_size=16, num_pages=64,
                              kv_cache_dtype=kv_cache_dtype), **cfg)
@@ -991,7 +994,8 @@ def test_gdn_scan_wrapper_refuses(cuda_device):
 
 # ---- the hybrid family ----------------------------------------------------
 
-def _hybrid_engine(device, params=None, kv_cache_dtype="auto"):
+def _hybrid_engine(device, params=None, kv_cache_dtype="auto",
+                   dtype="float32", **cfg):
     """One period of Qwen3-Next's layers (three GDN, one gated full
     attention) at small widths K3 and K1/K2 take: GDN Dk = Dv = 32, head
     dim 64, two routed experts and a shared one."""
@@ -1008,10 +1012,10 @@ def _hybrid_engine(device, params=None, kv_cache_dtype="auto"):
         moe_intermediate_size=128, shared_expert_intermediate_size=128,
         norm_topk_prob=True))
     ec = gt.EngineConfig(
-        dtype="float32", load_format="dummy", max_model_len=512,
+        dtype=dtype, load_format="dummy", max_model_len=512,
         max_num_seqs=8, scheduler=gt.SchedulerConfig(max_prefill_tokens=48),
         cache=gt.CacheConfig(page_size=16, num_pages=64,
-                             kv_cache_dtype=kv_cache_dtype))
+                             kv_cache_dtype=kv_cache_dtype), **cfg)
     return gt.LLM(model_cfg=mc, config=ec, params=params, device=device)
 
 
@@ -1680,3 +1684,198 @@ def test_mla_ragged_block_matches_plain(cuda_device, geo, dtype, latent,
                                                 **md, **kw)
     assert out.shape == (q.shape[0], 16, Dv)
     _mla_check(out, want, dropped, dtype)
+
+
+# ---- K1u / K1um told the batch is pure decode (decode_only) --------------
+
+DECODE_ONLY_CASES = ([("gqa", kind) for kind in DECODE_KINDS]
+                     + [("mla", kind) for kind in MLA_KINDS])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,kind", DECODE_ONLY_CASES)
+def test_unified_decode_only_matches_plain(cuda_device, family, kind):
+    """A pure-decode batch (one-token rows on both sides of the split
+    boundaries, then three padding sequences: T == S) through K1u (GQA, G
+    4, D 64) or K1um (latent 96 + 64) with ``decode_only``: the decode
+    blocks alone, the padding rows zero, and the same output as without
+    the hint (which also launches the ragged class) and as the plain
+    version."""
+    qdtype, cache = (DECODE_KINDS if family == "gqa" else MLA_KINDS)[kind]
+    page = 16
+    if family == "gqa":
+        Hq, Hkv, D, Dv = 8, 2, 64, None
+    else:
+        Hq, Hkv, D, Dv = 16, 1, 96, 64
+    S = 12                      # nine one-token rows, three padding
+    chunk, n = _plan(cuda_device, qdtype, cache, S, Hq, Hkv, D, page, 256,
+                     Dv)
+    assert n > 1
+    seqs = [(1, k) for k in _split_lens(chunk, 4096)[1:]]
+    assert len(seqs) + 3 == S
+    rng = np.random.default_rng(33)
+    num_pages = 1 + sum(-(-k // page) for _, k in seqs)
+    q, kc, vc, cu, kvl, pt = ragged_case(rng, seqs, Hq, Hkv, D, page,
+                                         num_pages, pad_seqs=3, pad_tokens=3)
+    assert q.shape[0] == S
+    caches = (kc, vc) if family == "gqa" else (kc,)
+    kern, clean = _offset_caches(cuda_device, qdtype, cache, rng, *caches)
+    if family == "mla":
+        kern["v_cache"], clean["v_cache"] = None, None
+    q = torch.from_numpy(q).to(cuda_device, qdtype)
+    md = {k: torch.from_numpy(a).to(cuda_device) for k, a in
+          (("cu_q_lens", cu), ("kv_lens", kvl), ("page_table", pt))}
+    kw = dict(scale=D ** -0.5, unified=True, v_dim=Dv)
+    name = trag.kernel_name(True, family == "mla", kern["k_cache"])
+    n0 = trag.ragged_paged_attention.launches[name]
+    out = trag.ragged_paged_attention(q, **md, **kern, **kw,
+                                      decode_only=True)
+    hinted = out.clone()
+    both = trag.ragged_paged_attention(q, **md, **kern, **kw)
+    assert trag.ragged_paged_attention.launches[name] == n0 + 2
+    want = trag.ragged_paged_attention_plain(q, **md, **clean, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(hinted, both)
+    assert not hinted[len(seqs):].float().any()
+    _check(hinted, want, qdtype)
+    _counters_zero(cuda_device)
+    with pytest.raises(ValueError, match="decode_only"):
+        trag.ragged_paged_attention(q[:-1], **md, **kern, **kw,
+                                    decode_only=True)
+
+
+# ---- the compiled decode step (runner/graphs.py) --------------------------
+
+GRAPH_CASES = [
+    ("dense", {}), ("dense", dict(kv_cache_dtype="int8")),
+    ("dense", dict(kv_cache_dtype="fp8")), ("dense", dict(unified_step=True)),
+    ("dense", dict(unified_step=True, kv_cache_dtype="int8")),
+    ("deepseek", {}), ("deepseek", dict(unified_step=True)),
+    ("deepseek", dict(kv_cache_dtype="fp8")),
+    ("deepseek", dict(unified_step=True, kv_cache_dtype="fp8")),
+    ("hybrid", {})]
+GRAPH_MAKERS = {"dense": _tiny_engine, "deepseek": _deepseek_engine,
+                "hybrid": _hybrid_engine}
+
+
+def _all_counts():
+    from gllm_tpu_torch.runner import graphs
+    return {(fn.__name__, k): n
+            for (fn, k), n in graphs.launch_counts().items()}
+
+
+def _serve(llm, temperature):
+    """Nine requests of short prompts and longer outputs (so the decode
+    steps' sequence bucket is 16, then 8): their token streams, and the
+    launch counts they took."""
+    import gllm_tpu_torch as gt
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 1000, int(n)).tolist()
+               for n in rng.integers(3, 20, 9)]
+    sp = [gt.SamplingParams(temperature=temperature, top_p=0.9, top_k=50,
+                            max_tokens=int(m), ignore_eos=True)
+          for m in rng.integers(8, 24, 9)]
+    before = _all_counts()
+    outs = llm.generate(prompt_token_ids=prompts, sampling_params=sp)
+    counts = {k: n - before[k] for k, n in _all_counts().items()
+              if n != before[k]}
+    return [o.output_token_ids for o in outs], counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,cfg", GRAPH_CASES,
+                         ids=[f + "".join(f"-{v}" for v in c.values())
+                              for f, c in GRAPH_CASES])
+def test_graph_steps_match_eager_on_card(cuda_device, family, cfg):
+    """One bf16 model, one engine per mode on the same weights: every
+    pure-decode step replays a captured graph, and the greedy and sampled
+    streams (same seed) equal the per-step path's, with the same launch
+    counts (each replay adds its capture's) and the split counters back
+    at zero."""
+    make = GRAPH_MAKERS[family]
+    eager = make(cuda_device, dtype="bfloat16", enforce_eager=True, **cfg)
+    graph = make(cuda_device, params=eager.runner.params, dtype="bfloat16",
+                 enforce_eager=False, **cfg)
+    assert eager.runner.graphs is None and graph.runner.graphs.cuda
+    for temperature in (0.0, 0.8):
+        want, want_counts = _serve(eager, temperature)
+        got, got_counts = _serve(graph, temperature)
+        assert got == want, f"temperature {temperature}"
+        assert got_counts == want_counts
+        assert not any(k[1] is None for k in got_counts)   # no plain call
+        _counters_zero(cuda_device)
+    assert graph.step_counts == eager.step_counts
+    runner = graph.runner
+    keys = runner.graphs.keys
+    assert runner.num_shape_signatures == len(keys) > 0
+    # the hybrid engine runs at most 8 sequences
+    assert {k[1] for k in keys} == ({8} if family == "hybrid" else {8, 16})
+    assert {k[4] for k in keys} == {True, False}
+    assert runner.staging.allocations == 1
+    assert runner.graphs.pool_bytes() > 0
+
+
+@pytest.mark.cuda
+def test_graph_warmup_on_card_leaves_counts_and_streams(cuda_device):
+    """``warmup`` captures JAX's combos (greedy and sampled) on the card and
+    leaves the launch counters and step counts as they were; the streams
+    that follow equal an eager engine's."""
+    from gllm_tpu_torch.runner import graphs
+    eager = _tiny_engine(cuda_device, dtype="bfloat16", enforce_eager=True)
+    graph = _tiny_engine(cuda_device, params=eager.runner.params,
+                         dtype="bfloat16")
+    counts, steps = _all_counts(), dict(graph.step_counts)
+    graph.runner.warmup()
+    assert _all_counts() == counts and graph.step_counts == steps
+    c = graph.config
+    combos = graphs.warmup_combos(min(c.scheduler.max_decode_seqs,
+                                      graph.runner.builder.max_seqs),
+                                  c.max_pages_per_seq, graph.runner.num_pages)
+    assert graph.runner.num_shape_signatures == 2 * len(combos)
+    assert _serve(graph, 0.0) == _serve(eager, 0.0)
+    _counters_zero(cuda_device)
+
+
+@pytest.mark.cuda
+def test_decode_scratch_cannot_grow_under_a_graph(cuda_device):
+    """Once a runner has captured, the split-KV scratch holds its address:
+    growing it raises; with the runner gone it grows again."""
+    import gc
+    graph = _tiny_engine(cuda_device, dtype="bfloat16")
+    _serve(graph, 0.0)
+    buf = graph.runner.graphs.scratch
+    assert buf is not None
+    size = buf.numel()
+    assert tdec.decode_scratch(cuda_device, 0).data_ptr() == buf.data_ptr()
+    with pytest.raises(RuntimeError, match="captured CUDA graph"):
+        tdec.decode_scratch(cuda_device, 2 * size)
+    del graph, buf
+    gc.collect()
+    assert tdec.decode_scratch(cuda_device, 2 * size).numel() >= 2 * size
+
+
+@pytest.mark.cuda
+def test_capture_error_raises_with_no_eager_rerun(cuda_device):
+    """A decode body that syncs with the host (``.item()``) runs in the
+    side-stream warm-up but fails under capture: the error reaches the
+    caller, no graph is kept, and the step is not run eagerly instead.
+    (Last in the file: a failed capture may leave the stream's allocator
+    state behind.)"""
+    import gllm_tpu_torch as gt
+    llm = _tiny_engine(cuda_device, dtype="bfloat16")
+    runner = llm.runner
+    forward, calls = runner._forward, []
+
+    def syncing(batch, max_q):
+        out = forward(batch, max_q)
+        calls.append(max_q)
+        out.sum().item()
+        return out
+    runner._forward = syncing
+    sp = gt.SamplingParams(temperature=0.0, max_tokens=4, ignore_eos=True)
+    with pytest.raises(RuntimeError):
+        llm.generate(prompt_token_ids=[[1, 2, 3]], sampling_params=sp)
+    # the mixed step (eager), then the decode body's warm-up and its
+    # capture: no third, eager run of the decode step
+    assert len(calls) == 3 and calls[1:] == [1, 1]
+    assert runner.num_shape_signatures == 0
