@@ -53,7 +53,16 @@ no result line:
              graph, graph, eager, both medians and their ratio printed, and
              the twins' greedy streams must be identical (else the first
              differing token and the eager logits there are printed, and
-             the run fails); the others run once.
+             the run fails); the others run once. The bf16, DeepSeek and
+             Qwen3-Next configurations also serve an overlap twin (the
+             pipelined loop at overlap depth 2, its graphs warmed) on the
+             same weights, runs eager, graph, overlap, overlap, graph,
+             eager: its greedy streams must equal the sync graph engine's,
+             both medians and their ratio are printed, with the decode
+             entries dispatched while another was in flight (most must
+             be), the largest in-flight count, chain breaks and stalls by
+             reason, rebuilds and divergences, and no page or slot may
+             leak (the hybrid twin chains and never re-forms).
              Each must launch exactly its kernels and no plain version,
              replays counted (DeepSeek: K1m on every layer of every mixed
              step, K2m on every layer of every decode step, K1um on every
@@ -64,10 +73,11 @@ no result line:
              leave the decode kernels' split counters at zero; each fp8
              configuration's KV pages beside its full-precision twin's; a
              profiled window of the graph engine of the bf16 (and of its
-             eager twin), unified-int8, DeepSeek (both steps) and
-             Qwen3-Next configurations: device time by kernel, busy share,
-             kernels per step, host launch calls per decode step, the
-             steps' share of the wall by kind
+             eager and overlap twins), unified-int8, DeepSeek (both steps)
+             and Qwen3-Next configurations: device time by kernel, busy
+             share, kernels per step, host launch calls per dispatched
+             decode entry, the dispatches' share of the wall by kind and
+             the share spent waiting in collect
 5. reference depth cut to 2 layers (4 for the hybrid period), float32:
              the port on the card
              (kernels, decode steps as CUDA graphs) against the port on the
@@ -80,7 +90,8 @@ no result line:
              GDN Dk = Dv = 32, head_dim 128, two experts and a shared one),
              also over an fp8 cache; the float32, unified, both DeepSeek
              and the hybrid cases also run an eager engine on the card,
-             whose tokens must be the same
+             and the float32, DeepSeek and hybrid cases an overlap engine
+             (the pipelined loop), whose tokens must be the same
 6. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
@@ -1293,6 +1304,13 @@ TWINS = ("bf16", "unified", "deepseek", "deepseek_unified", "qwen3_next")
 # twins whose eager engine is profiled too (an eager DeepSeek window's
 # trace takes a minute to read back)
 PROFILE_EAGER = ("bf16",)
+# configurations that also serve an overlap twin: the pipelined loop
+# (overlap scheduling under it) at depth 2, graphs warmed, on the same
+# weights; the runs go eager, graph, overlap, overlap, graph, eager. The
+# hybrid model's twin chains and never re-forms
+OVERLAP_TWINS = ("bf16", "deepseek", "qwen3_next")
+PROFILE_OVERLAP = ("bf16",)
+OVERLAP = dict(pipelined_loop=True, overlap_depth=2)
 # the eager twin's KV pool: the workload's 16 requests need about 1700
 # pages of 16 tokens, so neither engine preempts (the primary engine holds
 # the memory the pool is sized from); a hybrid twin also holds 16 GDN slots
@@ -1405,29 +1423,61 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
         eager.generate(prompt_token_ids=[[1, 2, 3, 4]], sampling_params=warm)
         log(f"[serve {name}] eager twin on the same weights: "
             f"{TWIN_PAGES} KV pages{', 16 GDN slots' if extra else ''}")
+    over = None
+    if name in OVERLAP_TWINS:
+        extra = {"max_num_seqs": 16} if llm.runner.hybrid else {}
+        over = LLM(model_cfg=llm.model_cfg, params=llm.runner.params,
+                   config=EngineConfig(
+                       load_format="dummy", dtype="bfloat16", seed=SEED,
+                       cache=CacheConfig(kv_cache_dtype=kv_dtype,
+                                         num_pages=TWIN_PAGES),
+                       **OVERLAP, **kw, **extra))
+        over.generate(prompt_token_ids=[[1, 2, 3, 4]], sampling_params=warm)
+        t0 = time.monotonic()
+        over.runner.warmup()
+        log(f"[serve {name}] overlap twin on the same weights ({OVERLAP}): "
+            f"{TWIN_PAGES} KV pages, {over.runner.num_shape_signatures} "
+            f"graphs warmed in {time.monotonic() - t0:.2f} s, graph pool "
+            f"{over.runner.graphs.pool_bytes() / 2**20:.1f} MiB")
     lens = rng.integers(64, 1537, 16)
     max_tokens = rng.integers(32, 129, 16)
     prompts = [rng.integers(1, vocab, int(n)).tolist() for n in lens]
     params = [SamplingParams(temperature=0.0, max_tokens=int(m),
                              ignore_eos=True) for m in max_tokens]
-    order = [eager, llm, llm, eager] if eager else [llm] * runs
+    if over:
+        order = [eager, llm, over, over, llm, eager]
+    elif eager:
+        order = [eager, llm, llm, eager]
+    else:
+        order = [llm] * runs
+    modes = {id(llm): "graph", id(eager): "eager", id(over): "overlap"}
     log(f"[serve {name}] 16 requests, prompts {lens.min()}..{lens.max()} "
         f"(sum {lens.sum()}), max_tokens {max_tokens.min()}..."
         f"{max_tokens.max()}, runs "
-        + ", ".join("graph" if e is llm else "eager" for e in order))
-    engines = [llm] + ([eager] if eager else [])
+        + ", ".join(modes[id(e)] for e in order))
+    engines = [e for e in (llm, eager, over) if e is not None]
     steps0 = [dict(e.step_counts) for e in engines]
     sigs0, replays0 = llm.runner.num_shape_signatures, graphs.replays
+    if over:
+        over_replays0 = over.runner.graphs.replays
+        over_dispatches0 = over.dispatches.copy()
     reset_counters()
-    rates = {"graph": [], "eager": []}
+    rates = {"graph": [], "eager": [], "overlap": []}
     streams = {}
+    schedule = None
     for rep, e in enumerate(order):
-        mode = "graph" if e is llm else "eager"
+        mode = modes[id(e)]
+        recording = e is over and "overlap" in streams
+        if recording:
+            # the second overlap run records what it dispatches
+            schedule = record_schedule(over)
         torch.cuda.synchronize()
         t0 = time.monotonic()
         outs = e.generate(prompt_token_ids=prompts, sampling_params=params)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+        if recording:
+            del over.runner.step_async, over.scheduler.discard_batch
         n_out = sum(o.num_output_tokens for o in outs)
         rates[mode].append(n_out / wall)
         log(f"[serve {name}] run {rep} ({mode}): {n_out} tokens in "
@@ -1464,6 +1514,11 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
                                  eager, prompts, streams["graph"],
                                  streams["eager"], where))
         log(f"[serve {name}] graph and eager greedy streams identical")
+    overlap = None
+    if over:
+        overlap = check_overlap(
+            name, over, rates, streams, over_replays0, over_dispatches0,
+            over.step_counts["decode"] - steps0[engines.index(over)]["decode"])
     assert launched == {k for ks in by_kind.values() for k in ks}, \
         f"[serve {name}] launched {launched}, expected {by_kind}"
     # every layer of every step of a kind launched that kind's kernels
@@ -1482,22 +1537,153 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
         if mm.use_ssm:
             assert mm.ssm_alloc.num_free == mm.ssm_alloc.num_total, \
                 "SSM slots leaked"
+    if over:
+        replay_in_sync(name, llm, schedule, prompts, params,
+                       streams["overlap"])
     prof = {}
     if profiled:
-        prof["graph"] = profile_window(llm, rng, name + " graph")
+        prof["graph"] = profile_window(llm, name + " graph")
         if eager and name in PROFILE_EAGER:
-            prof["eager"] = profile_window(eager, rng, name + " eager")
+            prof["eager"] = profile_window(eager, name + " eager")
+        if over and name in PROFILE_OVERLAP:
+            prof["overlap"] = profile_window(over, name + " overlap")
     out = dict(counts=counts, rates=rates["graph"],
-               eager_rates=rates["eager"], pages=llm.runner.num_pages,
+               eager_rates=rates["eager"], overlap_rates=rates["overlap"],
+               overlap=overlap, pages=llm.runner.num_pages,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                graphs=llm.runner.num_shape_signatures, warm_s=warm_s,
                capture_s=graphs.capture_seconds, pool_mib=pool_mib,
                profile=prof)
     weights = llm.runner.params
-    del llm, eager, engines, graphs, order, e
+    del llm, eager, over, engines, graphs, order, e, modes
     gc.collect()
     torch.cuda.empty_cache()
     return out, weights
+
+
+def record_schedule(over):
+    """Wrap the overlap twin's dispatch and discard (until the caller
+    deletes the wrappers): the batches it dispatches, in order, each with
+    its rows (sequence id, computed before, new tokens), and the batches
+    it discards."""
+    entries, discarded = [], []
+    step_async = over.runner.step_async
+    discard = over.scheduler.discard_batch
+
+    def dispatch(batch, prev=None):
+        entries.append((batch, [(it.seq.seq_id, it.computed_before,
+                                 it.num_new_tokens) for it in batch.items]))
+        return step_async(batch, prev)
+
+    def drop(batch):
+        discarded.append(batch)
+        return discard(batch)
+    over.runner.step_async = dispatch
+    over.scheduler.discard_batch = drop
+    return dict(entries=entries, discarded=discarded,
+                first_id=over._next_seq_id)
+
+
+def replay_in_sync(name, llm, schedule, prompts, params, want):
+    """The overlap twin's batches again, in its order and composition, one
+    synchronous step at a time through the sync engine's runner, each
+    step's input tokens from the host: the greedy streams must be the
+    overlap twin's. (Against the sync loop itself, bf16 streams may part:
+    the two loops form other batches, and a row's bf16 result depends on
+    its batch.)"""
+    from gllm_tpu_torch.scheduler import ScheduledBatch, ScheduledSeq
+    from gllm_tpu_torch.sequence import Sequence
+    mm = llm.memory_manager
+    seqs = {}
+    skipped = 0
+    for batch, rows in schedule["entries"]:
+        if any(batch is b for b in schedule["discarded"]):
+            skipped += 1
+            continue
+        items = []
+        for sid, before, n in rows:
+            seq = seqs.get(sid)
+            if seq is None:
+                i = sid - schedule["first_id"]
+                seq = seqs[sid] = Sequence(sid, prompts[i], params[i])
+                mm.prepare_seq(seq)
+            mm.allocate_seq_pages(seq, before + n - seq.num_computed_tokens)
+            items.append(ScheduledSeq(seq, n, before))
+        samples = [it.samples for it in items]
+        tokens = llm.runner.step(ScheduledBatch(items))
+        for it, sampled, tok in zip(items, samples, tokens):
+            seq = it.seq
+            seq.num_computed_tokens = it.computed_before + it.num_new_tokens
+            if sampled:
+                seq.append_token(int(tok))
+                if seq.num_output_tokens == seq.sampling_params.max_tokens:
+                    mm.free_seq(seq)
+    got = [seqs[schedule["first_id"] + i].output_token_ids
+           for i in range(len(prompts))]
+    where = first_difference(got, want)
+    if where is not None or got != want:
+        raise SystemExit(
+            f"[serve {name}] the overlap twin's batches run one by one "
+            f"give other greedy streams (first difference at request, "
+            f"token {where})")
+    assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
+    log(f"[serve {name}] the overlap twin's {len(schedule['entries'])} "
+        f"dispatched batches ({skipped} discarded, skipped) run one by one "
+        f"through the sync engine, input tokens from the host: greedy "
+        f"streams identical to the overlap twin's")
+
+
+def check_overlap(name, over, rates, streams, replays0, dispatches0,
+                  decode_steps):
+    """The overlap twin against the sync graph engine: both medians and
+    their ratio, whether the greedy streams are identical (the first
+    difference if not), every decode step a replay, decode entries
+    dispatched with another in flight on most of them, chain breaks and
+    stalls by reason, rebuilds and divergences; returns those numbers."""
+    where = first_difference(streams["graph"], streams["overlap"])
+    if where is None:
+        log(f"[serve {name}] overlap and sync-loop greedy streams identical")
+    else:
+        i, j = where
+        log(f"[serve {name}] overlap and sync-loop greedy streams part at "
+            f"request {i}, output token {j} (sync "
+            f"{streams['graph'][i][j]}, overlap {streams['overlap'][i][j]}):"
+            f" the loops run other batches")
+    ratio = median(rates["overlap"]) / median(rates["graph"])
+    dispatches = over.dispatches - dispatches0
+    decode = {d: n for (kind, d), n in dispatches.items() if kind == "decode"}
+    ahead = sum(n for d, n in decode.items() if d >= 2)
+    n_decode = sum(decode.values())
+    deepest = max(d for _, d in dispatches)
+    replays = over.runner.graphs.replays - replays0
+    log(f"[serve {name}] overlap median {median(rates['overlap']):.1f} "
+        f"output tok/s, sync graph median {median(rates['graph']):.1f} "
+        f"({ratio:.3f}x); dispatches by (kind, "
+        f"in flight) {dict(sorted(dispatches.items()))}: {ahead} of "
+        f"{n_decode} decode entries dispatched with another in flight, "
+        f"largest in-flight count {deepest}; chain breaks "
+        f"{dict(over.chain_breaks)}; stalls {dict(over.stalls)}; "
+        f"futures.rebuilds {over.futures.rebuilds}, divergences "
+        f"{over.futures.divergences}; {replays} graph replays")
+    assert ahead * 2 > n_decode, \
+        f"[serve {name}] overlap ran ahead on {ahead} of {n_decode} decode " \
+        f"dispatches only"
+    mm = over.memory_manager
+    assert not over._in_flight, "an entry was left in flight"
+    assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
+    if mm.use_ssm:
+        assert mm.ssm_alloc.num_free == mm.ssm_alloc.num_total, \
+            "SSM slots leaked"
+    assert replays == decode_steps, \
+        f"[serve {name}] overlap: {decode_steps} decode steps but " \
+        f"{replays} replays"
+    log(f"[serve {name}] overlap twin: every decode step a replay, no page "
+        f"or slot leaked, nothing left in flight")
+    return dict(ratio=ratio, same_as_sync=where is None,
+                ahead=ahead, decode_dispatches=n_decode,
+                deepest=deepest, chain_breaks=dict(over.chain_breaks),
+                stalls=dict(over.stalls), rebuilds=over.futures.rebuilds,
+                divergences=over.futures.divergences)
 
 
 def phase_serve():
@@ -1525,11 +1711,11 @@ def phase_serve():
             f"({ratio:.3f}x)")
         assert ratio >= 1.9, f"{fp8} should give about 2x the pages of {twin}"
     log("[serve] summary: config, graph tok/s runs, eager tok/s runs, "
-        "graphs, warmup s, capture s, pool MiB, KV pages")
+        "overlap tok/s runs, graphs, warmup s, capture s, pool MiB, KV pages")
     for name, r in results.items():
-        log(f"[serve] {name}: {r['rates']} {r['eager_rates']} {r['graphs']} "
-            f"{r['warm_s']:.3f} {r['capture_s']:.3f} {r['pool_mib']:.1f} "
-            f"{r['pages']}")
+        log(f"[serve] {name}: {r['rates']} {r['eager_rates']} "
+            f"{r['overlap_rates']} {r['graphs']} {r['warm_s']:.3f} "
+            f"{r['capture_s']:.3f} {r['pool_mib']:.1f} {r['pages']}")
     return results
 
 
@@ -1540,29 +1726,39 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cudaMemcpy", "cudaMemsetAsync")
 
 
-def profile_window(llm, rng, name):
+def profile_window(llm, name):
     """Where a serving step's time goes: torch.profiler over a short
-    window (8 requests of 512 prompt tokens, 24 greedy tokens each):
-    device time by kernel, the device's busy share of the wall, kernels per
-    step, host calls that launch work per decode step (each step marked
-    with a record_function range), and the steps' share of the wall by
-    kind."""
+    window (8 requests of 512 prompt tokens, 24 greedy tokens each, the
+    same prompts for every engine, run once unprofiled first so that no
+    graph is captured inside it): device time by kernel, the device's
+    busy share of the wall, kernels per step, host calls that launch work
+    per dispatched decode entry (each dispatch marked with a
+    record_function range), the dispatches' share of the wall by kind and
+    the share spent waiting in ``collect`` (each wait marked too)."""
     from bisect import bisect_right
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from gllm_tpu_torch import SamplingParams
+    rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(1, llm.model_cfg.vocab_size, 512).tolist()
                for _ in range(8)]
     sp = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+    # a pass before the profiled one: the window's decode signatures are
+    # captured there, not inside the window
+    llm.generate(prompt_token_ids=prompts, sampling_params=sp)
     steps0 = dict(llm.step_counts)
-    step = llm.runner.step
+    step_async, collect = llm.runner.step_async, llm.runner.collect
 
-    def marked(batch):
+    def marked(batch, prev=None):
         kind = ("decode" if all(it.num_new_tokens == 1 for it in batch.items)
                 else "mixed")
         with record_function("gllm_step_" + kind):
-            return step(batch)
-    llm.runner.step = marked
+            return step_async(batch, prev)
+
+    def waited(handle):
+        with record_function("gllm_collect"):
+            return collect(handle)
+    llm.runner.step_async, llm.runner.collect = marked, waited
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1571,15 +1767,15 @@ def profile_window(llm, rng, name):
             torch.cuda.synchronize()
             wall_us = (time.monotonic() - t0) * 1e6
     finally:
-        del llm.runner.step
+        del llm.runner.step_async, llm.runner.collect
     steps = {k: llm.step_counts[k] - steps0[k] for k in steps0}
     tag = f"[profile {name}]"
     # kernels only: a CPU op's device time repeats its kernels' times, and
-    # so does the device side of the steps' record_function ranges
+    # so does the device side of the record_function ranges
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and not e.key.startswith("gllm_step_")), reverse=True)
+                   and not e.key.startswith("gllm_")), reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"{tag} 8 x (512 prompt + 24 out) tokens, steps {steps}: wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
@@ -1593,9 +1789,11 @@ def profile_window(llm, rng, name):
     n_steps = sum(steps.values())
     events = prof.events()
     spans = {k: sorted((e.time_range.start, e.time_range.end)
-                       for e in events if e.name == "gllm_step_" + k
+                       for e in events if e.name == name
                        and e.device_type == DeviceType.CPU)
-             for k in ("decode", "mixed")}
+             for k, name in (("decode", "gllm_step_decode"),
+                             ("mixed", "gllm_step_mixed"),
+                             ("collect", "gllm_collect"))}
     starts = [a for a, _ in spans["decode"]]
     calls = {}
     for e in events:
@@ -1612,10 +1810,12 @@ def profile_window(llm, rng, name):
     kernels_per_step = sum(r[1] for r in rows) / n_steps
     launches = sum(calls.values()) / n_dec
     log(f"{tag} {kernels_per_step:.0f} kernels per step; {launches:.2f} "
-        f"host launch calls per decode step ({calls}); steps' share of the "
-        f"wall: decode {100 * share['decode']:.1f}%, mixed "
-        f"{100 * share['mixed']:.1f}%; host self time {host_us / 1e3:.1f} "
-        f"ms ({100 * host_us / wall_us:.1f}% of wall), by operator:")
+        f"host launch calls per dispatched decode entry ({calls}); "
+        f"dispatches' share of the wall: decode "
+        f"{100 * share['decode']:.1f}%, mixed {100 * share['mixed']:.1f}%; "
+        f"waiting in collect {100 * share['collect']:.1f}% of the wall; "
+        f"host self time {host_us / 1e3:.1f} ms "
+        f"({100 * host_us / wall_us:.1f}% of wall), by operator:")
     for cpu_us, count, key in host[:10]:
         log(f"{tag}   {100 * cpu_us / host_us:5.1f}%  {cpu_us / 1e3:8.3f}"
             f" ms  x{count:<6d} {key[:60]}")
@@ -1666,12 +1866,13 @@ def phase_reference():
                     if isinstance(x, dict) else x.to(device))
                 for g, x in params.items()}
 
-    def engine(cfg, p, device, kv_cache_dtype, unified, eager=False):
+    def engine(cfg, p, device, kv_cache_dtype, unified, **flags):
         ec = EngineConfig(dtype="float32", seed=SEED, max_model_len=512,
-                          unified_step=unified, enforce_eager=eager,
+                          unified_step=unified,
                           scheduler=SchedulerConfig(max_prefill_tokens=64),
                           cache=CacheConfig(num_pages=128,
-                                            kv_cache_dtype=kv_cache_dtype))
+                                            kv_cache_dtype=kv_cache_dtype),
+                          **flags)
         return LLM(model_cfg=cfg, config=ec, params=p, device=device)
 
     dsl, qnl = ("deepseek (latent 64+32, 16 heads)",
@@ -1704,13 +1905,18 @@ def phase_reference():
         logits, toks = [], []
         reset_counters()
         # the card's engine replays its decode steps as CUDA graphs; the
-        # dense, unified, MLA and hybrid cases also run an eager one
+        # dense, unified, MLA and hybrid cases also run an eager one, and
+        # the legacy dense, MLA and hybrid ones an overlap engine (the
+        # pipelined loop)
         engines = [engine(cfg, params, "cuda", kv_dtype, unified),
                    engine(cfg, on(params, "cpu"), "cpu", kv_dtype, unified)]
         if label in ("float32 cache", "unified step", dsl,
                      dsl + ", unified step", qnl):
             engines.append(engine(cfg, params, "cuda", kv_dtype, unified,
-                                  eager=True))
+                                  enforce_eager=True))
+        if label in ("float32 cache", dsl, qnl):
+            engines.append(engine(cfg, params, "cuda", kv_dtype, unified,
+                                  pipelined_loop=True))
         for llm in engines:
             seqs = [llm._allocate_seq(p, sp) for p in prompts]
             for seq in seqs:
@@ -1734,8 +1940,8 @@ def phase_reference():
             f"(chunked "
             f"prefill) logits max_abs_err {err} of max |logit| {scale}; "
             f"greedy tokens identical: {toks[0] == toks[1]}"
-            + (f", card eager engine too: {toks[2] == toks[1]}"
-               if len(toks) > 2 else "")
+            + "".join(f", card {kind} engine too: {t == toks[1]}"
+                      for kind, t in zip(("eager", "overlap"), toks[2:]))
             + f"; {graphed.graphs.replays} decode graph replays "
             f"({graphed.num_shape_signatures} graphs); card launches "
             f"{ {k: n for k, n in counts.items() if n} }")
@@ -1744,7 +1950,7 @@ def phase_reference():
         assert toks[0] == toks[1], \
             f"[reference] {label}: card and CPU greedy tokens differ"
         assert all(t == toks[1] for t in toks[2:]), \
-            f"[reference] {label}: the card's eager engine differs"
+            f"[reference] {label}: the card's eager or overlap engine differs"
         assert graphed.graphs.replays == graphed.step_counts["decode"] > 0
         assert all(len(t) == 8 for t in toks[0])
         launched = {k for k, n in counts.items() if n and k != "plain_calls"}

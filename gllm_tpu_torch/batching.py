@@ -33,6 +33,11 @@ class StepBatch(NamedTuple):
     # int32 on the device; None when there are none)
     ssm_slots: object = None
     ssm_zero: object = None
+    # a re-formed batch (pipelined loop): the rows whose input token is
+    # spliced from the previous entry's sampled tokens, then the rows of
+    # those tokens they take (a list of 2k ints on the host, [2, k] int32
+    # on the device; None when no row is spliced by map)
+    splice: object = None
     # host ints: the real rows (sequences) of the batch, and the longest
     # real row's token count (the GDN layers' padded row length)
     num_seqs: int = 0

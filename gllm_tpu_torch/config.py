@@ -3,12 +3,15 @@
 The dataclasses keep the JAX package's field names, so a configuration
 reads the same in both packages. ``EngineConfig.validate`` raises on every
 option this port does not implement yet; it never accepts an option and
-then ignores it.
+then ignores it, except where the JAX package's ``validate`` does the same
+(``enforce_eager`` clears overlap scheduling and the options built on it,
+with a warning).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import TYPE_CHECKING, Optional
 
 from gllm_tpu_torch.utils import cdiv
@@ -63,11 +66,11 @@ class ParallelConfig:
     enable_ep: bool = False
 
 
+logger = logging.getLogger(__name__)
+
 # Options of the JAX engine that this port does not implement yet, with
 # the value that means "off". validate() raises when one is set.
 _UNPORTED = {
-    "overlap_scheduling": False,
-    "pipelined_loop": False,
     "decode_slot_batching": False,
     "ondevice_finish": False,
     "multi_step_decode": 1,
@@ -87,11 +90,22 @@ class EngineConfig:
     max_model_len: int = 4096
     max_num_seqs: int = 256
     load_format: str = "auto"             # auto | dummy
+    # chain each pure-decode step off the previous step's sampled tokens
+    # on the device, dispatched before those tokens reach the host
+    # (engine/llm.py; docs/overlap_scheduling.md of the JAX package)
     overlap_scheduling: bool = False
+    # entries dispatched and not yet collected under overlap_scheduling
+    overlap_depth: int = 2
+    # with prefill work waiting, chain up to this many decode steps before
+    # yielding one pass to the sync schedule (0: yield at once)
+    chain_under_prefill: int = 0
+    # across a chain break, re-form the next pure-decode batch off the
+    # promised token counts, reconciled when the tokens land (implies
+    # overlap_scheduling)
     pipelined_loop: bool = False
     # every paged step through the one unified attention kernel (K1u; K1um
-    # over an MLA latent cache); sync loop only: overlap scheduling is not
-    # ported
+    # over an MLA latent cache); sync loop only: with overlap_scheduling it
+    # is refused
     unified_step: bool = False
     decode_slot_batching: bool = False
     ondevice_finish: bool = False
@@ -103,9 +117,8 @@ class EngineConfig:
     # False (the JAX package's default): every pure-decode step on CUDA
     # replays a CUDA graph captured per shape signature
     # (runner/graphs.py); True runs every step op by op, as the reference's
-    # flag of that name turns CUDA-graph capture off. Unlike the JAX
-    # package, it clears no other option: those validate() refuses stay
-    # refused.
+    # flag of that name turns CUDA-graph capture off, and, as in the JAX
+    # package, clears overlap scheduling and every option built on it
     enforce_eager: bool = False
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
@@ -120,9 +133,33 @@ class EngineConfig:
         ``model_cfg``, also on a model it does not serve and on options the
         model's family does not take (an MLA latent cache takes no int8
         cache; a hybrid model neither, nor the unified step, nor prefix
-        caching)."""
+        caching). First it normalizes the options as the JAX package's
+        ``validate`` does (``gllm_tpu/config.py:353-397``):
+        ``enforce_eager`` clears overlap scheduling and the options built
+        on it, and ``pipelined_loop`` implies ``overlap_scheduling``."""
         if model_cfg is not None:
             model_cfg.check_supported()
+        if self.enforce_eager:
+            if self.overlap_scheduling or self.multi_step_decode > 1:
+                logger.warning(
+                    "enforce_eager overrides overlap_scheduling/"
+                    "multi_step_decode (were %s/%d): plain per-step "
+                    "execution", self.overlap_scheduling,
+                    self.multi_step_decode)
+            self.overlap_scheduling = False
+            self.multi_step_decode = 1
+            self.decode_chain_len = None
+            self.ondevice_finish = False
+            self.decode_slot_batching = False
+            self.chain_under_prefill = 0
+            self.pipelined_loop = False
+            self.spec_fused = False
+        if self.pipelined_loop:
+            self.overlap_scheduling = True
+        if self.chain_under_prefill < 0:
+            raise ValueError("chain_under_prefill must be >= 0")
+        if self.overlap_depth < 1:
+            raise ValueError("overlap_depth must be >= 1")
         unported = [k for k, off in _UNPORTED.items()
                     if getattr(self, k) != off]
         p = self.parallel

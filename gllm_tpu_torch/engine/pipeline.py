@@ -1,0 +1,92 @@
+"""The pipelined engine loop's host bookkeeping: in-flight entries and the
+FutureMap (counterpart of ``gllm_tpu/engine/pipeline.py``: ``InFlight:38``,
+``FutureMap:82``).
+
+A re-formed batch's input tokens are spliced on the device from the
+previous entry's sampled tokens (``ModelRunner.step_async_chained``); the
+host tracks only which sequences each such entry assumed alive. Deaths by
+length are known at schedule time and drop there
+(``Scheduler.schedule_reform``); EOS and stop tokens are assumed not to
+happen. When a finish commits for a sequence a later entry promised
+alive, that entry and every entry chained off it are invalidated: their
+tokens never commit, their in-flight counts unwind
+(``Scheduler.discard_batch``) and the sync path schedules the same
+positions again from committed state, so greedy streams stay those of
+the sync loop.
+
+No torch here: host bookkeeping only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class InFlight:
+    """One dispatched entry not yet collected: its ``ScheduledBatch`` and
+    the runner's handle. ``chained``: its input tokens came off the
+    previous entry's tokens on the device (a chained step or a re-form),
+    so an invalidation cascades through it. ``roots``: a pure-decode batch
+    scheduled from committed state, which roots a fresh chain; the cascade
+    stops there. ``promises``: the sequences a re-form assumed alive.
+    ``invalid``: reconciliation dropped it (collected as a discard)."""
+
+    batch: object
+    handle: object
+    chained: bool = False
+    roots: bool = False
+    promises: frozenset = frozenset()
+    invalid: bool = False
+
+    @property
+    def tip(self):
+        """(batch, handle): what the fill loop chains the next step off."""
+        return self.batch, self.handle
+
+
+class FutureMap:
+    """Reconciliation of the pipelined loop's promises, with its counts:
+    ``rebuilds`` (entries invalidated) and ``divergences`` (reconcile
+    calls that invalidated any)."""
+
+    def __init__(self):
+        self.rebuilds = 0
+        self.divergences = 0
+
+    @staticmethod
+    def promised_ids(batch) -> frozenset:
+        """The sequences a re-formed batch assumed alive: the rows whose
+        input token is a promise (``src_rows`` >= 0)."""
+        if batch.src_rows is None:
+            return frozenset()
+        return frozenset(it.seq.seq_id
+                         for it, src in zip(batch.items, batch.src_rows)
+                         if src >= 0)
+
+    def reconcile(self, in_flight, finished_ids) -> int:
+        """Invalidate every in-flight entry whose promises meet
+        ``finished_ids``, and every later chained entry after an invalid
+        one (its input tokens come from a batch that never commits) up to
+        a valid ``roots`` entry, from which later chained entries descend.
+        Entries scheduled from committed state stay valid. Returns the
+        number of entries newly invalidated."""
+        if not finished_ids:
+            return 0
+        hit = 0
+        cascading = False
+        for e in in_flight:
+            if e.invalid:
+                cascading = True
+                continue
+            if (e.promises & finished_ids) or (cascading and e.chained):
+                e.invalid = True
+                cascading = True
+                hit += 1
+                continue
+            if e.roots:
+                cascading = False
+        self.rebuilds += hit
+        if hit:
+            self.divergences += 1
+        return hit

@@ -16,8 +16,9 @@ nine hundred to three thousand kernels.
 - The body reads only those views, the runner's parameters and caches, and
   the split-KV scratch, which is sized for every shape before the first
   capture and then held at its address (``pin_decode_scratch``). Its
-  sampled tokens land in a tensor the graph owns. All graphs of a runner
-  share one memory pool: replays never overlap.
+  sampled tokens land in a tensor the graph owns, which ``run`` copies
+  out. All graphs of a runner share one memory pool: replays are ordered
+  on one stream, so they never overlap, even with steps in flight.
 - Before each capture the body runs once, eagerly, on a side stream, over
   padding rows only (they write the dummy page and SSM slot 0), with a
   throwaway generator: every kernel library and module is loaded and every
@@ -179,7 +180,10 @@ class DecodeGraphs:
     def run(self, key: Hashable,
             body: Callable[[torch.Generator], torch.Tensor]) -> torch.Tensor:
         """The step's sampled tokens: on CUDA, ``key``'s graph replayed
-        (captured first by the caller); on the CPU, ``body`` run."""
+        (captured first by the caller) and its output copied, since the
+        key's next replay overwrites it while the tokens may still be
+        read (a step chained off them, their copy to the host); on the
+        CPU, ``body`` run."""
         self.replays += 1
         if not self.cuda:
             self.keys.add(key)
@@ -187,7 +191,7 @@ class DecodeGraphs:
         g = self._graphs[key]
         g.graph.replay()
         add_launch_counts(g.delta)
-        return g.out
+        return g.out.clone()
 
     def pool_bytes(self) -> int:
         """Device bytes the graphs' shared memory pool holds."""

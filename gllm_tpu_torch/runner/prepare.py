@@ -6,10 +6,11 @@ The builder fills flat numpy arrays — token / position / slot buffers,
 query-start offsets, per-seq kv lens and page tables — padded to the same
 power-of-two buckets as the JAX package (vectorised fill, no per-token
 Python loop). ``HostStaging`` then packs the whole step into ONE pinned host
-buffer and ships it with ONE ``non_blocking`` host-to-device copy, into one
-device buffer that the runner sizes once for its largest step: the views
-of a shape signature sit at the same addresses every step, so a CUDA graph
-captured on them reads each later step's data (``runner/graphs.py``).
+buffer (one of a ring, so that steps can be in flight together) and ships
+it with ONE ``non_blocking`` host-to-device copy, into one device buffer
+that the runner sizes once for its largest step: the views of a shape
+signature sit at the same addresses every step, so a CUDA graph captured
+on them reads each later step's data (``runner/graphs.py``).
 """
 
 from __future__ import annotations
@@ -139,12 +140,16 @@ class BatchBuilder:
             page_table[pt_rows, pt_cols] = flat_pt
         slots[:total] = page_table[rows, pos // page] * page + pos % page
 
+        # a chained row's input token is on the device only (the runner
+        # splices it in): 0 here
+        def _tok_vals(it):
+            b, n = it.computed_before, it.num_new_tokens
+            v = it.seq.token_ids[b:b + n]
+            return v if len(v) == n else list(v) + [0] * (n - len(v))
+
         tokens[:total] = np.fromiter(
-            (t for it in items
-             for t in it.seq.token_ids[it.computed_before:
-                                       it.computed_before
-                                       + it.num_new_tokens]),
-            np.int32, count=total)
+            (t for it in items for t in _tok_vals(it)), np.int32,
+            count=total)
 
         sps = [it.seq.sampling_params for it in items]
         temperature[:K] = [sp.temperature for sp in sps]
@@ -172,19 +177,32 @@ class HostStaging:
     arrays by bit pattern): first the fixed part, whose offsets depend on
     the step's (T, S, pages) only, then the lists whose length varies from
     step to step (the int8 cache's scale-reset page ids, a hybrid model's
-    slots to zero; each deduplicated). The device copy is split back into
-    views. With ``capacity`` the device buffer is allocated once, at that
-    size, and a step that needs more raises: a CUDA graph captured on the
-    views of a signature then reads every later step of it. Without, it
-    grows as needed (``allocations`` counts the device buffers made).
-    Both buffers are reused across steps: the synchronous engine loop
-    fetches each step's sampled tokens (a stream sync) before it builds
-    the next step, so the previous copy and its readers have finished."""
+    slots to zero, each deduplicated; a re-formed batch's splice map). The
+    device copy is split back into views. With ``capacity`` the device
+    buffer is allocated once, at that size, and a step that needs more
+    raises: a CUDA graph captured on the views of a signature then reads
+    every later step of it. Without, it grows as needed (``allocations``
+    counts the device buffers made).
 
-    def __init__(self, device: torch.device, capacity: int = 0):
+    The one device buffer is reused by every step: its copies and readers
+    are ordered on the stream. The pinned host side is a ring of
+    ``slots`` buffers: under overlap scheduling the host fills a step's
+    buffer while earlier steps' copies may still wait on the stream behind
+    a replay, so a buffer is filled again only once an event recorded
+    after its last copy has completed (``slots`` of at least
+    ``overlap_depth + 1`` keep that wait empty)."""
+
+    def __init__(self, device: torch.device, capacity: int = 0,
+                 slots: int = 1):
         self.device = torch.device(device)
         self._pin = self.device.type == "cuda"
-        self._host = torch.empty(0, dtype=torch.int32)
+        self._ring = [torch.empty(0, dtype=torch.int32)
+                      for _ in range(slots)]
+        # per slot, an event after its last copy (a CPU copy is done
+        # when it returns)
+        self._events = ([torch.cuda.Event() for _ in range(slots)]
+                        if self._pin else [None] * slots)
+        self._next = 0
         self._dev = None
         self.allocations = 0
         self.fixed = capacity > 0
@@ -206,13 +224,10 @@ class HostStaging:
                  sb.sampling.min_p.view(np.int32),
                  np.asarray(sb.ssm_slots if sb.ssm_slots is not None
                             else [], np.int32),
-                 np.asarray(resets, np.int32), np.asarray(zero, np.int32)]
+                 np.asarray(resets, np.int32), np.asarray(zero, np.int32),
+                 np.asarray(sb.splice or [], np.int32)]
         sizes = [p.size for p in parts]
         n = sum(sizes)
-        if self._host.numel() < n:
-            self._host = torch.empty(max(n, 2 * self._host.numel()),
-                                     dtype=torch.int32,
-                                     pin_memory=self._pin)
         if self._dev is None or self._dev.numel() < n:
             if self.fixed:
                 raise RuntimeError(
@@ -220,13 +235,23 @@ class HostStaging:
                     f"device buffer of {self._dev.numel()}")
             self._allocate(max(n, 2 * (0 if self._dev is None
                                        else self._dev.numel())))
-        host_np = self._host.numpy()
-        np.concatenate(parts, out=host_np[:n])
+        i = self._next
+        self._next = (i + 1) % len(self._ring)
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        host = self._ring[i]
+        if host.numel() < n:
+            host = self._ring[i] = torch.empty(
+                max(n, 2 * host.numel()), dtype=torch.int32,
+                pin_memory=self._pin)
+        np.concatenate(parts, out=host.numpy()[:n])
         dev = self._dev[:n]
-        dev.copy_(self._host[:n], non_blocking=self._pin)
+        dev.copy_(host[:n], non_blocking=self._pin)
+        if self._events[i] is not None:
+            self._events[i].record()
         views = list(torch.split(dev, sizes))
         (tok, pos, slots, lidx, cu, kvl, pt, top_k, temp, top_p,
-         min_p, ssm_slots, resets, ssm_zero) = views
+         min_p, ssm_slots, resets, ssm_zero, splice) = views
         f32 = torch.float32
         return StepBatch(
             token_ids=tok, positions=pos, slot_mapping=slots,
@@ -240,4 +265,5 @@ class HostStaging:
             scale_resets=resets if resets.numel() else None,
             ssm_slots=ssm_slots if sb.ssm_slots is not None else None,
             ssm_zero=ssm_zero if ssm_zero.numel() else None,
+            splice=splice.view(2, -1) if splice.numel() else None,
             num_seqs=sb.num_seqs, max_seq_q=sb.max_seq_q)

@@ -5,14 +5,18 @@ of ``gllm_tpu/runner/runner.py``: ``ModelRunner.__init__:273``,
 ``_apply_scale_resets:923``, ``step:1845``; the hybrid slot pool
 ``:414-433``, ``_ssm_pool_bytes:603``).
 
-One synchronous step: build the batch on the host, copy it over in one
-transfer into the runner's one device buffer, run forward → logits →
-sample, and fetch the sampled tokens. With ``EngineConfig.enforce_eager``
-off (the default, as in the JAX package), a pure-decode step on CUDA
-replays the CUDA graph of its shape signature, captured at first sight or
-by ``warmup`` (``runner/graphs.py``, where JAX compiles one program per
-signature); every other step runs op by op. On the CPU the same
-static-buffer body runs uncaptured.
+A step: build the batch on the host, copy it over in one transfer into
+the runner's one device buffer, run forward → logits → sample, and copy
+the sampled tokens out. ``step_async`` dispatches it and returns a handle;
+``collect`` waits for its tokens (the only wait); ``step`` is the two in
+a row. ``step_async_chained`` dispatches a step whose input tokens are an
+earlier handle's sampled tokens, spliced in on the device (overlap
+scheduling, ``gllm_tpu/runner/runner.py:1114-1289``). With
+``EngineConfig.enforce_eager`` off (the default, as in the JAX package),
+a pure-decode step on CUDA replays the CUDA graph of its shape signature,
+captured at first sight or by ``warmup`` (``runner/graphs.py``, where JAX
+compiles one program per signature); every other step runs op by op. On
+the CPU the same static-buffer body runs uncaptured.
 The model family (dense, DeepSeek's MLA + MoE, or the hybrid GDN family)
 comes from ``models/registry.py``. A hybrid model keeps its GDN state in
 slot pools of ``1 + max_num_seqs`` slots (slot 0: the padding dummy);
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import logging
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,6 +69,17 @@ ACTIVATION_HEADROOM = 512 * 1024 * 1024
 # holds about two recurrent GDN states per row
 GRAPH_POOL_LOGIT_COPIES = 16
 GRAPH_POOL_STATES_PER_ROW = 2
+
+
+class StepHandle(NamedTuple):
+    """A dispatched step's sampled tokens: ``tokens``, the handle's own
+    copy on the device (what a chained step splices from; never a graph's
+    output, which the key's next replay overwrites), ``host``, their
+    copy on the way to the host (pinned on CUDA), and ``event``, recorded
+    after that copy (None on the CPU)."""
+    tokens: torch.Tensor
+    host: torch.Tensor
+    event: Optional[torch.cuda.Event]
 
 
 class ModelRunner:
@@ -120,12 +136,17 @@ class ModelRunner:
                     self.num_pages, config.cache.page_size, self.kv_dtype,
                     self.device)
         # one device buffer for every step: the largest step's fixed part,
-        # then room for every page's scale reset and every slot's zeroing
+        # then room for every page's scale reset, every slot's zeroing and
+        # a re-form's splice map; a pinned host buffer for each step that
+        # can be in flight, and one more
         b = self.builder
         self.staging = HostStaging(self.device, capacity=(
             b.upload_size(b.max_tokens, b.max_seqs, b.max_pages_per_seq)
             + (self.num_pages if self.kv_quant else 0)
-            + (1 + self.ssm_working_slots if self.hybrid else 0)))
+            + (1 + self.ssm_working_slots if self.hybrid else 0)
+            + 2 * b.max_seqs), slots=(
+                config.overlap_depth + 1 if config.overlap_scheduling
+                else 1))
         # the compiled decode steps, by signature (None: every step eager)
         self.graphs = (None if config.enforce_eager else graphs.DecodeGraphs(
             self.device, self.generator, self._scratch_floats()))
@@ -257,43 +278,95 @@ class ModelRunner:
         return self.model.compute_logits(self.params, hidden, residual,
                                          batch, self.model_cfg)
 
-    @torch.inference_mode()
     def step(self, sched_batch: ScheduledBatch) -> np.ndarray:
         """Run one step; returns the sampled token of each batch item."""
+        return self.collect(self.step_async(sched_batch))
+
+    def step_async_chained(self, sched_batch: ScheduledBatch,
+                           prev: StepHandle) -> StepHandle:
+        """Dispatch a pure-decode step whose input tokens are ``prev``'s
+        sampled tokens on the device: row i's for a chained step, row
+        ``src_rows[i]``'s for a re-formed batch (-1: the host's token)."""
+        if sched_batch.src_rows is None:
+            assert len(prev.tokens) == sched_batch.num_seqs
+        return self.step_async(sched_batch, prev)
+
+    @torch.inference_mode()
+    def step_async(self, sched_batch: ScheduledBatch,
+                   prev: Optional[StepHandle] = None) -> StepHandle:
+        """Dispatch one step: the host builds and stages it, enqueues the
+        copy in, the forward and sampling (one graph replay for a
+        pure-decode step) and the copy of the tokens out, and returns
+        without waiting for the device. A new decode signature is captured
+        first, which waits for the device once. With ``prev``, the input
+        tokens are spliced from ``prev``'s (``step_async_chained``)."""
         host_batch, max_q, sig_q = self._host_batch(sched_batch)
+        if sched_batch.src_rows is not None:
+            # a re-formed batch is pure decode: item j is token row j
+            dst = [j for j, r in enumerate(sched_batch.src_rows) if r >= 0]
+            src = [r for r in sched_batch.src_rows if r >= 0]
+            host_batch = host_batch._replace(splice=dst + src)
         decode = host_batch.max_seq_q == 1
         self.step_counts["decode" if decode else "mixed"] += 1
         all_greedy = all(it.seq.sampling_params.temperature == 0.0
                          for it in sched_batch.items)
-        if decode and self.graphs is not None:
-            tokens = self._graph_step(host_batch, sig_q, all_greedy)
-        else:
-            batch = self.staging.upload(host_batch)
-            logits = self.forward_logits(batch, max_q)
-            tokens = sample(logits, batch.sampling, self.generator,
-                            all_greedy=all_greedy)
-        return tokens[:sched_batch.num_seqs].cpu().numpy()
+        graphed = decode and self.graphs is not None
+        if graphed:
+            t = host_batch.token_ids.size
+            s, p = host_batch.attn.page_table.shape
+            key = (t, s, sig_q, p, all_greedy)
 
-    def _graph_step(self, host_batch, sig_q: int,
-                    all_greedy: bool) -> torch.Tensor:
-        """A pure-decode step through its signature's graph: captured
-        first, over padding rows staged at the same views, when the key is
-        new; then this step's upload, its eager prologue and the replay."""
-        t = host_batch.token_ids.size
-        s, p = host_batch.attn.page_table.shape
-        key = (t, s, sig_q, p, all_greedy)
+            def body(generator):
+                logits = self._forward(batch, 1)
+                return sample(logits, batch.sampling, generator,
+                              all_greedy=all_greedy)
 
-        def body(generator):
-            logits = self._forward(batch, 1)
-            return sample(logits, batch.sampling, generator,
-                          all_greedy=all_greedy)
-
-        if self.graphs.cuda and key not in self.graphs:
-            batch = self.staging.upload(self.builder.padding(t, s, p))
-            self.graphs.capture(key, body, sampled=not all_greedy)
+            if self.graphs.cuda and key not in self.graphs:
+                # captured over padding rows staged at the same views
+                batch = self.staging.upload(self.builder.padding(t, s, p))
+                self.graphs.capture(key, body, sampled=not all_greedy)
         batch = self.staging.upload(host_batch)
+        if prev is not None:
+            self._splice(batch, sched_batch, prev)
         self._prologue(batch)
-        return self.graphs.run(key, body)
+        if graphed:
+            tokens = self.graphs.run(key, body)
+        else:
+            tokens = sample(self._forward(batch, max_q), batch.sampling,
+                            self.generator, all_greedy=all_greedy)
+        return self._handle(tokens[:sched_batch.num_seqs])
+
+    @staticmethod
+    def _splice(batch, sched_batch: ScheduledBatch,
+                prev: StepHandle) -> None:
+        """Write ``prev``'s sampled tokens into the staged token view,
+        after its upload and before the step reads it: one copy for a
+        chained step (row to row), a gather and a scatter over the staged
+        splice map for a re-formed batch (JAX's ``_splice_chain_tokens``
+        and ``_splice_mapped_tokens``)."""
+        if sched_batch.src_rows is None:
+            batch.token_ids[:sched_batch.num_seqs].copy_(prev.tokens)
+        elif batch.splice is not None:
+            dst, src = batch.splice
+            batch.token_ids[dst] = prev.tokens[src]
+
+    def _handle(self, tokens: torch.Tensor) -> StepHandle:
+        """Start the copy of a step's tokens to the host."""
+        if self.device.type != "cuda":
+            return StepHandle(tokens, tokens, None)
+        host = torch.empty(tokens.shape, dtype=tokens.dtype,
+                           pin_memory=True)
+        host.copy_(tokens, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return StepHandle(tokens, host, event)
+
+    @staticmethod
+    def collect(handle: StepHandle) -> np.ndarray:
+        """The sampled token of each batch item: waits for the copy out."""
+        if handle.event is not None:
+            handle.event.synchronize()
+        return handle.host.numpy()
 
     @property
     def num_shape_signatures(self) -> int:

@@ -20,16 +20,26 @@
   preempted or finished sequence frees its slot through ``free_seq``, and
   a re-admitted one starts again from a zeroed state.
 
-The JAX scheduler's chained/re-formed decode, speculative drafting, SSM
-snapshots (``_ssm_align_chunk``), host KV tier, spans and metrics belong
-to options this port does not implement yet, and are not copied.
+- overlap scheduling: ``schedule_chain`` commits the next pure-decode
+  step off a batch still in flight (page allocation, positions and slots
+  need token counts only; the runner splices the tokens in on the
+  device), and ``schedule_reform`` re-forms it across a membership change
+  off the promised counts (the pipelined loop; ``discard_batch`` unwinds
+  an entry the engine invalidates). A sequence that finishes while a step
+  of it is still in flight keeps its pages and SSM slot until the last
+  one lands (``_deferred_free``).
+
+The JAX scheduler's multi-step chains, persistent slots (holes, joins),
+mixed re-forms, speculative drafting, SSM snapshots
+(``_ssm_align_chunk``), host KV tier, spans and metrics belong to options
+this port does not implement yet, and are not copied.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Deque, List, Optional, Tuple
 
 from gllm_tpu_torch.config import EngineConfig
 from gllm_tpu_torch.memory_manager import MemoryManager
@@ -54,6 +64,11 @@ class ScheduledSeq:
 @dataclasses.dataclass
 class ScheduledBatch:
     items: List[ScheduledSeq]
+    # a re-formed batch (schedule_reform): per item, the row of the
+    # previous entry's on-device sampled tokens that is its input token,
+    # or -1 when the host knows it (a sequence joining the batch). None:
+    # not a re-formed batch (a chained step maps row to row)
+    src_rows: Optional[List[int]] = None
 
     @property
     def num_seqs(self) -> int:
@@ -86,6 +101,9 @@ class Scheduler:
         self.waiting: Deque[Sequence] = deque()
         self.running: List[Sequence] = []
         self._aborted_ids: set[int] = set()
+        # finished sequences whose pages (and SSM slot) wait for their
+        # last in-flight step to land
+        self._deferred_free: set = set()
 
         self.new_token_ratio = self.sched_cfg.init_new_token_ratio
         self._ratio_decay = (
@@ -96,6 +114,11 @@ class Scheduler:
         # round-robin.
         self._decode_offset = 0
         self.num_preemptions = 0
+        # why the last schedule_chain / schedule_reform refused (None after
+        # one that succeeded): finish / shape / pages, resp. shape / pages
+        # / pp_budget
+        self.chain_break_reason: Optional[str] = None
+        self.reform_fail_reason: Optional[str] = None
 
     # ---- intake -----------------------------------------------------------
 
@@ -288,6 +311,135 @@ class Scheduler:
             items.append(ScheduledSeq(seq, n, seq.num_computed_tokens))
             token_budget -= n
 
+    # ---- overlap scheduling -----------------------------------------------
+
+    def schedule_chain(self, prev: ScheduledBatch
+                       ) -> Optional[ScheduledBatch]:
+        """The next pure-decode step of every row of ``prev``, scheduled
+        before ``prev``'s sampled tokens reach the host (JAX's
+        ``schedule_chain:617`` with one link): pages, positions and slots
+        follow from token counts alone, and the runner splices each row's
+        input token from ``prev``'s tokens on the device. None, with the
+        reason in ``chain_break_reason``, unless every row is a RUNNING,
+        not aborted sequence whose chunk reaches the end of its known
+        tokens, none dies by length when ``prev`` lands, and the pages fit
+        without preemption; the caller then takes the sync path."""
+        self.chain_break_reason = None
+        base: List[Tuple[Sequence, int]] = []
+        for it in prev.items:
+            seq = it.seq
+            # a finish committed while this row was in flight, an abort
+            # or a preemption: the sync path re-forms the batch
+            if seq.status is not SequenceStatus.RUNNING:
+                return self._chain_fail("finish")
+            if seq.seq_id in self._aborted_ids:
+                return self._chain_fail("shape")
+            # a mid-prompt chunk samples nothing to chain off
+            if it.computed_before + it.num_new_tokens < seq.num_tokens:
+                return self._chain_fail("shape")
+            base.append((seq, it.computed_before + it.num_new_tokens))
+        # a row that dies by length the moment prev lands
+        if any(min(seq.sampling_params.max_tokens + seq.prompt_len - cn0 - 1,
+                   self.config.max_model_len - cn0) < 1
+               for seq, cn0 in base):
+            return self._chain_fail("finish")
+        page = self.mm.page_size
+        need = sum(max(0, cdiv(cn0 + 1, page) - len(seq.page_table))
+                   for seq, cn0 in base)
+        if not self.mm.can_allocate(need):
+            return self._chain_fail("pages")
+        items = []
+        for seq, cn0 in base:
+            # cover [0, cn0 + 1): num_computed_tokens has not advanced yet
+            self.mm.allocate_seq_pages(seq, cn0 + 1 - seq.num_computed_tokens)
+            seq.num_in_flight += 1
+            items.append(ScheduledSeq(seq, 1, cn0))
+        return ScheduledBatch(items)
+
+    def _chain_fail(self, reason: str) -> None:
+        self.chain_break_reason = reason
+        return None
+
+    def schedule_reform(self, prev: ScheduledBatch
+                        ) -> Optional[ScheduledBatch]:
+        """Re-form the next pure-decode batch off ``prev``'s promised
+        token counts, before its tokens reach the host (the pipelined
+        loop; JAX's ``schedule_reform:904`` without mixed batches): where
+        ``schedule_chain`` refused a membership change. Rows that finished
+        drop; every other row of ``prev`` advances to its promised
+        frontier, its input token spliced on the device from ``prev``'s
+        row (``src_rows``); rows that die by length once ``prev`` lands
+        drop (the sync loop drops them too); decode-ready running
+        sequences join with host-known tokens (``src_rows`` -1). EOS is
+        assumed not to happen: the engine invalidates the entry when it
+        does. Never preempts (a victim's pages could not come back if the
+        entry is invalidated). None, with ``reform_fail_reason``, when the
+        batch needs host-committed state."""
+        self.reform_fail_reason = None
+        base: List[Tuple[Sequence, int, int]] = []   # (seq, cn0, src row)
+        for i, it in enumerate(prev.items):
+            seq = it.seq
+            if seq.status is SequenceStatus.FINISHED:
+                continue
+            if seq.status is not SequenceStatus.RUNNING:
+                return self._reform_fail("shape")      # preempted
+            if seq.seq_id in self._aborted_ids:
+                # _process_aborts reaps pages on the sync pass only
+                return self._reform_fail("shape")
+            if it.computed_before + it.num_new_tokens < seq.num_tokens:
+                return self._reform_fail("shape")      # mid-prefill row
+            cn0 = it.computed_before + it.num_new_tokens
+            if (cn0 + 1 - seq.prompt_len >= seq.sampling_params.max_tokens
+                    or cn0 + 1 >= self.config.max_model_len):
+                continue
+            base.append((seq, cn0, i))
+        # JAX's name: at one pipeline stage the budget is max_decode_seqs,
+        # which a batch of final prefill chunks may exceed
+        budget = self.sched_cfg.max_decode_seqs
+        if len(base) > budget:
+            return self._reform_fail("pp_budget")
+        in_batch = {seq.seq_id for seq, _, _ in base}
+        for s in self.running:
+            if (len(base) >= budget or s.num_remaining_tokens != 1
+                    or s.num_in_flight or s.seq_id in in_batch
+                    or s.seq_id in self._aborted_ids):
+                continue
+            base.append((s, s.num_computed_tokens, -1))
+        if not base:
+            return self._reform_fail("shape")         # nothing left to run
+        page = self.mm.page_size
+        need = sum(max(0, cdiv(cn0 + 1, page) - len(seq.page_table))
+                   for seq, cn0, _ in base)
+        if not self.mm.can_allocate(need):
+            return self._reform_fail("pages")
+        items, src_rows = [], []
+        for seq, cn0, src in base:
+            self.mm.allocate_seq_pages(seq, cn0 + 1 - seq.num_computed_tokens)
+            seq.num_in_flight += 1
+            items.append(ScheduledSeq(seq, 1, cn0))
+            src_rows.append(src)
+        return ScheduledBatch(items, src_rows=src_rows)
+
+    def _reform_fail(self, reason: str) -> None:
+        self.reform_fail_reason = reason
+        return None
+
+    def discard_batch(self, batch: ScheduledBatch) -> None:
+        """Unwind an entry the engine invalidated: the in-flight counts
+        drop without committing tokens or advancing computed counts, so
+        the sync path schedules the same positions again. Pages allocated
+        toward the promised frontier stay on the table; a finished
+        sequence's deferred free fires once its last entry drains."""
+        for it in batch.items:
+            seq = it.seq
+            seq.num_in_flight -= 1
+            self._free_if_drained(seq)
+
+    def _free_if_drained(self, seq: Sequence) -> None:
+        if seq in self._deferred_free and seq.num_in_flight == 0:
+            self._deferred_free.discard(seq)
+            self.mm.free_seq(seq)
+
     # ---- output path ------------------------------------------------------
 
     def process_output(self, batch: ScheduledBatch,
@@ -301,6 +453,9 @@ class Scheduler:
             seq = it.seq
             seq.num_in_flight -= 1
             if seq.status is not SequenceStatus.RUNNING:
+                # finished at an earlier step while this one was in
+                # flight: its pages go once the last such step lands
+                self._free_if_drained(seq)
                 continue
             if seq.seq_id in self._aborted_ids:
                 continue  # handled in _process_aborts
@@ -321,13 +476,18 @@ class Scheduler:
         return outputs
 
     def finish_seq(self, seq: Sequence, reason: str = "stop") -> None:
-        """Finish a RUNNING seq and release its pages."""
+        """Finish a RUNNING seq and release its pages, or, while a step of
+        it is still in flight (a chained step writing its KV), once the
+        last one lands."""
         if seq.status is not SequenceStatus.RUNNING:
             return
         seq.status = SequenceStatus.FINISHED
         seq.finish_reason = reason
         self.running.remove(seq)
-        self.mm.free_seq(seq)
+        if seq.num_in_flight > 0:
+            self._deferred_free.add(seq)
+        else:
+            self.mm.free_seq(seq)
 
     # ---- aborts -----------------------------------------------------------
 

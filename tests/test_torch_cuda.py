@@ -5,7 +5,8 @@ K2 at head_dim 256 and the gated-delta-rule chunk scan (K3), then the
 engines (Llama-shaped, DeepSeek-shaped and hybrid) on the card against the
 CPU; then the fp8 cache in every attention kernel, the unified step over
 a latent cache (K1um), the fp8 write against the CPU's bytes, and the
-engines over an fp8 cache or under the unified MLA step.
+engines over an fp8 cache or under the unified MLA step; the decode steps
+as CUDA graphs, and overlap scheduling and the pipelined loop over them.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; run
 them on the card with
@@ -1852,6 +1853,140 @@ def test_decode_scratch_cannot_grow_under_a_graph(cuda_device):
     del graph, buf
     gc.collect()
     assert tdec.decode_scratch(cuda_device, 2 * size).numel() >= 2 * size
+
+
+# ---- overlap scheduling and the pipelined loop -----------------------------
+
+OVERLAP_FLAGS = {"overlap": dict(overlap_scheduling=True),
+                 "pipelined": dict(pipelined_loop=True)}
+
+
+def _serve_greedy(llm, arrive_after=2):
+    """Twelve requests of short prompts and staggered outputs, nine of them
+    arriving after ``arrive_after`` steps (so that chains yield, break on
+    finishes and re-form): their greedy streams."""
+    import gllm_tpu_torch as gt
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 1000, int(n)).tolist()
+               for n in rng.integers(3, 30, 12)]
+    seqs = [llm._allocate_seq(p, gt.SamplingParams(
+        temperature=0.0, max_tokens=int(m), ignore_eos=True))
+        for p, m in zip(prompts, rng.integers(6, 30, 12))]
+    for s in seqs[:3]:
+        llm.add_seq(s)
+    steps = 0
+    while llm.has_unfinished or steps <= arrive_after:
+        if steps == arrive_after:
+            for s in seqs[3:]:
+                llm.add_seq(s)
+        llm.step()
+        steps += 1
+    return [s.output_token_ids for s in seqs]
+
+
+def _drained(llm):
+    mm = llm.memory_manager
+    assert not llm._in_flight
+    assert mm.num_free_pages == mm.allocator.num_total
+    if mm.use_ssm:
+        assert mm.ssm_alloc.num_free == mm.ssm_alloc.num_total
+
+
+def _ran_ahead(llm):
+    """Decode entries dispatched while another was in flight."""
+    return sum(n for (kind, depth), n in llm.dispatches.items()
+               if kind == "decode" and depth >= 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("flags", list(OVERLAP_FLAGS))
+@pytest.mark.parametrize("family", ["dense", "deepseek", "hybrid"])
+def test_overlap_streams_equal_the_sync_loop_on_card(cuda_device, family,
+                                                     flags, warm):
+    """bf16 engines on the same weights: greedy streams under overlap
+    scheduling and the pipelined loop equal the sync loop's, decode steps
+    ran ahead over the graphs, and pages and slots all come back. Cold:
+    no ``warmup()``, so graphs are captured while entries are in flight.
+    The hybrid model chains and never re-forms."""
+    make = GRAPH_MAKERS[family]
+    sync = make(cuda_device, dtype="bfloat16")
+    llm = make(cuda_device, params=sync.runner.params, dtype="bfloat16",
+               **OVERLAP_FLAGS[flags])
+    if warm:
+        llm.runner.warmup()
+    replays = llm.runner.graphs.replays
+    reforms = []
+    reform = llm.scheduler.schedule_reform
+    llm.scheduler.schedule_reform = lambda b: (reforms.append(b),
+                                               reform(b))[1]
+    assert _serve_greedy(llm) == _serve_greedy(sync)
+    _drained(llm)
+    _counters_zero(cuda_device)
+    assert _ran_ahead(llm) > 0
+    assert (llm.runner.graphs.replays - replays
+            == llm.step_counts["decode"] > 0)
+    if family == "hybrid":
+        assert not reforms
+    elif flags == "pipelined":
+        assert reforms
+
+
+@pytest.mark.cuda
+def test_host_staging_ring_under_a_held_stream(cuda_device):
+    """Each upload is queued behind a sleep on the stream, so the host
+    fills the next steps' pinned buffers while earlier copies still wait:
+    the greedy streams stay the sync loop's (one pinned buffer shared by
+    the steps in flight would upload a later step's batch)."""
+    sync = _tiny_engine(cuda_device, dtype="bfloat16")
+    llm = _tiny_engine(cuda_device, params=sync.runner.params,
+                       dtype="bfloat16", pipelined_loop=True)
+    staging = llm.runner.staging
+    upload = staging.upload
+
+    def held(sb):
+        torch.cuda._sleep(2_000_000)         # about a millisecond
+        return upload(sb)
+    staging.upload = held
+    assert _serve_greedy(llm) == _serve_greedy(sync)
+    assert _ran_ahead(llm) > 0
+    _drained(llm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "deepseek", "hybrid"])
+def test_chained_dispatch_makes_no_host_sync(cuda_device, family):
+    """Once every graph of the workload is captured (a first run), the
+    pipelined loop's chained dispatches (chained steps and re-forms)
+    raise nothing under ``set_sync_debug_mode("error")``."""
+    llm = GRAPH_MAKERS[family](cuda_device, dtype="bfloat16",
+                               pipelined_loop=True)
+    _serve_greedy(llm)
+    runner = llm.runner
+    chained, calls = runner.step_async_chained, []
+
+    def strict(batch, prev):
+        calls.append(batch)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return chained(batch, prev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    runner.step_async_chained = strict
+    _serve_greedy(llm)
+    assert calls
+    _drained(llm)
+
+
+@pytest.mark.cuda
+def test_overlap_sampled_streams_reproducible_on_card(cuda_device):
+    """Sampled rows (temperature 0.8, top-p 0.9, top-k 50) under the
+    pipelined loop: two engines of one seed give the same streams."""
+    first = _tiny_engine(cuda_device, dtype="bfloat16", pipelined_loop=True)
+    second = _tiny_engine(cuda_device, params=first.runner.params,
+                          dtype="bfloat16", pipelined_loop=True)
+    assert _serve(first, 0.8)[0] == _serve(second, 0.8)[0]
+    _drained(first)
 
 
 @pytest.mark.cuda

@@ -263,7 +263,7 @@ def test_no_device_means_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("overlap_scheduling", True), ("pipelined_loop", True),
+    ("multi_step_decode", 4), ("decode_chain_len", 4),
     ("decode_slot_batching", True), ("spec_decode", "ngram"),
     ("quantization", "int8"), ("ondevice_finish", True),
     ("kv_cache_dtype", "float32"), ("tp", 2), ("pp", 2), ("dp", 2),

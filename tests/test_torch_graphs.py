@@ -83,18 +83,18 @@ def _dense_engines(num_pages, kv="auto", unified=False):
 
 
 def _record_decode_signatures(llm):
-    """Wrap the runner's step to collect the graph keys of its decode
+    """Wrap the runner's dispatch to collect the graph keys of its decode
     steps: (T, S, max_q_len, pages) and all_greedy."""
     runner, seen = llm.runner, set()
-    step = runner.step
+    step_async = runner.step_async
 
-    def recording(batch):
+    def recording(batch, prev=None):
         if all(it.num_new_tokens == 1 for it in batch.items):
             seen.add(runner.builder.shape_signature(batch) + (all(
                 it.seq.sampling_params.temperature == 0.0
                 for it in batch.items),))
-        return step(batch)
-    runner.step = recording
+        return step_async(batch, prev)
+    runner.step_async = recording
     return seen
 
 
