@@ -62,7 +62,25 @@ no result line:
              entries dispatched while another was in flight (most must
              be), the largest in-flight count, chain breaks and stalls by
              reason, rebuilds and divergences, and no page or slot may
-             leak (the hybrid twin chains and never re-forms).
+             leak (the hybrid twin chains and never re-forms). The bf16
+             and DeepSeek configurations also serve a multi twin (blocks
+             of decode steps: the pipelined loop at depth 2 with on-device
+             finish, chains of 16, each block one CUDA graph whose
+             sub-steps after the first sit in conditional nodes), runs
+             eager, graph, overlap, multi, multi, overlap, graph, eager:
+             its medians and ratios, decode dispatches and decoded
+             sub-steps a run, blocks by K, dead row-sub-steps; its
+             streams are held to its own batches (a block's links at the
+             block's signature) run one at a time through the sync
+             engine; the DeepSeek twin then serves a stop-token run
+             (each request stops at a token of its greedy stream at about
+             half its output; the dummy Llama's stream repeats one
+             token), whose streams must be the sync engine's (or, where
+             bf16 batches part them, its own batches replayed) and some
+             block of which must stop early. Every engine with
+             graphs: one replay per decode dispatch (a single step or a
+             block), and a block's executed sub-steps launch the decode
+             kernels too.
              Each must launch exactly its kernels and no plain version,
              replays counted (DeepSeek: K1m on every layer of every mixed
              step, K2m on every layer of every decode step, K1um on every
@@ -73,7 +91,8 @@ no result line:
              leave the decode kernels' split counters at zero; each fp8
              configuration's KV pages beside its full-precision twin's; a
              profiled window of the graph engine of the bf16 (and of its
-             eager and overlap twins), unified-int8, DeepSeek (both steps)
+             eager, overlap and multi twins: host launch calls per decoded
+             sub-step beside per dispatch), unified-int8, DeepSeek (both steps)
              and Qwen3-Next configurations: device time by kernel, busy
              share, kernels per step, host launch calls per dispatched
              decode entry, the dispatches' share of the wall by kind and
@@ -91,13 +110,16 @@ no result line:
              also over an fp8 cache; the float32, unified, both DeepSeek
              and the hybrid cases also run an eager engine on the card,
              and the float32, DeepSeek and hybrid cases an overlap engine
-             (the pipelined loop), whose tokens must be the same
+             (the pipelined loop), the float32 and DeepSeek cases a multi
+             engine (blocks under on-device finish), whose tokens must be
+             the same
 6. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
 It imports nothing of jax or the JAX package.
 """
 
+import dataclasses
 import gc
 import json
 import re
@@ -1311,6 +1333,22 @@ PROFILE_EAGER = ("bf16",)
 OVERLAP_TWINS = ("bf16", "deepseek", "qwen3_next")
 PROFILE_OVERLAP = ("bf16",)
 OVERLAP = dict(pipelined_loop=True, overlap_depth=2)
+# configurations that also serve a multi twin: blocks of decode steps (the
+# pipelined loop at depth 2 with on-device finish, which lifts the chain
+# length to 16), on the same weights; the runs go eager, graph, overlap,
+# multi, multi, overlap, graph, eager, and the bf16 twin also serves the
+# stop-token run. Its warmup captures the single steps and the longest
+# blocks at the sequence buckets the workload takes (its graph pools then
+# fit beside the primary engine's and the overlap twin's); other blocks
+# are captured at first sight, in its first run
+MULTI_TWINS = ("bf16", "deepseek")
+PROFILE_MULTI = ("bf16",)
+# the configuration whose multi twin serves the stop-token run: the dummy
+# Llama ties its embeddings, and its greedy stream repeats one token (no
+# stop token can land inside a block), while DeepSeek's varies
+STOP_RUN = "deepseek"
+MULTI = dict(pipelined_loop=True, overlap_depth=2, ondevice_finish=True)
+MULTI_BLOCK_BUCKETS = (8, 16)
 # the eager twin's KV pool: the workload's 16 requests need about 1700
 # pages of 16 tokens, so neither engine preempts (the primary engine holds
 # the memory the pool is sized from); a hybrid twin also holds 16 GDN slots
@@ -1390,12 +1428,16 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
                                   seed=SEED,
                                   cache=CacheConfig(kv_cache_dtype=kv_dtype),
                                   **kw))
+    # cached blocks the engine's construction left in partly used
+    # segments (its KV pool was sized after emptying the cache)
+    spare = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
     log(f"[serve {name}] LLM up in {time.monotonic() - t0:.1f} s"
         f"{' (weights reused)' if params is not None else ''}: "
         f"{llm.runner.num_pages} KV pages of {llm.config.cache.page_size} "
         f"tokens ({llm.runner.kv_dtype}) on {llm.device}; activation "
         f"headroom {llm.runner.activation_headroom() / 2**30:.2f} GiB; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{spare / 2**30:.3f} GiB reserved and unallocated; "
         f"{free0 / 2**30:.2f} GiB free before the engine")
     rng = np.random.default_rng(SEED)
     vocab = llm.model_cfg.vocab_size
@@ -1444,40 +1486,72 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     prompts = [rng.integers(1, vocab, int(n)).tolist() for n in lens]
     params = [SamplingParams(temperature=0.0, max_tokens=int(m),
                              ignore_eos=True) for m in max_tokens]
-    if over:
+    multi = None
+    if name in MULTI_TWINS:
+        multi = LLM(model_cfg=llm.model_cfg, params=llm.runner.params,
+                    config=EngineConfig(
+                        load_format="dummy", dtype="bfloat16", seed=SEED,
+                        cache=CacheConfig(kv_cache_dtype=kv_dtype,
+                                          num_pages=TWIN_PAGES),
+                        **MULTI, **kw))
+        multi.generate(prompt_token_ids=[[1, 2, 3, 4]], sampling_params=warm)
+        mg = multi.runner.graphs
+        t0 = time.monotonic()
+        multi.runner.warmup(decode_buckets=MULTI_BLOCK_BUCKETS,
+                            block_buckets=MULTI_BLOCK_BUCKETS)
+        warm_multi = time.monotonic() - t0
+        log(f"[serve {name}] multi twin on the same weights ({MULTI}, chain "
+            f"length {multi.config.multi_step_decode}, blocks up to "
+            f"{multi.runner.block_len}): {TWIN_PAGES} KV pages; warmup "
+            f"{len(mg)} graphs ({sum(k[0] == 'block' for k in mg.keys)} "
+            f"blocks) in {warm_multi:.2f} s ({mg.capture_seconds:.2f} s in "
+            f"capture), pool {mg.pool_bytes() / 2**20:.1f} MiB; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if multi:
+        order = [eager, llm, over, multi, multi, over, llm, eager]
+    elif over:
         order = [eager, llm, over, over, llm, eager]
     elif eager:
         order = [eager, llm, llm, eager]
     else:
         order = [llm] * runs
-    modes = {id(llm): "graph", id(eager): "eager", id(over): "overlap"}
+    modes = {id(llm): "graph", id(eager): "eager", id(over): "overlap",
+             id(multi): "multi"}
     log(f"[serve {name}] 16 requests, prompts {lens.min()}..{lens.max()} "
         f"(sum {lens.sum()}), max_tokens {max_tokens.min()}..."
         f"{max_tokens.max()}, runs "
         + ", ".join(modes[id(e)] for e in order))
-    engines = [e for e in (llm, eager, over) if e is not None]
+    engines = [e for e in (llm, eager, over, multi) if e is not None]
     steps0 = [dict(e.step_counts) for e in engines]
-    sigs0, replays0 = llm.runner.num_shape_signatures, graphs.replays
+    blocks0 = [dict(e.runner.block_counts) for e in engines]
+    replays0 = [e.runner.graphs.replays if e.runner.graphs else 0
+                for e in engines]
+    sigs0 = llm.runner.num_shape_signatures
     if over:
-        over_replays0 = over.runner.graphs.replays
         over_dispatches0 = over.dispatches.copy()
+    if multi:
+        multi0 = dict(dispatches=multi.dispatches.copy(),
+                      blocks=multi.blocks.copy(),
+                      substeps=multi.block_substeps,
+                      dead=multi.dead_substeps, rows=multi.row_substeps)
     reset_counters()
-    rates = {"graph": [], "eager": [], "overlap": []}
+    rates = {"graph": [], "eager": [], "overlap": [], "multi": []}
     streams = {}
-    schedule = None
+    schedules = {}
     for rep, e in enumerate(order):
         mode = modes[id(e)]
-        recording = e is over and "overlap" in streams
+        recording = e in (over, multi) and mode in streams
         if recording:
-            # the second overlap run records what it dispatches
-            schedule = record_schedule(over)
+            # the second overlap (multi) run records what it dispatches
+            schedules[mode] = record_schedule(e)
         torch.cuda.synchronize()
         t0 = time.monotonic()
         outs = e.generate(prompt_token_ids=prompts, sampling_params=params)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         if recording:
-            del over.runner.step_async, over.scheduler.discard_batch
+            del e.runner.step_async, e.runner.step_multi
+            del e.scheduler.discard_batch
         n_out = sum(o.num_output_tokens for o in outs)
         rates[mode].append(n_out / wall)
         log(f"[serve {name}] run {rep} ({mode}): {n_out} tokens in "
@@ -1492,8 +1566,11 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     counts = read_counters()
     steps = {k: sum(e.step_counts[k] - s0[k]
                     for e, s0 in zip(engines, steps0)) for k in steps0[0]}
+    # executed sub-steps of blocks, which launch the decode kernels too
+    steps["substeps"] = sum(e.runner.block_counts["substeps"] - b0["substeps"]
+                            for e, b0 in zip(engines, blocks0))
     graph_decode = llm.step_counts["decode"] - steps0[0]["decode"]
-    replays = graphs.replays - replays0
+    replays = graphs.replays - replays0[0]
     first_sight = llm.runner.num_shape_signatures - sigs0
     launched = {k for k, n in counts.items() if k != "plain_calls" and n}
     log(f"[serve {name}] graph median {median(rates['graph']):.1f} output "
@@ -1504,6 +1581,18 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
         f"decode steps, {first_sight} graphs captured at first sight in "
         f"the runs; launches {counts}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # every engine with graphs: one replay for each decode dispatch (a
+    # single step or a block); a block's executed sub-steps as many as its
+    # collect counted
+    for e, s0, b0, r0 in zip(engines, steps0, blocks0, replays0):
+        if e.runner.graphs is None:
+            continue
+        dispatched = (e.step_counts["decode"] - s0["decode"]
+                      + e.runner.block_counts["block"] - b0["block"])
+        got = e.runner.graphs.replays - r0
+        assert got == dispatched, \
+            f"[serve {name}] {modes[id(e)]}: {dispatched} decode " \
+            f"dispatches but {got} replays"
     assert replays == graph_decode, \
         f"[serve {name}] {graph_decode} decode steps but {replays} replays"
     if eager:
@@ -1516,17 +1605,18 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
         log(f"[serve {name}] graph and eager greedy streams identical")
     overlap = None
     if over:
-        overlap = check_overlap(
-            name, over, rates, streams, over_replays0, over_dispatches0,
-            over.step_counts["decode"] - steps0[engines.index(over)]["decode"])
+        overlap = check_overlap(name, over, rates, streams, over_dispatches0)
+    multi_out = None
+    if multi:
+        multi_out = check_multi(name, multi, rates, streams, multi0)
     assert launched == {k for ks in by_kind.values() for k in ks}, \
         f"[serve {name}] launched {launched}, expected {by_kind}"
     # every layer of every step of a kind launched that kind's kernels
     want = {k: 0 for ks in by_kind.values() for k in ks}
     for kind, kernels in by_kind.items():
+        n = steps[kind] + (steps["substeps"] if kind == "decode" else 0)
         for kernel in kernels:
-            want[kernel] += steps[kind] * layers_running(llm.model_cfg,
-                                                         kernel)
+            want[kernel] += n * layers_running(llm.model_cfg, kernel)
     assert all(counts[k] == n for k, n in want.items()), \
         f"[serve {name}] launches {counts}, expected {want} from {steps}"
     assert counts["plain_calls"] == 0, "a plain version ran on the card"
@@ -1537,9 +1627,18 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
         if mm.use_ssm:
             assert mm.ssm_alloc.num_free == mm.ssm_alloc.num_total, \
                 "SSM slots leaked"
-    if over:
-        replay_in_sync(name, llm, schedule, prompts, params,
-                       streams["overlap"])
+    for mode, schedule in schedules.items():
+        replay_in_sync(name, mode, llm, schedule, prompts, params,
+                       streams[mode])
+    if multi and name == STOP_RUN:
+        # the eager and overlap twins are done (their windows are bf16's);
+        # their pages and pools make room for the stop-token run's graphs
+        eager = over = order = e = None
+        engines = [llm, multi]
+        gc.collect()
+        torch.cuda.empty_cache()
+        multi_out["stop_run"] = stop_token_run(name, llm, multi, prompts,
+                                               streams["graph"])
     prof = {}
     if profiled:
         prof["graph"] = profile_window(llm, name + " graph")
@@ -1547,99 +1646,138 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
             prof["eager"] = profile_window(eager, name + " eager")
         if over and name in PROFILE_OVERLAP:
             prof["overlap"] = profile_window(over, name + " overlap")
+        if multi and name in PROFILE_MULTI:
+            prof["multi"] = profile_window(multi, name + " multi")
     out = dict(counts=counts, rates=rates["graph"],
                eager_rates=rates["eager"], overlap_rates=rates["overlap"],
-               overlap=overlap, pages=llm.runner.num_pages,
+               multi_rates=rates["multi"], overlap=overlap, multi=multi_out,
+               pages=llm.runner.num_pages,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                graphs=llm.runner.num_shape_signatures, warm_s=warm_s,
                capture_s=graphs.capture_seconds, pool_mib=pool_mib,
                profile=prof)
     weights = llm.runner.params
-    del llm, eager, over, engines, graphs, order, e, modes
+    del llm, eager, over, multi, engines, graphs, order, e, modes
     gc.collect()
     torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    log(f"[serve {name}] engines freed (the weights held for the caller): "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, "
+        f"{free / 2**30:.3f} GiB free")
     return out, weights
 
 
-def record_schedule(over):
-    """Wrap the overlap twin's dispatch and discard (until the caller
-    deletes the wrappers): the batches it dispatches, in order, each with
-    its rows (sequence id, computed before, new tokens), and the batches
-    it discards."""
-    entries, discarded = [], []
-    step_async = over.runner.step_async
-    discard = over.scheduler.discard_batch
+def block_keys(graphs):
+    """The captured blocks of a DecodeGraphs, counted by K."""
+    by_k = {}
+    for key in graphs.keys:
+        if key[0] == "block":
+            by_k[key[5]] = by_k.get(key[5], 0) + 1
+    return dict(sorted(by_k.items()))
 
-    def dispatch(batch, prev=None):
-        entries.append((batch, [(it.seq.seq_id, it.computed_before,
-                                 it.num_new_tokens) for it in batch.items]))
-        return step_async(batch, prev)
+
+def record_schedule(e):
+    """Wrap an engine's dispatches (single steps and blocks) and discards
+    (until the caller deletes the wrappers): what it dispatches, in order,
+    as a list of links each with its rows (sequence id, computed before,
+    new tokens) and, for a block, the signature it runs at; and the
+    entries it discards."""
+    entries, discarded = [], []
+    step_async, step_multi = e.runner.step_async, e.runner.step_multi
+    discard = e.scheduler.discard_batch
+    shape = e.runner.builder.shape_signature
+
+    def rows(batch):
+        return [(it.seq.seq_id, it.computed_before, it.num_new_tokens)
+                for it in batch.items]
+
+    def dispatch(batch, prev=None, **kw):
+        entries.append((batch, [rows(batch)], None))
+        return step_async(batch, prev, **kw)
+
+    def block(chain, prev=None):
+        entries.append((chain, [rows(b) for b in chain], shape(chain[-1])))
+        return step_multi(chain, prev)
 
     def drop(batch):
         discarded.append(batch)
         return discard(batch)
-    over.runner.step_async = dispatch
-    over.scheduler.discard_batch = drop
+    e.runner.step_async, e.runner.step_multi = dispatch, block
+    e.scheduler.discard_batch = drop
     return dict(entries=entries, discarded=discarded,
-                first_id=over._next_seq_id)
+                first_id=e._next_seq_id)
 
 
-def replay_in_sync(name, llm, schedule, prompts, params, want):
-    """The overlap twin's batches again, in its order and composition, one
+def replay_in_sync(name, mode, llm, schedule, prompts, params, want):
+    """A twin's dispatched batches again, in its order and composition, one
     synchronous step at a time through the sync engine's runner, each
-    step's input tokens from the host: the greedy streams must be the
-    overlap twin's. (Against the sync loop itself, bf16 streams may part:
-    the two loops form other batches, and a row's bf16 result depends on
-    its batch.)"""
+    step's input tokens from the host and its finishes checked on the host
+    (length, EOS, stop tokens); a block's links one by one at the block's
+    signature, without the rows that had finished by then: the greedy
+    streams must be the twin's. (Against the sync loop itself, bf16
+    streams may part: the loops form other batches, a block runs at its
+    last link's page bucket, and a row's bf16 result depends on its
+    batch.)"""
     from gllm_tpu_torch.scheduler import ScheduledBatch, ScheduledSeq
     from gllm_tpu_torch.sequence import Sequence
     mm = llm.memory_manager
     seqs = {}
-    skipped = 0
-    for batch, rows in schedule["entries"]:
+    skipped = steps = 0
+    for batch, links, sig in schedule["entries"]:
         if any(batch is b for b in schedule["discarded"]):
             skipped += 1
             continue
-        items = []
-        for sid, before, n in rows:
-            seq = seqs.get(sid)
-            if seq is None:
-                i = sid - schedule["first_id"]
-                seq = seqs[sid] = Sequence(sid, prompts[i], params[i])
-                mm.prepare_seq(seq)
-            mm.allocate_seq_pages(seq, before + n - seq.num_computed_tokens)
-            items.append(ScheduledSeq(seq, n, before))
-        samples = [it.samples for it in items]
-        tokens = llm.runner.step(ScheduledBatch(items))
-        for it, sampled, tok in zip(items, samples, tokens):
-            seq = it.seq
-            seq.num_computed_tokens = it.computed_before + it.num_new_tokens
-            if sampled:
-                seq.append_token(int(tok))
-                if seq.num_output_tokens == seq.sampling_params.max_tokens:
-                    mm.free_seq(seq)
+        for rows in links:
+            items = []
+            for sid, before, n in rows:
+                seq = seqs.get(sid)
+                if seq is None:
+                    i = sid - schedule["first_id"]
+                    seq = seqs[sid] = Sequence(sid, prompts[i], params[i])
+                    mm.prepare_seq(seq)
+                if seq.finish_reason is not None:
+                    continue              # dead in this link of a block
+                mm.allocate_seq_pages(seq,
+                                      before + n - seq.num_computed_tokens)
+                items.append(ScheduledSeq(seq, n, before))
+            if not items:
+                continue
+            samples = [it.samples for it in items]
+            tokens = llm.runner.step(ScheduledBatch(items),
+                                     force_signature=sig)
+            steps += 1
+            for it, sampled, tok in zip(items, samples, tokens):
+                seq = it.seq
+                seq.num_computed_tokens = (it.computed_before
+                                           + it.num_new_tokens)
+                if sampled:
+                    seq.append_token(int(tok))
+                    seq.finish_reason = seq.check_finish(llm.eos_token_ids)
+                    if seq.finish_reason is not None:
+                        mm.free_seq(seq)
     got = [seqs[schedule["first_id"] + i].output_token_ids
            for i in range(len(prompts))]
     where = first_difference(got, want)
     if where is not None or got != want:
         raise SystemExit(
-            f"[serve {name}] the overlap twin's batches run one by one "
+            f"[serve {name}] the {mode} twin's batches run one by one "
             f"give other greedy streams (first difference at request, "
             f"token {where})")
     assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
-    log(f"[serve {name}] the overlap twin's {len(schedule['entries'])} "
-        f"dispatched batches ({skipped} discarded, skipped) run one by one "
-        f"through the sync engine, input tokens from the host: greedy "
-        f"streams identical to the overlap twin's")
+    log(f"[serve {name}] the {mode} twin's {len(schedule['entries'])} "
+        f"dispatched entries ({skipped} discarded, skipped) run as {steps} "
+        f"steps one by one through the sync engine (a block's links at its "
+        f"signature), input tokens from the host: greedy streams identical "
+        f"to the {mode} twin's")
 
 
-def check_overlap(name, over, rates, streams, replays0, dispatches0,
-                  decode_steps):
+def check_overlap(name, over, rates, streams, dispatches0):
     """The overlap twin against the sync graph engine: both medians and
     their ratio, whether the greedy streams are identical (the first
-    difference if not), every decode step a replay, decode entries
-    dispatched with another in flight on most of them, chain breaks and
-    stalls by reason, rebuilds and divergences; returns those numbers."""
+    difference if not), decode entries dispatched with another in flight
+    on most of them, chain breaks and stalls by reason, rebuilds and
+    divergences; returns those numbers."""
     where = first_difference(streams["graph"], streams["overlap"])
     if where is None:
         log(f"[serve {name}] overlap and sync-loop greedy streams identical")
@@ -1655,7 +1793,6 @@ def check_overlap(name, over, rates, streams, replays0, dispatches0,
     ahead = sum(n for d, n in decode.items() if d >= 2)
     n_decode = sum(decode.values())
     deepest = max(d for _, d in dispatches)
-    replays = over.runner.graphs.replays - replays0
     log(f"[serve {name}] overlap median {median(rates['overlap']):.1f} "
         f"output tok/s, sync graph median {median(rates['graph']):.1f} "
         f"({ratio:.3f}x); dispatches by (kind, "
@@ -1664,7 +1801,7 @@ def check_overlap(name, over, rates, streams, replays0, dispatches0,
         f"largest in-flight count {deepest}; chain breaks "
         f"{dict(over.chain_breaks)}; stalls {dict(over.stalls)}; "
         f"futures.rebuilds {over.futures.rebuilds}, divergences "
-        f"{over.futures.divergences}; {replays} graph replays")
+        f"{over.futures.divergences}")
     assert ahead * 2 > n_decode, \
         f"[serve {name}] overlap ran ahead on {ahead} of {n_decode} decode " \
         f"dispatches only"
@@ -1674,16 +1811,153 @@ def check_overlap(name, over, rates, streams, replays0, dispatches0,
     if mm.use_ssm:
         assert mm.ssm_alloc.num_free == mm.ssm_alloc.num_total, \
             "SSM slots leaked"
-    assert replays == decode_steps, \
-        f"[serve {name}] overlap: {decode_steps} decode steps but " \
-        f"{replays} replays"
-    log(f"[serve {name}] overlap twin: every decode step a replay, no page "
-        f"or slot leaked, nothing left in flight")
+    log(f"[serve {name}] overlap twin: no page or slot leaked, nothing "
+        f"left in flight")
     return dict(ratio=ratio, same_as_sync=where is None,
                 ahead=ahead, decode_dispatches=n_decode,
                 deepest=deepest, chain_breaks=dict(over.chain_breaks),
                 stalls=dict(over.stalls), rebuilds=over.futures.rebuilds,
                 divergences=over.futures.divergences)
+
+
+def check_multi(name, multi, rates, streams, before):
+    """The multi twin against the sync graph and overlap twins: medians and
+    their ratios, whether its greedy streams equal the sync loop's, decode
+    dispatches (single steps and blocks) and executed sub-steps a run,
+    blocks by K, entries dispatched ahead, dead row-sub-steps, and no page
+    leaked or entry left in flight; returns those numbers."""
+    runs = len(rates["multi"])
+    med = median(rates["multi"])
+    where = first_difference(streams["graph"], streams["multi"])
+    if where is None:
+        log(f"[serve {name}] multi and sync-loop greedy streams identical")
+    else:
+        i, j = where
+        log(f"[serve {name}] multi and sync-loop greedy streams part at "
+            f"request {i}, output token {j} (sync {streams['graph'][i][j]},"
+            f" multi {streams['multi'][i][j]}): the loops run other batches")
+    dispatches = multi.dispatches - before["dispatches"]
+    blocks = multi.blocks - before["blocks"]
+    decode = sum(n for (kind, _), n in dispatches.items()
+                 if kind in ("decode", "block"))
+    ahead = sum(n for (kind, d), n in dispatches.items()
+                if kind in ("decode", "block") and d >= 2)
+    singles = sum(n for (kind, _), n in dispatches.items()
+                  if kind == "decode")
+    substeps = multi.block_substeps - before["substeps"]
+    dead = multi.dead_substeps - before["dead"]
+    out = dict(ratio_graph=med / median(rates["graph"]),
+               ratio_overlap=(med / median(rates["overlap"])
+                              if rates["overlap"] else None),
+               same_as_sync=where is None,
+               decode_dispatches_a_run=decode / runs,
+               substeps_a_run=(singles + substeps) / runs,
+               blocks_by_k={k: n / runs for k, n in sorted(blocks.items())},
+               ahead=ahead, decode_dispatches=decode,
+               dead_share=dead / max(1, multi.row_substeps
+                                     - before["rows"]),
+               chain_breaks=dict(multi.chain_breaks),
+               stalls=dict(multi.stalls), rebuilds=multi.futures.rebuilds)
+    log(f"[serve {name}] multi median {med:.1f} output tok/s: "
+        f"{out['ratio_graph']:.3f}x the sync graph median"
+        + (f", {out['ratio_overlap']:.3f}x the overlap median"
+           if out["ratio_overlap"] else "")
+        + f"; a run: {out['decode_dispatches_a_run']:.1f} decode dispatches "
+        f"({singles / runs:.1f} single steps, {sum(blocks.values()) / runs:.1f}"
+        f" blocks), {out['substeps_a_run']:.1f} decoded sub-steps; blocks "
+        f"by K a run {out['blocks_by_k']}; {ahead} of {decode} decode "
+        f"dispatches with another in flight; dead row-sub-steps "
+        f"{dead} ({100 * out['dead_share']:.1f}%); chain breaks "
+        f"{out['chain_breaks']}; stalls {out['stalls']}; rebuilds "
+        f"{out['rebuilds']}")
+    mg = multi.runner.graphs
+    log(f"[serve {name}] multi twin after its runs: {len(mg)} graphs "
+        f"({sum(k[0] == 'block' for k in mg.keys)} blocks, keys by K "
+        f"{block_keys(mg)}), {mg.capture_seconds:.2f} s in capture, pool "
+        f"{mg.pool_bytes() / 2**20:.1f} MiB")
+    assert sum(blocks.values()) > 0, f"[serve {name}] no block formed"
+    mm = multi.memory_manager
+    assert not multi._in_flight, "an entry was left in flight"
+    assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
+    log(f"[serve {name}] multi twin: no page leaked, nothing left in "
+        f"flight")
+    return out
+
+
+def stop_token_run(name, llm, multi, prompts, graph_streams):
+    """Each request stops at a token of its greedy stream (from the sync
+    graph engine's) from output 16 on, the first there that the stream
+    has not sampled before, so that the stream reaches it there: every
+    request (32 to 122 tokens) stops at about a quarter to half of its
+    output, inside the multi twin's blocks. Two passes: the 16 requests,
+    then the first that stops alone (a block dispatched ahead of a finish
+    keeps the finished row alive, as the host does, so among many rows an
+    early exit is rare; alone, the row's block stops at its stop token).
+    Some block must exit early (executed sub-steps below its K) and each
+    pass's streams must be the sync engine's (or, where bf16 batches part
+    them, its own batches run one by one through the sync engine); prints
+    the dead share and the finishes by kind."""
+    from gllm_tpu_torch import SamplingParams
+
+    def stop(s):
+        fresh = [j for j in range(1, len(s)) if s[j] not in s[:j]]
+        later = [j for j in fresh if j >= min(16, len(s) // 2)]
+        return [s[(later or fresh)[0]]] if fresh else []
+    sps = [SamplingParams(temperature=0.0, max_tokens=len(s),
+                          stop_token_ids=stop(s)) for s in graph_streams]
+    first = next(i for i, sp in enumerate(sps) if sp.stop_token_ids)
+    out = {}
+    early = 0
+    for tag, idx in (("16 requests", range(len(prompts))),
+                     ("one request", [first])):
+        ps = [prompts[i] for i in idx]
+        pass_sps = [dataclasses.replace(sps[i]) for i in idx]
+        want = [o.output_token_ids for o in llm.generate(
+            prompt_token_ids=ps, sampling_params=pass_sps)]
+        runs = []
+        stats = multi._block_stats
+        multi._block_stats = lambda chain, finish: (
+            runs.append((len(chain),
+                         int(finish[:chain[0].num_seqs].max()))),
+            stats(chain, finish))[1]
+        finishes0 = multi.ondevice_finishes.copy()
+        dead0, rows0 = multi.dead_substeps, multi.row_substeps
+        schedule = record_schedule(multi)
+        try:
+            got = [o.output_token_ids for o in multi.generate(
+                prompt_token_ids=ps, sampling_params=pass_sps)]
+        finally:
+            del multi._block_stats, multi.runner.step_async
+            del multi.runner.step_multi, multi.scheduler.discard_batch
+        n_early = sum(e < k for k, e in runs)
+        early += n_early
+        dead = multi.dead_substeps - dead0
+        share = dead / max(1, multi.row_substeps - rows0)
+        finishes = dict(multi.ondevice_finishes - finishes0)
+        where = first_difference(got, want)
+        stopped = sum(len(g) < len(graph_streams[i])
+                      for g, i in zip(got, idx))
+        log(f"[serve {name}] stop-token run, {tag}: "
+            f"{sum(len(t) for t in got)} tokens, {stopped} of {len(got)} "
+            f"requests stopped early; {len(runs)} blocks, {n_early} exited "
+            f"early (K, executed: {runs}); dead row-sub-steps {dead} "
+            f"({100 * share:.1f}%); finishes out of blocks by kind "
+            f"{finishes}; streams "
+            + ("identical to the sync engine's" if where is None
+               and got == want else
+               f"part from the sync engine's at (request, token) {where}"))
+        if where is not None or got != want:
+            # bf16: the loops run other batches (see replay_in_sync)
+            replay_in_sync(name, f"multi (stop-token run, {tag})", llm,
+                           schedule, ps, pass_sps, got)
+        mm = multi.memory_manager
+        assert not multi._in_flight and \
+            mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
+        out[tag] = dict(blocks=len(runs), early=n_early, dead_share=share,
+                        finishes=finishes, same_as_sync=where is None,
+                        stopped=stopped)
+    assert early > 0, f"[serve {name}] stop-token run: no block exited early"
+    return out
 
 
 def phase_serve():
@@ -1711,11 +1985,13 @@ def phase_serve():
             f"({ratio:.3f}x)")
         assert ratio >= 1.9, f"{fp8} should give about 2x the pages of {twin}"
     log("[serve] summary: config, graph tok/s runs, eager tok/s runs, "
-        "overlap tok/s runs, graphs, warmup s, capture s, pool MiB, KV pages")
+        "overlap tok/s runs, multi tok/s runs, graphs, warmup s, capture s, "
+        "pool MiB, KV pages")
     for name, r in results.items():
         log(f"[serve] {name}: {r['rates']} {r['eager_rates']} "
-            f"{r['overlap_rates']} {r['graphs']} {r['warm_s']:.3f} "
-            f"{r['capture_s']:.3f} {r['pool_mib']:.1f} {r['pages']}")
+            f"{r['overlap_rates']} {r['multi_rates']} {r['graphs']} "
+            f"{r['warm_s']:.3f} {r['capture_s']:.3f} {r['pool_mib']:.1f} "
+            f"{r['pages']}")
     return results
 
 
@@ -1747,18 +2023,26 @@ def profile_window(llm, name):
     # captured there, not inside the window
     llm.generate(prompt_token_ids=prompts, sampling_params=sp)
     steps0 = dict(llm.step_counts)
-    step_async, collect = llm.runner.step_async, llm.runner.collect
+    substeps0 = llm.runner.block_counts["substeps"]
+    runner = llm.runner
+    step_async, step_multi = runner.step_async, runner.step_multi
+    collect = runner.collect
 
-    def marked(batch, prev=None):
+    def marked(batch, prev=None, **kw):
         kind = ("decode" if all(it.num_new_tokens == 1 for it in batch.items)
                 else "mixed")
         with record_function("gllm_step_" + kind):
-            return step_async(batch, prev)
+            return step_async(batch, prev, **kw)
+
+    def marked_block(chain, prev=None):
+        with record_function("gllm_step_block"):
+            return step_multi(chain, prev)
 
     def waited(handle):
         with record_function("gllm_collect"):
             return collect(handle)
-    llm.runner.step_async, llm.runner.collect = marked, waited
+    runner.step_async, runner.step_multi = marked, marked_block
+    runner.collect = waited
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1767,8 +2051,10 @@ def profile_window(llm, name):
             torch.cuda.synchronize()
             wall_us = (time.monotonic() - t0) * 1e6
     finally:
-        del llm.runner.step_async, llm.runner.collect
+        del runner.step_async, runner.step_multi, runner.collect
     steps = {k: llm.step_counts[k] - steps0[k] for k in steps0}
+    # a block's executed sub-steps are decode steps too
+    steps["substeps"] = runner.block_counts["substeps"] - substeps0
     tag = f"[profile {name}]"
     # kernels only: a CPU op's device time repeats its kernels' times, and
     # so does the device side of the record_function ranges
@@ -1792,16 +2078,19 @@ def profile_window(llm, name):
                        for e in events if e.name == name
                        and e.device_type == DeviceType.CPU)
              for k, name in (("decode", "gllm_step_decode"),
+                             ("block", "gllm_step_block"),
                              ("mixed", "gllm_step_mixed"),
                              ("collect", "gllm_collect"))}
-    starts = [a for a, _ in spans["decode"]]
+    decode_spans = sorted(spans["decode"] + spans["block"])
+    starts = [a for a, _ in decode_spans]
     calls = {}
     for e in events:
         if e.name in LAUNCH_CALLS:
             i = bisect_right(starts, e.time_range.start) - 1
-            if i >= 0 and e.time_range.start <= spans["decode"][i][1]:
+            if i >= 0 and e.time_range.start <= decode_spans[i][1]:
                 calls[e.name] = calls.get(e.name, 0) + 1
-    n_dec = max(1, len(spans["decode"]))
+    n_dec = max(1, len(decode_spans))
+    n_sub = max(1, steps["decode"] + steps["substeps"])
     share = {k: sum(b - a for a, b in v) / wall_us for k, v in spans.items()}
     host = sorted(((e.self_cpu_time_total, e.count, e.key)
                    for e in prof.key_averages()
@@ -1809,10 +2098,13 @@ def profile_window(llm, name):
     host_us = sum(r[0] for r in host)
     kernels_per_step = sum(r[1] for r in rows) / n_steps
     launches = sum(calls.values()) / n_dec
-    log(f"{tag} {kernels_per_step:.0f} kernels per step; {launches:.2f} "
-        f"host launch calls per dispatched decode entry ({calls}); "
-        f"dispatches' share of the wall: decode "
-        f"{100 * share['decode']:.1f}%, mixed {100 * share['mixed']:.1f}%; "
+    per_sub = sum(calls.values()) / n_sub
+    log(f"{tag} {kernels_per_step:.0f} kernels per step (a block's "
+        f"sub-steps counted); {launches:.2f} host launch calls per "
+        f"dispatched decode entry, {per_sub:.2f} per decoded sub-step "
+        f"({calls}); dispatches' share of the wall: decode "
+        f"{100 * share['decode']:.1f}%, blocks {100 * share['block']:.1f}%,"
+        f" mixed {100 * share['mixed']:.1f}%; "
         f"waiting in collect {100 * share['collect']:.1f}% of the wall; "
         f"host self time {host_us / 1e3:.1f} ms "
         f"({100 * host_us / wall_us:.1f}% of wall), by operator:")
@@ -1821,8 +2113,9 @@ def profile_window(llm, name):
             f" ms  x{count:<6d} {key[:60]}")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
                 busy_share=busy / wall_us, kernels_per_step=kernels_per_step,
-                launches_per_decode_step=launches, share=share,
-                host_share=host_us / wall_us)
+                launches_per_decode_step=launches,
+                launches_per_substep=per_sub, share=share,
+                host_share=host_us / wall_us, steps=steps)
 
 
 # ---- 5. reference --------------------------------------------------------
@@ -1905,9 +2198,10 @@ def phase_reference():
         logits, toks = [], []
         reset_counters()
         # the card's engine replays its decode steps as CUDA graphs; the
-        # dense, unified, MLA and hybrid cases also run an eager one, and
-        # the legacy dense, MLA and hybrid ones an overlap engine (the
-        # pipelined loop)
+        # dense, unified, MLA and hybrid cases also run an eager one, the
+        # legacy dense, MLA and hybrid ones an overlap engine (the
+        # pipelined loop), and the legacy dense and MLA ones a multi
+        # engine (blocks under on-device finish)
         engines = [engine(cfg, params, "cuda", kv_dtype, unified),
                    engine(cfg, on(params, "cpu"), "cpu", kv_dtype, unified)]
         if label in ("float32 cache", "unified step", dsl,
@@ -1917,6 +2211,9 @@ def phase_reference():
         if label in ("float32 cache", dsl, qnl):
             engines.append(engine(cfg, params, "cuda", kv_dtype, unified,
                                   pipelined_loop=True))
+        if label in ("float32 cache", dsl):
+            engines.append(engine(cfg, params, "cuda", kv_dtype, unified,
+                                  pipelined_loop=True, ondevice_finish=True))
         for llm in engines:
             seqs = [llm._allocate_seq(p, sp) for p in prompts]
             for seq in seqs:
@@ -1941,7 +2238,10 @@ def phase_reference():
             f"prefill) logits max_abs_err {err} of max |logit| {scale}; "
             f"greedy tokens identical: {toks[0] == toks[1]}"
             + "".join(f", card {kind} engine too: {t == toks[1]}"
-                      for kind, t in zip(("eager", "overlap"), toks[2:]))
+                      for kind, t in zip(("eager", "overlap", "multi"),
+                                         toks[2:]))
+            + (f" ({sum(engines[-1].blocks.values())} blocks)"
+               if len(engines) > 4 else "")
             + f"; {graphed.graphs.replays} decode graph replays "
             f"({graphed.num_shape_signatures} graphs); card launches "
             f"{ {k: n for k, n in counts.items() if n} }")
@@ -1950,7 +2250,11 @@ def phase_reference():
         assert toks[0] == toks[1], \
             f"[reference] {label}: card and CPU greedy tokens differ"
         assert all(t == toks[1] for t in toks[2:]), \
-            f"[reference] {label}: the card's eager or overlap engine differs"
+            f"[reference] {label}: the card's eager, overlap or multi " \
+            f"engine differs"
+        if len(engines) > 4:
+            assert sum(engines[-1].blocks.values()) > 0, \
+                f"[reference] {label}: the multi engine formed no block"
         assert graphed.graphs.replays == graphed.step_counts["decode"] > 0
         assert all(len(t) == 8 for t in toks[0])
         launched = {k for k, n in counts.items() if n and k != "plain_calls"}

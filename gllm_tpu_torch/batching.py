@@ -38,6 +38,10 @@ class StepBatch(NamedTuple):
     # those tokens they take (a list of 2k ints on the host, [2, k] int32
     # on the device; None when no row is spliced by map)
     splice: object = None
+    # the first link of a block (runner step_multi): per row, the
+    # sub-steps in which it is alive ([S] int32; padded rows 0); None for
+    # a single step
+    active_until: object = None
     # host ints: the real rows (sequences) of the batch, and the longest
     # real row's token count (the GDN layers' padded row length)
     num_seqs: int = 0

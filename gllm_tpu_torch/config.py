@@ -5,7 +5,8 @@ reads the same in both packages. ``EngineConfig.validate`` raises on every
 option this port does not implement yet; it never accepts an option and
 then ignores it, except where the JAX package's ``validate`` does the same
 (``enforce_eager`` clears overlap scheduling and the options built on it,
-with a warning).
+with a warning; ``ondevice_finish`` or ``decode_chain_len`` without
+overlap scheduling forms no block, with a warning).
 """
 
 from __future__ import annotations
@@ -72,9 +73,6 @@ logger = logging.getLogger(__name__)
 # the value that means "off". validate() raises when one is set.
 _UNPORTED = {
     "decode_slot_batching": False,
-    "ondevice_finish": False,
-    "multi_step_decode": 1,
-    "decode_chain_len": None,
     "spec_decode": None,
     "spec_fused": False,
     "quantization": None,
@@ -108,9 +106,16 @@ class EngineConfig:
     # is refused
     unified_step: bool = False
     decode_slot_batching: bool = False
-    ondevice_finish: bool = False
+    # under overlap scheduling, chain up to this many pure-decode steps
+    # into one block: one dispatch (one CUDA graph replay), one upload and
+    # one token fetch for K steps (runner ``step_multi``); 1: single steps
     multi_step_decode: int = 1
+    # the chain length by its other name; wins over multi_step_decode
     decode_chain_len: Optional[int] = None
+    # a row of a block whose sampled token is in its EOS / stop set
+    # freezes inside the block, and the block stops once every row has
+    # finished; under overlap it lifts an unset chain length to 16
+    ondevice_finish: bool = False
     spec_decode: Optional[str] = None
     spec_fused: bool = False
     quantization: Optional[str] = None
@@ -136,7 +141,10 @@ class EngineConfig:
         caching). First it normalizes the options as the JAX package's
         ``validate`` does (``gllm_tpu/config.py:353-397``):
         ``enforce_eager`` clears overlap scheduling and the options built
-        on it, and ``pipelined_loop`` implies ``overlap_scheduling``."""
+        on it, ``pipelined_loop`` implies ``overlap_scheduling``, and the
+        chain length resolves as there (``:441-462``): ``decode_chain_len``
+        wins over ``multi_step_decode``, and ``ondevice_finish`` under
+        overlap lifts an unset one to 16."""
         if model_cfg is not None:
             model_cfg.check_supported()
         if self.enforce_eager:
@@ -160,6 +168,20 @@ class EngineConfig:
             raise ValueError("chain_under_prefill must be >= 0")
         if self.overlap_depth < 1:
             raise ValueError("overlap_depth must be >= 1")
+        if self.decode_chain_len is not None:
+            if self.decode_chain_len < 1:
+                raise ValueError("decode_chain_len must be >= 1")
+            self.multi_step_decode = self.decode_chain_len
+        elif (self.ondevice_finish and self.overlap_scheduling
+                and self.multi_step_decode == 1):
+            self.multi_step_decode = 16
+        if self.multi_step_decode < 1:
+            raise ValueError("multi_step_decode must be >= 1")
+        if not self.overlap_scheduling and not self.enforce_eager and (
+                self.ondevice_finish or self.decode_chain_len is not None):
+            logger.warning(
+                "ondevice_finish/decode_chain_len have no effect without "
+                "overlap_scheduling: fused decode chains never form")
         unported = [k for k, off in _UNPORTED.items()
                     if getattr(self, k) != off]
         p = self.parallel

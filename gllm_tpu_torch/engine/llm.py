@@ -1,7 +1,9 @@
 """Offline LLM engine (counterpart of ``gllm_tpu/engine/llm.py``:
 ``LLM.__init__:167``, ``add_seq:631``, ``step:680``,
-``_commit_outputs:1024``, ``_dispatch_reform:1048``, ``generate:1894``,
-``_finalize:2059``, ``abort:2091``; ``RequestOutput:147``).
+``_commit_outputs:1024``, ``_dispatch_reform:1048``,
+``_ondevice_block_stats:1139``, ``_count_ondevice_finishes:1230``,
+``_schedule_multi:1475``, ``generate:1894``, ``_finalize:2059``,
+``abort:2091``; ``RequestOutput:147``).
 
 The single-device loop: schedule a batch, dispatch its step, collect the
 oldest entry in flight and commit its sampled tokens. Without
@@ -12,12 +14,19 @@ before they reach the host (``Scheduler.schedule_chain``), and under
 ``pipelined_loop`` a chain that cannot extend (a finish, a join) is
 re-formed off the promised token counts instead of draining
 (``Scheduler.schedule_reform``), with the promises reconciled as tokens
-land (``engine/pipeline.py``). A hybrid model chains but never re-forms:
-its GDN state is cumulative, so a discarded step could not be undone.
-``docs/overlap_scheduling.md`` (Chain lifecycle, Ramp policy, Pipelined
-loop, FutureMap, Invariants) is the specification; this is its
-counterpart without multi-step chains, persistent slots, speculation,
-the unified step, dp, disaggregation and fault points.
+land (``engine/pipeline.py``). With ``multi_step_decode`` (or
+``decode_chain_len``) above 1, a chain extends by a block of up to that
+many links, a power of two, dispatched as one device program
+(``ModelRunner.step_multi``), and a sync pure-decode batch, or a re-form,
+fuses with the links behind it; under ``ondevice_finish`` a row whose
+token is in its stop set freezes inside the block and the block stops
+once every row has. A block commits link by link. A hybrid model chains
+single steps and never re-forms: its GDN state is cumulative, so a
+discarded step could not be undone. ``docs/overlap_scheduling.md``
+(Chain lifecycle, On-device finish, Ramp policy, Pipelined loop,
+FutureMap, Invariants) is the specification; this is its counterpart
+without persistent slots, speculation, the unified step under overlap,
+dp, disaggregation and fault points.
 ``EngineConfig.unified_step`` runs every step through the unified
 attention kernel and ``CacheConfig(kv_cache_dtype="int8")`` keeps an int8
 KV cache. Unless
@@ -43,6 +52,7 @@ from gllm_tpu_torch.config import EngineConfig
 from gllm_tpu_torch.engine.pipeline import FutureMap, InFlight
 from gllm_tpu_torch.memory_manager import make_memory_manager
 from gllm_tpu_torch.models.config import ModelConfig
+from gllm_tpu_torch.runner.prepare import MAX_STOP_IDS
 from gllm_tpu_torch.runner.runner import ModelRunner
 from gllm_tpu_torch.sampling_params import SamplingParams
 from gllm_tpu_torch.scheduler import Scheduler, SeqOutput
@@ -108,10 +118,10 @@ class LLM:
         self.memory_manager.track_scale_resets = self.runner.kv_quant
         self.runner.memory_manager = self.memory_manager
         self.scheduler = Scheduler(config, self.memory_manager)
-        self.eos_token_ids = frozenset(model_cfg.eos_token_ids)
+        self.eos_token_ids = model_cfg.eos_token_ids
         if not self.eos_token_ids and tokenizer is not None \
                 and getattr(tokenizer, "eos_token_id", None) is not None:
-            self.eos_token_ids = frozenset([tokenizer.eos_token_id])
+            self.eos_token_ids = [tokenizer.eos_token_id]
         self._next_seq_id = 0
         # dispatched entries not yet collected, oldest first
         self._in_flight: collections.deque = collections.deque()
@@ -127,6 +137,26 @@ class LLM:
         self.chain_breaks: collections.Counter = collections.Counter()
         self.stalls: collections.Counter = collections.Counter()
         self.dispatches: collections.Counter = collections.Counter()
+        # blocks: collected by K, the sub-steps they executed, their dead
+        # row-sub-steps (a row frozen while the block ran on) of all their
+        # row-sub-steps (rows times executed sub-steps), and the
+        # finishes committed out of them under on-device finish, by kind
+        # (eos / stop / length)
+        self.blocks: collections.Counter = collections.Counter()
+        self.block_substeps = 0
+        self.dead_substeps = 0
+        self.row_substeps = 0
+        self.ondevice_finishes: collections.Counter = collections.Counter()
+
+    @property
+    def eos_token_ids(self) -> frozenset:
+        return self._eos_token_ids
+
+    @eos_token_ids.setter
+    def eos_token_ids(self, ids) -> None:
+        """The runner detects the same ids inside a block."""
+        self._eos_token_ids = frozenset(ids)
+        self.runner.eos_token_ids = self._eos_token_ids
 
     @property
     def step_counts(self) -> dict:
@@ -149,6 +179,13 @@ class LLM:
         return list(self.tokenizer.encode(prompt))
 
     def add_seq(self, seq: Sequence) -> None:
+        if self.config.ondevice_finish:
+            n = len(seq.device_stop_ids(self.eos_token_ids))
+            if n > MAX_STOP_IDS:
+                raise ValueError(
+                    f"a stop set of {n} token ids (EOS and stop_token_ids)"
+                    f" exceeds the {MAX_STOP_IDS} a block takes under "
+                    "ondevice_finish")
         self.scheduler.add_seq(seq)
 
     @property
@@ -165,6 +202,7 @@ class LLM:
         overlap = cfg.overlap_scheduling
         depth = cfg.overlap_depth if overlap else 1
         cup = cfg.chain_under_prefill if overlap else 0
+        multi = cfg.multi_step_decode if overlap else 1
         ran_dry = False
         while len(self._in_flight) < depth:
             if overlap and self._in_flight:
@@ -189,22 +227,27 @@ class LLM:
                     self._chained_under_pressure = 0
                 if allow:
                     prev_batch, prev_handle = tip
-                    batch = self.scheduler.schedule_chain(prev_batch)
-                    if batch is None:
+                    chain = self._schedule_multi(prev_batch, multi)
+                    if not chain:
                         self.chain_breaks[
                             self.scheduler.chain_break_reason] += 1
                         if cfg.pipelined_loop and self._dispatch_reform(
-                                prev_batch, prev_handle, pressure):
+                                prev_batch, prev_handle, pressure, multi):
                             continue
                         self._chained_under_pressure = 0
                         ran_dry = True
                         break
                     if pressure:
-                        self._chained_under_pressure += 1
+                        self._chained_under_pressure += len(chain)
                     self._yield_noted = False
-                    self._dispatch(InFlight(
-                        batch, self.runner.step_async_chained(
-                            batch, prev_handle), chained=True))
+                    if len(chain) > 1:
+                        self._dispatch(InFlight(
+                            chain, self.runner.step_multi(chain, prev_handle),
+                            chained=True))
+                    else:
+                        self._dispatch(InFlight(
+                            chain[0], self.runner.step_async_chained(
+                                chain[0], prev_handle), chained=True))
                     continue
             batch = self.scheduler.schedule_once()
             if batch is None:
@@ -214,6 +257,19 @@ class LLM:
                     self.stalls["readback"] += 1
                 ran_dry = True
                 break
+            if (multi > 1 and not self.scheduler.waiting
+                    and batch.num_decode == batch.num_seqs):
+                # a sync pure-decode batch fuses with the links behind it
+                # into one block, instead of a single step first; its
+                # rows are all alive, so the links' alive counts shift by
+                # one
+                links = self._schedule_multi_links(batch, multi - 1)
+                if links:
+                    chain = [self._block_root(batch, links)] + links
+                    self._dispatch(InFlight(
+                        chain, self.runner.step_multi(chain), roots=True))
+                    self._yield_noted = False
+                    continue
             entry = InFlight(batch, self.runner.step_async(batch),
                              roots=batch.num_decode == batch.num_seqs)
             self._dispatch(entry)
@@ -225,21 +281,95 @@ class LLM:
         if not self._in_flight:
             return []
         entry = self._in_flight.popleft()
+        block = isinstance(entry.batch, list)
         if entry.invalid:
-            # its tokens never commit and nothing waits for the device:
-            # the sync path schedules the same positions again
+            # its tokens never commit: the sync path schedules the same
+            # positions again. A block is collected all the same (it is
+            # the oldest entry), so that its executed sub-steps count
+            if block:
+                self.runner.collect(entry.handle)
             self.scheduler.discard_batch(entry.batch)
             return []
         tokens = self.runner.collect(entry.handle)
-        outs = self.scheduler.process_output(entry.batch, tokens.tolist(),
-                                             self.eos_token_ids)
+        if not block:
+            outs = self.scheduler.process_output(
+                entry.batch, tokens.tolist(), self.eos_token_ids)
+            return self._commit_outputs(outs)
+        # a block: [K, n] tokens, then each row's finish step; it commits
+        # link by link, and a row's tokens after its finish are dropped
+        # (process_output skips a finished sequence)
+        chain = entry.batch
+        self._block_stats(chain, tokens[-1])
+        outs = []
+        for link, row in zip(chain, tokens[:-1]):
+            outs.extend(self.scheduler.process_output(
+                link, row.tolist(), self.eos_token_ids))
+        if cfg.ondevice_finish:
+            self._count_ondevice_finishes(outs)
         return self._commit_outputs(outs)
 
     def _dispatch(self, entry: InFlight) -> None:
         self._in_flight.append(entry)
-        kind = ("decode" if all(it.num_new_tokens == 1
-                                for it in entry.batch.items) else "mixed")
+        if isinstance(entry.batch, list):
+            kind = "block"
+        else:
+            kind = ("decode" if all(it.num_new_tokens == 1
+                                    for it in entry.batch.items)
+                    else "mixed")
         self.dispatches[kind, len(self._in_flight)] += 1
+
+    # ---- blocks -----------------------------------------------------------
+
+    def _fuse_ok(self) -> bool:
+        """May a batch ride a block? Not a hybrid model's: its GDN layers
+        keep the single-step chain (JAX's ``_fuse_ok``, whose other gates,
+        logit_bias, logprobs and stop strings, are options this port
+        refuses)."""
+        return not self.runner.hybrid
+
+    def _schedule_multi(self, prev_batch, multi: int) -> list:
+        """Up to ``multi`` links off ``prev_batch`` for one dispatch."""
+        return self.scheduler.schedule_chain(
+            prev_batch, multi if self._fuse_ok() else 1)
+
+    def _schedule_multi_links(self, batch, k_max: int) -> list:
+        """Links to fuse behind ``batch``, which becomes the block's first
+        step."""
+        if k_max < 1 or not self._fuse_ok():
+            return []
+        return self.scheduler.schedule_chain(batch, k_max,
+                                             include_prev=True)
+
+    @staticmethod
+    def _block_root(batch, links):
+        """``batch`` as the first link of a block before ``links``: alive
+        in one more sub-step than the links' counts say."""
+        au, k = links[0].active_until, 1 + len(links)
+        return dataclasses.replace(batch, active_until=(
+            [min(d + 1, k) for d in au] if au is not None else None))
+
+    def _block_stats(self, chain, finish) -> None:
+        """Count a collected block: by K, its executed sub-steps (the
+        latest finish step: fewer than K when every row finished early)
+        and its dead row-sub-steps."""
+        finish = finish[:chain[0].num_seqs]
+        k_exec = int(finish.max()) if finish.size else 0
+        self.blocks[len(chain)] += 1
+        self.block_substeps += k_exec
+        self.dead_substeps += int((k_exec - finish).sum())
+        self.row_substeps += k_exec * finish.size
+
+    def _count_ondevice_finishes(self, outs) -> None:
+        """Finishes committed out of a block, by the kind the device saw:
+        eos, stop (a stop token) or length."""
+        for out in outs:
+            if out.finish_reason == "length":
+                self.ondevice_finishes["length"] += 1
+            elif out.finish_reason == "stop":
+                sp = out.seq.sampling_params
+                eos = (not sp.ignore_eos
+                       and out.new_token_id in self.eos_token_ids)
+                self.ondevice_finishes["eos" if eos else "stop"] += 1
 
     def _commit_outputs(self, outs: List[SeqOutput]) -> List[SeqOutput]:
         """A finish that commits for a sequence some later entry promised
@@ -251,10 +381,11 @@ class LLM:
                 self.stalls["rebuild"] += 1
         return outs
 
-    def _dispatch_reform(self, prev_batch, prev_handle,
-                         pressure: bool) -> bool:
+    def _dispatch_reform(self, prev_batch, prev_handle, pressure: bool,
+                         multi: int) -> bool:
         """Re-form the next pure-decode batch off ``prev_batch``'s promised
-        token counts and dispatch it chained off ``prev_handle``; False
+        token counts and dispatch it chained off ``prev_handle``, fused
+        with the links behind it into one block where they fit; False
         (a stall counted) when it needs host-committed state."""
         if self.runner.hybrid:
             # GDN state is cumulative: a discarded step would leave a
@@ -269,12 +400,25 @@ class LLM:
             self.stalls[reason if reason in ("pages", "pp_budget")
                         else "readback"] += 1
             return False
-        self._dispatch(InFlight(
-            batch, self.runner.step_async_chained(batch, prev_handle),
-            chained=True, promises=FutureMap.promised_ids(batch)))
+        promises = FutureMap.promised_ids(batch)
+        # a row whose one remaining token is its prompt's last (a joining
+        # sequence still prefilling) keeps the batch a single step
+        decode_only = all(it.computed_before >= it.seq.prompt_len
+                          for it in batch.items)
+        links = (self._schedule_multi_links(batch, multi - 1)
+                 if multi > 1 and decode_only else [])
+        if links:
+            chain = [self._block_root(batch, links)] + links
+            self._dispatch(InFlight(
+                chain, self.runner.step_multi(chain, prev_handle),
+                chained=True, promises=promises))
+        else:
+            self._dispatch(InFlight(
+                batch, self.runner.step_async_chained(batch, prev_handle),
+                chained=True, promises=promises))
         self._yield_noted = False
         if pressure:
-            self._chained_under_pressure += 1
+            self._chained_under_pressure += 1 + len(links)
         return True
 
     def generate(

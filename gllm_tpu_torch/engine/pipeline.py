@@ -24,8 +24,8 @@ import dataclasses
 
 @dataclasses.dataclass
 class InFlight:
-    """One dispatched entry not yet collected: its ``ScheduledBatch`` and
-    the runner's handle. ``chained``: its input tokens came off the
+    """One dispatched entry not yet collected: its ``ScheduledBatch`` (a
+    block's list of links) and the runner's handle. ``chained``: its input tokens came off the
     previous entry's tokens on the device (a chained step or a re-form),
     so an invalidation cascades through it. ``roots``: a pure-decode batch
     scheduled from committed state, which roots a fresh chain; the cascade
@@ -41,8 +41,10 @@ class InFlight:
 
     @property
     def tip(self):
-        """(batch, handle): what the fill loop chains the next step off."""
-        return self.batch, self.handle
+        """(batch, handle): what the fill loop chains the next step off
+        (a block's last link)."""
+        batch = self.batch[-1] if isinstance(self.batch, list) else self.batch
+        return batch, self.handle
 
 
 class FutureMap:
@@ -56,8 +58,9 @@ class FutureMap:
 
     @staticmethod
     def promised_ids(batch) -> frozenset:
-        """The sequences a re-formed batch assumed alive: the rows whose
-        input token is a promise (``src_rows`` >= 0)."""
+        """The sequences a re-formed batch (a block's first link) assumed
+        alive: the rows whose input token is a promise (``src_rows``
+        >= 0)."""
         if batch.src_rows is None:
             return frozenset()
         return frozenset(it.seq.seq_id

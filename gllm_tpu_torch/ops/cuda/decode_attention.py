@@ -172,6 +172,20 @@ def pin_decode_scratch(device: torch.device, floats: int,
     return buf
 
 
+def release_decode_scratch(device: torch.device) -> None:
+    """Drop ``device``'s scratch once no captured graph holds it (the last
+    runner with graphs on the device freed): the next call sizes a new
+    one. With no holder left on any device, also drop the cuBLAS
+    workspaces that the graphs' capture streams made, which the process
+    would otherwise keep until it ends."""
+    device = _indexed(device)
+    if _scratch_pins.get(device):
+        return
+    _scratch.pop(device, None)
+    if not any(_scratch_pins.values()):
+        torch._C._cuda_clearCublasWorkspaces()
+
+
 def _indexed(device) -> torch.device:
     """``device`` with its index ("cuda" → "cuda:0"): one key per card."""
     device = torch.device(device)

@@ -1,5 +1,5 @@
 """Sampling (counterpart of ``gllm_tpu/ops/sampling.py``: ``sample:269``,
-``_topk_topp_mask_sort:139``).
+``_topk_topp_mask_sort:139``, ``stop_token_hit:500``).
 
 Greedy argmax, plus temperature / top-k / top-p / min-p sampling by
 Gumbel-max over the masked logits. The noise comes from a
@@ -20,6 +20,11 @@ class SamplingMetadata(NamedTuple):
     top_p: torch.Tensor             # [S] f32 in (0, 1]
     top_k: torch.Tensor             # [S] i32; <= 0 → disabled
     min_p: torch.Tensor             # [S] f32; 0.0 → disabled
+    # on-device finish in a block: per-row EOS / stop-token ids [S, E]
+    # (-1 padding never matches) and the sub-step from which a hit counts
+    # [S] (the min_tokens gate); None when no row has a stop id
+    stop_ids: Optional[torch.Tensor] = None
+    stop_from: Optional[torch.Tensor] = None
 
 
 def topk_topp_mask(logits: torch.Tensor, top_k: torch.Tensor,
@@ -79,3 +84,18 @@ def sample(logits: torch.Tensor, md: SamplingMetadata,
     expo = torch.empty_like(scaled).exponential_(generator=generator)
     sampled = torch.argmax(scaled - torch.log(expo), dim=-1).to(torch.int32)
     return torch.where(md.temperature == 0.0, greedy_tokens, sampled)
+
+
+def stop_token_hit(tokens: torch.Tensor, md: SamplingMetadata,
+                   sub_step: int) -> torch.Tensor:
+    """[S] bool: did row s's sampled token land in its stop set, at or
+    after its arming sub-step? The on-device half of
+    ``Sequence.check_finish``; all False when the batch carries no stop
+    sets."""
+    if md.stop_ids is None:
+        return torch.zeros(tokens.shape, dtype=torch.bool,
+                           device=tokens.device)
+    hit = (tokens[:, None] == md.stop_ids).any(dim=-1)
+    if md.stop_from is not None:
+        hit = hit & (md.stop_from <= sub_step)
+    return hit

@@ -1,6 +1,6 @@
 """Host-side batch building: ScheduledBatch → StepBatch (counterpart of
 ``gllm_tpu/runner/prepare.py``: ``BatchBuilder.shape_signature:70``,
-``build:282``).
+``stop_sets:186``, ``build:282``).
 
 The builder fills flat numpy arrays — token / position / slot buffers,
 query-start offsets, per-seq kv lens and page tables — padded to the same
@@ -25,7 +25,11 @@ from gllm_tpu_torch.config import EngineConfig
 from gllm_tpu_torch.ops.attention import AttentionMetadata
 from gllm_tpu_torch.ops.sampling import SamplingMetadata
 from gllm_tpu_torch.scheduler import ScheduledBatch
-from gllm_tpu_torch.utils import bucket_size, cdiv
+from gllm_tpu_torch.utils import bucket_size, cdiv, next_pow2
+
+# the widest per-row stop set (EOS and stop_token_ids) a block under
+# on-device finish takes: the staging buffer reserves [S, MAX_STOP_IDS]
+MAX_STOP_IDS = 64
 
 
 class BatchBuilder:
@@ -90,16 +94,49 @@ class BatchBuilder:
                 min_p=np.zeros(s_pad, np.float32)),
             ssm_slots=z(s_pad) if self.use_ssm else None)
 
-    def build(self, batch: ScheduledBatch) -> Tuple[StepBatch, int]:
-        """Returns (StepBatch of host numpy arrays, max_q_len)."""
-        t_pad, s_pad, max_q, p_pad = self.shape_signature(batch)
+    def stop_sets(self, items, s_bucket: int, eos_token_ids):
+        """On-device finish inputs of a block: ([S, E] per-row EOS and
+        stop-token ids padded with -1, [S] arming sub-step), or
+        (None, None) when no row has a stop id. ``items`` are the first
+        link's: the token sampled by sub-step k is output number
+        ``computed_before + k + 2 - prompt_len``, so ``min_tokens`` arms
+        the check from sub-step ``min_tokens + prompt_len -
+        computed_before - 2``. E is a power of two, at least 8 and at
+        most ``MAX_STOP_IDS``; a wider set raises."""
+        sets = [it.seq.device_stop_ids(eos_token_ids) for it in items]
+        if not any(sets):
+            return None, None
+        widest = max(len(ids) for ids in sets)
+        if widest > MAX_STOP_IDS:
+            raise ValueError(
+                f"a stop set of {widest} token ids (EOS and stop_token_ids)"
+                f" exceeds the {MAX_STOP_IDS} a block takes")
+        E = max(8, next_pow2(widest))
+        stop_ids = np.full((s_bucket, E), -1, np.int32)
+        stop_from = np.zeros(s_bucket, np.int32)
+        for i, (it, ids) in enumerate(zip(items, sets)):
+            stop_ids[i, :len(ids)] = ids
+            mt = it.seq.sampling_params.min_tokens
+            if mt:
+                stop_from[i] = max(0, mt + it.seq.prompt_len
+                                   - it.computed_before - 2)
+        return stop_ids, stop_from
+
+    def build(self, batch: ScheduledBatch,
+              force_signature=None) -> Tuple[StepBatch, int]:
+        """Returns (StepBatch of host numpy arrays, max_q_len), at
+        ``force_signature`` (T, S, max_q_len, pages) when given: a block
+        is built from its first link at its last link's signature, whose
+        page bucket covers the pages of every link."""
+        t_pad, s_pad, max_q, p_pad = (force_signature
+                                      or self.shape_signature(batch))
         page = self.page_size
         pad = self.padding(t_pad, s_pad, p_pad)
         tokens, positions, slots = (pad.token_ids, pad.positions,
                                     pad.slot_mapping)
         cu, kv_lens, page_table = pad.attn
         logits_idx = pad.logits_indices
-        temperature, top_p, top_k, min_p = pad.sampling
+        temperature, top_p, top_k, min_p = pad.sampling[:4]
 
         items = batch.items
         K = len(items)
@@ -175,10 +212,12 @@ class HostStaging:
 
     Every array is laid end to end in a single int32 buffer (float32
     arrays by bit pattern): first the fixed part, whose offsets depend on
-    the step's (T, S, pages) only, then the lists whose length varies from
-    step to step (the int8 cache's scale-reset page ids, a hybrid model's
-    slots to zero, each deduplicated; a re-formed batch's splice map). The
-    device copy is split back into views. With ``capacity`` the device
+    the step's (T, S, pages) only, then a block's ``active_until`` [S]
+    and, under on-device finish, its stop sets [S, E] and arming sub-steps
+    [S] (offsets fixed by (T, S, pages, E)), then the lists whose length
+    varies from step to step (the int8 cache's scale-reset page ids, a
+    hybrid model's slots to zero, each deduplicated; a re-formed batch's
+    splice map). The device copy is split back into views. With ``capacity`` the device
     buffer is allocated once, at that size, and a step that needs more
     raises: a CUDA graph captured on the views of a signature then reads
     every later step of it. Without, it grows as needed (``allocations``
@@ -224,6 +263,9 @@ class HostStaging:
                  sb.sampling.min_p.view(np.int32),
                  np.asarray(sb.ssm_slots if sb.ssm_slots is not None
                             else [], np.int32),
+                 _ints(sb.active_until),
+                 _ints(sb.sampling.stop_ids).reshape(-1),
+                 _ints(sb.sampling.stop_from),
                  np.asarray(resets, np.int32), np.asarray(zero, np.int32),
                  np.asarray(sb.splice or [], np.int32)]
         sizes = [p.size for p in parts]
@@ -251,7 +293,8 @@ class HostStaging:
             self._events[i].record()
         views = list(torch.split(dev, sizes))
         (tok, pos, slots, lidx, cu, kvl, pt, top_k, temp, top_p,
-         min_p, ssm_slots, resets, ssm_zero, splice) = views
+         min_p, ssm_slots, active_until, stop_ids, stop_from, resets,
+         ssm_zero, splice) = views
         f32 = torch.float32
         return StepBatch(
             token_ids=tok, positions=pos, slot_mapping=slots,
@@ -261,9 +304,20 @@ class HostStaging:
                 page_table=pt.view(sb.attn.page_table.shape)),
             sampling=SamplingMetadata(
                 temperature=temp.view(f32), top_p=top_p.view(f32),
-                top_k=top_k, min_p=min_p.view(f32)),
+                top_k=top_k, min_p=min_p.view(f32),
+                stop_ids=(stop_ids.view(sb.sampling.stop_ids.shape)
+                          if sb.sampling.stop_ids is not None else None),
+                stop_from=(stop_from if sb.sampling.stop_from is not None
+                           else None)),
             scale_resets=resets if resets.numel() else None,
             ssm_slots=ssm_slots if sb.ssm_slots is not None else None,
+            active_until=(active_until if sb.active_until is not None
+                          else None),
             ssm_zero=ssm_zero if ssm_zero.numel() else None,
             splice=splice.view(2, -1) if splice.numel() else None,
             num_seqs=sb.num_seqs, max_seq_q=sb.max_seq_q)
+
+
+def _ints(x) -> np.ndarray:
+    """An optional host array as int32 (empty for None)."""
+    return np.asarray(x if x is not None else [], np.int32)

@@ -2,8 +2,8 @@
 of ``gllm_tpu/runner/runner.py``: ``ModelRunner.__init__:273``,
 ``reset_page_scales:136``, ``_kv_bytes_per_page:570``,
 ``determine_num_pages:614``, ``_build_step_fn:650``,
-``_apply_scale_resets:923``, ``step:1845``; the hybrid slot pool
-``:414-433``, ``_ssm_pool_bytes:603``).
+``_apply_scale_resets:923``, ``step_multi:1291``, ``step:1845``; the
+hybrid slot pool ``:414-433``, ``_ssm_pool_bytes:603``).
 
 A step: build the batch on the host, copy it over in one transfer into
 the runner's one device buffer, run forward → logits → sample, and copy
@@ -11,7 +11,10 @@ the sampled tokens out. ``step_async`` dispatches it and returns a handle;
 ``collect`` waits for its tokens (the only wait); ``step`` is the two in
 a row. ``step_async_chained`` dispatches a step whose input tokens are an
 earlier handle's sampled tokens, spliced in on the device (overlap
-scheduling, ``gllm_tpu/runner/runner.py:1114-1289``). With
+scheduling, ``gllm_tpu/runner/runner.py:1114-1289``). ``step_multi``
+dispatches a block: K chained pure-decode steps as one device program
+(one CUDA graph), whose rows that die inside it freeze, and which stops
+early under on-device finish once every row has finished. With
 ``EngineConfig.enforce_eager`` off (the default, as in the JAX package),
 a pure-decode step on CUDA replays the CUDA graph of its shape signature,
 captured at first sight or by ``warmup`` (``runner/graphs.py``, where JAX
@@ -31,6 +34,7 @@ step to step.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import NamedTuple, Optional
@@ -44,9 +48,10 @@ from gllm_tpu_torch.models.config import ModelConfig
 from gllm_tpu_torch.models.registry import get_model_def
 from gllm_tpu_torch.ops.cuda.common import check_model_shapes
 from gllm_tpu_torch.ops.cuda.decode_attention import split_geometry
-from gllm_tpu_torch.ops.sampling import sample
+from gllm_tpu_torch.ops.sampling import sample, stop_token_hit
 from gllm_tpu_torch.runner import graphs
-from gllm_tpu_torch.runner.prepare import BatchBuilder, HostStaging
+from gllm_tpu_torch.runner.prepare import (MAX_STOP_IDS, BatchBuilder,
+                                           HostStaging)
 from gllm_tpu_torch.sampling_params import SamplingParams
 from gllm_tpu_torch.scheduler import ScheduledBatch, ScheduledSeq
 from gllm_tpu_torch.sequence import Sequence
@@ -76,10 +81,19 @@ class StepHandle(NamedTuple):
     copy on the device (what a chained step splices from; never a graph's
     output, which the key's next replay overwrites), ``host``, their
     copy on the way to the host (pinned on CUDA), and ``event``, recorded
-    after that copy (None on the CPU)."""
+    after that copy (None on the CPU). A block's (``block``: its graph
+    key) are [K + 1, n]: the tokens of each sub-step, then each row's
+    finish step (the sub-steps in which it was alive)."""
     tokens: torch.Tensor
     host: torch.Tensor
     event: Optional[torch.cuda.Event]
+    block: Optional[tuple] = None
+
+    @property
+    def last(self) -> torch.Tensor:
+        """The tokens a step chained off this one takes as input: a
+        block's last sub-step's."""
+        return self.tokens[-2] if self.block is not None else self.tokens
 
 
 class ModelRunner:
@@ -124,6 +138,12 @@ class ModelRunner:
         # "mixed" (a prefill chunk or a mix). The legacy kernels split the
         # same way; the unified kernel serves both.
         self.step_counts = {"mixed": 0, "decode": 0}
+        # blocks dispatched (each one graph replay) and the sub-steps they
+        # executed (counted when a block is collected)
+        self.block_counts = {"block": 0, "substeps": 0}
+        # the engine's EOS ids, which a block under on-device finish
+        # detects (set by the engine)
+        self.eos_token_ids = frozenset()
         self.num_pages = (config.cache.num_pages
                           or self.determine_num_pages())
         slots = ({"num_slots": 1 + self.ssm_working_slots} if self.hybrid
@@ -136,12 +156,14 @@ class ModelRunner:
                     self.num_pages, config.cache.page_size, self.kv_dtype,
                     self.device)
         # one device buffer for every step: the largest step's fixed part,
-        # then room for every page's scale reset, every slot's zeroing and
-        # a re-form's splice map; a pinned host buffer for each step that
-        # can be in flight, and one more
+        # a block's active_until and widest stop sets, then room for every
+        # page's scale reset, every slot's zeroing and a re-form's splice
+        # map; a pinned host buffer for each step that can be in flight,
+        # and one more
         b = self.builder
         self.staging = HostStaging(self.device, capacity=(
             b.upload_size(b.max_tokens, b.max_seqs, b.max_pages_per_seq)
+            + b.max_seqs * (2 + MAX_STOP_IDS)
             + (self.num_pages if self.kv_quant else 0)
             + (1 + self.ssm_working_slots if self.hybrid else 0)
             + 2 * b.max_seqs), slots=(
@@ -164,7 +186,9 @@ class ModelRunner:
         """Device bytes kept free for a step's activations: 512 MB, for a
         hybrid model also the GDN layer's largest transient at the largest
         batch shape the config can schedule, and, unless ``enforce_eager``,
-        the decode graphs' pool at the largest sequence bucket."""
+        the decode graphs' pool at the largest sequence bucket (twice when
+        blocks stop early: their conditional bodies have a pool of their
+        own)."""
         rows = self.builder.max_seqs
         headroom = ACTIVATION_HEADROOM
         if self.hybrid:
@@ -174,7 +198,12 @@ class ModelRunner:
             headroom += hybrid.gdn_transient_bytes(self.model_cfg, cells,
                                                    rows)
         if not self.config.enforce_eager:
-            headroom += (GRAPH_POOL_LOGIT_COPIES * rows
+            # the graphs' pool and, when blocks stop early, the pool of
+            # their conditional bodies, which holds a sub-step's transient
+            # of its own
+            pools = 2 if (self.block_len > 1
+                          and self.config.ondevice_finish) else 1
+            headroom += (pools * GRAPH_POOL_LOGIT_COPIES * rows
                          * self.model_cfg.vocab_size * 4)
             if self.hybrid:
                 headroom += (GRAPH_POOL_STATES_PER_ROW * rows
@@ -224,13 +253,20 @@ class ModelRunner:
                    for s in graphs.pow2_range(8, b.max_seqs)
                    for p in graphs.pow2_range(4, b.max_pages_per_seq))
 
-    def _host_batch(self, sched_batch: ScheduledBatch):
+    def _host_batch(self, sched_batch: ScheduledBatch,
+                    force_signature=None):
         """(host StepBatch, max_q_len, signature's max_q_len): built on the
-        host with the int8 cache's pending scale resets and the hybrid
-        model's slots to zero. A pure-decode batch gets max_q_len 1 in
-        both loops: under the unified step it tells the kernel the batch
-        has no other rows (its signature keeps JAX's q == t)."""
-        host_batch, sig_q = self.builder.build(sched_batch)
+        host (at ``force_signature`` when given) with the int8 cache's
+        pending scale resets, the hybrid model's slots to zero and a
+        re-formed batch's splice map. A pure-decode batch gets max_q_len 1
+        in both loops: under the unified step it tells the kernel the
+        batch has no other rows (its signature keeps JAX's q == t)."""
+        host_batch, sig_q = self.builder.build(sched_batch, force_signature)
+        if sched_batch.src_rows is not None:
+            # a re-formed batch is pure decode: item j is token row j
+            dst = [j for j, r in enumerate(sched_batch.src_rows) if r >= 0]
+            src = [r for r in sched_batch.src_rows if r >= 0]
+            host_batch = host_batch._replace(splice=dst + src)
         mm = None if self._warming else self.memory_manager
         if self.kv_quant and mm is not None:
             host_batch = host_batch._replace(
@@ -278,9 +314,12 @@ class ModelRunner:
         return self.model.compute_logits(self.params, hidden, residual,
                                          batch, self.model_cfg)
 
-    def step(self, sched_batch: ScheduledBatch) -> np.ndarray:
-        """Run one step; returns the sampled token of each batch item."""
-        return self.collect(self.step_async(sched_batch))
+    def step(self, sched_batch: ScheduledBatch,
+             force_signature=None) -> np.ndarray:
+        """Run one step (at ``force_signature``, a block's, when given);
+        returns the sampled token of each batch item."""
+        return self.collect(self.step_async(
+            sched_batch, force_signature=force_signature))
 
     def step_async_chained(self, sched_batch: ScheduledBatch,
                            prev: StepHandle) -> StepHandle:
@@ -288,24 +327,21 @@ class ModelRunner:
         sampled tokens on the device: row i's for a chained step, row
         ``src_rows[i]``'s for a re-formed batch (-1: the host's token)."""
         if sched_batch.src_rows is None:
-            assert len(prev.tokens) == sched_batch.num_seqs
+            assert len(prev.last) == sched_batch.num_seqs
         return self.step_async(sched_batch, prev)
 
     @torch.inference_mode()
     def step_async(self, sched_batch: ScheduledBatch,
-                   prev: Optional[StepHandle] = None) -> StepHandle:
+                   prev: Optional[StepHandle] = None,
+                   force_signature=None) -> StepHandle:
         """Dispatch one step: the host builds and stages it, enqueues the
         copy in, the forward and sampling (one graph replay for a
         pure-decode step) and the copy of the tokens out, and returns
         without waiting for the device. A new decode signature is captured
         first, which waits for the device once. With ``prev``, the input
         tokens are spliced from ``prev``'s (``step_async_chained``)."""
-        host_batch, max_q, sig_q = self._host_batch(sched_batch)
-        if sched_batch.src_rows is not None:
-            # a re-formed batch is pure decode: item j is token row j
-            dst = [j for j, r in enumerate(sched_batch.src_rows) if r >= 0]
-            src = [r for r in sched_batch.src_rows if r >= 0]
-            host_batch = host_batch._replace(splice=dst + src)
+        host_batch, max_q, sig_q = self._host_batch(sched_batch,
+                                                    force_signature)
         decode = host_batch.max_seq_q == 1
         self.step_counts["decode" if decode else "mixed"] += 1
         all_greedy = all(it.seq.sampling_params.temperature == 0.0
@@ -316,7 +352,7 @@ class ModelRunner:
             s, p = host_batch.attn.page_table.shape
             key = (t, s, sig_q, p, all_greedy)
 
-            def body(generator):
+            def body(generator, graph=None):
                 logits = self._forward(batch, 1)
                 return sample(logits, batch.sampling, generator,
                               all_greedy=all_greedy)
@@ -345,28 +381,159 @@ class ModelRunner:
         splice map for a re-formed batch (JAX's ``_splice_chain_tokens``
         and ``_splice_mapped_tokens``)."""
         if sched_batch.src_rows is None:
-            batch.token_ids[:sched_batch.num_seqs].copy_(prev.tokens)
+            batch.token_ids[:sched_batch.num_seqs].copy_(prev.last)
         elif batch.splice is not None:
             dst, src = batch.splice
-            batch.token_ids[dst] = prev.tokens[src]
+            batch.token_ids[dst] = prev.last[src]
 
-    def _handle(self, tokens: torch.Tensor) -> StepHandle:
+    @torch.inference_mode()
+    def step_multi(self, chain, prev: Optional[StepHandle] = None
+                   ) -> StepHandle:
+        """Dispatch a block: the K links of ``chain``
+        (``Scheduler.schedule_chain``, the same rows in each) as one
+        device program, one CUDA graph replay on the card, keyed (T, S,
+        max_q_len, pages, K, all_greedy, ondevice_finish, E). The first
+        link is built and uploaded at the last link's signature, with
+        each row's ``active_until`` (the sub-steps it is alive in) and,
+        under on-device finish, its stop set ([S, E]) and arming sub-step;
+        ``prev`` splices its input tokens as for a chained step. The
+        handle carries the [K, n] tokens and each row's finish step by
+        one copy to the host. The int8 cache's scale resets of the pages
+        minted for every link run once, before the replay."""
+        K = len(chain)
+        first = chain[0]
+        assert all(it.num_new_tokens == 1 for it in first.items)
+        assert self.graphs is not None, "blocks form only with graphs on"
+        sig = self.builder.shape_signature(chain[-1])
+        host_batch, _, sig_q = self._host_batch(first, sig)
+        t, s, _, p = sig
+        n = first.num_seqs
+        au = np.zeros(s, np.int32)
+        au[:n] = (first.active_until if first.active_until is not None
+                  else K)
+        odf = self.config.ondevice_finish
+        stop_ids = stop_from = None
+        if odf:
+            stop_ids, stop_from = self.builder.stop_sets(
+                first.items, s, self.eos_token_ids)
+        e = 0 if stop_ids is None else stop_ids.shape[1]
+        host_batch = host_batch._replace(
+            active_until=au, sampling=host_batch.sampling._replace(
+                stop_ids=stop_ids, stop_from=stop_from))
+        self.block_counts["block"] += 1
+        all_greedy = all(it.seq.sampling_params.temperature == 0.0
+                         for it in first.items)
+        key = ("block", t, s, sig_q, p, K, all_greedy, odf, e)
+
+        def body(generator, graph=None):
+            return self._block_body(batch, K, all_greedy, odf, generator,
+                                    graph)
+
+        if self.graphs.cuda and key not in self.graphs:
+            pad = self.builder.padding(t, s, p)
+            batch = self.staging.upload(pad._replace(
+                active_until=np.zeros(s, np.int32),
+                sampling=pad.sampling._replace(
+                    stop_ids=(np.full((s, e), -1, np.int32) if e
+                              else None),
+                    stop_from=np.zeros(s, np.int32) if e else None)))
+            self.graphs.capture(key, body, sampled=not all_greedy,
+                                substeps=K)
+        batch = self.staging.upload(host_batch)
+        if prev is not None:
+            self._splice(batch, first, prev)
+        self._prologue(batch)
+        out = self.graphs.run(key, body)
+        return self._handle(out[:, :n], block=key)
+
+    def _block_body(self, batch, K: int, all_greedy: bool, odf: bool,
+                    generator, graph) -> torch.Tensor:
+        """K sub-steps over the staged views → [K + 1, S]: each sub-step's
+        tokens, then each row's finish step (JAX's ``step_multi`` body,
+        ``runner.py:1381-1481``). Sub-step k advances each row by
+        min(k, alive_n) from its staged position and context; a dead row
+        (k >= alive_n) writes its KV to the dummy page 0. Under on-device
+        finish a live row whose token is in its armed stop set gets
+        alive_n = k + 1, and sub-steps 1.. run only while some row is
+        alive: each inside a CUDA-graph conditional (IF) node on that flag
+        when ``graph`` is being captured (``DecodeGraphs.if_node``), the
+        flag read on the host on the CPU (on the card uncaptured, the
+        warm-up run, every sub-step runs, on the IF bodies' stream).
+        Alive counts only fall, so once the flag is false it stays false.
+        Buffers that outlive a sub-step are made before the first one and
+        written in place."""
+        page = self.config.cache.page_size
+        out = torch.zeros((K + 1,) + tuple(batch.token_ids.shape),
+                          dtype=torch.int32, device=batch.token_ids.device)
+        alive_n = out[K]
+        alive_n.copy_(batch.active_until)
+        tokens = batch.token_ids
+        cuda = self.device.type == "cuda"
+        flags = []
+        for k in range(K):
+            region = contextlib.nullcontext()
+            if odf and k > 0:
+                if not cuda:
+                    if not bool((alive_n > k).any()):
+                        break
+                elif graph is not None:
+                    flags.append((alive_n > k).any())
+                    region = self.graphs.if_node(flags[-1])
+                else:
+                    region = self.graphs.on_body_stream()
+            with region:
+                tokens = self._sub_step(batch, tokens, alive_n, out, k,
+                                        all_greedy, odf, generator, page)
+        return out
+
+    def _sub_step(self, batch, tokens, alive_n, out, k: int,
+                  all_greedy: bool, odf: bool, generator,
+                  page: int) -> torch.Tensor:
+        """Sub-step k of a block (``_block_body``): its tokens land in
+        ``out[k]``, which it returns as the next sub-step's input."""
+        pos0, kv0 = batch.positions, batch.attn.kv_lens
+        table = batch.attn.page_table
+        adv = torch.clamp(alive_n, max=k)
+        pos = pos0 + adv
+        page_idx = torch.gather(table, 1, (pos // page)[:, None]
+                                .long())[:, 0]
+        slots = torch.where(alive_n > k, page_idx * page + pos % page,
+                            0)
+        sub = batch._replace(
+            token_ids=tokens, positions=pos, slot_mapping=slots,
+            attn=batch.attn._replace(kv_lens=kv0 + adv))
+        toks = sample(self._forward(sub, 1), sub.sampling, generator,
+                      all_greedy=all_greedy)
+        if odf:
+            hit = stop_token_hit(toks, sub.sampling, k) & (alive_n > k)
+            alive_n.masked_fill_(hit, k + 1)
+        out[k].copy_(toks)
+        return out[k]
+
+    def _handle(self, tokens: torch.Tensor, block=None) -> StepHandle:
         """Start the copy of a step's tokens to the host."""
         if self.device.type != "cuda":
-            return StepHandle(tokens, tokens, None)
+            return StepHandle(tokens, tokens, None, block)
         host = torch.empty(tokens.shape, dtype=tokens.dtype,
                            pin_memory=True)
         host.copy_(tokens, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return StepHandle(tokens, host, event)
+        return StepHandle(tokens, host, event, block)
 
-    @staticmethod
-    def collect(handle: StepHandle) -> np.ndarray:
-        """The sampled token of each batch item: waits for the copy out."""
+    def collect(self, handle: StepHandle) -> np.ndarray:
+        """The sampled token of each batch item: waits for the copy out. A
+        block's [K + 1, n] (each sub-step's tokens, then each row's finish
+        step): its executed sub-steps (the latest finish step) are
+        counted here, and on the card the kernels they launched."""
         if handle.event is not None:
             handle.event.synchronize()
-        return handle.host.numpy()
+        host = handle.host.numpy()
+        if handle.block is not None:
+            k_exec = int(host[-1].max()) if host.shape[1] else 0
+            self.block_counts["substeps"] += k_exec
+            self.graphs.add_substeps(handle.block, k_exec)
+        return host
 
     @property
     def num_shape_signatures(self) -> int:
@@ -374,7 +541,18 @@ class ModelRunner:
         ``warmup``'s included."""
         return len(self.graphs) if self.graphs is not None else 0
 
-    def warmup(self, decode_buckets=None, page_buckets=None) -> None:
+    @property
+    def block_len(self) -> int:
+        """The longest block this runner dispatches: the largest power of
+        two up to the chain length under overlap scheduling (1: no block;
+        a hybrid model never fuses)."""
+        multi = (self.config.multi_step_decode
+                 if self.config.overlap_scheduling and not self.hybrid
+                 else 1)
+        return 1 << (multi.bit_length() - 1)
+
+    def warmup(self, decode_buckets=None, page_buckets=None,
+               block_buckets=None) -> None:
         """Capture the hot decode signatures before serving (JAX's
         ``warmup``, ``runner.py:1849-1947``, which stands for the
         reference's CUDA-graph capture loop): every sequence bucket at the
@@ -385,7 +563,12 @@ class ModelRunner:
         holds (nor a prefix-cached page) is written; the step counts, the
         launch counters, the generator and the memory manager's queues
         come out as they were. Mixed steps run eagerly and need no
-        warmup. With ``enforce_eager`` there is nothing to capture."""
+        warmup. Where blocks form, it also captures the longest block
+        (``block_len``) for greedy rows at each of ``block_buckets``
+        (sequence buckets, by default the decode ones) at the largest
+        page bucket, with the stop-set width the engine's EOS ids give
+        under on-device finish; other blocks are captured at first
+        sight. With ``enforce_eager`` there is nothing to capture."""
         if self.graphs is None:
             return
         page = self.config.cache.page_size
@@ -394,6 +577,7 @@ class ModelRunner:
             self.config.max_pages_per_seq, self.num_pages, decode_buckets,
             page_buckets)
         steps, counts = dict(self.step_counts), graphs.launch_counts()
+        blocks = dict(self.block_counts)
         rng = self.generator.get_state()
         t0 = time.monotonic()
         self._warming = True
@@ -410,11 +594,37 @@ class ModelRunner:
                         seq.num_computed_tokens = ctx
                         items.append(ScheduledSeq(seq, 1, ctx))
                     self.step(ScheduledBatch(items))
+            K = self.block_len
+            if K > 1:
+                npages = combos[0][1]
+                for nseq in (block_buckets or sorted({
+                        s for s, p in combos if p == npages})):
+                    self._warm_block(nseq, npages, K)
         finally:
             self._warming = False
             self.step_counts.update(steps)
+            self.block_counts.update(blocks)
             graphs.set_launch_counts(counts)
             self.generator.set_state(rng)
         logger.info("warmup: %d decode combos, %d signatures, %.2f s",
                     len(combos), self.num_shape_signatures,
                     time.monotonic() - t0)
+
+    def _warm_block(self, nseq: int, npages: int, K: int) -> None:
+        """One greedy block of K links over ``nseq`` throwaway sequences
+        whose ``npages`` pages are all the dummy page 0; they carry the
+        engine's EOS ids under on-device finish, so the block has the
+        stop-set width real traffic gives."""
+        page = self.config.cache.page_size
+        ctx = max(0, npages * page - K)
+        seqs = []
+        for i in range(nseq):
+            seq = Sequence(i, [1] * (ctx + 1), SamplingParams(
+                temperature=0.0, max_tokens=K + 1,
+                ignore_eos=not self.eos_token_ids))
+            seq.page_table = [0] * npages
+            seq.num_computed_tokens = ctx
+            seqs.append(seq)
+        self.collect(self.step_multi([
+            ScheduledBatch([ScheduledSeq(seq, 1, ctx + j) for seq in seqs])
+            for j in range(K)]))

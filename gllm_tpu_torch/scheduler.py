@@ -21,15 +21,16 @@
   a re-admitted one starts again from a zeroed state.
 
 - overlap scheduling: ``schedule_chain`` commits the next pure-decode
-  step off a batch still in flight (page allocation, positions and slots
+  steps off a batch still in flight (page allocation, positions and slots
   need token counts only; the runner splices the tokens in on the
-  device), and ``schedule_reform`` re-forms it across a membership change
+  device), one link or a block of a power of two of them that runs
+  through the length deaths inside it (``active_until``), and ``schedule_reform`` re-forms it across a membership change
   off the promised counts (the pipelined loop; ``discard_batch`` unwinds
   an entry the engine invalidates). A sequence that finishes while a step
   of it is still in flight keeps its pages and SSM slot until the last
   one lands (``_deferred_free``).
 
-The JAX scheduler's multi-step chains, persistent slots (holes, joins),
+The JAX scheduler's persistent slots (holes, joins),
 mixed re-forms, speculative drafting, SSM snapshots
 (``_ssm_align_chunk``), host KV tier, spans and metrics belong to options
 this port does not implement yet, and are not copied.
@@ -64,6 +65,13 @@ class ScheduledSeq:
 @dataclasses.dataclass
 class ScheduledBatch:
     items: List[ScheduledSeq]
+    # the first link of a block (schedule_chain): per item, the links in
+    # which it is alive; a sequence that reaches its length limit inside
+    # the block freezes there (position held, KV writes to the dummy
+    # page) and its later tokens are dropped. None: every item alive in
+    # every link. Under on-device finish an upper bound: a sampled EOS or
+    # stop token lowers the device's count inside the block
+    active_until: Optional[List[int]] = None
     # a re-formed batch (schedule_reform): per item, the row of the
     # previous entry's on-device sampled tokens that is its input token,
     # or -1 when the host knows it (a sequence joining the batch). None:
@@ -313,17 +321,28 @@ class Scheduler:
 
     # ---- overlap scheduling -----------------------------------------------
 
-    def schedule_chain(self, prev: ScheduledBatch
-                       ) -> Optional[ScheduledBatch]:
-        """The next pure-decode step of every row of ``prev``, scheduled
-        before ``prev``'s sampled tokens reach the host (JAX's
-        ``schedule_chain:617`` with one link): pages, positions and slots
-        follow from token counts alone, and the runner splices each row's
-        input token from ``prev``'s tokens on the device. None, with the
-        reason in ``chain_break_reason``, unless every row is a RUNNING,
-        not aborted sequence whose chunk reaches the end of its known
-        tokens, none dies by length when ``prev`` lands, and the pages fit
-        without preemption; the caller then takes the sync path."""
+    def schedule_chain(self, prev: ScheduledBatch, k_max: int = 1,
+                       include_prev: bool = False) -> List[ScheduledBatch]:
+        """Up to ``k_max`` chained pure-decode steps (links) of every row
+        of ``prev``, scheduled before ``prev``'s sampled tokens reach the
+        host (JAX's ``schedule_chain:617`` without persistent slots and
+        speculation): pages, positions and slots follow from token counts
+        alone, and the runner carries each row's input token on the
+        device. One link is a chained step; more are one block
+        (``ModelRunner.step_multi``).
+
+        Every row must be a RUNNING, not aborted sequence whose chunk
+        reaches the end of its known tokens, and none may die by length
+        the moment ``prev`` lands. A row that dies by length inside the
+        block runs through it dead (``active_until`` on the first link:
+        frozen position, KV writes to the dummy page, later tokens
+        dropped by ``process_output``). The page need of the whole chain
+        is checked read-only, link by link, before any allocation; the
+        feasible length is then cut to a power of two (with
+        ``include_prev``, ``prev`` itself is the block's first step, so
+        ``1 +`` the links is). Returns [] (the reason in
+        ``chain_break_reason``) when no link is feasible; the caller then
+        takes the sync path."""
         self.chain_break_reason = None
         base: List[Tuple[Sequence, int]] = []
         for it in prev.items:
@@ -334,31 +353,61 @@ class Scheduler:
                 return self._chain_fail("finish")
             if seq.seq_id in self._aborted_ids:
                 return self._chain_fail("shape")
-            # a mid-prompt chunk samples nothing to chain off
+            # a mid-prompt chunk samples nothing to chain off; a chunk
+            # past the host's tokens (a chained step) does
             if it.computed_before + it.num_new_tokens < seq.num_tokens:
                 return self._chain_fail("shape")
             base.append((seq, it.computed_before + it.num_new_tokens))
-        # a row that dies by length the moment prev lands
-        if any(min(seq.sampling_params.max_tokens + seq.prompt_len - cn0 - 1,
-                   self.config.max_model_len - cn0) < 1
-               for seq, cn0 in base):
+        # per row, the links it takes: link j processes token cn0 + j,
+        # which exists while the sequence is under its max_tokens and the
+        # model length
+        deaths = [min(seq.sampling_params.max_tokens + seq.prompt_len
+                      - cn0 - 1, self.config.max_model_len - cn0)
+                  for seq, cn0 in base]
+        if min(deaths) < 1:
+            # a row dies the moment prev lands
             return self._chain_fail("finish")
         page = self.mm.page_size
-        need = sum(max(0, cdiv(cn0 + 1, page) - len(seq.page_table))
-                   for seq, cn0 in base)
-        if not self.mm.can_allocate(need):
+        feasible = 0
+        while feasible < min(k_max, max(deaths)):
+            # the whole chain so far, before any allocation: link-by-link
+            # checks would each pass near a full pool; dead links take no
+            # page
+            need = sum(max(0, cdiv(cn0 + min(feasible + 1, d), page)
+                           - len(seq.page_table))
+                       for (seq, cn0), d in zip(base, deaths))
+            if not self.mm.can_allocate(need):
+                break
+            feasible += 1
+        if not feasible:
             return self._chain_fail("pages")
-        items = []
-        for seq, cn0 in base:
-            # cover [0, cn0 + 1): num_computed_tokens has not advanced yet
-            self.mm.allocate_seq_pages(seq, cn0 + 1 - seq.num_computed_tokens)
-            seq.num_in_flight += 1
-            items.append(ScheduledSeq(seq, 1, cn0))
-        return ScheduledBatch(items)
+        if include_prev:
+            k = (1 << ((feasible + 1).bit_length() - 1)) - 1
+            if not k:
+                return self._chain_fail("pages")
+        else:
+            k = 1 << (feasible.bit_length() - 1)
+        chain: List[ScheduledBatch] = []
+        for j in range(k):
+            # a dead link freezes computed_before at the death position,
+            # so the next chain off this block fails the gate above
+            items = [ScheduledSeq(seq, 1, cn0 + min(j, d))
+                     for (seq, cn0), d in zip(base, deaths)]
+            for (seq, cn0), d in zip(base, deaths):
+                if j < d:
+                    # cover [0, cn0 + j + 1): num_computed_tokens has not
+                    # advanced yet
+                    self.mm.allocate_seq_pages(
+                        seq, cn0 + j + 1 - seq.num_computed_tokens)
+                seq.num_in_flight += 1
+            chain.append(ScheduledBatch(items))
+        if any(d < k for d in deaths):
+            chain[0].active_until = [min(d, k) for d in deaths]
+        return chain
 
-    def _chain_fail(self, reason: str) -> None:
+    def _chain_fail(self, reason: str) -> list:
         self.chain_break_reason = reason
-        return None
+        return []
 
     def schedule_reform(self, prev: ScheduledBatch
                         ) -> Optional[ScheduledBatch]:
@@ -424,16 +473,18 @@ class Scheduler:
         self.reform_fail_reason = reason
         return None
 
-    def discard_batch(self, batch: ScheduledBatch) -> None:
-        """Unwind an entry the engine invalidated: the in-flight counts
-        drop without committing tokens or advancing computed counts, so
-        the sync path schedules the same positions again. Pages allocated
-        toward the promised frontier stay on the table; a finished
-        sequence's deferred free fires once its last entry drains."""
-        for it in batch.items:
-            seq = it.seq
-            seq.num_in_flight -= 1
-            self._free_if_drained(seq)
+    def discard_batch(self, batch) -> None:
+        """Unwind an entry the engine invalidated (a batch, or a block's
+        list of links): the in-flight counts drop without committing
+        tokens or advancing computed counts, so the sync path schedules
+        the same positions again. Pages allocated toward the promised
+        frontier stay on the table; a finished sequence's deferred free
+        fires once its last entry drains."""
+        for b in (batch if isinstance(batch, list) else [batch]):
+            for it in b.items:
+                seq = it.seq
+                seq.num_in_flight -= 1
+                self._free_if_drained(seq)
 
     def _free_if_drained(self, seq: Sequence) -> None:
         if seq in self._deferred_free and seq.num_in_flight == 0:

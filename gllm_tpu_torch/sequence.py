@@ -83,6 +83,18 @@ class Sequence:
         # length-only invalidation; every shrink must drop it
         self._pt_np = None
 
+    def device_stop_ids(self, eos_token_ids) -> List[int]:
+        """The token ids whose sampling finishes this sequence inside a
+        block under on-device finish: the engine's EOS set (unless
+        ``ignore_eos``) and the request's ``stop_token_ids``, the ids
+        ``check_finish`` tests, sorted. The ``min_tokens`` gate is
+        positional; the batch builder arms it (``stop_from``)."""
+        sp = self.sampling_params
+        ids = set(sp.stop_token_ids)
+        if not sp.ignore_eos and eos_token_ids:
+            ids.update(int(t) for t in eos_token_ids)
+        return sorted(ids)
+
     def check_finish(self, eos_token_ids) -> Optional[str]:
         """EOS / stop-token / length check after a token was appended.
         ``eos_token_ids`` is a collection (checkpoints declare several

@@ -6,7 +6,8 @@ engines (Llama-shaped, DeepSeek-shaped and hybrid) on the card against the
 CPU; then the fp8 cache in every attention kernel, the unified step over
 a latent cache (K1um), the fp8 write against the CPU's bytes, and the
 engines over an fp8 cache or under the unified MLA step; the decode steps
-as CUDA graphs, and overlap scheduling and the pipelined loop over them.
+as CUDA graphs, overlap scheduling and the pipelined loop over them, and
+blocks of decode steps (multi-step decode, on-device finish).
 
 Every test here is marked ``cuda`` and skips without a CUDA device; run
 them on the card with
@@ -1861,17 +1862,23 @@ OVERLAP_FLAGS = {"overlap": dict(overlap_scheduling=True),
                  "pipelined": dict(pipelined_loop=True)}
 
 
-def _serve_greedy(llm, arrive_after=2):
-    """Twelve requests of short prompts and staggered outputs, nine of them
-    arriving after ``arrive_after`` steps (so that chains yield, break on
-    finishes and re-form): their greedy streams."""
+def _greedy_workload():
+    """Twelve short prompts and their greedy, staggered-length requests."""
     import gllm_tpu_torch as gt
     rng = np.random.default_rng(3)
     prompts = [rng.integers(1, 1000, int(n)).tolist()
                for n in rng.integers(3, 30, 12)]
-    seqs = [llm._allocate_seq(p, gt.SamplingParams(
-        temperature=0.0, max_tokens=int(m), ignore_eos=True))
-        for p, m in zip(prompts, rng.integers(6, 30, 12))]
+    return prompts, [gt.SamplingParams(temperature=0.0, max_tokens=int(m),
+                                       ignore_eos=True)
+                     for m in rng.integers(6, 30, 12)]
+
+
+def _serve_greedy(llm, arrive_after=2):
+    """``_greedy_workload``'s requests, nine of them arriving after
+    ``arrive_after`` steps (so that chains yield, break on finishes and
+    re-form): their greedy streams."""
+    prompts, sps = _greedy_workload()
+    seqs = [llm._allocate_seq(p, sp) for p, sp in zip(prompts, sps)]
     for s in seqs[:3]:
         llm.add_seq(s)
     steps = 0
@@ -1987,6 +1994,209 @@ def test_overlap_sampled_streams_reproducible_on_card(cuda_device):
                           dtype="bfloat16", pipelined_loop=True)
     assert _serve(first, 0.8)[0] == _serve(second, 0.8)[0]
     _drained(first)
+
+
+# ---- multi-step decode and on-device finish (blocks) -----------------------
+
+BLOCK_FLAGS = {"multi": dict(overlap_scheduling=True, multi_step_decode=8),
+               "odf": dict(pipelined_loop=True, ondevice_finish=True)}
+
+
+def _decode_launches(llm, counts):
+    """The decode kernel's launches in ``counts`` (``_all_counts`` deltas)
+    for ``llm``'s family."""
+    name = ("paged_decode_attention_mla" if llm.model_cfg.use_mla
+            else "paged_decode_attention")
+    return sum(n for (fn, k), n in counts.items() if k == name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("flags", list(BLOCK_FLAGS))
+@pytest.mark.parametrize("family", ["dense", "deepseek"])
+def test_block_streams_equal_the_sync_loop_on_card(cuda_device, family,
+                                                   flags, warm):
+    """bf16 engines on the same weights: with blocks (up to 8 links, or
+    16 under on-device finish), the greedy streams equal the sync loop's,
+    each dispatch is one replay, the decode kernels launched once a layer
+    for every single step and every executed sub-step, the split counters
+    are back at zero and pages all come back. Cold: no ``warmup()``."""
+    make = GRAPH_MAKERS[family]
+    sync = make(cuda_device, dtype="bfloat16")
+    llm = make(cuda_device, params=sync.runner.params, dtype="bfloat16",
+               **BLOCK_FLAGS[flags])
+    if warm:
+        llm.runner.warmup()
+    runner = llm.runner
+    want = _serve_greedy(sync)
+    replays, steps = runner.graphs.replays, dict(llm.step_counts)
+    blocks = dict(runner.block_counts)
+    before = _all_counts()
+    assert _serve_greedy(llm) == want
+    counts = {k: n - before[k] for k, n in _all_counts().items()}
+    _drained(llm)
+    _counters_zero(cuda_device)
+    decode = llm.step_counts["decode"] - steps["decode"]
+    nblocks = runner.block_counts["block"] - blocks["block"]
+    substeps = runner.block_counts["substeps"] - blocks["substeps"]
+    assert nblocks > 0 and sum(llm.blocks.values()) > 0
+    assert runner.graphs.replays - replays == decode + nblocks
+    assert (_decode_launches(llm, counts)
+            == (decode + substeps) * llm.model_cfg.num_attn_layers)
+    assert not any(k[1] is None and n for k, n in counts.items())
+
+
+def _organic_stops(llm, prompts):
+    """Per prompt, its greedy token at output 11 of 24: a stop token that
+    finishes it inside a block."""
+    import gllm_tpu_torch as gt
+    outs = llm.generate(prompt_token_ids=prompts, sampling_params=[
+        gt.SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+        for _ in prompts])
+    return [o.output_token_ids[11] for o in outs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "deepseek"])
+def test_block_early_exit_skips_substeps_on_card(cuda_device, family):
+    """Stop tokens from the greedy stream finish every row of a block
+    before its end: the block's conditional nodes skip the rest, the
+    executed sub-steps (``k_exec``) fall below K, the decode kernel's
+    launches count only the sub-steps that ran, and the streams equal the
+    sync loop's (float32)."""
+    import gllm_tpu_torch as gt
+    make = GRAPH_MAKERS[family]
+    sync = make(cuda_device)
+    llm = make(cuda_device, params=sync.runner.params,
+               **BLOCK_FLAGS["odf"])
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 1000, int(n)).tolist()
+               for n in rng.integers(3, 30, 4)]
+    stops = _organic_stops(sync, prompts)
+
+    def sps():
+        return [gt.SamplingParams(temperature=0.0, max_tokens=24,
+                                  stop_token_ids=[t]) for t in stops]
+    want = [o.output_token_ids for o in sync.generate(
+        prompt_token_ids=prompts, sampling_params=sps())]
+    k_run = []
+    stats = llm._block_stats
+    llm._block_stats = lambda chain, finish: (
+        k_run.append((len(chain), int(finish[:chain[0].num_seqs].max()))),
+        stats(chain, finish))[1]
+    steps, blocks = dict(llm.step_counts), dict(llm.runner.block_counts)
+    before = _all_counts()
+    got = [o.output_token_ids for o in llm.generate(
+        prompt_token_ids=prompts, sampling_params=sps())]
+    counts = {k: n - before[k] for k, n in _all_counts().items()}
+    assert got == want
+    assert any(len(t) < 24 for t in got)
+    assert any(e < k for k, e in k_run), k_run
+    substeps = llm.runner.block_counts["substeps"] - blocks["substeps"]
+    assert substeps == sum(e for _, e in k_run) == llm.block_substeps
+    assert (_decode_launches(llm, counts)
+            == (llm.step_counts["decode"] - steps["decode"] + substeps)
+            * llm.model_cfg.num_attn_layers)
+    assert llm.ondevice_finishes["stop"] > 0
+    _drained(llm)
+    _counters_zero(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "deepseek"])
+def test_block_dispatch_makes_no_host_sync(cuda_device, family):
+    """Once the workload's graphs are captured (a first run), a block's
+    dispatch under on-device finish raises nothing under
+    ``set_sync_debug_mode("error")``: the early-exit flags and the finish
+    steps stay on the card."""
+    llm = GRAPH_MAKERS[family](cuda_device, dtype="bfloat16",
+                               **BLOCK_FLAGS["odf"])
+    _serve_greedy(llm)
+    runner = llm.runner
+    multi, calls = runner.step_multi, []
+
+    def strict(chain, prev=None):
+        calls.append(chain)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return multi(chain, prev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    runner.step_multi = strict
+    _serve_greedy(llm)
+    assert calls
+    _drained(llm)
+
+
+@pytest.mark.cuda
+def test_sampled_blocks_reproducible_on_card(cuda_device):
+    """Sampled rows (temperature 0.8, top-p 0.9, top-k 50) in blocks: two
+    engines of one seed give the same streams."""
+    first = _tiny_engine(cuda_device, dtype="bfloat16", **BLOCK_FLAGS["odf"])
+    second = _tiny_engine(cuda_device, params=first.runner.params,
+                          dtype="bfloat16", **BLOCK_FLAGS["odf"])
+    assert _serve(first, 0.8)[0] == _serve(second, 0.8)[0]
+    assert sum(first.blocks.values()) > 0
+    _drained(first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [False, True], ids=["single", "blocks"])
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_one_byte_caches_three_deep_on_card(cuda_device, kv, blocks):
+    """int8 and fp8 caches under the pipelined loop three deep, blocks off
+    and on (float32): the engine's streams are those of its own batches
+    run one at a time through a sync engine (a block's links at the
+    block's signature; chip_smoke's ``replay_in_sync``). Against the sync
+    loop's own streams they may part: a row's float32 result depends on
+    its batch (the split-KV plan follows S and the page bucket), and an
+    int8 cache rounds such a difference to a whole quantization step.
+    Blocks' dead rows write to the dummy page 0, whose int8 scale drifts;
+    nothing reads it."""
+    import chip_smoke
+    sync = _tiny_engine(cuda_device, kv_cache_dtype=kv)
+    flags = dict(pipelined_loop=True, overlap_depth=3)
+    if blocks:
+        flags["ondevice_finish"] = True
+    llm = _tiny_engine(cuda_device, params=sync.runner.params,
+                       kv_cache_dtype=kv, **flags)
+    schedule = chip_smoke.record_schedule(llm)
+    got = _serve_greedy(llm)
+    prompts, sps = _greedy_workload()
+    chip_smoke.replay_in_sync("card test", kv, sync, schedule, prompts, sps,
+                              got)
+    assert (sum(llm.blocks.values()) > 0) == blocks
+    assert max(d for _, d in llm.dispatches) == 3
+    _drained(llm)
+    _counters_zero(cuda_device)
+
+
+@pytest.mark.cuda
+def test_second_engine_gets_the_first_engines_pages(cuda_device):
+    """Build, serve (graphs, blocks) and free an engine, then the same
+    engine again in the same process: the second sizes its KV pool from
+    the same free memory, within 64 MiB's worth of pages."""
+    import gc
+    import gllm_tpu_torch as gt
+    pages = []
+    for _ in range(2):
+        mc = gt.ModelConfig(architecture="LlamaForCausalLM",
+                            vocab_size=1000, hidden_size=256, num_layers=2,
+                            num_heads=8, num_kv_heads=2, head_dim=32,
+                            intermediate_size=512, max_position=512)
+        llm = gt.LLM(model_cfg=mc, device=cuda_device, config=gt.EngineConfig(
+            dtype="bfloat16", load_format="dummy", max_model_len=512,
+            scheduler=gt.SchedulerConfig(max_prefill_tokens=48),
+            cache=gt.CacheConfig(page_size=16, memory_util=0.5),
+            **BLOCK_FLAGS["odf"]))
+        llm.runner.warmup(decode_buckets=(8, 16), page_buckets=(4, 8))
+        _serve_greedy(llm)
+        pages.append((llm.runner.num_pages, llm.runner.kv_bytes_per_page()))
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+    (first, per_page), (second, _) = pages
+    assert second >= first - (64 << 20) // per_page, pages
 
 
 @pytest.mark.cuda

@@ -263,16 +263,16 @@ def test_no_device_means_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("multi_step_decode", 4), ("decode_chain_len", 4),
+    ("spec_fused", True), ("prefix_peers", "x"),
     ("decode_slot_batching", True), ("spec_decode", "ngram"),
-    ("quantization", "int8"), ("ondevice_finish", True),
+    ("quantization", "int8"),
     ("kv_cache_dtype", "float32"), ("tp", 2), ("pp", 2), ("dp", 2),
     ("sp", 2), ("kv_host_pool_gb", 1.0), ("kv_disk_path", "/x"),
     # options a model family does not take (the family rides the field):
     # an MLA latent cache takes no int8, a hybrid model neither, nor the
-    # unified step
+    # unified step, nor prefix caching
     ("mla:kv_cache_dtype", "int8"), ("hybrid:kv_cache_dtype", "int8"),
-    ("hybrid:unified_step", True)])
+    ("hybrid:unified_step", True), ("hybrid:enable_prefix_caching", True)])
 def test_validate_refuses_unported_options(field, value):
     cfg = gt.EngineConfig()
     family, _, field = field.rpartition(":")

@@ -63,23 +63,25 @@ def _params():
 
 
 def _engine(jax_side, *, num_pages=256, max_model_len=128, max_prefill=32,
-            eos=(), **flags):
+            eos=(), kv="auto", **flags):
     """The JAX LLM or the port's on the same float32 weights, eight
-    sequences a batch, 4-token pages."""
+    sequences a batch, 4-token pages, a ``kv`` cache dtype."""
     jparams, tparams = _params()
     if jax_side:
         llm = JLLM(config=JEC(
             dtype="float32", attention_impl="xla",
             max_model_len=max_model_len, max_num_seqs=8,
             scheduler=JSC(max_prefill_tokens=max_prefill, max_decode_seqs=8),
-            cache=JCC(page_size=4, num_pages=num_pages), **flags),
+            cache=JCC(page_size=4, num_pages=num_pages,
+                      kv_cache_dtype=kv), **flags),
             model_cfg=JMC(**MODEL), params=jparams)
     else:
         llm = gt.LLM(config=gt.EngineConfig(
             dtype="float32", max_model_len=max_model_len, max_num_seqs=8,
             scheduler=gt.SchedulerConfig(max_prefill_tokens=max_prefill,
                                          max_decode_seqs=8),
-            cache=gt.CacheConfig(page_size=4, num_pages=num_pages), **flags),
+            cache=gt.CacheConfig(page_size=4, num_pages=num_pages,
+                                 kv_cache_dtype=kv), **flags),
             model_cfg=gt.ModelConfig(**MODEL), params=tparams, device="cpu")
     if eos:
         llm.eos_token_ids = frozenset(eos)
@@ -424,7 +426,8 @@ def test_host_staging_ring_waits_before_refilling_a_slot():
 def test_validate_normalizes_as_jax():
     """``enforce_eager`` clears what the JAX package's clears,
     ``pipelined_loop`` implies ``overlap_scheduling``, ``overlap_depth``
-    must be at least 1, and the unported chain options raise by name."""
+    must be at least 1, the chain length resolves as the JAX package's,
+    and the unported chain options raise by name."""
     for kw in (dict(enforce_eager=True, overlap_scheduling=True,
                     pipelined_loop=True, chain_under_prefill=3),
                dict(pipelined_loop=True, overlap_depth=3),
@@ -439,10 +442,16 @@ def test_validate_normalizes_as_jax():
             assert getattr(cfg, f) == getattr(jcfg, f), f
     with pytest.raises(ValueError, match="overlap_depth"):
         gt.EngineConfig(overlap_scheduling=True, overlap_depth=0).validate()
-    for kw, name in ((dict(multi_step_decode=4), "multi_step_decode"),
-                     (dict(decode_chain_len=4), "decode_chain_len"),
-                     (dict(ondevice_finish=True), "ondevice_finish"),
-                     (dict(decode_slot_batching=True),
+    for kw in (dict(multi_step_decode=4), dict(decode_chain_len=4),
+               dict(ondevice_finish=True)):
+        cfg = gt.EngineConfig(overlap_scheduling=True, **kw)
+        jcfg = JEC(overlap_scheduling=True, **kw)
+        cfg.validate()
+        jcfg.validate()
+        for f in ("multi_step_decode", "decode_chain_len",
+                  "ondevice_finish"):
+            assert getattr(cfg, f) == getattr(jcfg, f), (kw, f)
+    for kw, name in ((dict(decode_slot_batching=True),
                       "decode_slot_batching"),
                      (dict(unified_step=True, pipelined_loop=True),
                       "unified_step with overlap_scheduling")):
