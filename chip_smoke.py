@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (gllm_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--memory-history]
 
-Phases, in order; any failure ends the run with a non-zero exit code and
-no result line:
+(``--memory-history``: the allocator records each allocation's Python
+stack, and each memory line names what holds the segments with the most
+stranded space.) Phases, in order; any failure ends the run with a
+non-zero exit code and no result line:
 
 1. device    torch / CUDA / nvcc versions, the card's name and power limit
 2. build     nvcc builds every kernel from gllm_tpu_torch/csrc into
@@ -31,7 +33,11 @@ no result line:
              (K3, float32 accuracy on the tensor cores: 3xTF32) at the
              hybrid mixed step's layout (K1's
              lengths padded to [27 rows, 1024], 32 heads, Dk = Dv = 128,
-             chunks of 64), with the GDN layer's peak memory at that shape
+             chunks of 64), with the GDN layer's peak memory at that shape;
+             K2 (D 64 over each cache, D 256) and K2m (over each latent)
+             also on the decode batch with every fourth row a hole row of
+             a persistent-slot chain (context one token in the dummy page
+             0), at the same tolerances
 4. serve     LLM.generate at the full Llama-3.2-1B width (dummy bf16
              weights from a seed) for 16 greedy requests, in six
              configurations: the bf16 sync loop, an int8 KV cache, the
@@ -77,7 +83,22 @@ no result line:
              half its output; the dummy Llama's stream repeats one
              token), whose streams must be the sync engine's (or, where
              bf16 batches part them, its own batches replayed) and some
-             block of which must stop early. Every engine with
+             block of which must stop early. The bf16, DeepSeek and
+             Qwen3-Next configurations also serve a slot twin (persistent
+             slots with chains of 16 decode steps under waiting prefill:
+             the multi twin's flags, the overlap twin's for Qwen3-Next),
+             runs eager, graph, overlap, multi, slot, slot, multi,
+             overlap, graph, eager: its medians and ratios, decoded
+             sub-steps a run, joins, hole row-sub-steps and compactions a
+             run, breaks by reason (none for a finish), its streams held
+             to its own batches replayed (hole rows dead in their
+             places); the DeepSeek slot twin serves the stop-token run
+             too. Every twin has 2048 KV pages and must not preempt, and
+             one that does not fit beside the primary engine raises by
+             name. Each engine's construction logs the memory it was
+             sized from (free, and stranded in partly used segments) and
+             the card's memory by allocator pool and outside it, as does
+             each model's release of its engines. Every engine with
              graphs: one replay per decode dispatch (a single step or a
              block), and a block's executed sub-steps launch the decode
              kernels too.
@@ -91,7 +112,8 @@ no result line:
              leave the decode kernels' split counters at zero; each fp8
              configuration's KV pages beside its full-precision twin's; a
              profiled window of the graph engine of the bf16 (and of its
-             eager, overlap and multi twins: host launch calls per decoded
+             eager, overlap, multi and slot twins: host launch calls per
+             decoded
              sub-step beside per dispatch), unified-int8, DeepSeek (both steps)
              and Qwen3-Next configurations: device time by kernel, busy
              share, kernels per step, host launch calls per dispatched
@@ -111,8 +133,9 @@ no result line:
              and the hybrid cases also run an eager engine on the card,
              and the float32, DeepSeek and hybrid cases an overlap engine
              (the pipelined loop), the float32 and DeepSeek cases a multi
-             engine (blocks under on-device finish), whose tokens must be
-             the same
+             engine (blocks under on-device finish) and a slot engine
+             (the same with persistent slots), whose tokens must be the
+             same
 6. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
@@ -480,6 +503,25 @@ def check(name, out, want, dropped):
         drop_max_abs=(d - w).abs().max().item())
 
 
+def hole_check(name, kernel, plain, kvl, pt, every=4):
+    """``kernel(kv_lens, page_table)`` against ``plain`` on a decode batch
+    whose every ``every``-th row is a hole row of a persistent-slot chain
+    (its context one token in the dummy page 0, its page-table row all
+    zeros; the split plan still the batch's), at the kernel's tolerance:
+    (ok, max_abs_err, hole rows)."""
+    kvl, pt = kvl.clone(), pt.clone()
+    kvl[::every] = 1
+    pt[::every] = 0
+    out = kernel(kvl, pt)
+    torch.cuda.synchronize()
+    want = plain(kvl, pt)
+    rtol, atol = TOL[name]
+    o, w = out.float(), want.float()
+    return dict(ok=bool(torch.isfinite(o).all()) and torch.allclose(
+        o, w, rtol=rtol, atol=atol), max_abs_err=(o - w).abs().max().item(),
+        rows=len(range(0, kvl.shape[0], every)))
+
+
 def measure(name, kernel, plain, plain_dropped, library, iters, nbytes,
             flops, peak_flops=PEAK_BF16_FLOPS, varlen=None, **info):
     """Check a kernel against its plain version, then time it: device time
@@ -498,9 +540,12 @@ def measure(name, kernel, plain, plain_dropped, library, iters, nbytes,
     lib_split = timed_above_bound(library, 5, b_ms) if library else None
     varlen_ms = None
     if varlen is not None:
-        fn, got = varlen
+        # (the call, its output[, the plain version over the cache the
+        # call reads, where that is not the kernel's: an int8 cache's
+        # bf16 dequantization])
+        fn, got = varlen[:2]
         rtol, atol = TOL[name]
-        w = want[:got.shape[0]].float()
+        w = (varlen[2] if len(varlen) > 2 else want)[:got.shape[0]].float()
         err = (got.float() - w).abs().max().item()
         if torch.allclose(got.float(), w, rtol=rtol, atol=atol):
             varlen_ms = sum(timed_above_bound(fn, 5, b_ms).values())
@@ -672,7 +717,9 @@ def _kv_bytes(kv_lens, page, Hkv, D, cache):
 
 
 # how each cache's library call reads it
-LIB_NOTE = {"bf16": "", "int8": " (dequantized to bf16)",
+LIB_NOTE = {"bf16": "", "int8": " (dequantized to bf16 before the timed "
+            "region; the varlen call is held to the plain version over that "
+            "cache)",
             "fp8": " (widened to bf16 before the timed region)"}
 
 
@@ -728,6 +775,12 @@ def phase_kernels():
             _kv_bytes(kv, page, Hkv, D, cache) + io, flops,
             shapes=shapes + f", {cache} cache",
             library_call=lib_call + LIB_NOTE[cache])
+        results[name]["hole_rows"] = hole_check(
+            name,
+            lambda lens, table: dec.paged_decode_attention(
+                q, kc, vc, lens, table, scale=scale, **sc),
+            lambda lens, table: dec.paged_decode_attention_plain(
+                q, kc, vc, lens, table, scale=scale, **sc), kvl, pt)
     # the same rows as a ragged batch of 32 one-token sequences
     cu = torch.arange(S + 1, dtype=torch.int32, device=dev)
     for name, cache in (("ragged_paged_attention_unified_decode", "bf16"),
@@ -785,6 +838,12 @@ def phase_kernels():
         kc, vc, sc, kb, vb = caches[cache]
         kw = dict(scale=scale, unified=unified, **sc)
         kd, vd = _dense_kv(kb, vb, pt[:S_real], kv[:S_real], page)
+        varlen = _varlen_library(x, kb, vb, scale)
+        if varlen is not None and cache == "int8":
+            # the call reads the int8 cache dequantized to bf16: held to the
+            # plain version over that cache
+            varlen += (rag.ragged_paged_attention_plain(
+                q, kb, vb, cu, kvl, pt, scale=scale, unified=unified),)
         results[name] = measure(
             name,
             lambda: rag.ragged_paged_attention(q, kc, vc, cu, kvl, pt, **kw),
@@ -794,8 +853,7 @@ def phase_kernels():
                 q, kc, vc, cu, x["kvl_drop"], pt, **kw),
             _mixed_library(x, kd, vd, scale), 20,
             _kv_bytes(kv, page, Hkv, D, cache) + io, flops,
-            varlen=_varlen_library(x, kb, vb, scale),
-            shapes=shapes + f", {cache} cache",
+            varlen=varlen, shapes=shapes + f", {cache} cache",
             library_call=lib_call + LIB_NOTE[cache],
             varlen_library_call=VARLEN_CALL + LIB_NOTE[cache])
         del kd, vd
@@ -820,6 +878,11 @@ def phase_kernels():
             f"{r['flops']} flops)")
         log(f"[kernels] {name}: library backend {r['library_backend']}; "
             f"varlen flash {r.get('varlen_library_ms')} ms")
+        if "hole_rows" in r:
+            h = r["hole_rows"]
+            log(f"[kernels] {name}: with {h['rows']} of the rows hole rows "
+                f"(context 1 in the dummy page 0): ok={h['ok']} "
+                f"max_abs_err={h['max_abs_err']}")
         if len(r["split"]) > 1:
             log(f"[kernels] {name}: device ms per call by launch: "
                 + ", ".join(f"{k} {v}" for k, v in r["split"].items()))
@@ -827,7 +890,8 @@ def phase_kernels():
             log(f"[kernels] {name}: by class: " + ", ".join(
                 f"{c} {sum(v for k, v in r['split'].items() if key in k)}"
                 for c, key in classes.items()))
-    bad = [n for n, r in results.items() if not r["ok"]]
+    bad = [n for n, r in results.items()
+           if not r["ok"] or not r.get("hole_rows", {"ok": True})["ok"]]
     if bad:
         raise SystemExit(f"[kernels] kernel disagrees with its plain "
                          f"version: {bad}")
@@ -941,6 +1005,13 @@ def mla_kernels(dev):
                      "(decode_only), " if unified else "") + shapes
                     + f", {cache} latent"),
             library_call=lib_call + LIB_NOTE[cache])
+        if not unified:
+            results[name]["hole_rows"] = hole_check(
+                name,
+                lambda lens, table, lat=lat: dec.paged_decode_attention(
+                    q, lat, None, lens, table, **kw),
+                lambda lens, table, lat=lat: dec.paged_decode_attention_plain(
+                    q, lat, None, lens, table, **kw), kvl, pt)
         del kd
     del x, lats
 
@@ -1026,6 +1097,12 @@ def hybrid_kernels(dev):
                     f"Hkv={Hkv} D={D} page={page} bf16 q, {cache} cache"),
             library_call="scaled_dot_product_attention(enable_gqa) over K/V "
             "gathered dense per sequence" + LIB_NOTE[cache])
+        results[name]["hole_rows"] = hole_check(
+            name,
+            lambda lens, table: dec.paged_decode_attention(
+                q, kc, vc, lens, table, scale=scale),
+            lambda lens, table: dec.paged_decode_attention_plain(
+                q, kc, vc, lens, table, scale=scale), kvl, pt)
         del kd, vd
     del x
 
@@ -1259,6 +1336,54 @@ def read_counters():
     return counts
 
 
+def memory_breakdown(holders=0):
+    """The card's memory by caching-allocator pool, from
+    torch.cuda.memory_snapshot(): per pool (the default one, each CUDA
+    graph pool) its segments, reserved and allocated GiB, and the free
+    space stranded in segments that still hold a tensor (empty_cache
+    cannot return it); then what lies outside the allocator (the CUDA
+    context, loaded modules, instantiated graphs, other processes): the
+    card's used memory less everything reserved. With ``holders``, as
+    many segments with the most stranded space, each with its live
+    blocks' sizes and, when the allocator records its history
+    (``--memory-history``), where the largest was allocated."""
+    pools = {}
+    stranded = []
+    for seg in torch.cuda.memory_snapshot():
+        pid = tuple(seg.get("segment_pool_id") or (0, 0))
+        name = "default" if pid == (0, 0) else f"pool{pid}"
+        p = pools.setdefault(name, [0, 0, 0, 0])
+        free = seg["total_size"] - seg["allocated_size"]
+        p[0] += 1
+        p[1] += seg["total_size"]
+        p[2] += seg["allocated_size"]
+        if seg["allocated_size"] and free:
+            p[3] += free
+            stranded.append((free, name, seg))
+    free, total = torch.cuda.mem_get_info()
+    reserved = sum(p[1] for p in pools.values())
+    text = "; ".join(
+        f"{n} {p[0]} segments {p[1] / 2**30:.3f} reserved "
+        f"{p[2] / 2**30:.3f} allocated {p[3] / 2**30:.3f} stranded"
+        for n, p in sorted(pools.items())) or "nothing reserved"
+    text += (f"; outside the allocator "
+             f"{(total - free - reserved) / 2**30:.3f} GiB")
+    for gap, name, seg in sorted(stranded, key=lambda s: -s[0])[:holders]:
+        live = [b for b in seg["blocks"] if b["state"] == "active_allocated"]
+        big = max(live, key=lambda b: b["size"])
+        where = [f"{f['filename'].rsplit('/', 1)[-1]}:{f['line']} "
+                 f"{f['name']}" for f in big.get("frames", [])
+                 if "gllm_tpu_torch" in f["filename"]
+                 or "chip_smoke" in f["filename"]][:3]
+        text += (f"\n    stranded {gap / 2**20:.1f} MiB in a {name} "
+                 f"{seg['segment_type']} segment of "
+                 f"{seg['total_size'] / 2**20:.1f} MiB held by "
+                 f"{len(live)} blocks (largest {big['size'] / 2**20:.2f} "
+                 f"MiB" + (f", from {' < '.join(where)}" if where else "")
+                 + ")")
+    return text
+
+
 def split_counters_clear():
     """Are the split counters of the decode kernels' scratch all zero (the
     last split of each row resets its counter)?"""
@@ -1349,11 +1474,28 @@ PROFILE_MULTI = ("bf16",)
 STOP_RUN = "deepseek"
 MULTI = dict(pipelined_loop=True, overlap_depth=2, ondevice_finish=True)
 MULTI_BLOCK_BUCKETS = (8, 16)
-# the eager twin's KV pool: the workload's 16 requests need about 1700
-# pages of 16 tokens, so neither engine preempts (the primary engine holds
-# the memory the pool is sized from); a hybrid twin also holds 16 GDN slots
-# (the workload's), not 256
-TWIN_PAGES = 4096
+# configurations that also serve a slot twin: the multi twin's flags (the
+# overlap twin's for the hybrid model, which never fuses) with persistent
+# slots (holes, joins at chain boundaries, compaction) and the ramp of 16
+# decode steps chained under waiting prefill; the runs go eager, graph,
+# overlap, multi, slot, slot, multi, overlap, graph, eager (no multi twin
+# for the hybrid model), its second run held to its own batches replayed,
+# and the DeepSeek slot twin serves the stop-token run too (a finish
+# inside a block becomes a hole)
+SLOT_TWINS = ("bf16", "deepseek", "qwen3_next")
+PROFILE_SLOT = ("bf16",)
+SLOT_FLAGS = dict(decode_slot_batching=True, chain_under_prefill=16)
+SLOT = dict(MULTI, **SLOT_FLAGS)
+SLOT_HYBRID = dict(OVERLAP, **SLOT_FLAGS)
+# a twin's KV pool: the workload's 16 requests hold at most 899 pages of
+# 16 tokens at once (a block's look-ahead adds one a row), so no twin
+# preempts (each asserts it; the primary engine holds the memory the pool
+# is sized from); a hybrid twin also holds 16 GDN slots (the workload's),
+# not 256
+TWIN_PAGES = 2048
+# segments with stranded space that each memory line names (4 with
+# --memory-history, which also records where their blocks came from)
+HOLDERS = 0
 # each fp8 configuration's full-precision twin, whose KV pages it doubles
 FP8_SERVE_TWINS = {"fp8": "bf16", "unified_fp8": "unified",
                    "deepseek_fp8": "deepseek",
@@ -1431,6 +1573,7 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     # cached blocks the engine's construction left in partly used
     # segments (its KV pool was sized after emptying the cache)
     spare = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    sz = llm.runner.sizing
     log(f"[serve {name}] LLM up in {time.monotonic() - t0:.1f} s"
         f"{' (weights reused)' if params is not None else ''}: "
         f"{llm.runner.num_pages} KV pages of {llm.config.cache.page_size} "
@@ -1438,7 +1581,10 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
         f"headroom {llm.runner.activation_headroom() / 2**30:.2f} GiB; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
         f"{spare / 2**30:.3f} GiB reserved and unallocated; "
-        f"{free0 / 2**30:.2f} GiB free before the engine")
+        f"{free0 / 2**30:.2f} GiB free before the engine; sized from "
+        f"{sz['free'] / 2**30:.3f} GiB free with "
+        f"{(sz['reserved'] - sz['allocated']) / 2**30:.3f} GiB stranded; "
+        f"memory by pool: {memory_breakdown(HOLDERS)}")
     rng = np.random.default_rng(SEED)
     vocab = llm.model_cfg.vocab_size
     warm = SamplingParams(temperature=0.0, max_tokens=2, ignore_eos=True)
@@ -1486,29 +1632,17 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     prompts = [rng.integers(1, vocab, int(n)).tolist() for n in lens]
     params = [SamplingParams(temperature=0.0, max_tokens=int(m),
                              ignore_eos=True) for m in max_tokens]
-    multi = None
+    multi = slot = None
     if name in MULTI_TWINS:
-        multi = LLM(model_cfg=llm.model_cfg, params=llm.runner.params,
-                    config=EngineConfig(
-                        load_format="dummy", dtype="bfloat16", seed=SEED,
-                        cache=CacheConfig(kv_cache_dtype=kv_dtype,
-                                          num_pages=TWIN_PAGES),
-                        **MULTI, **kw))
-        multi.generate(prompt_token_ids=[[1, 2, 3, 4]], sampling_params=warm)
-        mg = multi.runner.graphs
-        t0 = time.monotonic()
-        multi.runner.warmup(decode_buckets=MULTI_BLOCK_BUCKETS,
-                            block_buckets=MULTI_BLOCK_BUCKETS)
-        warm_multi = time.monotonic() - t0
-        log(f"[serve {name}] multi twin on the same weights ({MULTI}, chain "
-            f"length {multi.config.multi_step_decode}, blocks up to "
-            f"{multi.runner.block_len}): {TWIN_PAGES} KV pages; warmup "
-            f"{len(mg)} graphs ({sum(k[0] == 'block' for k in mg.keys)} "
-            f"blocks) in {warm_multi:.2f} s ({mg.capture_seconds:.2f} s in "
-            f"capture), pool {mg.pool_bytes() / 2**20:.1f} MiB; "
-            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    if multi:
-        order = [eager, llm, over, multi, multi, over, llm, eager]
+        multi = block_twin(name, "multi", llm, kv_dtype, kw, MULTI)
+    if name in SLOT_TWINS:
+        slot = block_twin(name, "slot", llm, kv_dtype, kw,
+                          SLOT_HYBRID if llm.runner.hybrid else SLOT)
+    if multi and slot:
+        order = [eager, llm, over, multi, slot, slot, multi, over, llm,
+                 eager]
+    elif slot:
+        order = [eager, llm, over, slot, slot, over, llm, eager]
     elif over:
         order = [eager, llm, over, over, llm, eager]
     elif eager:
@@ -1516,12 +1650,12 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     else:
         order = [llm] * runs
     modes = {id(llm): "graph", id(eager): "eager", id(over): "overlap",
-             id(multi): "multi"}
+             id(multi): "multi", id(slot): "slot"}
     log(f"[serve {name}] 16 requests, prompts {lens.min()}..{lens.max()} "
         f"(sum {lens.sum()}), max_tokens {max_tokens.min()}..."
         f"{max_tokens.max()}, runs "
         + ", ".join(modes[id(e)] for e in order))
-    engines = [e for e in (llm, eager, over, multi) if e is not None]
+    engines = [e for e in (llm, eager, over, multi, slot) if e is not None]
     steps0 = [dict(e.step_counts) for e in engines]
     blocks0 = [dict(e.runner.block_counts) for e in engines]
     replays0 = [e.runner.graphs.replays if e.runner.graphs else 0
@@ -1529,20 +1663,18 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     sigs0 = llm.runner.num_shape_signatures
     if over:
         over_dispatches0 = over.dispatches.copy()
-    if multi:
-        multi0 = dict(dispatches=multi.dispatches.copy(),
-                      blocks=multi.blocks.copy(),
-                      substeps=multi.block_substeps,
-                      dead=multi.dead_substeps, rows=multi.row_substeps)
+    twins0 = {id(e): twin_counts(e) for e in (multi, slot) if e}
     reset_counters()
-    rates = {"graph": [], "eager": [], "overlap": [], "multi": []}
+    rates = {"graph": [], "eager": [], "overlap": [], "multi": [],
+             "slot": []}
     streams = {}
     schedules = {}
     for rep, e in enumerate(order):
         mode = modes[id(e)]
-        recording = e in (over, multi) and mode in streams
+        recording = e in (over, multi, slot) and mode in streams
         if recording:
-            # the second overlap (multi) run records what it dispatches
+            # the second overlap (multi, slot) run records what it
+            # dispatches
             schedules[mode] = record_schedule(e)
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -1606,9 +1738,13 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     overlap = None
     if over:
         overlap = check_overlap(name, over, rates, streams, over_dispatches0)
-    multi_out = None
+    multi_out = slot_out = None
     if multi:
-        multi_out = check_multi(name, multi, rates, streams, multi0)
+        multi_out = check_multi(name, multi, "multi", rates, streams,
+                                twins0[id(multi)])
+    if slot:
+        slot_out = check_multi(name, slot, "slot", rates, streams,
+                               twins0[id(slot)])
     assert launched == {k for ks in by_kind.values() for k in ks}, \
         f"[serve {name}] launched {launched}, expected {by_kind}"
     # every layer of every step of a kind launched that kind's kernels
@@ -1624,21 +1760,25 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     for e in engines:
         mm = e.memory_manager
         assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
+        assert e is llm or not e.scheduler.num_preemptions, \
+            f"[serve {name}] the {modes[id(e)]} twin preempted"
         if mm.use_ssm:
             assert mm.ssm_alloc.num_free == mm.ssm_alloc.num_total, \
                 "SSM slots leaked"
     for mode, schedule in schedules.items():
         replay_in_sync(name, mode, llm, schedule, prompts, params,
                        streams[mode])
-    if multi and name == STOP_RUN:
+    if name == STOP_RUN:
         # the eager and overlap twins are done (their windows are bf16's);
         # their pages and pools make room for the stop-token run's graphs
         eager = over = order = e = None
-        engines = [llm, multi]
+        engines = [llm, multi, slot]
         gc.collect()
         torch.cuda.empty_cache()
-        multi_out["stop_run"] = stop_token_run(name, llm, multi, prompts,
-                                               streams["graph"])
+        multi_out["stop_run"] = stop_token_run(name, llm, multi, "multi",
+                                               prompts, streams["graph"])
+        slot_out["stop_run"] = stop_token_run(name, llm, slot, "slot",
+                                              prompts, streams["graph"])
     prof = {}
     if profiled:
         prof["graph"] = profile_window(llm, name + " graph")
@@ -1648,23 +1788,27 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
             prof["overlap"] = profile_window(over, name + " overlap")
         if multi and name in PROFILE_MULTI:
             prof["multi"] = profile_window(multi, name + " multi")
+        if slot and name in PROFILE_SLOT:
+            prof["slot"] = profile_window(slot, name + " slot")
     out = dict(counts=counts, rates=rates["graph"],
                eager_rates=rates["eager"], overlap_rates=rates["overlap"],
-               multi_rates=rates["multi"], overlap=overlap, multi=multi_out,
+               multi_rates=rates["multi"], slot_rates=rates["slot"],
+               overlap=overlap, multi=multi_out, slot=slot_out,
                pages=llm.runner.num_pages,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                graphs=llm.runner.num_shape_signatures, warm_s=warm_s,
                capture_s=graphs.capture_seconds, pool_mib=pool_mib,
                profile=prof)
     weights = llm.runner.params
-    del llm, eager, over, multi, engines, graphs, order, e, modes
+    del llm, eager, over, multi, slot, engines, graphs, order, e, modes
     gc.collect()
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
     log(f"[serve {name}] engines freed (the weights held for the caller): "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
         f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, "
-        f"{free / 2**30:.3f} GiB free")
+        f"{free / 2**30:.3f} GiB free; memory by pool: "
+        f"{memory_breakdown(HOLDERS)}")
     return out, weights
 
 
@@ -1681,8 +1825,8 @@ def record_schedule(e):
     """Wrap an engine's dispatches (single steps and blocks) and discards
     (until the caller deletes the wrappers): what it dispatches, in order,
     as a list of links each with its rows (sequence id, computed before,
-    new tokens) and, for a block, the signature it runs at; and the
-    entries it discards."""
+    new tokens; a hole row's id is HOLE_SEQ_ID) and the signature it runs
+    at (a block's: its last link's); and the entries it discards."""
     entries, discarded = [], []
     step_async, step_multi = e.runner.step_async, e.runner.step_multi
     discard = e.scheduler.discard_batch
@@ -1693,7 +1837,7 @@ def record_schedule(e):
                 for it in batch.items]
 
     def dispatch(batch, prev=None, **kw):
-        entries.append((batch, [rows(batch)], None))
+        entries.append((batch, [rows(batch)], shape(batch)))
         return step_async(batch, prev, **kw)
 
     def block(chain, prev=None):
@@ -1711,17 +1855,19 @@ def record_schedule(e):
 
 def replay_in_sync(name, mode, llm, schedule, prompts, params, want):
     """A twin's dispatched batches again, in its order and composition, one
-    synchronous step at a time through the sync engine's runner, each
-    step's input tokens from the host and its finishes checked on the host
-    (length, EOS, stop tokens); a block's links one by one at the block's
-    signature, without the rows that had finished by then: the greedy
-    streams must be the twin's. (Against the sync loop itself, bf16
+    synchronous step at a time through the sync engine's runner at the
+    signature the twin ran it at, each step's input tokens from the host
+    and its finishes checked on the host (length, EOS, stop tokens); a
+    block's links one by one at the block's signature, without the rows
+    that had finished by then; hole rows as dead rows in their places: the
+    greedy streams must be the twin's. (Against the sync loop itself, bf16
     streams may part: the loops form other batches, a block runs at its
     last link's page bucket, and a row's bf16 result depends on its
     batch.)"""
     from gllm_tpu_torch.scheduler import ScheduledBatch, ScheduledSeq
-    from gllm_tpu_torch.sequence import Sequence
+    from gllm_tpu_torch.sequence import HOLE_SEQ_ID, Sequence
     mm = llm.memory_manager
+    hole = llm.scheduler._hole_seq
     seqs = {}
     skipped = steps = 0
     for batch, links, sig in schedule["entries"]:
@@ -1731,6 +1877,10 @@ def replay_in_sync(name, mode, llm, schedule, prompts, params, want):
         for rows in links:
             items = []
             for sid, before, n in rows:
+                if sid == HOLE_SEQ_ID:
+                    # a hole row stays a dead row in its place
+                    items.append(ScheduledSeq(hole, 1, 0))
+                    continue
                 seq = seqs.get(sid)
                 if seq is None:
                     i = sid - schedule["first_id"]
@@ -1741,7 +1891,7 @@ def replay_in_sync(name, mode, llm, schedule, prompts, params, want):
                 mm.allocate_seq_pages(seq,
                                       before + n - seq.num_computed_tokens)
                 items.append(ScheduledSeq(seq, n, before))
-            if not items:
+            if all(it.seq is hole for it in items):
                 continue
             samples = [it.samples for it in items]
             tokens = llm.runner.step(ScheduledBatch(items),
@@ -1749,6 +1899,8 @@ def replay_in_sync(name, mode, llm, schedule, prompts, params, want):
             steps += 1
             for it, sampled, tok in zip(items, samples, tokens):
                 seq = it.seq
+                if seq is hole:
+                    continue
                 seq.num_computed_tokens = (it.computed_before
                                            + it.num_new_tokens)
                 if sampled:
@@ -1820,83 +1972,154 @@ def check_overlap(name, over, rates, streams, dispatches0):
                 divergences=over.futures.divergences)
 
 
-def check_multi(name, multi, rates, streams, before):
-    """The multi twin against the sync graph and overlap twins: medians and
-    their ratios, whether its greedy streams equal the sync loop's, decode
-    dispatches (single steps and blocks) and executed sub-steps a run,
-    blocks by K, entries dispatched ahead, dead row-sub-steps, and no page
-    leaked or entry left in flight; returns those numbers."""
-    runs = len(rates["multi"])
-    med = median(rates["multi"])
-    where = first_difference(streams["graph"], streams["multi"])
+def block_twin(name, mode, llm, kv_dtype, kw, flags):
+    """A twin of ``llm`` on its weights under ``flags`` (the multi or the
+    slot twin: blocks of decode steps, or a hybrid model's single-step
+    chains), TWIN_PAGES KV pages (a hybrid twin 16 GDN slots), its single
+    steps and longest blocks captured at MULTI_BLOCK_BUCKETS; its memory
+    by pool logged. A twin that does not fit beside the primary engine
+    raises by name."""
+    from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, SamplingParams
+    extra = {"max_num_seqs": 16} if llm.runner.hybrid else {}
+    t0 = time.monotonic()
+    try:
+        twin = LLM(model_cfg=llm.model_cfg, params=llm.runner.params,
+                   config=EngineConfig(
+                       load_format="dummy", dtype="bfloat16", seed=SEED,
+                       cache=CacheConfig(kv_cache_dtype=kv_dtype,
+                                         num_pages=TWIN_PAGES),
+                       **flags, **kw, **extra))
+        twin.generate(prompt_token_ids=[[1, 2, 3, 4]],
+                      sampling_params=SamplingParams(
+                          temperature=0.0, max_tokens=2, ignore_eos=True))
+        twin.runner.warmup(decode_buckets=MULTI_BLOCK_BUCKETS,
+                           block_buckets=MULTI_BLOCK_BUCKETS)
+    except torch.OutOfMemoryError as e:
+        raise SystemExit(
+            f"[serve {name}] the {mode} twin does not fit beside the "
+            f"primary engine ({TWIN_PAGES} KV pages): {e}; memory by pool: "
+            f"{memory_breakdown(HOLDERS)}")
+    g = twin.runner.graphs
+    log(f"[serve {name}] {mode} twin on the same weights ({flags}, chain "
+        f"length {twin.config.multi_step_decode}, blocks up to "
+        f"{twin.runner.block_len}): {TWIN_PAGES} KV pages; built and warmed "
+        f"in {time.monotonic() - t0:.2f} s: {len(g)} graphs "
+        f"({sum(k[0] == 'block' for k in g.keys)} blocks, "
+        f"{g.capture_seconds:.2f} s in capture), pool "
+        f"{g.pool_bytes() / 2**20:.1f} MiB; memory by pool: "
+        f"{memory_breakdown(HOLDERS)}")
+    return twin
+
+
+def twin_counts(e):
+    """A multi or slot twin's counts, before its runs."""
+    return dict(dispatches=e.dispatches.copy(), blocks=e.blocks.copy(),
+                substeps=e.block_substeps, dead=e.dead_substeps,
+                rows=e.row_substeps, chain_breaks=e.chain_breaks.copy(),
+                stalls=e.stalls.copy(), joins=e.joins,
+                holes=e.hole_substeps, compactions=e.compactions)
+
+
+def check_multi(name, twin, mode, rates, streams, before):
+    """The multi or slot twin (``mode``) against the sync graph, overlap
+    and (for the slot twin) multi twins: medians and their ratios, whether
+    its greedy streams equal the sync loop's, decode dispatches (single
+    steps and blocks) and decoded sub-steps a run, blocks by K, entries
+    dispatched ahead, dead row-sub-steps of the sequences' rows, chain
+    breaks and stalls by reason, for the slot twin joins, hole
+    row-sub-steps and compactions a run (and no break for a finish), and
+    no page or slot leaked or entry left in flight; returns those
+    numbers."""
+    runs = len(rates[mode])
+    med = median(rates[mode])
+    where = first_difference(streams["graph"], streams[mode])
     if where is None:
-        log(f"[serve {name}] multi and sync-loop greedy streams identical")
+        log(f"[serve {name}] {mode} and sync-loop greedy streams identical")
     else:
         i, j = where
-        log(f"[serve {name}] multi and sync-loop greedy streams part at "
+        log(f"[serve {name}] {mode} and sync-loop greedy streams part at "
             f"request {i}, output token {j} (sync {streams['graph'][i][j]},"
-            f" multi {streams['multi'][i][j]}): the loops run other batches")
-    dispatches = multi.dispatches - before["dispatches"]
-    blocks = multi.blocks - before["blocks"]
+            f" {mode} {streams[mode][i][j]}): the loops run other batches")
+    dispatches = twin.dispatches - before["dispatches"]
+    blocks = twin.blocks - before["blocks"]
     decode = sum(n for (kind, _), n in dispatches.items()
                  if kind in ("decode", "block"))
     ahead = sum(n for (kind, d), n in dispatches.items()
                 if kind in ("decode", "block") and d >= 2)
     singles = sum(n for (kind, _), n in dispatches.items()
                   if kind == "decode")
-    substeps = multi.block_substeps - before["substeps"]
-    dead = multi.dead_substeps - before["dead"]
-    out = dict(ratio_graph=med / median(rates["graph"]),
-               ratio_overlap=(med / median(rates["overlap"])
-                              if rates["overlap"] else None),
-               same_as_sync=where is None,
+    substeps = twin.block_substeps - before["substeps"]
+    dead = twin.dead_substeps - before["dead"]
+    breaks = dict(twin.chain_breaks - before["chain_breaks"])
+    ratios = {other: med / median(rates[other])
+              for other in ("graph", "overlap", "multi")
+              if other != mode and rates[other]}
+    out = dict(ratios=ratios, same_as_sync=where is None,
                decode_dispatches_a_run=decode / runs,
                substeps_a_run=(singles + substeps) / runs,
                blocks_by_k={k: n / runs for k, n in sorted(blocks.items())},
                ahead=ahead, decode_dispatches=decode,
-               dead_share=dead / max(1, multi.row_substeps
-                                     - before["rows"]),
-               chain_breaks=dict(multi.chain_breaks),
-               stalls=dict(multi.stalls), rebuilds=multi.futures.rebuilds)
-    log(f"[serve {name}] multi median {med:.1f} output tok/s: "
-        f"{out['ratio_graph']:.3f}x the sync graph median"
-        + (f", {out['ratio_overlap']:.3f}x the overlap median"
-           if out["ratio_overlap"] else "")
+               dead_share=dead / max(1, twin.row_substeps - before["rows"]),
+               chain_breaks=breaks,
+               stalls=dict(twin.stalls - before["stalls"]),
+               rebuilds=twin.futures.rebuilds,
+               joins_a_run=(twin.joins - before["joins"]) / runs,
+               holes_a_run=(twin.hole_substeps - before["holes"]) / runs,
+               compactions_a_run=(twin.compactions
+                                  - before["compactions"]) / runs)
+    log(f"[serve {name}] {mode} median {med:.1f} output tok/s: "
+        + ", ".join(f"{r:.3f}x the {other} median"
+                    for other, r in ratios.items())
         + f"; a run: {out['decode_dispatches_a_run']:.1f} decode dispatches "
         f"({singles / runs:.1f} single steps, {sum(blocks.values()) / runs:.1f}"
         f" blocks), {out['substeps_a_run']:.1f} decoded sub-steps; blocks "
         f"by K a run {out['blocks_by_k']}; {ahead} of {decode} decode "
         f"dispatches with another in flight; dead row-sub-steps "
-        f"{dead} ({100 * out['dead_share']:.1f}%); chain breaks "
-        f"{out['chain_breaks']}; stalls {out['stalls']}; rebuilds "
-        f"{out['rebuilds']}")
-    mg = multi.runner.graphs
-    log(f"[serve {name}] multi twin after its runs: {len(mg)} graphs "
-        f"({sum(k[0] == 'block' for k in mg.keys)} blocks, keys by K "
-        f"{block_keys(mg)}), {mg.capture_seconds:.2f} s in capture, pool "
-        f"{mg.pool_bytes() / 2**20:.1f} MiB")
-    assert sum(blocks.values()) > 0, f"[serve {name}] no block formed"
-    mm = multi.memory_manager
-    assert not multi._in_flight, "an entry was left in flight"
+        f"{dead} ({100 * out['dead_share']:.1f}% of the sequences' rows); "
+        f"joins {out['joins_a_run']:.1f}, hole row-sub-steps "
+        f"{out['holes_a_run']:.1f}, compactions "
+        f"{out['compactions_a_run']:.1f} a run; chain breaks {breaks} "
+        f"({runs} runs); stalls {out['stalls']}; rebuilds {out['rebuilds']}")
+    g = twin.runner.graphs
+    log(f"[serve {name}] {mode} twin after its runs: {len(g)} graphs "
+        f"({sum(k[0] == 'block' for k in g.keys)} blocks, keys by K "
+        f"{block_keys(g)}), {g.capture_seconds:.2f} s in capture, pool "
+        f"{g.pool_bytes() / 2**20:.1f} MiB")
+    if not twin.runner.hybrid:
+        assert sum(blocks.values()) > 0, \
+            f"[serve {name}] {mode}: no block formed"
+    if twin.config.decode_slot_batching:
+        assert not breaks.get("finish"), \
+            f"[serve {name}] {mode}: a finish broke a chain: {breaks}"
+        assert twin.scheduler._hole_seq.num_in_flight == 0, \
+            f"[serve {name}] {mode}: a hole row left in flight"
+    mm = twin.memory_manager
+    assert not twin._in_flight, "an entry was left in flight"
     assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
-    log(f"[serve {name}] multi twin: no page leaked, nothing left in "
-        f"flight")
+    if mm.use_ssm:
+        assert mm.ssm_alloc.num_free == mm.ssm_alloc.num_total, \
+            "SSM slots leaked"
+    log(f"[serve {name}] {mode} twin: no page or slot leaked, nothing left "
+        f"in flight")
     return out
 
 
-def stop_token_run(name, llm, multi, prompts, graph_streams):
+def stop_token_run(name, llm, twin, mode, prompts, graph_streams):
     """Each request stops at a token of its greedy stream (from the sync
     graph engine's) from output 16 on, the first there that the stream
     has not sampled before, so that the stream reaches it there: every
     request (32 to 122 tokens) stops at about a quarter to half of its
-    output, inside the multi twin's blocks. Two passes: the 16 requests,
+    output, inside the ``mode`` twin's blocks (the multi or the slot
+    twin; in the slot twin a row that finished rides on as a hole). Two
+    passes: the 16 requests,
     then the first that stops alone (a block dispatched ahead of a finish
     keeps the finished row alive, as the host does, so among many rows an
     early exit is rare; alone, the row's block stops at its stop token).
     Some block must exit early (executed sub-steps below its K) and each
     pass's streams must be the sync engine's (or, where bf16 batches part
     them, its own batches run one by one through the sync engine); prints
-    the dead share and the finishes by kind."""
+    the dead share, the finishes by kind and, for the slot twin, the hole
+    row-sub-steps and joins (a finish must break no chain there)."""
     from gllm_tpu_torch import SamplingParams
 
     def stop(s):
@@ -1915,48 +2138,60 @@ def stop_token_run(name, llm, multi, prompts, graph_streams):
         want = [o.output_token_ids for o in llm.generate(
             prompt_token_ids=ps, sampling_params=pass_sps)]
         runs = []
-        stats = multi._block_stats
-        multi._block_stats = lambda chain, finish: (
+        stats = twin._block_stats
+        twin._block_stats = lambda chain, finish: (
             runs.append((len(chain),
                          int(finish[:chain[0].num_seqs].max()))),
             stats(chain, finish))[1]
-        finishes0 = multi.ondevice_finishes.copy()
-        dead0, rows0 = multi.dead_substeps, multi.row_substeps
-        schedule = record_schedule(multi)
+        finishes0 = twin.ondevice_finishes.copy()
+        dead0, rows0 = twin.dead_substeps, twin.row_substeps
+        holes0, joins0 = twin.hole_substeps, twin.joins
+        breaks0 = twin.chain_breaks.copy()
+        schedule = record_schedule(twin)
         try:
-            got = [o.output_token_ids for o in multi.generate(
+            got = [o.output_token_ids for o in twin.generate(
                 prompt_token_ids=ps, sampling_params=pass_sps)]
         finally:
-            del multi._block_stats, multi.runner.step_async
-            del multi.runner.step_multi, multi.scheduler.discard_batch
+            del twin._block_stats, twin.runner.step_async
+            del twin.runner.step_multi, twin.scheduler.discard_batch
         n_early = sum(e < k for k, e in runs)
         early += n_early
-        dead = multi.dead_substeps - dead0
-        share = dead / max(1, multi.row_substeps - rows0)
-        finishes = dict(multi.ondevice_finishes - finishes0)
+        dead = twin.dead_substeps - dead0
+        share = dead / max(1, twin.row_substeps - rows0)
+        finishes = dict(twin.ondevice_finishes - finishes0)
+        breaks = dict(twin.chain_breaks - breaks0)
         where = first_difference(got, want)
         stopped = sum(len(g) < len(graph_streams[i])
                       for g, i in zip(got, idx))
-        log(f"[serve {name}] stop-token run, {tag}: "
+        log(f"[serve {name}] {mode} stop-token run, {tag}: "
             f"{sum(len(t) for t in got)} tokens, {stopped} of {len(got)} "
             f"requests stopped early; {len(runs)} blocks, {n_early} exited "
             f"early (K, executed: {runs}); dead row-sub-steps {dead} "
-            f"({100 * share:.1f}%); finishes out of blocks by kind "
+            f"({100 * share:.1f}%); hole row-sub-steps "
+            f"{twin.hole_substeps - holes0}, joins {twin.joins - joins0}; "
+            f"chain breaks {breaks}; finishes out of blocks by kind "
             f"{finishes}; streams "
             + ("identical to the sync engine's" if where is None
                and got == want else
                f"part from the sync engine's at (request, token) {where}"))
         if where is not None or got != want:
             # bf16: the loops run other batches (see replay_in_sync)
-            replay_in_sync(name, f"multi (stop-token run, {tag})", llm,
+            replay_in_sync(name, f"{mode} (stop-token run, {tag})", llm,
                            schedule, ps, pass_sps, got)
-        mm = multi.memory_manager
-        assert not multi._in_flight and \
+        mm = twin.memory_manager
+        assert not twin._in_flight and \
             mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
+        if twin.config.decode_slot_batching:
+            assert not breaks.get("finish"), \
+                f"[serve {name}] {mode} stop-token run: a finish broke a " \
+                f"chain: {breaks}"
         out[tag] = dict(blocks=len(runs), early=n_early, dead_share=share,
                         finishes=finishes, same_as_sync=where is None,
-                        stopped=stopped)
-    assert early > 0, f"[serve {name}] stop-token run: no block exited early"
+                        stopped=stopped, chain_breaks=breaks,
+                        holes=twin.hole_substeps - holes0,
+                        joins=twin.joins - joins0)
+    assert early > 0, \
+        f"[serve {name}] {mode} stop-token run: no block exited early"
     return out
 
 
@@ -1985,11 +2220,12 @@ def phase_serve():
             f"({ratio:.3f}x)")
         assert ratio >= 1.9, f"{fp8} should give about 2x the pages of {twin}"
     log("[serve] summary: config, graph tok/s runs, eager tok/s runs, "
-        "overlap tok/s runs, multi tok/s runs, graphs, warmup s, capture s, "
-        "pool MiB, KV pages")
+        "overlap tok/s runs, multi tok/s runs, slot tok/s runs, graphs, "
+        "warmup s, capture s, pool MiB, KV pages")
     for name, r in results.items():
         log(f"[serve] {name}: {r['rates']} {r['eager_rates']} "
-            f"{r['overlap_rates']} {r['multi_rates']} {r['graphs']} "
+            f"{r['overlap_rates']} {r['multi_rates']} {r['slot_rates']} "
+            f"{r['graphs']} "
             f"{r['warm_s']:.3f} {r['capture_s']:.3f} {r['pool_mib']:.1f} "
             f"{r['pages']}")
     return results
@@ -2204,16 +2440,22 @@ def phase_reference():
         # engine (blocks under on-device finish)
         engines = [engine(cfg, params, "cuda", kv_dtype, unified),
                    engine(cfg, on(params, "cpu"), "cpu", kv_dtype, unified)]
-        if label in ("float32 cache", "unified step", dsl,
-                     dsl + ", unified step", qnl):
-            engines.append(engine(cfg, params, "cuda", kv_dtype, unified,
-                                  enforce_eager=True))
-        if label in ("float32 cache", dsl, qnl):
-            engines.append(engine(cfg, params, "cuda", kv_dtype, unified,
-                                  pipelined_loop=True))
-        if label in ("float32 cache", dsl):
-            engines.append(engine(cfg, params, "cuda", kv_dtype, unified,
-                                  pipelined_loop=True, ondevice_finish=True))
+        kinds = []
+        for kind, labels, flags in (
+                ("eager", ("float32 cache", "unified step", dsl,
+                           dsl + ", unified step", qnl),
+                 dict(enforce_eager=True)),
+                ("overlap", ("float32 cache", dsl, qnl),
+                 dict(pipelined_loop=True)),
+                ("multi", ("float32 cache", dsl),
+                 dict(pipelined_loop=True, ondevice_finish=True)),
+                ("slot", ("float32 cache", dsl, qnl),
+                 dict(pipelined_loop=True, ondevice_finish=True,
+                      decode_slot_batching=True, chain_under_prefill=8))):
+            if label in labels:
+                kinds.append(kind)
+                engines.append(engine(cfg, params, "cuda", kv_dtype,
+                                      unified, **flags))
         for llm in engines:
             seqs = [llm._allocate_seq(p, sp) for p in prompts]
             for seq in seqs:
@@ -2238,10 +2480,9 @@ def phase_reference():
             f"prefill) logits max_abs_err {err} of max |logit| {scale}; "
             f"greedy tokens identical: {toks[0] == toks[1]}"
             + "".join(f", card {kind} engine too: {t == toks[1]}"
-                      for kind, t in zip(("eager", "overlap", "multi"),
-                                         toks[2:]))
-            + (f" ({sum(engines[-1].blocks.values())} blocks)"
-               if len(engines) > 4 else "")
+                      + (f" ({sum(e.blocks.values())} blocks)"
+                         if kind in ("multi", "slot") else "")
+                      for kind, t, e in zip(kinds, toks[2:], engines[2:]))
             + f"; {graphed.graphs.replays} decode graph replays "
             f"({graphed.num_shape_signatures} graphs); card launches "
             f"{ {k: n for k, n in counts.items() if n} }")
@@ -2250,11 +2491,11 @@ def phase_reference():
         assert toks[0] == toks[1], \
             f"[reference] {label}: card and CPU greedy tokens differ"
         assert all(t == toks[1] for t in toks[2:]), \
-            f"[reference] {label}: the card's eager, overlap or multi " \
-            f"engine differs"
-        if len(engines) > 4:
-            assert sum(engines[-1].blocks.values()) > 0, \
-                f"[reference] {label}: the multi engine formed no block"
+            f"[reference] {label}: the card's {kinds} engines differ"
+        for kind, e in zip(kinds, engines[2:]):
+            if kind == "multi" or (kind == "slot" and not e.runner.hybrid):
+                assert sum(e.blocks.values()) > 0, \
+                    f"[reference] {label}: the {kind} engine formed no block"
         assert graphed.graphs.replays == graphed.step_counts["decode"] > 0
         assert all(len(t) == 8 for t in toks[0])
         launched = {k for k, n in counts.items() if n and k != "plain_calls"}
@@ -2263,9 +2504,16 @@ def phase_reference():
 
 
 def main():
+    global HOLDERS
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--memory-history" in sys.argv[1:]:
+        # each allocation keeps its Python stack: the memory lines name
+        # what holds the segments with the most stranded space
+        torch.cuda.memory._record_memory_history(enabled="state",
+                                                 stacks="python")
+        HOLDERS = 4
     t_start = time.monotonic()
     smi = phase_device()
     walls = {}
@@ -2295,7 +2543,9 @@ def main():
             "library_call": r["library_call"],
             "varlen_library_ms": r.get("varlen_library_ms"),
             "varlen_library_call": r.get("varlen_library_call"),
-            "library_backend": r["library_backend"], "shapes": r["shapes"]})
+            "library_backend": r["library_backend"], "shapes": r["shapes"],
+            "hole_rows_max_abs_err": r.get("hole_rows", {}).get(
+                "max_abs_err")})
     log(f"[done] {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,11 @@ from gllm_tpu_torch.ops.sampling import SamplingMetadata
 
 
 class StepBatch(NamedTuple):
-    # Dead-row convention of bucket padding: position 0, slot 0 — KV writes
-    # land in the dummy page and the sampled token is discarded host-side.
+    # Dead-row convention, shared by bucket padding, the rows a block's
+    # active_until freezes and the hole rows of persistent-slot chains:
+    # position 0 (a frozen row: its last), slot 0 — KV writes land in the
+    # dummy page and the sampled token is discarded host-side, so a dead
+    # row costs one attention row and nothing else.
     token_ids: object            # [T] int32, padded with 0
     positions: object            # [T] int32 (absolute position in sequence)
     slot_mapping: object         # [T] int32 flat KV slots (padding → dummy)
@@ -33,14 +36,15 @@ class StepBatch(NamedTuple):
     # int32 on the device; None when there are none)
     ssm_slots: object = None
     ssm_zero: object = None
-    # a re-formed batch (pipelined loop): the rows whose input token is
-    # spliced from the previous entry's sampled tokens, then the rows of
-    # those tokens they take (a list of 2k ints on the host, [2, k] int32
-    # on the device; None when no row is spliced by map)
+    # a re-formed batch (pipelined loop), or a chain that sequences joined
+    # (persistent slots): the rows whose input token is spliced from the
+    # previous entry's sampled tokens, then the rows of those tokens they
+    # take (a list of 2k ints on the host, [2, k] int32 on the device;
+    # None when no row is spliced by map)
     splice: object = None
     # the first link of a block (runner step_multi): per row, the
-    # sub-steps in which it is alive ([S] int32; padded rows 0); None for
-    # a single step
+    # sub-steps in which it is alive ([S] int32; padded and hole rows 0);
+    # None for a single step
     active_until: object = None
     # host ints: the real rows (sequences) of the batch, and the longest
     # real row's token count (the GDN layers' padded row length)

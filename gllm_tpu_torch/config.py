@@ -6,7 +6,8 @@ option this port does not implement yet; it never accepts an option and
 then ignores it, except where the JAX package's ``validate`` does the same
 (``enforce_eager`` clears overlap scheduling and the options built on it,
 with a warning; ``ondevice_finish`` or ``decode_chain_len`` without
-overlap scheduling forms no block, with a warning).
+overlap scheduling forms no block, with a warning, and
+``decode_slot_batching`` without it does nothing).
 """
 
 from __future__ import annotations
@@ -72,7 +73,6 @@ logger = logging.getLogger(__name__)
 # Options of the JAX engine that this port does not implement yet, with
 # the value that means "off". validate() raises when one is set.
 _UNPORTED = {
-    "decode_slot_batching": False,
     "spec_decode": None,
     "spec_fused": False,
     "quantization": None,
@@ -105,6 +105,10 @@ class EngineConfig:
     # over an MLA latent cache); sync loop only: with overlap_scheduling it
     # is refused
     unified_step: bool = False
+    # persistent-slot chain membership under overlap scheduling: a finished
+    # row stays in its chain as a dead hole, a decode-ready sequence joins
+    # a hole at a chain boundary, and the batch compacts only below its
+    # power-of-two sequence bucket (no effect without overlap scheduling)
     decode_slot_batching: bool = False
     # under overlap scheduling, chain up to this many pure-decode steps
     # into one block: one dispatch (one CUDA graph replay), one upload and

@@ -1,6 +1,6 @@
 """Offline LLM engine (counterpart of ``gllm_tpu/engine/llm.py``:
 ``LLM.__init__:167``, ``add_seq:631``, ``step:680``,
-``_commit_outputs:1024``, ``_dispatch_reform:1048``,
+``_commit_outputs:1024``, ``_dispatch_reform:1048``, ``_chain_tip:316``,
 ``_ondevice_block_stats:1139``, ``_count_ondevice_finishes:1230``,
 ``_schedule_multi:1475``, ``generate:1894``, ``_finalize:2059``,
 ``abort:2091``; ``RequestOutput:147``).
@@ -20,13 +20,19 @@ many links, a power of two, dispatched as one device program
 (``ModelRunner.step_multi``), and a sync pure-decode batch, or a re-form,
 fuses with the links behind it; under ``ondevice_finish`` a row whose
 token is in its stop set freezes inside the block and the block stops
-once every row has. A block commits link by link. A hybrid model chains
-single steps and never re-forms: its GDN state is cumulative, so a
-discarded step could not be undone. ``docs/overlap_scheduling.md``
-(Chain lifecycle, On-device finish, Ramp policy, Pipelined loop,
-FutureMap, Invariants) is the specification; this is its counterpart
-without persistent slots, speculation, the unified step under overlap,
-dp, disaggregation and fault points.
+once every row has. A block commits link by link. With
+``decode_slot_batching`` chain membership is by slot: a finished row stays
+in the chain as a dead hole, a decode-ready sequence joins a hole at a
+chain boundary, the batch compacts only below its power-of-two sequence
+bucket, and the engine keeps the chain's tip past the entries dispatched
+after it (a ramp yield's prefill batch under ``chain_under_prefill``), so
+the chain carries on off its own tokens. A hybrid model chains single
+steps and never re-forms: its GDN state is cumulative, so a discarded
+step could not be undone. ``docs/overlap_scheduling.md`` (Chain
+lifecycle, Persistent-slot membership, On-device finish, Ramp policy,
+Pipelined loop, FutureMap, Invariants) is the specification; this is its
+counterpart without speculation, the unified step under overlap, dp,
+disaggregation and fault points.
 ``EngineConfig.unified_step`` runs every step through the unified
 attention kernel and ``CacheConfig(kv_cache_dtype="int8")`` keeps an int8
 KV cache. Unless
@@ -46,6 +52,7 @@ import collections
 import dataclasses
 from typing import List, Optional, Sequence as Seq, Union
 
+import numpy as np
 import torch
 
 from gllm_tpu_torch.config import EngineConfig
@@ -56,7 +63,7 @@ from gllm_tpu_torch.runner.prepare import MAX_STOP_IDS
 from gllm_tpu_torch.runner.runner import ModelRunner
 from gllm_tpu_torch.sampling_params import SamplingParams
 from gllm_tpu_torch.scheduler import Scheduler, SeqOutput
-from gllm_tpu_torch.sequence import Sequence
+from gllm_tpu_torch.sequence import HOLE_SEQ_ID, Sequence
 
 
 @dataclasses.dataclass
@@ -130,6 +137,10 @@ class LLM:
         # "waiting" break is counted
         self._chained_under_pressure = 0
         self._yield_noted = False
+        # persistent slots: the (batch, handle) the chain extends off, kept
+        # past entries dispatched after it; None: no chain rooted (the next
+        # sync pure-decode batch roots one)
+        self._chain_tip = None
         self.futures = FutureMap()
         # counters in place of the JAX package's observability: chain
         # breaks and loop stalls by reason, and dispatches by (step kind,
@@ -147,6 +158,18 @@ class LLM:
         self.dead_substeps = 0
         self.row_substeps = 0
         self.ondevice_finishes: collections.Counter = collections.Counter()
+        # persistent slots: sequences that joined a chain through a hole
+        # (counted when dispatched), and the hole row-sub-steps of the
+        # entries committed (left out of the dead share above)
+        self.joins = 0
+        self.hole_substeps = 0
+
+    @property
+    def compactions(self) -> int:
+        """Chains refused because their live rows fell below their
+        sequence bucket (persistent slots; counted among the "shape"
+        chain breaks)."""
+        return self.scheduler.num_compactions
 
     @property
     def eos_token_ids(self) -> frozenset:
@@ -203,13 +226,20 @@ class LLM:
         depth = cfg.overlap_depth if overlap else 1
         cup = cfg.chain_under_prefill if overlap else 0
         multi = cfg.multi_step_decode if overlap else 1
+        slot_mode = overlap and cfg.decode_slot_batching
         ran_dry = False
         while len(self._in_flight) < depth:
             if overlap and self._in_flight:
-                # an invalidated entry is never a tip: its tokens never
-                # commit, so the rebuild roots from committed state
-                last = self._in_flight[-1]
-                tip = None if last.invalid else last.tip
+                if slot_mode:
+                    # the chain's newest entry, which may lie behind
+                    # entries dispatched since (a ramp yield's prefill)
+                    tip = self._chain_tip
+                else:
+                    # an invalidated entry is never a tip: its tokens
+                    # never commit, so the rebuild roots from committed
+                    # state
+                    last = self._in_flight[-1]
+                    tip = None if last.invalid else last.tip
                 pressure = bool(self.scheduler.waiting)
                 if not pressure:
                     self._chained_under_pressure = 0
@@ -234,6 +264,7 @@ class LLM:
                         if cfg.pipelined_loop and self._dispatch_reform(
                                 prev_batch, prev_handle, pressure, multi):
                             continue
+                        self._chain_tip = None
                         self._chained_under_pressure = 0
                         ran_dry = True
                         break
@@ -281,6 +312,9 @@ class LLM:
         if not self._in_flight:
             return []
         entry = self._in_flight.popleft()
+        if not self._in_flight:
+            # drained: the tip is collected; the next chain roots afresh
+            self._chain_tip = None
         block = isinstance(entry.batch, list)
         if entry.invalid:
             # its tokens never commit: the sync path schedules the same
@@ -292,6 +326,7 @@ class LLM:
             return []
         tokens = self.runner.collect(entry.handle)
         if not block:
+            self.hole_substeps += _holes(entry.batch)
             outs = self.scheduler.process_output(
                 entry.batch, tokens.tolist(), self.eos_token_ids)
             return self._commit_outputs(outs)
@@ -309,14 +344,24 @@ class LLM:
         return self._commit_outputs(outs)
 
     def _dispatch(self, entry: InFlight) -> None:
+        """Put ``entry`` in flight and count it; under persistent slots a
+        chained or chain-rooting entry becomes the chain's tip (an entry
+        of mixed steps does not)."""
         self._in_flight.append(entry)
-        if isinstance(entry.batch, list):
-            kind = "block"
+        first = entry.batch
+        if isinstance(first, list):
+            kind, first = "block", first[0]
         else:
+            # a hole row is a one-token row: it leaves the kind as it is
             kind = ("decode" if all(it.num_new_tokens == 1
-                                    for it in entry.batch.items)
+                                    for it in first.items)
                     else "mixed")
         self.dispatches[kind, len(self._in_flight)] += 1
+        self.joins += len(first.host_rows or ())
+        if (self.config.overlap_scheduling
+                and self.config.decode_slot_batching
+                and (entry.chained or entry.roots)):
+            self._chain_tip = entry.tip
 
     # ---- blocks -----------------------------------------------------------
 
@@ -350,14 +395,18 @@ class LLM:
 
     def _block_stats(self, chain, finish) -> None:
         """Count a collected block: by K, its executed sub-steps (the
-        latest finish step: fewer than K when every row finished early)
-        and its dead row-sub-steps."""
+        latest finish step: fewer than K when every row finished early),
+        its dead row-sub-steps among the rows of sequences, and its hole
+        row-sub-steps."""
         finish = finish[:chain[0].num_seqs]
         k_exec = int(finish.max()) if finish.size else 0
+        live = np.array([it.seq.seq_id != HOLE_SEQ_ID
+                         for it in chain[0].items], bool)
         self.blocks[len(chain)] += 1
         self.block_substeps += k_exec
-        self.dead_substeps += int((k_exec - finish).sum())
-        self.row_substeps += k_exec * finish.size
+        self.dead_substeps += int((k_exec - finish[live]).sum())
+        self.row_substeps += k_exec * int(live.sum())
+        self.hole_substeps += k_exec * int((~live).sum())
 
     def _count_ondevice_finishes(self, outs) -> None:
         """Finishes committed out of a block, by the kind the device saw:
@@ -379,6 +428,12 @@ class LLM:
                                  if o.finish_reason is not None)
             if self.futures.reconcile(self._in_flight, finished):
                 self.stalls["rebuild"] += 1
+                # the tip goes only when its own entry was invalidated: a
+                # tip descending from a later valid root carries on
+                if self._chain_tip is not None and any(
+                        e.invalid and e.handle is self._chain_tip[1]
+                        for e in self._in_flight):
+                    self._chain_tip = None
         return outs
 
     def _dispatch_reform(self, prev_batch, prev_handle, pressure: bool,
@@ -473,3 +528,8 @@ class LLM:
 
     def abort(self, seq_id: int) -> None:
         self.scheduler.abort_seq(seq_id)
+
+
+def _holes(batch) -> int:
+    """Hole rows of a batch (persistent slots)."""
+    return sum(it.seq.seq_id == HOLE_SEQ_ID for it in batch.items)

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import dataclasses
 
+from gllm_tpu_torch.sequence import HOLE_SEQ_ID
+
 
 @dataclasses.dataclass
 class InFlight:
@@ -42,7 +44,10 @@ class InFlight:
     @property
     def tip(self):
         """(batch, handle): what the fill loop chains the next step off
-        (a block's last link)."""
+        (a block's last link). Under persistent slots the engine keeps it
+        as its chain tip past later entries (a ramp yield's prefill batch),
+        and the next link splices from this handle's tokens, which no later
+        entry overwrites."""
         batch = self.batch[-1] if isinstance(self.batch, list) else self.batch
         return batch, self.handle
 
@@ -60,12 +65,12 @@ class FutureMap:
     def promised_ids(batch) -> frozenset:
         """The sequences a re-formed batch (a block's first link) assumed
         alive: the rows whose input token is a promise (``src_rows``
-        >= 0)."""
+        >= 0), hole rows never."""
         if batch.src_rows is None:
             return frozenset()
         return frozenset(it.seq.seq_id
                          for it, src in zip(batch.items, batch.src_rows)
-                         if src >= 0)
+                         if src >= 0 and it.seq.seq_id != HOLE_SEQ_ID)
 
     def reconcile(self, in_flight, finished_ids) -> int:
         """Invalidate every in-flight entry whose promises meet

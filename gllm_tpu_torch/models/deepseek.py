@@ -37,6 +37,7 @@ import torch
 from gllm_tpu_torch.batching import StepBatch
 from gllm_tpu_torch.models import dense
 from gllm_tpu_torch.models.config import ModelConfig
+from gllm_tpu_torch.models.dummy import DummyDraws
 from gllm_tpu_torch.models.moe import grouped_experts
 from gllm_tpu_torch.ops.attention import paged_attention
 from gllm_tpu_torch.ops.kv_cache import write_latent
@@ -82,21 +83,14 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
                 device) -> Params:
     """Random weights with the JAX dummy init's scales, drawn from a
     ``torch.Generator`` one matrix at a time in float32 into tensors of
-    ``dtype`` allocated up front: a float32 draw of a whole stacked expert
-    tensor would need twice its final size again (38 GB for V2-Lite's
-    expert gate|up)."""
+    ``dtype`` allocated up front (``models/dummy.py``): a float32 draw of a
+    whole stacked expert tensor would need twice its final size again (38
+    GB for V2-Lite's expert gate|up)."""
     H, Hq = cfg.hidden_size, cfg.num_heads
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     lora, v = cfg.kv_lora_rank, cfg.v_head_dim
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-
-    def w(shape, scale):
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for m in out.view(-1, *shape[-2:]):
-            m.copy_(torch.randn(shape[-2:], generator=gen, device=device,
-                                dtype=torch.float32).mul_(scale))
-        return out
+    draws = DummyDraws(seed, dtype, device)
+    w = draws.normal
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -149,6 +143,7 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
     params["final_norm"] = ones(H)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((H, cfg.vocab_size), scale)
+    draws.draw()
     return params
 
 

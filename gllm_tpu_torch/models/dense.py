@@ -29,6 +29,7 @@ import torch
 
 from gllm_tpu_torch.batching import StepBatch
 from gllm_tpu_torch.models.config import ModelConfig
+from gllm_tpu_torch.models.dummy import DummyDraws
 from gllm_tpu_torch.ops.attention import paged_attention
 from gllm_tpu_torch.ops.kv_cache import write_kv, write_kv_quant
 from gllm_tpu_torch.ops.layers import fused_add_rms_norm, rms_norm, silu_and_mul
@@ -76,16 +77,14 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
                 device) -> Params:
     """Random weights with the JAX dummy init's scales, drawn from a
     ``torch.Generator`` (so they never equal the JAX package's draws;
-    parity tests carry JAX params across with ``models/convert.py``)."""
+    parity tests carry JAX params across with ``models/convert.py``), one
+    float32 draw a tensor through ``models/dummy.py``'s scratch."""
     L, H, D = cfg.num_layers, cfg.hidden_size, cfg.head_dim
     Hq, Hkv, I = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    draws = DummyDraws(seed, dtype, device)
 
     def w(shape, scale):
-        x = torch.randn(shape, generator=gen, device=device,
-                        dtype=torch.float32)
-        return x.mul_(scale).to(dtype)
+        return draws.normal(shape, scale, per_matrix=False)
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -114,6 +113,7 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
                       "final_norm": ones(H)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((H, cfg.vocab_size), scale)
+    draws.draw()
     return params
 
 

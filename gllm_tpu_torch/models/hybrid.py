@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from gllm_tpu_torch.batching import StepBatch
 from gllm_tpu_torch.models import dense, moe
 from gllm_tpu_torch.models.config import ModelConfig
+from gllm_tpu_torch.models.dummy import DummyDraws
 from gllm_tpu_torch.ops.attention import paged_attention
 from gllm_tpu_torch.ops.gdn import (causal_conv1d, chunk_gated_delta_rule,
                                     recurrent_gated_delta_step,
@@ -129,8 +130,8 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
                 device) -> Params:
     """Random weights with the JAX dummy init's scales, drawn from a
     ``torch.Generator`` one matrix at a time in float32 into tensors of
-    ``dtype`` allocated up front (Qwen3-Next's experts are 3.2 GB a layer
-    in bf16)."""
+    ``dtype`` allocated up front (``models/dummy.py``; Qwen3-Next's experts
+    are 3.2 GB a layer in bf16)."""
     H, D = cfg.hidden_size, cfg.head_dim
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
     La, Lg, L = cfg.num_attn_layers, cfg.num_linear_layers, cfg.num_layers
@@ -138,15 +139,8 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
     Dk, Dv = cfg.linear_key_head_dim, cfg.linear_value_head_dim
     K = cfg.linear_conv_kernel_dim
     key_dim, value_dim = Nk * Dk, Nv * Dv
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-
-    def w(shape, scale):
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for m in out.view(-1, *shape[-2:]):
-            m.copy_(torch.randn(shape[-2:], generator=gen, device=device,
-                                dtype=torch.float32).mul_(scale))
-        return out
+    draws = DummyDraws(seed, dtype, device)
+    w = draws.normal
 
     def full(shape, value, dt=dtype):
         return torch.full(shape, value, dtype=dt, device=device)
@@ -191,6 +185,7 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
     params["final_norm"] = full((H,), 1.0)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((H, cfg.vocab_size), s)
+    draws.draw()
     return params
 
 

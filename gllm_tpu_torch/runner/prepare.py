@@ -25,6 +25,7 @@ from gllm_tpu_torch.config import EngineConfig
 from gllm_tpu_torch.ops.attention import AttentionMetadata
 from gllm_tpu_torch.ops.sampling import SamplingMetadata
 from gllm_tpu_torch.scheduler import ScheduledBatch
+from gllm_tpu_torch.sequence import HOLE_SEQ_ID
 from gllm_tpu_torch.utils import bucket_size, cdiv, next_pow2
 
 # the widest per-row stop set (EOS and stop_token_ids) a block under
@@ -102,8 +103,11 @@ class BatchBuilder:
         ``computed_before + k + 2 - prompt_len``, so ``min_tokens`` arms
         the check from sub-step ``min_tokens + prompt_len -
         computed_before - 2``. E is a power of two, at least 8 and at
-        most ``MAX_STOP_IDS``; a wider set raises."""
-        sets = [it.seq.device_stop_ids(eos_token_ids) for it in items]
+        most ``MAX_STOP_IDS``; a wider set raises. A hole row (persistent
+        slots) is dead for the whole block and gives no id, so that a
+        finish never widens E mid-run."""
+        sets = [[] if it.seq.seq_id == HOLE_SEQ_ID
+                else it.seq.device_stop_ids(eos_token_ids) for it in items]
         if not any(sets):
             return None, None
         widest = max(len(ids) for ids in sets)
@@ -127,7 +131,9 @@ class BatchBuilder:
         """Returns (StepBatch of host numpy arrays, max_q_len), at
         ``force_signature`` (T, S, max_q_len, pages) when given: a block
         is built from its first link at its last link's signature, whose
-        page bucket covers the pages of every link."""
+        page bucket covers the pages of every link. A hole row (persistent slots) is
+        built from its sentinel like any row: token 0 at position 0, its
+        KV into the dummy page 0."""
         t_pad, s_pad, max_q, p_pad = (force_signature
                                       or self.shape_signature(batch))
         page = self.page_size
@@ -195,6 +201,7 @@ class BatchBuilder:
         min_p[:K] = [sp.min_p for sp in sps]
 
         if self.use_ssm:
+            # a hole row owns no slot: the dummy slot 0
             pad.ssm_slots[:K] = [it.seq.ssm_slot or 0 for it in items]
         return pad._replace(num_seqs=K,
                             max_seq_q=int(ns.max()) if K else 0), max_q

@@ -76,6 +76,22 @@ GRAPH_POOL_LOGIT_COPIES = 16
 GRAPH_POOL_STATES_PER_ROW = 2
 
 
+def reclaim_driver_memory(device: torch.device) -> None:
+    """Have the CUDA driver hand back the memory it keeps, outside the
+    caching allocator, for the CUDA graphs of engines freed earlier in the
+    process. It gives that memory back only to an allocation that needs
+    it, so this asks for the card's whole memory once; the request is
+    refused. On the H100 the driver kept 1.4 GiB after four
+    DeepSeek-V2-Lite engines with graphs were freed, which the next
+    engine's KV pool could not be sized from
+    (``tools/engine_memory_cycle.py``; PERF.md, C 1)."""
+    total = torch.cuda.mem_get_info(device)[1]
+    try:
+        torch.empty(total, dtype=torch.uint8, device=device)
+    except torch.OutOfMemoryError:
+        pass
+
+
 class StepHandle(NamedTuple):
     """A dispatched step's sampled tokens: ``tokens``, the handle's own
     copy on the device (what a chained step splices from; never a graph's
@@ -144,6 +160,9 @@ class ModelRunner:
         # the engine's EOS ids, which a block under on-device finish
         # detects (set by the engine)
         self.eos_token_ids = frozenset()
+        # the device memory the KV pool was sized from (None when the
+        # config gives the page count)
+        self.sizing = None
         self.num_pages = (config.cache.num_pages
                           or self.determine_num_pages())
         slots = ({"num_slots": 1 + self.ssm_working_slots} if self.hybrid
@@ -218,10 +237,19 @@ class ModelRunner:
         pools."""
         if self.device.type != "cuda":
             return 2048               # CPU: modest default
-        # blocks the caching allocator holds unused (the weight init's
-        # temporaries) count as free
+        # blocks the caching allocator holds unused count as free, and so
+        # does the memory the CUDA driver keeps for the graphs of engines
+        # freed earlier in the process
         torch.cuda.empty_cache()
+        reclaim_driver_memory(self.device)
         free, total = torch.cuda.mem_get_info(self.device)
+        # what the pool is sized from: the allocator's reserved bytes
+        # beyond its allocated ones are free space stranded in segments
+        # that still hold a tensor, which the KV pool cannot take
+        self.sizing = dict(
+            free=free, total=total,
+            reserved=torch.cuda.memory_reserved(self.device),
+            allocated=torch.cuda.memory_allocated(self.device))
         budget = (total * self.config.cache.memory_util - (total - free)
                   - self.activation_headroom())
         if self.hybrid:
@@ -257,8 +285,8 @@ class ModelRunner:
                     force_signature=None):
         """(host StepBatch, max_q_len, signature's max_q_len): built on the
         host (at ``force_signature`` when given) with the int8 cache's
-        pending scale resets, the hybrid model's slots to zero and a
-        re-formed batch's splice map. A pure-decode batch gets max_q_len 1
+        pending scale resets, the hybrid model's slots to zero and the
+        splice map of a re-formed batch or of a chain with joins. A pure-decode batch gets max_q_len 1
         in both loops: under the unified step it tells the kernel the
         batch has no other rows (its signature keeps JAX's q == t)."""
         host_batch, sig_q = self.builder.build(sched_batch, force_signature)
@@ -267,6 +295,14 @@ class ModelRunner:
             dst = [j for j, r in enumerate(sched_batch.src_rows) if r >= 0]
             src = [r for r in sched_batch.src_rows if r >= 0]
             host_batch = host_batch._replace(splice=dst + src)
+        elif sched_batch.host_rows:
+            # a chain with joins (persistent slots): the rows that did not
+            # join take the previous entry's token of the same row; the
+            # joined rows keep the host's (JAX's ``host_row_mask``)
+            joined = set(sched_batch.host_rows)
+            rows = [j for j in range(sched_batch.num_seqs)
+                    if j not in joined]
+            host_batch = host_batch._replace(splice=rows + rows)
         mm = None if self._warming else self.memory_manager
         if self.kv_quant and mm is not None:
             host_batch = host_batch._replace(
@@ -324,7 +360,8 @@ class ModelRunner:
     def step_async_chained(self, sched_batch: ScheduledBatch,
                            prev: StepHandle) -> StepHandle:
         """Dispatch a pure-decode step whose input tokens are ``prev``'s
-        sampled tokens on the device: row i's for a chained step, row
+        sampled tokens on the device: row i's for a chained step (but the
+        ``host_rows`` that joined it, whose token is the host's), row
         ``src_rows[i]``'s for a re-formed batch (-1: the host's token)."""
         if sched_batch.src_rows is None:
             assert len(prev.last) == sched_batch.num_seqs
@@ -378,13 +415,15 @@ class ModelRunner:
         """Write ``prev``'s sampled tokens into the staged token view,
         after its upload and before the step reads it: one copy for a
         chained step (row to row), a gather and a scatter over the staged
-        splice map for a re-formed batch (JAX's ``_splice_chain_tokens``
-        and ``_splice_mapped_tokens``)."""
-        if sched_batch.src_rows is None:
-            batch.token_ids[:sched_batch.num_seqs].copy_(prev.last)
-        elif batch.splice is not None:
+        splice map for a re-formed batch or a chain with joins, whose
+        joined rows keep the host's tokens (JAX's ``_splice_chain_tokens``
+        and ``_splice_mapped_tokens``). No splice map there: every row's
+        token is the host's."""
+        if batch.splice is not None:
             dst, src = batch.splice
             batch.token_ids[dst] = prev.last[src]
+        elif sched_batch.src_rows is None and not sched_batch.host_rows:
+            batch.token_ids[:sched_batch.num_seqs].copy_(prev.last)
 
     @torch.inference_mode()
     def step_multi(self, chain, prev: Optional[StepHandle] = None

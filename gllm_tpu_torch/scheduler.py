@@ -29,9 +29,13 @@
   an entry the engine invalidates). A sequence that finishes while a step
   of it is still in flight keeps its pages and SSM slot until the last
   one lands (``_deferred_free``).
+- persistent slots (``decode_slot_batching``): a chain keeps a finished
+  row as a dead hole (the shared ``make_hole_seq`` sentinel), seats
+  decode-ready sequences in its holes at a chain boundary (``host_rows``:
+  their input token is the host's) and compacts only when its live rows
+  fall below its power-of-two sequence bucket.
 
-The JAX scheduler's persistent slots (holes, joins),
-mixed re-forms, speculative drafting, SSM snapshots
+The JAX scheduler's mixed re-forms, speculative drafting, SSM snapshots
 (``_ssm_align_chunk``), host KV tier, spans and metrics belong to options
 this port does not implement yet, and are not copied.
 """
@@ -44,8 +48,9 @@ from typing import Deque, List, Optional, Tuple
 
 from gllm_tpu_torch.config import EngineConfig
 from gllm_tpu_torch.memory_manager import MemoryManager
-from gllm_tpu_torch.sequence import Sequence, SequenceStatus
-from gllm_tpu_torch.utils import cdiv
+from gllm_tpu_torch.sequence import (HOLE_SEQ_ID, Sequence, SequenceStatus,
+                                     make_hole_seq)
+from gllm_tpu_torch.utils import bucket_size, cdiv
 
 
 @dataclasses.dataclass
@@ -70,8 +75,14 @@ class ScheduledBatch:
     # the block freezes there (position held, KV writes to the dummy
     # page) and its later tokens are dropped. None: every item alive in
     # every link. Under on-device finish an upper bound: a sampled EOS or
-    # stop token lowers the device's count inside the block
+    # stop token lowers the device's count inside the block. A hole row
+    # (persistent slots) has 0: dead for the whole block
     active_until: Optional[List[int]] = None
+    # the first link of a chain under persistent slots: the rows whose
+    # input token is the host's, sequences that joined the chain through a
+    # hole at this boundary (every other row takes the previous entry's
+    # token of the same row on the device). None: no join
+    host_rows: Optional[List[int]] = None
     # a re-formed batch (schedule_reform): per item, the row of the
     # previous entry's on-device sampled tokens that is its input token,
     # or -1 when the host knows it (a sequence joining the batch). None:
@@ -123,10 +134,18 @@ class Scheduler:
         self._decode_offset = 0
         self.num_preemptions = 0
         # why the last schedule_chain / schedule_reform refused (None after
-        # one that succeeded): finish / shape / pages, resp. shape / pages
-        # / pp_budget
+        # one that succeeded): finish / shape / pages / waiting, resp. shape
+        # / pages / pp_budget
         self.chain_break_reason: Optional[str] = None
         self.reform_fail_reason: Optional[str] = None
+        # persistent slots: the dead sequence behind every hole row, the
+        # sequence buckets' cap (the batch builder's), and the chains
+        # refused because their live rows fell below their bucket
+        self._hole_seq = make_hole_seq()
+        self._seq_bucket_cap = min(config.max_num_seqs,
+                                   self.sched_cfg.max_decode_seqs
+                                   + self.sched_cfg.max_prefill_tokens)
+        self.num_compactions = 0
 
     # ---- intake -----------------------------------------------------------
 
@@ -325,32 +344,52 @@ class Scheduler:
                        include_prev: bool = False) -> List[ScheduledBatch]:
         """Up to ``k_max`` chained pure-decode steps (links) of every row
         of ``prev``, scheduled before ``prev``'s sampled tokens reach the
-        host (JAX's ``schedule_chain:617`` without persistent slots and
-        speculation): pages, positions and slots follow from token counts
-        alone, and the runner carries each row's input token on the
-        device. One link is a chained step; more are one block
-        (``ModelRunner.step_multi``).
+        host (JAX's ``schedule_chain:617`` without speculation): pages,
+        positions and slots follow from token counts alone, and the runner
+        carries each row's input token on the device. One link is a
+        chained step; more are one block (``ModelRunner.step_multi``).
 
         Every row must be a RUNNING, not aborted sequence whose chunk
-        reaches the end of its known tokens, and none may die by length
-        the moment ``prev`` lands. A row that dies by length inside the
-        block runs through it dead (``active_until`` on the first link:
-        frozen position, KV writes to the dummy page, later tokens
-        dropped by ``process_output``). The page need of the whole chain
-        is checked read-only, link by link, before any allocation; the
-        feasible length is then cut to a power of two (with
-        ``include_prev``, ``prev`` itself is the block's first step, so
-        ``1 +`` the links is). Returns [] (the reason in
-        ``chain_break_reason``) when no link is feasible; the caller then
-        takes the sync path."""
+        reaches the end of its known tokens, and, in the legacy
+        membership, none may die by length the moment ``prev`` lands. A
+        row that dies by length inside the block runs through it dead
+        (``active_until`` on the first link: frozen position, KV writes to
+        the dummy page, later tokens dropped by ``process_output``).
+
+        Under ``decode_slot_batching`` membership is by slot: a finished
+        row becomes a hole (``active_until`` 0; a row dying the moment
+        ``prev`` lands is dead the same way), decode-ready sequences join
+        the holes (``host_rows``; ``_join_ready_into_holes``), and the
+        chain breaks only when ready sequences cannot be seated
+        ("waiting"), when no row is live or can take a link, or when the
+        live rows fall below the batch's power-of-two sequence bucket
+        (compaction, "shape": the re-formed batch lands on a smaller
+        signature).
+
+        The page need of the whole chain is checked read-only, link by
+        link, before any allocation; the feasible length is then cut to a
+        power of two (with ``include_prev``, ``prev`` itself is the
+        block's first step, so ``1 +`` the links is). Returns [] (the
+        reason in ``chain_break_reason``) when no link is feasible; the
+        caller then takes the sync path."""
         self.chain_break_reason = None
+        slots = self.config.decode_slot_batching
         base: List[Tuple[Sequence, int]] = []
-        for it in prev.items:
+        hole_rows: List[int] = []
+        for i, it in enumerate(prev.items):
             seq = it.seq
-            # a finish committed while this row was in flight, an abort
-            # or a preemption: the sync path re-forms the batch
+            if slots and seq.status is SequenceStatus.FINISHED:
+                # the row keeps its slot, dead; the finished sequence's
+                # pages go by the deferred free as before
+                base.append((self._hole_seq, 0))
+                hole_rows.append(i)
+                continue
+            # a finish committed while this row was in flight (legacy
+            # membership), a preemption: the sync path re-forms the batch
             if seq.status is not SequenceStatus.RUNNING:
                 return self._chain_fail("finish")
+            # an abort: its pages are reaped on the sync pass, in either
+            # membership ("finish" stays 0 under slots)
             if seq.seq_id in self._aborted_ids:
                 return self._chain_fail("shape")
             # a mid-prompt chunk samples nothing to chain off; a chunk
@@ -358,15 +397,32 @@ class Scheduler:
             if it.computed_before + it.num_new_tokens < seq.num_tokens:
                 return self._chain_fail("shape")
             base.append((seq, it.computed_before + it.num_new_tokens))
+        host_rows: List[int] = []
+        if slots:
+            host_rows = self._join_ready_into_holes(base, hole_rows)
+            if self.chain_break_reason is not None:
+                return []         # ready sequences the holes cannot seat
+            live = sum(seq.seq_id != HOLE_SEQ_ID for seq, _ in base)
+            if not live:
+                return self._chain_fail("shape")      # nothing left
+            cap = self._seq_bucket_cap
+            if bucket_size(live, 8, cap) < bucket_size(len(base), 8, cap):
+                # compaction: the sync path re-forms the live rows into
+                # the smaller bucket's (already captured) signature
+                self.num_compactions += 1
+                return self._chain_fail("shape")
         # per row, the links it takes: link j processes token cn0 + j,
         # which exists while the sequence is under its max_tokens and the
-        # model length
-        deaths = [min(seq.sampling_params.max_tokens + seq.prompt_len
+        # model length; a hole takes none
+        deaths = [0 if seq.seq_id == HOLE_SEQ_ID else
+                  min(seq.sampling_params.max_tokens + seq.prompt_len
                       - cn0 - 1, self.config.max_model_len - cn0)
                   for seq, cn0 in base]
-        if min(deaths) < 1:
+        if not slots and min(deaths) < 1:
             # a row dies the moment prev lands
             return self._chain_fail("finish")
+        if max(deaths) < 1:
+            return self._chain_fail("shape")       # no row takes a link
         page = self.mm.page_size
         feasible = 0
         while feasible < min(k_max, max(deaths)):
@@ -390,7 +446,8 @@ class Scheduler:
         chain: List[ScheduledBatch] = []
         for j in range(k):
             # a dead link freezes computed_before at the death position,
-            # so the next chain off this block fails the gate above
+            # so the next chain off this block fails the gate above (or,
+            # under slots, finds the row finished: a hole)
             items = [ScheduledSeq(seq, 1, cn0 + min(j, d))
                      for (seq, cn0), d in zip(base, deaths)]
             for (seq, cn0), d in zip(base, deaths):
@@ -402,8 +459,41 @@ class Scheduler:
                 seq.num_in_flight += 1
             chain.append(ScheduledBatch(items))
         if any(d < k for d in deaths):
-            chain[0].active_until = [min(d, k) for d in deaths]
+            # a row whose death has passed (a hole; under slots also one
+            # that dies by length the moment prev lands) is alive in none
+            chain[0].active_until = [max(0, min(d, k)) for d in deaths]
+        chain[0].host_rows = host_rows or None
         return chain
+
+    def _join_ready_into_holes(self, base: List[Tuple[Sequence, int]],
+                               hole_rows: List[int]) -> List[int]:
+        """Seat decode-ready running sequences in the chain's holes
+        (JAX's ``_join_ready_into_holes:855``), in place in ``base``; the
+        rows filled, whose input token is the host's (their last sampled
+        token has landed), are returned for ``host_rows``. When ready
+        sequences outnumber the holes, the batch must grow past its
+        signature: ``chain_break_reason`` "waiting", and the caller
+        re-forms a larger batch, unless the batch is already at the
+        decode budget, where a re-form could not seat them either (they
+        wait, as under the legacy rotation). The options that keep a
+        sequence out of a fused chain in JAX (penalties, logit_bias,
+        logprobs, stop strings) are refused by this port's
+        ``SamplingParams.validate``, so every ready sequence may join."""
+        in_chain = {seq.seq_id for seq, _ in base}
+        ready = [s for s in self.running
+                 if s.num_remaining_tokens == 1 and not s.num_in_flight
+                 and s.seq_id not in in_chain
+                 and s.seq_id not in self._aborted_ids]
+        if not ready:
+            return []
+        joins = list(zip(hole_rows, ready))
+        if (len(joins) < len(ready)
+                and len(base) < self.sched_cfg.max_decode_seqs):
+            self.chain_break_reason = "waiting"
+            return []
+        for row, seq in joins:
+            base[row] = (seq, seq.num_computed_tokens)
+        return [row for row, _ in joins]
 
     def _chain_fail(self, reason: str) -> list:
         self.chain_break_reason = reason
@@ -429,7 +519,7 @@ class Scheduler:
         for i, it in enumerate(prev.items):
             seq = it.seq
             if seq.status is SequenceStatus.FINISHED:
-                continue
+                continue                     # a finish, or a hole: drops
             if seq.status is not SequenceStatus.RUNNING:
                 return self._reform_fail("shape")      # preempted
             if seq.seq_id in self._aborted_ids:
@@ -479,7 +569,8 @@ class Scheduler:
         tokens or advancing computed counts, so the sync path schedules
         the same positions again. Pages allocated toward the promised
         frontier stay on the table; a finished sequence's deferred free
-        fires once its last entry drains."""
+        fires once its last entry drains (the hole sentinel's count falls
+        with its rows')."""
         for b in (batch if isinstance(batch, list) else [batch]):
             for it in b.items:
                 seq = it.seq
@@ -505,7 +596,9 @@ class Scheduler:
             seq.num_in_flight -= 1
             if seq.status is not SequenceStatus.RUNNING:
                 # finished at an earlier step while this one was in
-                # flight: its pages go once the last such step lands
+                # flight: its pages go once the last such step lands (a
+                # hole row: its token is dropped, its count falls as it
+                # rose)
                 self._free_if_drained(seq)
                 continue
             if seq.seq_id in self._aborted_ids:

@@ -23,6 +23,31 @@ class SequenceStatus(enum.Enum):
     ABORTED = enum.auto()
 
 
+# seq_id of the hole rows of persistent-slot decode batches
+# (``Scheduler.schedule_chain`` under ``decode_slot_batching``): a finished
+# sequence's row stays in its chain, dead, so that the chain's shape
+# signature survives the finish; its position is frozen, its KV writes go
+# to the dummy page and its sampled tokens are dropped
+HOLE_SEQ_ID = -1
+
+
+def make_hole_seq() -> "Sequence":
+    """The dead sequence behind every hole row (JAX's ``make_hole_seq``,
+    ``gllm_tpu/sequence.py:38-55``). One is shared by all the hole rows of
+    a scheduler: the batch builder reads only its constants (token 0,
+    position 0, page table [0], the dummy page; no SSM slot, so a hybrid
+    model's dummy slot 0), its ``num_in_flight`` rises and falls with the
+    links it rides, and it is never running or waiting and owns no page.
+    It ignores EOS, so that it adds no id to a block's stop sets."""
+    seq = Sequence(HOLE_SEQ_ID, [0], SamplingParams(
+        temperature=0.0, max_tokens=1, ignore_eos=True))
+    seq.status = SequenceStatus.FINISHED
+    # past its prompt: a hole row counts as a decode row
+    seq.num_computed_tokens = 1
+    seq.page_table = [0]
+    return seq
+
+
 class Sequence:
     def __init__(
         self,

@@ -2199,6 +2199,217 @@ def test_second_engine_gets_the_first_engines_pages(cuda_device):
     assert second >= first - (64 << 20) // per_page, pages
 
 
+# ---- dummy weights and memory across engines ---------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_matrix", [True, False])
+def test_dummy_draws_equal_per_unit_draws_on_card(cuda_device, per_matrix):
+    """``DummyDraws`` (one float32 scratch for every draw) gives the values
+    of a float32 draw per unit from the same generator, scaled and cast."""
+    from gllm_tpu_torch.models.dummy import DummyDraws
+    draws = DummyDraws(7, torch.bfloat16, cuda_device)
+    shapes = [((3, 64, 96), 0.5), ((1000, 33), 2.0), ((2, 5, 8, 16), 1.0)]
+    got = [draws.normal(shape, scale, per_matrix) for shape, scale in shapes]
+    draws.draw()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+    for (shape, scale), out in zip(shapes, got):
+        units = ([shape[-2:]] * (int(np.prod(shape)) // (shape[-2]
+                                                          * shape[-1]))
+                 if per_matrix else [shape])
+        want = torch.cat([torch.randn(u, generator=gen, device=cuda_device,
+                                      dtype=torch.float32).mul_(scale)
+                          .to(torch.bfloat16).flatten() for u in units])
+        assert torch.equal(out.flatten(), want)
+
+
+@pytest.mark.cuda
+def test_hybrid_engine_gets_its_pages_back_after_a_deepseek_multi_engine(
+        cuda_device):
+    """A hybrid engine sized from free memory, freed; then a DeepSeek engine
+    with blocks under on-device finish and persistent slots built, warmed,
+    serving a stop-token workload (finishes inside blocks) and freed; then
+    the hybrid engine again: it sizes its KV pool from the same memory,
+    within 0.05 GiB's worth of pages (nothing the multi engine made stays
+    held)."""
+    import gc
+    import gllm_tpu_torch as gt
+
+    def hybrid_pages():
+        llm = _hybrid_engine(cuda_device, dtype="bfloat16")
+        llm.config.cache.num_pages = None
+        runner = llm.runner
+        pages = runner.determine_num_pages(), runner.kv_bytes_per_page()
+        del llm, runner
+        gc.collect()
+        torch.cuda.empty_cache()
+        return pages
+    first, per_page = hybrid_pages()
+    ds = _deepseek_engine(cuda_device, dtype="bfloat16",
+                          **SLOT_LOOPS["deepseek"], **SLOT_FLAGS)
+    ds.runner.warmup(decode_buckets=(8, 16), page_buckets=(4, 8))
+    prompts, sps = _greedy_workload()
+    stops = _organic_stops(ds, prompts)
+    ds.generate(prompt_token_ids=prompts, sampling_params=[
+        gt.SamplingParams(temperature=0.0, max_tokens=24,
+                          stop_token_ids=[t]) for t in stops])
+    assert sum(ds.blocks.values()) > 0 and ds.ondevice_finishes["stop"] > 0
+    _drained(ds)
+    del ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    second, _ = hybrid_pages()
+    assert second >= first - (1 << 30) * 0.05 // per_page, (first, second)
+
+
+# ---- persistent slots (holes, joins at chain boundaries) --------------------
+
+SLOT_FLAGS = dict(decode_slot_batching=True, chain_under_prefill=8)
+# the multi twin's loop for the dense and MLA models, the overlap twin's
+# for the hybrid model (which never fuses)
+SLOT_LOOPS = {"dense": dict(pipelined_loop=True, ondevice_finish=True),
+              "deepseek": dict(pipelined_loop=True, ondevice_finish=True),
+              "hybrid": dict(pipelined_loop=True)}
+# three deep with blocks of up to 8: a late arrival joins a hole
+JOIN_FLAGS = dict(overlap_scheduling=True, multi_step_decode=8,
+                  overlap_depth=3, **SLOT_FLAGS)
+
+
+def _serve_late_join(llm):
+    """Four requests, one finishing after three tokens (a hole), and a late
+    one added once it has finished, which joins the hole
+    (tests/test_slot_batching.py:118): their greedy streams."""
+    import gllm_tpu_torch as gt
+    rng = np.random.default_rng(7)
+    seqs = [llm._allocate_seq(rng.integers(1, 1000, n).tolist(),
+                              gt.SamplingParams(temperature=0.0,
+                                                max_tokens=m,
+                                                ignore_eos=True))
+            for n, m in zip((8, 9, 10, 5, 6), (40, 40, 40, 3, 10))]
+    for s in seqs[:4]:
+        llm.add_seq(s)
+    added = False
+    while llm.has_unfinished or not added:
+        llm.step()
+        if not added and seqs[3].finish_reason is not None:
+            llm.add_seq(seqs[4])
+            added = True
+    return [s.output_token_ids for s in seqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("family", ["dense", "deepseek", "hybrid"])
+def test_slot_streams_equal_their_batches_replayed_on_card(cuda_device,
+                                                           family, warm):
+    """bf16 engines on the same weights under persistent slots: the slot
+    engine's greedy streams are those of its own batches (hole rows dead
+    in their places) run one at a time through the sync engine
+    (chip_smoke's ``replay_in_sync``); finished rows rode on as holes, no
+    finish broke a chain, and pages and slots all come back. Cold: no
+    ``warmup()``."""
+    import chip_smoke
+    make = GRAPH_MAKERS[family]
+    sync = make(cuda_device, dtype="bfloat16")
+    llm = make(cuda_device, params=sync.runner.params, dtype="bfloat16",
+               **SLOT_LOOPS[family], **SLOT_FLAGS)
+    if warm:
+        llm.runner.warmup()
+    schedule = chip_smoke.record_schedule(llm)
+    got = _serve_greedy(llm)
+    prompts, sps = _greedy_workload()
+    chip_smoke.replay_in_sync("card test", "slot", sync, schedule, prompts,
+                              sps, got)
+    assert llm.hole_substeps > 0 and llm.chain_breaks["finish"] == 0
+    assert bool(llm.blocks) == (family != "hybrid")
+    assert llm.scheduler._hole_seq.num_in_flight == 0
+    _drained(llm)
+    _counters_zero(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "deepseek", "hybrid"])
+def test_slot_dispatch_with_joins_makes_no_host_sync(cuda_device, family):
+    """Once the workload's graphs are captured (a first run), the chained
+    dispatches of a slot engine, those with a join among them (the joined
+    row's token spliced from the host, the others' from the device),
+    raise nothing under ``set_sync_debug_mode("error")``; the streams are
+    the sync loop's."""
+    make = GRAPH_MAKERS[family]
+    sync = make(cuda_device, dtype="bfloat16")
+    llm = make(cuda_device, params=sync.runner.params, dtype="bfloat16",
+               **JOIN_FLAGS)
+    want = _serve_late_join(sync)
+    assert _serve_late_join(llm) == want
+    runner, calls = llm.runner, []
+
+    def strict(fn):
+        def run(batch, prev=None, **kw):
+            calls.append(batch[0] if isinstance(batch, list) else batch)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(batch, prev, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+    runner.step_async_chained = strict(runner.step_async_chained)
+    runner.step_multi = strict(runner.step_multi)
+    assert _serve_late_join(llm) == want
+    assert any(b.host_rows for b in calls), "no sequence joined a hole"
+    _drained(llm)
+
+
+# K2 at D 64 and 256 and K2m over each cache they take (no int8 at D 256
+# or over a latent)
+HOLE_CASES = [(family, kind) for family in ("gqa", "gqa_d256", "mla")
+              for kind in DECODE_KINDS
+              if family == "gqa" or DECODE_KINDS[kind][1] != "int8"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,kind", HOLE_CASES)
+def test_decode_kernels_take_hole_rows(cuda_device, family, kind):
+    """K2 (D 64 and 256) and K2m against their plain versions on a batch
+    whose rows include hole rows of a persistent-slot chain (context one
+    token in the dummy page 0, which holds finite data as serving leaves
+    it; the page-table row all zeros) beside long contexts that split,
+    an empty padding row and a one-page row."""
+    qdtype, cache = DECODE_KINDS[kind]
+    page = 16
+    Hq, Hkv, D, v_dim = {"gqa": (8, 2, 64, None),
+                         "gqa_d256": (8, 2, 256, None),
+                         "mla": (16, 1, 576, 512)}[family]
+    lens = [1, 3000, 1, 17, 0, 1, 900, 1]
+    holes = [0, 2, 5, 7]
+    rng = np.random.default_rng(33)
+    num_pages = 1 + sum(-(-k // page) for k in lens)
+    q, kc, vc, kvl, pt = decode_case(rng, lens, Hq, Hkv, D, page, num_pages)
+    pt[holes] = 0
+    chunk, n = _plan(cuda_device, qdtype, cache, len(lens), Hq, Hkv, D, page,
+                     pt.shape[1], v_dim)
+    assert n > 1
+    q = torch.from_numpy(q).to(cuda_device, qdtype)
+    kvl, pt = (torch.from_numpy(a).to(cuda_device) for a in (kvl, pt))
+    kw = dict(scale=D ** -0.5)
+    if cache == "int8":
+        k8, v8, ks, vs = int8_cache(rng, kc, vc)
+        caches = [torch.from_numpy(a).to(cuda_device) for a in (k8, v8)]
+        kw.update(k_scale=torch.from_numpy(ks).to(cuda_device),
+                  v_scale=torch.from_numpy(vs).to(cuda_device))
+    else:
+        dtype = FP8 if cache == "fp8" else qdtype
+        caches = [torch.from_numpy(a).to(cuda_device).to(dtype)
+                  for a in (kc, vc)]
+    if v_dim:
+        caches[1] = None
+        kw["v_dim"] = v_dim
+    out = tdec.paged_decode_attention(q, *caches, kvl, pt, **kw)
+    want = tdec.paged_decode_attention_plain(q, *caches, kvl, pt, **kw)
+    _check(out, want, qdtype)
+    assert (out[4] == 0).all()                       # the padding row
+    _counters_zero(cuda_device)
+
+
 @pytest.mark.cuda
 def test_capture_error_raises_with_no_eager_rerun(cuda_device):
     """A decode body that syncs with the host (``.item()``) runs in the

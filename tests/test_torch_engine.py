@@ -263,8 +263,7 @@ def test_no_device_means_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("spec_fused", True), ("prefix_peers", "x"),
-    ("decode_slot_batching", True), ("spec_decode", "ngram"),
+    ("spec_fused", True), ("prefix_peers", "x"), ("spec_decode", "ngram"),
     ("quantization", "int8"),
     ("kv_cache_dtype", "float32"), ("tp", 2), ("pp", 2), ("dp", 2),
     ("sp", 2), ("kv_host_pool_gb", 1.0), ("kv_disk_path", "/x"),
@@ -290,6 +289,19 @@ def test_validate_refuses_unported_options(field, value):
         cfg.validate()           # the option alone is taken
     with pytest.raises(NotImplementedError):
         cfg.validate(model)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(overlap_scheduling=True), dict(pipelined_loop=True),
+    dict(overlap_scheduling=True, multi_step_decode=8),
+    dict(overlap_scheduling=True, enforce_eager=True), dict()])
+def test_validate_takes_decode_slot_batching(kwargs):
+    """Persistent slots are ported: taken with every overlap mode, and
+    without overlap (where, as in JAX, they do nothing); enforce_eager
+    clears them, as JAX's validate does."""
+    cfg = gt.EngineConfig(decode_slot_batching=True, **kwargs)
+    cfg.validate()
+    assert cfg.decode_slot_batching == (not kwargs.get("enforce_eager"))
 
 
 def test_validate_takes_int8_kv_and_the_unified_sync_step():

@@ -169,3 +169,24 @@ def test_forward_and_logits_match_jax(variant):
     np.testing.assert_allclose(kv.v.numpy(), np.asarray(jkv.v), rtol=1e-4,
                                atol=1e-4)
     assert not np.array_equal(kv.k.numpy(), k0)      # written in place
+
+
+@pytest.mark.parametrize("per_matrix", [True, False])
+def test_dummy_draws_equal_per_unit_draws(per_matrix):
+    """The dummy init's one float32 scratch (``models/dummy.py``) gives
+    the values of a float32 draw per unit from the same generator, scaled
+    and cast: the weights of every seed are those the init drew before."""
+    from gllm_tpu_torch.models.dummy import DummyDraws
+    draws = DummyDraws(7, torch.bfloat16, "cpu")
+    shapes = [((3, 64, 96), 0.5), ((1000, 33), 2.0), ((2, 5, 8, 16), 1.0)]
+    got = [draws.normal(shape, scale, per_matrix) for shape, scale in shapes]
+    draws.draw()
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    for (shape, scale), out in zip(shapes, got):
+        units = ([shape[-2:]] * (int(np.prod(shape)) // (shape[-2]
+                                                          * shape[-1]))
+                 if per_matrix else [shape])
+        want = torch.cat([torch.randn(u, generator=gen).mul_(scale)
+                          .to(torch.bfloat16).flatten() for u in units])
+        assert torch.equal(out.flatten(), want)

@@ -63,23 +63,25 @@ def _params():
 
 
 def _engine(jax_side, *, num_pages=256, max_model_len=128, max_prefill=32,
-            eos=(), kv="auto", **flags):
-    """The JAX LLM or the port's on the same float32 weights, eight
+            eos=(), kv="auto", max_seqs=8, **flags):
+    """The JAX LLM or the port's on the same float32 weights, ``max_seqs``
     sequences a batch, 4-token pages, a ``kv`` cache dtype."""
     jparams, tparams = _params()
     if jax_side:
         llm = JLLM(config=JEC(
             dtype="float32", attention_impl="xla",
-            max_model_len=max_model_len, max_num_seqs=8,
-            scheduler=JSC(max_prefill_tokens=max_prefill, max_decode_seqs=8),
+            max_model_len=max_model_len, max_num_seqs=max_seqs,
+            scheduler=JSC(max_prefill_tokens=max_prefill,
+                          max_decode_seqs=max_seqs),
             cache=JCC(page_size=4, num_pages=num_pages,
                       kv_cache_dtype=kv), **flags),
             model_cfg=JMC(**MODEL), params=jparams)
     else:
         llm = gt.LLM(config=gt.EngineConfig(
-            dtype="float32", max_model_len=max_model_len, max_num_seqs=8,
+            dtype="float32", max_model_len=max_model_len,
+            max_num_seqs=max_seqs,
             scheduler=gt.SchedulerConfig(max_prefill_tokens=max_prefill,
-                                         max_decode_seqs=8),
+                                         max_decode_seqs=max_seqs),
             cache=gt.CacheConfig(page_size=4, num_pages=num_pages,
                                  kv_cache_dtype=kv), **flags),
             model_cfg=gt.ModelConfig(**MODEL), params=tparams, device="cpu")
@@ -424,10 +426,11 @@ def test_host_staging_ring_waits_before_refilling_a_slot():
 
 
 def test_validate_normalizes_as_jax():
-    """``enforce_eager`` clears what the JAX package's clears,
-    ``pipelined_loop`` implies ``overlap_scheduling``, ``overlap_depth``
-    must be at least 1, the chain length resolves as the JAX package's,
-    and the unported chain options raise by name."""
+    """``enforce_eager`` clears what the JAX package's clears (persistent
+    slots among them), ``pipelined_loop`` implies ``overlap_scheduling``,
+    ``overlap_depth`` must be at least 1, the chain length resolves as the
+    JAX package's, ``decode_slot_batching`` is taken as there, and the
+    unified step under overlap raises by name."""
     for kw in (dict(enforce_eager=True, overlap_scheduling=True,
                     pipelined_loop=True, chain_under_prefill=3),
                dict(pipelined_loop=True, overlap_depth=3),
@@ -451,9 +454,15 @@ def test_validate_normalizes_as_jax():
         for f in ("multi_step_decode", "decode_chain_len",
                   "ondevice_finish"):
             assert getattr(cfg, f) == getattr(jcfg, f), (kw, f)
-    for kw, name in ((dict(decode_slot_batching=True),
-                      "decode_slot_batching"),
-                     (dict(unified_step=True, pipelined_loop=True),
-                      "unified_step with overlap_scheduling")):
-        with pytest.raises(NotImplementedError, match=name):
-            gt.EngineConfig(overlap_scheduling=True, **kw).validate()
+    # persistent slots are taken (and, as in JAX, kept without overlap,
+    # where they do nothing); the unified step under overlap still raises
+    for kw in (dict(overlap_scheduling=True, decode_slot_batching=True),
+               dict(decode_slot_batching=True)):
+        cfg, jcfg = gt.EngineConfig(**kw), JEC(**kw)
+        cfg.validate()
+        jcfg.validate()
+        assert cfg.decode_slot_batching == jcfg.decode_slot_batching
+    with pytest.raises(NotImplementedError,
+                       match="unified_step with overlap_scheduling"):
+        gt.EngineConfig(overlap_scheduling=True, unified_step=True,
+                        pipelined_loop=True).validate()
