@@ -34,10 +34,11 @@ non-zero exit code and no result line:
              hybrid mixed step's layout (K1's
              lengths padded to [27 rows, 1024], 32 heads, Dk = Dv = 128,
              chunks of 64), with the GDN layer's peak memory at that shape;
-             K2 (D 64 over each cache, D 256) and K2m (over each latent)
-             also on the decode batch with every fourth row a hole row of
-             a persistent-slot chain (context one token in the dummy page
-             0), at the same tolerances
+             K2 (D 64 over each cache, D 256), K2m (over each latent) and
+             the decode classes of K1u (over a bf16 and an fp8 cache) and
+             K1um (over each latent) also on the decode batch with every
+             fourth row a hole row of a persistent-slot chain (context one
+             token in the dummy page 0), at the same tolerances
 4. serve     LLM.generate at the full Llama-3.2-1B width (dummy bf16
              weights from a seed) for 16 greedy requests, in six
              configurations: the bf16 sync loop, an int8 KV cache, the
@@ -93,7 +94,21 @@ non-zero exit code and no result line:
              run, breaks by reason (none for a finish), its streams held
              to its own batches replayed (hole rows dead in their
              places); the DeepSeek slot twin serves the stop-token run
-             too. Every twin has 2048 KV pages and must not preempt, and
+             too. The unified Llama and DeepSeek configurations serve an
+             absorb twin (the unified step under overlap: the slot twin's
+             flags without chain_under_prefill, a chain absorbing waiting
+             prefill through mixed re-forms), runs eager, graph, absorb,
+             absorb, graph, eager: the same numbers as the slot twin's,
+             absorbs and mixed entries dispatched ahead a run, no
+             "waiting" break, its streams held to its own batches
+             replayed through the unified sync engine. The bf16 and
+             unified Llama configurations then serve the staggered-arrival
+             run (the 16 requests, 4 at start and 2 more each time
+             another 64 output tokens commit) by the sync graph engine
+             and the slot or absorb twin, runs graph, twin, twin, graph:
+             medians and ratio, sub-steps, breaks by reason and absorbs a
+             run, the twin's batches replayed; the absorb twin must absorb
+             there. Every twin has 2048 KV pages and must not preempt, and
              one that does not fit beside the primary engine raises by
              name. Each engine's construction logs the memory it was
              sized from (free, and stranded in partly used segments) and
@@ -115,7 +130,9 @@ non-zero exit code and no result line:
              eager, overlap, multi and slot twins: host launch calls per
              decoded
              sub-step beside per dispatch), unified-int8, DeepSeek (both steps)
-             and Qwen3-Next configurations: device time by kernel, busy
+             and Qwen3-Next configurations, and of the unified Llama
+             graph engine and absorb twin under staggered arrivals (2 at
+             start, 2 more each 16 output tokens): device time by kernel, busy
              share, kernels per step, host launch calls per dispatched
              decode entry, the dispatches' share of the wall by kind and
              the share spent waiting in collect
@@ -217,6 +234,8 @@ FP8_TWINS = {
     "ragged_paged_attention_mla_fp8": "ragged_paged_attention_mla",
     "ragged_paged_attention_unified_mla_fp8":
         "ragged_paged_attention_unified_mla",
+    "ragged_paged_attention_unified_mla_fp8_decode":
+        "ragged_paged_attention_unified_mla_decode",
     "paged_decode_attention_d256_fp8": "paged_decode_attention_d256",
     "ragged_paged_attention_d256_fp8": "ragged_paged_attention_d256"}
 TOL.update({name: TOL[twin] for name, twin in FP8_TWINS.items()})
@@ -294,6 +313,11 @@ KERNELS = {
         "mla_ragged_attention.cu",
         PALLAS + "ragged_attention.py:429 (v_cache=None, fp8 latent)"),
     "ragged_paged_attention_unified_mla_fp8": (
+        "ragged_paged_attention_unified_mla_fp8", "deepseek_unified_fp8",
+        "mla_unified_attention.cu",
+        PALLAS + "ragged_attention.py:429 (unified=True, v_cache=None, fp8 "
+        "latent)"),
+    "ragged_paged_attention_unified_mla_fp8_decode": (
         "ragged_paged_attention_unified_mla_fp8", "deepseek_unified_fp8",
         "mla_unified_attention.cu",
         PALLAS + "ragged_attention.py:429 (unified=True, v_cache=None, fp8 "
@@ -804,6 +828,17 @@ def phase_kernels():
             f" (decode_only, as the runner's decode steps call it), "
             f"{shapes}, {cache} cache",
             library_call=lib_call + LIB_NOTE[cache])
+        # the decode class as a block's sub-steps call it, hole rows among
+        # the rows (the unified step under overlap with slots)
+        results[name]["hole_rows"] = hole_check(
+            name,
+            lambda lens, table, kc=kc, vc=vc: rag.ragged_paged_attention(
+                q, kc, vc, cu, lens, table, scale=scale, unified=True,
+                decode_only=True),
+            lambda lens, table, kc=kc, vc=vc:
+                rag.ragged_paged_attention_plain(
+                    q, kc, vc, cu, lens, table, scale=scale, unified=True),
+            kvl, pt)
     del x, kd, vd, caches
 
     # ---- mixed shape: K1 and K1u over each cache
@@ -945,8 +980,8 @@ def mla_kernels(dev):
     """K2m, K1m and K1um at DeepSeek-V2-Lite's latent geometry (16 query
     heads over one [c_kv | k_pe] row of 576, values its leading 512, its
     softmax scale) on K2's decode and K1's mixed batch lengths: K2m and
-    K1um (one-token rows) on the decode batch, K1m and K1um on the mixed
-    one, each over a bf16 latent and (but K1um's decode rows) an fp8 one."""
+    K1um (one-token rows) on the decode batch, also with hole rows, K1m
+    and K1um on the mixed one, each over a bf16 and an fp8 latent."""
     from gllm_tpu_torch.ops.cuda import decode_attention as dec
     from gllm_tpu_torch.ops.cuda import ragged_attention as rag
     from gllm_tpu_torch.ops.rope import yarn_softmax_scale_mult
@@ -975,7 +1010,8 @@ def mla_kernels(dev):
     for name, cache, unified in (
             ("paged_decode_attention_mla", "bf16", False),
             ("paged_decode_attention_mla_fp8", "fp8", False),
-            ("ragged_paged_attention_unified_mla_decode", "bf16", True)):
+            ("ragged_paged_attention_unified_mla_decode", "bf16", True),
+            ("ragged_paged_attention_unified_mla_fp8_decode", "fp8", True)):
         lat = lats[cache]
         kd = _dense_kv(lat.to(torch.bfloat16), lat.to(torch.bfloat16), pt,
                        kv, page)[0]
@@ -984,16 +1020,16 @@ def mla_kernels(dev):
         nbytes = (ctx * Dl * lat.element_size() + S * Hq * (Dl + lora) * 2
                   + S * 4 + pages * 4 + ((S + 1) * 4 if unified else 0))
         if unified:
-            def run(fn, lens, lat=lat):
+            def run(fn, lens, lat=lat, table=pt):
                 hint = ({"decode_only": True}
                         if fn is rag.ragged_paged_attention else {})
-                return fn(q, lat, None, cu, lens, pt, unified=True, **kw,
+                return fn(q, lat, None, cu, lens, table, unified=True, **kw,
                           **hint)
             kernel, plain = rag.ragged_paged_attention, \
                 rag.ragged_paged_attention_plain
         else:
-            def run(fn, lens, lat=lat):
-                return fn(q, lat, None, lens, pt, **kw)
+            def run(fn, lens, lat=lat, table=pt):
+                return fn(q, lat, None, lens, table, **kw)
             kernel, plain = dec.paged_decode_attention, \
                 dec.paged_decode_attention_plain
         results[name] = measure(
@@ -1005,13 +1041,9 @@ def mla_kernels(dev):
                      "(decode_only), " if unified else "") + shapes
                     + f", {cache} latent"),
             library_call=lib_call + LIB_NOTE[cache])
-        if not unified:
-            results[name]["hole_rows"] = hole_check(
-                name,
-                lambda lens, table, lat=lat: dec.paged_decode_attention(
-                    q, lat, None, lens, table, **kw),
-                lambda lens, table, lat=lat: dec.paged_decode_attention_plain(
-                    q, lat, None, lens, table, **kw), kvl, pt)
+        results[name]["hole_rows"] = hole_check(
+            name, lambda lens, table: run(kernel, lens, table=table),
+            lambda lens, table: run(plain, lens, table=table), kvl, pt)
         del kd
     del x, lats
 
@@ -1487,6 +1519,23 @@ PROFILE_SLOT = ("bf16",)
 SLOT_FLAGS = dict(decode_slot_batching=True, chain_under_prefill=16)
 SLOT = dict(MULTI, **SLOT_FLAGS)
 SLOT_HYBRID = dict(OVERLAP, **SLOT_FLAGS)
+# configurations that also serve an absorb twin: the unified step under
+# overlap, the slot twin's flags with the configuration's unified_step
+# (chain_under_prefill, which the unified step retires, left out): a chain
+# with prefill work waiting absorbs it through a mixed re-form instead of
+# yielding. The runs go eager, graph, absorb, absorb, graph, eager, its
+# second run held to its own batches replayed through the unified sync
+# engine
+ABSORB_TWINS = ("unified", "deepseek_unified")
+ABSORB = {k: v for k, v in SLOT.items() if k != "chain_under_prefill"}
+# the staggered-arrival run: the configuration's sync graph engine and its
+# slot or absorb twin serve the 16 requests arriving as output commits
+# (STAGGER_FIRST at start, then STAGGER_MORE each time another
+# STAGGER_EVERY output tokens have committed), runs graph, twin, twin,
+# graph; the absorb twin's profiled window takes its arrivals the same way
+STAGGERED = ("bf16", "unified")
+STAGGER_FIRST, STAGGER_EVERY, STAGGER_MORE = 4, 64, 2
+PROFILE_ABSORB = ("unified",)
 # a twin's KV pool: the workload's 16 requests hold at most 899 pages of
 # 16 tokens at once (a block's look-ahead adds one a row), so no twin
 # preempts (each asserts it; the primary engine holds the memory the pool
@@ -1632,17 +1681,23 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     prompts = [rng.integers(1, vocab, int(n)).tolist() for n in lens]
     params = [SamplingParams(temperature=0.0, max_tokens=int(m),
                              ignore_eos=True) for m in max_tokens]
-    multi = slot = None
+    multi = slot = absorb = None
     if name in MULTI_TWINS:
         multi = block_twin(name, "multi", llm, kv_dtype, kw, MULTI)
     if name in SLOT_TWINS:
         slot = block_twin(name, "slot", llm, kv_dtype, kw,
                           SLOT_HYBRID if llm.runner.hybrid else SLOT)
+    if name in ABSORB_TWINS:
+        absorb = block_twin(name, "absorb", llm, kv_dtype, kw, ABSORB)
+        assert absorb.unified and absorb.config.pipelined_loop, \
+            f"[serve {name}] the absorb twin is not a unified overlap engine"
     if multi and slot:
         order = [eager, llm, over, multi, slot, slot, multi, over, llm,
                  eager]
     elif slot:
         order = [eager, llm, over, slot, slot, over, llm, eager]
+    elif absorb:
+        order = [eager, llm, absorb, absorb, llm, eager]
     elif over:
         order = [eager, llm, over, over, llm, eager]
     elif eager:
@@ -1650,12 +1705,13 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     else:
         order = [llm] * runs
     modes = {id(llm): "graph", id(eager): "eager", id(over): "overlap",
-             id(multi): "multi", id(slot): "slot"}
+             id(multi): "multi", id(slot): "slot", id(absorb): "absorb"}
     log(f"[serve {name}] 16 requests, prompts {lens.min()}..{lens.max()} "
         f"(sum {lens.sum()}), max_tokens {max_tokens.min()}..."
         f"{max_tokens.max()}, runs "
         + ", ".join(modes[id(e)] for e in order))
-    engines = [e for e in (llm, eager, over, multi, slot) if e is not None]
+    engines = [e for e in (llm, eager, over, multi, slot, absorb)
+               if e is not None]
     steps0 = [dict(e.step_counts) for e in engines]
     blocks0 = [dict(e.runner.block_counts) for e in engines]
     replays0 = [e.runner.graphs.replays if e.runner.graphs else 0
@@ -1663,17 +1719,17 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     sigs0 = llm.runner.num_shape_signatures
     if over:
         over_dispatches0 = over.dispatches.copy()
-    twins0 = {id(e): twin_counts(e) for e in (multi, slot) if e}
+    twins0 = {id(e): twin_counts(e) for e in (multi, slot, absorb) if e}
     reset_counters()
     rates = {"graph": [], "eager": [], "overlap": [], "multi": [],
-             "slot": []}
+             "slot": [], "absorb": []}
     streams = {}
     schedules = {}
     for rep, e in enumerate(order):
         mode = modes[id(e)]
-        recording = e in (over, multi, slot) and mode in streams
+        recording = e in (over, multi, slot, absorb) and mode in streams
         if recording:
-            # the second overlap (multi, slot) run records what it
+            # the second overlap (multi, slot, absorb) run records what it
             # dispatches
             schedules[mode] = record_schedule(e)
         torch.cuda.synchronize()
@@ -1738,13 +1794,16 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     overlap = None
     if over:
         overlap = check_overlap(name, over, rates, streams, over_dispatches0)
-    multi_out = slot_out = None
+    multi_out = slot_out = absorb_out = None
     if multi:
         multi_out = check_multi(name, multi, "multi", rates, streams,
                                 twins0[id(multi)])
     if slot:
         slot_out = check_multi(name, slot, "slot", rates, streams,
                                twins0[id(slot)])
+    if absorb:
+        absorb_out = check_multi(name, absorb, "absorb", rates, streams,
+                                 twins0[id(absorb)])
     assert launched == {k for ks in by_kind.values() for k in ks}, \
         f"[serve {name}] launched {launched}, expected {by_kind}"
     # every layer of every step of a kind launched that kind's kernels
@@ -1768,6 +1827,11 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     for mode, schedule in schedules.items():
         replay_in_sync(name, mode, llm, schedule, prompts, params,
                        streams[mode])
+    staggered = None
+    if name in STAGGERED:
+        staggered = staggered_runs(name, llm, slot or absorb,
+                                   "slot" if slot else "absorb", prompts,
+                                   params)
     if name == STOP_RUN:
         # the eager and overlap twins are done (their windows are bf16's);
         # their pages and pools make room for the stop-token run's graphs
@@ -1790,17 +1854,28 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
             prof["multi"] = profile_window(multi, name + " multi")
         if slot and name in PROFILE_SLOT:
             prof["slot"] = profile_window(slot, name + " slot")
+    if absorb and name in PROFILE_ABSORB:
+        # staggered arrivals: an absorb twin sees mixed re-forms only when
+        # requests arrive while its chains run; the sync graph engine
+        # under the same arrivals beside it
+        prof["graph_staggered"] = profile_window(
+            llm, name + " graph, staggered", staggered=True)
+        prof["absorb"] = profile_window(absorb, name + " absorb, staggered",
+                                        staggered=True)
     out = dict(counts=counts, rates=rates["graph"],
                eager_rates=rates["eager"], overlap_rates=rates["overlap"],
                multi_rates=rates["multi"], slot_rates=rates["slot"],
-               overlap=overlap, multi=multi_out, slot=slot_out,
+               absorb_rates=rates["absorb"], overlap=overlap,
+               multi=multi_out, slot=slot_out, absorb=absorb_out,
+               staggered=staggered,
                pages=llm.runner.num_pages,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                graphs=llm.runner.num_shape_signatures, warm_s=warm_s,
                capture_s=graphs.capture_seconds, pool_mib=pool_mib,
                profile=prof)
     weights = llm.runner.params
-    del llm, eager, over, multi, slot, engines, graphs, order, e, modes
+    del llm, eager, over, multi, slot, absorb, engines, graphs, order, e
+    del modes
     gc.collect()
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
@@ -2017,7 +2092,8 @@ def twin_counts(e):
                 substeps=e.block_substeps, dead=e.dead_substeps,
                 rows=e.row_substeps, chain_breaks=e.chain_breaks.copy(),
                 stalls=e.stalls.copy(), joins=e.joins,
-                holes=e.hole_substeps, compactions=e.compactions)
+                holes=e.hole_substeps, compactions=e.compactions,
+                absorbs=e.absorbs)
 
 
 def check_multi(name, twin, mode, rates, streams, before):
@@ -2051,6 +2127,9 @@ def check_multi(name, twin, mode, rates, streams, before):
     substeps = twin.block_substeps - before["substeps"]
     dead = twin.dead_substeps - before["dead"]
     breaks = dict(twin.chain_breaks - before["chain_breaks"])
+    absorbs = twin.absorbs - before["absorbs"]
+    mixed_ahead = sum(n for (kind, d), n in dispatches.items()
+                      if kind == "mixed" and d >= 2)
     ratios = {other: med / median(rates[other])
               for other in ("graph", "overlap", "multi")
               if other != mode and rates[other]}
@@ -2066,7 +2145,9 @@ def check_multi(name, twin, mode, rates, streams, before):
                joins_a_run=(twin.joins - before["joins"]) / runs,
                holes_a_run=(twin.hole_substeps - before["holes"]) / runs,
                compactions_a_run=(twin.compactions
-                                  - before["compactions"]) / runs)
+                                  - before["compactions"]) / runs,
+               absorbs_a_run=absorbs / runs,
+               mixed_ahead_a_run=mixed_ahead / runs)
     log(f"[serve {name}] {mode} median {med:.1f} output tok/s: "
         + ", ".join(f"{r:.3f}x the {other} median"
                     for other, r in ratios.items())
@@ -2078,8 +2159,11 @@ def check_multi(name, twin, mode, rates, streams, before):
         f"{dead} ({100 * out['dead_share']:.1f}% of the sequences' rows); "
         f"joins {out['joins_a_run']:.1f}, hole row-sub-steps "
         f"{out['holes_a_run']:.1f}, compactions "
-        f"{out['compactions_a_run']:.1f} a run; chain breaks {breaks} "
-        f"({runs} runs); stalls {out['stalls']}; rebuilds {out['rebuilds']}")
+        f"{out['compactions_a_run']:.1f} a run; absorbs (mixed re-forms) "
+        f"{out['absorbs_a_run']:.1f} and mixed entries dispatched with "
+        f"another in flight {out['mixed_ahead_a_run']:.1f} a run; chain "
+        f"breaks {breaks} ({runs} runs); stalls {out['stalls']}; rebuilds "
+        f"{out['rebuilds']}")
     g = twin.runner.graphs
     log(f"[serve {name}] {mode} twin after its runs: {len(g)} graphs "
         f"({sum(k[0] == 'block' for k in g.keys)} blocks, keys by K "
@@ -2093,6 +2177,9 @@ def check_multi(name, twin, mode, rates, streams, before):
             f"[serve {name}] {mode}: a finish broke a chain: {breaks}"
         assert twin.scheduler._hole_seq.num_in_flight == 0, \
             f"[serve {name}] {mode}: a hole row left in flight"
+    if twin.unified:
+        assert not breaks.get("waiting"), \
+            f"[serve {name}] {mode}: a chain broke with 'waiting': {breaks}"
     mm = twin.memory_manager
     assert not twin._in_flight, "an entry was left in flight"
     assert mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
@@ -2195,6 +2282,104 @@ def stop_token_run(name, llm, twin, mode, prompts, graph_streams):
     return out
 
 
+def staggered_generate(llm, prompts, params, first=STAGGER_FIRST,
+                       every=STAGGER_EVERY, more=STAGGER_MORE):
+    """Serve ``prompts`` with arrivals keyed to committed output tokens,
+    not to loop iterations, so that every engine sees them at the same
+    points of the output: ``first`` requests at start, then ``more`` each
+    time another ``every`` output tokens have committed (the next ones at
+    once when the engine runs dry). Returns the requests' streams."""
+    seqs = [llm._allocate_seq(list(p), dataclasses.replace(sp))
+            for p, sp in zip(prompts, params)]
+    added, due = 0, every
+
+    def add(n):
+        nonlocal added
+        for s in seqs[added:added + n]:
+            llm.add_seq(s)
+        added = min(len(seqs), added + n)
+    add(first)
+    while llm.has_unfinished or added < len(seqs):
+        if not llm.has_unfinished:
+            add(more)
+        llm.step()
+        done = sum(s.num_output_tokens for s in seqs[:added])
+        while added < len(seqs) and done >= due:
+            add(more)
+            due += every
+    return [s.output_token_ids for s in seqs]
+
+
+def staggered_runs(name, llm, twin, mode, prompts, params):
+    """The staggered-arrival run (``staggered_generate``) by the sync graph
+    engine and ``twin`` (the slot or the absorb twin), in the order graph,
+    twin, twin, graph: each engine's two runs must give the same streams,
+    every request exactly its max_tokens, the twin's second run its own
+    batches replayed; prints and returns the medians and their ratio, and
+    the twin's decoded sub-steps, breaks by reason and absorbs a run."""
+    rates = {"graph": [], mode: []}
+    streams = {}
+    before = twin_counts(twin)
+    steps0 = dict(llm.step_counts)
+    schedule = None
+    for e in (llm, twin, twin, llm):
+        m = "graph" if e is llm else mode
+        if e is twin and m in streams:
+            schedule = record_schedule(twin)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        toks = staggered_generate(e, prompts, params)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if schedule is not None and e is twin:
+            del e.runner.step_async, e.runner.step_multi
+            del e.scheduler.discard_batch
+        n_out = sum(len(t) for t in toks)
+        rates[m].append(n_out / wall)
+        log(f"[serve {name}] staggered run ({m}): {n_out} tokens in "
+            f"{wall:.3f} s = {n_out / wall:.1f} output tok/s")
+        assert [len(t) for t in toks] == [sp.max_tokens for sp in params]
+        assert streams.setdefault(m, toks) == toks, \
+            f"[serve {name}] two staggered {m} runs gave different streams"
+    sync_steps = {k: (llm.step_counts[k] - steps0[k]) / 2 for k in steps0}
+    replay_in_sync(name, f"{mode} (staggered)", llm, schedule, prompts,
+                   params, streams[mode])
+    d = twin.dispatches - before["dispatches"]
+    breaks = dict(twin.chain_breaks - before["chain_breaks"])
+    out = dict(sync_steps_a_run=sync_steps,
+        ratio=median(rates[mode]) / median(rates["graph"]),
+        graph_rates=rates["graph"], rates=rates[mode],
+        same_as_sync=streams[mode] == streams["graph"],
+        substeps_a_run=(sum(n for (k, _), n in d.items() if k == "decode")
+                        + twin.block_substeps - before["substeps"]) / 2,
+        dispatches_a_run={k: n / 2 for k, n in sorted(d.items())},
+        chain_breaks=breaks, absorbs_a_run=(twin.absorbs
+                                            - before["absorbs"]) / 2,
+        joins_a_run=(twin.joins - before["joins"]) / 2,
+        stalls=dict(twin.stalls - before["stalls"]))
+    log(f"[serve {name}] staggered arrivals ({STAGGER_FIRST} at start, "
+        f"{STAGGER_MORE} more each {STAGGER_EVERY} output tokens): {mode} "
+        f"median {median(rates[mode]):.1f}, sync graph median "
+        f"{median(rates['graph']):.1f} output tok/s ({out['ratio']:.3f}x);"
+        f" sync graph steps a run {sync_steps};"
+        f" {mode} a run: {out['substeps_a_run']:.1f} decoded sub-steps, "
+        f"absorbs {out['absorbs_a_run']:.1f}, joins {out['joins_a_run']:.1f}"
+        f"; dispatches by (kind, in flight) a run "
+        f"{out['dispatches_a_run']}; chain breaks {breaks} (2 runs); stalls"
+        f" {out['stalls']}; streams "
+        + ("identical to the sync engine's" if out["same_as_sync"] else
+           "part from the sync engine's (other batches)"))
+    if twin.unified:
+        assert out["absorbs_a_run"] > 0, \
+            f"[serve {name}] the staggered run absorbed nothing"
+        assert not breaks.get("waiting"), \
+            f"[serve {name}] a chain broke with 'waiting': {breaks}"
+    mm = twin.memory_manager
+    assert not twin._in_flight and \
+        mm.num_free_pages == mm.allocator.num_total, "KV pages leaked"
+    return out
+
+
 def phase_serve():
     results = {}
     names = list(SERVE)
@@ -2220,12 +2405,12 @@ def phase_serve():
             f"({ratio:.3f}x)")
         assert ratio >= 1.9, f"{fp8} should give about 2x the pages of {twin}"
     log("[serve] summary: config, graph tok/s runs, eager tok/s runs, "
-        "overlap tok/s runs, multi tok/s runs, slot tok/s runs, graphs, "
-        "warmup s, capture s, pool MiB, KV pages")
+        "overlap tok/s runs, multi tok/s runs, slot tok/s runs, absorb "
+        "tok/s runs, graphs, warmup s, capture s, pool MiB, KV pages")
     for name, r in results.items():
         log(f"[serve] {name}: {r['rates']} {r['eager_rates']} "
             f"{r['overlap_rates']} {r['multi_rates']} {r['slot_rates']} "
-            f"{r['graphs']} "
+            f"{r['absorb_rates']} {r['graphs']} "
             f"{r['warm_s']:.3f} {r['capture_s']:.3f} {r['pool_mib']:.1f} "
             f"{r['pages']}")
     return results
@@ -2238,11 +2423,14 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cudaMemcpy", "cudaMemsetAsync")
 
 
-def profile_window(llm, name):
+def profile_window(llm, name, staggered=False):
     """Where a serving step's time goes: torch.profiler over a short
     window (8 requests of 512 prompt tokens, 24 greedy tokens each, the
-    same prompts for every engine, run once unprofiled first so that no
-    graph is captured inside it): device time by kernel, the device's
+    same prompts for every engine, all at once or, ``staggered``, 2 at
+    start and 2 more each time another 16 output tokens commit; run once
+    unprofiled first so that no graph is captured inside it): mixed
+    entries dispatched with another in flight, device time by kernel, the
+    device's
     busy share of the wall, kernels per step, host calls that launch work
     per dispatched decode entry (each dispatch marked with a
     record_function range), the dispatches' share of the wall by kind and
@@ -2255,10 +2443,18 @@ def profile_window(llm, name):
     prompts = [rng.integers(1, llm.model_cfg.vocab_size, 512).tolist()
                for _ in range(8)]
     sp = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+
+    def serve_window():
+        if staggered:
+            staggered_generate(llm, prompts, [sp] * len(prompts), first=2,
+                               every=16, more=2)
+        else:
+            llm.generate(prompt_token_ids=prompts, sampling_params=sp)
     # a pass before the profiled one: the window's decode signatures are
     # captured there, not inside the window
-    llm.generate(prompt_token_ids=prompts, sampling_params=sp)
+    serve_window()
     steps0 = dict(llm.step_counts)
+    dispatches0 = llm.dispatches.copy()
     substeps0 = llm.runner.block_counts["substeps"]
     runner = llm.runner
     step_async, step_multi = runner.step_async, runner.step_multi
@@ -2283,7 +2479,7 @@ def profile_window(llm, name):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
-            llm.generate(prompt_token_ids=prompts, sampling_params=sp)
+            serve_window()
             torch.cuda.synchronize()
             wall_us = (time.monotonic() - t0) * 1e6
     finally:
@@ -2291,6 +2487,9 @@ def profile_window(llm, name):
     steps = {k: llm.step_counts[k] - steps0[k] for k in steps0}
     # a block's executed sub-steps are decode steps too
     steps["substeps"] = runner.block_counts["substeps"] - substeps0
+    mixed_ahead = sum(n for (kind, d), n in (llm.dispatches
+                                             - dispatches0).items()
+                      if kind == "mixed" and d >= 2)
     tag = f"[profile {name}]"
     # kernels only: a CPU op's device time repeats its kernels' times, and
     # so does the device side of the record_function ranges
@@ -2299,7 +2498,9 @@ def profile_window(llm, name):
                    if e.device_type == DeviceType.CUDA
                    and not e.key.startswith("gllm_")), reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"{tag} 8 x (512 prompt + 24 out) tokens, steps {steps}: wall "
+    log(f"{tag} 8 x (512 prompt + 24 out) tokens"
+        + (", staggered" if staggered else "") + f", steps {steps} "
+        f"({mixed_ahead} mixed dispatched with another in flight): wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"({100 * busy / wall_us:.1f}% of wall); kernels by device time:")
     for dev_us, count, key in rows[:12]:
@@ -2351,7 +2552,8 @@ def profile_window(llm, name):
                 busy_share=busy / wall_us, kernels_per_step=kernels_per_step,
                 launches_per_decode_step=launches,
                 launches_per_substep=per_sub, share=share,
-                host_share=host_us / wall_us, steps=steps)
+                host_share=host_us / wall_us, steps=steps,
+                mixed_ahead=mixed_ahead)
 
 
 # ---- 5. reference --------------------------------------------------------

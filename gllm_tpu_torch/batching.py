@@ -36,11 +36,14 @@ class StepBatch(NamedTuple):
     # int32 on the device; None when there are none)
     ssm_slots: object = None
     ssm_zero: object = None
-    # a re-formed batch (pipelined loop), or a chain that sequences joined
-    # (persistent slots): the rows whose input token is spliced from the
-    # previous entry's sampled tokens, then the rows of those tokens they
-    # take (a list of 2k ints on the host, [2, k] int32 on the device;
-    # None when no row is spliced by map)
+    # a re-formed batch (pipelined loop; mixed under the unified step), or
+    # a chain that sequences joined (persistent slots): the flat token
+    # offsets whose input token is spliced from the previous entry's
+    # sampled tokens (a promised row's one token; after a mixed re-form's
+    # decode rows, which come first, its prefill chunks keep the host's
+    # tokens), then the rows of those tokens they take (a list of 2k ints
+    # on the host, [2, k] int32 on the device; None when no row is
+    # spliced by map)
     splice: object = None
     # the first link of a block (runner step_multi): per row, the
     # sub-steps in which it is alive ([S] int32; padded and hole rows 0);

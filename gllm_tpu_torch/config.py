@@ -7,7 +7,9 @@ then ignores it, except where the JAX package's ``validate`` does the same
 (``enforce_eager`` clears overlap scheduling and the options built on it,
 with a warning; ``ondevice_finish`` or ``decode_chain_len`` without
 overlap scheduling forms no block, with a warning, and
-``decode_slot_batching`` without it does nothing).
+``decode_slot_batching`` without it does nothing; ``chain_under_prefill``
+under ``unified_step`` is zeroed, with a warning; and ``unified_step`` on
+a hybrid model is taken and left inert, with the engine's warning).
 """
 
 from __future__ import annotations
@@ -102,8 +104,10 @@ class EngineConfig:
     # overlap_scheduling)
     pipelined_loop: bool = False
     # every paged step through the one unified attention kernel (K1u; K1um
-    # over an MLA latent cache); sync loop only: with overlap_scheduling it
-    # is refused
+    # over an MLA latent cache); under overlap_scheduling a chain absorbs
+    # waiting prefill work through mixed re-forms (it lifts pipelined_loop
+    # and retires chain_under_prefill). Inert on a hybrid model, as in
+    # the JAX package: legacy kernels, signatures and step kinds there
     unified_step: bool = False
     # persistent-slot chain membership under overlap scheduling: a finished
     # row stays in its chain as a dead hole, a decode-ready sequence joins
@@ -141,14 +145,17 @@ class EngineConfig:
         """Raise on options this port does not implement; with
         ``model_cfg``, also on a model it does not serve and on options the
         model's family does not take (an MLA latent cache takes no int8
-        cache; a hybrid model neither, nor the unified step, nor prefix
-        caching). First it normalizes the options as the JAX package's
-        ``validate`` does (``gllm_tpu/config.py:353-397``):
-        ``enforce_eager`` clears overlap scheduling and the options built
-        on it, ``pipelined_loop`` implies ``overlap_scheduling``, and the
-        chain length resolves as there (``:441-462``): ``decode_chain_len``
-        wins over ``multi_step_decode``, and ``ondevice_finish`` under
-        overlap lifts an unset one to 16."""
+        cache; a hybrid model neither, nor prefix caching; it takes the
+        unified step and leaves it inert). First it normalizes the options
+        as the JAX package's ``validate`` does
+        (``gllm_tpu/config.py:353-397``): ``enforce_eager`` clears overlap
+        scheduling and the options built on it, ``pipelined_loop`` implies
+        ``overlap_scheduling``, ``unified_step`` under overlap lifts
+        ``pipelined_loop`` and zeroes ``chain_under_prefill`` (a chain
+        absorbs prefill work instead of yielding to it), and the chain
+        length resolves as there (``:441-462``): ``decode_chain_len`` wins
+        over ``multi_step_decode``, and ``ondevice_finish`` under overlap
+        lifts an unset one to 16."""
         if model_cfg is not None:
             model_cfg.check_supported()
         if self.enforce_eager:
@@ -168,6 +175,17 @@ class EngineConfig:
             self.spec_fused = False
         if self.pipelined_loop:
             self.overlap_scheduling = True
+        if self.unified_step:
+            if self.overlap_scheduling:
+                # absorbing a prefill chunk into a running chain is a
+                # mixed re-form: the pipelined loop's machinery
+                self.pipelined_loop = True
+            if self.chain_under_prefill:
+                logger.warning(
+                    "chain_under_prefill is deprecated and ignored under "
+                    "unified_step: mixed re-formed batches absorb prefill "
+                    "chunks, chains never yield")
+                self.chain_under_prefill = 0
         if self.chain_under_prefill < 0:
             raise ValueError("chain_under_prefill must be >= 0")
         if self.overlap_depth < 1:
@@ -191,9 +209,6 @@ class EngineConfig:
         p = self.parallel
         if p.pp != 1 or p.tp != 1 or p.dp != 1 or p.sp != 1 or p.enable_ep:
             unported.append("pp/tp/dp/sp > 1 (one device only)")
-        if self.unified_step and self.overlap_scheduling:
-            unported.append("unified_step with overlap_scheduling (the "
-                            "unified step runs the sync loop)")
         c = self.cache
         if c.kv_cache_dtype not in ("auto", "int8", "fp8", self.dtype):
             # the attention kernels take q and a full-precision cache in
@@ -208,13 +223,11 @@ class EngineConfig:
             unported.append("kv_cache_dtype='int8' with an MLA latent cache")
         if model_cfg is not None and model_cfg.use_hybrid:
             # hybrid GDN: the JAX runner refuses int8 (runner.py:549-552)
-            # and leaves unified_step inert (:297-303); prefix caching
-            # needs the SSM snapshot slots and the scheduler's chunk
-            # alignment, not ported yet
+            # (unified_step stays inert, :297-303: the runner and the
+            # engine resolve it); prefix caching needs the SSM snapshot
+            # slots and the scheduler's chunk alignment, not ported yet
             if c.kv_cache_dtype == "int8":
                 unported.append("kv_cache_dtype='int8' with a hybrid model")
-            if self.unified_step:
-                unported.append("unified_step with a hybrid model")
             if c.enable_prefix_caching:
                 unported.append("enable_prefix_caching with a hybrid model "
                                 "(SSM snapshots)")

@@ -1,9 +1,10 @@
 """Offline LLM engine (counterpart of ``gllm_tpu/engine/llm.py``:
 ``LLM.__init__:167``, ``add_seq:631``, ``step:680``,
 ``_commit_outputs:1024``, ``_dispatch_reform:1048``, ``_chain_tip:316``,
-``_ondevice_block_stats:1139``, ``_count_ondevice_finishes:1230``,
-``_schedule_multi:1475``, ``generate:1894``, ``_finalize:2059``,
-``abort:2091``; ``RequestOutput:147``).
+``unified:349``, ``_ondevice_block_stats:1139``,
+``_count_ondevice_finishes:1230``, ``_schedule_multi:1475``,
+``generate:1894``, ``_finalize:2059``, ``abort:2091``;
+``RequestOutput:147``).
 
 The single-device loop: schedule a batch, dispatch its step, collect the
 oldest entry in flight and commit its sampled tokens. Without
@@ -28,14 +29,21 @@ bucket, and the engine keeps the chain's tip past the entries dispatched
 after it (a ramp yield's prefill batch under ``chain_under_prefill``), so
 the chain carries on off its own tokens. A hybrid model chains single
 steps and never re-forms: its GDN state is cumulative, so a discarded
-step could not be undone. ``docs/overlap_scheduling.md`` (Chain
-lifecycle, Persistent-slot membership, On-device finish, Ramp policy,
-Pipelined loop, FutureMap, Invariants) is the specification; this is its
-counterpart without speculation, the unified step under overlap, dp,
-disaggregation and fault points.
-``EngineConfig.unified_step`` runs every step through the unified
-attention kernel and ``CacheConfig(kv_cache_dtype="int8")`` keeps an int8
-KV cache. Unless
+step could not be undone. ``EngineConfig.unified_step`` runs every step
+through the unified attention kernel; under overlap scheduling a chain
+with prefill work waiting no longer yields to it: the next dispatch is a
+mixed re-form (``Scheduler.schedule_reform(prev, allow_prefill=True)``)
+that carries the chain's promised decode rows, their tokens spliced on
+the device, next to prefill chunks whose tokens the host knows, and the
+chain goes on off it (``absorbs`` counts them; the ``waiting`` break
+retires, and becomes ``reform`` where slots cannot seat ready
+sequences). On a hybrid model the flag is inert, with a warning, as in
+the JAX engine. ``docs/overlap_scheduling.md`` (Chain lifecycle,
+Persistent-slot membership, On-device finish, Ramp policy, Pipelined
+loop, FutureMap, Unified step, Invariants) is the specification; this is
+its counterpart without speculation, dp, disaggregation and fault
+points. ``CacheConfig(kv_cache_dtype="int8")`` keeps an int8 KV cache.
+Unless
 ``EngineConfig.enforce_eager``, each pure-decode step on the card replays
 the CUDA graph of its shape signature (``runner/graphs.py``; warm them
 ahead of serving with ``llm.runner.warmup()``). Token ids in and out;
@@ -50,6 +58,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 from typing import List, Optional, Sequence as Seq, Union
 
 import numpy as np
@@ -64,6 +73,8 @@ from gllm_tpu_torch.runner.runner import ModelRunner
 from gllm_tpu_torch.sampling_params import SamplingParams
 from gllm_tpu_torch.scheduler import Scheduler, SeqOutput
 from gllm_tpu_torch.sequence import HOLE_SEQ_ID, Sequence
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -115,6 +126,14 @@ class LLM:
         self.device = resolve_device(device)
         self.runner = ModelRunner(config, model_cfg, self.device,
                                   params=params)
+        # the unified step as the runner resolved it: inert on a hybrid
+        # model, as in the JAX engine (legacy kernels, signatures and step
+        # kinds there, and no absorb)
+        self.unified = self.runner.unified
+        if config.unified_step and not self.unified:
+            logger.warning(
+                "unified_step is inert for hybrid (GDN) models: legacy "
+                "dispatch and step kinds retained")
         self.memory_manager = make_memory_manager(
             self.runner.num_pages, config.cache.page_size,
             config.cache.enable_prefix_caching,
@@ -163,6 +182,10 @@ class LLM:
         # entries committed (left out of the dead share above)
         self.joins = 0
         self.hole_substeps = 0
+        # the unified step under overlap: mixed re-forms dispatched (a
+        # re-formed batch that carries a prefill row beside the chain's
+        # promised decode rows)
+        self.absorbs = 0
 
     @property
     def compactions(self) -> int:
@@ -227,6 +250,9 @@ class LLM:
         cup = cfg.chain_under_prefill if overlap else 0
         multi = cfg.multi_step_decode if overlap else 1
         slot_mode = overlap and cfg.decode_slot_batching
+        # the unified step: prefill pressure no longer yields the chain;
+        # the next dispatch absorbs the waiting work in a mixed re-form
+        unified = self.unified and overlap
         ran_dry = False
         while len(self._in_flight) < depth:
             if overlap and self._in_flight:
@@ -243,6 +269,18 @@ class LLM:
                 pressure = bool(self.scheduler.waiting)
                 if not pressure:
                     self._chained_under_pressure = 0
+                if unified and tip is not None and pressure:
+                    # the chain absorbs the waiting work: one mixed
+                    # re-formed dispatch carries its promised decode rows
+                    # next to the admitted prefill chunks, with no yield
+                    # and no "waiting" break; the chain goes on off it
+                    if self._dispatch_reform(*tip, False, multi,
+                                             mixed=True):
+                        continue
+                    # it needs host-committed state: the sync pass admits
+                    # what it could not (JAX's ``llm.py:786-790``)
+                    self._chain_tip = None
+                    tip = None
                 allow = tip is not None and (
                     not pressure or self._chained_under_pressure < cup)
                 if tip is not None and not allow:
@@ -259,10 +297,15 @@ class LLM:
                     prev_batch, prev_handle = tip
                     chain = self._schedule_multi(prev_batch, multi)
                     if not chain:
-                        self.chain_breaks[
-                            self.scheduler.chain_break_reason] += 1
+                        reason = self.scheduler.chain_break_reason
+                        if unified and reason == "waiting":
+                            # retired under the unified step: the mixed
+                            # re-form below seats the ready sequences
+                            reason = "reform"
+                        self.chain_breaks[reason] += 1
                         if cfg.pipelined_loop and self._dispatch_reform(
-                                prev_batch, prev_handle, pressure, multi):
+                                prev_batch, prev_handle, pressure, multi,
+                                mixed=unified):
                             continue
                         self._chain_tip = None
                         self._chained_under_pressure = 0
@@ -437,11 +480,15 @@ class LLM:
         return outs
 
     def _dispatch_reform(self, prev_batch, prev_handle, pressure: bool,
-                         multi: int) -> bool:
-        """Re-form the next pure-decode batch off ``prev_batch``'s promised
-        token counts and dispatch it chained off ``prev_handle``, fused
-        with the links behind it into one block where they fit; False
-        (a stall counted) when it needs host-committed state."""
+                         multi: int, mixed: bool = False) -> bool:
+        """Re-form the next batch off ``prev_batch``'s promised token
+        counts and dispatch it chained off ``prev_handle``, fused with the
+        links behind it into one block where it is pure decode and they
+        fit; False (a stall counted) when it needs host-committed state.
+        ``mixed`` (the unified step): the re-form crosses the phase
+        boundary, prefill chunks riding beside the decode rows
+        (``schedule_reform(..., allow_prefill=True)``); such a batch runs
+        as one eager mixed step and counts as an absorb."""
         if self.runner.hybrid:
             # GDN state is cumulative: a discarded step would leave a
             # slot advanced by a token that never committed, and the
@@ -449,17 +496,23 @@ class LLM:
             # drain-and-sync edge.
             self.stalls["readback"] += 1
             return False
-        batch = self.scheduler.schedule_reform(prev_batch)
+        batch = self.scheduler.schedule_reform(prev_batch,
+                                               allow_prefill=mixed)
         if batch is None:
             reason = self.scheduler.reform_fail_reason
             self.stalls[reason if reason in ("pages", "pp_budget")
                         else "readback"] += 1
             return False
         promises = FutureMap.promised_ids(batch)
-        # a row whose one remaining token is its prompt's last (a joining
-        # sequence still prefilling) keeps the batch a single step
-        decode_only = all(it.computed_before >= it.seq.prompt_len
+        # a prefill chunk, or a row whose one remaining token is its
+        # prompt's last (a joining sequence still prefilling), keeps the
+        # batch a single step; the gate reads chunk positions, so a
+        # promised row after a final prefill chunk is a decode row
+        decode_only = all(it.num_new_tokens == 1
+                          and it.computed_before >= it.seq.prompt_len
                           for it in batch.items)
+        if mixed and not decode_only:
+            self.absorbs += 1
         links = (self._schedule_multi_links(batch, multi - 1)
                  if multi > 1 and decode_only else [])
         if links:

@@ -14,6 +14,15 @@ tokens never commit, their in-flight counts unwind
 positions again from committed state, so greedy streams stay those of
 the sync loop.
 
+Under the unified step a re-form may be mixed: prefill chunks (a
+promised mid-prefill row continued from its frontier, committed-state
+chunks, waiting admissions) ride after the promised decode rows. Their
+tokens are the host's, so the entry promises only its decode rows
+(``src_rows`` >= 0). An invalidation cascade through it unwinds its
+absorbed chunks like any other row: no computed count advances, and a
+sequence it admitted stays RUNNING at its committed count (its pages
+kept), whose prefill the sync pass schedules again.
+
 No torch here: host bookkeeping only.
 """
 
@@ -65,7 +74,8 @@ class FutureMap:
     def promised_ids(batch) -> frozenset:
         """The sequences a re-formed batch (a block's first link) assumed
         alive: the rows whose input token is a promise (``src_rows``
-        >= 0), hole rows never."""
+        >= 0), hole rows never, and never a mixed re-form's prefill rows
+        (src -1: their tokens are the host's)."""
         if batch.src_rows is None:
             return frozenset()
         return frozenset(it.seq.seq_id

@@ -45,8 +45,9 @@ class BatchBuilder:
                             sc.max_decode_seqs + sc.max_prefill_tokens)
         self.max_pages_per_seq = config.max_pages_per_seq
         # unified step: one signature family, max_q_len rides the token
-        # bucket (no separate q == 1 population)
-        self.unified = config.unified_step
+        # bucket (no separate q == 1 population); inert for a hybrid model,
+        # as in the JAX package (prepare.py:60-65)
+        self.unified = config.unified_step and not use_ssm
         # hybrid models: each row's SSM slot (prepare.py:332-333,424-426)
         self.use_ssm = use_ssm
 

@@ -120,16 +120,19 @@ class ModelRunner:
         self.model_cfg = model_cfg
         self.model = get_model_def(model_cfg)
         self.device = torch.device(device)
+        # the unified step as resolved: inert on a hybrid model, as in the
+        # JAX runner (``runner.py:297-303``)
+        self.unified = config.unified_step and not model_cfg.use_hybrid
         if self.device.type == "cuda":
             check_model_shapes(model_cfg, config.cache.kv_cache_dtype,
-                               config.unified_step)
+                               self.unified)
         self.dtype = DTYPES[config.dtype]
         kd = config.cache.kv_cache_dtype
         self.kv_dtype = self.dtype if kd == "auto" else DTYPES[kd]
         self.kv_quant = self.kv_dtype == torch.int8
         # attention kernels (ops/attention.py): the unified kernel for every
         # step, or the legacy decode / ragged pair
-        self.attn_impl = "unified" if config.unified_step else "legacy"
+        self.attn_impl = "unified" if self.unified else "legacy"
         # the engine's memory manager, whose minted pages an int8 cache
         # resets (set by the engine)
         self.memory_manager = None
@@ -286,13 +289,19 @@ class ModelRunner:
         """(host StepBatch, max_q_len, signature's max_q_len): built on the
         host (at ``force_signature`` when given) with the int8 cache's
         pending scale resets, the hybrid model's slots to zero and the
-        splice map of a re-formed batch or of a chain with joins. A pure-decode batch gets max_q_len 1
+        splice map of a re-formed batch (mixed under the unified step) or
+        of a chain with joins. A pure-decode batch gets max_q_len 1
         in both loops: under the unified step it tells the kernel the
         batch has no other rows (its signature keeps JAX's q == t)."""
         host_batch, sig_q = self.builder.build(sched_batch, force_signature)
         if sched_batch.src_rows is not None:
-            # a re-formed batch is pure decode: item j is token row j
-            dst = [j for j, r in enumerate(sched_batch.src_rows) if r >= 0]
+            # a re-formed batch: each promised row's one token sits at the
+            # item's flat offset, which every multi-token chunk before it
+            # (a mixed re-form) shifts (JAX's ``_splice_mapped_tokens``)
+            offs = np.cumsum([0] + [it.num_new_tokens
+                                    for it in sched_batch.items])
+            dst = [int(o) for o, r in zip(offs, sched_batch.src_rows)
+                   if r >= 0]
             src = [r for r in sched_batch.src_rows if r >= 0]
             host_batch = host_batch._replace(splice=dst + src)
         elif sched_batch.host_rows:
@@ -359,10 +368,13 @@ class ModelRunner:
 
     def step_async_chained(self, sched_batch: ScheduledBatch,
                            prev: StepHandle) -> StepHandle:
-        """Dispatch a pure-decode step whose input tokens are ``prev``'s
-        sampled tokens on the device: row i's for a chained step (but the
-        ``host_rows`` that joined it, whose token is the host's), row
-        ``src_rows[i]``'s for a re-formed batch (-1: the host's token)."""
+        """Dispatch a step whose input tokens are ``prev``'s sampled tokens
+        on the device: row i's for a chained step (but the ``host_rows``
+        that joined it, whose token is the host's), row ``src_rows[i]``'s
+        for a re-formed batch (-1: the host's tokens). Under the unified
+        step a re-formed batch may be mixed (prefill chunks after the
+        promised decode rows): it runs eagerly at the unified signature's
+        one token bucket, as every mixed step does."""
         if sched_batch.src_rows is None:
             assert len(prev.last) == sched_batch.num_seqs
         return self.step_async(sched_batch, prev)

@@ -24,18 +24,25 @@
   steps off a batch still in flight (page allocation, positions and slots
   need token counts only; the runner splices the tokens in on the
   device), one link or a block of a power of two of them that runs
-  through the length deaths inside it (``active_until``), and ``schedule_reform`` re-forms it across a membership change
-  off the promised counts (the pipelined loop; ``discard_batch`` unwinds
-  an entry the engine invalidates). A sequence that finishes while a step
-  of it is still in flight keeps its pages and SSM slot until the last
-  one lands (``_deferred_free``).
+  through the length deaths inside it (``active_until``), and
+  ``schedule_reform`` re-forms it across a membership change off the
+  promised counts (the pipelined loop; ``discard_batch`` unwinds an entry
+  the engine invalidates). A sequence that finishes while a step of it is
+  still in flight keeps its pages and SSM slot until the last one lands
+  (``_deferred_free``).
+- the unified step under overlap: ``schedule_reform(prev,
+  allow_prefill=True)`` crosses the phase boundary, a MIXED re-form: the
+  promised decode rows first, then promised mid-prefill rows continued
+  from their frontier, then committed-state prefill work and waiting
+  admissions (``_schedule_prefill(..., preempt=False)``), so that a chain
+  absorbs prefill work instead of yielding to it.
 - persistent slots (``decode_slot_batching``): a chain keeps a finished
   row as a dead hole (the shared ``make_hole_seq`` sentinel), seats
   decode-ready sequences in its holes at a chain boundary (``host_rows``:
   their input token is the host's) and compacts only when its live rows
   fall below its power-of-two sequence bucket.
 
-The JAX scheduler's mixed re-forms, speculative drafting, SSM snapshots
+The JAX scheduler's speculative drafting, SSM snapshots
 (``_ssm_align_chunk``), host KV tier, spans and metrics belong to options
 this port does not implement yet, and are not copied.
 """
@@ -84,9 +91,12 @@ class ScheduledBatch:
     # token of the same row on the device). None: no join
     host_rows: Optional[List[int]] = None
     # a re-formed batch (schedule_reform): per item, the row of the
-    # previous entry's on-device sampled tokens that is its input token,
-    # or -1 when the host knows it (a sequence joining the batch). None:
-    # not a re-formed batch (a chained step maps row to row)
+    # previous entry's on-device sampled tokens that is its input token
+    # (a promised decode row: one token), or -1 when the host knows every
+    # input token of the item (a decode-ready sequence joining the batch
+    # or, in a mixed re-form of the unified step, a prefill chunk, whose
+    # items follow the decode rows). None: not a re-formed batch (a
+    # chained step maps row to row)
     src_rows: Optional[List[int]] = None
 
     @property
@@ -285,7 +295,13 @@ class Scheduler:
             items.append(ScheduledSeq(seq, 1, seq.num_computed_tokens))
 
     def _schedule_prefill(self, items: List[ScheduledSeq],
-                          token_budget: int) -> None:
+                          token_budget: int, preempt: bool = True) -> None:
+        """Prefill chunks under ``token_budget``: running sequences' next
+        chunks, then admissions from the waiting queue. ``preempt=False``
+        (a mixed re-form of the unified step): a chunk whose pages would
+        need a victim is skipped instead, since a preempted victim's freed
+        pages could not come back if the re-form is invalidated
+        (``gllm_tpu/scheduler.py:509-545``)."""
         protect = {it.seq.seq_id for it in items}
         max_seqs = self.config.max_num_seqs
 
@@ -295,10 +311,15 @@ class Scheduler:
             if token_budget <= 0 or len(items) >= max_seqs:
                 break
             n = min(seq.num_remaining_tokens, token_budget)
-            protect.add(seq.seq_id)
-            if not self._allocate_with_preemption(seq, n, protect):
-                protect.discard(seq.seq_id)
-                continue
+            if not preempt:
+                if not self.mm.can_allocate(self.mm.pages_needed(seq, n)):
+                    continue
+                self.mm.allocate_seq_pages(seq, n)
+            else:
+                protect.add(seq.seq_id)
+                if not self._allocate_with_preemption(seq, n, protect):
+                    protect.discard(seq.seq_id)
+                    continue
             items.append(ScheduledSeq(seq, n, seq.num_computed_tokens))
             token_budget -= n
 
@@ -499,23 +520,33 @@ class Scheduler:
         self.chain_break_reason = reason
         return []
 
-    def schedule_reform(self, prev: ScheduledBatch
+    def schedule_reform(self, prev: ScheduledBatch,
+                        allow_prefill: bool = False
                         ) -> Optional[ScheduledBatch]:
-        """Re-form the next pure-decode batch off ``prev``'s promised
-        token counts, before its tokens reach the host (the pipelined
-        loop; JAX's ``schedule_reform:904`` without mixed batches): where
-        ``schedule_chain`` refused a membership change. Rows that finished
-        drop; every other row of ``prev`` advances to its promised
-        frontier, its input token spliced on the device from ``prev``'s
-        row (``src_rows``); rows that die by length once ``prev`` lands
-        drop (the sync loop drops them too); decode-ready running
-        sequences join with host-known tokens (``src_rows`` -1). EOS is
-        assumed not to happen: the engine invalidates the entry when it
-        does. Never preempts (a victim's pages could not come back if the
-        entry is invalidated). None, with ``reform_fail_reason``, when the
-        batch needs host-committed state."""
+        """Re-form the next batch off ``prev``'s promised token counts,
+        before its tokens reach the host (the pipelined loop; JAX's
+        ``schedule_reform:905``): where ``schedule_chain`` refused a
+        membership change. Rows that finished drop; every other row of
+        ``prev`` advances to its promised frontier, its input token
+        spliced on the device from ``prev``'s row (``src_rows``); rows
+        that die by length once ``prev`` lands drop (the sync loop drops
+        them too); decode-ready running sequences join with host-known
+        tokens (``src_rows`` -1). EOS is assumed not to happen: the engine
+        invalidates the entry when it does. Never preempts (a victim's
+        pages could not come back if the entry is invalidated). None, with
+        ``reform_fail_reason``, when the batch needs host-committed state.
+
+        ``allow_prefill`` (the unified step under overlap): a MIXED
+        re-form. A promised mid-prefill row of ``prev`` continues its
+        prompt from its frontier instead of refusing (its tokens are all
+        the host's: src -1, no promise); then committed-state prefill work
+        and waiting admissions ride the same batch under the prefill token
+        budget (``_schedule_prefill(..., preempt=False)``), all with src
+        -1. The decode rows come first: K1u and K1um find that decode
+        prefix on the device."""
         self.reform_fail_reason = None
         base: List[Tuple[Sequence, int, int]] = []   # (seq, cn0, src row)
+        prefill_cont: List[Tuple[Sequence, int]] = []  # (seq, frontier)
         for i, it in enumerate(prev.items):
             seq = it.seq
             if seq.status is SequenceStatus.FINISHED:
@@ -526,7 +557,14 @@ class Scheduler:
                 # _process_aborts reaps pages on the sync pass only
                 return self._reform_fail("shape")
             if it.computed_before + it.num_new_tokens < seq.num_tokens:
-                return self._reform_fail("shape")      # mid-prefill row
+                if not allow_prefill:
+                    return self._reform_fail("shape")  # mid-prefill row
+                # the prompt goes on from the promised frontier: every
+                # input token is the host's, and no promise is made (an
+                # invalidation unwinds it through the ordinary cascade)
+                prefill_cont.append(
+                    (seq, it.computed_before + it.num_new_tokens))
+                continue
             cn0 = it.computed_before + it.num_new_tokens
             if (cn0 + 1 - seq.prompt_len >= seq.sampling_params.max_tokens
                     or cn0 + 1 >= self.config.max_model_len):
@@ -544,8 +582,12 @@ class Scheduler:
                     or s.seq_id in self._aborted_ids):
                 continue
             base.append((s, s.num_computed_tokens, -1))
-        if not base:
+        if not base and not (allow_prefill and (
+                prefill_cont or self.waiting
+                or any(s.num_remaining_tokens > 1 and not s.num_in_flight
+                       for s in self.running))):
             return self._reform_fail("shape")         # nothing left to run
+        base = base[:budget]
         page = self.mm.page_size
         need = sum(max(0, cdiv(cn0 + 1, page) - len(seq.page_table))
                    for seq, cn0, _ in base)
@@ -554,9 +596,34 @@ class Scheduler:
         items, src_rows = [], []
         for seq, cn0, src in base:
             self.mm.allocate_seq_pages(seq, cn0 + 1 - seq.num_computed_tokens)
-            seq.num_in_flight += 1
             items.append(ScheduledSeq(seq, 1, cn0))
             src_rows.append(src)
+        if allow_prefill:
+            pf_budget = self._prefill_token_budget()
+            max_seqs = self.config.max_num_seqs
+            # promised mid-prefill rows continue from their frontier
+            for seq, frontier in prefill_cont:
+                if pf_budget <= 0 or len(items) >= max_seqs:
+                    continue
+                n = min(seq.num_tokens - frontier, pf_budget)
+                need = max(0, cdiv(frontier + n, page) - len(seq.page_table))
+                if not self.mm.can_allocate(need):
+                    continue             # never preempt; it waits a pass
+                self.mm.allocate_seq_pages(
+                    seq, frontier + n - seq.num_computed_tokens)
+                items.append(ScheduledSeq(seq, n, frontier))
+                src_rows.append(-1)
+                pf_budget -= n
+            # committed-state prefill work: the sync loop's admission path
+            # (running continuations, then the waiting queue), without
+            # preemption
+            before = len(items)
+            self._schedule_prefill(items, pf_budget, preempt=False)
+            src_rows += [-1] * (len(items) - before)
+            if not items:
+                return self._reform_fail("shape")
+        for it in items:
+            it.seq.num_in_flight += 1
         return ScheduledBatch(items, src_rows=src_rows)
 
     def _reform_fail(self, reason: str) -> None:
@@ -570,7 +637,9 @@ class Scheduler:
         the same positions again. Pages allocated toward the promised
         frontier stay on the table; a finished sequence's deferred free
         fires once its last entry drains (the hole sentinel's count falls
-        with its rows')."""
+        with its rows'). A mixed re-form's absorbed chunks unwind the
+        same way: a sequence it admitted stays RUNNING at its committed
+        count, and the sync pass schedules its prefill again."""
         for b in (batch if isinstance(batch, list) else [batch]):
             for it in b.items:
                 seq = it.seq

@@ -6,8 +6,10 @@ engines (Llama-shaped, DeepSeek-shaped and hybrid) on the card against the
 CPU; then the fp8 cache in every attention kernel, the unified step over
 a latent cache (K1um), the fp8 write against the CPU's bytes, and the
 engines over an fp8 cache or under the unified MLA step; the decode steps
-as CUDA graphs, overlap scheduling and the pipelined loop over them, and
-blocks of decode steps (multi-step decode, on-device finish).
+as CUDA graphs, overlap scheduling and the pipelined loop over them,
+blocks of decode steps (multi-step decode, on-device finish), persistent
+slots, and the unified step under overlap (mixed re-forms, K1u and K1um's
+decode class with hole rows).
 
 Every test here is marked ``cuda`` and skips without a CUDA device; run
 them on the card with
@@ -1925,8 +1927,8 @@ def test_overlap_streams_equal_the_sync_loop_on_card(cuda_device, family,
     replays = llm.runner.graphs.replays
     reforms = []
     reform = llm.scheduler.schedule_reform
-    llm.scheduler.schedule_reform = lambda b: (reforms.append(b),
-                                               reform(b))[1]
+    llm.scheduler.schedule_reform = lambda b, **kw: (
+        reforms.append(b), reform(b, **kw))[1]
     assert _serve_greedy(llm) == _serve_greedy(sync)
     _drained(llm)
     _counters_zero(cuda_device)
@@ -2407,6 +2409,135 @@ def test_decode_kernels_take_hole_rows(cuda_device, family, kind):
     want = tdec.paged_decode_attention_plain(q, *caches, kvl, pt, **kw)
     _check(out, want, qdtype)
     assert (out[4] == 0).all()                       # the padding row
+    _counters_zero(cuda_device)
+
+
+# ---- the unified step under overlap (mixed re-forms absorb prefill) --------
+
+# the slot loop of the dense and MLA models with the unified step (which
+# retires chain_under_prefill)
+ABSORB_FLAGS = dict(SLOT_LOOPS["dense"], decode_slot_batching=True,
+                    unified_step=True)
+
+
+def _prefill_row(batch) -> bool:
+    return any(it.num_new_tokens > 1 or it.computed_before < it.seq.prompt_len
+               for it in batch.items)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("family", ["dense", "deepseek"])
+def test_absorb_streams_equal_their_batches_replayed_on_card(cuda_device,
+                                                             family, warm):
+    """bf16 engines on the same weights under the unified step: the absorb
+    engine (overlap, blocks, slots) dispatches mixed re-forms (K1u / K1um's
+    mixed class, its decode prefix spliced on the device) and its greedy
+    streams are those of its own batches run one at a time through the
+    unified sync engine (chip_smoke's ``replay_in_sync``); no ``waiting``
+    break, and pages and split counters all come back. Cold: no
+    ``warmup()``."""
+    import chip_smoke
+    make = GRAPH_MAKERS[family]
+    sync = make(cuda_device, dtype="bfloat16", unified_step=True)
+    llm = make(cuda_device, params=sync.runner.params, dtype="bfloat16",
+               **ABSORB_FLAGS)
+    if warm:
+        llm.runner.warmup()
+    schedule = chip_smoke.record_schedule(llm)
+    got = _serve_greedy(llm)
+    prompts, sps = _greedy_workload()
+    chip_smoke.replay_in_sync("card test", "absorb", sync, schedule, prompts,
+                              sps, got)
+    assert llm.absorbs > 0 and llm.chain_breaks["waiting"] == 0
+    assert llm.blocks and llm.runner.attn_impl == "unified"
+    assert llm.scheduler._hole_seq.num_in_flight == 0
+    _drained(llm)
+    _counters_zero(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "deepseek"])
+def test_mixed_reform_off_a_block_makes_no_host_sync(cuda_device, family):
+    """Once the workload's graphs are captured (a first run), the absorb
+    engine's chained dispatches, among them a mixed re-form chained off a
+    block (its promised rows spliced from the block's last sub-step, its
+    prefill chunks eager at the unified token bucket), raise nothing under
+    ``set_sync_debug_mode("error")``; the streams are the first run's."""
+    llm = GRAPH_MAKERS[family](cuda_device, dtype="bfloat16", **ABSORB_FLAGS)
+    want = _serve_greedy(llm)
+    runner, calls = llm.runner, []
+
+    def strict(fn):
+        def run(batch, prev=None, **kw):
+            first = batch[0] if isinstance(batch, list) else batch
+            calls.append((first, prev))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(batch, prev, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+    runner.step_async_chained = strict(runner.step_async_chained)
+    runner.step_multi = strict(runner.step_multi)
+    assert _serve_greedy(llm) == want
+    assert any(_prefill_row(b) and b.src_rows is not None and prev is not None
+               and prev.block is not None for b, prev in calls), \
+        "no mixed re-form chained off a block"
+    _drained(llm)
+
+
+# K1u over each cache it takes, K1um over each latent
+UNIFIED_HOLE_CASES = ([("gqa", kind) for kind in DECODE_KINDS]
+                      + [("mla", kind) for kind in MLA_KINDS])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,kind", UNIFIED_HOLE_CASES)
+def test_unified_decode_only_takes_hole_rows(cuda_device, family, kind):
+    """K1u (G 4, D 64) and K1um (latent 576, values 512) with
+    ``decode_only``, as a block's sub-steps call them, against their plain
+    versions on a batch whose rows include hole rows of a persistent-slot
+    chain (context one token in the dummy page 0, which holds finite data
+    as serving leaves it; the page-table row all zeros) beside long
+    contexts that split and a one-page row, then two padding rows (q_len
+    0, zero output)."""
+    qdtype, cache = (DECODE_KINDS if family == "gqa" else MLA_KINDS)[kind]
+    page = 16
+    Hq, Hkv, D, v_dim = {"gqa": (8, 2, 64, None),
+                         "mla": (16, 1, 576, 512)}[family]
+    lens = [1, 3000, 1, 17, 1, 900, 1]
+    holes = [0, 2, 4, 6]
+    rng = np.random.default_rng(33)
+    num_pages = 1 + sum(-(-k // page) for k in lens)
+    q, kc, vc, cu, kvl, pt = ragged_case(rng, [(1, k) for k in lens], Hq,
+                                         Hkv, D, page, num_pages, pad_seqs=2,
+                                         pad_tokens=2)
+    pt[holes] = 0
+    S = len(lens) + 2
+    assert q.shape[0] == S
+    chunk, n = _plan(cuda_device, qdtype, cache, S, Hq, Hkv, D, page,
+                     pt.shape[1], v_dim)
+    assert n > 1
+    q = torch.from_numpy(q).to(cuda_device, qdtype)
+    cu, kvl, pt = (torch.from_numpy(a).to(cuda_device) for a in (cu, kvl, pt))
+    kw = dict(scale=D ** -0.5, unified=True, v_dim=v_dim)
+    if cache == "int8":
+        k8, v8, ks, vs = int8_cache(rng, kc, vc)
+        caches = [torch.from_numpy(a).to(cuda_device) for a in (k8, v8)]
+        kw.update(k_scale=torch.from_numpy(ks).to(cuda_device),
+                  v_scale=torch.from_numpy(vs).to(cuda_device))
+    else:
+        dtype = FP8 if cache == "fp8" else qdtype
+        caches = [torch.from_numpy(a).to(cuda_device).to(dtype)
+                  for a in (kc, vc)]
+    if v_dim:
+        caches[1] = None
+    out = trag.ragged_paged_attention(q, *caches, cu, kvl, pt, **kw,
+                                      decode_only=True)
+    want = trag.ragged_paged_attention_plain(q, *caches, cu, kvl, pt, **kw)
+    _check(out, want, qdtype)
+    assert not out[len(lens):].float().any()         # the padding rows
     _counters_zero(cuda_device)
 
 

@@ -268,10 +268,11 @@ def test_no_device_means_the_card(monkeypatch):
     ("kv_cache_dtype", "float32"), ("tp", 2), ("pp", 2), ("dp", 2),
     ("sp", 2), ("kv_host_pool_gb", 1.0), ("kv_disk_path", "/x"),
     # options a model family does not take (the family rides the field):
-    # an MLA latent cache takes no int8, a hybrid model neither, nor the
-    # unified step, nor prefix caching
+    # an MLA latent cache takes no int8, a hybrid model neither, nor prefix
+    # caching (it takes the unified step and leaves it inert:
+    # tests/test_torch_unified_overlap.py)
     ("mla:kv_cache_dtype", "int8"), ("hybrid:kv_cache_dtype", "int8"),
-    ("hybrid:unified_step", True), ("hybrid:enable_prefix_caching", True)])
+    ("hybrid:enable_prefix_caching", True)])
 def test_validate_refuses_unported_options(field, value):
     cfg = gt.EngineConfig()
     family, _, field = field.rpartition(":")
@@ -308,11 +309,17 @@ def test_validate_takes_int8_kv_and_the_unified_sync_step():
     for dtype in ("bfloat16", "float16", "float32"):
         gt.EngineConfig(dtype=dtype, unified_step=True,
                         cache=gt.CacheConfig(kv_cache_dtype="int8")).validate()
-    # the unified step runs the sync loop: overlap scheduling stays refused
+    # the unified step under overlap scheduling is taken and normalized as
+    # the JAX package's validate does: it lifts the pipelined loop
+    from gllm_tpu.config import EngineConfig as JEC
     cfg = gt.EngineConfig(unified_step=True, overlap_scheduling=True)
-    with pytest.raises(NotImplementedError, match="unified_step with "
-                       "overlap_scheduling"):
-        cfg.validate()
+    jcfg = JEC(unified_step=True, overlap_scheduling=True)
+    cfg.validate()
+    jcfg.validate()
+    for f in ("unified_step", "overlap_scheduling", "pipelined_loop",
+              "chain_under_prefill"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    assert cfg.pipelined_loop
 
 
 @pytest.mark.parametrize("kwargs", [

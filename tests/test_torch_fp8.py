@@ -379,12 +379,16 @@ def test_validate_takes_fp8_and_the_mla_unified_step():
             gt.EngineConfig(dtype=dtype, unified_step=True,
                             cache=gt.CacheConfig(kv_cache_dtype=kv)
                             ).validate(mla)
+            # a hybrid model takes the flag and leaves it inert, as the JAX
+            # engine does (tests/test_torch_unified_overlap.py)
+            gt.EngineConfig(dtype=dtype, unified_step=True,
+                            cache=gt.CacheConfig(kv_cache_dtype=kv)
+                            ).validate(hybrid)
     refused = [
         (mla, dict(cache=gt.CacheConfig(kv_cache_dtype="int8")),
          "'int8' with an MLA"),
         (hybrid, dict(cache=gt.CacheConfig(kv_cache_dtype="int8")),
          "'int8' with a hybrid"),
-        (hybrid, dict(unified_step=True), "unified_step with a hybrid"),
         (hybrid, dict(cache=gt.CacheConfig(enable_prefix_caching=True)),
          "prefix_caching with a hybrid")]
     for model, kw, name in refused:

@@ -388,11 +388,10 @@ def test_ssm_slot_lifecycle():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(cache=gt.CacheConfig(kv_cache_dtype="int8")), "int8"),
-    (dict(unified_step=True), "unified_step"),
     (dict(cache=gt.CacheConfig(enable_prefix_caching=True)),
      "enable_prefix_caching"),
     (dict(spec_decode="ngram"), "spec_decode"),
-])
+], ids=["kw0-int8", "kw2-enable_prefix_caching", "kw3-spec_decode"])
 def test_validate_refuses_hybrid_combinations(kw, match):
     _, tmc = _configs()
     config = gt.EngineConfig(dtype="float32", **kw)
@@ -404,6 +403,18 @@ def test_validate_refuses_hybrid_combinations(kw, match):
     if match != "spec_decode":
         gt.EngineConfig(dtype="float32", **kw).validate(
             gt.ModelConfig("LlamaForCausalLM", 256, 64, 2, 4, 2, 16, 96))
+
+
+def test_validate_keeps_unified_step_inert_on_hybrid():
+    """The unified step is taken on a hybrid model and left inert, as the
+    JAX engine leaves it (``gllm_tpu/engine/llm.py:349-355``): the engine
+    runs the legacy kernels and signatures."""
+    _, tmc = _configs()
+    config = gt.EngineConfig(dtype="float32", unified_step=True)
+    config.validate(tmc)
+    llm = gt.LLM(model_cfg=tmc, config=config, device="cpu")
+    assert not llm.unified and llm.runner.attn_impl == "legacy"
+    assert not llm.runner.builder.unified
 
 
 def test_hybrid_refusals_of_the_config():

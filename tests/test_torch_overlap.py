@@ -63,9 +63,10 @@ def _params():
 
 
 def _engine(jax_side, *, num_pages=256, max_model_len=128, max_prefill=32,
-            eos=(), kv="auto", max_seqs=8, **flags):
+            eos=(), kv="auto", max_seqs=8, prefix=False, **flags):
     """The JAX LLM or the port's on the same float32 weights, ``max_seqs``
-    sequences a batch, 4-token pages, a ``kv`` cache dtype."""
+    sequences a batch, 4-token pages, a ``kv`` cache dtype, the prefix
+    cache on with ``prefix``."""
     jparams, tparams = _params()
     if jax_side:
         llm = JLLM(config=JEC(
@@ -74,7 +75,8 @@ def _engine(jax_side, *, num_pages=256, max_model_len=128, max_prefill=32,
             scheduler=JSC(max_prefill_tokens=max_prefill,
                           max_decode_seqs=max_seqs),
             cache=JCC(page_size=4, num_pages=num_pages,
-                      kv_cache_dtype=kv), **flags),
+                      kv_cache_dtype=kv, enable_prefix_caching=prefix),
+            **flags),
             model_cfg=JMC(**MODEL), params=jparams)
     else:
         llm = gt.LLM(config=gt.EngineConfig(
@@ -83,7 +85,8 @@ def _engine(jax_side, *, num_pages=256, max_model_len=128, max_prefill=32,
             scheduler=gt.SchedulerConfig(max_prefill_tokens=max_prefill,
                                          max_decode_seqs=max_seqs),
             cache=gt.CacheConfig(page_size=4, num_pages=num_pages,
-                                 kv_cache_dtype=kv), **flags),
+                                 kv_cache_dtype=kv,
+                                 enable_prefix_caching=prefix), **flags),
             model_cfg=gt.ModelConfig(**MODEL), params=tparams, device="cpu")
     if eos:
         llm.eos_token_ids = frozenset(eos)
@@ -335,8 +338,8 @@ def test_mla_and_hybrid_identical_to_sync(make, flags):
     llm = make(**FLAGS[flags])
     reforms = []
     reform = llm.scheduler.schedule_reform
-    llm.scheduler.schedule_reform = lambda b: (reforms.append(b),
-                                               reform(b))[1]
+    llm.scheduler.schedule_reform = lambda b, **kw: (
+        reforms.append(b), reform(b, **kw))[1]
     got = _drive(llm, gt.SamplingParams, prompts, max_tokens, keep, 2)
     sync = make()
     assert got == _drive(sync, gt.SamplingParams, prompts, max_tokens,
@@ -429,8 +432,8 @@ def test_validate_normalizes_as_jax():
     """``enforce_eager`` clears what the JAX package's clears (persistent
     slots among them), ``pipelined_loop`` implies ``overlap_scheduling``,
     ``overlap_depth`` must be at least 1, the chain length resolves as the
-    JAX package's, ``decode_slot_batching`` is taken as there, and the
-    unified step under overlap raises by name."""
+    JAX package's, and ``decode_slot_batching`` and the unified step under
+    overlap are taken as there."""
     for kw in (dict(enforce_eager=True, overlap_scheduling=True,
                     pipelined_loop=True, chain_under_prefill=3),
                dict(pipelined_loop=True, overlap_depth=3),
@@ -455,14 +458,19 @@ def test_validate_normalizes_as_jax():
                   "ondevice_finish"):
             assert getattr(cfg, f) == getattr(jcfg, f), (kw, f)
     # persistent slots are taken (and, as in JAX, kept without overlap,
-    # where they do nothing); the unified step under overlap still raises
+    # where they do nothing); so is the unified step under overlap, whose
+    # fields come out as JAX's
     for kw in (dict(overlap_scheduling=True, decode_slot_batching=True),
                dict(decode_slot_batching=True)):
         cfg, jcfg = gt.EngineConfig(**kw), JEC(**kw)
         cfg.validate()
         jcfg.validate()
         assert cfg.decode_slot_batching == jcfg.decode_slot_batching
-    with pytest.raises(NotImplementedError,
-                       match="unified_step with overlap_scheduling"):
-        gt.EngineConfig(overlap_scheduling=True, unified_step=True,
-                        pipelined_loop=True).validate()
+    kw = dict(overlap_scheduling=True, unified_step=True, pipelined_loop=True,
+              chain_under_prefill=2)
+    cfg, jcfg = gt.EngineConfig(**kw), JEC(**kw)
+    cfg.validate()
+    jcfg.validate()
+    for f in ("overlap_scheduling", "pipelined_loop", "unified_step",
+              "chain_under_prefill"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f

@@ -475,8 +475,8 @@ def test_mla_and_hybrid_identical_to_sync(make):
     llm = make(pipelined_loop=True, ondevice_finish=True, **SLOTS)
     reforms = []
     reform = llm.scheduler.schedule_reform
-    llm.scheduler.schedule_reform = lambda b: (reforms.append(b),
-                                               reform(b))[1]
+    llm.scheduler.schedule_reform = lambda b, **kw: (
+        reforms.append(b), reform(b, **kw))[1]
     got = _drive(llm, gt.SamplingParams, prompts, max_tokens, keep, 2)
     assert got == _drive(make(), gt.SamplingParams, prompts, max_tokens,
                          keep, 2)
