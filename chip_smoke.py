@@ -153,7 +153,30 @@ non-zero exit code and no result line:
              engine (blocks under on-device finish) and a slot engine
              (the same with persistent slots), whose tokens must be the
              same
-6. a {"kernels": [...]} line, then the last line
+6. http      the port's OpenAI server as users start it (``python -m
+             gllm_tpu_torch.entrypoints.api_server``), a process of its
+             own: Llama-3.2-1B at full width (config.json written under
+             build/http_model, dummy bf16 weights from seed 0) under the
+             absorb twin's flags (the unified step under overlap,
+             persistent slots, blocks of 16 under on-device finish),
+             driven by benchmarks/backend_request_func.run_requests: 32
+             streamed greedy requests (the serve phase's 16 prompts
+             twice) at concurrency 16 with Poisson arrivals at 8 req/s,
+             in passes until one captures no CUDA graph (at most
+             HTTP_PASSES; the server's warmup leaves out block keys that
+             this traffic meets, and each is captured, stalling every
+             stream, the first time it is met), each pass labelled with
+             the graphs it captured, then one whole request, one of
+             n = 2 and one stream closed after 4 chunks; every request
+             finishes with its count,
+             /metrics agrees with the client (finishes by reason, 1
+             abort, TTFTs), the gauges and KV use read 0 afterwards, K1u
+             is the only kernel the run launched (/server_info), and the
+             server exits on SIGTERM; TTFT, TPOT and ITL at p50 / p99
+             from the client and from the server's histograms, output
+             tok/s beside the serve phase's absorb twin, absorbs and
+             chain breaks, for every pass
+7. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
 It imports nothing of jax or the JAX package.
@@ -171,6 +194,8 @@ import numpy as np
 import torch
 
 SEED = 0
+# the card's name and power limit (nvidia-smi), set by main()
+SMI = ""
 FP8 = torch.float8_e4m3fn
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the dense bf16 and TF32
 # tensor rates. K3 computes its float32 products on the tensor cores as
@@ -2705,8 +2730,346 @@ def phase_reference():
             f"[reference] {label}: the card launched {launched}"
 
 
+# ---- 6. http -------------------------------------------------------------
+
+# the server's engine: the smoke's absorb twin (the unified step under
+# overlap, persistent slots, blocks of 16 under on-device finish), bf16,
+# prefix caching off (the default)
+HTTP_FLAGS = ("--pipelined-loop", "--unified-step", "--decode-slot-batching",
+              "--ondevice-finish")
+# Llama-3.2-1B's published config.json, at the widths llama_3_2_1b()
+# spells out
+HTTP_CONFIG = dict(
+    architectures=["LlamaForCausalLM"], vocab_size=128256, hidden_size=2048,
+    num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=64, intermediate_size=8192, max_position_embeddings=4096,
+    rope_theta=500000.0, tie_word_embeddings=True, bos_token_id=128000,
+    eos_token_id=[128001, 128008, 128009], torch_dtype="bfloat16")
+HTTP_CONCURRENCY, HTTP_RATE = 16, 8.0
+HTTP_STARTUP_S, HTTP_STOP_S = 240.0, 30.0
+# passes of the http traffic at most, until one captures no graph
+HTTP_PASSES = 4
+
+
+def _get(port, path, timeout=30.0):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _post(port, path, body, timeout=300.0):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _scrape(port):
+    from gllm_tpu_torch.obs.metrics import parse_exposition
+    status, body = _get(port, "/metrics")
+    assert status == 200, f"[http] /metrics answered {status}"
+    typed, samples, dupes = parse_exposition(body.decode())
+    assert not dupes, f"[http] /metrics repeats {dupes[:3]}"
+    return samples
+
+
+def _delta(after, before, name, labels=""):
+    return (after.get((name, labels), 0.0)
+            - before.get((name, labels), 0.0))
+
+
+def _hist_quantile(after, before, name, q):
+    """The q-quantile of a histogram's observations between two scrapes,
+    interpolated in its bucket as ``obs.metrics.percentile`` does."""
+    bounds, cum = [], []
+    for (sname, lbl), v in after.items():
+        if sname == name + "_bucket":
+            le = lbl.split('le="')[1].rstrip('"}')
+            bounds.append(float("inf") if le == "+Inf" else float(le))
+            cum.append(v - before.get((sname, lbl), 0.0))
+    order = sorted(range(len(bounds)), key=bounds.__getitem__)
+    bounds = [bounds[i] for i in order]
+    cum = [cum[i] for i in order]
+    count = cum[-1] if cum else 0
+    if count <= 0:
+        return None
+    target, prev, lo = q * count, 0.0, 0.0
+    for ub, c in zip(bounds, cum):
+        n = c - prev
+        if c >= target and n > 0:
+            hi = ub if ub != float("inf") else lo
+            return lo + (hi - lo) * (target - prev) / n
+        prev, lo = c, ub if ub != float("inf") else lo
+    return lo
+
+
+def _abort_after(port, payload, chunks=4):
+    """A stream that the client closes after ``chunks`` events."""
+    import socket
+    body = json.dumps(dict(payload, stream=True)).encode()
+    sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+    try:
+        sock.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+                     b"Content-Type: application/json\r\nContent-Length: "
+                     + str(len(body)).encode() + b"\r\n\r\n" + body)
+        buf = b""
+        while buf.count(b"data: ") < chunks:
+            got = sock.recv(65536)
+            assert got, "[http] the stream ended before it was closed"
+            buf += got
+    finally:
+        sock.close()
+
+
+def _pass(port, payloads, label):
+    """One run of ``payloads`` through run_requests (concurrency 16,
+    Poisson 8 req/s, seeded): every request must finish with its count.
+    Returns the client summary, the wall, and the scrapes and server
+    info before and after."""
+    from benchmarks.backend_request_func import run_requests, summarize
+    m0, info0 = _scrape(port), json.loads(_get(port, "/server_info")[1])
+    results, wall = run_requests("127.0.0.1", port, payloads,
+                                 HTTP_CONCURRENCY, HTTP_RATE, seed=SEED)
+    m1, info1 = _scrape(port), json.loads(_get(port, "/server_info")[1])
+    bad = [(i, r.error, r.output_tokens, p["max_tokens"])
+           for i, (r, p) in enumerate(zip(results, payloads))
+           if not r.success or r.output_tokens != p["max_tokens"]]
+    assert not bad, f"[http] {label}: requests short of their counts: {bad}"
+    summary = summarize(results, wall)
+    e0, e1 = info0["engine_counters"], info1["engine_counters"]
+    k0, k1 = info0["kernel_launches"], info1["kernel_launches"]
+    launched = {k: n - k0["kernels"].get(k, 0)
+                for k, n in k1["kernels"].items()
+                if n - k0["kernels"].get(k, 0)}
+    assert set(launched) == {"ragged_paged_attention_unified"}, \
+        f"[http] {label}: the run launched {launched}"
+    assert k1["plain_calls"] == k0["plain_calls"], \
+        f"[http] {label}: the run called a plain version"
+    steps = {lbl: _delta(m1, m0, name, lbl) for name, lbl in m1
+             if name == "gllm_steps_total"}
+    breaks = {lbl: _delta(m1, m0, name, lbl) for name, lbl in m1
+              if name == "gllm_chain_breaks_total"
+              and _delta(m1, m0, name, lbl)}
+    server = {f"p{int(q * 100)}": {
+        h: _hist_quantile(m1, m0, f"gllm_request_{h}_seconds", q)
+        for h in ("ttft", "tpot", "itl")} for q in (0.5, 0.99)}
+    out = {"output_tok_s": summary["output_tok_s"], "wall_s": wall,
+           "output_tokens": summary["output_tokens"],
+           "client_ms": {k: summary[k] for k in ("ttft_ms", "tpot_ms",
+                                                 "itl_ms", "e2e_ms")},
+           "server_ms": {p: {h: None if v is None else round(v * 1e3, 3)
+                             for h, v in hs.items()}
+                         for p, hs in server.items()},
+           "launches": launched, "steps": steps,
+           "absorbs": e1["absorbs"] - e0["absorbs"],
+           "block_substeps": e1["block_substeps"] - e0["block_substeps"],
+           "graphs_captured": e1["graphs"] - e0["graphs"],
+           "capture_s": round(e1["capture_s"] - e0["capture_s"], 3),
+           "chain_breaks": breaks}
+    # every line of the pass says whether capture stalls are in it
+    label = (f"{label} ({out['graphs_captured']} graphs captured in "
+             f"{out['capture_s']} s)")
+    log(f"[http] {label}: {len(payloads)} streams at concurrency "
+        f"{HTTP_CONCURRENCY}, Poisson {HTTP_RATE} req/s, on {SMI}: "
+        f"{summary['output_tokens']} output tokens in {wall:.3f} s, "
+        f"{summary['output_tok_s']} output tok/s")
+    for key in ("ttft_ms", "tpot_ms", "itl_ms", "e2e_ms"):
+        log(f"[http] {label}: client {key} {summary[key]} on {SMI}")
+    for p, hs in server.items():
+        log(f"[http] {label}: server {p} ms (histogram buckets): "
+            + ", ".join(f"{h} {v * 1e3:.3f}" if v is not None
+                        else f"{h} none" for h, v in hs.items())
+            + f" on {SMI}")
+    log(f"[http] {label}: launches {launched}; steps by kind {steps}; "
+        f"block sub-steps {out['block_substeps']}; absorbs "
+        f"{out['absorbs']} (/server_info); chain breaks {breaks} "
+        "(/metrics)")
+    return out
+
+
+def phase_http(served):
+    """The port's OpenAI server as users start it, in a process of its
+    own: Llama-3.2-1B at full width (config.json written here, dummy bf16
+    weights from seed 0) under the absorb twin's flags, driven over HTTP by
+    benchmarks/backend_request_func.run_requests: 32 streamed greedy
+    requests (the serve phase's 16 prompts twice) at concurrency 16 with
+    Poisson arrivals at 8 req/s, in passes until one captures no CUDA
+    graph (at most HTTP_PASSES: a block key that the server's warmup left
+    out is captured the first time it is met, stalling every stream), then
+    one whole request, one of n = 2 and one stream the client closes after
+    4 chunks. Each pass is labelled with the graphs it captured; the
+    first pass that captured none is the one free of capture stalls, and
+    if none is, the phase says so (it does not fail). Every request
+    finishes with its count, /metrics agrees with the client, the aborted
+    stream leaves no page held, K1u served every step, and SIGTERM ends
+    the server. The server's log goes to
+    build/http_model/server.log."""
+    import os
+    import signal
+    import threading
+    from gllm_tpu_torch.runner.runner import reclaim_driver_memory
+    # the server's KV pool is sized from the card's free memory: this
+    # process gives back what it can
+    gc.collect()
+    torch.cuda.empty_cache()
+    reclaim_driver_memory(torch.device("cuda"))
+    log(f"[http] {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free "
+        "before the server starts")
+    model_dir = os.path.join("build", "http_model")
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(HTTP_CONFIG, f)
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 1537, 16)
+    max_tokens = rng.integers(32, 129, 16)
+    prompts = [rng.integers(1, HTTP_CONFIG["vocab_size"], int(n)).tolist()
+               for n in lens]
+    payloads = [{"prompt": p, "max_tokens": int(m), "temperature": 0.0,
+                 "ignore_eos": True}
+                for p, m in list(zip(prompts, max_tokens)) * 2]
+    cmd = [sys.executable, "-m", "gllm_tpu_torch.entrypoints.api_server",
+           "--model", model_dir, "--load-format", "dummy", "--dtype",
+           "bfloat16", "--seed", str(SEED), "--host", "127.0.0.1",
+           "--port", "0", *HTTP_FLAGS]
+    log(f"[http] {' '.join(cmd[1:])}")
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines, bound, port = [], threading.Event(), []
+    server_log = open(os.path.join(model_dir, "server.log"), "w")
+
+    def read():
+        # the server's log, kept; it must be drained or the server blocks
+        # on a full pipe
+        for line in proc.stderr:
+            lines.append(line)
+            server_log.write(line)
+            m = re.search(r"serving \S+ on 127\.0\.0\.1:(\d+)", line)
+            if m and not port:
+                port.append(int(m.group(1)))
+                bound.set()
+            if ("[startup]" in line or "Error" in line
+                    or "captured while serving" in line):
+                log(f"[http] server: {line.rstrip()}")
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        while not bound.wait(1.0):
+            assert proc.poll() is None, \
+                "[http] the server exited:\n" + "".join(lines[-40:])
+            assert time.monotonic() - t0 < HTTP_STARTUP_S, \
+                "[http] the server did not bind:\n" + "".join(lines[-40:])
+        port = port[0]
+        while _get(port, "/readyz")[0] != 200:
+            assert time.monotonic() - t0 < HTTP_STARTUP_S, \
+                "[http] the server never became ready"
+            time.sleep(0.5)
+        info = json.loads(_get(port, "/server_info")[1])
+        log(f"[http] ready on port {port} after "
+            f"{time.monotonic() - t0:.1f} s: {info['num_pages']} KV pages, "
+            f"attention {info['attention_impl']}, "
+            f"{info['parallel']['fast_path']}, "
+            f"{info['engine_counters']['graphs']} graphs warmed in "
+            f"{info['engine_counters']['capture_s']:.2f} s")
+        m0 = _scrape(port)
+        passes = []
+        while len(passes) < HTTP_PASSES and (
+                not passes or passes[-1]["graphs_captured"]):
+            passes.append(_pass(port, payloads, f"pass {len(passes) + 1}"))
+        free = [i for i, p in enumerate(passes) if not p["graphs_captured"]]
+        if free:
+            log(f"[http] pass {free[0] + 1} captured no graph: its numbers "
+                "are free of capture stalls; passes "
+                f"{list(range(1, free[0] + 1))} captured "
+                f"{[p['graphs_captured'] for p in passes[:free[0]]]}")
+        else:
+            log(f"[http] every one of {len(passes)} passes captured graphs "
+                f"({[p['graphs_captured'] for p in passes]}): no number of "
+                "this phase is free of capture stalls (ROADMAP C 7)")
+        # the whole request, n = 2, and the stream closed after 4 chunks
+        status, whole = _post(port, "/v1/completions", payloads[0])
+        assert status == 200 and whole["usage"]["completion_tokens"] == \
+            payloads[0]["max_tokens"], f"[http] whole request: {whole}"
+        assert whole["choices"][0]["finish_reason"] == "length"
+        status, two = _post(port, "/v1/completions",
+                            dict(payloads[1], n=2))
+        assert status == 200 and two["usage"]["completion_tokens"] == \
+            2 * payloads[1]["max_tokens"], f"[http] n = 2: {two}"
+        assert [c["finish_reason"] for c in two["choices"]] == ["length"] * 2
+        _abort_after(port, dict(payloads[2], max_tokens=2000))
+        limit = time.monotonic() + 60
+        while True:
+            m2 = _scrape(port)
+            idle = (m2.get(("gllm_requests_active", ""), 1) == 0
+                    and m2.get(("gllm_sched_running_seqs", '{dp="0"}'), 1)
+                    == 0
+                    and m2.get(("gllm_sched_waiting_seqs", '{dp="0"}'), 1)
+                    == 0
+                    and m2.get(("gllm_sched_kv_util", '{dp="0"}'), 1) == 0)
+            if idle:
+                break
+            assert time.monotonic() < limit, \
+                "[http] the server did not go idle (a page or a request " \
+                "held after the aborted stream)"
+            time.sleep(0.5)
+        n_len = _delta(m2, m0, "gllm_requests_finished_total",
+                       '{reason="length"}')
+        others = {lbl: _delta(m2, m0, name, lbl) for name, lbl in m2
+                  if name == "gllm_requests_finished_total"
+                  and lbl != '{reason="length"}'}
+        n_abort = _delta(m2, m0, "gllm_requests_aborted_total")
+        n_ttft = _delta(m2, m0, "gllm_request_ttft_seconds_count")
+        assert n_len == len(passes) * len(payloads) + 3 \
+            and not any(others.values()), \
+            f"[http] finishes by reason: length {n_len}, others {others}"
+        assert n_abort == 1, f"[http] {n_abort} aborts, not 1"
+        # every request that got a token observed a TTFT, the aborted one too
+        assert n_ttft == len(passes) * len(payloads) + 4, \
+            f"[http] {n_ttft} TTFTs"
+        log(f"[http] after {len(passes)} passes: finishes by length "
+            f"{n_len:.0f}, "
+            f"aborts {n_abort:.0f}, TTFT observations {n_ttft:.0f}; the "
+            "gauges and KV use read 0")
+        last = passes[free[0] if free else -1]
+        log(f"[http] pass {passes.index(last) + 1} "
+            f"({last['graphs_captured']} graphs captured) "
+            f"{last['output_tok_s']} output tok/s beside the serve phase's "
+            "absorb twin offline (16 requests at once): "
+            f"{served['unified']['absorb_rates']} tok/s, on {SMI}")
+        log("[http] " + json.dumps({"http": {
+            f"pass {i + 1}": p for i, p in enumerate(passes)}}))
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=HTTP_STOP_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise SystemExit("[http] the server did not exit within "
+                                 f"{HTTP_STOP_S:.0f} s of SIGTERM")
+        else:
+            rc = proc.returncode
+        reader.join(timeout=5)
+        server_log.close()
+    assert rc == 0, f"[http] the server exited with {rc}:\n" + \
+        "".join(lines[-20:])
+    log(f"[http] the server exited on SIGTERM (rc {rc})")
+    return last
+
+
 def main():
-    global HOLDERS
+    global HOLDERS, SMI
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2717,11 +3080,12 @@ def main():
                                                  stacks="python")
         HOLDERS = 4
     t_start = time.monotonic()
-    smi = phase_device()
+    smi = SMI = phase_device()
     walls = {}
     for name, phase in (("build", phase_build), ("kernels", phase_kernels),
                         ("serve", phase_serve),
-                        ("reference", phase_reference)):
+                        ("reference", phase_reference),
+                        ("http", lambda: phase_http(walls["serve"][0]))):
         t0 = time.monotonic()
         walls[name] = (phase(), time.monotonic() - t0)
         log(f"[{name}] phase wall {walls[name][1]:.1f} s")

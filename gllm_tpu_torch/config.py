@@ -78,6 +78,9 @@ _UNPORTED = {
     "spec_decode": None,
     "spec_fused": False,
     "quantization": None,
+    # the supervised in-process rebuild and its hard-stall trigger
+    "engine_recovery": False,
+    "watchdog_hard_stall_s": 0.0,
 }
 
 
@@ -133,6 +136,30 @@ class EngineConfig:
     # flag of that name turns CUDA-graph capture off, and, as in the JAX
     # package, clears overlap scheduling and every option built on it
     enforce_eager: bool = False
+    # ---- request lifecycle (engine/serving_engine.py) ----
+    # admission control: the serving engine's intake queue and the
+    # requests with an open stream; a submit over a limit is refused (HTTP
+    # 429 with Retry-After) instead of queueing without bound. 0: no limit
+    max_queued_requests: int = 0
+    max_resident_requests: int = 0
+    # default wall-clock budget of a request from submit, waiting or
+    # generating; past it the request ends with finish reason "deadline".
+    # A request's SamplingParams.deadline_s overrides it. 0: none
+    request_deadline_s: float = 0.0
+    # consecutive failed engine steps before the serving engine latches
+    # unhealthy (readiness 503, admission closed; liveness stays up); each
+    # failure quarantines only the sequences of the failed step
+    max_step_failures: int = 3
+    # readiness goes 503 while the engine thread's heartbeat is older than
+    # this (a hung device call blocks the loop in collect); it must exceed
+    # the longest legitimate blocking call. 0: no watchdog
+    watchdog_stall_s: float = 0.0
+    # shutdown(drain=True): how long in-flight requests may finish before
+    # they get terminal chunks
+    drain_timeout_s: float = 5.0
+    # not ported: supervised in-process recovery (validate raises)
+    engine_recovery: bool = False
+    watchdog_hard_stall_s: float = 0.0
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
@@ -199,6 +226,13 @@ class EngineConfig:
             self.multi_step_decode = 16
         if self.multi_step_decode < 1:
             raise ValueError("multi_step_decode must be >= 1")
+        if self.max_queued_requests < 0 or self.max_resident_requests < 0:
+            raise ValueError("admission limits must be >= 0 (0 = off)")
+        if self.request_deadline_s < 0 or self.watchdog_stall_s < 0 \
+                or self.drain_timeout_s < 0:
+            raise ValueError("robustness timeouts must be >= 0")
+        if self.max_step_failures < 1:
+            raise ValueError("max_step_failures must be >= 1")
         if not self.overlap_scheduling and not self.enforce_eager and (
                 self.ondevice_finish or self.decode_chain_len is not None):
             logger.warning(

@@ -3,8 +3,10 @@
 ``_commit_outputs:1024``, ``_dispatch_reform:1048``, ``_chain_tip:316``,
 ``unified:349``, ``_ondevice_block_stats:1139``,
 ``_count_ondevice_finishes:1230``, ``_schedule_multi:1475``,
-``generate:1894``, ``_finalize:2059``, ``abort:2091``;
-``RequestOutput:147``).
+``_check_stop_strings:1803``, ``_observe_outputs:1434``, ``generate:1894``,
+``_stream_detokenize:2044``, ``_finalize:2059``, ``abort:2091``,
+``quarantine_step_failure:2101``; ``RequestOutput:147``; the metrics of
+``:45-141``).
 
 The single-device loop: schedule a batch, dispatch its step, collect the
 oldest entry in flight and commit its sampled tokens. Without
@@ -47,8 +49,16 @@ Unless
 ``EngineConfig.enforce_eager``, each pure-decode step on the card replays
 the CUDA graph of its shape signature (``runner/graphs.py``; warm them
 ahead of serving with ``llm.runner.warmup()``). Token ids in and out;
-a text prompt needs a tokenizer object (anything with ``encode``/
-``decode``) passed to the constructor.
+a text prompt, its output text and stop strings need a tokenizer object
+(anything with ``encode``/``decode``) passed to the constructor. Stop
+strings are matched on the host over the incrementally detokenized output
+as tokens commit; a sequence with stop strings rides no block and joins no
+hole, as in JAX, so it commits one token a step and its match lands on the
+token just committed. The engine observes the request metrics (time to
+first token, time per output token, inter-token latency, end-to-end and
+queue time) and the step metrics of the JAX package under its names
+(``obs/metrics.py``), and ``quarantine_step_failure`` drops the sequences
+of a step that raised (the serving engine's fault isolation).
 
 The engine runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card it raises instead of falling back.
@@ -59,15 +69,18 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import time
 from typing import List, Optional, Sequence as Seq, Union
 
 import numpy as np
 import torch
 
 from gllm_tpu_torch.config import EngineConfig
+from gllm_tpu_torch.engine.detokenizer import detokenize_incrementally
 from gllm_tpu_torch.engine.pipeline import FutureMap, InFlight
 from gllm_tpu_torch.memory_manager import make_memory_manager
-from gllm_tpu_torch.models.config import ModelConfig
+from gllm_tpu_torch.models.config import ModelConfig, from_hf_config
+from gllm_tpu_torch.obs import metrics as obs
 from gllm_tpu_torch.runner.prepare import MAX_STOP_IDS
 from gllm_tpu_torch.runner.runner import ModelRunner
 from gllm_tpu_torch.sampling_params import SamplingParams
@@ -75,6 +88,60 @@ from gllm_tpu_torch.scheduler import Scheduler, SeqOutput
 from gllm_tpu_torch.sequence import HOLE_SEQ_ID, Sequence
 
 logger = logging.getLogger(__name__)
+
+# Step metrics, by the kind of the collected entry: "prefill" (a batch
+# with a prefill chunk), "decode" (a single pure-decode step),
+# "fused_block" (a block of K decode steps) and, under the unified step,
+# "unified_step" for every single step
+_M_STEPS = obs.counter("gllm_steps_total",
+                       "engine iterations by step kind", ("kind",))
+_M_STEP_TOKENS = obs.counter("gllm_step_tokens_total",
+                             "tokens computed by step kind", ("kind",))
+_M_DECODE_STEPS = obs.counter(
+    "gllm_decode_steps_total",
+    "decode steps by fusion (fused counts each sub-step of a block)",
+    ("fused",))
+# Request latencies: TTFT = arrival to the first sampled token, TPOT =
+# the mean time between output tokens after the first, ITL = the time
+# between one output token and the next, queue = arrival to the first
+# admission. Tokens that commit together (a block) observe an ITL near 0:
+# the client receives them together
+_M_TTFT = obs.histogram("gllm_request_ttft_seconds",
+                        "time to first token per request")
+_M_TPOT = obs.histogram("gllm_request_tpot_seconds",
+                        "mean time per output token after the first",
+                        buckets=obs.FAST_LATENCY_BUCKETS)
+_M_ITL = obs.histogram("gllm_request_itl_seconds",
+                       "inter-token latency per sampled token",
+                       buckets=obs.FAST_LATENCY_BUCKETS)
+_M_E2E = obs.histogram("gllm_request_e2e_seconds",
+                       "arrival-to-finish latency per request")
+_M_QUEUE = obs.histogram("gllm_request_queue_seconds",
+                         "arrival-to-first-schedule wait per request")
+_M_FINISHED = obs.counter("gllm_requests_finished_total",
+                          "requests finished by reason", ("reason",))
+# decode-chain breaks under overlap scheduling, by reason (waiting /
+# pages / shape / finish / reform: ``Scheduler.chain_break_reason``)
+_M_CHAIN_BREAKS = obs.counter(
+    "gllm_chain_breaks_total",
+    "overlap decode-chain breaks by reason "
+    "(waiting/pages/shape/spec/finish)", ("reason",))
+# on-device finish: the finishes committed out of blocks, by the kind the
+# device saw, and the dead share of the latest block's row-sub-steps (a
+# row frozen, or a hole, while the block ran on)
+_M_ONDEV_FINISH = obs.counter(
+    "gllm_ondevice_finish_total",
+    "sequence finishes detected on device inside fused decode blocks",
+    ("kind",))
+_M_DEAD_FRAC = obs.gauge(
+    "gllm_dead_substep_frac",
+    "wasted (dead-row) sub-step fraction of the latest fused block")
+# the pipelined loop: entries dispatched and not yet collected after the
+# latest fill pass
+_M_INFLIGHT = obs.gauge(
+    "gllm_inflight_depth",
+    "dispatched-but-uncollected engine entries after the latest fill "
+    "pass (pipelined loop)")
 
 
 @dataclasses.dataclass
@@ -109,18 +176,25 @@ class LLM:
     def __init__(
         self,
         *,
-        model_cfg: ModelConfig,
+        model_cfg: Optional[ModelConfig] = None,
         config: Optional[EngineConfig] = None,
         params=None,
         tokenizer=None,
         device=None,
     ):
-        """``model_cfg`` is required: no checkpoint config is read yet.
-        ``params`` (this port's layout, see models/convert.py) defaults to
-        dummy weights drawn from ``config.seed``."""
+        """``model_cfg`` defaults to the one ``config.model``'s directory
+        describes (its ``config.json``). ``params`` (this port's layout,
+        see models/convert.py) defaults to dummy weights drawn from
+        ``config.seed``."""
         config = config or EngineConfig()
         config.validate()
         self.config = config
+        if model_cfg is None:
+            if not config.model:
+                raise ValueError("pass model_cfg or config.model, a "
+                                 "directory holding a config.json")
+            from gllm_tpu_torch.models.loader import load_hf_config
+            model_cfg = from_hf_config(load_hf_config(config.model))
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer
         self.device = resolve_device(device)
@@ -151,6 +225,10 @@ class LLM:
         self._next_seq_id = 0
         # dispatched entries not yet collected, oldest first
         self._in_flight: collections.deque = collections.deque()
+        # the batch (or block's chain) a runner call is launching; set
+        # only while that call runs, so that a launch that raises is in
+        # the failure's reach (quarantine_step_failure)
+        self._launching = None
         # decode steps chained while prefill work waited (the
         # chain_under_prefill ramp), and whether this interruption's
         # "waiting" break is counted
@@ -215,7 +293,8 @@ class LLM:
     def _allocate_seq(self, token_ids: List[int],
                       sp: SamplingParams) -> Sequence:
         sp.validate()
-        seq = Sequence(self._next_seq_id, token_ids, sp)
+        seq = Sequence(self._next_seq_id, token_ids, sp,
+                       arrival_time=time.monotonic())
         self._next_seq_id += 1
         return seq
 
@@ -290,7 +369,7 @@ class LLM:
                     prev = tip[0]
                     if (not self._yield_noted
                             and prev.num_decode == prev.num_seqs):
-                        self.chain_breaks["waiting"] += 1
+                        self._note_chain_break("waiting")
                         self._yield_noted = True
                     self._chained_under_pressure = 0
                 if allow:
@@ -302,7 +381,7 @@ class LLM:
                             # retired under the unified step: the mixed
                             # re-form below seats the ready sequences
                             reason = "reform"
-                        self.chain_breaks[reason] += 1
+                        self._note_chain_break(reason)
                         if cfg.pipelined_loop and self._dispatch_reform(
                                 prev_batch, prev_handle, pressure, multi,
                                 mixed=unified):
@@ -315,13 +394,11 @@ class LLM:
                         self._chained_under_pressure += len(chain)
                     self._yield_noted = False
                     if len(chain) > 1:
-                        self._dispatch(InFlight(
-                            chain, self.runner.step_multi(chain, prev_handle),
-                            chained=True))
+                        self._launch(self.runner.step_multi, chain,
+                                     prev_handle, chained=True)
                     else:
-                        self._dispatch(InFlight(
-                            chain[0], self.runner.step_async_chained(
-                                chain[0], prev_handle), chained=True))
+                        self._launch(self.runner.step_async_chained,
+                                     chain[0], prev_handle, chained=True)
                     continue
             batch = self.scheduler.schedule_once()
             if batch is None:
@@ -340,34 +417,45 @@ class LLM:
                 links = self._schedule_multi_links(batch, multi - 1)
                 if links:
                     chain = [self._block_root(batch, links)] + links
-                    self._dispatch(InFlight(
-                        chain, self.runner.step_multi(chain), roots=True))
+                    self._launch(self.runner.step_multi, chain, roots=True)
                     self._yield_noted = False
                     continue
-            entry = InFlight(batch, self.runner.step_async(batch),
-                             roots=batch.num_decode == batch.num_seqs)
-            self._dispatch(entry)
+            entry = self._launch(self.runner.step_async, batch,
+                                 roots=batch.num_decode == batch.num_seqs)
             if entry.roots:
                 self._yield_noted = False
-        if cfg.pipelined_loop and not ran_dry \
-                and len(self._in_flight) >= depth:
-            self.stalls["depth"] += 1
+        if cfg.pipelined_loop:
+            _M_INFLIGHT.set(len(self._in_flight))
+            if not ran_dry and len(self._in_flight) >= depth:
+                self.stalls["depth"] += 1
         if not self._in_flight:
             return []
         entry = self._in_flight.popleft()
+        block = isinstance(entry.batch, list)
+        try:
+            # a device fault surfaces here, at the wait for the tokens
+            if entry.invalid:
+                # its tokens never commit: the sync path schedules the
+                # same positions again. A block is collected all the same
+                # (it is the oldest entry), so that its executed sub-steps
+                # count
+                if block:
+                    self.runner.collect(entry.handle)
+                tokens = None
+            else:
+                tokens = self.runner.collect(entry.handle)
+        except Exception:
+            # the failed entry stays in flight, so that
+            # quarantine_step_failure drops its sequences too
+            self._in_flight.appendleft(entry)
+            raise
         if not self._in_flight:
             # drained: the tip is collected; the next chain roots afresh
             self._chain_tip = None
-        block = isinstance(entry.batch, list)
-        if entry.invalid:
-            # its tokens never commit: the sync path schedules the same
-            # positions again. A block is collected all the same (it is
-            # the oldest entry), so that its executed sub-steps count
-            if block:
-                self.runner.collect(entry.handle)
+        if tokens is None:
             self.scheduler.discard_batch(entry.batch)
             return []
-        tokens = self.runner.collect(entry.handle)
+        self._record_step(entry.batch)
         if not block:
             self.hole_substeps += _holes(entry.batch)
             outs = self.scheduler.process_output(
@@ -385,6 +473,19 @@ class LLM:
         if cfg.ondevice_finish:
             self._count_ondevice_finishes(outs)
         return self._commit_outputs(outs)
+
+    def _launch(self, run, batch, *prev, **flags) -> InFlight:
+        """Launch ``batch`` (a block's chain) with the runner call ``run``
+        off ``prev`` (the handle it chains off, if any) and put it in
+        flight. A launch that raises (a graph first met while serving is
+        captured there) leaves the batch in ``_launching``: its rows'
+        pages and in-flight counts are already taken, so the quarantine
+        must drop them with the entries in flight."""
+        self._launching = batch
+        entry = InFlight(batch, run(batch, *prev), **flags)
+        self._launching = None
+        self._dispatch(entry)
+        return entry
 
     def _dispatch(self, entry: InFlight) -> None:
         """Put ``entry`` in flight and count it; under persistent slots a
@@ -406,24 +507,59 @@ class LLM:
                 and (entry.chained or entry.roots)):
             self._chain_tip = entry.tip
 
+    def _note_chain_break(self, reason: str) -> None:
+        self.chain_breaks[reason] += 1
+        _M_CHAIN_BREAKS.inc(reason=reason)
+
+    def _record_step(self, batch) -> None:
+        """The step metrics of one collected entry (JAX's
+        ``_record_step:1312``, its counters): steps and tokens by kind,
+        and decode steps by fusion (a block's scheduled sub-steps)."""
+        fused = isinstance(batch, list)
+        b = batch[-1] if fused else batch
+        mix = None
+        if fused:
+            kind = "fused_block"
+            tokens = sum(x.total_tokens for x in batch)
+        elif self.unified:
+            kind = "unified_step"
+            mix = ("mixed" if any(
+                it.num_new_tokens > 1
+                or it.computed_before < it.seq.prompt_len
+                for it in b.items if it.seq.seq_id != HOLE_SEQ_ID)
+                else "decode")
+            tokens = b.total_tokens
+        else:
+            kind = "decode" if b.num_decode == b.num_seqs else "prefill"
+            tokens = b.total_tokens
+        _M_STEPS.inc(kind=kind)
+        _M_STEP_TOKENS.inc(tokens, kind=kind)
+        if kind == "decode" or mix == "decode":
+            _M_DECODE_STEPS.inc(fused="false")
+        elif fused:
+            _M_DECODE_STEPS.inc(len(batch), fused="true")
+
     # ---- blocks -----------------------------------------------------------
 
-    def _fuse_ok(self) -> bool:
-        """May a batch ride a block? Not a hybrid model's: its GDN layers
-        keep the single-step chain (JAX's ``_fuse_ok``, whose other gates,
-        logit_bias, logprobs and stop strings, are options this port
+    def _fuse_ok(self, batch) -> bool:
+        """May ``batch``'s sequences ride a block (JAX's ``_fuse_ok``)?
+        Not a hybrid model's (its GDN layers keep the single-step chain),
+        nor one with stop strings, which are checked between steps (the
+        other gates, logit_bias and logprobs, are options this port
         refuses)."""
-        return not self.runner.hybrid
+        if self.runner.hybrid:
+            return False
+        return not any(it.seq.sampling_params.stop for it in batch.items)
 
     def _schedule_multi(self, prev_batch, multi: int) -> list:
         """Up to ``multi`` links off ``prev_batch`` for one dispatch."""
         return self.scheduler.schedule_chain(
-            prev_batch, multi if self._fuse_ok() else 1)
+            prev_batch, multi if self._fuse_ok(prev_batch) else 1)
 
     def _schedule_multi_links(self, batch, k_max: int) -> list:
         """Links to fuse behind ``batch``, which becomes the block's first
         step."""
-        if k_max < 1 or not self._fuse_ok():
+        if k_max < 1 or not self._fuse_ok(batch):
             return []
         return self.scheduler.schedule_chain(batch, k_max,
                                              include_prev=True)
@@ -440,9 +576,14 @@ class LLM:
         """Count a collected block: by K, its executed sub-steps (the
         latest finish step: fewer than K when every row finished early),
         its dead row-sub-steps among the rows of sequences, and its hole
-        row-sub-steps."""
+        row-sub-steps; under on-device finish, the dead-fraction gauge over
+        every row, holes included, as JAX's
+        ``_ondevice_block_stats:1139``."""
         finish = finish[:chain[0].num_seqs]
         k_exec = int(finish.max()) if finish.size else 0
+        if self.config.ondevice_finish and k_exec and finish.size:
+            _M_DEAD_FRAC.set(int((k_exec - finish).sum())
+                             / (k_exec * finish.size))
         live = np.array([it.seq.seq_id != HOLE_SEQ_ID
                          for it in chain[0].items], bool)
         self.blocks[len(chain)] += 1
@@ -456,16 +597,24 @@ class LLM:
         eos, stop (a stop token) or length."""
         for out in outs:
             if out.finish_reason == "length":
-                self.ondevice_finishes["length"] += 1
+                kind = "length"
             elif out.finish_reason == "stop":
                 sp = out.seq.sampling_params
                 eos = (not sp.ignore_eos
                        and out.new_token_id in self.eos_token_ids)
-                self.ondevice_finishes["eos" if eos else "stop"] += 1
+                kind = "eos" if eos else "stop"
+            else:
+                continue
+            self.ondevice_finishes[kind] += 1
+            _M_ONDEV_FINISH.inc(kind=kind)
 
     def _commit_outputs(self, outs: List[SeqOutput]) -> List[SeqOutput]:
-        """A finish that commits for a sequence some later entry promised
-        alive invalidates that entry and the entries chained off it."""
+        """The commit tail of one collected entry: stop strings (a match
+        trims the tokens after it), then reconciliation (a finish that
+        commits for a sequence some later entry promised alive invalidates
+        that entry and the entries chained off it), then the request
+        metrics."""
+        self._check_stop_strings(outs)
         if self.config.pipelined_loop and self._in_flight:
             finished = frozenset(o.seq.seq_id for o in outs
                                  if o.finish_reason is not None)
@@ -477,7 +626,70 @@ class LLM:
                         e.invalid and e.handle is self._chain_tip[1]
                         for e in self._in_flight):
                     self._chain_tip = None
+        self._observe_outputs(outs)
         return outs
+
+    def _observe_outputs(self, outs) -> None:
+        """The request metrics over one entry's outputs, after the stop
+        strings, so that finish reasons are final (JAX's
+        ``_observe_outputs:1434``)."""
+        if not outs:
+            return
+        now = time.monotonic()
+        for out in outs:
+            seq = out.seq
+            if out.new_token_id is not None:
+                if not seq.first_token_time:
+                    seq.first_token_time = now
+                    if seq.arrival_time:
+                        _M_TTFT.observe(now - seq.arrival_time)
+                        if seq.first_sched_time:
+                            _M_QUEUE.observe(seq.first_sched_time
+                                             - seq.arrival_time)
+                elif seq.last_token_time:
+                    _M_ITL.observe(now - seq.last_token_time)
+                seq.last_token_time = now
+            if out.finish_reason is not None:
+                _M_FINISHED.inc(reason=out.finish_reason)
+                if seq.arrival_time:
+                    _M_E2E.observe(now - seq.arrival_time)
+                n = seq.num_output_tokens
+                if n > 1 and seq.first_token_time:
+                    _M_TPOT.observe((seq.last_token_time
+                                     - seq.first_token_time) / (n - 1))
+
+    def _check_stop_strings(self, outs) -> None:
+        """Stop strings, matched on the host over the incrementally
+        detokenized output (JAX's ``_check_stop_strings:1803``); the text
+        is cut before the match (OpenAI's rule), and only the tail window
+        (the new text and ``len(stop) - 1`` characters before it) is
+        scanned again. A sequence with stop strings commits one token a
+        step: ``_fuse_ok`` keeps it out of blocks, the scheduler keeps it
+        out of hole joins, and the port has no speculative decoding. So
+        the token that completes a match is the one just committed, and
+        nothing after it needs trimming (JAX replays a speculative
+        commit's tokens one at a time here)."""
+        for out in outs:
+            seq = out.seq
+            sp = seq.sampling_params
+            if (out.new_token_id is None or not sp.stop
+                    or self.tokenizer is None):
+                continue
+            if not self._stream_detokenize(seq):
+                continue
+            max_stop = max(len(x) for x in sp.stop)
+            start = max(0, getattr(seq, "_stop_scanned", 0) - max_stop + 1)
+            window = seq.output_text[start:]
+            hit = min((start + idx for idx in (window.find(x)
+                                               for x in sp.stop)
+                       if idx >= 0), default=-1)
+            seq._stop_scanned = len(seq.output_text)
+            if hit < 0:
+                continue
+            seq.output_text = seq.output_text[:hit]
+            seq._stop_scanned = len(seq.output_text)
+            self.scheduler.finish_seq(seq, "stop")
+            seq.finish_reason = out.finish_reason = "stop"
 
     def _dispatch_reform(self, prev_batch, prev_handle, pressure: bool,
                          multi: int, mixed: bool = False) -> bool:
@@ -517,13 +729,11 @@ class LLM:
                  if multi > 1 and decode_only else [])
         if links:
             chain = [self._block_root(batch, links)] + links
-            self._dispatch(InFlight(
-                chain, self.runner.step_multi(chain, prev_handle),
-                chained=True, promises=promises))
+            self._launch(self.runner.step_multi, chain, prev_handle,
+                         chained=True, promises=promises)
         else:
-            self._dispatch(InFlight(
-                batch, self.runner.step_async_chained(batch, prev_handle),
-                chained=True, promises=promises))
+            self._launch(self.runner.step_async_chained, batch, prev_handle,
+                         chained=True, promises=promises)
         self._yield_noted = False
         if pressure:
             self._chained_under_pressure += 1 + len(links)
@@ -560,15 +770,40 @@ class LLM:
         for s in seqs:
             self.add_seq(s)
         while self.has_unfinished:
-            self.step()
+            for out in self.step():
+                if out.new_token_id is not None and self.tokenizer is not None:
+                    self._stream_detokenize(out.seq)
         return [self._finalize(s) for s in seqs]
 
     # ---- output -----------------------------------------------------------
 
+    def _stream_detokenize(self, seq: Sequence) -> str:
+        text, seq.detok_prefix_offset, seq.detok_read_offset = (
+            detokenize_incrementally(self.tokenizer, seq.token_ids,
+                                     seq.detok_prefix_offset,
+                                     seq.detok_read_offset))
+        seq.output_text += text
+        return text
+
     def _finalize(self, seq: Sequence) -> RequestOutput:
-        text = ""
+        text = seq.output_text
         if self.tokenizer is not None:
-            text = self.tokenizer.decode(seq.output_token_ids)
+            if seq.detok_read_offset < seq.num_tokens:
+                # the tokens the partial-character check still holds back
+                # go out, even if they end in an incomplete character
+                done = self.tokenizer.decode(
+                    seq.token_ids[seq.detok_prefix_offset:
+                                  seq.detok_read_offset])
+                full = self.tokenizer.decode(
+                    seq.token_ids[seq.detok_prefix_offset:])
+                text += full[len(done):]
+                seq.detok_read_offset = seq.num_tokens
+                seq.output_text = text
+            elif not text and seq.detok_read_offset <= seq.prompt_len:
+                # never detokenized; a stop string's cut to "" leaves the
+                # read offset at the end and is not undone here
+                text = self.tokenizer.decode(seq.output_token_ids)
+                seq.output_text = text
         return RequestOutput(
             seq_id=seq.seq_id,
             prompt_token_ids=seq.token_ids[:seq.prompt_len],
@@ -581,6 +816,46 @@ class LLM:
 
     def abort(self, seq_id: int) -> None:
         self.scheduler.abort_seq(seq_id)
+
+    # ---- fault isolation --------------------------------------------------
+
+    def quarantine_step_failure(self, everything: bool = False
+                                ) -> List[int]:
+        """Bring the engine back to a consistent state after ``step()``
+        raised (JAX's ``quarantine_step_failure:2101``). The entries in
+        flight (the failed one included: ``step`` keeps it there) and a
+        batch whose launch raised are the failure's reach (JAX leaves the
+        last out): their device state is unknown, so their sequences
+        are dropped wholesale (pages freed, status ABORTED, in-flight
+        counts zeroed), with the chain tip; the waiting queue and the
+        running sequences of no such entry stay and are scheduled again.
+        When neither reaches a sequence (the failure came before a
+        launch, in scheduling or staging), the running set is the suspect: scheduling it again would retry
+        the failing step. ``everything`` (the unhealthy latch) drops the
+        waiting queue too. Returns the dropped sequence ids, for the
+        serving engine's error chunks."""
+        failed: set = set()
+        reach = [entry.batch for entry in self._in_flight]
+        if self._launching is not None:
+            reach.append(self._launching)
+        for batch in reach:
+            for b in (batch if isinstance(batch, list) else [batch]):
+                for it in b.items:
+                    if it.seq.seq_id != HOLE_SEQ_ID:
+                        failed.add(it.seq.seq_id)
+        self._in_flight.clear()
+        self._launching = None
+        self._chain_tip = None
+        self._chained_under_pressure = 0
+        self._yield_noted = False
+        sched = self.scheduler
+        if everything:
+            failed.update(x.seq_id for x in sched.running)
+            failed.update(x.seq_id for x in sched.waiting)
+        elif not failed:
+            failed.update(x.seq_id for x in sched.running)
+        sched.quarantine(failed)
+        return sorted(failed)
 
 
 def _holes(batch) -> int:

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import time
 import weakref
 from typing import Callable, Dict, Hashable, NamedTuple, Tuple
@@ -200,8 +201,18 @@ class DecodeGraphs:
         graph = torch.cuda.CUDAGraph()
         if sampled:
             graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, pool=self.pool):
-            out = body(self.generator, graph)
+        # no garbage collection inside the capture: a collection there can
+        # free an engine dropped earlier in a reference cycle, whose graphs'
+        # destruction global capture mode forbids (the capture is then
+        # invalidated and its next cuBLAS call fails)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = body(self.generator, graph)
+        finally:
+            if collecting:
+                gc.enable()
         delta = {k: n - before[k] for k, n in launch_counts().items()
                  if n != before[k]}
         if substeps:

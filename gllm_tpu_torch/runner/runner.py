@@ -143,8 +143,8 @@ class ModelRunner:
                                                  self.dtype, self.device)
         else:
             raise NotImplementedError(
-                "gllm_tpu_torch loads no checkpoint yet: use "
-                "load_format='dummy' or pass params")
+                "gllm_tpu_torch loads no checkpoint weights yet (ROADMAP "
+                "A 7): use load_format='dummy' or pass params")
         self.cos_sin = self.model.make_rope_table(model_cfg, self.device)
         self.hybrid = self.model.family == "hybrid"
         # hybrid: one GDN state slot per running sequence, and slot 0
@@ -409,7 +409,7 @@ class ModelRunner:
             if self.graphs.cuda and key not in self.graphs:
                 # captured over padding rows staged at the same views
                 batch = self.staging.upload(self.builder.padding(t, s, p))
-                self.graphs.capture(key, body, sampled=not all_greedy)
+                self._capture(key, body, sampled=not all_greedy)
         batch = self.staging.upload(host_batch)
         if prev is not None:
             self._splice(batch, sched_batch, prev)
@@ -488,14 +488,23 @@ class ModelRunner:
                     stop_ids=(np.full((s, e), -1, np.int32) if e
                               else None),
                     stop_from=np.zeros(s, np.int32) if e else None)))
-            self.graphs.capture(key, body, sampled=not all_greedy,
-                                substeps=K)
+            self._capture(key, body, sampled=not all_greedy, substeps=K)
         batch = self.staging.upload(host_batch)
         if prev is not None:
             self._splice(batch, first, prev)
         self._prologue(batch)
         out = self.graphs.run(key, body)
         return self._handle(out[:, :n], block=key)
+
+    def _capture(self, key, body, **kw) -> None:
+        """Capture ``key``'s graph. One first met while serving (outside
+        ``warmup``) is logged with its capture time: every stream waits
+        for it."""
+        t0 = time.monotonic()
+        self.graphs.capture(key, body, **kw)
+        if not self._warming:
+            logger.info("graph %s captured while serving in %.3f s", key,
+                        time.monotonic() - t0)
 
     def _block_body(self, batch, K: int, all_greedy: bool, odf: bool,
                     generator, graph) -> torch.Tensor:

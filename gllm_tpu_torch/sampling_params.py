@@ -2,8 +2,11 @@
 ``gllm_tpu/sampling_params.py``).
 
 The field set is the JAX package's, so a request object means the same in
-both packages. The fields this port does not implement yet (per-request
-seeds, penalties, logit_bias, logprobs, stop strings, deadlines) make
+both packages. Stop strings are matched on the host over the
+incrementally detokenized output (``LLM._check_stop_strings``), and
+``deadline_s`` is a wall-clock budget from submit that the serving engine
+enforces (finish reason "deadline"). The fields this port does not
+implement yet (per-request seeds, penalties, logit_bias, logprobs) make
 ``validate`` raise instead of being silently ignored.
 """
 
@@ -31,6 +34,10 @@ class SamplingParams:
     logprobs: Optional[int] = None
     prompt_logprobs: Optional[int] = None
     seed: Optional[int] = None
+    # wall-clock budget in seconds from submit: the serving engine aborts
+    # the request with finish reason "deadline" once it expires, waiting or
+    # generating. None defers to the engine-wide TTL
+    # (``EngineConfig.request_deadline_s``)
     deadline_s: Optional[float] = None
 
     def validate(self) -> None:
@@ -44,6 +51,10 @@ class SamplingParams:
             raise ValueError("min_p must be in [0, 1]")
         if self.max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
+        if any(not s for s in self.stop):
+            raise ValueError("stop strings must be non-empty")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError("deadline_s must be > 0")
         unported = []
         if self.seed is not None:
             unported.append("seed")
@@ -54,10 +65,6 @@ class SamplingParams:
             unported.append("logit_bias")
         if self.logprobs is not None or self.prompt_logprobs is not None:
             unported.append("logprobs")
-        if self.stop:
-            unported.append("stop strings")
-        if self.deadline_s is not None:
-            unported.append("deadline_s")
         if unported:
             raise NotImplementedError(
                 "not supported by gllm_tpu_torch yet: "

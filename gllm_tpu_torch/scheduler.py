@@ -42,22 +42,55 @@
   their input token is the host's) and compacts only when its live rows
   fall below its power-of-two sequence bucket.
 
+- fault isolation: ``quarantine`` drops the sequences of a failed step
+  wholesale (pages freed, in-flight counts zeroed, deferred frees
+  flushed, the hole sentinel's count reset) so that the engine returns to
+  idle instead of retrying the failed step.
+- metrics: the waiting, running and decode gauges and the KV use (set at
+  most once a second from ``schedule_once``, and by ``publish_stats``),
+  preemptions, admissions and the throttled prefill budget, under JAX's
+  names (``gllm_tpu/scheduler.py:52-72``).
+
 The JAX scheduler's speculative drafting, SSM snapshots
-(``_ssm_align_chunk``), host KV tier, spans and metrics belong to options
-this port does not implement yet, and are not copied.
+(``_ssm_align_chunk``), host KV tier and spans belong to options this port
+does not implement yet, and are not copied.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from collections import deque
 from typing import Deque, List, Optional, Tuple
 
 from gllm_tpu_torch.config import EngineConfig
 from gllm_tpu_torch.memory_manager import MemoryManager
+from gllm_tpu_torch.obs import metrics as obs
 from gllm_tpu_torch.sequence import (HOLE_SEQ_ID, Sequence, SequenceStatus,
                                      make_hole_seq)
 from gllm_tpu_torch.utils import bucket_size, cdiv
+
+logger = logging.getLogger(__name__)
+
+# Scheduler metrics: host gauges and counters set from numbers the
+# scheduler already has. The gauges carry the dp replica label of the JAX
+# package's ("0": this port runs one replica).
+_M_WAITING = obs.gauge("gllm_sched_waiting_seqs",
+                       "sequences queued waiting for admission", ("dp",))
+_M_RUNNING = obs.gauge("gllm_sched_running_seqs",
+                       "sequences admitted and holding KV pages", ("dp",))
+_M_DECODE = obs.gauge("gllm_sched_decode_seqs",
+                      "running sequences in the decode phase", ("dp",))
+_M_KV_UTIL = obs.gauge("gllm_sched_kv_util",
+                       "fraction of KV pages in use (0..1)", ("dp",))
+_M_PREEMPT = obs.counter("gllm_sched_preemptions_total",
+                         "sequences preempted under memory pressure")
+_M_ADMIT = obs.counter("gllm_sched_admitted_total",
+                       "sequences admitted from the waiting queue")
+_M_BUDGET = obs.gauge("gllm_sched_prefill_token_budget",
+                      "prefill token budget of the latest schedule pass",
+                      ("dp",))
 
 
 @dataclasses.dataclass
@@ -156,6 +189,7 @@ class Scheduler:
                                    self.sched_cfg.max_decode_seqs
                                    + self.sched_cfg.max_prefill_tokens)
         self.num_compactions = 0
+        self._last_stats_time = 0.0
 
     # ---- intake -----------------------------------------------------------
 
@@ -203,8 +237,10 @@ class Scheduler:
                            if s.num_remaining_tokens > 1)
         smooth = wait_tokens // max(1, cfg.iter_smooth)
         budget = min(budget, max(smooth, cfg.min_prefill_tokens))
-        return max(cfg.min_prefill_tokens,
-                   min(budget, cfg.max_prefill_tokens))
+        budget = max(cfg.min_prefill_tokens,
+                     min(budget, cfg.max_prefill_tokens))
+        _M_BUDGET.set(budget, dp="0")
+        return budget
 
     # ---- preemption -------------------------------------------------------
 
@@ -215,6 +251,7 @@ class Scheduler:
         victim.preempt()
         self.waiting.appendleft(victim)
         self.num_preemptions += 1
+        _M_PREEMPT.inc()
         self.new_token_ratio = self.sched_cfg.init_new_token_ratio
 
     def _preempt_one(self, protect: set[int]) -> bool:
@@ -262,6 +299,7 @@ class Scheduler:
             self._schedule_decode(items, decode_ready)
             self._schedule_prefill(items, self._prefill_token_budget())
 
+        self._maybe_log_stats()
         if not items:
             return None
         for it in items:
@@ -355,6 +393,11 @@ class Scheduler:
             self.mm.prepare_seq(seq)
             self.waiting.popleft()
             seq.status = SequenceStatus.RUNNING
+            if not seq.first_sched_time:
+                # the queue-time anchor; a preempted sequence keeps its
+                # first admission's
+                seq.first_sched_time = time.monotonic()
+            _M_ADMIT.inc()
             self.running.append(seq)
             items.append(ScheduledSeq(seq, n, seq.num_computed_tokens))
             token_budget -= n
@@ -496,10 +539,10 @@ class Scheduler:
         signature: ``chain_break_reason`` "waiting", and the caller
         re-forms a larger batch, unless the batch is already at the
         decode budget, where a re-form could not seat them either (they
-        wait, as under the legacy rotation). The options that keep a
-        sequence out of a fused chain in JAX (penalties, logit_bias,
-        logprobs, stop strings) are refused by this port's
-        ``SamplingParams.validate``, so every ready sequence may join."""
+        wait, as under the legacy rotation). A sequence with stop strings
+        joins no chain (they are checked between steps), as in JAX; the
+        other options that keep one out there (penalties, logit_bias,
+        logprobs) are refused by this port's ``SamplingParams.validate``."""
         in_chain = {seq.seq_id for seq, _ in base}
         ready = [s for s in self.running
                  if s.num_remaining_tokens == 1 and not s.num_in_flight
@@ -507,7 +550,8 @@ class Scheduler:
                  and s.seq_id not in self._aborted_ids]
         if not ready:
             return []
-        joins = list(zip(hole_rows, ready))
+        joins = list(zip(hole_rows, (s for s in ready
+                                     if not s.sampling_params.stop)))
         if (len(joins) < len(ready)
                 and len(base) < self.sched_cfg.max_decode_seqs):
             self.chain_break_reason = "waiting"
@@ -702,7 +746,44 @@ class Scheduler:
         else:
             self.mm.free_seq(seq)
 
-    # ---- aborts -----------------------------------------------------------
+    # ---- aborts, quarantine, stats ----------------------------------------
+
+    def quarantine(self, seq_ids) -> List[Sequence]:
+        """Drop the given sequences wholesale after a step failed (the
+        engine's ``quarantine_step_failure``; JAX's ``quarantine:1220``):
+        their device state is unknown. Their pages free at once (the engine
+        has already dropped its entries in flight, so nothing will write
+        into them), their in-flight counts reset, a finished one's deferred
+        free goes through, and they leave both queues with status ABORTED
+        and finish reason "error", so that ``has_unfinished`` can fall to
+        False instead of the failed step being retried."""
+        ids = set(seq_ids)
+        dropped: List[Sequence] = []
+        for seq in [s for s in self.running if s.seq_id in ids]:
+            self.running.remove(seq)
+            self._quarantine_one(seq, dropped)
+        for seq in [s for s in self.waiting if s.seq_id in ids]:
+            self.waiting.remove(seq)
+            self._quarantine_one(seq, dropped)
+        for seq in [s for s in self._deferred_free if s.seq_id in ids]:
+            # finished already; its pages waited on an entry in flight that
+            # will never land now
+            self._deferred_free.discard(seq)
+            seq.num_in_flight = 0
+            self.mm.free_seq(seq)
+        self._aborted_ids -= ids
+        # the hole rows of the dropped entries never see their
+        # process_output decrements
+        self._hole_seq.num_in_flight = 0
+        return dropped
+
+    def _quarantine_one(self, seq: Sequence,
+                        dropped: List[Sequence]) -> None:
+        seq.num_in_flight = 0
+        seq.status = SequenceStatus.ABORTED
+        seq.finish_reason = "error"
+        self.mm.free_seq(seq)
+        dropped.append(seq)
 
     def _finish_abort(self, seq: Sequence) -> None:
         seq.status = SequenceStatus.ABORTED
@@ -729,3 +810,28 @@ class Scheduler:
     def _decay_ratio(self) -> None:
         self.new_token_ratio = max(self.sched_cfg.min_new_token_ratio,
                                    self.new_token_ratio - self._ratio_decay)
+
+    def _maybe_log_stats(self) -> None:
+        """The gauges and a stats line, at most once a second."""
+        now = time.monotonic()
+        if now - self._last_stats_time < 1.0:
+            return
+        self._last_stats_time = now
+        n_decode, util = self.publish_stats()
+        logger.info(
+            "sched: wait=%d run=%d prefill=%d decode=%d kv_util=%.1f%%",
+            len(self.waiting), len(self.running),
+            len(self.running) - n_decode, n_decode, util * 100.0)
+
+    def publish_stats(self):
+        """Set the waiting, running, decode and KV-use gauges from the
+        current state (the serving engine also calls it when the engine
+        goes idle, so that a scrape after a burst reads the idle state);
+        returns (decode sequences, KV use)."""
+        n_decode = sum(1 for s in self.running if s.num_remaining_tokens == 1)
+        util = 1.0 - self.mm.free_ratio
+        _M_WAITING.set(len(self.waiting), dp="0")
+        _M_RUNNING.set(len(self.running), dp="0")
+        _M_DECODE.set(n_decode, dp="0")
+        _M_KV_UTIL.set(util, dp="0")
+        return n_decode, util

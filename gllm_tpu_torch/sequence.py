@@ -54,11 +54,20 @@ class Sequence:
         seq_id: int,
         prompt_token_ids: List[int],
         sampling_params: Optional[SamplingParams] = None,
+        arrival_time: float = 0.0,
     ):
         self.seq_id = seq_id
         self.token_ids: List[int] = list(prompt_token_ids)
         self.prompt_len = len(prompt_token_ids)
         self.sampling_params = sampling_params or SamplingParams()
+        self.arrival_time = arrival_time
+        # the request's latency anchors (TTFT, TPOT, ITL, queue and
+        # end-to-end histograms): set by the scheduler at the first
+        # admission and by the engine as sampled tokens commit; 0.0 = not
+        # reached yet. A preemption keeps them
+        self.first_sched_time = 0.0
+        self.first_token_time = 0.0
+        self.last_token_time = 0.0
         self.status = SequenceStatus.WAITING
         self.num_computed_tokens = 0
         # Scheduled chunks of this seq not yet collected; an in-flight seq
@@ -70,6 +79,13 @@ class Sequence:
         self.ssm_slot: Optional[int] = None
         self._pt_np = None   # np cache of page_table (builder fast path)
         self.finish_reason: Optional[str] = None
+        # incremental detokenization: the window's start and the first
+        # token not yet emitted. The window starts a few tokens inside the
+        # prompt, so that a word-boundary marker renders as the leading
+        # space of the first output token
+        self.detok_prefix_offset = max(0, len(prompt_token_ids) - 6)
+        self.detok_read_offset = len(prompt_token_ids)
+        self.output_text = ""
 
     # ---- token accounting -------------------------------------------------
 
@@ -136,6 +152,10 @@ class Sequence:
         if self.num_output_tokens >= sp.max_tokens:
             return "length"
         return None
+
+    @property
+    def is_finished(self) -> bool:
+        return self.status in (SequenceStatus.FINISHED, SequenceStatus.ABORTED)
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"Sequence(id={self.seq_id}, tokens={self.num_tokens}, "

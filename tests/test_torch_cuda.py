@@ -2566,3 +2566,127 @@ def test_capture_error_raises_with_no_eager_rerun(cuda_device):
     # capture: no third, eager run of the decode step
     assert len(calls) == 3 and calls[1:] == [1, 1]
     assert runner.num_shape_signatures == 0
+
+
+@pytest.mark.cuda
+def test_capture_never_collects_a_freed_engine(cuda_device, monkeypatch):
+    """An engine dropped in a reference cycle is freed by the cyclic
+    collector, whenever it runs; inside another engine's capture, the
+    destruction of its graphs would invalidate the capture (global
+    capture mode). The collector is off while a graph captures: here a
+    collection is forced at every capture's start wherever the collector
+    is on, and the second engine still captures and serves."""
+    import gc
+    old = _tiny_engine(cuda_device, dtype="bfloat16")
+    _serve_greedy(old)
+    assert len(old.runner.graphs)
+    enter = torch.cuda.graphs.graph.__enter__
+
+    def enter_and_collect(self):
+        out = enter(self)
+        if gc.isenabled():
+            gc.collect()
+        return out
+    monkeypatch.setattr(torch.cuda.graphs.graph, "__enter__",
+                        enter_and_collect)
+    # threshold 0: no collection but the forced ones (the collector stays
+    # on), so the old engine lives until the new one's first capture
+    thresholds = gc.get_threshold()
+    gc.set_threshold(0)
+    try:
+        old.cycle = old
+        del old
+        new = _tiny_engine(cuda_device, dtype="bfloat16")
+        got = _serve_greedy(new)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert all(got) and len(new.runner.graphs)
+    _drained(new)
+
+
+# ---- the serving front end ---------------------------------------------------
+
+class _IdTokenizer:
+    """Each token decodes to ``<id>``: a stream's text gives its ids back."""
+
+    def decode(self, ids, skip_special_tokens=False):
+        return "".join(f"<{int(i)}>" for i in ids)
+
+
+def _http_stream(port, prompt, max_tokens):
+    """One streamed greedy completion over HTTP: its token ids, read back
+    from the chunks' texts, and its finish reason."""
+    import http.client
+    import json
+    import re
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", "/v1/completions", body=json.dumps({
+        "prompt": prompt, "max_tokens": max_tokens, "temperature": 0.0,
+        "ignore_eos": True, "stream": True}),
+        headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200
+    events = [e[6:] for e in resp.read().decode().split("\n\n")
+              if e.startswith("data: ")]
+    conn.close()
+    assert events[-1] == "[DONE]"
+    chunks = [json.loads(e)["choices"][0] for e in events[:-1]]
+    text = "".join(c["text"] for c in chunks)
+    return ([int(t) for t in re.findall(r"<(\d+)>", text)],
+            chunks[-1]["finish_reason"], len(chunks))
+
+
+@pytest.mark.cuda
+def test_http_streams_equal_offline_generate_on_card(cuda_device):
+    """An in-process server (``serve``) over a 2-layer float32 model under
+    the smoke server's flags (the unified step under overlap, persistent
+    slots, blocks under on-device finish): twelve greedy streams over HTTP,
+    at once and staggered, equal a second engine's offline ``generate`` on
+    the same weights and flags (at float32 the port's batching does not
+    move greedy tokens); K1u served them, and every page comes back."""
+    import threading
+    import time
+    from gllm_tpu_torch.entrypoints.api_server import serve
+    from gllm_tpu_torch.runner import graphs
+    served = _tiny_engine(cuda_device, **ABSORB_FLAGS)
+    served.tokenizer = _IdTokenizer()
+    offline = _tiny_engine(cuda_device, params=served.runner.params,
+                           **ABSORB_FLAGS)
+    prompts, sps = _greedy_workload()
+    want = [o.output_token_ids for o in offline.generate(
+        prompt_token_ids=prompts, sampling_params=sps)]
+    httpd = serve(served, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    before = graphs.launch_counts()
+    try:
+        for stagger in (0.0, 0.05):
+            got = [None] * len(prompts)
+
+            def run(i):
+                time.sleep(i * stagger)
+                got[i] = _http_stream(port, prompts[i], sps[i].max_tokens)
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            for i, ((ids, fin, n), w) in enumerate(zip(got, want)):
+                assert (fin, n) == ("length", len(w)), (i, fin, n)
+                if ids != w:
+                    j = next(k for k, (a, b) in enumerate(zip(ids, w))
+                             if a != b)
+                    pytest.fail(f"stagger {stagger}: request {i} parts at "
+                                f"token {j}: {ids[j]} over HTTP, {w[j]} "
+                                f"offline")
+    finally:
+        httpd.shutdown()
+        httpd.state.engine.shutdown()
+        httpd.server_close()
+    after = graphs.launch_counts()
+    launched = {k for (fn, k), n in after.items()
+                if k is not None and n > before.get((fn, k), 0)}
+    assert launched == {"ragged_paged_attention_unified"}, launched
+    _drained(served)
+    _counters_zero(cuda_device)
