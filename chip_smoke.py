@@ -38,7 +38,9 @@ non-zero exit code and no result line:
              the decode classes of K1u (over a bf16 and an fp8 cache) and
              K1um (over each latent) also on the decode batch with every
              fourth row a hole row of a persistent-slot chain (context one
-             token in the dummy page 0), at the same tolerances
+             token in the dummy page 0), at the same tolerances; and K1,
+             K1u, K1m and K1um at the verify geometry of speculative
+             decoding (32 rows of 5 query tokens over contexts 260..1996)
 4. serve     LLM.generate at the full Llama-3.2-1B width (dummy bf16
              weights from a seed) for 16 greedy requests, in six
              configurations: the bf16 sync loop, an int8 KV cache, the
@@ -153,35 +155,60 @@ non-zero exit code and no result line:
              engine (blocks under on-device finish) and a slot engine
              (the same with persistent slots), whose tokens must be the
              same
-6. http      the port's OpenAI server as users start it (``python -m
+6. spec      prompt-lookup speculative decoding at full width, bf16:
+             Llama-3.2-1B and DeepSeek-V2-Lite (its depth cut to 8
+             layers, SPEC_DEEPSEEK_LAYERS) each under bench.py's full
+             profile (SPEC_FULL: fused spec blocks of up to 32 sub-steps,
+             4 drafts from 2-grams, the pipelined loop four deep, the
+             unified step, slots, on-device finish) beside the absorb
+             twin on the same weights, on the serve phase's 16 requests
+             and on a draft-friendly workload (prompts of a repeated
+             seeded segment), runs spec, absorb, absorb, spec: tok/s and
+             the ratio of medians, acceptance, tokens per dispatch,
+             sub-steps, dispatches and blocks by K, and launches (K1u /
+             K1um only, no plain version; spec blocks replayed from
+             warmup's graphs, none captured while running); one
+             host-driven run (SPEC_HOST: the sync loop's verify steps, K1
+             and K2 / K1m and K2m) of the draft-friendly workload; then
+             float32 greedy streams of the fused and the host-driven
+             engines against the plain sync engine's, Llama-3.2-1B at
+             full width with a head that makes its stream loop and leave
+             the loop its prompts draft (looping_llama: drafts rejected
+             and accepted, several a row; its sampled rows too) and
+             DeepSeek-V2-Lite with its depth cut to 3 layers: equal, or
+             parting only where the plain engine's top two logits lie
+             within SPEC_GAP_TOL (SPEC_SAMPLED_GAP for sampled rows)
+7. http      the port's OpenAI server as users start it (``python -m
              gllm_tpu_torch.entrypoints.api_server``), a process of its
              own: Llama-3.2-1B at full width (config.json written under
-             build/http_model, dummy bf16 weights from seed 0) under the
-             absorb twin's flags (the unified step under overlap,
-             persistent slots, blocks of 16 under on-device finish),
+             build/http_model, dummy bf16 weights from seed 0), once
+             under the absorb twin's flags (the unified step under
+             overlap, persistent slots, blocks of 16 under on-device
+             finish) and once under bench.py's full profile (HTTP_SERVERS),
              driven by benchmarks/backend_request_func.run_requests: 32
              streamed greedy requests (the serve phase's 16 prompts
              twice) at concurrency 16 with Poisson arrivals at 8 req/s,
              in passes until one captures no CUDA graph (at most
-             HTTP_PASSES; the server's warmup leaves out block keys that
-             this traffic meets, and each is captured, stalling every
-             stream, the first time it is met), each pass labelled with
-             the graphs it captured, then one whole request, one of
-             n = 2 and one stream closed after 4 chunks; every request
+             HTTP_PASSES; the first must capture none: warmup covers
+             every key this traffic meets, ROADMAP C 7), each pass
+             labelled with the graphs it captured, then one whole
+             request, one of n = 2 and one stream closed after 4 chunks;
+             every request
              finishes with its count,
              /metrics agrees with the client (finishes by reason, 1
              abort, TTFTs), the gauges and KV use read 0 afterwards, K1u
              is the only kernel the run launched (/server_info), and the
              server exits on SIGTERM; TTFT, TPOT and ITL at p50 / p99
              from the client and from the server's histograms, output
-             tok/s beside the serve phase's absorb twin, absorbs and
-             chain breaks, for every pass
-7. a {"kernels": [...]} line, then the last line
+             tok/s beside the serve phase's absorb twin, absorbs,
+             speculation's counts and chain breaks, for every pass
+8. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
 It imports nothing of jax or the JAX package.
 """
 
+import collections
 import dataclasses
 import gc
 import json
@@ -246,7 +273,13 @@ TOL = {"paged_decode_attention": DECODE_TOL,
        # K1um: K1m's ragged blocks and K2m's decode blocks, whose reasons
        # hold (bf16 probabilities into the tensor cores in both)
        "ragged_paged_attention_unified_mla": MLA_TOL,
-       "ragged_paged_attention_unified_mla_decode": MLA_TOL}
+       "ragged_paged_attention_unified_mla_decode": MLA_TOL,
+       # the verify rows of speculative decoding: the ragged classes at 5
+       # query tokens a row, whose reasons hold
+       "ragged_paged_attention_verify": RAGGED_TOL,
+       "ragged_paged_attention_unified_verify": RAGGED_TOL,
+       "ragged_paged_attention_mla_verify": MLA_TOL,
+       "ragged_paged_attention_unified_mla_verify": MLA_TOL}
 # fp8 modes: widening e4m3 is exact, and both sides read the same fp8
 # bytes, so each keeps its full-precision twin's tolerance
 FP8_TWINS = {
@@ -353,6 +386,24 @@ KERNELS = {
     "ragged_paged_attention_d256_fp8": (
         "ragged_paged_attention_fp8", "qwen3_next_fp8", "ragged_attention.cu",
         PALLAS + "ragged_attention.py:429 (head_dim 256, fp8 cache)"),
+    # the verify rows: the host-driven runs launch K1 / K1m (with their
+    # prefill chunks), the fused spec runs K1u / K1um (with every other
+    # step of theirs), in the spec phase
+    "ragged_paged_attention_verify": (
+        "ragged_paged_attention", "spec_llama_host", "ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429 (verify rows, q_len 5)"),
+    "ragged_paged_attention_unified_verify": (
+        "ragged_paged_attention_unified", "spec_llama", "ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429 (unified=True, verify rows)"),
+    "ragged_paged_attention_mla_verify": (
+        "ragged_paged_attention_mla", "spec_deepseek_host",
+        "mla_ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429 (v_cache=None, verify rows)"),
+    "ragged_paged_attention_unified_mla_verify": (
+        "ragged_paged_attention_unified_mla", "spec_deepseek",
+        "mla_unified_attention.cu",
+        PALLAS + "ragged_attention.py:429 (unified=True, v_cache=None, "
+        "verify rows)"),
     # no served configuration has a group of 7: its launches are those of
     # the same kernel (K1, bf16) in the bf16 serve configuration
     "ragged_paged_attention_g7": (
@@ -922,6 +973,7 @@ def phase_kernels():
 
     results.update(mla_kernels(dev))
     results.update(hybrid_kernels(dev))
+    results.update(verify_kernels(dev))
 
     for name, r in results.items():
         rtol, atol = TOL[name]
@@ -959,6 +1011,102 @@ def phase_kernels():
     if blind:
         raise SystemExit(f"[kernels] tolerance accepts the perturbed plain: "
                          f"{blind}")
+    return results
+
+
+def verify_shape(rng, dev, Hq=32, Hkv=8, D=64, quant=False):
+    """The verify rows of a spec block: S 32 rows of q_len 5 (the committed
+    token and spec_k = 4 drafts) over contexts 260..1996, no padding."""
+    page = 16
+    seqs = [(5, int(k)) for k in rng.integers(260, 1997, 32)]
+    kv = [k for _, k in seqs]
+    kc, vc, pt = _paged(rng, kv, Hkv, D, page, torch.bfloat16, dev)
+    cu = np.zeros(len(seqs) + 1, np.int32)
+    cu[1:] = np.cumsum([ql for ql, _ in seqs])
+    T = int(cu[-1])
+    kvl = torch.tensor(kv, dtype=torch.int32, device=dev)
+    return dict(q=_randn((T, Hq, D), dev), kc=kc, vc=vc, pt=pt, kvl=kvl,
+                kvl_drop=kvl - 1, cu=torch.from_numpy(cu).to(dev), cu_np=cu,
+                seqs=seqs, kv=kv, page=page, T_real=T, quant=None)
+
+
+def verify_kernels(dev):
+    """K1, K1u, K1m and K1um at the verify geometry of a spec block (the
+    ragged class: S 32 rows of 5 query tokens over contexts 260..1996):
+    K1 and K1u at Llama-3.2-1B's attention over a bf16 cache, K1m and
+    K1um at DeepSeek-V2-Lite's latent geometry over a bf16 latent. The
+    host-driven verify step launches K1 / K1m, the fused spec block K1u /
+    K1um (the unified step of bench.py's full profile)."""
+    from gllm_tpu_torch.ops.cuda import ragged_attention as rag
+    from gllm_tpu_torch.ops.rope import yarn_softmax_scale_mult
+    results = {}
+    rng = np.random.default_rng(SEED + 3)
+    Hq, Hkv, D = 32, 8, 64
+    scale = D ** -0.5
+    x = verify_shape(rng, dev, Hq, Hkv, D)
+    q, cu, kvl, pt, kv, page = (x["q"], x["cu"], x["kvl"], x["pt"], x["kv"],
+                                x["page"])
+    seqs, T, S = x["seqs"], x["T_real"], len(x["seqs"])
+    visible = sum(k - ql + t + 1 for ql, k in seqs for t in range(ql))
+    row = Hq * D * 2
+    io = 2 * T * row + (2 * S + 1) * 4 + sum(-(-k // page) for k in kv) * 4
+    shapes = (f"verify rows: S={S} of q_len 5 (T={T}), ctx {min(kv)}.."
+              f"{max(kv)} Hq={Hq} Hkv={Hkv} D={D} page={page} bf16 q, bf16 "
+              "cache")
+    kd, vd = _dense_kv(x["kc"], x["vc"], pt, kv, page)
+    for name, unified in (("ragged_paged_attention_verify", False),
+                          ("ragged_paged_attention_unified_verify", True)):
+        kw = dict(scale=scale, unified=unified)
+        results[name] = measure(
+            name,
+            lambda kw=kw: rag.ragged_paged_attention(q, x["kc"], x["vc"], cu,
+                                                     kvl, pt, **kw),
+            lambda kw=kw: rag.ragged_paged_attention_plain(
+                q, x["kc"], x["vc"], cu, kvl, pt, **kw),
+            lambda kw=kw: rag.ragged_paged_attention_plain(
+                q, x["kc"], x["vc"], cu, x["kvl_drop"], pt, **kw),
+            _mixed_library(x, kd, vd, scale), 20,
+            _kv_bytes(kv, page, Hkv, D, "bf16") + io, 4 * Hq * D * visible,
+            varlen=_varlen_library(x, x["kc"], x["vc"], scale),
+            shapes=shapes,
+            library_call="scaled_dot_product_attention(enable_gqa, bool "
+            "mask) over q padded to [S, Hq, 5, D] and K/V gathered dense per "
+            "sequence", varlen_library_call=VARLEN_CALL)
+    del x, kd, vd
+    cfg = deepseek_v2_lite()
+    Hq, lora, Dl = cfg.num_heads, cfg.kv_lora_rank, cfg.mla_cache_width
+    scale = ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+             * yarn_softmax_scale_mult(cfg.rope_scaling))
+    x = verify_shape(rng, dev, Hq=Hq, Hkv=1, D=Dl)
+    q, cu, kvl, pt, kv = x["q"], x["cu"], x["kvl"], x["pt"], x["kv"]
+    lat = x.pop("kc")
+    del x["vc"]
+    seqs = x["seqs"]
+    visible = sum(k - ql + t + 1 for ql, k in seqs for t in range(ql))
+    nbytes = (sum(kv) * Dl * 2 + T * Hq * Dl * 2 + T * Hq * lora * 2
+              + (2 * S + 1) * 4 + sum(-(-k // page) for k in kv) * 4)
+    kd = _dense_kv(lat, lat, pt, kv, page)[0]
+    for name, unified in (("ragged_paged_attention_mla_verify", False),
+                          ("ragged_paged_attention_unified_mla_verify",
+                           True)):
+        def run(fn, lens, unified=unified):
+            return fn(q, lat, None, cu, lens, pt, unified=unified,
+                      scale=scale, v_dim=lora)
+        results[name] = measure(
+            name, lambda run=run: run(rag.ragged_paged_attention, kvl),
+            lambda run=run: run(rag.ragged_paged_attention_plain, kvl),
+            lambda run=run: run(rag.ragged_paged_attention_plain,
+                                x["kvl_drop"]),
+            _mixed_library(x, kd, kd[..., :lora], scale), 20, nbytes,
+            2 * Hq * (Dl + lora) * visible,
+            shapes=(f"verify rows: S={S} of q_len 5 (T={T}), ctx "
+                    f"{min(kv)}..{max(kv)} Hq={Hq} latent [P, {page}, 1, "
+                    f"{Dl}] v_dim={lora} bf16 q, bf16 latent, scale "
+                    f"{scale:.5f}"),
+            library_call="scaled_dot_product_attention(enable_gqa) over the "
+            "latent gathered dense per sequence (k the 576-wide row, v its "
+            "leading 512), q padded to [S, 16, 5, 576] with a causal bool "
+            "mask")
     return results
 
 
@@ -1519,10 +1667,11 @@ OVERLAP = dict(pipelined_loop=True, overlap_depth=2)
 # pipelined loop at depth 2 with on-device finish, which lifts the chain
 # length to 16), on the same weights; the runs go eager, graph, overlap,
 # multi, multi, overlap, graph, eager, and the bf16 twin also serves the
-# stop-token run. Its warmup captures the single steps and the longest
-# blocks at the sequence buckets the workload takes (its graph pools then
-# fit beside the primary engine's and the overlap twin's); other blocks
-# are captured at first sight, in its first run
+# stop-token run. Its warmup captures the single steps at the sequence
+# buckets the workload takes and the longest block, greedy and sampled, at
+# the largest of them (its graph pools then fit beside the primary
+# engine's and the overlap twin's); the block at the smaller bucket is
+# captured at first sight, in its first run
 MULTI_TWINS = ("bf16", "deepseek")
 PROFILE_MULTI = ("bf16",)
 # the configuration whose multi twin serves the stop-token run: the dummy
@@ -2076,7 +2225,8 @@ def block_twin(name, mode, llm, kv_dtype, kw, flags):
     """A twin of ``llm`` on its weights under ``flags`` (the multi or the
     slot twin: blocks of decode steps, or a hybrid model's single-step
     chains), TWIN_PAGES KV pages (a hybrid twin 16 GDN slots), its single
-    steps and longest blocks captured at MULTI_BLOCK_BUCKETS; its memory
+    steps captured at MULTI_BLOCK_BUCKETS and its longest blocks at the
+    largest of them (the smaller block at first sight); its memory
     by pool logged. A twin that does not fit beside the primary engine
     raises by name."""
     from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, SamplingParams
@@ -2093,7 +2243,7 @@ def block_twin(name, mode, llm, kv_dtype, kw, flags):
                       sampling_params=SamplingParams(
                           temperature=0.0, max_tokens=2, ignore_eos=True))
         twin.runner.warmup(decode_buckets=MULTI_BLOCK_BUCKETS,
-                           block_buckets=MULTI_BLOCK_BUCKETS)
+                           block_buckets=MULTI_BLOCK_BUCKETS[-1:])
     except torch.OutOfMemoryError as e:
         raise SystemExit(
             f"[serve {name}] the {mode} twin does not fit beside the "
@@ -2730,13 +2880,390 @@ def phase_reference():
             f"[reference] {label}: the card launched {launched}"
 
 
-# ---- 6. http -------------------------------------------------------------
+# ---- 6. spec -------------------------------------------------------------
 
-# the server's engine: the smoke's absorb twin (the unified step under
-# overlap, persistent slots, blocks of 16 under on-device finish), bf16,
-# prefix caching off (the default)
+# bench.py's full profile (bench.py:608-636): the pipelined loop four
+# deep, the unified step, persistent slots, on-device finish, chains of
+# 32, and fused prompt-lookup speculation (4 drafts from 2-grams)
+SPEC_FULL = dict(overlap_scheduling=True, pipelined_loop=True,
+                 unified_step=True, overlap_depth=4, multi_step_decode=32,
+                 ondevice_finish=True, decode_slot_batching=True,
+                 spec_decode="ngram", spec_k=4, spec_ngram=2, spec_fused=True)
+# the host-driven run: the sync loop, whose decode rows carry drafts that
+# an eager verify step checks (the legacy kernels: K1 / K1m)
+SPEC_HOST = dict(spec_decode="ngram", spec_k=4, spec_ngram=2)
+# the sequence buckets of the spec phase's 16 requests, which the spec
+# engines warm
+SPEC_BUCKETS = (8, 16)
+# the spec phase's DeepSeek-V2-Lite keeps its full width and 8 of its 27
+# layers (1 dense, 7 MoE): at full depth its spec engines took 108.9 s,
+# and the whole smoke 1060.6 s of its 1200 s limit, on an H100 80GB HBM3
+# (700 W) with a slow host
+SPEC_DEEPSEEK_LAYERS = 8
+# float32 greedy streams of the spec engines may part from the plain sync
+# engine's only at a token where the plain engine's two largest logits lie
+# closer than this: the verify rows' attention (K1u's ragged class) and the
+# plain engine's decode steps (its decode blocks) sum in another order
+SPEC_GAP_TOL = 1e-3
+# a float32 sampled stream (temperature 1) of the looping Llama may part
+# from the plain greedy stream only where the plain engine's top two
+# logits lie within this: a draw off a token that leads every other of
+# the 128256 by 40 has a chance under 128256 * e^-40, about 5e-13
+SPEC_SAMPLED_GAP = 40.0
+
+
+def drafty_workload(vocab, n=16):
+    """Prompts of one seeded segment of 8..32 tokens repeated to 128..960
+    tokens, with 64..128 output tokens: prompt lookup drafts from them as
+    soon as the output repeats."""
+    rng = np.random.default_rng(SEED + 7)
+    prompts, max_tokens = [], []
+    for _ in range(n):
+        seg = rng.integers(1, vocab, int(rng.integers(8, 33))).tolist()
+        length = int(rng.integers(128, 961))
+        prompts.append((seg * (length // len(seg) + 1))[:length])
+        max_tokens.append(int(rng.integers(64, 129)))
+    return prompts, max_tokens
+
+
+def serving_workload(vocab):
+    """The serve phase's 16 requests."""
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 1537, 16)
+    max_tokens = rng.integers(32, 129, 16)
+    return ([rng.integers(1, vocab, int(n)).tolist() for n in lens],
+            [int(m) for m in max_tokens])
+
+
+def spec_run(e, prompts, max_tokens, temperature=0.0):
+    """One generate through ``e`` (greedy unless ``temperature``): (tok/s,
+    streams, the run's counts: dispatches by kind, drafts proposed and
+    accepted, verify steps, blocks by K, sub-steps, spec tokens by kind,
+    output tokens)."""
+    from gllm_tpu_torch import SamplingParams
+    params = [SamplingParams(temperature=temperature, max_tokens=m,
+                             ignore_eos=True) for m in max_tokens]
+    before = (collections.Counter(e.dispatches),
+              dict(e.scheduler.spec_stats), e.verify_steps,
+              collections.Counter(e.blocks), e.block_substeps,
+              collections.Counter(e.spec_tokens))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    outs = e.generate(prompt_token_ids=prompts, sampling_params=params)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    streams = [o.output_token_ids for o in outs]
+    n_out = sum(len(s) for s in streams)
+    disp = collections.Counter(e.dispatches) - before[0]
+    by_kind = collections.Counter()
+    for (kind, _), n in disp.items():
+        by_kind[kind] += n
+    stats = {k: v - before[1][k] for k, v in e.scheduler.spec_stats.items()}
+    return n_out / wall, streams, dict(
+        dispatches=dict(by_kind), proposed=stats["proposed"],
+        accepted=stats["accepted"],
+        accept_rate=(stats["accepted"] / stats["proposed"]
+                     if stats["proposed"] else None),
+        tokens_per_dispatch=n_out / max(1, sum(by_kind.values())),
+        verify_steps=e.verify_steps - before[2],
+        blocks=dict(collections.Counter(e.blocks) - before[3]),
+        substeps=e.block_substeps - before[4],
+        spec_tokens=dict(collections.Counter(e.spec_tokens) - before[5]),
+        output_tokens=n_out)
+
+
+def spec_family(name, model, by_kind):
+    """One family at full width, bf16: the spec engine under SPEC_FULL
+    (sized from the card's memory, warmed at SPEC_BUCKETS), its absorb
+    twin (the serve phase's flags, no speculation) and a host-driven twin
+    (SPEC_HOST), on one set of weights. The serving workload and the
+    draft-friendly one each run spec, absorb, absorb, spec (then one
+    host-driven run of the draft-friendly one): tok/s and their medians,
+    acceptance, tokens per dispatch, sub-steps, dispatches and blocks by
+    K. The spec runs launch only ``by_kind['spec']`` (and no plain
+    version), the host-driven run ``by_kind['host']``; the spec engine's
+    blocks are spec blocks replayed as CUDA graphs it warmed (none
+    captured while it runs), and the greedy streams of the three engines
+    are reported side by side (bf16 rows depend on their batch)."""
+    from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, SamplingParams
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    spec = LLM(model_cfg=model(), config=EngineConfig(
+        load_format="dummy", dtype="bfloat16", seed=SEED, **SPEC_FULL))
+    warm = SamplingParams(temperature=0.0, max_tokens=2, ignore_eos=True)
+    spec.generate(prompt_token_ids=[[1, 2, 3, 4]], sampling_params=warm)
+    t1 = time.monotonic()
+    spec.runner.warmup(decode_buckets=SPEC_BUCKETS, block_buckets=SPEC_BUCKETS)
+    g = spec.runner.graphs
+    warmed = set(g.keys)
+    log(f"[spec {name}] spec engine ({SPEC_FULL}): up in {t1 - t0:.1f} s, "
+        f"{spec.runner.num_pages} KV pages, activation headroom "
+        f"{spec.runner.activation_headroom() / 2**30:.2f} GiB; warmup "
+        f"{time.monotonic() - t1:.2f} s: {len(g)} graphs "
+        f"({sum(k[0] == 'spec' for k in g.keys)} spec blocks), pool "
+        f"{g.pool_bytes() / 2**20:.1f} MiB; memory by pool: "
+        f"{memory_breakdown(HOLDERS)}")
+    absorb = block_twin(name, "absorb", spec, "auto",
+                        dict(unified_step=True), ABSORB)
+    host = LLM(model_cfg=spec.model_cfg, params=spec.runner.params,
+               config=EngineConfig(load_format="dummy", dtype="bfloat16",
+                                   seed=SEED, cache=CacheConfig(
+                                       num_pages=TWIN_PAGES), **SPEC_HOST))
+    host.generate(prompt_token_ids=[[1, 2, 3, 4]], sampling_params=warm)
+    host.runner.warmup(decode_buckets=SPEC_BUCKETS)
+    vocab = spec.model_cfg.vocab_size
+    counts = collections.Counter()
+    host_counts = collections.Counter()
+    out = {}
+    for label, (prompts, max_tokens) in (
+            ("serving", serving_workload(vocab)),
+            ("draft-friendly", drafty_workload(vocab))):
+        rates = {"spec": [], "absorb": []}
+        runs = {}
+        for e, mode in ((spec, "spec"), (absorb, "absorb"),
+                        (absorb, "absorb"), (spec, "spec")):
+            reset_counters()
+            replays0 = g.replays
+            rate, streams, c = spec_run(e, prompts, max_tokens)
+            launched = read_counters()
+            rates[mode].append(rate)
+            runs.setdefault(mode, []).append((streams, c))
+            if mode == "spec":
+                counts.update(launched)
+                assert launched["plain_calls"] == 0, \
+                    f"[spec {name}] a plain version ran on the card"
+                bad = {k for k, n in launched.items()
+                       if n and k != "plain_calls"} - set(by_kind["spec"])
+                assert not bad, f"[spec {name}] the spec run launched {bad}"
+                assert g.replays > replays0, \
+                    f"[spec {name}] no CUDA graph replayed"
+                log(f"[spec {name}] {label} spec run: {rate:.1f} tok/s; "
+                    f"{c}; launches { {k: n for k, n in launched.items() if n} }")
+            else:
+                log(f"[spec {name}] {label} absorb run: {rate:.1f} tok/s; "
+                    f"dispatches {c['dispatches']}, sub-steps "
+                    f"{c['substeps']}, blocks by K {c['blocks']}")
+        new = {k for k in g.keys - warmed if k[0] == "spec"}
+        assert not new, f"[spec {name}] spec blocks captured while " \
+            f"serving: {new}"
+        ratio = median(rates["spec"]) / median(rates["absorb"])
+        c = runs["spec"][-1][1]
+        same = [runs["spec"][-1][0] == runs["absorb"][-1][0],
+                runs["spec"][0][0] == runs["spec"][-1][0]]
+        log(f"[spec {name}] {label}: spec {[round(r, 1) for r in rates['spec']]}"
+            f" tok/s against the absorb twin's "
+            f"{[round(r, 1) for r in rates['absorb']]} ({ratio:.3f}x of "
+            f"medians); acceptance {c['accept_rate']}, tokens per dispatch "
+            f"{c['tokens_per_dispatch']:.2f}, sub-steps {c['substeps']}, "
+            f"dispatches {c['dispatches']}, blocks by K {c['blocks']}, spec "
+            f"tokens {c['spec_tokens']}; greedy streams: spec = absorb "
+            f"{same[0]}, spec run 1 = run 2 {same[1]} (on {SMI})")
+        out[label] = dict(spec_rates=rates["spec"],
+                          absorb_rates=rates["absorb"], ratio=ratio, **c)
+        if label == "draft-friendly":
+            assert sum(c["blocks"].values()) > 0 and c["proposed"] > 0, \
+                f"[spec {name}] no spec block or no draft: {c}"
+            reset_counters()
+            rate, streams, hc = spec_run(host, prompts, max_tokens)
+            launched = read_counters()
+            host_counts.update(launched)
+            bad = {k for k, n in launched.items()
+                   if n and k != "plain_calls"} - set(by_kind["host"])
+            assert not bad and launched["plain_calls"] == 0, \
+                f"[spec {name}] the host-driven run launched {launched}"
+            assert hc["verify_steps"] > 0, \
+                f"[spec {name}] the host-driven run verified nothing"
+            log(f"[spec {name}] {label} host-driven run (sync loop): "
+                f"{rate:.1f} tok/s; {hc}; streams = spec "
+                f"{streams == runs['spec'][-1][0]}")
+            out["host"] = dict(rate=rate, **hc)
+    for e in (spec, absorb, host):
+        assert not e.has_unfinished and \
+            e.memory_manager.num_free_pages == \
+            e.memory_manager.allocator.num_total, \
+            f"[spec {name}] pages held after the runs"
+    assert split_counters_clear(), f"[spec {name}] split counters not zero"
+    weights = spec.runner.params
+    del spec, absorb, host
+    return out, dict(counts), dict(host_counts), weights
+
+
+def plain_top2_gap(plain, prompt, prefix):
+    """The plain engine's two largest logits' gap after ``prompt`` and
+    ``prefix``, prefilled in one sequence of its own."""
+    from gllm_tpu_torch import SamplingParams
+    seq = plain._allocate_seq(prompt + prefix, SamplingParams(
+        temperature=0.0, max_tokens=1, ignore_eos=True))
+    plain.add_seq(seq)
+    while True:
+        batch = plain.scheduler.schedule_once()
+        dev, max_q = plain.runner.prepare(batch)
+        logits = plain.runner.forward_logits(dev, max_q)[0].float()
+        plain.scheduler.process_output(batch, [int(logits.argmax())],
+                                       plain.eos_token_ids)
+        if seq.num_output_tokens:
+            break
+    top = torch.topk(logits, 2).values
+    return (top[0] - top[1]).item()
+
+
+def looping_llama(cfg, params, n=8):
+    """Float32 Llama-3.2-1B weights whose greedy stream loops and leaves
+    the loop prompt lookup drafts from, and their prompts. The tied dummy
+    Llama's greedy stream repeats its last token (its input embedding
+    leads the final hidden state), so an untied head whose column j is
+    the embedding of the token that j follows walks a successor map
+    instead. Each of the ``n`` requests has a segment of 6..12 tokens,
+    repeated to a prompt of 128..512 tokens, and a detour of 2..5 other
+    tokens: the map runs through the segment, leaves it into the detour
+    after one of its tokens and comes back to the next one; every token is
+    drawn once. Prompt lookup drafts the segment from the prompt, up to 4
+    tokens a row, the detour rejects them, and the stream's own earlier
+    loop drafts the rest. Returns (the untied config, weights with
+    ``lm_head``, prompts)."""
+    rng = np.random.default_rng(SEED + 11)
+    lens, detours = rng.integers(6, 13, n), rng.integers(2, 6, n)
+    toks = rng.choice(np.arange(1, cfg.vocab_size),
+                      int(lens.sum() + detours.sum()), replace=False)
+    succ = np.arange(cfg.vocab_size)
+    prompts, at = [], 0
+    for length, m in zip(lens, detours):
+        seg, det = toks[at:at + length], toks[at + length:at + length + m]
+        at += length + m
+        b = int(rng.integers(length))
+        loop = [*seg[:b + 1], *det, *seg[b + 1:]]
+        succ[loop] = loop[1:] + loop[:1]
+        size = int(rng.integers(128, 513))
+        prompts.append((seg.tolist() * (size // length + 1))[:size])
+    # column j of the head: the embedding of the token whose successor is j
+    follows = torch.as_tensor(np.argsort(succ), device=params["embed"].device)
+    params = dict(params, lm_head=params["embed"][follows].t().contiguous())
+    cfg = dataclasses.replace(cfg, tie_word_embeddings=False)
+    return cfg, params, prompts
+
+
+def spec_parity(label, cfg, params, prompts=None):
+    """Float32 greedy streams of the fused spec engine and the host-driven
+    one against the plain sync engine's (8 requests of 48 tokens; the
+    draft-friendly workload unless ``prompts``): equal, or parting only
+    where the plain engine's top two logits lie within SPEC_GAP_TOL. With
+    ``prompts`` (the looping Llama's) each spec engine must also reject
+    some drafts and accept some, and draft more than one token a row a
+    step on average; and its sampled rows (temperature 1) must reject
+    drafts too (the residual resample) and keep to the plain greedy
+    streams but where the top-two gap is under SPEC_SAMPLED_GAP."""
+    from gllm_tpu_torch import CacheConfig, EngineConfig, LLM
+    varies = prompts is not None
+    if not varies:
+        prompts, _ = drafty_workload(cfg.vocab_size, n=8)
+    max_tokens = [48] * len(prompts)
+    engines = {}
+    for mode, flags in (("plain", {}), ("fused", SPEC_FULL),
+                        ("host", SPEC_HOST)):
+        engines[mode] = LLM(model_cfg=cfg, params=params, config=EngineConfig(
+            dtype="float32", seed=SEED, cache=CacheConfig(num_pages=4096),
+            **flags))
+    want = spec_run(engines["plain"], prompts, max_tokens)[1]
+    for mode in ("fused", "host"):
+        for temp in (0.0, 1.0) if varies else (0.0,):
+            _, got, c = spec_run(engines[mode], prompts, max_tokens, temp)
+            what = f"f32 {mode}{' sampled' if temp else ''}"
+            rows = c["output_tokens"] - c["accepted"]
+            counts = (f"{c['accepted']} of {c['proposed']} drafts accepted, "
+                      f"{c['proposed'] / rows:.2f} drafts a row a step, "
+                      f"{c['verify_steps']} verify steps, blocks "
+                      f"{c['blocks']}, spec tokens {c['spec_tokens']}")
+            where = first_difference(got, want)
+            if where is None:
+                log(f"[spec {label}] {what}: streams equal the plain "
+                    f"engine's greedy streams ({counts})")
+            else:
+                i, j = where
+                gap = plain_top2_gap(engines["plain"], prompts[i],
+                                     want[i][:j])
+                tol = SPEC_SAMPLED_GAP if temp else SPEC_GAP_TOL
+                log(f"[spec {label}] {what}: streams part at request {i}, "
+                    f"output token {j} ({got[i][j]} against {want[i][j]}); "
+                    f"the plain engine's top-two logit gap there {gap} "
+                    f"(tolerance {tol}); {counts}")
+                assert gap < tol, \
+                    f"[spec {label}] {what} parts from the plain engine " \
+                    f"at a gap of {gap}"
+            assert c["proposed"] > 0, f"[spec {label}] {what}: no draft"
+            if varies:
+                assert 0 < c["accepted"] < c["proposed"], \
+                    f"[spec {label}] {what}: no draft rejected or none " \
+                    f"accepted ({counts})"
+                assert c["proposed"] > rows, \
+                    f"[spec {label}] {what}: at most one draft a row a " \
+                    f"step ({counts})"
+                assert mode == "host" or c["spec_tokens"].get("rejected"), \
+                    f"[spec {label}] {what}: no rejected spec token"
+    for e in engines.values():
+        assert e.memory_manager.num_free_pages == \
+            e.memory_manager.allocator.num_total
+
+
+def phase_spec():
+    """Prompt-lookup speculation at full width: Llama-3.2-1B and
+    DeepSeek-V2-Lite with its depth cut to SPEC_DEEPSEEK_LAYERS
+    (spec_family), then float32 parity: Llama-3.2-1B at
+    full width with its looping head (looping_llama) and DeepSeek-V2-Lite
+    at full width with its depth cut to 3 layers (its weights alone are
+    about 63 GB at float32). Returns the
+    launch counts of the spec runs and the host-driven runs, by the
+    configuration names the kernels line reads."""
+    from gllm_tpu_torch.models import deepseek, dense
+    out = {}
+    for name, model, by_kind in (
+            ("llama", llama_3_2_1b,
+             {"spec": ("ragged_paged_attention_unified",),
+              "host": ("ragged_paged_attention", "paged_decode_attention")}),
+            ("deepseek", lambda: deepseek_v2_lite(
+                num_hidden_layers=SPEC_DEEPSEEK_LAYERS),
+             {"spec": ("ragged_paged_attention_unified_mla",),
+              "host": ("ragged_paged_attention_mla",
+                       "paged_decode_attention_mla")})):
+        t0 = time.monotonic()
+        res, counts, host_counts, weights = spec_family(name, model, by_kind)
+        del weights
+        out[f"spec_{name}"] = dict(res, counts=counts)
+        out[f"spec_{name}_host"] = dict(counts=host_counts)
+        log(f"[spec {name}] wall {time.monotonic() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    llama, params, prompts = looping_llama(
+        llama_3_2_1b(), dense.init_params(llama_3_2_1b(), SEED,
+                                          torch.float32, "cuda"))
+    spec_parity("looping llama f32", llama, params, prompts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds = deepseek_v2_lite(num_hidden_layers=3)
+    spec_parity("deepseek f32 (3 layers)", ds,
+                deepseek.init_params(ds, SEED, torch.float32, "cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- 7. http -------------------------------------------------------------
+
+# the servers' engines: the smoke's absorb twin (the unified step under
+# overlap, persistent slots, blocks of 16 under on-device finish), and
+# bench.py's full profile (SPEC_FULL: the same with the pipelined loop four
+# deep, chains of 32 and fused speculation); bf16, prefix caching off
+# (the default)
 HTTP_FLAGS = ("--pipelined-loop", "--unified-step", "--decode-slot-batching",
               "--ondevice-finish")
+HTTP_SERVERS = {
+    "absorb": HTTP_FLAGS,
+    "full profile": HTTP_FLAGS + (
+        "--inflight-depth", "4", "--decode-chain-len", "32",
+        "--spec-decode", "ngram", "--spec-k", "4", "--spec-ngram", "2",
+        "--spec-fused")}
 # Llama-3.2-1B's published config.json, at the widths llama_3_2_1b()
 # spells out
 HTTP_CONFIG = dict(
@@ -2855,6 +3382,9 @@ def _pass(port, payloads, label):
         f"[http] {label}: the run launched {launched}"
     assert k1["plain_calls"] == k0["plain_calls"], \
         f"[http] {label}: the run called a plain version"
+    spec = {k: {x: n - e0[k].get(x, 0) for x, n in e1[k].items()}
+            if isinstance(e1[k], dict) else e1[k] - e0[k]
+            for k in ("spec_drafts", "verify_steps", "spec_tokens")}
     steps = {lbl: _delta(m1, m0, name, lbl) for name, lbl in m1
              if name == "gllm_steps_total"}
     breaks = {lbl: _delta(m1, m0, name, lbl) for name, lbl in m1
@@ -2875,7 +3405,7 @@ def _pass(port, payloads, label):
            "block_substeps": e1["block_substeps"] - e0["block_substeps"],
            "graphs_captured": e1["graphs"] - e0["graphs"],
            "capture_s": round(e1["capture_s"] - e0["capture_s"], 3),
-           "chain_breaks": breaks}
+           "chain_breaks": breaks, "spec": spec}
     # every line of the pass says whether capture stalls are in it
     label = (f"{label} ({out['graphs_captured']} graphs captured in "
              f"{out['capture_s']} s)")
@@ -2892,15 +3422,15 @@ def _pass(port, payloads, label):
             + f" on {SMI}")
     log(f"[http] {label}: launches {launched}; steps by kind {steps}; "
         f"block sub-steps {out['block_substeps']}; absorbs "
-        f"{out['absorbs']} (/server_info); chain breaks {breaks} "
-        "(/metrics)")
+        f"{out['absorbs']}, speculation {spec} (/server_info); chain "
+        f"breaks {breaks} (/metrics)")
     return out
 
 
-def phase_http(served):
+def http_server(name, flags, served):
     """The port's OpenAI server as users start it, in a process of its
     own: Llama-3.2-1B at full width (config.json written here, dummy bf16
-    weights from seed 0) under the absorb twin's flags, driven over HTTP by
+    weights from seed 0) under ``flags`` (HTTP_SERVERS[name]), driven over HTTP by
     benchmarks/backend_request_func.run_requests: 32 streamed greedy
     requests (the serve phase's 16 prompts twice) at concurrency 16 with
     Poisson arrivals at 8 req/s, in passes until one captures no CUDA
@@ -2923,7 +3453,7 @@ def phase_http(served):
     gc.collect()
     torch.cuda.empty_cache()
     reclaim_driver_memory(torch.device("cuda"))
-    log(f"[http] {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free "
+    log(f"[http {name}] {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free "
         "before the server starts")
     model_dir = os.path.join("build", "http_model")
     os.makedirs(model_dir, exist_ok=True)
@@ -2940,13 +3470,14 @@ def phase_http(served):
     cmd = [sys.executable, "-m", "gllm_tpu_torch.entrypoints.api_server",
            "--model", model_dir, "--load-format", "dummy", "--dtype",
            "bfloat16", "--seed", str(SEED), "--host", "127.0.0.1",
-           "--port", "0", *HTTP_FLAGS]
-    log(f"[http] {' '.join(cmd[1:])}")
+           "--port", "0", *flags]
+    log(f"[http {name}] {' '.join(cmd[1:])}")
     t0 = time.monotonic()
     proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
                             stderr=subprocess.PIPE, text=True)
     lines, bound, port = [], threading.Event(), []
-    server_log = open(os.path.join(model_dir, "server.log"), "w")
+    server_log = open(os.path.join(
+        model_dir, f"server_{name.replace(' ', '_')}.log"), "w")
 
     def read():
         # the server's log, kept; it must be drained or the server blocks
@@ -2960,51 +3491,57 @@ def phase_http(served):
                 bound.set()
             if ("[startup]" in line or "Error" in line
                     or "captured while serving" in line):
-                log(f"[http] server: {line.rstrip()}")
+                log(f"[http {name}] server: {line.rstrip()}")
     reader = threading.Thread(target=read, daemon=True)
     reader.start()
     try:
         while not bound.wait(1.0):
             assert proc.poll() is None, \
-                "[http] the server exited:\n" + "".join(lines[-40:])
+                f"[http {name}] the server exited:\n" + "".join(lines[-40:])
             assert time.monotonic() - t0 < HTTP_STARTUP_S, \
-                "[http] the server did not bind:\n" + "".join(lines[-40:])
+                f"[http {name}] the server did not bind:\n" + "".join(lines[-40:])
         port = port[0]
         while _get(port, "/readyz")[0] != 200:
             assert time.monotonic() - t0 < HTTP_STARTUP_S, \
-                "[http] the server never became ready"
+                f"[http {name}] the server never became ready"
             time.sleep(0.5)
         info = json.loads(_get(port, "/server_info")[1])
-        log(f"[http] ready on port {port} after "
+        log(f"[http {name}] ready on port {port} after "
             f"{time.monotonic() - t0:.1f} s: {info['num_pages']} KV pages, "
             f"attention {info['attention_impl']}, "
             f"{info['parallel']['fast_path']}, "
             f"{info['engine_counters']['graphs']} graphs warmed in "
-            f"{info['engine_counters']['capture_s']:.2f} s")
+            f"{info['engine_counters']['capture_s']:.2f} s, graph pools "
+            f"{info['engine_counters']['graph_pool_mib']:.1f} MiB")
         m0 = _scrape(port)
         passes = []
         while len(passes) < HTTP_PASSES and (
                 not passes or passes[-1]["graphs_captured"]):
-            passes.append(_pass(port, payloads, f"pass {len(passes) + 1}"))
+            passes.append(_pass(port, payloads,
+                                f"{name} pass {len(passes) + 1}"))
+        # ROADMAP C 7: the server's warmup leaves no key this traffic meets
+        assert not passes[0]["graphs_captured"], \
+            f"[http {name}] the first pass captured " \
+            f"{passes[0]['graphs_captured']} graphs"
         free = [i for i, p in enumerate(passes) if not p["graphs_captured"]]
         if free:
-            log(f"[http] pass {free[0] + 1} captured no graph: its numbers "
+            log(f"[http {name}] pass {free[0] + 1} captured no graph: its numbers "
                 "are free of capture stalls; passes "
                 f"{list(range(1, free[0] + 1))} captured "
                 f"{[p['graphs_captured'] for p in passes[:free[0]]]}")
         else:
-            log(f"[http] every one of {len(passes)} passes captured graphs "
+            log(f"[http {name}] every one of {len(passes)} passes captured graphs "
                 f"({[p['graphs_captured'] for p in passes]}): no number of "
                 "this phase is free of capture stalls (ROADMAP C 7)")
         # the whole request, n = 2, and the stream closed after 4 chunks
         status, whole = _post(port, "/v1/completions", payloads[0])
         assert status == 200 and whole["usage"]["completion_tokens"] == \
-            payloads[0]["max_tokens"], f"[http] whole request: {whole}"
+            payloads[0]["max_tokens"], f"[http {name}] whole request: {whole}"
         assert whole["choices"][0]["finish_reason"] == "length"
         status, two = _post(port, "/v1/completions",
                             dict(payloads[1], n=2))
         assert status == 200 and two["usage"]["completion_tokens"] == \
-            2 * payloads[1]["max_tokens"], f"[http] n = 2: {two}"
+            2 * payloads[1]["max_tokens"], f"[http {name}] n = 2: {two}"
         assert [c["finish_reason"] for c in two["choices"]] == ["length"] * 2
         _abort_after(port, dict(payloads[2], max_tokens=2000))
         limit = time.monotonic() + 60
@@ -3019,7 +3556,7 @@ def phase_http(served):
             if idle:
                 break
             assert time.monotonic() < limit, \
-                "[http] the server did not go idle (a page or a request " \
+                f"[http {name}] the server did not go idle (a page or a request " \
                 "held after the aborted stream)"
             time.sleep(0.5)
         n_len = _delta(m2, m0, "gllm_requests_finished_total",
@@ -3031,22 +3568,22 @@ def phase_http(served):
         n_ttft = _delta(m2, m0, "gllm_request_ttft_seconds_count")
         assert n_len == len(passes) * len(payloads) + 3 \
             and not any(others.values()), \
-            f"[http] finishes by reason: length {n_len}, others {others}"
-        assert n_abort == 1, f"[http] {n_abort} aborts, not 1"
+            f"[http {name}] finishes by reason: length {n_len}, others {others}"
+        assert n_abort == 1, f"[http {name}] {n_abort} aborts, not 1"
         # every request that got a token observed a TTFT, the aborted one too
         assert n_ttft == len(passes) * len(payloads) + 4, \
-            f"[http] {n_ttft} TTFTs"
-        log(f"[http] after {len(passes)} passes: finishes by length "
+            f"[http {name}] {n_ttft} TTFTs"
+        log(f"[http {name}] after {len(passes)} passes: finishes by length "
             f"{n_len:.0f}, "
             f"aborts {n_abort:.0f}, TTFT observations {n_ttft:.0f}; the "
             "gauges and KV use read 0")
         last = passes[free[0] if free else -1]
-        log(f"[http] pass {passes.index(last) + 1} "
+        log(f"[http {name}] pass {passes.index(last) + 1} "
             f"({last['graphs_captured']} graphs captured) "
             f"{last['output_tok_s']} output tok/s beside the serve phase's "
             "absorb twin offline (16 requests at once): "
             f"{served['unified']['absorb_rates']} tok/s, on {SMI}")
-        log("[http] " + json.dumps({"http": {
+        log(f"[http {name}] " + json.dumps({"http": {
             f"pass {i + 1}": p for i, p in enumerate(passes)}}))
     finally:
         if proc.poll() is None:
@@ -3056,16 +3593,23 @@ def phase_http(served):
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
-                raise SystemExit("[http] the server did not exit within "
+                raise SystemExit(f"[http {name}] the server did not exit within "
                                  f"{HTTP_STOP_S:.0f} s of SIGTERM")
         else:
             rc = proc.returncode
         reader.join(timeout=5)
         server_log.close()
-    assert rc == 0, f"[http] the server exited with {rc}:\n" + \
+    assert rc == 0, f"[http {name}] the server exited with {rc}:\n" + \
         "".join(lines[-20:])
-    log(f"[http] the server exited on SIGTERM (rc {rc})")
+    log(f"[http {name}] the server exited on SIGTERM (rc {rc})")
     return last
+
+
+def phase_http(served):
+    """Each server of HTTP_SERVERS in turn (http_server): the absorb
+    server and the full-profile one; returns each one's last pass."""
+    return {name: http_server(name, flags, served)
+            for name, flags in HTTP_SERVERS.items()}
 
 
 def main():
@@ -3085,11 +3629,13 @@ def main():
     for name, phase in (("build", phase_build), ("kernels", phase_kernels),
                         ("serve", phase_serve),
                         ("reference", phase_reference),
+                        ("spec", phase_spec),
                         ("http", lambda: phase_http(walls["serve"][0]))):
         t0 = time.monotonic()
         walls[name] = (phase(), time.monotonic() - t0)
         log(f"[{name}] phase wall {walls[name][1]:.1f} s")
-    kernels, served = walls["kernels"][0], walls["serve"][0]
+    kernels = walls["kernels"][0]
+    served = dict(walls["serve"][0], **walls["spec"][0])
     line = []
     for name, (counter, config, src, replaces) in KERNELS.items():
         r = kernels[name]
@@ -3097,7 +3643,8 @@ def main():
             "name": name, "route": "cuda",
             "source": f"gllm_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": served[config]["counts"][counter],
-            "launches_in": f"serve {config}",
+            "launches_in": (f"spec {config}" if config.startswith("spec_")
+                            else f"serve {config}"),
             "max_abs_err": r["max_abs_err"], "rtol": TOL[name][0],
             "atol": TOL[name][1], "tol_used": r["tol_used"],
             "drop_rejected": r["drop_rejected"], "ok": r["ok"],

@@ -49,6 +49,15 @@ class StepBatch(NamedTuple):
     # sub-steps in which it is alive ([S] int32; padded and hole rows 0);
     # None for a single step
     active_until: object = None
+    # speculative decoding (a step with drafts): per row, the flat token
+    # indices of its verify rows (its committed row, then its draft rows;
+    # a row without drafts points at row 0) [S, k+1], and its drafts, -1
+    # padded [S, k]; None without drafts
+    spec_rows: object = None
+    spec_drafts: object = None
+    # a fused spec block's seed state [S, ring + SPEC_SEED_COLS]
+    # (runner/prepare.py); None otherwise
+    spec_seed: object = None
     # host ints: the real rows (sequences) of the batch, and the longest
     # real row's token count (the GDN layers' padded row length)
     num_seqs: int = 0

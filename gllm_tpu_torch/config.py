@@ -10,6 +10,7 @@ overlap scheduling forms no block, with a warning, and
 ``decode_slot_batching`` without it does nothing; ``chain_under_prefill``
 under ``unified_step`` is zeroed, with a warning; and ``unified_step`` on
 a hybrid model is taken and left inert, with the engine's warning).
+``spec_fused`` without overlap scheduling lifts it, as there.
 """
 
 from __future__ import annotations
@@ -75,8 +76,6 @@ logger = logging.getLogger(__name__)
 # Options of the JAX engine that this port does not implement yet, with
 # the value that means "off". validate() raises when one is set.
 _UNPORTED = {
-    "spec_decode": None,
-    "spec_fused": False,
     "quantization": None,
     # the supervised in-process rebuild and its hard-stall trigger
     "engine_recovery": False,
@@ -127,7 +126,20 @@ class EngineConfig:
     # freezes inside the block, and the block stops once every row has
     # finished; under overlap it lifts an unset chain length to 16
     ondevice_finish: bool = False
+    # prompt-lookup speculative decoding (``"ngram"``): up to ``spec_k``
+    # drafts a decode row, the continuation of the most recent earlier
+    # match of its last ``spec_ngram`` tokens, verified in one step as
+    # verify rows after its committed token (greedy rows by argmax,
+    # sampled rows by rejection sampling); host-driven, it owns decode
+    # dispatch under overlap scheduling (docs/speculative_decoding.md of
+    # the JAX package)
     spec_decode: Optional[str] = None
+    spec_k: int = 4
+    spec_ngram: int = 2
+    # drafting, verification and acceptance inside the fused block (one
+    # CUDA graph of up to multi_step_decode draft+verify sub-steps, which
+    # emits up to spec_k + 1 tokens a row a sub-step); needs spec_decode
+    # "ngram" and lifts overlap_scheduling
     spec_fused: bool = False
     quantization: Optional[str] = None
     # False (the JAX package's default): every pure-decode step on CUDA
@@ -182,7 +194,11 @@ class EngineConfig:
         absorbs prefill work instead of yielding to it), and the chain
         length resolves as there (``:441-462``): ``decode_chain_len`` wins
         over ``multi_step_decode``, and ``ondevice_finish`` under overlap
-        lifts an unset one to 16."""
+        lifts an unset one to 16. ``spec_fused`` needs ``spec_decode``
+        "ngram", lifts ``overlap_scheduling`` and an unset chain length
+        to 8 (``:409-450``); ``spec_k`` and ``spec_ngram`` are at least 1
+        (``:495-507``). Speculation on a hybrid model raises: it needs
+        the SSM snapshots (ROADMAP A 9)."""
         if model_cfg is not None:
             model_cfg.check_supported()
         if self.enforce_eager:
@@ -217,15 +233,30 @@ class EngineConfig:
             raise ValueError("chain_under_prefill must be >= 0")
         if self.overlap_depth < 1:
             raise ValueError("overlap_depth must be >= 1")
+        if self.spec_fused:
+            if self.spec_decode != "ngram":
+                raise ValueError("spec_fused (--spec-fused) requires "
+                                 "spec_decode='ngram'")
+            # the fused draft+verify block is a chained dispatch
+            self.overlap_scheduling = True
         if self.decode_chain_len is not None:
             if self.decode_chain_len < 1:
                 raise ValueError("decode_chain_len must be >= 1")
             self.multi_step_decode = self.decode_chain_len
+        elif self.spec_fused and self.multi_step_decode == 1:
+            # one block amortizes several verify rounds a dispatch
+            self.multi_step_decode = 8
         elif (self.ondevice_finish and self.overlap_scheduling
                 and self.multi_step_decode == 1):
             self.multi_step_decode = 16
         if self.multi_step_decode < 1:
             raise ValueError("multi_step_decode must be >= 1")
+        if self.spec_decode not in (None, "ngram"):
+            raise ValueError(f"unknown spec_decode {self.spec_decode!r} "
+                             "(choices: ngram)")
+        if self.spec_decode is not None and (self.spec_k < 1
+                                             or self.spec_ngram < 1):
+            raise ValueError("spec_k and spec_ngram must be >= 1")
         if self.max_queued_requests < 0 or self.max_resident_requests < 0:
             raise ValueError("admission limits must be >= 0 (0 = off)")
         if self.request_deadline_s < 0 or self.watchdog_stall_s < 0 \
@@ -265,6 +296,11 @@ class EngineConfig:
             if c.enable_prefix_caching:
                 unported.append("enable_prefix_caching with a hybrid model "
                                 "(SSM snapshots)")
+            if self.spec_decode is not None or self.spec_fused:
+                # the recurrent state advances over rejected draft rows and
+                # cannot rewind without the snapshot slots
+                unported.append("spec_decode/spec_fused with a hybrid "
+                                 "model (SSM snapshots, ROADMAP A 9)")
         if unported:
             raise NotImplementedError(
                 "not supported by gllm_tpu_torch yet: "

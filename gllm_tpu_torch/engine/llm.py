@@ -2,7 +2,8 @@
 ``LLM.__init__:167``, ``add_seq:631``, ``step:680``,
 ``_commit_outputs:1024``, ``_dispatch_reform:1048``, ``_chain_tip:316``,
 ``unified:349``, ``_ondevice_block_stats:1139``,
-``_count_ondevice_finishes:1230``, ``_schedule_multi:1475``,
+``_spec_block_stats:1152``, ``_commit_spec_block:1170``, the spec set-up
+``:263-307``, ``_count_ondevice_finishes:1230``, ``_schedule_multi:1475``,
 ``_check_stop_strings:1803``, ``_observe_outputs:1434``, ``generate:1894``,
 ``_stream_detokenize:2044``, ``_finalize:2059``, ``abort:2091``,
 ``quarantine_step_failure:2101``; ``RequestOutput:147``; the metrics of
@@ -43,8 +44,17 @@ sequences). On a hybrid model the flag is inert, with a warning, as in
 the JAX engine. ``docs/overlap_scheduling.md`` (Chain lifecycle,
 Persistent-slot membership, On-device finish, Ramp policy, Pipelined
 loop, FutureMap, Unified step, Invariants) is the specification; this is
-its counterpart without speculation, dp, disaggregation and fault
-points. ``CacheConfig(kv_cache_dtype="int8")`` keeps an int8 KV cache.
+its counterpart without dp, disaggregation and fault points.
+``CacheConfig(kv_cache_dtype="int8")`` keeps an int8 KV cache.
+``spec_decode="ngram"`` (docs/speculative_decoding.md) verifies
+prompt-lookup drafts: host-driven, a decode row's drafts ride its step
+as verify rows (an eager mixed step) and the step commits the accepted
+run and a correction token, and under overlap scheduling speculation
+owns decode dispatch (chains and re-forms refuse with "spec"); with
+``spec_fused`` every chain link is a draft+verify sub-step of a fused
+spec block (``ModelRunner.step_spec_multi``), which commits link by link
+the tokens each row emitted, re-anchors the links on the committed
+state and trims the entries in flight (``FutureMap.trim_overpromise``).
 Unless
 ``EngineConfig.enforce_eager``, each pure-decode step on the card replays
 the CUDA graph of its shape signature (``runner/graphs.py``; warm them
@@ -53,8 +63,9 @@ a text prompt, its output text and stop strings need a tokenizer object
 (anything with ``encode``/``decode``) passed to the constructor. Stop
 strings are matched on the host over the incrementally detokenized output
 as tokens commit; a sequence with stop strings rides no block and joins no
-hole, as in JAX, so it commits one token a step and its match lands on the
-token just committed. The engine observes the request metrics (time to
+hole, as in JAX; a drafted step commits several tokens, which the stop scan
+replays one at a time, cutting the ones after a match. The engine
+observes the request metrics (time to
 first token, time per output token, inter-token latency, end-to-end and
 queue time) and the step metrics of the JAX package under its names
 (``obs/metrics.py``), and ``quarantine_step_failure`` drops the sequences
@@ -85,7 +96,7 @@ from gllm_tpu_torch.runner.prepare import MAX_STOP_IDS
 from gllm_tpu_torch.runner.runner import ModelRunner
 from gllm_tpu_torch.sampling_params import SamplingParams
 from gllm_tpu_torch.scheduler import Scheduler, SeqOutput
-from gllm_tpu_torch.sequence import HOLE_SEQ_ID, Sequence
+from gllm_tpu_torch.sequence import HOLE_SEQ_ID, Sequence, SequenceStatus
 
 logger = logging.getLogger(__name__)
 
@@ -136,6 +147,13 @@ _M_ONDEV_FINISH = obs.counter(
 _M_DEAD_FRAC = obs.gauge(
     "gllm_dead_substep_frac",
     "wasted (dead-row) sub-step fraction of the latest fused block")
+# fused speculation: the tokens through spec blocks, by what they were:
+# accepted drafts, rejected drafts and corrections (each emitting
+# sub-step's resampled or bonus token)
+_M_SPEC_FUSED = obs.counter(
+    "gllm_spec_fused_tokens_total",
+    "tokens through fused speculation blocks by kind "
+    "(accepted|rejected|correction)", ("kind",))
 # the pipelined loop: entries dispatched and not yet collected after the
 # latest fill pass
 _M_INFLIGHT = obs.gauge(
@@ -218,6 +236,14 @@ class LLM:
         self.memory_manager.track_scale_resets = self.runner.kv_quant
         self.runner.memory_manager = self.memory_manager
         self.scheduler = Scheduler(config, self.memory_manager)
+        # speculative decoding (a hybrid model refused it in validate):
+        # host-driven drafting in the scheduler, or, fused, on the device,
+        # where a sub-step emits up to spec_mult tokens a row
+        self.spec_fused = config.spec_fused and config.spec_decode == "ngram"
+        if config.spec_decode == "ngram":
+            self.scheduler.spec_cfg = (config.spec_ngram, config.spec_k)
+        self.scheduler.spec_fused = self.spec_fused
+        self.spec_mult = config.spec_k + 1 if self.spec_fused else 1
         self.eos_token_ids = model_cfg.eos_token_ids
         if not self.eos_token_ids and tokenizer is not None \
                 and getattr(tokenizer, "eos_token_id", None) is not None:
@@ -264,6 +290,11 @@ class LLM:
         # re-formed batch that carries a prefill row beside the chain's
         # promised decode rows)
         self.absorbs = 0
+        # speculation: verify steps committed (host-driven), and the
+        # tokens of committed spec blocks by kind (accepted, rejected,
+        # correction: gllm_spec_fused_tokens_total)
+        self.verify_steps = 0
+        self.spec_tokens: collections.Counter = collections.Counter()
 
     @property
     def compactions(self) -> int:
@@ -368,7 +399,8 @@ class LLM:
                     # interruption of a decode chain
                     prev = tip[0]
                     if (not self._yield_noted
-                            and prev.num_decode == prev.num_seqs):
+                            and prev.num_decode == prev.num_seqs
+                            and not prev.has_drafts):
                         self._note_chain_break("waiting")
                         self._yield_noted = True
                     self._chained_under_pressure = 0
@@ -393,7 +425,11 @@ class LLM:
                     if pressure:
                         self._chained_under_pressure += len(chain)
                     self._yield_noted = False
-                    if len(chain) > 1:
+                    if chain[0].spec_block:
+                        # fused speculation: even one link is a spec block
+                        self._launch(self.runner.step_spec_multi, chain,
+                                     prev_handle, chained=True)
+                    elif len(chain) > 1:
                         self._launch(self.runner.step_multi, chain,
                                      prev_handle, chained=True)
                     else:
@@ -409,7 +445,8 @@ class LLM:
                 ran_dry = True
                 break
             if (multi > 1 and not self.scheduler.waiting
-                    and batch.num_decode == batch.num_seqs):
+                    and batch.num_decode == batch.num_seqs
+                    and not batch.has_drafts):
                 # a sync pure-decode batch fuses with the links behind it
                 # into one block, instead of a single step first; its
                 # rows are all alive, so the links' alive counts shift by
@@ -417,11 +454,15 @@ class LLM:
                 links = self._schedule_multi_links(batch, multi - 1)
                 if links:
                     chain = [self._block_root(batch, links)] + links
-                    self._launch(self.runner.step_multi, chain, roots=True)
+                    self._launch(self.runner.step_spec_multi
+                                 if links[0].spec_block
+                                 else self.runner.step_multi, chain,
+                                 roots=True)
                     self._yield_noted = False
                     continue
             entry = self._launch(self.runner.step_async, batch,
-                                 roots=batch.num_decode == batch.num_seqs)
+                                 roots=(batch.num_decode == batch.num_seqs
+                                        and not batch.has_drafts))
             if entry.roots:
                 self._yield_noted = False
         if cfg.pipelined_loop:
@@ -458,9 +499,15 @@ class LLM:
         self._record_step(entry.batch)
         if not block:
             self.hole_substeps += _holes(entry.batch)
+            if entry.batch.has_drafts:
+                return self._commit_outputs(
+                    self._commit_verify(entry.batch, tokens))
             outs = self.scheduler.process_output(
                 entry.batch, tokens.tolist(), self.eos_token_ids)
             return self._commit_outputs(outs)
+        if entry.batch[0].spec_block:
+            return self._commit_outputs(
+                self._commit_spec_block(entry.batch, tokens))
         # a block: [K, n] tokens, then each row's finish step; it commits
         # link by link, and a row's tokens after its finish are dropped
         # (process_output skips a finished sequence)
@@ -494,11 +541,14 @@ class LLM:
         self._in_flight.append(entry)
         first = entry.batch
         if isinstance(first, list):
-            kind, first = "block", first[0]
+            first = first[0]
+            kind = "spec" if first.spec_block else "block"
         else:
-            # a hole row is a one-token row: it leaves the kind as it is
-            kind = ("decode" if all(it.num_new_tokens == 1
-                                    for it in first.items)
+            # a hole row is a one-token row: it leaves the kind as it is;
+            # a step with drafts is a verify step
+            kind = ("verify" if first.has_drafts
+                    else "decode" if all(it.num_new_tokens == 1
+                                         for it in first.items)
                     else "mixed")
         self.dispatches[kind, len(self._in_flight)] += 1
         self.joins += len(first.host_rows or ())
@@ -549,12 +599,16 @@ class LLM:
         refuses)."""
         if self.runner.hybrid:
             return False
-        return not any(it.seq.sampling_params.stop for it in batch.items)
+        return not any(it.seq.sampling_params.stop or it.draft_tokens
+                       for it in batch.items)
 
     def _schedule_multi(self, prev_batch, multi: int) -> list:
-        """Up to ``multi`` links off ``prev_batch`` for one dispatch."""
+        """Up to ``multi`` links off ``prev_batch`` for one dispatch (a
+        spec block's under fused speculation)."""
+        fusable = self._fuse_ok(prev_batch)
         return self.scheduler.schedule_chain(
-            prev_batch, multi if self._fuse_ok(prev_batch) else 1)
+            prev_batch, multi if fusable else 1,
+            **self._spec_mult(fusable))
 
     def _schedule_multi_links(self, batch, k_max: int) -> list:
         """Links to fuse behind ``batch``, which becomes the block's first
@@ -562,13 +616,25 @@ class LLM:
         if k_max < 1 or not self._fuse_ok(batch):
             return []
         return self.scheduler.schedule_chain(batch, k_max,
-                                             include_prev=True)
+                                             include_prev=True,
+                                             **self._spec_mult(True))
+
+    def _spec_mult(self, fusable: bool) -> dict:
+        """``schedule_chain``'s stride under fused speculation: the tokens
+        a spec sub-step may emit (none passed without it)."""
+        return ({"spec_mult": self.spec_mult}
+                if self.spec_fused and fusable else {})
 
     @staticmethod
     def _block_root(batch, links):
         """``batch`` as the first link of a block before ``links``: alive
-        in one more sub-step than the links' counts say."""
+        in one more sub-step than the links' counts say; before spec
+        links, one more token of budget in front of theirs (uncapped:
+        budgets are carried across blocks)."""
         au, k = links[0].active_until, 1 + len(links)
+        if links[0].spec_block:
+            return dataclasses.replace(batch, spec_block=True,
+                                       active_until=[d + 1 for d in au])
         return dataclasses.replace(batch, active_until=(
             [min(d + 1, k) for d in au] if au is not None else None))
 
@@ -591,6 +657,93 @@ class LLM:
         self.dead_substeps += int((k_exec - finish[live]).sum())
         self.row_substeps += k_exec * int(live.sum())
         self.hole_substeps += k_exec * int((~live).sum())
+
+    def _commit_verify(self, batch, out) -> List[SeqOutput]:
+        """Commit a verify step (host-driven speculation; JAX's
+        ``llm.py:998-1018``): a drafted row its accepted drafts and the
+        correction token, every other row its sampled token. ``out`` is
+        [n, 2 + K1]: the sampled token, the accepted drafts, the verify
+        tokens."""
+        self.verify_steps += 1
+        lists = []
+        for i, it in enumerate(batch.items):
+            if it.draft_tokens:
+                a = min(int(out[i, 1]), len(it.draft_tokens))
+                lists.append([int(t) for t in out[i, 2:3 + a]])
+            else:
+                lists.append([int(out[i, 0])])
+        return self.scheduler.process_output_multi(batch, lists,
+                                                   self.eos_token_ids)
+
+    def _spec_block_stats(self, chain, res) -> None:
+        """Count a collected spec block (JAX's ``_spec_block_stats:1152``):
+        by K, its executed sub-steps (those in which some row emitted: the
+        early exit leaves a zero tail), and its dead row-sub-steps (a row
+        of a sequence that emitted nothing in an executed sub-step) and
+        hole row-sub-steps; the dead-fraction gauge over every row."""
+        counts = res["counts"]
+        k_exec = int((counts > 0).any(axis=1).sum())
+        live = np.array([it.seq.seq_id != HOLE_SEQ_ID
+                         for it in chain[0].items], bool)
+        idle = (counts[:k_exec] == 0)
+        if k_exec and live.size:
+            _M_DEAD_FRAC.set(int(idle.sum()) / (k_exec * live.size))
+        self.blocks[len(chain)] += 1
+        self.block_substeps += k_exec
+        self.dead_substeps += int(idle[:, live].sum())
+        self.row_substeps += k_exec * int(live.sum())
+        self.hole_substeps += k_exec * int((~live).sum())
+
+    def _commit_spec_block(self, chain, res) -> List[SeqOutput]:
+        """Commit a collected spec block (JAX's ``_commit_spec_block:1170``):
+        sub-step k of row i commits ``counts[k, i]`` of its verify tokens
+        (the accepted run and the correction or bonus token, cut by the
+        budget or an on-device stop). Each link's ``computed_before`` was
+        a worst-case upper bound: it re-anchors on the sequence's
+        committed state before ``process_output_multi`` advances it, the
+        entries in flight trim to the actual frontiers, and the draft
+        lengths and acceptance counts reconcile from the block's."""
+        self._spec_block_stats(chain, res)
+        toks, counts = res["tokens"], res["counts"]
+        outs = []
+        for k, link in enumerate(chain):
+            items, lists = [], []
+            for i, it in enumerate(link.items):
+                seq = it.seq
+                if (seq.seq_id != HOLE_SEQ_ID
+                        and seq.status is SequenceStatus.RUNNING):
+                    it = dataclasses.replace(
+                        it, computed_before=seq.num_computed_tokens)
+                items.append(it)
+                lists.append([int(t) for t in toks[k, i, :counts[k, i]]])
+            outs.extend(self.scheduler.process_output_multi(
+                dataclasses.replace(link, items=items), lists,
+                self.eos_token_ids))
+        drafted = int(res["drafted"].sum())
+        accepted = int(res["accepted"].sum())
+        emitted = int(counts.sum())
+        stats = self.scheduler.spec_stats
+        stats["proposed"] += drafted
+        stats["accepted"] += accepted
+        for kind, n in (("accepted", accepted),
+                        ("rejected", drafted - accepted),
+                        ("correction", emitted - accepted)):
+            if n > 0:
+                self.spec_tokens[kind] += n
+                _M_SPEC_FUSED.inc(n, kind=kind)
+        frontiers = {}
+        for i, it in enumerate(chain[0].items):
+            seq = it.seq
+            if seq.seq_id == HOLE_SEQ_ID:
+                continue
+            seq.spec_k_cur = max(1, min(int(res["kcur"][i]),
+                                        self.config.spec_k))
+            frontiers[seq.seq_id] = seq.num_computed_tokens
+        if self._in_flight:
+            self.futures.trim_overpromise(self._in_flight, frontiers)
+        if self.config.ondevice_finish:
+            self._count_ondevice_finishes(outs)
+        return outs
 
     def _count_ondevice_finishes(self, outs) -> None:
         """Finishes committed out of a block, by the kind the device saw:
@@ -663,33 +816,78 @@ class LLM:
         detokenized output (JAX's ``_check_stop_strings:1803``); the text
         is cut before the match (OpenAI's rule), and only the tail window
         (the new text and ``len(stop) - 1`` characters before it) is
-        scanned again. A sequence with stop strings commits one token a
-        step: ``_fuse_ok`` keeps it out of blocks, the scheduler keeps it
-        out of hole joins, and the port has no speculative decoding. So
-        the token that completes a match is the one just committed, and
-        nothing after it needs trimming (JAX replays a speculative
-        commit's tokens one at a time here)."""
+        scanned again. A sequence with stop strings rides no block
+        (``_fuse_ok``) and joins no hole, but a verify step commits
+        several of its tokens at once: they are replayed one at a time
+        through the incremental detokenizer, the scan a run of single
+        steps would make, so the match lands on the token that completed
+        it. The tokens after it are cut from the sequence (its ids and
+        computed count) and their outputs dropped, so the text and the
+        usage equal those without speculation."""
+        n_new: dict = {}
+        for out in outs:
+            if out.new_token_id is not None:
+                sid = out.seq.seq_id
+                n_new[sid] = n_new.get(sid, 0) + 1
+        cuts: dict = {}
         for out in outs:
             seq = out.seq
             sp = seq.sampling_params
             if (out.new_token_id is None or not sp.stop
-                    or self.tokenizer is None):
+                    or self.tokenizer is None or seq.seq_id in cuts):
                 continue
-            if not self._stream_detokenize(seq):
-                continue
+            cuts[seq.seq_id] = None
             max_stop = max(len(x) for x in sp.stop)
-            start = max(0, getattr(seq, "_stop_scanned", 0) - max_stop + 1)
-            window = seq.output_text[start:]
-            hit = min((start + idx for idx in (window.find(x)
-                                               for x in sp.stop)
-                       if idx >= 0), default=-1)
-            seq._stop_scanned = len(seq.output_text)
+            first = seq.num_tokens - n_new[seq.seq_id]
+            hit = -1
+            for j in range(first, seq.num_tokens):
+                text, seq.detok_prefix_offset, seq.detok_read_offset = (
+                    detokenize_incrementally(
+                        self.tokenizer, seq.token_ids,
+                        seq.detok_prefix_offset, seq.detok_read_offset,
+                        end=j + 1))
+                if not text:
+                    continue
+                seq.output_text += text
+                start = max(0, getattr(seq, "_stop_scanned", 0)
+                            - max_stop + 1)
+                window = seq.output_text[start:]
+                hit = min((start + idx for idx in (window.find(x)
+                                                   for x in sp.stop)
+                           if idx >= 0), default=-1)
+                seq._stop_scanned = len(seq.output_text)
+                if hit >= 0:
+                    cuts[seq.seq_id] = j + 1 - first
+                    break
             if hit < 0:
                 continue
+            keep = first + cuts[seq.seq_id]
+            if keep < seq.num_tokens:
+                del seq.token_ids[keep:]
+                seq._pt_np = None
+                seq.num_computed_tokens = min(seq.num_computed_tokens, keep)
             seq.output_text = seq.output_text[:hit]
+            # nothing trimmed is detokenized again
+            seq.detok_read_offset = seq.num_tokens
+            seq.detok_prefix_offset = min(seq.detok_prefix_offset,
+                                          seq.num_tokens)
             seq._stop_scanned = len(seq.output_text)
             self.scheduler.finish_seq(seq, "stop")
-            seq.finish_reason = out.finish_reason = "stop"
+            seq.finish_reason = "stop"
+        cuts = {sid: c for sid, c in cuts.items() if c is not None}
+        if cuts:
+            kept, cnt = [], {}
+            for out in outs:
+                sid = out.seq.seq_id
+                if sid in cuts and out.new_token_id is not None:
+                    c = cnt.get(sid, 0)
+                    if c >= cuts[sid]:
+                        continue           # past the match: dropped
+                    cnt[sid] = c + 1
+                    out.finish_reason = ("stop" if cnt[sid] == cuts[sid]
+                                         else None)
+                kept.append(out)
+            outs[:] = kept
 
     def _dispatch_reform(self, prev_batch, prev_handle, pressure: bool,
                          multi: int, mixed: bool = False) -> bool:

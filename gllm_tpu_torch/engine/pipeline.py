@@ -23,6 +23,12 @@ absorbed chunks like any other row: no computed count advances, and a
 sequence it admitted stays RUNNING at its committed count (its pages
 kept), whose prefill the sync pass schedules again.
 
+Fused speculation schedules each spec block's links off worst-case
+token counts (a sub-step may emit spec_k + 1 tokens); when a block is
+collected, ``FutureMap.trim_overpromise`` rebases the spec entries still
+in flight onto the committed frontiers. The device carries the actual
+frontier across blocks, so the trim touches bookkeeping only.
+
 No torch here: host bookkeeping only.
 """
 
@@ -81,6 +87,40 @@ class FutureMap:
         return frozenset(it.seq.seq_id
                          for it, src in zip(batch.items, batch.src_rows)
                          if src >= 0 and it.seq.seq_id != HOLE_SEQ_ID)
+
+    @staticmethod
+    def trim_overpromise(in_flight, frontiers) -> int:
+        """Fused speculation (JAX's ``trim_overpromise``,
+        ``gllm_tpu/engine/pipeline.py:139-175``): rebase the per-link
+        ``computed_before`` of every valid chained spec entry in flight
+        onto the committed frontier ``frontiers[seq_id]``
+        (``num_computed_tokens``). The delta of a sequence is fixed at the
+        oldest such entry (where the over-promise accrued) and applied to
+        every later one, whose strides stay upper bounds of what its
+        parent emits. Returns the tokens trimmed."""
+        trimmed = 0
+        applied = {}              # seq_id -> the delta of the oldest entry
+        for e in in_flight:
+            if e.invalid or not e.chained:
+                continue
+            chain = e.batch if isinstance(e.batch, list) else [e.batch]
+            if not chain[0].spec_block:
+                continue
+            deltas = {}
+            for it in chain[0].items:
+                sid = it.seq.seq_id
+                if sid not in applied:
+                    f = frontiers.get(sid)
+                    if f is None:
+                        continue
+                    applied[sid] = max(0, it.computed_before - f)
+                    trimmed += applied[sid]
+                if applied[sid]:
+                    deltas[sid] = applied[sid]
+            for b in chain if deltas else ():
+                for it in b.items:
+                    it.computed_before -= deltas.get(it.seq.seq_id, 0)
+        return trimmed
 
     def reconcile(self, in_flight, finished_ids) -> int:
         """Invalidate every in-flight entry whose promises meet

@@ -130,12 +130,20 @@ def _kernel_launches() -> dict:
 def _engine_counters(llm: LLM) -> dict:
     """Counters of the engine loop that the JAX package's metrics do not
     carry: the mixed re-forms that absorbed prefill, the sub-steps blocks
-    executed, and the CUDA graphs captured so far with their capture
-    time (a graph first met while serving is captured then)."""
+    executed, the CUDA graphs captured so far with their capture time (a
+    graph first met while serving is captured then) and the memory their
+    pools hold, and speculation's counts."""
     g = llm.runner.graphs
     return {"absorbs": llm.absorbs, "block_substeps": llm.block_substeps,
             "graphs": len(g) if g is not None else 0,
-            "capture_s": g.capture_seconds if g is not None else 0.0}
+            "capture_s": g.capture_seconds if g is not None else 0.0,
+            "graph_pool_mib": (g.pool_bytes() / 2**20 if g is not None
+                               else 0.0),
+            # speculation: drafts proposed and accepted, verify steps and
+            # the tokens of spec blocks by kind
+            "spec_drafts": dict(llm.scheduler.spec_stats),
+            "verify_steps": llm.verify_steps,
+            "spec_tokens": dict(llm.spec_tokens)}
 
 
 class Handler(BaseHTTPRequestHandler):
@@ -244,6 +252,7 @@ class Handler(BaseHTTPRequestHandler):
                         "decode_slot_batching": cfg.decode_slot_batching,
                         "multi_step_decode": cfg.multi_step_decode,
                         "ondevice_finish": cfg.ondevice_finish,
+                        "spec_fused": cfg.spec_fused,
                     },
                 },
                 "attention_impl": llm.runner.attn_impl,
@@ -604,6 +613,8 @@ def build_engine_config(args) -> EngineConfig:
         decode_chain_len=args.decode_chain_len,
         ondevice_finish=args.ondevice_finish,
         spec_decode=args.spec_decode,
+        spec_k=args.spec_k,
+        spec_ngram=args.spec_ngram,
         spec_fused=args.spec_fused,
         quantization=args.quantization,
         max_queued_requests=args.max_queued_requests,
@@ -642,7 +653,7 @@ def build_engine_config(args) -> EngineConfig:
 def make_parser() -> argparse.ArgumentParser:
     """The JAX server's flags that map onto this port's engine options,
     under the same names and defaults; those the port does not implement
-    (speculation, quantization, parallelism, KV tiers, recovery) are
+    (quantization, parallelism, KV tiers, recovery) are
     parsed and refused by ``EngineConfig.validate``."""
     p = argparse.ArgumentParser(
         description="gllm-tpu OpenAI-compatible API server on PyTorch/CUDA")
@@ -714,8 +725,14 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--ondevice-finish", action="store_true",
                    help="detect EOS / stop-token finishes inside blocks "
                         "and stop a block once every row has finished")
-    p.add_argument("--spec-decode", default=None, choices=["ngram"])
-    p.add_argument("--spec-fused", action="store_true")
+    p.add_argument("--spec-decode", default=None, choices=["ngram"],
+                   help="prompt-lookup speculative decoding: verify up to "
+                        "--spec-k n-gram drafts a decode step")
+    p.add_argument("--spec-k", type=int, default=4)
+    p.add_argument("--spec-ngram", type=int, default=2)
+    p.add_argument("--spec-fused", action="store_true",
+                   help="draft and verify inside the fused decode blocks "
+                        "(requires --spec-decode ngram)")
     p.add_argument("--tool-call-parser", default=None,
                    choices=["qwen", "hermes", "deepseek", "none"])
     p.add_argument("--max-queued-requests", type=int, default=0,

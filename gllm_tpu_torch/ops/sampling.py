@@ -1,11 +1,17 @@
 """Sampling (counterpart of ``gllm_tpu/ops/sampling.py``: ``sample:269``,
-``_topk_topp_mask_sort:139``, ``stop_token_hit:500``).
+``_topk_topp_mask_sort:139``, ``stop_token_hit:500``, and speculative
+decoding's ``spec_verify:373``, ``ngram_propose:454``,
+``ring_shift_in:486``).
 
 Greedy argmax, plus temperature / top-k / top-p / min-p sampling by
 Gumbel-max over the masked logits. The noise comes from a
 ``torch.Generator`` the runner seeds with ``EngineConfig.seed``; JAX's
 threefry bits are not reproduced, so sampled (non-greedy) tokens differ
 from the JAX package's while their distribution is the same.
+
+JAX's ``spec_adjust_logits`` (``:324``: penalties and ``logit_bias`` over
+the verify rows) has no counterpart: it is the identity while this port
+refuses both options (ROADMAP A 5).
 """
 
 from __future__ import annotations
@@ -99,3 +105,113 @@ def stop_token_hit(tokens: torch.Tensor, md: SamplingMetadata,
     if md.stop_from is not None:
         hit = hit & (md.stop_from <= sub_step)
     return hit
+
+
+def spec_verify(logits_mat: torch.Tensor, drafts: torch.Tensor,
+                md: SamplingMetadata,
+                generator: Optional[torch.Generator] = None, *,
+                sampled: bool = True, draws=None):
+    """Verify speculative drafts against the target model's logits (JAX's
+    ``spec_verify``, ``gllm_tpu/ops/sampling.py:373``).
+
+    logits_mat [S, K+1, V]: row i scores the token after draft position i
+    (row 0 follows the last committed token); drafts [S, K] int32, -1
+    padded. Returns (tok_mat [S, K+1] int32, accept [S] int32): the
+    engine commits ``tok_mat[s, :accept + 1]``, the accepted drafts and
+    then the correction (or, when every draft was accepted, the bonus)
+    token.
+
+    Greedy rows (temperature 0) accept by argmax equality, a prefix found
+    by a cumulative product: identical to greedy decoding. Sampled rows
+    use rejection sampling against the one-hot prompt-lookup proposal:
+    draft d_i is accepted with probability p_i(d_i) (p the row's
+    temperature / top-k / top-p / min-p distribution), and the first
+    rejection resamples from p_i with d_i removed, which keeps the target
+    distribution exactly. ``sampled`` False (every row greedy) keeps the
+    argmax alone. The draws come from ``generator`` (uniforms [S, K+1]
+    and Gumbel noise [S, K+1, V] as -log of unit exponentials; JAX's
+    threefry keys are not reproduced), or from ``draws`` = (uniforms,
+    gumbel) when given."""
+    S, K1, V = logits_mat.shape
+    K = K1 - 1
+    logits_f = logits_mat.float()
+    greedy_mat = torch.argmax(logits_f, dim=-1).to(torch.int32)
+    ok_g = greedy_mat[:, :-1] == drafts              # -1 never matches
+    if not sampled:
+        accept = torch.cumprod(ok_g.to(torch.int32), dim=-1).sum(dim=-1)
+        return greedy_mat, accept.to(torch.int32)
+    temp = torch.clamp(md.temperature, min=1e-6)[:, None, None]
+    rep = lambda a: a.repeat_interleave(K1, dim=0)   # noqa: E731
+    masked = topk_topp_mask(
+        (logits_f / temp).reshape(S * K1, V), rep(md.top_k), rep(md.top_p),
+        None if md.min_p is None else rep(md.min_p))
+    p = torch.softmax(masked, dim=-1).reshape(S, K1, V)
+    if draws is None:
+        u = torch.rand((S, K1), generator=generator,
+                       device=logits_mat.device)
+        gumbel = -torch.log(torch.empty_like(p).exponential_(
+            generator=generator))
+    else:
+        u, gumbel = draws
+    d_safe = torch.clamp(drafts, min=0).long()
+    p_draft = torch.gather(p[:, :K], 2, d_safe[..., None])[..., 0]
+    ok_s = (u[:, :K] < p_draft) & (drafts >= 0)
+    # corrections: position j < K samples the residual (its draft
+    # banned), position K the bonus token from the full distribution
+    iota = torch.arange(V, device=p.device)
+    ban = (iota[None, None, :] == d_safe[..., None]) & (drafts >= 0)[..., None]
+    p_corr = torch.cat([torch.where(ban, 0.0, p[:, :K]), p[:, K:]], dim=1)
+    logp = torch.where(p_corr > 0, torch.log(torch.clamp(p_corr, min=1e-30)),
+                       float("-inf"))
+    corr = torch.argmax(logp + gumbel, dim=-1).to(torch.int32)
+    tok_sampled = torch.cat([torch.where(ok_s, drafts, corr[:, :K]),
+                             corr[:, K:]], dim=1)
+    greedy_rows = (md.temperature == 0.0)[:, None]
+    ok = torch.where(greedy_rows, ok_g, ok_s)
+    accept = torch.cumprod(ok.to(torch.int32), dim=-1).sum(dim=-1)
+    tok_mat = torch.where(greedy_rows, greedy_mat, tok_sampled)
+    return tok_mat, accept.to(torch.int32)
+
+
+def ngram_propose(ring: torch.Tensor, ring_len: torch.Tensor, *, n: int,
+                  k: int) -> torch.Tensor:
+    """On-device prompt-lookup proposal (JAX's ``ngram_propose``,
+    ``gllm_tpu/ops/sampling.py:454``): for each row of a right-aligned
+    recent-token ring (``ring[s, R-1]`` the newest token, ``ring_len[s]``
+    valid entries, -1 before them), the continuation, up to ``k`` tokens,
+    of the most recent earlier occurrence of its last ``n`` tokens, by
+    one sliding-window compare with no host read. [S, k] int32, -1 where
+    a row has no match or its continuation runs past the ring."""
+    S, R = ring.shape
+    if R <= n:
+        return torch.full((S, k), -1, dtype=torch.int32, device=ring.device)
+    pattern = ring[:, R - n:]
+    m = R - n                       # window starts 0..m-1 (m: the pattern)
+    match = torch.ones((S, m), dtype=torch.bool, device=ring.device)
+    for d in range(n):
+        match = match & (ring[:, d:d + m] == pattern[:, d:d + 1])
+    # a window counts only inside the valid region
+    starts = torch.arange(m, device=ring.device)[None, :]
+    match = match & (starts >= (R - ring_len)[:, None])
+    has = match.any(dim=1)
+    # the most recent match: the highest start
+    j = (m - 1) - torch.argmax(match.flip(1).to(torch.int8), dim=1)
+    idx = j[:, None] + n + torch.arange(k, device=ring.device)[None, :]
+    cont = torch.gather(ring, 1, torch.clamp(idx, max=R - 1))
+    valid = (idx < R) & has[:, None] & (cont >= 0)
+    return torch.where(valid, cont, -1).to(torch.int32)
+
+
+def ring_shift_in(ring: torch.Tensor, ring_len: torch.Tensor,
+                  toks: torch.Tensor, counts: torch.Tensor):
+    """Append ``counts[s]`` tokens of ``toks[s]``, left to right, to each
+    row of a right-aligned ring (JAX's ``ring_shift_in``,
+    ``gllm_tpu/ops/sampling.py:486``): the row shifts left by its count,
+    so ``ring[s, R-1]`` stays the newest token; a count of 0 leaves the
+    row as it is. Returns (ring, ring_len)."""
+    S, R = ring.shape
+    ext = torch.cat([ring, toks.to(ring.dtype)], dim=1)
+    idx = (torch.arange(R, device=ring.device)[None, :]
+           + counts[:, None].long())
+    return (torch.gather(ext, 1, idx),
+            torch.clamp(ring_len + counts, max=R).to(ring_len.dtype))

@@ -31,6 +31,13 @@ from gllm_tpu_torch.utils import bucket_size, cdiv, next_pow2
 # the widest per-row stop set (EOS and stop_token_ids) a block under
 # on-device finish takes: the staging buffer reserves [S, MAX_STOP_IDS]
 MAX_STOP_IDS = 64
+# a fused spec block's seed state a row: the right-aligned token ring, then
+# its valid length, the last token, the position, the token budget, the
+# draft length, how the runner completes the row on the card (0: the
+# host's seed is whole; SEED_CARRY, SEED_SPLICE) and the block's sub-step
+# limit
+SPEC_SEED_COLS = 7
+SEED_CARRY, SEED_SPLICE = 1, 2
 
 
 class BatchBuilder:
@@ -39,11 +46,25 @@ class BatchBuilder:
         self.config = config
         self.page_size = page_size
         sc = config.scheduler
-        # upper bounds of the shape buckets
-        self.max_tokens = sc.max_prefill_tokens + sc.max_decode_seqs
+        # upper bounds of the shape buckets; speculative decoding adds up
+        # to spec_k draft rows a decode row
+        self.spec_k = config.spec_k if config.spec_decode else 0
+        self.max_tokens = (sc.max_prefill_tokens
+                           + sc.max_decode_seqs * (1 + self.spec_k))
         self.max_seqs = min(config.max_num_seqs,
                             sc.max_decode_seqs + sc.max_prefill_tokens)
         self.max_pages_per_seq = config.max_pages_per_seq
+        # where blocks form (overlap scheduling, multi_step_decode > 1, not
+        # a hybrid model), every pure-decode signature takes the one
+        # largest page bucket, so that warmup's sequence buckets cover every
+        # decode step and block that serving meets (ROADMAP C 7)
+        self.pin_pages = (config.overlap_scheduling
+                          and config.multi_step_decode > 1 and not use_ssm)
+        # a fused spec block's page table is wider by the pages spec_k draft
+        # rows can reach past a row's allocated frontier: a verify row's
+        # context ends spec_k tokens after its committed position
+        self.spec_pages = (cdiv(config.spec_k, page_size)
+                           if config.spec_fused else 0)
         # unified step: one signature family, max_q_len rides the token
         # bucket (no separate q == 1 population); inert for a hybrid model,
         # as in the JAX package (prepare.py:60-65)
@@ -59,20 +80,27 @@ class BatchBuilder:
         the q == t family and every other batch pads its tokens to the
         one schedulable maximum, as the JAX package does."""
         s = bucket_size(batch.num_seqs, 8, self.max_seqs)
-        max_q = max(it.num_new_tokens for it in batch.items)
+        rows = [it.num_new_tokens + len(it.draft_tokens)
+                for it in batch.items]
+        max_q = max(rows)
         if self.unified:
             t = s if max_q == 1 else self.max_tokens
             q = t
         elif max_q == 1:
             t, q = s, 1          # pure decode: one token per seq (T == S)
         else:
-            t = bucket_size(batch.total_tokens, 16, self.max_tokens)
+            t = bucket_size(sum(rows), 16, self.max_tokens)
             q = t
+        # a table may be longer than this step needs (an earlier step's
+        # rejected drafts, a spec block's worst case)
         max_pages = max(
-            max(cdiv(it.computed_before + it.num_new_tokens, self.page_size),
+            max(cdiv(it.computed_before + it.num_new_tokens
+                     + len(it.draft_tokens), self.page_size),
                 len(it.seq.page_table))
             for it in batch.items)
         p = bucket_size(max_pages, 4, self.max_pages_per_seq)
+        if self.pin_pages and max_q == 1:
+            p = self.max_pages_per_seq
         return t, s, q, p
 
     def padding(self, t_pad: int, s_pad: int, p_pad: int) -> StepBatch:
@@ -96,7 +124,8 @@ class BatchBuilder:
                 min_p=np.zeros(s_pad, np.float32)),
             ssm_slots=z(s_pad) if self.use_ssm else None)
 
-    def stop_sets(self, items, s_bucket: int, eos_token_ids):
+    def stop_sets(self, items, s_bucket: int, eos_token_ids,
+                  absolute: bool = False):
         """On-device finish inputs of a block: ([S, E] per-row EOS and
         stop-token ids padded with -1, [S] arming sub-step), or
         (None, None) when no row has a stop id. ``items`` are the first
@@ -106,7 +135,11 @@ class BatchBuilder:
         computed_before - 2``. E is a power of two, at least 8 and at
         most ``MAX_STOP_IDS``; a wider set raises. A hole row (persistent
         slots) is dead for the whole block and gives no id, so that a
-        finish never widens E mid-run."""
+        finish never widens E mid-run. ``absolute`` (a fused spec block,
+        whose carried frontier makes sub-step numbers meaningless across
+        blocks): the arming threshold is the absolute feed position
+        ``min_tokens + prompt_len - 2`` (a row without ``min_tokens``:
+        always armed), JAX's ``stop_sets(absolute=True)``."""
         sets = [[] if it.seq.seq_id == HOLE_SEQ_ID
                 else it.seq.device_stop_ids(eos_token_ids) for it in items]
         if not any(sets):
@@ -118,11 +151,15 @@ class BatchBuilder:
                 f" exceeds the {MAX_STOP_IDS} a block takes")
         E = max(8, next_pow2(widest))
         stop_ids = np.full((s_bucket, E), -1, np.int32)
-        stop_from = np.zeros(s_bucket, np.int32)
+        stop_from = np.full(s_bucket, -(1 << 30) if absolute else 0,
+                            np.int32)
         for i, (it, ids) in enumerate(zip(items, sets)):
             stop_ids[i, :len(ids)] = ids
             mt = it.seq.sampling_params.min_tokens
-            if mt:
+            if absolute:
+                stop_from[i] = (mt + it.seq.prompt_len - 2 if mt
+                                else -(1 << 30))
+            elif mt:
                 stop_from[i] = max(0, mt + it.seq.prompt_len
                                    - it.computed_before - 2)
         return stop_ids, stop_from
@@ -147,8 +184,10 @@ class BatchBuilder:
 
         items = batch.items
         K = len(items)
-        ns = np.fromiter((it.num_new_tokens for it in items), np.int64,
-                         count=K)
+        # drafts add verify rows after each item's committed chunk, which
+        # everything downstream treats as ordinary chunk rows
+        ns = np.fromiter((it.num_new_tokens + len(it.draft_tokens)
+                          for it in items), np.int64, count=K)
         befores = np.fromiter((it.computed_before for it in items),
                               np.int64, count=K)
         ends = np.cumsum(ns)
@@ -189,7 +228,9 @@ class BatchBuilder:
         def _tok_vals(it):
             b, n = it.computed_before, it.num_new_tokens
             v = it.seq.token_ids[b:b + n]
-            return v if len(v) == n else list(v) + [0] * (n - len(v))
+            if len(v) != n:
+                v = list(v) + [0] * (n - len(v))
+            return list(v) + list(it.draft_tokens) if it.draft_tokens else v
 
         tokens[:total] = np.fromiter(
             (t for it in items for t in _tok_vals(it)), np.int32,
@@ -204,6 +245,21 @@ class BatchBuilder:
         if self.use_ssm:
             # a hole row owns no slot: the dummy slot 0
             pad.ssm_slots[:K] = [it.seq.ssm_slot or 0 for it in items]
+        if batch.has_drafts:
+            # a drafted row's verify rows: its committed row, then its
+            # draft rows (row r scores the token after r's position); a
+            # row without drafts points at row 0 with -1 drafts, which
+            # never accept
+            kmax = self.spec_k
+            spec_rows = np.zeros((s_pad, kmax + 1), np.int32)
+            spec_drafts = np.full((s_pad, kmax), -1, np.int32)
+            for i, it in enumerate(items):
+                d = len(it.draft_tokens)
+                if d:
+                    base = int(offs[i]) + it.num_new_tokens - 1
+                    spec_rows[i, :d + 1] = base + np.arange(d + 1)
+                    spec_drafts[i, :d] = it.draft_tokens
+            pad = pad._replace(spec_rows=spec_rows, spec_drafts=spec_drafts)
         return pad._replace(num_seqs=K,
                             max_seq_q=int(ns.max()) if K else 0), max_q
 
@@ -212,6 +268,12 @@ class BatchBuilder:
         (``HostStaging``'s layout, the variable lists excluded)."""
         return (3 * t_pad + s_pad * (7 + p_pad) + 1
                 + (s_pad if self.use_ssm else 0))
+
+    def spec_size(self, s_pad: int, ring: int) -> int:
+        """int32 slots of a step's speculation arrays at S rows: a
+        host-driven verify step's rows and drafts, or a fused spec block's
+        seed state (ring, then ``SPEC_SEED_COLS`` columns)."""
+        return s_pad * max(2 * self.spec_k + 1, ring + SPEC_SEED_COLS)
 
 
 class HostStaging:
@@ -225,7 +287,8 @@ class HostStaging:
     [S] (offsets fixed by (T, S, pages, E)), then the lists whose length
     varies from step to step (the int8 cache's scale-reset page ids, a
     hybrid model's slots to zero, each deduplicated; a re-formed batch's
-    splice map). The device copy is split back into views. With ``capacity`` the device
+    splice map; a verify step's rows and drafts, or a spec block's seed
+    state). The device copy is split back into views. With ``capacity`` the device
     buffer is allocated once, at that size, and a step that needs more
     raises: a CUDA graph captured on the views of a signature then reads
     every later step of it. Without, it grows as needed (``allocations``
@@ -275,7 +338,10 @@ class HostStaging:
                  _ints(sb.sampling.stop_ids).reshape(-1),
                  _ints(sb.sampling.stop_from),
                  np.asarray(resets, np.int32), np.asarray(zero, np.int32),
-                 np.asarray(sb.splice or [], np.int32)]
+                 np.asarray(sb.splice or [], np.int32),
+                 _ints(sb.spec_rows).reshape(-1),
+                 _ints(sb.spec_drafts).reshape(-1),
+                 _ints(sb.spec_seed).reshape(-1)]
         sizes = [p.size for p in parts]
         n = sum(sizes)
         if self._dev is None or self._dev.numel() < n:
@@ -302,7 +368,9 @@ class HostStaging:
         views = list(torch.split(dev, sizes))
         (tok, pos, slots, lidx, cu, kvl, pt, top_k, temp, top_p,
          min_p, ssm_slots, active_until, stop_ids, stop_from, resets,
-         ssm_zero, splice) = views
+         ssm_zero, splice, spec_rows, spec_drafts, spec_seed) = views
+        shaped = lambda v, a: (None if a is None  # noqa: E731
+                               else v.view(a.shape))
         f32 = torch.float32
         return StepBatch(
             token_ids=tok, positions=pos, slot_mapping=slots,
@@ -323,6 +391,9 @@ class HostStaging:
                           else None),
             ssm_zero=ssm_zero if ssm_zero.numel() else None,
             splice=splice.view(2, -1) if splice.numel() else None,
+            spec_rows=shaped(spec_rows, sb.spec_rows),
+            spec_drafts=shaped(spec_drafts, sb.spec_drafts),
+            spec_seed=shaped(spec_seed, sb.spec_seed),
             num_seqs=sb.num_seqs, max_seq_q=sb.max_seq_q)
 
 

@@ -13,8 +13,14 @@ a row. ``step_async_chained`` dispatches a step whose input tokens are an
 earlier handle's sampled tokens, spliced in on the device (overlap
 scheduling, ``gllm_tpu/runner/runner.py:1114-1289``). ``step_multi``
 dispatches a block: K chained pure-decode steps as one device program
-(one CUDA graph), whose rows that die inside it freeze, and which stops
-early under on-device finish once every row has finished. With
+(one CUDA graph, captured at the longest block and replayed by every
+shorter one), whose rows that die inside it freeze, and which stops
+early once every row has finished. Speculative decoding: a step with
+prompt-lookup drafts verifies them in its own forward (``spec_aux``: the
+verify rows' logits only, then ``spec_verify``), eagerly as every mixed
+step; ``step_spec_multi`` dispatches a fused spec block, K draft+verify
+sub-steps over an on-device token ring as one CUDA graph, whose state
+passes from block to block in the handle. With
 ``EngineConfig.enforce_eager`` off (the default, as in the JAX package),
 a pure-decode step on CUDA replays the CUDA graph of its shape signature,
 captured at first sight or by ``warmup`` (``runner/graphs.py``, where JAX
@@ -48,13 +54,15 @@ from gllm_tpu_torch.models.config import ModelConfig
 from gllm_tpu_torch.models.registry import get_model_def
 from gllm_tpu_torch.ops.cuda.common import check_model_shapes
 from gllm_tpu_torch.ops.cuda.decode_attention import split_geometry
-from gllm_tpu_torch.ops.sampling import sample, stop_token_hit
+from gllm_tpu_torch.ops.sampling import (ngram_propose, ring_shift_in,
+                                         sample, spec_verify, stop_token_hit)
 from gllm_tpu_torch.runner import graphs
-from gllm_tpu_torch.runner.prepare import (MAX_STOP_IDS, BatchBuilder,
-                                           HostStaging)
+from gllm_tpu_torch.runner.prepare import (MAX_STOP_IDS, SEED_CARRY,
+                                           SEED_SPLICE, SPEC_SEED_COLS,
+                                           BatchBuilder, HostStaging)
 from gllm_tpu_torch.sampling_params import SamplingParams
 from gllm_tpu_torch.scheduler import ScheduledBatch, ScheduledSeq
-from gllm_tpu_torch.sequence import Sequence
+from gllm_tpu_torch.sequence import HOLE_SEQ_ID, Sequence, SequenceStatus
 from gllm_tpu_torch.utils import cdiv
 
 logger = logging.getLogger(__name__)
@@ -74,6 +82,9 @@ ACTIVATION_HEADROOM = 512 * 1024 * 1024
 # holds about two recurrent GDN states per row
 GRAPH_POOL_LOGIT_COPIES = 16
 GRAPH_POOL_STATES_PER_ROW = 2
+# a fused spec block's on-device recent-token ring, per row (JAX's
+# ``SPEC_RING``): the n-gram lookup window of its drafting
+SPEC_RING = 128
 
 
 def reclaim_driver_memory(device: torch.device) -> None:
@@ -92,6 +103,45 @@ def reclaim_driver_memory(device: torch.device) -> None:
         pass
 
 
+class SpecLayout(NamedTuple):
+    """Where a fused spec block's packed output keeps its parts: K links
+    run of the K_cap sub-steps the graph holds, S rows (n real), K1 =
+    spec_k + 1 tokens a verify row, the ring's width R. In order: tokens
+    [K_cap, S, K1], emitted counts [K_cap, S], drafted, accepted and the
+    draft length [S] each (what goes to the host), then the carried state:
+    ring [S, R], its length, the last token, the position and the token
+    budget [S] each."""
+    K: int
+    K_cap: int
+    S: int
+    K1: int
+    R: int
+    n: int
+
+    @property
+    def host_size(self) -> int:
+        return self.K_cap * self.S * (self.K1 + 1) + 3 * self.S
+
+    @property
+    def size(self) -> int:
+        return self.host_size + self.S * (self.R + 4)
+
+    def split(self, out):
+        """(tokens, counts, drafted, accepted, kcur, ring, rlen, last, pos,
+        alive) views of a packed output (device or host)."""
+        K, S, K1, R = self.K_cap, self.S, self.K1, self.R
+        sizes = [K * S * K1, K * S, S, S, S, S * R, S, S, S, S]
+        parts, o = [], 0
+        for n in sizes:
+            parts.append(out[o:o + n])
+            o += n
+        parts[0] = parts[0].reshape(K, S, K1)
+        parts[1] = parts[1].reshape(K, S)
+        if parts[5].shape[0] == S * R:      # the host's part has no state
+            parts[5] = parts[5].reshape(S, R)
+        return parts
+
+
 class StepHandle(NamedTuple):
     """A dispatched step's sampled tokens: ``tokens``, the handle's own
     copy on the device (what a chained step splices from; never a graph's
@@ -99,16 +149,25 @@ class StepHandle(NamedTuple):
     copy on the way to the host (pinned on CUDA), and ``event``, recorded
     after that copy (None on the CPU). A block's (``block``: its graph
     key) are [K + 1, n]: the tokens of each sub-step, then each row's
-    finish step (the sub-steps in which it was alive)."""
+    finish step (the sub-steps in which it was alive). A verify step's
+    (``spec`` the int spec_k + 1) are [n, 2 + spec_k + 1]: the sampled
+    token, the accepted drafts, then the verify tokens. A fused spec
+    block's (``spec`` its ``SpecLayout``) are its packed output, of which
+    the host gets the part before the carried state."""
     tokens: torch.Tensor
     host: torch.Tensor
     event: Optional[torch.cuda.Event]
     block: Optional[tuple] = None
+    spec: object = None
 
     @property
     def last(self) -> torch.Tensor:
         """The tokens a step chained off this one takes as input: a
-        block's last sub-step's."""
+        block's last sub-step's, a spec block's last emitted ones."""
+        if isinstance(self.spec, SpecLayout):
+            return self.spec.split(self.tokens)[7][:self.spec.n]
+        if self.spec is not None:
+            return self.tokens[:, 0]
         return self.tokens[-2] if self.block is not None else self.tokens
 
 
@@ -178,13 +237,17 @@ class ModelRunner:
                     self.num_pages, config.cache.page_size, self.kv_dtype,
                     self.device)
         # one device buffer for every step: the largest step's fixed part,
-        # a block's active_until and widest stop sets, then room for every
-        # page's scale reset, every slot's zeroing and a re-form's splice
-        # map; a pinned host buffer for each step that can be in flight,
-        # and one more
+        # a block's active_until and widest stop sets, a verify step's rows
+        # and drafts or a spec block's seed, then room for every page's
+        # scale reset, every slot's zeroing and a re-form's splice map; a
+        # pinned host buffer for each step that can be in flight, and one
+        # more
         b = self.builder
         self.staging = HostStaging(self.device, capacity=(
-            b.upload_size(b.max_tokens, b.max_seqs, b.max_pages_per_seq)
+            b.upload_size(b.max_tokens, b.max_seqs,
+                          b.max_pages_per_seq + b.spec_pages)
+            + (b.spec_size(b.max_seqs, SPEC_RING)
+               if config.spec_decode else 0)
             + b.max_seqs * (2 + MAX_STOP_IDS)
             + (self.num_pages if self.kv_quant else 0)
             + (1 + self.ssm_working_slots if self.hybrid else 0)
@@ -219,13 +282,20 @@ class ModelRunner:
                           self.config.max_model_len))
             headroom += hybrid.gdn_transient_bytes(self.model_cfg, cells,
                                                    rows)
+        # a verify step scores spec_k + 1 rows a sequence: the eager
+        # verify of host-driven speculation and the fused spec block each
+        # hold that many rows of logits and their sampling transients
+        spec = self.config.spec_decode is not None
+        logit_rows = rows * (1 + self.config.spec_k) if spec else rows
+        if spec and not self.config.spec_fused:
+            headroom += GRAPH_POOL_LOGIT_COPIES * logit_rows * \
+                self.model_cfg.vocab_size * 4
         if not self.config.enforce_eager:
-            # the graphs' pool and, when blocks stop early, the pool of
-            # their conditional bodies, which holds a sub-step's transient
-            # of its own
-            pools = 2 if (self.block_len > 1
-                          and self.config.ondevice_finish) else 1
-            headroom += (pools * GRAPH_POOL_LOGIT_COPIES * rows
+            # the graphs' pool and, where blocks form, the pool of their
+            # conditional bodies, which holds a sub-step's transient of its
+            # own
+            pools = 2 if self.block_len > 1 else 1
+            headroom += (pools * GRAPH_POOL_LOGIT_COPIES * logit_rows
                          * self.model_cfg.vocab_size * 4)
             if self.hybrid:
                 headroom += (GRAPH_POOL_STATES_PER_ROW * rows
@@ -278,11 +348,14 @@ class ModelRunner:
             hkv, d, v_dim = 1, cfg.mla_cache_width, cfg.kv_lora_rank
         else:
             hkv, d, v_dim = cfg.num_kv_heads, cfg.head_dim, None
+        pages = graphs.pow2_range(4, b.max_pages_per_seq)
+        if b.spec_pages:
+            pages += (b.max_pages_per_seq + b.spec_pages,)
         return max(split_geometry(s, p, cfg.num_heads, hkv, d,
                                   self.config.cache.page_size, self.dtype,
                                   self.kv_dtype, self.device, v_dim)[2]
                    for s in graphs.pow2_range(8, b.max_seqs)
-                   for p in graphs.pow2_range(4, b.max_pages_per_seq))
+                   for p in pages)
 
     def _host_batch(self, sched_batch: ScheduledBatch,
                     force_signature=None):
@@ -351,13 +424,36 @@ class ModelRunner:
             self.kv.rec.index_fill_(1, slots, 0.0)
 
     def _forward(self, batch, max_q: int) -> torch.Tensor:
-        hidden, residual = self.model.forward(self.params, self.kv, batch,
-                                              self.model_cfg,
-                                              cos_sin=self.cos_sin,
-                                              max_q_len=max_q,
-                                              impl=self.attn_impl)
+        hidden, residual = self._hidden(batch, max_q)
         return self.model.compute_logits(self.params, hidden, residual,
                                          batch, self.model_cfg)
+
+    def _hidden(self, batch, max_q: int):
+        return self.model.forward(self.params, self.kv, batch,
+                                  self.model_cfg, cos_sin=self.cos_sin,
+                                  max_q_len=max_q, impl=self.attn_impl)
+
+    def _verify_step(self, batch, max_q: int, all_greedy: bool,
+                     spec_sampled: bool) -> torch.Tensor:
+        """A step with drafts (host-driven speculation; JAX's ``spec_aux``,
+        ``runner.py:211-237``): forward, the sampled token of each row, and
+        the verify of the drafts over the verify rows' logits alone (never
+        [T, V]). → [S, 2 + K1]: the sampled token, the accepted drafts,
+        then the verify tokens. ``spec_sampled``: some drafted row samples
+        (``_spec_sampled``); else the argmax-only verify."""
+        hidden, residual = self._hidden(batch, max_q)
+        tokens = sample(self.model.compute_logits(
+            self.params, hidden, residual, batch, self.model_cfg),
+            batch.sampling, self.generator, all_greedy=all_greedy)
+        S, K1 = batch.spec_rows.shape
+        verify = self.model.compute_logits(
+            self.params, hidden, residual,
+            batch._replace(logits_indices=batch.spec_rows.reshape(-1)),
+            self.model_cfg)
+        tok_mat, accept = spec_verify(verify.view(S, K1, -1),
+                                      batch.spec_drafts, batch.sampling,
+                                      self.generator, sampled=spec_sampled)
+        return torch.cat([tokens[:, None], accept[:, None], tok_mat], 1)
 
     def step(self, sched_batch: ScheduledBatch,
              force_signature=None) -> np.ndarray:
@@ -391,10 +487,21 @@ class ModelRunner:
         tokens are spliced from ``prev``'s (``step_async_chained``)."""
         host_batch, max_q, sig_q = self._host_batch(sched_batch,
                                                     force_signature)
+        if host_batch.spec_rows is not None:
+            # a verify step: a mixed step, eager
+            self.step_counts["mixed"] += 1
+            batch = self.staging.upload(host_batch)
+            if prev is not None:
+                self._splice(batch, sched_batch, prev)
+            self._prologue(batch)
+            out = self._verify_step(
+                batch, max_q, _all_greedy(sched_batch.items),
+                _spec_sampled(sched_batch.items))
+            return self._handle(out[:sched_batch.num_seqs],
+                                spec=int(host_batch.spec_rows.shape[1]))
         decode = host_batch.max_seq_q == 1
         self.step_counts["decode" if decode else "mixed"] += 1
-        all_greedy = all(it.seq.sampling_params.temperature == 0.0
-                         for it in sched_batch.items)
+        all_greedy = _all_greedy(sched_batch.items)
         graphed = decode and self.graphs is not None
         if graphed:
             t = host_batch.token_ids.size
@@ -443,15 +550,20 @@ class ModelRunner:
         """Dispatch a block: the K links of ``chain``
         (``Scheduler.schedule_chain``, the same rows in each) as one
         device program, one CUDA graph replay on the card, keyed (T, S,
-        max_q_len, pages, K, all_greedy, ondevice_finish, E). The first
-        link is built and uploaded at the last link's signature, with
-        each row's ``active_until`` (the sub-steps it is alive in) and,
-        under on-device finish, its stop set ([S, E]) and arming sub-step;
+        max_q_len, pages, K_cap, all_greedy, ondevice_finish, E), where
+        K_cap is ``block_len``: a block of fewer links replays the longest
+        block's graph with every row's alive count capped at its K, and
+        the sub-steps no row reaches are skipped (C 7: one graph for every
+        K). The first link is built and uploaded at the last link's
+        signature (pure decode: the pinned page bucket), with each row's
+        ``active_until`` (the sub-steps it is alive in) and, under
+        on-device finish, its stop set ([S, E]) and arming sub-step;
         ``prev`` splices its input tokens as for a chained step. The
         handle carries the [K, n] tokens and each row's finish step by
         one copy to the host. The int8 cache's scale resets of the pages
         minted for every link run once, before the replay."""
         K = len(chain)
+        K_cap = max(K, self.block_len)
         first = chain[0]
         assert all(it.num_new_tokens == 1 for it in first.items)
         assert self.graphs is not None, "blocks form only with graphs on"
@@ -460,25 +572,23 @@ class ModelRunner:
         t, s, _, p = sig
         n = first.num_seqs
         au = np.zeros(s, np.int32)
-        au[:n] = (first.active_until if first.active_until is not None
-                  else K)
+        au[:n] = np.minimum(first.active_until
+                            if first.active_until is not None else K, K)
         odf = self.config.ondevice_finish
         stop_ids = stop_from = None
         if odf:
-            stop_ids, stop_from = self.builder.stop_sets(
-                first.items, s, self.eos_token_ids)
+            stop_ids, stop_from = self._stop_sets(first.items, s)
         e = 0 if stop_ids is None else stop_ids.shape[1]
         host_batch = host_batch._replace(
             active_until=au, sampling=host_batch.sampling._replace(
                 stop_ids=stop_ids, stop_from=stop_from))
         self.block_counts["block"] += 1
-        all_greedy = all(it.seq.sampling_params.temperature == 0.0
-                         for it in first.items)
-        key = ("block", t, s, sig_q, p, K, all_greedy, odf, e)
+        all_greedy = _all_greedy(first.items)
+        key = ("block", t, s, sig_q, p, K_cap, all_greedy, odf, e)
 
         def body(generator, graph=None):
-            return self._block_body(batch, K, all_greedy, odf, generator,
-                                    graph)
+            return self._block_body(batch, K_cap, all_greedy, odf,
+                                    generator, graph)
 
         if self.graphs.cuda and key not in self.graphs:
             pad = self.builder.padding(t, s, p)
@@ -488,13 +598,29 @@ class ModelRunner:
                     stop_ids=(np.full((s, e), -1, np.int32) if e
                               else None),
                     stop_from=np.zeros(s, np.int32) if e else None)))
-            self._capture(key, body, sampled=not all_greedy, substeps=K)
+            self._capture(key, body, sampled=not all_greedy,
+                          substeps=K_cap)
         batch = self.staging.upload(host_batch)
         if prev is not None:
             self._splice(batch, first, prev)
         self._prologue(batch)
         out = self.graphs.run(key, body)
+        if K < K_cap:
+            out = torch.cat([out[:K], out[K_cap:]])
         return self._handle(out[:, :n], block=key)
+
+    def _stop_sets(self, items, s: int, absolute: bool = False):
+        """A block's stop sets under on-device finish
+        (``BatchBuilder.stop_sets``), at least the narrowest width (8)
+        when no row has a stop id (every set empty), so that the width in
+        a block's key does not depend on whether the rows ignore EOS
+        (``warmup``'s blocks carry the engine's EOS ids)."""
+        stop_ids, stop_from = self.builder.stop_sets(
+            items, s, self.eos_token_ids, absolute=absolute)
+        if stop_ids is None:
+            stop_ids = np.full((s, 8), -1, np.int32)
+            stop_from = np.full(s, -(1 << 30) if absolute else 0, np.int32)
+        return stop_ids, stop_from
 
     def _capture(self, key, body, **kw) -> None:
         """Capture ``key``'s graph. One first met while serving (outside
@@ -514,14 +640,15 @@ class ModelRunner:
         min(k, alive_n) from its staged position and context; a dead row
         (k >= alive_n) writes its KV to the dummy page 0. Under on-device
         finish a live row whose token is in its armed stop set gets
-        alive_n = k + 1, and sub-steps 1.. run only while some row is
-        alive: each inside a CUDA-graph conditional (IF) node on that flag
-        when ``graph`` is being captured (``DecodeGraphs.if_node``), the
-        flag read on the host on the CPU (on the card uncaptured, the
-        warm-up run, every sub-step runs, on the IF bodies' stream).
-        Alive counts only fall, so once the flag is false it stays false.
-        Buffers that outlive a sub-step are made before the first one and
-        written in place."""
+        alive_n = k + 1. Sub-steps 1.. run only while some row is alive
+        (alive counts are capped at the block's own length, so a shorter
+        block stops there): each inside a CUDA-graph conditional (IF)
+        node on that flag when ``graph`` is being captured
+        (``DecodeGraphs.if_node``), the flag read on the host on the CPU
+        (on the card uncaptured, the warm-up run, every sub-step runs, on
+        the IF bodies' stream). Alive counts only fall, so once the flag
+        is false it stays false. Buffers that outlive a sub-step are made
+        before the first one and written in place."""
         page = self.config.cache.page_size
         out = torch.zeros((K + 1,) + tuple(batch.token_ids.shape),
                           dtype=torch.int32, device=batch.token_ids.device)
@@ -531,20 +658,33 @@ class ModelRunner:
         cuda = self.device.type == "cuda"
         flags = []
         for k in range(K):
-            region = contextlib.nullcontext()
-            if odf and k > 0:
-                if not cuda:
-                    if not bool((alive_n > k).any()):
-                        break
-                elif graph is not None:
-                    flags.append((alive_n > k).any())
-                    region = self.graphs.if_node(flags[-1])
-                else:
-                    region = self.graphs.on_body_stream()
-            with region:
+            with self._sub_step_region(k, alive_n > k, cuda, graph,
+                                       flags) as run:
+                if not run:
+                    break
                 tokens = self._sub_step(batch, tokens, alive_n, out, k,
                                         all_greedy, odf, generator, page)
         return out
+
+    @contextlib.contextmanager
+    def _sub_step_region(self, k: int, live: torch.Tensor, cuda: bool,
+                         graph, flags: list):
+        """Where sub-step k of a block runs (``_block_body``,
+        ``_spec_body``): sub-step 0 always; a later one inside an IF node
+        on ``live.any()`` under capture, on the IF bodies' stream in the
+        uncaptured warm-up run, and on the CPU only when some row is live
+        (yields False otherwise: the caller stops)."""
+        if k == 0:
+            yield True
+        elif not cuda:
+            yield bool(live.any())
+        elif graph is not None:
+            flags.append(live.any())
+            with self.graphs.if_node(flags[-1]):
+                yield True
+        else:
+            with self.graphs.on_body_stream():
+                yield True
 
     def _sub_step(self, batch, tokens, alive_n, out, k: int,
                   all_greedy: bool, odf: bool, generator,
@@ -570,16 +710,284 @@ class ModelRunner:
         out[k].copy_(toks)
         return out[k]
 
-    def _handle(self, tokens: torch.Tensor, block=None) -> StepHandle:
-        """Start the copy of a step's tokens to the host."""
+    # ---- fused speculation ------------------------------------------------
+
+    @torch.inference_mode()
+    def step_spec_multi(self, chain, prev: Optional[StepHandle] = None
+                        ) -> StepHandle:
+        """Dispatch a fused spec block (JAX's ``step_spec_multi``,
+        ``runner.py:1662-1718``): the K links of a spec chain as K
+        draft+verify sub-steps in one CUDA graph replay, keyed ("spec",
+        S, pages, K_cap, spec_k, all_greedy, ondevice_finish, E), K_cap
+        being ``block_len``; a shorter block stops at its K. Each row
+        carries a state: a right-aligned ring of its last ``SPEC_RING``
+        tokens, its last token, its position, its token budget
+        (``active_until``) and its draft length. The first link is built at
+        the pinned page bucket widened by ``spec_pages``, and each row's
+        seed state rides the upload (``_spec_seed``); rows that chain off
+        ``prev`` complete it on the device before the replay: off a spec
+        block they take its carried state wholesale (the actual frontier,
+        where the host scheduled upper bounds), off a single step they
+        append its sampled token to the ring. The handle carries the
+        tokens of every sub-step, the counts each row emitted, the drafts
+        proposed and accepted and the draft lengths, by one copy to the
+        host, and the carried state for the next block."""
+        K = len(chain)
+        K_cap = max(K, self.block_len)
+        first = chain[0]
+        assert first.spec_block and first.active_until is not None
+        assert self.graphs is not None, "blocks form only with graphs on"
+        b = self.builder
+        t, s, sig_q, _ = b.shape_signature(chain[-1])
+        p = b.max_pages_per_seq + b.spec_pages
+        host_batch, _, _ = self._host_batch(first, (t, s, sig_q, p))
+        n = first.num_seqs
+        kd = self.config.spec_k
+        stop_ids = stop_from = None
+        if self.config.ondevice_finish:
+            stop_ids, stop_from = self._stop_sets(first.items, s,
+                                                  absolute=True)
+        e = 0 if stop_ids is None else stop_ids.shape[1]
+        host_batch = host_batch._replace(
+            spec_seed=self._spec_seed(first, s, K, prev),
+            sampling=host_batch.sampling._replace(stop_ids=stop_ids,
+                                                  stop_from=stop_from))
+        self.block_counts["block"] += 1
+        all_greedy = _all_greedy(first.items)
+        key = ("spec", t, s, sig_q, p, K_cap, kd, all_greedy,
+               self.config.ondevice_finish, e)
+        layout = SpecLayout(K, K_cap, s, kd + 1, SPEC_RING, n)
+
+        def body(generator, graph=None):
+            return self._spec_body(batch, layout, all_greedy, generator,
+                                   graph)
+
+        if self.graphs.cuda and key not in self.graphs:
+            pad = b.padding(t, s, p)
+            batch = self.staging.upload(pad._replace(
+                spec_seed=np.zeros((s, SPEC_RING + SPEC_SEED_COLS),
+                                   np.int32),
+                sampling=pad.sampling._replace(
+                    stop_ids=(np.full((s, e), -1, np.int32) if e
+                              else None),
+                    stop_from=np.zeros(s, np.int32) if e else None)))
+            self._capture(key, body, sampled=not all_greedy,
+                          substeps=K_cap)
+        batch = self.staging.upload(host_batch)
+        if prev is not None:
+            self._spec_splice(batch.spec_seed, prev, s)
+        self._prologue(batch)
+        out = self.graphs.run(key, body)
+        return self._handle(out, block=key, spec=layout)
+
+    def _spec_seed(self, first: ScheduledBatch, s: int, K: int,
+                   prev: Optional[StepHandle]) -> np.ndarray:
+        """Each row's seed state on the host (JAX's ``_spec_seed_state``,
+        ``runner.py:1720-1830``): [S, SPEC_RING + SPEC_SEED_COLS]. A row
+        whose link-0 token the host knows (a chain root, a join) seeds
+        from its committed tokens, the ring ending with that token; a row
+        chained off a single step seeds with its committed tokens and is
+        marked ``SEED_SPLICE`` (the step's device token goes in); off a
+        spec block, ``SEED_CARRY`` (its state is the block's). A hole, a
+        sequence the host has finished, and a padding row are dead (budget
+        0). The last column is the block's sub-step limit K."""
+        R = SPEC_RING
+        kd = self.config.spec_k
+        seed = np.zeros((s, R + SPEC_SEED_COLS), np.int32)
+        ring, rlen, last, pos, alive, kcur, mode, klim = (
+            seed[:, :R], *seed[:, R:].T)
+        ring[:] = -1
+        kcur[:] = 1
+        klim[:] = K
+        carry = prev is not None and isinstance(prev.spec, SpecLayout)
+        joins = set(first.host_rows or ())
+        for i, it in enumerate(first.items):
+            seq = it.seq
+            if (seq.seq_id == HOLE_SEQ_ID
+                    or seq.status is not SequenceStatus.RUNNING):
+                continue                    # dead: budget 0
+            cb = it.computed_before
+            toks = seq.token_ids
+            kcur[i] = min(seq.spec_k_cur or kd, kd)
+            pos[i] = cb
+            alive[i] = first.active_until[i]
+            if cb < seq.num_tokens:
+                # the host knows the link-0 token: the ring ends with it
+                tail = toks[max(0, cb + 1 - R):cb + 1]
+                last[i] = toks[cb]
+            else:
+                # it is the previous entry's, on the device
+                tail = toks[max(0, len(toks) - R):]
+                if i not in joins:
+                    mode[i] = SEED_CARRY if carry else SEED_SPLICE
+            ring[i, R - len(tail):] = tail
+            rlen[i] = len(tail)
+        return seed
+
+    @staticmethod
+    def _spec_splice(seed: torch.Tensor, prev: StepHandle, s: int) -> None:
+        """Complete the staged seed on the device, after its upload and
+        before the replay: ``SEED_CARRY`` rows take ``prev``'s carried
+        spec state (ring, length, last token, position, budget and draft
+        length), ``SEED_SPLICE`` rows append ``prev``'s sampled token to
+        their ring and take it as their last token."""
+        R = SPEC_RING
+        mode = seed[:, R + 5]
+        if isinstance(prev.spec, SpecLayout):
+            (_, _, _, _, kcur, ring, rlen, last, pos,
+             alive) = prev.spec.split(prev.tokens)
+            assert prev.spec.S == s, (prev.spec.S, s)
+            carried = torch.cat([ring, torch.stack(
+                [rlen, last, pos, alive, kcur], 1)], 1)
+            take = (mode == SEED_CARRY)[:, None]
+            seed[:, :R + 5] = torch.where(take, carried, seed[:, :R + 5])
+            return
+        tok = torch.zeros(s, dtype=torch.int32, device=seed.device)
+        tok[:prev.last.shape[0]] = prev.last
+        splice = mode == SEED_SPLICE
+        ring, rlen = ring_shift_in(seed[:, :R], seed[:, R], tok[:, None],
+                                   splice.to(torch.int32))
+        seed[:, :R] = ring
+        seed[:, R] = rlen
+        seed[:, R + 1] = torch.where(splice, tok, seed[:, R + 1])
+
+    def _spec_body(self, batch, layout: SpecLayout, all_greedy: bool,
+                   generator, graph) -> torch.Tensor:
+        """K_cap draft+verify sub-steps over the staged views → the packed
+        output of ``layout`` (JAX's ``step_spec``, ``runner.py:1520-1652``).
+        Sub-steps 1.. run only while some row has budget left and the
+        block's limit is not reached, each in an IF node under capture
+        (``_sub_step_region``). State that outlives a sub-step is made
+        before the first one and written in place."""
+        K_cap, S, K1, R = layout.K_cap, layout.S, layout.K1, layout.R
+        seed = batch.spec_seed
+        dev = seed.device
+        out = torch.zeros(layout.size, dtype=torch.int32, device=dev)
+        (toks, counts, drafted, accepted, kcur, ring, rlen, last, pos,
+         alive) = layout.split(out)
+        ring.copy_(seed[:, :R])
+        rlen.copy_(seed[:, R])
+        last.copy_(seed[:, R + 1])
+        pos.copy_(seed[:, R + 2])
+        alive.copy_(seed[:, R + 3])
+        kcur.copy_(seed[:, R + 4])
+        klim = seed[:, R + 6]
+        # the verify batch's fixed parts: S rows of K1 tokens each, every
+        # row's logits
+        fixed = dict(
+            cu=torch.arange(S + 1, dtype=torch.int32, device=dev) * K1,
+            rows=torch.arange(S * K1, dtype=torch.int32, device=dev),
+            iota=torch.arange(K1, dtype=torch.int32, device=dev)[None, :])
+        cuda = self.device.type == "cuda"
+        flags = []
+        for k in range(K_cap):
+            with self._sub_step_region(k, (alive > 0) & (klim > k), cuda,
+                                       graph, flags) as run:
+                if not run:
+                    break
+                self._spec_sub_step(batch, layout, out, k, fixed,
+                                    all_greedy, generator)
+        return out
+
+    def _spec_sub_step(self, batch, layout: SpecLayout, out, k: int,
+                       fixed: dict, all_greedy: bool, generator) -> None:
+        """Sub-step k of a spec block (``_spec_body``): propose up to
+        min(draft length, budget - 1) drafts a row from its ring, run the
+        committed token and the drafts as one row of K1 tokens through the
+        forward (the ragged class of K1/K1u/K1m/K1um), verify, and advance
+        the row by what it emitted: the accepted run and the correction
+        token, cut at its budget and, under on-device finish, after the
+        first armed stop id in the run (which ends the row). Rows past a
+        row's allowance, and every row of a dead one, write their KV to the
+        dummy page 0. The draft length adapts in the block as on the host
+        (AIMD: a clean sweep of the allowance adds one, else the accepted
+        run); drafts proposed and accepted are counted over live rows."""
+        S, K1 = layout.S, layout.K1
+        kd = K1 - 1
+        page = self.config.cache.page_size
+        (toks, counts, drafted, accepted, kcur, ring, rlen, last, pos,
+         alive) = layout.split(out)
+        iota = fixed["iota"]
+        table = batch.attn.page_table
+        live = alive > 0
+        allow = torch.clamp(torch.minimum(kcur, alive - 1), 0, kd)
+        drafts = ngram_propose(ring, rlen, n=self.config.spec_ngram, k=kd)
+        drafts = torch.where(iota[:, :kd] < allow[:, None], drafts, -1)
+        prop = (drafts >= 0).sum(1, dtype=torch.int32)
+        tok_row = torch.cat([last[:, None], torch.clamp(drafts, min=0)], 1)
+        # a dead row holds its position and writes the dummy page
+        prow = pos[:, None] + torch.where(live[:, None], iota, 0)
+        write = live[:, None] & (iota <= allow[:, None])
+        pidx = torch.gather(table, 1, torch.clamp(
+            prow // page, max=table.shape[1] - 1).long())
+        slots = torch.where(write, pidx * page + prow % page, 0)
+        kv_lens = torch.where(live, pos + K1, K1)
+        sub = batch._replace(
+            token_ids=tok_row.reshape(-1), positions=prow.reshape(-1),
+            slot_mapping=slots.reshape(-1), logits_indices=fixed["rows"],
+            attn=batch.attn._replace(cu_q_lens=fixed["cu"],
+                                     kv_lens=kv_lens))
+        logits = self._forward(sub, K1)
+        tok_mat, accept = spec_verify(logits.view(S, K1, -1), drafts,
+                                      batch.sampling, generator,
+                                      sampled=not all_greedy)
+        emitted = torch.minimum(accept + 1, alive)        # 0 when dead
+        hit_any = torch.zeros_like(live)
+        md = batch.sampling
+        if md.stop_ids is not None:
+            # on-device finish over the whole emitted run: the first armed
+            # hit ends it, and the row
+            hitm = (tok_mat[:, :, None] == md.stop_ids[:, None, :]).any(-1)
+            armed = (pos[:, None] + iota) >= md.stop_from[:, None]
+            hm = hitm & armed & (iota < emitted[:, None])
+            hit_any = hm.any(1)
+            first = torch.argmax(hm.to(torch.int8), dim=1).to(torch.int32)
+            emitted = torch.where(hit_any, first + 1, emitted)
+        new_last = torch.gather(tok_mat, 1, torch.clamp(
+            emitted - 1, min=0)[:, None].long())[:, 0]
+        last.copy_(torch.where(emitted > 0, new_last, last))
+        pos.add_(emitted)
+        r, rl = ring_shift_in(ring, rlen, tok_mat, emitted)
+        ring.copy_(r)
+        rlen.copy_(rl)
+        alive.copy_(torch.where(hit_any, 0, alive - emitted))
+        kcur.copy_(torch.where(
+            (emitted > 0) & (allow > 0),
+            torch.where(accept >= allow, torch.clamp(kcur + 1, max=kd),
+                        torch.clamp(accept, min=1)), kcur))
+        drafted.add_(torch.where(live, prop, 0))
+        accepted.add_(torch.where(live, torch.minimum(accept, prop), 0))
+        toks[k].copy_(tok_mat)
+        counts[k].copy_(emitted)
+
+    def _collect_spec(self, handle: StepHandle, host: np.ndarray) -> dict:
+        """A collected spec block's host arrays, over its K links and n
+        rows: tokens [K, n, K1], counts [K, n], drafted, accepted and the
+        draft lengths [n]. Its executed sub-steps (those in which some row
+        emitted) are counted, and on the card the kernels they launched."""
+        lay = handle.spec
+        toks, counts, drafted, accepted, kcur = lay.split(host)[:5]
+        n, K = lay.n, lay.K
+        counts = counts[:K, :n]
+        k_exec = int((counts > 0).any(axis=1).sum())
+        self.block_counts["substeps"] += k_exec
+        self.graphs.add_substeps(handle.block, k_exec)
+        return dict(tokens=toks[:K, :n], counts=counts, drafted=drafted[:n],
+                    accepted=accepted[:n], kcur=kcur[:n])
+
+    def _handle(self, tokens: torch.Tensor, block=None,
+                spec=None) -> StepHandle:
+        """Start the copy of a step's tokens to the host (a spec block's:
+        the part before its carried state)."""
+        out = (tokens[:spec.host_size] if isinstance(spec, SpecLayout)
+               else tokens)
         if self.device.type != "cuda":
-            return StepHandle(tokens, tokens, None, block)
-        host = torch.empty(tokens.shape, dtype=tokens.dtype,
-                           pin_memory=True)
-        host.copy_(tokens, non_blocking=True)
+            return StepHandle(tokens, out, None, block, spec)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return StepHandle(tokens, host, event, block)
+        return StepHandle(tokens, host, event, block, spec)
 
     def collect(self, handle: StepHandle) -> np.ndarray:
         """The sampled token of each batch item: waits for the copy out. A
@@ -589,6 +997,8 @@ class ModelRunner:
         if handle.event is not None:
             handle.event.synchronize()
         host = handle.host.numpy()
+        if isinstance(handle.spec, SpecLayout):
+            return self._collect_spec(handle, host)
         if handle.block is not None:
             k_exec = int(host[-1].max()) if host.shape[1] else 0
             self.block_counts["substeps"] += k_exec
@@ -623,19 +1033,34 @@ class ModelRunner:
         holds (nor a prefix-cached page) is written; the step counts, the
         launch counters, the generator and the memory manager's queues
         come out as they were. Mixed steps run eagerly and need no
-        warmup. Where blocks form, it also captures the longest block
-        (``block_len``) for greedy rows at each of ``block_buckets``
-        (sequence buckets, by default the decode ones) at the largest
-        page bucket, with the stop-set width the engine's EOS ids give
-        under on-device finish; other blocks are captured at first
-        sight. With ``enforce_eager`` there is nothing to capture."""
+        warmup. Where blocks form, every pure-decode step and block takes
+        the one pinned page bucket (``BatchBuilder.pin_pages``) and a block
+        of any length replays the longest block's graph, so the decode
+        steps run at each sequence bucket at that page bucket (passing
+        ``page_buckets`` then raises), and the longest block
+        (``block_len``; a fused spec block under ``spec_fused``) is
+        captured for greedy and for sampled rows at each of
+        ``block_buckets`` (sequence buckets, by default the decode ones),
+        with the stop-set width the engine's EOS ids give under on-device
+        finish: serving then meets no new decode or block key but for a
+        stop set of another width (ROADMAP C 7). With ``enforce_eager``
+        there is nothing to capture."""
         if self.graphs is None:
             return
-        page = self.config.cache.page_size
-        combos = graphs.warmup_combos(
-            min(self.config.scheduler.max_decode_seqs, self.builder.max_seqs),
-            self.config.max_pages_per_seq, self.num_pages, decode_buckets,
-            page_buckets)
+        max_decode = min(self.config.scheduler.max_decode_seqs,
+                         self.builder.max_seqs)
+        if self.builder.pin_pages:
+            if page_buckets is not None:
+                raise ValueError(
+                    "warmup: page_buckets given, but every pure-decode step "
+                    "of this engine runs at the one pinned page bucket "
+                    f"({self.builder.max_pages_per_seq} pages)")
+            combos = [(s, self.builder.max_pages_per_seq) for s in (
+                decode_buckets or graphs.pow2_range(8, max_decode))]
+        else:
+            combos = graphs.warmup_combos(
+                max_decode, self.config.max_pages_per_seq, self.num_pages,
+                decode_buckets, page_buckets)
         steps, counts = dict(self.step_counts), graphs.launch_counts()
         blocks = dict(self.block_counts)
         rng = self.generator.get_state()
@@ -643,23 +1068,17 @@ class ModelRunner:
         self._warming = True
         try:
             for nseq, npages in combos:
-                ctx = npages * page - 1       # context filling npages pages
                 for temp in (0.0, 1.0):
-                    items = []
-                    for i in range(nseq):
-                        seq = Sequence(i, [1] * (ctx + 1),
-                                       SamplingParams(temperature=temp,
-                                                      max_tokens=4))
-                        seq.page_table = [0] * npages
-                        seq.num_computed_tokens = ctx
-                        items.append(ScheduledSeq(seq, 1, ctx))
-                    self.step(ScheduledBatch(items))
+                    self._warm_step(nseq, npages, temp)
             K = self.block_len
             if K > 1:
                 npages = combos[0][1]
+                warm = (self._warm_spec_block if self.config.spec_fused
+                        else self._warm_block)
                 for nseq in (block_buckets or sorted({
                         s for s, p in combos if p == npages})):
-                    self._warm_block(nseq, npages, K)
+                    for temp in (0.0, 1.0):
+                        warm(nseq, npages, K, temp)
         finally:
             self._warming = False
             self.step_counts.update(steps)
@@ -670,21 +1089,66 @@ class ModelRunner:
                     len(combos), self.num_shape_signatures,
                     time.monotonic() - t0)
 
-    def _warm_block(self, nseq: int, npages: int, K: int) -> None:
-        """One greedy block of K links over ``nseq`` throwaway sequences
-        whose ``npages`` pages are all the dummy page 0; they carry the
-        engine's EOS ids under on-device finish, so the block has the
-        stop-set width real traffic gives."""
-        page = self.config.cache.page_size
-        ctx = max(0, npages * page - K)
+    def _warm_step(self, nseq: int, npages: int, temp: float) -> None:
+        """One decode step of ``nseq`` throwaway sequences whose contexts
+        fill ``npages`` pages, all the dummy page 0."""
+        ctx = npages * self.config.cache.page_size - 1
+        items = []
+        for i in range(nseq):
+            seq = Sequence(i, [1] * (ctx + 1),
+                           SamplingParams(temperature=temp, max_tokens=4))
+            seq.page_table = [0] * npages
+            seq.num_computed_tokens = ctx
+            items.append(ScheduledSeq(seq, 1, ctx))
+        self.step(ScheduledBatch(items))
+
+    def _warm_seqs(self, nseq: int, npages: int, ctx: int, temp: float,
+                   max_tokens: int) -> list:
+        """``nseq`` throwaway running sequences at context ``ctx`` whose
+        ``npages`` pages are all the dummy page 0; they carry the engine's
+        EOS ids, so that a block under on-device finish has the stop-set
+        width real traffic gives."""
         seqs = []
         for i in range(nseq):
             seq = Sequence(i, [1] * (ctx + 1), SamplingParams(
-                temperature=0.0, max_tokens=K + 1,
+                temperature=temp, max_tokens=max_tokens,
                 ignore_eos=not self.eos_token_ids))
             seq.page_table = [0] * npages
             seq.num_computed_tokens = ctx
+            seq.status = SequenceStatus.RUNNING
             seqs.append(seq)
+        return seqs
+
+    def _warm_block(self, nseq: int, npages: int, K: int,
+                    temp: float) -> None:
+        """One block of K links over throwaway sequences (``_warm_seqs``)."""
+        ctx = max(0, npages * self.config.cache.page_size - K)
+        seqs = self._warm_seqs(nseq, npages, ctx, temp, K + 1)
         self.collect(self.step_multi([
             ScheduledBatch([ScheduledSeq(seq, 1, ctx + j) for seq in seqs])
             for j in range(K)]))
+
+    def _warm_spec_block(self, nseq: int, npages: int, K: int,
+                         temp: float) -> None:
+        """One fused spec block of K links over throwaway sequences
+        (``_warm_seqs``), each with a budget of K tokens."""
+        K1 = self.config.spec_k + 1
+        ctx = max(0, npages * self.config.cache.page_size - K * K1)
+        seqs = self._warm_seqs(nseq, npages, ctx, temp, K + 1)
+        chain = [ScheduledBatch([ScheduledSeq(seq, 1, ctx + j * K1)
+                                 for seq in seqs], spec_block=True)
+                 for j in range(K)]
+        chain[0].active_until = [K] * nseq
+        self.collect(self.step_spec_multi(chain))
+
+
+def _all_greedy(items) -> bool:
+    """Every row greedy: the sampler's argmax-only path."""
+    return all(it.seq.sampling_params.temperature == 0.0 for it in items)
+
+
+def _spec_sampled(items) -> bool:
+    """Some drafted row samples (JAX's ``_spec_sampled``,
+    ``runner.py:239``): else the verify keeps the argmax alone."""
+    return any(it.draft_tokens and it.seq.sampling_params.temperature != 0
+               for it in items)

@@ -41,6 +41,17 @@
   decode-ready sequences in its holes at a chain boundary (``host_rows``:
   their input token is the host's) and compacts only when its live rows
   fall below its power-of-two sequence bucket.
+- speculative decoding (``spec_cfg`` = (n-gram, k), set by the engine):
+  a decode row carries prompt-lookup drafts (``propose_ngram_drafts``,
+  ``ScheduledSeq.draft_tokens``) whose length follows the row's
+  acceptance (AIMD ``spec_k_cur``; at most 2 with stop strings), dropped
+  under memory pressure and never preempted for; ``process_output_multi``
+  commits the accepted run and the correction token. Host-driven, it
+  owns decode dispatch: ``schedule_chain`` and ``schedule_reform``
+  refuse with "spec". Fused (``spec_fused``): drafting is on the device
+  and ``schedule_chain`` strides each link by ``spec_mult`` tokens, worst
+  case, with ``active_until`` a per-row token budget
+  (``ScheduledBatch.spec_block``).
 
 - fault isolation: ``quarantine`` drops the sequences of a failed step
   wholesale (pages freed, in-flight counts zeroed, deferred frees
@@ -51,9 +62,9 @@
   preemptions, admissions and the throttled prefill budget, under JAX's
   names (``gllm_tpu/scheduler.py:52-72``).
 
-The JAX scheduler's speculative drafting, SSM snapshots
-(``_ssm_align_chunk``), host KV tier and spans belong to options this port
-does not implement yet, and are not copied.
+The JAX scheduler's SSM snapshots (``_ssm_align_chunk``, the hybrid
+family's draft rollback), host KV tier and spans belong to options this
+port does not implement yet, and are not copied.
 """
 
 from __future__ import annotations
@@ -63,6 +74,8 @@ import logging
 import time
 from collections import deque
 from typing import Deque, List, Optional, Tuple
+
+import numpy as np
 
 from gllm_tpu_torch.config import EngineConfig
 from gllm_tpu_torch.memory_manager import MemoryManager
@@ -98,6 +111,10 @@ class ScheduledSeq:
     seq: Sequence
     num_new_tokens: int          # tokens computed this step
     computed_before: int         # seq.num_computed_tokens when scheduled
+    # speculative decoding: prompt-lookup drafts verified after this
+    # item's committed row in the same step (not in num_new_tokens: the
+    # batch builder adds their rows)
+    draft_tokens: tuple = ()
 
     @property
     def samples(self) -> bool:
@@ -105,6 +122,31 @@ class ScheduledSeq:
         produces logits for this sequence and samples a token."""
         return (self.computed_before + self.num_new_tokens
                 == self.seq.num_tokens)
+
+
+def propose_ngram_drafts(token_ids, n: int, k: int,
+                         window: int = 4096) -> tuple:
+    """Prompt-lookup proposal (JAX's ``propose_ngram_drafts``,
+    ``gllm_tpu/scheduler.py:94``): the continuation, up to ``k`` tokens,
+    of the most recent earlier occurrence of the last ``n`` tokens within
+    the last ``window``, found by one vectorized sliding-window compare."""
+    L = len(token_ids)
+    if L <= n or k <= 0:
+        return ()
+    arr = np.asarray(token_ids[max(0, L - window):], dtype=np.int64)
+    M = len(arr)
+    if M <= n:
+        return ()
+    pattern = arr[-n:]
+    m = M - n + 1                     # window start positions
+    match = np.ones(m, dtype=bool)
+    for d in range(n):
+        match &= arr[d:d + m] == pattern[d]
+    idx = np.flatnonzero(match[:m - 1])   # not the pattern itself
+    if idx.size == 0:
+        return ()
+    j = int(idx[-1])                  # the most recent occurrence
+    return tuple(int(t) for t in arr[j + n:j + n + k])
 
 
 @dataclasses.dataclass
@@ -131,10 +173,21 @@ class ScheduledBatch:
     # items follow the decode rows). None: not a re-formed batch (a
     # chained step maps row to row)
     src_rows: Optional[List[int]] = None
+    # fused speculation: the links of a draft+verify block
+    # (``ModelRunner.step_spec_multi``); ``active_until`` is then a per-row
+    # TOKEN budget carried across blocks, and each link's
+    # ``computed_before`` a worst-case upper bound (a sub-step emits up to
+    # ``spec_mult`` tokens) that the commit re-anchors on the committed
+    # state (``FutureMap.trim_overpromise`` trims the entries in flight)
+    spec_block: bool = False
 
     @property
     def num_seqs(self) -> int:
         return len(self.items)
+
+    @property
+    def has_drafts(self) -> bool:
+        return any(it.draft_tokens for it in self.items)
 
     @property
     def total_tokens(self) -> int:
@@ -190,6 +243,12 @@ class Scheduler:
                                    + self.sched_cfg.max_prefill_tokens)
         self.num_compactions = 0
         self._last_stats_time = 0.0
+        # speculative decoding, set by the engine: (n-gram, k) when on;
+        # drafts proposed and accepted; under fused speculation drafting is
+        # on the device and schedule_chain takes the rows
+        self.spec_cfg: Optional[Tuple[int, int]] = None
+        self.spec_stats = {"proposed": 0, "accepted": 0}
+        self.spec_fused = False
 
     # ---- intake -----------------------------------------------------------
 
@@ -322,7 +381,14 @@ class Scheduler:
                 # (already reset and pushed to waiting).
                 continue
             protect.add(seq.seq_id)
-            if not self._allocate_with_preemption(seq, 1, protect):
+            drafts = self._propose_drafts(seq)
+            if drafts and not self.mm.can_allocate(
+                    self.mm.pages_needed(seq, 1 + len(drafts))):
+                # under memory pressure speculation never costs a
+                # sequence its KV: the drafts go before any preemption
+                drafts = ()
+            if not self._allocate_with_preemption(seq, 1 + len(drafts),
+                                                  protect):
                 protect.discard(seq.seq_id)
                 if seq.status == SequenceStatus.RUNNING:
                     # No victim available — preempt this seq itself so the
@@ -330,7 +396,25 @@ class Scheduler:
                     self.running.remove(seq)
                     self._do_preempt(seq)
                 continue
-            items.append(ScheduledSeq(seq, 1, seq.num_computed_tokens))
+            items.append(ScheduledSeq(seq, 1, seq.num_computed_tokens,
+                                      draft_tokens=drafts))
+
+    def _propose_drafts(self, seq: Sequence) -> tuple:
+        """A decode row's drafts (JAX's ``_propose_drafts:451``): none
+        without host-driven speculation (fused speculation drafts on the
+        device); at most 2 with stop strings (the engine's stop scan cuts
+        a run that overshoots the match); at most the row's AIMD length
+        ``spec_k_cur``; and inside ``max_model_len``."""
+        if self.spec_cfg is None or self.spec_fused:
+            return ()
+        n, k = self.spec_cfg
+        if seq.sampling_params.stop:
+            k = min(k, 2)
+        k = min(k, seq.spec_k_cur or k)
+        k = min(k, self.config.max_model_len - seq.num_tokens)
+        drafts = propose_ngram_drafts(seq.token_ids, n, k)
+        self.spec_stats["proposed"] += len(drafts)
+        return drafts
 
     def _schedule_prefill(self, items: List[ScheduledSeq],
                           token_budget: int, preempt: bool = True) -> None:
@@ -405,7 +489,8 @@ class Scheduler:
     # ---- overlap scheduling -----------------------------------------------
 
     def schedule_chain(self, prev: ScheduledBatch, k_max: int = 1,
-                       include_prev: bool = False) -> List[ScheduledBatch]:
+                       include_prev: bool = False,
+                       spec_mult: int = 1) -> List[ScheduledBatch]:
         """Up to ``k_max`` chained pure-decode steps (links) of every row
         of ``prev``, scheduled before ``prev``'s sampled tokens reach the
         host (JAX's ``schedule_chain:617`` without speculation): pages,
@@ -435,8 +520,23 @@ class Scheduler:
         power of two (with ``include_prev``, ``prev`` itself is the
         block's first step, so ``1 +`` the links is). Returns [] (the
         reason in ``chain_break_reason``) when no link is feasible; the
-        caller then takes the sync path."""
+        caller then takes the sync path.
+
+        Host-driven speculation owns decode dispatch (drafting needs the
+        committed token values a chained step leaves on the device):
+        every chain refuses with "spec". Under fused speculation
+        (``spec_mult`` = spec_k + 1 > 1) each link is a draft+verify
+        sub-step that may emit ``spec_mult`` tokens: the accounting is in
+        tokens (JAX's ``:672-839``). ``deaths`` become per-row budgets
+        carried as ``active_until`` on every spec block, pages cover the
+        worst-case frontier ``cn0 + min(links * spec_mult, budget)``, and
+        each link's ``computed_before`` is an upper bound (clamped below
+        ``max_model_len``) that the commit re-anchors."""
         self.chain_break_reason = None
+        if self.spec_cfg is not None and not self.spec_fused:
+            return self._chain_fail("spec")
+        spec = self.spec_fused and spec_mult > 1
+        mult = spec_mult if spec else 1
         slots = self.config.decode_slot_batching
         base: List[Tuple[Sequence, int]] = []
         hole_rows: List[int] = []
@@ -460,7 +560,12 @@ class Scheduler:
             # past the host's tokens (a chained step) does
             if it.computed_before + it.num_new_tokens < seq.num_tokens:
                 return self._chain_fail("shape")
-            base.append((seq, it.computed_before + it.num_new_tokens))
+            cn0 = it.computed_before + it.num_new_tokens
+            if spec and prev.spec_block:
+                # prev's last sub-step may itself emit mult tokens (its
+                # computed_before is already the block's upper bound)
+                cn0 += mult - 1
+            base.append((seq, cn0))
         host_rows: List[int] = []
         if slots:
             host_rows = self._join_ready_into_holes(base, hole_rows)
@@ -488,12 +593,16 @@ class Scheduler:
         if max(deaths) < 1:
             return self._chain_fail("shape")       # no row takes a link
         page = self.mm.page_size
+        # a fused sync root rides as the block's first sub-step and may
+        # itself emit mult tokens before link 0 runs
+        extra = (mult - 1) if (spec and include_prev) else 0
         feasible = 0
         while feasible < min(k_max, max(deaths)):
             # the whole chain so far, before any allocation: link-by-link
             # checks would each pass near a full pool; dead links take no
             # page
-            need = sum(max(0, cdiv(cn0 + min(feasible + 1, d), page)
+            need = sum(max(0, cdiv(cn0 + min((feasible + 1) * mult + extra,
+                                             d), page)
                            - len(seq.page_table))
                        for (seq, cn0), d in zip(base, deaths))
             if not self.mm.can_allocate(need):
@@ -508,20 +617,31 @@ class Scheduler:
         else:
             k = 1 << (feasible.bit_length() - 1)
         chain: List[ScheduledBatch] = []
+        mml1 = self.config.max_model_len - 1
         for j in range(k):
             # a dead link freezes computed_before at the death position,
             # so the next chain off this block fails the gate above (or,
-            # under slots, finds the row finished: a hole)
-            items = [ScheduledSeq(seq, 1, cn0 + min(j, d))
+            # under slots, finds the row finished: a hole); a spec link's
+            # upper bound strides by mult and stays below max_model_len
+            items = [ScheduledSeq(seq, 1, min(cn0 + min(j * mult, d), mml1)
+                                  if spec else cn0 + min(j, d))
                      for (seq, cn0), d in zip(base, deaths)]
             for (seq, cn0), d in zip(base, deaths):
-                if j < d:
-                    # cover [0, cn0 + j + 1): num_computed_tokens has not
-                    # advanced yet
+                if j * mult < d:
+                    # cover [0, the link's worst-case frontier):
+                    # num_computed_tokens has not advanced yet
                     self.mm.allocate_seq_pages(
-                        seq, cn0 + j + 1 - seq.num_computed_tokens)
+                        seq, cn0 + min((j + 1) * mult + extra, d)
+                        - seq.num_computed_tokens)
                 seq.num_in_flight += 1
-            chain.append(ScheduledBatch(items))
+            chain.append(ScheduledBatch(items, spec_block=spec))
+        if spec:
+            # the per-row token budget, attached to every spec block and
+            # never capped at the block's emission: it bounds the
+            # sequence, across blocks
+            chain[0].active_until = [max(d, 0) for d in deaths]
+            chain[0].host_rows = host_rows or None
+            return chain
         if any(d < k for d in deaths):
             # a row whose death has passed (a hole; under slots also one
             # that dies by length the moment prev lands) is alive in none
@@ -589,6 +709,11 @@ class Scheduler:
         -1. The decode rows come first: K1u and K1um find that decode
         prefix on the device."""
         self.reform_fail_reason = None
+        if self.spec_cfg is not None:
+            # speculation owns decode dispatch (host-driven drafting needs
+            # committed token values; a fused block's frontier is the
+            # device's): a membership change drains and syncs
+            return self._reform_fail("spec")
         base: List[Tuple[Sequence, int, int]] = []   # (seq, cn0, src row)
         prefill_cont: List[Tuple[Sequence, int]] = []  # (seq, frontier)
         for i, it in enumerate(prev.items):
@@ -703,8 +828,22 @@ class Scheduler:
         """Advance state after a step. ``sampled_tokens[i]`` is the sampled
         token for batch item i (ignored for items that don't sample).
         ``eos_token_ids`` is a collection of terminator ids (or None)."""
+        return self.process_output_multi(
+            batch, [[t] for t in sampled_tokens], eos_token_ids)
+
+    def process_output_multi(self, batch: ScheduledBatch,
+                             token_lists: List[List[int]],
+                             eos_token_ids) -> List[SeqOutput]:
+        """``process_output`` where an item may commit several tokens
+        (JAX's ``process_output_multi:1104``): a verified draft run and
+        its correction token. They append in order with a finish check
+        per token, and a finish drops the rest. ``num_computed_tokens``
+        advances over the rows whose input proved correct (the chunk and
+        the accepted drafts): a rejected draft row's KV is overwritten
+        when the real token at its position is fed. A drafted item runs
+        the AIMD update of its sequence's ``spec_k_cur``."""
         outputs: List[SeqOutput] = []
-        for it, tok in zip(batch.items, sampled_tokens):
+        for it, toks in zip(batch.items, token_lists):
             seq = it.seq
             seq.num_in_flight -= 1
             if seq.status is not SequenceStatus.RUNNING:
@@ -716,18 +855,39 @@ class Scheduler:
                 continue
             if seq.seq_id in self._aborted_ids:
                 continue  # handled in _process_aborts
-            seq.num_computed_tokens = it.computed_before + it.num_new_tokens
-            self.mm.register_computed_pages(seq)
             if not it.samples:
+                seq.num_computed_tokens = (it.computed_before
+                                           + it.num_new_tokens)
+                self.mm.register_computed_pages(seq)
                 outputs.append(SeqOutput(seq, None, None))
                 continue
-            seq.append_token(int(tok))
-            finish = seq.check_finish(eos_token_ids)
-            # Hard cap: the KV layout (page table width, rope table) is
-            # sized for max_model_len; never decode past it.
-            if finish is None and seq.num_tokens >= self.config.max_model_len:
-                finish = "length"
-            outputs.append(SeqOutput(seq, int(tok), finish))
+            finish = None
+            emitted = 0
+            for tok in toks:
+                seq.append_token(int(tok))
+                emitted += 1
+                finish = seq.check_finish(eos_token_ids)
+                # Hard cap: the KV layout (page table width, rope table)
+                # is sized for max_model_len; never decode past it.
+                if (finish is None
+                        and seq.num_tokens >= self.config.max_model_len):
+                    finish = "length"
+                outputs.append(SeqOutput(seq, int(tok), finish))
+                if finish is not None:
+                    break
+            if self.spec_cfg is not None and it.draft_tokens:
+                accepted = emitted - 1
+                self.spec_stats["accepted"] += accepted
+                # AIMD: +1 on a clean sweep (capped at spec_k), else
+                # collapse to the accepted run
+                cap = self.spec_cfg[1]
+                cur = seq.spec_k_cur or cap
+                seq.spec_k_cur = (min(cap, cur + 1)
+                                  if accepted >= len(it.draft_tokens)
+                                  else max(1, accepted))
+            seq.num_computed_tokens = (it.computed_before
+                                       + it.num_new_tokens - 1 + emitted)
+            self.mm.register_computed_pages(seq)
             if finish is not None:
                 self.finish_seq(seq, finish)
         return outputs
@@ -818,10 +978,15 @@ class Scheduler:
             return
         self._last_stats_time = now
         n_decode, util = self.publish_stats()
+        spec = ""
+        if self.spec_cfg is not None and self.spec_stats["proposed"]:
+            spec = " spec_accept={:.1f}%".format(
+                100.0 * self.spec_stats["accepted"]
+                / self.spec_stats["proposed"])
         logger.info(
-            "sched: wait=%d run=%d prefill=%d decode=%d kv_util=%.1f%%",
+            "sched: wait=%d run=%d prefill=%d decode=%d kv_util=%.1f%%%s",
             len(self.waiting), len(self.running),
-            len(self.running) - n_decode, n_decode, util * 100.0)
+            len(self.running) - n_decode, n_decode, util * 100.0, spec)
 
     def publish_stats(self):
         """Set the waiting, running, decode and KV-use gauges from the

@@ -78,6 +78,10 @@ class Sequence:
         # (conv + recurrent), held from admission until it is freed
         self.ssm_slot: Optional[int] = None
         self._pt_np = None   # np cache of page_table (builder fast path)
+        # speculative decoding: this sequence's draft length, adapted to
+        # its acceptance (AIMD: a clean sweep adds one up to spec_k, a
+        # rejection collapses it to the accepted run); None: spec_k
+        self.spec_k_cur: Optional[int] = None
         self.finish_reason: Optional[str] = None
         # incremental detokenization: the window's start and the first
         # token not yet emitted. The window starts a few tokens inside the

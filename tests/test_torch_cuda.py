@@ -2191,7 +2191,7 @@ def test_second_engine_gets_the_first_engines_pages(cuda_device):
             scheduler=gt.SchedulerConfig(max_prefill_tokens=48),
             cache=gt.CacheConfig(page_size=16, memory_util=0.5),
             **BLOCK_FLAGS["odf"]))
-        llm.runner.warmup(decode_buckets=(8, 16), page_buckets=(4, 8))
+        llm.runner.warmup(decode_buckets=(8, 16))
         _serve_greedy(llm)
         pages.append((llm.runner.num_pages, llm.runner.kv_bytes_per_page()))
         del llm
@@ -2249,7 +2249,7 @@ def test_hybrid_engine_gets_its_pages_back_after_a_deepseek_multi_engine(
     first, per_page = hybrid_pages()
     ds = _deepseek_engine(cuda_device, dtype="bfloat16",
                           **SLOT_LOOPS["deepseek"], **SLOT_FLAGS)
-    ds.runner.warmup(decode_buckets=(8, 16), page_buckets=(4, 8))
+    ds.runner.warmup(decode_buckets=(8, 16))
     prompts, sps = _greedy_workload()
     stops = _organic_stops(ds, prompts)
     ds.generate(prompt_token_ids=prompts, sampling_params=[
@@ -2690,3 +2690,202 @@ def test_http_streams_equal_offline_generate_on_card(cuda_device):
     assert launched == {"ragged_paged_attention_unified"}, launched
     _drained(served)
     _counters_zero(cuda_device)
+
+
+# ---- prompt-lookup speculative decoding ------------------------------------
+
+SPEC_FUSED = dict(spec_decode="ngram", spec_fused=True)
+SPEC_FULL = dict(SPEC_FUSED, pipelined_loop=True, unified_step=True,
+                 overlap_depth=4, multi_step_decode=32, ondevice_finish=True,
+                 decode_slot_batching=True)
+
+
+def _spec_workload(n=6, temperature=0.0):
+    """Prompts of a repeated random segment (prompt lookup drafts from
+    them) and their requests, 20..40 output tokens each."""
+    import gllm_tpu_torch as gt
+    rng = np.random.default_rng(21)
+    prompts = []
+    for _ in range(n):
+        seg = rng.integers(1, 1000, int(rng.integers(3, 7))).tolist()
+        prompts.append(seg * int(rng.integers(3, 6)))
+    return prompts, [gt.SamplingParams(temperature=temperature, top_k=20,
+                                       max_tokens=int(m), ignore_eos=True)
+                     for m in rng.integers(20, 41, n)]
+
+
+def _spec_serve(llm, temperature=0.0):
+    prompts, sps = _spec_workload(temperature=temperature)
+    return [o.output_token_ids for o in llm.generate(
+        prompt_token_ids=prompts, sampling_params=sps)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["verify_greedy", "verify_sampled",
+                                "ngram_propose", "ring_shift_in"])
+def test_spec_ops_on_card_match_cpu(cuda_device, op):
+    """``spec_verify`` (greedy; sampled with its draws fixed),
+    ``ngram_propose`` and ``ring_shift_in`` on the card give their CPU
+    results."""
+    from gllm_tpu_torch.ops import sampling as ts
+    rng = np.random.default_rng(4)
+    if op.startswith("verify"):
+        S, K, V = 16, 4, 300
+        logits = rng.standard_normal((S, K + 1, V)).astype(np.float32)
+        drafts = logits[:, :K].argmax(-1).astype(np.int32)
+        drafts[::3, 1] = 7
+        drafts[1::4, 2:] = -1
+        temp = (np.zeros(S) if op == "verify_greedy"
+                else rng.uniform(0.5, 1.5, S) * (np.arange(S) % 2))
+        md = [np.asarray(temp, np.float32), np.full(S, 0.9, np.float32),
+              np.full(S, 30, np.int32), np.full(S, 0.02, np.float32)]
+        u = rng.random((S, K + 1)).astype(np.float32)
+        g = -np.log(rng.exponential(size=(S, K + 1, V))).astype(np.float32)
+        outs = []
+        for dev in ("cpu", cuda_device):
+            t = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
+            outs.append([x.cpu() for x in ts.spec_verify(
+                t(logits), t(drafts), ts.SamplingMetadata(*map(t, md)),
+                sampled=op == "verify_sampled", draws=(t(u), t(g)))])
+    else:
+        R = 64
+        ring = rng.integers(0, 6, (32, R)).astype(np.int32)
+        rlen = rng.integers(0, R + 1, 32).astype(np.int32)
+        ring[np.arange(R)[None, :] < (R - rlen)[:, None]] = -1
+        toks = rng.integers(0, 6, (32, 5)).astype(np.int32)
+        counts = rng.integers(0, 6, 32).astype(np.int32)
+        outs = []
+        for dev in ("cpu", cuda_device):
+            t = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
+            res = (ts.ngram_propose(t(ring), t(rlen), n=2, k=4)
+                   if op == "ngram_propose"
+                   else ts.ring_shift_in(t(ring), t(rlen), t(toks),
+                                         t(counts)))
+            outs.append([x.cpu() for x in (res if isinstance(res, tuple)
+                                           else (res,))])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unified", [False, True])
+@pytest.mark.parametrize("family", ["gqa", "mla"])
+def test_ragged_classes_at_the_verify_geometry(cuda_device, family, unified):
+    """K1 / K1u (Llama-3.2-1B's heads) and K1m / K1um (a latent row of 576,
+    values its leading 512) on verify rows: 12 rows of 5 query tokens over
+    contexts 21..900, two padding rows, bf16, against their plain
+    versions; the tolerance rejects every row's context one key short."""
+    rng = np.random.default_rng(41)
+    seqs = [(5, int(k)) for k in rng.integers(21, 901, 12)]
+    if family == "gqa":
+        Hq, Hkv, D, Dv = 32, 8, 64, None
+    else:
+        Hq, Hkv, D, Dv = 16, 1, 576, 512
+    num_pages = 1 + sum(-(-k // 16) for _, k in seqs)
+    q, kc, vc, cu, kvl, pt = ragged_case(rng, seqs, Hq, Hkv, D, 16,
+                                         num_pages, pad_seqs=2)
+    dev = cuda_device
+    q, kc, vc = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                 for a in (q, kc, vc))
+    cu, kvl, pt = (torch.from_numpy(a).to(dev) for a in (cu, kvl, pt))
+    kw = dict(scale=D ** -0.5, unified=unified)
+    if family == "mla":
+        vc, kw["v_dim"] = None, Dv
+    out = trag.ragged_paged_attention(q, kc, vc, cu, kvl, pt, **kw)
+    want = trag.ragged_paged_attention_plain(q, kc, vc, cu, kvl, pt, **kw)
+    short = trag.ragged_paged_attention_plain(q, kc, vc, cu, kvl - 1, pt,
+                                              **kw)
+    tol = 2e-2 if family == "gqa" else 3e-2
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert not torch.allclose(short.float(), want.float(), rtol=tol,
+                              atol=tol)
+    _counters_zero(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "deepseek"])
+def test_spec_blocks_on_card_equal_the_cpu(cuda_device, family):
+    """float32, the same weights: the fused spec engine on the card (spec
+    blocks captured as CUDA graphs and replayed over other contexts and
+    page tables, the verify rows through K1 / K1m) gives the greedy
+    streams of the same engine on the CPU, whose blocks run uncaptured
+    over the plain versions, and of the plain sync engine on the card;
+    each spec block is one replay, drafts were proposed, and pages and
+    split counters come back."""
+    make = GRAPH_MAKERS[family]
+    card = make(cuda_device, **SPEC_FUSED)
+    cpu = make("cpu", params=_to_cpu(card.runner.params), **SPEC_FUSED)
+    plain = make(cuda_device, params=card.runner.params)
+    replays = card.runner.graphs.replays
+    got = _spec_serve(card)
+    assert got == _spec_serve(cpu) == _spec_serve(plain)
+    nblocks = card.runner.block_counts["block"]
+    assert nblocks > 0 and card.scheduler.spec_stats["proposed"] > 0
+    assert any(k[0] == "spec" for k in card.runner.graphs.keys)
+    assert (card.runner.graphs.replays - replays
+            == card.step_counts["decode"] + nblocks)
+    _drained(card)
+    _counters_zero(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("family", ["dense", "deepseek"])
+def test_spec_block_dispatch_makes_no_host_sync(cuda_device, family,
+                                                temperature):
+    """Under bench.py's full flags, once the workload's graphs exist (a
+    first run), a spec block's dispatch raises nothing under
+    ``set_sync_debug_mode("error")``: the ring, the drafts, the verify and
+    the carried state stay on the card, for greedy and sampled rows."""
+    llm = GRAPH_MAKERS[family](cuda_device, dtype="bfloat16", **SPEC_FULL)
+    _spec_serve(llm, temperature)
+    runner = llm.runner
+    spec, calls = runner.step_spec_multi, []
+
+    def strict(chain, prev=None):
+        calls.append(chain)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return spec(chain, prev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    runner.step_spec_multi = strict
+    _spec_serve(llm, temperature)
+    assert calls
+    _drained(llm)
+
+
+@pytest.mark.cuda
+def test_sampled_spec_blocks_reproducible_on_card(cuda_device):
+    """Sampled rows through spec blocks: two engines of one seed give the
+    same streams."""
+    first = _tiny_engine(cuda_device, dtype="bfloat16", **SPEC_FULL)
+    second = _tiny_engine(cuda_device, params=first.runner.params,
+                          dtype="bfloat16", **SPEC_FULL)
+    assert _spec_serve(first, 0.8) == _spec_serve(second, 0.8)
+    assert sum(first.blocks.values()) > 0
+
+
+@pytest.mark.cuda
+def test_spec_headroom_covers_the_largest_key(cuda_device):
+    """An engine under bench.py's full flags sized from the card's memory
+    (its activation headroom counts the spec block at its largest key):
+    warming every sequence bucket, the largest sampled spec block
+    included, raises no out-of-memory, and the graph pools stay within
+    the headroom."""
+    import gllm_tpu_torch as gt
+    mc = gt.ModelConfig(architecture="LlamaForCausalLM", vocab_size=32000,
+                        hidden_size=256, num_layers=2, num_heads=8,
+                        num_kv_heads=2, head_dim=32, intermediate_size=512,
+                        max_position=1024)
+    llm = gt.LLM(model_cfg=mc, device=cuda_device, config=gt.EngineConfig(
+        dtype="bfloat16", load_format="dummy", max_model_len=1024,
+        max_num_seqs=64, scheduler=gt.SchedulerConfig(max_decode_seqs=64),
+        **SPEC_FULL))
+    llm.runner.warmup()
+    keys = [k for k in llm.runner.graphs.keys if k[0] == "spec"]
+    assert {k[2] for k in keys} == {8, 16, 32, 64}
+    assert llm.runner.graphs.pool_bytes() <= llm.runner.activation_headroom()
+    assert _spec_serve(llm)

@@ -271,7 +271,8 @@ def test_no_device_means_the_card(monkeypatch):
     ("quantization", "int8"),
     ("kv_cache_dtype", "float32"), ("tp", 2), ("pp", 2), ("dp", 2),
     ("sp", 2), ("kv_host_pool_gb", 1.0), ("kv_disk_path", "/x"),
-    # options a model family does not take (the family rides the field):
+    # options a model family does not take (the family rides the field;
+    # the two speculation options are refused by the hybrid family):
     # an MLA latent cache takes no int8, a hybrid model neither, nor prefix
     # caching (it takes the unified step and leaves it inert:
     # tests/test_torch_unified_overlap.py)
@@ -285,6 +286,11 @@ def test_validate_refuses_unported_options(field, value):
             setattr(target, field, value)
             break
     model = None
+    if field in ("spec_fused", "spec_decode"):
+        # speculation is taken for the dense and MLA families; a hybrid
+        # model refuses it (its SSM snapshots are ROADMAP A 9)
+        family = "hybrid"
+        cfg.spec_decode = "ngram"
     if family == "mla":
         model = gt.ModelConfig(**dict(MODEL, **MLA))
     elif family == "hybrid":

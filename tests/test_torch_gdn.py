@@ -399,10 +399,9 @@ def test_validate_refuses_hybrid_combinations(kw, match):
         config.validate(tmc)
     with pytest.raises(NotImplementedError, match=match):
         gt.LLM(model_cfg=tmc, config=config, device="cpu")
-    # the dense model takes the same options (spec_decode is unported)
-    if match != "spec_decode":
-        gt.EngineConfig(dtype="float32", **kw).validate(
-            gt.ModelConfig("LlamaForCausalLM", 256, 64, 2, 4, 2, 16, 96))
+    # the dense model takes the same options
+    gt.EngineConfig(dtype="float32", **kw).validate(
+        gt.ModelConfig("LlamaForCausalLM", 256, 64, 2, 4, 2, 16, 96))
 
 
 def test_validate_keeps_unified_step_inert_on_hybrid():

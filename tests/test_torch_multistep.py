@@ -353,3 +353,25 @@ def test_chain_length_resolves_as_jax():
     with pytest.raises(ValueError, match="decode_chain_len"):
         gt.EngineConfig(overlap_scheduling=True,
                         decode_chain_len=0).validate()
+
+
+def test_warmup_pins_pages_and_warms_sampled_blocks():
+    """Where blocks form, every pure-decode signature takes the one pinned
+    page bucket: ``warmup`` refuses ``page_buckets`` there, and at each
+    sequence bucket warms single steps and the longest block, both for
+    greedy and for sampled rows, at that bucket only."""
+    llm = _engine(False, **KW, **FLAGS["pipelined_odf"])
+    runner = llm.runner
+    pinned = runner.builder.max_pages_per_seq
+    assert runner.builder.pin_pages and runner.block_len == 16
+    with pytest.raises(ValueError, match="page_buckets"):
+        runner.warmup(decode_buckets=(8,), page_buckets=(4, 8))
+    assert runner.num_shape_signatures == 0
+    runner.warmup(decode_buckets=(8,), block_buckets=(8,))
+    keys = runner.graphs.keys
+    singles = {k for k in keys if k[0] != "block"}
+    blocks = {k for k in keys if k[0] == "block"}
+    assert {(k[1], k[3], k[4]) for k in singles} == {
+        (8, pinned, True), (8, pinned, False)}
+    assert {(k[2], k[4], k[5], k[6]) for k in blocks} == {
+        (8, pinned, 16, True), (8, pinned, 16, False)}

@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""How much of the graphs' memory pools does each key that
+``ModelRunner.warmup`` captures hold, against what
+``ModelRunner.activation_headroom`` keeps free for them? Builds
+Llama-3.2-1B at full width (dummy bf16 weights) under the OpenAI server's
+defaults and the flags of one of the smoke's HTTP servers (``full``:
+bench.py's full profile, fused speculation with 4 drafts over chains of
+32; ``absorb``: blocks of 16, no speculation), and captures the keys of
+``warmup`` one at a time, the largest sequence bucket first: the single
+decode step greedy and sampled, then the longest block (a spec block under
+speculation) greedy and sampled. After each it reads the bytes each pool
+holds (the graphs' pool, the IF-node bodies' pool).
+
+    python3 tools/graph_pool_cost.py [--profile full|absorb]
+                                     [--rows 256,128,64,32,16,8]
+
+Needs one CUDA card; prints one JSON line per key and a summary line.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as smoke  # noqa: E402
+from gllm_tpu_torch import LLM  # noqa: E402
+from gllm_tpu_torch.entrypoints.api_server import (  # noqa: E402
+    build_engine_config, make_parser)
+from gllm_tpu_torch.runner.runner import GRAPH_POOL_LOGIT_COPIES  # noqa
+
+MiB = 2 ** 20
+
+
+def pools_mib(graphs) -> dict:
+    """MiB each of the runner's graph pools holds."""
+    names = {graphs.pool: "graphs", graphs.cond_pool: "bodies"}
+    out = dict.fromkeys(("graphs", "bodies"), 0.0)
+    for seg in torch.cuda.memory_snapshot():
+        name = names.get(tuple(seg.get("segment_pool_id", ())))
+        if name is not None:
+            out[name] += seg["total_size"] / MiB
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", choices=("full", "absorb"),
+                    default="full")
+    ap.add_argument("--rows", default="256,128,64,32,16,8")
+    args = ap.parse_args()
+    flags = smoke.HTTP_SERVERS[
+        "full profile" if args.profile == "full" else "absorb"]
+    config = build_engine_config(make_parser().parse_args(
+        ["--model", "unused", "--load-format", "dummy", "--dtype",
+         "bfloat16", *flags]))
+    llm = LLM(model_cfg=smoke.llama_3_2_1b(), config=config)
+    runner = llm.runner
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    spec = config.spec_fused
+    rows = runner.builder.max_seqs
+    k1 = 1 + config.spec_k if config.spec_decode else 1
+    # the headroom's graph part: copies of [rows * k1, vocab] float32 per
+    # pool (activation_headroom)
+    per_pool = GRAPH_POOL_LOGIT_COPIES * rows * k1 * \
+        llm.model_cfg.vocab_size * 4 / MiB
+    npages = runner.builder.max_pages_per_seq
+    K = runner.block_len
+    block = runner._warm_spec_block if spec else runner._warm_block
+    runner._warming = True          # throwaway rows: no page or slot queues
+    before = pools_mib(runner.graphs)
+    for nseq in [int(r) for r in args.rows.split(",")]:
+        for kind, temp in (("single", 0.0), ("single", 1.0),
+                           ("spec block" if spec else "block", 0.0),
+                           ("spec block" if spec else "block", 1.0)):
+            if kind == "single":
+                runner._warm_step(nseq, npages, temp)
+            else:
+                block(nseq, npages, K, temp)
+            torch.cuda.synchronize()
+            now = pools_mib(runner.graphs)
+            print(json.dumps({
+                "profile": args.profile, "key": kind, "rows": nseq,
+                "sampled": temp > 0, "pages": npages,
+                "K": 1 if kind == "single" else K,
+                "graphs_mib": now["graphs"],
+                "graphs_growth_mib": now["graphs"] - before["graphs"],
+                "bodies_mib": now["bodies"],
+                "bodies_growth_mib": now["bodies"] - before["bodies"]}),
+                flush=True)
+            before = now
+    pools = 2 if K > 1 else 1
+    print(json.dumps({
+        "profile": args.profile, "card": smi, "kv_pages": runner.num_pages,
+        "graphs": len(runner.graphs), "pools_mib": before,
+        "pools_total_mib": sum(before.values()),
+        "headroom_graph_part_mib": pools * per_pool,
+        "headroom_mib": runner.activation_headroom() / MiB,
+        "logit_rows": rows * k1, "copies_per_pool": GRAPH_POOL_LOGIT_COPIES,
+        "measured_copies": {name: mib / (per_pool / GRAPH_POOL_LOGIT_COPIES)
+                            for name, mib in before.items()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
