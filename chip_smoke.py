@@ -40,7 +40,13 @@ non-zero exit code and no result line:
              fourth row a hole row of a persistent-slot chain (context one
              token in the dummy page 0), at the same tolerances; and K1,
              K1u, K1m and K1um at the verify geometry of speculative
-             decoding (32 rows of 5 query tokens over contexts 260..1996)
+             decoding (32 rows of 5 query tokens over contexts 260..1996);
+             and the seeded-Gumbel kernel (csrc/threefry.cu: JAX's
+             threefry2x32 draws of seeded rows, which no Pallas kernel
+             had) at S 32 and 256 rows of V 128256, every fourth row
+             unseeded: bits equal, Gumbel values within one ulp of each
+             log, a verify step's folds bit for bit, bound by int32
+             operations
 4. serve     LLM.generate at the full Llama-3.2-1B width (dummy bf16
              weights from a seed) for 16 greedy requests, in six
              configurations: the bf16 sync loop, an int8 KV cache, the
@@ -177,8 +183,27 @@ non-zero exit code and no result line:
              and accepted, several a row; its sampled rows too) and
              DeepSeek-V2-Lite with its depth cut to 3 layers: equal, or
              parting only where the plain engine's top two logits lie
-             within SPEC_GAP_TOL (SPEC_SAMPLED_GAP for sampled rows)
-7. http      the port's OpenAI server as users start it (``python -m
+             within SPEC_GAP_TOL (SPEC_SAMPLED_GAP for sampled rows); the
+             looping Llama's greedy rows once more with penalties (one
+             that takes the stream out of its loop) and a -100
+             logit_bias, fused and host-driven: equal to the plain
+             engine's with the same options
+7. sampling  Llama-3.2-1B at full width, bf16, under the absorb flags
+             (warmed at 8 and 16 rows): the serve phase's 16 prompts with
+             seeded sampled rows, penalties, +100 and -100 logit_bias,
+             logprobs 5 and prompt logprobs 1, beside their plain greedy
+             twin on the same engine, runs plain, sampling, sampling,
+             plain: tok/s and the ratio, the share of eager "extras"
+             steps, launches (K1u and the seeded-Gumbel kernel, no plain
+             version) and no graph captured while serving; every request
+             finishes with its count, a +100-biased row starts with its
+             biased token and a -100-biased row never emits its own
+             (both under FLAT_REP, which flattens the dummy model's
+             repeat of its last token, as a probe run reads them),
+             the seeded rows repeat between the two runs, logprobs <= 0
+             with sorted top lists and a greedy row's chosen logprob its
+             top one
+8. http      the port's OpenAI server as users start it (``python -m
              gllm_tpu_torch.entrypoints.api_server``), a process of its
              own: Llama-3.2-1B at full width (config.json written under
              build/http_model, dummy bf16 weights from seed 0), once
@@ -201,8 +226,14 @@ non-zero exit code and no result line:
              server exits on SIGTERM; TTFT, TPOT and ITL at p50 / p99
              from the client and from the server's histograms, output
              tok/s beside the serve phase's absorb twin, absorbs,
-             speculation's counts and chain breaks, for every pass
-8. a {"kernels": [...]} line, then the last line
+             speculation's counts and chain breaks, for every pass;
+             then on the absorb server one request each with logprobs,
+             top_logprobs, a seed (sent twice: the same tokens),
+             penalties, a +100 logit_bias (on a probe's second token
+             under FLAT_REP: it comes first), best_of 3 with n 1 and
+             echo with prompt_logprobs: 200 in OpenAI's shape, no graph
+             captured
+9. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
 It imports nothing of jax or the JAX package.
@@ -232,6 +263,20 @@ FP8 = torch.float8_e4m3fn
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
+# int32 operations: the data sheet's 67 TFLOP/s of float32 outside the
+# tensor cores is 132 SMs x 128 lanes x 2 (a fused multiply-add) x 1.98
+# GHz; an SM has 64 int32 lanes, so 132 x 64 x 1.98e9 integer operations
+# a second. The seeded-Gumbel kernel is bound by them. One threefry2x32
+# is 20 rounds of an add, a rotate and a xor, and 12 key additions; the
+# adds may also issue on the float pipe (as IMAD), the rotates (funnel
+# shifts) and xors only on the integer one: 40 of those a hash, and 3
+# more (a xor, a shift, an or) turn a hash's two words into the float's
+# bits. Each row's key takes one to three more hashes (its step and
+# folds). Counted with the adds (75 an element), the bound sat above
+# the kernel's time on the H100 (0.1445 ms at S 256)
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+THREEFRY_OPS = 40
+GUMBEL_INT_OPS_PER_ELEMENT = THREEFRY_OPS + 3
 # bf16 outputs, kernel vs plain, as allclose(rtol, atol), per kernel. Both
 # sum in f32 and round the output to bf16 (one step is 2e-3 at |out| in
 # [0.25, 0.5)). The kernels with tensor-core blocks (ragged, and the
@@ -297,6 +342,10 @@ FP8_TWINS = {
     "paged_decode_attention_d256_fp8": "paged_decode_attention_d256",
     "ragged_paged_attention_d256_fp8": "ragged_paged_attention_d256"}
 TOL.update({name: TOL[twin] for name, twin in FP8_TWINS.items()})
+# the seeded-Gumbel kernel: its bits are held equal, its Gumbel values to
+# one ulp of each of their two logs (gumbel_ulp_bound; CUDA's logf and
+# torch's log may round apart), so no (rtol, atol) applies
+TOL.update(seeded_gumbel=(0.0, 0.0), seeded_gumbel_s256=(0.0, 0.0))
 # kernels-line entry → (launch counter, serve configuration it runs in,
 # source, the TPU kernel it replaces)
 PALLAS = "gllm_tpu/ops/pallas/"
@@ -404,6 +453,18 @@ KERNELS = {
         "mla_unified_attention.cu",
         PALLAS + "ragged_attention.py:429 (unified=True, v_cache=None, "
         "verify rows)"),
+    # no Pallas kernel: JAX's threefry draws are XLA-fused elementwise
+    # code; its launches are the sampling phase's
+    "seeded_gumbel": (
+        "seeded_gumbel", "sampling", "threefry.cu",
+        "none (jax.random threefry2x32 in gllm_tpu/ops/sampling.py "
+        "sample:269, _row_base_keys:304, spec_verify:373; no Pallas "
+        "counterpart)"),
+    "seeded_gumbel_s256": (
+        "seeded_gumbel", "sampling", "threefry.cu",
+        "none (jax.random threefry2x32 in gllm_tpu/ops/sampling.py "
+        "sample:269, _row_base_keys:304, spec_verify:373; no Pallas "
+        "counterpart)"),
     # no served configuration has a group of 7: its launches are those of
     # the same kernel (K1, bf16) in the bf16 serve configuration
     "ragged_paged_attention_g7": (
@@ -834,6 +895,110 @@ def _caches(x):
                     vf.to(torch.bfloat16))}
 
 
+def gumbel_ulp_bound(bits):
+    """Per element, how far two Gumbel draws of the same uniform bits may
+    lie apart when each of their two logs rounds within one ulp: the
+    inner log's ulp carried through 1 / y (y = -log u), the outer log's
+    ulp and the result's rounding, float64."""
+    from gllm_tpu_torch.ops import threefry as tf
+    u = tf.uniform_from_bits(bits, tf.TINY).double()
+    y = -torch.log(u)
+    g = -torch.log(y)
+    ulp = lambda x: torch.nextafter(x.abs().float(),  # noqa: E731
+                                    torch.tensor(float("inf"),
+                                                 device=x.device)).double() \
+        - x.abs().float().double()
+    return 2 * ulp(g) + ulp(y) / y
+
+
+def seeded_gumbel_kernels(dev):
+    """The seeded-Gumbel kernel (csrc/threefry.cu) against its plain
+    version (ops/threefry.py::seeded_noise_) at a sampled step's shapes,
+    S 32 and 256 rows of Llama-3.2-1B's vocabulary (V 128256), every
+    fourth row unseeded (left as it was): the bits equal, the Gumbel
+    values within one ulp of each log, a verify step's draws (S 32 x 5
+    verify rows: the uniforms under stream 0, the noise under stream 1)
+    bits equal; perturbed plain: each row's output index one later. Timed
+    with every row seeded; bound by its int32 operations."""
+    from gllm_tpu_torch.ops import threefry as tf
+    from gllm_tpu_torch.ops.cuda.threefry import seeded_noise
+    V, K1 = 128256, 5
+    rng = np.random.default_rng(SEED + 3)
+    results = {}
+    for name, S in (("seeded_gumbel", 32), ("seeded_gumbel_s256", 256)):
+        seed = torch.as_tensor(rng.integers(0, 2**31 - 1, S, dtype=np.int64)
+                               .astype(np.int32), device=dev)
+        step = torch.as_tensor(rng.integers(0, 4096, S).astype(np.int32),
+                               device=dev)
+        mixed = seed.clone()
+        mixed[::4] = -1
+
+        def draw(fn, mode, seeds=mixed, steps=step, rows=S, group=0,
+                 stream=-1, width=V):
+            dtype = torch.int32 if mode == tf.BITS else torch.float32
+            out = torch.full((rows, width), 7, dtype=dtype, device=dev)
+            return fn(out, seeds, steps, group, stream, mode)
+
+        bits_k = draw(seeded_noise, tf.BITS)
+        bits_p = draw(tf.seeded_noise_, tf.BITS)
+        g_k = draw(seeded_noise, tf.GUMBEL)
+        g_p = draw(tf.seeded_noise_, tf.GUMBEL)
+        torch.cuda.synchronize()
+        live = mixed >= 0
+        bits_ok = torch.equal(bits_k, bits_p)
+        untouched = bool((g_k[~live] == 7).all())
+        raw = bits_p[live].long() & 0xFFFFFFFF
+        err = (g_k[live].double() - g_p[live].double()).abs()
+        tol_used = (err / gumbel_ulp_bound(raw)).max().item()
+        max_abs = err.max().item()
+        ulps = (g_k[live].view(torch.int32).long()
+                - g_p[live].view(torch.int32).long()).abs()
+        # a verify step's draws: S x K1 rows, position and stream folds
+        verify_ok = all(
+            torch.equal(draw(seeded_noise, tf.BITS, rows=S * K1, group=K1,
+                             stream=st, width=w),
+                        draw(tf.seeded_noise_, tf.BITS, rows=S * K1,
+                             group=K1, stream=st, width=w))
+            for st, w in ((0, 1), (1, V)))
+        perturbed = draw(tf.seeded_noise_, tf.BITS, steps=step + 1)
+        drop_rejected = not torch.equal(perturbed[live], bits_k[live])
+        del bits_k, bits_p, g_k, g_p, perturbed, raw, err
+        elems = S * V
+        nbytes = elems * 4 + 2 * S * 4
+        ops = (elems * GUMBEL_INT_OPS_PER_ELEMENT
+               + S * 2 * THREEFRY_OPS)
+        b_ms, b_by = bound(nbytes, ops, PEAK_INT32_OPS)
+        out = torch.empty((S, V), dtype=torch.float32, device=dev)
+        kernel = lambda: seeded_noise(out, seed, step)  # noqa: E731
+        plain = lambda: tf.seeded_noise_(out, seed, step)  # noqa: E731
+        split = timed_above_bound(kernel, 50, b_ms)
+        results[name] = dict(
+            ok=bits_ok and untouched and verify_ok and tol_used <= 1.0,
+            max_abs_err=max_abs, max_ulps=ulps.max().item(), ulps_differing=int(
+                (ulps > 0).sum()), tol_used=tol_used, bits_equal=bits_ok,
+            unseeded_untouched=untouched, verify_bits_equal=verify_ok,
+            drop_rejected=drop_rejected, drop_max_abs=None,
+            ms=sum(split.values()), split=split,
+            plain_ms=device_ms(plain, 3), library_ms=None,
+            library_backend=None, library_call=None,
+            wrapper_ms=cuda_ms(kernel, 50), bytes=nbytes, flops=ops,
+            bound_ms=b_ms, bound_by=b_by,
+            shapes=f"S={S} rows x V={V} (every fourth row unseeded in the "
+            f"check; all seeded when timed), float32 Gumbel noise; a "
+            f"verify step's {S} x {K1} rows (uniforms, stream 0; noise, "
+            f"stream 1) checked bit for bit; ops = integer-pipe operations "
+            f"({GUMBEL_INT_OPS_PER_ELEMENT} an element + the rows' keys) "
+            f"at {PEAK_INT32_OPS:.3e}/s")
+        del out
+        log(f"[kernels] {name}: bits equal {bits_ok}, verify-step bits "
+            f"equal {verify_ok}, unseeded rows untouched {untouched}; "
+            f"Gumbel values: {results[name]['ulps_differing']} of "
+            f"{int(live.sum()) * V} differ, by at most "
+            f"{results[name]['max_ulps']} ulp of the value, "
+            f"{tol_used:.3f} of the one-ulp-a-log bound used")
+    return results
+
+
 def phase_kernels():
     from gllm_tpu_torch.ops.cuda import decode_attention as dec
     from gllm_tpu_torch.ops.cuda import ragged_attention as rag
@@ -974,6 +1139,7 @@ def phase_kernels():
     results.update(mla_kernels(dev))
     results.update(hybrid_kernels(dev))
     results.update(verify_kernels(dev))
+    results.update(seeded_gumbel_kernels(dev))
 
     for name, r in results.items():
         rtol, atol = TOL[name]
@@ -1516,13 +1682,16 @@ def qwen3_next(**kw):
 
 
 def _wrappers():
+    from gllm_tpu_torch.ops import threefry as tf
     from gllm_tpu_torch.ops.cuda import decode_attention as dec
     from gllm_tpu_torch.ops.cuda import gdn_scan as scan
     from gllm_tpu_torch.ops.cuda import ragged_attention as rag
+    from gllm_tpu_torch.ops.cuda import threefry as tfk
     return ((rag.ragged_paged_attention, dec.paged_decode_attention,
-             scan.gdn_chunk_scan),
+             scan.gdn_chunk_scan, tfk.seeded_noise),
             (rag.ragged_paged_attention_plain,
-             dec.paged_decode_attention_plain, scan.gdn_chunk_scan_plain))
+             dec.paged_decode_attention_plain, scan.gdn_chunk_scan_plain,
+             tf.seeded_noise_))
 
 
 def reset_counters():
@@ -2910,6 +3079,8 @@ SPEC_GAP_TOL = 1e-3
 # logits lie within this: a draw off a token that leads every other of
 # the 128256 by 40 has a chance under 128256 * e^-40, about 5e-13
 SPEC_SAMPLED_GAP = 40.0
+# the repetition penalty of the looping Llama's penalized parity run
+PENALTY_PARITY_REP = 100.0
 
 
 def drafty_workload(vocab, n=16):
@@ -2935,14 +3106,17 @@ def serving_workload(vocab):
             [int(m) for m in max_tokens])
 
 
-def spec_run(e, prompts, max_tokens, temperature=0.0):
-    """One generate through ``e`` (greedy unless ``temperature``): (tok/s,
-    streams, the run's counts: dispatches by kind, drafts proposed and
-    accepted, verify steps, blocks by K, sub-steps, spec tokens by kind,
-    output tokens)."""
+def spec_run(e, prompts, max_tokens, temperature=0.0, extras=None):
+    """One generate through ``e`` (greedy unless ``temperature``; each
+    request's further sampling options in ``extras``): (tok/s, streams,
+    the run's counts: dispatches by kind, drafts proposed and accepted,
+    verify steps, blocks by K, sub-steps, spec tokens by kind, output
+    tokens)."""
     from gllm_tpu_torch import SamplingParams
+    extras = extras or [{}] * len(prompts)
     params = [SamplingParams(temperature=temperature, max_tokens=m,
-                             ignore_eos=True) for m in max_tokens]
+                             ignore_eos=True, **x)
+              for m, x in zip(max_tokens, extras)]
     before = (collections.Counter(e.dispatches),
               dict(e.scheduler.spec_stats), e.verify_steps,
               collections.Counter(e.blocks), e.block_substeps,
@@ -3200,6 +3374,36 @@ def spec_parity(label, cfg, params, prompts=None):
                     f"step ({counts})"
                 assert mode == "host" or c["spec_tokens"].get("rejected"), \
                     f"[spec {label}] {what}: no rejected spec token"
+    if varies:
+        # the successor's logit leads every other by far more than a bias
+        # of 100 can move: on every other row a repetition penalty of
+        # PENALTY_PARITY_REP (any value > 0 is valid) divides the seen
+        # tokens' logits below the unseen ones', so its stream leaves the
+        # loop; the other rows keep their loops, and their drafts, under
+        # mild penalties that the adjusted verify rows apply
+        extras = [dict(presence_penalty=0.5, frequency_penalty=0.2,
+                       repetition_penalty=(PENALTY_PARITY_REP if i % 2 == 0
+                                           else 1.1),
+                       logit_bias={p[len(p) // 2]: -100.0})
+                  for i, p in enumerate(prompts)]
+        want_pen = spec_run(engines["plain"], prompts, max_tokens,
+                            extras=extras)[1]
+        assert want_pen != want, \
+            f"[spec {label}] the penalties changed no stream"
+        for mode in ("fused", "host"):
+            _, got, c = spec_run(engines[mode], prompts, max_tokens,
+                                 extras=extras)
+            log(f"[spec {label}] f32 {mode}, penalties and logit_bias: "
+                f"streams equal the plain engine's: {got == want_pen} "
+                f"({c['accepted']} of {c['proposed']} drafts accepted, "
+                f"{c['verify_steps']} verify steps, dispatches "
+                f"{c['dispatches']})")
+            assert got == want_pen, \
+                f"[spec {label}] f32 {mode} with penalties and logit_bias " \
+                f"parts from the plain engine at " \
+                f"{first_difference(got, want_pen)}"
+            assert mode == "fused" or c["verify_steps"] > 0, \
+                f"[spec {label}] no verify step under penalties"
     for e in engines.values():
         assert e.memory_manager.num_free_pages == \
             e.memory_manager.allocator.num_total
@@ -3249,7 +3453,178 @@ def phase_spec():
     return out
 
 
-# ---- 7. http -------------------------------------------------------------
+# ---- 7. sampling ---------------------------------------------------------
+
+# the sampling phase's engine: Llama-3.2-1B at full width under the absorb
+# flags (the unified step under overlap, persistent slots, blocks under
+# on-device finish), warmed at the 16 requests' sequence buckets
+SAMPLING_BUCKETS = (8, 16)
+# The dummy Llama's tied embeddings (scale 1, width 2048) give the last
+# token's repeat a logit near |e|^2 = 2048, against about N(0, 45^2) for
+# the others: no bias in [-100, 100] moves its greedy choice. The rows
+# that test logit_bias flatten that first with this repetition penalty
+# (any value > 0 is valid): the seen tokens' logits fall near 0, the
+# unseen ones' top two lie about 10 apart, and a bias of 100 decides
+FLAT_REP = 1e4
+
+
+def sampling_probe(llm, prompts):
+    """The top two tokens of each prompt's first step under FLAT_REP
+    (greedy, logprobs 2): what the logit_bias rows bias."""
+    from gllm_tpu_torch import SamplingParams
+    sp = SamplingParams(temperature=0.0, repetition_penalty=FLAT_REP,
+                        logprobs=2, max_tokens=1, ignore_eos=True)
+    outs = llm.generate(prompt_token_ids=prompts,
+                        sampling_params=[sp] * len(prompts))
+    return [o.logprobs[0][1] for o in outs]
+
+
+def sampling_params(top2, max_tokens):
+    """The sampling phase's 16 requests' options, by request index mod 8:
+    0, 1 seeded sampled rows (temperature 0.8, top-p 0.95); 2 presence and
+    frequency penalties, 3 the repetition penalty (greedy); 4 a +100
+    logit_bias on the second of the request's ``top2`` (greedy, FLAT_REP);
+    5 a -100 logit_bias on the first (greedy, FLAT_REP); 6 logprobs 5 and
+    prompt logprobs 1 (greedy); 7 logprobs 5 on a seeded sampled row."""
+    from gllm_tpu_torch import SamplingParams
+    kinds = [
+        lambda i: dict(temperature=0.8, top_p=0.95, seed=SEED + 100 + i),
+        lambda i: dict(temperature=0.8, top_p=0.95, seed=SEED + 100 + i),
+        lambda i: dict(temperature=0.0, presence_penalty=0.5,
+                       frequency_penalty=0.3),
+        lambda i: dict(temperature=0.0, repetition_penalty=1.3),
+        lambda i: dict(temperature=0.0, repetition_penalty=FLAT_REP,
+                       logit_bias={top2[i][1]: 100.0}),
+        lambda i: dict(temperature=0.0, repetition_penalty=FLAT_REP,
+                       logit_bias={top2[i][0]: -100.0}),
+        lambda i: dict(temperature=0.0, logprobs=5, prompt_logprobs=1),
+        lambda i: dict(temperature=0.8, seed=SEED + 100 + i, logprobs=5)]
+    return [SamplingParams(max_tokens=m, ignore_eos=True, **kinds[i % 8](i))
+            for i, m in enumerate(max_tokens)]
+
+
+def check_sampling_outputs(outs, params, top2):
+    """The sampling phase's checks on one run: every request finishes
+    with its count; a +100-biased row's first token is its biased one
+    (second without the bias), a -100-biased row never emits its biased
+    one (first without the bias); logprobs <= 0 with top lists sorted, a
+    greedy row's chosen logprob its top one (within 1e-5), and prompt
+    logprobs of every prompt position but the first."""
+    for i, (o, sp) in enumerate(zip(outs, params)):
+        assert o.num_output_tokens == sp.max_tokens, \
+            f"[sampling] request {i}: {o.num_output_tokens} tokens, not " \
+            f"{sp.max_tokens}"
+        toks = o.output_token_ids
+        if sp.logit_bias and top2[i][1] in sp.logit_bias:
+            assert toks[0] == top2[i][1], \
+                f"[sampling] request {i}: +100 bias on {top2[i][1]}, " \
+                f"first token {toks[0]}"
+        elif sp.logit_bias:
+            assert top2[i][0] not in toks, \
+                f"[sampling] request {i}: -100 bias on {top2[i][0]}"
+        if sp.logprobs is not None:
+            assert len(o.logprobs) == len(toks)
+            for t, (chosen, ids, lps) in zip(toks, o.logprobs):
+                assert chosen <= 0 and all(x <= 0 for x in lps)
+                assert len(ids) == sp.logprobs and \
+                    all(a >= b for a, b in zip(lps, lps[1:]))
+                if sp.temperature == 0.0:
+                    assert abs(chosen - lps[0]) <= 1e-5, \
+                        f"[sampling] request {i}: greedy {t} chosen " \
+                        f"{chosen}, top {ids[0]} {lps[0]}"
+        if sp.prompt_logprobs is not None:
+            plp = o.prompt_logprobs
+            assert len(plp) == len(o.prompt_token_ids) and plp[0] is None
+            assert all(e[0] <= 0 and len(e[1]) == 1 for e in plp[1:])
+
+
+def phase_sampling():
+    """Sampling completeness at full width, bf16: Llama-3.2-1B under the
+    absorb flags (warmed at SAMPLING_BUCKETS) serves the serve phase's 16
+    prompts with the options of ``sampling_params`` and, as its plain
+    twin, as greedy rows, runs plain, sampling, sampling, plain: tok/s and
+    the ratio of medians, the share of eager "extras" steps, the kernels
+    launched (K1u and the seeded-Gumbel kernel, no plain version) and the
+    graphs captured while serving (none: seeded rows ride the graphs that
+    warmup made, the other extras run eagerly). The seeded rows must
+    repeat between the two sampling runs (the same batches), and
+    ``check_sampling_outputs`` hold. Returns the launch counts of the
+    sampling runs under the name the kernels line reads."""
+    from gllm_tpu_torch import EngineConfig, LLM, SamplingParams
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    llm = LLM(model_cfg=llama_3_2_1b(), config=EngineConfig(
+        load_format="dummy", dtype="bfloat16", seed=SEED, unified_step=True,
+        **ABSORB))
+    llm.runner.warmup(decode_buckets=SAMPLING_BUCKETS,
+                      block_buckets=SAMPLING_BUCKETS)
+    g = llm.runner.graphs
+    warmed = len(g)
+    log(f"[sampling] absorb engine ({dict(ABSORB, unified_step=True)}) up "
+        f"and warmed in {time.monotonic() - t0:.1f} s: {warmed} graphs")
+    prompts, max_tokens = serving_workload(llm.model_cfg.vocab_size)
+    plain = [SamplingParams(temperature=0.0, max_tokens=m, ignore_eos=True)
+             for m in max_tokens]
+    top2 = sampling_probe(llm, prompts)
+    params = sampling_params(top2, max_tokens)
+    rates = {"plain": [], "sampling": []}
+    streams, counts = {}, collections.Counter()
+    for mode in ("plain", "sampling", "sampling", "plain"):
+        steps0, blocks0 = dict(llm.step_counts), dict(llm.blocks)
+        reset_counters()
+        ps = plain if mode == "plain" else params
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        outs = llm.generate(prompt_token_ids=prompts, sampling_params=ps)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t1
+        launched = read_counters()
+        n_out = sum(o.num_output_tokens for o in outs)
+        rates[mode].append(n_out / wall)
+        toks = [o.output_token_ids for o in outs]
+        steps = {k: llm.step_counts[k] - steps0.get(k, 0)
+                 for k in llm.step_counts}
+        blocks = dict(collections.Counter(llm.blocks)
+                      - collections.Counter(blocks0))
+        if mode == "sampling":
+            check_sampling_outputs(outs, params, top2)
+            counts.update(launched)
+            assert launched["plain_calls"] == 0, \
+                "[sampling] a plain version ran on the card"
+            bad = {k for k, n in launched.items() if n and k not in (
+                "plain_calls", "ragged_paged_attention_unified",
+                "seeded_gumbel")}
+            assert not bad and launched["seeded_gumbel"] > 0, \
+                f"[sampling] the run launched {launched}"
+        assert streams.setdefault(mode, toks) == toks, \
+            f"[sampling] two {mode} runs gave different streams " \
+            f"(first difference {first_difference(streams[mode], toks)})"
+        total = sum(steps.values())
+        log(f"[sampling] {mode} run: {n_out} tokens in {wall:.3f} s = "
+            f"{n_out / wall:.1f} output tok/s; steps by kind {steps} "
+            f"(eager extras {steps['extras']} of {total} single steps, "
+            f"{steps['extras'] / max(1, total):.3f}), blocks by K {blocks}, "
+            f"launches { {k: n for k, n in launched.items() if n} }")
+    captured = len(g) - warmed
+    assert not captured, f"[sampling] {captured} graphs captured while " \
+        "serving"
+    ratio = median(rates["sampling"]) / median(rates["plain"])
+    log(f"[sampling] sampling {[round(r, 1) for r in rates['sampling']]} "
+        f"tok/s against the plain greedy twin's "
+        f"{[round(r, 1) for r in rates['plain']]} ({ratio:.3f}x of "
+        f"medians); graphs captured while serving {captured}; seeded rows "
+        f"repeat between the two runs; on {SMI}")
+    assert not llm.has_unfinished and llm.memory_manager.num_free_pages \
+        == llm.memory_manager.allocator.num_total
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sampling": dict(counts=dict(counts), rates=rates, ratio=ratio,
+                             graphs_captured=captured)}
+
+
+# ---- 8. http -------------------------------------------------------------
 
 # the servers' engines: the smoke's absorb twin (the unified step under
 # overlap, persistent slots, blocks of 16 under on-device finish), and
@@ -3427,6 +3802,83 @@ def _pass(port, payloads, label):
     return out
 
 
+def http_sampling_pass(port, prompts, label):
+    """The sampling options over HTTP, one request each (token-array
+    completions: the server has no tokenizer): logprobs, top_logprobs, a
+    seed (the request sent twice gives the same tokens), penalties, a
+    +100 logit_bias on a probe's second token under FLAT_REP (it comes
+    first), best_of 3 with n 1, and echo with prompt_logprobs.
+    Every answer is 200 in OpenAI's shape, and the pass captures no CUDA
+    graph. Returns the eager extras steps it ran."""
+    info0 = json.loads(_get(port, "/server_info")[1])["engine_counters"]
+    base = {"prompt": prompts[0], "max_tokens": 12, "ignore_eos": True}
+    # the first step's top two under FLAT_REP: the +100 bias goes on the
+    # second (the phase_sampling probe over HTTP)
+    status, probe = _post(port, "/v1/completions", dict(
+        base, max_tokens=1, temperature=0.0, repetition_penalty=FLAT_REP,
+        logprobs=2))
+    assert status == 200, f"[http] {label} probe: {status} {probe}"
+    top = probe["choices"][0]["logprobs"]["top_logprobs"][0]
+    second = sorted(top, key=top.get, reverse=True)[1]
+    reqs = {
+        "logprobs": dict(base, temperature=0.0, logprobs=3),
+        "top_logprobs": dict(base, temperature=0.0, logprobs=True,
+                             top_logprobs=2),
+        "seed": dict(base, temperature=0.8, top_p=0.95, seed=7,
+                     logprobs=0),
+        "penalties": dict(base, temperature=0.0, presence_penalty=0.5,
+                          frequency_penalty=0.4, repetition_penalty=1.2),
+        "logit_bias": dict(base, temperature=0.0, logprobs=0,
+                           repetition_penalty=FLAT_REP,
+                           logit_bias={second: 100}),
+        "best_of": dict(base, temperature=0.8, seed=3, best_of=3, n=1),
+        "echo": dict(base, prompt=prompts[1][:64], temperature=0.0,
+                     echo=True, prompt_logprobs=1, logprobs=1)}
+    answers = {}
+    for name, body in reqs.items():
+        status, ans = _post(port, "/v1/completions", body)
+        assert status == 200, f"[http] {label} {name}: {status} {ans}"
+        assert ans["object"] == "text_completion" and \
+            len(ans["choices"]) == 1 and \
+            ans["usage"]["completion_tokens"] == 12, \
+            f"[http] {label} {name}: {ans}"
+        answers[name] = ans["choices"][0]
+    for name in ("logprobs", "top_logprobs", "seed", "logit_bias"):
+        lp = answers[name]["logprobs"]
+        assert set(lp) == {"tokens", "token_logprobs", "top_logprobs",
+                           "text_offset"}, f"[http] {label} {name}: {lp}"
+        assert len(lp["tokens"]) == 12 and all(
+            x <= 0 for x in lp["token_logprobs"])
+    assert all(len(t) == 3 for t in
+               answers["logprobs"]["logprobs"]["top_logprobs"])
+    assert all(len(t) == 2 for t in
+               answers["top_logprobs"]["logprobs"]["top_logprobs"])
+    assert answers["logit_bias"]["logprobs"]["tokens"][0] == second, \
+        f"[http] {label}: +100 bias on {second}: " \
+        f"{answers['logit_bias']['logprobs']['tokens']}"
+    status, again = _post(port, "/v1/completions", reqs["seed"])
+    assert status == 200 and again["choices"][0]["logprobs"]["tokens"] == \
+        answers["seed"]["logprobs"]["tokens"], \
+        f"[http] {label}: a repeated seeded request gave other tokens"
+    echo = answers["echo"]["logprobs"]
+    n_prompt = len(reqs["echo"]["prompt"])
+    assert len(echo["tokens"]) == n_prompt + 12 and \
+        echo["token_logprobs"][0] is None and \
+        all(x <= 0 for x in echo["token_logprobs"][1:])
+    assert answers["best_of"]["finish_reason"] == "length"
+    info1 = json.loads(_get(port, "/server_info")[1])["engine_counters"]
+    captured = info1["graphs"] - info0["graphs"]
+    extras = info1["extras_steps"] - info0["extras_steps"]
+    assert not captured, f"[http] {label}: {captured} graphs captured"
+    log(f"[http] {label}: {len(reqs) + 2} requests (logprobs, top_logprobs,"
+        f" a seed twice, penalties, a probe and a +100 logit_bias on its "
+        f"second token, best_of 3 with n 1, echo with prompt_logprobs) "
+        f"answered 200 in OpenAI's shape; the seeded "
+        f"request repeated its tokens; {extras} eager extras steps; "
+        f"{captured} graphs captured")
+    return extras
+
+
 def http_server(name, flags, served):
     """The port's OpenAI server as users start it, in a process of its
     own: Llama-3.2-1B at full width (config.json written here, dummy bf16
@@ -3577,6 +4029,8 @@ def http_server(name, flags, served):
             f"{n_len:.0f}, "
             f"aborts {n_abort:.0f}, TTFT observations {n_ttft:.0f}; the "
             "gauges and KV use read 0")
+        if name == "absorb":
+            http_sampling_pass(port, prompts, f"{name} sampling pass")
         last = passes[free[0] if free else -1]
         log(f"[http {name}] pass {passes.index(last) + 1} "
             f"({last['graphs_captured']} graphs captured) "
@@ -3630,12 +4084,14 @@ def main():
                         ("serve", phase_serve),
                         ("reference", phase_reference),
                         ("spec", phase_spec),
+                        ("sampling", phase_sampling),
                         ("http", lambda: phase_http(walls["serve"][0]))):
         t0 = time.monotonic()
         walls[name] = (phase(), time.monotonic() - t0)
         log(f"[{name}] phase wall {walls[name][1]:.1f} s")
     kernels = walls["kernels"][0]
-    served = dict(walls["serve"][0], **walls["spec"][0])
+    served = dict(walls["serve"][0], **walls["spec"][0],
+                  **walls["sampling"][0])
     line = []
     for name, (counter, config, src, replaces) in KERNELS.items():
         r = kernels[name]
@@ -3644,6 +4100,7 @@ def main():
             "source": f"gllm_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": served[config]["counts"][counter],
             "launches_in": (f"spec {config}" if config.startswith("spec_")
+                            else "sampling" if config == "sampling"
                             else f"serve {config}"),
             "max_abs_err": r["max_abs_err"], "rtol": TOL[name][0],
             "atol": TOL[name][1], "tol_used": r["tol_used"],

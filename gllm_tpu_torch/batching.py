@@ -58,6 +58,12 @@ class StepBatch(NamedTuple):
     # a fused spec block's seed state [S, ring + SPEC_SEED_COLS]
     # (runner/prepare.py); None otherwise
     spec_seed: object = None
+    # the penalties' per-row token ids [S, L], -1 padded (the occurrence
+    # counts are built from them on the device); None without penalties
+    penalty_ids: object = None
+    # prompt logprobs: the token each row scores, the next prompt token
+    # (0 elsewhere) [T]; None when no row asks for them
+    plp_targets: object = None
     # host ints: the real rows (sequences) of the batch, and the longest
     # real row's token count (the GDN layers' padded row length)
     num_seqs: int = 0

@@ -1,6 +1,8 @@
 """Offline LLM engine (counterpart of ``gllm_tpu/engine/llm.py``:
 ``LLM.__init__:167``, ``add_seq:631``, ``step:680``,
 ``_commit_outputs:1024``, ``_dispatch_reform:1048``, ``_chain_tip:316``,
+``_fuse_ok:1490``, ``_record_logprobs:1734``,
+``_record_spec_logprobs:1777``,
 ``unified:349``, ``_ondevice_block_stats:1139``,
 ``_spec_block_stats:1152``, ``_commit_spec_block:1170``, the spec set-up
 ``:263-307``, ``_count_ondevice_finishes:1230``, ``_schedule_multi:1475``,
@@ -64,7 +66,13 @@ a text prompt, its output text and stop strings need a tokenizer object
 strings are matched on the host over the incrementally detokenized output
 as tokens commit; a sequence with stop strings rides no block and joins no
 hole, as in JAX; a drafted step commits several tokens, which the stop scan
-replays one at a time, cutting the ones after a match. The engine
+replays one at a time, cutting the ones after a match (and their
+logprobs). Logprobs of the sampled tokens and of the prompt, where a
+request asks for them, come with the collected step (``ModelRunner.aux``)
+and are kept on the sequence (``RequestOutput.logprobs``,
+``.prompt_logprobs``); a sequence with logprobs or logit_bias rides no
+block, and one with penalties no chain (``Scheduler.schedule_chain``), as
+in JAX. The engine
 observes the request metrics (time to
 first token, time per output token, inter-token latency, end-to-end and
 queue time) and the step metrics of the JAX package under its names
@@ -171,6 +179,11 @@ class RequestOutput:
     finish_reason: Optional[str]
     num_prompt_tokens: int = 0
     num_output_tokens: int = 0
+    # per output token: (chosen logprob, top ids, top logprobs); None
+    # when not asked for
+    logprobs: Optional[list] = None
+    # per prompt position, the same (None at position 0)
+    prompt_logprobs: Optional[list] = None
 
 
 def resolve_device(device) -> torch.device:
@@ -485,6 +498,7 @@ class LLM:
                 tokens = None
             else:
                 tokens = self.runner.collect(entry.handle)
+                aux = self.runner.aux(entry.handle)
         except Exception:
             # the failed entry stays in flight, so that
             # quarantine_step_failure drops its sequences too
@@ -499,9 +513,15 @@ class LLM:
         self._record_step(entry.batch)
         if not block:
             self.hole_substeps += _holes(entry.batch)
+            if aux:
+                # before process_output: ``samples`` reads the sequence's
+                # token count, which it advances
+                self._record_logprobs(entry.batch, aux)
             if entry.batch.has_drafts:
-                return self._commit_outputs(
-                    self._commit_verify(entry.batch, tokens))
+                outs = self._commit_verify(entry.batch, tokens)
+                self._record_spec_logprobs(entry.batch, aux.get("spec_lp"),
+                                           outs)
+                return self._commit_outputs(outs)
             outs = self.scheduler.process_output(
                 entry.batch, tokens.tolist(), self.eos_token_ids)
             return self._commit_outputs(outs)
@@ -594,12 +614,16 @@ class LLM:
     def _fuse_ok(self, batch) -> bool:
         """May ``batch``'s sequences ride a block (JAX's ``_fuse_ok``)?
         Not a hybrid model's (its GDN layers keep the single-step chain),
-        nor one with stop strings, which are checked between steps (the
-        other gates, logit_bias and logprobs, are options this port
-        refuses)."""
+        nor one with logit_bias or logprobs (an eager step's), or with
+        stop strings, which are checked between steps. Penalties are
+        refused by ``schedule_chain``; seeded rows fuse (their draws
+        follow the output index, which a block advances on the
+        device)."""
         if self.runner.hybrid:
             return False
-        return not any(it.seq.sampling_params.stop or it.draft_tokens
+        return not any(it.seq.sampling_params.logit_bias
+                       or it.seq.sampling_params.logprobs is not None
+                       or it.seq.sampling_params.stop or it.draft_tokens
                        for it in batch.items)
 
     def _schedule_multi(self, prev_batch, multi: int) -> list:
@@ -674,6 +698,72 @@ class LLM:
                 lists.append([int(out[i, 0])])
         return self.scheduler.process_output_multi(batch, lists,
                                                    self.eos_token_ids)
+
+    def _record_logprobs(self, batch, aux) -> None:
+        """Keep a collected step's logprobs on its sequences (JAX's
+        ``_record_logprobs``): the sampled token's of each row that
+        samples and asks for them (a drafted row's come from its verify
+        rows, ``_record_spec_logprobs``), and each prompt position's of a
+        prompt chunk whose sequence asks for prompt logprobs."""
+        if "lp" in aux:
+            chosen, top_ids, top_lps = aux["lp"]
+            for i, it in enumerate(batch.items):
+                sp = it.seq.sampling_params
+                if (not it.samples or sp.logprobs is None
+                        or it.draft_tokens):
+                    continue
+                if it.seq.output_logprobs is None:
+                    it.seq.output_logprobs = []
+                k = sp.logprobs
+                it.seq.output_logprobs.append(
+                    (float(chosen[i]), top_ids[i, :k].tolist(),
+                     top_lps[i, :k].tolist()))
+        if "plp" in aux:
+            chosen, top_ids, top_lps = aux["plp"]
+            off = 0
+            for it in batch.items:
+                n, seq = it.num_new_tokens, it.seq
+                sp = seq.sampling_params
+                if (sp.prompt_logprobs is not None
+                        and it.computed_before < seq.prompt_len):
+                    if seq.prompt_logprobs is None:
+                        # position 0 has no conditional logprob
+                        seq.prompt_logprobs = [None] * seq.prompt_len
+                    k = sp.prompt_logprobs
+                    for j in range(n):
+                        pos = it.computed_before + j + 1
+                        if pos >= seq.prompt_len:
+                            break
+                        row = off + j
+                        seq.prompt_logprobs[pos] = (
+                            float(chosen[row]), top_ids[row, :k].tolist(),
+                            top_lps[row, :k].tolist())
+                off += n + len(it.draft_tokens)
+
+    def _record_spec_logprobs(self, batch, spec_lp, outs) -> None:
+        """The logprobs of a verify step's committed tokens, from its
+        verify rows' adjusted distributions (JAX's
+        ``_record_spec_logprobs``), after ``process_output_multi``, so
+        that their count is that of the tokens committed."""
+        if spec_lp is None:
+            return
+        chosen, top_ids, top_lps = spec_lp
+        emitted: dict = {}
+        for out in outs:
+            if out.new_token_id is not None:
+                sid = out.seq.seq_id
+                emitted[sid] = emitted.get(sid, 0) + 1
+        for i, it in enumerate(batch.items):
+            sp = it.seq.sampling_params
+            if not it.draft_tokens or sp.logprobs is None:
+                continue
+            if it.seq.output_logprobs is None:
+                it.seq.output_logprobs = []
+            k = sp.logprobs
+            for j in range(emitted.get(it.seq.seq_id, 0)):
+                it.seq.output_logprobs.append(
+                    (float(chosen[i, j]), top_ids[i, j, :k].tolist(),
+                     top_lps[i, j, :k].tolist()))
 
     def _spec_block_stats(self, chain, res) -> None:
         """Count a collected spec block (JAX's ``_spec_block_stats:1152``):
@@ -823,7 +913,7 @@ class LLM:
         steps would make, so the match lands on the token that completed
         it. The tokens after it are cut from the sequence (its ids and
         computed count) and their outputs dropped, so the text and the
-        usage equal those without speculation."""
+        usage (and the logprobs) equal those without speculation."""
         n_new: dict = {}
         for out in outs:
             if out.new_token_id is not None:
@@ -866,6 +956,8 @@ class LLM:
                 del seq.token_ids[keep:]
                 seq._pt_np = None
                 seq.num_computed_tokens = min(seq.num_computed_tokens, keep)
+                if seq.output_logprobs is not None:
+                    del seq.output_logprobs[keep - seq.prompt_len:]
             seq.output_text = seq.output_text[:hit]
             # nothing trimmed is detokenized again
             seq.detok_read_offset = seq.num_tokens
@@ -1010,6 +1102,8 @@ class LLM:
             finish_reason=seq.finish_reason,
             num_prompt_tokens=seq.prompt_len,
             num_output_tokens=seq.num_output_tokens,
+            logprobs=seq.output_logprobs,
+            prompt_logprobs=seq.prompt_logprobs,
         )
 
     def abort(self, seq_id: int) -> None:

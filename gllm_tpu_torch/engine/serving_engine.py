@@ -109,6 +109,11 @@ class StreamChunk:
     # running counts, for the usage report
     num_prompt_tokens: int = 0
     num_output_tokens: int = 0
+    # this token's (chosen logprob, top ids, top logprobs), when the
+    # request asked for logprobs
+    logprob: Optional[tuple] = None
+    # every prompt position's, on the finishing chunk
+    prompt_logprobs: Optional[list] = None
     # the whole output text, on the finishing chunk (a stop string's cut
     # may make it shorter than the streamed deltas)
     final_text: Optional[str] = None
@@ -165,12 +170,18 @@ def deliver_output(llm: LLM, out, handle: RequestHandle,
         text = full[emitted.get(out.seq.seq_id, 0):]
         emitted[out.seq.seq_id] = len(full)
     if out.new_token_id is not None or out.finish_reason:
+        lp = None
+        if out.new_token_id is not None and out.seq.output_logprobs:
+            lp = out.seq.output_logprobs[-1]
         handle.chunks.put(StreamChunk(
             token_id=out.new_token_id,
             text=text,
             finish_reason=out.finish_reason,
             num_prompt_tokens=out.seq.prompt_len,
             num_output_tokens=out.seq.num_output_tokens,
+            logprob=lp,
+            prompt_logprobs=(out.seq.prompt_logprobs
+                             if out.finish_reason else None),
             final_text=final_text))
     if out.finish_reason is not None:
         emitted.pop(out.seq.seq_id, None)

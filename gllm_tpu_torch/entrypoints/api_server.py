@@ -23,11 +23,15 @@ aborts its request. A ThreadingHTTPServer: one thread a request in
 flight, each blocking on its request's stream, beside the one engine
 thread.
 
+Every sampling option of the JAX server is taken: seeds (choice i of a
+request draws with seed + i), penalties, ``logit_bias``, ``logprobs`` /
+``top_logprobs`` in chat and completions, ``prompt_logprobs`` with
+``echo``, and ``best_of`` above ``n`` (the choices ranked by their mean
+chosen logprob).
+
 Not ported, and refused: ``/steptrace``, ``/trace``, ``/profile`` and
-``/fault_inject`` answer 404; a request with ``gllm_router`` fields, or
-with a sampling option the port does not implement (logprobs, seed,
-penalties, logit_bias), answers 400 with the message; so do multimodal
-content parts.
+``/fault_inject`` answer 404; a request with ``gllm_router`` fields
+answers 400 with the message; so do multimodal content parts.
 """
 
 from __future__ import annotations
@@ -130,11 +134,13 @@ def _kernel_launches() -> dict:
 def _engine_counters(llm: LLM) -> dict:
     """Counters of the engine loop that the JAX package's metrics do not
     carry: the mixed re-forms that absorbed prefill, the sub-steps blocks
-    executed, the CUDA graphs captured so far with their capture time (a
-    graph first met while serving is captured then) and the memory their
-    pools hold, and speculation's counts."""
+    executed, the pure-decode steps run eagerly for their penalties,
+    logit_bias or logprobs, the CUDA graphs captured so far with their
+    capture time (a graph first met while serving is captured then) and
+    the memory their pools hold, and speculation's counts."""
     g = llm.runner.graphs
     return {"absorbs": llm.absorbs, "block_substeps": llm.block_substeps,
+            "extras_steps": llm.step_counts["extras"],
             "graphs": len(g) if g is not None else 0,
             "capture_s": g.capture_seconds if g is not None else 0.0,
             "graph_pool_mib": (g.pool_bytes() / 2**20 if g is not None
@@ -299,16 +305,24 @@ class Handler(BaseHTTPRequestHandler):
 
     # ---- chat / completions ----------------------------------------------
 
-    def _submit_choices(self, req, ids):
-        """Submit ``req.n`` sequences for one request; a partial submit
-        aborts the choices already admitted before it raises."""
+    def _submit_choices(self, req, ids, count=None, rank_logprobs=False):
+        """Submit ``count`` (default ``n``) sequences for one request:
+        choice i of a seeded request draws with seed + i, so that the
+        choices differ; ``rank_logprobs`` asks for the chosen tokens'
+        logprobs (top 0) where the request did not, for best_of's
+        ranking. A partial submit aborts the choices already admitted
+        before it raises."""
         import dataclasses as dc
         st = self.state
         handles = []
         try:
-            for _ in range(req.n):
-                handles.append(st.engine.submit(list(ids),
-                                                dc.replace(req.sampling)))
+            for i in range(req.n if count is None else count):
+                sp = dc.replace(req.sampling)
+                if sp.seed is not None:
+                    sp.seed = sp.seed + i
+                if rank_logprobs and sp.logprobs is None:
+                    sp.logprobs = 0
+                handles.append(st.engine.submit(list(ids), sp))
         except Exception:
             for h in handles:
                 st.engine.abort(h.seq_id)
@@ -375,10 +389,19 @@ class Handler(BaseHTTPRequestHandler):
             raise
 
     def _run_choices(self, req, ids):
-        """Submit the ``n`` choices, collect them; returns (results,
-        usage)."""
-        handles = self._submit_choices(req, ids)
+        """Submit ``best_of`` choices and collect them; above ``n`` they
+        are ranked by their mean chosen logprob and the best ``n`` kept.
+        Returns (results, usage)."""
+        rank = req.best_of > req.n
+        handles = self._submit_choices(req, ids, count=req.best_of,
+                                       rank_logprobs=rank)
         results = [self._collect(h) for h in handles]
+        if rank:
+            def score(r):
+                lps = [e[1][0] for e in r["lp"] or [] if e[1] is not None]
+                return sum(lps) / len(lps) if lps else float("-inf")
+            results.sort(key=score, reverse=True)
+        results = results[:req.n]
         prompt_tokens = results[0]["usage"]["prompt_tokens"] if results \
             else 0
         completion = sum(r["usage"]["completion_tokens"] for r in results)
@@ -401,9 +424,13 @@ class Handler(BaseHTTPRequestHandler):
                     text, calls = st.tool_parser.parse(
                         text, schemas_from_tools(req.tools))
                     tool_calls = [c.to_openai() for c in calls] or None
+                lp = None
+                if req.sampling.logprobs is not None:
+                    lp = proto.chat_logprobs_content(r["lp"],
+                                                     self._decode_one)
                 choices.append({"text": text,
                                 "finish_reason": r["finish"],
-                                "tool_calls": tool_calls, "logprobs": None})
+                                "tool_calls": tool_calls, "logprobs": lp})
             self._json(proto.chat_completion_response(req.model, choices,
                                                       usage))
             return
@@ -504,28 +531,46 @@ class Handler(BaseHTTPRequestHandler):
         choices = []
         for r in results:
             text = r["text"]
+            lp = None
+            if req.sampling.logprobs is not None \
+                    or req.sampling.prompt_logprobs is not None:
+                entries = []
+                if req.echo and r["plp"] is not None:
+                    # the prompt's tokens first, position 0 without one
+                    entries.extend(zip(ids, r["plp"]))
+                entries.extend(r["lp"] or [])
+                lp = proto.completion_logprobs(entries, self._decode_one)
             if req.echo and isinstance(req.prompt, str):
                 text = req.prompt + text
             choices.append({"text": text, "finish_reason": r["finish"],
-                            "logprobs": None})
+                            "logprobs": lp})
         self._json(proto.completion_response(req.model, choices, usage))
 
     def _collect(self, handle):
-        """Drain one request's stream → {"text", "finish", "usage"}."""
+        """Drain one request's stream → {"text", "finish", "usage", "lp"
+        [(token id, logprob entry)] or None, "plp"}."""
         text_parts, finish = [], "stop"
         usage = proto.usage_dict(0, 0)
-        final_text = None
+        lp, plp, final_text = [], None, None
         for chunk in handle:
             if chunk.text:
                 text_parts.append(chunk.text)
+            if chunk.token_id is not None and chunk.logprob is not None:
+                lp.append((chunk.token_id, chunk.logprob))
             if chunk.finish_reason is not None:
                 finish = chunk.finish_reason
                 usage = proto.usage_dict(chunk.num_prompt_tokens,
                                          chunk.num_output_tokens)
+                plp = chunk.prompt_logprobs
                 final_text = chunk.final_text
         text = final_text if final_text is not None \
             else "".join(text_parts)
-        return {"text": text, "finish": finish, "usage": usage}
+        return {"text": text, "finish": finish, "usage": usage,
+                "lp": lp or None, "plp": plp}
+
+    def _decode_one(self, token_id: int) -> str:
+        tok = self.state.llm.tokenizer
+        return tok.decode([token_id]) if tok is not None else str(token_id)
 
     def _stream(self, handle, make_chunk):
         try:

@@ -3,11 +3,10 @@
 ``SamplingParams``).
 
 Chat and completion requests with their sampling knobs, streamed and
-whole responses, usage; stdlib dataclasses with explicit validation. A
-sampling option this port does not implement yet (``validate`` raises
-``NotImplementedError``) becomes a :class:`ProtocolError` with its
-message, so the client gets 400; so does ``best_of`` above ``n``, whose
-ranking needs logprobs.
+whole responses, usage and OpenAI's logprobs shapes (chat's ``content``
+list, completions' parallel lists); stdlib dataclasses with explicit
+validation. An out-of-range value (``SamplingParams.validate``) becomes a
+:class:`ProtocolError` with its message, so the client gets 400.
 """
 
 from __future__ import annotations
@@ -83,7 +82,7 @@ def sampling_from_request(d: dict, default_max_tokens: int) -> SamplingParams:
         sp.logprobs = logprobs
     try:
         sp.validate()
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         raise ProtocolError(str(e)) from e
     return sp
 
@@ -93,9 +92,6 @@ def n_best_of(d: dict):
     best_of = _get(d, "best_of", int, n)
     if n < 1 or best_of < n:
         raise ProtocolError("need n >= 1 and best_of >= n")
-    if best_of > n:
-        raise ProtocolError("not supported by gllm_tpu_torch yet: best_of "
-                            "> n (its ranking needs logprobs)")
     return n, best_of
 
 
@@ -171,6 +167,53 @@ def usage_dict(prompt_tokens: int, completion_tokens: int) -> dict:
     return {"prompt_tokens": prompt_tokens,
             "completion_tokens": completion_tokens,
             "total_tokens": prompt_tokens + completion_tokens}
+
+
+def chat_logprobs_content(lp_entries, decode) -> Optional[dict]:
+    """OpenAI's chat logprobs: {"content": [{token, logprob, bytes,
+    top_logprobs: [...]}, ...]} from (token id, (chosen, top ids, top
+    logprobs)) pairs."""
+    if lp_entries is None:
+        return None
+    content = []
+    for tok_id, (chosen, top_ids, top_lps) in lp_entries:
+        tok = decode(tok_id)
+        content.append({
+            "token": tok,
+            "logprob": chosen,
+            "bytes": list(tok.encode()),
+            "top_logprobs": [
+                {"token": decode(i), "logprob": lp,
+                 "bytes": list(decode(i).encode())}
+                for i, lp in zip(top_ids, top_lps)],
+        })
+    return {"content": content}
+
+
+def completion_logprobs(lp_entries, decode, text_offset0: int = 0) \
+        -> Optional[dict]:
+    """OpenAI's completions logprobs (tokens, token_logprobs,
+    top_logprobs, text_offset) from (token id, entry) pairs; an entry of
+    None (the first prompt position under ``echo``) gives None."""
+    if lp_entries is None:
+        return None
+    tokens, token_logprobs, top_logprobs, text_offset = [], [], [], []
+    off = text_offset0
+    for tok_id, entry in lp_entries:
+        tok = decode(tok_id)
+        tokens.append(tok)
+        text_offset.append(off)
+        off += len(tok)
+        if entry is None:
+            token_logprobs.append(None)
+            top_logprobs.append(None)
+            continue
+        chosen, top_ids, top_lps = entry
+        token_logprobs.append(chosen)
+        top_logprobs.append({decode(i): lp
+                             for i, lp in zip(top_ids, top_lps)})
+    return {"tokens": tokens, "token_logprobs": token_logprobs,
+            "top_logprobs": top_logprobs, "text_offset": text_offset}
 
 
 def chat_completion_response(model: str, choices: list,

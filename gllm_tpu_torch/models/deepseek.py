@@ -280,3 +280,4 @@ def forward(params: Params, kv: LatentKVCache, batch: StepBatch,
 
 
 compute_logits = dense.compute_logits
+compute_full_logits = dense.compute_full_logits

@@ -1,6 +1,7 @@
 """Dense GQA decoder (Llama / Qwen2 / Qwen3 / GLM-class); counterpart of
 ``gllm_tpu/models/dense.py`` (``init_kv_cache:57``, ``init_params:80``,
-``_attention:131``, ``_mlp:215``, ``forward:222``, ``compute_logits:310``,
+``_attention:131``, ``_mlp:215``, ``forward:222``,
+``compute_full_logits:297``, ``compute_logits:310``,
 ``make_rope_table:330``).
 
 Parameters are a plain dict of tensors in the JAX package's layout: weights
@@ -183,18 +184,27 @@ def forward(params: Params, kv: KVCache, batch: StepBatch, cfg: ModelConfig,
     return hidden, residual
 
 
+def compute_full_logits(params: Params, hidden: torch.Tensor,
+                        residual: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """The logits of every row of ``hidden`` [N, V] float32 (JAX's
+    ``compute_full_logits``, ``gllm_tpu/models/dense.py:297``: the prompt
+    logprobs' path): final norm, then the head."""
+    normed = rms_norm(hidden + residual, params["final_norm"],
+                      cfg.rms_norm_eps)
+    head = (params["embed"].t() if cfg.tie_word_embeddings
+            else params["lm_head"])
+    return (normed @ head).float()
+
+
 def compute_logits(params: Params, hidden: torch.Tensor,
                    residual: torch.Tensor, batch: StepBatch,
                    cfg: ModelConfig) -> torch.Tensor:
     """Gather the last token of each sequence, final-norm, project to the
     vocabulary ([S, V] float32). Gathering before the head product keeps
     it at S rows instead of T."""
-    final = hidden + residual
-    sel = final[batch.logits_indices.long()]
-    sel = rms_norm(sel, params["final_norm"], cfg.rms_norm_eps)
-    head = (params["embed"].t() if cfg.tie_word_embeddings
-            else params["lm_head"])
-    return (sel @ head).float()
+    idx = batch.logits_indices.long()
+    return compute_full_logits(params, hidden[idx], residual[idx], cfg)
 
 
 def make_rope_table(cfg: ModelConfig,

@@ -342,6 +342,7 @@ def forward(params: Params, kv: HybridKV, batch: StepBatch,
 
 
 compute_logits = dense.compute_logits
+compute_full_logits = dense.compute_full_logits
 # partial rotary: head_dim * partial_rotary_factor lanes rotate
 make_rope_table = dense.make_rope_table
 

@@ -20,6 +20,7 @@ class ModelDef(NamedTuple):
                                  #  [, num_slots: hybrid's SSM slots])
     forward: Callable            # (params, kv, batch, cfg, *, cos_sin, ...)
     compute_logits: Callable     # (params, hidden, residual, batch, cfg)
+    compute_full_logits: Callable  # (params, hidden, residual, cfg)
     make_rope_table: Callable    # (cfg, device) → [max_pos, rot_dim] f32
     kv_bytes_per_page: Callable  # (cfg, page_size, kv_dtype) → bytes
 
@@ -27,6 +28,7 @@ class ModelDef(NamedTuple):
 def _def(family, module) -> ModelDef:
     return ModelDef(family, module.init_params, module.init_kv_cache,
                     module.forward, module.compute_logits,
+                    module.compute_full_logits,
                     module.make_rope_table, module.kv_bytes_per_page)
 
 

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "gllm_tpu_torch"
 SOURCES = ("decode_attention", "ragged_attention", "mla_decode_attention",
            "mla_ragged_attention", "mla_unified_attention", "gdn_scan",
-           "graph_cond")
+           "graph_cond", "threefry")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -54,6 +54,7 @@ _SIGNATURES = {
     "mla_unified_attention": ("gllm_mla_unified_attention",
                               [_P] * 7 + [_I] * 9 + [_F, _I, _I, _I, _P]),
     "gdn_scan": ("gllm_gdn_chunk_scan", [_P] * 9 + [_I] * 5 + [_P]),
+    "threefry": ("gllm_threefry_noise", [_P] * 3 + [_I] * 5 + [_P]),
     # not a kernel port: the conditional nodes of runner/graphs.py
     "graph_cond": ("gllm_graph_conditional", [_I, _P, _P, _P]),
 }

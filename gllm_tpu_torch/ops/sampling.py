@@ -1,17 +1,22 @@
 """Sampling (counterpart of ``gllm_tpu/ops/sampling.py``: ``sample:269``,
-``_topk_topp_mask_sort:139``, ``stop_token_hit:500``, and speculative
-decoding's ``spec_verify:373``, ``ngram_propose:454``,
-``ring_shift_in:486``).
+``_topk_topp_mask_sort:139``, ``PenaltyTokens:58``, ``apply_penalties:78``,
+``apply_logit_bias:101``, ``adjust_logits:112``, ``_row_base_keys:304``,
+``stop_token_hit:500``, ``compute_logprobs:518``, and speculative
+decoding's ``spec_adjust_logits:324``, ``spec_verify:373``,
+``ngram_propose:454``, ``ring_shift_in:486``).
 
 Greedy argmax, plus temperature / top-k / top-p / min-p sampling by
-Gumbel-max over the masked logits. The noise comes from a
-``torch.Generator`` the runner seeds with ``EngineConfig.seed``; JAX's
-threefry bits are not reproduced, so sampled (non-greedy) tokens differ
-from the JAX package's while their distribution is the same.
-
-JAX's ``spec_adjust_logits`` (``:324``: penalties and ``logit_bias`` over
-the verify rows) has no counterpart: it is the identity while this port
-refuses both options (ROADMAP A 5).
+Gumbel-max over the masked logits, after the logit adjustments in JAX's
+order: ``logit_bias`` first, then the repetition, presence and frequency
+penalties (over per-row occurrence counts built on the device from
+padded id lists), before the greedy argmax too. A row with a seed (>= 0)
+draws JAX's threefry noise from (seed, output index), bit for bit, so
+that it does not depend on its batch: the seeded-Gumbel kernel
+(``ops/cuda/threefry.py``) writes it over the rows' generator noise. The
+other rows draw from a ``torch.Generator`` the runner seeds with
+``EngineConfig.seed``; JAX's engine step key is not reproduced, so their
+tokens differ from the JAX package's while their distribution is the
+same.
 """
 
 from __future__ import annotations
@@ -19,6 +24,9 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from gllm_tpu_torch.ops.cuda.threefry import seeded_noise
+from gllm_tpu_torch.ops.threefry import UNIFORM
 
 
 class SamplingMetadata(NamedTuple):
@@ -31,6 +39,73 @@ class SamplingMetadata(NamedTuple):
     # [S] (the min_tokens gate); None when no row has a stop id
     stop_ids: Optional[torch.Tensor] = None
     stop_from: Optional[torch.Tensor] = None
+    # per-row seeds [S] i32 (-1: the generator's noise) and the index of
+    # the output token each row samples [S] i32: a seeded row's noise is
+    # a pure function of the two
+    seed: Optional[torch.Tensor] = None
+    out_step: Optional[torch.Tensor] = None
+    # the scaling repetition penalty (> 1 scales a seen token's positive
+    # logit down and its negative one up) and OpenAI's additive presence
+    # and frequency penalties [S] f32; None without penalties
+    repetition_penalty: Optional[torch.Tensor] = None
+    presence_penalty: Optional[torch.Tensor] = None
+    frequency_penalty: Optional[torch.Tensor] = None
+    # OpenAI logit_bias: per-row (token id, bias) pairs [S, B], added to
+    # the logits; padding pairs carry bias 0 (a no-op add)
+    bias_ids: Optional[torch.Tensor] = None
+    bias_vals: Optional[torch.Tensor] = None
+
+
+class PenaltyTokens(NamedTuple):
+    """Each row's token ids, padded to a shared length L, from which the
+    [S, V] occurrence counts are built on the device each step."""
+    ids: torch.Tensor     # [S, L] int (padding clipped to id 0)
+    mask: torch.Tensor    # [S, L] bool, False on padding
+
+
+def _counts_from_tokens(pt: PenaltyTokens, vocab: int) -> torch.Tensor:
+    S = pt.ids.shape[0]
+    counts = torch.zeros((S, vocab), dtype=torch.int32, device=pt.ids.device)
+    return counts.scatter_add_(1, pt.ids.long(), pt.mask.to(torch.int32))
+
+
+def apply_penalties(logits: torch.Tensor, token_counts,
+                    md: SamplingMetadata) -> torch.Tensor:
+    """The repetition penalty and the presence / frequency penalties in
+    one pass; ``token_counts`` [S, V] occurrence counts or a
+    :class:`PenaltyTokens` expanded on the device (None: no-op)."""
+    if token_counts is None:
+        return logits
+    if isinstance(token_counts, PenaltyTokens):
+        token_counts = _counts_from_tokens(token_counts, logits.shape[-1])
+    counts = token_counts.float()
+    seen = counts > 0
+    p = md.repetition_penalty[:, None]
+    penalized = torch.where(logits > 0, logits / p, logits * p)
+    logits = torch.where(seen, penalized, logits)
+    if md.presence_penalty is not None:
+        logits = logits - md.presence_penalty[:, None] * seen
+    if md.frequency_penalty is not None:
+        logits = logits - md.frequency_penalty[:, None] * counts
+    return logits
+
+
+def apply_logit_bias(logits: torch.Tensor,
+                     md: SamplingMetadata) -> torch.Tensor:
+    """Add each row's logit_bias pairs (padding pairs add 0)."""
+    if md.bias_ids is None:
+        return logits
+    return logits.scatter_add(1, md.bias_ids.long(), md.bias_vals)
+
+
+def adjust_logits(logits: torch.Tensor, token_counts,
+                  md: SamplingMetadata) -> torch.Tensor:
+    """Every adjustment before sampling, in the order that defines the
+    distribution: logit_bias, then the penalties. The sample path and the
+    logprob path share it, so reported logprobs are of what was sampled
+    from."""
+    logits = apply_logit_bias(logits.float(), md)
+    return apply_penalties(logits, token_counts, md)
 
 
 def topk_topp_mask(logits: torch.Tensor, top_k: torch.Tensor,
@@ -73,22 +148,27 @@ def topk_topp_mask(logits: torch.Tensor, top_k: torch.Tensor,
 
 def sample(logits: torch.Tensor, md: SamplingMetadata,
            generator: Optional[torch.Generator] = None, *,
-           all_greedy: bool = False) -> torch.Tensor:
-    """logits: [S, V] → sampled token ids [S] int32.
+           token_counts=None, all_greedy: bool = False) -> torch.Tensor:
+    """logits: [S, V] → sampled token ids [S] int32, after the logit
+    adjustments (``token_counts``: the penalties' counts, or None).
 
     ``all_greedy`` (every live row has temperature 0) skips the mask and
     the noise entirely. Greedy rows of a mixed batch take the same argmax,
     so both paths agree on greedy rows."""
-    logits = logits.float()
+    logits = adjust_logits(logits, token_counts, md)
     greedy_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     if all_greedy:
         return greedy_tokens
     temp = torch.clamp(md.temperature, min=1e-6)[:, None]
     scaled = topk_topp_mask(logits / temp, md.top_k, md.top_p, md.min_p)
     # Gumbel-max == categorical sampling: -log(E) with E ~ Exp(1) is
-    # Gumbel(0, 1) noise.
-    expo = torch.empty_like(scaled).exponential_(generator=generator)
-    sampled = torch.argmax(scaled - torch.log(expo), dim=-1).to(torch.int32)
+    # Gumbel(0, 1) noise; a seeded row's is JAX's threefry draw of
+    # (seed, out_step), written over it by the kernel
+    noise = -torch.log(torch.empty_like(scaled).exponential_(
+        generator=generator))
+    if md.seed is not None:
+        seeded_noise(noise, md.seed, md.out_step)
+    sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
     return torch.where(md.temperature == 0.0, greedy_tokens, sampled)
 
 
@@ -129,9 +209,11 @@ def spec_verify(logits_mat: torch.Tensor, drafts: torch.Tensor,
     rejection resamples from p_i with d_i removed, which keeps the target
     distribution exactly. ``sampled`` False (every row greedy) keeps the
     argmax alone. The draws come from ``generator`` (uniforms [S, K+1]
-    and Gumbel noise [S, K+1, V] as -log of unit exponentials; JAX's
-    threefry keys are not reproduced), or from ``draws`` = (uniforms,
-    gumbel) when given."""
+    and Gumbel noise [S, K+1, V] as -log of unit exponentials), a seeded
+    row's from JAX's threefry keys (``fold_in(base, i)`` a verify row,
+    its uniform under ``fold_in(., 0)``, its noise under ``fold_in(.,
+    1)``, base the key of (seed, out_step)), or from ``draws`` =
+    (uniforms, gumbel) when given."""
     S, K1, V = logits_mat.shape
     K = K1 - 1
     logits_f = logits_mat.float()
@@ -151,6 +233,11 @@ def spec_verify(logits_mat: torch.Tensor, drafts: torch.Tensor,
                        device=logits_mat.device)
         gumbel = -torch.log(torch.empty_like(p).exponential_(
             generator=generator))
+        if md.seed is not None:
+            seeded_noise(u.view(S * K1, 1), md.seed, md.out_step, K1, 0,
+                         UNIFORM)
+            seeded_noise(gumbel.view(S * K1, V), md.seed, md.out_step, K1,
+                         1)
     else:
         u, gumbel = draws
     d_safe = torch.clamp(drafts, min=0).long()
@@ -171,6 +258,56 @@ def spec_verify(logits_mat: torch.Tensor, drafts: torch.Tensor,
     accept = torch.cumprod(ok.to(torch.int32), dim=-1).sum(dim=-1)
     tok_mat = torch.where(greedy_rows, greedy_mat, tok_sampled)
     return tok_mat, accept.to(torch.int32)
+
+
+def spec_adjust_logits(logits_mat: torch.Tensor, drafts: torch.Tensor,
+                       md: SamplingMetadata,
+                       token_counts=None) -> torch.Tensor:
+    """The logit adjustments of each verify row (JAX's
+    ``spec_adjust_logits``, ``gllm_tpu/ops/sampling.py:324``): row i of a
+    sequence scores the token after its committed tokens and
+    ``drafts[:i]``, so the penalties see the base counts plus that draft
+    prefix (the drafts' one-hots, int8 as in JAX, cumulated along the
+    rows), while logit_bias repeats on every row. The identity when the
+    batch carries neither."""
+    if token_counts is None and md.bias_ids is None:
+        return logits_mat
+    S, K1, V = logits_mat.shape
+    K = K1 - 1
+    rep = lambda a: (None if a is None                      # noqa: E731
+                     else a.repeat_interleave(K1, dim=0))
+    md_rep = md._replace(
+        repetition_penalty=rep(md.repetition_penalty),
+        presence_penalty=rep(md.presence_penalty),
+        frequency_penalty=rep(md.frequency_penalty),
+        bias_ids=rep(md.bias_ids), bias_vals=rep(md.bias_vals))
+    counts_flat = None
+    if token_counts is not None:
+        base = (_counts_from_tokens(token_counts, V)
+                if isinstance(token_counts, PenaltyTokens)
+                else token_counts)                          # [S, V]
+        dev = logits_mat.device
+        dhot = torch.zeros((S, K, V), dtype=torch.int8, device=dev)
+        dhot.scatter_add_(2, torch.clamp(drafts, min=0).long()[..., None],
+                          (drafts >= 0).to(torch.int8)[..., None])
+        # row i sees drafts[:i]: an exclusive cumulative sum, the bonus
+        # row (i = K) all K drafts
+        dpfx = torch.cat([torch.zeros((S, 1, V), dtype=torch.int8,
+                                      device=dev),
+                          torch.cumsum(dhot, dim=1, dtype=torch.int8)], 1)
+        counts_flat = (base[:, None, :] + dpfx).reshape(S * K1, V)
+    return adjust_logits(logits_mat.reshape(S * K1, V), counts_flat,
+                         md_rep).reshape(S, K1, V)
+
+
+def compute_logprobs(logits: torch.Tensor, token_ids: torch.Tensor,
+                     top_n: int):
+    """Log-softmax logprobs: (the chosen token's [S], the top ``top_n``
+    ids [S, top_n] int32, their logprobs [S, top_n])."""
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    chosen = torch.gather(logprobs, 1, token_ids.long()[:, None])[:, 0]
+    top_vals, top_ids = torch.topk(logprobs, top_n, dim=-1)
+    return chosen, top_ids.to(torch.int32), top_vals
 
 
 def ngram_propose(ring: torch.Tensor, ring_len: torch.Tensor, *, n: int,

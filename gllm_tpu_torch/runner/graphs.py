@@ -70,10 +70,13 @@ from gllm_tpu_torch.ops.cuda.gdn_scan import (gdn_chunk_scan,
                                               gdn_chunk_scan_plain)
 from gllm_tpu_torch.ops.cuda.ragged_attention import (
     ragged_paged_attention, ragged_paged_attention_plain)
+from gllm_tpu_torch.ops.cuda.threefry import seeded_noise
+from gllm_tpu_torch.ops.threefry import seeded_noise_
 
-_WRAPPERS = (ragged_paged_attention, paged_decode_attention, gdn_chunk_scan)
+_WRAPPERS = (ragged_paged_attention, paged_decode_attention, gdn_chunk_scan,
+             seeded_noise)
 _PLAINS = (ragged_paged_attention_plain, paged_decode_attention_plain,
-           gdn_chunk_scan_plain)
+           gdn_chunk_scan_plain, seeded_noise_)
 
 
 def launch_counts() -> Dict[Tuple, int]:

@@ -1,6 +1,7 @@
 """Host-side batch building: ScheduledBatch → StepBatch (counterpart of
 ``gllm_tpu/runner/prepare.py``: ``BatchBuilder.shape_signature:70``,
-``stop_sets:186``, ``build:282``).
+``stop_sets:186``, ``penalty_len_bucket:240``, ``bias_len_bucket:247``,
+``batch_extras:254``, ``build:282``).
 
 The builder fills flat numpy arrays — token / position / slot buffers,
 query-start offsets, per-seq kv lens and page tables — padded to the same
@@ -10,7 +11,11 @@ buffer (one of a ring, so that steps can be in flight together) and ships
 it with ONE ``non_blocking`` host-to-device copy, into one device buffer
 that the runner sizes once for its largest step: the views of a shape
 signature sit at the same addresses every step, so a CUDA graph captured
-on them reads each later step's data (``runner/graphs.py``).
+on them reads each later step's data (``runner/graphs.py``). Each row's
+seed and output index ride every step in that fixed part. The extras of
+an eager step (the penalties' token ids and values, the logit_bias
+pairs, the prompt-logprob targets), whose widths follow the batch, ride
+the same pinned buffer into a second device buffer that grows as needed.
 """
 
 from __future__ import annotations
@@ -33,18 +38,21 @@ from gllm_tpu_torch.utils import bucket_size, cdiv, next_pow2
 MAX_STOP_IDS = 64
 # a fused spec block's seed state a row: the right-aligned token ring, then
 # its valid length, the last token, the position, the token budget, the
-# draft length, how the runner completes the row on the card (0: the
-# host's seed is whole; SEED_CARRY, SEED_SPLICE) and the block's sub-step
-# limit
-SPEC_SEED_COLS = 7
+# draft length, the output index (a seeded row's draws), how the runner
+# completes the row on the card (0: the host's seed is whole; SEED_CARRY,
+# SEED_SPLICE) and the block's sub-step limit
+SPEC_SEED_COLS = 8
 SEED_CARRY, SEED_SPLICE = 1, 2
 
 
 class BatchBuilder:
     def __init__(self, config: EngineConfig, page_size: int,
-                 use_ssm: bool = False):
+                 use_ssm: bool = False, vocab_size: int = 0):
         self.config = config
         self.page_size = page_size
+        # penalty and logit_bias ids at or past it are dropped (they never
+        # appear in the logits)
+        self.vocab_size = vocab_size
         sc = config.scheduler
         # upper bounds of the shape buckets; speculative decoding adds up
         # to spec_k draft rows a decode row
@@ -107,8 +115,8 @@ class BatchBuilder:
         """A StepBatch of host arrays at (T, S, pages) holding padding rows
         only: token 0 at position 0 into the dummy page's slot 0, empty
         sequences (q_len 0, kv_len 0) whose pages are the dummy page, the
-        greedy sampling defaults and, for a hybrid model, the dummy SSM
-        slot 0. ``build`` fills the real rows over it; the runner's
+        greedy sampling defaults (no seed) and, for a hybrid model, the
+        dummy SSM slot 0. ``build`` fills the real rows over it; the runner's
         graph capture runs it as is (it writes nothing a sequence reads)."""
         z = lambda n: np.zeros(n, np.int32)
         return StepBatch(
@@ -121,8 +129,41 @@ class BatchBuilder:
                 temperature=np.zeros(s_pad, np.float32),
                 top_p=np.ones(s_pad, np.float32),
                 top_k=np.full(s_pad, -1, np.int32),
-                min_p=np.zeros(s_pad, np.float32)),
+                min_p=np.zeros(s_pad, np.float32),
+                seed=np.full(s_pad, -1, np.int32), out_step=z(s_pad)),
             ssm_slots=z(s_pad) if self.use_ssm else None)
+
+    @staticmethod
+    def penalty_len_bucket(lens) -> int:
+        """The penalty id lists' padded length: a power of two, at least
+        16."""
+        return max(16, next_pow2(max(lens))) if lens else 16
+
+    @staticmethod
+    def bias_len_bucket(ns) -> int:
+        """The logit_bias pairs' padded count: a power of two, at least
+        8."""
+        return max(8, next_pow2(max(ns))) if ns else 8
+
+    @staticmethod
+    def batch_extras(batch: ScheduledBatch) -> frozenset:
+        """The extras ``batch`` carries that make its step eager (its
+        logits adjusted, or logprobs computed, outside the decode graphs):
+        "penalties", "bias", "lp" (output logprobs), "plp" (the prompt
+        logprobs of a prompt chunk). Seeds ride every step."""
+        extras = set()
+        for it in batch.items:
+            sp = it.seq.sampling_params
+            if sp.uses_penalty:
+                extras.add("penalties")
+            if sp.logit_bias:
+                extras.add("bias")
+            if sp.logprobs is not None:
+                extras.add("lp")
+            if (sp.prompt_logprobs is not None
+                    and it.computed_before < it.seq.prompt_len):
+                extras.add("plp")
+        return frozenset(extras)
 
     def stop_sets(self, items, s_bucket: int, eos_token_ids,
                   absolute: bool = False):
@@ -181,6 +222,7 @@ class BatchBuilder:
         cu, kv_lens, page_table = pad.attn
         logits_idx = pad.logits_indices
         temperature, top_p, top_k, min_p = pad.sampling[:4]
+        seeds, out_steps = pad.sampling.seed, pad.sampling.out_step
 
         items = batch.items
         K = len(items)
@@ -241,6 +283,41 @@ class BatchBuilder:
         top_p[:K] = [sp.top_p for sp in sps]
         top_k[:K] = [sp.top_k for sp in sps]
         min_p[:K] = [sp.min_p for sp in sps]
+        plp_targets = None
+        if any(sp.prompt_logprobs is not None
+               and it.computed_before < it.seq.prompt_len
+               for it, sp in zip(items, sps)):
+            plp_targets = np.zeros(t_pad, np.int32)
+        for i, (it, sp) in enumerate(zip(items, sps)):
+            if sp.seed is not None:
+                seeds[i] = sp.seed
+                # the index of the output token this step samples
+                out_steps[i] = int(befores[i] + ns[i]) - it.seq.prompt_len
+            if plp_targets is not None and sp.prompt_logprobs is not None:
+                # the row at position p scores prompt token p + 1
+                b, o = int(befores[i]), int(offs[i])
+                nxt = it.seq.token_ids[b + 1:min(b + int(ns[i]) + 1,
+                                                 it.seq.prompt_len)]
+                plp_targets[o:o + len(nxt)] = nxt
+        pad = self._penalties(pad, items, s_pad)
+        if any(sp.logit_bias for sp in sps):
+            B = self.bias_len_bucket(
+                [len(sp.logit_bias) for sp in sps if sp.logit_bias])
+            bias_ids = np.zeros((s_pad, B), np.int32)
+            bias_vals = np.zeros((s_pad, B), np.float32)
+            vocab = self.vocab_size or 1 << 30
+            for i, sp in enumerate(sps):
+                if sp.logit_bias:
+                    # ids past the vocabulary (or the bucket) are dropped;
+                    # padding pairs add 0
+                    pairs = [(t, b) for t, b in sp.logit_bias.items()
+                             if t < vocab][:B]
+                    for j, (t, b) in enumerate(pairs):
+                        bias_ids[i, j] = t
+                        bias_vals[i, j] = b
+            pad = pad._replace(sampling=pad.sampling._replace(
+                bias_ids=bias_ids, bias_vals=bias_vals))
+        pad = pad._replace(plp_targets=plp_targets)
 
         if self.use_ssm:
             # a hole row owns no slot: the dummy slot 0
@@ -263,10 +340,39 @@ class BatchBuilder:
         return pad._replace(num_seqs=K,
                             max_seq_q=int(ns.max()) if K else 0), max_q
 
+    def _penalties(self, pad: StepBatch, items, s_pad: int) -> StepBatch:
+        """The penalties of the rows that use one: each row's token ids
+        (below the vocabulary, the first L), -1 padded to the shared
+        length L, and its three penalty values; the batch as it is when
+        no row uses one."""
+        rows = [i for i, it in enumerate(items)
+                if it.seq.sampling_params.uses_penalty]
+        if not rows:
+            return pad
+        vocab = self.vocab_size or 1 << 30
+        toks = {i: [t for t in items[i].seq.token_ids if t < vocab]
+                for i in rows}
+        L = self.penalty_len_bucket([len(items[i].seq.token_ids)
+                                     for i in rows])
+        ids = np.full((s_pad, L), -1, np.int32)
+        rep = np.ones(s_pad, np.float32)
+        pres = np.zeros(s_pad, np.float32)
+        freq = np.zeros(s_pad, np.float32)
+        for i in rows:
+            sp = items[i].seq.sampling_params
+            row = toks[i][:L]
+            ids[i, :len(row)] = row
+            rep[i] = sp.repetition_penalty
+            pres[i] = sp.presence_penalty
+            freq[i] = sp.frequency_penalty
+        return pad._replace(penalty_ids=ids, sampling=pad.sampling._replace(
+            repetition_penalty=rep, presence_penalty=pres,
+            frequency_penalty=freq))
+
     def upload_size(self, t_pad: int, s_pad: int, p_pad: int) -> int:
         """int32 slots of a step's fixed part at (T, S, pages)
         (``HostStaging``'s layout, the variable lists excluded)."""
-        return (3 * t_pad + s_pad * (7 + p_pad) + 1
+        return (3 * t_pad + s_pad * (9 + p_pad) + 1
                 + (s_pad if self.use_ssm else 0))
 
     def spec_size(self, s_pad: int, ring: int) -> int:
@@ -292,7 +398,11 @@ class HostStaging:
     buffer is allocated once, at that size, and a step that needs more
     raises: a CUDA graph captured on the views of a signature then reads
     every later step of it. Without, it grows as needed (``allocations``
-    counts the device buffers made).
+    counts the device buffers made). The extras of an eager step (the
+    penalties' values and token ids, the logit_bias pairs, the
+    prompt-logprob targets) follow in the same pinned buffer and go by a
+    second copy into a device buffer of their own, which grows as needed:
+    no graph reads them.
 
     The one device buffer is reused by every step: its copies and readers
     are ordered on the stream. The pinned host side is a ring of
@@ -314,6 +424,7 @@ class HostStaging:
                         if self._pin else [None] * slots)
         self._next = 0
         self._dev = None
+        self._extra_dev = None
         self.allocations = 0
         self.fixed = capacity > 0
         if capacity:
@@ -331,7 +442,8 @@ class HostStaging:
                  sb.attn.page_table.reshape(-1), sb.sampling.top_k,
                  sb.sampling.temperature.view(np.int32),
                  sb.sampling.top_p.view(np.int32),
-                 sb.sampling.min_p.view(np.int32),
+                 sb.sampling.min_p.view(np.int32), sb.sampling.seed,
+                 sb.sampling.out_step,
                  np.asarray(sb.ssm_slots if sb.ssm_slots is not None
                             else [], np.int32),
                  _ints(sb.active_until),
@@ -342,8 +454,15 @@ class HostStaging:
                  _ints(sb.spec_rows).reshape(-1),
                  _ints(sb.spec_drafts).reshape(-1),
                  _ints(sb.spec_seed).reshape(-1)]
+        md = sb.sampling
+        extras = [_ints(x, f) for x, f in (
+            (md.repetition_penalty, True), (md.presence_penalty, True),
+            (md.frequency_penalty, True), (sb.penalty_ids, False),
+            (md.bias_ids, False), (md.bias_vals, True),
+            (sb.plp_targets, False))]
         sizes = [p.size for p in parts]
         n = sum(sizes)
+        n_extra = sum(p.size for p in extras)
         if self._dev is None or self._dev.numel() < n:
             if self.fixed:
                 raise RuntimeError(
@@ -356,22 +475,42 @@ class HostStaging:
         if self._events[i] is not None:
             self._events[i].synchronize()
         host = self._ring[i]
-        if host.numel() < n:
+        if host.numel() < n + n_extra:
             host = self._ring[i] = torch.empty(
-                max(n, 2 * host.numel()), dtype=torch.int32,
+                max(n + n_extra, 2 * host.numel()), dtype=torch.int32,
                 pin_memory=self._pin)
-        np.concatenate(parts, out=host.numpy()[:n])
+        np.concatenate(parts + extras, out=host.numpy()[:n + n_extra])
         dev = self._dev[:n]
         dev.copy_(host[:n], non_blocking=self._pin)
+        ext = None
+        if n_extra:
+            if self._extra_dev is None or self._extra_dev.numel() < n_extra:
+                self._extra_dev = torch.empty(
+                    max(n_extra, 2 * (0 if self._extra_dev is None
+                                      else self._extra_dev.numel())),
+                    dtype=torch.int32, device=self.device)
+            ext = self._extra_dev[:n_extra]
+            ext.copy_(host[n:n + n_extra], non_blocking=self._pin)
         if self._events[i] is not None:
             self._events[i].record()
         views = list(torch.split(dev, sizes))
         (tok, pos, slots, lidx, cu, kvl, pt, top_k, temp, top_p,
-         min_p, ssm_slots, active_until, stop_ids, stop_from, resets,
-         ssm_zero, splice, spec_rows, spec_drafts, spec_seed) = views
+         min_p, seed, out_step, ssm_slots, active_until, stop_ids,
+         stop_from, resets, ssm_zero, splice, spec_rows, spec_drafts,
+         spec_seed) = views
         shaped = lambda v, a: (None if a is None  # noqa: E731
                                else v.view(a.shape))
         f32 = torch.float32
+        ex = [None] * len(extras)
+        if ext is not None:
+            ex = list(torch.split(ext, [p.size for p in extras]))
+        (rep, pres, freq, pen_ids, bias_ids, bias_vals, plp) = [
+            None if a is None else (v.view(f32) if a.dtype == np.float32
+                                    else v).view(a.shape)
+            for v, a in zip(ex, (md.repetition_penalty, md.presence_penalty,
+                                 md.frequency_penalty, sb.penalty_ids,
+                                 md.bias_ids, md.bias_vals,
+                                 sb.plp_targets))]
         return StepBatch(
             token_ids=tok, positions=pos, slot_mapping=slots,
             logits_indices=lidx,
@@ -380,7 +519,10 @@ class HostStaging:
                 page_table=pt.view(sb.attn.page_table.shape)),
             sampling=SamplingMetadata(
                 temperature=temp.view(f32), top_p=top_p.view(f32),
-                top_k=top_k, min_p=min_p.view(f32),
+                top_k=top_k, min_p=min_p.view(f32), seed=seed,
+                out_step=out_step, repetition_penalty=rep,
+                presence_penalty=pres, frequency_penalty=freq,
+                bias_ids=bias_ids, bias_vals=bias_vals,
                 stop_ids=(stop_ids.view(sb.sampling.stop_ids.shape)
                           if sb.sampling.stop_ids is not None else None),
                 stop_from=(stop_from if sb.sampling.stop_from is not None
@@ -394,9 +536,15 @@ class HostStaging:
             spec_rows=shaped(spec_rows, sb.spec_rows),
             spec_drafts=shaped(spec_drafts, sb.spec_drafts),
             spec_seed=shaped(spec_seed, sb.spec_seed),
+            penalty_ids=pen_ids, plp_targets=plp,
             num_seqs=sb.num_seqs, max_seq_q=sb.max_seq_q)
 
 
-def _ints(x) -> np.ndarray:
-    """An optional host array as int32 (empty for None)."""
-    return np.asarray(x if x is not None else [], np.int32)
+def _ints(x, floats: bool = False) -> np.ndarray:
+    """An optional host array as int32, flat (empty for None); a float32
+    one (``floats``) by bit pattern."""
+    if x is None:
+        return np.zeros(0, np.int32)
+    if floats:
+        return np.ascontiguousarray(x, np.float32).view(np.int32).reshape(-1)
+    return np.asarray(x, np.int32).reshape(-1)

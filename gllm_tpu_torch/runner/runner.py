@@ -36,6 +36,16 @@ cache first zeroes the scales of the pages minted for the step (their ids
 ride the step's one upload), so a recycled page quantizes like a fresh one.
 Both of these run eagerly before a replay: their lists change length from
 step to step.
+A step whose batch carries penalties, logit_bias, logprobs or prompt
+logprobs (``BatchBuilder.batch_extras``) runs eagerly too, counted as an
+"extras" step when it is pure decode: the logits are adjusted (JAX's
+``adjust_logits``; a verify step's by ``spec_adjust_logits``, JAX's
+``spec_aux``) and the logprobs of the sampled tokens (``lp``), of the
+prompt (``plp``, over row slices) and of a verify step's tokens
+(``spec_lp``) ride the handle to the host (``ModelRunner.aux``). Seeded
+rows ride every graph: each sampled body launches the seeded-Gumbel
+kernel over its rows, a block advances each row's output index a
+sub-step, and a spec block carries it in its state.
 """
 
 from __future__ import annotations
@@ -54,8 +64,11 @@ from gllm_tpu_torch.models.config import ModelConfig
 from gllm_tpu_torch.models.registry import get_model_def
 from gllm_tpu_torch.ops.cuda.common import check_model_shapes
 from gllm_tpu_torch.ops.cuda.decode_attention import split_geometry
-from gllm_tpu_torch.ops.sampling import (ngram_propose, ring_shift_in,
-                                         sample, spec_verify, stop_token_hit)
+from gllm_tpu_torch.ops.sampling import (PenaltyTokens, adjust_logits,
+                                         compute_logprobs, ngram_propose,
+                                         ring_shift_in, sample,
+                                         spec_adjust_logits, spec_verify,
+                                         stop_token_hit)
 from gllm_tpu_torch.runner import graphs
 from gllm_tpu_torch.runner.prepare import (MAX_STOP_IDS, SEED_CARRY,
                                            SEED_SPLICE, SPEC_SEED_COLS,
@@ -85,6 +98,10 @@ GRAPH_POOL_STATES_PER_ROW = 2
 # a fused spec block's on-device recent-token ring, per row (JAX's
 # ``SPEC_RING``): the n-gram lookup window of its drafting
 SPEC_RING = 128
+# prompt logprobs are computed over slices of this many rows: the logits
+# of a whole prefill chunk ([T, V] float32, 1 GB at T 2048 and V 128256)
+# and their log-softmax would not fit the activation headroom
+PLP_ROWS = 256
 
 
 def reclaim_driver_memory(device: torch.device) -> None:
@@ -124,13 +141,13 @@ class SpecLayout(NamedTuple):
 
     @property
     def size(self) -> int:
-        return self.host_size + self.S * (self.R + 4)
+        return self.host_size + self.S * (self.R + 5)
 
     def split(self, out):
         """(tokens, counts, drafted, accepted, kcur, ring, rlen, last, pos,
-        alive) views of a packed output (device or host)."""
+        alive, ostep) views of a packed output (device or host)."""
         K, S, K1, R = self.K_cap, self.S, self.K1, self.R
-        sizes = [K * S * K1, K * S, S, S, S, S * R, S, S, S, S]
+        sizes = [K * S * K1, K * S, S, S, S, S * R, S, S, S, S, S]
         parts, o = [], 0
         for n in sizes:
             parts.append(out[o:o + n])
@@ -153,12 +170,16 @@ class StepHandle(NamedTuple):
     (``spec`` the int spec_k + 1) are [n, 2 + spec_k + 1]: the sampled
     token, the accepted drafts, then the verify tokens. A fused spec
     block's (``spec`` its ``SpecLayout``) are its packed output, of which
-    the host gets the part before the carried state."""
+    the host gets the part before the carried state. ``aux``: an eager
+    step's logprobs by name ("lp", "plp", "spec_lp"; each the chosen
+    logprob, the top ids and the top logprobs), on their way to the host
+    with the tokens."""
     tokens: torch.Tensor
     host: torch.Tensor
     event: Optional[torch.cuda.Event]
     block: Optional[tuple] = None
     spec: object = None
+    aux: Optional[dict] = None
 
     @property
     def last(self) -> torch.Tensor:
@@ -209,13 +230,16 @@ class ModelRunner:
         # hybrid: one GDN state slot per running sequence, and slot 0
         self.ssm_working_slots = config.max_num_seqs if self.hybrid else 0
         self.builder = BatchBuilder(config, config.cache.page_size,
-                                    use_ssm=self.hybrid)
+                                    use_ssm=self.hybrid,
+                                    vocab_size=model_cfg.vocab_size)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
         # steps by batch: "decode" when every row has one new token, else
-        # "mixed" (a prefill chunk or a mix). The legacy kernels split the
-        # same way; the unified kernel serves both.
-        self.step_counts = {"mixed": 0, "decode": 0}
+        # "mixed" (a prefill chunk or a mix); "extras" a pure-decode step
+        # that runs eagerly for its penalties, logit_bias or logprobs. The
+        # legacy kernels split decode and mixed the same way; the unified
+        # kernel serves both.
+        self.step_counts = {"mixed": 0, "decode": 0, "extras": 0}
         # blocks dispatched (each one graph replay) and the sub-steps they
         # executed (counted when a block is collected)
         self.block_counts = {"block": 0, "substeps": 0}
@@ -433,27 +457,83 @@ class ModelRunner:
                                   self.model_cfg, cos_sin=self.cos_sin,
                                   max_q_len=max_q, impl=self.attn_impl)
 
-    def _verify_step(self, batch, max_q: int, all_greedy: bool,
-                     spec_sampled: bool) -> torch.Tensor:
-        """A step with drafts (host-driven speculation; JAX's ``spec_aux``,
-        ``runner.py:211-237``): forward, the sampled token of each row, and
-        the verify of the drafts over the verify rows' logits alone (never
-        [T, V]). → [S, 2 + K1]: the sampled token, the accepted drafts,
-        then the verify tokens. ``spec_sampled``: some drafted row samples
-        (``_spec_sampled``); else the argmax-only verify."""
+    def _eager_step(self, batch, max_q: int, all_greedy: bool,
+                    lp_k: int = -1, plp: bool = False,
+                    spec_sampled: Optional[bool] = None):
+        """An eager step over adjusted logits (JAX's step body with its
+        ``lp_aux`` and, with drafts, ``spec_aux``, ``runner.py:211-237,
+        656-678``): forward, each row's sampled token and the requested
+        logprobs; a step with drafts (``spec_sampled`` not None: some
+        drafted row samples, ``_spec_sampled``; else the argmax-only
+        verify) also verifies them over the verify rows' logits alone
+        (never [T, V]), adjusted with the draft prefixes' counts. →
+        (tokens [S] or, with drafts, [S, 2 + K1]: the sampled token, the
+        accepted drafts, then the verify tokens; the aux dict)."""
         hidden, residual = self._hidden(batch, max_q)
-        tokens = sample(self.model.compute_logits(
-            self.params, hidden, residual, batch, self.model_cfg),
-            batch.sampling, self.generator, all_greedy=all_greedy)
+        md = batch.sampling
+        counts = None
+        if batch.penalty_ids is not None:
+            counts = PenaltyTokens(torch.clamp(batch.penalty_ids, min=0),
+                                   batch.penalty_ids >= 0)
+        logits = self.model.compute_logits(self.params, hidden, residual,
+                                           batch, self.model_cfg)
+        tokens = sample(logits, md, self.generator, token_counts=counts,
+                        all_greedy=all_greedy)
+        aux = {}
+        top = max(lp_k, 1)
+        if lp_k >= 0:
+            # the sampled tokens' logprobs over the adjusted distribution
+            aux["lp"] = compute_logprobs(adjust_logits(logits, counts, md),
+                                         tokens, top)
+        if plp:
+            aux["plp"] = self._prompt_logprobs(hidden, residual,
+                                               batch.plp_targets, top)
+        if spec_sampled is None:
+            return tokens, aux
         S, K1 = batch.spec_rows.shape
         verify = self.model.compute_logits(
             self.params, hidden, residual,
             batch._replace(logits_indices=batch.spec_rows.reshape(-1)),
             self.model_cfg)
-        tok_mat, accept = spec_verify(verify.view(S, K1, -1),
-                                      batch.spec_drafts, batch.sampling,
+        adjusted = spec_adjust_logits(verify.view(S, K1, -1),
+                                      batch.spec_drafts, md, counts)
+        tok_mat, accept = spec_verify(adjusted, batch.spec_drafts, md,
                                       self.generator, sampled=spec_sampled)
-        return torch.cat([tokens[:, None], accept[:, None], tok_mat], 1)
+        if lp_k >= 0:
+            aux["spec_lp"] = tuple(
+                x.reshape((S, K1) + x.shape[1:]) for x in compute_logprobs(
+                    adjusted.reshape(S * K1, -1), tok_mat.reshape(-1), top))
+        return torch.cat([tokens[:, None], accept[:, None], tok_mat], 1), aux
+
+    def _prompt_logprobs(self, hidden, residual, targets, top: int):
+        """Every row's logprob of its target token and its top ``top``,
+        over row slices of ``PLP_ROWS`` (the rows are independent, so the
+        slices change nothing but the memory a step holds)."""
+        parts = []
+        for a in range(0, hidden.shape[0], PLP_ROWS):
+            b = a + PLP_ROWS
+            full = self.model.compute_full_logits(
+                self.params, hidden[a:b], residual[a:b], self.model_cfg)
+            parts.append(compute_logprobs(full, targets[a:b], top))
+        return tuple(torch.cat(x) for x in zip(*parts))
+
+    @staticmethod
+    def _lp_flags(sched_batch: ScheduledBatch):
+        """(logprobs_k, prompt_lp) of a batch (JAX's ``_lp_flags``,
+        ``runner.py:972-986``): the widest top-N it asks for (-1: no
+        logprobs), a prompt chunk's prompt_logprobs included, and whether
+        some row scores its prompt."""
+        k, want_plp = -1, False
+        for it in sched_batch.items:
+            sp = it.seq.sampling_params
+            if sp.logprobs is not None:
+                k = max(k, sp.logprobs)
+            if (sp.prompt_logprobs is not None
+                    and it.computed_before < it.seq.prompt_len):
+                # only prompt chunks pay the prompt logprobs' top-N
+                k = max(k, sp.prompt_logprobs)
+                want_plp = True
+        return k, want_plp
 
     def step(self, sched_batch: ScheduledBatch,
              force_signature=None) -> np.ndarray:
@@ -487,21 +567,26 @@ class ModelRunner:
         tokens are spliced from ``prev``'s (``step_async_chained``)."""
         host_batch, max_q, sig_q = self._host_batch(sched_batch,
                                                     force_signature)
-        if host_batch.spec_rows is not None:
-            # a verify step: a mixed step, eager
-            self.step_counts["mixed"] += 1
+        decode = host_batch.max_seq_q == 1
+        all_greedy = _all_greedy(sched_batch.items)
+        drafts = host_batch.spec_rows is not None
+        if drafts or self.builder.batch_extras(sched_batch):
+            # a verify step, or a step with logit adjustments or logprobs:
+            # eager, as every mixed step
+            self.step_counts["extras" if decode and not drafts
+                             else "mixed"] += 1
             batch = self.staging.upload(host_batch)
             if prev is not None:
                 self._splice(batch, sched_batch, prev)
             self._prologue(batch)
-            out = self._verify_step(
-                batch, max_q, _all_greedy(sched_batch.items),
-                _spec_sampled(sched_batch.items))
-            return self._handle(out[:sched_batch.num_seqs],
-                                spec=int(host_batch.spec_rows.shape[1]))
-        decode = host_batch.max_seq_q == 1
+            lp_k, plp = self._lp_flags(sched_batch)
+            out, aux = self._eager_step(
+                batch, max_q, all_greedy, lp_k, plp,
+                _spec_sampled(sched_batch.items) if drafts else None)
+            return self._handle(
+                out[:sched_batch.num_seqs], aux=aux,
+                spec=int(host_batch.spec_rows.shape[1]) if drafts else None)
         self.step_counts["decode" if decode else "mixed"] += 1
-        all_greedy = _all_greedy(sched_batch.items)
         graphed = decode and self.graphs is not None
         if graphed:
             t = host_batch.token_ids.size
@@ -699,9 +784,13 @@ class ModelRunner:
                                 .long())[:, 0]
         slots = torch.where(alive_n > k, page_idx * page + pos % page,
                             0)
+        # a seeded row draws from (seed, out_step): advancing its output
+        # index a sub-step keeps the block equal to K single seeded steps
         sub = batch._replace(
             token_ids=tokens, positions=pos, slot_mapping=slots,
-            attn=batch.attn._replace(kv_lens=kv0 + adv))
+            attn=batch.attn._replace(kv_lens=kv0 + adv),
+            sampling=batch.sampling._replace(
+                out_step=batch.sampling.out_step + k))
         toks = sample(self._forward(sub, 1), sub.sampling, generator,
                       all_greedy=all_greedy)
         if odf:
@@ -790,11 +879,13 @@ class ModelRunner:
         marked ``SEED_SPLICE`` (the step's device token goes in); off a
         spec block, ``SEED_CARRY`` (its state is the block's). A hole, a
         sequence the host has finished, and a padding row are dead (budget
-        0). The last column is the block's sub-step limit K."""
+        0). A seeded row's output index is that of the token its first
+        sub-step samples (carried with the state off a spec block). The
+        last column is the block's sub-step limit K."""
         R = SPEC_RING
         kd = self.config.spec_k
         seed = np.zeros((s, R + SPEC_SEED_COLS), np.int32)
-        ring, rlen, last, pos, alive, kcur, mode, klim = (
+        ring, rlen, last, pos, alive, kcur, ostep, mode, klim = (
             seed[:, :R], *seed[:, R:].T)
         ring[:] = -1
         kcur[:] = 1
@@ -809,6 +900,8 @@ class ModelRunner:
             cb = it.computed_before
             toks = seq.token_ids
             kcur[i] = min(seq.spec_k_cur or kd, kd)
+            if seq.sampling_params.seed is not None:
+                ostep[i] = cb + 1 - seq.prompt_len
             pos[i] = cb
             alive[i] = first.active_until[i]
             if cb < seq.num_tokens:
@@ -828,19 +921,19 @@ class ModelRunner:
     def _spec_splice(seed: torch.Tensor, prev: StepHandle, s: int) -> None:
         """Complete the staged seed on the device, after its upload and
         before the replay: ``SEED_CARRY`` rows take ``prev``'s carried
-        spec state (ring, length, last token, position, budget and draft
-        length), ``SEED_SPLICE`` rows append ``prev``'s sampled token to
-        their ring and take it as their last token."""
+        spec state (ring, length, last token, position, budget, draft
+        length and output index), ``SEED_SPLICE`` rows append ``prev``'s
+        sampled token to their ring and take it as their last token."""
         R = SPEC_RING
-        mode = seed[:, R + 5]
+        mode = seed[:, R + 6]
         if isinstance(prev.spec, SpecLayout):
-            (_, _, _, _, kcur, ring, rlen, last, pos,
-             alive) = prev.spec.split(prev.tokens)
+            (_, _, _, _, kcur, ring, rlen, last, pos, alive,
+             ostep) = prev.spec.split(prev.tokens)
             assert prev.spec.S == s, (prev.spec.S, s)
             carried = torch.cat([ring, torch.stack(
-                [rlen, last, pos, alive, kcur], 1)], 1)
+                [rlen, last, pos, alive, kcur, ostep], 1)], 1)
             take = (mode == SEED_CARRY)[:, None]
-            seed[:, :R + 5] = torch.where(take, carried, seed[:, :R + 5])
+            seed[:, :R + 6] = torch.where(take, carried, seed[:, :R + 6])
             return
         tok = torch.zeros(s, dtype=torch.int32, device=seed.device)
         tok[:prev.last.shape[0]] = prev.last
@@ -864,14 +957,15 @@ class ModelRunner:
         dev = seed.device
         out = torch.zeros(layout.size, dtype=torch.int32, device=dev)
         (toks, counts, drafted, accepted, kcur, ring, rlen, last, pos,
-         alive) = layout.split(out)
+         alive, ostep) = layout.split(out)
         ring.copy_(seed[:, :R])
         rlen.copy_(seed[:, R])
         last.copy_(seed[:, R + 1])
         pos.copy_(seed[:, R + 2])
         alive.copy_(seed[:, R + 3])
         kcur.copy_(seed[:, R + 4])
-        klim = seed[:, R + 6]
+        ostep.copy_(seed[:, R + 5])
+        klim = seed[:, R + 7]
         # the verify batch's fixed parts: S rows of K1 tokens each, every
         # row's logits
         fixed = dict(
@@ -906,7 +1000,7 @@ class ModelRunner:
         kd = K1 - 1
         page = self.config.cache.page_size
         (toks, counts, drafted, accepted, kcur, ring, rlen, last, pos,
-         alive) = layout.split(out)
+         alive, ostep) = layout.split(out)
         iota = fixed["iota"]
         table = batch.attn.page_table
         live = alive > 0
@@ -928,9 +1022,11 @@ class ModelRunner:
             attn=batch.attn._replace(cu_q_lens=fixed["cu"],
                                      kv_lens=kv_lens))
         logits = self._forward(sub, K1)
-        tok_mat, accept = spec_verify(logits.view(S, K1, -1), drafts,
-                                      batch.sampling, generator,
-                                      sampled=not all_greedy)
+        # a seeded row draws from (seed, the index of its next output)
+        tok_mat, accept = spec_verify(
+            logits.view(S, K1, -1), drafts,
+            batch.sampling._replace(out_step=ostep), generator,
+            sampled=not all_greedy)
         emitted = torch.minimum(accept + 1, alive)        # 0 when dead
         hit_any = torch.zeros_like(live)
         md = batch.sampling
@@ -947,6 +1043,7 @@ class ModelRunner:
             emitted - 1, min=0)[:, None].long())[:, 0]
         last.copy_(torch.where(emitted > 0, new_last, last))
         pos.add_(emitted)
+        ostep.add_(emitted)
         r, rl = ring_shift_in(ring, rlen, tok_mat, emitted)
         ring.copy_(r)
         rlen.copy_(rl)
@@ -975,19 +1072,34 @@ class ModelRunner:
         return dict(tokens=toks[:K, :n], counts=counts, drafted=drafted[:n],
                     accepted=accepted[:n], kcur=kcur[:n])
 
-    def _handle(self, tokens: torch.Tensor, block=None,
-                spec=None) -> StepHandle:
-        """Start the copy of a step's tokens to the host (a spec block's:
-        the part before its carried state)."""
+    def _handle(self, tokens: torch.Tensor, block=None, spec=None,
+                aux=None) -> StepHandle:
+        """Start the copy of a step's tokens (a spec block's: the part
+        before its carried state) and of its logprobs to the host."""
         out = (tokens[:spec.host_size] if isinstance(spec, SpecLayout)
                else tokens)
+        aux = aux or None
         if self.device.type != "cuda":
-            return StepHandle(tokens, out, None, block, spec)
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
+            return StepHandle(tokens, out, None, block, spec, aux)
+
+        def to_host(x):
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x, non_blocking=True)
+            return host
+
+        host = to_host(out)
+        if aux is not None:
+            aux = {k: tuple(to_host(x) for x in v) for k, v in aux.items()}
         event = torch.cuda.Event()
         event.record()
-        return StepHandle(tokens, host, event, block, spec)
+        return StepHandle(tokens, host, event, block, spec, aux)
+
+    @staticmethod
+    def aux(handle: StepHandle) -> dict:
+        """A collected step's logprobs as numpy arrays, by name (empty
+        when it computed none). Valid once ``collect`` has returned."""
+        return {k: tuple(x.numpy() for x in v)
+                for k, v in (handle.aux or {}).items()}
 
     def collect(self, handle: StepHandle) -> np.ndarray:
         """The sampled token of each batch item: waits for the copy out. A

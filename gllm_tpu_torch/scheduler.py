@@ -560,6 +560,10 @@ class Scheduler:
             # past the host's tokens (a chained step) does
             if it.computed_before + it.num_new_tokens < seq.num_tokens:
                 return self._chain_fail("shape")
+            if seq.sampling_params.uses_penalty:
+                # the penalties' counts are built on the host from the
+                # committed tokens, which lack the device's
+                return self._chain_fail("shape")
             cn0 = it.computed_before + it.num_new_tokens
             if spec and prev.spec_block:
                 # prev's last sub-step may itself emit mult tokens (its
@@ -659,10 +663,10 @@ class Scheduler:
         signature: ``chain_break_reason`` "waiting", and the caller
         re-forms a larger batch, unless the batch is already at the
         decode budget, where a re-form could not seat them either (they
-        wait, as under the legacy rotation). A sequence with stop strings
-        joins no chain (they are checked between steps), as in JAX; the
-        other options that keep one out there (penalties, logit_bias,
-        logprobs) are refused by this port's ``SamplingParams.validate``."""
+        wait, as under the legacy rotation). A sequence joins no chain, as
+        in JAX, with stop strings (they are checked between steps),
+        penalties (their counts are built from committed tokens),
+        logit_bias or logprobs (no block carries them)."""
         in_chain = {seq.seq_id for seq, _ in base}
         ready = [s for s in self.running
                  if s.num_remaining_tokens == 1 and not s.num_in_flight
@@ -670,8 +674,12 @@ class Scheduler:
                  and s.seq_id not in self._aborted_ids]
         if not ready:
             return []
-        joins = list(zip(hole_rows, (s for s in ready
-                                     if not s.sampling_params.stop)))
+        def fusable(s: Sequence) -> bool:
+            sp = s.sampling_params
+            return (not sp.uses_penalty and not sp.logit_bias
+                    and sp.logprobs is None and not sp.stop)
+
+        joins = list(zip(hole_rows, (s for s in ready if fusable(s))))
         if (len(joins) < len(ready)
                 and len(base) < self.sched_cfg.max_decode_seqs):
             self.chain_break_reason = "waiting"
@@ -734,6 +742,10 @@ class Scheduler:
                 prefill_cont.append(
                     (seq, it.computed_before + it.num_new_tokens))
                 continue
+            if seq.sampling_params.uses_penalty:
+                # the counts would lack the promised token: the adjusted
+                # logits would part from the sync loop's
+                return self._reform_fail("shape")
             cn0 = it.computed_before + it.num_new_tokens
             if (cn0 + 1 - seq.prompt_len >= seq.sampling_params.max_tokens
                     or cn0 + 1 >= self.config.max_model_len):
@@ -749,7 +761,12 @@ class Scheduler:
             if (len(base) >= budget or s.num_remaining_tokens != 1
                     or s.num_in_flight or s.seq_id in in_batch
                     or s.seq_id in self._aborted_ids):
+                # a penalized candidate past the budget waits, and does
+                # not refuse the re-form: the sync path could not seat it
+                # either
                 continue
+            if s.sampling_params.uses_penalty:
+                return self._reform_fail("shape")
             base.append((s, s.num_computed_tokens, -1))
         if not base and not (allow_prefill and (
                 prefill_cont or self.waiting

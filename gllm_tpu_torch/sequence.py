@@ -90,6 +90,12 @@ class Sequence:
         self.detok_prefix_offset = max(0, len(prompt_token_ids) - 6)
         self.detok_read_offset = len(prompt_token_ids)
         self.output_text = ""
+        # logprobs, when asked for (filled by the engine):
+        # output_logprobs[i] = (chosen, top_ids, top_logprobs) of output
+        # token i, prompt_logprobs[p] the same of prompt position p (None
+        # at 0, which has no conditional logprob)
+        self.output_logprobs: Optional[list] = None
+        self.prompt_logprobs: Optional[list] = None
 
     # ---- token accounting -------------------------------------------------
 

@@ -4,7 +4,8 @@ the same requests (a token-array completion, a stream, ``n = 2``, a text
 prompt, a chat with ``stop``, a chat with ``tools``) give equal bodies and
 SSE chunk texts, once ids and timestamps are stripped, and equal usage.
 Then the port alone: a disconnect aborts its request with no page leaked,
-unported options get 400 with the message and unported routes 404,
+the sampling options once refused are served in OpenAI's shape (best_of
+above n ranked) and unported routes 404,
 ``/metrics`` parses and its TTFT count follows the finished requests, the
 unhealthy latch turns ``/readyz`` to 503, the profiler writes a trace, the
 CLI's flags build the options JAX's build, and ``python -m
@@ -170,12 +171,27 @@ def test_disconnect_aborts_with_no_page_leaked(servers):
 @pytest.mark.parametrize("field,value", [("logprobs", 2), ("seed", 7),
                                          ("presence_penalty", 0.5)])
 def test_unported_options_get_400(servers, field, value):
+    """The options once refused with 400 are served: 200 in OpenAI's
+    shape (logprobs: tokens, token_logprobs, top_logprobs of 2 and text
+    offsets, one a token)."""
     (port, _), _ = servers
     status, data = request(port, "POST", "/v1/completions", {
-        "prompt": [5, 6], "max_tokens": 3, field: value})
-    assert status == 400
-    msg = json.loads(data)["error"]["message"]
-    assert msg.startswith("not supported by gllm_tpu_torch yet")
+        "prompt": [5, 6], "max_tokens": 3, "ignore_eos": True,
+        field: value})
+    assert status == 200, data
+    body = json.loads(data)
+    assert body["object"] == "text_completion"
+    choice, = body["choices"]
+    assert body["usage"]["completion_tokens"] == 3
+    lp = choice["logprobs"]
+    if field != "logprobs":
+        assert lp is None
+        return
+    assert set(lp) == {"tokens", "token_logprobs", "top_logprobs",
+                       "text_offset"}
+    assert len(lp["tokens"]) == len(lp["token_logprobs"]) == 3
+    assert all(x <= 0 for x in lp["token_logprobs"])
+    assert all(1 <= len(t) <= 2 for t in lp["top_logprobs"])
 
 
 def test_unported_routes_and_router_fields(servers):
@@ -187,9 +203,13 @@ def test_unported_routes_and_router_fields(servers):
     status, data = request(port, "POST", "/v1/completions", {
         "prompt": [5], "max_tokens": 2, "gllm_router": {}})
     assert status == 400 and b"gllm_router" in data
+    # best_of above n: the choices ranked by their mean chosen logprob,
+    # the best one answered
     status, data = request(port, "POST", "/v1/completions", {
-        "prompt": [5], "max_tokens": 2, "best_of": 3})
-    assert status == 400
+        "prompt": [5], "max_tokens": 2, "best_of": 3, "seed": 1})
+    assert status == 200, data
+    choice, = json.loads(data)["choices"]
+    assert choice["logprobs"] is None and choice["finish_reason"]
 
 
 def test_metrics_parse_and_count_the_finished(servers):

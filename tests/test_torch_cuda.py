@@ -2889,3 +2889,179 @@ def test_spec_headroom_covers_the_largest_key(cuda_device):
     assert {k[2] for k in keys} == {8, 16, 32, 64}
     assert llm.runner.graphs.pool_bytes() <= llm.runner.activation_headroom()
     assert _spec_serve(llm)
+
+
+# ---- sampling completeness: the seeded-Gumbel kernel, seeded rows in the
+# graphs, the eager extras step ------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,V,group,stream", [
+    (3, 1000, 0, -1), (33, 4097, 0, -1), (40, 128256, 0, -1),
+    (8 * 5, 1000, 5, 1), (8 * 5, 1, 5, 0)])
+def test_seeded_gumbel_kernel_matches_plain(cuda_device, rows, V, group,
+                                            stream):
+    """csrc/threefry.cu against ops/threefry.py's plain version: the bits
+    equal, uniforms equal, Gumbel noise within one ulp of each of its two
+    logs (chip_smoke.gumbel_ulp_bound), rows of seed -1 left as they
+    were; the wrapper refuses what the kernel does not take."""
+    import chip_smoke
+    from gllm_tpu_torch.ops import threefry as tf
+    from gllm_tpu_torch.ops.cuda.threefry import seeded_noise
+    rng = np.random.default_rng(rows + V)
+    n = rows // group if group else rows
+    seed = torch.as_tensor(rng.integers(0, 2**31 - 1, n).astype(np.int32),
+                           device=cuda_device)
+    seed[::3] = -1
+    step = torch.as_tensor(rng.integers(0, 5000, n).astype(np.int32),
+                           device=cuda_device)
+    outs = {}
+    for mode, dtype in ((tf.BITS, torch.int32), (tf.UNIFORM, torch.float32),
+                        (tf.GUMBEL, torch.float32)):
+        for name, fn in (("kernel", seeded_noise),
+                         ("plain", tf.seeded_noise_)):
+            out = torch.full((rows, V), 5, dtype=dtype, device=cuda_device)
+            outs[name, mode] = fn(out, seed, step, group, stream, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(outs["kernel", tf.BITS], outs["plain", tf.BITS])
+    assert torch.equal(outs["kernel", tf.UNIFORM],
+                       outs["plain", tf.UNIFORM])
+    idx = torch.arange(rows, device=cuda_device)
+    live = seed[idx // group if group else idx] >= 0
+    g_k, g_p = outs["kernel", tf.GUMBEL], outs["plain", tf.GUMBEL]
+    assert (g_k[~live] == 5).all()
+    bits = outs["plain", tf.BITS][live].long() & 0xFFFFFFFF
+    err = (g_k[live].double() - g_p[live].double()).abs()
+    assert (err <= chip_smoke.gumbel_ulp_bound(bits)).all()
+    with pytest.raises(ValueError, match="writes"):
+        seeded_noise(torch.zeros((rows, V), dtype=torch.float16,
+                                 device=cuda_device), seed, step, group,
+                     stream)
+    with pytest.raises(ValueError, match="int32"):
+        seeded_noise(g_k, seed.long(), step, group, stream)
+
+
+def _seeded_serve(llm):
+    """``_spec_workload``'s prompts as seeded sampled rows (temperature
+    0.8, top-k 20), and one greedy row: their streams."""
+    import gllm_tpu_torch as gt
+    prompts, sps = _spec_workload()
+    sps = [gt.SamplingParams(temperature=0.0 if i == 0 else 0.8, top_k=20,
+                             seed=11 + i, max_tokens=sp.max_tokens,
+                             ignore_eos=True) for i, sp in enumerate(sps)]
+    return [o.output_token_ids for o in llm.generate(
+        prompt_token_ids=prompts, sampling_params=sps)]
+
+
+SEEDED_DISPATCH = {
+    "step": (dict(pipelined_loop=True), "step_async_chained"),
+    "block": (BLOCK_FLAGS["odf"], "step_multi"),
+    "spec_block": (SPEC_FULL, "step_spec_multi")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(SEEDED_DISPATCH))
+def test_seeded_rows_ride_graphs_with_no_host_sync(cuda_device, kind):
+    """Seeded sampled rows in chained single steps, blocks and spec
+    blocks: once the workload's graphs exist (a first run), a dispatch
+    raises nothing under ``set_sync_debug_mode("error")`` (the seeds and
+    output indices are read on the card), the streams repeat, the
+    seeded-Gumbel kernel ran in the replays, and no graph was captured
+    in the second run."""
+    from gllm_tpu_torch.ops.cuda.threefry import seeded_noise
+    flags, method = SEEDED_DISPATCH[kind]
+    llm = _tiny_engine(cuda_device, dtype="bfloat16", **flags)
+    first = _seeded_serve(llm)
+    keys = set(llm.runner.graphs.keys)
+    dispatch, calls = getattr(llm.runner, method), []
+
+    def strict(batch, prev=None):
+        calls.append(batch)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(batch, prev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    setattr(llm.runner, method, strict)
+    launches = seeded_noise.launches["seeded_gumbel"]
+    assert _seeded_serve(llm) == first
+    assert calls
+    assert seeded_noise.launches["seeded_gumbel"] > launches
+    assert set(llm.runner.graphs.keys) == keys
+    _drained(llm)
+
+
+def _extras_workload():
+    """Requests with every sampling extra: penalties, logit_bias,
+    logprobs and prompt logprobs, seeded sampled rows."""
+    import gllm_tpu_torch as gt
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(1, 1000, int(n)).tolist()
+               for n in rng.integers(5, 60, 6)]
+    kinds = [dict(temperature=0.0, presence_penalty=0.5,
+                  frequency_penalty=0.3, repetition_penalty=1.2),
+             dict(temperature=0.0, logit_bias={17: 8.0, 33: -100.0}),
+             dict(temperature=0.0, logprobs=3, prompt_logprobs=2),
+             dict(temperature=0.8, top_p=0.9, seed=5, logprobs=2),
+             dict(temperature=0.0),
+             dict(temperature=0.7, seed=9, repetition_penalty=1.1)]
+    return prompts, [gt.SamplingParams(max_tokens=16, ignore_eos=True, **k)
+                     for k in kinds]
+
+
+@pytest.mark.cuda
+def test_eager_extras_step_on_card_matches_cpu(cuda_device):
+    """The same float32 weights on the card and on the CPU, the extras
+    workload: equal streams, logprobs and prompt logprobs within 1e-4,
+    and eager extras steps counted."""
+    card = _tiny_engine(cuda_device)
+    cpu_params = {"layers": {k: v.cpu() for k, v in
+                             card.runner.params["layers"].items()},
+                  **{k: v.cpu() for k, v in card.runner.params.items()
+                     if k != "layers"}}
+    cpu = _tiny_engine("cpu", params=cpu_params)
+    prompts, sps = _extras_workload()
+    got = card.generate(prompt_token_ids=prompts, sampling_params=sps)
+    want = cpu.generate(prompt_token_ids=prompts, sampling_params=sps)
+    for g, w in zip(got, want):
+        assert g.output_token_ids == w.output_token_ids
+        for a, b in ((g.logprobs, w.logprobs),
+                     (g.prompt_logprobs, w.prompt_logprobs)):
+            assert (a is None) == (b is None)
+            for x, y in zip(a or [], b or []):
+                assert (x is None) == (y is None)
+                if x is not None:
+                    assert x[1] == y[1]
+                    np.testing.assert_allclose([x[0], *x[2]], [y[0], *y[2]],
+                                               rtol=0, atol=1e-4)
+    assert card.step_counts["extras"] > 0
+    _drained(card)
+
+
+@pytest.mark.cuda
+def test_prompt_logprobs_of_a_2048_chunk_fit_the_headroom(cuda_device):
+    """A 2048-token prompt chunk with prompt logprobs at Llama-3's
+    vocabulary (V 128256): its [T, V] float32 logits (1 GB) are computed
+    in row slices, so the step's peak memory beyond the resident pools
+    stays within the activation headroom."""
+    import gllm_tpu_torch as gt
+    mc = gt.ModelConfig(architecture="LlamaForCausalLM", vocab_size=128256,
+                        hidden_size=256, num_layers=2, num_heads=8,
+                        num_kv_heads=2, head_dim=32, intermediate_size=512,
+                        max_position=4096)
+    llm = gt.LLM(model_cfg=mc, device=cuda_device, config=gt.EngineConfig(
+        dtype="bfloat16", load_format="dummy", max_model_len=4096,
+        scheduler=gt.SchedulerConfig(max_prefill_tokens=2048),
+        cache=gt.CacheConfig(page_size=16, num_pages=300)))
+    prompt = np.random.default_rng(2).integers(1, 128256, 2048).tolist()
+    sp = gt.SamplingParams(temperature=0.0, max_tokens=2, ignore_eos=True,
+                           prompt_logprobs=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    out, = llm.generate(prompt_token_ids=[prompt], sampling_params=sp)
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert peak <= llm.runner.activation_headroom(), peak
+    assert len(out.prompt_logprobs) == 2048
+    assert out.prompt_logprobs[0] is None
+    assert all(e[0] <= 0 for e in out.prompt_logprobs[1:])
+    _drained(llm)

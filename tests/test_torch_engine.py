@@ -249,11 +249,11 @@ def test_step_kind_follows_the_kernel_dispatch():
     llm.generate(prompt_token_ids=[[5], [7]],
                  sampling_params=gt.SamplingParams(max_tokens=3,
                                                    ignore_eos=True))
-    assert llm.step_counts == {"mixed": 0, "decode": 3}
+    assert llm.step_counts == {"mixed": 0, "decode": 3, "extras": 0}
     llm.generate(prompt_token_ids=[[5, 6]],
                  sampling_params=gt.SamplingParams(max_tokens=2,
                                                    ignore_eos=True))
-    assert llm.step_counts == {"mixed": 1, "decode": 4}
+    assert llm.step_counts == {"mixed": 1, "decode": 4, "extras": 0}
 
 
 def test_no_device_means_the_card(monkeypatch):
@@ -332,13 +332,29 @@ def test_validate_takes_int8_kv_and_the_unified_sync_step():
     assert cfg.pipelined_loop
 
 
+# each option in range, then out of it
+_OPTION_RANGES = {"seed": -1, "repetition_penalty": 0.0,
+                  "presence_penalty": 2.5, "logit_bias": {3: 101.0},
+                  "logprobs": 21, "prompt_logprobs": 21,
+                  "frequency_penalty": -2.5}
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(seed=1), dict(repetition_penalty=1.2), dict(presence_penalty=0.5),
     dict(logit_bias={3: 1.0}), dict(logprobs=2), dict(prompt_logprobs=1),
     dict(frequency_penalty=0.5)])
 def test_unported_sampling_params_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        gt.SamplingParams(**kwargs).validate()
+    """The options once refused here validate now, as JAX's do; a value
+    out of range raises JAX's ValueError with JAX's message."""
+    from gllm_tpu.sampling_params import SamplingParams as JSP
+    gt.SamplingParams(**kwargs).validate()
+    (name, _), = kwargs.items()
+    bad = {name: _OPTION_RANGES[name]}
+    with pytest.raises(ValueError) as want:
+        JSP(**bad).validate()
+    with pytest.raises(ValueError) as got:
+        gt.SamplingParams(**bad).validate()
+    assert str(got.value) == str(want.value)
 
 
 def test_unported_model_families_raise():
