@@ -61,8 +61,15 @@ non-zero exit code and no result line:
              same weights, after DeepSeek is freed. Every engine replays
              its pure-decode steps as CUDA graphs (enforce_eager off, the
              default): llm.runner.warmup() captures JAX's bucket combos
-             first (graphs, seconds and pool MiB printed), and each decode
-             step must be one replay. The bf16, unified, DeepSeek (both
+             and its mixed pass at the sequence buckets the workload
+             meets (SERVE_BUCKETS) first (graphs, capture seconds and the
+             pool's growth split into decode and mixed keys, KV pages
+             beside PAGES_BEFORE), and each decode step must be one
+             replay. Every mixed step of a dense or MLA engine with graphs
+             replays its mixed key too (captured at warmup or at first
+             sight: the legacy step's token bucket follows the batch),
+             a hybrid model's runs eagerly, and each engine prints its
+             mixed steps replayed against run eagerly, by reason. The bf16, unified, DeepSeek (both
              steps) and Qwen3-Next configurations also serve an eager twin
              (enforce_eager) on the same weights, runs in the order eager,
              graph, graph, eager, both medians and their ratio printed, and
@@ -142,8 +149,9 @@ non-zero exit code and no result line:
              graph engine and absorb twin under staggered arrivals (2 at
              start, 2 more each 16 output tokens): device time by kernel, busy
              share, kernels per step, host launch calls per dispatched
-             decode entry, the dispatches' share of the wall by kind and
-             the share spent waiting in collect
+             decode entry and per mixed dispatch, the dispatches' share
+             of the wall by kind (the absorb window's mixed share beside
+             MIXED_SHARE_BEFORE) and the share spent waiting in collect
 5. reference depth cut to 2 layers (4 for the hybrid period), float32:
              the port on the card
              (kernels, decode steps as CUDA graphs) against the port on the
@@ -160,7 +168,13 @@ non-zero exit code and no result line:
              (the pipelined loop), the float32 and DeepSeek cases a multi
              engine (blocks under on-device finish) and a slot engine
              (the same with persistent slots), whose tokens must be the
-             same
+             same; then a captured mixed step against the same step run
+             eagerly on the same batch (mixed_replays): bf16 models at
+             depth 2, Llama-3.2-1B's widths over a bf16, an int8 and an
+             fp8 cache and the unified step, DeepSeek at the small latent
+             geometry over a bf16 and an fp8 latent and the unified step,
+             two mixed batches each: the same tokens, the largest logit
+             difference to a replay of the same forward printed
 6. spec      prompt-lookup speculative decoding at full width, bf16:
              Llama-3.2-1B and DeepSeek-V2-Lite (its depth cut to 8
              layers, SPEC_DEEPSEEK_LAYERS) each under bench.py's full
@@ -175,7 +189,10 @@ non-zero exit code and no result line:
              K1um only, no plain version; spec blocks replayed from
              warmup's graphs, none captured while running); one
              host-driven run (SPEC_HOST: the sync loop's verify steps, K1
-             and K2 / K1m and K2m) of the draft-friendly workload; then
+             and K2 / K1m and K2m) of the draft-friendly workload, twice
+             (the first captures the verify keys its token buckets meet,
+             the second replays them: verify steps replayed and tok/s
+             beside HOST_DRIVEN_BEFORE); then
              float32 greedy streams of the fused and the host-driven
              engines against the plain sync engine's, Llama-3.2-1B at
              full width with a head that makes its stream loop and leave
@@ -241,6 +258,7 @@ It imports nothing of jax or the JAX package.
 
 import collections
 import dataclasses
+import faulthandler
 import gc
 import json
 import re
@@ -1879,12 +1897,25 @@ ABSORB = {k: v for k, v in SLOT.items() if k != "chain_under_prefill"}
 STAGGERED = ("bf16", "unified")
 STAGGER_FIRST, STAGGER_EVERY, STAGGER_MORE = 4, 64, 2
 PROFILE_ABSORB = ("unified",)
+# the mixed entries' share of the staggered absorb window's wall while
+# mixed steps ran eagerly (H100 80GB HBM3, 700.00 W)
+MIXED_SHARE_BEFORE = "20.6-36.6%"
 # a twin's KV pool: the workload's 16 requests hold at most 899 pages of
 # 16 tokens at once (a block's look-ahead adds one a row), so no twin
 # preempts (each asserts it; the primary engine holds the memory the pool
 # is sized from); a hybrid twin also holds 16 GDN slots (the workload's),
 # not 256
 TWIN_PAGES = 2048
+# the sequence buckets each serve engine warms (decode combos, the mixed
+# pass): the 16 requests never batch more rows
+SERVE_BUCKETS = (8, 16)
+# each configuration's primary KV pages while mixed steps ran eagerly,
+# before the headroom reckoned their keys (H100 80GB HBM3, 700.00 W)
+PAGES_BEFORE = {"bf16": 134384, "int8": 267763, "unified": 134404,
+                "unified_int8": 267763, "fp8": 268809, "unified_fp8": 268809,
+                "deepseek": 84166, "deepseek_unified": 83846,
+                "deepseek_fp8": 167684, "deepseek_unified_fp8": 167684,
+                "qwen3_next": 137551, "qwen3_next_fp8": 275060}
 # segments with stranded space that each memory line names (4 with
 # --memory-history, which also records where their blocks came from)
 HOLDERS = 0
@@ -1943,6 +1974,67 @@ def explain_difference(eager, prompts, got, want, where):
             f"{logits.abs().max().item()})")
 
 
+def graph_split(g):
+    """A DecodeGraphs' keys, capture seconds and pool growth, split into
+    the decode side (single steps, blocks, spec blocks) and the mixed side
+    (mixed and verify steps)."""
+    sides = {"decode": ("decode", "block", "spec"),
+             "mixed": ("mixed", "verify")}
+    return {side: dict(
+        keys=sum(g.by_kind[k]["captured"] for k in kinds),
+        capture_s=round(sum(g.by_kind[k]["capture_s"] for k in kinds), 3),
+        pool_mib=round(sum(g.by_kind[k]["pool_bytes"] for k in kinds)
+                       / 2**20, 1))
+        for side, kinds in sides.items()}
+
+
+def graph_counts(e):
+    """An engine's step counts, eager mixed steps by reason and its
+    graphs' replays, captures and capture seconds by kind: what
+    ``graph_delta`` takes a run's deltas from."""
+    from gllm_tpu_torch.runner.graphs import KINDS
+    g = e.runner.graphs
+    by = {k: g.by_kind[k] if g else dict(replays=0, captured=0,
+                                         capture_s=0.0) for k in KINDS}
+    return dict(steps=dict(e.step_counts), eager=dict(e.runner.eager_mixed),
+                replays={k: v["replays"] for k, v in by.items()},
+                captured={k: v["captured"] for k, v in by.items()},
+                capture_s={k: v["capture_s"] for k, v in by.items()})
+
+
+def graph_delta(e, before):
+    """``graph_counts(e)`` since ``before``."""
+    now = graph_counts(e)
+    d = {part: {k: now[part][k] - before[part][k] for k in now[part]}
+         for part in now}
+    d["captured_total"] = sum(d["captured"].values())
+    return d
+
+
+def mixed_line(name, e, d):
+    """The mixed steps of a run (``graph_delta`` ``d``): replayed (mixed
+    and verify keys) against run eagerly, by reason. Every mixed step of
+    an engine with graphs replays a graph but a hybrid model's and one
+    whose batch carries extras; an ``enforce_eager`` engine's are all
+    eager."""
+    mixed = d["steps"]["mixed"]
+    replayed = d["replays"]["mixed"] + d["replays"]["verify"]
+    eager = d["eager"]
+    assert replayed + sum(eager.values()) == mixed, \
+        f"[{name}] {mixed} mixed steps, {replayed} replayed, eager {eager}"
+    if e.runner.graphs is None:
+        assert eager["enforce_eager"] == mixed
+    elif e.runner.hybrid:
+        assert eager["hybrid"] + eager["extras"] == mixed
+    else:
+        assert eager["hybrid"] == eager["enforce_eager"] == 0, \
+            f"[{name}] eager mixed steps {eager}"
+    return (f"mixed steps {mixed}: {replayed} replayed ({d['replays']['mixed']}"
+            f" mixed, {d['replays']['verify']} verify), "
+            f"{sum(eager.values())} eager ({eager}); mixed keys captured at "
+            f"first sight {d['captured']['mixed'] + d['captured']['verify']}")
+
+
 def serve(name, model, kw, runs, by_kind, profiled, params=None):
     """Serve one configuration (with ``params``, the weights of an earlier
     engine of the model: only a new KV pool is built): warm the graphs,
@@ -1984,13 +2076,18 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     llm.generate(prompt_token_ids=[[1, 2, 3, 4]], sampling_params=warm)
     graphs = llm.runner.graphs
     t0 = time.monotonic()
-    llm.runner.warmup()
+    llm.runner.warmup(decode_buckets=SERVE_BUCKETS)
     warm_s = time.monotonic() - t0
     pool_mib = graphs.pool_bytes() / 2**20
-    log(f"[serve {name}] warmup: {llm.runner.num_shape_signatures} decode "
-        f"graphs captured in {warm_s:.2f} s ({graphs.capture_seconds:.2f} s "
-        f"in capture, warm-up runs included); graph pool {pool_mib:.1f} MiB;"
-        f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    warmed = graph_split(graphs)
+    log(f"[serve {name}] warmup at sequence buckets {SERVE_BUCKETS}: "
+        f"{llm.runner.num_shape_signatures} graphs captured in {warm_s:.2f} "
+        f"s ({graphs.capture_seconds:.2f} s in capture, warm-up runs "
+        f"included): {warmed}; graph pool {pool_mib:.1f} MiB; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; KV "
+        f"pages {llm.runner.num_pages} (before mixed-step capture: "
+        f"{PAGES_BEFORE.get(name)}), the mixed keys reckoned at "
+        f"{llm.runner.mixed_pool_bytes() / 2**20:.1f} MiB")
     eager = None
     if name in TWINS:
         extra = {"max_num_seqs": 16} if llm.runner.hybrid else {}
@@ -2014,7 +2111,7 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
                        **OVERLAP, **kw, **extra))
         over.generate(prompt_token_ids=[[1, 2, 3, 4]], sampling_params=warm)
         t0 = time.monotonic()
-        over.runner.warmup()
+        over.runner.warmup(decode_buckets=SERVE_BUCKETS)
         log(f"[serve {name}] overlap twin on the same weights ({OVERLAP}): "
             f"{TWIN_PAGES} KV pages, {over.runner.num_shape_signatures} "
             f"graphs warmed in {time.monotonic() - t0:.2f} s, graph pool "
@@ -2057,8 +2154,7 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
                if e is not None]
     steps0 = [dict(e.step_counts) for e in engines]
     blocks0 = [dict(e.runner.block_counts) for e in engines]
-    replays0 = [e.runner.graphs.replays if e.runner.graphs else 0
-                for e in engines]
+    graphs0 = [graph_counts(e) for e in engines]
     sigs0 = llm.runner.num_shape_signatures
     if over:
         over_dispatches0 = over.dispatches.copy()
@@ -2101,7 +2197,8 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     steps["substeps"] = sum(e.runner.block_counts["substeps"] - b0["substeps"]
                             for e, b0 in zip(engines, blocks0))
     graph_decode = llm.step_counts["decode"] - steps0[0]["decode"]
-    replays = graphs.replays - replays0[0]
+    primary = graph_delta(llm, graphs0[0])
+    replays = primary["replays"]["decode"]
     first_sight = llm.runner.num_shape_signatures - sigs0
     launched = {k for k, n in counts.items() if k != "plain_calls" and n}
     log(f"[serve {name}] graph median {median(rates['graph']):.1f} output "
@@ -2110,17 +2207,21 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
                     f"x)" if eager else "")
         + f"; steps {steps}; graph replays {replays} of {graph_decode} "
         f"decode steps, {first_sight} graphs captured at first sight in "
-        f"the runs; launches {counts}; max_memory_allocated "
+        f"the runs ({primary['captured']}, "
+        f"{sum(primary['capture_s'].values()):.2f} s); launches {counts}; "
+        f"max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     # every engine with graphs: one replay for each decode dispatch (a
     # single step or a block); a block's executed sub-steps as many as its
     # collect counted
-    for e, s0, b0, r0 in zip(engines, steps0, blocks0, replays0):
+    for e, s0, b0, g0 in zip(engines, steps0, blocks0, graphs0):
+        d = graph_delta(e, g0)
+        log(f"[serve {name}] {modes[id(e)]}: {mixed_line(name, e, d)}")
         if e.runner.graphs is None:
             continue
         dispatched = (e.step_counts["decode"] - s0["decode"]
                       + e.runner.block_counts["block"] - b0["block"])
-        got = e.runner.graphs.replays - r0
+        got = d["replays"]["decode"] + d["replays"]["block"]
         assert got == dispatched, \
             f"[serve {name}] {modes[id(e)]}: {dispatched} decode " \
             f"dispatches but {got} replays"
@@ -2205,6 +2306,11 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
             llm, name + " graph, staggered", staggered=True)
         prof["absorb"] = profile_window(absorb, name + " absorb, staggered",
                                         staggered=True)
+        log(f"[profile {name} absorb, staggered] mixed entries "
+            f"{100 * prof['absorb']['share']['mixed']:.1f}% of the wall "
+            f"(before mixed-step capture: {MIXED_SHARE_BEFORE}), "
+            f"{prof['absorb']['launches_per_mixed']:.2f} host launch calls "
+            f"a mixed dispatch")
     out = dict(counts=counts, rates=rates["graph"],
                eager_rates=rates["eager"], overlap_rates=rates["overlap"],
                multi_rates=rates["multi"], slot_rates=rates["slot"],
@@ -2215,6 +2321,7 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                graphs=llm.runner.num_shape_signatures, warm_s=warm_s,
                capture_s=graphs.capture_seconds, pool_mib=pool_mib,
+               warmed=warmed, mixed=graph_delta(llm, graphs0[0]),
                profile=prof)
     weights = llm.runner.params
     del llm, eager, over, multi, slot, absorb, engines, graphs, order, e
@@ -2862,14 +2969,21 @@ def profile_window(llm, name, staggered=False):
                              ("block", "gllm_step_block"),
                              ("mixed", "gllm_step_mixed"),
                              ("collect", "gllm_collect"))}
-    decode_spans = sorted(spans["decode"] + spans["block"])
-    starts = [a for a, _ in decode_spans]
-    calls = {}
-    for e in events:
-        if e.name in LAUNCH_CALLS:
-            i = bisect_right(starts, e.time_range.start) - 1
-            if i >= 0 and e.time_range.start <= decode_spans[i][1]:
-                calls[e.name] = calls.get(e.name, 0) + 1
+    def launch_calls(inside):
+        """Host calls that launch work inside the ``inside`` spans."""
+        inside = sorted(inside)
+        starts = [a for a, _ in inside]
+        calls = {}
+        for e in events:
+            if e.name in LAUNCH_CALLS:
+                i = bisect_right(starts, e.time_range.start) - 1
+                if i >= 0 and e.time_range.start <= inside[i][1]:
+                    calls[e.name] = calls.get(e.name, 0) + 1
+        return calls
+    decode_spans = spans["decode"] + spans["block"]
+    calls = launch_calls(decode_spans)
+    mixed_calls = launch_calls(spans["mixed"])
+    n_mixed = max(1, len(spans["mixed"]))
     n_dec = max(1, len(decode_spans))
     n_sub = max(1, steps["decode"] + steps["substeps"])
     share = {k: sum(b - a for a, b in v) / wall_us for k, v in spans.items()}
@@ -2885,7 +2999,9 @@ def profile_window(llm, name, staggered=False):
         f"dispatched decode entry, {per_sub:.2f} per decoded sub-step "
         f"({calls}); dispatches' share of the wall: decode "
         f"{100 * share['decode']:.1f}%, blocks {100 * share['block']:.1f}%,"
-        f" mixed {100 * share['mixed']:.1f}%; "
+        f" mixed {100 * share['mixed']:.1f}% ({len(spans['mixed'])} mixed "
+        f"dispatches, {sum(mixed_calls.values()) / n_mixed:.2f} host launch "
+        f"calls each: {mixed_calls}); "
         f"waiting in collect {100 * share['collect']:.1f}% of the wall; "
         f"host self time {host_us / 1e3:.1f} ms "
         f"({100 * host_us / wall_us:.1f}% of wall), by operator:")
@@ -2896,6 +3012,7 @@ def profile_window(llm, name, staggered=False):
                 busy_share=busy / wall_us, kernels_per_step=kernels_per_step,
                 launches_per_decode_step=launches,
                 launches_per_substep=per_sub, share=share,
+                launches_per_mixed=sum(mixed_calls.values()) / n_mixed,
                 host_share=host_us / wall_us, steps=steps,
                 mixed_ahead=mixed_ahead)
 
@@ -3029,8 +3146,9 @@ def phase_reference():
                       + (f" ({sum(e.blocks.values())} blocks)"
                          if kind in ("multi", "slot") else "")
                       for kind, t, e in zip(kinds, toks[2:], engines[2:]))
-            + f"; {graphed.graphs.replays} decode graph replays "
-            f"({graphed.num_shape_signatures} graphs); card launches "
+            + f"; {graphed.graphs.by_kind['decode']['replays']} decode and "
+            f"{graphed.graphs.by_kind['mixed']['replays']} mixed graph "
+            f"replays ({graphed.num_shape_signatures} graphs); card launches "
             f"{ {k: n for k, n in counts.items() if n} }")
         assert err <= 1e-3 * max(scale, 1.0), \
             f"[reference] {label}: card and CPU logits disagree"
@@ -3042,11 +3160,106 @@ def phase_reference():
             if kind == "multi" or (kind == "slot" and not e.runner.hybrid):
                 assert sum(e.blocks.values()) > 0, \
                     f"[reference] {label}: the {kind} engine formed no block"
-        assert graphed.graphs.replays == graphed.step_counts["decode"] > 0
+        by = graphed.graphs.by_kind
+        assert by["decode"]["replays"] == graphed.step_counts["decode"] > 0
+        # the first step ran by hand; a hybrid model's mixed steps eager
+        assert (by["mixed"]["replays"] + graphed.eager_mixed["hybrid"]
+                == graphed.step_counts["mixed"])
+        assert graphed.eager_mixed["hybrid"] == (
+            graphed.step_counts["mixed"] if graphed.hybrid else 0)
         assert all(len(t) == 8 for t in toks[0])
         launched = {k for k, n in counts.items() if n and k != "plain_calls"}
         assert launched == kernels, \
             f"[reference] {label}: the card launched {launched}"
+        # the engines' graphs hold the split-KV scratch at its size
+        engines = llm = graphed = e = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    mixed_replays(llama, ds)
+
+
+def mixed_replays(llama, ds):
+    """A captured mixed step replayed against the same step run eagerly
+    on the same batch: bf16 models at depth 2 (``llama``: Llama-3.2-1B's
+    widths; ``ds``: DeepSeek at the MLA kernels' small latent geometry)
+    over a bf16, an int8 and an fp8 cache and the unified step, and an MLA
+    latent in bf16 and fp8 and the unified step. Two mixed batches an
+    engine (three prefill chunks, then their decode rows beside a fourth
+    prompt's chunk), each run three ways on the card: the eager forward
+    (its logits' argmax), the step through its graph (captured at first
+    sight, then replayed), and a replay of the same forward captured on
+    the batch's staged views (its logits). The tokens must agree; the
+    largest logit difference is printed. Writing a batch's KV again
+    writes the same values (a one-byte cache's running scales are
+    already past them), so the three runs see the same cache."""
+    from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, \
+        SamplingParams, SchedulerConfig
+    from gllm_tpu_torch.models import deepseek, dense
+    sp = SamplingParams(temperature=0.0, max_tokens=4, ignore_eos=True)
+    for family, cfg, init, cases in (
+            ("llama", llama, dense.init_params,
+             (("auto", False), ("int8", False), ("fp8", False),
+              ("auto", True))),
+            ("deepseek", ds, deepseek.init_params,
+             (("auto", False), ("fp8", False), ("auto", True)))):
+        params = init(cfg, SEED, torch.bfloat16, "cuda")
+        for kv_dtype, unified in cases:
+            label = (f"{family} bf16, {kv_dtype} cache"
+                     + (", unified" if unified else ""))
+            llm = LLM(model_cfg=cfg, params=params, device="cuda",
+                      config=EngineConfig(
+                          dtype="bfloat16", seed=SEED, max_model_len=512,
+                          unified_step=unified,
+                          scheduler=SchedulerConfig(max_prefill_tokens=256),
+                          cache=CacheConfig(num_pages=256,
+                                            kv_cache_dtype=kv_dtype)))
+            runner = llm.runner
+            rng = np.random.default_rng(SEED + 2)
+            seqs = [llm._allocate_seq(
+                rng.integers(1, cfg.vocab_size, n).tolist(), sp)
+                for n in (40, 75, 130, 60)]
+            for seq in seqs[:3]:
+                llm.add_seq(seq)
+            worst = 0.0
+            for step in range(2):
+                if step == 1:
+                    llm.add_seq(seqs[3])
+                batch = llm.scheduler.schedule_once()
+                n = batch.num_seqs
+                assert any(it.num_new_tokens > 1 for it in batch.items)
+                dev_batch, max_q = runner.prepare(batch)
+                eager = runner.forward_logits(dev_batch, max_q)[:n].float()
+                replayed = runner.collect(runner.step_async(batch))
+                host, _, sig_q = runner._host_batch(batch)
+                staged = runner.staging.upload(host)
+                probe = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(probe, pool=runner.graphs.pool):
+                    logits = runner._forward(staged, sig_q)
+                probe.replay()
+                torch.cuda.synchronize()
+                logits = logits[:n].float()
+                err = (eager - logits).abs().max().item()
+                worst = max(worst, err)
+                want = eager.argmax(-1).tolist()
+                assert replayed.tolist() == want == \
+                    logits.argmax(-1).tolist(), \
+                    f"[reference] {label}, mixed step {step}: the replayed " \
+                    f"step's tokens are not the eager step's"
+                llm.scheduler.process_output(batch, want, llm.eos_token_ids)
+            by = runner.graphs.by_kind["mixed"]
+            log(f"[reference] mixed replay, {label}: 2 mixed steps "
+                f"({by['replays']} replays of {by['captured']} mixed keys) "
+                f"give the eager step's tokens; largest logit difference "
+                f"to a replay of the same forward {worst}")
+            assert by["replays"] == 2 and runner.eager_mixed == dict(
+                extras=0, hybrid=0, enforce_eager=0)
+            # the engine's graphs (and the split-KV scratch they hold at
+            # its address) go before the next engine sizes its own
+            del llm, runner, probe, logits, staged, dev_batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+    assert split_counters_clear(), "a decode kernel left a split counter set"
 
 
 # ---- 6. spec -------------------------------------------------------------
@@ -3058,6 +3271,9 @@ SPEC_FULL = dict(overlap_scheduling=True, pipelined_loop=True,
                  unified_step=True, overlap_depth=4, multi_step_decode=32,
                  ondevice_finish=True, decode_slot_batching=True,
                  spec_decode="ngram", spec_k=4, spec_ngram=2, spec_fused=True)
+# the host-driven runs' tok/s on the draft-friendly workload while their
+# verify steps ran eagerly (H100 80GB HBM3, 700.00 W)
+HOST_DRIVEN_BEFORE = {"llama": 848.4, "deepseek": 970.5}
 # the host-driven run: the sync loop, whose decode rows carry drafts that
 # an eager verify step checks (the legacy kernels: K1 / K1m)
 SPEC_HOST = dict(spec_decode="ngram", spec_k=4, spec_ngram=2)
@@ -3186,6 +3402,9 @@ def spec_family(name, model, by_kind):
                                        num_pages=TWIN_PAGES), **SPEC_HOST))
     host.generate(prompt_token_ids=[[1, 2, 3, 4]], sampling_params=warm)
     host.runner.warmup(decode_buckets=SPEC_BUCKETS)
+    # the mixed pass (the warm-up request's prefill is a key of its own)
+    assert host.runner.graphs.by_kind["mixed"]["captured"] >= \
+        2 * len(SPEC_BUCKETS)
     vocab = spec.model_cfg.vocab_size
     counts = collections.Counter()
     host_counts = collections.Counter()
@@ -3199,7 +3418,11 @@ def spec_family(name, model, by_kind):
                         (absorb, "absorb"), (spec, "spec")):
             reset_counters()
             replays0 = g.replays
+            before = graph_counts(e)
             rate, streams, c = spec_run(e, prompts, max_tokens)
+            d = graph_delta(e, before)
+            assert sum(d["eager"].values()) == 0, \
+                f"[spec {name}] {mode}: eager mixed steps {d['eager']}"
             launched = read_counters()
             rates[mode].append(rate)
             runs.setdefault(mode, []).append((streams, c))
@@ -3218,9 +3441,9 @@ def spec_family(name, model, by_kind):
                 log(f"[spec {name}] {label} absorb run: {rate:.1f} tok/s; "
                     f"dispatches {c['dispatches']}, sub-steps "
                     f"{c['substeps']}, blocks by K {c['blocks']}")
-        new = {k for k in g.keys - warmed if k[0] == "spec"}
-        assert not new, f"[spec {name}] spec blocks captured while " \
-            f"serving: {new}"
+        new = {k for k in g.keys - warmed if k[0] in ("spec", "mixed")}
+        assert not new, f"[spec {name}] spec blocks or mixed steps " \
+            f"captured while serving: {new}"
         ratio = median(rates["spec"]) / median(rates["absorb"])
         c = runs["spec"][-1][1]
         same = [runs["spec"][-1][0] == runs["absorb"][-1][0],
@@ -3238,20 +3461,42 @@ def spec_family(name, model, by_kind):
         if label == "draft-friendly":
             assert sum(c["blocks"].values()) > 0 and c["proposed"] > 0, \
                 f"[spec {name}] no spec block or no draft: {c}"
-            reset_counters()
-            rate, streams, hc = spec_run(host, prompts, max_tokens)
-            launched = read_counters()
-            host_counts.update(launched)
-            bad = {k for k, n in launched.items()
-                   if n and k != "plain_calls"} - set(by_kind["host"])
-            assert not bad and launched["plain_calls"] == 0, \
-                f"[spec {name}] the host-driven run launched {launched}"
-            assert hc["verify_steps"] > 0, \
-                f"[spec {name}] the host-driven run verified nothing"
-            log(f"[spec {name}] {label} host-driven run (sync loop): "
-                f"{rate:.1f} tok/s; {hc}; streams = spec "
-                f"{streams == runs['spec'][-1][0]}")
-            out["host"] = dict(rate=rate, **hc)
+            # twice: the first run captures the verify keys its token
+            # buckets meet (the legacy step's mixed keys follow the token
+            # bucket), the second replays them
+            hg = host.runner.graphs
+            host_rates = []
+            for rep in range(2):
+                reset_counters()
+                before = graph_counts(host)
+                rate, streams, hc = spec_run(host, prompts, max_tokens)
+                launched = read_counters()
+                host_counts.update(launched)
+                d = graph_delta(host, before)
+                host_rates.append(rate)
+                bad = {k for k, n in launched.items()
+                       if n and k != "plain_calls"} - set(by_kind["host"])
+                assert not bad and launched["plain_calls"] == 0, \
+                    f"[spec {name}] the host-driven run launched {launched}"
+                assert hc["verify_steps"] > 0, \
+                    f"[spec {name}] the host-driven run verified nothing"
+                assert d["replays"]["verify"] == hc["verify_steps"], \
+                    f"[spec {name}] {hc['verify_steps']} verify steps but " \
+                    f"{d['replays']['verify']} verify replays"
+                assert sum(d["eager"].values()) == 0, \
+                    f"[spec {name}] eager mixed steps {d['eager']}"
+                log(f"[spec {name}] {label} host-driven run {rep + 1} (sync "
+                    f"loop): {rate:.1f} tok/s (before mixed-step capture: "
+                    f"{HOST_DRIVEN_BEFORE[name]}); verify steps replayed "
+                    f"{d['replays']['verify']} of {hc['verify_steps']}, "
+                    f"other mixed steps replayed {d['replays']['mixed']}, "
+                    f"eager {sum(d['eager'].values())}; keys captured "
+                    f"{d['captured']} in "
+                    f"{sum(d['capture_s'].values()):.2f} s; {hc}; streams "
+                    f"= spec {streams == runs['spec'][-1][0]}")
+            assert not graph_delta(host, before)["captured_total"], \
+                f"[spec {name}] the second host-driven run captured"
+            out["host"] = dict(rate=host_rates[-1], rates=host_rates, **hc)
     for e in (spec, absorb, host):
         assert not e.has_unfinished and \
             e.memory_manager.num_free_pages == \
@@ -3639,6 +3884,10 @@ HTTP_SERVERS = {
         "--inflight-depth", "4", "--decode-chain-len", "32",
         "--spec-decode", "ngram", "--spec-k", "4", "--spec-ngram", "2",
         "--spec-fused")}
+# each server's KV pages and its first pass's client TTFT p50 / p99 (ms)
+# while mixed steps ran eagerly (H100 80GB HBM3, 700.00 W)
+HTTP_BEFORE = {"absorb": dict(pages=128801, ttft_ms=(96.5, 177.3)),
+               "full profile": dict(pages=96737, ttft_ms=(117.5, 225.9))}
 # Llama-3.2-1B's published config.json, at the widths llama_3_2_1b()
 # spells out
 HTTP_CONFIG = dict(
@@ -3964,7 +4213,8 @@ def http_server(name, flags, served):
             f"{info['parallel']['fast_path']}, "
             f"{info['engine_counters']['graphs']} graphs warmed in "
             f"{info['engine_counters']['capture_s']:.2f} s, graph pools "
-            f"{info['engine_counters']['graph_pool_mib']:.1f} MiB")
+            f"{info['engine_counters']['graph_pool_mib']:.1f} MiB; KV pages "
+            f"before mixed-step capture {HTTP_BEFORE[name]['pages']}")
         m0 = _scrape(port)
         passes = []
         while len(passes) < HTTP_PASSES and (
@@ -4029,6 +4279,17 @@ def http_server(name, flags, served):
             f"{n_len:.0f}, "
             f"aborts {n_abort:.0f}, TTFT observations {n_ttft:.0f}; the "
             "gauges and KV use read 0")
+        ec = json.loads(_get(port, "/server_info")[1])["engine_counters"]
+        replayed = ec["graph_replays"]["mixed"] + ec["graph_replays"]["verify"]
+        assert replayed + sum(ec["eager_mixed"].values()) == ec["mixed_steps"]
+        assert not any(ec["eager_mixed"].values()), \
+            f"[http {name}] eager mixed steps {ec['eager_mixed']}"
+        ttft = passes[0]["client_ms"]["ttft_ms"]
+        log(f"[http {name}] mixed steps {ec['mixed_steps']}, all replayed "
+            f"({ec['graph_replays']}); pass 1 client TTFT p50 {ttft['p50']} "
+            f"ms, p99 {ttft['p99']} ms (before mixed-step capture: "
+            f"{HTTP_BEFORE[name]['ttft_ms'][0]}, "
+            f"{HTTP_BEFORE[name]['ttft_ms'][1]})")
         if name == "absorb":
             http_sampling_pass(port, prompts, f"{name} sampling pass")
         last = passes[free[0] if free else -1]
@@ -4077,6 +4338,8 @@ def main():
         torch.cuda.memory._record_memory_history(enabled="state",
                                                  stacks="python")
         HOLDERS = 4
+    # a fault in native code prints the Python stack it came from
+    faulthandler.enable()
     t_start = time.monotonic()
     smi = SMI = phase_device()
     walls = {}

@@ -142,9 +142,10 @@ class EngineConfig:
     # "ngram" and lifts overlap_scheduling
     spec_fused: bool = False
     quantization: Optional[str] = None
-    # False (the JAX package's default): every pure-decode step on CUDA
-    # replays a CUDA graph captured per shape signature
-    # (runner/graphs.py); True runs every step op by op, as the reference's
+    # False (the JAX package's default): every step on CUDA replays a
+    # CUDA graph captured per shape signature (runner/graphs.py), but for
+    # a step with penalties, logit_bias or logprobs and a hybrid model's
+    # mixed step; True runs every step op by op, as the reference's
     # flag of that name turns CUDA-graph capture off, and, as in the JAX
     # package, clears overlap scheduling and every option built on it
     enforce_eager: bool = False

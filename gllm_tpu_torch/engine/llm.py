@@ -58,9 +58,11 @@ spec block (``ModelRunner.step_spec_multi``), which commits link by link
 the tokens each row emitted, re-anchors the links on the committed
 state and trims the entries in flight (``FutureMap.trim_overpromise``).
 Unless
-``EngineConfig.enforce_eager``, each pure-decode step on the card replays
-the CUDA graph of its shape signature (``runner/graphs.py``; warm them
-ahead of serving with ``llm.runner.warmup()``). Token ids in and out;
+``EngineConfig.enforce_eager``, each step on the card (pure decode,
+mixed, absorb, host-driven verify) replays the CUDA graph of its key
+(``runner/graphs.py``; warm them ahead of serving with
+``llm.runner.warmup()``), but for a step whose batch carries penalties,
+logit_bias or logprobs and a hybrid model's mixed step. Token ids in and out;
 a text prompt, its output text and stop strings need a tokenizer object
 (anything with ``encode``/``decode``) passed to the constructor. Stop
 strings are matched on the host over the incrementally detokenized output

@@ -135,12 +135,17 @@ def _engine_counters(llm: LLM) -> dict:
     """Counters of the engine loop that the JAX package's metrics do not
     carry: the mixed re-forms that absorbed prefill, the sub-steps blocks
     executed, the pure-decode steps run eagerly for their penalties,
-    logit_bias or logprobs, the CUDA graphs captured so far with their
-    capture time (a graph first met while serving is captured then) and
-    the memory their pools hold, and speculation's counts."""
+    logit_bias or logprobs, the mixed steps run eagerly by reason, the
+    CUDA graphs captured so far with their capture time (a graph first
+    met while serving is captured then), their replays by kind and the
+    memory their pools hold, and speculation's counts."""
     g = llm.runner.graphs
     return {"absorbs": llm.absorbs, "block_substeps": llm.block_substeps,
             "extras_steps": llm.step_counts["extras"],
+            "mixed_steps": llm.step_counts["mixed"],
+            "eager_mixed": dict(llm.runner.eager_mixed),
+            "graph_replays": ({k: v["replays"] for k, v in g.by_kind.items()}
+                              if g is not None else {}),
             "graphs": len(g) if g is not None else 0,
             "capture_s": g.capture_seconds if g is not None else 0.0,
             "graph_pool_mib": (g.pool_bytes() / 2**20 if g is not None

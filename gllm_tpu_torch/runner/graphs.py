@@ -1,17 +1,22 @@
-"""Compiled decode steps: one CUDA graph per decode shape signature
-(counterpart of ``gllm_tpu/runner/runner.py``: the jit of
-``_build_step_fn:650``, ``_note_dispatch:952``, ``warmup:1849``,
-``num_shape_signatures:1949``).
+"""Compiled steps: one CUDA graph per shape signature (counterpart of
+``gllm_tpu/runner/runner.py``: the jit of ``_build_step_fn:650``,
+``_note_dispatch:952``, ``warmup:1849``, ``num_shape_signatures:1949``).
 
 The JAX package never runs a step eagerly: each shape signature compiles
 once, at first sight or in ``warmup``, and every later step of it runs the
-compiled program. Here a pure-decode step's whole body (forward, logits,
-sampling) is captured into a ``torch.cuda.CUDAGraph`` per key (T bucket,
-S bucket, max_q_len, page bucket, all_greedy): ``BatchBuilder.shape_signature``
-plus the sampler's static flag, as JAX keys its programs. Each later step of
-the key copies its batch into the views the graph was captured on
-(``HostStaging``'s one device buffer) and replays it: one launch for some
-nine hundred to three thousand kernels.
+compiled program. Here a step's whole body (forward, logits, sampling) is
+captured into a ``torch.cuda.CUDAGraph`` per key:
+``BatchBuilder.shape_signature`` (T bucket, S bucket, max_q_len, page
+bucket) plus the sampler's static flag all_greedy, as JAX keys its
+programs. A pure-decode step's key is that tuple; a mixed step's (a
+prefill chunk, a mix of chunks and decode rows, an absorb) is tagged
+"mixed", and a host-driven verify step's "verify", with its width
+spec_k + 1 and whether a drafted row samples (JAX's ``spec_aux``). Each
+later step of the key copies its batch into the views the graph was
+captured on (``HostStaging``'s one device buffer) and replays it: one
+launch for some nine hundred to three thousand kernels. Steps whose batch
+carries penalties, logit_bias or logprobs, and a hybrid model's mixed
+steps, run eagerly (the runner counts them).
 
 - The body reads only those views, the runner's parameters and caches, and
   the split-KV scratch, which is sized for every shape before the first
@@ -139,6 +144,15 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return _side_streams[device]
 
 
+KINDS = ("decode", "mixed", "verify", "block", "spec")
+
+
+def key_kind(key: Hashable) -> str:
+    """The kind of step a key captures: a pure-decode step's key is the
+    bare signature, every other kind's starts with its name."""
+    return key[0] if isinstance(key[0], str) else "decode"
+
+
 class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
     out: torch.Tensor                 # the sampled tokens, graph-owned
@@ -148,7 +162,7 @@ class _Graph(NamedTuple):
 
 
 class DecodeGraphs:
-    """The captured decode steps of one runner, by key."""
+    """The captured steps of one runner, by key."""
 
     def __init__(self, device: torch.device, generator: torch.Generator,
                  scratch_floats: int):
@@ -169,9 +183,21 @@ class DecodeGraphs:
         self.scratch = None
         self._graphs: Dict[Hashable, _Graph] = {}
         self.keys = set()
-        self.capture_seconds = 0.0
-        # decode steps served by the signature cache (on the CPU: body runs)
-        self.replays = 0
+        # by kind (``KINDS``): steps served by the signature cache (on the
+        # CPU: body runs), keys captured (on the CPU: met), their capture
+        # seconds and the bytes the pools grew by in them
+        self.by_kind = {k: dict(replays=0, captured=0, capture_s=0.0,
+                                pool_bytes=0) for k in KINDS}
+
+    @property
+    def replays(self) -> int:
+        """Steps served by the signature cache, of every kind."""
+        return sum(v["replays"] for v in self.by_kind.values())
+
+    @property
+    def capture_seconds(self) -> float:
+        """Seconds spent capturing, warm-up runs included."""
+        return sum(v["capture_s"] for v in self.by_kind.values())
 
     def __len__(self) -> int:
         """Distinct signatures captured (on the CPU: met)."""
@@ -212,10 +238,16 @@ class DecodeGraphs:
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
+                # inside: entering the capture empties the allocator's
+                # cache, so only the segments the capture makes count
+                reserved = torch.cuda.memory_reserved(self.device)
                 out = body(self.generator, graph)
         finally:
             if collecting:
                 gc.enable()
+        stats = self.by_kind[key_kind(key)]
+        stats["pool_bytes"] += (torch.cuda.memory_reserved(self.device)
+                                - reserved)
         delta = {k: n - before[k] for k, n in launch_counts().items()
                  if n != before[k]}
         if substeps:
@@ -224,7 +256,8 @@ class DecodeGraphs:
         set_launch_counts(counts)
         self._graphs[key] = _Graph(graph, out, delta, substeps)
         self.keys.add(key)
-        self.capture_seconds += time.monotonic() - t0
+        stats["captured"] += 1
+        stats["capture_s"] += time.monotonic() - t0
 
     def run(self, key: Hashable,
             body: Callable[..., torch.Tensor]) -> torch.Tensor:
@@ -233,9 +266,12 @@ class DecodeGraphs:
         key's next replay overwrites it while the tokens may still be
         read (a step chained off them, their copy to the host); on the
         CPU, ``body`` run."""
-        self.replays += 1
+        stats = self.by_kind[key_kind(key)]
+        stats["replays"] += 1
         if not self.cuda:
-            self.keys.add(key)
+            if key not in self.keys:
+                self.keys.add(key)
+                stats["captured"] += 1
             return body(self.generator)
         g = self._graphs[key]
         g.graph.replay()

@@ -63,9 +63,9 @@ class BatchBuilder:
                             sc.max_decode_seqs + sc.max_prefill_tokens)
         self.max_pages_per_seq = config.max_pages_per_seq
         # where blocks form (overlap scheduling, multi_step_decode > 1, not
-        # a hybrid model), every pure-decode signature takes the one
-        # largest page bucket, so that warmup's sequence buckets cover every
-        # decode step and block that serving meets (ROADMAP C 7)
+        # a hybrid model), every signature takes the one largest page
+        # bucket, so that warmup's sequence buckets cover every decode step,
+        # block and unified mixed step that serving meets (ROADMAP C 7)
         self.pin_pages = (config.overlap_scheduling
                           and config.multi_step_decode > 1 and not use_ssm)
         # a fused spec block's page table is wider by the pages spec_k draft
@@ -107,18 +107,26 @@ class BatchBuilder:
                 len(it.seq.page_table))
             for it in batch.items)
         p = bucket_size(max_pages, 4, self.max_pages_per_seq)
-        if self.pin_pages and max_q == 1:
+        if self.pin_pages:
             p = self.max_pages_per_seq
         return t, s, q, p
 
-    def padding(self, t_pad: int, s_pad: int, p_pad: int) -> StepBatch:
+    def padding(self, t_pad: int, s_pad: int, p_pad: int,
+                verify_width: int = 0) -> StepBatch:
         """A StepBatch of host arrays at (T, S, pages) holding padding rows
         only: token 0 at position 0 into the dummy page's slot 0, empty
         sequences (q_len 0, kv_len 0) whose pages are the dummy page, the
         greedy sampling defaults (no seed) and, for a hybrid model, the
-        dummy SSM slot 0. ``build`` fills the real rows over it; the runner's
-        graph capture runs it as is (it writes nothing a sequence reads)."""
+        dummy SSM slot 0; with ``verify_width`` K1 also a verify step's
+        rows (row 0) and drafts (none, -1) [S, K1] and [S, K1 - 1].
+        ``build`` fills the real rows over it; the runner's graph capture
+        runs it as is (it writes nothing a sequence reads)."""
         z = lambda n: np.zeros(n, np.int32)
+        spec = {}
+        if verify_width:
+            spec = dict(spec_rows=np.zeros((s_pad, verify_width), np.int32),
+                        spec_drafts=np.full((s_pad, verify_width - 1), -1,
+                                            np.int32))
         return StepBatch(
             token_ids=z(t_pad), positions=z(t_pad), slot_mapping=z(t_pad),
             logits_indices=z(s_pad),
@@ -131,7 +139,7 @@ class BatchBuilder:
                 top_k=np.full(s_pad, -1, np.int32),
                 min_p=np.zeros(s_pad, np.float32),
                 seed=np.full(s_pad, -1, np.int32), out_step=z(s_pad)),
-            ssm_slots=z(s_pad) if self.use_ssm else None)
+            ssm_slots=z(s_pad) if self.use_ssm else None, **spec)
 
     @staticmethod
     def penalty_len_bucket(lens) -> int:
@@ -390,11 +398,13 @@ class HostStaging:
     arrays by bit pattern): first the fixed part, whose offsets depend on
     the step's (T, S, pages) only, then a block's ``active_until`` [S]
     and, under on-device finish, its stop sets [S, E] and arming sub-steps
-    [S] (offsets fixed by (T, S, pages, E)), then the lists whose length
-    varies from step to step (the int8 cache's scale-reset page ids, a
-    hybrid model's slots to zero, each deduplicated; a re-formed batch's
-    splice map; a verify step's rows and drafts, or a spec block's seed
-    state). The device copy is split back into views. With ``capacity`` the device
+    [S] (offsets fixed by (T, S, pages, E)), a verify step's rows [S, K1]
+    and drafts [S, K1 - 1] or a spec block's seed state (offsets fixed by
+    the key's K1), then the lists whose length varies from step to step
+    (the int8 cache's scale-reset page ids, a hybrid model's slots to
+    zero, each deduplicated; a re-formed batch's splice map), which only
+    the eager prologue and the splice read. The device copy is split back
+    into views. With ``capacity`` the device
     buffer is allocated once, at that size, and a step that needs more
     raises: a CUDA graph captured on the views of a signature then reads
     every later step of it. Without, it grows as needed (``allocations``
@@ -449,11 +459,11 @@ class HostStaging:
                  _ints(sb.active_until),
                  _ints(sb.sampling.stop_ids).reshape(-1),
                  _ints(sb.sampling.stop_from),
-                 np.asarray(resets, np.int32), np.asarray(zero, np.int32),
-                 np.asarray(sb.splice or [], np.int32),
                  _ints(sb.spec_rows).reshape(-1),
                  _ints(sb.spec_drafts).reshape(-1),
-                 _ints(sb.spec_seed).reshape(-1)]
+                 _ints(sb.spec_seed).reshape(-1),
+                 np.asarray(resets, np.int32), np.asarray(zero, np.int32),
+                 np.asarray(sb.splice or [], np.int32)]
         md = sb.sampling
         extras = [_ints(x, f) for x, f in (
             (md.repetition_penalty, True), (md.presence_penalty, True),
@@ -496,8 +506,8 @@ class HostStaging:
         views = list(torch.split(dev, sizes))
         (tok, pos, slots, lidx, cu, kvl, pt, top_k, temp, top_p,
          min_p, seed, out_step, ssm_slots, active_until, stop_ids,
-         stop_from, resets, ssm_zero, splice, spec_rows, spec_drafts,
-         spec_seed) = views
+         stop_from, spec_rows, spec_drafts, spec_seed, resets, ssm_zero,
+         splice) = views
         shaped = lambda v, a: (None if a is None  # noqa: E731
                                else v.view(a.shape))
         f32 = torch.float32

@@ -17,15 +17,18 @@ dispatches a block: K chained pure-decode steps as one device program
 shorter one), whose rows that die inside it freeze, and which stops
 early once every row has finished. Speculative decoding: a step with
 prompt-lookup drafts verifies them in its own forward (``spec_aux``: the
-verify rows' logits only, then ``spec_verify``), eagerly as every mixed
-step; ``step_spec_multi`` dispatches a fused spec block, K draft+verify
-sub-steps over an on-device token ring as one CUDA graph, whose state
-passes from block to block in the handle. With
-``EngineConfig.enforce_eager`` off (the default, as in the JAX package),
-a pure-decode step on CUDA replays the CUDA graph of its shape signature,
+verify rows' logits only, then ``spec_verify``); ``step_spec_multi``
+dispatches a fused spec block, K draft+verify sub-steps over an on-device
+token ring as one CUDA graph, whose state passes from block to block in
+the handle. With ``EngineConfig.enforce_eager`` off (the default, as in
+the JAX package), every step on CUDA replays the CUDA graph of its key,
 captured at first sight or by ``warmup`` (``runner/graphs.py``, where JAX
-compiles one program per signature); every other step runs op by op. On
-the CPU the same static-buffer body runs uncaptured.
+compiles one program per signature): a pure-decode step, a mixed step (a
+prefill chunk, chunks with decode rows, an absorb) and a host-driven
+verify step alike. What stays op by op: a step whose batch carries
+penalties, logit_bias or logprobs (A 2b), a hybrid model's mixed step
+(A 9), and every step under ``enforce_eager``. On the CPU the same
+static-buffer body runs uncaptured.
 The model family (dense, DeepSeek's MLA + MoE, or the hybrid GDN family)
 comes from ``models/registry.py``. A hybrid model keeps its GDN state in
 slot pools of ``1 + max_num_seqs`` slots (slot 0: the padding dummy);
@@ -34,10 +37,10 @@ zeroed (``index_fill_``) before its forward.
 The KV cache is updated in place where JAX donated its buffers. An int8
 cache first zeroes the scales of the pages minted for the step (their ids
 ride the step's one upload), so a recycled page quantizes like a fresh one.
-Both of these run eagerly before a replay: their lists change length from
-step to step.
+Both of these run eagerly before a replay, as does a re-formed batch's
+token splice: their lists change length from step to step.
 A step whose batch carries penalties, logit_bias, logprobs or prompt
-logprobs (``BatchBuilder.batch_extras``) runs eagerly too, counted as an
+logprobs (``BatchBuilder.batch_extras``) runs eagerly, counted as an
 "extras" step when it is pure decode: the logits are adjusted (JAX's
 ``adjust_logits``; a verify step's by ``spec_adjust_logits``, JAX's
 ``spec_aux``) and the logprobs of the sampled tokens (``lp``), of the
@@ -95,6 +98,15 @@ ACTIVATION_HEADROOM = 512 * 1024 * 1024
 # holds about two recurrent GDN states per row
 GRAPH_POOL_LOGIT_COPIES = 16
 GRAPH_POOL_STATES_PER_ROW = 2
+# a captured mixed step (dense and MLA families) keeps its forward's
+# transients at the token bucket in the graphs' pool for the engine's
+# life: reckoned as this many of its widest activation rows (the MLP's
+# fused gate and up halves, or a token's routed experts' under MoE) a
+# token of the bucket. tools/graph_pool_cost.py read the mixed keys,
+# captured first, at 5.4 such rows for Llama-3.2-1B (386 MiB at T 2304),
+# 5.0 at T 3328 and 6.4 for DeepSeek-V2-Lite (616 MiB) on the H100
+# (PERF.md)
+GRAPH_POOL_MIXED_ROWS = 7
 # a fused spec block's on-device recent-token ring, per row (JAX's
 # ``SPEC_RING``): the n-gram lookup window of its drafting
 SPEC_RING = 128
@@ -240,6 +252,10 @@ class ModelRunner:
         # legacy kernels split decode and mixed the same way; the unified
         # kernel serves both.
         self.step_counts = {"mixed": 0, "decode": 0, "extras": 0}
+        # the mixed steps (verify steps included) that ran eagerly, by
+        # reason: their batch carries extras (A 2b), a hybrid model's (A
+        # 9), or ``enforce_eager``; every other one replays a graph
+        self.eager_mixed = {"extras": 0, "hybrid": 0, "enforce_eager": 0}
         # blocks dispatched (each one graph replay) and the sub-steps they
         # executed (counted when a block is collected)
         self.block_counts = {"block": 0, "substeps": 0}
@@ -295,9 +311,10 @@ class ModelRunner:
         """Device bytes kept free for a step's activations: 512 MB, for a
         hybrid model also the GDN layer's largest transient at the largest
         batch shape the config can schedule, and, unless ``enforce_eager``,
-        the decode graphs' pool at the largest sequence bucket (twice when
-        blocks stop early: their conditional bodies have a pool of their
-        own)."""
+        the graphs' pool at the largest sequence bucket (twice when blocks
+        stop early: their conditional bodies have a pool of their own)
+        and, but for a hybrid model, what its captured mixed steps keep
+        there at the token bucket (``mixed_pool_bytes``)."""
         rows = self.builder.max_seqs
         headroom = ACTIVATION_HEADROOM
         if self.hybrid:
@@ -325,7 +342,20 @@ class ModelRunner:
                 headroom += (GRAPH_POOL_STATES_PER_ROW * rows
                              * hybrid.ssm_pool_bytes(self.model_cfg, 1)
                              // self.model_cfg.num_linear_layers)
+            else:
+                headroom += self.mixed_pool_bytes()
         return headroom
+
+    def mixed_pool_bytes(self) -> int:
+        """What the captured mixed steps are reckoned to keep in the
+        graphs' pool: ``GRAPH_POOL_MIXED_ROWS`` rows of the widest
+        activation at the model dtype for each token of the largest token
+        bucket."""
+        cfg = self.model_cfg
+        width = max(cfg.hidden_size, 2 * cfg.intermediate_size,
+                    2 * cfg.num_experts_per_tok * cfg.moe_intermediate_size)
+        return (GRAPH_POOL_MIXED_ROWS * self.builder.max_tokens * width
+                * self.dtype.itemsize)
 
     def determine_num_pages(self) -> int:
         """Size the KV pool from the device's free memory after the weights
@@ -415,6 +445,11 @@ class ModelRunner:
                 scale_resets=mm.drain_scale_resets())
         if self.hybrid and mm is not None:
             host_batch = host_batch._replace(ssm_zero=mm.drain_ssm_zero())
+        # the forward takes the signature's max_q_len, never the live
+        # batch's: for the dense and MLA families it only picks the decode
+        # path (1: the decode kernel, or the unified kernel's decode blocks
+        # alone) or the ragged one (ops/attention.py), so one graph key
+        # serves every batch of its signature
         max_q = 1 if host_batch.max_seq_q == 1 else sig_q
         return host_batch, max_q, sig_q
 
@@ -457,10 +492,10 @@ class ModelRunner:
                                   self.model_cfg, cos_sin=self.cos_sin,
                                   max_q_len=max_q, impl=self.attn_impl)
 
-    def _eager_step(self, batch, max_q: int, all_greedy: bool,
+    def _step_body(self, batch, max_q: int, all_greedy: bool,
                     lp_k: int = -1, plp: bool = False,
-                    spec_sampled: Optional[bool] = None):
-        """An eager step over adjusted logits (JAX's step body with its
+                    spec_sampled: Optional[bool] = None, generator=None):
+        """A step over adjusted logits (JAX's step body with its
         ``lp_aux`` and, with drafts, ``spec_aux``, ``runner.py:211-237,
         656-678``): forward, each row's sampled token and the requested
         logprobs; a step with drafts (``spec_sampled`` not None: some
@@ -468,7 +503,11 @@ class ModelRunner:
         verify) also verifies them over the verify rows' logits alone
         (never [T, V]), adjusted with the draft prefixes' counts. →
         (tokens [S] or, with drafts, [S, 2 + K1]: the sampled token, the
-        accepted drafts, then the verify tokens; the aux dict)."""
+        accepted drafts, then the verify tokens; the aux dict). Eager for
+        a batch with extras; without them (no logprobs, no adjustment) a
+        verify step's graph body, drawing from ``generator`` (default:
+        the runner's)."""
+        generator = generator if generator is not None else self.generator
         hidden, residual = self._hidden(batch, max_q)
         md = batch.sampling
         counts = None
@@ -477,7 +516,7 @@ class ModelRunner:
                                    batch.penalty_ids >= 0)
         logits = self.model.compute_logits(self.params, hidden, residual,
                                            batch, self.model_cfg)
-        tokens = sample(logits, md, self.generator, token_counts=counts,
+        tokens = sample(logits, md, generator, token_counts=counts,
                         all_greedy=all_greedy)
         aux = {}
         top = max(lp_k, 1)
@@ -498,7 +537,7 @@ class ModelRunner:
         adjusted = spec_adjust_logits(verify.view(S, K1, -1),
                                       batch.spec_drafts, md, counts)
         tok_mat, accept = spec_verify(adjusted, batch.spec_drafts, md,
-                                      self.generator, sampled=spec_sampled)
+                                      generator, sampled=spec_sampled)
         if lp_k >= 0:
             aux["spec_lp"] = tuple(
                 x.reshape((S, K1) + x.shape[1:]) for x in compute_logprobs(
@@ -549,8 +588,9 @@ class ModelRunner:
         that joined it, whose token is the host's), row ``src_rows[i]``'s
         for a re-formed batch (-1: the host's tokens). Under the unified
         step a re-formed batch may be mixed (prefill chunks after the
-        promised decode rows): it runs eagerly at the unified signature's
-        one token bucket, as every mixed step does."""
+        promised decode rows, an absorb): it replays the graph of its
+        mixed key at the unified signature's one token bucket, the splice
+        running before the replay, as every mixed step does."""
         if sched_batch.src_rows is None:
             assert len(prev.last) == sched_batch.num_seqs
         return self.step_async(sched_batch, prev)
@@ -560,58 +600,71 @@ class ModelRunner:
                    prev: Optional[StepHandle] = None,
                    force_signature=None) -> StepHandle:
         """Dispatch one step: the host builds and stages it, enqueues the
-        copy in, the forward and sampling (one graph replay for a
-        pure-decode step) and the copy of the tokens out, and returns
-        without waiting for the device. A new decode signature is captured
-        first, which waits for the device once. With ``prev``, the input
-        tokens are spliced from ``prev``'s (``step_async_chained``)."""
+        copy in, the forward and sampling (one graph replay) and the copy
+        of the tokens out, and returns without waiting for the device. A
+        new signature is captured first, which waits for the device once.
+        With ``prev``, the input tokens are spliced from ``prev``'s
+        (``step_async_chained``). A pure-decode step replays its
+        signature's graph; so do a mixed step (prefill chunks, with or
+        without decode rows) and a host-driven verify step, keyed "mixed"
+        and "verify" (``graphs.key_kind``). A step whose batch carries
+        penalties, logit_bias or logprobs runs eagerly (A 2b), as does a
+        hybrid model's mixed step (its GDN layer loops over row groups on
+        the host) and every step under ``enforce_eager``; the mixed ones
+        among them are counted in ``eager_mixed`` by reason."""
         host_batch, max_q, sig_q = self._host_batch(sched_batch,
                                                     force_signature)
         decode = host_batch.max_seq_q == 1
         all_greedy = _all_greedy(sched_batch.items)
         drafts = host_batch.spec_rows is not None
-        if drafts or self.builder.batch_extras(sched_batch):
-            # a verify step, or a step with logit adjustments or logprobs:
-            # eager, as every mixed step
-            self.step_counts["extras" if decode and not drafts
-                             else "mixed"] += 1
-            batch = self.staging.upload(host_batch)
-            if prev is not None:
-                self._splice(batch, sched_batch, prev)
-            self._prologue(batch)
-            lp_k, plp = self._lp_flags(sched_batch)
-            out, aux = self._eager_step(
-                batch, max_q, all_greedy, lp_k, plp,
-                _spec_sampled(sched_batch.items) if drafts else None)
-            return self._handle(
-                out[:sched_batch.num_seqs], aux=aux,
-                spec=int(host_batch.spec_rows.shape[1]) if drafts else None)
-        self.step_counts["decode" if decode else "mixed"] += 1
-        graphed = decode and self.graphs is not None
-        if graphed:
+        spec_sampled = _spec_sampled(sched_batch.items) if drafts else None
+        extras = self.builder.batch_extras(sched_batch)
+        # a verify step is never pure decode: its drafted rows take more
+        # than one token
+        self.step_counts["extras" if extras and decode
+                         else "decode" if decode else "mixed"] += 1
+        eager = ("extras" if extras
+                 else "enforce_eager" if self.graphs is None
+                 else "hybrid" if self.hybrid and not decode else None)
+        k1 = int(host_batch.spec_rows.shape[1]) if drafts else 0
+        if eager is not None:
+            if not decode:
+                self.eager_mixed[eager] += 1
+        else:
             t = host_batch.token_ids.size
             s, p = host_batch.attn.page_table.shape
-            key = (t, s, sig_q, p, all_greedy)
+            if drafts:
+                key = ("verify", t, s, sig_q, p, all_greedy, k1,
+                       spec_sampled)
+            elif decode:
+                key = (t, s, sig_q, p, all_greedy)
+            else:
+                key = ("mixed", t, s, sig_q, p, all_greedy)
 
             def body(generator, graph=None):
-                logits = self._forward(batch, 1)
-                return sample(logits, batch.sampling, generator,
-                              all_greedy=all_greedy)
+                # max_q is the key's, never the live batch's
+                # (``_host_batch``): it only picks the decode or ragged path
+                return self._step_body(batch, max_q, all_greedy,
+                                       spec_sampled=spec_sampled,
+                                       generator=generator)[0]
 
             if self.graphs.cuda and key not in self.graphs:
                 # captured over padding rows staged at the same views
-                batch = self.staging.upload(self.builder.padding(t, s, p))
+                batch = self.staging.upload(self.builder.padding(t, s, p,
+                                                                 k1))
                 self._capture(key, body, sampled=not all_greedy)
         batch = self.staging.upload(host_batch)
         if prev is not None:
             self._splice(batch, sched_batch, prev)
         self._prologue(batch)
-        if graphed:
-            tokens = self.graphs.run(key, body)
+        if eager is None:
+            out, aux = self.graphs.run(key, body), None
         else:
-            tokens = sample(self._forward(batch, max_q), batch.sampling,
-                            self.generator, all_greedy=all_greedy)
-        return self._handle(tokens[:sched_batch.num_seqs])
+            lp_k, plp = self._lp_flags(sched_batch)
+            out, aux = self._step_body(batch, max_q, all_greedy, lp_k, plp,
+                                       spec_sampled)
+        return self._handle(out[:sched_batch.num_seqs], aux=aux,
+                            spec=k1 or None)
 
     @staticmethod
     def _splice(batch, sched_batch: ScheduledBatch,
@@ -1119,8 +1172,9 @@ class ModelRunner:
 
     @property
     def num_shape_signatures(self) -> int:
-        """Distinct decode signatures captured so far (on the CPU: met),
-        ``warmup``'s included."""
+        """Distinct graph keys captured so far (on the CPU: met), of every
+        kind (decode, mixed, verify, block, spec block), ``warmup``'s
+        included."""
         return len(self.graphs) if self.graphs is not None else 0
 
     @property
@@ -1135,28 +1189,37 @@ class ModelRunner:
 
     def warmup(self, decode_buckets=None, page_buckets=None,
                block_buckets=None) -> None:
-        """Capture the hot decode signatures before serving (JAX's
-        ``warmup``, ``runner.py:1849-1947``, which stands for the
-        reference's CUDA-graph capture loop): every sequence bucket at the
-        largest page bucket and the largest sequence bucket at every page
-        bucket, each for greedy and for sampled rows, by running a decode
-        step of throwaway sequences. Their pages are all the dummy page 0
-        and their GDN slot the dummy slot 0, so no page or slot a sequence
-        holds (nor a prefix-cached page) is written; the step counts, the
-        launch counters, the generator and the memory manager's queues
-        come out as they were. Mixed steps run eagerly and need no
-        warmup. Where blocks form, every pure-decode step and block takes
-        the one pinned page bucket (``BatchBuilder.pin_pages``) and a block
-        of any length replays the longest block's graph, so the decode
-        steps run at each sequence bucket at that page bucket (passing
-        ``page_buckets`` then raises), and the longest block
-        (``block_len``; a fused spec block under ``spec_fused``) is
-        captured for greedy and for sampled rows at each of
-        ``block_buckets`` (sequence buckets, by default the decode ones),
-        with the stop-set width the engine's EOS ids give under on-device
-        finish: serving then meets no new decode or block key but for a
-        stop set of another width (ROADMAP C 7). With ``enforce_eager``
-        there is nothing to capture."""
+        """Capture the hot signatures before serving (JAX's ``warmup``,
+        ``runner.py:1849-1947``, which stands for the reference's
+        CUDA-graph capture loop): every sequence bucket at the largest
+        page bucket and the largest sequence bucket at every page bucket,
+        each for greedy and for sampled rows, by running a decode step of
+        throwaway sequences; then JAX's mixed pass
+        (``runner.py:1910-1940``): for each sequence bucket, one step of a
+        full prefill chunk and nseq - 1 decode rows at the largest page
+        bucket, greedy and sampled (``all_greedy`` is part of the key),
+        at the buckets of ``decode_buckets`` or, when only they are given,
+        of ``block_buckets`` (a hybrid model's mixed steps run eagerly and
+        are not warmed). The throwaway sequences' pages are all the dummy
+        page 0 and their GDN slot the dummy slot 0, so no page or slot a
+        sequence holds (nor a prefix-cached page) is written; the step
+        counts, the launch counters, the graphs' replay counts, the
+        generator and the memory manager's queues come out as they were. Under the unified step
+        every mixed batch pads to the one token bucket, so the mixed pass
+        covers every mixed key of its sequence buckets at its page bucket.
+        Where blocks form, every step and block takes the one pinned page
+        bucket (``BatchBuilder.pin_pages``) and a block of any length
+        replays the longest block's graph, so the decode steps run at each
+        sequence bucket at that page bucket (passing ``page_buckets`` then
+        raises), and the longest block (``block_len``; a fused spec block
+        under ``spec_fused``) is captured for greedy and for sampled rows
+        at each of ``block_buckets`` (sequence buckets, by default the
+        decode ones), with the stop-set width the engine's EOS ids give
+        under on-device finish: serving then meets no new decode, unified
+        mixed or block key but for a stop set of another width (ROADMAP C
+        7). The legacy step's mixed keys follow the token bucket; those
+        the pass leaves out are captured at first sight, as JAX compiles
+        them. With ``enforce_eager`` there is nothing to capture."""
         if self.graphs is None:
             return
         max_decode = min(self.config.scheduler.max_decode_seqs,
@@ -1164,8 +1227,8 @@ class ModelRunner:
         if self.builder.pin_pages:
             if page_buckets is not None:
                 raise ValueError(
-                    "warmup: page_buckets given, but every pure-decode step "
-                    "of this engine runs at the one pinned page bucket "
+                    "warmup: page_buckets given, but every step of this "
+                    "engine runs at the one pinned page bucket "
                     f"({self.builder.max_pages_per_seq} pages)")
             combos = [(s, self.builder.max_pages_per_seq) for s in (
                 decode_buckets or graphs.pow2_range(8, max_decode))]
@@ -1173,18 +1236,25 @@ class ModelRunner:
             combos = graphs.warmup_combos(
                 max_decode, self.config.max_pages_per_seq, self.num_pages,
                 decode_buckets, page_buckets)
+        npages = combos[0][1]
+        mixed = ([] if self.hybrid else
+                 decode_buckets or block_buckets
+                 or graphs.pow2_range(8, max_decode))
         steps, counts = dict(self.step_counts), graphs.launch_counts()
-        blocks = dict(self.block_counts)
+        blocks, eager = dict(self.block_counts), dict(self.eager_mixed)
+        replays = {k: v["replays"] for k, v in self.graphs.by_kind.items()}
         rng = self.generator.get_state()
         t0 = time.monotonic()
         self._warming = True
         try:
-            for nseq, npages in combos:
+            for nseq, npg in combos:
                 for temp in (0.0, 1.0):
-                    self._warm_step(nseq, npages, temp)
+                    self._warm_step(nseq, npg, temp)
+            for nseq in mixed:
+                for temp in (0.0, 1.0):
+                    self._warm_mixed(nseq, npages, temp)
             K = self.block_len
             if K > 1:
-                npages = combos[0][1]
                 warm = (self._warm_spec_block if self.config.spec_fused
                         else self._warm_block)
                 for nseq in (block_buckets or sorted({
@@ -1195,11 +1265,14 @@ class ModelRunner:
             self._warming = False
             self.step_counts.update(steps)
             self.block_counts.update(blocks)
+            self.eager_mixed.update(eager)
+            for k, n in replays.items():
+                self.graphs.by_kind[k]["replays"] = n
             graphs.set_launch_counts(counts)
             self.generator.set_state(rng)
-        logger.info("warmup: %d decode combos, %d signatures, %.2f s",
-                    len(combos), self.num_shape_signatures,
-                    time.monotonic() - t0)
+        logger.info("warmup: %d decode combos, %d mixed buckets, %d "
+                    "signatures, %.2f s", len(combos), len(mixed),
+                    self.num_shape_signatures, time.monotonic() - t0)
 
     def _warm_step(self, nseq: int, npages: int, temp: float) -> None:
         """One decode step of ``nseq`` throwaway sequences whose contexts
@@ -1213,6 +1286,22 @@ class ModelRunner:
             seq.num_computed_tokens = ctx
             items.append(ScheduledSeq(seq, 1, ctx))
         self.step(ScheduledBatch(items))
+
+    def _warm_mixed(self, nseq: int, npages: int, temp: float) -> None:
+        """One mixed step (JAX's mixed warmup pass): a throwaway prompt of
+        a full prefill chunk (``max_prefill_tokens``, at most
+        ``max_model_len``) and ``nseq - 1`` throwaway decode rows whose
+        contexts fill ``npages`` pages, every page the dummy page 0."""
+        page = self.config.cache.page_size
+        chunk = min(self.config.scheduler.max_prefill_tokens,
+                    self.config.max_model_len)
+        seq = Sequence(nseq, [1] * chunk,
+                       SamplingParams(temperature=temp, max_tokens=4))
+        seq.page_table = [0] * cdiv(chunk, page)
+        ctx = npages * page - 1
+        self.step(ScheduledBatch([ScheduledSeq(seq, chunk, 0)] + [
+            ScheduledSeq(row, 1, ctx)
+            for row in self._warm_seqs(nseq - 1, npages, ctx, temp, 4)]))
 
     def _warm_seqs(self, nseq: int, npages: int, ctx: int, temp: float,
                    max_tokens: int) -> list:

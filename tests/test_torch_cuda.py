@@ -1792,7 +1792,8 @@ def _serve(llm, temperature):
                               for f, c in GRAPH_CASES])
 def test_graph_steps_match_eager_on_card(cuda_device, family, cfg):
     """One bf16 model, one engine per mode on the same weights: every
-    pure-decode step replays a captured graph, and the greedy and sampled
+    pure-decode step replays a captured graph, and so does every mixed
+    step but a hybrid model's (counted eager), and the greedy and sampled
     streams (same seed) equal the per-step path's, with the same launch
     counts (each replay adds its capture's) and the split counters back
     at zero."""
@@ -1812,9 +1813,16 @@ def test_graph_steps_match_eager_on_card(cuda_device, family, cfg):
     runner = graph.runner
     keys = runner.graphs.keys
     assert runner.num_shape_signatures == len(keys) > 0
+    decode = {k for k in keys if k[0] != "mixed"}
     # the hybrid engine runs at most 8 sequences
-    assert {k[1] for k in keys} == ({8} if family == "hybrid" else {8, 16})
-    assert {k[4] for k in keys} == {True, False}
+    assert {k[1] for k in decode} == ({8} if family == "hybrid"
+                                      else {8, 16})
+    assert {k[4] for k in decode} == {True, False}
+    mixed = graph.step_counts["mixed"]
+    assert runner.graphs.by_kind["mixed"]["replays"] == (
+        0 if family == "hybrid" else mixed)
+    assert runner.eager_mixed["hybrid"] == (
+        mixed if family == "hybrid" else 0)
     assert runner.staging.allocations == 1
     assert runner.graphs.pool_bytes() > 0
 
@@ -1832,12 +1840,111 @@ def test_graph_warmup_on_card_leaves_counts_and_streams(cuda_device):
     graph.runner.warmup()
     assert _all_counts() == counts and graph.step_counts == steps
     c = graph.config
-    combos = graphs.warmup_combos(min(c.scheduler.max_decode_seqs,
-                                      graph.runner.builder.max_seqs),
-                                  c.max_pages_per_seq, graph.runner.num_pages)
-    assert graph.runner.num_shape_signatures == 2 * len(combos)
+    maxd = min(c.scheduler.max_decode_seqs, graph.runner.builder.max_seqs)
+    combos = graphs.warmup_combos(maxd, c.max_pages_per_seq,
+                                  graph.runner.num_pages)
+    # the decode combos and the mixed pass, greedy and sampled
+    assert graph.runner.num_shape_signatures == 2 * (
+        len(combos) + len(graphs.pow2_range(8, maxd)))
     assert _serve(graph, 0.0) == _serve(eager, 0.0)
     _counters_zero(cuda_device)
+
+
+# the cache modes of both families whose mixed and verify steps replay
+# graphs: the legacy kernels over a bf16, int8 and fp8 cache, the unified
+# kernel; MLA over a bf16 and an fp8 latent, and unified
+MIXED_CASES = [
+    ("dense", {}), ("dense", dict(kv_cache_dtype="int8")),
+    ("dense", dict(kv_cache_dtype="fp8")), ("dense", dict(unified_step=True)),
+    ("deepseek", {}), ("deepseek", dict(kv_cache_dtype="fp8")),
+    ("deepseek", dict(unified_step=True))]
+
+
+def _strict_steps(runner):
+    """Dispatch the runner's single steps under sync-debug mode "error":
+    a host sync in a step's staging, splice, prologue or replay raises."""
+    step_async = runner.step_async
+
+    def strict(batch, prev=None, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step_async(batch, prev, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    runner.step_async = strict
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,cfg", MIXED_CASES,
+                         ids=[f + "".join(f"-{v}" for v in c.values())
+                              for f, c in MIXED_CASES])
+def test_mixed_and_verify_replays_equal_the_eager_step(cuda_device, family,
+                                                       cfg):
+    """bf16, the same weights, host-driven speculation: the prefill steps,
+    the mixed steps (chunks beside drafted decode rows) and the verify
+    steps replay their graphs and give the tokens of the same batches run
+    eagerly (an ``enforce_eager`` engine on the same traffic); once the
+    keys exist (a first run), the second run's dispatches raise nothing
+    under sync-debug mode "error" (no host sync inside a body) and
+    capture nothing."""
+    make = GRAPH_MAKERS[family]
+    flags = dict(spec_decode="ngram", **cfg)
+    eager = make(cuda_device, dtype="bfloat16", enforce_eager=True, **flags)
+    graph = make(cuda_device, params=eager.runner.params, dtype="bfloat16",
+                 **flags)
+    want = _spec_serve(eager)
+    assert _spec_serve(graph) == want          # the keys captured here
+    runner = graph.runner
+    keys = set(runner.graphs.keys)
+    by_kind = runner.graphs.by_kind
+    replays = {k: v["replays"] for k, v in by_kind.items()}
+    steps, verify0 = dict(graph.step_counts), graph.verify_steps
+    _strict_steps(runner)
+    assert _spec_serve(graph) == want
+    assert set(runner.graphs.keys) == keys
+    mixed = graph.step_counts["mixed"] - steps["mixed"]
+    verify = graph.verify_steps - verify0
+    assert 0 < verify < mixed
+    assert by_kind["verify"]["replays"] - replays["verify"] == verify
+    assert by_kind["mixed"]["replays"] - replays["mixed"] == mixed - verify
+    assert sum(runner.eager_mixed.values()) == 0
+    _drained(graph)
+    _counters_zero(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    {}, dict(pipelined_loop=True, unified_step=True, ondevice_finish=True,
+             decode_slot_batching=True)], ids=["sync", "absorb"])
+def test_mixed_keys_pool_within_the_reckoning(cuda_device, flags):
+    """Llama-3.2-1B's widths at two layers, a 2048-token prefill budget:
+    the mixed steps of ``warmup``'s mixed pass at the small sequence
+    buckets (a full chunk beside decode rows at the token bucket, greedy
+    and sampled), captured first, grow the graphs' pool by no more than
+    ``mixed_pool_bytes`` reckons; after the whole warmup all the pools
+    stay within the headroom's graph part."""
+    import gllm_tpu_torch as gt
+    from gllm_tpu_torch.runner.runner import ACTIVATION_HEADROOM
+    mc = gt.ModelConfig(architecture="LlamaForCausalLM", vocab_size=128256,
+                        hidden_size=2048, num_layers=2, num_heads=32,
+                        num_kv_heads=8, head_dim=64, intermediate_size=8192,
+                        max_position=4096, tie_word_embeddings=True)
+    llm = gt.LLM(model_cfg=mc, device=cuda_device, config=gt.EngineConfig(
+        dtype="bfloat16", load_format="dummy", max_model_len=4096,
+        cache=gt.CacheConfig(num_pages=2048), **flags))
+    runner = llm.runner
+    g = runner.graphs
+    runner._warming = True                 # throwaway rows, as warmup's
+    for nseq in (8, 16):
+        for temp in (0.0, 1.0):
+            runner._warm_mixed(nseq, runner.builder.max_pages_per_seq, temp)
+    runner._warming = False
+    mixed = g.by_kind["mixed"]
+    assert mixed["captured"] == 4
+    assert 0 < mixed["pool_bytes"] <= runner.mixed_pool_bytes(), mixed
+    runner.warmup()
+    assert (g.pool_bytes()
+            <= runner.activation_headroom() - ACTIVATION_HEADROOM)
 
 
 @pytest.mark.cuda
@@ -1924,7 +2031,9 @@ def test_overlap_streams_equal_the_sync_loop_on_card(cuda_device, family,
                **OVERLAP_FLAGS[flags])
     if warm:
         llm.runner.warmup()
-    replays = llm.runner.graphs.replays
+    by_kind = llm.runner.graphs.by_kind
+    replays = {k: v["replays"] for k, v in by_kind.items()}
+    steps = dict(llm.step_counts)
     reforms = []
     reform = llm.scheduler.schedule_reform
     llm.scheduler.schedule_reform = lambda b, **kw: (
@@ -1933,8 +2042,12 @@ def test_overlap_streams_equal_the_sync_loop_on_card(cuda_device, family,
     _drained(llm)
     _counters_zero(cuda_device)
     assert _ran_ahead(llm) > 0
-    assert (llm.runner.graphs.replays - replays
-            == llm.step_counts["decode"] > 0)
+    assert (by_kind["decode"]["replays"] - replays["decode"]
+            == llm.step_counts["decode"] - steps["decode"] > 0)
+    # a hybrid model's mixed steps run eagerly
+    assert (by_kind["mixed"]["replays"] - replays["mixed"]
+            == (0 if family == "hybrid"
+                else llm.step_counts["mixed"] - steps["mixed"]))
     if family == "hybrid":
         assert not reforms
     elif flags == "pipelined":
@@ -2031,7 +2144,9 @@ def test_block_streams_equal_the_sync_loop_on_card(cuda_device, family,
         llm.runner.warmup()
     runner = llm.runner
     want = _serve_greedy(sync)
-    replays, steps = runner.graphs.replays, dict(llm.step_counts)
+    by_kind = runner.graphs.by_kind
+    replays = {k: v["replays"] for k, v in by_kind.items()}
+    steps = dict(llm.step_counts)
     blocks = dict(runner.block_counts)
     before = _all_counts()
     assert _serve_greedy(llm) == want
@@ -2042,7 +2157,9 @@ def test_block_streams_equal_the_sync_loop_on_card(cuda_device, family,
     nblocks = runner.block_counts["block"] - blocks["block"]
     substeps = runner.block_counts["substeps"] - blocks["substeps"]
     assert nblocks > 0 and sum(llm.blocks.values()) > 0
-    assert runner.graphs.replays - replays == decode + nblocks
+    assert (by_kind["decode"]["replays"] - replays["decode"]
+            + by_kind["block"]["replays"] - replays["block"]
+            == decode + nblocks)
     assert (_decode_launches(llm, counts)
             == (decode + substeps) * llm.model_cfg.num_attn_layers)
     assert not any(k[1] is None and n for k, n in counts.items())
@@ -2543,7 +2660,7 @@ def test_unified_decode_only_takes_hole_rows(cuda_device, family, kind):
 
 @pytest.mark.cuda
 def test_capture_error_raises_with_no_eager_rerun(cuda_device):
-    """A decode body that syncs with the host (``.item()``) runs in the
+    """A step body that syncs with the host (``.item()``) runs in the
     side-stream warm-up but fails under capture: the error reaches the
     caller, no graph is kept, and the step is not run eagerly instead.
     (Last in the file: a failed capture may leave the stream's allocator
@@ -2551,20 +2668,20 @@ def test_capture_error_raises_with_no_eager_rerun(cuda_device):
     import gllm_tpu_torch as gt
     llm = _tiny_engine(cuda_device, dtype="bfloat16")
     runner = llm.runner
-    forward, calls = runner._forward, []
+    forward, calls = runner._hidden, []
 
     def syncing(batch, max_q):
         out = forward(batch, max_q)
         calls.append(max_q)
-        out.sum().item()
+        out[0].sum().item()
         return out
-    runner._forward = syncing
+    runner._hidden = syncing
     sp = gt.SamplingParams(temperature=0.0, max_tokens=4, ignore_eos=True)
     with pytest.raises(RuntimeError):
         llm.generate(prompt_token_ids=[[1, 2, 3]], sampling_params=sp)
-    # the mixed step (eager), then the decode body's warm-up and its
-    # capture: no third, eager run of the decode step
-    assert len(calls) == 3 and calls[1:] == [1, 1]
+    # the first step is a prefill chunk: its mixed body's warm-up and its
+    # capture, at the key's max_q_len, and no third, eager run
+    assert len(calls) == 2 and calls[0] == calls[1] > 1
     assert runner.num_shape_signatures == 0
 
 
@@ -2818,13 +2935,15 @@ def test_spec_blocks_on_card_equal_the_cpu(cuda_device, family):
     card = make(cuda_device, **SPEC_FUSED)
     cpu = make("cpu", params=_to_cpu(card.runner.params), **SPEC_FUSED)
     plain = make(cuda_device, params=card.runner.params)
-    replays = card.runner.graphs.replays
+    by_kind = card.runner.graphs.by_kind
+    replays = {k: v["replays"] for k, v in by_kind.items()}
     got = _spec_serve(card)
     assert got == _spec_serve(cpu) == _spec_serve(plain)
     nblocks = card.runner.block_counts["block"]
     assert nblocks > 0 and card.scheduler.spec_stats["proposed"] > 0
     assert any(k[0] == "spec" for k in card.runner.graphs.keys)
-    assert (card.runner.graphs.replays - replays
+    assert (by_kind["decode"]["replays"] - replays["decode"]
+            + by_kind["spec"]["replays"] - replays["spec"]
             == card.step_counts["decode"] + nblocks)
     _drained(card)
     _counters_zero(cuda_device)

@@ -1,13 +1,14 @@
-"""The compiled decode step (``runner/graphs.py``) on the CPU: with
-``enforce_eager=False`` the runner runs every pure-decode step through the
-static-buffer body that the card captures as a CUDA graph, and its greedy
-streams stay token-identical to the JAX package's ``LLM`` at float32 on
-the same converted weights (dense legacy and unified, an int8 and an fp8
-cache, DeepSeek's MLA + MoE, a hybrid GDN period), through arrivals
-mid-run, EOS and length finishes and a 30-page pool that preempts; the
-device buffer is allocated once; the signature cache counts the decode
-signatures met; ``warmup`` runs JAX's bucket combos and leaves no state
-behind."""
+"""The compiled step (``runner/graphs.py``) on the CPU: with
+``enforce_eager=False`` the runner runs every pure-decode and mixed step
+(but a hybrid model's mixed ones) through the static-buffer body that the
+card captures as a CUDA graph, and its greedy streams stay
+token-identical to the JAX package's ``LLM`` at float32 on the same
+converted weights (dense legacy and unified, an int8 and an fp8 cache,
+DeepSeek's MLA + MoE, a hybrid GDN period), through arrivals mid-run, EOS
+and length finishes and a 30-page pool that preempts; the device buffer
+is allocated once; the signature cache counts the decode and mixed
+signatures met; ``warmup`` runs JAX's bucket combos and mixed pass and
+leaves no state behind."""
 
 import functools
 
@@ -22,6 +23,7 @@ from gllm_tpu.config import (CacheConfig as JCC, EngineConfig as JEC,
 from gllm_tpu.engine.llm import LLM as JLLM
 from gllm_tpu.models import dense as jdense
 from gllm_tpu.models.config import ModelConfig as JMC
+from gllm_tpu.runner.prepare import BatchBuilder as JBatchBuilder
 from gllm_tpu.runner.runner import ModelRunner as JRunner
 from gllm_tpu.sampling_params import SamplingParams as JSP
 
@@ -82,17 +84,22 @@ def _dense_engines(num_pages, kv="auto", unified=False):
     return jllm, _port(model, params, num_pages, kv, unified)
 
 
-def _record_decode_signatures(llm):
-    """Wrap the runner's dispatch to collect the graph keys of its decode
-    steps: (T, S, max_q_len, pages) and all_greedy."""
+def _record_signatures(llm):
+    """Wrap the runner's dispatch to collect the graph keys of its steps:
+    (T, S, max_q_len, pages) and all_greedy, tagged "mixed" for a step
+    that is not pure decode (a hybrid model's mixed steps run eagerly and
+    have none)."""
     runner, seen = llm.runner, set()
     step_async = runner.step_async
 
     def recording(batch, prev=None):
+        key = runner.builder.shape_signature(batch) + (all(
+            it.seq.sampling_params.temperature == 0.0
+            for it in batch.items),)
         if all(it.num_new_tokens == 1 for it in batch.items):
-            seen.add(runner.builder.shape_signature(batch) + (all(
-                it.seq.sampling_params.temperature == 0.0
-                for it in batch.items),))
+            seen.add(key)
+        elif not runner.hybrid:
+            seen.add(("mixed",) + key)
         return step_async(batch, prev)
     runner.step_async = recording
     return seen
@@ -104,7 +111,14 @@ def _check_graph_run(llm, seen):
     assert runner.graphs is not None and not runner.graphs.cuda
     assert runner.staging.allocations == 1
     assert runner.num_shape_signatures == len(seen)
-    assert len({k[3] for k in seen}) > 1       # the page bucket moved
+    assert runner.graphs.keys == seen
+    decode = {k for k in seen if k[0] != "mixed"}
+    assert len({k[3] for k in decode}) > 1     # the page bucket moved
+    mixed = llm.step_counts["mixed"]
+    assert runner.graphs.by_kind["mixed"]["replays"] == (
+        0 if runner.hybrid else mixed)
+    assert runner.eager_mixed == {"extras": 0, "enforce_eager": 0,
+                                  "hybrid": mixed if runner.hybrid else 0}
     assert llm.scheduler.num_preemptions > 0
     mm = llm.memory_manager
     assert mm.num_free_pages == mm.allocator.num_total
@@ -121,7 +135,7 @@ def test_graph_body_greedy_identical_to_jax(case):
     length finishes) over a 30-page pool that preempts."""
     jllm, tllm = _dense_engines(30, **DENSE[case])
     prompts, max_tokens, ignore_eos = _workload(7)
-    seen = _record_decode_signatures(tllm)
+    seen = _record_signatures(tllm)
     got = _drive(tllm, gt.SamplingParams, prompts, max_tokens, ignore_eos)
     want = _drive(jllm, JSP, prompts, max_tokens, ignore_eos)
     assert got == want
@@ -170,24 +184,25 @@ def test_graph_body_greedy_identical_to_eager(make):
     max_tokens = [int(m) for m in rng.integers(12, 30, 12)]
     keep = [True] * 12
     graph, eager = make(False), make(True)
-    seen = _record_decode_signatures(graph)
+    seen = _record_signatures(graph)
     got = _drive(graph, gt.SamplingParams, prompts, max_tokens, keep, 2)
     want = _drive(eager, gt.SamplingParams, prompts, max_tokens, keep, 2)
     assert got == want
     assert eager.runner.graphs is None
     assert eager.runner.num_shape_signatures == 0
     _check_graph_run(graph, seen)
-    assert {k[1] for k in seen} == {8, 16}      # the sequence bucket moved
+    # the sequence bucket moved
+    assert {k[1] for k in seen if k[0] != "mixed"} == {8, 16}
 
 
 class _StubRunner:
-    """What JAX's ``ModelRunner.warmup`` reads of its runner, recording
-    each step it asks for."""
+    """What JAX's ``ModelRunner.warmup`` reads of its runner (its batch
+    builder, for the signatures), recording each step it asks for."""
 
     def __init__(self, config, num_pages):
         self.config = config
         self.num_pages = num_pages
-        self.builder = type("B", (), {"unified": False})()
+        self.builder = JBatchBuilder(config, config.cache.page_size)
         self.steps = []
 
     def step(self, batch):
@@ -202,36 +217,51 @@ def _decode_steps(batches):
             if all(it.num_new_tokens == 1 for it in b.items)]
 
 
-def _warm_config(**kw):
+def _warm_config(unified=False, **kw):
     return gt.EngineConfig(
         dtype="float32", max_model_len=128, max_num_seqs=16,
+        unified_step=unified,
         scheduler=gt.SchedulerConfig(max_prefill_tokens=16,
                                      max_decode_seqs=16),
         cache=gt.CacheConfig(page_size=4, num_pages=30,
                              enable_prefix_caching=True, **kw))
 
 
-@pytest.mark.parametrize("buckets", [None, ((8,), (4, 8))],
-                         ids=["default", "given"])
-def test_warmup_runs_jax_combos(buckets):
+@pytest.mark.parametrize("buckets,unified", [
+    (None, False), (((8,), (4, 8)), False), (None, True)],
+    ids=["default", "given", "unified"])
+def test_warmup_runs_jax_combos(buckets, unified):
+    """The port's warmup runs JAX's decode combos, greedy and sampled, and
+    meets the mixed signatures (T, S, pages) that JAX's mixed pass leaves
+    in its ``_seen_sigs``, for the legacy and the unified step."""
     decode_buckets, page_buckets = buckets or (None, None)
     stub = _StubRunner(JEC(dtype="float32", max_model_len=128,
-                           max_num_seqs=16,
+                           max_num_seqs=16, unified_step=unified,
                            scheduler=JSC(max_prefill_tokens=16,
                                          max_decode_seqs=16),
                            cache=JCC(page_size=4, num_pages=30)), 30)
     JRunner.warmup(stub, decode_buckets, page_buckets)
     want = _decode_steps(stub.steps)
-    llm = gt.LLM(config=_warm_config(), model_cfg=gt.ModelConfig(**MODEL),
-                 device="cpu")
+    jax_mixed = {(t, s, p) for t, s, _, p in (
+        stub.builder.shape_signature(b) for b in stub.steps
+        if any(it.num_new_tokens > 1 for it in b.items))}
+    llm = gt.LLM(config=_warm_config(unified),
+                 model_cfg=gt.ModelConfig(**MODEL), device="cpu")
     ran = []
     step = llm.runner.step
     llm.runner.step = lambda b: (ran.append(b), step(b))[1]
     llm.runner.warmup(decode_buckets, page_buckets)
-    assert _decode_steps(ran) == want and len(ran) == len(want)
+    assert _decode_steps(ran) == want
     combos = graphs.warmup_combos(16, 32, 30, decode_buckets, page_buckets)
     assert [(n, p) for n, p, _ in want[::2]] == combos
-    assert llm.runner.num_shape_signatures == 2 * len(combos)
+    keys = llm.runner.graphs.keys
+    mixed = {k for k in keys if k[0] == "mixed"}
+    assert jax_mixed and {(k[1], k[2], k[4]) for k in mixed} == jax_mixed
+    # greedy and sampled: the port's key holds all_greedy
+    assert len(mixed) == 2 * len(jax_mixed) == len(ran) - len(want)
+    if unified:
+        assert {k[1] for k in mixed} == {llm.runner.builder.max_tokens}
+    assert llm.runner.num_shape_signatures == 2 * len(combos) + len(mixed)
 
 
 def test_warmup_leaves_no_state():

@@ -356,10 +356,11 @@ def test_chain_length_resolves_as_jax():
 
 
 def test_warmup_pins_pages_and_warms_sampled_blocks():
-    """Where blocks form, every pure-decode signature takes the one pinned
-    page bucket: ``warmup`` refuses ``page_buckets`` there, and at each
-    sequence bucket warms single steps and the longest block, both for
-    greedy and for sampled rows, at that bucket only."""
+    """Where blocks form, every signature takes the one pinned page
+    bucket: ``warmup`` refuses ``page_buckets`` there, and at each
+    sequence bucket warms single steps, the mixed pass's step and the
+    longest block, each for greedy and for sampled rows, at that bucket
+    only."""
     llm = _engine(False, **KW, **FLAGS["pipelined_odf"])
     runner = llm.runner
     pinned = runner.builder.max_pages_per_seq
@@ -369,9 +370,13 @@ def test_warmup_pins_pages_and_warms_sampled_blocks():
     assert runner.num_shape_signatures == 0
     runner.warmup(decode_buckets=(8,), block_buckets=(8,))
     keys = runner.graphs.keys
-    singles = {k for k in keys if k[0] != "block"}
+    singles = {k for k in keys if k[0] not in ("block", "mixed")}
     blocks = {k for k in keys if k[0] == "block"}
+    mixed = {k for k in keys if k[0] == "mixed"}
     assert {(k[1], k[3], k[4]) for k in singles} == {
+        (8, pinned, True), (8, pinned, False)}
+    # the mixed pass, at the decode bucket and the pinned page bucket
+    assert {(k[2], k[4], k[5]) for k in mixed} == {
         (8, pinned, True), (8, pinned, False)}
     assert {(k[2], k[4], k[5], k[6]) for k in blocks} == {
         (8, pinned, 16, True), (8, pinned, 16, False)}

@@ -409,9 +409,9 @@ def test_warmup_captures_the_unified_block_keys():
     warmed = set(runner.graphs.keys)
     blocks = {k for k in warmed if k[0] == "block"}
     assert blocks and all(k[1] == k[2] == k[3] for k in blocks)
-    served, forward = [], runner._forward
-    runner._forward = lambda batch, max_q: (served.append(max_q),
-                                            forward(batch, max_q))[1]
+    served, forward = [], runner._hidden
+    runner._hidden = lambda batch, max_q: (served.append(max_q),
+                                           forward(batch, max_q))[1]
     rng = np.random.default_rng(5)
     prompts = [rng.integers(2, 250, size=int(n)).tolist()
                for n in rng.integers(36, 44, size=8)]

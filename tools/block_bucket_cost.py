@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""What does a decode block cost a short context when it runs at the
-largest page bucket instead of the one its context needs? Builds
+"""What does a decode block, a decode step or a mixed step cost a short
+context when it runs at the largest page bucket instead of the one its
+context needs? Builds
 Llama-3.2-1B at full width (dummy bf16 weights) under the smoke's absorb
 flags (the unified step under overlap, persistent slots, blocks of 16
 under on-device finish) and times, for each row count at each context, a
-block of 16 sub-steps and a single decode step at the page bucket the
+block of 16 sub-steps, a single decode step and a mixed step (the rows
+less one decoding, then a ``--chunk``-token prompt chunk, at the unified
+step's one token bucket, as an absorb is) at the page bucket the
 context needs and at the pinned largest bucket (``max_model_len`` over
 the 16-token page: 256 pages at the default 4096 tokens, 128 at
 bench.py's 2048)
@@ -15,7 +18,7 @@ dummy page 0, as ``ModelRunner.warmup``'s are: the attention reads the
 same number of pages as real rows would.
 
     python3 tools/block_bucket_cost.py [--rows 8,16,64,128,256]
-        [--contexts 300,1000] [--max-model-len 4096]
+        [--contexts 300,1000] [--max-model-len 4096] [--chunk 512]
 
 Needs one CUDA card; prints one JSON line per shape.
 """
@@ -32,8 +35,10 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from gllm_tpu_torch import EngineConfig, LLM, ModelConfig  # noqa: E402
+from gllm_tpu_torch import (EngineConfig, LLM, ModelConfig,  # noqa: E402
+                            SamplingParams)
 from gllm_tpu_torch.scheduler import ScheduledBatch, ScheduledSeq  # noqa
+from gllm_tpu_torch.sequence import Sequence  # noqa: E402
 from gllm_tpu_torch.utils import bucket_size, cdiv  # noqa: E402
 
 K = 16
@@ -68,6 +73,7 @@ def main():
     ap.add_argument("--rows", default="8,16,64,128,256")
     ap.add_argument("--contexts", default="300,1000")
     ap.add_argument("--max-model-len", type=int, default=4096)
+    ap.add_argument("--chunk", type=int, default=512)
     args = ap.parse_args()
     llm = engine(args.max_model_len)
     runner = llm.runner
@@ -90,10 +96,26 @@ def main():
             def single():
                 runner.collect(runner.step_async(ScheduledBatch(
                     [ScheduledSeq(s, 1, ctx) for s in seqs])))
+
+            # a prompt chunk after the decode rows (the decode prefix
+            # first, as an absorb orders them), its pages the dummy page 0
+            chunk = Sequence(nseq, [1] * args.chunk,
+                             SamplingParams(temperature=0.0, max_tokens=4))
+            chunk.page_table = [0] * cdiv(args.chunk, page)
+
+            def mixed():
+                runner.collect(runner.step_async(ScheduledBatch(
+                    [ScheduledSeq(s, 1, ctx) for s in seqs[:nseq - 1]]
+                    + [ScheduledSeq(chunk, args.chunk, 0)])))
             out = {"rows": nseq, "context": ctx, "pages_needed": needed,
                    "pages_pinned": b.max_pages_per_seq, "K": K,
+                   "chunk": args.chunk,
+                   "mixed_pages_needed": bucket_size(
+                       max(needed, cdiv(args.chunk, page)), 4,
+                       b.max_pages_per_seq),
                    "card": smi}
-            for name, fn in (("block", block), ("single", single)):
+            for name, fn in (("block", block), ("single", single),
+                             ("mixed", mixed)):
                 ms = {}
                 for pinned in (False, True, True, False):
                     b.pin_pages = pinned

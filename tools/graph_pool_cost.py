@@ -2,17 +2,24 @@
 """How much of the graphs' memory pools does each key that
 ``ModelRunner.warmup`` captures hold, against what
 ``ModelRunner.activation_headroom`` keeps free for them? Builds
-Llama-3.2-1B at full width (dummy bf16 weights) under the OpenAI server's
+Llama-3.2-1B at full width (dummy bf16 weights; or DeepSeek-V2-Lite at
+full width with its depth cut to ``--layers``) under the OpenAI server's
 defaults and the flags of one of the smoke's HTTP servers (``full``:
 bench.py's full profile, fused speculation with 4 drafts over chains of
 32; ``absorb``: blocks of 16, no speculation), and captures the keys of
-``warmup`` one at a time, the largest sequence bucket first: the single
-decode step greedy and sampled, then the longest block (a spec block under
-speculation) greedy and sampled. After each it reads the bytes each pool
-holds (the graphs' pool, the IF-node bodies' pool).
+``warmup`` one at a time: first the mixed step of the warmup's mixed pass
+(a full prefill chunk and nseq - 1 decode rows, at the unified step's one
+token bucket) at the smallest sequence bucket, greedy and sampled, into
+the empty pool (what the mixed steps' own transients take), then the
+largest sequence bucket first: the single decode step greedy and
+sampled, the longest block (a spec block under speculation) greedy and
+sampled, then the mixed step greedy and sampled. After each it reads the
+bytes each pool holds (the graphs' pool, the IF-node bodies' pool). The
+summary puts the mixed keys' growth beside ``mixed_pool_bytes``, the
+headroom's reckoning of them, and the growth the mixed keys added first.
 
     python3 tools/graph_pool_cost.py [--profile full|absorb]
-                                     [--rows 256,128,64,32,16,8]
+        [--rows 256,128,64,32,16,8] [--model llama|deepseek] [--layers 4]
 
 Needs one CUDA card; prints one JSON line per key and a summary line.
 """
@@ -32,7 +39,8 @@ import chip_smoke as smoke  # noqa: E402
 from gllm_tpu_torch import LLM  # noqa: E402
 from gllm_tpu_torch.entrypoints.api_server import (  # noqa: E402
     build_engine_config, make_parser)
-from gllm_tpu_torch.runner.runner import GRAPH_POOL_LOGIT_COPIES  # noqa
+from gllm_tpu_torch.runner.runner import (  # noqa: E402
+    GRAPH_POOL_LOGIT_COPIES, GRAPH_POOL_MIXED_ROWS)
 
 MiB = 2 ** 20
 
@@ -53,13 +61,19 @@ def main():
     ap.add_argument("--profile", choices=("full", "absorb"),
                     default="full")
     ap.add_argument("--rows", default="256,128,64,32,16,8")
+    ap.add_argument("--model", choices=("llama", "deepseek"),
+                    default="llama")
+    ap.add_argument("--layers", type=int, default=4,
+                    help="DeepSeek's depth (the transients are a layer's)")
     args = ap.parse_args()
     flags = smoke.HTTP_SERVERS[
         "full profile" if args.profile == "full" else "absorb"]
     config = build_engine_config(make_parser().parse_args(
         ["--model", "unused", "--load-format", "dummy", "--dtype",
          "bfloat16", *flags]))
-    llm = LLM(model_cfg=smoke.llama_3_2_1b(), config=config)
+    model = (smoke.llama_3_2_1b() if args.model == "llama" else
+             smoke.deepseek_v2_lite(num_hidden_layers=args.layers))
+    llm = LLM(model_cfg=model, config=config)
     runner = llm.runner
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -76,20 +90,43 @@ def main():
     block = runner._warm_spec_block if spec else runner._warm_block
     runner._warming = True          # throwaway rows: no page or slot queues
     before = pools_mib(runner.graphs)
-    for nseq in [int(r) for r in args.rows.split(",")]:
+    rows_list = [int(r) for r in args.rows.split(",")]
+    # the mixed steps' own transients: their keys at the smallest bucket
+    # captured first, into an empty pool (the sampling transients of a
+    # few rows are small beside the forward's at the token bucket)
+    for temp in (0.0, 1.0):
+        runner._warm_mixed(min(rows_list), npages, temp)
+    torch.cuda.synchronize()
+    now = pools_mib(runner.graphs)
+    alone_mib = now["graphs"] - before["graphs"]
+    print(json.dumps({
+        "profile": args.profile, "model": args.model, "key": "mixed first",
+        "rows": min(rows_list), "pages": npages,
+        "tokens": runner.builder.max_tokens, "graphs_mib": now["graphs"],
+        "graphs_growth_mib": alone_mib}), flush=True)
+    before = now
+    mixed_mib = 0.0
+    for nseq in rows_list:
         for kind, temp in (("single", 0.0), ("single", 1.0),
                            ("spec block" if spec else "block", 0.0),
-                           ("spec block" if spec else "block", 1.0)):
+                           ("spec block" if spec else "block", 1.0),
+                           ("mixed", 0.0), ("mixed", 1.0)):
             if kind == "single":
                 runner._warm_step(nseq, npages, temp)
+            elif kind == "mixed":
+                runner._warm_mixed(nseq, npages, temp)
             else:
                 block(nseq, npages, K, temp)
             torch.cuda.synchronize()
             now = pools_mib(runner.graphs)
+            if kind == "mixed":
+                mixed_mib += now["graphs"] - before["graphs"]
             print(json.dumps({
-                "profile": args.profile, "key": kind, "rows": nseq,
-                "sampled": temp > 0, "pages": npages,
-                "K": 1 if kind == "single" else K,
+                "profile": args.profile, "model": args.model, "key": kind,
+                "rows": nseq, "sampled": temp > 0, "pages": npages,
+                "tokens": runner.builder.max_tokens if kind == "mixed"
+                else nseq,
+                "K": 1 if kind in ("single", "mixed") else K,
                 "graphs_mib": now["graphs"],
                 "graphs_growth_mib": now["graphs"] - before["graphs"],
                 "bodies_mib": now["bodies"],
@@ -98,7 +135,12 @@ def main():
             before = now
     pools = 2 if K > 1 else 1
     print(json.dumps({
-        "profile": args.profile, "card": smi, "kv_pages": runner.num_pages,
+        "profile": args.profile, "model": args.model, "card": smi,
+        "kv_pages": runner.num_pages,
+        "mixed_first_mib": alone_mib,
+        "mixed_growth_mib": mixed_mib,
+        "mixed_reckoned_mib": runner.mixed_pool_bytes() / MiB,
+        "mixed_rows": GRAPH_POOL_MIXED_ROWS,
         "graphs": len(runner.graphs), "pools_mib": before,
         "pools_total_mib": sum(before.values()),
         "headroom_graph_part_mib": pools * per_pool,
