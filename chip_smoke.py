@@ -174,7 +174,12 @@ non-zero exit code and no result line:
              fp8 cache and the unified step, DeepSeek at the small latent
              geometry over a bf16 and an fp8 latent and the unified step,
              two mixed batches each: the same tokens, the largest logit
-             difference to a replay of the same forward printed
+             difference to a replay of the same forward printed; then
+             each engine's extras case (extras_replay): a mixed step with
+             penalties, logit_bias, logprobs and prompt logprobs beside
+             plain rows, run eagerly and replayed through its
+             "mixed_extras" key: tokens, logprobs and prompt logprobs
+             bit for bit
 6. spec      prompt-lookup speculative decoding at full width, bf16:
              Llama-3.2-1B and DeepSeek-V2-Lite (its depth cut to 8
              layers, SPEC_DEEPSEEK_LAYERS) each under bench.py's full
@@ -210,9 +215,13 @@ non-zero exit code and no result line:
              seeded sampled rows, penalties, +100 and -100 logit_bias,
              logprobs 5 and prompt logprobs 1, beside their plain greedy
              twin on the same engine, runs plain, sampling, sampling,
-             plain: tok/s and the ratio, the share of eager "extras"
-             steps, launches (K1u and the seeded-Gumbel kernel, no plain
-             version) and no graph captured while serving; every request
+             plain: tok/s and the ratio, the extras steps (every one
+             replays its extras key: keys captured at first sight in the
+             probe and the first sampling run, none in the second), host
+             launch calls an extras dispatch (a profiled run), the
+             extras upload's fill and copy at S 256 and max_model_len
+             penalty ids, launches (K1u and the seeded-Gumbel kernel, no
+             plain version); every request
              finishes with its count, a +100-biased row starts with its
              biased token and a -100-biased row never emits its own
              (both under FLAT_REP, which flattens the dummy model's
@@ -245,11 +254,12 @@ non-zero exit code and no result line:
              tok/s beside the serve phase's absorb twin, absorbs,
              speculation's counts and chain breaks, for every pass;
              then on the absorb server one request each with logprobs,
-             top_logprobs, a seed (sent twice: the same tokens),
-             penalties, a +100 logit_bias (on a probe's second token
-             under FLAT_REP: it comes first), best_of 3 with n 1 and
-             echo with prompt_logprobs: 200 in OpenAI's shape, no graph
-             captured
+             top_logprobs, a seed, penalties, a +100 logit_bias (on a
+             probe's second token under FLAT_REP: it comes first),
+             best_of 3 with n 1 and echo with prompt_logprobs, each sent
+             twice: 200 in OpenAI's shape, the seeded one's tokens
+             repeated, the extras keys captured at first sight and none
+             by the repeat
 9. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
@@ -1976,10 +1986,11 @@ def explain_difference(eager, prompts, got, want, where):
 
 def graph_split(g):
     """A DecodeGraphs' keys, capture seconds and pool growth, split into
-    the decode side (single steps, blocks, spec blocks) and the mixed side
-    (mixed and verify steps)."""
+    the decode side (single steps, blocks, spec blocks), the mixed side
+    (mixed and verify steps) and the extras keys (any kind)."""
     sides = {"decode": ("decode", "block", "spec"),
-             "mixed": ("mixed", "verify")}
+             "mixed": ("mixed", "verify"),
+             "extras": ("decode_extras", "mixed_extras", "verify_extras")}
     return {side: dict(
         keys=sum(g.by_kind[k]["captured"] for k in kinds),
         capture_s=round(sum(g.by_kind[k]["capture_s"] for k in kinds), 3),
@@ -2011,28 +2022,31 @@ def graph_delta(e, before):
     return d
 
 
+MIXED_KINDS = ("mixed", "verify", "mixed_extras", "verify_extras")
+
+
 def mixed_line(name, e, d):
     """The mixed steps of a run (``graph_delta`` ``d``): replayed (mixed
-    and verify keys) against run eagerly, by reason. Every mixed step of
-    an engine with graphs replays a graph but a hybrid model's and one
-    whose batch carries extras; an ``enforce_eager`` engine's are all
-    eager."""
+    and verify keys, with extras or without) against run eagerly, by
+    reason. Every mixed step of an engine with graphs replays a graph but
+    a hybrid model's; an ``enforce_eager`` engine's are all eager."""
     mixed = d["steps"]["mixed"]
-    replayed = d["replays"]["mixed"] + d["replays"]["verify"]
+    replayed = sum(d["replays"][k] for k in MIXED_KINDS)
     eager = d["eager"]
     assert replayed + sum(eager.values()) == mixed, \
         f"[{name}] {mixed} mixed steps, {replayed} replayed, eager {eager}"
+    assert not eager["extras"], f"[{name}] eager mixed steps {eager}"
     if e.runner.graphs is None:
         assert eager["enforce_eager"] == mixed
     elif e.runner.hybrid:
-        assert eager["hybrid"] + eager["extras"] == mixed
+        assert eager["hybrid"] == mixed
     else:
         assert eager["hybrid"] == eager["enforce_eager"] == 0, \
             f"[{name}] eager mixed steps {eager}"
-    return (f"mixed steps {mixed}: {replayed} replayed ({d['replays']['mixed']}"
-            f" mixed, {d['replays']['verify']} verify), "
+    by = ", ".join(f"{d['replays'][k]} {k}" for k in MIXED_KINDS)
+    return (f"mixed steps {mixed}: {replayed} replayed ({by}), "
             f"{sum(eager.values())} eager ({eager}); mixed keys captured at "
-            f"first sight {d['captured']['mixed'] + d['captured']['verify']}")
+            f"first sight {sum(d['captured'][k] for k in MIXED_KINDS)}")
 
 
 def serve(name, model, kw, runs, by_kind, profiled, params=None):
@@ -3251,8 +3265,10 @@ def mixed_replays(llama, ds):
                 f"({by['replays']} replays of {by['captured']} mixed keys) "
                 f"give the eager step's tokens; largest logit difference "
                 f"to a replay of the same forward {worst}")
-            assert by["replays"] == 2 and runner.eager_mixed == dict(
-                extras=0, hybrid=0, enforce_eager=0)
+            assert by["replays"] == 2
+            extras_replay(label, llm, rng)
+            assert runner.eager_mixed == dict(extras=0, hybrid=0,
+                                              enforce_eager=0)
             # the engine's graphs (and the split-KV scratch they hold at
             # its address) go before the next engine sizes its own
             del llm, runner, probe, logits, staged, dev_batch
@@ -3260,6 +3276,54 @@ def mixed_replays(llama, ds):
             torch.cuda.empty_cache()
         del params
     assert split_counters_clear(), "a decode kernel left a split counter set"
+
+
+def extras_replay(label, llm, rng):
+    """The extras case of ``mixed_replays``: two new prompts whose rows
+    carry penalties, a logit_bias, logprobs and prompt logprobs (greedy)
+    join the engine's running rows (plain: their extras neutral) in one
+    mixed step, run eagerly through the runner's step body and then
+    through its "mixed_extras" key (captured at first sight, replayed):
+    the tokens, the sampled tokens' logprobs and the prompt logprobs
+    agree bit for bit."""
+    from gllm_tpu_torch import SamplingParams
+    runner = llm.runner
+    sp = SamplingParams(temperature=0.0, max_tokens=4, ignore_eos=True,
+                        repetition_penalty=1.2, presence_penalty=0.2,
+                        logit_bias={7: 2.0, 11: -3.0}, logprobs=5,
+                        prompt_logprobs=2)
+    for n in (50, 90):
+        llm.add_seq(llm._allocate_seq(
+            rng.integers(1, llm.model_cfg.vocab_size, n).tolist(), sp))
+    batch = llm.scheduler.schedule_once()
+    n = batch.num_seqs
+    assert any(it.num_new_tokens > 1 for it in batch.items)
+    dev_batch, max_q = runner.prepare(batch)
+    _, plp = runner._lp_flags(batch)
+    assert plp
+    with torch.inference_mode():
+        runner._prologue(dev_batch)
+        want, want_aux = runner._step_body(dev_batch, max_q, True, True, plp)
+    want_aux = {k: tuple(x.cpu().numpy() for x in v)
+                for k, v in want_aux.items()}
+    want = want[:n].tolist()
+    handle = runner.step_async(batch)
+    got = runner.collect(handle).tolist()
+    aux = runner.aux(handle)
+    rows = batch.total_tokens
+    assert got == want, f"[reference] {label}, extras step: the replayed " \
+        "step's tokens are not the eager step's"
+    for name, cut in (("lp", n), ("plp", rows)):
+        for a, b in zip(aux[name], want_aux[name]):
+            assert np.array_equal(a[:cut], b[:cut]), \
+                f"[reference] {label}, extras step: {name} differs"
+    llm.scheduler.process_output(batch, got, llm.eos_token_ids)
+    by = runner.graphs.by_kind["mixed_extras"]
+    assert by["replays"] == 1 == by["captured"]
+    log(f"[reference] extras replay, {label}: a mixed step with "
+        f"penalties, logit_bias, logprobs 5 and prompt logprobs 2 ({n} "
+        f"rows, {rows} tokens) replayed its mixed_extras key with the "
+        f"eager step's tokens, logprobs and prompt logprobs bit for bit")
 
 
 # ---- 6. spec -------------------------------------------------------------
@@ -3783,15 +3847,103 @@ def check_sampling_outputs(outs, params, top2):
             assert all(e[0] <= 0 and len(e[1]) == 1 for e in plp[1:])
 
 
+EXTRAS_KINDS = ("decode_extras", "mixed_extras", "verify_extras")
+# the sampling phase's numbers while extras steps ran eagerly (H100 80GB
+# HBM3, 700.00 W): its tok/s ratio against the plain twin and the host
+# launch calls an eager extras dispatch made
+SAMPLING_BEFORE = dict(ratio=0.154, launch_calls="918-935")
+
+
+def upload_cost(llm, iters=10):
+    """The extras' upload at its widest: ``max_seqs`` decode rows whose
+    penalty ids fill ``max_model_len`` (a repetition penalty, a logit_bias
+    pair and logprobs each): the host's fill (the batch built and packed
+    into the pinned buffer) and the copy's device time, medians of
+    ``iters``; and the MiB copied."""
+    from gllm_tpu_torch import SamplingParams
+    from gllm_tpu_torch.scheduler import ScheduledBatch, ScheduledSeq
+    from gllm_tpu_torch.sequence import Sequence
+    runner = llm.runner
+    b = runner.builder
+    ctx = b.penalty_len - 2
+    sp = SamplingParams(temperature=0.0, max_tokens=1, logprobs=1,
+                        repetition_penalty=1.1, logit_bias={5: 1.0})
+    items = []
+    for i in range(b.max_seqs):
+        seq = Sequence(i, [1 + (j % 1000) for j in range(ctx + 1)], sp)
+        seq.page_table = [0] * b.max_pages_per_seq
+        seq.num_computed_tokens = ctx
+        items.append(ScheduledSeq(seq, 1, ctx))
+    batch = ScheduledBatch(items)
+    fill, copy = [], []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = b.build(batch)[0]
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        runner.staging.upload(host)
+        end.record()
+        fill.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        copy.append(start.elapsed_time(end))
+    n = b.upload_size(*host.token_ids.shape, *host.attn.page_table.shape) \
+        + b.extras_size(host.token_ids.size, b.max_seqs)
+    return dict(rows=b.max_seqs, penalty_len=b.penalty_len,
+                mib=n * 4 / 2**20, fill_ms=median(fill),
+                copy_ms=median(copy))
+
+
+def extras_launch_calls(llm, prompts, params):
+    """Host calls that launch work inside each extras dispatch (a single
+    step whose batch carries extras), over a run of ``prompts`` (8 tokens
+    each) under torch.profiler, the steps marked with record_function,
+    after the same run unprofiled (whose keys it captures first):
+    (calls a dispatch, dispatches)."""
+    from bisect import bisect_right
+    from torch.profiler import ProfilerActivity, profile, record_function
+    runner = llm.runner
+    step_async = runner.step_async
+
+    def marked(batch, prev=None, **kw):
+        tag = ("gllm_extras" if runner.builder.batch_extras(batch)
+               else "gllm_plain")
+        with record_function(tag):
+            return step_async(batch, prev, **kw)
+    short = [dataclasses.replace(sp, max_tokens=8) for sp in params]
+    llm.generate(prompt_token_ids=prompts, sampling_params=short)
+    runner.step_async = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            llm.generate(prompt_token_ids=prompts, sampling_params=short)
+    finally:
+        del runner.step_async
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "gllm_extras")
+    starts = [a for a, _ in spans]
+    calls = 0
+    for e in events:
+        if e.name in LAUNCH_CALLS:
+            i = bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.start <= spans[i][1]:
+                calls += 1
+    return calls / max(1, len(spans)), len(spans)
+
+
 def phase_sampling():
     """Sampling completeness at full width, bf16: Llama-3.2-1B under the
     absorb flags (warmed at SAMPLING_BUCKETS) serves the serve phase's 16
     prompts with the options of ``sampling_params`` and, as its plain
     twin, as greedy rows, runs plain, sampling, sampling, plain: tok/s and
-    the ratio of medians, the share of eager "extras" steps, the kernels
-    launched (K1u and the seeded-Gumbel kernel, no plain version) and the
-    graphs captured while serving (none: seeded rows ride the graphs that
-    warmup made, the other extras run eagerly). The seeded rows must
+    the ratio of medians, the extras steps and how they ran (every one
+    replays its extras key: the first sampling run may capture keys at
+    first sight, as JAX compiles them, and the second captures none), the
+    kernels launched (K1u and the seeded-Gumbel kernel, no plain version),
+    host launch calls an extras dispatch (a profiled run) and the extras
+    upload's cost at its widest (``upload_cost``). The seeded rows must
     repeat between the two sampling runs (the same batches), and
     ``check_sampling_outputs`` hold. Returns the launch counts of the
     sampling runs under the name the kernels line reads."""
@@ -3807,16 +3959,22 @@ def phase_sampling():
     g = llm.runner.graphs
     warmed = len(g)
     log(f"[sampling] absorb engine ({dict(ABSORB, unified_step=True)}) up "
-        f"and warmed in {time.monotonic() - t0:.1f} s: {warmed} graphs")
+        f"and warmed in {time.monotonic() - t0:.1f} s: {warmed} graphs, "
+        f"{llm.runner.num_pages} KV pages, extras reckoned "
+        f"{llm.runner.extras_pool_bytes() / 2**20:.1f} MiB of the "
+        f"headroom's {llm.runner.activation_headroom() / 2**20:.1f}")
     prompts, max_tokens = serving_workload(llm.model_cfg.vocab_size)
     plain = [SamplingParams(temperature=0.0, max_tokens=m, ignore_eos=True)
              for m in max_tokens]
+    pool0 = g.pool_bytes()
     top2 = sampling_probe(llm, prompts)
     params = sampling_params(top2, max_tokens)
     rates = {"plain": [], "sampling": []}
     streams, counts = {}, collections.Counter()
+    captures = []
     for mode in ("plain", "sampling", "sampling", "plain"):
         steps0, blocks0 = dict(llm.step_counts), dict(llm.blocks)
+        before = graph_counts(llm)
         reset_counters()
         ps = plain if mode == "plain" else params
         torch.cuda.synchronize()
@@ -3825,6 +3983,7 @@ def phase_sampling():
         torch.cuda.synchronize()
         wall = time.monotonic() - t1
         launched = read_counters()
+        d = graph_delta(llm, before)
         n_out = sum(o.num_output_tokens for o in outs)
         rates[mode].append(n_out / wall)
         toks = [o.output_token_ids for o in outs]
@@ -3832,6 +3991,10 @@ def phase_sampling():
                  for k in llm.step_counts}
         blocks = dict(collections.Counter(llm.blocks)
                       - collections.Counter(blocks0))
+        # every single step replays a key: extras steps their extras keys
+        assert d["replays"]["decode_extras"] == steps["extras"], d
+        assert d["replays"]["decode"] == steps["decode"], d
+        line = mixed_line(f"sampling {mode}", llm, d)
         if mode == "sampling":
             check_sampling_outputs(outs, params, top2)
             counts.update(launched)
@@ -3842,31 +4005,54 @@ def phase_sampling():
                 "seeded_gumbel")}
             assert not bad and launched["seeded_gumbel"] > 0, \
                 f"[sampling] the run launched {launched}"
+            assert steps["extras"] + d["replays"]["mixed_extras"] > 0
+            captures.append(d)
+        else:
+            assert not d["captured_total"], \
+                f"[sampling] the plain run captured {d['captured']}"
         assert streams.setdefault(mode, toks) == toks, \
             f"[sampling] two {mode} runs gave different streams " \
             f"(first difference {first_difference(streams[mode], toks)})"
-        total = sum(steps.values())
+        extras = {k: d["replays"][k] for k in EXTRAS_KINDS}
+        new = {k: n for k, n in d["captured"].items() if n}
         log(f"[sampling] {mode} run: {n_out} tokens in {wall:.3f} s = "
             f"{n_out / wall:.1f} output tok/s; steps by kind {steps} "
-            f"(eager extras {steps['extras']} of {total} single steps, "
-            f"{steps['extras'] / max(1, total):.3f}), blocks by K {blocks}, "
-            f"launches { {k: n for k, n in launched.items() if n} }")
-    captured = len(g) - warmed
-    assert not captured, f"[sampling] {captured} graphs captured while " \
-        "serving"
+            f"(extras replays by kind {extras}), {line}; graphs captured "
+            f"{d['captured_total']} ({new}, "
+            f"{sum(d['capture_s'].values()):.3f} s); blocks by K "
+            f"{blocks}, launches { {k: n for k, n in launched.items() if n} }")
+    first, second = captures
+    assert not second["captured_total"], \
+        f"[sampling] the second sampling run captured {second['captured']}"
+    pool_mib = (g.pool_bytes() - pool0) / 2**20
     ratio = median(rates["sampling"]) / median(rates["plain"])
+    per, n_disp = extras_launch_calls(llm, prompts, params)
+    cost = upload_cost(llm)
     log(f"[sampling] sampling {[round(r, 1) for r in rates['sampling']]} "
         f"tok/s against the plain greedy twin's "
         f"{[round(r, 1) for r in rates['plain']]} ({ratio:.3f}x of "
-        f"medians); graphs captured while serving {captured}; seeded rows "
-        f"repeat between the two runs; on {SMI}")
+        f"medians; before extras-step capture {SAMPLING_BEFORE['ratio']}x);"
+        f" extras keys captured at first sight (probe and run 1) "
+        f"{sum(g.by_kind[k]['captured'] for k in EXTRAS_KINDS)} in "
+        f"{sum(g.by_kind[k]['capture_s'] for k in EXTRAS_KINDS):.3f} s, "
+        f"pools grew {pool_mib:.1f} MiB (extras reckoned "
+        f"{llm.runner.extras_pool_bytes() / 2**20:.1f} MiB); run 2 "
+        f"captured none; {per:.2f} host launch calls an extras dispatch "
+        f"({n_disp} dispatches profiled; eager before: "
+        f"{SAMPLING_BEFORE['launch_calls']}); the extras upload at S "
+        f"{cost['rows']}, {cost['penalty_len']} penalty ids a row "
+        f"({cost['mib']:.2f} MiB): host fill {cost['fill_ms']:.3f} ms, "
+        f"copy {cost['copy_ms']:.3f} ms; seeded rows repeat between the "
+        f"two runs; on {SMI}")
     assert not llm.has_unfinished and llm.memory_manager.num_free_pages \
         == llm.memory_manager.allocator.num_total
     del llm
     gc.collect()
     torch.cuda.empty_cache()
     return {"sampling": dict(counts=dict(counts), rates=rates, ratio=ratio,
-                             graphs_captured=captured)}
+                             graphs_captured=first["captured_total"],
+                             extras_pool_mib=pool_mib,
+                             launch_calls=per, upload=cost)}
 
 
 # ---- 8. http -------------------------------------------------------------
@@ -3884,10 +4070,13 @@ HTTP_SERVERS = {
         "--inflight-depth", "4", "--decode-chain-len", "32",
         "--spec-decode", "ngram", "--spec-k", "4", "--spec-ngram", "2",
         "--spec-fused")}
-# each server's KV pages and its first pass's client TTFT p50 / p99 (ms)
-# while mixed steps ran eagerly (H100 80GB HBM3, 700.00 W)
-HTTP_BEFORE = {"absorb": dict(pages=128801, ttft_ms=(96.5, 177.3)),
-               "full profile": dict(pages=96737, ttft_ms=(117.5, 225.9))}
+# each server's KV pages, graph pools (MiB) and its first pass's client
+# TTFT p50 / p99 (ms) before extras-step capture, the largest-bucket-first
+# warmup and the measured pool reckoning (H100 80GB HBM3, 700.00 W)
+HTTP_BEFORE = {"absorb": dict(pages=127745, pools=3820.0,
+                              ttft_ms=(78.4, 111.5)),
+               "full profile": dict(pages=95233, pools=18146.0,
+                                    ttft_ms=(93.0, 151.2))}
 # Llama-3.2-1B's published config.json, at the widths llama_3_2_1b()
 # spells out
 HTTP_CONFIG = dict(
@@ -4054,11 +4243,13 @@ def _pass(port, payloads, label):
 def http_sampling_pass(port, prompts, label):
     """The sampling options over HTTP, one request each (token-array
     completions: the server has no tokenizer): logprobs, top_logprobs, a
-    seed (the request sent twice gives the same tokens), penalties, a
+    seed (sent twice, it gives the same tokens), penalties, a
     +100 logit_bias on a probe's second token under FLAT_REP (it comes
     first), best_of 3 with n 1, and echo with prompt_logprobs.
-    Every answer is 200 in OpenAI's shape, and the pass captures no CUDA
-    graph. Returns the eager extras steps it ran."""
+    Every answer is 200 in OpenAI's shape. The requests are then sent
+    again: every answer 200 again (the seeded one with its tokens), and
+    the repeat captures no CUDA graph (the first sending may capture the
+    extras keys at first sight). Returns the extras steps both ran."""
     info0 = json.loads(_get(port, "/server_info")[1])["engine_counters"]
     base = {"prompt": prompts[0], "max_tokens": 12, "ignore_eos": True}
     # the first step's top two under FLAT_REP: the +100 bias goes on the
@@ -4083,15 +4274,20 @@ def http_sampling_pass(port, prompts, label):
         "best_of": dict(base, temperature=0.8, seed=3, best_of=3, n=1),
         "echo": dict(base, prompt=prompts[1][:64], temperature=0.0,
                      echo=True, prompt_logprobs=1, logprobs=1)}
-    answers = {}
-    for name, body in reqs.items():
-        status, ans = _post(port, "/v1/completions", body)
-        assert status == 200, f"[http] {label} {name}: {status} {ans}"
-        assert ans["object"] == "text_completion" and \
-            len(ans["choices"]) == 1 and \
-            ans["usage"]["completion_tokens"] == 12, \
-            f"[http] {label} {name}: {ans}"
-        answers[name] = ans["choices"][0]
+    sent = []
+    for _ in range(2):
+        answers = {}
+        for name, body in reqs.items():
+            status, ans = _post(port, "/v1/completions", body)
+            assert status == 200, f"[http] {label} {name}: {status} {ans}"
+            assert ans["object"] == "text_completion" and \
+                len(ans["choices"]) == 1 and \
+                ans["usage"]["completion_tokens"] == 12, \
+                f"[http] {label} {name}: {ans}"
+            answers[name] = ans["choices"][0]
+        sent.append((answers, json.loads(
+            _get(port, "/server_info")[1])["engine_counters"]))
+    (first, info_first), (answers, info1) = sent
     for name in ("logprobs", "top_logprobs", "seed", "logit_bias"):
         lp = answers[name]["logprobs"]
         assert set(lp) == {"tokens", "token_logprobs", "top_logprobs",
@@ -4105,8 +4301,7 @@ def http_sampling_pass(port, prompts, label):
     assert answers["logit_bias"]["logprobs"]["tokens"][0] == second, \
         f"[http] {label}: +100 bias on {second}: " \
         f"{answers['logit_bias']['logprobs']['tokens']}"
-    status, again = _post(port, "/v1/completions", reqs["seed"])
-    assert status == 200 and again["choices"][0]["logprobs"]["tokens"] == \
+    assert first["seed"]["logprobs"]["tokens"] == \
         answers["seed"]["logprobs"]["tokens"], \
         f"[http] {label}: a repeated seeded request gave other tokens"
     echo = answers["echo"]["logprobs"]
@@ -4115,16 +4310,21 @@ def http_sampling_pass(port, prompts, label):
         echo["token_logprobs"][0] is None and \
         all(x <= 0 for x in echo["token_logprobs"][1:])
     assert answers["best_of"]["finish_reason"] == "length"
-    info1 = json.loads(_get(port, "/server_info")[1])["engine_counters"]
-    captured = info1["graphs"] - info0["graphs"]
+    captured = info_first["graphs"] - info0["graphs"]
+    repeat = info1["graphs"] - info_first["graphs"]
     extras = info1["extras_steps"] - info0["extras_steps"]
-    assert not captured, f"[http] {label}: {captured} graphs captured"
-    log(f"[http] {label}: {len(reqs) + 2} requests (logprobs, top_logprobs,"
-        f" a seed twice, penalties, a probe and a +100 logit_bias on its "
-        f"second token, best_of 3 with n 1, echo with prompt_logprobs) "
-        f"answered 200 in OpenAI's shape; the seeded "
-        f"request repeated its tokens; {extras} eager extras steps; "
-        f"{captured} graphs captured")
+    assert not repeat, f"[http] {label}: the repeat captured {repeat} graphs"
+    assert not any(info1["eager_mixed"].values()), \
+        f"[http] {label}: eager mixed steps {info1['eager_mixed']}"
+    replays = {k: info1["graph_replays"][k] - info0["graph_replays"][k]
+               for k in EXTRAS_KINDS}
+    log(f"[http] {label}: a probe and {len(reqs)} requests (logprobs, "
+        f"top_logprobs, a seed, penalties, a +100 logit_bias on the probe's "
+        f"second token, best_of 3 with n 1, echo with prompt_logprobs), "
+        f"each sent twice, answered 200 in OpenAI's shape; the seeded "
+        f"request repeated its tokens; {extras} pure-decode extras steps, "
+        f"extras replays by kind {replays}; graphs captured at first sight "
+        f"{captured}, by the repeat {repeat}")
     return extras
 
 
@@ -4213,8 +4413,9 @@ def http_server(name, flags, served):
             f"{info['parallel']['fast_path']}, "
             f"{info['engine_counters']['graphs']} graphs warmed in "
             f"{info['engine_counters']['capture_s']:.2f} s, graph pools "
-            f"{info['engine_counters']['graph_pool_mib']:.1f} MiB; KV pages "
-            f"before mixed-step capture {HTTP_BEFORE[name]['pages']}")
+            f"{info['engine_counters']['graph_pool_mib']:.1f} MiB; before "
+            f"extras-step capture: KV pages {HTTP_BEFORE[name]['pages']}, "
+            f"graph pools {HTTP_BEFORE[name]['pools']} MiB")
         m0 = _scrape(port)
         passes = []
         while len(passes) < HTTP_PASSES and (
@@ -4280,14 +4481,14 @@ def http_server(name, flags, served):
             f"aborts {n_abort:.0f}, TTFT observations {n_ttft:.0f}; the "
             "gauges and KV use read 0")
         ec = json.loads(_get(port, "/server_info")[1])["engine_counters"]
-        replayed = ec["graph_replays"]["mixed"] + ec["graph_replays"]["verify"]
+        replayed = sum(ec["graph_replays"][k] for k in MIXED_KINDS)
         assert replayed + sum(ec["eager_mixed"].values()) == ec["mixed_steps"]
         assert not any(ec["eager_mixed"].values()), \
             f"[http {name}] eager mixed steps {ec['eager_mixed']}"
         ttft = passes[0]["client_ms"]["ttft_ms"]
         log(f"[http {name}] mixed steps {ec['mixed_steps']}, all replayed "
             f"({ec['graph_replays']}); pass 1 client TTFT p50 {ttft['p50']} "
-            f"ms, p99 {ttft['p99']} ms (before mixed-step capture: "
+            f"ms, p99 {ttft['p99']} ms (before extras-step capture: "
             f"{HTTP_BEFORE[name]['ttft_ms'][0]}, "
             f"{HTTP_BEFORE[name]['ttft_ms'][1]})")
         if name == "absorb":

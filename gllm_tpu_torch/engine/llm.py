@@ -59,10 +59,11 @@ the tokens each row emitted, re-anchors the links on the committed
 state and trims the entries in flight (``FutureMap.trim_overpromise``).
 Unless
 ``EngineConfig.enforce_eager``, each step on the card (pure decode,
-mixed, absorb, host-driven verify) replays the CUDA graph of its key
-(``runner/graphs.py``; warm them ahead of serving with
-``llm.runner.warmup()``), but for a step whose batch carries penalties,
-logit_bias or logprobs and a hybrid model's mixed step. Token ids in and out;
+mixed, absorb, host-driven verify, with penalties, logit_bias or logprobs
+or without) replays the CUDA graph of its key (``runner/graphs.py``;
+warm them ahead of serving with ``llm.runner.warmup()``; a step with
+extras captures its key at first sight), but for a hybrid model's mixed
+step. Token ids in and out;
 a text prompt, its output text and stop strings need a tokenizer object
 (anything with ``encode``/``decode``) passed to the constructor. Stop
 strings are matched on the host over the incrementally detokenized output
@@ -616,8 +617,9 @@ class LLM:
     def _fuse_ok(self, batch) -> bool:
         """May ``batch``'s sequences ride a block (JAX's ``_fuse_ok``)?
         Not a hybrid model's (its GDN layers keep the single-step chain),
-        nor one with logit_bias or logprobs (an eager step's), or with
-        stop strings, which are checked between steps. Penalties are
+        nor one with logit_bias or logprobs (a block's body neither
+        adjusts its logits nor computes logprobs), or with stop strings,
+        which are checked between steps. Penalties are
         refused by ``schedule_chain``; seeded rows fuse (their draws
         follow the output index, which a block advances on the
         device)."""

@@ -134,8 +134,9 @@ def _kernel_launches() -> dict:
 def _engine_counters(llm: LLM) -> dict:
     """Counters of the engine loop that the JAX package's metrics do not
     carry: the mixed re-forms that absorbed prefill, the sub-steps blocks
-    executed, the pure-decode steps run eagerly for their penalties,
-    logit_bias or logprobs, the mixed steps run eagerly by reason, the
+    executed, the pure-decode steps with penalties, logit_bias or
+    logprobs (each replays its extras key), the mixed steps run eagerly
+    by reason, the
     CUDA graphs captured so far with their capture time (a graph first
     met while serving is captured then), their replays by kind and the
     memory their pools hold, and speculation's counts."""

@@ -1,12 +1,15 @@
 """Sampling (counterpart of ``gllm_tpu/ops/sampling.py``: ``sample:269``,
-``_topk_topp_mask_sort:139``, ``PenaltyTokens:58``, ``apply_penalties:78``,
+``_topk_topp_mask_sort:139``, ``_topk_topp_mask:189``,
+``PenaltyTokens:58``, ``apply_penalties:78``,
 ``apply_logit_bias:101``, ``adjust_logits:112``, ``_row_base_keys:304``,
 ``stop_token_hit:500``, ``compute_logprobs:518``, and speculative
 decoding's ``spec_adjust_logits:324``, ``spec_verify:373``,
 ``ngram_propose:454``, ``ring_shift_in:486``).
 
 Greedy argmax, plus temperature / top-k / top-p / min-p sampling by
-Gumbel-max over the masked logits, after the logit adjustments in JAX's
+Gumbel-max over the masked logits (the mask from a bounded top-k where a
+certificate proves it equal to the full-vocab sort form, else from the
+sort form, for the whole batch), after the logit adjustments in JAX's
 order: ``logit_bias`` first, then the repetition, presence and frequency
 penalties (over per-row occurrence counts built on the device from
 padded id lists), before the greedy argmax too. A row with a seed (>= 0)
@@ -63,7 +66,8 @@ class PenaltyTokens(NamedTuple):
     mask: torch.Tensor    # [S, L] bool, False on padding
 
 
-def _counts_from_tokens(pt: PenaltyTokens, vocab: int) -> torch.Tensor:
+def counts_from_tokens(pt: PenaltyTokens, vocab: int) -> torch.Tensor:
+    """[S, vocab] int32 occurrence counts of each row's token ids."""
     S = pt.ids.shape[0]
     counts = torch.zeros((S, vocab), dtype=torch.int32, device=pt.ids.device)
     return counts.scatter_add_(1, pt.ids.long(), pt.mask.to(torch.int32))
@@ -77,7 +81,7 @@ def apply_penalties(logits: torch.Tensor, token_counts,
     if token_counts is None:
         return logits
     if isinstance(token_counts, PenaltyTokens):
-        token_counts = _counts_from_tokens(token_counts, logits.shape[-1])
+        token_counts = counts_from_tokens(token_counts, logits.shape[-1])
     counts = token_counts.float()
     seen = counts > 0
     p = md.repetition_penalty[:, None]
@@ -108,11 +112,12 @@ def adjust_logits(logits: torch.Tensor, token_counts,
     return apply_penalties(logits, token_counts, md)
 
 
-def topk_topp_mask(logits: torch.Tensor, top_k: torch.Tensor,
+def topk_topp_mask_sort(logits: torch.Tensor, top_k: torch.Tensor,
                    top_p: torch.Tensor,
                    min_p: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mask logits outside the per-row top-k / top-p / min-p nucleus to
-    -inf (full-vocab sort, as the JAX reference)."""
+    -inf (full-vocab sort, JAX's ``_topk_topp_mask_sort``): the fast
+    path's fallback and its reference."""
     vocab = logits.shape[-1]
     sorted_logits = torch.sort(logits, dim=-1, descending=True).values
     # top-k threshold per row; top_k <= 0 is the "disabled" sentinel
@@ -146,21 +151,96 @@ def topk_topp_mask(logits: torch.Tensor, top_k: torch.Tensor,
     return torch.where(keep, logits, -inf)
 
 
+# The bounded fast path of the mask (JAX's ``_TOPK_FAST_BOUND`` and
+# ``_TOPK_FAST_MARGIN``, ``gllm_tpu/ops/sampling.py:128,136``): a top-k of
+# this many candidates stands for the full-vocab sort wherever each row's
+# kept set provably ends inside it (0: always sort) ...
+TOPK_FAST_BOUND = 4096
+# ... and a row whose top-p or min-p boundary sits within this much mass of
+# its cutoff takes the sort form: the two paths sum the probabilities in
+# reductions of other shapes, whose rounding could place it differently
+TOPK_FAST_MARGIN = 5e-4
+
+
+def host_select(flag: torch.Tensor, fast, slow) -> torch.Tensor:
+    """The fast path's branch read on the host: ``fast()`` when the device
+    bool ``flag`` holds, else ``slow()`` (an eager step, the CPU). Inside a
+    CUDA graph the runner passes a conditional node instead
+    (``DecodeGraphs.select``)."""
+    return fast() if bool(flag) else slow()
+
+
+def topk_topp_mask(logits: torch.Tensor, top_k: torch.Tensor,
+                   top_p: torch.Tensor, min_p: Optional[torch.Tensor] = None,
+                   select=None) -> torch.Tensor:
+    """The nucleus mask with JAX's bounded fast path (``_topk_topp_mask``):
+    the top ``TOPK_FAST_BOUND`` logits of each row are the sort's
+    descending prefix, so the three thresholds (the k-th logit, the
+    smallest kept top-p logit, the smallest kept min-p logit) come from
+    them exactly wherever each row's kept set provably ends inside the
+    bound: top-k within it (or disabled); top-p disabled, or its last
+    candidate already outside the nucleus (the mass before it is
+    monotone); min-p off, or its last candidate already under the floor;
+    and no top-p or min-p boundary within ``TOPK_FAST_MARGIN`` of its
+    cutoff. A batch with any row it cannot prove takes the sort form
+    whole: ``select(flag, fast, slow)`` picks the branch on the device
+    flag "every row proved" (default ``host_select``). Both branches give
+    the sort form's mask."""
+    vocab = logits.shape[-1]
+    kb = TOPK_FAST_BOUND
+    if not kb or vocab <= kb:
+        return topk_topp_mask_sort(logits, top_k, top_p, min_p)
+    inf = float("inf")
+    top_vals = torch.topk(logits, kb, dim=-1).values          # descending
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    probs = torch.exp(top_vals - lse)          # full-softmax probabilities
+    eff_k = torch.where(top_k <= 0, vocab, top_k)
+    ok = (eff_k <= kb) | (eff_k >= vocab)
+    k_idx = torch.clamp(eff_k - 1, 0, kb - 1).long()
+    kth = torch.where((eff_k >= vocab)[:, None], -inf,
+                      torch.gather(top_vals, -1, k_idx[:, None]))
+    before = torch.cumsum(probs, dim=-1) - probs
+    keep_p = before < top_p[:, None]
+    close_p = ((before - top_p[:, None]).abs() < TOPK_FAST_MARGIN).any(-1)
+    p_off = top_p >= 1.0
+    ok = ok & (p_off | (~keep_p[:, -1] & ~close_p))
+    thresh = torch.where(p_off[:, None], -inf, torch.where(
+        keep_p, top_vals, inf).amin(dim=-1, keepdim=True))
+    keep = (logits >= kth) & (logits >= thresh)
+    if min_p is not None:
+        floor = min_p[:, None] * probs[:, :1]
+        keep_mp = probs >= floor
+        close_mp = ((probs - floor).abs() < TOPK_FAST_MARGIN).any(-1)
+        mp_off = min_p <= 0.0
+        ok = ok & (mp_off | (~keep_mp[:, -1] & ~close_mp))
+        mp_thresh = torch.where(mp_off[:, None], -inf, torch.where(
+            keep_mp, top_vals, inf).amin(dim=-1, keepdim=True))
+        keep = keep & (logits >= mp_thresh)
+    return (select or host_select)(
+        ok.all(), lambda: torch.where(keep, logits, -inf),
+        lambda: topk_topp_mask_sort(logits, top_k, top_p, min_p))
+
+
 def sample(logits: torch.Tensor, md: SamplingMetadata,
            generator: Optional[torch.Generator] = None, *,
-           token_counts=None, all_greedy: bool = False) -> torch.Tensor:
+           token_counts=None, all_greedy: bool = False,
+           adjusted: bool = False, select=None) -> torch.Tensor:
     """logits: [S, V] → sampled token ids [S] int32, after the logit
-    adjustments (``token_counts``: the penalties' counts, or None).
+    adjustments (``token_counts``: the penalties' counts, or None;
+    ``adjusted``: the caller made them already).
 
     ``all_greedy`` (every live row has temperature 0) skips the mask and
     the noise entirely. Greedy rows of a mixed batch take the same argmax,
-    so both paths agree on greedy rows."""
-    logits = adjust_logits(logits, token_counts, md)
+    so both paths agree on greedy rows. ``select``: how the mask's fast
+    path picks its branch (``topk_topp_mask``)."""
+    if not adjusted:
+        logits = adjust_logits(logits, token_counts, md)
     greedy_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     if all_greedy:
         return greedy_tokens
     temp = torch.clamp(md.temperature, min=1e-6)[:, None]
-    scaled = topk_topp_mask(logits / temp, md.top_k, md.top_p, md.min_p)
+    scaled = topk_topp_mask(logits / temp, md.top_k, md.top_p, md.min_p,
+                            select)
     # Gumbel-max == categorical sampling: -log(E) with E ~ Exp(1) is
     # Gumbel(0, 1) noise; a seeded row's is JAX's threefry draw of
     # (seed, out_step), written over it by the kernel
@@ -190,7 +270,7 @@ def stop_token_hit(tokens: torch.Tensor, md: SamplingMetadata,
 def spec_verify(logits_mat: torch.Tensor, drafts: torch.Tensor,
                 md: SamplingMetadata,
                 generator: Optional[torch.Generator] = None, *,
-                sampled: bool = True, draws=None):
+                sampled: bool = True, draws=None, select=None):
     """Verify speculative drafts against the target model's logits (JAX's
     ``spec_verify``, ``gllm_tpu/ops/sampling.py:373``).
 
@@ -213,7 +293,8 @@ def spec_verify(logits_mat: torch.Tensor, drafts: torch.Tensor,
     row's from JAX's threefry keys (``fold_in(base, i)`` a verify row,
     its uniform under ``fold_in(., 0)``, its noise under ``fold_in(.,
     1)``, base the key of (seed, out_step)), or from ``draws`` =
-    (uniforms, gumbel) when given."""
+    (uniforms, gumbel) when given. ``select``: the mask's branch
+    (``topk_topp_mask``)."""
     S, K1, V = logits_mat.shape
     K = K1 - 1
     logits_f = logits_mat.float()
@@ -226,7 +307,7 @@ def spec_verify(logits_mat: torch.Tensor, drafts: torch.Tensor,
     rep = lambda a: a.repeat_interleave(K1, dim=0)   # noqa: E731
     masked = topk_topp_mask(
         (logits_f / temp).reshape(S * K1, V), rep(md.top_k), rep(md.top_p),
-        None if md.min_p is None else rep(md.min_p))
+        None if md.min_p is None else rep(md.min_p), select)
     p = torch.softmax(masked, dim=-1).reshape(S, K1, V)
     if draws is None:
         u = torch.rand((S, K1), generator=generator,
@@ -283,7 +364,7 @@ def spec_adjust_logits(logits_mat: torch.Tensor, drafts: torch.Tensor,
         bias_ids=rep(md.bias_ids), bias_vals=rep(md.bias_vals))
     counts_flat = None
     if token_counts is not None:
-        base = (_counts_from_tokens(token_counts, V)
+        base = (counts_from_tokens(token_counts, V)
                 if isinstance(token_counts, PenaltyTokens)
                 else token_counts)                          # [S, V]
         dev = logits_mat.device

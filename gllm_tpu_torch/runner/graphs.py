@@ -11,12 +11,15 @@ bucket) plus the sampler's static flag all_greedy, as JAX keys its
 programs. A pure-decode step's key is that tuple; a mixed step's (a
 prefill chunk, a mix of chunks and decode rows, an absorb) is tagged
 "mixed", and a host-driven verify step's "verify", with its width
-spec_k + 1 and whether a drafted row samples (JAX's ``spec_aux``). Each
-later step of the key copies its batch into the views the graph was
-captured on (``HostStaging``'s one device buffer) and replays it: one
-launch for some nine hundred to three thousand kernels. Steps whose batch
-carries penalties, logit_bias or logprobs, and a hybrid model's mixed
-steps, run eagerly (the runner counts them).
+spec_k + 1 and whether a drafted row samples (JAX's ``spec_aux``). A step
+whose batch carries extras takes the kind's "_extras" key, which adds
+JAX's static extras flags: the logits adjusted (penalties or logit_bias),
+logprobs, prompt logprobs (``ModelRunner.step_async``); its logprobs are
+graph-owned outputs beside the tokens. Each later step of the key copies
+its batch into the views the graph was captured on (``HostStaging``'s
+one device buffer) and replays it: one launch for some nine hundred to
+three thousand kernels. A hybrid model's mixed steps run eagerly (the
+runner counts them).
 
 - The body reads only those views, the runner's parameters and caches, and
   the split-KV scratch, which is sized for every shape before the first
@@ -44,11 +47,15 @@ steps, run eagerly (the runner counts them).
   ``if_node`` builds the node with the CUDA runtime's graph API
   (``csrc/graph_cond.cu``: a kernel that sets the node's handle from the
   flag, the IF node after it, and the body captured from a stream of its
-  own), since the torch this runs on has no binding for conditional
-  nodes. The body's allocations go to a second pool of the runner, held
-  while its graphs live. A block's launches are counted per executed
-  sub-step when the block is collected (``add_substeps``), not at
-  replay.
+  own, one a nesting depth), since the torch this runs on has no binding
+  for conditional nodes. The body's allocations go to a second pool of
+  the runner, held while its graphs live. A block's launches are counted
+  per executed sub-step when the block is collected (``add_substeps``),
+  not at replay.
+- The sampled mask's fast path (``ops/sampling.topk_topp_mask``, JAX's
+  ``lax.cond``) is two IF nodes, over the device flag "every row proved"
+  and its complement: the bounded top-k branch and the full-vocab sort
+  (``select``); inside a block's sub-step they nest in its IF node.
 - No fallback: a capture or replay error raises.
 
 On the CPU there is no graph: ``run`` records the key and runs the same
@@ -63,7 +70,8 @@ import ctypes
 import gc
 import time
 import weakref
-from typing import Callable, Dict, Hashable, NamedTuple, Tuple
+from typing import (Callable, Dict, Hashable, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 
@@ -144,18 +152,23 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return _side_streams[device]
 
 
-KINDS = ("decode", "mixed", "verify", "block", "spec")
+KINDS = ("decode", "mixed", "verify", "block", "spec", "decode_extras",
+         "mixed_extras", "verify_extras")
 
 
 def key_kind(key: Hashable) -> str:
     """The kind of step a key captures: a pure-decode step's key is the
-    bare signature, every other kind's starts with its name."""
+    bare signature, every other kind's starts with its name (a step with
+    extras: "decode_extras", "mixed_extras", "verify_extras")."""
     return key[0] if isinstance(key[0], str) else "decode"
 
 
 class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
     out: torch.Tensor                 # the sampled tokens, graph-owned
+    # the logprobs by name (graph-owned), for a body that returns
+    # (tokens, aux); None for one that returns the tokens alone
+    aux: Optional[dict]
     # launch counts of one replay, or of one sub-step of a block
     delta: Dict[Tuple, int]
     substeps: int                     # a block's K; 0 for one step
@@ -173,9 +186,13 @@ class DecodeGraphs:
         self.scratch_floats = scratch_floats
         self.cuda = self.device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
-        # the IF-node bodies' pool and stream (made at the first block)
+        # the IF-node bodies' pool and their streams, one a nesting depth
+        # (made at the first IF node)
         self.cond_pool = None
-        self._body = None
+        self._bodies = []
+        self._depth = 0
+        # the branch flags of the capture under way, held to its end
+        self._held = []
         if self.cuda:
             # the split-KV scratch and the capture streams' cuBLAS
             # workspaces go when the last graph holder of the card does
@@ -208,9 +225,10 @@ class DecodeGraphs:
 
     def capture(self, key: Hashable, body: Callable[..., torch.Tensor],
                 sampled: bool, substeps: int = 0) -> None:
-        """Capture ``body(generator, graph)`` → tokens under ``key`` (CUDA
-        only; ``graph`` is the graph being captured, for a block's
-        conditional nodes, and None in the warm-up run). ``body`` must
+        """Capture ``body(generator, graph)`` → tokens, or (tokens, aux),
+        under ``key`` (CUDA only; ``graph`` is the graph being captured,
+        for a block's conditional nodes, and None in the warm-up run;
+        ``aux`` a dict of tuples of tensors). ``body`` must
         read only buffers that keep their address; the caller has staged
         padding rows in them. ``sampled``: the body draws from the
         generator. ``substeps``: a block's K, whose launch counts are kept
@@ -243,8 +261,12 @@ class DecodeGraphs:
                 reserved = torch.cuda.memory_reserved(self.device)
                 out = body(self.generator, graph)
         finally:
+            self._held.clear()
             if collecting:
                 gc.enable()
+        aux = None
+        if isinstance(out, tuple):
+            out, aux = out
         stats = self.by_kind[key_kind(key)]
         stats["pool_bytes"] += (torch.cuda.memory_reserved(self.device)
                                 - reserved)
@@ -254,18 +276,19 @@ class DecodeGraphs:
             assert all(n % substeps == 0 for n in delta.values()), delta
             delta = {k: n // substeps for k, n in delta.items()}
         set_launch_counts(counts)
-        self._graphs[key] = _Graph(graph, out, delta, substeps)
+        self._graphs[key] = _Graph(graph, out, aux, delta, substeps)
         self.keys.add(key)
         stats["captured"] += 1
         stats["capture_s"] += time.monotonic() - t0
 
-    def run(self, key: Hashable,
-            body: Callable[..., torch.Tensor]) -> torch.Tensor:
-        """The step's sampled tokens: on CUDA, ``key``'s graph replayed
-        (captured first by the caller) and its output copied, since the
-        key's next replay overwrites it while the tokens may still be
-        read (a step chained off them, their copy to the host); on the
-        CPU, ``body`` run."""
+    def run(self, key: Hashable, body: Callable[..., torch.Tensor]):
+        """The step's sampled tokens (with its logprobs where the body
+        returns (tokens, aux)): on CUDA, ``key``'s graph replayed
+        (captured first by the caller) and its tokens copied, since the
+        key's next replay overwrites them while they may still be read (a
+        step chained off them, their copy to the host); its logprobs are
+        the graph's own, which the caller copies to the host before the
+        next replay; on the CPU, ``body`` run."""
         stats = self.by_kind[key_kind(key)]
         stats["replays"] += 1
         if not self.cuda:
@@ -277,7 +300,8 @@ class DecodeGraphs:
         g.graph.replay()
         if not g.substeps:
             add_launch_counts(g.delta)
-        return g.out.clone()
+        out = g.out.clone()
+        return out if g.aux is None else (out, g.aux)
 
     def add_substeps(self, key: Hashable, k_exec: int) -> None:
         """Count the launches of a collected block's ``k_exec`` executed
@@ -286,18 +310,20 @@ class DecodeGraphs:
             add_launch_counts({k: n * k_exec
                                for k, n in self._graphs[key].delta.items()})
 
-    def body_stream(self) -> torch.cuda.ExternalStream:
-        """The stream the IF-node bodies are captured from (and a block's
-        warm-up runs its sub-steps 1.. on, so that the libraries make
-        their per-stream workspaces for it outside any capture): a stream
-        of its own, made with the CUDA runtime (torch's pooled streams may
-        alias the capture stream)."""
-        if self._body is None:
+    def body_stream(self, depth: int = 0) -> torch.cuda.ExternalStream:
+        """The stream the IF-node bodies at nesting ``depth`` are captured
+        from (an IF node inside a body is captured from the next one; a
+        block's warm-up runs its sub-steps 1.. on depth 0's, so that the
+        libraries make their per-stream workspaces for it outside any
+        capture): a stream of its own, made with the CUDA runtime (torch's
+        pooled streams may alias the capture stream)."""
+        while len(self._bodies) <= depth:
             handle = ctypes.c_void_p()
             build.check(build.kernel("graph_cond")(
                 2, None, None, ctypes.addressof(handle)), "body stream")
-            self._body = torch.cuda.ExternalStream(handle.value,
-                                                   device=self.device)
+            self._bodies.append(torch.cuda.ExternalStream(
+                handle.value, device=self.device))
+        if self.cond_pool is None:
             # the bodies' allocations: a pool held while the graphs live
             self.cond_pool = torch.cuda.graph_pool_handle()
             idx = self.device.index
@@ -306,28 +332,62 @@ class DecodeGraphs:
             torch._C._cuda_endAllocateToPool(idx, self.cond_pool)
             weakref.finalize(self, torch._C._cuda_releasePool, idx,
                              self.cond_pool)
-        return self._body
+        return self._bodies[depth]
 
     @contextlib.contextmanager
     def if_node(self, flag: torch.Tensor):
-        """Under capture on the current stream: what the block puts on the
-        current stream is captured into an IF node, which a replay runs
-        only when the device bool ``flag`` (one element) is true then."""
+        """Under capture on the current stream: what the caller puts on
+        the current stream is captured into an IF node, which a replay
+        runs only when the device bool ``flag`` (one element) is true
+        then. Inside an IF node's body, the node nests in it."""
         capture = torch.cuda.current_stream(self.device)
-        body = self.body_stream()
+        body = self.body_stream(self._depth)
         build.check(build.kernel("graph_cond")(
             0, capture.cuda_stream, flag.data_ptr(), body.cuda_stream),
             "IF node")
         idx = self.device.index
-        torch._C._cuda_beginAllocateCurrentThreadToPool(idx, self.cond_pool)
+        # the outermost node routes this thread's allocations to the
+        # bodies' pool; a nested one is inside that already
+        outer = self._depth == 0
+        self._depth += 1
         try:
-            with torch.cuda.stream(body):
-                yield
+            if outer:
+                torch._C._cuda_beginAllocateCurrentThreadToPool(
+                    idx, self.cond_pool)
+            try:
+                with torch.cuda.stream(body):
+                    yield
+            finally:
+                if outer:
+                    torch._C._cuda_endAllocateToPool(idx, self.cond_pool)
+                    torch._C._cuda_releasePool(idx, self.cond_pool)
         finally:
-            torch._C._cuda_endAllocateToPool(idx, self.cond_pool)
-            torch._C._cuda_releasePool(idx, self.cond_pool)
+            # the body's capture ends whatever happened inside it
+            self._depth -= 1
             build.check(build.kernel("graph_cond")(
                 1, None, None, body.cuda_stream), "IF node body")
+
+    def select(self, flag: torch.Tensor, fast, slow) -> torch.Tensor:
+        """A branch on the device bool ``flag`` inside a captured body
+        (the sampled mask's fast path, ``ops/sampling.topk_topp_mask``;
+        JAX's ``lax.cond``): under capture, ``fast()`` in an IF node on
+        ``flag`` and ``slow()`` in one on its complement, which writes
+        its result over the fast branch's output (allocated in the
+        first node whether or not it runs), so a replay runs one branch
+        and no host reads the flag. Uncaptured (the warm-up run before a capture)
+        both branches run, so that each has run once outside it, and the
+        bodies' streams the capture will take are made."""
+        if not torch.cuda.is_current_stream_capturing():
+            self.body_stream(self._depth + 1)
+            return torch.where(flag, fast(), slow())
+        other = ~flag
+        self._held += [flag, other]
+        with self.if_node(flag):
+            out = fast()
+        # the fast branch's output, written by the other when it runs
+        with self.if_node(other):
+            out.copy_(slow())
+        return out
 
     @contextlib.contextmanager
     def on_body_stream(self):

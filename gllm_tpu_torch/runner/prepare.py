@@ -1,7 +1,6 @@
 """Host-side batch building: ScheduledBatch → StepBatch (counterpart of
 ``gllm_tpu/runner/prepare.py``: ``BatchBuilder.shape_signature:70``,
-``stop_sets:186``, ``penalty_len_bucket:240``, ``bias_len_bucket:247``,
-``batch_extras:254``, ``build:282``).
+``stop_sets:186``, ``batch_extras:254``, ``build:282``).
 
 The builder fills flat numpy arrays — token / position / slot buffers,
 query-start offsets, per-seq kv lens and page tables — padded to the same
@@ -12,10 +11,15 @@ it with ONE ``non_blocking`` host-to-device copy, into one device buffer
 that the runner sizes once for its largest step: the views of a shape
 signature sit at the same addresses every step, so a CUDA graph captured
 on them reads each later step's data (``runner/graphs.py``). Each row's
-seed and output index ride every step in that fixed part. The extras of
-an eager step (the penalties' token ids and values, the logit_bias
-pairs, the prompt-logprob targets), whose widths follow the batch, ride
-the same pinned buffer into a second device buffer that grows as needed.
+seed and output index ride every step in that fixed part. A step's
+extras (the penalties' values and token ids, the logit_bias pairs, the
+prompt-logprob targets) take widths no batch changes, so their offsets
+follow the step's key too: JAX buckets the penalty id lists and the bias
+pairs by the batch's longest (``penalty_len_bucket:240``,
+``bias_len_bucket:247``), which would add keys as sequences grow; here
+the ids take ``max_model_len`` a row (nothing is cut, so the counts equal
+JAX's) and the pairs ``BIAS_PAIRS``, JAX's bucket of the 300 a request
+may send.
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ MAX_STOP_IDS = 64
 # SEED_SPLICE) and the block's sub-step limit
 SPEC_SEED_COLS = 8
 SEED_CARRY, SEED_SPLICE = 1, 2
+# logit_bias pairs a row: JAX's ``bias_len_bucket`` of the 300 pairs that
+# ``SamplingParams.validate`` allows a request
+BIAS_PAIRS = 512
 
 
 class BatchBuilder:
@@ -53,6 +60,8 @@ class BatchBuilder:
         # penalty and logit_bias ids at or past it are dropped (they never
         # appear in the logits)
         self.vocab_size = vocab_size
+        # the penalties' token ids a row: every token a sequence can hold
+        self.penalty_len = config.max_model_len
         sc = config.scheduler
         # upper bounds of the shape buckets; speculative decoding adds up
         # to spec_k draft rows a decode row
@@ -112,21 +121,37 @@ class BatchBuilder:
         return t, s, q, p
 
     def padding(self, t_pad: int, s_pad: int, p_pad: int,
-                verify_width: int = 0) -> StepBatch:
+                verify_width: int = 0, adjust: bool = False,
+                plp: bool = False) -> StepBatch:
         """A StepBatch of host arrays at (T, S, pages) holding padding rows
         only: token 0 at position 0 into the dummy page's slot 0, empty
         sequences (q_len 0, kv_len 0) whose pages are the dummy page, the
         greedy sampling defaults (no seed) and, for a hybrid model, the
         dummy SSM slot 0; with ``verify_width`` K1 also a verify step's
-        rows (row 0) and drafts (none, -1) [S, K1] and [S, K1 - 1].
+        rows (row 0) and drafts (none, -1) [S, K1] and [S, K1 - 1]; with
+        ``adjust`` the neutral penalties (1, 0, 0; no token id, -1 [S,
+        penalty_len]) and logit_bias pairs (id 0, bias 0 [S,
+        BIAS_PAIRS]); with ``plp`` the prompt-logprob targets (0 [T]).
         ``build`` fills the real rows over it; the runner's graph capture
         runs it as is (it writes nothing a sequence reads)."""
         z = lambda n: np.zeros(n, np.int32)
-        spec = {}
+        fields, sampling = {}, {}
         if verify_width:
-            spec = dict(spec_rows=np.zeros((s_pad, verify_width), np.int32),
-                        spec_drafts=np.full((s_pad, verify_width - 1), -1,
-                                            np.int32))
+            fields = dict(
+                spec_rows=np.zeros((s_pad, verify_width), np.int32),
+                spec_drafts=np.full((s_pad, verify_width - 1), -1,
+                                    np.int32))
+        if adjust:
+            sampling = dict(
+                repetition_penalty=np.ones(s_pad, np.float32),
+                presence_penalty=np.zeros(s_pad, np.float32),
+                frequency_penalty=np.zeros(s_pad, np.float32),
+                bias_ids=np.zeros((s_pad, BIAS_PAIRS), np.int32),
+                bias_vals=np.zeros((s_pad, BIAS_PAIRS), np.float32))
+            fields["penalty_ids"] = np.full((s_pad, self.penalty_len), -1,
+                                            np.int32)
+        if plp:
+            fields["plp_targets"] = z(t_pad)
         return StepBatch(
             token_ids=z(t_pad), positions=z(t_pad), slot_mapping=z(t_pad),
             logits_indices=z(s_pad),
@@ -138,27 +163,16 @@ class BatchBuilder:
                 top_p=np.ones(s_pad, np.float32),
                 top_k=np.full(s_pad, -1, np.int32),
                 min_p=np.zeros(s_pad, np.float32),
-                seed=np.full(s_pad, -1, np.int32), out_step=z(s_pad)),
-            ssm_slots=z(s_pad) if self.use_ssm else None, **spec)
-
-    @staticmethod
-    def penalty_len_bucket(lens) -> int:
-        """The penalty id lists' padded length: a power of two, at least
-        16."""
-        return max(16, next_pow2(max(lens))) if lens else 16
-
-    @staticmethod
-    def bias_len_bucket(ns) -> int:
-        """The logit_bias pairs' padded count: a power of two, at least
-        8."""
-        return max(8, next_pow2(max(ns))) if ns else 8
+                seed=np.full(s_pad, -1, np.int32), out_step=z(s_pad),
+                **sampling),
+            ssm_slots=z(s_pad) if self.use_ssm else None, **fields)
 
     @staticmethod
     def batch_extras(batch: ScheduledBatch) -> frozenset:
-        """The extras ``batch`` carries that make its step eager (its
-        logits adjusted, or logprobs computed, outside the decode graphs):
-        "penalties", "bias", "lp" (output logprobs), "plp" (the prompt
-        logprobs of a prompt chunk). Seeds ride every step."""
+        """The extras ``batch`` carries, which its step's key names (its
+        logits adjusted, logprobs computed): "penalties", "bias", "lp"
+        (output logprobs), "plp" (the prompt logprobs of a prompt chunk).
+        Seeds ride every step."""
         extras = set()
         for it in batch.items:
             sp = it.seq.sampling_params
@@ -224,7 +238,17 @@ class BatchBuilder:
         t_pad, s_pad, max_q, p_pad = (force_signature
                                       or self.shape_signature(batch))
         page = self.page_size
-        pad = self.padding(t_pad, s_pad, p_pad)
+        items = batch.items
+        sps = [it.seq.sampling_params for it in items]
+        # the extras at their fixed widths (``padding``): the adjustments
+        # when a row has a penalty or a logit_bias, the targets when a
+        # prompt chunk asks for its logprobs
+        want_plp = any(sp.prompt_logprobs is not None
+                       and it.computed_before < it.seq.prompt_len
+                       for it, sp in zip(items, sps))
+        pad = self.padding(t_pad, s_pad, p_pad,
+                           adjust=any(sp.uses_penalty or sp.logit_bias
+                                      for sp in sps), plp=want_plp)
         tokens, positions, slots = (pad.token_ids, pad.positions,
                                     pad.slot_mapping)
         cu, kv_lens, page_table = pad.attn
@@ -232,7 +256,6 @@ class BatchBuilder:
         temperature, top_p, top_k, min_p = pad.sampling[:4]
         seeds, out_steps = pad.sampling.seed, pad.sampling.out_step
 
-        items = batch.items
         K = len(items)
         # drafts add verify rows after each item's committed chunk, which
         # everything downstream treats as ordinary chunk rows
@@ -286,16 +309,11 @@ class BatchBuilder:
             (t for it in items for t in _tok_vals(it)), np.int32,
             count=total)
 
-        sps = [it.seq.sampling_params for it in items]
         temperature[:K] = [sp.temperature for sp in sps]
         top_p[:K] = [sp.top_p for sp in sps]
         top_k[:K] = [sp.top_k for sp in sps]
         min_p[:K] = [sp.min_p for sp in sps]
-        plp_targets = None
-        if any(sp.prompt_logprobs is not None
-               and it.computed_before < it.seq.prompt_len
-               for it, sp in zip(items, sps)):
-            plp_targets = np.zeros(t_pad, np.int32)
+        plp_targets = pad.plp_targets
         for i, (it, sp) in enumerate(zip(items, sps)):
             if sp.seed is not None:
                 seeds[i] = sp.seed
@@ -307,25 +325,8 @@ class BatchBuilder:
                 nxt = it.seq.token_ids[b + 1:min(b + int(ns[i]) + 1,
                                                  it.seq.prompt_len)]
                 plp_targets[o:o + len(nxt)] = nxt
-        pad = self._penalties(pad, items, s_pad)
-        if any(sp.logit_bias for sp in sps):
-            B = self.bias_len_bucket(
-                [len(sp.logit_bias) for sp in sps if sp.logit_bias])
-            bias_ids = np.zeros((s_pad, B), np.int32)
-            bias_vals = np.zeros((s_pad, B), np.float32)
-            vocab = self.vocab_size or 1 << 30
-            for i, sp in enumerate(sps):
-                if sp.logit_bias:
-                    # ids past the vocabulary (or the bucket) are dropped;
-                    # padding pairs add 0
-                    pairs = [(t, b) for t, b in sp.logit_bias.items()
-                             if t < vocab][:B]
-                    for j, (t, b) in enumerate(pairs):
-                        bias_ids[i, j] = t
-                        bias_vals[i, j] = b
-            pad = pad._replace(sampling=pad.sampling._replace(
-                bias_ids=bias_ids, bias_vals=bias_vals))
-        pad = pad._replace(plp_targets=plp_targets)
+        if pad.penalty_ids is not None:
+            self._adjustments(pad, items)
 
         if self.use_ssm:
             # a hole row owns no slot: the dummy slot 0
@@ -348,40 +349,41 @@ class BatchBuilder:
         return pad._replace(num_seqs=K,
                             max_seq_q=int(ns.max()) if K else 0), max_q
 
-    def _penalties(self, pad: StepBatch, items, s_pad: int) -> StepBatch:
-        """The penalties of the rows that use one: each row's token ids
-        (below the vocabulary, the first L), -1 padded to the shared
-        length L, and its three penalty values; the batch as it is when
-        no row uses one."""
-        rows = [i for i, it in enumerate(items)
-                if it.seq.sampling_params.uses_penalty]
-        if not rows:
-            return pad
+    def _adjustments(self, pad: StepBatch, items) -> None:
+        """Fill the rows that use a penalty or a logit_bias over
+        ``padding``'s neutral arrays: a penalized row's token ids (below
+        the vocabulary; every one fits ``penalty_len``) and its three
+        values, a biased row's pairs (ids past the vocabulary dropped;
+        padding pairs add 0)."""
+        md = pad.sampling
         vocab = self.vocab_size or 1 << 30
-        toks = {i: [t for t in items[i].seq.token_ids if t < vocab]
-                for i in rows}
-        L = self.penalty_len_bucket([len(items[i].seq.token_ids)
-                                     for i in rows])
-        ids = np.full((s_pad, L), -1, np.int32)
-        rep = np.ones(s_pad, np.float32)
-        pres = np.zeros(s_pad, np.float32)
-        freq = np.zeros(s_pad, np.float32)
-        for i in rows:
-            sp = items[i].seq.sampling_params
-            row = toks[i][:L]
-            ids[i, :len(row)] = row
-            rep[i] = sp.repetition_penalty
-            pres[i] = sp.presence_penalty
-            freq[i] = sp.frequency_penalty
-        return pad._replace(penalty_ids=ids, sampling=pad.sampling._replace(
-            repetition_penalty=rep, presence_penalty=pres,
-            frequency_penalty=freq))
+        for i, it in enumerate(items):
+            sp = it.seq.sampling_params
+            if sp.uses_penalty:
+                row = np.asarray(it.seq.token_ids, np.int64)
+                row = row[row < vocab][:self.penalty_len]
+                pad.penalty_ids[i, :len(row)] = row
+                md.repetition_penalty[i] = sp.repetition_penalty
+                md.presence_penalty[i] = sp.presence_penalty
+                md.frequency_penalty[i] = sp.frequency_penalty
+            if sp.logit_bias:
+                pairs = [(t, b) for t, b in sp.logit_bias.items()
+                         if t < vocab][:BIAS_PAIRS]
+                for j, (t, b) in enumerate(pairs):
+                    md.bias_ids[i, j] = t
+                    md.bias_vals[i, j] = b
 
     def upload_size(self, t_pad: int, s_pad: int, p_pad: int) -> int:
         """int32 slots of a step's fixed part at (T, S, pages)
         (``HostStaging``'s layout, the variable lists excluded)."""
         return (3 * t_pad + s_pad * (9 + p_pad) + 1
                 + (s_pad if self.use_ssm else 0))
+
+    def extras_size(self, t_pad: int, s_pad: int) -> int:
+        """int32 slots of a step's extras at (T, S): the three penalties,
+        the penalty ids and the logit_bias pairs a row, the prompt-logprob
+        targets a token."""
+        return s_pad * (3 + self.penalty_len + 2 * BIAS_PAIRS) + t_pad
 
     def spec_size(self, s_pad: int, ring: int) -> int:
         """int32 slots of a step's speculation arrays at S rows: a
@@ -400,19 +402,17 @@ class HostStaging:
     and, under on-device finish, its stop sets [S, E] and arming sub-steps
     [S] (offsets fixed by (T, S, pages, E)), a verify step's rows [S, K1]
     and drafts [S, K1 - 1] or a spec block's seed state (offsets fixed by
-    the key's K1), then the lists whose length varies from step to step
-    (the int8 cache's scale-reset page ids, a hybrid model's slots to
-    zero, each deduplicated; a re-formed batch's splice map), which only
-    the eager prologue and the splice read. The device copy is split back
-    into views. With ``capacity`` the device
-    buffer is allocated once, at that size, and a step that needs more
-    raises: a CUDA graph captured on the views of a signature then reads
-    every later step of it. Without, it grows as needed (``allocations``
-    counts the device buffers made). The extras of an eager step (the
-    penalties' values and token ids, the logit_bias pairs, the
-    prompt-logprob targets) follow in the same pinned buffer and go by a
-    second copy into a device buffer of their own, which grows as needed:
-    no graph reads them.
+    the key's K1), a step's extras (the three penalties [S], the penalty
+    ids [S, penalty_len], the logit_bias ids and values [S, BIAS_PAIRS],
+    the prompt-logprob targets [T]; offsets fixed by the key's extras
+    flags), then the lists whose length varies from step to step (the
+    int8 cache's scale-reset page ids, a hybrid model's slots to zero,
+    each deduplicated; a re-formed batch's splice map), which only the
+    eager prologue and the splice read. The device copy is split back
+    into views. With ``capacity`` the device buffer is allocated once, at
+    that size, and a step that needs more raises: a CUDA graph captured on
+    the views of a signature then reads every later step of it. Without,
+    it grows as needed (``allocations`` counts the device buffers made).
 
     The one device buffer is reused by every step: its copies and readers
     are ordered on the stream. The pinned host side is a ring of
@@ -434,7 +434,6 @@ class HostStaging:
                         if self._pin else [None] * slots)
         self._next = 0
         self._dev = None
-        self._extra_dev = None
         self.allocations = 0
         self.fixed = capacity > 0
         if capacity:
@@ -447,32 +446,26 @@ class HostStaging:
     def upload(self, sb: StepBatch) -> StepBatch:
         resets = list(dict.fromkeys(sb.scale_resets or []))
         zero = list(dict.fromkeys(sb.ssm_zero or []))
+        md = sb.sampling
         parts = [sb.token_ids, sb.positions, sb.slot_mapping,
                  sb.logits_indices, sb.attn.cu_q_lens, sb.attn.kv_lens,
-                 sb.attn.page_table.reshape(-1), sb.sampling.top_k,
-                 sb.sampling.temperature.view(np.int32),
-                 sb.sampling.top_p.view(np.int32),
-                 sb.sampling.min_p.view(np.int32), sb.sampling.seed,
-                 sb.sampling.out_step,
+                 sb.attn.page_table.reshape(-1), md.top_k,
+                 md.temperature.view(np.int32), md.top_p.view(np.int32),
+                 md.min_p.view(np.int32), md.seed, md.out_step,
                  np.asarray(sb.ssm_slots if sb.ssm_slots is not None
                             else [], np.int32),
-                 _ints(sb.active_until),
-                 _ints(sb.sampling.stop_ids).reshape(-1),
-                 _ints(sb.sampling.stop_from),
-                 _ints(sb.spec_rows).reshape(-1),
-                 _ints(sb.spec_drafts).reshape(-1),
-                 _ints(sb.spec_seed).reshape(-1),
+                 _ints(sb.active_until), _ints(md.stop_ids),
+                 _ints(md.stop_from), _ints(sb.spec_rows),
+                 _ints(sb.spec_drafts), _ints(sb.spec_seed),
+                 _ints(md.repetition_penalty, True),
+                 _ints(md.presence_penalty, True),
+                 _ints(md.frequency_penalty, True), _ints(sb.penalty_ids),
+                 _ints(md.bias_ids), _ints(md.bias_vals, True),
+                 _ints(sb.plp_targets),
                  np.asarray(resets, np.int32), np.asarray(zero, np.int32),
                  np.asarray(sb.splice or [], np.int32)]
-        md = sb.sampling
-        extras = [_ints(x, f) for x, f in (
-            (md.repetition_penalty, True), (md.presence_penalty, True),
-            (md.frequency_penalty, True), (sb.penalty_ids, False),
-            (md.bias_ids, False), (md.bias_vals, True),
-            (sb.plp_targets, False))]
         sizes = [p.size for p in parts]
         n = sum(sizes)
-        n_extra = sum(p.size for p in extras)
         if self._dev is None or self._dev.numel() < n:
             if self.fixed:
                 raise RuntimeError(
@@ -485,42 +478,26 @@ class HostStaging:
         if self._events[i] is not None:
             self._events[i].synchronize()
         host = self._ring[i]
-        if host.numel() < n + n_extra:
+        if host.numel() < n:
             host = self._ring[i] = torch.empty(
-                max(n + n_extra, 2 * host.numel()), dtype=torch.int32,
+                max(n, 2 * host.numel()), dtype=torch.int32,
                 pin_memory=self._pin)
-        np.concatenate(parts + extras, out=host.numpy()[:n + n_extra])
+        np.concatenate(parts, out=host.numpy()[:n])
         dev = self._dev[:n]
         dev.copy_(host[:n], non_blocking=self._pin)
-        ext = None
-        if n_extra:
-            if self._extra_dev is None or self._extra_dev.numel() < n_extra:
-                self._extra_dev = torch.empty(
-                    max(n_extra, 2 * (0 if self._extra_dev is None
-                                      else self._extra_dev.numel())),
-                    dtype=torch.int32, device=self.device)
-            ext = self._extra_dev[:n_extra]
-            ext.copy_(host[n:n + n_extra], non_blocking=self._pin)
         if self._events[i] is not None:
             self._events[i].record()
-        views = list(torch.split(dev, sizes))
-        (tok, pos, slots, lidx, cu, kvl, pt, top_k, temp, top_p,
-         min_p, seed, out_step, ssm_slots, active_until, stop_ids,
-         stop_from, spec_rows, spec_drafts, spec_seed, resets, ssm_zero,
-         splice) = views
-        shaped = lambda v, a: (None if a is None  # noqa: E731
-                               else v.view(a.shape))
+        (tok, pos, slots, lidx, cu, kvl, pt, top_k, temp, top_p, min_p,
+         seed, out_step, ssm_slots, active_until, stop_ids, stop_from,
+         spec_rows, spec_drafts, spec_seed, rep, pres, freq, pen_ids,
+         bias_ids, bias_vals, plp, resets, ssm_zero, splice) = \
+            torch.split(dev, sizes)
         f32 = torch.float32
-        ex = [None] * len(extras)
-        if ext is not None:
-            ex = list(torch.split(ext, [p.size for p in extras]))
-        (rep, pres, freq, pen_ids, bias_ids, bias_vals, plp) = [
-            None if a is None else (v.view(f32) if a.dtype == np.float32
-                                    else v).view(a.shape)
-            for v, a in zip(ex, (md.repetition_penalty, md.presence_penalty,
-                                 md.frequency_penalty, sb.penalty_ids,
-                                 md.bias_ids, md.bias_vals,
-                                 sb.plp_targets))]
+
+        def shaped(v, a, floats=False):
+            if a is None:
+                return None
+            return (v.view(f32) if floats else v).view(a.shape)
         return StepBatch(
             token_ids=tok, positions=pos, slot_mapping=slots,
             logits_indices=lidx,
@@ -530,23 +507,24 @@ class HostStaging:
             sampling=SamplingMetadata(
                 temperature=temp.view(f32), top_p=top_p.view(f32),
                 top_k=top_k, min_p=min_p.view(f32), seed=seed,
-                out_step=out_step, repetition_penalty=rep,
-                presence_penalty=pres, frequency_penalty=freq,
-                bias_ids=bias_ids, bias_vals=bias_vals,
-                stop_ids=(stop_ids.view(sb.sampling.stop_ids.shape)
-                          if sb.sampling.stop_ids is not None else None),
-                stop_from=(stop_from if sb.sampling.stop_from is not None
-                           else None)),
+                out_step=out_step,
+                repetition_penalty=shaped(rep, md.repetition_penalty, True),
+                presence_penalty=shaped(pres, md.presence_penalty, True),
+                frequency_penalty=shaped(freq, md.frequency_penalty, True),
+                bias_ids=shaped(bias_ids, md.bias_ids),
+                bias_vals=shaped(bias_vals, md.bias_vals, True),
+                stop_ids=shaped(stop_ids, md.stop_ids),
+                stop_from=shaped(stop_from, md.stop_from)),
             scale_resets=resets if resets.numel() else None,
             ssm_slots=ssm_slots if sb.ssm_slots is not None else None,
-            active_until=(active_until if sb.active_until is not None
-                          else None),
+            active_until=shaped(active_until, sb.active_until),
             ssm_zero=ssm_zero if ssm_zero.numel() else None,
             splice=splice.view(2, -1) if splice.numel() else None,
             spec_rows=shaped(spec_rows, sb.spec_rows),
             spec_drafts=shaped(spec_drafts, sb.spec_drafts),
             spec_seed=shaped(spec_seed, sb.spec_seed),
-            penalty_ids=pen_ids, plp_targets=plp,
+            penalty_ids=shaped(pen_ids, sb.penalty_ids),
+            plp_targets=shaped(plp, sb.plp_targets),
             num_seqs=sb.num_seqs, max_seq_q=sb.max_seq_q)
 
 

@@ -25,10 +25,9 @@ the JAX package), every step on CUDA replays the CUDA graph of its key,
 captured at first sight or by ``warmup`` (``runner/graphs.py``, where JAX
 compiles one program per signature): a pure-decode step, a mixed step (a
 prefill chunk, chunks with decode rows, an absorb) and a host-driven
-verify step alike. What stays op by op: a step whose batch carries
-penalties, logit_bias or logprobs (A 2b), a hybrid model's mixed step
-(A 9), and every step under ``enforce_eager``. On the CPU the same
-static-buffer body runs uncaptured.
+verify step alike, with or without extras. What stays op by op: a hybrid
+model's mixed step (A 9), and every step under ``enforce_eager``. On the
+CPU the same static-buffer body runs uncaptured.
 The model family (dense, DeepSeek's MLA + MoE, or the hybrid GDN family)
 comes from ``models/registry.py``. A hybrid model keeps its GDN state in
 slot pools of ``1 + max_num_seqs`` slots (slot 0: the padding dummy);
@@ -40,15 +39,23 @@ ride the step's one upload), so a recycled page quantizes like a fresh one.
 Both of these run eagerly before a replay, as does a re-formed batch's
 token splice: their lists change length from step to step.
 A step whose batch carries penalties, logit_bias, logprobs or prompt
-logprobs (``BatchBuilder.batch_extras``) runs eagerly, counted as an
-"extras" step when it is pure decode: the logits are adjusted (JAX's
-``adjust_logits``; a verify step's by ``spec_adjust_logits``, JAX's
-``spec_aux``) and the logprobs of the sampled tokens (``lp``), of the
-prompt (``plp``, over row slices) and of a verify step's tokens
-(``spec_lp``) ride the handle to the host (``ModelRunner.aux``). Seeded
-rows ride every graph: each sampled body launches the seeded-Gumbel
-kernel over its rows, a block advances each row's output index a
-sub-step, and a spec block carries it in its state.
+logprobs (``BatchBuilder.batch_extras``; counted as an "extras" step when
+it is pure decode) takes its kind's extras key, JAX's static flags
+(``_lp_flags``, ``runner.py:972-986``) folded so that no key follows a
+sequence's length, a bias count or a top-N: "adjust" (penalties or
+logit_bias: the logits adjusted, JAX's ``adjust_logits``; a verify
+step's by ``spec_adjust_logits``, JAX's ``spec_aux``), "lp" (some row
+asks for logprobs: those of the sampled tokens, ``lp``, and of a verify
+step's tokens, ``spec_lp``, always at the widest top-N a request may ask,
+``LP_TOP``, which the host cuts to each row's) and "plp" (a prompt chunk
+asks for its prompt logprobs, over row slices). The extras ride the one
+upload at widths no batch changes (``HostStaging``), and the logprobs
+are the graph's outputs beside the tokens, on their way to the host with
+them (``ModelRunner.aux``). Seeded rows ride every graph: each sampled
+body launches the seeded-Gumbel kernel over its rows, a block advances
+each row's output index a sub-step, and a spec block carries it in its
+state. Every sampled body's mask takes JAX's bounded top-k fast path,
+whose branch is a conditional node of the graph (``DecodeGraphs.select``).
 """
 
 from __future__ import annotations
@@ -67,8 +74,9 @@ from gllm_tpu_torch.models.config import ModelConfig
 from gllm_tpu_torch.models.registry import get_model_def
 from gllm_tpu_torch.ops.cuda.common import check_model_shapes
 from gllm_tpu_torch.ops.cuda.decode_attention import split_geometry
-from gllm_tpu_torch.ops.sampling import (PenaltyTokens, adjust_logits,
-                                         compute_logprobs, ngram_propose,
+from gllm_tpu_torch.ops.sampling import (TOPK_FAST_BOUND, PenaltyTokens,
+                                         adjust_logits, compute_logprobs,
+                                         counts_from_tokens, ngram_propose,
                                          ring_shift_in, sample,
                                          spec_adjust_logits, spec_verify,
                                          stop_token_hit)
@@ -90,13 +98,23 @@ DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
 # Device memory kept free for a step's activations at the largest batch
 # shape (the JAX runner keeps the same 512 MB).
 ACTIVATION_HEADROOM = 512 * 1024 * 1024
-# The decode graphs' shared pool stays resident beside the eager steps'
-# activations. Its size is set by the largest sampled body: about 15
-# float32 [S, vocab] tensors (logits, their sort values and int64 indices,
-# probabilities, cumulative sums, masks, noise), measured after warmup on
-# the H100 (PERF.md) and reckoned here as 16; a hybrid model's pool also
-# holds about two recurrent GDN states per row
-GRAPH_POOL_LOGIT_COPIES = 16
+# The graphs' pools stay resident beside the eager steps' activations:
+# the graphs' own pool and, once an IF node is captured, the IF bodies'
+# pool. Each is sized by the largest sampled body at the largest sequence
+# bucket, reckoned in float32 [rows, vocab] copies (logits, the mask's
+# candidates and masks, noise; the fallback's sort values, int64 indices
+# and the sort's scratch, probabilities, cumulative sums):
+# tools/graph_pool_cost.py read, the largest keys captured first, at most
+# 7.97 copies in the graphs' pool (bench.py's full profile; 3.1 in the
+# sync loop and under the absorb flags), 18.65 / 19.93 in the bodies'
+# pool where blocks form (their sub-steps, the mask's sort fallback
+# nested in them: absorb / full profile) and 9.5 where it holds the
+# mask's sort fallback alone (the sync loop), on the H100 (PERF.md); a
+# hybrid model's graphs' pool also holds about two recurrent GDN states
+# per row
+GRAPH_POOL_LOGIT_COPIES = 9
+GRAPH_POOL_BODY_COPIES = 21
+GRAPH_POOL_FALLBACK_COPIES = 10
 GRAPH_POOL_STATES_PER_ROW = 2
 # a captured mixed step (dense and MLA families) keeps its forward's
 # transients at the token bucket in the graphs' pool for the engine's
@@ -107,6 +125,14 @@ GRAPH_POOL_STATES_PER_ROW = 2
 # 5.0 at T 3328 and 6.4 for DeepSeek-V2-Lite (616 MiB) on the H100
 # (PERF.md)
 GRAPH_POOL_MIXED_ROWS = 7
+# a step with extras keeps more [rows, vocab] float32 tensors alive than
+# the plain sampled body: the occurrence counts (int32) and their float
+# copy, the adjusted logits' intermediates, the logprobs' log-softmax (a
+# prompt-logprob slice's logits and log-softmax over PLP_ROWS rows).
+# tools/graph_pool_cost.py read 5.0 such copies of growth under the
+# absorb flags (the extras keys at 256 rows after the plain ones), 0
+# under the full profile (PERF.md)
+GRAPH_POOL_EXTRAS_COPIES = 6
 # a fused spec block's on-device recent-token ring, per row (JAX's
 # ``SPEC_RING``): the n-gram lookup window of its drafting
 SPEC_RING = 128
@@ -114,6 +140,9 @@ SPEC_RING = 128
 # of a whole prefill chunk ([T, V] float32, 1 GB at T 2048 and V 128256)
 # and their log-softmax would not fit the activation headroom
 PLP_ROWS = 256
+# the top-N of every logprob a step computes: the most a request may ask
+# (``SamplingParams.validate``); the host keeps each row's own N
+LP_TOP = 20
 
 
 def reclaim_driver_memory(device: torch.device) -> None:
@@ -248,13 +277,14 @@ class ModelRunner:
         self.generator.manual_seed(config.seed)
         # steps by batch: "decode" when every row has one new token, else
         # "mixed" (a prefill chunk or a mix); "extras" a pure-decode step
-        # that runs eagerly for its penalties, logit_bias or logprobs. The
-        # legacy kernels split decode and mixed the same way; the unified
-        # kernel serves both.
+        # with penalties, logit_bias or logprobs (its "decode_extras" key).
+        # The legacy kernels split decode and mixed the same way; the
+        # unified kernel serves both.
         self.step_counts = {"mixed": 0, "decode": 0, "extras": 0}
         # the mixed steps (verify steps included) that ran eagerly, by
-        # reason: their batch carries extras (A 2b), a hybrid model's (A
-        # 9), or ``enforce_eager``; every other one replays a graph
+        # reason: a hybrid model's (A 9) or ``enforce_eager``; every other
+        # one replays a graph, a step with extras too ("extras" stays 0
+        # since the extras steps are captured)
         self.eager_mixed = {"extras": 0, "hybrid": 0, "enforce_eager": 0}
         # blocks dispatched (each one graph replay) and the sub-steps they
         # executed (counted when a block is collected)
@@ -278,10 +308,10 @@ class ModelRunner:
                     self.device)
         # one device buffer for every step: the largest step's fixed part,
         # a block's active_until and widest stop sets, a verify step's rows
-        # and drafts or a spec block's seed, then room for every page's
-        # scale reset, every slot's zeroing and a re-form's splice map; a
-        # pinned host buffer for each step that can be in flight, and one
-        # more
+        # and drafts or a spec block's seed, the extras, then room for
+        # every page's scale reset, every slot's zeroing and a re-form's
+        # splice map; a pinned host buffer for each step that can be in
+        # flight, and one more
         b = self.builder
         self.staging = HostStaging(self.device, capacity=(
             b.upload_size(b.max_tokens, b.max_seqs,
@@ -289,6 +319,7 @@ class ModelRunner:
             + (b.spec_size(b.max_seqs, SPEC_RING)
                if config.spec_decode else 0)
             + b.max_seqs * (2 + MAX_STOP_IDS)
+            + b.extras_size(b.max_tokens, b.max_seqs)
             + (self.num_pages if self.kv_quant else 0)
             + (1 + self.ssm_working_slots if self.hybrid else 0)
             + 2 * b.max_seqs), slots=(
@@ -311,10 +342,12 @@ class ModelRunner:
         """Device bytes kept free for a step's activations: 512 MB, for a
         hybrid model also the GDN layer's largest transient at the largest
         batch shape the config can schedule, and, unless ``enforce_eager``,
-        the graphs' pool at the largest sequence bucket (twice when blocks
-        stop early: their conditional bodies have a pool of their own)
-        and, but for a hybrid model, what its captured mixed steps keep
-        there at the token bucket (``mixed_pool_bytes``)."""
+        the graphs' pools at the largest sequence bucket (their own and,
+        where blocks stop early or the mask's fast path falls back to its
+        sort, the IF bodies': ``graph_pool_copies``), what the extras
+        keys add there (``extras_pool_bytes``) and, but for a hybrid
+        model, what its captured mixed steps keep there at the token
+        bucket (``mixed_pool_bytes``)."""
         rows = self.builder.max_seqs
         headroom = ACTIVATION_HEADROOM
         if self.hybrid:
@@ -328,16 +361,15 @@ class ModelRunner:
         # hold that many rows of logits and their sampling transients
         spec = self.config.spec_decode is not None
         logit_rows = rows * (1 + self.config.spec_k) if spec else rows
+        vocab = self.model_cfg.vocab_size
         if spec and not self.config.spec_fused:
-            headroom += GRAPH_POOL_LOGIT_COPIES * logit_rows * \
-                self.model_cfg.vocab_size * 4
+            # the mask's transients and its sort fallback's, eagerly
+            headroom += ((GRAPH_POOL_LOGIT_COPIES
+                          + GRAPH_POOL_FALLBACK_COPIES)
+                         * logit_rows * vocab * 4)
         if not self.config.enforce_eager:
-            # the graphs' pool and, where blocks form, the pool of their
-            # conditional bodies, which holds a sub-step's transient of its
-            # own
-            pools = 2 if self.block_len > 1 else 1
-            headroom += (pools * GRAPH_POOL_LOGIT_COPIES * logit_rows
-                         * self.model_cfg.vocab_size * 4)
+            headroom += self.graph_pool_copies() * logit_rows * vocab * 4
+            headroom += self.extras_pool_bytes()
             if self.hybrid:
                 headroom += (GRAPH_POOL_STATES_PER_ROW * rows
                              * hybrid.ssm_pool_bytes(self.model_cfg, 1)
@@ -345,6 +377,32 @@ class ModelRunner:
             else:
                 headroom += self.mixed_pool_bytes()
         return headroom
+
+    def graph_pool_copies(self) -> int:
+        """The [rows, vocab] float32 copies the graphs' pools are
+        reckoned to hold: the graphs' own pool's, and the IF bodies'
+        where blocks form (a sub-step's transients, the mask's sort
+        fallback nested in them) or the mask's fast path falls back to
+        the sort (a vocabulary past its bound)."""
+        copies = GRAPH_POOL_LOGIT_COPIES
+        if self.block_len > 1:
+            copies += GRAPH_POOL_BODY_COPIES
+        elif self.model_cfg.vocab_size > TOPK_FAST_BOUND:
+            copies += GRAPH_POOL_FALLBACK_COPIES
+        return copies
+
+    def extras_pool_bytes(self) -> int:
+        """What the extras keys are reckoned to keep in the graphs' pool
+        beyond the plain bodies: ``GRAPH_POOL_EXTRAS_COPIES`` [rows, V]
+        float32 tensors, rows the most an extras step scores: a sequence
+        bucket's, spec_k + 1 a sequence for a host-driven verify step
+        (under fused speculation extras rows ride single steps), and at
+        least a prompt-logprob slice's ``PLP_ROWS``."""
+        b = self.builder
+        spec = self.config.spec_decode and not self.config.spec_fused
+        rows = max(b.max_seqs * (1 + b.spec_k if spec else 1), PLP_ROWS)
+        return (GRAPH_POOL_EXTRAS_COPIES * rows * self.model_cfg.vocab_size
+                * 4)
 
     def mixed_pool_bytes(self) -> int:
         """What the captured mixed steps are reckoned to keep in the
@@ -493,40 +551,45 @@ class ModelRunner:
                                   max_q_len=max_q, impl=self.attn_impl)
 
     def _step_body(self, batch, max_q: int, all_greedy: bool,
-                    lp_k: int = -1, plp: bool = False,
-                    spec_sampled: Optional[bool] = None, generator=None):
+                   lp: bool = False, plp: bool = False,
+                   spec_sampled: Optional[bool] = None, generator=None,
+                   select=None):
         """A step over adjusted logits (JAX's step body with its
         ``lp_aux`` and, with drafts, ``spec_aux``, ``runner.py:211-237,
         656-678``): forward, each row's sampled token and the requested
-        logprobs; a step with drafts (``spec_sampled`` not None: some
-        drafted row samples, ``_spec_sampled``; else the argmax-only
-        verify) also verifies them over the verify rows' logits alone
-        (never [T, V]), adjusted with the draft prefixes' counts. →
-        (tokens [S] or, with drafts, [S, 2 + K1]: the sampled token, the
-        accepted drafts, then the verify tokens; the aux dict). Eager for
-        a batch with extras; without them (no logprobs, no adjustment) a
-        verify step's graph body, drawing from ``generator`` (default:
-        the runner's)."""
+        logprobs (``lp``: the sampled tokens', ``plp``: the prompt's, each
+        at the top ``LP_TOP``); a step with drafts (``spec_sampled`` not
+        None: some drafted row samples, ``_spec_sampled``; else the
+        argmax-only verify) also verifies them over the verify rows'
+        logits alone (never [T, V]), adjusted with the draft prefixes'
+        counts. → (tokens [S] or, with drafts, [S, 2 + K1]: the sampled
+        token, the accepted drafts, then the verify tokens; the aux
+        dict). The logits are adjusted where the batch stages penalty ids
+        (an "adjust" key: its penalties and logit_bias pairs, neutral in
+        rows without), the occurrence counts built once. Draws from
+        ``generator`` (default: the runner's); ``select``: the mask fast
+        path's branch (a graph's conditional node; None: read on the
+        host)."""
         generator = generator if generator is not None else self.generator
         hidden, residual = self._hidden(batch, max_q)
         md = batch.sampling
-        counts = None
-        if batch.penalty_ids is not None:
-            counts = PenaltyTokens(torch.clamp(batch.penalty_ids, min=0),
-                                   batch.penalty_ids >= 0)
         logits = self.model.compute_logits(self.params, hidden, residual,
                                            batch, self.model_cfg)
-        tokens = sample(logits, md, generator, token_counts=counts,
-                        all_greedy=all_greedy)
+        counts = None
+        if batch.penalty_ids is not None:
+            counts = counts_from_tokens(PenaltyTokens(
+                torch.clamp(batch.penalty_ids, min=0),
+                batch.penalty_ids >= 0), logits.shape[-1])
+            logits = adjust_logits(logits, counts, md)
+        tokens = sample(logits, md, generator, all_greedy=all_greedy,
+                        adjusted=True, select=select)
         aux = {}
-        top = max(lp_k, 1)
-        if lp_k >= 0:
+        if lp:
             # the sampled tokens' logprobs over the adjusted distribution
-            aux["lp"] = compute_logprobs(adjust_logits(logits, counts, md),
-                                         tokens, top)
+            aux["lp"] = compute_logprobs(logits, tokens, LP_TOP)
         if plp:
             aux["plp"] = self._prompt_logprobs(hidden, residual,
-                                               batch.plp_targets, top)
+                                               batch.plp_targets, LP_TOP)
         if spec_sampled is None:
             return tokens, aux
         S, K1 = batch.spec_rows.shape
@@ -537,11 +600,13 @@ class ModelRunner:
         adjusted = spec_adjust_logits(verify.view(S, K1, -1),
                                       batch.spec_drafts, md, counts)
         tok_mat, accept = spec_verify(adjusted, batch.spec_drafts, md,
-                                      generator, sampled=spec_sampled)
-        if lp_k >= 0:
+                                      generator, sampled=spec_sampled,
+                                      select=select)
+        if lp:
             aux["spec_lp"] = tuple(
                 x.reshape((S, K1) + x.shape[1:]) for x in compute_logprobs(
-                    adjusted.reshape(S * K1, -1), tok_mat.reshape(-1), top))
+                    adjusted.reshape(S * K1, -1), tok_mat.reshape(-1),
+                    LP_TOP))
         return torch.cat([tokens[:, None], accept[:, None], tok_mat], 1), aux
 
     def _prompt_logprobs(self, hidden, residual, targets, top: int):
@@ -607,11 +672,13 @@ class ModelRunner:
         (``step_async_chained``). A pure-decode step replays its
         signature's graph; so do a mixed step (prefill chunks, with or
         without decode rows) and a host-driven verify step, keyed "mixed"
-        and "verify" (``graphs.key_kind``). A step whose batch carries
-        penalties, logit_bias or logprobs runs eagerly (A 2b), as does a
-        hybrid model's mixed step (its GDN layer loops over row groups on
-        the host) and every step under ``enforce_eager``; the mixed ones
-        among them are counted in ``eager_mixed`` by reason."""
+        and "verify" (``graphs.key_kind``); a step whose batch carries
+        extras replays its kind's "_extras" key, which adds the flags
+        (adjust, lp, plp) and whose logprobs come back with the handle. A
+        hybrid model's mixed step runs eagerly (its GDN layer loops over
+        row groups on the host), as does every step under
+        ``enforce_eager``; the mixed ones among them are counted in
+        ``eager_mixed`` by reason."""
         host_batch, max_q, sig_q = self._host_batch(sched_batch,
                                                     force_signature)
         decode = host_batch.max_seq_q == 1
@@ -619,12 +686,15 @@ class ModelRunner:
         drafts = host_batch.spec_rows is not None
         spec_sampled = _spec_sampled(sched_batch.items) if drafts else None
         extras = self.builder.batch_extras(sched_batch)
+        lp_k, plp = self._lp_flags(sched_batch)
+        # the extras flags: the staged adjustments (``BatchBuilder.build``)
+        # and the logprobs
+        flags = (host_batch.penalty_ids is not None, lp_k >= 0, plp)
         # a verify step is never pure decode: its drafted rows take more
         # than one token
         self.step_counts["extras" if extras and decode
                          else "decode" if decode else "mixed"] += 1
-        eager = ("extras" if extras
-                 else "enforce_eager" if self.graphs is None
+        eager = ("enforce_eager" if self.graphs is None
                  else "hybrid" if self.hybrid and not decode else None)
         k1 = int(host_batch.spec_rows.shape[1]) if drafts else 0
         if eager is not None:
@@ -633,35 +703,35 @@ class ModelRunner:
         else:
             t = host_batch.token_ids.size
             s, p = host_batch.attn.page_table.shape
+            kind = "verify" if drafts else "decode" if decode else "mixed"
+            key = (t, s, sig_q, p, all_greedy)
             if drafts:
-                key = ("verify", t, s, sig_q, p, all_greedy, k1,
-                       spec_sampled)
-            elif decode:
-                key = (t, s, sig_q, p, all_greedy)
-            else:
-                key = ("mixed", t, s, sig_q, p, all_greedy)
+                key += (k1, spec_sampled)
+            if any(flags):
+                kind += "_extras"
+                key += flags
+            if kind != "decode":
+                key = (kind,) + key
 
             def body(generator, graph=None):
                 # max_q is the key's, never the live batch's
                 # (``_host_batch``): it only picks the decode or ragged path
-                return self._step_body(batch, max_q, all_greedy,
-                                       spec_sampled=spec_sampled,
-                                       generator=generator)[0]
+                return self._step_body(batch, max_q, all_greedy, *flags[1:],
+                                       spec_sampled, generator, self._select)
 
             if self.graphs.cuda and key not in self.graphs:
                 # captured over padding rows staged at the same views
-                batch = self.staging.upload(self.builder.padding(t, s, p,
-                                                                 k1))
+                batch = self.staging.upload(self.builder.padding(
+                    t, s, p, k1, adjust=flags[0], plp=plp))
                 self._capture(key, body, sampled=not all_greedy)
         batch = self.staging.upload(host_batch)
         if prev is not None:
             self._splice(batch, sched_batch, prev)
         self._prologue(batch)
         if eager is None:
-            out, aux = self.graphs.run(key, body), None
+            out, aux = self.graphs.run(key, body)
         else:
-            lp_k, plp = self._lp_flags(sched_batch)
-            out, aux = self._step_body(batch, max_q, all_greedy, lp_k, plp,
+            out, aux = self._step_body(batch, max_q, all_greedy, *flags[1:],
                                        spec_sampled)
         return self._handle(out[:sched_batch.num_seqs], aux=aux,
                             spec=k1 or None)
@@ -845,7 +915,7 @@ class ModelRunner:
             sampling=batch.sampling._replace(
                 out_step=batch.sampling.out_step + k))
         toks = sample(self._forward(sub, 1), sub.sampling, generator,
-                      all_greedy=all_greedy)
+                      all_greedy=all_greedy, select=self._select)
         if odf:
             hit = stop_token_hit(toks, sub.sampling, k) & (alive_n > k)
             alive_n.masked_fill_(hit, k + 1)
@@ -1079,7 +1149,7 @@ class ModelRunner:
         tok_mat, accept = spec_verify(
             logits.view(S, K1, -1), drafts,
             batch.sampling._replace(out_step=ostep), generator,
-            sampled=not all_greedy)
+            sampled=not all_greedy, select=self._select)
         emitted = torch.minimum(accept + 1, alive)        # 0 when dead
         hit_any = torch.zeros_like(live)
         md = batch.sampling
@@ -1178,6 +1248,12 @@ class ModelRunner:
         return len(self.graphs) if self.graphs is not None else 0
 
     @property
+    def _select(self):
+        """How a graph body's mask fast path branches: the graphs'
+        conditional nodes on the card, the host's read on the CPU."""
+        return self.graphs.select if self.graphs.cuda else None
+
+    @property
     def block_len(self) -> int:
         """The longest block this runner dispatches: the largest power of
         two up to the chain length under overlap scheduling (1: no block;
@@ -1204,7 +1280,11 @@ class ModelRunner:
         page 0 and their GDN slot the dummy slot 0, so no page or slot a
         sequence holds (nor a prefix-cached page) is written; the step
         counts, the launch counters, the graphs' replay counts, the
-        generator and the memory manager's queues come out as they were. Under the unified step
+        generator and the memory manager's queues come out as they were.
+        Each pass goes from the largest sequence and page buckets down, so
+        that the largest transients come first into the graphs' pools and
+        the later keys' fit in the blocks they leave free. Under the
+        unified step
         every mixed batch pads to the one token bucket, so the mixed pass
         covers every mixed key of its sequence buckets at its page bucket.
         Where blocks form, every step and block takes the one pinned page
@@ -1237,9 +1317,9 @@ class ModelRunner:
                 max_decode, self.config.max_pages_per_seq, self.num_pages,
                 decode_buckets, page_buckets)
         npages = combos[0][1]
-        mixed = ([] if self.hybrid else
-                 decode_buckets or block_buckets
-                 or graphs.pow2_range(8, max_decode))
+        mixed = sorted([] if self.hybrid else
+                       decode_buckets or block_buckets
+                       or graphs.pow2_range(8, max_decode), reverse=True)
         steps, counts = dict(self.step_counts), graphs.launch_counts()
         blocks, eager = dict(self.block_counts), dict(self.eager_mixed)
         replays = {k: v["replays"] for k, v in self.graphs.by_kind.items()}
@@ -1247,7 +1327,7 @@ class ModelRunner:
         t0 = time.monotonic()
         self._warming = True
         try:
-            for nseq, npg in combos:
+            for nseq, npg in sorted(combos, reverse=True):
                 for temp in (0.0, 1.0):
                     self._warm_step(nseq, npg, temp)
             for nseq in mixed:
@@ -1257,8 +1337,8 @@ class ModelRunner:
             if K > 1:
                 warm = (self._warm_spec_block if self.config.spec_fused
                         else self._warm_block)
-                for nseq in (block_buckets or sorted({
-                        s for s, p in combos if p == npages})):
+                for nseq in sorted(block_buckets or {
+                        s for s, p in combos if p == npages}, reverse=True):
                     for temp in (0.0, 1.0):
                         warm(nseq, npages, K, temp)
         finally:
@@ -1274,37 +1354,41 @@ class ModelRunner:
                     "signatures, %.2f s", len(combos), len(mixed),
                     self.num_shape_signatures, time.monotonic() - t0)
 
-    def _warm_step(self, nseq: int, npages: int, temp: float) -> None:
+    def _warm_step(self, nseq: int, npages: int, temp: float,
+                   **extras) -> None:
         """One decode step of ``nseq`` throwaway sequences whose contexts
-        fill ``npages`` pages, all the dummy page 0."""
+        fill ``npages`` pages, all the dummy page 0 (``extras``: further
+        sampling options of every row, for an extras key)."""
         ctx = npages * self.config.cache.page_size - 1
         items = []
         for i in range(nseq):
-            seq = Sequence(i, [1] * (ctx + 1),
-                           SamplingParams(temperature=temp, max_tokens=4))
+            seq = Sequence(i, [1] * (ctx + 1), SamplingParams(
+                temperature=temp, max_tokens=4, **extras))
             seq.page_table = [0] * npages
             seq.num_computed_tokens = ctx
             items.append(ScheduledSeq(seq, 1, ctx))
         self.step(ScheduledBatch(items))
 
-    def _warm_mixed(self, nseq: int, npages: int, temp: float) -> None:
+    def _warm_mixed(self, nseq: int, npages: int, temp: float,
+                    **extras) -> None:
         """One mixed step (JAX's mixed warmup pass): a throwaway prompt of
         a full prefill chunk (``max_prefill_tokens``, at most
         ``max_model_len``) and ``nseq - 1`` throwaway decode rows whose
-        contexts fill ``npages`` pages, every page the dummy page 0."""
+        contexts fill ``npages`` pages, every page the dummy page 0
+        (``extras``: further sampling options of every row)."""
         page = self.config.cache.page_size
         chunk = min(self.config.scheduler.max_prefill_tokens,
                     self.config.max_model_len)
-        seq = Sequence(nseq, [1] * chunk,
-                       SamplingParams(temperature=temp, max_tokens=4))
+        seq = Sequence(nseq, [1] * chunk, SamplingParams(
+            temperature=temp, max_tokens=4, **extras))
         seq.page_table = [0] * cdiv(chunk, page)
         ctx = npages * page - 1
         self.step(ScheduledBatch([ScheduledSeq(seq, chunk, 0)] + [
-            ScheduledSeq(row, 1, ctx)
-            for row in self._warm_seqs(nseq - 1, npages, ctx, temp, 4)]))
+            ScheduledSeq(row, 1, ctx) for row in self._warm_seqs(
+                nseq - 1, npages, ctx, temp, 4, **extras)]))
 
     def _warm_seqs(self, nseq: int, npages: int, ctx: int, temp: float,
-                   max_tokens: int) -> list:
+                   max_tokens: int, **extras) -> list:
         """``nseq`` throwaway running sequences at context ``ctx`` whose
         ``npages`` pages are all the dummy page 0; they carry the engine's
         EOS ids, so that a block under on-device finish has the stop-set
@@ -1313,7 +1397,7 @@ class ModelRunner:
         for i in range(nseq):
             seq = Sequence(i, [1] * (ctx + 1), SamplingParams(
                 temperature=temp, max_tokens=max_tokens,
-                ignore_eos=not self.eos_token_ids))
+                ignore_eos=not self.eos_token_ids, **extras))
             seq.page_table = [0] * npages
             seq.num_computed_tokens = ctx
             seq.status = SequenceStatus.RUNNING

@@ -3131,7 +3131,8 @@ def _extras_workload():
 def test_eager_extras_step_on_card_matches_cpu(cuda_device):
     """The same float32 weights on the card and on the CPU, the extras
     workload: equal streams, logprobs and prompt logprobs within 1e-4,
-    and eager extras steps counted."""
+    and extras steps counted (replayed on their extras keys since the
+    extras steps are captured)."""
     card = _tiny_engine(cuda_device)
     cpu_params = {"layers": {k: v.cpu() for k, v in
                              card.runner.params["layers"].items()},
@@ -3184,3 +3185,217 @@ def test_prompt_logprobs_of_a_2048_chunk_fit_the_headroom(cuda_device):
     assert out.prompt_logprobs[0] is None
     assert all(e[0] <= 0 for e in out.prompt_logprobs[1:])
     _drained(llm)
+
+
+# ---- extras steps as CUDA graphs (A 2b) -------------------------------------
+
+def _extras_serve(llm):
+    """``_spec_workload``'s prompts (prompt lookup drafts from them) with
+    every extra: penalties, logit_bias, logprobs and prompt logprobs on
+    greedy and seeded sampled rows (top-p, top-k), one plain greedy row:
+    each request's (tokens, logprobs, prompt logprobs)."""
+    import gllm_tpu_torch as gt
+    prompts, sps = _spec_workload()
+    kinds = [dict(temperature=0.0, presence_penalty=0.5,
+                  frequency_penalty=0.3, repetition_penalty=1.2, logprobs=2),
+             dict(temperature=0.0, logit_bias={17: 8.0, 33: -100.0},
+                  logprobs=3, prompt_logprobs=2),
+             dict(temperature=0.8, top_p=0.9, seed=5, logprobs=2),
+             dict(temperature=0.8, top_k=20, seed=9, repetition_penalty=1.1,
+                  prompt_logprobs=1),
+             dict(temperature=0.0),
+             dict(temperature=0.7, top_p=0.95, seed=3, logprobs=0)]
+    outs = llm.generate(prompt_token_ids=prompts, sampling_params=[
+        gt.SamplingParams(max_tokens=sp.max_tokens, ignore_eos=True, **k)
+        for sp, k in zip(sps, kinds)])
+    return [(o.output_token_ids, o.logprobs, o.prompt_logprobs)
+            for o in outs]
+
+
+EXTRAS_KINDS = ("decode_extras", "mixed_extras", "verify_extras")
+# MIXED_CASES under host-driven speculation, and the dense bf16 model
+# without it (its pure-decode steps)
+EXTRAS_CASES = [(f, c, True) for f, c in MIXED_CASES] + [("dense", {}, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,cfg,spec", EXTRAS_CASES,
+                         ids=[f + "".join(f"-{v}" for v in c.values())
+                              + ("" if spec else "-nospec")
+                              for f, c, spec in EXTRAS_CASES])
+def test_extras_replays_equal_the_eager_step(cuda_device, monkeypatch,
+                                             family, cfg, spec):
+    """bf16, the same weights, every extra, the mask's fast path on (its
+    bound shrunk below the vocabulary, so that its IF nodes run, nested in
+    none): the extras decode, mixed and verify steps replay their keys and
+    give the tokens, logprobs and prompt logprobs of the same batches run
+    eagerly (an ``enforce_eager`` engine on the same traffic) bit for bit;
+    once the keys exist (a first run), the second run's dispatches raise
+    nothing under sync-debug mode "error" and capture nothing."""
+    from gllm_tpu_torch.ops import sampling
+    monkeypatch.setattr(sampling, "TOPK_FAST_BOUND", 64)
+    make = GRAPH_MAKERS[family]
+    flags = dict(cfg, **(dict(spec_decode="ngram") if spec else {}))
+    eager = make(cuda_device, dtype="bfloat16", enforce_eager=True, **flags)
+    graph = make(cuda_device, params=eager.runner.params, dtype="bfloat16",
+                 **flags)
+    want = _extras_serve(eager)
+    assert _extras_serve(graph) == want          # the keys captured here
+    runner = graph.runner
+    keys = set(runner.graphs.keys)
+    by_kind = runner.graphs.by_kind
+    replays = {k: v["replays"] for k, v in by_kind.items()}
+    steps = dict(graph.step_counts)
+    _strict_steps(runner)
+    assert _extras_serve(graph) == want
+    assert set(runner.graphs.keys) == keys
+    done = {k: by_kind[k]["replays"] - replays[k] for k in by_kind}
+    assert done["decode_extras"] == graph.step_counts["extras"] - \
+        steps["extras"]
+    assert done["mixed_extras"] + done["verify_extras"] + done["mixed"] + \
+        done["verify"] == graph.step_counts["mixed"] - steps["mixed"]
+    assert done["mixed_extras"] > 0
+    assert done["verify_extras"] > 0 if spec else done["decode_extras"] > 0
+    assert sum(runner.eager_mixed.values()) == 0
+    _drained(graph)
+    _counters_zero(cuda_device)
+
+
+@pytest.mark.cuda
+def test_hybrid_extras_decode_steps_replay(cuda_device):
+    """The hybrid model with every extra (no speculation: it raises
+    there): its pure-decode extras steps replay their keys, its mixed
+    steps run eagerly ("hybrid"), and the streams and logprobs equal an
+    ``enforce_eager`` engine's bit for bit."""
+    import gllm_tpu_torch as gt
+    eager = _hybrid_engine(cuda_device, dtype="bfloat16", enforce_eager=True)
+    graph = _hybrid_engine(cuda_device, params=eager.runner.params,
+                           dtype="bfloat16")
+    prompts, sps = _extras_workload()
+    sps = [gt.SamplingParams(**dict(
+        vars(sp), max_tokens=12)) for sp in sps]
+    outs = [[(o.output_token_ids, o.logprobs, o.prompt_logprobs)
+             for o in e.generate(prompt_token_ids=prompts,
+                                 sampling_params=sps)]
+            for e in (eager, graph)]
+    assert outs[0] == outs[1]
+    by = graph.runner.graphs.by_kind
+    assert by["decode_extras"]["replays"] == graph.step_counts["extras"] > 0
+    assert graph.runner.eager_mixed["hybrid"] == graph.step_counts["mixed"]
+    assert by["mixed_extras"]["replays"] == 0
+    _drained(graph)
+
+
+@pytest.mark.cuda
+def test_extras_keys_pool_within_the_reckoning(cuda_device):
+    """Llama-3.2-1B's widths at two layers, the default 256 sequences:
+    after ``warmup``, the extras keys at the largest sequence bucket (a
+    decode step with every adjustment and logprobs, greedy and sampled)
+    and a mixed step with prompt logprobs grow the graphs' pools by no
+    more than ``extras_pool_bytes`` reckons, and all the pools stay
+    within the headroom's graph part."""
+    import gllm_tpu_torch as gt
+    from gllm_tpu_torch.runner.runner import ACTIVATION_HEADROOM
+    mc = gt.ModelConfig(architecture="LlamaForCausalLM", vocab_size=128256,
+                        hidden_size=2048, num_layers=2, num_heads=32,
+                        num_kv_heads=8, head_dim=64, intermediate_size=8192,
+                        max_position=4096, tie_word_embeddings=True)
+    llm = gt.LLM(model_cfg=mc, device=cuda_device, config=gt.EngineConfig(
+        dtype="bfloat16", load_format="dummy", max_model_len=4096,
+        cache=gt.CacheConfig(num_pages=2048)))
+    runner = llm.runner
+    g = runner.graphs
+    runner.warmup()
+    before = g.pool_bytes()
+    extras = dict(repetition_penalty=1.2, presence_penalty=0.3,
+                  logit_bias={5: 1.0}, logprobs=5)
+    runner._warming = True                 # throwaway rows, as warmup's
+    pages = runner.builder.max_pages_per_seq
+    for temp in (0.0, 1.0):
+        runner._warm_step(runner.builder.max_seqs, pages, temp, **extras)
+    runner._warm_mixed(8, pages, 1.0, prompt_logprobs=2, **extras)
+    runner._warming = False
+    assert sum(g.by_kind[k]["captured"] for k in EXTRAS_KINDS) == 3
+    grown = g.pool_bytes() - before
+    assert grown <= runner.extras_pool_bytes(), (grown, before)
+    assert (g.pool_bytes()
+            <= runner.activation_headroom() - ACTIVATION_HEADROOM)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nested", [False, True], ids=["top", "in_if_node"])
+def test_fast_path_conditional_node_takes_each_branch(cuda_device, nested):
+    """The sampled mask at Llama-3's vocabulary (V 128256 against the
+    4096 bound) captured once, its branch two IF nodes over the flag
+    "every row proved" (nested in a block's IF node, ``in_if_node``):
+    replayed over a small nucleus (the bounded top-k branch) and over a
+    wide one (top-p 0.999 over near-uniform logits: the full sort), it
+    gives the sort form's mask each time; the host's certificate says
+    which branch each input needs."""
+    from gllm_tpu_torch.ops import sampling
+    from gllm_tpu_torch.runner import graphs
+    S, V = 8, 128256
+    g = graphs.DecodeGraphs(cuda_device, torch.Generator(device=cuda_device),
+                            0)
+    logits = torch.empty((S, V), device=cuda_device)
+    top_k = torch.empty(S, dtype=torch.int32, device=cuda_device)
+    top_p = torch.empty(S, device=cuda_device)
+    min_p = torch.empty(S, device=cuda_device)
+    live = torch.ones((), dtype=torch.bool, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def stage(wide):
+        if wide:
+            logits.copy_(torch.randn((S, V), generator=gen,
+                                     device=cuda_device) * 0.01)
+            top_k.fill_(-1)
+            top_p.fill_(0.999)
+            min_p.fill_(0.0)
+        else:
+            # five peaks a row (25 down to 21: masses .636, .234, .086,
+            # .032, .012) over N(0, 3^2): every top-p and min-p cutoff
+            # below falls between peaks, far from the certificate's margin
+            x = torch.randn((S, V), generator=gen, device=cuda_device) * 3
+            rows = torch.arange(S, device=cuda_device)[:, None]
+            idx = (rows * 131 + torch.arange(5, device=cuda_device) * 20011
+                   ) % V
+            x.scatter_(1, idx, torch.arange(25.0, 20.0, -1.0,
+                                            device=cuda_device).expand(S, 5))
+            logits.copy_(x)
+            top_k.copy_(torch.tensor([-1, 1, 3, 50, -1, 4000, 7, -1]))
+            top_p.copy_(torch.tensor([0.9, 1.0, 0.5, 0.8, 0.2, 1.0, 0.95,
+                                      0.6]))
+            min_p.copy_(torch.tensor([0.0, 0.0, 0.1, 0.0, 0.3, 0.0, 0.0,
+                                      0.2]))
+
+    def mask():
+        return sampling.topk_topp_mask(logits, top_k, top_p, min_p,
+                                       select=g.select)
+
+    def body(generator, graph=None):
+        if not nested:
+            return mask()
+        out = torch.zeros_like(logits)
+        if graph is None:
+            with g.on_body_stream():
+                out.copy_(mask())
+        else:
+            with g.if_node(live):
+                out.copy_(mask())
+        return out
+
+    stage(False)
+    g.capture((S, V), body, sampled=False)
+    for wide in (False, True, False):
+        stage(wide)
+        taken = []
+        sampling.topk_topp_mask(
+            logits, top_k, top_p, min_p,
+            select=lambda f, a, b: (taken.append(bool(f)), a())[1])
+        assert taken == [not wide]
+        got = g.run((S, V), body)
+        want = sampling.topk_topp_mask_sort(logits, top_k, top_p, min_p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), wide
+        if wide:
+            assert int(torch.isfinite(want).sum(-1).max()) > 4096

@@ -231,9 +231,11 @@ def _warm_config(unified=False, **kw):
     (None, False), (((8,), (4, 8)), False), (None, True)],
     ids=["default", "given", "unified"])
 def test_warmup_runs_jax_combos(buckets, unified):
-    """The port's warmup runs JAX's decode combos, greedy and sampled, and
-    meets the mixed signatures (T, S, pages) that JAX's mixed pass leaves
-    in its ``_seen_sigs``, for the legacy and the unified step."""
+    """The port's warmup runs JAX's decode combos, greedy and sampled,
+    largest sequence and page bucket first (the graphs' pools then grow
+    at the first key), and meets the mixed signatures (T, S, pages) that
+    JAX's mixed pass leaves in its ``_seen_sigs``, for the legacy and the
+    unified step."""
     decode_buckets, page_buckets = buckets or (None, None)
     stub = _StubRunner(JEC(dtype="float32", max_model_len=128,
                            max_num_seqs=16, unified_step=unified,
@@ -251,9 +253,14 @@ def test_warmup_runs_jax_combos(buckets, unified):
     step = llm.runner.step
     llm.runner.step = lambda b: (ran.append(b), step(b))[1]
     llm.runner.warmup(decode_buckets, page_buckets)
-    assert _decode_steps(ran) == want
+    got = _decode_steps(ran)
+    assert sorted(got) == sorted(want)
+    assert got == sorted(want, key=lambda x: (-x[0], -x[1], x[2]))
     combos = graphs.warmup_combos(16, 32, 30, decode_buckets, page_buckets)
     assert [(n, p) for n, p, _ in want[::2]] == combos
+    mixed_rows = [len(b.items) for b in ran
+                  if any(it.num_new_tokens > 1 for it in b.items)]
+    assert mixed_rows == sorted(mixed_rows, reverse=True)
     keys = llm.runner.graphs.keys
     mixed = {k for k in keys if k[0] == "mixed"}
     assert jax_mixed and {(k[1], k[2], k[4]) for k in mixed} == jax_mixed

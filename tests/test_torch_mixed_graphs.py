@@ -8,8 +8,9 @@ key are staged at the same views and give the eager step's and the JAX
 verify step replay their keys with streams equal to JAX's; a verify
 step's rows and drafts keep their offsets whatever the variable lists
 hold; unified mixed keys take the pinned page bucket where blocks form;
-and the steps that stay eager (a hybrid model's mixed steps, extras,
-``enforce_eager``) are counted by reason. The warmup's mixed signatures
+and the steps that stay eager (a hybrid model's mixed steps,
+``enforce_eager``) are counted by reason, while a mixed step with extras
+replays its "mixed_extras" key. The warmup's mixed signatures
 against JAX's are in tests/test_torch_graphs.py
 (``test_warmup_runs_jax_combos``)."""
 
@@ -300,9 +301,9 @@ def test_unified_mixed_keys_take_the_pinned_page_bucket(flags, pinned):
 @pytest.mark.parametrize("case", ["hybrid", "extras", "enforce_eager"])
 def test_eager_mixed_steps_are_counted(case):
     """A hybrid model's mixed steps (its GDN layer loops over row groups
-    on the host), a mixed step carrying logprobs, and every step under
-    ``enforce_eager`` run eagerly: each mixed one counted by its reason,
-    none through a mixed key."""
+    on the host) and every step under ``enforce_eager`` run eagerly: each
+    mixed one counted by its reason, none through a mixed key. A mixed
+    step carrying logprobs replays its "mixed_extras" key: none eager."""
     rng = np.random.default_rng(4)
     prompts = [rng.integers(1, 500, int(n)).tolist() for n in (9, 14, 5)]
     sp = dict(temperature=0.0, max_tokens=6, ignore_eos=True)
@@ -317,7 +318,8 @@ def test_eager_mixed_steps_are_counted(case):
     mixed = llm.step_counts["mixed"]
     assert mixed > 0
     want = {"extras": 0, "hybrid": 0, "enforce_eager": 0}
-    want[case] = mixed
+    if case != "extras":
+        want[case] = mixed
     assert llm.runner.eager_mixed == want
     g = llm.runner.graphs
     if case == "enforce_eager":
@@ -325,3 +327,5 @@ def test_eager_mixed_steps_are_counted(case):
     else:
         assert g.by_kind["mixed"]["replays"] == 0
         assert not any(k[0] == "mixed" for k in g.keys)
+        extras = g.by_kind["mixed_extras"]["replays"]
+        assert extras == (mixed if case == "extras" else 0)

@@ -3,7 +3,8 @@ the CPU at float32, on the same weights and requests: seeded sampled
 rows, presence / frequency / repetition penalties on greedy rows,
 logit_bias and output and prompt logprobs, under the sync loop and the
 absorb flags (streams, dispatches in order and chain breaks equal:
-penalized rows break chains as in JAX; logprobs within 1e-4), under
+penalized rows break chains as in JAX; logprobs within 1e-4; the extras
+steps replay their graph keys), under
 host-driven speculation (penalties and the verify rows' logprobs) and
 fused speculation (seeded rows), a stop string that trims the logprobs of
 a verify step's run and seeded streams that do not depend on their batch
@@ -132,9 +133,14 @@ def test_extras_streams_and_logprobs_match_jax(loop):
     prompts, sps = _mixed_workload()
     port, streams = _against_jax(_engine, LOOPS[loop], prompts, sps)
     # the +100 bias wins every step; the penalized and biased decode
-    # steps ran eagerly
+    # steps replayed their extras keys, and so did the mixed steps with
+    # extras (the absorbs' among them): none ran eagerly
     assert set(streams[2][0]) == {7}
     assert port.step_counts["extras"] > 0
+    by = port.runner.graphs.by_kind
+    assert by["decode_extras"]["replays"] == port.step_counts["extras"]
+    assert by["mixed_extras"]["replays"] > 0
+    assert sum(port.runner.eager_mixed.values()) == 0
     if loop == "absorb":
         # penalized rows break the chains ...
         assert port.chain_breaks["shape"] > 0
