@@ -151,7 +151,19 @@ non-zero exit code and no result line:
              share, kernels per step, host launch calls per dispatched
              decode entry and per mixed dispatch, the dispatches' share
              of the wall by kind (the absorb window's mixed share beside
-             MIXED_SHARE_BEFORE) and the share spent waiting in collect
+             MIXED_SHARE_BEFORE) and the share spent waiting in collect,
+             and the engine's step-trace summary of the same window with
+             its device share (1 - bubble_frac) beside the profiler's busy
+             share. Each configuration's last run of its graph engine and
+             of its best twin (absorb, slot, multi, overlap or eager) is
+             bracketed on the step-trace ring (TRACE.mark()) and its
+             summary printed (attribution: steps by kind, host ms by
+             phase, device ms by kind, overlap efficiency, bubble share,
+             MFU against the wall and the device, HBM estimate, in-flight
+             depth, compiles); every collected step event must carry its
+             phases, device wall and MFU, each window's MFU and device MFU
+             must lie in (0, 1.05] and a dense model's HBM estimate be at
+             most 1.05 x 3.35 TB/s, else the run fails
 5. reference depth cut to 2 layers (4 for the hybrid period), float32:
              the port on the card
              (kernels, decode steps as CUDA graphs) against the port on the
@@ -229,7 +241,14 @@ non-zero exit code and no result line:
              the seeded rows repeat between the two runs, logprobs <= 0
              with sorted top lists and a greedy row's chosen logprob its
              top one
-8. http      the port's OpenAI server as users start it (``python -m
+8. tracing   the tracing twins: Llama-3.2-1B at full width, bf16, under
+             the absorb flags on the same weights, one engine with
+             tracing (request spans) on and one with it off, runs on, off,
+             on, off of the serve phase's 16 greedy requests: tok/s and
+             the on/off ratio of medians, the four runs' streams identical
+             (else the run fails), the traced window's summary under the
+             serve phase's hard checks, one span tree closed a request
+9. http      the port's OpenAI server as users start it (``python -m
              gllm_tpu_torch.entrypoints.api_server``), a process of its
              own: Llama-3.2-1B at full width (config.json written under
              build/http_model, dummy bf16 weights from seed 0), once
@@ -259,8 +278,14 @@ non-zero exit code and no result line:
              best_of 3 with n 1 and echo with prompt_logprobs, each sent
              twice: 200 in OpenAI's shape, the seeded one's tokens
              repeated, the extras keys captured at first sight and none
-             by the repeat
-9. a {"kernels": [...]} line, then the last line
+             by the repeat; on the absorb server after its passes, the
+             tracing routes (http_trace): GET /steptrace from a mark taken
+             before the passes (next_since, each kind filter exact), the
+             passes' window summary under the hard checks of the serve
+             phase, compile events in the passes equal to the graphs they
+             captured, GET /trace (Chrome JSON with the engine and request
+             rows) and POST /profile?seconds=1 (its trace file written)
+10. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
 It imports nothing of jax or the JAX package.
@@ -279,17 +304,20 @@ import time
 import numpy as np
 import torch
 
+from gllm_tpu_torch.obs.spans import PEAK_TFLOPS
+
 SEED = 0
 # the card's name and power limit (nvidia-smi), set by main()
 SMI = ""
 FP8 = torch.float8_e4m3fn
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the dense bf16 and TF32
-# tensor rates. K3 computes its float32 products on the tensor cores as
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the dense bf16 (the
+# port's peak table, obs/spans.py, which the engine's MFU reads too) and
+# TF32 tensor rates. K3 computes its float32 products on the tensor cores as
 # 3xTF32 (each operand split into two TF32 halves; hi.hi + hi.lo + lo.hi),
 # the least work that keeps float32 accuracy there, so its operations
 # bound counts every float32 product three times at the TF32 rate
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
+PEAK_BF16_FLOPS = dict(PEAK_TFLOPS)["NVIDIA H100 80GB HBM3"] * 1e12
 PEAK_TF32_FLOPS = 495e12
 # int32 operations: the data sheet's 67 TFLOP/s of float32 outside the
 # tensor cores is 132 SMs x 128 lanes x 2 (a fused multiply-add) x 1.98
@@ -2049,6 +2077,69 @@ def mixed_line(name, e, d):
             f"first sight {sum(d['captured'][k] for k in MIXED_KINDS)}")
 
 
+# the step-trace ring's step events, and what a window's summary prints
+STEP_EVENTS = ("prefill", "decode", "unified_step", "fused_block")
+ATTRIBUTION_KEYS = ("by_kind", "host_ms_by_phase", "device_ms_by_kind",
+                    "overlap_efficiency", "bubble_frac", "mfu", "device_mfu",
+                    "hbm_gbps", "mean_inflight_depth", "compiles")
+# a window's MFU (wall and device) and a dense model's HBM estimate may
+# exceed their bounds by this much before the run fails
+ATTRIBUTION_SLACK = 1.05
+
+
+def dense_model(cfg):
+    """A model whose every weight a step reads: its HBM estimate is held to
+    the card's rate (an MoE model's counts every expert, as JAX's does)."""
+    return not (cfg.use_mla or cfg.num_experts or cfg.use_hybrid)
+
+
+def attribution(tag, events, dense):
+    """The step-trace summary of one window (``summarize`` of the events
+    between two ``TRACE.mark()``s), printed; fails the run unless every
+    collected step event carries its host phases, device wall and MFU,
+    the window's MFU and device MFU lie in (0, ATTRIBUTION_SLACK] and, for
+    a dense model, its HBM estimate is at most ATTRIBUTION_SLACK times the
+    card's rate. A window with eager steps (events marked ``eager``: their
+    bodies ran op by op, the card working through them before the
+    dispatch returned, which the device wall ready - max(dispatched,
+    previous ready) does not see) prints their count and why its device
+    MFU, bubble share and HBM rate are no device measurement, and holds
+    its device MFU to (0, inf) only."""
+    from gllm_tpu_torch.obs.steptrace import summarize
+    steps = [e for e in events if e["kind"] in STEP_EVENTS]
+    if not steps:
+        raise SystemExit(f"{tag}: no collected step in the window")
+    bare = [e for e in steps if not {"ph", "dev_ms", "mfu"} <= set(e)]
+    if bare:
+        raise SystemExit(f"{tag}: {len(bare)} of {len(steps)} step events "
+                         f"lack ph, dev_ms or mfu: {bare[:2]}")
+    s = summarize(events)
+    out = {k: s[k] for k in ATTRIBUTION_KEYS}
+    eager = collections.Counter(e["eager"] for e in steps if "eager" in e)
+    out["eager_steps"] = sum(eager.values())
+    log(f"{tag} steptrace window on {SMI}: {len(steps)} step events; "
+        + json.dumps(out))
+    if eager:
+        log(f"{tag} {out['eager_steps']} of {len(steps)} step events ran "
+            f"op by op ({dict(eager)}): the card works through such a "
+            f"body while the host enqueues it, before the dispatch "
+            f"returns, and their device wall (ready - max(dispatched, "
+            f"previous ready), JAX's) misses that time, so this window's "
+            f"device_mfu, bubble_frac and hbm_gbps are no device "
+            f"measurement; its device_mfu is held to (0, inf) only")
+    for k in ("mfu", "device_mfu"):
+        top = (float("inf") if eager and k == "device_mfu"
+               else ATTRIBUTION_SLACK)
+        if s[k] is None or not 0 < s[k] <= top:
+            raise SystemExit(f"{tag}: window {k} {s[k]} outside (0, "
+                             f"{top}]")
+    bound = ATTRIBUTION_SLACK * PEAK_BYTES_PER_S / 1e9
+    if dense and not eager and not (s["hbm_gbps"] or 0) <= bound:
+        raise SystemExit(f"{tag}: window hbm_gbps {s['hbm_gbps']} above "
+                         f"{bound:.0f} GB/s")
+    return out
+
+
 def serve(name, model, kw, runs, by_kind, profiled, params=None):
     """Serve one configuration (with ``params``, the weights of an earlier
     engine of the model: only a new KV pool is built): warm the graphs,
@@ -2056,6 +2147,7 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     check the launch counts, the replays and the twins' streams; returns
     its numbers and the engine's weights."""
     from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, SamplingParams
+    from gllm_tpu_torch.obs.steptrace import TRACE
     kw = dict(kw)
     kv_dtype = kw.pop("kv_cache_dtype", "auto")
     gc.collect()
@@ -2178,6 +2270,8 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
              "slot": [], "absorb": []}
     streams = {}
     schedules = {}
+    # each engine's last run, bracketed on the step-trace ring
+    windows = {}
     for rep, e in enumerate(order):
         mode = modes[id(e)]
         recording = e in (over, multi, slot, absorb) and mode in streams
@@ -2186,10 +2280,12 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
             # dispatches
             schedules[mode] = record_schedule(e)
         torch.cuda.synchronize()
+        mark = TRACE.mark()
         t0 = time.monotonic()
         outs = e.generate(prompt_token_ids=prompts, sampling_params=params)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+        windows[mode] = TRACE.events(since=mark)
         if recording:
             del e.runner.step_async, e.runner.step_multi
             del e.scheduler.discard_batch
@@ -2262,6 +2358,12 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     if absorb:
         absorb_out = check_multi(name, absorb, "absorb", rates, streams,
                                  twins0[id(absorb)])
+    # the graph engine's last run and its best twin's, on the ring
+    best = next((m for m in ("absorb", "slot", "multi", "overlap", "eager")
+                 if rates[m]), None)
+    attributed = {mode: attribution(f"[serve {name} {mode}]", windows[mode],
+                                    dense_model(llm.model_cfg))
+                  for mode in ("graph", best) if mode}
     assert launched == {k for ks in by_kind.values() for k in ks}, \
         f"[serve {name}] launched {launched}, expected {by_kind}"
     # every layer of every step of a kind launched that kind's kernels
@@ -2336,7 +2438,7 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
                graphs=llm.runner.num_shape_signatures, warm_s=warm_s,
                capture_s=graphs.capture_seconds, pool_mib=pool_mib,
                warmed=warmed, mixed=graph_delta(llm, graphs0[0]),
-               profile=prof)
+               profile=prof, attribution=attributed)
     weights = llm.runner.params
     del llm, eager, over, multi, slot, absorb, engines, graphs, order, e
     del modes
@@ -2904,6 +3006,7 @@ def profile_window(llm, name, staggered=False):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from gllm_tpu_torch import SamplingParams
+    from gllm_tpu_torch.obs.steptrace import TRACE
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(1, llm.model_cfg.vocab_size, 512).tolist()
                for _ in range(8)]
@@ -2943,10 +3046,12 @@ def profile_window(llm, name, staggered=False):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            mark = TRACE.mark()
             t0 = time.monotonic()
             serve_window()
             torch.cuda.synchronize()
             wall_us = (time.monotonic() - t0) * 1e6
+            ring = TRACE.events(since=mark)
     finally:
         del runner.step_async, runner.step_multi, runner.collect
     steps = {k: llm.step_counts[k] - steps0[k] for k in steps0}
@@ -3022,8 +3127,19 @@ def profile_window(llm, name, staggered=False):
     for cpu_us, count, key in host[:10]:
         log(f"{tag}   {100 * cpu_us / host_us:5.1f}%  {cpu_us / 1e3:8.3f}"
             f" ms  x{count:<6d} {key[:60]}")
+    # the engine's own attribution of the same window: its device share
+    # (1 - bubble_frac, from host clocks) beside the profiler's busy share
+    traced = attribution(tag, ring, dense_model(llm.model_cfg))
+    bubble = traced["bubble_frac"]
+    log(f"{tag} device share: profiler busy {100 * busy / wall_us:.1f}% of "
+        f"the wall, steptrace 1 - bubble_frac "
+        + (f"{100 * (1 - bubble):.1f}%" if bubble is not None else "none")
+        + (f" ({traced['eager_steps']} eager steps: no device measurement)"
+           if traced["eager_steps"] else "")
+        + f" on {SMI}")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
-                busy_share=busy / wall_us, kernels_per_step=kernels_per_step,
+                busy_share=busy / wall_us, attribution=traced,
+                kernels_per_step=kernels_per_step,
                 launches_per_decode_step=launches,
                 launches_per_substep=per_sub, share=share,
                 launches_per_mixed=sum(mixed_calls.values()) / n_mixed,
@@ -3041,10 +3157,13 @@ def phase_reference():
     latent geometry, also under the unified step and over an fp8 latent,
     and one period of Qwen3-Next (K3 at Dk = Dv = 32, K1 / K2 at head_dim
     128), also over an fp8 cache. Each must launch exactly its kernels on
-    the card."""
+    the card. Logs where the phase's wall went: building and running the
+    card's engines and the CPU's, and the mixed and extras replays."""
     from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, \
         SamplingParams, SchedulerConfig
     from gllm_tpu_torch.models import deepseek, dense, hybrid
+    t_phase = time.monotonic()
+    spent = collections.Counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     llama = llama_3_2_1b(num_layers=2)
@@ -3073,13 +3192,16 @@ def phase_reference():
                 for g, x in params.items()}
 
     def engine(cfg, p, device, kv_cache_dtype, unified, **flags):
+        t0 = time.monotonic()
         ec = EngineConfig(dtype="float32", seed=SEED, max_model_len=512,
                           unified_step=unified,
                           scheduler=SchedulerConfig(max_prefill_tokens=64),
                           cache=CacheConfig(num_pages=128,
                                             kv_cache_dtype=kv_cache_dtype),
                           **flags)
-        return LLM(model_cfg=cfg, config=ec, params=p, device=device)
+        llm = LLM(model_cfg=cfg, config=ec, params=p, device=device)
+        spent[f"{device} build"] += time.monotonic() - t0
+        return llm
 
     dsl, qnl = ("deepseek (latent 64+32, 16 heads)",
                 "qwen3_next (1 period, GDN 32/32, head_dim 128)")
@@ -3134,6 +3256,7 @@ def phase_reference():
                 engines.append(engine(cfg, params, "cuda", kv_dtype,
                                       unified, **flags))
         for llm in engines:
+            t0 = time.monotonic()
             seqs = [llm._allocate_seq(p, sp) for p in prompts]
             for seq in seqs:
                 llm.add_seq(seq)
@@ -3148,6 +3271,7 @@ def phase_reference():
             while llm.has_unfinished:
                 llm.step()
             toks.append([seq.output_token_ids for seq in seqs])
+            spent[f"{llm.device.type} run"] += time.monotonic() - t0
         err = (logits[0] - logits[1]).abs().max().item()
         scale = logits[1].abs().max().item()
         counts = read_counters()
@@ -3189,7 +3313,13 @@ def phase_reference():
         engines = llm = graphed = e = None
         gc.collect()
         torch.cuda.empty_cache()
+    t0 = time.monotonic()
     mixed_replays(llama, ds)
+    spent["mixed and extras replays"] = time.monotonic() - t0
+    spent["rest"] = time.monotonic() - t_phase - sum(spent.values())
+    log("[reference] where the phase went (s): "
+        + json.dumps({k: round(v, 2) for k, v in spent.items()}))
+    return dict(spent)
 
 
 def mixed_replays(llama, ds):
@@ -4055,7 +4185,104 @@ def phase_sampling():
                              launch_calls=per, upload=cost)}
 
 
-# ---- 8. http -------------------------------------------------------------
+# ---- 8. tracing ----------------------------------------------------------
+
+# the tracing twins' expected on/off throughput ratio (the layer's budget:
+# 2% of throughput); the run prints the ratio beside it, it does not fail
+# on it
+TRACING_RATIO_EXPECTED = 0.98
+
+
+def phase_tracing():
+    """The tracing layer's cost and identity: two Llama-3.2-1B engines at
+    full width under the absorb flags (the unified step under the
+    pipelined loop, persistent slots, blocks of 16 under on-device finish)
+    on the same weights and TWIN_PAGES KV pages each, one with
+    ``tracing`` on (request spans) and one with it off (the step-trace
+    ring stays on in both), warmed at SERVE_BUCKETS, serve the serve
+    phase's 16 greedy requests, runs on, off, on, off: tok/s of each run
+    and the on/off ratio of medians (beside TRACING_RATIO_EXPECTED), the
+    greedy streams identical (else the run fails), the traced engine's
+    last run's window summary (``attribution``, its hard checks), and its
+    span trees: one closed for each request, none left open; none kept by
+    the untraced engine. Each engine serves the workload once, unmeasured,
+    before the runs."""
+    from gllm_tpu_torch import CacheConfig, EngineConfig, LLM, SamplingParams
+    from gllm_tpu_torch.obs.steptrace import TRACE
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    flags = dict(ABSORB, unified_step=True)
+    engines = {}
+    params = None
+    for mode in ("on", "off"):
+        engines[mode] = LLM(model_cfg=llama_3_2_1b(), params=params,
+                            config=EngineConfig(
+                                load_format="dummy", dtype="bfloat16",
+                                seed=SEED, tracing=mode == "on",
+                                cache=CacheConfig(num_pages=TWIN_PAGES),
+                                **flags))
+        engines[mode].runner.warmup(decode_buckets=SERVE_BUCKETS,
+                                    block_buckets=SERVE_BUCKETS)
+        params = engines[mode].runner.params
+    on, off = engines["on"], engines["off"]
+    log(f"[tracing] twins ({flags}, {TWIN_PAGES} KV pages each, tracing "
+        f"on and off) up and warmed in {time.monotonic() - t0:.1f} s")
+    prompts, max_tokens = serving_workload(on.model_cfg.vocab_size)
+    sps = [SamplingParams(temperature=0.0, max_tokens=m, ignore_eos=True)
+           for m in max_tokens]
+    # one unmeasured run each (first-sight costs), then the spans start
+    # from none
+    for e in (on, off):
+        e.generate(prompt_token_ids=prompts, sampling_params=sps)
+    on.spans.clear()
+    rates = {"on": [], "off": []}
+    streams = []
+    for mode in ("on", "off", "on", "off"):
+        e = engines[mode]
+        torch.cuda.synchronize()
+        mark = TRACE.mark()
+        t1 = time.monotonic()
+        outs = e.generate(prompt_token_ids=prompts, sampling_params=sps)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t1
+        n_out = sum(o.num_output_tokens for o in outs)
+        assert n_out == sum(max_tokens), "[tracing] a request fell short"
+        rates[mode].append(n_out / wall)
+        streams.append([o.output_token_ids for o in outs])
+        log(f"[tracing] run {len(streams) - 1} (tracing {mode}): {n_out} "
+            f"tokens in {wall:.3f} s = {n_out / wall:.1f} output tok/s")
+        if mode == "on":
+            window = TRACE.events(since=mark)
+    where = first_difference(streams[0], streams[1])
+    if where is not None or any(x != streams[0] for x in streams):
+        raise SystemExit(f"[tracing] traced and untraced greedy streams "
+                         f"differ (first at {where})")
+    ratio = median(rates["on"]) / median(rates["off"])
+    log(f"[tracing] tok/s on {[round(r, 1) for r in rates['on']]}, off "
+        f"{[round(r, 1) for r in rates['off']]}: on/off ratio of medians "
+        f"{ratio:.4f} (expected at {TRACING_RATIO_EXPECTED} or above) on "
+        f"{SMI}; the greedy streams of all four runs identical")
+    summary = attribution("[tracing on]", window, True)
+    closed = on.spans.spans()
+    assert len(closed) == 2 * len(prompts) and on.spans.open_count == 0, \
+        f"[tracing] {len(closed)} spans closed, {on.spans.open_count} open"
+    assert all(r["reason"] == "length" and r["phases"][0]["ph"] == "queued"
+               for r in closed)
+    assert not off.spans.spans() and not off.spans.open_count
+    phases = collections.Counter(p["ph"] for r in closed
+                                 for p in r["phases"])
+    log(f"[tracing] spans: {len(closed)} closed for {2 * len(prompts)} "
+        f"requests, 0 open, the untraced engine none; child spans by phase "
+        f"{dict(phases)}")
+    del on, off, engines, e, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ratio": ratio, "on": rates["on"], "off": rates["off"],
+            "summary": summary}
+
+
+# ---- 9. http -------------------------------------------------------------
 
 # the servers' engines: the smoke's absorb twin (the unified step under
 # overlap, persistent slots, blocks of 16 under on-device finish), and
@@ -4328,6 +4555,61 @@ def http_sampling_pass(port, prompts, label):
     return extras
 
 
+def http_trace(port, name, since, passes):
+    """The tracing routes of a live server after its passes: ``GET
+    /steptrace?since=`` (every event at or after ``since``, a
+    ``next_since`` past them that returns nothing new once the server is
+    idle, the ``kind`` filter), the passes' window summary
+    (``attribution``), the compile events of the passes equal to the
+    graphs they captured, ``GET /trace`` (Chrome JSON with the engine's
+    and the requests' process rows) and ``POST /profile?seconds=1``, whose
+    trace file must exist and parse."""
+    import os
+    status, body = _get(port, f"/steptrace?since={since}", timeout=120)
+    assert status == 200, f"[http {name}] /steptrace answered {status}"
+    d = json.loads(body)
+    evs = d["events"]
+    assert evs and all(e["seq"] >= since for e in evs) \
+        and d["next_since"] == evs[-1]["seq"] + 1, \
+        f"[http {name}] /steptrace since {since}: next_since " \
+        f"{d['next_since']}, {len(evs)} events"
+    assert json.loads(_get(port, f"/steptrace?since={d['next_since']}")[1]
+                      )["events"] == [], f"[http {name}] events after idle"
+    compiles = [e for e in evs if e["kind"] == "compile"]
+    captured = sum(p["graphs_captured"] for p in passes)
+    if len(compiles) != captured:
+        raise SystemExit(f"[http {name}] {len(compiles)} compile events in "
+                         f"the passes, {captured} graphs captured")
+    summary = attribution(f"[http {name}] passes", evs, True)
+    kinds = collections.Counter(e["kind"] for e in evs)
+    for kind in kinds:
+        got = json.loads(_get(port, f"/steptrace?since={since}&kind={kind}",
+                              timeout=120)[1])["events"]
+        assert len(got) == kinds[kind] and {e["kind"] for e in got} == {
+            kind}, f"[http {name}] /steptrace kind={kind}"
+    status, body = _get(port, "/trace", timeout=120)
+    assert status == 200, f"[http {name}] /trace answered {status}"
+    doc = json.loads(body)
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    rows = {e["args"]["name"] for e in doc["traceEvents"]
+            if e["ph"] == "M" and e["name"] == "process_name"}
+    assert {e["pid"] for e in xs} == {1, 2} and rows == {"engine loop",
+                                                         "requests"}, \
+        f"[http {name}] /trace rows {rows}"
+    status, prof = _post(port, "/profile?seconds=1", {})
+    assert status == 200 and os.path.isfile(prof["trace"]), \
+        f"[http {name}] POST /profile: {status} {prof}"
+    with open(prof["trace"]) as f:
+        assert "traceEvents" in json.load(f)
+    log(f"[http {name}] /steptrace: {len(evs)} events since {since} "
+        f"({dict(kinds)}), next_since {d['next_since']}, each kind filter "
+        f"exact; {len(compiles)} compile events in the passes = the graphs "
+        f"they captured; /trace: {len(xs)} slices on the engine and request "
+        f"rows, {len(body) / 2**20:.1f} MiB; POST /profile?seconds=1 wrote "
+        f"{prof['trace']}")
+    return summary
+
+
 def http_server(name, flags, served):
     """The port's OpenAI server as users start it, in a process of its
     own: Llama-3.2-1B at full width (config.json written here, dummy bf16
@@ -4374,8 +4656,11 @@ def http_server(name, flags, served):
            "--port", "0", *flags]
     log(f"[http {name}] {' '.join(cmd[1:])}")
     t0 = time.monotonic()
+    # POST /profile writes its trace beside the server's log
+    env = dict(os.environ, GLLM_PROFILE_DIR=os.path.join(
+        model_dir, f"profile_{name.replace(' ', '_')}"))
     proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
-                            stderr=subprocess.PIPE, text=True)
+                            stderr=subprocess.PIPE, text=True, env=env)
     lines, bound, port = [], threading.Event(), []
     server_log = open(os.path.join(
         model_dir, f"server_{name.replace(' ', '_')}.log"), "w")
@@ -4417,6 +4702,8 @@ def http_server(name, flags, served):
             f"extras-step capture: KV pages {HTTP_BEFORE[name]['pages']}, "
             f"graph pools {HTTP_BEFORE[name]['pools']} MiB")
         m0 = _scrape(port)
+        since = json.loads(_get(port, "/steptrace?kind=compile")[1]
+                           )["next_since"]
         passes = []
         while len(passes) < HTTP_PASSES and (
                 not passes or passes[-1]["graphs_captured"]):
@@ -4426,6 +4713,8 @@ def http_server(name, flags, served):
         assert not passes[0]["graphs_captured"], \
             f"[http {name}] the first pass captured " \
             f"{passes[0]['graphs_captured']} graphs"
+        if name == "absorb":
+            http_trace(port, name, since, passes)
         free = [i for i, p in enumerate(passes) if not p["graphs_captured"]]
         if free:
             log(f"[http {name}] pass {free[0] + 1} captured no graph: its numbers "
@@ -4549,6 +4838,7 @@ def main():
                         ("reference", phase_reference),
                         ("spec", phase_spec),
                         ("sampling", phase_sampling),
+                        ("tracing", phase_tracing),
                         ("http", lambda: phase_http(walls["serve"][0]))):
         t0 = time.monotonic()
         walls[name] = (phase(), time.monotonic() - t0)

@@ -149,6 +149,11 @@ class EngineConfig:
     # flag of that name turns CUDA-graph capture off, and, as in the JAX
     # package, clears overlap scheduling and every option built on it
     enforce_eager: bool = False
+    # request-scoped span trees (obs/spans.py, GET /trace); the step-trace
+    # ring and its phase, device, MFU and HBM fields stay on either way.
+    # Host bookkeeping only: token streams are the same with it off
+    # (``--no-tracing``)
+    tracing: bool = True
     # ---- request lifecycle (engine/serving_engine.py) ----
     # admission control: the serving engine's intake queue and the
     # requests with an open stream; a submit over a limit is refused (HTTP

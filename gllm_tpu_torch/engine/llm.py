@@ -9,7 +9,10 @@
 ``_check_stop_strings:1803``, ``_observe_outputs:1434``, ``generate:1894``,
 ``_stream_detokenize:2044``, ``_finalize:2059``, ``abort:2091``,
 ``quarantine_step_failure:2101``; ``RequestOutput:147``; the metrics of
-``:45-141``).
+``:45-141``; the attribution layer: ``_note_stall:1121``,
+``_note_chain_break:1129``, ``_entry_phases:1243``, ``_step_flops:1255``,
+``_record_spans:1279``, ``_record_step:1312``,
+``_attach_attribution:1400``, the step timer ``:362-364``).
 
 The single-device loop: schedule a batch, dispatch its step, collect the
 oldest entry in flight and commit its sampled tokens. Without
@@ -80,7 +83,17 @@ observes the request metrics (time to
 first token, time per output token, inter-token latency, end-to-end and
 queue time) and the step metrics of the JAX package under its names
 (``obs/metrics.py``), and ``quarantine_step_failure`` drops the sequences
-of a step that raised (the serving engine's fault isolation).
+of a step that raised (the serving engine's fault isolation). Each
+collected entry records one step-trace event (``obs/steptrace.py``
+``TRACE``): its kind, rows and tokens, the host walls of its phases
+(schedule, build, dispatch, collect), the device wall attributed back to
+it (the wait for its tokens, floored at the previous collect) and its MFU
+and HBM estimates (``obs/spans.py`` ``StepFlopsModel``, the card's peak);
+chain breaks, loop stalls and quarantines record theirs. Under
+``EngineConfig.tracing`` (default on) every request keeps a span tree on
+the engine's own ``spans`` ring: queued, its prefill chunks, decode steps
+or chains, the detokenization, and the finish. All of it is host
+bookkeeping: no tensor is read and no graph key changes.
 
 The engine runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card it raises instead of falling back.
@@ -90,7 +103,10 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import logging
+import os
+import sys
 import time
 from typing import List, Optional, Sequence as Seq, Union
 
@@ -103,6 +119,8 @@ from gllm_tpu_torch.engine.pipeline import FutureMap, InFlight
 from gllm_tpu_torch.memory_manager import make_memory_manager
 from gllm_tpu_torch.models.config import ModelConfig, from_hf_config
 from gllm_tpu_torch.obs import metrics as obs
+from gllm_tpu_torch.obs.spans import SpanTrace, StepFlopsModel, peak_flops
+from gllm_tpu_torch.obs.steptrace import TRACE
 from gllm_tpu_torch.runner.prepare import MAX_STOP_IDS
 from gllm_tpu_torch.runner.runner import ModelRunner
 from gllm_tpu_torch.sampling_params import SamplingParams
@@ -114,7 +132,16 @@ logger = logging.getLogger(__name__)
 # Step metrics, by the kind of the collected entry: "prefill" (a batch
 # with a prefill chunk), "decode" (a single pure-decode step),
 # "fused_block" (a block of K decode steps) and, under the unified step,
-# "unified_step" for every single step
+# "unified_step" for every single step. Timing is the host clock around
+# the collect
+_M_STEP_LAT = obs.histogram(
+    "gllm_step_latency_seconds",
+    "engine-iteration collect latency (host blocked on device tokens)",
+    ("kind",), buckets=obs.FAST_LATENCY_BUCKETS)
+_M_RTT = obs.histogram(
+    "gllm_dispatch_rtt_seconds",
+    "dispatch-to-collect round trip per engine iteration",
+    ("kind",), buckets=obs.FAST_LATENCY_BUCKETS)
 _M_STEPS = obs.counter("gllm_steps_total",
                        "engine iterations by step kind", ("kind",))
 _M_STEP_TOKENS = obs.counter("gllm_step_tokens_total",
@@ -171,6 +198,21 @@ _M_INFLIGHT = obs.gauge(
     "gllm_inflight_depth",
     "dispatched-but-uncollected engine entries after the latest fill "
     "pass (pipelined loop)")
+# attribution of the latest collected step: its MFU against its device
+# wall (the step FLOPs model over the card's peak), the share of that
+# device wall hidden under host work (1: the host never blocked), and its
+# estimated HBM read rate (weights and KV over the device wall)
+_M_MFU = obs.gauge(
+    "gllm_step_mfu",
+    "model FLOPs utilization of the latest step's device wall "
+    "(0 when the chip peak is unknown)")
+_M_OVERLAP = obs.gauge(
+    "gllm_overlap_efficiency",
+    "share of the latest step's device wall hidden under host work")
+_M_HBM = obs.gauge(
+    "gllm_step_hbm_gbps",
+    "estimated HBM read bandwidth of the latest step (weights + KV "
+    "stream over the device wall; per-device)")
 
 
 @dataclasses.dataclass
@@ -311,6 +353,30 @@ class LLM:
         # correction: gllm_spec_fused_tokens_total)
         self.verify_steps = 0
         self.spec_tokens: collections.Counter = collections.Counter()
+        # attribution: request spans on this engine's own ring (seq ids
+        # restart at 0 for each LLM, so engines of one process must not
+        # share one), gated by config.tracing; the FLOPs model and the
+        # card's peak feed each step event's MFU
+        self.tracing = config.tracing
+        self.spans = SpanTrace()
+        self.scheduler.spans = self.spans
+        try:
+            self._flops_model = StepFlopsModel.from_model_config(model_cfg)
+        except Exception:       # exotic configs: attribution, not audit
+            self._flops_model = None
+        self._peak_flops = peak_flops(
+            torch.cuda.get_device_name(self.device)
+            if self.device.type == "cuda" else "")
+        # when the last collect returned: the lower bound of the next
+        # step's device wall (ready - max(dispatched, previous ready))
+        self._last_ready = 0.0
+        # where the current fill pass began (its entry's schedule phase)
+        self._t_enter = 0.0
+        # GLLM_TPU_STEP_TIMING=1: generate() keeps each collect's wall,
+        # kind and tokens and prints one JSON summary line to stderr
+        self._step_timer = None
+        self._step_timing_enabled = (
+            os.environ.get("GLLM_TPU_STEP_TIMING", "0") not in ("", "0"))
 
     @property
     def compactions(self) -> int:
@@ -381,6 +447,9 @@ class LLM:
         unified = self.unified and overlap
         ran_dry = False
         while len(self._in_flight) < depth:
+            # from here to the runner call is the schedule phase of the
+            # entry this pass puts in flight
+            self._t_enter = time.monotonic()
             if overlap and self._in_flight:
                 if slot_mode:
                     # the chain's newest entry, which may lie behind
@@ -417,7 +486,7 @@ class LLM:
                     if (not self._yield_noted
                             and prev.num_decode == prev.num_seqs
                             and not prev.has_drafts):
-                        self._note_chain_break("waiting")
+                        self._note_chain_break(prev, "waiting")
                         self._yield_noted = True
                     self._chained_under_pressure = 0
                 if allow:
@@ -429,7 +498,7 @@ class LLM:
                             # retired under the unified step: the mixed
                             # re-form below seats the ready sequences
                             reason = "reform"
-                        self._note_chain_break(reason)
+                        self._note_chain_break(prev_batch, reason)
                         if cfg.pipelined_loop and self._dispatch_reform(
                                 prev_batch, prev_handle, pressure, multi,
                                 mixed=unified):
@@ -457,7 +526,7 @@ class LLM:
                 if (cfg.pipelined_loop and self._in_flight
                         and self.scheduler.has_unfinished):
                     # work left that only committed tokens can schedule
-                    self.stalls["readback"] += 1
+                    self._note_stall("readback")
                 ran_dry = True
                 break
             if (multi > 1 and not self.scheduler.waiting
@@ -484,11 +553,12 @@ class LLM:
         if cfg.pipelined_loop:
             _M_INFLIGHT.set(len(self._in_flight))
             if not ran_dry and len(self._in_flight) >= depth:
-                self.stalls["depth"] += 1
+                self._note_stall("depth")
         if not self._in_flight:
             return []
         entry = self._in_flight.popleft()
         block = isinstance(entry.batch, list)
+        t0 = time.monotonic()
         try:
             # a device fault surfaces here, at the wait for the tokens
             if entry.invalid:
@@ -513,7 +583,13 @@ class LLM:
         if tokens is None:
             self.scheduler.discard_batch(entry.batch)
             return []
-        self._record_step(entry.batch)
+        extra = None
+        if block:
+            extra = (self._spec_block_stats(entry.batch, tokens)
+                     if entry.batch[0].spec_block
+                     else self._block_stats(entry.batch, tokens[-1]))
+        self._record_step(entry.batch, t0, entry.t_dispatch, extra,
+                          entry.phases)
         if not block:
             self.hole_substeps += _holes(entry.batch)
             if aux:
@@ -535,7 +611,6 @@ class LLM:
         # link by link, and a row's tokens after its finish are dropped
         # (process_output skips a finished sequence)
         chain = entry.batch
-        self._block_stats(chain, tokens[-1])
         outs = []
         for link, row in zip(chain, tokens[:-1]):
             outs.extend(self.scheduler.process_output(
@@ -550,9 +625,13 @@ class LLM:
         flight. A launch that raises (a graph first met while serving is
         captured there) leaves the batch in ``_launching``: its rows'
         pages and in-flight counts are already taken, so the quarantine
-        must drop them with the entries in flight."""
+        must drop them with the entries in flight. The entry keeps when the
+        call returned and its host phases (``_entry_phases``)."""
         self._launching = batch
-        entry = InFlight(batch, run(batch, *prev), **flags)
+        t_sched = time.monotonic()
+        handle = run(batch, *prev)
+        entry = InFlight(batch, handle, time.monotonic(),
+                         self._entry_phases(self._t_enter, t_sched), **flags)
         self._launching = None
         self._dispatch(entry)
         return entry
@@ -580,20 +659,103 @@ class LLM:
                 and (entry.chained or entry.roots)):
             self._chain_tip = entry.tip
 
-    def _note_chain_break(self, reason: str) -> None:
+    def _note_chain_break(self, batch, reason: str) -> None:
+        """One chain break of the tip ``batch`` (a block's list: its last
+        link): counted, and a ``chain_break`` event."""
+        if isinstance(batch, list):
+            batch = batch[-1]
         self.chain_breaks[reason] += 1
+        TRACE.record("chain_break", num_seqs=batch.num_seqs, reason=reason)
         _M_CHAIN_BREAKS.inc(reason=reason)
 
-    def _record_step(self, batch) -> None:
-        """The step metrics of one collected entry (JAX's
-        ``_record_step:1312``, its counters): steps and tokens by kind,
-        and decode steps by fusion (a block's scheduled sub-steps)."""
+    def _note_stall(self, reason: str, **fields) -> None:
+        """One stall of the pipelined loop (why the fill pass ran no
+        further ahead: readback, rebuild, pages, depth): counted, and a
+        ``loop_stall`` event with the entries in flight."""
+        self.stalls[reason] += 1
+        TRACE.record("loop_stall", reason=reason,
+                     depth=len(self._in_flight), **fields)
+
+    def _entry_phases(self, t_enter: float, t_sched_end: float) -> dict:
+        """The host walls of one entry at its dispatch (seconds; ms once
+        collected): schedule (the fill pass's start to the runner call),
+        and the runner's build / dispatch split and KV read estimate
+        (``ModelRunner.last_phases``)."""
+        ph = {"t_enter": t_enter, "schedule": t_sched_end - t_enter}
+        ph.update(self.runner.last_phases)
+        return ph
+
+    def _step_flops(self, batch, extra: Optional[dict] = None) -> float:
+        """Matmul-path FLOPs of one collected entry (the FLOPs model on
+        scheduler counts): a block's executed sub-steps (``k_exec`` under
+        on-device finish) over its live rows, a spec block's times
+        ``spec_mult`` (each sub-step feeds up to spec_k + 1 verify rows a
+        row)."""
+        fm = self._flops_model
+        if fm is None:
+            return 0.0
+        if isinstance(batch, list):
+            k = (extra or {}).get("k_exec") or len(batch)
+            ctxs = [it.computed_before for it in batch[0].items
+                    if it.seq.seq_id != HOLE_SEQ_ID]
+            f = fm.block_flops(ctxs, k)
+            if batch[0].spec_block:
+                f *= self.spec_mult
+            return f
+        return fm.step_flops(
+            (it.num_new_tokens, it.computed_before, it.samples)
+            for it in batch.items if it.seq.seq_id != HOLE_SEQ_ID)
+
+    def _record_spans(self, batch, t_dispatch: float, now: float,
+                      extra: Optional[dict] = None) -> None:
+        """One child span [dispatch → collect] for each live sequence of
+        a collected entry: ``decode_chain`` (a block, with its k and, under
+        on-device finish, k_exec and dead_substeps), ``prefill_chunk`` or
+        ``decode_step``; the decode rows' under one lock."""
+        dur = (now - t_dispatch) * 1e3
+        if isinstance(batch, list):
+            meta = {"k": len(batch)}
+            if extra and extra.get("k_exec") is not None:
+                meta["k_exec"] = extra["k_exec"]
+                meta["dead_substeps"] = extra.get("dead_substeps")
+            self.spans.event_many(
+                [it.seq.seq_id for it in batch[0].items
+                 if it.seq.seq_id != HOLE_SEQ_ID],
+                "decode_chain", t_dispatch, dur, meta)
+            return
+        decode_rows = []
+        for it in batch.items:
+            sid = it.seq.seq_id
+            if sid == HOLE_SEQ_ID:
+                continue
+            if (it.num_new_tokens > 1
+                    or it.computed_before < it.seq.prompt_len):
+                self.spans.event(sid, "prefill_chunk", t_dispatch, dur,
+                                 tokens=it.num_new_tokens)
+            else:
+                decode_rows.append(sid)
+        if decode_rows:
+            self.spans.event_many(decode_rows, "decode_step", t_dispatch,
+                                  dur)
+
+    def _record_step(self, batch, t0: float, t_dispatch: float,
+                     extra: Optional[dict], phases: dict) -> None:
+        """The step attribution of one collected entry (JAX's
+        ``_record_step:1312``): the collect latency and round-trip
+        histograms, steps and tokens by kind, decode steps by fusion (a
+        block's scheduled sub-steps), one step-trace event with the host
+        phases, the device wall and the MFU and HBM estimates, and, under
+        tracing, the rows' spans. ``t0``: when the collect began."""
+        now = time.monotonic()
         fused = isinstance(batch, list)
         b = batch[-1] if fused else batch
         mix = None
         if fused:
             kind = "fused_block"
             tokens = sum(x.total_tokens for x in batch)
+            if extra and extra.get("spec_tokens") is not None:
+                # a spec block commits a variable count: what it emitted
+                tokens = extra["spec_tokens"]
         elif self.unified:
             kind = "unified_step"
             mix = ("mixed" if any(
@@ -605,12 +767,86 @@ class LLM:
         else:
             kind = "decode" if b.num_decode == b.num_seqs else "prefill"
             tokens = b.total_tokens
+        wall = now - t0
+        _M_STEP_LAT.observe(wall, kind=kind)
+        _M_RTT.observe(now - t_dispatch, kind=kind)
         _M_STEPS.inc(kind=kind)
         _M_STEP_TOKENS.inc(tokens, kind=kind)
         if kind == "decode" or mix == "decode":
             _M_DECODE_STEPS.inc(fused="false")
         elif fused:
             _M_DECODE_STEPS.inc(len(batch), fused="true")
+        ev = dict(num_seqs=b.num_seqs, tokens=tokens,
+                  wall_ms=round(wall * 1e3, 3),
+                  rtt_ms=round((now - t_dispatch) * 1e3, 3),
+                  # entries still in flight after this collect: the depth
+                  # the loop sustained (summarize's mean_inflight_depth)
+                  inflight=len(self._in_flight))
+        if fused:
+            ev["k"] = len(batch)
+        if mix is not None:
+            ev["mix"] = mix
+        if extra:
+            ev.update(extra)
+        # an early exit (k_exec < k) shrinks the weight re-reads and the
+        # KV stream both, as it shrinks the FLOPs
+        k_sched = len(batch) if fused else 1
+        k_exec = ((extra or {}).get("k_exec") or k_sched) if fused else 1
+        rd = (phases.get("kv_bytes", 0) * k_exec / k_sched
+              + self.runner.param_bytes * k_exec)
+        flops = self._step_flops(batch, extra) if self._peak_flops else 0.0
+        self._attach_attribution(ev, phases, wall, now, t_dispatch, flops,
+                                 rd)
+        TRACE.record(kind, **ev)
+        if self.tracing:
+            self._record_spans(batch, t_dispatch, now, extra)
+        timer = self._step_timer
+        if timer is not None:
+            timer.append((wall,
+                          f"decode_block{len(batch)}" if fused
+                          else "decode" if (kind == "decode"
+                                            or mix == "decode")
+                          else "prefill_mixed", tokens))
+
+    def _attach_attribution(self, ev: dict, phases: dict, wall: float,
+                            now: float, t_dispatch: float,
+                            flops: float, rd_bytes: float) -> None:
+        """The attribution tail of a step event (JAX's
+        ``_attach_attribution:1400``): the host phase walls in ms, the
+        device wall (ready − max(dispatched, the previous ready): the wait
+        for the tokens, floored at the previous collect's return, before
+        which the card was busy with the older step; no profiler and no
+        device read), and the MFU and HBM estimates with their gauges.
+        An eager step (``last_phases["eager"]``: its body ran op by op,
+        the card working through it while the host enqueued the rest) is
+        marked ``eager`` with the reason: its device wall, on the same
+        definition, misses the device time spent before the call
+        returned, so its ``dev_ms`` and what is divided by it are no
+        device measurement."""
+        dev = max(0.0, now - max(t_dispatch, self._last_ready))
+        self._last_ready = now
+        if "eager" in phases:
+            ev["eager"] = phases["eager"]
+        ev["ph"] = {
+            "schedule": round(phases.get("schedule", 0.0) * 1e3, 3),
+            "build": round(phases.get("build", 0.0) * 1e3, 3),
+            "dispatch": round(phases.get("dispatch", 0.0) * 1e3, 3),
+            "collect": round(wall * 1e3, 3),
+        }
+        ev["step_wall_ms"] = round(
+            (now - phases.get("t_enter", t_dispatch)) * 1e3, 3)
+        ev["dev_ms"] = round(dev * 1e3, 3)
+        if dev <= 0:
+            return
+        _M_OVERLAP.set(round(max(0.0, dev - wall) / dev, 4))
+        if flops and self._peak_flops:
+            # 6 digits, as summarize rounds a window: a tiny model's MFU
+            # must not floor to 0
+            ev["mfu"] = round(flops / dev / self._peak_flops, 6)
+            _M_MFU.set(ev["mfu"])
+        if rd_bytes:
+            ev["hbm_gbps"] = round(rd_bytes / dev / 1e9, 2)
+            _M_HBM.set(ev["hbm_gbps"])
 
     # ---- blocks -----------------------------------------------------------
 
@@ -666,18 +902,17 @@ class LLM:
         return dataclasses.replace(batch, active_until=(
             [min(d + 1, k) for d in au] if au is not None else None))
 
-    def _block_stats(self, chain, finish) -> None:
+    def _block_stats(self, chain, finish) -> Optional[dict]:
         """Count a collected block: by K, its executed sub-steps (the
         latest finish step: fewer than K when every row finished early),
         its dead row-sub-steps among the rows of sequences, and its hole
         row-sub-steps; under on-device finish, the dead-fraction gauge over
         every row, holes included, as JAX's
-        ``_ondevice_block_stats:1139``."""
+        ``_ondevice_block_stats:1139``, whose step-event fields (k_exec and
+        the dead row-sub-steps of every row) it returns then; None
+        without on-device finish."""
         finish = finish[:chain[0].num_seqs]
         k_exec = int(finish.max()) if finish.size else 0
-        if self.config.ondevice_finish and k_exec and finish.size:
-            _M_DEAD_FRAC.set(int((k_exec - finish).sum())
-                             / (k_exec * finish.size))
         live = np.array([it.seq.seq_id != HOLE_SEQ_ID
                          for it in chain[0].items], bool)
         self.blocks[len(chain)] += 1
@@ -685,6 +920,12 @@ class LLM:
         self.dead_substeps += int((k_exec - finish[live]).sum())
         self.row_substeps += k_exec * int(live.sum())
         self.hole_substeps += k_exec * int((~live).sum())
+        if not self.config.ondevice_finish:
+            return None
+        dead = int((k_exec - finish).sum())
+        if k_exec and finish.size:
+            _M_DEAD_FRAC.set(dead / (k_exec * finish.size))
+        return {"k_exec": k_exec, "dead_substeps": dead}
 
     def _commit_verify(self, batch, out) -> List[SeqOutput]:
         """Commit a verify step (host-driven speculation; JAX's
@@ -769,12 +1010,15 @@ class LLM:
                     (float(chosen[i, j]), top_ids[i, j, :k].tolist(),
                      top_lps[i, j, :k].tolist()))
 
-    def _spec_block_stats(self, chain, res) -> None:
+    def _spec_block_stats(self, chain, res) -> dict:
         """Count a collected spec block (JAX's ``_spec_block_stats:1152``):
         by K, its executed sub-steps (those in which some row emitted: the
         early exit leaves a zero tail), and its dead row-sub-steps (a row
         of a sequence that emitted nothing in an executed sub-step) and
-        hole row-sub-steps; the dead-fraction gauge over every row."""
+        hole row-sub-steps; the dead-fraction gauge over every row.
+        Returns the step-event fields: k_exec, the dead row-sub-steps of
+        every row, the drafts proposed and accepted and the tokens
+        emitted."""
         counts = res["counts"]
         k_exec = int((counts > 0).any(axis=1).sum())
         live = np.array([it.seq.seq_id != HOLE_SEQ_ID
@@ -787,6 +1031,10 @@ class LLM:
         self.dead_substeps += int(idle[:, live].sum())
         self.row_substeps += k_exec * int(live.sum())
         self.hole_substeps += k_exec * int((~live).sum())
+        return {"k_exec": k_exec, "dead_substeps": int(idle.sum()),
+                "k_drafted": int(res["drafted"].sum()),
+                "k_accepted": int(res["accepted"].sum()),
+                "spec_tokens": int(counts.sum())}
 
     def _commit_spec_block(self, chain, res) -> List[SeqOutput]:
         """Commit a collected spec block (JAX's ``_commit_spec_block:1170``):
@@ -796,8 +1044,9 @@ class LLM:
         a worst-case upper bound: it re-anchors on the sequence's
         committed state before ``process_output_multi`` advances it, the
         entries in flight trim to the actual frontiers, and the draft
-        lengths and acceptance counts reconcile from the block's."""
-        self._spec_block_stats(chain, res)
+        lengths and acceptance counts reconcile from the block's (its
+        counts were taken by ``_spec_block_stats`` when it was
+        collected)."""
         toks, counts = res["tokens"], res["counts"]
         outs = []
         for k, link in enumerate(chain):
@@ -865,8 +1114,9 @@ class LLM:
         if self.config.pipelined_loop and self._in_flight:
             finished = frozenset(o.seq.seq_id for o in outs
                                  if o.finish_reason is not None)
-            if self.futures.reconcile(self._in_flight, finished):
-                self.stalls["rebuild"] += 1
+            n = self.futures.reconcile(self._in_flight, finished)
+            if n:
+                self._note_stall("rebuild", invalidated=n)
                 # the tip goes only when its own entry was invalidated: a
                 # tip descending from a later valid root carries on
                 if self._chain_tip is not None and any(
@@ -904,6 +1154,16 @@ class LLM:
                 if n > 1 and seq.first_token_time:
                     _M_TPOT.observe((seq.last_token_time
                                      - seq.first_token_time) / (n - 1))
+                if self.tracing:
+                    # the request's detokenization as one rolled-up
+                    # child, then its tree closes
+                    detok = getattr(seq, "_detok_s", 0.0)
+                    if detok:
+                        self.spans.event(seq.seq_id, "detokenize",
+                                         now - detok, detok * 1e3,
+                                         accumulated=True)
+                    self.spans.finish(seq.seq_id, out.finish_reason, now,
+                                      output_tokens=n)
 
     def _check_stop_strings(self, outs) -> None:
         """Stop strings, matched on the host over the incrementally
@@ -1000,14 +1260,14 @@ class LLM:
             # slot advanced by a token that never committed, and the
             # rebuild would advance it again. Hybrid models keep the
             # drain-and-sync edge.
-            self.stalls["readback"] += 1
+            self._note_stall("readback")
             return False
         batch = self.scheduler.schedule_reform(prev_batch,
                                                allow_prefill=mixed)
         if batch is None:
             reason = self.scheduler.reform_fail_reason
-            self.stalls[reason if reason in ("pages", "pp_budget")
-                        else "readback"] += 1
+            self._note_stall(reason if reason in ("pages", "pp_budget")
+                             else "readback")
             return False
         promises = FutureMap.promised_ids(batch)
         # a prefill chunk, or a row whose one remaining token is its
@@ -1063,20 +1323,59 @@ class LLM:
                 for ids, sp in zip(prompt_token_ids, sampling_params)]
         for s in seqs:
             self.add_seq(s)
-        while self.has_unfinished:
-            for out in self.step():
-                if out.new_token_id is not None and self.tokenizer is not None:
-                    self._stream_detokenize(out.seq)
+        if self._step_timing_enabled:
+            # armed only here: a serving engine drives step() and must
+            # not keep rows nobody prints
+            self._step_timer = []
+            t_gen = time.monotonic()
+        try:
+            while self.has_unfinished:
+                for out in self.step():
+                    if (out.new_token_id is not None
+                            and self.tokenizer is not None):
+                        self._stream_detokenize(out.seq)
+            if self._step_timer is not None:
+                self._print_step_timing(time.monotonic() - t_gen)
+        finally:
+            self._step_timer = None
         return [self._finalize(s) for s in seqs]
+
+    def _print_step_timing(self, wall_s: float) -> None:
+        """One ``[step timing]`` JSON line on stderr: generate's wall,
+        its collects and their wall, and by kind the collects, their wall,
+        tokens and ms each (``GLLM_TPU_STEP_TIMING``)."""
+        rows = self._step_timer
+        by_kind: dict = {}
+        for dt, kind, toks in rows:
+            e = by_kind.setdefault(kind, [0, 0.0, 0])
+            e[0] += 1
+            e[1] += dt
+            e[2] += toks
+        summary = {
+            "wall_s": round(wall_s, 2),
+            "iters": len(rows),
+            "collect_s": round(sum(r[0] for r in rows), 2),
+            "kinds": {k: {"iters": v[0], "collect_s": round(v[1], 2),
+                          "tokens": v[2],
+                          "ms_per_iter": round(v[1] / v[0] * 1e3, 1)}
+                      for k, v in sorted(by_kind.items())},
+        }
+        print("[step timing] " + json.dumps(summary), file=sys.stderr,
+              flush=True)
 
     # ---- output -----------------------------------------------------------
 
     def _stream_detokenize(self, seq: Sequence) -> str:
+        t0 = time.monotonic() if self.tracing else 0.0
         text, seq.detok_prefix_offset, seq.detok_read_offset = (
             detokenize_incrementally(self.tokenizer, seq.token_ids,
                                      seq.detok_prefix_offset,
                                      seq.detok_read_offset))
         seq.output_text += text
+        if self.tracing:
+            # summed over the request, one "detokenize" span at its finish
+            seq._detok_s = (getattr(seq, "_detok_s", 0.0)
+                            + (time.monotonic() - t0))
         return text
 
     def _finalize(self, seq: Sequence) -> RequestOutput:
@@ -1151,6 +1450,13 @@ class LLM:
         elif not failed:
             failed.update(x.seq_id for x in sched.running)
         sched.quarantine(failed)
+        if self.tracing:
+            # a quarantined request gives no finishing output: its tree
+            # closes here, with the reason of its terminal error chunk
+            now = time.monotonic()
+            for sid in failed:
+                self.spans.finish(sid, "error", now)
+        TRACE.record("quarantine", num_seqs=len(failed))
         return sorted(failed)
 
 

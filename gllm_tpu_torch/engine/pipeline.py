@@ -42,7 +42,10 @@ from gllm_tpu_torch.sequence import HOLE_SEQ_ID
 @dataclasses.dataclass
 class InFlight:
     """One dispatched entry not yet collected: its ``ScheduledBatch`` (a
-    block's list of links) and the runner's handle. ``chained``: its input tokens came off the
+    block's list of links) and the runner's handle; ``t_dispatch`` (when
+    the runner call returned) and ``phases`` (the host walls up to then:
+    ``LLM._entry_phases``) feed the attribution layer (obs/spans.py).
+    ``chained``: its input tokens came off the
     previous entry's tokens on the device (a chained step or a re-form),
     so an invalidation cascades through it. ``roots``: a pure-decode batch
     scheduled from committed state, which roots a fresh chain; the cascade
@@ -51,6 +54,8 @@ class InFlight:
 
     batch: object
     handle: object
+    t_dispatch: float
+    phases: dict
     chained: bool = False
     roots: bool = False
     promises: frozenset = frozenset()

@@ -33,9 +33,16 @@ Request lifecycle, as in the JAX package:
   requests in flight finish (bounded), then closes every open handle with
   a terminal chunk.
 
-The JAX package's in-process recovery (rebuild, request journal, replay),
-cross-replica continuations, prefix pushes, disaggregation and multimodal
-requests are not ported.
+Every request's span tree closes on each of its ends: a finishing output
+(the engine), an abort, a deadline, a quarantine, the unhealthy latch and
+shutdown (here, with the reason of the terminal chunk; the first close
+wins). The unhealthy latch, a loop death and a stale heartbeat record a
+``fault`` step-trace event (``engine_unhealthy``,
+``dispatch_stall_detected``).
+
+The JAX package's in-process recovery (rebuild, request journal, replay)
+and its recovery events, fault injection, cross-replica continuations,
+prefix pushes, disaggregation and multimodal requests are not ported.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from typing import List, Optional
 
 from gllm_tpu_torch.engine.llm import LLM
 from gllm_tpu_torch.obs import metrics as obs
+from gllm_tpu_torch.obs.steptrace import TRACE
 from gllm_tpu_torch.sampling_params import SamplingParams
 
 logger = logging.getLogger(__name__)
@@ -392,9 +400,10 @@ class ServingEngine:
         except Exception as e:
             logger.exception("engine loop died")
             if self._healthy:
-                self._set_unhealthy_reason(
-                    "loop_death", f"engine loop died: {type(e).__name__}: "
-                    f"{e}")
+                why = f"engine loop died: {type(e).__name__}: {e}"
+                self._set_unhealthy_reason("loop_death", why)
+                TRACE.record("fault", point="engine_unhealthy",
+                             error=why[:200])
             self._healthy = False
             _M_HEALTHY.set(0)
         finally:
@@ -481,6 +490,7 @@ class ServingEngine:
         self._set_unhealthy_reason("step_failures", why)
         self._healthy = False
         _M_HEALTHY.set(0)
+        TRACE.record("fault", point="engine_unhealthy", error=why[:200])
         try:
             self.llm.quarantine_step_failure(everything=True)
         except Exception:  # pragma: no cover
@@ -518,6 +528,11 @@ class ServingEngine:
 
     def _deliver_error(self, seq_id: int, reason: str,
                        detail: Optional[str] = None) -> None:
+        if self.llm.tracing:
+            # an abort, deadline or error never reaches the engine's
+            # finish path: the tree closes with the terminal chunk's reason
+            self.llm.spans.finish(seq_id, reason or "error",
+                                  time.monotonic())
         with self._lock:
             handle = self._handles.pop(seq_id, None)
             self._seqs.pop(seq_id, None)
@@ -542,6 +557,10 @@ class ServingEngine:
             _M_ACTIVE.set(0)
         if handles:
             _M_ABORTED.inc(len(handles))
+        if self.llm.tracing:
+            now = time.monotonic()
+            for h in handles:
+                self.llm.spans.finish(h.seq_id, reason or "error", now)
         for h in handles:
             h.chunks.put(StreamChunk(None, "", reason, error=detail))
 
@@ -564,6 +583,8 @@ class ServingEngine:
             if age > stall:
                 if not self._stalled:
                     self._stalled = True
+                    TRACE.record("fault", point="dispatch_stall_detected",
+                                 age_s=round(age, 3))
                     logger.error(
                         "engine heartbeat stale %.2fs (> %.2fs): "
                         "readiness off", age, stall)

@@ -18,10 +18,15 @@ draining or stalled), ``/metrics`` (Prometheus text), ``/version``,
 ``/v1/models``, ``/server_info``; ``POST /v1/completions`` and
 ``/v1/chat/completions`` (streamed as server-sent events or whole, ``n``
 choices), ``/start_profile`` and ``/stop_profile`` (``torch.profiler``,
-a Chrome trace written to the directory given). A client that disconnects
-aborts its request. A ThreadingHTTPServer: one thread a request in
-flight, each blocking on its request's stream, beside the one engine
-thread.
+a Chrome trace written to ``GLLM_PROFILE_DIR``) and ``/profile?seconds=N``
+(one such capture of N seconds, 409 while another holds the profiler).
+``GET /steptrace`` dumps the step-trace ring as JSON with its
+``summarize`` (``?since=N`` from a previous dump's ``next_since``,
+``?kind=a,b`` by event kind) and ``GET /trace`` the ring and this engine's
+request spans as Chrome trace-event JSON (``--no-tracing`` turns the spans
+off; the ring stays). A client that disconnects aborts its request. A
+ThreadingHTTPServer: one thread a request in flight, each blocking on its
+request's stream, beside the one engine thread.
 
 Every sampling option of the JAX server is taken: seeds (choice i of a
 request draws with seed + i), penalties, ``logit_bias``, ``logprobs`` /
@@ -29,9 +34,9 @@ request draws with seed + i), penalties, ``logit_bias``, ``logprobs`` /
 ``echo``, and ``best_of`` above ``n`` (the choices ranked by their mean
 chosen logprob).
 
-Not ported, and refused: ``/steptrace``, ``/trace``, ``/profile`` and
-``/fault_inject`` answer 404; a request with ``gllm_router`` fields
-answers 400 with the message; so do multimodal content parts.
+Not ported, and refused: ``/fault_inject`` answers 404; a request with
+``gllm_router`` fields answers 400 with the message; so do multimodal
+content parts.
 """
 
 from __future__ import annotations
@@ -55,6 +60,8 @@ from gllm_tpu_torch.engine.serving_engine import (RequestRejected,
                                                   ServingEngine)
 from gllm_tpu_torch.entrypoints import protocol as proto
 from gllm_tpu_torch.obs import metrics as obs_metrics
+from gllm_tpu_torch.obs.spans import chrome_trace
+from gllm_tpu_torch.obs.steptrace import TRACE, summarize
 
 logger = logging.getLogger(__name__)
 
@@ -68,10 +75,16 @@ class ServerState:
         self.served_model = served_model
         self.start_time = time.time()
         # the torch.profiler capture between /start_profile and
-        # /stop_profile, and where its trace goes
+        # /stop_profile (or of a POST /profile), and where its trace goes;
+        # _profile_mu makes each check and transition atomic,
+        # _profiling_oneshot marks a /profile capture that /stop_profile
+        # must not cut short, and _profile_lock admits one /profile at a
+        # time
         self._profiler = None
         self._profile_dir = None
+        self._profiling_oneshot = False
         self._profile_mu = threading.Lock()
+        self._profile_lock = threading.Lock()
         self.tool_parser = get_tool_parser(
             tool_parser, llm.config.model or served_model,
             architecture=llm.model_cfg.architecture or "")
@@ -118,6 +131,20 @@ def _profile_dir() -> str:
     picks where the server writes."""
     return (os.environ.get("GLLM_PROFILE_DIR")
             or os.path.join(tempfile.gettempdir(), "gllm_tpu_torch_profile"))
+
+
+def _query(path: str) -> dict:
+    from urllib.parse import parse_qs, urlparse
+    return parse_qs(urlparse(path).query)
+
+
+def _since(q: dict) -> Optional[int]:
+    """The ``since`` of a query (0 when absent; None when not an
+    integer)."""
+    try:
+        return int(q.get("since", ["0"])[0])
+    except ValueError:
+        return None
 
 
 def _kernel_launches() -> dict:
@@ -237,6 +264,33 @@ class Handler(BaseHTTPRequestHandler):
         elif self.path == "/metrics":
             self._text(obs_metrics.render(),
                        "text/plain; version=0.0.4; charset=utf-8")
+        elif self.path.split("?", 1)[0] == "/steptrace":
+            # the step-trace ring as JSON (``python -m
+            # gllm_tpu_torch.obs.dump -`` prints it as a table)
+            q = _query(self.path)
+            since = _since(q)
+            if since is None:
+                self._json(proto.error_response(
+                    "since must be an integer"), code=400)
+                return
+            kinds = [k for part in q.get("kind", [])
+                     for k in part.split(",") if k]
+            events = TRACE.events(since=since, kinds=kinds or None)
+            self._json({"events": events, "dropped": TRACE.dropped,
+                        "next_since": TRACE.mark(),
+                        "summary": summarize(events)})
+        elif self.path.split("?", 1)[0] == "/trace":
+            # Chrome trace-event JSON: a track per engine phase and the
+            # device's, a track per request of this engine's span ring
+            since = _since(_query(self.path))
+            if since is None:
+                self._json(proto.error_response(
+                    "since must be an integer"), code=400)
+                return
+            spans = st.llm.spans
+            self._json(chrome_trace(TRACE.events(since=since),
+                                    spans.spans() + spans.open_spans(),
+                                    span_t0=TRACE.t0))
         elif self.path == "/version":
             self._json({"version": gllm_tpu_torch.__version__})
         elif self.path == "/v1/models":
@@ -288,6 +342,8 @@ class Handler(BaseHTTPRequestHandler):
                 self._profile(True)
             elif self.path == "/stop_profile":
                 self._profile(False)
+            elif self.path.split("?", 1)[0] == "/profile":
+                self._profile_oneshot()
             else:
                 self._json(proto.error_response("not found", 404), code=404)
         except proto.ProtocolError as e:
@@ -604,9 +660,9 @@ class Handler(BaseHTTPRequestHandler):
         ``GLLM_PROFILE_DIR``, else a directory under the temporary one (a
         ``trace_dir`` in the request's body is refused with 400).
         Both run on the engine thread, between steps: the profiler records
-        the operators of the thread that starts it."""
-        import torch
-        from torch.profiler import ProfilerActivity, profile
+        the operators of the thread that starts it. While a ``POST
+        /profile`` capture runs, ``/stop_profile`` answers 409 and
+        ``/start_profile`` does nothing."""
         st = self.state
         body = self._read_json()
         if "trace_dir" in body:
@@ -614,34 +670,100 @@ class Handler(BaseHTTPRequestHandler):
                 "trace_dir is not taken from a request; the server "
                 "writes traces into GLLM_PROFILE_DIR", 400), code=400)
             return
-        device = st.llm.device
         with st._profile_mu:
             if start and st._profiler is None:
-                acts = [ProfilerActivity.CPU]
-                if device.type == "cuda":
-                    acts.append(ProfilerActivity.CUDA)
-                prof = profile(activities=acts)
-                st.engine.run_on_engine(prof.start)
-                st._profiler, st._profile_dir = prof, _profile_dir()
+                st._profiler, st._profile_dir = self._start_profiler(), \
+                    _profile_dir()
                 self._json({"status": "profiling started",
                             "trace_dir": st._profile_dir})
+            elif not start and st._profiling_oneshot:
+                # a POST /profile capture holds the profiler: stopping it
+                # here would cut that capture short
+                self._json(proto.error_response(
+                    "a one-shot /profile capture is in progress", 409),
+                    code=409)
             elif not start and st._profiler is not None:
                 prof, trace_dir = st._profiler, st._profile_dir
                 st._profiler = st._profile_dir = None
-
-                def stop():
-                    if device.type == "cuda":
-                        torch.cuda.synchronize(device)
-                    prof.stop()
-                st.engine.run_on_engine(stop)
-                os.makedirs(trace_dir, exist_ok=True)
-                path = os.path.join(
-                    trace_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_"
-                    f"{os.getpid()}.json")
-                prof.export_chrome_trace(path)
+                path = self._stop_profiler(prof, trace_dir)
                 self._json({"status": "profiling stopped", "trace": path})
             else:
                 self._json({"status": "noop"})
+
+    def _start_profiler(self):
+        """A ``torch.profiler`` capture started on the engine thread (the
+        host's operators, and the card's kernels on CUDA)."""
+        from torch.profiler import ProfilerActivity, profile
+        st = self.state
+        acts = [ProfilerActivity.CPU]
+        if st.llm.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        st.engine.run_on_engine(prof.start)
+        return prof
+
+    def _stop_profiler(self, prof, trace_dir: str) -> str:
+        """Stop ``prof`` on the engine thread and write its Chrome trace
+        into ``trace_dir``; returns the file's path."""
+        import torch
+        st = self.state
+        device = st.llm.device
+
+        def stop():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            prof.stop()
+        st.engine.run_on_engine(stop)
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(
+            trace_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_"
+            f"{os.getpid()}_{time.monotonic_ns()}.json")
+        prof.export_chrome_trace(path)
+        return path
+
+    def _profile_oneshot(self):
+        """``POST /profile?seconds=N`` (default 3, at most 120): start a
+        capture, sleep N seconds while serving goes on, stop it and answer
+        the trace's directory and file. 409 while another ``/profile`` or
+        a ``/start_profile`` capture holds the profiler."""
+        st = self.state
+        try:
+            seconds = float(_query(self.path).get("seconds", ["3"])[0])
+        except ValueError:
+            self._json(proto.error_response("seconds must be a number"),
+                       code=400)
+            return
+        if not 0 < seconds <= 120:
+            self._json(proto.error_response(
+                "seconds must be in (0, 120]"), code=400)
+            return
+        if not st._profile_lock.acquire(blocking=False):
+            self._json(proto.error_response(
+                "a profile capture is already running", 409), code=409)
+            return
+        try:
+            trace_dir = _profile_dir()
+            with st._profile_mu:
+                if st._profiler is not None:
+                    self._json(proto.error_response(
+                        "profiler already started via /start_profile",
+                        409), code=409)
+                    return
+                st._profiler = self._start_profiler()
+                st._profile_dir = trace_dir
+                st._profiling_oneshot = True
+            try:
+                time.sleep(seconds)
+            finally:
+                with st._profile_mu:
+                    prof = st._profiler
+                    st._profiler = st._profile_dir = None
+                    st._profiling_oneshot = False
+                    path = self._stop_profiler(prof, trace_dir)
+            self._json({"status": "ok", "seconds": seconds,
+                        "trace_dir": trace_dir, "trace": path})
+        finally:
+            st._profile_lock.release()
 
 
 def build_engine_config(args) -> EngineConfig:
@@ -676,6 +798,7 @@ def build_engine_config(args) -> EngineConfig:
         drain_timeout_s=args.drain_timeout_s,
         engine_recovery=args.engine_recovery,
         watchdog_hard_stall_s=args.watchdog_hard_stall_s,
+        tracing=not args.no_tracing,
         scheduler=SchedulerConfig(
             schedule_method=args.schedule_method,
             max_decode_seqs=args.maxd,
@@ -804,6 +927,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--drain-timeout-s", type=float, default=5.0)
     p.add_argument("--engine-recovery", action="store_true")
     p.add_argument("--watchdog-hard-stall-s", type=float, default=0.0)
+    p.add_argument("--no-tracing", action="store_true",
+                   help="turn the request spans off (GET /trace's request "
+                        "tracks; the step-trace ring and its attribution "
+                        "on /steptrace stay on); token streams are the "
+                        "same either way")
     p.add_argument("--skip-warmup", action="store_true",
                    help="capture no CUDA graphs before serving (the first "
                         "requests capture theirs)")

@@ -9,7 +9,9 @@
   are ref-counted; a cached page survives refcount 0 and stays reusable
   until the allocator re-mints it; an 8-token canary guards against hash
   collisions. Freshly computed pages are registered only after a step's
-  outputs land, so uncommitted tokens never poison cache keys.
+  outputs land, so uncommitted tokens never poison cache keys. Each probe
+  counts its prompt and hit tokens (JAX's metrics) and records a
+  ``prefix`` step-trace event.
 - hybrid models: working slots of the GDN state pools, one per running
   sequence (``gllm_tpu/memory_manager.py:116-180,248``), slot 0 being the
   padding dummy. A freed slot is queued to be zeroed (JAX's "zero"
@@ -24,8 +26,18 @@ import hashlib
 from typing import Dict, List, Tuple
 
 from gllm_tpu_torch.id_allocator import IDAllocator
+from gllm_tpu_torch.obs import metrics as obs
+from gllm_tpu_torch.obs.steptrace import TRACE
 from gllm_tpu_torch.sequence import Sequence
 from gllm_tpu_torch.utils import cdiv
+
+# Prefix-cache metrics (``gllm_tpu/memory_manager.py:40-44``): lifetime
+# token counters, whose rates give a window's hit rate; the scheduler's
+# gllm_prefix_cache_hit_rate gauge mirrors the lifetime ratio
+_M_PFX_QUERY = obs.counter("gllm_prefix_cache_query_tokens_total",
+                           "prompt tokens probed against the prefix cache")
+_M_PFX_HIT = obs.counter("gllm_prefix_cache_hit_tokens_total",
+                         "prompt tokens served from cached KV pages")
 
 # Tokens stored per cached page to verify against hash collisions.
 _CANARY_TOKENS = 8
@@ -171,6 +183,7 @@ class PrefixMemoryManager(MemoryManager):
         # seq_id -> (num_pages_hashed, digest of the last hashed page)
         self._seq_chain: Dict[int, Tuple[int, bytes]] = {}
         self.hit_tokens = 0      # prompt tokens served from cached pages
+        self.query_tokens = 0    # prompt tokens probed
 
     # A page in the free list may still carry cache metadata; minting it for
     # new content must drop the stale key.
@@ -199,6 +212,8 @@ class PrefixMemoryManager(MemoryManager):
         Returns the number of cached tokens (always < prompt_len so at
         least one token is computed to produce logits)."""
         assert seq.num_computed_tokens == 0 and not seq.page_table
+        self.query_tokens += seq.prompt_len
+        _M_PFX_QUERY.inc(seq.prompt_len)
         matched_digest = b"root"
         matched = 0
         for digest, tokens in prefix_digests(
@@ -216,6 +231,12 @@ class PrefixMemoryManager(MemoryManager):
         if matched:
             self._seq_chain[seq.seq_id] = (matched, matched_digest)
         self.hit_tokens += seq.num_computed_tokens
+        _M_PFX_HIT.inc(seq.num_computed_tokens)
+        # one event per admission probe; the device's pages are the only
+        # tier here ("hbm", JAX's name for it)
+        TRACE.record("prefix", query_tokens=seq.prompt_len,
+                     hit_tokens=seq.num_computed_tokens,
+                     pages={"hbm": matched} if matched else {})
         return seq.num_computed_tokens
 
     def register_computed_pages(self, seq: Sequence) -> None:
@@ -238,6 +259,11 @@ class PrefixMemoryManager(MemoryManager):
     def free_seq(self, seq: Sequence) -> None:
         super().free_seq(seq)
         self._seq_chain.pop(seq.seq_id, None)
+
+    @property
+    def cache_hit_rate(self) -> float:
+        return (self.hit_tokens / self.query_tokens if self.query_tokens
+                else 0.0)
 
 
 def make_memory_manager(num_pages: int, page_size: int,

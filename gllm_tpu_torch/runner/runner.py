@@ -56,6 +56,12 @@ body launches the seeded-Gumbel kernel over its rows, a block advances
 each row's output index a sub-step, and a spec block carries it in its
 state. Every sampled body's mask takes JAX's bounded top-k fast path,
 whose branch is a conditional node of the graph (``DecodeGraphs.select``).
+Each dispatch leaves its host walls (build, dispatch), its KV read
+estimate and, for an eager step, why it ran op by op in ``last_phases``
+for the engine's step event, counts its sampler variant and records a "compile"
+step-trace event the first time its signature is met (JAX's
+``_note_kv_read`` and ``_note_dispatch``, ``runner.py:936-969``), all on
+the host.
 """
 
 from __future__ import annotations
@@ -72,6 +78,8 @@ from gllm_tpu_torch.config import EngineConfig
 from gllm_tpu_torch.models import hybrid
 from gllm_tpu_torch.models.config import ModelConfig
 from gllm_tpu_torch.models.registry import get_model_def
+from gllm_tpu_torch.obs import metrics as obs
+from gllm_tpu_torch.obs.steptrace import TRACE
 from gllm_tpu_torch.ops.cuda.common import check_model_shapes
 from gllm_tpu_torch.ops.cuda.decode_attention import split_geometry
 from gllm_tpu_torch.ops.sampling import (TOPK_FAST_BOUND, PenaltyTokens,
@@ -90,6 +98,29 @@ from gllm_tpu_torch.sequence import HOLE_SEQ_ID, Sequence, SequenceStatus
 from gllm_tpu_torch.utils import cdiv
 
 logger = logging.getLogger(__name__)
+
+# Dispatch-side metrics (the JAX runner's ``runner.py:44-66``, same names,
+# labels and help; a new signature is a CUDA graph capture here): host
+# counters on values the dispatch already has; nothing here is read from
+# the device or enters a graph key
+_M_SAMPLER = obs.counter(
+    "gllm_sampler_program_total",
+    "step dispatches by compiled sampler variant (greedy compiles the "
+    "sampled branch away; see ops/sampling.sample)", ("program",))
+_M_NEW_SHAPE = obs.counter(
+    "gllm_jit_new_shape_signatures_total",
+    "first dispatch of a (shape-bucket, static-flag) signature this "
+    "process — an XLA compile unless the persistent cache held it")
+# an info gauge naming the KV cache's storage dtype, and an estimate of
+# the KV bytes attention reads a step (context tokens x a token's cache
+# bytes over the layers): the decode bandwidth floor's numerator
+_M_KV_DTYPE = obs.gauge(
+    "gllm_kv_cache_dtype",
+    "info gauge: 1 for the active paged-KV storage dtype", ("dtype",))
+_M_KV_READ = obs.counter(
+    "gllm_kv_bytes_read_total",
+    "estimated KV cache bytes read by attention (context tokens x "
+    "per-token cache bytes incl. int8 scales; per-device estimate)")
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32, "int8": torch.int8,
@@ -241,6 +272,14 @@ class ModelRunner:
         self.model_cfg = model_cfg
         self.model = get_model_def(model_cfg)
         self.device = torch.device(device)
+        # dispatch signatures met so far (graph keys, or eager signatures
+        # under enforce_eager): a first sighting is a "compile" event
+        self._seen_sigs: set = set()
+        # the latest dispatch's host build / dispatch split (seconds) and
+        # its KV read estimate (bytes), which the engine copies into the
+        # entry it puts in flight (JAX's ``runner.py:353``)
+        self.last_phases: dict = {}
+        self._last_kv_read = 0
         # the unified step as resolved: inert on a hybrid model, as in the
         # JAX runner (``runner.py:297-303``)
         self.unified = config.unified_step and not model_cfg.use_hybrid
@@ -306,6 +345,16 @@ class ModelRunner:
         logger.info("KV cache: %d pages × %d tokens (%s) on %s",
                     self.num_pages, config.cache.page_size, self.kv_dtype,
                     self.device)
+        # the weights every dispatch reads (each distinct tensor once): the
+        # weight term of the HBM estimate; every expert and the whole
+        # embedding table count, as in JAX, so a MoE model's estimate
+        # overstates what a step reads
+        self.param_bytes = _tree_bytes(self.params)
+        _M_KV_DTYPE.set(1, dtype=str(self.kv_dtype).replace("torch.", ""))
+        # a context token's cache bytes over the layers, the KV read
+        # estimate's unit
+        self._kv_rd_tok_bytes = (self.kv_bytes_per_page()
+                                 / config.cache.page_size)
         # one device buffer for every step: the largest step's fixed part,
         # a block's active_until and widest stop sets, a verify step's rows
         # and drafts or a spec block's seed, the extras, then room for
@@ -639,6 +688,45 @@ class ModelRunner:
                 want_plp = True
         return k, want_plp
 
+    def _note_kv_read(self, items, steps: int = 1) -> None:
+        """The KV bytes this dispatch's attention reads (JAX's
+        ``_note_kv_read``): each row its whole context after this step's
+        writes, a K-step block the growing context every sub-step. Host
+        arithmetic on scheduler counts; kept for ``last_phases``."""
+        tok_bytes = self._kv_rd_tok_bytes
+        ctx = sum(it.computed_before + it.num_new_tokens for it in items)
+        grow = len(items) * steps * (steps - 1) // 2
+        self._last_kv_read = int((ctx * steps + grow) * tok_bytes)
+        _M_KV_READ.inc(self._last_kv_read)
+
+    def _note_dispatch(self, kind: str, sig: tuple, t: int, s: int, p: int,
+                       all_greedy: bool) -> None:
+        """Host dispatch bookkeeping (JAX's ``_note_dispatch``): the
+        sampler-variant counter, and a "compile" event on the first
+        sighting of a signature ``sig`` (a graph key, whose capture on the
+        card happens now, or an eager step's signature), with its padded
+        token, sequence and page counts."""
+        _M_SAMPLER.inc(program="greedy" if all_greedy else "sampled")
+        if sig not in self._seen_sigs:
+            self._seen_sigs.add(sig)
+            _M_NEW_SHAPE.inc()
+            TRACE.record("compile", dispatch=kind, tokens_pad=int(t),
+                         seqs_pad=int(s), pages_pad=int(p), flags=repr(sig))
+
+    def _set_phases(self, t_enter: float, t_build: float,
+                    eager: Optional[str] = None) -> None:
+        """``last_phases``: build (the host batch and its key), dispatch (a
+        first-sight capture, the upload, the launch and the copy out), the
+        KV read estimate, and, for an eager step, why it ran op by op
+        (``eager_mixed``'s reasons): the card works through such a body
+        while the host enqueues it, so the engine's device wall, taken
+        from the call's return as JAX's is, misses that part of it."""
+        self.last_phases = {"build": t_build - t_enter,
+                            "dispatch": time.monotonic() - t_build,
+                            "kv_bytes": self._last_kv_read}
+        if eager is not None:
+            self.last_phases["eager"] = eager
+
     def step(self, sched_batch: ScheduledBatch,
              force_signature=None) -> np.ndarray:
         """Run one step (at ``force_signature``, a block's, when given);
@@ -678,7 +766,10 @@ class ModelRunner:
         hybrid model's mixed step runs eagerly (its GDN layer loops over
         row groups on the host), as does every step under
         ``enforce_eager``; the mixed ones among them are counted in
-        ``eager_mixed`` by reason."""
+        ``eager_mixed`` by reason. ``last_phases`` gets the host build
+        (the batch and its key) and dispatch (a first-sight capture, the
+        upload, the launch and the copy out) walls."""
+        t_enter = time.monotonic()
         host_batch, max_q, sig_q = self._host_batch(sched_batch,
                                                     force_signature)
         decode = host_batch.max_seq_q == 1
@@ -697,21 +788,25 @@ class ModelRunner:
         eager = ("enforce_eager" if self.graphs is None
                  else "hybrid" if self.hybrid and not decode else None)
         k1 = int(host_batch.spec_rows.shape[1]) if drafts else 0
+        t = host_batch.token_ids.size
+        s, p = host_batch.attn.page_table.shape
+        kind = "verify" if drafts else "decode" if decode else "mixed"
+        key = (t, s, sig_q, p, all_greedy)
+        if drafts:
+            key += (k1, spec_sampled)
+        if any(flags):
+            kind += "_extras"
+            key += flags
+        if kind != "decode":
+            key = (kind,) + key
+        self._note_kv_read(sched_batch.items)
+        self._note_dispatch("step", key if eager is None
+                            else ("eager",) + key, t, s, p, all_greedy)
+        t_build = time.monotonic()
         if eager is not None:
             if not decode:
                 self.eager_mixed[eager] += 1
         else:
-            t = host_batch.token_ids.size
-            s, p = host_batch.attn.page_table.shape
-            kind = "verify" if drafts else "decode" if decode else "mixed"
-            key = (t, s, sig_q, p, all_greedy)
-            if drafts:
-                key += (k1, spec_sampled)
-            if any(flags):
-                kind += "_extras"
-                key += flags
-            if kind != "decode":
-                key = (kind,) + key
 
             def body(generator, graph=None):
                 # max_q is the key's, never the live batch's
@@ -733,8 +828,10 @@ class ModelRunner:
         else:
             out, aux = self._step_body(batch, max_q, all_greedy, *flags[1:],
                                        spec_sampled)
-        return self._handle(out[:sched_batch.num_seqs], aux=aux,
-                            spec=k1 or None)
+        handle = self._handle(out[:sched_batch.num_seqs], aux=aux,
+                              spec=k1 or None)
+        self._set_phases(t_enter, t_build, eager)
+        return handle
 
     @staticmethod
     def _splice(batch, sched_batch: ScheduledBatch,
@@ -770,6 +867,7 @@ class ModelRunner:
         handle carries the [K, n] tokens and each row's finish step by
         one copy to the host. The int8 cache's scale resets of the pages
         minted for every link run once, before the replay."""
+        t_enter = time.monotonic()
         K = len(chain)
         K_cap = max(K, self.block_len)
         first = chain[0]
@@ -793,6 +891,9 @@ class ModelRunner:
         self.block_counts["block"] += 1
         all_greedy = _all_greedy(first.items)
         key = ("block", t, s, sig_q, p, K_cap, all_greedy, odf, e)
+        self._note_kv_read(first.items, steps=K)
+        self._note_dispatch("multi_step", key, t, s, p, all_greedy)
+        t_build = time.monotonic()
 
         def body(generator, graph=None):
             return self._block_body(batch, K_cap, all_greedy, odf,
@@ -815,7 +916,9 @@ class ModelRunner:
         out = self.graphs.run(key, body)
         if K < K_cap:
             out = torch.cat([out[:K], out[K_cap:]])
-        return self._handle(out[:, :n], block=key)
+        handle = self._handle(out[:, :n], block=key)
+        self._set_phases(t_enter, t_build)
+        return handle
 
     def _stop_sets(self, items, s: int, absolute: bool = False):
         """A block's stop sets under on-device finish
@@ -944,6 +1047,7 @@ class ModelRunner:
         tokens of every sub-step, the counts each row emitted, the drafts
         proposed and accepted and the draft lengths, by one copy to the
         host, and the carried state for the next block."""
+        t_enter = time.monotonic()
         K = len(chain)
         K_cap = max(K, self.block_len)
         first = chain[0]
@@ -969,6 +1073,9 @@ class ModelRunner:
         key = ("spec", t, s, sig_q, p, K_cap, kd, all_greedy,
                self.config.ondevice_finish, e)
         layout = SpecLayout(K, K_cap, s, kd + 1, SPEC_RING, n)
+        self._note_kv_read(first.items, steps=K)
+        self._note_dispatch("spec_block", key, t, s, p, all_greedy)
+        t_build = time.monotonic()
 
         def body(generator, graph=None):
             return self._spec_body(batch, layout, all_greedy, generator,
@@ -990,7 +1097,9 @@ class ModelRunner:
             self._spec_splice(batch.spec_seed, prev, s)
         self._prologue(batch)
         out = self.graphs.run(key, body)
-        return self._handle(out, block=key, spec=layout)
+        handle = self._handle(out, block=key, spec=layout)
+        self._set_phases(t_enter, t_build)
+        return handle
 
     def _spec_seed(self, first: ScheduledBatch, s: int, K: int,
                    prev: Optional[StepHandle]) -> np.ndarray:
@@ -1425,6 +1534,24 @@ class ModelRunner:
                  for j in range(K)]
         chain[0].active_until = [K] * nseq
         self.collect(self.step_spec_multi(chain))
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of the distinct tensors in a nest of dicts, lists and
+    tuples (a tied table counted once)."""
+    seen, total, stack = set(), 0, [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            k = (x.data_ptr(), x.nbytes)
+            if k not in seen:
+                seen.add(k)
+                total += x.nbytes
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+    return total
 
 
 def _all_greedy(items) -> bool:

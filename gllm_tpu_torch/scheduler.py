@@ -57,14 +57,19 @@
   wholesale (pages freed, in-flight counts zeroed, deferred frees
   flushed, the hole sentinel's count reset) so that the engine returns to
   idle instead of retrying the failed step.
-- metrics: the waiting, running and decode gauges and the KV use (set at
-  most once a second from ``schedule_once``, and by ``publish_stats``),
-  preemptions, admissions and the throttled prefill budget, under JAX's
-  names (``gllm_tpu/scheduler.py:52-72``).
+- metrics: the waiting, running and decode gauges, the KV use and the
+  prefix cache's lifetime hit rate (set at most once a second from
+  ``schedule_once``, and by ``publish_stats``), preemptions, admissions,
+  the throttled prefill budget and its clips, under JAX's names
+  (``gllm_tpu/scheduler.py:52-72``).
+- spans: a request's span tree opens at its first schedule (the
+  ``queued`` phase is arrival → then) and an abort closes it
+  (``gllm_tpu/scheduler.py:598-608``, ``:1267``), on the engine's ring
+  (``spans``, set by the ``LLM``) while ``EngineConfig.tracing`` is on.
 
 The JAX scheduler's SSM snapshots (``_ssm_align_chunk``, the hybrid
-family's draft rollback), host KV tier and spans belong to options this
-port does not implement yet, and are not copied.
+family's draft rollback) and host KV tier belong to options this port
+does not implement yet, and are not copied.
 """
 
 from __future__ import annotations
@@ -80,6 +85,7 @@ import numpy as np
 from gllm_tpu_torch.config import EngineConfig
 from gllm_tpu_torch.memory_manager import MemoryManager
 from gllm_tpu_torch.obs import metrics as obs
+from gllm_tpu_torch.obs.spans import SPANS
 from gllm_tpu_torch.sequence import (HOLE_SEQ_ID, Sequence, SequenceStatus,
                                      make_hole_seq)
 from gllm_tpu_torch.utils import bucket_size, cdiv
@@ -104,6 +110,15 @@ _M_ADMIT = obs.counter("gllm_sched_admitted_total",
 _M_BUDGET = obs.gauge("gllm_sched_prefill_token_budget",
                       "prefill token budget of the latest schedule pass",
                       ("dp",))
+_M_CACHE_HIT = obs.gauge("gllm_prefix_cache_hit_rate",
+                         "lifetime prefix-cache hit rate in tokens (0..1)",
+                         ("dp",))
+# a token_throttling pass whose budget the KV ramp or the waiting-token
+# smoothing clipped below max_prefill_tokens while prefill work waited
+_M_THROTTLE = obs.counter(
+    "gllm_sched_throttle_clips_total",
+    "token_throttling passes whose prefill budget was clipped below "
+    "max_prefill_tokens by the KV ramp / waiting-token smoothing")
 
 
 @dataclasses.dataclass
@@ -212,6 +227,8 @@ class Scheduler:
         self.config = config
         self.sched_cfg = config.scheduler
         self.mm = memory_manager
+        # the request-span ring: the owning LLM sets its own
+        self.spans = SPANS
 
         self.waiting: Deque[Sequence] = deque()
         self.running: List[Sequence] = []
@@ -299,6 +316,10 @@ class Scheduler:
         budget = max(cfg.min_prefill_tokens,
                      min(budget, cfg.max_prefill_tokens))
         _M_BUDGET.set(budget, dp="0")
+        if budget < cfg.max_prefill_tokens and wait_tokens > 0:
+            # a decode-only pass floors the budget trivially: a clip only
+            # counts where prefill work waited
+            _M_THROTTLE.inc()
         return budget
 
     # ---- preemption -------------------------------------------------------
@@ -481,6 +502,11 @@ class Scheduler:
                 # the queue-time anchor; a preempted sequence keeps its
                 # first admission's
                 seq.first_sched_time = time.monotonic()
+                if self.config.tracing:
+                    # the request's span tree: queued until now
+                    self.spans.begin(
+                        seq.seq_id, seq.arrival_time or seq.first_sched_time,
+                        seq.first_sched_time, prompt_tokens=seq.prompt_len)
             _M_ADMIT.inc()
             self.running.append(seq)
             items.append(ScheduledSeq(seq, n, seq.num_computed_tokens))
@@ -967,6 +993,11 @@ class Scheduler:
         seq.finish_reason = "abort"
         self.mm.free_seq(seq)
         self._aborted_ids.discard(seq.seq_id)
+        if self.config.tracing:
+            # an aborted sequence gives no finishing output: its tree
+            # closes here (the first close wins: the serving engine may
+            # have closed it with "deadline")
+            self.spans.finish(seq.seq_id, "abort", time.monotonic())
 
     def _process_aborts(self) -> None:
         if not self._aborted_ids:
@@ -1016,4 +1047,7 @@ class Scheduler:
         _M_RUNNING.set(len(self.running), dp="0")
         _M_DECODE.set(n_decode, dp="0")
         _M_KV_UTIL.set(util, dp="0")
+        hit = getattr(self.mm, "cache_hit_rate", None)
+        if hit is not None:
+            _M_CACHE_HIT.set(hit, dp="0")
         return n_decode, util

@@ -5,7 +5,11 @@ prompt, a chat with ``stop``, a chat with ``tools``) give equal bodies and
 SSE chunk texts, once ids and timestamps are stripped, and equal usage.
 Then the port alone: a disconnect aborts its request with no page leaked,
 the sampling options once refused are served in OpenAI's shape (best_of
-above n ranked) and unported routes 404,
+above n ranked) and the unported route 404s, ``/steptrace`` (``since``,
+``kind``, 400 on a bad ``since``) and ``/trace`` serve the step-trace ring
+and the request spans, ``POST /profile`` writes a trace and refuses a
+second capture with 409, ``--no-tracing`` turns the spans off with the
+same streams,
 ``/metrics`` parses and its TTFT count follows the finished requests, the
 unhealthy latch turns ``/readyz`` to 503, the profiler writes a trace, the
 CLI's flags build the options JAX's build, and ``python -m
@@ -196,10 +200,7 @@ def test_unported_options_get_400(servers, field, value):
 
 def test_unported_routes_and_router_fields(servers):
     (port, _), _ = servers
-    for method, path in (("GET", "/steptrace"), ("GET", "/trace"),
-                         ("POST", "/fault_inject"), ("POST", "/profile")):
-        assert request(port, method, path, {} if method == "POST"
-                       else None)[0] == 404
+    assert request(port, "POST", "/fault_inject", {})[0] == 404
     status, data = request(port, "POST", "/v1/completions", {
         "prompt": [5], "max_tokens": 2, "gllm_router": {}})
     assert status == 400 and b"gllm_router" in data
@@ -287,6 +288,123 @@ def test_profile_refuses_a_client_trace_dir(servers, tmp_path):
     status, data = request(port, "POST", "/stop_profile")
     assert status == 200 and json.loads(data)["status"] == "noop", data
     assert not target.exists()
+
+
+def _complete(port, n=4):
+    status, data = request(port, "POST", "/v1/completions", {
+        "prompt": [5, 6, 7, 8], "max_tokens": n, "temperature": 0,
+        "ignore_eos": True})
+    assert status == 200, data
+    return json.loads(data)
+
+
+def test_steptrace_since_kind_and_bad_since(servers):
+    (port, _), _ = servers
+    status, data = request(port, "GET", "/steptrace?kind=compile")
+    assert status == 200
+    mark = json.loads(data)["next_since"]
+    _complete(port)
+    status, data = request(port, "GET", f"/steptrace?since={mark}")
+    assert status == 200
+    d = json.loads(data)
+    kinds = {e["kind"] for e in d["events"]}
+    assert kinds & {"prefill", "decode"} and d["dropped"] >= 0
+    assert all(e["seq"] >= mark for e in d["events"])
+    steps = [e for e in d["events"] if e["kind"] in ("prefill", "decode")]
+    assert all({"ph", "dev_ms", "step_wall_ms"} <= set(e) for e in steps)
+    assert d["summary"]["by_kind"] and d["summary"]["host_ms_by_phase"]
+    status, data = request(port, "GET",
+                           f"/steptrace?since={mark}&kind=prefill")
+    evs = json.loads(data)["events"]
+    assert evs and {e["kind"] for e in evs} == {"prefill"}
+    status, data = request(port, "GET",
+                           f"/steptrace?since={mark}&kind=prefill,decode")
+    assert {e["kind"] for e in json.loads(data)["events"]} == {"prefill",
+                                                               "decode"}
+    # nothing new after next_since
+    nxt = d["next_since"]
+    assert json.loads(request(port, "GET", f"/steptrace?since={nxt}")[1]
+                      )["events"] == []
+    for path in ("/steptrace?since=x", "/trace?since=1.5"):
+        status, data = request(port, "GET", path)
+        assert status == 400 and b"since" in data
+
+
+def test_trace_serves_chrome_json(servers):
+    (port, _), llm = servers
+    _complete(port)
+    status, data = request(port, "GET", "/trace")
+    assert status == 200
+    evs = json.loads(data)["traceEvents"]
+    xs = [e for e in evs if e["ph"] == "X"]
+    assert {e["pid"] for e in xs} == {1, 2}
+    assert any(e["name"].endswith(":collect") for e in xs)
+    assert all(e["dur"] >= 0 for e in xs)
+    names = {e["args"]["name"] for e in evs if e["ph"] == "M"}
+    assert {"engine loop", "requests"} <= names
+    assert llm.spans.open_count == 0 and llm.spans.spans()
+
+
+def test_profile_oneshot_and_409(servers, tmp_path, monkeypatch):
+    (port, _), _ = servers
+    monkeypatch.setenv("GLLM_PROFILE_DIR", str(tmp_path))
+    for bad in ("seconds=0", "seconds=bogus", "seconds=121"):
+        assert request(port, "POST", f"/profile?{bad}")[0] == 400
+    status, data = request(port, "POST", "/profile?seconds=0.2")
+    assert status == 200, data
+    d = json.loads(data)
+    assert d["status"] == "ok" and d["trace_dir"] == str(tmp_path)
+    assert Path(d["trace"]).parent == tmp_path
+    assert "traceEvents" in json.loads(Path(d["trace"]).read_text())
+    # /start_profile holds the profiler: a one-shot is refused
+    assert request(port, "POST", "/start_profile")[0] == 200
+    try:
+        status, data = request(port, "POST", "/profile?seconds=0.1")
+        assert status == 409 and b"start_profile" in data
+    finally:
+        assert request(port, "POST", "/stop_profile")[0] == 200
+    # while a one-shot runs, /stop_profile does not cut it short (409)
+    # and a second one-shot is refused
+    box = {}
+    th = threading.Thread(target=lambda: box.setdefault(
+        "r", request(port, "POST", "/profile?seconds=3")))
+    th.start()
+    # before the capture starts /stop_profile is a harmless noop (200)
+    limit = time.monotonic() + 2.5
+    status = 200
+    while time.monotonic() < limit and status == 200:
+        status = request(port, "POST", "/stop_profile")[0]
+        time.sleep(0.05)
+    assert status == 409
+    assert request(port, "POST", "/profile?seconds=0.1")[0] == 409
+    th.join()
+    assert box["r"][0] == 200, box["r"][1]
+
+
+def test_no_tracing_flag_keeps_streams_and_drops_spans():
+    args = tapi.make_parser().parse_args(["--model", "m", "--no-tracing"])
+    assert tapi.build_engine_config(args).tracing is False
+    want = japi.build_engine_config(japi.make_parser().parse_args(
+        ["--model", "m", "--no-tracing"]))
+    assert want.tracing is False
+    outs = []
+    for tracing in (True, False):
+        llm = engines(False, tracing=tracing)
+        httpd = _start(llm, tapi)
+        try:
+            outs.append(_complete(httpd.server_address[1], 6)
+                        ["choices"][0]["text"])
+            status, data = request(httpd.server_address[1], "GET", "/trace")
+            assert status == 200
+            req = {e["pid"] for e in json.loads(data)["traceEvents"]
+                   if e["ph"] == "X"}
+            assert (2 in req) is tracing
+            assert bool(llm.spans.spans()) is tracing
+        finally:
+            httpd.shutdown()
+            httpd.state.engine.shutdown()
+            httpd.server_close()
+    assert outs[0] == outs[1]
 
 
 ARGV = ["--model", "m", "--dtype", "float32", "--seed", "3",

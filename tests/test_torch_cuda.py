@@ -3399,3 +3399,60 @@ def test_fast_path_conditional_node_takes_each_branch(cuda_device, nested):
         assert torch.equal(got, want), wide
         if wide:
             assert int(torch.isfinite(want).sum(-1).max()) > 4096
+
+
+# ---- tracing and step attribution -----------------------------------------
+
+TRACED = {"decode": dict(), "block": BLOCK_FLAGS["odf"], "extras": dict()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(TRACED))
+def test_traced_steps_make_no_host_sync(cuda_device, kind):
+    """With tracing on, once the workload's graphs are captured (a first
+    run), the dispatch side (``_note_kv_read``, ``_note_dispatch``,
+    ``last_phases`` inside the runner call) and the collect side
+    (``LLM._record_step``: the step event, its phases, device wall, MFU
+    and HBM estimates, the spans) of a decode step, a block under
+    on-device finish and an extras step raise nothing under
+    ``set_sync_debug_mode("error")``; every step event carries ``ph``,
+    ``dev_ms`` and ``mfu`` (the card's peak from its name), and every
+    request's span tree closes."""
+    from gllm_tpu_torch.obs.steptrace import TRACE
+    llm = _tiny_engine(cuda_device, dtype="bfloat16", **TRACED[kind])
+    assert llm.tracing and llm._peak_flops > 0, torch.cuda.get_device_name()
+    if kind == "extras":
+        prompts, sps = _extras_workload()
+
+        def serve():
+            llm.generate(prompt_token_ids=prompts, sampling_params=sps)
+    else:
+        def serve():
+            _serve_greedy(llm)
+    serve()
+    runner, calls = llm.runner, []
+
+    def strict(fn):
+        def wrapped(*a, **kw):
+            calls.append(fn.__name__)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return wrapped
+    runner.step_async = strict(runner.step_async)
+    runner.step_multi = strict(runner.step_multi)
+    llm._record_step = strict(llm._record_step)
+    mark = TRACE.mark()
+    serve()
+    steps = [e for e in TRACE.events(since=mark)
+             if e["kind"] in ("prefill", "decode", "fused_block")]
+    assert "_record_step" in calls and steps
+    assert all({"ph", "dev_ms", "mfu"} <= set(e) for e in steps)
+    if kind == "block":
+        assert any(e["kind"] == "fused_block" for e in steps)
+    if kind == "extras":
+        assert llm.step_counts["extras"] > 0
+    assert llm.spans.open_count == 0 and llm.spans.spans()
+    _drained(llm)

@@ -370,7 +370,7 @@ def test_reconcile_cascade_stops_at_a_valid_sync_root():
     survives an earlier entry's invalidation
     (tests/test_pipelined_loop.py:313)."""
     def e(**kw):
-        return InFlight(None, object(), **kw)
+        return InFlight(None, object(), 0.0, {}, **kw)
 
     fm = FutureMap()
     reform = e(chained=True, promises=frozenset({7}))

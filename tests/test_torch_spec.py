@@ -258,7 +258,7 @@ def test_trim_overpromise_matches_jax():
         e2 = _fake_chain(pkg, seqs, [[34, 44, 54], [39, 49, 59]])
         e3 = _fake_chain(pkg, seqs, [[50, 60, 70]])
         e4 = _fake_chain(pkg, seqs, [[60, 70, 80]], spec=False)
-        extra = (0.0, None) if Inf is JInFlight else ()
+        extra = (0.0, None if Inf is JInFlight else {})
         flight = [Inf(e1, None, *extra, chained=True),
                   Inf(e2, None, *extra, chained=True),
                   Inf(e3, None, *extra, chained=True, invalid=True),
