@@ -5,8 +5,18 @@
 
 (``--memory-history``: the allocator records each allocation's Python
 stack, and each memory line names what holds the segments with the most
-stranded space.) Phases, in order; any failure ends the run with a
-non-zero exit code and no result line:
+stranded space.) Phases, in order but for the serve phase, which runs
+before the kernels phase; any failure ends the run with a non-zero exit
+code and no result line. The serve phase runs in two child processes
+(``--serve-group``): DeepSeek-V2-Lite's configurations, and the others;
+a child that fails fails the run. (ROADMAP C 9: with the profiler's CUDA
+activity on, a CUDA graph's replay crashed the process in the DeepSeek
+serve window after other profiler sessions of the same process: after
+the kernels phase's hundred-odd, and after the Llama configurations'
+eight windows; tools/profile_replay_probe.py replays DeepSeek's graphs
+in 37 windows of a fresh process before its crash, and CUPTI drops
+records from the 20th. Each DeepSeek window now opens in a process that
+has profiled at most one window before it.)
 
 1. device    torch / CUDA / nvcc versions, the card's name and power limit
 2. build     nvcc builds every kernel from gllm_tpu_torch/csrc into
@@ -22,7 +32,9 @@ non-zero exit code and no result line:
              kernel (K1u) over each cache (the mixed rows also beside one
              varlen flash call over the real tokens, and split by launch:
              decode class, ragged class), and K1 at a GQA group of 7 (Hq 28,
-             Hkv 4, D 128) on the mixed lengths; then the MLA modes at
+             Hkv 4, D 128) on the mixed lengths, and K1 (mixed lengths) and
+             K2 (decode rows) at Qwen3-30B-A3B's group of 8 (Hq 32, Hkv 4,
+             D 128); then the MLA modes at
              DeepSeek-V2-Lite's latent geometry (Hq 16 over one 576-wide
              latent row, values its leading 512, bf16 q) on the same batch
              lengths: ragged (K1m), decode (K2m) and the unified step's
@@ -52,13 +64,17 @@ non-zero exit code and no result line:
              configurations: the bf16 sync loop, an int8 KV cache, the
              unified step, the unified step over an int8 cache, an fp8 KV
              cache and the unified step over an fp8 cache; then
-             DeepSeek-V2-Lite at full width (27 layers, 64 experts, latent
-             512 + 64) after the Llama engines are freed: the legacy step
-             and the unified step, over an fp8 latent and both, the later
-             engines on the first one's weights; then Qwen3-Next-80B-A3B at
-             full width, depth cut to 12 layers (9 GDN, 3 gated full
-             attention; 512 experts, top-10), then over an fp8 cache on the
-             same weights, after DeepSeek is freed. Every engine replays
+             Qwen3-Next-80B-A3B at full width, depth cut to 12 layers (9
+             GDN, 3 gated full attention; 512 experts, top-10), then over
+             an fp8 cache on the same weights; then Qwen3-30B-A3B (the
+             Mixtral / Qwen-MoE family at full width, depth cut to
+             SERVE_MOE_LAYERS = 24 of 48 for the smoke's wall; 128 experts
+             top-8, K1 and K2 at GQA group 8, D 128; 31 GB of dummy bf16
+             weights) with an eager and a slot twin; then, in a second
+             process, DeepSeek-V2-Lite at full width (27 layers, 64
+             experts, latent 512 + 64): the legacy step and the unified
+             step, over an fp8 latent and both, the later engines on the
+             first one's weights. Every engine replays
              its pure-decode steps as CUDA graphs (enforce_eager off, the
              default): llm.runner.warmup() captures JAX's bucket combos
              and its mixed pass at the sequence buckets the workload
@@ -125,7 +141,9 @@ non-zero exit code and no result line:
              run, the twin's batches replayed; the absorb twin must absorb
              there. Every twin has 2048 KV pages and must not preempt, and
              one that does not fit beside the primary engine raises by
-             name. Each engine's construction logs the memory it was
+             name. The Qwen3-30B-A3B configuration has no overlap or
+             multi twin: its runs go eager, graph, slot, slot, graph,
+             eager. Each engine's construction logs the memory it was
              sized from (free, and stranded in partly used segments) and
              the card's memory by allocator pool and outside it, as does
              each model's release of its engines. Every engine with
@@ -154,7 +172,9 @@ non-zero exit code and no result line:
              MIXED_SHARE_BEFORE) and the share spent waiting in collect,
              and the engine's step-trace summary of the same window with
              its device share (1 - bubble_frac) beside the profiler's busy
-             share. Each configuration's last run of its graph engine and
+             share. Every profiler window here starts and stops with
+             nothing queued on the card (``profiled``: a synchronize before
+             each; ROADMAP C 9). Each configuration's last run of its graph engine and
              of its best twin (absorb, slot, multi, overlap or eager) is
              bracketed on the step-trace ring (TRACE.mark()) and its
              summary printed (attribution: steps by kind, host ms by
@@ -248,7 +268,25 @@ non-zero exit code and no result line:
              the on/off ratio of medians, the four runs' streams identical
              (else the run fails), the traced window's summary under the
              serve phase's hard checks, one span tree closed a request
-9. http      the port's OpenAI server as users start it (``python -m
+9. checkpoint  Llama-3.2-1B (16 layers) and Qwen3-30B-A3B (full width,
+             CKPT_QWEN_LAYERS layers): the dummy engine (its KV pool sized
+             from free memory) serves the serve phase's 16 greedy
+             requests, its weights are written with this script's own
+             safetensors writer (struct + json; the card's machine has no
+             safetensors package) as two shards and an index, with the
+             model's config.json, under a temporary directory (removed
+             after), the engine is freed, and an engine is built from the
+             directory with load_format="auto": load seconds and GB/s,
+             peak host RSS growth while loading (sampled from
+             /proc/self/status), KV pages beside those of a dummy engine
+             built after it (at most CKPT_PAGES_SLACK apart; the first
+             dummy engine's are printed too: its pool was sized before
+             the process paid its kernels' first uses), every tensor
+             equal to the dummy
+             engine's, no parameter left unwritten, the 16 requests'
+             greedy streams identical, host RSS growth at most twice the
+             largest tensor plus 1 GiB, and which tokenizer it found
+10. http     the port's OpenAI server as users start it (``python -m
              gllm_tpu_torch.entrypoints.api_server``), a process of its
              own: Llama-3.2-1B at full width (config.json written under
              build/http_model, dummy bf16 weights from seed 0), once
@@ -285,18 +323,21 @@ non-zero exit code and no result line:
              phase, compile events in the passes equal to the graphs they
              captured, GET /trace (Chrome JSON with the engine and request
              rows) and POST /profile?seconds=1 (its trace file written)
-10. a {"kernels": [...]} line, then the last line
+11. a {"kernels": [...]} line, then the last line
              {"ok": true, "device": {...}}
 
 It imports nothing of jax or the JAX package.
 """
 
 import collections
+import contextlib
 import dataclasses
 import faulthandler
 import gc
 import json
+import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -369,6 +410,9 @@ TOL = {"paged_decode_attention": DECODE_TOL,
        "ragged_paged_attention_d256": RAGGED_TOL,
        # a GQA group of 7 at D 128: the same softmax and rounding as K1
        "ragged_paged_attention_g7": RAGGED_TOL,
+       # Qwen3-30B-A3B's group of 8 at D 128: K1's and K2's reasons hold
+       "ragged_paged_attention_g8": RAGGED_TOL,
+       "paged_decode_attention_g8": DECODE_TOL,
        "paged_decode_attention_d256": DECODE_TOL,
        "gdn_chunk_scan": GDN_TOL,
        # K1um: K1m's ragged blocks and K2m's decode blocks, whose reasons
@@ -521,6 +565,14 @@ KERNELS = {
         "none (jax.random threefry2x32 in gllm_tpu/ops/sampling.py "
         "sample:269, _row_base_keys:304, spec_verify:373; no Pallas "
         "counterpart)"),
+    # Qwen3-30B-A3B's attention (GQA group 8, D 128), launched by the
+    # qwen3_moe serve configuration
+    "ragged_paged_attention_g8": (
+        "ragged_paged_attention", "qwen3_moe", "ragged_attention.cu",
+        PALLAS + "ragged_attention.py:429 (GQA group 8, head_dim 128)"),
+    "paged_decode_attention_g8": (
+        "paged_decode_attention", "qwen3_moe", "decode_attention.cu",
+        PALLAS + "decode_attention.py:188 (GQA group 8, head_dim 128)"),
     # no served configuration has a group of 7: its launches are those of
     # the same kernel (K1, bf16) in the bf16 serve configuration
     "ragged_paged_attention_g7": (
@@ -538,6 +590,21 @@ def run(cmd):
                           check=True).stdout.strip()
 
 
+@contextlib.contextmanager
+def profiled():
+    """torch.profiler over the host's operators and the card's kernels,
+    started and stopped with nothing queued on the card: a
+    torch.cuda.synchronize() before the profiler starts and before it stops
+    (ROADMAP C 9: a CUDA graph's replay crashed inside a DeepSeek window
+    twice; tools/profile_replay_probe.py)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield prof
+        torch.cuda.synchronize()
+
+
 def device_split(fn, iters, warmup=2, tries=3):
     """Device time per call of ``fn`` by kernel, in ms, as torch.profiler
     (CUPTI) reads it, so neither the host's issue time nor the gaps
@@ -545,16 +612,12 @@ def device_split(fn, iters, warmup=2, tries=3):
     records (seen on the H100 in the first profile of a run, after the
     kernels' build): it is taken again, at most ``tries`` times."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
         split = {}
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
@@ -1191,6 +1254,7 @@ def phase_kernels():
         del kd, vd
     del x, caches
     results.update(group7_kernel(dev, rng_g7))
+    results.update(group8_kernels(dev))
 
     results.update(mla_kernels(dev))
     results.update(hybrid_kernels(dev))
@@ -1332,12 +1396,12 @@ def verify_kernels(dev):
     return results
 
 
-def group7_kernel(dev, rng):
+def group7_kernel(dev, rng, name="ragged_paged_attention_g7", Hq=28,
+                  Hkv=4, D=128):
     """K1 at a GQA group of 7 (Hq 28 over Hkv 4, D 128: Qwen2-7B's
-    attention shape) on the mixed batch lengths, bf16 q and cache."""
+    attention shape; or another shape given) on the mixed batch lengths,
+    bf16 q and cache."""
     from gllm_tpu_torch.ops.cuda import ragged_attention as rag
-    name = "ragged_paged_attention_g7"
-    Hq, Hkv, D = 28, 4, 128
     scale = D ** -0.5
     x = mixed_shape(rng, dev, Hq=Hq, Hkv=Hkv, D=D, quant=False)
     q, cu, kvl, pt, kv, page = (x["q"], x["cu"], x["kvl"], x["pt"], x["kv"],
@@ -1364,11 +1428,49 @@ def group7_kernel(dev, rng):
         varlen=_varlen_library(x, kc, vc, scale),
         shapes=(f"T={T_pad} ({T_real} real: 24 decode rows + chunks "
                 f"512/300/1024) S={S_pad} ({S_real} real) ctx<=2048 Hq={Hq} "
-                f"Hkv={Hkv} (G 7) D={D} page={page} bf16 q, bf16 cache"),
+                f"Hkv={Hkv} (G {Hq // Hkv}) D={D} page={page} bf16 q, bf16 "
+                f"cache"),
         library_call="scaled_dot_product_attention(enable_gqa, bool mask) "
         "over q padded to [S, Hq, 1024, D] and K/V gathered dense per "
         "sequence", varlen_library_call=VARLEN_CALL)
     return {name: r}
+
+
+def group8_kernels(dev):
+    """K1 on the mixed batch lengths and K2 on the decode rows at
+    Qwen3-30B-A3B's attention shape (Hq 32 over Hkv 4: a GQA group of 8,
+    D 128), bf16 q and cache: the geometry the qwen3_moe serve
+    configuration launches them at."""
+    from gllm_tpu_torch.ops.cuda import decode_attention as dec
+    from gllm_tpu_torch.ops.cuda import ragged_attention as rag
+    Hq, Hkv, D = 32, 4, 128
+    scale = D ** -0.5
+    out = {}
+    x = decode_shape(np.random.default_rng(SEED), dev, Hq=Hq, Hkv=Hkv, D=D,
+                     quant=False)
+    q, kvl, pt, kv, page = x["q"], x["kvl"], x["pt"], x["kv"], x["page"]
+    kc, vc = x["kc"], x["vc"]
+    S = len(kv)
+    io = 2 * q.numel() * 2 + S * 4 + sum(-(-k // page) for k in kv) * 4
+    kd, vd = _dense_kv(kc, vc, pt, kv, page)
+    out["paged_decode_attention_g8"] = measure(
+        "paged_decode_attention_g8",
+        lambda: dec.paged_decode_attention(q, kc, vc, kvl, pt, scale=scale),
+        lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl, pt,
+                                                 scale=scale),
+        lambda: dec.paged_decode_attention_plain(q, kc, vc, kvl - 1, pt,
+                                                 scale=scale),
+        _decode_library(x, kd, vd, scale), 50,
+        _kv_bytes(kv, page, Hkv, D, "bf16") + io, 4 * Hq * D * sum(kv),
+        shapes=(f"S={S} ctx {min(kv)}..{max(kv)} (sum {sum(kv)}) Hq={Hq} "
+                f"Hkv={Hkv} (G 8) D={D} page={page} bf16 q, bf16 cache"),
+        library_call="scaled_dot_product_attention(enable_gqa) over K/V "
+        "gathered dense per sequence")
+    del x, kd, vd
+    out.update(group7_kernel(dev, np.random.default_rng(SEED + 8),
+                             name="ragged_paged_attention_g8", Hq=Hq,
+                             Hkv=Hkv, D=D))
+    return out
 
 
 def mla_kernels(dev):
@@ -1737,6 +1839,35 @@ def qwen3_next(**kw):
     return from_hf_config(hf)
 
 
+# Qwen/Qwen3-30B-A3B's published config.json (the keys the port reads)
+QWEN3_30B_A3B = dict(
+    architectures=["Qwen3MoeForCausalLM"], vocab_size=151936,
+    hidden_size=2048, num_hidden_layers=48, num_attention_heads=32,
+    num_key_value_heads=4, head_dim=128, intermediate_size=6144,
+    moe_intermediate_size=768, num_experts=128, num_experts_per_tok=8,
+    norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[],
+    rope_theta=1000000.0, rms_norm_eps=1e-6,
+    max_position_embeddings=40960, attention_bias=False, hidden_act="silu",
+    tie_word_embeddings=False, bos_token_id=151643, eos_token_id=151645)
+
+
+def qwen3_30b_a3b(**kw):
+    """Qwen3-30B-A3B, parsed by the port's from_hf_config; ``kw``
+    overrides HF keys."""
+    from gllm_tpu_torch import from_hf_config
+    return from_hf_config(dict(QWEN3_30B_A3B, **kw))
+
+
+# the qwen3_moe serve configuration's depth: at all 48 layers the smoke
+# ran 1146.4 s of its 1200 on an H100 80GB HBM3, 700.00 W (PERF.md §4)
+SERVE_MOE_LAYERS = 24
+
+
+def qwen3_30b_a3b_serve():
+    """Qwen3-30B-A3B at full width, depth cut to SERVE_MOE_LAYERS."""
+    return qwen3_30b_a3b(num_hidden_layers=SERVE_MOE_LAYERS)
+
+
 def _wrappers():
     from gllm_tpu_torch.ops import threefry as tf
     from gllm_tpu_torch.ops.cuda import decode_attention as dec
@@ -1876,8 +2007,13 @@ SERVE = {
                        {"mixed": ("ragged_paged_attention_fp8",
                                   "gdn_chunk_scan"),
                         "decode": ("paged_decode_attention_fp8",)}, False),
+    # the MoE family at full width: K1 / K2 at GQA group 8, D 128
+    "qwen3_moe": (qwen3_30b_a3b_serve, dict(), 2,
+                  {"mixed": ("ragged_paged_attention",),
+                   "decode": ("paged_decode_attention",)}, False),
 }
-TWINS = ("bf16", "unified", "deepseek", "deepseek_unified", "qwen3_next")
+TWINS = ("bf16", "unified", "deepseek", "deepseek_unified", "qwen3_next",
+         "qwen3_moe")
 # twins whose eager engine is profiled too (an eager DeepSeek window's
 # trace takes a minute to read back)
 PROFILE_EAGER = ("bf16",)
@@ -1913,7 +2049,7 @@ MULTI_BLOCK_BUCKETS = (8, 16)
 # for the hybrid model), its second run held to its own batches replayed,
 # and the DeepSeek slot twin serves the stop-token run too (a finish
 # inside a block becomes a hole)
-SLOT_TWINS = ("bf16", "deepseek", "qwen3_next")
+SLOT_TWINS = ("bf16", "deepseek", "qwen3_next", "qwen3_moe")
 PROFILE_SLOT = ("bf16",)
 SLOT_FLAGS = dict(decode_slot_batching=True, chain_under_prefill=16)
 SLOT = dict(MULTI, **SLOT_FLAGS)
@@ -2240,8 +2376,10 @@ def serve(name, model, kw, runs, by_kind, profiled, params=None):
     if multi and slot:
         order = [eager, llm, over, multi, slot, slot, multi, over, llm,
                  eager]
-    elif slot:
+    elif slot and over:
         order = [eager, llm, over, slot, slot, over, llm, eager]
+    elif slot:
+        order = [eager, llm, slot, slot, llm, eager]
     elif absorb:
         order = [eager, llm, absorb, absorb, llm, eager]
     elif over:
@@ -2947,10 +3085,19 @@ def staggered_runs(name, llm, twin, mode, prompts, params):
     return out
 
 
-def phase_serve():
-    results = {}
-    names = list(SERVE)
-    weights = None
+def serve_processes():
+    """SERVE's names in two processes: every configuration but
+    DeepSeek-V2-Lite's, then DeepSeek-V2-Lite's, whose graph windows
+    crashed after other models' profiler sessions (ROADMAP C 9)."""
+    deepseek = [n for n in SERVE if SERVE[n][0] is deepseek_v2_lite]
+    return [[n for n in SERVE if n not in deepseek], deepseek]
+
+
+def serve_group(names):
+    """Serve ``names`` in order, an engine on the previous one's weights
+    where both are of one model in REUSE_WEIGHTS; returns their results by
+    name."""
+    results, weights = {}, None
     for i, name in enumerate(names):
         model = SERVE[name][0]
         t0 = time.monotonic()
@@ -2960,6 +3107,52 @@ def phase_serve():
         weights = params if model in REUSE_WEIGHTS and nxt is model else None
         del params
         log(f"[serve {name}] phase wall {time.monotonic() - t0:.1f} s")
+    return results
+
+
+def serve_child(argv):
+    """A child of phase_serve: serve the configurations it was given and
+    pickle their results to the path it was given."""
+    global SMI
+    import argparse
+    import pickle
+    p = argparse.ArgumentParser()
+    p.add_argument("--serve-group", required=True)
+    p.add_argument("--results", required=True)
+    p.add_argument("--smi", required=True)
+    p.add_argument("--memory-history", action="store_true")
+    args = p.parse_args(argv)
+    SMI = args.smi
+    results = serve_group(args.serve_group.split(","))
+    with open(args.results, "wb") as f:
+        pickle.dump(results, f)
+    return 0
+
+
+def phase_serve():
+    """The configurations in child processes (serve_processes), so that
+    no DeepSeek window shares its process with another model's profiler
+    sessions (ROADMAP C 9); a child that fails fails the phase."""
+    import pickle
+    import tempfile
+    results = {}
+    for names in serve_processes():
+        with tempfile.TemporaryDirectory(prefix="gllm_serve_") as tmp:
+            path = os.path.join(tmp, "results.pkl")
+            cmd = [sys.executable, os.path.abspath(__file__),
+                   "--serve-group", ",".join(names), "--results", path,
+                   "--smi", SMI]
+            if HOLDERS:
+                cmd.append("--memory-history")
+            t0 = time.monotonic()
+            rc = subprocess.run(cmd).returncode
+            if rc != 0:
+                raise SystemExit(f"[serve] the process serving {names} "
+                                 f"ended with code {rc}")
+            with open(path, "rb") as f:
+                results.update(pickle.load(f))
+        log(f"[serve] {', '.join(names)} served in a child process in "
+            f"{time.monotonic() - t0:.1f} s")
     ratio = results["int8"]["pages"] / results["bf16"]["pages"]
     log(f"[serve] KV pages from the same memory_util: bf16 "
         f"{results['bf16']['pages']}, int8 {results['int8']['pages']} "
@@ -2974,7 +3167,8 @@ def phase_serve():
     log("[serve] summary: config, graph tok/s runs, eager tok/s runs, "
         "overlap tok/s runs, multi tok/s runs, slot tok/s runs, absorb "
         "tok/s runs, graphs, warmup s, capture s, pool MiB, KV pages")
-    for name, r in results.items():
+    for name in SERVE:
+        r = results[name]
         log(f"[serve] {name}: {r['rates']} {r['eager_rates']} "
             f"{r['overlap_rates']} {r['multi_rates']} {r['slot_rates']} "
             f"{r['absorb_rates']} {r['graphs']} "
@@ -3004,7 +3198,7 @@ def profile_window(llm, name, staggered=False):
     the share spent waiting in ``collect`` (each wait marked too)."""
     from bisect import bisect_right
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
     from gllm_tpu_torch import SamplingParams
     from gllm_tpu_torch.obs.steptrace import TRACE
     rng = np.random.default_rng(SEED + 1)
@@ -3044,8 +3238,7 @@ def profile_window(llm, name, staggered=False):
     runner.step_async, runner.step_multi = marked, marked_block
     runner.collect = waited
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             mark = TRACE.mark()
             t0 = time.monotonic()
             serve_window()
@@ -4032,7 +4225,7 @@ def extras_launch_calls(llm, prompts, params):
     after the same run unprofiled (whose keys it captures first):
     (calls a dispatch, dispatches)."""
     from bisect import bisect_right
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
     runner = llm.runner
     step_async = runner.step_async
 
@@ -4045,8 +4238,7 @@ def extras_launch_calls(llm, prompts, params):
     llm.generate(prompt_token_ids=prompts, sampling_params=short)
     runner.step_async = marked
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             llm.generate(prompt_token_ids=prompts, sampling_params=short)
     finally:
         del runner.step_async
@@ -4282,7 +4474,272 @@ def phase_tracing():
             "summary": summary}
 
 
-# ---- 9. http -------------------------------------------------------------
+# ---- 9. checkpoint -------------------------------------------------------
+
+# the checkpoints the phase writes and loads back: (name, the model, its
+# published config.json keys): Llama-3.2-1B whole, Qwen3-30B-A3B at full
+# width with its depth cut to 2 of 48 layers (its 48 would not fit twice
+# on the card: the dummy engine's weights are freed before the load, but
+# the phase keeps a host copy of them to compare with)
+CKPT_QWEN_LAYERS = 2
+# the loaded engine's KV pages may differ from the dummy engine's by this
+# many (the same free memory, sized the same way)
+CKPT_PAGES_SLACK = 16
+# safetensors dtype names of the torch dtypes the writer takes
+ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+
+
+def llama_hf():
+    """Llama-3.2-1B as the config.json keys ``llama_3_2_1b`` stands for."""
+    c = llama_3_2_1b()
+    return dict(architectures=[c.architecture], vocab_size=c.vocab_size,
+                hidden_size=c.hidden_size, num_hidden_layers=c.num_layers,
+                num_attention_heads=c.num_heads,
+                num_key_value_heads=c.num_kv_heads, head_dim=c.head_dim,
+                intermediate_size=c.intermediate_size,
+                max_position_embeddings=c.max_position,
+                rope_theta=c.rope_theta, rms_norm_eps=c.rms_norm_eps,
+                tie_word_embeddings=c.tie_word_embeddings, hidden_act="silu")
+
+
+def hf_tensors(params, cfg):
+    """The checkpoint tensors of a dense or MoE family model's port
+    parameters, named and shaped as HF checkpoints hold them ([out, in]
+    projections): (name, a view of the device tensor), in order."""
+    D = cfg.head_dim
+    q, kv = cfg.num_heads * D, cfg.num_kv_heads * D
+    lp = params["layers"]
+    out = [("model.embed_tokens.weight", params["embed"])]
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        qkv = lp["qkv_proj"][i]
+        out += [(p + "self_attn.q_proj.weight", qkv[:, :q].t()),
+                (p + "self_attn.k_proj.weight", qkv[:, q:q + kv].t()),
+                (p + "self_attn.v_proj.weight", qkv[:, q + kv:].t()),
+                (p + "self_attn.o_proj.weight", lp["o_proj"][i].t()),
+                (p + "input_layernorm.weight", lp["input_norm"][i]),
+                (p + "post_attention_layernorm.weight",
+                 lp["post_attn_norm"][i])]
+        if "q_norm" in lp:
+            out += [(p + "self_attn.q_norm.weight", lp["q_norm"][i]),
+                    (p + "self_attn.k_norm.weight", lp["k_norm"][i])]
+        if "router" in lp:
+            out.append((p + "mlp.gate.weight", lp["router"][i].t()))
+            n = lp["w_gate_up"].shape[-1] // 2
+            for e in range(lp["w_gate_up"].shape[1]):
+                x = p + f"mlp.experts.{e}."
+                gu = lp["w_gate_up"][i, e]
+                out += [(x + "gate_proj.weight", gu[:, :n].t()),
+                        (x + "up_proj.weight", gu[:, n:].t()),
+                        (x + "down_proj.weight", lp["w_down"][i, e].t())]
+        else:
+            n = lp["gate_up_proj"].shape[-1] // 2
+            gu = lp["gate_up_proj"][i]
+            out += [(p + "mlp.gate_proj.weight", gu[:, :n].t()),
+                    (p + "mlp.up_proj.weight", gu[:, n:].t()),
+                    (p + "mlp.down_proj.weight", lp["down_proj"][i].t())]
+    out.append(("model.norm.weight", params["final_norm"]))
+    if "lm_head" in params:
+        out.append(("lm_head.weight", params["lm_head"].t()))
+    return out
+
+
+def write_safetensors(path, tensors):
+    """One safetensors file of ``tensors`` ((name, tensor) pairs, any
+    device), written with this script's own writer: the 8-byte
+    little-endian header length, the JSON header, then each tensor's
+    bytes, C-ordered, one tensor on the host at a time. Returns its
+    bytes."""
+    header, offset = {}, 0
+    for name, t in tensors:
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    header["__metadata__"] = {"format": "pt"}
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for _, t in tensors:
+            host = t.contiguous().cpu()
+            f.write(memoryview(host.reshape(-1).view(torch.uint8).numpy()))
+    return 8 + len(blob) + offset
+
+
+def write_checkpoint(path, hf, tensors, shards=2):
+    """config.json, ``shards`` safetensors files and their index."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    weight_map, nbytes = {}, 0
+    per = -(-len(tensors) // shards)
+    for k in range(shards):
+        fname = f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+        part = tensors[k * per:(k + 1) * per]
+        nbytes += write_safetensors(os.path.join(path, fname), part)
+        weight_map.update({name: fname for name, _ in part})
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": nbytes},
+                   "weight_map": weight_map}, f)
+    return nbytes
+
+
+def rss_bytes():
+    """This process's resident set (VmRSS of /proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class RssPeak:
+    """The largest resident set seen while the ``with`` block runs,
+    sampled every 2 ms on a thread, less the one at its start."""
+
+    def __enter__(self):
+        import threading
+        self.base = self.peak = rss_bytes()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.002):
+                self.peak = max(self.peak, rss_bytes())
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
+        self.growth = self.peak - self.base
+
+
+def checkpoint_round_trip(name, model, hf, prompts, params):
+    """The dummy engine of ``model`` (its KV pool sized from free memory)
+    serves ``prompts``, its weights go into a checkpoint of two shards
+    under a temporary directory, the engine is freed, and an engine built
+    from that directory with load_format="auto" must hold the same
+    tensors and serve the same greedy streams, and get KV pages within
+    CKPT_PAGES_SLACK of a dummy engine built after it; returns its
+    numbers."""
+    import shutil
+    import tempfile
+    from gllm_tpu_torch import EngineConfig, LLM
+    tag = f"[checkpoint {name}]"
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_dummy = torch.cuda.mem_get_info()[0]
+    dummy = LLM(model_cfg=model(), config=EngineConfig(
+        load_format="dummy", dtype="bfloat16", seed=SEED))
+    dummy_sizing = dummy.runner.sizing
+    want = [o.output_token_ids for o in dummy.generate(
+        prompt_token_ids=prompts, sampling_params=params)]
+    pages = dummy.runner.num_pages
+    tmp = tempfile.mkdtemp(prefix="gllm_ckpt_")
+    try:
+        tensors = hf_tensors(dummy.runner.params, dummy.model_cfg)
+        largest = max(t.numel() * t.element_size() for _, t in tensors)
+        t0 = time.monotonic()
+        nbytes = write_checkpoint(tmp, hf, tensors)
+        write_s = time.monotonic() - t0
+        host = {g: ({k: t.cpu() for k, t in x.items()} if isinstance(x, dict)
+                    else x.cpu()) for g, x in dummy.runner.params.items()}
+        del dummy, tensors
+        gc.collect()
+        torch.cuda.empty_cache()
+        free_loaded = torch.cuda.mem_get_info()[0]
+        with RssPeak() as rss:
+            t0 = time.monotonic()
+            llm = LLM(config=EngineConfig(model=tmp, load_format="auto",
+                                          dtype="bfloat16", seed=SEED))
+            build_s = time.monotonic() - t0
+        stats = llm.runner.load_stats
+        assert llm.model_cfg == model(), f"{tag} config.json parsed apart"
+        log(f"{tag} {len(hf_tensors(llm.runner.params, llm.model_cfg))} "
+            f"tensors, {nbytes / 1e9:.3f} GB in 2 shards written in "
+            f"{write_s:.1f} s; loaded in {stats['seconds']:.2f} s "
+            f"({stats['bytes'] / 1e9:.3f} GB read, {stats['gbps']:.2f} GB/s;"
+            f" the files were just written, so the reads were warm: page "
+            f"cache), engine up in {build_s:.1f} s; peak host RSS growth "
+            f"{rss.growth / 2**30:.3f} GiB (largest tensor "
+            f"{largest / 2**30:.3f} GiB); parameters no tensor wrote "
+            f"{stats['unwritten']}; KV pages {llm.runner.num_pages} loaded, "
+            f"{pages} dummy; free before each engine {free_dummy} / "
+            f"{free_loaded} bytes (dummy / loaded), the pools sized from "
+            f"{dummy_sizing} / {llm.runner.sizing}; on {SMI}")
+        for g, x in host.items():
+            for k, t in (x.items() if isinstance(x, dict) else [(g, x)]):
+                got = (llm.runner.params[g][k] if isinstance(x, dict)
+                       else llm.runner.params[g])
+                assert got.dtype == t.dtype and torch.equal(got.cpu(), t), \
+                    f"{tag} loaded {g}.{k} differs from the dummy engine's"
+        del host
+        got = [o.output_token_ids for o in llm.generate(
+            prompt_token_ids=prompts, sampling_params=params)]
+        where = first_difference(got, want)
+        assert where is None and got == want, \
+            f"{tag} loaded engine's greedy streams differ at {where}"
+        assert stats["unwritten"] == [], f"{tag} {stats['unwritten']}"
+        assert rss.growth <= 2 * largest + 2**30, \
+            f"{tag} host RSS grew {rss.growth} bytes while loading"
+        tok = ("none: token-id I/O only (the JAX package's rule; "
+               + ("transformers imported, the checkpoint has no tokenizer "
+                  "files)" if "transformers" in sys.modules
+                  else "transformers does not import here)")
+               if llm.tokenizer is None else type(llm.tokenizer).__name__)
+        loaded_pages = llm.runner.num_pages
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the KV pages of a dummy engine built now, when the process has
+        # paid every first use (kernels loaded, library workspaces) that
+        # the first dummy engine's run paid after its pool was sized: the
+        # loaded engine was sized in the same state
+        again = LLM(model_cfg=model(), config=EngineConfig(
+            load_format="dummy", dtype="bfloat16", seed=SEED))
+        again_pages = again.runner.num_pages
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{tag} every tensor equals the dummy engine's; the 16 "
+            f"requests' greedy streams identical; tokenizer: {tok}; KV "
+            f"pages {loaded_pages} loaded, {again_pages} for a dummy engine "
+            f"built after it ({pages} for the first, sized before its run's "
+            f"first uses)")
+        assert abs(loaded_pages - again_pages) <= CKPT_PAGES_SLACK, \
+            f"{tag} KV pages {loaded_pages} against {again_pages}"
+        return dict(load_s=stats["seconds"], gbps=stats["gbps"],
+                    bytes=stats["bytes"], write_s=write_s,
+                    rss_growth=rss.growth, largest=largest,
+                    pages=loaded_pages, dummy_pages=again_pages,
+                    first_dummy_pages=pages, tokenizer=tok)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_checkpoint():
+    """Llama-3.2-1B (16 layers) and Qwen3-30B-A3B (CKPT_QWEN_LAYERS layers)
+    written as checkpoints from their dummy engines and loaded back."""
+    from gllm_tpu_torch import SamplingParams
+    out = {}
+    for name, model, hf in (
+            ("llama_3_2_1b", llama_3_2_1b, llama_hf()),
+            ("qwen3_30b_a3b",
+             lambda: qwen3_30b_a3b(num_hidden_layers=CKPT_QWEN_LAYERS),
+             dict(QWEN3_30B_A3B, num_hidden_layers=CKPT_QWEN_LAYERS))):
+        prompts, max_tokens = serving_workload(model().vocab_size)
+        params = [SamplingParams(temperature=0.0, max_tokens=m,
+                                 ignore_eos=True) for m in max_tokens]
+        out[name] = checkpoint_round_trip(name, model, hf, prompts, params)
+    return out
+
+
+# ---- 10. http -----------------------------------------------------------
 
 # the servers' engines: the smoke's absorb twin (the unified step under
 # overlap, persistent slots, blocks of 16 under on-device finish), and
@@ -4830,15 +5287,20 @@ def main():
         HOLDERS = 4
     # a fault in native code prints the Python stack it came from
     faulthandler.enable()
+    if "--serve-group" in sys.argv[1:]:
+        return serve_child(sys.argv[1:])
     t_start = time.monotonic()
     smi = SMI = phase_device()
     walls = {}
-    for name, phase in (("build", phase_build), ("kernels", phase_kernels),
-                        ("serve", phase_serve),
+    # serve (in child processes) before kernels: no DeepSeek window
+    # follows another model's profiler sessions (ROADMAP C 9)
+    for name, phase in (("build", phase_build), ("serve", phase_serve),
+                        ("kernels", phase_kernels),
                         ("reference", phase_reference),
                         ("spec", phase_spec),
                         ("sampling", phase_sampling),
                         ("tracing", phase_tracing),
+                        ("checkpoint", phase_checkpoint),
                         ("http", lambda: phase_http(walls["serve"][0]))):
         t0 = time.monotonic()
         walls[name] = (phase(), time.monotonic() - t0)

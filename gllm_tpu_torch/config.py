@@ -74,12 +74,14 @@ class ParallelConfig:
 logger = logging.getLogger(__name__)
 
 # Options of the JAX engine that this port does not implement yet, with
-# the value that means "off". validate() raises when one is set.
+# the value that means "off" and the ROADMAP item that ports it.
+# validate() raises when one is set.
 _UNPORTED = {
-    "quantization": None,
+    # weight quantization (gllm_tpu/ops/quant.py)
+    "quantization": (None, "A 10"),
     # the supervised in-process rebuild and its hard-stall trigger
-    "engine_recovery": False,
-    "watchdog_hard_stall_s": 0.0,
+    "engine_recovery": (False, "A 14"),
+    "watchdog_hard_stall_s": (0.0, "A 14"),
 }
 
 
@@ -92,6 +94,9 @@ class EngineConfig:
     max_model_len: int = 4096
     max_num_seqs: int = 256
     load_format: str = "auto"             # auto | dummy
+    # fetch a hub id that is not a local directory (off: loads are
+    # local-path-only, models/loader.py resolve_model_path)
+    allow_hub_download: bool = False
     # chain each pure-decode step off the previous step's sampled tokens
     # on the device, dispatched before those tokens reach the host
     # (engine/llm.py; docs/overlap_scheduling.md of the JAX package)
@@ -275,7 +280,8 @@ class EngineConfig:
             logger.warning(
                 "ondevice_finish/decode_chain_len have no effect without "
                 "overlap_scheduling: fused decode chains never form")
-        unported = [k for k, off in _UNPORTED.items()
+        unported = [f"{k} (ROADMAP {item})"
+                    for k, (off, item) in _UNPORTED.items()
                     if getattr(self, k) != off]
         p = self.parallel
         if p.pp != 1 or p.tp != 1 or p.dp != 1 or p.sp != 1 or p.enable_ep:

@@ -66,9 +66,12 @@ mixed, absorb, host-driven verify, with penalties, logit_bias or logprobs
 or without) replays the CUDA graph of its key (``runner/graphs.py``;
 warm them ahead of serving with ``llm.runner.warmup()``; a step with
 extras captures its key at first sight), but for a hybrid model's mixed
-step. Token ids in and out;
-a text prompt, its output text and stop strings need a tokenizer object
-(anything with ``encode``/``decode``) passed to the constructor. Stop
+step. A model directory (``config.model``) gives the config, the
+weights under ``load_format="auto"`` (``models/loader.py``) and, where
+``transformers`` imports, the tokenizer (JAX's rule, local files only);
+else token ids in and out, or a tokenizer object (anything with
+``encode``/``decode``) passed to the constructor for a text prompt, its
+output text and stop strings. Stop
 strings are matched on the host over the incrementally detokenized output
 as tokens commit; a sequence with stop strings rides no block and joins no
 hole, as in JAX; a drafted step commits several tokens, which the stop scan
@@ -258,13 +261,23 @@ class LLM:
         tokenizer=None,
         device=None,
     ):
-        """``model_cfg`` defaults to the one ``config.model``'s directory
-        describes (its ``config.json``). ``params`` (this port's layout,
-        see models/convert.py) defaults to dummy weights drawn from
-        ``config.seed``."""
+        """``config.model`` is a model directory (a hub id is fetched only
+        under ``allow_hub_download``); ``model_cfg`` defaults to the one its
+        ``config.json`` describes. ``params`` (this port's layout, see
+        models/convert.py) defaults to the directory's checkpoint
+        (``load_format="auto"``) or to dummy weights drawn from
+        ``config.seed``. ``tokenizer`` defaults to
+        ``transformers.AutoTokenizer`` of ``config.tokenizer`` or the model
+        directory, local files only, where that package imports and finds
+        one (``config.tokenizer=""`` asks for none); else token ids in and
+        out."""
         config = config or EngineConfig()
         config.validate()
         self.config = config
+        if config.model and not os.path.isdir(config.model):
+            from gllm_tpu_torch.models.loader import resolve_model_path
+            config.model = resolve_model_path(
+                config.model, allow_download=config.allow_hub_download)
         if model_cfg is None:
             if not config.model:
                 raise ValueError("pass model_cfg or config.model, a "
@@ -273,6 +286,13 @@ class LLM:
             model_cfg = from_hf_config(load_hf_config(config.model))
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer
+        if tokenizer is None and config.model and config.tokenizer != "":
+            try:
+                from transformers import AutoTokenizer
+                self.tokenizer = AutoTokenizer.from_pretrained(
+                    config.tokenizer or config.model, local_files_only=True)
+            except Exception:
+                logger.warning("no tokenizer loaded; token-id I/O only")
         self.device = resolve_device(device)
         self.runner = ModelRunner(config, model_cfg, self.device,
                                   params=params)
@@ -303,9 +323,9 @@ class LLM:
         self.scheduler.spec_fused = self.spec_fused
         self.spec_mult = config.spec_k + 1 if self.spec_fused else 1
         self.eos_token_ids = model_cfg.eos_token_ids
-        if not self.eos_token_ids and tokenizer is not None \
-                and getattr(tokenizer, "eos_token_id", None) is not None:
-            self.eos_token_ids = [tokenizer.eos_token_id]
+        if not self.eos_token_ids and self.tokenizer is not None \
+                and getattr(self.tokenizer, "eos_token_id", None) is not None:
+            self.eos_token_ids = [self.tokenizer.eos_token_id]
         self._next_seq_id = 0
         # dispatched entries not yet collected, oldest first
         self._in_flight: collections.deque = collections.deque()

@@ -6,11 +6,15 @@
     python -m gllm_tpu_torch.entrypoints.api_server --model DIR \\
         --load-format dummy [--device cpu] [--port 8000] ...
 
-``DIR`` holds the model's ``config.json``; the weights are drawn from
-``--seed`` (checkpoint weights and tokenizers are not loaded yet: send
-token-id prompts, or build an ``LLM`` with a tokenizer object and call
-:func:`serve`). The engine runs on the CUDA card unless ``--device cpu``
-asks for the CPU; with no card it raises at startup.
+``DIR`` holds the model's ``config.json`` and, under ``--load-format
+auto`` (the default), its checkpoint (``model.safetensors[.index.json]``
+or ``pytorch_model.bin[.index.json]``, ``models/loader.py``); ``dummy``
+draws the weights from ``--seed``. The tokenizer is ``--tokenizer`` or the
+model directory's, read with ``transformers`` where it imports (local
+files only); without one, send token-id prompts, or build an ``LLM`` with
+a tokenizer object and call :func:`serve`. The engine runs on the CUDA
+card unless ``--device cpu`` asks for the CPU; with no card it raises at
+startup.
 
 Routes: ``GET /health`` and ``/healthz`` (liveness, with the engine's
 health), ``/readyz`` (readiness: 503 with Retry-After when unhealthy,
@@ -692,19 +696,29 @@ class Handler(BaseHTTPRequestHandler):
 
     def _start_profiler(self):
         """A ``torch.profiler`` capture started on the engine thread (the
-        host's operators, and the card's kernels on CUDA)."""
+        host's operators, and the card's kernels on CUDA), after the card
+        has run everything queued on it: CUDA activity is switched on with
+        no replay in flight (ROADMAP C 9), and off the same way
+        (``_stop_profiler``)."""
+        import torch
         from torch.profiler import ProfilerActivity, profile
         st = self.state
+        device = st.llm.device
         acts = [ProfilerActivity.CPU]
-        if st.llm.device.type == "cuda":
+        if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         prof = profile(activities=acts)
-        st.engine.run_on_engine(prof.start)
+
+        def start():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            prof.start()
+        st.engine.run_on_engine(start)
         return prof
 
     def _stop_profiler(self, prof, trace_dir: str) -> str:
-        """Stop ``prof`` on the engine thread and write its Chrome trace
-        into ``trace_dir``; returns the file's path."""
+        """Stop ``prof`` on the engine thread, the card idle, and write its
+        Chrome trace into ``trace_dir``; returns the file's path."""
         import torch
         st = self.state
         device = st.llm.device
@@ -777,6 +791,7 @@ def build_engine_config(args) -> EngineConfig:
         max_model_len=args.max_model_len,
         max_num_seqs=args.max_num_seqs,
         load_format=args.load_format,
+        allow_hub_download=args.allow_hub_download,
         overlap_scheduling=args.overlap_scheduling,
         pipelined_loop=args.pipelined_loop,
         unified_step=args.unified_step,
@@ -832,9 +847,16 @@ def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="gllm-tpu OpenAI-compatible API server on PyTorch/CUDA")
     p.add_argument("--model", required=True,
-                   help="directory holding the model's config.json")
+                   help="model directory: config.json, and the checkpoint "
+                        "under --load-format auto")
     p.add_argument("--tokenizer", default=None,
-                   help="not supported yet: token-id prompts only")
+                   help="tokenizer directory (default the model's; read "
+                        "with transformers where it imports, local files "
+                        "only; else token-id prompts only)")
+    p.add_argument("--allow-hub-download", action="store_true",
+                   help="resolve a non-local model id via HF-hub snapshot "
+                        "download (file-lock serialized); default is "
+                        "local-path-only")
     p.add_argument("--served-model-name", default=None)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000,
@@ -848,8 +870,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-num-seqs", type=int, default=256)
     p.add_argument("--load-format", default="auto",
                    choices=["auto", "dummy"],
-                   help="dummy: weights drawn from --seed; auto (checkpoint "
-                        "weights) is not supported yet")
+                   help="auto: the model directory's checkpoint "
+                        "(safetensors, sharded or single, or .bin); dummy: "
+                        "weights drawn from --seed")
     p.add_argument("--schedule-method", default="chunked_prefill",
                    choices=["chunked_prefill", "token_throttling",
                             "split_pd"])
@@ -962,10 +985,6 @@ def _stop_on_sigterm(signum, frame):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = make_parser().parse_args(argv)
-    if args.tokenizer:
-        raise NotImplementedError(
-            "not supported by gllm_tpu_torch yet: --tokenizer (ROADMAP "
-            "A 7); send token-id prompts")
     t_start = time.monotonic()
     llm = LLM(config=build_engine_config(args), device=args.device)
     if not args.skip_warmup:

@@ -1,14 +1,16 @@
 """Model configuration, parsed from HF config.json dicts (counterpart of
-``gllm_tpu/models/config.py``: ``ModelConfig:16``, MLA and DeepSeek MoE
-fields ``:50-106``, ``from_hf_config:215``).
+``gllm_tpu/models/config.py``: ``ModelConfig:16``, the MoE fields
+``:55-66``, MLA and DeepSeek MoE fields ``:50-106``, ``from_hf_config:215``
+with its ChatGLM3 branch ``:244-270``).
 
-This port serves three families: the dense GQA decoder (Llama / Qwen2 /
-Qwen3 / GLM-class), DeepSeek V2/V3 (MLA latent KV + DeepSeekMoE, without
-DSA) and the hybrid Gated-DeltaNet family (Qwen3-Next / Qwen3.5; hybrid
-fields ``:137-175``, the ``from_hf_config`` branch ``:307-320``). The
-fields that mark the other families (other MoE architectures, DSA, vision
-towers) are kept so a config of such a model parses, and
-``ModelConfig.check_supported`` refuses it.
+This port serves four families: the dense GQA decoder (Llama / Qwen2 /
+Qwen3 / GLM-class / ChatGLM3), the Mixtral / Qwen2-MoE / Qwen3-MoE family
+(the dense decoder with routed experts, ``models/moe.py``), DeepSeek
+V2/V3 (MLA latent KV + DeepSeekMoE, without DSA) and the hybrid
+Gated-DeltaNet family (Qwen3-Next / Qwen3.5; hybrid fields ``:137-175``,
+the ``from_hf_config`` branch ``:307-320``). The fields that mark the
+other families (DSA, vision towers) are kept so a config of such a model
+parses, and ``ModelConfig.check_supported`` refuses it.
 """
 
 from __future__ import annotations
@@ -39,12 +41,17 @@ class ModelConfig:
     sandwich_norms: bool = False      # GLM4 post_self_attn/post_mlp norms
     eos_token_id: Any = None
     hidden_act: str = "silu"
-    # MoE (DeepSeekMoE here; check_supported refuses experts on any other
-    # architecture)
+    # MoE (the MoE family, DeepSeekMoE and the hybrid family's sparse
+    # block; check_supported refuses experts on any other architecture)
     num_experts: int = 0
     num_experts_per_tok: int = 0
     moe_intermediate_size: int = 0
     norm_topk_prob: bool = True
+    # the MoE family's mixed stacks (Qwen2-MoE / Qwen3-MoE): a layer runs
+    # the routed block unless listed in mlp_only_layers or off the
+    # decoder_sparse_step stride (models/moe.py moe_layer_mask)
+    decoder_sparse_step: int = 1
+    mlp_only_layers: Tuple[int, ...] = ()
     # Qwen-style sparse block (hybrid family): one shared expert of this
     # width beside the routed ones, gated by sigmoid(x @ gate)
     shared_expert_intermediate_size: int = 0
@@ -129,14 +136,16 @@ class ModelConfig:
         unported = []
         deepseek = self.architecture in DEEPSEEK_ARCHS
         hybrid = self.architecture in HYBRID_ARCHS
-        if self.num_experts and not (deepseek or hybrid):
+        moe = self.architecture in MOE_ARCHS
+        if self.num_experts and not (deepseek or hybrid or moe):
             unported.append(f"MoE ({self.architecture})")
         if self.kv_lora_rank and not deepseek:
             unported.append(f"MLA ({self.architecture})")
         if deepseek and not self.kv_lora_rank:
             unported.append(f"{self.architecture} without kv_lora_rank")
         if self.use_dsa:
-            unported.append("DeepSeek sparse attention (index_topk)")
+            unported.append("DeepSeek sparse attention (index_topk, "
+                            "ROADMAP A 11)")
         if self.use_hybrid and not hybrid:
             unported.append(f"hybrid linear attention ({self.architecture})")
         if hybrid:
@@ -159,6 +168,11 @@ class ModelConfig:
                 + ", ".join(unported))
 
 
+# the MoE family (gllm_tpu/models/registry.py:144-148)
+MOE_ARCHS = ("MixtralForCausalLM", "Qwen2MoeForCausalLM",
+             "Qwen3MoeForCausalLM")
+# ChatGLM3's legacy config and checkpoint layout (the dense family)
+CHATGLM_ARCHS = ("ChatGLMModel", "ChatGLMForConditionalGeneration")
 # DeepSeek V2/V3 (MLA + DeepSeekMoE); V3.2 (DSA) and Kimi stay refused
 DEEPSEEK_ARCHS = ("DeepseekV2ForCausalLM", "DeepseekV3ForCausalLM")
 # the hybrid GDN family (gllm_tpu/models/registry.py:166-172)
@@ -176,12 +190,39 @@ def _eos_tuple(v) -> Optional[Tuple[int, ...]]:
 
 
 def from_hf_config(hf: Dict[str, Any]) -> ModelConfig:
-    """Parse a dense decoder's, a DeepSeek model's or a hybrid model's HF
-    config.json dict into a ModelConfig."""
+    """Parse a dense decoder's (ChatGLM3's legacy keys too), an MoE
+    model's, a DeepSeek model's or a hybrid model's HF config.json dict
+    into a ModelConfig."""
     arch = (hf.get("architectures")
             or (hf.get("text_config") or {}).get("architectures")
             or ["LlamaForCausalLM"])[0]
     extra = dict(layer_types=tuple(hf.get("layer_types", ()) or ()))
+    if arch in CHATGLM_ARCHS:
+        # ChatGLM3: kv_channels = head_dim, rotary over head_dim / 2
+        # interleaved, fused query_key_value / dense_h_to_4h (the loader's
+        # chatglm_rules)
+        n_heads = hf["num_attention_heads"]
+        hf = {
+            "architectures": [arch],
+            "vocab_size": hf["padded_vocab_size"],
+            "hidden_size": hf["hidden_size"],
+            "num_hidden_layers": hf["num_layers"],
+            "num_attention_heads": n_heads,
+            "num_key_value_heads": (hf.get("multi_query_group_num", n_heads)
+                                    if hf.get("multi_query_attention", False)
+                                    else n_heads),
+            "head_dim": hf.get("kv_channels",
+                               hf["hidden_size"] // n_heads),
+            "intermediate_size": hf["ffn_hidden_size"],
+            "rms_norm_eps": hf.get("layernorm_epsilon", 1e-5),
+            "rope_theta": 10000.0 * hf.get("rope_ratio", 1.0),
+            "max_position_embeddings": hf.get("seq_length", 8192),
+            "attention_bias": bool(hf.get("add_qkv_bias", False)
+                                   or hf.get("add_bias_linear", False)),
+            "partial_rotary_factor": 0.5,
+            "tie_word_embeddings": False,
+            "eos_token_id": hf.get("eos_token_id"),
+        }
     if arch in HYBRID_ARCHS:
         # Real Qwen3.5 checkpoints use the *ForConditionalGeneration arch
         # string and may nest the LM under text_config.
@@ -203,7 +244,9 @@ def from_hf_config(hf: Dict[str, Any]) -> ModelConfig:
     qk_norm = arch in ("Qwen3ForCausalLM", "Qwen3MoeForCausalLM") + \
         HYBRID_ARCHS
     is_glm4 = arch in ("Glm4ForCausalLM",)
-    is_glm = arch in ("GlmForCausalLM",)
+    # GLM-4 base and ChatGLM3: interleaved partial rotary without the
+    # sandwich norms
+    is_glm = arch in ("GlmForCausalLM",) + CHATGLM_ARCHS
     # HF's Qwen2 attention is bias=True unconditionally, whatever
     # config.json says.
     if arch in ("Qwen2ForCausalLM", "Qwen2MoeForCausalLM"):
@@ -237,6 +280,8 @@ def from_hf_config(hf: Dict[str, Any]) -> ModelConfig:
         num_experts_per_tok=hf.get("num_experts_per_tok", 0) or 0,
         moe_intermediate_size=hf.get("moe_intermediate_size", 0) or 0,
         norm_topk_prob=hf.get("norm_topk_prob", True),
+        decoder_sparse_step=hf.get("decoder_sparse_step", 1),
+        mlp_only_layers=tuple(hf.get("mlp_only_layers", []) or []),
         shared_expert_intermediate_size=hf.get(
             "shared_expert_intermediate_size", 0) or 0,
         q_lora_rank=hf.get("q_lora_rank", 0) or 0,

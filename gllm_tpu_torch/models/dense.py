@@ -24,7 +24,7 @@ the flat [L*P, Hkv] view with the same ``page_offset``.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -80,9 +80,20 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
     ``torch.Generator`` (so they never equal the JAX package's draws;
     parity tests carry JAX params across with ``models/convert.py``), one
     float32 draw a tensor through ``models/dummy.py``'s scratch."""
+    draws = DummyDraws(seed, dtype, device)
+    params = ask_params(cfg, draws)
+    draws.draw()
+    return params
+
+
+def ask_params(cfg: ModelConfig, draws: DummyDraws,
+               mlp: bool = True) -> Params:
+    """The dense decoder's weights, asked of ``draws`` (filled when it
+    draws); ``mlp`` False leaves the dense MLP out (an MoE stack whose
+    every layer is routed, ``models/moe.py``)."""
     L, H, D = cfg.num_layers, cfg.hidden_size, cfg.head_dim
     Hq, Hkv, I = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
-    draws = DummyDraws(seed, dtype, device)
+    dtype, device = draws.dtype, draws.device
 
     def w(shape, scale):
         return draws.normal(shape, scale, per_matrix=False)
@@ -97,9 +108,10 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
         "qkv_proj": w((L, H, qkv), scale),
         "o_proj": w((L, Hq * D, H), (Hq * D) ** -0.5),
         "post_attn_norm": ones(L, H),
-        "gate_up_proj": w((L, H, 2 * I), scale),
-        "down_proj": w((L, I, H), I ** -0.5),
     }
+    if mlp:
+        layers["gate_up_proj"] = w((L, H, 2 * I), scale)
+        layers["down_proj"] = w((L, I, H), I ** -0.5)
     if cfg.attention_bias:
         layers["qkv_bias"] = torch.zeros((L, qkv), dtype=dtype,
                                          device=device)
@@ -114,7 +126,6 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
                       "final_norm": ones(H)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((H, cfg.vocab_size), scale)
-    draws.draw()
     return params
 
 
@@ -159,11 +170,14 @@ def _mlp(lp, x):
 
 
 def forward(params: Params, kv: KVCache, batch: StepBatch, cfg: ModelConfig,
-            *, cos_sin: torch.Tensor, max_q_len: int, impl: str = "legacy"
+            *, cos_sin: torch.Tensor, max_q_len: int, impl: str = "legacy",
+            mlp_fn: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run every layer; returns (hidden, residual). The KV cache is written
     in place (the JAX version returns a new cache under buffer donation).
-    ``impl`` picks the attention kernels (ops/attention.py)."""
+    ``impl`` picks the attention kernels (ops/attention.py). ``mlp_fn(li,
+    lp, x)`` swaps the MLP half of layer ``li`` (the MoE family passes its
+    routed block, ``models/moe.py``)."""
     hidden = params["embed"][batch.token_ids.long()]
     residual = torch.zeros_like(hidden)
     layers = params["layers"]
@@ -178,7 +192,8 @@ def forward(params: Params, kv: KVCache, batch: StepBatch, cfg: ModelConfig,
             attn_out = rms_norm(attn_out, lp["post_self_attn_norm"], eps)
         normed2, residual = fused_add_rms_norm(attn_out, residual,
                                                lp["post_attn_norm"], eps)
-        hidden = _mlp(lp, normed2)
+        hidden = (mlp_fn(li, lp, normed2) if mlp_fn is not None
+                  else _mlp(lp, normed2))
         if cfg.sandwich_norms:
             hidden = rms_norm(hidden, lp["post_mlp_norm"], eps)
     return hidden, residual

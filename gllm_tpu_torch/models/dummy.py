@@ -14,6 +14,10 @@ allocations did: later weights took parts of its freed segments, and the
 rest stayed stranded beside them, memory the KV pool is sized without
 (0.57 GiB under Qwen3-Next's weights, 1.3 GiB under Llama-3.2-1B's on the
 H100).
+
+On the ``meta`` device nothing is drawn: ``init_params(cfg, 0, dtype,
+"meta")`` gives a family's parameter shapes and dtypes, in order, without
+memory (the checkpoint loader's template, ``models/loader.py``).
 """
 
 from __future__ import annotations
@@ -27,8 +31,10 @@ class DummyDraws:
     def __init__(self, seed: int, dtype: torch.dtype, device):
         self.dtype = dtype
         self.device = device
-        self.gen = torch.Generator(device=device)
-        self.gen.manual_seed(seed)
+        self.gen = None
+        if torch.device(device).type != "meta":
+            self.gen = torch.Generator(device=device)
+            self.gen.manual_seed(seed)
         self._pending: List[Tuple[torch.Tensor, float, bool]] = []
 
     def normal(self, shape, scale: float, per_matrix: bool = True
@@ -46,7 +52,7 @@ class DummyDraws:
                  for m in (out.view(-1, *out.shape[-2:]) if per_matrix
                            else (out,))]
         self._pending = []
-        if not units:
+        if not units or self.gen is None:
             return
         scratch = torch.empty(max(m.numel() for m, _ in units),
                               dtype=torch.float32, device=self.device)

@@ -351,3 +351,110 @@ def max_gdn_cells(max_rows: int, max_q: int) -> int:
     """Padded cells of the largest group ``_gdn_layer`` forms for a batch
     of up to ``max_rows`` rows and ``max_q`` tokens a row."""
     return min(max_rows * max_q, max(GDN_MAX_CELLS, max_q))
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint loading
+# ---------------------------------------------------------------------------
+
+def hybrid_rules(cfg: ModelConfig):
+    """Qwen3-Next's checkpoint names → the JAX leaves of
+    ``gllm_tpu/models/hybrid.py`` ``hybrid_rules:384`` (``models/loader.py``
+    writes each into the port's layout): a layer index maps to its
+    per-kind index (the i-th attention or GDN layer), layers past the
+    config's depth are skipped, and the zero-centred norms take ``+ 1``
+    before the cast to the leaf's dtype, in the dtype JAX's numpy sum
+    takes: float32 for a bfloat16 file (ml_dtypes promotes bfloat16 plus
+    a Python float to float32), the file's own dtype for any other."""
+    attn_index, lin_index = {}, {}
+    for i, t in enumerate(cfg.layer_types):
+        if t == "full_attention":
+            attn_index[i] = len(attn_index)
+        else:
+            lin_index[i] = len(lin_index)
+
+    def plus1(leaf_name):
+        # Qwen3-Next's RMSNorm scales by (1 + weight): fold the offset into
+        # the stored weight so the standard rms_norm applies
+        return lambda t: {leaf_name: (t.float() if t.dtype == torch.bfloat16
+                                      else t) + 1.0}
+
+    attn_leaves = {
+        "self_attn.q_proj.weight": ("q_proj", "t"),
+        "self_attn.k_proj.weight": ("k_proj", "t"),
+        "self_attn.v_proj.weight": ("v_proj", "t"),
+        "self_attn.o_proj.weight": ("o_proj", "t"),
+        "self_attn.q_norm.weight": ("__multi__", plus1("q_norm")),
+        "self_attn.k_norm.weight": ("__multi__", plus1("k_norm")),
+    }
+    gdn_leaves = {
+        "linear_attn.in_proj_qkvz.weight": ("in_qkvz", "t"),
+        "linear_attn.in_proj_ba.weight": ("in_ba", "t"),
+        "linear_attn.dt_bias": ("dt_bias", None),
+        "linear_attn.A_log": ("a_log", None),
+        "linear_attn.norm.weight": ("gdn_norm", None),
+        "linear_attn.out_proj.weight": ("out_proj", "t"),
+    }
+    mlp_leaves = {
+        "input_layernorm.weight": ("__multi__", plus1("input_norm")),
+        "post_attention_layernorm.weight": ("__multi__",
+                                            plus1("post_attn_norm")),
+        "mlp.gate_proj.weight": ("gate_proj", "t"),
+        "mlp.up_proj.weight": ("up_proj", "t"),
+        "mlp.down_proj.weight": ("down_proj", "t"),
+        "mlp.gate.weight": ("router", "t"),
+        "mlp.shared_expert.gate_proj.weight": ("shared_gate_proj", "t"),
+        "mlp.shared_expert.up_proj.weight": ("shared_up_proj", "t"),
+        "mlp.shared_expert.down_proj.weight": ("shared_down_proj", "t"),
+        "mlp.shared_expert_gate.weight": ("shared_expert_gate", "t"),
+    }
+    expert_leaves = {
+        "gate_proj.weight": ("w_gate", "t"),
+        "up_proj.weight": ("w_up", "t"),
+        "down_proj.weight": ("w_down", "t"),
+    }
+
+    def conv_tf(t):
+        # HF Conv1d weight [C, 1, K] → [C, K]
+        return {"conv_w": t.reshape(t.shape[0], t.shape[-1])}
+
+    def rule(name: str):
+        if name == "model.embed_tokens.weight":
+            return (("embed",), None, None)
+        if name == "model.norm.weight":
+            return (("__multi__",), None, plus1("final_norm"))
+        if name == "lm_head.weight":
+            return (None if cfg.tie_word_embeddings
+                    else (("lm_head",), None, "t"))
+        if not name.startswith("model.layers."):
+            return None
+        idx_s, _, leaf = name[len("model.layers."):].partition(".")
+        i = int(idx_s)
+        if i >= cfg.num_layers:
+            return None
+        if leaf == "linear_attn.conv1d.weight":
+            return (("gdn_layers", "__multi__"), lin_index[i], conv_tf)
+        if leaf in attn_leaves:
+            target, tf = attn_leaves[leaf]
+            return (("attn_layers", target), attn_index[i], tf)
+        if leaf in gdn_leaves:
+            target, tf = gdn_leaves[leaf]
+            return (("gdn_layers", target), lin_index[i], tf)
+        if leaf in mlp_leaves:
+            target, tf = mlp_leaves[leaf]
+            return (("mlp_layers", target), i, tf)
+        if leaf.startswith("mlp.experts."):
+            e_s, _, el = leaf[len("mlp.experts."):].partition(".")
+            if el in expert_leaves:
+                target, tf = expert_leaves[el]
+                return (("mlp_layers", target), (i, int(e_s)), tf)
+        return None
+
+    return rule
+
+
+def load_params(model_dir: str, cfg: ModelConfig, dtype: torch.dtype,
+                device):
+    from gllm_tpu_torch.models.loader import load_params as _load
+    return _load(model_dir, cfg, init_params, hybrid_rules(cfg), dtype,
+                 device)

@@ -1,12 +1,21 @@
-"""Routed experts shared by the MoE families; counterpart of
-``gllm_tpu/models/moe.py`` (``select_experts:52``, ``moe_mlp:66``).
+"""The Mixtral / Qwen2-MoE / Qwen3-MoE family, and the routed experts the
+MoE families share; counterpart of ``gllm_tpu/models/moe.py``
+(``moe_layer_mask:39``, ``select_experts:52``, ``moe_mlp:66``,
+``init_params:138``, ``forward:175``).
 
 - ``grouped_experts``: the routed product over expert-sorted rows, which
-  DeepSeekMoE (``models/deepseek.py``) and the Qwen-style sparse block of
-  the hybrid family both call.
-- ``select_experts`` and ``moe_mlp``: the Qwen-style block (Qwen2-MoE,
-  Qwen3-Next): softmax → top-k → optional renormalisation, the routed
-  product, and a shared expert gated by ``sigmoid(x @ shared_expert_gate)``.
+  DeepSeekMoE (``models/deepseek.py``), the Qwen-style sparse block of
+  the hybrid family and this family all call.
+- ``select_experts`` and ``moe_mlp``: the Qwen-style block (Mixtral,
+  Qwen2-MoE, Qwen3-MoE, Qwen3-Next): softmax → top-k → optional
+  renormalisation, the routed product, and a shared expert gated by
+  ``sigmoid(x @ shared_expert_gate)``.
+- The family's model: ``dense.forward`` with the routed block as the MLP
+  of each layer that ``moe_layer_mask`` marks. A mixed stack (Qwen2-MoE /
+  Qwen3-MoE ``mlp_only_layers`` or ``decoder_sparse_step``) keeps both
+  MLP variants stacked for every layer, as JAX's scan needs them; here
+  the loop over layers takes the flag as a static Python branch (a CUDA
+  graph captures the branch taken), so no ``moe_mask`` leaf is kept.
 
 Experts are stacked [E, H, 2I] (gate|up fused, ``w_gate_up``) and
 [E, I, H] (``w_down``). JAX's ``ragged_dot`` is no Pallas kernel, so the
@@ -25,8 +34,12 @@ from typing import Tuple
 
 import torch
 
+from gllm_tpu_torch.models import dense
 from gllm_tpu_torch.models.config import ModelConfig
+from gllm_tpu_torch.models.dummy import DummyDraws
 from gllm_tpu_torch.ops.layers import silu_and_mul
+
+Params = dense.Params
 
 
 def grouped_experts(x: torch.Tensor, weights: torch.Tensor,
@@ -101,3 +114,63 @@ def moe_mlp(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         gate = torch.sigmoid((x @ lp["shared_expert_gate"]).float())
         out = out + shared * gate.to(shared.dtype)
     return out.to(x.dtype)
+
+
+def moe_layer_mask(cfg: ModelConfig) -> Tuple[bool, ...]:
+    """A flag a layer: the routed block unless the layer is listed in
+    ``mlp_only_layers`` or falls off the ``decoder_sparse_step`` stride
+    ((layer + 1) % step != 0), HF Qwen2/Qwen3-MoE semantics."""
+    step = cfg.decoder_sparse_step
+    return tuple(i not in cfg.mlp_only_layers
+                 and (step <= 1 or (i + 1) % step == 0)
+                 for i in range(cfg.num_layers))
+
+
+def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype,
+                device) -> Params:
+    """The dense decoder's weights (its MLP only in a mixed stack, where
+    every layer carries both variants, as JAX's) and each layer's router
+    [L, H, E], experts ``w_gate_up`` [L, E, H, 2I] and ``w_down`` [L, E, I,
+    H], and the shared expert where the config has one; drawn in float32
+    one matrix at a time into tensors of ``dtype`` allocated up front
+    (``models/dummy.py``: Qwen3-30B-A3B's experts are 1.2 GB a layer in
+    bf16)."""
+    draws = DummyDraws(seed, dtype, device)
+    params = dense.ask_params(cfg, draws,
+                              mlp=not all(moe_layer_mask(cfg)))
+    L, H, E = cfg.num_layers, cfg.hidden_size, cfg.num_experts
+    I = cfg.moe_intermediate_size or cfg.intermediate_size
+    scale = H ** -0.5
+    lp = params["layers"]
+    lp["router"] = draws.normal((L, H, E), scale)
+    lp["w_gate_up"] = draws.normal((L, E, H, 2 * I), scale)
+    lp["w_down"] = draws.normal((L, E, I, H), I ** -0.5)
+    SI = cfg.shared_expert_intermediate_size
+    if SI:
+        lp["shared_gate_up_proj"] = draws.normal((L, H, 2 * SI), scale)
+        lp["shared_down_proj"] = draws.normal((L, SI, H), SI ** -0.5)
+        lp["shared_expert_gate"] = draws.normal((L, H, 1), scale)
+    draws.draw()
+    return params
+
+
+def forward(params: Params, kv: dense.KVCache, batch, cfg: ModelConfig,
+            *, cos_sin: torch.Tensor, max_q_len: int, impl: str = "legacy"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``dense.forward`` with the routed block as the MLP of every layer
+    ``moe_layer_mask`` marks, the dense MLP elsewhere."""
+    mask = moe_layer_mask(cfg)
+
+    def mlp_fn(li, lp, x):
+        if mask[li]:
+            return moe_mlp(lp, x, cfg)
+        return dense._mlp(lp, x)
+    return dense.forward(params, kv, batch, cfg, cos_sin=cos_sin,
+                         max_q_len=max_q_len, impl=impl, mlp_fn=mlp_fn)
+
+
+compute_logits = dense.compute_logits
+compute_full_logits = dense.compute_full_logits
+make_rope_table = dense.make_rope_table
+init_kv_cache = dense.init_kv_cache
+kv_bytes_per_page = dense.kv_bytes_per_page

@@ -3,7 +3,14 @@ of ``gllm_tpu/runner/runner.py``: ``ModelRunner.__init__:273``,
 ``reset_page_scales:136``, ``_kv_bytes_per_page:570``,
 ``determine_num_pages:614``, ``_build_step_fn:650``,
 ``_apply_scale_resets:923``, ``step_multi:1291``, ``step:1845``; the
-hybrid slot pool ``:414-433``, ``_ssm_pool_bytes:603``).
+hybrid slot pool ``:414-433``, ``_ssm_pool_bytes:603``; the weight load
+``:357-389``).
+
+Weights: given (``params``), drawn from ``config.seed``
+(``load_format="dummy"``) or loaded from the checkpoint in
+``config.model`` by the family's rules straight onto the runner's device
+(``models/loader.py``; ``load_stats`` keeps the load's seconds, bytes and
+GB/s).
 
 A step: build the batch on the host, copy it over in one transfer into
 the runner's one device buffer, run forward → logits → sample, and copy
@@ -28,8 +35,8 @@ prefill chunk, chunks with decode rows, an absorb) and a host-driven
 verify step alike, with or without extras. What stays op by op: a hybrid
 model's mixed step (A 9), and every step under ``enforce_eager``. On the
 CPU the same static-buffer body runs uncaptured.
-The model family (dense, DeepSeek's MLA + MoE, or the hybrid GDN family)
-comes from ``models/registry.py``. A hybrid model keeps its GDN state in
+The model family (dense, the Mixtral / Qwen-MoE family, DeepSeek's MLA +
+MoE, or the hybrid GDN family) comes from ``models/registry.py``. A hybrid model keeps its GDN state in
 slot pools of ``1 + max_num_seqs`` slots (slot 0: the padding dummy);
 the slots freed since the last step ride the step's one upload and are
 zeroed (``index_fill_``) before its forward.
@@ -296,15 +303,21 @@ class ModelRunner:
         # the engine's memory manager, whose minted pages an int8 cache
         # resets (set by the engine)
         self.memory_manager = None
+        # the checkpoint load's numbers (seconds, bytes, GB/s, tensors,
+        # parameters no tensor wrote); None for dummy or given weights
+        self.load_stats = None
+        t_load = time.monotonic()
         if params is not None:
             self.params = params
         elif config.load_format == "dummy" or not config.model:
             self.params = self.model.init_params(model_cfg, config.seed,
                                                  self.dtype, self.device)
         else:
-            raise NotImplementedError(
-                "gllm_tpu_torch loads no checkpoint weights yet (ROADMAP "
-                "A 7): use load_format='dummy' or pass params")
+            logger.info("loading weights from %s", config.model)
+            self.params, self.load_stats = self.model.load_params(
+                config.model, model_cfg, self.dtype, self.device)
+        logger.info("[startup] phase=weight_load seconds=%.2f",
+                    time.monotonic() - t_load)
         self.cos_sin = self.model.make_rope_table(model_cfg, self.device)
         self.hybrid = self.model.family == "hybrid"
         # hybrid: one GDN state slot per running sequence, and slot 0

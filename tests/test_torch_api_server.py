@@ -496,11 +496,16 @@ def test_main_refuses_what_is_not_ported(tmp_path):
         architectures=["LlamaForCausalLM"], vocab_size=64, hidden_size=32,
         num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
         intermediate_size=64)))
-    for extra in (["--load-format", "auto"], ["--tokenizer", "t"],
-                  ["--load-format", "dummy", "--tp", "2"]):
+    for extra in (["--load-format", "dummy", "--tp", "2"],
+                  ["--load-format", "dummy", "--quantization", "int8"]):
         with pytest.raises(NotImplementedError):
             tapi.main(["--model", str(tmp_path), "--device", "cpu",
                        "--skip-warmup", *extra])
+    # checkpoints load (tests/test_torch_loader.py); a directory without
+    # one raises as the JAX loader does, before any server starts
+    with pytest.raises(FileNotFoundError, match="no safetensors"):
+        tapi.main(["--model", str(tmp_path), "--device", "cpu",
+                   "--skip-warmup", "--load-format", "auto"])
     cfg = gt.EngineConfig(model=str(tmp_path), load_format="dummy",
                           engine_recovery=True)
     with pytest.raises(NotImplementedError, match="engine_recovery"):

@@ -9,7 +9,9 @@ engines over an fp8 cache or under the unified MLA step; the decode steps
 as CUDA graphs, overlap scheduling and the pipelined loop over them,
 blocks of decode steps (multi-step decode, on-device finish), persistent
 slots, and the unified step under overlap (mixed re-forms, K1u and K1um's
-decode class with hole rows).
+decode class with hole rows); checkpoints loaded onto the card against
+the CPU's load, the loaded engine's KV pool against a dummy engine's, and
+the MoE family's graphs against its eager steps.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; run
 them on the card with
@@ -3456,3 +3458,137 @@ def test_traced_steps_make_no_host_sync(cuda_device, kind):
         assert llm.step_counts["extras"] > 0
     assert llm.spans.open_count == 0 and llm.spans.spans()
     _drained(llm)
+
+
+# ---- checkpoints (models/loader.py) and the MoE family on the card ---------
+
+def _tiny_moe_cfg(**kw):
+    import gllm_tpu_torch as gt
+    return gt.from_hf_config(dict(dict(
+        architectures=["Qwen3MoeForCausalLM"], vocab_size=1000,
+        hidden_size=256, num_hidden_layers=2, num_attention_heads=8,
+        num_key_value_heads=1, head_dim=64, intermediate_size=512,
+        moe_intermediate_size=128, num_experts=8, num_experts_per_tok=2,
+        norm_topk_prob=True, max_position_embeddings=512,
+        rope_theta=1000000.0, tie_word_embeddings=False), **kw))
+
+
+def _moe_checkpoint(path, dtype=torch.bfloat16, **kw):
+    """A tiny Qwen3-MoE checkpoint (two shards and an index) written from
+    dummy weights by chip_smoke's own writer (the card's machine has no
+    safetensors): (config, its params on the CPU)."""
+    import chip_smoke as cs
+    from gllm_tpu_torch.models import moe
+    cfg = _tiny_moe_cfg(**kw)
+    params = moe.init_params(cfg, 5, dtype, "cpu")
+    hf = dict(architectures=[cfg.architecture], vocab_size=cfg.vocab_size,
+              hidden_size=cfg.hidden_size, num_hidden_layers=cfg.num_layers,
+              num_attention_heads=cfg.num_heads,
+              num_key_value_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+              intermediate_size=cfg.intermediate_size,
+              moe_intermediate_size=cfg.moe_intermediate_size,
+              num_experts=cfg.num_experts,
+              num_experts_per_tok=cfg.num_experts_per_tok,
+              max_position_embeddings=cfg.max_position,
+              rope_theta=cfg.rope_theta, tie_word_embeddings=False)
+    cs.write_checkpoint(str(path), hf, cs.hf_tensors(params, cfg))
+    assert gt_cfg(path) == cfg
+    return cfg, params
+
+
+def gt_cfg(path):
+    import gllm_tpu_torch as gt
+    from gllm_tpu_torch.models.loader import load_hf_config
+    return gt.from_hf_config(load_hf_config(str(path)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_checkpoint_loaded_on_the_card_equals_the_cpu_load(cuda_device,
+                                                           tmp_path, dtype):
+    """The loader's device path (pinned staging, the device buffer for
+    the fused tensors' column ranges) writes exactly what its CPU path
+    writes, and what the checkpoint was written from."""
+    from gllm_tpu_torch.models.registry import get_model_def
+    cfg, params = _moe_checkpoint(tmp_path, torch.bfloat16)
+    load = get_model_def(cfg).load_params
+    on_card, stats = load(str(tmp_path), cfg, dtype, cuda_device)
+    on_cpu, _ = load(str(tmp_path), cfg, dtype, "cpu")
+    assert stats["unwritten"] == [] and stats["gbps"] > 0
+    for g, x in on_cpu.items():
+        for k, t in (x.items() if isinstance(x, dict) else [(g, x)]):
+            got = on_card[g][k] if isinstance(x, dict) else on_card[g]
+            want = params[g][k] if isinstance(x, dict) else params[g]
+            assert got.is_cuda and got.dtype == t.dtype == dtype
+            assert torch.equal(got.cpu(), t), (g, k)
+            assert torch.equal(t, want.to(dtype)), (g, k)
+
+
+@pytest.mark.cuda
+def test_loaded_engine_gets_the_dummy_engines_kv_pages(cuda_device,
+                                                       tmp_path):
+    """An engine loading a checkpoint sizes its KV pool from the same free
+    memory as the dummy engine it was written from: no device tensor of
+    the load strands memory under the pool."""
+    import gc
+    import gllm_tpu_torch as gt
+    # a rope table above the allocator's 1 MB small-block size (40960
+    # positions): allocated right after the weights, it would split a
+    # device buffer the load left cached, and strand the rest
+    cfg, params = _moe_checkpoint(tmp_path, torch.bfloat16,
+                                  vocab_size=32000, hidden_size=1024,
+                                  num_hidden_layers=4,
+                                  moe_intermediate_size=512, num_experts=16,
+                                  max_position_embeddings=40960)
+    del params
+    # the dummy engine built after the loaded one is sized in the state
+    # the loaded one was: every kernel the load uses loaded once. The
+    # pools take a tenth of the card beyond what the tests before this one
+    # left in use
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(cuda_device)
+    util = min(0.9, (total - free) / total + 0.1)
+    pages = {}
+    for fmt in ("dummy", "auto", "dummy"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        llm = gt.LLM(config=gt.EngineConfig(
+            model=str(tmp_path), load_format=fmt, dtype="bfloat16",
+            max_model_len=512, cache=gt.CacheConfig(memory_util=util)),
+            device=cuda_device)
+        pages[fmt] = llm.runner.num_pages
+        del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert abs(pages["auto"] - pages["dummy"]) <= 16, pages
+
+
+@pytest.mark.cuda
+def test_moe_graph_steps_replay_the_eager_tokens(cuda_device):
+    """Qwen3-MoE at bf16: the routed block's grouped product inside
+    captured decode and mixed steps gives the eager engine's greedy
+    tokens (a mixed stack too: the per-layer branch taken at capture)."""
+    import gllm_tpu_torch as gt
+    from gllm_tpu_torch.models import moe
+    for kw in ({}, dict(num_hidden_layers=3, mlp_only_layers=[1])):
+        cfg = _tiny_moe_cfg(**kw)
+        params = moe.init_params(cfg, 7, torch.bfloat16, cuda_device)
+        out = {}
+        for eager in (True, False):
+            llm = gt.LLM(model_cfg=cfg, params=params, device=cuda_device,
+                         config=gt.EngineConfig(
+                             dtype="bfloat16", max_model_len=512,
+                             enforce_eager=eager,
+                             scheduler=gt.SchedulerConfig(
+                                 max_prefill_tokens=48),
+                             cache=gt.CacheConfig(page_size=16,
+                                                  num_pages=64)))
+            out[eager] = _serve_greedy(llm)
+            if not eager:
+                g = llm.runner.graphs.by_kind
+                assert g["decode"]["replays"] and g["mixed"]["replays"]
+            del llm
+        assert out[True] == out[False], kw
+        assert moe.moe_layer_mask(cfg) == (
+            (True, True) if not kw else (True, False, True))
